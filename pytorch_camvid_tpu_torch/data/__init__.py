@@ -1,0 +1,1 @@
+"""data of the PyTorch port (mirrors pytorch_camvid_tpu/data)."""

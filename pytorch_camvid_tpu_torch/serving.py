@@ -1,0 +1,175 @@
+"""Serving: a single-device batched predictor (counterpart of
+pytorch_camvid_tpu/serving.py).
+
+- Any number of images pads up to the fixed serving batch.
+- Resize (cv2 bilinear convention) and normalization run on the device;
+  compute is bf16 by default with f32 logits.
+- The class map leaves the device as uint8, nibble-packed (two pixels per
+  byte) when there are <= 16 classes and the width is even, and is unpacked
+  on the host.
+- Each chunk goes to the device from pinned memory without blocking the
+  host, and its class map comes back asynchronously into pinned memory,
+  finished on one drain thread, with a bounded in-flight window.
+- Every conv block runs the fused Hopper kernel (ops/fused_conv.py); the BN
+  fold and the kernel's weight layout are prepared once, at construction.
+
+Not carried over from the JAX Predictor: the bucketed dynamic resize (it
+bounds jit's compile cache; eager PyTorch has none, so any source size is
+resized directly, with the same values), the device mesh, int8 and StableHLO
+export (ROADMAP.md).
+
+Example:
+    with Predictor.from_checkpoint("unet", "model.pth", batch_size=8) as p:
+        masks = p.predict(images_uint8_bgr)   # (N, H, W) class indices
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pytorch_camvid_tpu_torch.config import settings
+from pytorch_camvid_tpu_torch.data.normalize import to_tensor_normalize
+from pytorch_camvid_tpu_torch.interop.weights import load_torch_checkpoint
+from pytorch_camvid_tpu_torch.models import get_model
+from pytorch_camvid_tpu_torch.ops.resize import resize_bilinear_cv2
+
+
+def _unet_width_mult(state_dict: Dict[str, torch.Tensor]) -> float:
+    """The width multiplier a UNet state_dict was built with (its stem has
+    64 * width_mult output channels)."""
+    return state_dict["down1.0.conv.0.weight"].shape[0] / 64
+
+
+class Predictor:
+    def __init__(self, net: str, state_dict: Dict[str, torch.Tensor],
+                 batch_size: int = 8,
+                 image_hw: Tuple[int, int] = (360, 480),
+                 num_classes: int = settings.NUM_CLASSES,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 device: str = "cuda"):
+        """state_dict: reference-named weights (``.pth`` layout; the model
+        width is read from it). device: where the model runs; a CUDA device
+        that is not there raises, nothing falls back to the CPU."""
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Predictor: device 'cuda' requested but no "
+                               "CUDA device is available")
+        self._batch = batch_size
+        self.image_hw = tuple(image_hw)  # the working size
+        self._dtype = compute_dtype
+        # on the device once: a per-call host copy would wait for the
+        # previous forward and stall the host's run-ahead
+        self._mean, self._std = (
+            torch.tensor(v, dtype=torch.float32, device=self.device)
+            for v in (settings.MEAN, settings.STD))
+        model = get_model(net, 3, num_classes,
+                          width_mult=_unet_width_mult(state_dict))
+        model.load_state_dict(state_dict, strict=True)
+        self.model = model.to(self.device).eval().prepare(compute_dtype)
+        # two class indices per byte: halves the device->host bytes
+        self._pack = num_classes <= 16 and self.image_hw[1] % 2 == 0
+        self._drain = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="pct-serving-drain")
+
+    @classmethod
+    def from_checkpoint(cls, net: str, weight_path: str, **kw):
+        """Build from a reference ``.pth`` state_dict. A native
+        ``.ckpt.npz`` is a flattened JAX TrainState and needs the train
+        state's port first."""
+        if not weight_path.endswith(".pth"):
+            raise NotImplementedError(
+                f"{weight_path}: only reference .pth checkpoints load in the "
+                f"PyTorch port; the native .ckpt.npz reader comes with the "
+                f"train state's port (ROADMAP.md, Queue 1)")
+        return cls(net, load_torch_checkpoint(weight_path), **kw)
+
+    def close(self) -> None:
+        """Join the drain thread. The Predictor cannot predict afterwards."""
+        self._drain.shutdown(wait=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    @torch.inference_mode()
+    def _forward(self, images_u8: torch.Tensor) -> torch.Tensor:
+        """One device batch: (B, H, W, 3) uint8 BGR on the device, any H/W ->
+        (B, h, w) uint8 class map at the working size, nibble-packed to
+        (B, h, w/2) when packing applies."""
+        x = images_u8
+        if tuple(x.shape[1:3]) != self.image_hw:
+            x = resize_bilinear_cv2(x.float(), self.image_hw)
+            x = x.clamp(0, 255).round().to(torch.uint8)
+        x = to_tensor_normalize(x, self._mean, self._std, self._dtype)
+        m = self.model(x).argmax(dim=-1).to(torch.uint8)
+        if self._pack:
+            m = (m[:, :, 0::2] << 4) | m[:, :, 1::2]
+        return m
+
+    def _to_host(self, host: torch.Tensor, done: Optional[torch.cuda.Event],
+                 keep: int) -> np.ndarray:
+        """Drain thread: wait for one chunk's copy, unpack the nibbles."""
+        if done is not None:
+            done.synchronize()
+        a = host.numpy()[:keep]
+        if self._pack:
+            out = np.empty(a.shape[:2] + (a.shape[2] * 2,), np.uint8)
+            out[:, :, 0::2] = a >> 4
+            out[:, :, 1::2] = a & 0x0F
+            a = out
+        return a
+
+    def _inflight_window(self, input_hw) -> int:
+        """In-flight chunks so that chunk I/O held in flight stays near
+        64 MB (input batch + packed mask batch), clamped to [2, 4]."""
+        h, w = self.image_hw
+        in_bytes = self._batch * int(np.prod(input_hw)) * 3
+        out_bytes = self._batch * h * (w // 2 if self._pack else w)
+        return max(2, min(4, int(64e6 // max(in_bytes + out_bytes, 1))))
+
+    def predict(self, images: np.ndarray) -> np.ndarray:
+        """images: (N, H, W, 3) uint8 BGR, any H/W (resized on the device).
+        Returns (N, h, w) uint8 class maps at the working size."""
+        if images.ndim != 4 or images.shape[3] != 3 \
+                or images.dtype != np.uint8:
+            raise ValueError(f"expected (N, H, W, 3) uint8 images, got "
+                             f"{images.shape} {images.dtype}")
+        n = images.shape[0]
+        h, w = self.image_hw
+        max_inflight = self._inflight_window(images.shape[1:3])
+        cuda = self.device.type == "cuda"
+        out, futures = [], []
+        try:
+            for lo in range(0, n, self._batch):
+                chunk = images[lo: lo + self._batch]
+                keep = len(chunk)
+                if keep < self._batch:
+                    chunk = np.concatenate([chunk, np.zeros(
+                        (self._batch - keep,) + chunk.shape[1:], np.uint8)])
+                if len(futures) >= max_inflight:
+                    out.append(futures.pop(0).result())
+                x = torch.from_numpy(chunk)
+                if cuda:  # pinned + async: the host runs ahead of the card
+                    x = x.pin_memory()
+                m = self._forward(x.to(self.device, non_blocking=True))
+                done = None
+                if cuda:
+                    host = torch.empty(m.shape, dtype=torch.uint8,
+                                       pin_memory=True)
+                    host.copy_(m, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                else:
+                    host = m
+                futures.append(self._drain.submit(self._to_host, host, done,
+                                                  keep))
+            out.extend(f.result() for f in futures)
+        finally:
+            concurrent.futures.wait(futures)  # no drain work outlives us
+        return np.concatenate(out) if out else np.zeros((0, h, w), np.uint8)

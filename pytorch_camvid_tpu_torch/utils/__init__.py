@@ -1,0 +1,1 @@
+"""utils of the PyTorch port (mirrors pytorch_camvid_tpu/utils)."""

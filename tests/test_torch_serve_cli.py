@@ -1,0 +1,66 @@
+"""``python -m pytorch_camvid_tpu_torch.serve`` end to end on the CPU, and
+the port's independence from jax, each in a fresh interpreter."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+cv2 = pytest.importorskip("cv2")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(args, cwd, timeout=240):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_serve_cli_writes_masks(tmp_path):
+    from pytorch_camvid_tpu_torch.models import get_model
+    model = get_model("unet", 3, 12, width_mult=1 / 16,
+                      generator=torch.Generator().manual_seed(0))
+    weight = str(tmp_path / "unet.pth")
+    torch.save(model.state_dict(), weight)
+
+    src = tmp_path / "imgs"
+    src.mkdir()
+    rng = np.random.default_rng(3)
+    # ragged sizes: resized per image on the host to the working size
+    for name, hw in [("a", (60, 88)), ("b", (48, 72)), ("c", (60, 88))]:
+        cv2.imwrite(str(src / f"{name}.png"),
+                    rng.integers(0, 256, hw + (3,), dtype=np.uint8))
+    out = tmp_path / "masks"
+    r = _run(["-m", "pytorch_camvid_tpu_torch.serve", "-weight", weight,
+              "-input", str(src), "-output", str(out), "-b", "2",
+              "-color", "-device", "cpu"], cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "served 3 images" in r.stdout
+    for name in ("a", "b", "c"):
+        m = cv2.imread(str(out / f"{name}_mask.png"), cv2.IMREAD_GRAYSCALE)
+        assert m is not None and m.shape == (360, 480) and m.max() < 12
+        c = cv2.imread(str(out / f"{name}_color.png"))
+        assert c is not None and c.shape == (360, 480, 3)
+
+
+def test_port_imports_no_jax(tmp_path):
+    code = ("import sys\n"
+            "import pytorch_camvid_tpu_torch\n"
+            "import pytorch_camvid_tpu_torch.serving\n"
+            "import pytorch_camvid_tpu_torch.serve\n"
+            "import pytorch_camvid_tpu_torch.interop.weights\n"
+            "import pytorch_camvid_tpu_torch.utils.viz\n"
+            "from pytorch_camvid_tpu_torch.models import get_model\n"
+            "get_model('unet', 3, 12, width_mult=1 / 16)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
+            "                                            'pytorch_camvid_tpu.')))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    r = _run(["-c", code], cwd=str(tmp_path), timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "ok"
