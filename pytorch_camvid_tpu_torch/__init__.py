@@ -8,7 +8,9 @@ kernel under ``csrc/``, built at first use; its plain PyTorch version sits in
 the same module and serves CPU tensors. ROADMAP.md lists what is ported.
 
 Ported so far: UNet serving (``serving.Predictor``, ``serve.py``), with every
-conv3x3+BN+ReLU block on the fused kernel ``ops/fused_conv.py``.
+conv3x3+BN+ReLU block on the fused kernel ``ops/fused_conv.py``; and the UNet
+training step (``train.make_train_step``, ``bench.measure_train``), with
+every conv3x3 on the training kernels of ``ops/conv_train.py``.
 """
 
 __version__ = "0.1.0"

@@ -13,8 +13,10 @@ Parameter and buffer names equal the reference's state_dict
 torch_weights.py:31-49), so a reference ``.pth`` loads with ``strict=True``.
 
 NHWC in, NHWC f32 logits out. The model computes in its input's dtype
-(the caller casts, as serving's normalize does) and returns f32 logits
-(JAX unet.py:156,171).
+(the caller casts, as serving's normalize and the train step's augmentation
+do) and returns f32 logits (JAX unet.py:156,171). In train mode every block
+runs K1 (``ops/conv_train.py``) and BatchNorm with batch statistics,
+updating the running stats in place (``ops/conv.py``).
 """
 
 from __future__ import annotations
@@ -143,8 +145,8 @@ class UNet(nn.Module):
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """x: (N,H,W,C) float -> f32 logits (N,H,W,class_num), computed in
-        x's dtype. ``plain=True`` (eval only) runs every block's plain
-        version, the reference for the kernel path."""
+        x's dtype. ``plain=True`` runs every block's plain version, in eval
+        and in train mode: the reference for the kernel path."""
         skips = []
         for k in range(1, 6):
             x = getattr(self, f"down{k}")(x, plain)

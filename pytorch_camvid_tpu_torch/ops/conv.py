@@ -3,7 +3,8 @@ pytorch_camvid_tpu/ops/conv.py:93-198).
 
 Parameters live in ``self.conv = Sequential(Conv2d, BatchNorm2d, ReLU)``,
 the reference's ``BasicConv2d`` layout (models/unet.py:5-17), so a reference
-state_dict loads with ``strict=True``.
+state_dict loads with ``strict=True``. The Sequential itself is never
+called: both modes below compute from its parameters and buffers.
 
 - Eval mode: one fused pass, ``ops/fused_conv.py::conv3x3_bn_relu``, with BN
   folded into (A, B). On CUDA that is always the Hopper kernel. The weight
@@ -12,9 +13,15 @@ state_dict loads with ``strict=True``.
   ahead of serving, and ``train()`` / ``eval()`` or loading a state_dict
   clears it. Edit weights in place only in train mode, or call ``eval()``
   again afterwards.
-- Train mode: the plain conv plus ``F.batch_norm`` with batch statistics
-  (torch's biased/unbiased variance convention, momentum 0.1). It is kept
-  for the parity tests; training is not ported yet (ROADMAP.md).
+- Train mode: JAX's arithmetic at JAX's dtype boundaries
+  (``conv_bn_relu_apply(train=True, use_pallas=True)``): the conv on
+  ``ops/conv_train.py::conv3x3_train`` (K1) in the input's dtype, the conv
+  bias added in that dtype, then in f32 the batch moments
+  ``mean = E[y]``, ``var = E[y^2] - E[y]^2``, the normalization
+  ``(y - mean) * rsqrt(var + eps) * scale + bias`` and the ReLU, cast back
+  to the input's dtype. The ReLU is ``maximum(y, 0)``, whose gradient at a
+  tie is split in half in both frameworks. The running stats are updated in
+  place with momentum 0.1 and the unbiased variance ``var * n / (n - 1)``.
 
 Tensors are NHWC at this interface, as in the JAX package.
 """
@@ -26,9 +33,12 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
+from pytorch_camvid_tpu_torch.ops.conv_train import conv3x3_train
 from pytorch_camvid_tpu_torch.ops.fused_conv import (
     conv3x3_bn_relu, conv3x3_bn_relu_plain, fold_bn_affine)
 from pytorch_camvid_tpu_torch.ops.initializers import conv_init_
+
+BN_MOMENTUM = 0.1  # torch: running = (1 - m) * running + m * batch
 
 
 class ConvBNReLU(nn.Module):
@@ -62,12 +72,30 @@ class ConvBNReLU(nn.Module):
         return cached
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        """x: (N,H,W,Cin) -> (N,H,W,Cout) in x's dtype. ``plain=True``
-        (eval only) runs the plain version on any device: the reference the
+        """x: (N,H,W,Cin) -> (N,H,W,Cout) in x's dtype. ``plain=True`` runs
+        the plain versions of the kernels on any device: the reference the
         kernel path is checked against."""
         if self.training:
-            y = self.conv(x.permute(0, 3, 1, 2))
-            return y.permute(0, 2, 3, 1)
+            return self._train_forward(x, plain)
         w, a, b = self.prepare(x.dtype)
         fn = conv3x3_bn_relu_plain if plain else conv3x3_bn_relu
         return fn(x.contiguous(), w, a, b)
+
+    def _train_forward(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
+        conv, bn = self.conv[0], self.conv[1]
+        dt = x.dtype
+        w = conv.weight.permute(2, 3, 1, 0).to(dt).contiguous()
+        y = conv3x3_train(x.contiguous(), w, plain)
+        y = (y + conv.bias.to(dt)).float()
+        mean = y.mean(dim=(0, 1, 2))
+        var = (y * y).mean(dim=(0, 1, 2)) - mean * mean
+        with torch.no_grad():
+            n = y.shape[0] * y.shape[1] * y.shape[2]
+            bn.running_mean.copy_((1 - BN_MOMENTUM) * bn.running_mean
+                                  + BN_MOMENTUM * mean)
+            bn.running_var.copy_((1 - BN_MOMENTUM) * bn.running_var
+                                 + BN_MOMENTUM * (var * (n / max(n - 1, 1))))
+            bn.num_batches_tracked += 1
+        inv = torch.rsqrt(var + bn.eps) * bn.weight
+        y = (y - mean) * inv + bn.bias
+        return torch.maximum(y, y.new_zeros(())).to(dt)

@@ -1,0 +1,221 @@
+"""The training conv3x3 (pad 1, NHWC x, HWIO w) with hand-written forward
+and backward kernels: counterpart of
+``pytorch_camvid_tpu/ops/pallas_conv_train.py::conv3x3_pallas`` (K1).
+
+``conv3x3_train(x, w)`` is a ``torch.autograd.Function``:
+
+- forward: ``y = conv3x3(x, w)``, K4's kernel (``fused_conv``) with a unit
+  affine and no ReLU, as JAX's ``_conv3x3_fwd``;
+- dx: the same kernel on the cotangent with ``w`` flipped in both spatial
+  axes and its channel axes swapped (the transpose of a pad-1 3x3 conv is a
+  pad-1 3x3 conv). Skipped when x needs no gradient: the stem's input is the
+  image, and its dx would be a Cout=3 launch for nothing;
+- dW: ``conv3x3_wgrad(x, g)``, the kernel ``csrc/conv3x3_wgrad.cu``, in f32,
+  cast to ``w``'s dtype on return as JAX's ``_vjp_bwd`` does.
+
+Each piece has a wrapper (``conv3x3_fwd``, ``conv3x3_dgrad``,
+``conv3x3_wgrad``) that runs its plain version on a CPU tensor and its
+kernel on a CUDA tensor, or raises; each counts its kernel launches in
+``.launches``. The plain versions are ``conv3x3_train_plain`` (``F.conv2d``,
+differentiated by autograd), ``conv3x3_dgrad_plain``
+(``torch.nn.grad.conv2d_input``) and ``conv3x3_wgrad_plain``
+(``torch.nn.grad.conv2d_weight`` in f32 on the upcast inputs).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from pytorch_camvid_tpu_torch.ops import cuda_build
+from pytorch_camvid_tpu_torch.ops.fused_conv import conv3x3_bn_relu
+
+WGRAD_SOURCE = cuda_build.CSRC / "conv3x3_wgrad.cu"
+# split-K target: 8 blocks per SM (two resident per SM, four waves)
+_BLOCKS_PER_SM = 8
+
+
+def _nchw(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 3, 1, 2)
+
+
+def _oihw(w: torch.Tensor) -> torch.Tensor:
+    return w.permute(3, 2, 0, 1)
+
+
+def flip_weight(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3,3,Cin,Cout) -> the dx conv's (3,3,Cout,Cin) weight."""
+    return w.flip((0, 1)).transpose(2, 3).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _unit_affine(cout: int, device: torch.device):
+    return (torch.ones(cout, dtype=torch.float32, device=device),
+            torch.zeros(cout, dtype=torch.float32, device=device))
+
+
+# ------------------------------------------------------------ plain versions
+
+def conv3x3_train_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """conv3x3 pad-1, NHWC x, HWIO w, in x's dtype, from ``F.conv2d``;
+    autograd differentiates it."""
+    return F.conv2d(_nchw(x), _oihw(w.to(x.dtype)),
+                    padding=1).permute(0, 2, 3, 1)
+
+
+def conv3x3_dgrad_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx of conv3x3 pad-1 for cotangent g (N,H,W,Cout), in g's dtype."""
+    n, h, wd, _ = g.shape
+    dx = torch.nn.grad.conv2d_input((n, w.shape[2], h, wd),
+                                    _oihw(w.to(g.dtype)), _nchw(g),
+                                    padding=1)
+    return dx.permute(0, 2, 3, 1)
+
+
+def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dW (3,3,Cin,Cout) f32 of conv3x3 pad-1, from the f32 upcasts of x
+    (N,H,W,Cin) and g (N,H,W,Cout)."""
+    cin, cout = x.shape[3], g.shape[3]
+    dw = torch.nn.grad.conv2d_weight(_nchw(x.float()), (cout, cin, 3, 3),
+                                     _nchw(g.float()), padding=1)
+    return dw.permute(2, 3, 1, 0).contiguous()
+
+
+# ----------------------------------------------------------------- wrappers
+
+def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """conv3x3 pad-1: K4's kernel with a unit affine and no ReLU (on a CPU
+    tensor, its plain version)."""
+    ones, zeros = _unit_affine(w.shape[3], x.device)
+    out = conv3x3_bn_relu(x, w, ones, zeros, relu=False)
+    if x.device.type == "cuda":
+        conv3x3_fwd.launches += 1
+    return out
+
+
+def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx = conv3x3(g, flip_weight(w)), K4's kernel on the cotangent (on a
+    CPU tensor, its plain version)."""
+    wf = flip_weight(w)
+    ones, zeros = _unit_affine(wf.shape[3], g.device)
+    out = conv3x3_bn_relu(g, wf, ones, zeros, relu=False)
+    if g.device.type == "cuda":
+        conv3x3_dgrad.launches += 1
+    return out
+
+
+@functools.cache
+def _wgrad_library() -> ctypes.CDLL:
+    lib = cuda_build.load(WGRAD_SOURCE)
+    lib.conv3x3_wgrad_bf16.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.conv3x3_wgrad_bf16.restype = ctypes.c_int
+    lib.conv3x3_wgrad_pixel_tiles.argtypes = [ctypes.c_int] * 3
+    lib.conv3x3_wgrad_pixel_tiles.restype = ctypes.c_longlong
+    lib.conv3x3_wgrad_out_tiles.argtypes = [ctypes.c_int] * 2
+    lib.conv3x3_wgrad_out_tiles.restype = ctypes.c_longlong
+    return lib
+
+
+def wgrad_splits(pixel_tiles: int, out_tiles: int, sms: int) -> int:
+    """Split-K factor: enough blocks for ``_BLOCKS_PER_SM`` per SM over the
+    kernel's output tiles, at most one split per pixel tile (both counts
+    come from the kernel's library)."""
+    want = -(-_BLOCKS_PER_SM * sms // out_tiles)
+    return max(1, min(want, pixel_tiles, 65535))
+
+
+def _check_wgrad(x: torch.Tensor, g: torch.Tensor) -> None:
+    if x.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
+        raise TypeError(f"conv3x3_wgrad kernel takes bf16 x and g, got "
+                        f"{x.dtype} and {g.dtype}")
+    if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
+        raise ValueError(f"x (N,H,W,Cin) and g (N,H,W,Cout) must share "
+                         f"N,H,W: {tuple(x.shape)} vs {tuple(g.shape)}")
+    if g.device != x.device:
+        raise ValueError(f"g is on {g.device}, x on {x.device}")
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("x and g must be contiguous NHWC")
+    if min(x.shape) == 0 or max(*x.shape, g.shape[3]) >= 2 ** 31:
+        raise ValueError(f"unsupported shape x {tuple(x.shape)}, g "
+                         f"{tuple(g.shape)}")
+
+
+def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dW (3,3,Cin,Cout) f32 of conv3x3 pad-1 from x (N,H,W,Cin) and the
+    cotangent g (N,H,W,Cout), NHWC contiguous.
+
+    On a CPU tensor this is ``conv3x3_wgrad_plain``. On a CUDA tensor it
+    launches the Hopper kernel (bf16 x and g, f32 accumulation, split-K
+    with a deterministic second pass) or raises."""
+    if x.device.type == "cpu":
+        return conv3x3_wgrad_plain(x, g)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_wgrad: no kernel for {x.device}")
+    _check_wgrad(x, g)
+    n, h, wd, cin = x.shape
+    cout = g.shape[3]
+    lib = _wgrad_library()
+    with torch.cuda.device(x.device):
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        splits = wgrad_splits(lib.conv3x3_wgrad_pixel_tiles(n, h, wd),
+                              lib.conv3x3_wgrad_out_tiles(cin, cout), sms)
+        out = torch.empty((3, 3, cin, cout), dtype=torch.float32,
+                          device=x.device)
+        ws = (torch.empty((splits, 3, 3, cin, cout), dtype=torch.float32,
+                          device=x.device) if splits > 1 else None)
+        err = lib.conv3x3_wgrad_bf16(
+            x.data_ptr(), g.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, n, h, wd, cin, cout,
+            splits, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3_wgrad kernel launch failed: CUDA error "
+                           f"{err} at x {tuple(x.shape)}, Cout {cout}")
+    conv3x3_wgrad.launches += 1
+    return out
+
+
+conv3x3_fwd.launches = 0
+conv3x3_dgrad.launches = 0
+conv3x3_wgrad.launches = 0
+
+
+def reset_launches() -> None:
+    for fn in (conv3x3_fwd, conv3x3_dgrad, conv3x3_wgrad):
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {"fwd": conv3x3_fwd.launches, "dgrad": conv3x3_dgrad.launches,
+            "wgrad": conv3x3_wgrad.launches}
+
+
+# ----------------------------------------------------------------- autograd
+
+class _Conv3x3Train(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return conv3x3_fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = conv3x3_dgrad(g, w) if ctx.needs_input_grad[0] else None
+        dw = (conv3x3_wgrad(x, g).to(w.dtype) if ctx.needs_input_grad[1]
+              else None)
+        return dx, dw
+
+
+def conv3x3_train(x: torch.Tensor, w: torch.Tensor,
+                  plain: bool = False) -> torch.Tensor:
+    """Differentiable conv3x3 pad-1: x (N,H,W,Cin) contiguous, w
+    (3,3,Cin,Cout) HWIO contiguous in x's dtype. ``plain=True`` runs
+    ``conv3x3_train_plain`` on any device, the reference for the kernels."""
+    if plain:
+        return conv3x3_train_plain(x, w)
+    return _Conv3x3Train.apply(x, w)

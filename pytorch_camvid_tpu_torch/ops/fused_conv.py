@@ -28,24 +28,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
+from pytorch_camvid_tpu_torch.ops import cuda_build
+
 BN_EPS = 1e-5  # torch.nn.BatchNorm2d default
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "conv3x3_bn_relu.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = cuda_build.CSRC / "conv3x3_bn_relu.cu"
 
 
 def fold_bn_affine(b: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -72,45 +64,9 @@ def conv3x3_bn_relu_plain(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     return y.to(x.dtype)
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    cands = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
-    cands.append(shutil.which("nvcc") or "")
-    for c in cands:
-        if c and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError("conv3x3_bn_relu: nvcc not found (set CUDA_HOME); "
-                       "the CUDA kernel is built from csrc/ at first use")
-
-
-def build() -> Tuple[Path, float, str]:
-    """Compile ``csrc/conv3x3_bn_relu.cu`` for sm_90a into ``_build/``,
-    keyed by a hash of the source and flags. Returns (library path, build
-    seconds (0 when already built), nvcc's output incl. ptxas -v)."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"conv3x3_bn_relu_{key[:16]}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists():
-        return lib, 0.0, log.read_text() if log.exists() else ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                       capture_output=True, text=True)
-    dt = time.perf_counter() - t0
-    if r.returncode != 0:
-        raise RuntimeError(f"conv3x3_bn_relu: nvcc failed "
-                           f"(rc {r.returncode}):\n{r.stdout}{r.stderr}")
-    log.write_text(r.stdout + r.stderr)
-    os.replace(tmp, lib)
-    return lib, dt, r.stdout + r.stderr
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
-    path, _, _ = build()
-    lib = ctypes.CDLL(str(path))
+    lib = cuda_build.load(SOURCE)
     fn = lib.conv3x3_bn_relu_bf16
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]

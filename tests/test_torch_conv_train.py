@@ -1,0 +1,230 @@
+"""The port's training conv (K1, pytorch_camvid_tpu_torch/ops/conv_train.py)
+and train-mode conv+BN+ReLU block against the JAX package, on the CPU.
+
+JAX runs ``conv3x3_pallas`` with its Pallas calls in interpret mode, as
+tests/test_pallas_conv_train.py runs it. On CPU tensors the port's wrappers
+run their plain versions inside the same ``autograd.Function`` that
+launches the kernels on the card, so the flip of the dx weight, the dW
+layout and the dtype casts are what is checked here; the CUDA kernels are
+held against these plain versions on the card by chip_smoke.py."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pytorch_camvid_tpu.ops import pallas_conv_train as jax_pct
+from pytorch_camvid_tpu.ops.conv import conv_bn_relu_apply
+from pytorch_camvid_tpu.ops.pooling import max_pool_2x2 as jax_pool
+
+from pytorch_camvid_tpu_torch.ops import conv_train
+from pytorch_camvid_tpu_torch.ops.conv import ConvBNReLU
+from pytorch_camvid_tpu_torch.ops.pooling import max_pool_2x2
+
+
+def _interpret(fn):
+    """Run fn with every pallas_call in interpret mode."""
+    import jax.experimental.pallas as pl
+    orig = pl.pallas_call
+
+    def patched(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    pl.pallas_call = jax_pct.pl.pallas_call = patched
+    try:
+        return fn()
+    finally:
+        pl.pallas_call = jax_pct.pl.pallas_call = orig
+
+
+# stem-like Cin=3, head-like Cout=12, odd H x W
+SHAPES = [(2, 5, 7, 3, 8), (1, 9, 11, 8, 12)]
+
+
+@pytest.mark.parametrize("plain", [False, True], ids=["autograd_fn", "plain"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_conv3x3_train_matches_pallas_vjp(shape, plain):
+    n, h, w, cin, cout = shape
+    rng = np.random.default_rng(sum(shape))
+    x = rng.normal(size=(n, h, w, cin)).astype(np.float32)
+    wt = (rng.normal(size=(3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(
+        np.float32)
+    t = rng.normal(size=(n, h, w, cout)).astype(np.float32)
+
+    def loss(x, w):
+        return jnp.sum(jax_pct.conv3x3_pallas(x, w) * t)
+
+    (y, (dx, dw)) = _interpret(lambda: (
+        jax_pct.conv3x3_pallas(jnp.asarray(x), jnp.asarray(wt)),
+        jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(wt))))
+
+    xt = torch.from_numpy(x).requires_grad_()
+    wtt = torch.from_numpy(wt).requires_grad_()
+    yt = conv_train.conv3x3_train(xt, wtt, plain=plain)
+    gx, gw = torch.autograd.grad((yt * torch.from_numpy(t)).sum(), (xt, wtt))
+    # f32 on both sides; the sums of 9*Cin (y, dx) and N*H*W (dW)
+    # products differ only in order: a few ulps of their scale
+    for got, want in ((yt, y), (gx, dx), (gw, dw)):
+        want = np.asarray(want)
+        assert got.shape == want.shape and got.dtype == torch.float32
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                                   atol=2e-5 * np.abs(want).max())
+
+
+def test_wgrad_and_dgrad_plain_versions_match_autograd():
+    """The plain dx and dW that chip_smoke.py holds the kernels against
+    equal autograd's gradients of the plain forward."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(2, 6, 9, 5)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(3, 3, 5, 4)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(2, 6, 9, 4)).astype(np.float32))
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    dx, dw = torch.autograd.grad(conv_train.conv3x3_train_plain(xr, wr), (
+        xr, wr), g)
+    # the flipped-weight conv and conv2d_input/conv2d_weight are other
+    # summation orders of the same f32 products
+    for got, want in ((conv_train.conv3x3_dgrad(g, w), dx),
+                      (conv_train.conv3x3_dgrad_plain(g, w), dx),
+                      (conv_train.conv3x3_wgrad(x, g), dw),
+                      (conv_train.conv3x3_wgrad_plain(x, g), dw)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert conv_train.flip_weight(w).shape == (3, 3, 4, 5)
+
+
+def test_wgrad_splits_and_checks():
+    """The split-K factor and the checks the CUDA path runs first."""
+    # stem at batch 24, 360x480: 27x64 outputs in one tile -> 8*132 splits
+    assert conv_train.wgrad_splits(24 * 45 * 30, 1, 132) == 1056
+    # 1024x1024 at 22x30: 32x16 output tiles -> 3 splits; never more
+    # splits than pixel tiles
+    assert conv_train.wgrad_splits(24 * 3 * 2, 512, 132) == 3
+    assert conv_train.wgrad_splits(2, 1, 132) == 2
+    xb = torch.zeros(1, 4, 5, 8, dtype=torch.bfloat16)
+    gb = torch.zeros(1, 4, 5, 12, dtype=torch.bfloat16)
+    conv_train._check_wgrad(xb, gb)
+    with pytest.raises(TypeError):
+        conv_train._check_wgrad(xb.float(), gb)
+    with pytest.raises(ValueError, match="share"):
+        conv_train._check_wgrad(xb, gb[:, :3])
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_train._check_wgrad(xb.transpose(1, 2), gb.transpose(1, 2))
+    with pytest.raises(ValueError, match="no kernel"):
+        conv_train.conv3x3_wgrad(xb.to("meta"), gb.to("meta"))
+
+
+def test_cpu_route_is_plain_and_not_counted():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(1, 4, 6, 3)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(3, 3, 3, 5)).astype(np.float32))
+    conv_train.reset_launches()
+    y = conv_train.conv3x3_fwd(x, w)
+    torch.testing.assert_close(y, conv_train.conv3x3_train_plain(x, w),
+                               rtol=0, atol=0)
+    conv_train.conv3x3_dgrad(y, w)
+    conv_train.conv3x3_wgrad(x, y)
+    assert conv_train.launches() == {"fwd": 0, "dgrad": 0, "wgrad": 0}
+
+
+def _block_and_params(cin, cout, seed):
+    rng = np.random.default_rng(seed)
+    p = {"w": rng.normal(size=(3, 3, cin, cout)) / np.sqrt(9 * cin),
+         "b": rng.normal(scale=0.1, size=cout),
+         "scale": rng.uniform(0.5, 1.5, cout),
+         "bias": rng.normal(scale=0.1, size=cout)}
+    s = {"mean": rng.normal(scale=0.1, size=cout),
+         "var": rng.uniform(0.5, 2.0, cout)}
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    s = {k: v.astype(np.float32) for k, v in s.items()}
+    blk = ConvBNReLU(cin, cout).train()
+    conv, bn = blk.conv[0], blk.conv[1]
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(p["w"].transpose(3, 2, 0, 1)))
+        conv.bias.copy_(torch.from_numpy(p["b"]))
+        bn.weight.copy_(torch.from_numpy(p["scale"]))
+        bn.bias.copy_(torch.from_numpy(p["bias"]))
+        bn.running_mean.copy_(torch.from_numpy(s["mean"]))
+        bn.running_var.copy_(torch.from_numpy(s["var"]))
+    return blk, p, s
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_block_matches_jax_pallas_block(dtype):
+    """ConvBNReLU in train mode against conv_bn_relu_apply(train=True,
+    use_pallas=True): output, running stats, and the gradients of the
+    input and of all four parameters."""
+    n, h, w, cin, cout = 2, 7, 9, 8, 12
+    blk, p, s = _block_and_params(cin, cout, seed=5)
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(n, h, w, cin)).astype(np.float32)
+    t = rng.normal(size=(n, h, w, cout)).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+
+    def loss(params, x):
+        y, ns = conv_bn_relu_apply(params, s, x, train=True,
+                                   compute_dtype=jdt, use_pallas=True)
+        return jnp.sum(y.astype(jnp.float32) * t), (y, ns)
+
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    (_, (want, want_s)), (gp, gx) = _interpret(lambda: jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(jp, jnp.asarray(x).astype(jdt)))
+
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    got = blk(xt)
+    conv, bn = blk.conv[0], blk.conv[1]
+    grads = torch.autograd.grad((got.float() * torch.from_numpy(t)).sum(),
+                                (xt, conv.weight, conv.bias, bn.weight,
+                                 bn.bias))
+    assert got.dtype == tdt
+    # f32: summation order only. bf16: the conv output is rounded to bf16
+    # on both sides, and a one-ulp difference there (2^-8 relative) moves
+    # the normalized output by up to ~1e-2 of its scale
+    tol = 2e-5 if dtype == "float32" else 2e-2
+
+    def close(a, b, what, scale=None):
+        a = a.detach().float().numpy()
+        b = np.asarray(jnp.asarray(b, jnp.float32))
+        sc = np.abs(b).max() if scale is None else scale
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol * sc,
+                                   err_msg=what)
+
+    close(got, want, "output")
+    close(bn.running_mean, want_s["mean"], "running mean")
+    close(bn.running_var, want_s["var"], "running var")
+    close(grads[0], gx, "dx")
+    close(grads[1].permute(2, 3, 1, 0), gp["w"], "dW")
+    # the conv bias feeds train-mode BN, so its exact gradient is zero and
+    # both sides hold rounding noise: held at the scale of dW
+    close(grads[2], gp["b"], "db", scale=np.abs(np.asarray(
+        gp["w"], np.float32)).max())
+    close(grads[3], gp["scale"], "dscale")
+    close(grads[4], gp["bias"], "dbias")
+
+
+def test_max_pool_tie_gradient_goes_to_first_element_like_jax():
+    """With ties in a 2x2 window, torch's max_pool2d backward and JAX's
+    reduce_window-max VJP both credit the first maximal element in
+    row-major window order (top-left, then top-right, bottom-left) and
+    give the others zero, in bf16 as in f32."""
+    for dt in (np.float32, jnp.bfloat16):
+        x = np.array([[1, 1, 2, 0, 5],
+                      [1, 1, 2, 2, 5],
+                      [0, 3, 4, 4, 5],
+                      [3, 3, 4, 1, 5],
+                      [7, 7, 7, 7, 7]], np.float32)
+        x = np.broadcast_to(x[None, :, :, None], (1, 5, 5, 2)).astype(dt)
+        g = np.arange(1, 9, dtype=np.float32).reshape(1, 2, 2, 2).astype(dt)
+        _, vjp = jax.vjp(jax_pool, jnp.asarray(x))
+        want = np.asarray(vjp(jnp.asarray(g))[0]).astype(np.float32)
+        xt = torch.from_numpy(np.asarray(x, np.float32)).to(
+            torch.float32 if dt is np.float32 else torch.bfloat16)
+        xt.requires_grad_()
+        yt = max_pool_2x2(xt)
+        (got,) = torch.autograd.grad(yt, xt, torch.from_numpy(
+            np.asarray(g, np.float32)).to(xt.dtype))
+        np.testing.assert_array_equal(got.float().numpy(), want)
+        # window (0,0) is all ones: only its top-left gets the gradient
+        assert want[0, 0, 0, 0] == 1 and want[0, 0:2, 0:2, 0].sum() == 1
+        # window (1,0) = [[0, 3], [3, 3]]: its top-right 3 comes first
+        assert want[0, 2, 1, 0] == 5 and want[0, 3, 0:2, 0].sum() == 0

@@ -54,6 +54,14 @@ def test_port_imports_no_jax(tmp_path):
             "import pytorch_camvid_tpu_torch.serve\n"
             "import pytorch_camvid_tpu_torch.interop.weights\n"
             "import pytorch_camvid_tpu_torch.utils.viz\n"
+            "import pytorch_camvid_tpu_torch.bench\n"
+            "import pytorch_camvid_tpu_torch.data.augment\n"
+            "import pytorch_camvid_tpu_torch.data.pipeline\n"
+            "import pytorch_camvid_tpu_torch.data.synthetic\n"
+            "import pytorch_camvid_tpu_torch.ops.conv_train\n"
+            "import pytorch_camvid_tpu_torch.ops.loss\n"
+            "import pytorch_camvid_tpu_torch.ops.metrics\n"
+            "import pytorch_camvid_tpu_torch.train\n"
             "from pytorch_camvid_tpu_torch.models import get_model\n"
             "get_model('unet', 3, 12, width_mult=1 / 16)\n"
             "bad = sorted(m for m in sys.modules\n"

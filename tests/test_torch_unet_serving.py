@@ -86,8 +86,8 @@ def test_unet_eval_logits_match_jax():
 
 
 def test_conv_block_train_mode_matches_jax():
-    """Train mode (plain conv + batch-stat BN) and its running-stat update,
-    kept for the training port's parity tests."""
+    """Train mode (K1's conv, on CPU its plain version, then batch-stat BN
+    with JAX's E[y^2]-E[y]^2 variance) and its running-stat update."""
     rng = np.random.default_rng(2)
     cin, cout = 5, 7
     x = rng.normal(size=(2, 6, 9, cin)).astype(np.float32)
@@ -101,9 +101,10 @@ def test_conv_block_train_mode_matches_jax():
     want, new_state = conv_bn_relu_apply(params, state, jnp.asarray(x),
                                          train=True)
     got = blk(torch.from_numpy(x))
-    # f32; JAX's E[y^2]-E[y]^2 variance vs torch's two-pass one
+    # f32, the same variance formula on both sides: only the conv's and
+    # the moments' summation orders differ, a few ulps of O(1) outputs
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
-                               rtol=1e-4, atol=1e-5)
+                               rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(bn.running_mean.numpy(),
                                np.asarray(new_state["mean"]), atol=1e-6)
     np.testing.assert_allclose(bn.running_var.numpy(),
@@ -205,10 +206,21 @@ def test_resize_bilinear_cv2_matches_jax(src, dst):
     want = np.asarray(jax_resize.resize_bilinear_cv2(jnp.asarray(x), dst))
     got = resize.resize_bilinear_cv2(torch.from_numpy(x), dst)
     assert tuple(got.shape) == (2,) + dst + (3,)
-    # torch computes the source coordinate in f32 (about 4e-5 off at
-    # coordinate 640), JAX's weights come from f64: times pixel values up to
-    # 255 that is ~1e-2, far below the uint8 step the serving path rounds to
-    np.testing.assert_allclose(got.numpy(), want, atol=2e-2)
+    # the same f32 weights (built in f64) on both sides; only the f32
+    # summation of each output's few products differs, ulps of 255
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3)
+
+
+def test_serving_resize_uint8_equals_jax():
+    """The 480x640 -> 360x480 serving resize, rounded to uint8 as both
+    Predictors do, gives the same bytes in both packages."""
+    imgs = np.random.default_rng(10).integers(0, 256, (4, 480, 640, 3),
+                                              dtype=np.uint8)
+    want = np.asarray(jnp.round(jnp.clip(jax_resize.resize_bilinear_cv2(
+        jnp.asarray(imgs, jnp.float32), (360, 480)), 0, 255)
+    ).astype(jnp.uint8))
+    got = _resized_u8(imgs, (360, 480)).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_normalize_and_colorize_match_jax():
