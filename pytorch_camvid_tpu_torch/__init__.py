@@ -7,10 +7,12 @@ do. Every TPU (Pallas) kernel on a ported path becomes a hand-written Hopper
 kernel under ``csrc/``, built at first use; its plain PyTorch version sits in
 the same module and serves CPU tensors. ROADMAP.md lists what is ported.
 
-Ported so far: UNet serving (``serving.Predictor``, ``serve.py``), with every
-conv3x3+BN+ReLU block on the fused kernel ``ops/fused_conv.py``; and the UNet
-training step (``train.make_train_step``, ``bench.measure_train``), with
-every conv3x3 on the training kernels of ``ops/conv_train.py``.
+Ported so far: UNet and SegNet serving (``serving.Predictor``, ``serve.py``),
+with every conv3x3+BN+ReLU block on the fused kernel ``ops/fused_conv.py``
+and SegNet's pools on ``ops/fused_pool.py`` (K3); and the UNet and SegNet
+training steps (``train.make_train_step``, ``bench.measure_train``), with
+every conv3x3 on the training kernels of ``ops/conv_train.py`` and SegNet's
+pools on the phase pair of ``ops/fused_pool.py`` (K2).
 """
 
 __version__ = "0.1.0"

@@ -2,8 +2,8 @@
 checkpoints (counterpart of pytorch_camvid_tpu/interop/torch_weights.py).
 Pure numpy and torch.
 
-- ``state_dict_from_jax_variables``: JAX UNet variables -> the port's
-  state_dict (the way back for weights alone is the JAX package's own
+- ``state_dict_from_jax_variables``: JAX variables -> the port's state_dict
+  (the way back for weights alone is the JAX package's own
   ``variables_from_state_dict``);
 - ``named_from_jax_params`` / ``jax_params_from_named``: a params-shaped
   tree (parameters, or an optimizer's ``m``, ``v`` or ``buf``) <-> tensors
@@ -16,50 +16,46 @@ Pure numpy and torch.
 The JAX package keeps a model as ``{"params": {stage: [block, ...]},
 "state": {stage: [bn_state, ...]}}`` with block = {w (HWIO), b, scale,
 bias} and bn_state = {mean, var}. The port's state_dict uses the
-reference's names (UNet: ``down{k}.{i}.conv.{0,1}.*``,
-``upsample{k}.conv.conv.*``, ``up{k}.{i}.conv.*``, ``output.conv.*``) with
-OIHW conv weights.
+reference's names with OIHW conv weights; each model class gives them
+(``block_names``: UNet ``down{k}.{i}.conv.{0,1}.*``, SegNet
+``encoder{k}.{i}.{conv,bn}.*``, ...). Which model a tree belongs to follows
+from its stage names.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
 
+from pytorch_camvid_tpu_torch.models import MODELS
 from pytorch_camvid_tpu_torch.train.state import TrainState
 
-# JAX block leaf -> (state_dict suffix of the port's block)
-_PARAM_SUFFIX = {"w": "0.weight", "b": "0.bias", "scale": "1.weight",
-                 "bias": "1.bias"}
+_PARAMS = ("w", "b", "scale", "bias")
 
 
-def _block_prefix(stage: str, i: int) -> str:
-    """state_dict prefix of conv block ``i`` of a UNet stage."""
-    if stage.startswith("upsample"):
-        return f"{stage}.conv.conv"
-    if stage == "output":
-        return "output.conv"
-    return f"{stage}.{i}.conv"
+def _model_of(stages: Iterable[str]):
+    """The model class whose spec has exactly these stage names."""
+    stages = set(stages)
+    for cls in MODELS.values():
+        if {name for name, _ in cls.base_spec(3, 12)} == stages:
+            return cls
+    raise KeyError(f"no model has the stages {sorted(stages)}")
 
 
 def state_dict_from_jax_variables(variables_np) -> Dict[str, torch.Tensor]:
-    """JAX UNet variables (numpy leaves) -> the port's state_dict."""
+    """JAX variables (numpy leaves) -> the port's state_dict."""
+    cls = _model_of(variables_np["params"])
     out: Dict[str, torch.Tensor] = {}
     for stage, blocks in variables_np["params"].items():
         for i, blk in enumerate(blocks):
-            p = _block_prefix(stage, i)
+            names = cls.block_names(stage, i)
             st = variables_np["state"][stage][i]
-            w = np.asarray(blk["w"], np.float32).transpose(3, 2, 0, 1)
-            for name, v in ((f"{p}.0.weight", w),
-                            (f"{p}.0.bias", blk["b"]),
-                            (f"{p}.1.weight", blk["scale"]),
-                            (f"{p}.1.bias", blk["bias"]),
-                            (f"{p}.1.running_mean", st["mean"]),
-                            (f"{p}.1.running_var", st["var"])):
-                out[name] = torch.from_numpy(np.array(v, np.float32))
-            out[f"{p}.1.num_batches_tracked"] = torch.tensor(0)
+            leaves = dict(blk, mean=st["mean"], var=st["var"])
+            for key in _PARAMS + ("mean", "var"):
+                out[names[key]] = torch.from_numpy(_to_port(key, leaves[key]))
+            out[names["count"]] = torch.tensor(0)
     return out
 
 
@@ -77,40 +73,43 @@ def _to_port(key: str, v) -> np.ndarray:
 def named_from_jax_params(tree) -> Dict[str, torch.Tensor]:
     """{stage: [{w, b, scale, bias}]} (numpy leaves) -> {port parameter
     name: f32 tensor}, conv weights HWIO -> OIHW."""
+    cls = _model_of(tree)
     out = {}
     for stage, blocks in tree.items():
         for i, blk in enumerate(blocks):
-            p = _block_prefix(stage, i)
-            for key, suffix in _PARAM_SUFFIX.items():
-                out[f"{p}.{suffix}"] = torch.from_numpy(_to_port(key,
-                                                                 blk[key]))
+            names = cls.block_names(stage, i)
+            for key in _PARAMS:
+                out[names[key]] = torch.from_numpy(_to_port(key, blk[key]))
     return out
 
 
 def jax_params_from_named(named: Dict[str, torch.Tensor], spec):
     """The inverse of ``named_from_jax_params`` as numpy, for a model
-    ``spec`` (``models/unet.py::scaled_spec``)."""
+    ``spec`` (the model's ``.spec``)."""
+    cls = _model_of(stage for stage, _ in spec)
     tree = {}
     for stage, pairs in spec:
         tree[stage] = []
         for i in range(len(pairs)):
-            p = _block_prefix(stage, i)
+            names = cls.block_names(stage, i)
             blk = {}
-            for key, suffix in _PARAM_SUFFIX.items():
-                v = named[f"{p}.{suffix}"].detach().float().cpu().numpy()
+            for key in _PARAMS:
+                v = named[names[key]].detach().float().cpu().numpy()
                 blk[key] = v.transpose(2, 3, 1, 0) if key == "w" else v
             tree[stage].append(blk)
     return tree
 
 
 def jax_variables_from_model(model) -> dict:
-    """The port's UNet as JAX variables {"params", "state"} of numpy."""
+    """The port's model as JAX variables {"params", "state"} of numpy."""
     sd = model.state_dict()
     params = jax_params_from_named(sd, model.spec)
-    state = {stage: [{"mean": sd[f"{_block_prefix(stage, i)}.1.running_mean"]
-                      .float().cpu().numpy(),
-                      "var": sd[f"{_block_prefix(stage, i)}.1.running_var"]
-                      .float().cpu().numpy()} for i in range(len(pairs))]
+
+    def stat(stage, i, key):
+        return sd[model.block_names(stage, i)[key]].float().cpu().numpy()
+    state = {stage: [{"mean": stat(stage, i, "mean"),
+                      "var": stat(stage, i, "var")}
+                     for i in range(len(pairs))]
              for stage, pairs in model.spec}
     return {"params": params, "state": state}
 

@@ -27,6 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from pytorch_camvid_tpu_torch.models.common import (SegmentationNet, Spec,
+                                                    Stage, halvings)
 from pytorch_camvid_tpu_torch.ops.conv import ConvBNReLU
 from pytorch_camvid_tpu_torch.ops.pooling import max_pool_2x2
 from pytorch_camvid_tpu_torch.ops.resize import (
@@ -98,13 +100,6 @@ def pad_to_match(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
 
 
-class _Stage(nn.Sequential):
-    def forward(self, x, plain: bool = False):
-        for blk in self:
-            x = blk(x, plain)
-        return x
-
-
 class UpSample2d(nn.Module):
     """Bilinear 2x (align_corners=True) then a conv block
     (reference ``UpSample2d``, models/unet.py:19-32)."""
@@ -117,31 +112,64 @@ class UpSample2d(nn.Module):
         return self.conv(upsample2x_bilinear_align_corners(x), plain)
 
 
-class UNet(nn.Module):
+# state_dict suffix of each JAX block leaf under a block's prefix
+_SUFFIX = {"w": "0.weight", "b": "0.bias", "scale": "1.weight",
+           "bias": "1.bias", "mean": "1.running_mean",
+           "var": "1.running_var", "count": "1.num_batches_tracked"}
+
+
+class UNet(SegmentationNet):
+    net = "unet"
+
     def __init__(self, input_channels: int = 3, class_num: int = 12,
                  width_mult: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 spec: Optional[Spec] = None):
+        """``spec`` (e.g. read off a state_dict) replaces the one built
+        from the channel counts and ``width_mult``."""
         super().__init__()
-        self.spec = scaled_spec(input_channels, class_num, width_mult)
+        self.spec = spec or scaled_spec(input_channels, class_num,
+                                        width_mult)
         for name, pairs in self.spec:
             if name.startswith("upsample"):
                 setattr(self, name, UpSample2d(*pairs[0], generator))
             elif name == "output":
                 setattr(self, name, ConvBNReLU(*pairs[0], generator))
             else:
-                setattr(self, name, _Stage(
+                setattr(self, name, Stage(
                     *[ConvBNReLU(ci, co, generator) for ci, co in pairs]))
 
-    def blocks(self):
-        return [m for m in self.modules() if isinstance(m, ConvBNReLU)]
+    base_spec = staticmethod(unet_spec)
 
-    @torch.no_grad()
-    def prepare(self, dtype: torch.dtype) -> "UNet":
-        """Fold BN and lay out every block's weight for the fused kernel in
-        ``dtype`` once, ahead of eval-mode forwards."""
-        for blk in self.blocks():
-            blk.prepare(dtype)
-        return self
+    @staticmethod
+    def block_names(stage: str, i: int):
+        if stage.startswith("upsample"):
+            base = f"{stage}.conv.conv"
+        elif stage == "output":
+            base = "output.conv"
+        else:
+            base = f"{stage}.{i}.conv"
+        return {k: f"{base}.{suffix}" for k, suffix in _SUFFIX.items()}
+
+    @staticmethod
+    def block_sizes(hw):
+        """The encoder's levels floor; each upsample block runs at twice
+        the level below it (before the pad), each up stage at its skip's
+        size."""
+        dims = halvings(hw, 5)
+        out = []
+        for name, pairs in unet_spec(3, 12):
+            if name.startswith("down"):
+                size = dims[int(name[4:]) - 1]
+            elif name.startswith("upsample"):
+                h, w = dims[5 - int(name[8:])]
+                size = (2 * h, 2 * w)
+            elif name.startswith("up"):
+                size = dims[4 - int(name[2:])]
+            else:
+                size = dims[0]
+            out += [size] * len(pairs)
+        return out
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """x: (N,H,W,C) float -> f32 logits (N,H,W,class_num), computed in

@@ -1,10 +1,13 @@
 """Conv3x3 + BatchNorm + ReLU block (counterpart of
 pytorch_camvid_tpu/ops/conv.py:93-198).
 
-Parameters live in ``self.conv = Sequential(Conv2d, BatchNorm2d, ReLU)``,
-the reference's ``BasicConv2d`` layout (models/unet.py:5-17), so a reference
-state_dict loads with ``strict=True``. The Sequential itself is never
-called: both modes below compute from its parameters and buffers.
+Two parameter layouts, one forward: ``ConvBNReLU`` keeps UNet's
+``self.conv = Sequential(Conv2d, BatchNorm2d, ReLU)``, the reference's
+``BasicConv2d`` (models/unet.py:5-17); ``BasicConv`` keeps SegNet's
+``self.conv = Conv2d`` and ``self.bn = BatchNorm2d``, the reference's
+``BasicConv`` (models/segnet.py). So a reference state_dict of either model
+loads with ``strict=True``. Neither module is ever called: both modes below
+compute from the (conv, bn) pair that ``conv_bn()`` returns.
 
 - Eval mode: one fused pass, ``ops/fused_conv.py::conv3x3_bn_relu``, with BN
   folded into (A, B). On CUDA that is always the Hopper kernel. The weight
@@ -45,10 +48,16 @@ class ConvBNReLU(nn.Module):
     def __init__(self, cin: int, cout: int,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self._build(cin, cout)
+        conv_init_(self.conv_bn()[0], generator)
+        self._kernel_args: Optional[Tuple[torch.Tensor, ...]] = None
+
+    def _build(self, cin: int, cout: int) -> None:
         self.conv = nn.Sequential(nn.Conv2d(cin, cout, 3, padding=1),
                                   nn.BatchNorm2d(cout), nn.ReLU())
-        conv_init_(self.conv[0], generator)
-        self._kernel_args: Optional[Tuple[torch.Tensor, ...]] = None
+
+    def conv_bn(self) -> Tuple[nn.Conv2d, nn.BatchNorm2d]:
+        return self.conv[0], self.conv[1]
 
     def train(self, mode: bool = True):
         self._kernel_args = None
@@ -61,7 +70,7 @@ class ConvBNReLU(nn.Module):
     @torch.no_grad()
     def prepare(self, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
         """(w HWIO in ``dtype``, A, B f32) for the fused kernel, cached."""
-        conv, bn = self.conv[0], self.conv[1]
+        conv, bn = self.conv_bn()
         cached = self._kernel_args
         if (cached is None or cached[0].dtype != dtype
                 or cached[0].device != conv.weight.device):
@@ -82,7 +91,7 @@ class ConvBNReLU(nn.Module):
         return fn(x.contiguous(), w, a, b)
 
     def _train_forward(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
-        conv, bn = self.conv[0], self.conv[1]
+        conv, bn = self.conv_bn()
         dt = x.dtype
         w = conv.weight.permute(2, 3, 1, 0).to(dt).contiguous()
         y = conv3x3_train(x.contiguous(), w, plain)
@@ -99,3 +108,15 @@ class ConvBNReLU(nn.Module):
         inv = torch.rsqrt(var + bn.eps) * bn.weight
         y = (y - mean) * inv + bn.bias
         return torch.maximum(y, y.new_zeros(())).to(dt)
+
+
+class BasicConv(ConvBNReLU):
+    """SegNet's block: the same forward under ``.conv`` (Conv2d) and
+    ``.bn`` (BatchNorm2d)."""
+
+    def _build(self, cin: int, cout: int) -> None:
+        self.conv = nn.Conv2d(cin, cout, 3, padding=1)
+        self.bn = nn.BatchNorm2d(cout)
+
+    def conv_bn(self) -> Tuple[nn.Conv2d, nn.BatchNorm2d]:
+        return self.conv, self.bn

@@ -12,6 +12,7 @@ pytorch_camvid_tpu/serving.py).
   finished on one drain thread, with a bounded in-flight window.
 - Every conv block runs the fused Hopper kernel (ops/fused_conv.py); the BN
   fold and the kernel's weight layout are prepared once, at construction.
+  SegNet's pools and unpools run K3 (ops/fused_pool.py).
 
 Not carried over from the JAX Predictor: the bucketed dynamic resize (it
 bounds jit's compile cache; eager PyTorch has none, so any source size is
@@ -34,14 +35,8 @@ import torch
 from pytorch_camvid_tpu_torch.config import settings
 from pytorch_camvid_tpu_torch.data.normalize import to_tensor_normalize
 from pytorch_camvid_tpu_torch.interop.weights import load_torch_checkpoint
-from pytorch_camvid_tpu_torch.models import get_model
+from pytorch_camvid_tpu_torch.models import get_model, spec_from_state_dict
 from pytorch_camvid_tpu_torch.ops.resize import resize_bilinear_cv2
-
-
-def _unet_width_mult(state_dict: Dict[str, torch.Tensor]) -> float:
-    """The width multiplier a UNet state_dict was built with (its stem has
-    64 * width_mult output channels)."""
-    return state_dict["down1.0.conv.0.weight"].shape[0] / 64
 
 
 class Predictor:
@@ -51,9 +46,10 @@ class Predictor:
                  num_classes: int = settings.NUM_CLASSES,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  device: str = "cuda"):
-        """state_dict: reference-named weights (``.pth`` layout; the model
-        width is read from it). device: where the model runs; a CUDA device
-        that is not there raises, nothing falls back to the CPU."""
+        """net: "unet" or "segnet". state_dict: reference-named weights
+        (``.pth`` layout); the model is built from its conv shapes, so any
+        width loads. device: where the model runs; a CUDA device that is
+        not there raises, nothing falls back to the CPU."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Predictor: device 'cuda' requested but no "
@@ -66,8 +62,12 @@ class Predictor:
         self._mean, self._std = (
             torch.tensor(v, dtype=torch.float32, device=self.device)
             for v in (settings.MEAN, settings.STD))
-        model = get_model(net, 3, num_classes,
-                          width_mult=_unet_width_mult(state_dict))
+        spec = spec_from_state_dict(net, state_dict)
+        if spec[-1][1][-1][1] != num_classes:
+            raise ValueError(f"the checkpoint's head has "
+                             f"{spec[-1][1][-1][1]} classes, not "
+                             f"num_classes={num_classes}")
+        model = get_model(net, spec=spec)
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval().prepare(compute_dtype)
         # two class indices per byte: halves the device->host bytes

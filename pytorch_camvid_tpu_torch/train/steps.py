@@ -25,15 +25,6 @@ from pytorch_camvid_tpu_torch.train.optim import Optimizer
 from pytorch_camvid_tpu_torch.train.state import TrainState
 
 
-def head_block_prefix(model: nn.Module) -> str:
-    """The head conv block, whose BN scale and bias gradient norms the
-    reference logs as the 'last layer' (utils.py:15-36): UNet's ``output``
-    block (models/unet.py:91)."""
-    if hasattr(model, "output"):
-        return "output.conv"
-    raise KeyError("no recognizable head block in the model")
-
-
 def loss_and_grads(model: nn.Module, images: torch.Tensor,
                    labels: torch.Tensor,
                    class_weights: Optional[torch.Tensor] = None,
@@ -103,11 +94,13 @@ def make_train_step(optimizer: Optimizer, lr_schedule: Callable[[int], float],
                          lr, beta1)
         metrics = {"loss": loss, "lr": lr, "beta1": beta1}
         if log_grad_norms:
-            head = head_block_prefix(model)
+            # the head block's BN scale and bias, the reference's 'last
+            # layer' (utils.py:15-36): UNet's output, SegNet's decoder1[-1]
+            head = model.head_names()
             metrics["grad_norm_w"] = torch.linalg.vector_norm(
-                grads[f"{head}.1.weight"])
+                grads[head["scale"]])
             metrics["grad_norm_b"] = torch.linalg.vector_norm(
-                grads[f"{head}.1.bias"])
+                grads[head["bias"]])
         state.step += 1
         return state, metrics
 

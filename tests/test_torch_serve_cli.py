@@ -55,15 +55,20 @@ def test_port_imports_no_jax(tmp_path):
             "import pytorch_camvid_tpu_torch.interop.weights\n"
             "import pytorch_camvid_tpu_torch.utils.viz\n"
             "import pytorch_camvid_tpu_torch.bench\n"
+            "import pytorch_camvid_tpu_torch.profile\n"
             "import pytorch_camvid_tpu_torch.data.augment\n"
             "import pytorch_camvid_tpu_torch.data.pipeline\n"
             "import pytorch_camvid_tpu_torch.data.synthetic\n"
             "import pytorch_camvid_tpu_torch.ops.conv_train\n"
+            "import pytorch_camvid_tpu_torch.ops.fused_pool\n"
+            "import pytorch_camvid_tpu_torch.ops.pooling\n"
+            "import pytorch_camvid_tpu_torch.models.segnet\n"
             "import pytorch_camvid_tpu_torch.ops.loss\n"
             "import pytorch_camvid_tpu_torch.ops.metrics\n"
             "import pytorch_camvid_tpu_torch.train\n"
             "from pytorch_camvid_tpu_torch.models import get_model\n"
             "get_model('unet', 3, 12, width_mult=1 / 16)\n"
+            "get_model('segnet', 3, 12, width_mult=1 / 16)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
             "                                            'pytorch_camvid_tpu.')))\n"

@@ -273,5 +273,5 @@ def test_width_mult_checked_by_position():
     with pytest.raises(ValueError, match="width_mult"):
         UNet(3, 64, width_mult=1 / 32)
     UNet(3, 64, width_mult=1 / 16)  # every internal width scales to >= 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("segnet", 3, 12)
+    with pytest.raises(ValueError, match="not supported"):
+        get_model("fcn", 3, 12)
