@@ -1,16 +1,17 @@
-"""Planted faults against chip_smoke.py's SegNet parity checks on one NVIDIA
-GPU (Hopper, sm_90a): each fault must make a check fail.
+"""Planted faults against chip_smoke.py's checks on one NVIDIA GPU (Hopper,
+sm_90a): each fault must make a check fail.
 
     python3 chip_faults.py
 
 Builds the kernels (chip_smoke's phases 1 and 2), then runs, on a
 full-width SegNet with chip_smoke's He-scaled weights from seed 0, the
 serving logits check (``chip_smoke.logits_parity``, batch 8, 360x480) and
-the one-step training check (``chip_smoke.train_parity``, batch 32), once
-sound and once under each planted fault. Every fault keeps every kernel
-launch, so only the values can show it. Prints each reading and the check
-that failed; exits non-zero if the sound run fails a check or a fault
-passes them all.
+the one-step training check (``chip_smoke.train_parity``, batch 32), and
+K5's checks against its plain version and K4 (``chip_smoke.pair_checks``,
+phase 10 without its timings), once sound and once under each planted
+fault. Every fault keeps every kernel launch, so only the values can show
+it. Prints each reading and the check that failed; exits non-zero if the
+sound run fails a check or a fault passes them all.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import chip_smoke as smoke
 from pytorch_camvid_tpu_torch import bench
 from pytorch_camvid_tpu_torch.models.segnet import SegNet
 from pytorch_camvid_tpu_torch.ops import (conv, conv_train, fused_conv,
-                                          fused_pool)
+                                          fused_conv_pair, fused_pool)
 
 # the 13th of a step's 26 dW launches (backward order): decoder5.0's
 ZEROED_DW_CALL = 13
@@ -92,6 +93,23 @@ def zero_one_dw(ctx, g):
     return dx, dw
 
 
+_pair_launch = fused_conv_pair._launch
+
+
+def pair_rows_swapped(x, w, a, b, relu):
+    """K5's launch with the two output rows of every pair swapped."""
+    out = _pair_launch(x, w, a, b, relu)
+    n, h, wd, c = out.shape
+    return out.view(n, h // 2, 2, wd, c).flip(2).reshape(out.shape)
+
+
+def pair_dx_tap_dropped(x, w, a, b, relu):
+    """K5's launch with the dx = 2 taps dropped (their weights zero)."""
+    w = w.clone()
+    w[:, 2] = 0
+    return _pair_launch(x, w, a, b, relu)
+
+
 def failed_check(run, fault) -> str:
     """The message of the chip_smoke check that ``run`` fails under
     ``fault``, or '' when it passes."""
@@ -127,9 +145,13 @@ def main() -> int:
          lambda: planted(train, "backward", staticmethod(zero_one_dw))),
         ("training", "K1 forward output x1.01 (every launch)",
          lambda: planted(train, "forward", staticmethod(k1_gain))),
+        ("K5", "K5 output rows of each pair swapped",
+         lambda: planted(fused_conv_pair, "_launch", pair_rows_swapped)),
+        ("K5", "K5 with one dx tap dropped",
+         lambda: planted(fused_conv_pair, "_launch", pair_dx_tap_dropped)),
     ]
     ok = True
-    for path in ("serving", "training"):
+    for path in ("serving", "training", "K5"):
         gen = torch.Generator().manual_seed(smoke.SEED)
         if path == "serving":
             model = bench.he_model("segnet", gen).cuda().eval()
@@ -140,12 +162,18 @@ def main() -> int:
 
             def run():
                 smoke.logits_parity("segnet", model, x)
-        else:
+        elif path == "training":
             model, batch = smoke.train_setup("segnet", gen)
 
             def run():
                 zero_one_dw.calls = 0
                 smoke.train_parity("segnet", model, batch)
+        else:   # K5's checks make their own inputs
+            model = None
+
+            def run():
+                smoke.pair_checks(torch.Generator(device="cuda").manual_seed(
+                    smoke.SEED))
         print(f"{path}, sound:", flush=True)
         msg = failed_check(run, contextlib.nullcontext)
         print(f"{path}, sound: {'FAILED ' + msg if msg else 'passed'}",
@@ -159,7 +187,7 @@ def main() -> int:
             ok &= bool(msg)
         del model
         torch.cuda.empty_cache()
-    print(smoke.card())
+    print(bench.card())
     print("chip_faults: " + ("every fault caught, sound runs pass" if ok
                              else "FAILED"))
     return 0 if ok else 1

@@ -5,10 +5,11 @@
 Phases (each prints its lines; any failure exits non-zero):
 1. device: needs CUDA; prints torch's version and the card's name and
    power limit (nvidia-smi).
-2. build: compiles the three kernel sources of csrc/ with nvcc, in
+2. build: compiles the four kernel sources of csrc/ with nvcc, in
    parallel: the fused conv3x3+BN+ReLU (K4), the conv3x3 weight gradient
-   (K1's dW) and the 2x2 max pool / unpool / phase gather (K3, K2); prints
-   ptxas's register and spill lines.
+   (K1's dW), the 2x2 max pool / unpool / phase gather (K3, K2) and the
+   shallow H-pair conv3x3+BN+ReLU (K5); prints ptxas's register and spill
+   lines.
 3. K4 vs plain: the kernel against its plain PyTorch version in bf16 at
    every distinct conv block shape of UNet and SegNet at 360x480, batch 8:
    error, both times and cuDNN's conv alone (CUDA events).
@@ -41,6 +42,17 @@ Phases (each prints its lines; any failure exits non-zero):
 9. SegNet training: as phase 6 at batch 32; the kernel step launches K1
    26/25/26 times, the K2 pool 5, the phase unpool 10 (5 unpools and 5
    pool backwards) and the phase gather 5 times.
+10. K5 and the per-shape probe: K5 against its plain version in bf16 at
+   perf_probe's ``shallow64`` shapes at batch 24 (360x480, 64->64 and
+   128->64, with ReLU), the raw ``conv3x3_pair`` with a bias at 64->64,
+   three ragged shapes (W not a multiple of 8 or of the 64-column tile,
+   Cin 48 and Cout 32) and a 2.2e9-element input; at each 360x480 shape
+   also against K4 on the same inputs, with K5, K4, plain and
+   cuDNN-conv-alone times beside the bound.
+   Then it drives the slice's entry point, ``python -m
+   pytorch_camvid_tpu_torch.perf_probe --pair --shapes shallow64 --k 10``
+   (through ``perf_probe.main``): K5 must launch once per probe call and
+   no row may exceed its roofline unflagged.
 In phases 8 and 9 the plain path replays the kernel path's pool choices
 (``recorded_choices``, ``replayed_choices``): a 1-ulp difference between
 the two paths' convs would otherwise flip the choice of near-tied windows
@@ -60,9 +72,9 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -72,13 +84,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pytorch_camvid_tpu_torch import bench
+from pytorch_camvid_tpu_torch import bench, perf_probe
 from pytorch_camvid_tpu_torch.config import settings
 from pytorch_camvid_tpu_torch.data.normalize import to_tensor_normalize
 from pytorch_camvid_tpu_torch.models.common import halvings
 from pytorch_camvid_tpu_torch.models.segnet import segnet_spec
 from pytorch_camvid_tpu_torch.ops import (conv_train, cuda_build, fused_conv,
-                                          fused_pool, pooling)
+                                          fused_conv_pair, fused_pool,
+                                          pooling)
 from pytorch_camvid_tpu_torch.serving import Predictor
 from pytorch_camvid_tpu_torch.train import TrainState
 
@@ -108,20 +121,21 @@ TRAIN_BATCH = {"unet": 24, "segnet": 32}   # bench.py's headline batches
 TRAIN_STEPS = 20
 SEED = 0
 POOLS = {"unet": 0, "segnet": 5}   # K3 / K2 pools per forward
-# dense bf16 tensor-core peak and memory rate of an H100 SXM (data sheet)
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# K5 (phase 10): perf_probe's shallow64 family at its default batch; then
+# ragged shapes: W = 61 (not a multiple of 8, a last tile of 61 columns),
+# 30 (one partial tile), H % 4 == 2 (a last tile of one pair) and Cin 48
+# (a part chunk) with Cout 32; and an input past 2**31 elements (64-bit
+# offsets)
+PAIR_BATCH = 24
+PAIR_SHAPES = ((360, 480, 64, 64), (360, 480, 128, 64))
+PAIR_EXTRA = ((1, 46, 61, 64, 64), (2, 22, 30, 128, 64), (1, 46, 61, 48, 32),
+              (100, 360, 480, 128, 64))
+PAIR_PROBE_K = 10
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
-
-
-def card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -138,7 +152,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def bound_ms(flops: float, nbytes: float) -> tuple:
     """(least ms on the card, "operations" or "bytes")."""
-    f, b = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    f = flops / bench.H100_BF16_PEAK * 1e3
+    b = nbytes / bench.H100_HBM_RATE * 1e3
     return (f, "operations") if f >= b else (b, "bytes")
 
 
@@ -371,7 +386,7 @@ def phase_pools(gen: torch.Generator) -> dict:
                 kern, plain, lib = fns[name]
                 t = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
                      "library_ms": cuda_ms(lib),
-                     "bound_ms": nbytes[name] / PEAK_BYTES * 1e3}
+                     "bound_ms": nbytes[name] / bench.H100_HBM_RATE * 1e3}
                 for key, v in t.items():
                     out[name][key] += v
                 out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
@@ -418,6 +433,7 @@ def n_blocks(net: str) -> int:
 
 def reset_counts() -> None:
     fused_conv.conv3x3_bn_relu.launches = 0
+    fused_conv_pair.conv3x3_pair_bn_relu.launches = 0
     conv_train.reset_launches()
     fused_pool.reset_launches()
 
@@ -748,7 +764,7 @@ def phase_train(net: str, cpu_gen: torch.Generator):
               f"{r['max_memory_allocated'] / 2 ** 30:.2f} GiB, losses "
               f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, launches "
               f"{r['counts']} ({TRAIN_STEPS} steps + 3 warm-up, batch "
-              f"{b}, {HW[0]}x{HW[1]}) on {card()}", flush=True)
+              f"{b}, {HW[0]}x{HW[1]}) on {bench.card()}", flush=True)
         check(r["finite"], "non-finite training loss")
         want = expected_train_counts(net, 0 if plain else TRAIN_STEPS + 3)
         check(r["counts"] == want, f"{net} launches in the timed run")
@@ -844,7 +860,114 @@ def phase_slice(net: str, cpu_gen: torch.Generator,
         print(f"{net} serving throughput: median {sorted(rates)[1]:.2f} "
               f"img/s of {', '.join(f'{r:.2f}' for r in rates)} "
               f"({len(imgs)} images {HW[0]}x{HW[1]}, batch {BATCH}, "
-              f"predict() end to end) on {card()}", flush=True)
+              f"predict() end to end) on {bench.card()}", flush=True)
+    return launches
+
+
+# ------------------------------------------------------- K5 and the probe
+
+def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max|got - ref|, max|ref|)."""
+    return ((got.float() - ref.float()).abs().max().item(),
+            ref.float().abs().max().item())
+
+
+def pair_checks(gen: torch.Generator, timed: bool = False) -> dict:
+    """K5 against its plain version within KERNEL_TOL at the shallow64
+    shapes (batch 24) and ``PAIR_EXTRA``; at each 360x480 shape also
+    against K4 and, at 64->64, the raw form with a bias. ``timed``: K5, K4,
+    plain and cuDNN-conv-alone times at those shapes. Returns {shape: {err,
+    scale, and the times}}."""
+    dev = torch.device("cuda")
+    out = {}
+    cases = [(PAIR_BATCH,) + s for s in PAIR_SHAPES] + list(PAIR_EXTRA)
+    for shape in cases:
+        n, h, w, cin, cout = shape
+        x = torch.randn(n, h, w, cin, generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        wt = (torch.randn(3, 3, cin, cout, generator=gen, device=dev)
+              * (2.0 / (9 * cin)) ** 0.5).to(torch.bfloat16)
+        a = torch.rand(cout, generator=gen, device=dev) + 0.5
+        b = torch.randn(cout, generator=gen, device=dev) * 0.1
+        got = fused_conv_pair.conv3x3_pair_bn_relu(x, wt, a, b)
+        ref = fused_conv_pair.conv3x3_pair_bn_relu_plain(x, wt, a, b)
+        torch.cuda.synchronize()
+        err, scale = _rel_err(got, ref)
+        r = out[shape] = {"err": err, "scale": scale}
+        line = [f"K5 {n}x{h}x{w} {cin}->{cout}: vs plain max|err| {err:.4g}"
+                f" / max|plain| {scale:.4g} = {err / scale:.3g} (tol "
+                f"{KERNEL_TOL})"]
+        checks = [(err <= KERNEL_TOL * scale, f"K5 vs plain at {shape}")]
+        full = shape[1:] in PAIR_SHAPES
+        if full:
+            k4_err, _ = _rel_err(got, fused_conv.conv3x3_bn_relu(x, wt, a, b))
+            line.append(f"vs K4 {k4_err / scale:.3g}")
+            checks.append((k4_err <= KERNEL_TOL * scale,
+                           f"K5 vs K4 at {shape}"))
+        if full and cin == 64:
+            ones = torch.ones(cout, device=dev)
+            raw_err, raw_scale = _rel_err(
+                fused_conv_pair.conv3x3_pair(x, wt, b),
+                fused_conv_pair.conv3x3_pair_bn_relu_plain(
+                    x, wt, ones, b, relu=False))
+            line.append(f"raw conv3x3_pair + bias vs plain "
+                        f"{raw_err / raw_scale:.3g}")
+            checks.append((raw_err <= KERNEL_TOL * raw_scale,
+                           f"raw K5 vs plain at {shape}"))
+        print("; ".join(line), flush=True)
+        for ok, what in checks:
+            check(ok, what)
+        if full and timed:
+            xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
+            r.update(
+                ms=cuda_ms(lambda: fused_conv_pair.conv3x3_pair_bn_relu(
+                    x, wt, a, b), iters=10),
+                k4_ms=cuda_ms(lambda: fused_conv.conv3x3_bn_relu(
+                    x, wt, a, b), iters=10),
+                plain_ms=cuda_ms(
+                    lambda: fused_conv_pair.conv3x3_pair_bn_relu_plain(
+                        x, wt, a, b), iters=10),
+                library_ms=cuda_ms(lambda: F.conv2d(xc, wc, padding=1),
+                                   iters=10))
+            r["bound_ms"], r["bound_by"] = conv_bound(n, h, w, cin, cout)
+            print(f"K5 {n}x{h}x{w} {cin}->{cout}: K5 {r['ms']:.4f} ms, K4 "
+                  f"{r['k4_ms']:.4f}, plain {r['plain_ms']:.4f}, cuDNN conv "
+                  f"alone {r['library_ms']:.4f}; bound {r['bound_ms']:.4f} "
+                  f"by {r['bound_by']}: K5 at {r['bound_ms'] / r['ms']:.3f} "
+                  f"of it, K4 at {r['bound_ms'] / r['k4_ms']:.3f} (on "
+                  f"{bench.card()})", flush=True)
+        del x, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pair_probe() -> int:
+    """The slice's path: ``perf_probe --pair --shapes shallow64`` through
+    its entry point. Returns K5's launches in that run."""
+    torch.cuda.synchronize()
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = perf_probe.main(["--pair", "--shapes", "shallow64", "--k",
+                              str(PAIR_PROBE_K)])
+    torch.cuda.synchronize()
+    launches = fused_conv_pair.conv3x3_pair_bn_relu.launches
+    print(buf.getvalue(), end="", flush=True)
+    rows = [json.loads(ln) for ln in buf.getvalue().splitlines()
+            if ln.startswith("{")]
+    want = sum(perf_probe.op_calls(PAIR_PROBE_K, r["k"]) for r in rows)
+    print(f"perf_probe --pair --shapes shallow64: {len(rows)} rows, K5 "
+          f"launches {launches} (expected {want})", flush=True)
+    check(rc == 0, "perf_probe exit code")
+    check(sorted(tuple(r["shape"]) for r in rows)
+          == sorted((PAIR_BATCH,) + s for s in PAIR_SHAPES)
+          and all(r["impl"] == "pair" and r["multiplicity"] == 2
+                  for r in rows), "perf_probe shallow64 rows")
+    check(launches == want, "K5 launches in the probe run")
+    for r in rows:
+        check(np.isfinite(r["ms"]) and r["ms"] > 0
+              and (r["tflops"] <= r["roofline_tflops"] or "suspect" in r),
+              f"perf_probe row {r['shape']} over its roofline unflagged")
     return launches
 
 
@@ -934,11 +1057,12 @@ POOL_REPLACES = {
 
 
 def start() -> None:
-    """Phases 1 and 2: the device, then the three kernel sources built in
+    """Phases 1 and 2: the device, then the four kernel sources built in
     parallel; TF32 off for the plain versions."""
     print(f"device: torch {torch.__version__} (CUDA {torch.version.cuda}); "
-          f"{card()}", flush=True)
-    sources = (fused_conv.SOURCE, conv_train.WGRAD_SOURCE, fused_pool.SOURCE)
+          f"{bench.card()}", flush=True)
+    sources = (fused_conv.SOURCE, conv_train.WGRAD_SOURCE, fused_pool.SOURCE,
+               fused_conv_pair.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(cuda_build.build, sources))
     for path, secs, log in builds:
@@ -967,6 +1091,9 @@ def main() -> int:
     seg_serve = phase_slice("segnet", torch.Generator().manual_seed(SEED),
                             np.random.default_rng(SEED))
     seg_train = phase_train("segnet", torch.Generator().manual_seed(SEED))
+    pair = pair_checks(torch.Generator(device="cuda").manual_seed(SEED),
+                       timed=True)[(PAIR_BATCH,) + PAIR_SHAPES[0]]
+    pair_launches = phase_pair_probe()
     check("jax" not in sys.modules, "jax was imported")
 
     kernels = conv_entries(sums["unet"], unet_serve["conv3x3_bn_relu"],
@@ -980,8 +1107,16 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": t["library_ms"]})
+    kernels.append({
+        "name": "conv3x3_pair_bn_relu", "route": "cuda",
+        "source": "pytorch_camvid_tpu_torch/csrc/conv3x3_pair_bn_relu.cu",
+        "replaces": "pytorch_camvid_tpu/ops/pallas_conv_pair.py:229",
+        "launches": pair_launches, "max_abs_err": pair["err"],
+        "ms": pair["ms"], "plain_ms": pair["plain_ms"],
+        "bound_ms": pair["bound_ms"], "bound_by": pair["bound_by"],
+        "library_ms": pair["library_ms"]})
     print(json.dumps({"kernels": kernels}))
-    print(card())
+    print(bench.card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

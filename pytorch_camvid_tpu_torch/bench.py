@@ -11,11 +11,17 @@ time comes from CUDA events around ``steps`` steps after ``warmup`` steps.
 MFU counts the timed model's useful FLOPs (its conv blocks' forward, x3 for
 training) against the card's dense bf16 peak; it leaves out augmentation,
 BN, pools, the loss and the optimizer, so it understates the card's work.
+
+Also the port's one copy of the card's peaks, of the card's name and
+power limit, and of device-busy time in a torch.profiler trace, which
+``chip_smoke.py``, ``profile.py`` and ``perf_probe.py`` share.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+import subprocess
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -30,10 +36,42 @@ from pytorch_camvid_tpu_torch.train import (TrainState, adamw,
                                             make_train_step, onecycle_beta1,
                                             onecycle_lr)
 
-# dense bf16 tensor-core peak of an H100 SXM at its full power limit
-# (NVIDIA data sheet); MFU is left out on other cards
+# dense bf16 tensor-core peak (FLOP/s) and memory rate (bytes/s) of an
+# H100 SXM at its full power limit (NVIDIA data sheet); MFU is left out on
+# other cards
 H100_BF16_PEAK = 989e12
+H100_HBM_RATE = 3.35e12
 MAX_LR = 5e-4  # OneCycle's peak lr, as the JAX bench (bench.py:134)
+
+
+@functools.cache
+def card(index: int = 0) -> str:
+    """Card ``index``'s name and power limit, as nvidia-smi's
+    ``--query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[index]
+
+
+def device_spans(prof) -> List[Tuple[str, float, float]]:
+    """(name, start us, end us) of every kernel, memset and copy in a
+    torch.profiler trace."""
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_ms(spans) -> float:
+    """Device-busy milliseconds: the union of (start, end) microsecond
+    spans, so kernels that overlap (cuDNN's Hopper wgrad runs several at
+    once) count once."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
 
 
 def block_shapes(net: str = "unet", hw: Tuple[int, int] = (360, 480),

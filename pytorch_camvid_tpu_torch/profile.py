@@ -11,16 +11,17 @@ card (``bench.resident_batch``); the serve mode times the eval-mode model
 forward on a normalized bf16 batch. The model is chip_smoke.py's:
 ``bench.he_model`` from seed 0, at 360x480. After two untraced warm-up
 iterations, three are traced; the output gives, per iteration, the device
-span, the busy time and share, the time by kernel group (``GROUPS``) and
-the ``-top`` kernels by device time, then the card's name and power
-limit.
+span, the busy time (``bench.busy_ms``: the union of the kernels' spans,
+as ``perf_probe.py`` counts it) and share, the summed kernel time (above
+the busy time where kernels overlap), the time by kernel group
+(``GROUPS``) and the ``-top`` kernels by device time, as shares of the
+summed kernel time, then the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
-import subprocess
 import sys
 
 import torch
@@ -63,6 +64,29 @@ def _workload(net: str, mode: str, batch: int):
     return train_step
 
 
+def summarize(kernels, steps: int = STEPS) -> dict:
+    """Per-iteration ms of a trace's device spans ((name, start us, end
+    us), ``bench.device_spans``): ``span`` from the first start to the
+    last end, ``busy``, ``kernel`` (summed), and ``by_name`` and
+    ``groups``, summed kernel time per name and per ``GROUPS`` entry."""
+    by_name = collections.Counter()
+    for name, a, b in kernels:
+        by_name[name] += (b - a) / 1e3 / steps
+    groups = collections.Counter()
+    for name, ms in by_name.items():
+        group = next((g for g, keys in GROUPS if any(k in name for k in keys)),
+                     "other")
+        groups[group] += ms
+    return {
+        "span": (max(b for _, _, b in kernels)
+                 - min(a for _, a, _ in kernels)) / 1e3 / steps,
+        "busy": bench.busy_ms([(a, b) for _, a, b in kernels]) / steps,
+        "kernel": sum(by_name.values()),
+        "by_name": by_name,
+        "groups": groups,
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("-net", default="segnet")
@@ -83,33 +107,21 @@ def main(argv=None) -> int:
         for _ in range(STEPS):
             run()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = bench.device_spans(prof)
     if not kernels:
         print("profile: the trace holds no device events", file=sys.stderr)
         return 1
-    by_name = collections.Counter()
-    for e in kernels:
-        by_name[e.name] += e.time_range.end - e.time_range.start
-    busy = sum(by_name.values()) / 1e3 / STEPS
-    span = (max(e.time_range.end for e in kernels)
-            - min(e.time_range.start for e in kernels)) / 1e3 / STEPS
+    s = summarize(kernels)
     print(f"{args.net} {args.mode} batch {args.b} {HW[0]}x{HW[1]}: "
-          f"device span {span:.2f} ms, busy {busy:.2f} ms, busy share "
-          f"{busy / span:.3f} per iteration ({STEPS} traced)")
-    groups = collections.Counter()
-    for name, us in by_name.items():
-        group = next((g for g, keys in GROUPS if any(k in name for k in keys)),
-                     "other")
-        groups[group] += us / 1e3 / STEPS
-    print("by group: " + "; ".join(f"{g} {ms:.2f} ms ({ms / busy:.1%})"
-                                   for g, ms in groups.most_common()))
-    for name, us in by_name.most_common(args.top):
-        ms = us / 1e3 / STEPS
-        print(f"{ms:9.3f} ms {ms / busy:6.1%}  {name[:110]}")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+          f"device span {s['span']:.2f} ms, busy {s['busy']:.2f} ms, busy "
+          f"share {s['busy'] / s['span']:.3f}, kernel time "
+          f"{s['kernel']:.2f} ms per iteration ({STEPS} traced)")
+    print("by group: " + "; ".join(
+        f"{g} {ms:.2f} ms ({ms / s['kernel']:.1%})"
+        for g, ms in s["groups"].most_common()))
+    for name, ms in s["by_name"].most_common(args.top):
+        print(f"{ms:9.3f} ms {ms / s['kernel']:6.1%}  {name[:110]}")
+    print(bench.card(torch.cuda.current_device()))
     return 0
 
 

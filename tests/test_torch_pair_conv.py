@@ -1,0 +1,128 @@
+"""The port's shallow conv (pytorch_camvid_tpu_torch/ops/fused_conv_pair.py,
+K5) against the JAX package's H-pair kernel (ops/pallas_conv_pair.py) in
+Pallas interpret mode, on the inputs of tests/test_pallas_conv_pair.py.
+
+On the CPU the port's wrapper runs its plain version (the CUDA kernel is
+held against that plain version on the card by chip_smoke.py). Inputs come
+from numpy with fixed seeds and go to both packages."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pytorch_camvid_tpu.ops import pallas_conv_pair as jax_pair
+from pytorch_camvid_tpu_torch.ops import fused_conv_pair
+
+
+def _rand(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).normal(size=shape) * scale
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,h,w,c,co,seed", [(2, 12, 30, 8, 8, 1),
+                                             (1, 8, 15, 16, 8, 2),
+                                             (2, 20, 24, 8, 16, 3)])
+def test_pair_conv_matches_jax_f32(n, h, w, c, co, seed):
+    x = _rand((n, h, w, c), seed)
+    wt = _rand((3, 3, c, co), seed + 10, 0.1)
+    b = _rand((co,), seed + 20)
+    want = np.asarray(jax_pair.conv3x3_pair(
+        jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b), interpret=True))
+    got = fused_conv_pair.conv3x3_pair(torch.from_numpy(x),
+                                       torch.from_numpy(wt),
+                                       torch.from_numpy(b))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    # f32 both sides; only the summation order differs (JAX's own limit)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+def test_pair_conv_fused_affine_matches_jax(relu):
+    n, h, w, c, co = 1, 10, 17, 8, 8
+    x, wt = _rand((n, h, w, c), 4), _rand((3, 3, c, co), 5, 0.1)
+    a, b = _rand((co,), 6), _rand((co,), 7)
+    want = np.asarray(jax_pair.conv3x3_pair_bn_relu(
+        *(jnp.asarray(t) for t in (x, wt, a, b)), interpret=True, relu=relu))
+    got = fused_conv_pair.conv3x3_pair_bn_relu(
+        *(torch.from_numpy(t) for t in (x, wt, a, b)), relu=relu)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=2e-4)
+    if relu:
+        assert got.min() >= 0
+
+
+def test_pair_conv_bf16_matches_jax():
+    """bf16 at 2x60x60 64->64, the JAX test's scaled-down production shape.
+    JAX accumulates in f32 and rounds once; the plain version's bf16 conv
+    rounds before its f32 epilogue: two bf16 roundings (2**-8 each) of the
+    output's scale, held at 3e-2 of max|ref| (JAX's own bf16 limit)."""
+    n, h, w, c, co = 2, 60, 60, 64, 64
+    x = jnp.asarray(_rand((n, h, w, c), 8)).astype(jnp.bfloat16)
+    wt = jnp.asarray(_rand((3, 3, c, co), 9, 0.05)).astype(jnp.bfloat16)
+    b = _rand((co,), 10)
+    want = np.asarray(jax_pair.conv3x3_pair(x, wt, jnp.asarray(b),
+                                            interpret=True), np.float32)
+    got = fused_conv_pair.conv3x3_pair(
+        torch.from_numpy(np.asarray(x, np.float32)).bfloat16(),
+        torch.from_numpy(np.asarray(wt, np.float32)).bfloat16(),
+        torch.from_numpy(b))
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 3e-2 * np.abs(want).max(), err
+
+
+@pytest.mark.parametrize("fn", ["conv3x3_pair_bn_relu", "conv3x3_pair"])
+def test_odd_h_raises(fn):
+    x = torch.zeros(1, 7, 8, 16)
+    w = torch.zeros(3, 3, 16, 16)
+    args = (torch.ones(16), torch.zeros(16)) if fn != "conv3x3_pair" else (
+        torch.zeros(16),)
+    with pytest.raises(ValueError, match="even H"):
+        getattr(fused_conv_pair, fn)(x, w, *args)
+
+
+def test_meta_tensor_raises():
+    x, w = torch.zeros(1, 8, 8, 16), torch.zeros(3, 3, 16, 16)
+    a, b = torch.ones(16), torch.zeros(16)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_conv_pair.conv3x3_pair_bn_relu(
+            *(t.to("meta") for t in (x, w, a, b)))
+
+
+def test_cpu_route_is_plain_and_not_counted():
+    rng = np.random.default_rng(11)
+    x, w = rng.normal(size=(1, 6, 9, 16)), rng.normal(size=(3, 3, 16, 32))
+    a, b = rng.uniform(0.5, 1.5, 32), rng.normal(size=32)
+    x, w, a, b = (torch.from_numpy(t.astype(np.float32)) for t in (x, w, a, b))
+    before = fused_conv_pair.conv3x3_pair_bn_relu.launches
+    got = fused_conv_pair.conv3x3_pair_bn_relu(x, w, a, b)
+    want = fused_conv_pair.conv3x3_pair_bn_relu_plain(x, w, a, b)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert fused_conv_pair.conv3x3_pair_bn_relu.launches == before
+
+
+def test_kernel_checks_reject_what_the_kernel_does_not_take():
+    """The validation the CUDA path runs before every launch."""
+    def inputs(cin=64, cout=64):
+        return (torch.zeros(1, 8, 12, cin, dtype=torch.bfloat16),
+                torch.zeros(3, 3, cin, cout, dtype=torch.bfloat16),
+                torch.ones(cout), torch.zeros(cout))
+    for cin, cout in ((64, 64), (128, 64), (48, 32), (16, 16)):
+        fused_conv_pair._check(*inputs(cin, cout))   # accepted
+    x, w, a, b = inputs()
+    with pytest.raises(TypeError):
+        fused_conv_pair._check(x.float(), w, a, b)
+    with pytest.raises(TypeError):
+        fused_conv_pair._check(x, w, a.double(), b)
+    for cin, cout in ((8, 64), (144, 64), (24, 64), (64, 80), (64, 12)):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            fused_conv_pair._check(*inputs(cin, cout))
+    with pytest.raises(ValueError, match="HWIO"):
+        fused_conv_pair._check(x, w.permute(3, 2, 0, 1), a, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_conv_pair._check(x.permute(0, 2, 1, 3), w, a, b)
+    # a contiguous view 2 bytes into its storage: not 16-byte aligned
+    shifted = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)[1:].view(
+        x.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_conv_pair._check(shifted, w, a, b)
