@@ -8,10 +8,12 @@ full-width SegNet with chip_smoke's He-scaled weights from seed 0, the
 serving logits check (``chip_smoke.logits_parity``, batch 8, 360x480) and
 the one-step training check (``chip_smoke.train_parity``, batch 32), and
 K5's checks against its plain version and K4 (``chip_smoke.pair_checks``,
-phase 10 without its timings), once sound and once under each planted
-fault. Every fault keeps every kernel launch, so only the values can show
-it. Prints each reading and the check that failed; exits non-zero if the
-sound run fails a check or a fault passes them all.
+phase 10 without its timings) and the layout probes' checks against their
+plain versions (``chip_smoke.probe_checks``, phase 11 without its
+timings), once sound and once under each planted fault. Every fault
+keeps every kernel launch, so only the values can show it. Prints each
+reading and the check that failed; exits non-zero if the sound run fails
+a check or a fault passes them all.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import chip_smoke as smoke
 from pytorch_camvid_tpu_torch import bench
 from pytorch_camvid_tpu_torch.models.segnet import SegNet
 from pytorch_camvid_tpu_torch.ops import (conv, conv_train, fused_conv,
-                                          fused_conv_pair, fused_pool)
+                                          fused_conv_pair, fused_pool,
+                                          layout_probes)
 
 # the 13th of a step's 26 dW launches (backward order): decoder5.0's
 ZEROED_DW_CALL = 13
@@ -110,6 +113,23 @@ def pair_dx_tap_dropped(x, w, a, b, relu):
     return _pair_launch(x, w, a, b, relu)
 
 
+_probe_launch = layout_probes._launch
+
+
+def m6_second_copy_at_offset_2(op, *args):
+    """M6's launch with its second bulk copy at width offset 2, not 1."""
+    if op == "sum_width_shifts":   # (xp, out, H, Wp, C, w, d0, d1, d2)
+        args = args[:7] + (2,) + args[8:]
+    return _probe_launch(op, *args)
+
+
+def m4_at_row_offset_0(op, *args):
+    """M4's launch reading its rows from offset 0, not 1."""
+    if op == "slice_matmul":   # (x, w, out, rows, K, N, start, n)
+        args = args[:6] + (args[6] - 1,) + args[7:]
+    return _probe_launch(op, *args)
+
+
 def failed_check(run, fault) -> str:
     """The message of the chip_smoke check that ``run`` fails under
     ``fault``, or '' when it passes."""
@@ -149,9 +169,14 @@ def main() -> int:
          lambda: planted(fused_conv_pair, "_launch", pair_rows_swapped)),
         ("K5", "K5 with one dx tap dropped",
          lambda: planted(fused_conv_pair, "_launch", pair_dx_tap_dropped)),
+        ("probes", "M6's second copy at width offset 2 instead of 1",
+         lambda: planted(layout_probes, "_launch",
+                         m6_second_copy_at_offset_2)),
+        ("probes", "M4 at row offset 0 instead of 1",
+         lambda: planted(layout_probes, "_launch", m4_at_row_offset_0)),
     ]
     ok = True
-    for path in ("serving", "training", "K5"):
+    for path in ("serving", "training", "K5", "probes"):
         gen = torch.Generator().manual_seed(smoke.SEED)
         if path == "serving":
             model = bench.he_model("segnet", gen).cuda().eval()
@@ -168,12 +193,18 @@ def main() -> int:
             def run():
                 zero_one_dw.calls = 0
                 smoke.train_parity("segnet", model, batch)
-        else:   # K5's checks make their own inputs
+        elif path == "K5":   # K5's checks make their own inputs
             model = None
 
             def run():
                 smoke.pair_checks(torch.Generator(device="cuda").manual_seed(
                     smoke.SEED))
+        else:   # phase 11's checks of the layout probes, likewise
+            model = None
+
+            def run():
+                smoke.probe_checks(torch.Generator(
+                    device="cuda").manual_seed(smoke.SEED))
         print(f"{path}, sound:", flush=True)
         msg = failed_check(run, contextlib.nullcontext)
         print(f"{path}, sound: {'FAILED ' + msg if msg else 'passed'}",

@@ -5,11 +5,11 @@
 Phases (each prints its lines; any failure exits non-zero):
 1. device: needs CUDA; prints torch's version and the card's name and
    power limit (nvidia-smi).
-2. build: compiles the four kernel sources of csrc/ with nvcc, in
+2. build: compiles the five kernel sources of csrc/ with nvcc, in
    parallel: the fused conv3x3+BN+ReLU (K4), the conv3x3 weight gradient
-   (K1's dW), the 2x2 max pool / unpool / phase gather (K3, K2) and the
-   shallow H-pair conv3x3+BN+ReLU (K5); prints ptxas's register and spill
-   lines.
+   (K1's dW), the 2x2 max pool / unpool / phase gather (K3, K2), the
+   shallow H-pair conv3x3+BN+ReLU (K5) and the six layout probes (M1-M6);
+   prints ptxas's register and spill lines.
 3. K4 vs plain: the kernel against its plain PyTorch version in bf16 at
    every distinct conv block shape of UNet and SegNet at 360x480, batch 8:
    error, both times and cuDNN's conv alone (CUDA events).
@@ -53,6 +53,16 @@ Phases (each prints its lines; any failure exits non-zero):
    pytorch_camvid_tpu_torch.perf_probe --pair --shapes shallow64 --k 10``
    (through ``perf_probe.main``): K5 must launch once per probe call and
    no row may exceed its roofline unflagged.
+11. Layout probes: drives ``python -m pytorch_camvid_tpu_torch.mosaic_probes``
+   (through ``mosaic_probes.main``, the port of ``tools/mosaic_probes.py``):
+   all seven probes OK, each kernel launched once per call of its probe
+   (the checked call and the tool's timed ones). Then each of the six
+   kernels (M1-M6) against its plain version on the tool's inputs and at
+   ragged shapes, M6 also at a conv stage (360x488x64 f32): bit for bit,
+   M4 (the split-TF32 tensor-core product) within the tool's rtol 1e-3 /
+   atol 5e-2; kernel, plain and library device-busy times (the profiler,
+   as ``perf_probe`` takes them: at the tool's shapes CUDA events time the
+   host's launches); M6's conv-stage time beside its byte bound.
 In phases 8 and 9 the plain path replays the kernel path's pool choices
 (``recorded_choices``, ``replayed_choices``): a 1-ulp difference between
 the two paths' convs would otherwise flip the choice of near-tied windows
@@ -64,7 +74,8 @@ is SegNet's gradient check (``GRADS_END_TO_END``). ``chip_faults.py``
 plants faults that these checks must catch.
 
 The last line is {"ok": true, "device": {...}}; the line before it names
-the card and its power limit; the line before that is the per-kernel JSON.
+the card and its power limit; the line before that is the per-kernel JSON
+(16 entries: K4, K1's three pieces, the five pool kernels, K5, M1-M6).
 Imports neither jax nor cv2.
 """
 
@@ -84,7 +95,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pytorch_camvid_tpu_torch import bench, perf_probe
+from pytorch_camvid_tpu_torch import bench, mosaic_probes, perf_probe
 from pytorch_camvid_tpu_torch.config import settings
 from pytorch_camvid_tpu_torch.data.normalize import to_tensor_normalize
 from pytorch_camvid_tpu_torch.models.common import halvings
@@ -92,6 +103,7 @@ from pytorch_camvid_tpu_torch.models.segnet import segnet_spec
 from pytorch_camvid_tpu_torch.ops import (conv_train, cuda_build, fused_conv,
                                           fused_conv_pair, fused_pool,
                                           pooling)
+from pytorch_camvid_tpu_torch.ops import layout_probes as lp
 from pytorch_camvid_tpu_torch.serving import Predictor
 from pytorch_camvid_tpu_torch.train import TrainState
 
@@ -150,9 +162,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple:
-    """(least ms on the card, "operations" or "bytes")."""
-    f = flops / bench.H100_BF16_PEAK * 1e3
+def bound_ms(flops: float, nbytes: float,
+             peak: float = bench.H100_BF16_PEAK) -> tuple:
+    """(least ms on the card, "operations" or "bytes"); ``peak``: the
+    rate of the operations' type."""
+    f = flops / peak * 1e3
     b = nbytes / bench.H100_HBM_RATE * 1e3
     return (f, "operations") if f >= b else (b, "bytes")
 
@@ -436,6 +450,7 @@ def reset_counts() -> None:
     fused_conv_pair.conv3x3_pair_bn_relu.launches = 0
     conv_train.reset_launches()
     fused_pool.reset_launches()
+    lp.reset_launches()
 
 
 def train_counts() -> dict:
@@ -971,6 +986,214 @@ def phase_pair_probe() -> int:
     return launches
 
 
+# ----------------------------------------------------- layout probes (11)
+
+_KEYS = [key for key, _, _ in mosaic_probes.PROBES]
+# (JSON name, the tool's probes it covers, its pallas_call line)
+PROBE_SITES = (("layout_probes.row_slice_f32", _KEYS[0:1], 59),
+               ("layout_probes.row_slice_bf16", _KEYS[1:2], 70),
+               ("layout_probes.row_slice_dynamic", _KEYS[2:3], 82),
+               ("layout_probes.row_slice_matmul", _KEYS[3:4], 98),
+               ("layout_probes.roll_rows", _KEYS[4:6], 113),
+               ("layout_probes.sum_width_shifts", _KEYS[6:7], 137))
+# each wrapper's launches per run of the tool, in probes
+PROBE_WRAPPER_RUNS = {"layout_probes.row_slice": 2,
+                      "layout_probes.row_slice_dynamic": 1,
+                      "layout_probes.row_slice_matmul": 1,
+                      "layout_probes.roll_rows": 2,
+                      "layout_probes.sum_width_shifts": 1}
+M4_RTOL, M4_ATOL = (mosaic_probes.M4_TOL[k] for k in ("rtol", "atol"))
+# M6 at a conv stage (xp (H, W + 8, C), w = W: 360x480x64 f32) and at a
+# ragged shape (H odd, w = 201 = 3 tiles of 64 columns + 9)
+M6_SHAPES = ((360, 488, 64, 480), (45, 203, 64, 201))
+
+
+def _within(got: torch.Tensor, ref: torch.Tensor, rtol: float,
+            atol: float) -> bool:
+    return bool(((got - ref).abs() <= atol + rtol * ref.abs()).all())
+
+
+def probe_cases(t: dict) -> dict:
+    """Per probe of the tool, on its inputs ``t`` (``mosaic_probes.inputs``):
+    (kernel, plain version, library call, FLOPs, least bytes, FLOP rate).
+    The bytes are what the function must move: the rows or columns it
+    reads, once, and its output, once."""
+    x32, x16, w, xp, s = (t[k] for k in ("x32", "x16", "w", "xp", "s"))
+    n, dw = mosaic_probes.N, mosaic_probes.D_W
+    rows, cols = x32.shape
+    k, m = w.shape
+    h, _, c = xp.shape
+    kern = mosaic_probes.probes(t)
+    bf16 = bench.H100_BF16_PEAK
+    return {
+        _KEYS[0]: (kern[_KEYS[0]], lambda: lp.row_slice_plain(x32, 1, n),
+                   lambda: x32[1:1 + n].clone(), 0, 2 * n * cols * 4, bf16),
+        _KEYS[1]: (kern[_KEYS[1]], lambda: lp.row_slice_plain(x16, 1, n),
+                   lambda: x16[1:1 + n].clone(), 0, 2 * n * cols * 2, bf16),
+        _KEYS[2]: (kern[_KEYS[2]],
+                   lambda: lp.row_slice_dynamic_plain(x32, s, n),
+                   lambda: x32[mosaic_probes.DYN_START:
+                               mosaic_probes.DYN_START + n].clone(),
+                   0, 2 * n * cols * 4 + 4, bf16),
+        _KEYS[3]: (kern[_KEYS[3]],
+                   lambda: lp.row_slice_matmul_plain(x32, w, 1, n),
+                   lambda: torch.matmul(x32[1:1 + n], w), 2 * n * k * m,
+                   4 * (n * k + k * m + n * m), bench.H100_F32_PEAK),
+        _KEYS[4]: (kern[_KEYS[4]], lambda: lp.roll_rows_plain(x32, 1),
+                   lambda: torch.roll(x32, 1, 0), 0, 2 * rows * cols * 4,
+                   bf16),
+        _KEYS[5]: (kern[_KEYS[5]], lambda: lp.roll_rows_plain(x16, 1),
+                   lambda: torch.roll(x16, 1, 0), 0, 2 * rows * cols * 2,
+                   bf16),
+        _KEYS[6]: (kern[_KEYS[6]], lambda: lp.sum_width_shifts_plain(xp, dw),
+                   lambda: xp.unfold(1, 3, 1)[:, :dw].sum(-1), 0,
+                   4 * h * c * (2 * dw + 2), bf16),
+    }
+
+
+def _probe_err(key: str, got: torch.Tensor, ref: torch.Tensor,
+               what: str) -> float:
+    """Bit equality, or M4's tolerance; returns max |got - ref|."""
+    if key == _KEYS[3]:
+        err, scale = _rel_err(got, ref)
+        print(f"M4 {what}: max|kernel - plain| {err:.4g} / max|plain| "
+              f"{scale:.4g} = {err / scale:.3g} (rtol {M4_RTOL}, atol "
+              f"{M4_ATOL})", flush=True)
+        check(_within(got, ref, M4_RTOL, M4_ATOL), f"M4 vs plain ({what})")
+        return err
+    same, err = bit_equal(got, ref)
+    check(same, f"{key} bit equality ({what}): max|err| {err:.4g}")
+    return err
+
+
+def probe_checks(gen: torch.Generator) -> dict:
+    """Each layout-probe kernel against its plain version on the tool's
+    inputs (bit for bit, M4 within the tool's tolerance), then at ragged
+    shapes: several row blocks and column tiles, offsets clamped below 0
+    and past the end, a roll by 77, a matmul with ragged K, N and rows, and
+    M6 at ``M6_SHAPES``. Returns {probe key: max abs error}."""
+    dev = torch.device("cuda")
+    t = mosaic_probes.inputs(dev)
+    errs = {}
+    for key, (kern, plain, *_rest) in probe_cases(t).items():
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        errs[key] = _probe_err(key, got, ref, "the tool's inputs")
+    x = torch.randn(300, 200, generator=gen, device=dev)
+    xb = x.to(torch.bfloat16)
+    wm = torch.randn(132, 68, generator=gen, device=dev)
+    xm = torch.randn(100, 132, generator=gen, device=dev)
+    ragged = [(_KEYS[0], "300x200 f32 rows 5..155",
+               lp.row_slice(x, 5, 150), lp.row_slice_plain(x, 5, 150)),
+              (_KEYS[1], "300x200 bf16 rows 9..300",
+               lp.row_slice(xb, 9, 291), lp.row_slice_plain(xb, 9, 291)),
+              (_KEYS[4], "300x200 bf16 roll 77",
+               lp.roll_rows(xb, 77), lp.roll_rows_plain(xb, 77)),
+              (_KEYS[3], "100x132 @ 132x68 rows 7..77",
+               lp.row_slice_matmul(xm, wm, 7, 70),
+               lp.row_slice_matmul_plain(xm, wm, 7, 70))]
+    for s in (-4, 1000, 131):
+        sd = torch.tensor([s], dtype=torch.int32, device=dev)
+        ragged.append((_KEYS[2], f"300x200 f32 offset {s}, 100 rows",
+                       lp.row_slice_dynamic(x, sd, 100),
+                       lp.row_slice_dynamic_plain(x, sd, 100)))
+    for h, wp, c, w in M6_SHAPES:
+        xp = torch.randn(h, wp, c, generator=gen, device=dev)
+        ragged.append((_KEYS[6], f"xp {h}x{wp}x{c}, w {w}",
+                       lp.sum_width_shifts(xp, w),
+                       lp.sum_width_shifts_plain(xp, w)))
+    torch.cuda.synchronize()
+    for key, what, got, ref in ragged:
+        errs[key] = max(errs[key], _probe_err(key, got, ref, what))
+    print(f"layout probes: every kernel equals its plain version on the "
+          f"tool's inputs and at {len(ragged)} other shapes (bit for bit; "
+          f"M4 within rtol {M4_RTOL}, atol {M4_ATOL})", flush=True)
+    return errs
+
+
+def device_ms(fn) -> float:
+    """Device-busy ms per call over ``mosaic_probes.ITERS`` calls after a
+    warm-up (``perf_probe.time_op``, as the probe tool times its kernels)."""
+    return perf_probe.time_op(fn, mosaic_probes.ITERS,
+                              torch.device("cuda"))[1]
+
+
+def m6_conv_stage() -> None:
+    """M6 at the conv stage of ``M6_SHAPES``: kernel, plain and library
+    device times beside the byte bound, and the kernel's by CUDA events."""
+    h, wp, c, w = M6_SHAPES[0]
+    xp = torch.randn(h, wp, c, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    r = {"ms": device_ms(lambda: lp.sum_width_shifts(xp, w)),
+         "events_ms": cuda_ms(lambda: lp.sum_width_shifts(xp, w)),
+         "plain_ms": device_ms(lambda: lp.sum_width_shifts_plain(xp, w)),
+         "library_ms": device_ms(
+             lambda: xp.unfold(1, 3, 1)[:, :w].sum(-1)),
+         "bound_ms": bound_ms(0, 4 * h * c * (2 * w + 2))[0]}
+    print(f"M6 sum_width_shifts at xp {h}x{wp}x{c} -> {h}x{w}x{c} f32, "
+          f"device-busy ms per call: kernel {r['ms']:.5f} "
+          f"({r['events_ms']:.5f} by events), plain {r['plain_ms']:.5f}, "
+          f"library "
+          f"{r['library_ms']:.5f}, byte bound {r['bound_ms']:.5f}: kernel "
+          f"at {r['bound_ms'] / r['ms']:.3f} of it ({bench.card()})",
+          flush=True)
+
+
+def phase_probes(gen: torch.Generator) -> list:
+    """Phase 11: the slice's entry point, ``python -m
+    pytorch_camvid_tpu_torch.mosaic_probes`` (through
+    ``mosaic_probes.main``), with each probe's launches counted; then the
+    kernels against their plain versions (``probe_checks``), the plain and
+    library times and M6 at a conv stage. Returns the JSON entries."""
+    torch.cuda.synchronize()
+    reset_counts()
+    records = []
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mosaic_probes.main([], records)
+    torch.cuda.synchronize()
+    counts = lp.launches()
+    print(buf.getvalue(), end="", flush=True)
+    per = mosaic_probes.calls_per_probe("cuda")
+    print(f"mosaic_probes: launches {counts} ({per} per probe: the checked "
+          f"call, {perf_probe.WARMUP} warm-up and {mosaic_probes.ITERS} "
+          f"timed)", flush=True)
+    check(rc == 0, "mosaic_probes exit code")
+    check([r["key"] for r in records] == _KEYS
+          and all(r["ok"] and r["launches"] == per for r in records),
+          "mosaic_probes: a probe failed or its kernel launched other than "
+          "once per call")
+    check(counts == {k: n * per for k, n in PROBE_WRAPPER_RUNS.items()},
+          "layout probe launches in the tool's run")
+    errs = probe_checks(gen)
+    rec = {r["key"]: r for r in records}
+    cases = probe_cases(mosaic_probes.inputs("cuda"))
+    entries = []
+    for name, keys, line in PROBE_SITES:
+        e = {"name": name, "route": "cuda",
+             "source": "pytorch_camvid_tpu_torch/csrc/layout_probes.cu",
+             "replaces": f"tools/mosaic_probes.py:{line}",
+             "launches": sum(rec[k]["launches"] for k in keys),
+             "max_abs_err": max(errs[k] for k in keys),
+             "ms": sum(rec[k]["ms"] for k in keys),
+             "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
+             "library_ms": 0.0}
+        for k in keys:
+            _, plain, lib, flops, nbytes, peak = cases[k]
+            e["plain_ms"] += device_ms(plain)
+            e["library_ms"] += device_ms(lib)
+            b, e["bound_by"] = bound_ms(flops, nbytes, peak)
+            e["bound_ms"] += b
+        gross = sum(rec[k]["ms_gross"] for k in keys)
+        print(f"{name} ({'+'.join(keys)}), device-busy ms per call: kernel "
+              f"{e['ms']:.5f} ({gross:.5f} by events), plain "
+              f"{e['plain_ms']:.5f}, library {e['library_ms']:.5f}, bound "
+              f"{e['bound_ms']:.3g} by {e['bound_by']}", flush=True)
+        entries.append(e)
+    m6_conv_stage()
+    return entries
+
+
 # ------------------------------------------------------------------ main
 
 def summed_bound(n: int, piece: str, shapes) -> tuple:
@@ -1057,12 +1280,12 @@ POOL_REPLACES = {
 
 
 def start() -> None:
-    """Phases 1 and 2: the device, then the four kernel sources built in
+    """Phases 1 and 2: the device, then the five kernel sources built in
     parallel; TF32 off for the plain versions."""
     print(f"device: torch {torch.__version__} (CUDA {torch.version.cuda}); "
           f"{bench.card()}", flush=True)
     sources = (fused_conv.SOURCE, conv_train.WGRAD_SOURCE, fused_pool.SOURCE,
-               fused_conv_pair.SOURCE)
+               fused_conv_pair.SOURCE, lp.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(cuda_build.build, sources))
     for path, secs, log in builds:
@@ -1094,6 +1317,8 @@ def main() -> int:
     pair = pair_checks(torch.Generator(device="cuda").manual_seed(SEED),
                        timed=True)[(PAIR_BATCH,) + PAIR_SHAPES[0]]
     pair_launches = phase_pair_probe()
+    probe_entries = phase_probes(
+        torch.Generator(device="cuda").manual_seed(SEED))
     check("jax" not in sys.modules, "jax was imported")
 
     kernels = conv_entries(sums["unet"], unet_serve["conv3x3_bn_relu"],
@@ -1115,6 +1340,8 @@ def main() -> int:
         "ms": pair["ms"], "plain_ms": pair["plain_ms"],
         "bound_ms": pair["bound_ms"], "bound_by": pair["bound_by"],
         "library_ms": pair["library_ms"]})
+    kernels += probe_entries
+    check(len(kernels) == 16, "one JSON entry per ported kernel")
     print(json.dumps({"kernels": kernels}))
     print(bench.card())
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,7 @@ from pytorch_camvid_tpu_torch.train import (TrainState, adamw,
 # other cards
 H100_BF16_PEAK = 989e12
 H100_HBM_RATE = 3.35e12
+H100_F32_PEAK = 67e12   # f32 FLOP/s outside the tensor cores
 MAX_LR = 5e-4  # OneCycle's peak lr, as the JAX bench (bench.py:134)
 
 

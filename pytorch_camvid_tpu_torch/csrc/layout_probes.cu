@@ -1,0 +1,388 @@
+// Layout probes for Hopper (sm_90a): the six kernels of
+// tools/mosaic_probes.py, each asking on the H100 the question its TPU
+// kernel asked of the Mosaic compiler: can a kernel read a staged tile at a
+// row or width offset that is not aligned, and what does it cost?
+//
+// Replaces the TPU kernels of tools/mosaic_probes.py (each a pallas_call):
+//   M1 :59   probe_a     x[1:33, :] of a VMEM ref, f32    rows_kernel<float>
+//   M2 :70   probe_a16   the same in bf16                 rows_kernel<bf16>
+//   M3 :82   probe_b     x[s:s+32, :], s an int32 in SMEM rows_kernel DYNAMIC
+//   M4 :98   probe_b_mm  x[1:33] @ w on the MXU, f32      slice_matmul_kernel
+//   M5 :113  probe_c     pltpu.roll(x, 1, axis 0)         rows_kernel ROLL
+//   M6 :137  probe_d     3 DMAs of xp at width offsets    width_shifts_kernel
+//                        0/1/2 into VMEM, summed
+//
+// rows_kernel (M1, M2, M3, M5). A block owns up to RT output rows of one
+// 512-byte column tile. It stages the source rows, starting at the row
+// s0 & ~7 below the first source row s0 (an 8-row boundary, the TPU's
+// sublane tile), into shared memory with 16-byte cp.async, and then writes
+// its output rows from the staged tile at the unaligned row offset
+// s0 - (s0 & ~7): global memory is never read at the offset. The three
+// modes differ only in s0: a static start (M1, M2), an int32 start read
+// from device memory by the kernel and clamped to [0, rows - n] as
+// lax.dynamic_slice clamps (M3: the host never reads it), and the rotation
+// (M5: s0 = (r0 - shift) mod rows, the staged rows wrapping at the end).
+// One template serves f32 and bf16: the kernel moves bytes.
+//
+// slice_matmul_kernel (M4). out = x[start:start+n] @ w in f32 on the tensor
+// cores, fed from a shared tile at an odd row offset. A block computes 32
+// rows x 64 columns; each 32-deep K chunk of x is staged from the 8-row
+// boundary below its first row, and the A fragments of mma.sync.m16n8k8
+// are loaded from shared memory at the unaligned row (row + off, off in
+// 0..7). TF32 keeps 10 mantissa bits: one TF32 product per term has ~1e-3
+// relative error, and over K = 256 terms of N(0,1) x N(0,1) the worst of
+// 4,096 outputs can pass the tool's atol of 5e-2. So each operand is split
+// into a TF32 high part and a TF32 residual, and three products are summed
+// (lo*hi + hi*lo + hi*hi; the lo*lo term is below f32's rounding): f32
+// accuracy, ~1e-6 relative, at three tensor-core products per term.
+//
+// width_shifts_kernel (M6). out[h, j, :] = (xp[h, j] + xp[h, j+1]) +
+// xp[h, j+2] for j < w. The TPU kernel copied xp three times, at width
+// offsets 0, 1 and 2, from HBM into VMEM with async copies signalled on DMA
+// semaphores. The Hopper counterpart is the bulk async-copy engine: one
+// thread issues three cp.async.bulk copies per tile, one per width offset,
+// from the one global array into shared memory, each completing on one
+// mbarrier (arrive.expect_tx with the three copies' bytes, then
+// try_wait.parity). A tile is one row h and up to TILE_BYTES of columns
+// (all C channels): the TPU kernel's 983 KB of VMEM does not fit a block's
+// 227 KB. A row's width slab is contiguous, so a 1-D bulk copy takes it with
+// no tensor map; bulk copies need 16-byte aligned addresses and sizes, so C
+// must be a multiple of 4 (checked here and by the wrapper). The sum is
+// taken in the plain version's order, so the result is bit-equal to it.
+// The three offsets are arguments; the probe's are 0, 1 and 2.
+//
+// What bounds them on the H100: bytes (3.35 TB/s). At the tool's shapes
+// each moves 64 KB to 720 KB, a bound of 2e-5 to 2e-4 ms, so every probe
+// there is bound by its launch; at a conv stage's shape (M6 at
+// 360 x 488 x 64) the bound is ~0.026 ms and the time says something about
+// the copy engine.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+namespace {
+
+// ------------------------------------------------------------- helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; src_bytes == 0 zero-fills the destination.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// ------------------------------------------------ rows (M1, M2, M3, M5)
+
+constexpr int ROW_THREADS = 256;
+constexpr int RT = 64;              // output rows per block
+constexpr int CT_BYTES = 512;       // bytes of a row per column tile
+
+enum RowMode { STATIC = 0, DYNAMIC = 1, ROLL = 2 };
+
+template <typename T>
+__global__ void __launch_bounds__(ROW_THREADS)
+    rows_kernel(const T* __restrict__ x, T* __restrict__ out,
+                const int* __restrict__ s_dev, int mode, int rows,
+                int row_bytes, int n, int start_or_shift) {
+  __shared__ __align__(16) unsigned char tile[(RT + 7) * CT_BYTES];
+  const int r0 = blockIdx.y * RT;              // first output row
+  const int nr = min(RT, n - r0);              // output rows of the block
+  const int c0 = blockIdx.x * CT_BYTES;        // first byte of the tile
+  const int chunks = min(CT_BYTES, row_bytes - c0) / 16;
+  int s0;                                      // source row of output r0
+  if (mode == ROLL) {
+    s0 = static_cast<int>(
+        (static_cast<int64_t>(r0) + rows - start_or_shift) % rows);
+  } else {
+    int s = mode == DYNAMIC ? *s_dev : start_or_shift;
+    s = min(max(s, 0), rows - n);              // lax.dynamic_slice's clamp
+    s0 = s + r0;
+  }
+  const int a0 = s0 & ~7;                      // the 8-row boundary below
+  const int off = s0 - a0;                     // unaligned offset, 0..7
+  const int staged = off + nr;
+  const auto* xb = reinterpret_cast<const unsigned char*>(x);
+  for (int i = threadIdx.x; i < staged * chunks; i += ROW_THREADS) {
+    const int r = i / chunks, c = i % chunks;
+    const int src = (a0 + r) % rows;           // wraps only for ROLL
+    cp_async16(tile + r * CT_BYTES + c * 16,
+               xb + static_cast<int64_t>(src) * row_bytes + c0 + c * 16, 16);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  auto* ob = reinterpret_cast<unsigned char*>(out);
+  for (int i = threadIdx.x; i < nr * chunks; i += ROW_THREADS) {
+    const int r = i / chunks, c = i % chunks;
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(tile + (off + r) * CT_BYTES + c * 16);
+    *reinterpret_cast<uint4*>(ob + static_cast<int64_t>(r0 + r) * row_bytes +
+                              c0 + c * 16) = v;
+  }
+}
+
+// --------------------------------------------------- slice matmul (M4)
+
+constexpr int MM_THREADS = 128;     // 4 warps: 2 row halves x 2 col halves
+constexpr int BM = 32;              // output rows per block
+constexpr int BN = 64;              // output columns per block
+constexpr int KT = 32;              // K per staged chunk
+constexpr int AP = KT + 4;          // A row pitch (floats): conflict-free
+constexpr int BP = BN + 8;          // B row pitch (floats): conflict-free
+
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo, both TF32: hi keeps v's top 11 significant bits, lo the next.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(MM_THREADS)
+    slice_matmul_kernel(const float* __restrict__ x,
+                        const float* __restrict__ w, float* __restrict__ out,
+                        int rows, int K, int N, int start, int n) {
+  __shared__ __align__(16) float As[(BM + 7) * AP];
+  __shared__ __align__(16) float Bs[KT * BP];
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int s0 = start + m0;                   // source row of output m0
+  const int a0 = s0 & ~7;
+  const int off = s0 - a0;                     // 1 for the tool's probe
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp & 1) * 16, wn = (warp >> 1) * 32;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += KT) {
+    // x rows a0 .. a0 + BM + 6 (zero past the source rows and the slice's
+    // end or K), then w rows k0 .. k0 + KT - 1, columns n0 .. n0 + BN - 1
+    for (int i = threadIdx.x; i < (BM + 7) * (KT / 4); i += MM_THREADS) {
+      const int r = i / (KT / 4), c = (i % (KT / 4)) * 4;
+      const int src = a0 + r, k = k0 + c;
+      const bool ok = src < rows && src < start + n && k < K;
+      cp_async16(&As[r * AP + c],
+                 ok ? x + static_cast<int64_t>(src) * K + k : x, ok ? 16 : 0);
+    }
+    for (int i = threadIdx.x; i < KT * (BN / 4); i += MM_THREADS) {
+      const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
+      const int k = k0 + r, col = n0 + c;
+      const bool ok = k < K && col < N;
+      cp_async16(&Bs[r * BP + c],
+                 ok ? w + static_cast<int64_t>(k) * N + col : w, ok ? 16 : 0);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < KT; kk += 8) {
+      // A fragment of rows wm .. wm + 15 of the slice: shared rows
+      // off + wm + g and off + wm + g + 8, at the unaligned offset
+      const float* ap = &As[(off + wm + g) * AP + kk + t];
+      uint32_t ah[4], al[4];
+      split_tf32(ap[0], ah[0], al[0]);
+      split_tf32(ap[8 * AP], ah[1], al[1]);
+      split_tf32(ap[4], ah[2], al[2]);
+      split_tf32(ap[8 * AP + 4], ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* bp = &Bs[(kk + t) * BP + wn + j * 8 + g];
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(bp[0], bh0, bl0);
+        split_tf32(bp[4 * BP], bh1, bl1);
+        mma_tf32_1688(acc[j], al, bh0, bh1);
+        mma_tf32_1688(acc[j], ah, bl0, bl1);
+        mma_tf32_1688(acc[j], ah, bh0, bh1);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + wn + j * 8 + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm + g + 8 * h;
+      if (row >= n) continue;
+      float* o = out + static_cast<int64_t>(row) * N + col;
+      if (col < N) o[0] = acc[j][2 * h];
+      if (col + 1 < N) o[1] = acc[j][2 * h + 1];
+    }
+  }
+}
+
+// ------------------------------------------------- width shifts (M6)
+
+constexpr int WS_THREADS = 256;
+constexpr int TILE_BYTES = 16384;   // one copy's bytes at most: 3 per tile
+
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__global__ void __launch_bounds__(WS_THREADS)
+    width_shifts_kernel(const float* __restrict__ xp, float* __restrict__ out,
+                        int Wp, int C, int w, int tile_w, int tiles_w, int d0,
+                        int d1, int d2) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bar;
+  const int h = blockIdx.x / tiles_w;
+  const int j0 = (blockIdx.x % tiles_w) * tile_w;
+  const int cols = min(tile_w, w - j0);
+  const uint32_t bytes = static_cast<uint32_t>(cols) * C * 4;
+  const uint32_t stride = static_cast<uint32_t>(tile_w) * C * 4;
+  const uint32_t bar_a = smem_u32(&bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar_a),
+                 "r"(1));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            bar_a),
+        "r"(3 * bytes)
+        : "memory");
+    const int d[3] = {d0, d1, d2};
+    const float* row = xp + static_cast<int64_t>(h) * Wp * C;
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      bulk_g2s(smem_u32(smem + q * stride),
+               row + static_cast<int64_t>(j0 + d[q]) * C, bytes, bar_a);
+  }
+  mbar_wait(bar_a, 0);
+  const float4* s0 = reinterpret_cast<const float4*>(smem);
+  const float4* s1 = reinterpret_cast<const float4*>(smem + stride);
+  const float4* s2 = reinterpret_cast<const float4*>(smem + 2 * stride);
+  float4* o = reinterpret_cast<float4*>(
+      out + (static_cast<int64_t>(h) * w + j0) * C);
+  for (int i = threadIdx.x; i < static_cast<int>(bytes / 16);
+       i += WS_THREADS) {
+    const float4 a = s0[i], b = s1[i], c = s2[i];
+    o[i] = make_float4(__fadd_rn(__fadd_rn(a.x, b.x), c.x),
+                       __fadd_rn(__fadd_rn(a.y, b.y), c.y),
+                       __fadd_rn(__fadd_rn(a.z, b.z), c.z),
+                       __fadd_rn(__fadd_rn(a.w, b.w), c.w));
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+}  // namespace
+
+// Each returns a cudaError_t as int (0 on success) and does not
+// synchronize.
+
+// M1, M2, M3, M5: out (n, cols) from x (rows, cols); dtype 0 = bf16,
+// 1 = f32; mode 0 static start, 1 start read from s_dev[0], 2 roll by
+// `start_or_shift` in [0, rows) (then n == rows).
+extern "C" int layout_rows(const void* x, void* out, const int* s_dev,
+                           int mode, int dtype, int rows, int cols, int n,
+                           int start_or_shift, void* stream) {
+  const int item = dtype == 0 ? 2 : 4;
+  const int64_t row_bytes = static_cast<int64_t>(cols) * item;
+  if (rows <= 0 || cols <= 0 || n <= 0 || n > rows || row_bytes % 16 ||
+      row_bytes > 2147483647LL || !aligned16(x) || !aligned16(out) ||
+      mode < 0 || mode > 2 || (mode == DYNAMIC && s_dev == nullptr) ||
+      (mode == STATIC && (start_or_shift < 0 || start_or_shift + n > rows)) ||
+      (mode == ROLL && (n != rows || start_or_shift < 0 ||
+                        start_or_shift >= rows)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t ty = (static_cast<int64_t>(n) + RT - 1) / RT;
+  if (ty > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((row_bytes + CT_BYTES - 1) / CT_BYTES),
+                  static_cast<unsigned>(ty));
+  auto st = static_cast<cudaStream_t>(stream);
+  const int rb = static_cast<int>(row_bytes);
+  if (dtype == 0)
+    rows_kernel<__nv_bfloat16><<<grid, ROW_THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
+        s_dev, mode, rows, rb, n, start_or_shift);
+  else
+    rows_kernel<float><<<grid, ROW_THREADS, 0, st>>>(
+        static_cast<const float*>(x), static_cast<float*>(out), s_dev, mode,
+        rows, rb, n, start_or_shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// M4: out (n, N) = x[start:start+n] (x is (rows, K)) @ w (K, N), all f32.
+extern "C" int layout_slice_matmul(const float* x, const float* w,
+                                   float* out, int rows, int K, int N,
+                                   int start, int n, void* stream) {
+  if (rows <= 0 || K <= 0 || N <= 0 || n <= 0 || start < 0 ||
+      start + n > rows || K % 4 || N % 4 || !aligned16(x) || !aligned16(w) ||
+      (n + BM - 1) / BM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + BN - 1) / BN, (n + BM - 1) / BM);
+  slice_matmul_kernel<<<grid, MM_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(x, w, out, rows,
+                                                             K, N, start, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// M6: out (H, w, C) = xp[:, d0:d0+w] + xp[:, d1:d1+w] + xp[:, d2:d2+w],
+// xp (H, Wp, C), all f32, summed in that order.
+extern "C" int layout_sum_width_shifts(const float* xp, float* out, int H,
+                                       int Wp, int C, int w, int d0, int d1,
+                                       int d2, void* stream) {
+  const int d_max = d0 > d1 ? (d0 > d2 ? d0 : d2) : (d1 > d2 ? d1 : d2);
+  if (H <= 0 || Wp <= 0 || C <= 0 || w <= 0 || C % 4 || d0 < 0 || d1 < 0 ||
+      d2 < 0 || d_max + w > Wp || !aligned16(xp) || !aligned16(out) ||
+      static_cast<int64_t>(C) * 4 > TILE_BYTES)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tile_w = std::min(w, TILE_BYTES / (C * 4));
+  const int tiles_w = (w + tile_w - 1) / tile_w;
+  const int64_t blocks = static_cast<int64_t>(H) * tiles_w;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 3 * tile_w * C * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      width_shifts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  width_shifts_kernel<<<static_cast<unsigned>(blocks), WS_THREADS, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      xp, out, Wp, C, w, tile_w, tiles_w, d0, d1, d2);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -58,6 +58,8 @@ def test_port_imports_no_jax(tmp_path):
             "import pytorch_camvid_tpu_torch.profile\n"
             "import pytorch_camvid_tpu_torch.perf_probe\n"
             "import pytorch_camvid_tpu_torch.ops.fused_conv_pair\n"
+            "import pytorch_camvid_tpu_torch.ops.layout_probes\n"
+            "import pytorch_camvid_tpu_torch.mosaic_probes\n"
             "import pytorch_camvid_tpu_torch.data.augment\n"
             "import pytorch_camvid_tpu_torch.data.pipeline\n"
             "import pytorch_camvid_tpu_torch.data.synthetic\n"
