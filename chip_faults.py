@@ -96,6 +96,16 @@ def zero_one_dw(ctx, g):
     return dx, dw
 
 
+def dx_taps_not_reversed(x, w, a, b, relu=True, flip=False):
+    """K1's dx launched with the tap reversal flag off: the same launch
+    on the same path, its weights transposed (a copy) but read in forward
+    tap order."""
+    if flip:
+        return fused_conv.conv3x3_bn_relu(
+            x, w.transpose(2, 3).contiguous(), a, b, relu)
+    return fused_conv.conv3x3_bn_relu(x, w, a, b, relu, flip)
+
+
 _pair_launch = fused_conv_pair._launch
 
 
@@ -165,6 +175,9 @@ def main() -> int:
          lambda: planted(train, "backward", staticmethod(zero_one_dw))),
         ("training", "K1 forward output x1.01 (every launch)",
          lambda: planted(train, "forward", staticmethod(k1_gain))),
+        ("training", "K1 dx with the tap reversal flag off (every launch)",
+         lambda: planted(conv_train, "conv3x3_bn_relu",
+                         dx_taps_not_reversed)),
         ("K5", "K5 output rows of each pair swapped",
          lambda: planted(fused_conv_pair, "_launch", pair_rows_swapped)),
         ("K5", "K5 with one dx tap dropped",

@@ -9,28 +9,38 @@ Phases (each prints its lines; any failure exits non-zero):
    parallel: the fused conv3x3+BN+ReLU (K4), the conv3x3 weight gradient
    (K1's dW), the 2x2 max pool / unpool / phase gather (K3, K2), the
    shallow H-pair conv3x3+BN+ReLU (K5) and the six layout probes (M1-M6);
-   prints ptxas's register and spill lines.
+   prints ptxas's register and spill lines. Then checks that the built
+   libraries choose the same kernel path (wgmma or narrow) as the
+   wrappers' rules (``fused_conv.conv_path``, ``conv_train.wgrad_path``)
+   at every (Cin, Cout) the phases below run.
 3. K4 vs plain: the kernel against its plain PyTorch version in bf16 at
    every distinct conv block shape of UNet and SegNet at 360x480, batch 8:
-   error, both times and cuDNN's conv alone (CUDA events).
+   error, both times and cuDNN's conv alone (CUDA events); then at
+   ``EDGE_SHAPES`` (ragged tiles, a part chunk, Cin 1024, the head's N = 16
+   tile, a partial N tile, an input past 2**31 elements).
 4. K1 vs plain at each model's block shapes at its training batch (UNet
-   24, SegNet 32): forward and dx (K4's kernel, unit affine, no ReLU)
-   against F.conv2d and torch.nn.grad.conv2d_input, dW against the f32
-   plain version; kernel, plain and cuDNN-bf16-wgrad times. Then, per
-   model, K4's and K1's times summed over its blocks beside their bounds.
+   24, SegNet 32): forward and dx (K4's kernel, unit affine, no ReLU; dx
+   reads the weights tap-reversed in place) against F.conv2d and
+   torch.nn.grad.conv2d_input, dW against the f32 plain version; kernel,
+   plain and cuDNN-bf16-wgrad times; then the three pieces at
+   ``EDGE_SHAPES``. Then, per model, K4's and K1's times summed over its
+   blocks beside their bounds.
 5. UNet serving: a full-width UNet (random He-scaled weights from a seed)
    saved as a reference-named .pth, loaded by ``Predictor.from_checkpoint``
    and serving three requests (8 images, 13 images, 8 images at 480x640
    that are resized on the device). Checks the class maps, that every
    forward launched K4 once per conv block, the logits of the kernel path
-   against the plain path, and measures serving throughput.
+   against the plain path, and measures serving throughput. Each forward
+   runs 22 blocks on the wgmma path and the stem on the narrow one.
 6. UNet training: full-width UNet, batch 24, 360x480, bf16, synthetic
    uint8 data resident on the card, the port's ``make_train_step`` with
    the default augmentation, AdamW and OneCycle. One step on the kernel
    path and one on the plain path from the same state: loss, per-leaf
    gradients (norm and difference) and BN running stats must agree
    (``train_parity``); the kernel step must launch 23 forward, 22 dx and
-   23 dW kernels. Then 20 timed steps (img/s, step ms, MFU, peak memory)
+   23 dW kernels, of them 22, 21 and 21 on the wgmma path (the stem's
+   forward and dW, the head's dx and dW on the narrow one). Then 20 timed
+   steps (img/s, step ms, MFU, peak memory)
    with a finite loss throughout.
 7. K3 and K2 vs plain at SegNet's five pool shapes (K3 at batch 8, K2 at
    batch 32, bf16): pool, unpool and phase gather must equal their plain
@@ -38,10 +48,12 @@ Phases (each prints its lines; any failure exits non-zero):
    bf16 and f32, vector and scalar channel counts) and NaN in a window.
    Kernel, plain and library-call times and the share of the byte bound.
 8. SegNet serving: as phase 5 with a full-width SegNet; every forward
-   launches K4 26 times and the K3 pool and unpool 5 times each.
+   launches K4 26 times (25 on the wgmma path) and the K3 pool and unpool
+   5 times each.
 9. SegNet training: as phase 6 at batch 32; the kernel step launches K1
-   26/25/26 times, the K2 pool 5, the phase unpool 10 (5 unpools and 5
-   pool backwards) and the phase gather 5 times.
+   26/25/26 times (25/24/24 on the wgmma path), the K2 pool 5, the phase
+   unpool 10 (5 unpools and 5 pool backwards) and the phase gather 5
+   times.
 10. K5 and the per-shape probe: K5 against its plain version in bf16 at
    perf_probe's ``shallow64`` shapes at batch 24 (360x480, 64->64 and
    128->64, with ReLU), the raw ``conv3x3_pair`` with a bias at 64->64,
@@ -75,7 +87,8 @@ plants faults that these checks must catch.
 
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card and its power limit; the line before that is the per-kernel JSON
-(16 entries: K4, K1's three pieces, the five pool kernels, K5, M1-M6).
+(16 entries: K4, K1's three pieces, the five pool kernels, K5, M1-M6; K4's
+and K1's also give their launches on each path, ``path_launches``).
 Imports neither jax nor cv2.
 """
 
@@ -143,6 +156,16 @@ PAIR_SHAPES = ((360, 480, 64, 64), (360, 480, 128, 64))
 PAIR_EXTRA = ((1, 46, 61, 64, 64), (2, 22, 30, 128, 64), (1, 46, 61, 48, 32),
               (100, 360, 480, 128, 64))
 PAIR_PROBE_K = 10
+# phases 3 and 4: both conv sources at ragged and edge shapes, (N, H, W,
+# Cin, Cout): partial tiles (H 45, W 61), 44x60 and 22x30, a part chunk
+# (Cin 48) with Cout 32, Cin 1024, the head's N = 16 tile (Cout 12 and 16;
+# its dx, Cin 12, takes the narrow path), a partial N tile (Cout 24), and
+# an input past 2**31 elements (64-bit offsets)
+EDGE_SHAPES = ((2, 45, 61, 64, 64), (2, 44, 60, 512, 256),
+               (2, 22, 30, 512, 512), (2, 46, 61, 48, 32),
+               (2, 22, 30, 1024, 512), (2, 45, 61, 64, 12),
+               (2, 45, 61, 64, 16), (2, 45, 61, 64, 24),
+               (100, 360, 480, 128, 64))
 
 
 def check(cond: bool, what: str) -> None:
@@ -195,10 +218,7 @@ def phase_kernels(gen: torch.Generator):
     res = {}
     for shape in all_block_shapes():
         h, w, cin, cout = shape
-        x = torch.randn(BATCH, h, w, cin, generator=gen, device=dev
-                        ).to(torch.bfloat16)
-        wt = (torch.randn(3, 3, cin, cout, generator=gen, device=dev)
-              * (2.0 / (9 * cin)) ** 0.5).to(torch.bfloat16)
+        x, wt = conv_inputs(gen, BATCH, h, w, cin, cout)
         a = torch.rand(cout, generator=gen, device=dev) + 0.5
         b = torch.randn(cout, generator=gen, device=dev) * 0.1
         got = fused_conv.conv3x3_bn_relu(x, wt, a, b)
@@ -220,7 +240,58 @@ def phase_kernels(gen: torch.Generator):
               f"(its cuDNN conv alone {conv_ms:.4f} ms)", flush=True)
         check(err <= KERNEL_TOL * scale, f"kernel vs plain at {shape}")
         res[shape] = (err, ms, plain_ms, conv_ms)
+    for n, h, w, cin, cout in EDGE_SHAPES:
+        x, wt = conv_inputs(gen, n, h, w, cin, cout)
+        a = torch.rand(cout, generator=gen, device=dev) + 0.5
+        b = torch.randn(cout, generator=gen, device=dev) * 0.1
+        err, scale = _rel_err(fused_conv.conv3x3_bn_relu(x, wt, a, b),
+                              fused_conv.conv3x3_bn_relu_plain(x, wt, a, b))
+        print(f"kernel {n}x{h}x{w} {cin}->{cout} "
+              f"({fused_conv.conv_path(cin, cout)} path): max|err| "
+              f"{err:.4g} / max|ref| {scale:.4g} = {err / scale:.3g} (tol "
+              f"{KERNEL_TOL})", flush=True)
+        check(err <= KERNEL_TOL * scale,
+              f"kernel vs plain at {(n, h, w, cin, cout)}")
+        del x, wt
+        torch.cuda.empty_cache()
     return res
+
+
+def conv_inputs(gen: torch.Generator, n, h, w, cin, cout) -> tuple:
+    """x (n,h,w,cin) and He-scaled HWIO weights, bf16 on the card."""
+    x = torch.randn(n, h, w, cin, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    wt = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda")
+          * (2.0 / (9 * cin)) ** 0.5).to(torch.bfloat16)
+    return x, wt
+
+
+def k1_edge_checks(gen: torch.Generator) -> None:
+    """K1's forward, dx and dW against their plain versions at
+    ``EDGE_SHAPES`` (K1_TOL)."""
+    for n, h, w, cin, cout in EDGE_SHAPES:
+        x, wt = conv_inputs(gen, n, h, w, cin, cout)
+        g = torch.randn(n, h, w, cout, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        line = [f"K1 {n}x{h}x{w} {cin}->{cout}:"]
+        for name, kern, plain, path in (
+                ("fwd", lambda: conv_train.conv3x3_fwd(x, wt),
+                 lambda: conv_train.conv3x3_train_plain(x, wt),
+                 fused_conv.conv_path(cin, cout)),
+                ("dx", lambda: conv_train.conv3x3_dgrad(g, wt),
+                 lambda: conv_train.conv3x3_dgrad_plain(g, wt),
+                 fused_conv.conv_path(cout, cin)),
+                ("wgrad", lambda: conv_train.conv3x3_wgrad(x, g),
+                 lambda: conv_train.conv3x3_wgrad_plain(x, g),
+                 conv_train.wgrad_path(cin, cout))):
+            err, scale = _rel_err(kern(), plain())
+            line.append(f"{name} ({path}) {err / scale:.3g} (tol "
+                        f"{K1_TOL[name]});")
+            check(err <= K1_TOL[name] * scale,
+                  f"K1 {name} at {(n, h, w, cin, cout)}")
+        print(" ".join(line), flush=True)
+        del x, wt, g
+        torch.cuda.empty_cache()
 
 
 def phase_k1(gen: torch.Generator):
@@ -233,12 +304,9 @@ def phase_k1(gen: torch.Generator):
                        for s in dict.fromkeys(bench.block_shapes(net, HW))):
         h, w, cin, cout = shape
         n = TRAIN_BATCH[net]
-        x = torch.randn(n, h, w, cin, generator=gen, device=dev
-                        ).to(torch.bfloat16)
+        x, wt = conv_inputs(gen, n, h, w, cin, cout)
         g = torch.randn(n, h, w, cout, generator=gen, device=dev
                         ).to(torch.bfloat16)
-        wt = (torch.randn(3, 3, cin, cout, generator=gen, device=dev)
-              * (2.0 / (9 * cin)) ** 0.5).to(torch.bfloat16)
         pieces = {
             "fwd": (lambda: conv_train.conv3x3_fwd(x, wt),
                     lambda: conv_train.conv3x3_train_plain(x, wt)),
@@ -268,6 +336,7 @@ def phase_k1(gen: torch.Generator):
         line.append(f"cuDNN bf16 wgrad {cudnn_ms:.4f} ms")
         got_shape["cudnn_wgrad_ms"] = cudnn_ms
         print(" ".join(line), flush=True)
+    k1_edge_checks(gen)
     return res
 
 
@@ -446,7 +515,7 @@ def n_blocks(net: str) -> int:
 
 
 def reset_counts() -> None:
-    fused_conv.conv3x3_bn_relu.launches = 0
+    fused_conv.reset_launches()
     fused_conv_pair.conv3x3_pair_bn_relu.launches = 0
     conv_train.reset_launches()
     fused_pool.reset_launches()
@@ -455,6 +524,15 @@ def reset_counts() -> None:
 
 def train_counts() -> dict:
     return {**conv_train.launches(), **fused_pool.launches()}
+
+
+def path_counts(net: str, steps: int) -> dict:
+    """K1's launches on each path in ``steps`` kernel-path steps of ``net``
+    ({piece: {path: launches}}); a forward's K4 launches are the "fwd"
+    entry's."""
+    return {piece: {p: k * steps for p, k in paths.items()}
+            for piece, paths in conv_train.step_path_launches(
+                bench.block_shapes(net, HW)).items()}
 
 
 def expected_train_counts(net: str, steps: int) -> dict:
@@ -676,8 +754,10 @@ def one_step(model, batch, plain: bool, choices=None) -> dict:
         state, met = step(state, batch)
     torch.cuda.synchronize()
     counts = train_counts()
+    paths = conv_train.path_launches()
     # AdamW's first moment after one update from zero is (1 - beta1) g
-    out = {"loss": float(met["loss"]), "counts": counts, "shadow": shadow,
+    out = {"loss": float(met["loss"]), "counts": counts, "paths": paths,
+           "shadow": shadow,
            "choices": made,
            "grads": {k: v / (1.0 - met["beta1"])
                      for k, v in state.opt_state["m"].items()},
@@ -715,13 +795,14 @@ def train_parity(net: str, model, batch) -> dict:
     running stats must agree, and so must the per-leaf gradients where
     ``GRADS_END_TO_END``; every kernel call of the kernel step must agree
     with its plain version on the same inputs (``shadowed_kernels``).
-    Returns the kernel path's launches."""
+    Returns the kernel path's launches and K1's on each path."""
     k = one_step(model, batch, plain=False)
     p = one_step(model, batch, plain=True, choices=k["choices"])
     print(f"{net} train step b{TRAIN_BATCH[net]}: loss kernel "
           f"{k['loss']:.6f} plain {p['loss']:.6f} (plain path at the kernel "
           f"path's {len(k['choices'])} pool choices); launches kernel path "
-          f"{k['counts']}, plain path {p['counts']}", flush=True)
+          f"{k['counts']}, plain path {p['counts']}; K1 on each path "
+          f"{k['paths']}", flush=True)
     loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
     norm_errs, diff_errs = grad_errors(model, k["grads"], p["grads"])
     stat_errs = {n: ((k["stats"][n] - v).abs().max()
@@ -748,6 +829,7 @@ def train_parity(net: str, model, batch) -> dict:
               for piece, e in k["shadow"].items()), flush=True)
     check(k["counts"] == expected_train_counts(net, 1),
           f"{net} launches per step")
+    check(k["paths"] == path_counts(net, 1), f"{net} K1 launches per path")
     want = [p for p in SHADOW_TOL if POOLS[net] or p.startswith("K1")]
     check(sorted(k["shadow"]) == sorted(want), f"{net} kernel pieces seen")
     for piece, e in k["shadow"].items():
@@ -759,13 +841,13 @@ def train_parity(net: str, model, batch) -> dict:
     if GRADS_END_TO_END[net]:
         check(worst_n[1] <= TRAIN_GRAD_TOL, "grad norms kernel vs plain")
         check(worst_d[1] <= TRAIN_GRAD_DIFF_TOL, "grads kernel vs plain")
-    return k["counts"]
+    return k["counts"], k["paths"]
 
 
 def phase_train(net: str, cpu_gen: torch.Generator):
     """One step on each path from the same state, then the timed run."""
     model, batch = train_setup(net, cpu_gen)
-    counts = train_parity(net, model, batch)
+    counts, paths = train_parity(net, model, batch)
     b = TRAIN_BATCH[net]
     for plain in (False, True):
         m = copy.deepcopy(model)
@@ -773,21 +855,26 @@ def phase_train(net: str, cpu_gen: torch.Generator):
         r = bench.measure_train(m, b, TRAIN_STEPS, hw=HW, plain=plain,
                                 seed=SEED)
         r["counts"] = train_counts()
+        r["paths"] = conv_train.path_launches()
         print(f"{net} train {'plain' if plain else 'kernel'} path: "
               f"{r['images_per_sec']:.2f} img/s, step {r['step_ms']:.2f} ms, "
               f"MFU {r['mfu']:.4f}, peak memory "
               f"{r['max_memory_allocated'] / 2 ** 30:.2f} GiB, losses "
               f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, launches "
               f"{r['counts']} ({TRAIN_STEPS} steps + 3 warm-up, batch "
-              f"{b}, {HW[0]}x{HW[1]}) on {bench.card()}", flush=True)
+              f"{b}, {HW[0]}x{HW[1]}; K1 on each path {r['paths']}) on "
+              f"{bench.card()}", flush=True)
         check(r["finite"], "non-finite training loss")
-        want = expected_train_counts(net, 0 if plain else TRAIN_STEPS + 3)
-        check(r["counts"] == want, f"{net} launches in the timed run")
+        steps = 0 if plain else TRAIN_STEPS + 3
+        check(r["counts"] == expected_train_counts(net, steps),
+              f"{net} launches in the timed run")
+        check(r["paths"] == path_counts(net, steps),
+              f"{net} K1 launches per path in the timed run")
         del m
         torch.cuda.empty_cache()
     del model, batch
     torch.cuda.empty_cache()
-    return counts
+    return counts, paths
 
 
 def logits_parity(net: str, model, x_u8: torch.Tensor) -> torch.Tensor:
@@ -838,6 +925,8 @@ def phase_slice(net: str, cpu_gen: torch.Generator,
         torch.cuda.synchronize()
         launches = {"conv3x3_bn_relu": fused_conv.conv3x3_bn_relu.launches,
                     **fused_pool.launches()}
+        paths = dict(fused_conv.conv3x3_bn_relu.path_launches)
+        want_paths = path_counts(net, forwards)["fwd"]
         want = {"conv3x3_bn_relu": nb * forwards,
                 "maxpool2x2.pool_flat": pools * forwards,
                 "maxpool2x2.unpool_flat": pools * forwards,
@@ -845,12 +934,15 @@ def phase_slice(net: str, cpu_gen: torch.Generator,
                 "maxpool2x2.phase_gather": 0}
         print(f"{net} serving: {[len(r) for r in requests]} images in "
               f"{forwards} forwards; launches {launches} (expected "
-              f"{want})", flush=True)
+              f"{want}); K4 on each path {paths} (expected {want_paths})",
+              flush=True)
         for r, o in zip(requests, outs):
             check(o.shape == (len(r),) + HW and o.dtype == np.uint8,
                   f"class map shape {o.shape} {o.dtype}")
             check(int(o.max()) < 12, "class index >= 12")
         check(launches == want, f"{net} launches per forward")
+        check(paths == want_paths, f"{net} K4 launches per path")
+        launches["conv3x3_bn_relu_paths"] = paths
 
         # kernel path vs plain path on one batch, same normalized input
         xn = logits_parity(net, predictor.model,
@@ -1245,25 +1337,31 @@ def conv_sums(per_shape, k1) -> dict:
     return sums
 
 
-def conv_entries(unet_sums, serve_launches, k1_counts):
+def conv_entries(unet_sums, serve, k1):
     """The JSON entries of K4 and K1's three pieces: UNet's sums, as in
-    earlier runs (``conv_sums``); launches from the main paths."""
+    earlier runs (``conv_sums``); launches from the main paths, in all and
+    on each kernel path (``serve``: UNet serving's launches; ``k1``: UNet's
+    training step's (counts, per-path counts))."""
     src = "pytorch_camvid_tpu_torch/csrc/"
+    counts, paths = k1
     entries = []
-    for piece, name, source, replaces, launches in (
+    for piece, name, source, replaces, launches, by_path in (
             ("k4", "conv3x3_bn_relu", "conv3x3_bn_relu.cu",
-             "pytorch_camvid_tpu/ops/pallas_conv.py:230", serve_launches),
-            ("fwd", "conv3x3_train.fwd", "conv3x3_bn_relu.cu",
-             "pytorch_camvid_tpu/ops/pallas_conv.py:230", k1_counts["fwd"]),
-            ("dx", "conv3x3_train.dgrad", "conv3x3_bn_relu.cu",
              "pytorch_camvid_tpu/ops/pallas_conv.py:230",
-             k1_counts["dgrad"]),
+             serve["conv3x3_bn_relu"], serve["conv3x3_bn_relu_paths"]),
+            ("fwd", "conv3x3_train.fwd", "conv3x3_bn_relu.cu",
+             "pytorch_camvid_tpu/ops/pallas_conv.py:230", counts["fwd"],
+             paths["fwd"]),
+            ("dx", "conv3x3_train.dgrad", "conv3x3_bn_relu.cu",
+             "pytorch_camvid_tpu/ops/pallas_conv.py:230", counts["dgrad"],
+             paths["dgrad"]),
             ("wgrad", "conv3x3_train.wgrad", "conv3x3_wgrad.cu",
              "pytorch_camvid_tpu/ops/pallas_conv_train.py:172",
-             k1_counts["wgrad"])):
+             counts["wgrad"], paths["wgrad"])):
         entries.append({"name": name, "route": "cuda",
                         "source": src + source, "replaces": replaces,
-                        "launches": launches, **unet_sums[piece]})
+                        "launches": launches, **unet_sums[piece],
+                        "path_launches": by_path})
     return entries
 
 
@@ -1290,9 +1388,22 @@ def start() -> None:
         builds = list(pool.map(cuda_build.build, sources))
     for path, secs, log in builds:
         regs = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "registers" in ln or "spill" in ln
+                or "Performance" in ln]
         print(f"build: {path.name} in {secs:.1f} s; ptxas: "
               f"{' | '.join(regs)}", flush=True)
+    pairs = {(cin, cout) for net in TRAIN_BATCH
+             for _, _, cin, cout in bench.block_shapes(net, HW)}
+    pairs |= {(cin, cout) for *_, cin, cout in EDGE_SHAPES}
+    pairs |= {(cout, cin) for cin, cout in pairs}   # the dx calls
+    for cin, cout in sorted(pairs):
+        check(fused_conv.kernel_path(cin, cout)
+              == fused_conv.conv_path(cin, cout)
+              and conv_train.wgrad_kernel_path(cin, cout)
+              == conv_train.wgrad_path(cin, cout),
+              f"kernel path rule of the libraries at {cin}->{cout}")
+    print(f"paths: the libraries and the wrappers choose alike at "
+          f"{len(pairs)} (Cin, Cout) pairs", flush=True)
     torch.cuda.synchronize()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1321,10 +1432,10 @@ def main() -> int:
         torch.Generator(device="cuda").manual_seed(SEED))
     check("jax" not in sys.modules, "jax was imported")
 
-    kernels = conv_entries(sums["unet"], unet_serve["conv3x3_bn_relu"],
-                           unet_train)
+    kernels = conv_entries(sums["unet"], unet_serve, unet_train)
     for name, t in pools.items():
-        launches = (seg_serve if name.endswith("flat") else seg_train)[name]
+        launches = (seg_serve if name.endswith("flat")
+                    else seg_train[0])[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "pytorch_camvid_tpu_torch/csrc/maxpool2x2.cu",

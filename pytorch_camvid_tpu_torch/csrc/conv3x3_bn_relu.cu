@@ -6,42 +6,85 @@
 //
 // Replaces the TPU kernel pytorch_camvid_tpu/ops/pallas_conv.py::_conv3x3_impl
 // (body _conv_kernel): the eval-mode conv+BN+ReLU block with BN folded into
-// (A, B). The TPU-only workarounds of that kernel (the Cin<128 zero pad, the
-// flat 8-aligned padded layout with its garbage columns, the cross-grid-step
-// DMA prefetch, the VMEM tile picker) have no counterpart here: the halo comes
-// from bounds checks (cp.async zero-fill), ragged tiles are masked at the
-// store, and any Cin / Cout / H / W is taken without padding device memory.
+// (A, B), and through ops/conv_train.py the training conv's forward
+// (pallas_conv_train.py::_conv3x3_fwd) and input gradient (_vjp_bwd). The
+// TPU-only workarounds of that kernel (the Cin<128 zero pad, the flat
+// 8-aligned padded layout with its garbage columns, the cross-grid-step DMA
+// prefetch, the VMEM tile picker) have no counterpart here.
 //
-// Design: an implicit GEMM. M = output pixels, N = output channels,
-// K = 9 taps x Cin. One block of 8 warps computes an output tile of
-// TH x TW = 8 x 16 pixels x BN = 64 channels. Per chunk of KC = 32 input
-// channels it stages, double-buffered with cp.async, the (TH+2) x (TW+2)
-// input patch (one-pixel halo) and the (3,3,KC,BN) weight slice in shared
-// memory; each warp then walks the 9 taps, reading its A fragments straight
-// out of the patch at the tap's offset (ldmatrix takes one row address per
-// lane, so the shifted window needs no copy) and its B fragments with
-// ldmatrix.trans, and accumulates on the tensor cores (mma.sync m16n8k16 bf16,
-// f32 accumulators in registers). The epilogue applies acc*A+B, ReLU, and
-// stores bf16. Offsets into x and out are 64-bit.
+// ``flip`` = 1 computes the input gradient of a conv with forward weights
+// w (3,3,Cout,Cin) (this call's Cin is that conv's Cout): the taps are read
+// reversed and the two channel axes swapped, W'[t][ci][co] = w[8-t][co][ci],
+// in place, with no weight copy.
+//
+// Two paths, chosen by conv3x3_bn_relu_path(Cin, Cout) (the wrapper holds
+// the same rule, ops/fused_conv.py::conv_path):
+//
+// * wgmma (Cin % 8 == 0 and Cout % 8 == 0; or Cout <= 16 with Cin <= 128,
+//   the head). An implicit GEMM, M = output pixels, N = output channels,
+//   K = 9 taps x Cin in 64-channel chunks, on a warp-specialised persistent
+//   block of three warpgroups: two producer threads of the third issue TMA
+//   loads into rings guarded by full/empty mbarriers, one for the patches
+//   and one for the weights, so neither ring waits for the other; two
+//   consumer warpgroups run wgmma.m64nNk16 (bf16, f32 accumulators in
+//   registers), and setmaxnreg moves registers from the producers to them.
+//   Per chunk one TMA box loads the (TH+2) x 18 x 64 input patch with the
+//   128-byte swizzle through a 4-D tensor map over x (C, W, H, N): the
+//   halo's coordinates lie outside the image and TMA fills them with zero,
+//   so there are no bounds checks. The weights come one tap at a time
+//   (64 x N bf16), N-major W[tap][ci][co] for the forward (the descriptor's
+//   transpose bit set) or K-major W[8-tap][co][ci] for flip. A is read from
+//   registers: each warp loads its 16 pixels x 16 channels of tap (dy, dx)
+//   with ldmatrix straight out of the patch at the tap's shifted row, the
+//   swizzle XOR in the address, so one staged patch serves all 9 taps
+//   (option (a); three shifted copies for A in shared memory would take 3x
+//   the patch's shared memory and halve the tile). The wgmmas of two (RES:
+//   four) k16 steps go out as one commit group, their A fragments
+//   double-buffered across groups (wgmma.wait_group 1). Tiles: TW = 16
+//   columns, each warp one output row per m64 tile, 128 accumulators per
+//   consumer thread: N = 256 (TH = 8) or 128 (TH = 16) by Cout, streaming
+//   the weights through a 3- or 4-stage ring; N = 64 with Cin > 64 (TH =
+//   32, 4 stages); N = 64 with Cin <= 64 (RES, TH = 16), whose 9 taps stay
+//   resident (a block keeps one channel tile: the grid is a multiple of the
+//   channel tiles); Cout <= 16 (the 64->12 head, whose 24-byte weight and
+//   output rows TMA cannot describe) takes an N = 16 tile whose 9 x Cin x
+//   16 weights are loaded once per block, zero-padded, into a no-swizzle
+//   K-major tile. The epilogue is acc * A[co] + B[co], the optional ReLU
+//   and bf16; each warp writes its output row into shared memory (128-byte
+//   swizzle, conflict-free) and hands it to a TMA store that runs while the
+//   next tile's wgmmas do and drops what lies past H, W or Cout (the head
+//   stores directly, masked).
+// * narrow (every other shape: the Cin = 3 stem, the head's input gradient
+//   with Cin = 12): the first design, mma.sync m16n8k16 from a cp.async
+//   double-buffered patch and weight slice, scalar loads where a channel
+//   count is not a multiple of 8 or the weights are read under flip.
 //
 // What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s: ridge ~295
-// FLOP/byte): every UNet shape with Cin, Cout >= 64 has 290 to several
-// thousand FLOP per byte of input+output, so it is compute-bound; the design
-// keeps the tensor cores fed from shared memory with conflict-free ldmatrix
-// strides and reuses each staged patch for 9 taps x 64 channels. The Cin=3
-// stem (~26 FLOP/byte) and the Cout=12 head (~90) are bound by bytes: the
-// kernel reads each input pixel once per 64 output channels (plus a
-// (TH+2)(TW+2)/(TH*TW) = 1.4x halo re-read, mostly from L2) and writes the
-// output once, with no im2col or padded copy in device memory. On those two
-// shapes this simple tiling still wastes most of its MMA work (3 of 32 input
-// channels, 12 of 64 output channels) and stages them with scalar loads;
-// wgmma, TMA, narrow tiles and tuning are left for later work.
+// FLOP/byte): every block shape with Cin, Cout >= 64 has 290 to several
+// thousand FLOP per byte of input+output, so it is compute-bound if the
+// tensor cores are fed. They are fed from shared memory: a wgmma
+// m64nNk16 reads its 32N-byte B there whatever N is (64 B per cycle at the
+// tensor cores' rate) and the A fragments cost 4096/N more (ldmatrix), so
+// N = 64 needs the SM's whole 128 B per cycle, N = 128 96 and N = 256 80.
+// Shared memory, more than L2, bounds it: at N = 256 the weights are
+// re-read from L2 for every 128-pixel tile (2.9 GB per call at 22x30
+// 1024->1024, batch 24), yet those shapes run at 0.5-0.7 of the tensor
+// rate, and the N = 64 shapes at about half of it. ptxas serializes each
+// warpgroup's wgmmas in the instances that hold 128 accumulators and
+// stream their weights, for want of registers; the two consumer
+// warpgroups overlap one another's. The epilogue's TMA store took 40% off
+// the shallow shapes, whose direct 4-byte stores had bound them. The head
+// (~90 FLOP/byte) and the stem (~26) are bound by bytes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace {
+
+using sm90::smem_u32;
+
+// ================================================================ narrow
+
+namespace narrow {
 
 constexpr int TH = 8;            // output rows per block tile
 constexpr int TW = 16;           // output cols per block tile (= one m16 tile)
@@ -59,10 +102,6 @@ constexpr int WTILE_ELEMS = 9 * KC * BNP;
 constexpr int STAGE_ELEMS = PATCH_ELEMS + WTILE_ELEMS;
 constexpr int SMEM_BYTES = 2 * STAGE_ELEMS * 2;  // two stages of bf16
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16-byte async copy; src_bytes == 0 zero-fills the destination.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -78,19 +117,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
                                                const uint32_t (&a)[4],
                                                uint32_t b0, uint32_t b1) {
@@ -105,8 +131,9 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
 // (n, h0, w0) and the matching weight slice for output channels [n0, n0+BN).
 // VEC_X: Cin % 8 == 0 and x 16-byte aligned -> 16-byte cp.async per 8
 // channels; otherwise scalar loads (the Cin=3 stem). VEC_W likewise for
-// Cout % 8 == 0 (the Cout=12 head takes the scalar path).
-template <bool VEC_X, bool VEC_W>
+// Cout % 8 == 0 (the Cout=12 head and every FLIP call take scalar loads).
+// FLIP reads W'[tap][ci][co] = w[8-tap][co][ci].
+template <bool VEC_X, bool VEC_W, bool FLIP>
 __device__ __forceinline__ void stage_chunk(
     __nv_bfloat16* patch, __nv_bfloat16* wt, const __nv_bfloat16* __restrict__ x,
     const __nv_bfloat16* __restrict__ w, int n, int h0, int w0, int n0, int c0,
@@ -155,20 +182,22 @@ __device__ __forceinline__ void stage_chunk(
       const int tap = row / KC, k = row % KC;
       const int ci = c0 + k, co = n0 + j;
       const bool ok = ci < Cin && co < Cout;
-      wt[row * BNP + j] =
-          ok ? w[(static_cast<int64_t>(tap) * Cin + ci) * Cout + co] : zero;
+      // the weights hold < 2^31 elements (checked by the wrapper)
+      const int idx = FLIP ? ((8 - tap) * Cout + co) * Cin + ci
+                           : (tap * Cin + ci) * Cout + co;
+      wt[row * BNP + j] = ok ? w[idx] : zero;
     }
   }
 }
 
-template <bool VEC_X, bool VEC_W>
+template <bool VEC_X, bool VEC_W, bool FLIP>
 __global__ void __launch_bounds__(THREADS, 2)
-    conv3x3_bn_relu_kernel(const __nv_bfloat16* __restrict__ x,
-                           const __nv_bfloat16* __restrict__ w,
-                           const float* __restrict__ scale,
-                           const float* __restrict__ shift,
-                           __nv_bfloat16* __restrict__ out, int N, int H,
-                           int W, int Cin, int Cout, int relu) {
+    conv3x3_bn_relu_narrow_kernel(const __nv_bfloat16* __restrict__ x,
+                          const __nv_bfloat16* __restrict__ w,
+                          const float* __restrict__ scale,
+                          const float* __restrict__ shift,
+                          __nv_bfloat16* __restrict__ out, int N, int H,
+                          int W, int Cin, int Cout, int relu) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
 
@@ -211,15 +240,15 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int b_off = (lane & 15) * BNP + wn * 32 + (lane >> 4) * 8;
 
   const int nchunks = (Cin + KC - 1) / KC;
-  stage_chunk<VEC_X, VEC_W>(smem, smem + PATCH_ELEMS, x, w, n, h0, w0, n0, 0,
-                            H, W, Cin, Cout);
+  stage_chunk<VEC_X, VEC_W, FLIP>(smem, smem + PATCH_ELEMS, x, w, n, h0, w0,
+                                  n0, 0, H, W, Cin, Cout);
   cp_async_commit();
 
   for (int c = 0; c < nchunks; ++c) {
     if (c + 1 < nchunks) {
       __nv_bfloat16* nxt = smem + ((c + 1) & 1) * STAGE_ELEMS;
-      stage_chunk<VEC_X, VEC_W>(nxt, nxt + PATCH_ELEMS, x, w, n, h0, w0, n0,
-                                (c + 1) * KC, H, W, Cin, Cout);
+      stage_chunk<VEC_X, VEC_W, FLIP>(nxt, nxt + PATCH_ELEMS, x, w, n, h0,
+                                      w0, n0, (c + 1) * KC, H, W, Cin, Cout);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -239,13 +268,13 @@ __global__ void __launch_bounds__(THREADS, 2)
         uint32_t a[2][4];
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
-          ldmatrix_x4(a[mt], patch_s + 2 * (a_off[mt] +
-                                            (dy * PW + dx) * KCP + kk));
+          sm90::ldmatrix_x4(a[mt], patch_s + 2 * (a_off[mt] +
+                                                  (dy * PW + dx) * KCP + kk));
         uint32_t b[2][4];
 #pragma unroll
         for (int j = 0; j < 2; ++j)
-          ldmatrix_x4_trans(b[j], wt_s + 2 * (b_off + (tap * KC + kk) * BNP +
-                                              j * 16));
+          sm90::ldmatrix_x4_trans(
+              b[j], wt_s + 2 * (b_off + (tap * KC + kk) * BNP + j * 16));
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -296,12 +325,12 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-template <bool VEC_X, bool VEC_W>
+template <bool VEC_X, bool VEC_W, bool FLIP>
 cudaError_t launch(const __nv_bfloat16* x, const __nv_bfloat16* w,
                    const float* a, const float* b, __nv_bfloat16* out, int N,
                    int H, int W, int Cin, int Cout, int relu,
                    cudaStream_t stream) {
-  auto kern = conv3x3_bn_relu_kernel<VEC_X, VEC_W>;
+  auto kern = conv3x3_bn_relu_narrow_kernel<VEC_X, VEC_W, FLIP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
@@ -313,32 +342,529 @@ cudaError_t launch(const __nv_bfloat16* x, const __nv_bfloat16* w,
   return cudaGetLastError();
 }
 
+cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                const float* a, const float* b, __nv_bfloat16* out, int N,
+                int H, int W, int Cin, int Cout, int relu, int flip,
+                cudaStream_t st) {
+  const bool vec_x =
+      Cin % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool vec_w = !flip && Cout % 8 == 0 &&
+                     (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  if (flip)
+    return vec_x ? launch<true, false, true>(x, w, a, b, out, N, H, W, Cin,
+                                             Cout, relu, st)
+                 : launch<false, false, true>(x, w, a, b, out, N, H, W, Cin,
+                                              Cout, relu, st);
+  if (vec_x && vec_w)
+    return launch<true, true, false>(x, w, a, b, out, N, H, W, Cin, Cout,
+                                     relu, st);
+  if (vec_x)
+    return launch<true, false, false>(x, w, a, b, out, N, H, W, Cin, Cout,
+                                      relu, st);
+  if (vec_w)
+    return launch<false, true, false>(x, w, a, b, out, N, H, W, Cin, Cout,
+                                      relu, st);
+  return launch<false, false, false>(x, w, a, b, out, N, H, W, Cin, Cout,
+                                     relu, st);
+}
+
+}  // namespace narrow
+
+// ================================================================= wgmma
+
+namespace wg {
+
+constexpr int TW = 16;           // output columns per tile: one warp's m16
+constexpr int PW = TW + 2;       // patch columns (with halo)
+constexpr int THREADS = 384;     // warpgroups 0, 1 consume; 2 produces
+constexpr int CONSUMER_WARPS = 8;
+constexpr int RES_MAX_CIN = 128;  // the N = 16 tile keeps 9 x Cin x 16
+
+// RES: Cin <= 64, one chunk, so a block's weights change only with its
+// output-channel tile; the 9 taps (BN = 64) stay resident in a 9-stage ring
+// and are loaded again only when the next tile's channels differ.
+template <int BN, bool RES>
+struct Tile {
+  static constexpr int MT = BN == 16 ? 4 : RES ? 2 : 256 / BN;  // m64 / WG
+  static constexpr int TH = 8 * MT;  // 2 WGs x MT x 4 output rows
+  static constexpr int PH = TH + 2;
+  static constexpr int PATCH_TX = PH * PW * 128;  // one 64-channel box
+  static constexpr int PATCH_BYTES = (PATCH_TX + 1023) / 1024 * 1024;
+  static constexpr int P_STAGES = 2;
+  static constexpr int W_STAGES = BN == 16 ? 0 : RES ? 9 : BN == 256 ? 3 : 4;
+  static constexpr int W_BYTES = BN * 128;  // one tap: 64 (K) x BN bf16
+  static constexpr int RES_BYTES = BN == 16 ? 9 * RES_MAX_CIN * 16 * 2 : 0;
+  // output staging for the TMA store: per consumer warp, one output row
+  // of 16 pixels x BN channels as BN/64 boxes of 16 x 128 bytes
+  static constexpr int OUT_WARP_BYTES = BN == 16 ? 0 : 16 * BN * 2;
+  static constexpr int BAR_OFF = P_STAGES * PATCH_BYTES + W_STAGES * W_BYTES +
+                                 RES_BYTES + CONSUMER_WARPS * OUT_WARP_BYTES;
+  static constexpr int SMEM = BAR_OFF + 2 * (P_STAGES + W_STAGES) * 8 + 1024;
+};
+
+// Shared-memory descriptor of B for one k16 step ``kk`` of a weight stage.
+// N-major (TNSPB 1): TMA wrote BN/64 boxes of 64 K-rows x 128 bytes, one
+// per 64 output channels, 8192 bytes apart (leading byte offset); 8 K-rows
+// are 1024 bytes (stride byte offset); a k16 step is 16 rows. K-major
+// (TNSPB 0): BN rows of 128 bytes (64 K), 8 rows 1024 bytes apart; a k16
+// step is 32 bytes along the swizzled row.
+template <int TNSPB>
+__device__ __forceinline__ uint64_t b_desc(uint32_t stage, int kk) {
+  if constexpr (TNSPB == 1)
+    return sm90::wgmma_desc(stage + kk * 2048, 8192, 1024, 1);
+  else
+    return sm90::wgmma_desc(stage + kk * 32, 16, 1024, 1);
+}
+
+template <int BN, int TNSPB, bool RES>
+__global__ void __launch_bounds__(THREADS, 1)
+    conv3x3_bn_relu_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap wmap,
+                         const __grid_constant__ CUtensorMap omap,
+                         const __nv_bfloat16* __restrict__ w,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ shift,
+                         __nv_bfloat16* __restrict__ out, int N, int H, int W,
+                         int Cin, int Cout, int relu, int flip) {
+  using T = Tile<BN, RES>;
+  constexpr int MT = T::MT, TH = T::TH, P = T::P_STAGES, S = T::W_STAGES;
+  // k16 steps per wgmma commit group: 4 where the registers allow (RES,
+  // 64 accumulators), else 2 (at 4, ptxas serializes the wgmmas)
+  constexpr int G = RES ? 4 : 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  unsigned char* patch = smem;
+  unsigned char* wring = smem + P * T::PATCH_BYTES;
+  unsigned char* res = wring + S * T::W_BYTES;
+  unsigned char* ostage = res + T::RES_BYTES;
+  uint64_t* pfull = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
+  uint64_t* pempty = pfull + P;
+  uint64_t* wfull = pempty + P;
+  uint64_t* wempty = wfull + S;
+
+  const int tiles_w = (W + TW - 1) / TW;
+  const int tiles_h = (H + TH - 1) / TH;
+  const int tiles_n = (Cout + BN - 1) / BN;
+  const int total = N * tiles_h * tiles_w * tiles_n;  // < 2^31 (host)
+  const int nch = (Cin + 63) / 64;
+  // tile -> (image, row, column, cout tile), the cout tile fastest so
+  // blocks that share an input patch run together
+  auto origin = [&](int t, int& img, int& h0, int& w0, int& n0) {
+    n0 = t % tiles_n * BN;
+    t /= tiles_n;
+    w0 = t % tiles_w * TW;
+    t /= tiles_w;
+    h0 = t % tiles_h * TH;
+    img = t / tiles_h;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < P; ++i) {
+      sm90::mbar_init(&pfull[i], 1);
+      sm90::mbar_init(&pempty[i], CONSUMER_WARPS);
+    }
+    for (int i = 0; i < S; ++i) {
+      sm90::mbar_init(&wfull[i], 1);
+      sm90::mbar_init(&wempty[i], CONSUMER_WARPS);
+    }
+    sm90::fence_barrier_init();
+  }
+  if constexpr (BN == 16) {
+    // Resident weights, zero-padded to 16 output channels and to whole
+    // 64-channel chunks: block (chunk, tap, k16 step) of 512 bytes holds
+    // 16 (N) x 16 (K) as four 8x8 core matrices, K-major, no swizzle
+    // (8-row groups 256 bytes apart, the two K halves 128 bytes apart).
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    for (int i = threadIdx.x; i < nch * 9 * 64 * 16; i += THREADS) {
+      const int n = i & 15, k = (i >> 4) & 63, t = (i >> 10) % 9,
+                c = (i >> 10) / 9;
+      const int ci = c * 64 + k;
+      __nv_bfloat16 v = zero;
+      if (ci < Cin && n < Cout)
+        v = flip ? w[(static_cast<int64_t>(8 - t) * Cout + n) * Cin + ci]
+                 : w[(static_cast<int64_t>(t) * Cin + ci) * Cout + n];
+      const int kl = k & 15;
+      const int off = ((c * 9 + t) * 4 + (k >> 4)) * 512 + (n >> 3) * 256 +
+                      (kl >> 3) * 128 + (n & 7) * 16 + (kl & 7) * 2;
+      *reinterpret_cast<__nv_bfloat16*>(res + off) = v;
+    }
+    sm90::fence_proxy_async();
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    // ----------------------------------------------------- producers
+    // One thread streams the patches, another (in another warp) the
+    // weights, so a patch is fetched as soon as its slot is free, a whole
+    // tile ahead, whatever the weight ring is waiting for.
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      sm90::prefetch_tensormap(&xmap);
+      uint32_t pit = 0;
+      for (int t = blockIdx.x; t < total; t += gridDim.x) {
+        int img, h0, w0, n0;
+        origin(t, img, h0, w0, n0);
+        for (int c = 0; c < nch; ++c, ++pit) {
+          const int ps = pit % P;
+          sm90::mbar_wait(&pempty[ps], ((pit / P) & 1) ^ 1);
+          sm90::mbar_arrive_expect_tx(&pfull[ps], T::PATCH_TX);
+          sm90::tma_load_4d(patch + ps * T::PATCH_BYTES, &xmap, &pfull[ps],
+                            c * 64, w0 - 1, h0 - 1, img);
+        }
+      }
+    } else if (threadIdx.x == 288) {
+      if constexpr (BN != 16) {
+      sm90::prefetch_tensormap(&wmap);
+      uint32_t wit = 0;
+      int res_n0 = -1;
+      for (int t = blockIdx.x; t < total; t += gridDim.x) {
+        const int n0 = t % tiles_n * BN;
+        if (RES && n0 == res_n0) continue;  // the resident taps serve
+        res_n0 = n0;
+        for (int c = 0; c < nch; ++c) {
+          for (int tap = 0; tap < 9; ++tap, ++wit) {
+            const int ws = wit % S;
+            sm90::mbar_wait(&wempty[ws], ((wit / S) & 1) ^ 1);
+            sm90::mbar_arrive_expect_tx(&wfull[ws], T::W_BYTES);
+            unsigned char* dst = wring + ws * T::W_BYTES;
+            if constexpr (TNSPB == 1) {
+#pragma unroll
+              for (int j = 0; j < BN / 64; ++j)
+                sm90::tma_load_3d(dst + j * 8192, &wmap, &wfull[ws],
+                                  n0 + 64 * j, c * 64, tap);
+            } else {
+              sm90::tma_load_3d(dst, &wmap, &wfull[ws], c * 64, n0, 8 - tap);
+            }
+          }
+        }
+      }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    sm90::setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const uint32_t patch0 = smem_u32(patch);
+    const uint32_t wring0 = smem_u32(wring);
+    const uint32_t res0 = smem_u32(res);
+    // patch pixel of tap (0, 0) for this lane's A row in m64 tile mt
+    int pbase[MT];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      pbase[mt] = (wgi * 4 * MT + mt * 4 + warp) * PW + (lane & 15);
+    uint32_t pit = 0, wit = 0;
+    int res_n0 = -1;
+    for (int t = blockIdx.x; t < total; t += gridDim.x) {
+      int img, h0, w0, n0;
+      origin(t, img, h0, w0, n0);
+      if (RES && n0 != res_n0) {  // a new round of resident taps
+        res_n0 = n0;
+        wit += 9;
+      }
+      float acc[MT][BN / 2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.f;
+
+      for (int c = 0; c < nch; ++c, ++pit) {
+        const int ps = pit % P;
+        sm90::mbar_wait(&pfull[ps], (pit / P) & 1);
+        const uint32_t pb = patch0 + ps * T::PATCH_BYTES;
+        // A fragments of G k16 steps (one group, committed together) per
+        // buffer; two buffers, so one group loads while the last runs
+        uint32_t afrag[2][G][MT][4];
+        int ws_prev = 0;
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const int shift_px = (tap / 3) * PW + tap % 3;
+          int ws = 0;
+          uint32_t wb = 0;
+          if constexpr (RES) {  // stage tap of round wit / 9
+            ws = tap;
+            sm90::mbar_wait(&wfull[ws], ((wit - 9) / 9) & 1);
+            wb = wring0 + ws * T::W_BYTES;
+          } else if constexpr (BN != 16) {
+            ws = wit % S;
+            sm90::mbar_wait(&wfull[ws], (wit / S) & 1);
+            wb = wring0 + ws * T::W_BYTES;
+          }
+#pragma unroll
+          for (int gi = 0; gi < 4 / G; ++gi) {
+            const int buf = (tap * (4 / G) + gi) & 1;
+#pragma unroll
+            for (int j = 0; j < G; ++j)
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt)
+                sm90::ldmatrix_x4(afrag[buf][j][mt],
+                                  sm90::swz128(pb, pbase[mt] + shift_px,
+                                               2 * (gi * G + j) + (lane >> 4)));
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int j = 0; j < G; ++j) {
+              const int kk = gi * G + j;
+              uint64_t desc;
+              if constexpr (BN == 16)
+                desc = sm90::wgmma_desc(
+                    res0 + ((c * 9 + tap) * 4 + kk) * 512, 128, 256, 0);
+              else
+                desc = b_desc<TNSPB>(wb, kk);
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt)
+                sm90::wgmma_rs<BN, TNSPB>(acc[mt], afrag[buf][j][mt], desc);
+            }
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<1>();
+            // the previous group, the previous tap's last, has completed:
+            // its weights go
+            if constexpr (BN != 16 && !RES)
+              if (gi == 0 && tap > 0 && lane == 0)
+                sm90::mbar_arrive(&wempty[ws_prev]);
+          }
+          if constexpr (BN != 16 && !RES) {
+            ws_prev = ws;
+            ++wit;
+          }
+        }
+        sm90::wgmma_wait<0>();
+        if (lane == 0) {
+          if constexpr (BN != 16 && !RES) sm90::mbar_arrive(&wempty[ws_prev]);
+          sm90::mbar_arrive(&pempty[ps]);
+        }
+      }
+      if constexpr (RES) {
+        // the round ends with this block's last tile of these channels
+        const int next = t + gridDim.x;
+        if (lane == 0 && (next >= total || next % tiles_n * BN != n0))
+          for (int tap = 0; tap < 9; ++tap) sm90::mbar_arrive(&wempty[tap]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) sm90::fence_regs(acc[mt]);
+
+      // Epilogue. Accumulator i of m64 tile mt: row 16*warp + lane/4
+      // (+8 for i%4 >= 2), i.e. output row h, column lane/4 (+8); channel
+      // 8*(i/4) + 2*(lane%4) + i%2. Each (A, B) pair is read once per tile.
+      if constexpr (BN == 16) {
+        // the head: 24-byte output rows, stored directly, masked
+        const bool pair = Cout % 2 == 0;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int co = n0 + 8 * j + 2 * (lane & 3);
+          if (co >= Cout) continue;
+          const bool two = co + 1 < Cout;
+          const float a0 = scale[co], b0 = shift[co];
+          const float a1 = two ? scale[co + 1] : 0.f;
+          const float b1 = two ? shift[co + 1] : 0.f;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const int h = h0 + wgi * 4 * MT + mt * 4 + warp;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int ww = w0 + (lane >> 2) + 8 * half;
+              if (h >= H || ww >= W) continue;
+              __nv_bfloat16* o =
+                  out + ((static_cast<int64_t>(img) * H + h) * W + ww) * Cout +
+                  co;
+              float v0 = acc[mt][4 * j + 2 * half] * a0 + b0;
+              float v1 = acc[mt][4 * j + 2 * half + 1] * a1 + b1;
+              if (relu) {
+                v0 = fmaxf(v0, 0.f);
+                v1 = fmaxf(v1, 0.f);
+              }
+              if (two && pair) {
+                *reinterpret_cast<__nv_bfloat162*>(o) =
+                    __floats2bfloat162_rn(v0, v1);
+              } else {
+                o[0] = __float2bfloat16(v0);
+                if (two) o[1] = __float2bfloat16(v1);
+              }
+            }
+          }
+        }
+      } else {
+        // Each warp writes its output row (16 pixels x BN channels) into
+        // its staging boxes with the 128-byte swizzle (conflict-free: the
+        // 8 rows of a fragment land in 8 different 16-byte chunks) and
+        // hands them to a TMA store, which runs while the next tile's
+        // wgmmas do; TMA drops what lies past H, W or Cout.
+        unsigned char* st = ostage + (wgi * 4 + warp) * T::OUT_WARP_BYTES;
+        const uint32_t st0 = smem_u32(st);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if (lane == 0) sm90::bulk_wait<0, true>();  // the box was read
+          __syncwarp();
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int co = n0 + 8 * j + 2 * (lane & 3);
+            const bool in = co < Cout;  // Cout % 8 == 0: co + 1 too
+            const float a0 = in ? scale[co] : 0.f, b0 = in ? shift[co] : 0.f;
+            const float a1 = in ? scale[co + 1] : 0.f;
+            const float b1 = in ? shift[co + 1] : 0.f;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              float v0 = acc[mt][4 * j + 2 * half] * a0 + b0;
+              float v1 = acc[mt][4 * j + 2 * half + 1] * a1 + b1;
+              if (relu) {
+                v0 = fmaxf(v0, 0.f);
+                v1 = fmaxf(v1, 0.f);
+              }
+              const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+              const int p = (lane >> 2) + 8 * half;
+              const uint32_t addr = sm90::swz128(st0 + (j / 8) * 2048, p,
+                                                 j % 8) +
+                                    4 * (lane & 3);
+              asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+                           "r"(*reinterpret_cast<const uint32_t*>(&v))
+                           : "memory");
+            }
+          }
+          sm90::fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) {
+            const int h = h0 + wgi * 4 * MT + mt * 4 + warp;
+#pragma unroll
+            for (int b = 0; b < BN / 64; ++b)
+              sm90::tma_store_4d(&omap, st + b * 2048, n0 + 64 * b, w0, h,
+                                 img);
+            sm90::bulk_commit();
+          }
+        }
+      }
+    }
+    if constexpr (BN != 16)
+      if (lane == 0) sm90::bulk_wait<0, false>();  // the stores are done
+  }
+}
+
+// Tile N for Cout: 16 (resident weights), 64, 128 or 256.
+int tile_n(int Cout) {
+  return Cout <= 16 ? 16 : Cout <= 64 ? 64 : Cout <= 128 ? 128 : 256;
+}
+
+template <int BN, int TNSPB, bool RES = false>
+cudaError_t launch(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                   const float* a, const float* b, __nv_bfloat16* out, int N,
+                   int H, int W, int Cin, int Cout, int relu, int flip,
+                   cudaStream_t stream) {
+  using T = Tile<BN, RES>;
+  CUtensorMap xmap, wmap;
+  const uint64_t xd[4] = {static_cast<uint64_t>(Cin),
+                          static_cast<uint64_t>(W), static_cast<uint64_t>(H),
+                          static_cast<uint64_t>(N)};
+  const uint64_t xs[3] = {2ull * Cin, 2ull * Cin * W, 2ull * Cin * W * H};
+  const uint32_t xb[4] = {64, PW, T::PH, 1};
+  if (!sm90::encode_bf16_map(&xmap, x, 4, xd, xs, xb))
+    return cudaErrorInvalidValue;
+  if constexpr (BN != 16) {
+    // forward: (Cout, Cin, 9) in 64 x 64 boxes; flip: (Cin, Cout, 9) with
+    // this call's Cin innermost, in 64 x BN boxes
+    const uint64_t inner = TNSPB == 1 ? Cout : Cin;
+    const uint64_t outer = TNSPB == 1 ? Cin : Cout;
+    const uint64_t wd[3] = {inner, outer, 9};
+    const uint64_t wstr[2] = {2 * inner, 2 * inner * outer};
+    const uint32_t wbox[3] = {64, TNSPB == 1 ? 64u : static_cast<uint32_t>(BN),
+                              1};
+    if (!sm90::encode_bf16_map(&wmap, w, 3, wd, wstr, wbox))
+      return cudaErrorInvalidValue;
+  } else {
+    wmap = xmap;  // unused
+  }
+  CUtensorMap omap = xmap;  // the head (BN 16) stores directly
+  if constexpr (BN != 16) {
+    const uint64_t od[4] = {static_cast<uint64_t>(Cout),
+                            static_cast<uint64_t>(W), static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(N)};
+    const uint64_t os[3] = {2ull * Cout, 2ull * Cout * W,
+                            2ull * Cout * W * H};
+    const uint32_t ob[4] = {64, TW, 1, 1};
+    if (!sm90::encode_bf16_map(&omap, out, 4, od, os, ob))
+      return cudaErrorInvalidValue;
+  }
+  auto kern = conv3x3_bn_relu_wgmma_kernel<BN, TNSPB, RES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const int64_t tiles = static_cast<int64_t>(N) * ((H + T::TH - 1) / T::TH) *
+                        ((W + TW - 1) / TW) * ((Cout + BN - 1) / BN);
+  if (tiles > 2147483647LL) return cudaErrorInvalidConfiguration;
+  // with RES, a grid that is a multiple of the output-channel tiles keeps
+  // each block on one tile of channels, so its taps load once
+  const int tiles_n = (Cout + BN - 1) / BN;
+  int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  if (RES && grid > tiles_n) grid -= grid % tiles_n;
+  kern<<<grid, THREADS, T::SMEM, stream>>>(xmap, wmap, omap, w, a, b, out, N,
+                                           H, W, Cin, Cout, relu, flip);
+  return cudaGetLastError();
+}
+
+cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                const float* a, const float* b, __nv_bfloat16* out, int N,
+                int H, int W, int Cin, int Cout, int relu, int flip,
+                cudaStream_t st) {
+  const int bn = tile_n(Cout);
+  if (Cin <= 64 && (bn == 64 || bn == 128))
+    return flip ? launch<64, 0, true>(x, w, a, b, out, N, H, W, Cin, Cout,
+                                      relu, flip, st)
+                : launch<64, 1, true>(x, w, a, b, out, N, H, W, Cin, Cout,
+                                      relu, flip, st);
+  switch (bn) {
+    case 16:
+      return launch<16, 0>(x, w, a, b, out, N, H, W, Cin, Cout, relu, flip,
+                           st);
+    case 64:
+      return flip ? launch<64, 0>(x, w, a, b, out, N, H, W, Cin, Cout, relu,
+                                  flip, st)
+                  : launch<64, 1>(x, w, a, b, out, N, H, W, Cin, Cout, relu,
+                                  flip, st);
+    case 128:
+      return flip ? launch<128, 0>(x, w, a, b, out, N, H, W, Cin, Cout, relu,
+                                   flip, st)
+                  : launch<128, 1>(x, w, a, b, out, N, H, W, Cin, Cout, relu,
+                                   flip, st);
+    default:
+      return flip ? launch<256, 0>(x, w, a, b, out, N, H, W, Cin, Cout, relu,
+                                   flip, st)
+                  : launch<256, 1>(x, w, a, b, out, N, H, W, Cin, Cout, relu,
+                                   flip, st);
+  }
+}
+
+}  // namespace wg
+
 }  // namespace
 
+// 1: the wgmma path takes (Cin, Cout); 0: the narrow path does.
+extern "C" int conv3x3_bn_relu_path(int Cin, int Cout) {
+  if (Cin % 8 != 0) return 0;
+  return Cout <= 16 ? Cin <= wg::RES_MAX_CIN : Cout % 8 == 0;
+}
+
+// out (N,H,W,Cout) <- x (N,H,W,Cin), w (3,3,Cin,Cout) HWIO, or with flip
+// w (3,3,Cout,Cin) read tap-reversed and transposed; a, b (Cout,) f32.
 extern "C" int conv3x3_bn_relu_bf16(const void* x, const void* w,
                                     const void* a, const void* b, void* out,
                                     int N, int H, int W, int Cin, int Cout,
-                                    int relu, void* stream) {
+                                    int relu, int flip, void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec_x =
-      Cin % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const bool vec_w =
-      Cout % 8 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
   auto xb = static_cast<const __nv_bfloat16*>(x);
   auto wb = static_cast<const __nv_bfloat16*>(w);
   auto af = static_cast<const float*>(a);
   auto bf = static_cast<const float*>(b);
   auto ob = static_cast<__nv_bfloat16*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (vec_x && vec_w)
-    err = launch<true, true>(xb, wb, af, bf, ob, N, H, W, Cin, Cout, relu, st);
-  else if (vec_x)
-    err = launch<true, false>(xb, wb, af, bf, ob, N, H, W, Cin, Cout, relu, st);
-  else if (vec_w)
-    err = launch<false, true>(xb, wb, af, bf, ob, N, H, W, Cin, Cout, relu, st);
-  else
-    err = launch<false, false>(xb, wb, af, bf, ob, N, H, W, Cin, Cout, relu, st);
+  const cudaError_t err =
+      conv3x3_bn_relu_path(Cin, Cout)
+          ? wg::run(xb, wb, af, bf, ob, N, H, W, Cin, Cout, relu, flip, st)
+          : narrow::run(xb, wb, af, bf, ob, N, H, W, Cin, Cout, relu, flip,
+                        st);
   return static_cast<int>(err);
 }

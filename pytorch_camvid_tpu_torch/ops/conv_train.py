@@ -6,17 +6,20 @@ and backward kernels: counterpart of
 
 - forward: ``y = conv3x3(x, w)``, K4's kernel (``fused_conv``) with a unit
   affine and no ReLU, as JAX's ``_conv3x3_fwd``;
-- dx: the same kernel on the cotangent with ``w`` flipped in both spatial
-  axes and its channel axes swapped (the transpose of a pad-1 3x3 conv is a
-  pad-1 3x3 conv). Skipped when x needs no gradient: the stem's input is the
-  image, and its dx would be a Cout=3 launch for nothing;
+- dx: the same kernel on the cotangent with ``flip=True``: it reads ``w``
+  with its taps reversed and its channel axes swapped (the transpose of a
+  pad-1 3x3 conv is a pad-1 3x3 conv), in place, with no weight copy.
+  Skipped when x needs no gradient: the stem's input is the image, and its
+  dx would be a Cout=3 launch for nothing;
 - dW: ``conv3x3_wgrad(x, g)``, the kernel ``csrc/conv3x3_wgrad.cu``, in f32,
   cast to ``w``'s dtype on return as JAX's ``_vjp_bwd`` does.
 
 Each piece has a wrapper (``conv3x3_fwd``, ``conv3x3_dgrad``,
 ``conv3x3_wgrad``) that runs its plain version on a CPU tensor and its
 kernel on a CUDA tensor, or raises; each counts its kernel launches in
-``.launches``. The plain versions are ``conv3x3_train_plain`` (``F.conv2d``,
+``.launches`` and per kernel path (``fused_conv.conv_path``,
+``wgrad_path``: "wgmma" or "narrow") in ``.path_launches``. The plain
+versions are ``conv3x3_train_plain`` (``F.conv2d``,
 differentiated by autograd), ``conv3x3_dgrad_plain``
 (``torch.nn.grad.conv2d_input``) and ``conv3x3_wgrad_plain``
 (``torch.nn.grad.conv2d_weight`` in f32 on the upcast inputs).
@@ -31,11 +34,14 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_camvid_tpu_torch.ops import cuda_build
-from pytorch_camvid_tpu_torch.ops.fused_conv import conv3x3_bn_relu
+from pytorch_camvid_tpu_torch.ops.fused_conv import (PATHS, conv3x3_bn_relu,
+                                                     conv_path)
 
 WGRAD_SOURCE = cuda_build.CSRC / "conv3x3_wgrad.cu"
-# split-K target: 8 blocks per SM (two resident per SM, four waves)
+# split-K target in blocks per SM: the narrow kernel's, and the wgmma
+# kernel's (one resident per SM: two whole waves)
 _BLOCKS_PER_SM = 8
+_WGMMA_BLOCKS_PER_SM = 2
 
 
 def _nchw(t: torch.Tensor) -> torch.Tensor:
@@ -44,11 +50,6 @@ def _nchw(t: torch.Tensor) -> torch.Tensor:
 
 def _oihw(w: torch.Tensor) -> torch.Tensor:
     return w.permute(3, 2, 0, 1)
-
-
-def flip_weight(w: torch.Tensor) -> torch.Tensor:
-    """HWIO (3,3,Cin,Cout) -> the dx conv's (3,3,Cout,Cin) weight."""
-    return w.flip((0, 1)).transpose(2, 3).contiguous()
 
 
 @functools.lru_cache(maxsize=64)
@@ -86,24 +87,38 @@ def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 # ----------------------------------------------------------------- wrappers
 
+def wgrad_path(cin: int, cout: int) -> str:
+    """The dW kernel's path for (Cin, Cout): "wgmma" where TMA can describe
+    x and g (Cin % 8 == 0 and Cout % 8 == 0), "narrow" otherwise (the .cu's
+    ``conv3x3_wgrad_path`` holds the same rule)."""
+    return "wgmma" if cin % 8 == 0 and cout % 8 == 0 else "narrow"
+
+
+def _count(fn, path: str) -> None:
+    fn.launches += 1
+    fn.path_launches[path] += 1
+
+
 def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """conv3x3 pad-1: K4's kernel with a unit affine and no ReLU (on a CPU
     tensor, its plain version)."""
     ones, zeros = _unit_affine(w.shape[3], x.device)
     out = conv3x3_bn_relu(x, w, ones, zeros, relu=False)
     if x.device.type == "cuda":
-        conv3x3_fwd.launches += 1
+        _count(conv3x3_fwd, conv_path(w.shape[2], w.shape[3]))
     return out
 
 
 def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """dx = conv3x3(g, flip_weight(w)), K4's kernel on the cotangent (on a
-    CPU tensor, its plain version)."""
-    wf = flip_weight(w)
-    ones, zeros = _unit_affine(wf.shape[3], g.device)
-    out = conv3x3_bn_relu(g, wf, ones, zeros, relu=False)
-    if g.device.type == "cuda":
-        conv3x3_dgrad.launches += 1
+    """dx (N,H,W,Cin) for the cotangent g (N,H,W,Cout) of a conv with HWIO
+    weights w (3,3,Cin,Cout): K4's kernel on g, reading w tap-reversed and
+    transposed in place (``flip=True``). On a CPU tensor,
+    ``conv3x3_dgrad_plain``."""
+    if g.device.type == "cpu":
+        return conv3x3_dgrad_plain(g, w)
+    ones, zeros = _unit_affine(w.shape[2], g.device)
+    out = conv3x3_bn_relu(g, w, ones, zeros, relu=False, flip=True)
+    _count(conv3x3_dgrad, conv_path(w.shape[3], w.shape[2]))
     return out
 
 
@@ -117,14 +132,30 @@ def _wgrad_library() -> ctypes.CDLL:
     lib.conv3x3_wgrad_pixel_tiles.restype = ctypes.c_longlong
     lib.conv3x3_wgrad_out_tiles.argtypes = [ctypes.c_int] * 2
     lib.conv3x3_wgrad_out_tiles.restype = ctypes.c_longlong
+    lib.conv3x3_wgrad_path.argtypes = [ctypes.c_int] * 2
+    lib.conv3x3_wgrad_path.restype = ctypes.c_int
     return lib
 
 
-def wgrad_splits(pixel_tiles: int, out_tiles: int, sms: int) -> int:
-    """Split-K factor: enough blocks for ``_BLOCKS_PER_SM`` per SM over the
-    kernel's output tiles, at most one split per pixel tile (both counts
-    come from the kernel's library)."""
-    want = -(-_BLOCKS_PER_SM * sms // out_tiles)
+def wgrad_kernel_path(cin: int, cout: int) -> str:
+    """The path the built library takes for (Cin, Cout) (``wgrad_path``'s
+    rule as the .cu holds it; chip_smoke checks that the two agree)."""
+    return PATHS[0] if _wgrad_library().conv3x3_wgrad_path(cin, cout) else \
+        PATHS[1]
+
+
+def wgrad_splits(pixel_tiles: int, out_tiles: int, sms: int,
+                 path: str = "narrow") -> int:
+    """Split-K factor over the kernel's output tiles, at most one split per
+    pixel tile (both counts come from the kernel's library). Narrow path:
+    at least ``_BLOCKS_PER_SM`` blocks per SM. wgmma path (one block
+    resident per SM): at most ``_WGMMA_BLOCKS_PER_SM`` per SM, rounded
+    down, so power-of-two tile counts fill whole waves (at 16 output tiles
+    17 splits would leave a third wave nearly empty)."""
+    if path == "wgmma":
+        want = _WGMMA_BLOCKS_PER_SM * sms // out_tiles
+    else:
+        want = -(-_BLOCKS_PER_SM * sms // out_tiles)
     return max(1, min(want, pixel_tiles, 65535))
 
 
@@ -159,10 +190,12 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     n, h, wd, cin = x.shape
     cout = g.shape[3]
     lib = _wgrad_library()
+    path = wgrad_path(cin, cout)
     with torch.cuda.device(x.device):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         splits = wgrad_splits(lib.conv3x3_wgrad_pixel_tiles(n, h, wd),
-                              lib.conv3x3_wgrad_out_tiles(cin, cout), sms)
+                              lib.conv3x3_wgrad_out_tiles(cin, cout), sms,
+                              path)
         out = torch.empty((3, 3, cin, cout), dtype=torch.float32,
                           device=x.device)
         ws = (torch.empty((splits, 3, 3, cin, cout), dtype=torch.float32,
@@ -174,23 +207,43 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"conv3x3_wgrad kernel launch failed: CUDA error "
                            f"{err} at x {tuple(x.shape)}, Cout {cout}")
-    conv3x3_wgrad.launches += 1
+    _count(conv3x3_wgrad, path)
     return out
-
-
-conv3x3_fwd.launches = 0
-conv3x3_dgrad.launches = 0
-conv3x3_wgrad.launches = 0
 
 
 def reset_launches() -> None:
     for fn in (conv3x3_fwd, conv3x3_dgrad, conv3x3_wgrad):
         fn.launches = 0
+        fn.path_launches = dict.fromkeys(PATHS, 0)
+
+
+reset_launches()
 
 
 def launches() -> dict:
     return {"fwd": conv3x3_fwd.launches, "dgrad": conv3x3_dgrad.launches,
             "wgrad": conv3x3_wgrad.launches}
+
+
+def path_launches() -> dict:
+    """{piece: {path: launches}} since ``reset_launches``."""
+    return {"fwd": dict(conv3x3_fwd.path_launches),
+            "dgrad": dict(conv3x3_dgrad.path_launches),
+            "wgrad": dict(conv3x3_wgrad.path_launches)}
+
+
+def step_path_launches(shapes) -> dict:
+    """{piece: {path: launches}} of one training step over conv blocks
+    ``shapes`` ((H, W, Cin, Cout) each, forward order): the first block is
+    the stem, whose input needs no gradient, so it has no dx. Serving's
+    forward launches are the "fwd" entry's."""
+    out = {p: dict.fromkeys(PATHS, 0) for p in ("fwd", "dgrad", "wgrad")}
+    for i, (_, _, cin, cout) in enumerate(shapes):
+        out["fwd"][conv_path(cin, cout)] += 1
+        if i:
+            out["dgrad"][conv_path(cout, cin)] += 1
+        out["wgrad"][wgrad_path(cin, cout)] += 1
+    return out
 
 
 # ----------------------------------------------------------------- autograd

@@ -2,8 +2,9 @@
 
 Each kernel source has a plain C interface (no PyTorch headers), so nvcc
 takes seconds. The library goes into the package's ``_build/`` (gitignored),
-named by a hash of the source and the flags, at the kernel's first use:
-nothing is prebuilt and nothing is built when a module is imported.
+named by a hash of the source, the ``csrc/`` headers it includes and the
+flags (``build_key``), at the kernel's first use: nothing is prebuilt and
+nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -11,11 +12,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Tuple
+from typing import List, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -35,12 +37,38 @@ def _nvcc() -> str:
                        "are built from csrc/ at first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def local_includes(source: Path) -> List[Path]:
+    """The files next to ``source`` that it includes with ``#include "..."``,
+    and theirs in turn, each once, in the order first met."""
+    seen, todo = [], [source]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            dep = source.parent / name.decode()
+            if dep.exists() and dep not in seen:
+                seen.append(dep)
+                todo.append(dep)
+    return seen
+
+
+def build_key(source: Path, flags=NVCC_FLAGS) -> str:
+    """Hash of the source, of each header it includes from its directory
+    (``local_includes``) and of the flags: a change to any of them names a
+    new library."""
+    h = hashlib.sha256()
+    for path in [source] + local_includes(source):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()
+
+
 def build(source: Path) -> Tuple[Path, float, str]:
-    """Compile ``source`` for sm_90a into ``_build/``, keyed by a hash of
-    the source and flags. Returns (library path, build seconds (0 when
-    already built), nvcc's output incl. ptxas -v)."""
-    src = source.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Compile ``source`` for sm_90a into ``_build/``, named by
+    ``build_key``. Returns (library path, build seconds (0 when already
+    built), nvcc's output incl. ptxas -v)."""
+    key = build_key(source)
     lib = BUILD_DIR / f"{source.stem}_{key[:16]}.so"
     log = lib.with_suffix(".log")
     if lib.exists():

@@ -114,12 +114,16 @@ def make_eval_step(num_classes: int, ignore_index: Optional[int] = None,
                    plain: bool = False):
     """Build ``step_fn(state, (images, labels)) -> (loss, confusion
     matrix)``. The model runs in eval mode: running BN stats, and on CUDA
-    the fused conv+BN+ReLU kernel (K4)."""
+    the fused conv+BN+ReLU kernel (K4). It is switched to eval mode only
+    when it is training, so the blocks' prepared kernel weights (BN folded,
+    kernel layout) survive from one eval batch to the next."""
 
     @torch.no_grad()
     def step_fn(state: TrainState, batch):
         images, labels = batch
-        model = state.model.eval()
+        model = state.model
+        if model.training:
+            model.eval()
         logits = model(images.to(compute_dtype), plain)
         loss = cross_entropy_loss(logits, labels, class_weights,
                                   loss_ignore_index)

@@ -4,9 +4,10 @@ and train-mode conv+BN+ReLU block against the JAX package, on the CPU.
 JAX runs ``conv3x3_pallas`` with its Pallas calls in interpret mode, as
 tests/test_pallas_conv_train.py runs it. On CPU tensors the port's wrappers
 run their plain versions inside the same ``autograd.Function`` that
-launches the kernels on the card, so the flip of the dx weight, the dW
-layout and the dtype casts are what is checked here; the CUDA kernels are
-held against these plain versions on the card by chip_smoke.py."""
+launches the kernels on the card, so the dx weight's tap reversal (the
+kernel's ``flip``), the dW layout and the dtype casts are what is checked
+here, with the kernel path each call takes; the CUDA kernels are held
+against these plain versions on the card by chip_smoke.py."""
 
 import numpy as np
 import jax
@@ -18,7 +19,8 @@ from pytorch_camvid_tpu.ops import pallas_conv_train as jax_pct
 from pytorch_camvid_tpu.ops.conv import conv_bn_relu_apply
 from pytorch_camvid_tpu.ops.pooling import max_pool_2x2 as jax_pool
 
-from pytorch_camvid_tpu_torch.ops import conv_train
+from pytorch_camvid_tpu_torch import bench
+from pytorch_camvid_tpu_torch.ops import conv_train, fused_conv
 from pytorch_camvid_tpu_torch.ops.conv import ConvBNReLU
 from pytorch_camvid_tpu_torch.ops.pooling import max_pool_2x2
 
@@ -83,14 +85,19 @@ def test_wgrad_and_dgrad_plain_versions_match_autograd():
     xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
     dx, dw = torch.autograd.grad(conv_train.conv3x3_train_plain(xr, wr), (
         xr, wr), g)
-    # the flipped-weight conv and conv2d_input/conv2d_weight are other
-    # summation orders of the same f32 products
+    # the tap-reversed conv (the kernel's flip, here its plain version)
+    # and conv2d_input/conv2d_weight are other summation orders of the same
+    # f32 products
+    ones, zeros = torch.ones(5), torch.zeros(5)
+    flipped = fused_conv.conv3x3_bn_relu(g, w, ones, zeros, relu=False,
+                                         flip=True)
     for got, want in ((conv_train.conv3x3_dgrad(g, w), dx),
                       (conv_train.conv3x3_dgrad_plain(g, w), dx),
+                      (flipped, dx),
                       (conv_train.conv3x3_wgrad(x, g), dw),
                       (conv_train.conv3x3_wgrad_plain(x, g), dw)):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    assert conv_train.flip_weight(w).shape == (3, 3, 4, 5)
+    assert fused_conv.flipped(w).shape == (3, 3, 4, 5)
 
 
 def test_wgrad_splits_and_checks():
@@ -114,6 +121,86 @@ def test_wgrad_splits_and_checks():
         conv_train.conv3x3_wgrad(xb.to("meta"), gb.to("meta"))
 
 
+@pytest.mark.parametrize("shape", [(2, 5, 7, 8, 12), (1, 9, 11, 16, 8),
+                                   (1, 6, 10, 12, 16)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_dgrad_cpu_branch_matches_pallas_vjp_dx(shape):
+    """conv3x3_dgrad on a CPU tensor (its plain version; on the card the
+    kernel reads w tap-reversed in place, no weight copy) against the dx of
+    JAX's ``_vjp_bwd``, its Pallas calls in interpret mode."""
+    n, h, w, cin, cout = shape
+    rng = np.random.default_rng(sum(shape) + 1)
+    x = rng.normal(size=(n, h, w, cin)).astype(np.float32)
+    wt = (rng.normal(size=(3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(
+        np.float32)
+    g = rng.normal(size=(n, h, w, cout)).astype(np.float32)
+    want, _ = _interpret(lambda: jax_pct._vjp_bwd(
+        (jnp.asarray(x), jnp.asarray(wt)), jnp.asarray(g)))
+    got = conv_train.conv3x3_dgrad(torch.from_numpy(g), torch.from_numpy(wt))
+    want = np.asarray(want)
+    assert got.shape == want.shape == (n, h, w, cin)
+    # f32 both sides: the 9*Cout products of each output in another order
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=2e-5 * np.abs(want).max())
+
+
+def test_wgrad_splits_of_the_wgmma_path():
+    """One block of the wgmma dW kernel is resident per SM: the split-K
+    rounds down to whole waves of two blocks per SM, at most one split per
+    pixel tile."""
+    # 64->64 at 360x480, batch 24: one 64x64 output tile -> 264 splits
+    assert conv_train.wgrad_splits(24 * 45 * 30, 1, 132, "wgmma") == 264
+    # 256->256: 16 tiles -> 16 splits (17 would leave a third wave idle)
+    assert conv_train.wgrad_splits(24 * 12 * 8, 16, 132, "wgmma") == 16
+    # 1024->512 and 1024->1024: 128 and 256 tiles -> 2 and 1
+    assert conv_train.wgrad_splits(24 * 6 * 4, 128, 132, "wgmma") == 2
+    assert conv_train.wgrad_splits(24 * 3 * 2, 256, 132, "wgmma") == 1
+    assert conv_train.wgrad_splits(5, 1, 132, "wgmma") == 5
+
+
+@pytest.mark.parametrize("net", ["unet", "segnet"])
+def test_kernel_path_of_every_block_shape(net):
+    """Every block of both models takes the wgmma path, forward, dx and
+    dW, except the stem's forward and dW (Cin 3) and the head's dx and dW
+    (Cout 12); the head's forward (64->12) takes the wgmma path's N = 16
+    tile."""
+    shapes = bench.block_shapes(net)
+    for i, (_, _, cin, cout) in enumerate(shapes):
+        stem, head = i == 0, i == len(shapes) - 1
+        assert (cin, cout) == ((3, 64) if stem else (64, 12) if head
+                               else (cin, cout))
+        assert fused_conv.conv_path(cin, cout) == ("narrow" if stem
+                                                   else "wgmma")
+        assert fused_conv.conv_path(cout, cin) == ("narrow" if head
+                                                   else "wgmma")
+        assert conv_train.wgrad_path(cin, cout) == ("narrow" if stem or head
+                                                    else "wgmma")
+
+
+@pytest.mark.parametrize("net,blocks", [("unet", 23), ("segnet", 26)])
+def test_step_launches_on_each_path(net, blocks):
+    """A training step's K1 launches per path (chip_smoke holds the card's
+    counters to these): UNet 22 of 23 forwards, 21 of 22 dx and 21 of 23 dW
+    on the wgmma path; SegNet 25 of 26, 24 of 25 and 24 of 26."""
+    got = conv_train.step_path_launches(bench.block_shapes(net))
+    b = blocks
+    assert got == {"fwd": {"wgmma": b - 1, "narrow": 1},
+                   "dgrad": {"wgmma": b - 2, "narrow": 1},
+                   "wgrad": {"wgmma": b - 2, "narrow": 2}}
+
+
+def test_path_rules_at_edges():
+    """The path rules at the shapes chip_smoke adds: a part chunk, a
+    partial N tile, the head's N = 16 tile (up to Cin 128), channel counts
+    TMA cannot describe."""
+    cp, wp = fused_conv.conv_path, conv_train.wgrad_path
+    assert cp(48, 32) == cp(64, 24) == cp(64, 16) == cp(128, 12) == "wgmma"
+    assert cp(1024, 512) == cp(32, 48) == "wgmma"
+    assert cp(3, 64) == cp(12, 64) == cp(256, 12) == cp(64, 20) == "narrow"
+    assert wp(48, 32) == wp(64, 24) == wp(1024, 1024) == "wgmma"
+    assert wp(3, 64) == wp(64, 12) == wp(64, 20) == "narrow"
+
+
 def test_cpu_route_is_plain_and_not_counted():
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.normal(size=(1, 4, 6, 3)).astype(np.float32))
@@ -125,6 +212,8 @@ def test_cpu_route_is_plain_and_not_counted():
     conv_train.conv3x3_dgrad(y, w)
     conv_train.conv3x3_wgrad(x, y)
     assert conv_train.launches() == {"fwd": 0, "dgrad": 0, "wgrad": 0}
+    assert conv_train.path_launches() == {
+        p: {"wgmma": 0, "narrow": 0} for p in ("fwd", "dgrad", "wgrad")}
 
 
 def _block_and_params(cin, cout, seed):

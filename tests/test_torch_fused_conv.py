@@ -43,6 +43,26 @@ def test_conv3x3_bn_relu_matches_pallas_interpret(shape, relu):
         assert got.min() >= 0
 
 
+@pytest.mark.parametrize("shape", [(1, 8, 12, 16, 24), (2, 9, 15, 12, 16)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flip_matches_pallas_on_the_reversed_weights(shape):
+    """``flip=True`` (the training conv's dx: taps reversed, channel axes
+    swapped, read in place on the card) against JAX's kernel on the
+    reversed weights that JAX's VJP builds (pallas_conv_train.py:_vjp_bwd)."""
+    n, h, w, cin, cout = shape
+    x, wt, a, b = _inputs(n, h, w, cin, cout, seed=2)
+    w_fwd = np.ascontiguousarray(wt.transpose(0, 1, 3, 2))  # (3,3,Cout,Cin)
+    w_flip = np.transpose(w_fwd[::-1, ::-1], (0, 1, 3, 2))
+    want = np.asarray(jax_pc.conv3x3_bn_relu_pallas(
+        jnp.asarray(x), jnp.asarray(w_flip), jnp.asarray(a), jnp.asarray(b),
+        interpret=True, relu=False))
+    got = fused_conv.conv3x3_bn_relu(
+        torch.from_numpy(x), torch.from_numpy(w_fwd), torch.from_numpy(a),
+        torch.from_numpy(b), relu=False, flip=True)
+    assert got.shape == want.shape == (n, h, w, cout)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 def test_fold_bn_affine_matches_jax():
     rng = np.random.default_rng(1)
     c = 24
@@ -81,6 +101,17 @@ def test_kernel_checks_reject_wrong_dtype_and_layout():
         fused_conv._check(xb, wb.permute(3, 2, 0, 1), a, b)  # OIHW
     with pytest.raises(ValueError):
         fused_conv._check(xb, wb, a[:4], b)
+    # flip takes the dx weights (3,3,Cout,Cin), not HWIO
+    fused_conv._check(xb, wb.transpose(2, 3).contiguous(), a, b, flip=True)
+    with pytest.raises(ValueError, match="with flip"):
+        fused_conv._check(xb, wb, a, b, flip=True)
+    # TMA needs 16-byte aligned tensors on the wgmma path (Cin 16, Cout 8)
+    assert fused_conv.conv_path(16, 8) == "wgmma"
+    odd = torch.empty(xb.numel() + 1, dtype=torch.bfloat16)[1:].view(
+        xb.shape)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        fused_conv._check(odd, wb, a, b)
     # a device with neither the kernel nor the plain route
     with pytest.raises(ValueError, match="no kernel"):
         fused_conv.conv3x3_bn_relu(xb.to("meta"), wb.to("meta"),
@@ -89,8 +120,10 @@ def test_kernel_checks_reject_wrong_dtype_and_layout():
 
 def test_cpu_route_is_plain_and_not_counted():
     x, wt, a, b = (torch.from_numpy(t) for t in _inputs(1, 5, 7, 4, 6))
-    before = fused_conv.conv3x3_bn_relu.launches
+    before = (fused_conv.conv3x3_bn_relu.launches,
+              dict(fused_conv.conv3x3_bn_relu.path_launches))
     got = fused_conv.conv3x3_bn_relu(x, wt, a, b)
     want = fused_conv.conv3x3_bn_relu_plain(x, wt, a, b)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert fused_conv.conv3x3_bn_relu.launches == before
+    assert (fused_conv.conv3x3_bn_relu.launches,
+            fused_conv.conv3x3_bn_relu.path_launches) == before

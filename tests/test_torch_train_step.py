@@ -281,6 +281,31 @@ def test_eval_step_matches_jax():
     assert got_cm.sum() == np.sum((y != 11) & (y != 255))
 
 
+def test_eval_step_keeps_prepared_kernel_weights_until_a_train_step():
+    """The eval step switches the model to eval mode only when it is
+    training, so every block's prepared kernel arguments (BN folded, the
+    kernel's weight layout) are the same tensor objects on a second eval
+    batch; the next train step (train mode) drops them."""
+    v = _variables(seed=8)
+    x, y = _batch(seed=9)
+    st = _port(JaxTrainState(v["params"], v["state"], {}, 0, None))
+    ev = make_eval_step(12)
+    batch = (torch.from_numpy(x), torch.from_numpy(y))
+    blocks = [m for m in st.model.modules() if hasattr(m, "_kernel_args")]
+    assert len(blocks) == 23 and st.model.training
+    loss1, cm1 = ev(st, batch)
+    first = [b._kernel_args for b in blocks]
+    assert all(a is not None for a in first) and not st.model.training
+    loss2, cm2 = ev(st, batch)
+    assert all(b._kernel_args is a for b, a in zip(blocks, first))
+    assert float(loss1) == float(loss2) and torch.equal(cm1, cm2)
+    opt = sgd()
+    st.opt_state = opt.init(st.params())
+    st, _ = make_train_step(opt, schedules.constant_lr(1e-3))(st, batch)
+    assert st.model.training
+    assert all(b._kernel_args is None for b in blocks)
+
+
 # ------------------------------------------------------------ augmentation
 
 def _images(n=3, hw=(12, 17), seed=7):
