@@ -96,10 +96,18 @@ def zero_one_dw(ctx, g):
     return dx, dw
 
 
+def stem_bgr(x, w, a, b, relu=True):
+    """The eval stem's K4 launch (Cin 3, the packed path) with its weights'
+    input channels 0 and 2 swapped (a copy): a BGR/RGB mix-up."""
+    if x.shape[3] == 3:
+        w = w[:, :, [2, 1, 0]].contiguous()
+    return fused_conv.conv3x3_bn_relu(x, w, a, b, relu)
+
+
 def dx_taps_not_reversed(x, w, a, b, relu=True, flip=False):
     """K1's dx launched with the tap reversal flag off: the same launch
-    on the same path, its weights transposed (a copy) but read in forward
-    tap order."""
+    on the same path (the head's dx, Cin 12, on the packed one), its
+    weights transposed (a copy) but read in forward tap order."""
     if flip:
         return fused_conv.conv3x3_bn_relu(
             x, w.transpose(2, 3).contiguous(), a, b, relu)
@@ -163,6 +171,8 @@ def main() -> int:
     cases = [
         ("serving", "K4 output x1.01 (every launch)",
          lambda: planted(conv, "conv3x3_bn_relu", k4_gain)),
+        ("serving", "stem weights' input channels 0 and 2 swapped (BGR/RGB)",
+         lambda: planted(conv, "conv3x3_bn_relu", stem_bgr)),
         ("serving", "K3 unpool at the neighbouring pixel",
          lambda: planted(SegNet, "_pools", unpool_to_neighbour)),
         ("training", "K2 pool backward at a wrong phase",

@@ -10,14 +10,18 @@ Phases (each prints its lines; any failure exits non-zero):
    (K1's dW), the 2x2 max pool / unpool / phase gather (K3, K2), the
    shallow H-pair conv3x3+BN+ReLU (K5) and the six layout probes (M1-M6);
    prints ptxas's register and spill lines. Then checks that the built
-   libraries choose the same kernel path (wgmma or narrow) as the
-   wrappers' rules (``fused_conv.conv_path``, ``conv_train.wgrad_path``)
-   at every (Cin, Cout) the phases below run.
+   libraries choose the same kernel path (K4/K1 fwd and dx: wgmma, packed
+   or narrow; dW: wgmma or narrow) as the wrappers' rules
+   (``fused_conv.conv_path``, ``conv_train.wgrad_path``) at every (Cin,
+   Cout) the phases below run, and that a step's launches per path are
+   ``PATH_TABLE``'s.
 3. K4 vs plain: the kernel against its plain PyTorch version in bf16 at
    every distinct conv block shape of UNet and SegNet at 360x480, batch 8:
    error, both times and cuDNN's conv alone (CUDA events); then at
    ``EDGE_SHAPES`` (ragged tiles, a part chunk, Cin 1024, the head's N = 16
-   tile, a partial N tile, an input past 2**31 elements).
+   tile, a partial N tile, an input past 2**31 elements; on the packed
+   path a ragged stem, a ragged Cin 12, a partial Cout tile and an output
+   past 2**31 elements; 64->20 on the narrow path).
 4. K1 vs plain at each model's block shapes at its training batch (UNet
    24, SegNet 32): forward and dx (K4's kernel, unit affine, no ReLU; dx
    reads the weights tap-reversed in place) against F.conv2d and
@@ -31,7 +35,7 @@ Phases (each prints its lines; any failure exits non-zero):
    that are resized on the device). Checks the class maps, that every
    forward launched K4 once per conv block, the logits of the kernel path
    against the plain path, and measures serving throughput. Each forward
-   runs 22 blocks on the wgmma path and the stem on the narrow one.
+   runs 22 blocks on the wgmma path and the stem on the packed one.
 6. UNet training: full-width UNet, batch 24, 360x480, bf16, synthetic
    uint8 data resident on the card, the port's ``make_train_step`` with
    the default augmentation, AdamW and OneCycle. One step on the kernel
@@ -39,8 +43,9 @@ Phases (each prints its lines; any failure exits non-zero):
    gradients (norm and difference) and BN running stats must agree
    (``train_parity``); the kernel step must launch 23 forward, 22 dx and
    23 dW kernels, of them 22, 21 and 21 on the wgmma path (the stem's
-   forward and dW, the head's dx and dW on the narrow one). Then 20 timed
-   steps (img/s, step ms, MFU, peak memory)
+   forward and the head's dx on the packed one, the stem's and the head's
+   dW on the dW kernel's narrow one). Then 20 timed steps (img/s, step ms,
+   MFU, peak memory)
    with a finite loss throughout.
 7. K3 and K2 vs plain at SegNet's five pool shapes (K3 at batch 8, K2 at
    batch 32, bf16): pool, unpool and phase gather must equal their plain
@@ -48,10 +53,11 @@ Phases (each prints its lines; any failure exits non-zero):
    bf16 and f32, vector and scalar channel counts) and NaN in a window.
    Kernel, plain and library-call times and the share of the byte bound.
 8. SegNet serving: as phase 5 with a full-width SegNet; every forward
-   launches K4 26 times (25 on the wgmma path) and the K3 pool and unpool
-   5 times each.
+   launches K4 26 times (25 on the wgmma path, 1 on the packed one) and
+   the K3 pool and unpool 5 times each.
 9. SegNet training: as phase 6 at batch 32; the kernel step launches K1
-   26/25/26 times (25/24/24 on the wgmma path), the K2 pool 5, the phase
+   26/25/26 times (25/24/24 on the wgmma path, 1/1/0 on the packed one,
+   0/0/2 on the narrow ones), the K2 pool 5, the phase
    unpool 10 (5 unpools and 5 pool backwards) and the phase gather 5
    times.
 10. K5 and the per-shape probe: K5 against its plain version in bf16 at
@@ -159,13 +165,25 @@ PAIR_PROBE_K = 10
 # phases 3 and 4: both conv sources at ragged and edge shapes, (N, H, W,
 # Cin, Cout): partial tiles (H 45, W 61), 44x60 and 22x30, a part chunk
 # (Cin 48) with Cout 32, Cin 1024, the head's N = 16 tile (Cout 12 and 16;
-# its dx, Cin 12, takes the narrow path), a partial N tile (Cout 24), and
-# an input past 2**31 elements (64-bit offsets)
+# its dx, Cin 12 into 64, takes the packed path), a partial N tile (Cout
+# 24), an input past 2**31 elements (64-bit offsets); the packed path at a
+# ragged stem, a ragged Cin 12 forward, a partial Cout tile and an output
+# past 2**31 elements; 64->20, which stays on the narrow path
 EDGE_SHAPES = ((2, 45, 61, 64, 64), (2, 44, 60, 512, 256),
                (2, 22, 30, 512, 512), (2, 46, 61, 48, 32),
                (2, 22, 30, 1024, 512), (2, 45, 61, 64, 12),
                (2, 45, 61, 64, 16), (2, 45, 61, 64, 24),
-               (100, 360, 480, 128, 64))
+               (100, 360, 480, 128, 64), (2, 45, 61, 3, 64),
+               (2, 45, 61, 12, 64), (2, 45, 61, 3, 24),
+               (200, 360, 480, 3, 64), (2, 45, 61, 64, 20))
+# K4/K1 launches per path of one forward ("fwd") and one training step:
+# the stem's forward and the head's dx on the packed path, no forward or
+# dx on the narrow one; dW (its own kernel) keeps its two paths
+PATH_TABLE = {
+    net: {"fwd": {"wgmma": b - 1, "packed": 1, "narrow": 0},
+          "dgrad": {"wgmma": b - 2, "packed": 1, "narrow": 0},
+          "wgrad": {"wgmma": b - 2, "narrow": 2}}
+    for net, b in (("unet", 23), ("segnet", 26))}
 
 
 def check(cond: bool, what: str) -> None:
@@ -528,11 +546,10 @@ def train_counts() -> dict:
 
 def path_counts(net: str, steps: int) -> dict:
     """K1's launches on each path in ``steps`` kernel-path steps of ``net``
-    ({piece: {path: launches}}); a forward's K4 launches are the "fwd"
-    entry's."""
+    ({piece: {path: launches}}, ``PATH_TABLE``); a forward's K4 launches
+    are the "fwd" entry's."""
     return {piece: {p: k * steps for p, k in paths.items()}
-            for piece, paths in conv_train.step_path_launches(
-                bench.block_shapes(net, HW)).items()}
+            for piece, paths in PATH_TABLE[net].items()}
 
 
 def expected_train_counts(net: str, steps: int) -> dict:
@@ -1404,6 +1421,10 @@ def start() -> None:
               f"kernel path rule of the libraries at {cin}->{cout}")
     print(f"paths: the libraries and the wrappers choose alike at "
           f"{len(pairs)} (Cin, Cout) pairs", flush=True)
+    for net in TRAIN_BATCH:
+        rule = conv_train.step_path_launches(bench.block_shapes(net, HW))
+        check(rule == PATH_TABLE[net],
+              f"{net} launches per path of a step by the rules: {rule}")
     torch.cuda.synchronize()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

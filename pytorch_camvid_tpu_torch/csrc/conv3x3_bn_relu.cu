@@ -17,7 +17,7 @@
 // reversed and the two channel axes swapped, W'[t][ci][co] = w[8-t][co][ci],
 // in place, with no weight copy.
 //
-// Two paths, chosen by conv3x3_bn_relu_path(Cin, Cout) (the wrapper holds
+// Three paths, chosen by conv3x3_bn_relu_path(Cin, Cout) (the wrapper holds
 // the same rule, ops/fused_conv.py::conv_path):
 //
 // * wgmma (Cin % 8 == 0 and Cout % 8 == 0; or Cout <= 16 with Cin <= 128,
@@ -54,10 +54,32 @@
 //   swizzle, conflict-free) and hands it to a TMA store that runs while the
 //   next tile's wgmmas do and drops what lies past H, W or Cout (the head
 //   stores directly, masked).
-// * narrow (every other shape: the Cin = 3 stem, the head's input gradient
-//   with Cin = 12): the first design, mma.sync m16n8k16 from a cp.async
-//   double-buffered patch and weight slice, scalar loads where a channel
-//   count is not a multiple of 8 or the weights are read under flip.
+// * packed (Cin % 8 != 0 with 9 x Cin <= K_MAX = 144, and Cout % 8 == 0:
+//   the Cin = 3 stem's forward and the Cin = 12 input gradient of the
+//   64->12 head). Bound by the bytes it writes: at 360x480, batch 24, it
+//   reads 25 MB (stem) or 100 MB (head dx) and writes 531 MB of 64-channel
+//   output, so its bound is 0.17-0.19 ms, while its FLOPs (14-57 G) take
+//   0.06 ms at the tensor rate. The design keeps the tensor cores off the
+//   critical path and the output stream moving: K packs the 9 taps x Cin
+//   tap-major, k = (3 dy + dx) Cin + ci, padded to a multiple of 16 (K =
+//   32 at Cin 3, 112 at Cin 12: 2 and 7 k16 steps where a 32-channel chunk
+//   per tap took 18). Each persistent block (two per SM, a fixed tile of
+//   64 output channels) loads its K x 64 weights once, applying flip and
+//   the zero padding in that load, and walks tiles of 8 rows x 32 columns.
+//   A tile's input rows, (TW + 2) x Cin contiguous elements each, are read
+//   as 16-byte vectors into registers while the previous tile computes and
+//   written after it into a double-buffered patch at any element
+//   alignment (the halo outside the image zero); A fragments are gathered
+//   straight from the patch at each packed k (32-bit pairs when Cin is
+//   even), B comes by ldmatrix from the resident weights, mma.sync
+//   m16n8k16 accumulates in f32. Each warp stages its output row (32
+//   pixels x 128 bytes, swizzled) and hands it to a TMA store that runs
+//   while the next tile computes and clips H, W and Cout.
+// * narrow (every other shape: Cout % 8 != 0 above 16 such as 64->20, a
+//   head-like Cin > 128 into Cout <= 16, Cin % 8 != 0 above K_MAX / 9):
+//   the first design, mma.sync m16n8k16 from a cp.async double-buffered
+//   patch and weight slice, scalar loads where a channel count is not a
+//   multiple of 8 or the weights are read under flip.
 //
 // What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s: ridge ~295
 // FLOP/byte): every block shape with Cin, Cout >= 64 has 290 to several
@@ -74,7 +96,8 @@
 // stream their weights, for want of registers; the two consumer
 // warpgroups overlap one another's. The epilogue's TMA store took 40% off
 // the shallow shapes, whose direct 4-byte stores had bound them. The head
-// (~90 FLOP/byte) and the stem (~26) are bound by bytes.
+// (~90 FLOP/byte), the stem (~26) and the head's dx (~90) are bound by
+// bytes.
 
 #include "sm90_common.cuh"
 
@@ -130,8 +153,8 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
 // Stage input channels [c0, c0+KC) of the patch around output tile
 // (n, h0, w0) and the matching weight slice for output channels [n0, n0+BN).
 // VEC_X: Cin % 8 == 0 and x 16-byte aligned -> 16-byte cp.async per 8
-// channels; otherwise scalar loads (the Cin=3 stem). VEC_W likewise for
-// Cout % 8 == 0 (the Cout=12 head and every FLIP call take scalar loads).
+// channels; otherwise scalar loads. VEC_W likewise for Cout % 8 == 0
+// (every FLIP call takes scalar loads).
 // FLIP reads W'[tap][ci][co] = w[8-tap][co][ci].
 template <bool VEC_X, bool VEC_W, bool FLIP>
 __device__ __forceinline__ void stage_chunk(
@@ -369,6 +392,374 @@ cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* w,
 }
 
 }  // namespace narrow
+
+// ================================================================ packed
+
+namespace packed {
+
+constexpr int K_MAX = 144;       // 9 x Cin packed into K: Cin <= 16
+constexpr int TH = 8;            // output rows per tile: one per warp
+constexpr int TW = 32;           // output columns per tile: two m16 per warp
+constexpr int MT = TW / 16;      // m16 tiles per warp
+constexpr int MIN_BLOCKS = 2;    // resident blocks per SM (registers <= 128)
+constexpr int PH = TH + 2;       // patch rows (with halo)
+constexpr int BN = 64;           // output channels per tile
+constexpr int BNP = BN + 8;      // weight row stride (144 B: the 8 rows an
+                                 // ldmatrix reads hit distinct banks)
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int OUT_WARP_BYTES = TW * BN * 2;  // one output row, 32 x 128 B
+
+template <int CIN>
+struct Geo {
+  static constexpr int K = 9 * CIN;                 // k = tap * CIN + ci
+  static constexpr int KP = (K + 15) / 16 * 16;
+  static constexpr int KSTEPS = KP / 16;
+  static constexpr int L = (TW + 2) * CIN;          // patch row, elements
+  static constexpr int RS = (L + 7) / 8 * 8;        // patch row stride
+  static constexpr int CPR = (L + 6) / 8 + 1;       // 16-B chunks it spans
+  static constexpr int ITEMS = PH * CPR;            // chunks per patch
+  static constexpr int LPT = (ITEMS + THREADS - 1) / THREADS;
+  // one patch buffer: PH rows, then TH rows of zeros that the padded k
+  // (k >= K) read, whatever the pixel
+  static constexpr int BUF = (PH + TH) * RS;
+  static constexpr int PAD_OFF = PH * RS;
+  // shared memory (bytes): per-warp output staging (1024-aligned for the
+  // 128-byte swizzle), resident weights, two patch buffers, A and B
+  static constexpr int W_OFF = WARPS * OUT_WARP_BYTES;
+  static constexpr int P_OFF = W_OFF + KP * BNP * 2;
+  static constexpr int AB_OFF = P_OFF + 2 * BUF * 2;
+  static constexpr int SMEM = AB_OFF + 2 * BN * 4 + 1024;
+};
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ uint32_t lds16(uint32_t addr) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+  return v;
+}
+
+// The patch offset (elements) of packed k for the pixel at patch (0, 0):
+// tap (dy, dx) = k / CIN, channel k % CIN; a padded k reads the zero rows.
+template <int CIN>
+__device__ __forceinline__ int koff(int k) {
+  using G = Geo<CIN>;
+  if (k >= G::K) return G::PAD_OFF;
+  const int tap = k / CIN, ci = k % CIN;
+  return (tap / 3) * G::RS + (tap % 3) * CIN + ci;
+}
+
+template <int CIN>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    conv3x3_bn_relu_packed_kernel(const __grid_constant__ CUtensorMap omap,
+                                  const __nv_bfloat16* __restrict__ x,
+                                  const __nv_bfloat16* __restrict__ w,
+                                  const float* __restrict__ scale,
+                                  const float* __restrict__ shift, int N,
+                                  int H, int W, int Cout, int relu,
+                                  int flip) {
+  using G = Geo<CIN>;
+  constexpr bool PAIRED = CIN % 2 == 0;  // k, k+1 (k even) adjacent
+  constexpr int NO = PAIRED ? 2 : 4;     // patch offsets per k16 step
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  __nv_bfloat16* wt = reinterpret_cast<__nv_bfloat16*>(smem + G::W_OFF);
+  __nv_bfloat16* patch = reinterpret_cast<__nv_bfloat16*>(smem + G::P_OFF);
+  float* sa = reinterpret_cast<float*>(smem + G::AB_OFF);
+  float* sb = sa + BN;
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+
+  const int tiles_w = (W + TW - 1) / TW;
+  const int tiles_h = (H + TH - 1) / TH;
+  const int tiles_n = (Cout + BN - 1) / BN;
+  const int total = N * tiles_h * tiles_w * tiles_n;  // < 2^31 (host)
+  // the grid is a multiple of tiles_n: a block keeps one channel tile
+  const int n0 = blockIdx.x % tiles_n * BN;
+  auto origin = [&](int t, int& img, int& h0, int& w0) {
+    t /= tiles_n;
+    w0 = t % tiles_w * TW;
+    t /= tiles_w;
+    h0 = t % tiles_h * TH;
+    img = t / tiles_h;
+  };
+
+  // Resident weights, once per block: W'[k][co] for k = tap * CIN + ci,
+  // zero for k >= K and co >= Cout; under flip W'[tap][ci][co] =
+  // w[8-tap][co][ci], read in place.
+  for (int i = threadIdx.x; i < G::KP * BN; i += THREADS) {
+    const int k = i / BN, j = i % BN, co = n0 + j;
+    __nv_bfloat16 v = __float2bfloat16(0.f);
+    if (k < G::K && co < Cout) {
+      const int tap = k / CIN, ci = k % CIN;
+      v = flip ? w[(static_cast<int64_t>(8 - tap) * Cout + co) * CIN + ci]
+               : w[(static_cast<int64_t>(tap) * CIN + ci) * Cout + co];
+    }
+    wt[k * BNP + j] = v;
+  }
+  for (int j = threadIdx.x; j < BN; j += THREADS) {
+    const bool in = n0 + j < Cout;
+    sa[j] = in ? scale[n0 + j] : 0.f;
+    sb[j] = in ? shift[n0 + j] : 0.f;
+  }
+  for (int i = threadIdx.x; i < 2 * TH * G::RS; i += THREADS)
+    patch[(i / (TH * G::RS)) * G::BUF + G::PAD_OFF + i % (TH * G::RS)] =
+        __float2bfloat16(0.f);
+
+  // Patch row pr of tile (img, h0, w0) is input row h0 + pr - 1, columns
+  // w0 - 1 .. w0 + TW: (TW + 2) x CIN elements, contiguous in NHWC from
+  // element grs. Its 16-byte chunks (aligned in x) are loaded as vectors
+  // into registers; the chunks that straddle the image's edge (a halo
+  // column outside the image, or the row before or after) load only
+  // their elements inside it, element by element, and rows outside the
+  // image load nothing: what is not loaded is zero.
+  uint4 pre[G::LPT];
+  auto fetch = [&](int t) {
+    int img, h0, w0;
+    origin(t, img, h0, w0);
+#pragma unroll
+    for (int j = 0; j < G::LPT; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      pre[j] = make_uint4(0, 0, 0, 0);
+      const int pr = i / G::CPR, q = i % G::CPR;
+      const int h = h0 + pr - 1;
+      if (i >= G::ITEMS || h < 0 || h >= H) continue;
+      const int64_t rowpix = (static_cast<int64_t>(img) * H + h) * W;
+      const int64_t grs = (rowpix + w0 - 1) * CIN;
+      const int64_t g0 = (grs & ~static_cast<int64_t>(7)) + 8 * q;
+      const int64_t e0 = (rowpix + max(w0 - 1, 0)) * CIN;
+      const int64_t e1 = (rowpix + min(w0 + TW + 1, W)) * CIN;
+      if (g0 >= e0 && g0 + 8 <= e1) {
+        pre[j] = __ldg(reinterpret_cast<const uint4*>(xs + g0));
+      } else if (g0 + 8 > e0 && g0 < e1) {
+        uint32_t v[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (g0 + u >= e0 && g0 + u < e1)
+            v[u / 2] |= static_cast<uint32_t>(__ldg(xs + g0 + u))
+                        << (16 * (u % 2));
+        pre[j] = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  };
+  // ... and written to the patch at its place in the row: element d of
+  // the chunk's row lands at d if 0 <= d < L (pairs where d is even)
+  auto put = [&](int t, __nv_bfloat16* buf) {
+    int img, h0, w0;
+    origin(t, img, h0, w0);
+    unsigned short* bs = reinterpret_cast<unsigned short*>(buf);
+#pragma unroll
+    for (int j = 0; j < G::LPT; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      if (i >= G::ITEMS) continue;
+      const int pr = i / G::CPR, q = i % G::CPR;
+      const int64_t grs =
+          ((static_cast<int64_t>(img) * H + h0 + pr - 1) * W + w0 - 1) * CIN;
+      const int d0 = 8 * q - static_cast<int>(grs & 7);
+      unsigned short* row = bs + pr * G::RS;
+      const uint32_t v[4] = {pre[j].x, pre[j].y, pre[j].z, pre[j].w};
+      if ((d0 & 1) == 0) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int d = d0 + 2 * u;
+          if (d >= 0 && d < G::L)
+            *reinterpret_cast<uint32_t*>(row + d) = v[u];
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int d = d0 + u;
+          if (d >= 0 && d < G::L)
+            row[d] = static_cast<unsigned short>(v[u / 2] >> (16 * (u % 2)));
+        }
+      }
+    }
+  };
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  // byte offsets in the patch of this lane's A elements per k16 step:
+  // k = 16 s + 2 t4 (+1) and + 8 (+1) (m16n8k16's A fragment columns)
+  int off[G::KSTEPS][NO];
+#pragma unroll
+  for (int s = 0; s < G::KSTEPS; ++s) {
+    const int k = 16 * s + 2 * t4;
+    if constexpr (PAIRED) {
+      off[s][0] = 2 * koff<CIN>(k);
+      off[s][1] = 2 * koff<CIN>(k + 8);
+    } else {
+      off[s][0] = 2 * koff<CIN>(k);
+      off[s][1] = 2 * koff<CIN>(k + 1);
+      off[s][2] = 2 * koff<CIN>(k + 8);
+      off[s][3] = 2 * koff<CIN>(k + 9);
+    }
+  }
+  const uint32_t wt_s = smem_u32(wt);
+  const int b_off = (lane & 15) * BNP + (lane >> 4) * 8;
+  unsigned char* st = smem + warp * OUT_WARP_BYTES;
+  const uint32_t st0 = smem_u32(st);
+
+  int t = blockIdx.x;
+  if (t < total) {
+    fetch(t);
+    put(t, patch);
+  }
+  __syncthreads();  // weights, affine, zero rows and the first patch
+  for (int it = 0; t < total; t += gridDim.x, ++it) {
+    const int tn = t + gridDim.x;
+    if (tn < total) fetch(tn);  // in flight while this tile computes
+
+    // Implicit GEMM: warp `warp` computes output row h0 + warp, TW pixels
+    // (MT m16 tiles) x 64 channels; A gathered from the patch at each
+    // packed k, B by ldmatrix from the resident weights.
+    float acc[MT][8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    const uint32_t pix =
+        smem_u32(patch + (it & 1) * G::BUF) + 2 * (warp * G::RS + g * CIN);
+#pragma unroll
+    for (int s = 0; s < G::KSTEPS; ++s) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint32_t p0 = pix + 2 * 16 * mt * CIN, p1 = p0 + 2 * 8 * CIN;
+        if constexpr (PAIRED) {
+          a[mt][0] = lds32(p0 + off[s][0]);
+          a[mt][1] = lds32(p1 + off[s][0]);
+          a[mt][2] = lds32(p0 + off[s][1]);
+          a[mt][3] = lds32(p1 + off[s][1]);
+        } else {
+          a[mt][0] = lds16(p0 + off[s][0]) | lds16(p0 + off[s][1]) << 16;
+          a[mt][1] = lds16(p1 + off[s][0]) | lds16(p1 + off[s][1]) << 16;
+          a[mt][2] = lds16(p0 + off[s][2]) | lds16(p0 + off[s][3]) << 16;
+          a[mt][3] = lds16(p1 + off[s][2]) | lds16(p1 + off[s][3]) << 16;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t b[4];
+        sm90::ldmatrix_x4_trans(b, wt_s + 2 * (b_off + 16 * s * BNP + 16 * j));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          narrow::mma_bf16_16816(acc[mt][2 * j], a[mt], b[0], b[1]);
+          narrow::mma_bf16_16816(acc[mt][2 * j + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+
+    // Epilogue: acc * A + B, ReLU, bf16 into the warp's staging row (TW
+    // pixels x 128 B, 128-byte swizzle: the 8 pixels of a fragment land
+    // in 8 different 16-byte chunks), then one TMA store of the row that
+    // runs while the next tile computes; TMA drops what lies past H, W or
+    // Cout. Accumulator e of (mt, nt): pixel 16 mt + g (+8 for e >= 2),
+    // channel 8 nt + 2 t4 + e % 2.
+    int img, h0, w0;
+    origin(t, img, h0, w0);
+    if (lane == 0) sm90::bulk_wait<0, true>();  // the last store has read it
+    __syncwarp();
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int c = 8 * nt + 2 * t4;
+      const float a0 = sa[c], a1 = sa[c + 1], b0 = sb[c], b1 = sb[c + 1];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float v0 = acc[mt][nt][2 * half] * a0 + b0;
+          float v1 = acc[mt][nt][2 * half + 1] * a1 + b1;
+          if (relu) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+          const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+          const uint32_t addr =
+              sm90::swz128(st0, 16 * mt + g + 8 * half, nt) + 4 * t4;
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+                       "r"(*reinterpret_cast<const uint32_t*>(&v))
+                       : "memory");
+        }
+    }
+    sm90::fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) {
+      if (h0 + warp < H)
+        sm90::tma_store_4d(&omap, st, n0, w0, h0 + warp, img);
+      sm90::bulk_commit();
+    }
+
+    if (tn < total) put(tn, patch + ((it + 1) & 1) * G::BUF);
+    __syncthreads();  // the next patch is in place; this one may go
+  }
+  if (lane == 0) sm90::bulk_wait<0, false>();  // the stores are done
+}
+
+template <int CIN>
+cudaError_t launch(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                   const float* a, const float* b, __nv_bfloat16* out, int N,
+                   int H, int W, int Cout, int relu, int flip,
+                   cudaStream_t stream) {
+  using G = Geo<CIN>;
+  CUtensorMap omap;
+  const uint64_t od[4] = {static_cast<uint64_t>(Cout),
+                          static_cast<uint64_t>(W), static_cast<uint64_t>(H),
+                          static_cast<uint64_t>(N)};
+  const uint64_t os[3] = {2ull * Cout, 2ull * Cout * W, 2ull * Cout * W * H};
+  const uint32_t ob[4] = {BN, TW, 1, 1};
+  if (!sm90::encode_bf16_map(&omap, out, 4, od, os, ob))
+    return cudaErrorInvalidValue;
+  auto kern = conv3x3_bn_relu_packed_kernel<CIN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, THREADS, G::SMEM)) != cudaSuccess)
+    return err;
+  const int64_t tiles_n = (Cout + BN - 1) / BN;
+  const int64_t tiles = static_cast<int64_t>(N) * ((H + TH - 1) / TH) *
+                        ((W + TW - 1) / TW) * tiles_n;
+  if (tiles > 2147483647LL) return cudaErrorInvalidConfiguration;
+  // persistent: the blocks that fit at once, a multiple of the channel
+  // tiles so that each block's weights stay resident
+  const int64_t fit = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  int64_t grid = (tiles < fit ? tiles : fit) / tiles_n * tiles_n;
+  if (grid < tiles_n) grid = tiles_n;
+  kern<<<static_cast<unsigned>(grid), THREADS, G::SMEM, stream>>>(
+      omap, x, w, a, b, N, H, W, Cout, relu, flip);
+  return cudaGetLastError();
+}
+
+cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                const float* a, const float* b, __nv_bfloat16* out, int N,
+                int H, int W, int Cin, int Cout, int relu, int flip,
+                cudaStream_t st) {
+#define PACKED_CASE(C) \
+  case C:              \
+    return launch<C>(x, w, a, b, out, N, H, W, Cout, relu, flip, st);
+  switch (Cin) {
+    PACKED_CASE(1) PACKED_CASE(2) PACKED_CASE(3) PACKED_CASE(4)
+    PACKED_CASE(5) PACKED_CASE(6) PACKED_CASE(7) PACKED_CASE(9)
+    PACKED_CASE(10) PACKED_CASE(11) PACKED_CASE(12) PACKED_CASE(13)
+    PACKED_CASE(14) PACKED_CASE(15)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PACKED_CASE
+}
+
+}  // namespace packed
 
 // ================================================================= wgmma
 
@@ -841,10 +1232,14 @@ cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* w,
 
 }  // namespace
 
-// 1: the wgmma path takes (Cin, Cout); 0: the narrow path does.
+// The path that takes (Cin, Cout): 1 wgmma (TMA can describe x and the
+// weights, or the Cout <= 16 head with Cin <= 128), 2 packed (Cin % 8 != 0
+// with 9 x Cin <= K_MAX and Cout % 8 == 0: the stem, the head's dx), 0
+// narrow (the rest). ops/fused_conv.py::conv_path holds the same rule.
 extern "C" int conv3x3_bn_relu_path(int Cin, int Cout) {
-  if (Cin % 8 != 0) return 0;
-  return Cout <= 16 ? Cin <= wg::RES_MAX_CIN : Cout % 8 == 0;
+  if (Cin % 8 == 0)
+    return (Cout <= 16 ? Cin <= wg::RES_MAX_CIN : Cout % 8 == 0) ? 1 : 0;
+  return 9 * Cin <= packed::K_MAX && Cout % 8 == 0 ? 2 : 0;
 }
 
 // out (N,H,W,Cout) <- x (N,H,W,Cin), w (3,3,Cin,Cout) HWIO, or with flip
@@ -861,10 +1256,18 @@ extern "C" int conv3x3_bn_relu_bf16(const void* x, const void* w,
   auto bf = static_cast<const float*>(b);
   auto ob = static_cast<__nv_bfloat16*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      conv3x3_bn_relu_path(Cin, Cout)
-          ? wg::run(xb, wb, af, bf, ob, N, H, W, Cin, Cout, relu, flip, st)
-          : narrow::run(xb, wb, af, bf, ob, N, H, W, Cin, Cout, relu, flip,
+  cudaError_t err;
+  switch (conv3x3_bn_relu_path(Cin, Cout)) {
+    case 1:
+      err = wg::run(xb, wb, af, bf, ob, N, H, W, Cin, Cout, relu, flip, st);
+      break;
+    case 2:
+      err = packed::run(xb, wb, af, bf, ob, N, H, W, Cin, Cout, relu, flip,
                         st);
+      break;
+    default:
+      err = narrow::run(xb, wb, af, bf, ob, N, H, W, Cin, Cout, relu, flip,
+                        st);
+  }
   return static_cast<int>(err);
 }

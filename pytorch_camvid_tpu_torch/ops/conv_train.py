@@ -17,8 +17,9 @@ and backward kernels: counterpart of
 Each piece has a wrapper (``conv3x3_fwd``, ``conv3x3_dgrad``,
 ``conv3x3_wgrad``) that runs its plain version on a CPU tensor and its
 kernel on a CUDA tensor, or raises; each counts its kernel launches in
-``.launches`` and per kernel path (``fused_conv.conv_path``,
-``wgrad_path``: "wgmma" or "narrow") in ``.path_launches``. The plain
+``.launches`` and per kernel path in ``.path_launches``: the forward and
+dx by ``fused_conv.conv_path`` ("wgmma", "packed" or "narrow"), dW by
+``wgrad_path`` ("wgmma" or "narrow"). The plain
 versions are ``conv3x3_train_plain`` (``F.conv2d``,
 differentiated by autograd), ``conv3x3_dgrad_plain``
 (``torch.nn.grad.conv2d_input``) and ``conv3x3_wgrad_plain``
@@ -36,6 +37,8 @@ import torch.nn.functional as F
 from pytorch_camvid_tpu_torch.ops import cuda_build
 from pytorch_camvid_tpu_torch.ops.fused_conv import (PATHS, conv3x3_bn_relu,
                                                      conv_path)
+
+WGRAD_PATHS = ("narrow", "wgmma")   # the dW kernel's, by its path code
 
 WGRAD_SOURCE = cuda_build.CSRC / "conv3x3_wgrad.cu"
 # split-K target in blocks per SM: the narrow kernel's, and the wgmma
@@ -140,8 +143,7 @@ def _wgrad_library() -> ctypes.CDLL:
 def wgrad_kernel_path(cin: int, cout: int) -> str:
     """The path the built library takes for (Cin, Cout) (``wgrad_path``'s
     rule as the .cu holds it; chip_smoke checks that the two agree)."""
-    return PATHS[0] if _wgrad_library().conv3x3_wgrad_path(cin, cout) else \
-        PATHS[1]
+    return WGRAD_PATHS[_wgrad_library().conv3x3_wgrad_path(cin, cout)]
 
 
 def wgrad_splits(pixel_tiles: int, out_tiles: int, sms: int,
@@ -212,9 +214,10 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def reset_launches() -> None:
-    for fn in (conv3x3_fwd, conv3x3_dgrad, conv3x3_wgrad):
+    for fn, paths in ((conv3x3_fwd, PATHS), (conv3x3_dgrad, PATHS),
+                      (conv3x3_wgrad, WGRAD_PATHS)):
         fn.launches = 0
-        fn.path_launches = dict.fromkeys(PATHS, 0)
+        fn.path_launches = dict.fromkeys(paths, 0)
 
 
 reset_launches()
@@ -237,7 +240,8 @@ def step_path_launches(shapes) -> dict:
     ``shapes`` ((H, W, Cin, Cout) each, forward order): the first block is
     the stem, whose input needs no gradient, so it has no dx. Serving's
     forward launches are the "fwd" entry's."""
-    out = {p: dict.fromkeys(PATHS, 0) for p in ("fwd", "dgrad", "wgrad")}
+    out = {"fwd": dict.fromkeys(PATHS, 0), "dgrad": dict.fromkeys(PATHS, 0),
+           "wgrad": dict.fromkeys(WGRAD_PATHS, 0)}
     for i, (_, _, cin, cout) in enumerate(shapes):
         out["fwd"][conv_path(cin, cout)] += 1
         if i:

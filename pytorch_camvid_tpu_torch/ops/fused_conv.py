@@ -14,11 +14,13 @@ per-channel affine of the conv output, so the block is one pass:
   ``flip=True`` computes the input gradient of a conv with weights ``w``
   (the taps reversed and the channel axes swapped, read in place by the
   kernel): the training conv's dx (``ops/conv_train.py``).
-- The source has two paths, chosen by ``conv_path(Cin, Cout)`` (the .cu's
-  ``conv3x3_bn_relu_path`` holds the same rule): "wgmma" (wgmma fed by TMA,
-  for Cin % 8 == 0 with Cout % 8 == 0, or Cout <= 16 with Cin <= 128: the
-  head) and "narrow" (the first mma.sync design: the Cin = 3 stem, the
-  head's dx with Cin = 12).
+- The source has three paths, chosen by ``conv_path(Cin, Cout)`` (the
+  .cu's ``conv3x3_bn_relu_path`` holds the same rule): "wgmma" (wgmma fed
+  by TMA, for Cin % 8 == 0 with Cout % 8 == 0, or Cout <= 16 with Cin <=
+  128: the head), "packed" (Cin % 8 != 0 with 9 * Cin <= ``K_MAX`` and Cout
+  % 8 == 0: the Cin = 3 stem and the head's dx with Cin = 12, on the 9 taps
+  x Cin packed into K with weights resident per block) and "narrow" (the
+  first mma.sync design, for what neither takes, e.g. 64->20).
 - ``conv3x3_bn_relu_plain`` is the same function from stock PyTorch ops.
   The CPU tests run it, and the card check compares the kernel with it.
 - ``conv3x3_bn_relu.launches`` counts kernel launches, and
@@ -47,19 +49,21 @@ from pytorch_camvid_tpu_torch.ops import cuda_build
 BN_EPS = 1e-5  # torch.nn.BatchNorm2d default
 
 SOURCE = cuda_build.CSRC / "conv3x3_bn_relu.cu"
-PATHS = ("wgmma", "narrow")
+PATHS = ("narrow", "wgmma", "packed")   # by the .cu's path code
 RES_MAX_CIN = 128   # the wgmma path's N = 16 tile keeps 9 x Cin x 16 weights
+K_MAX = 144         # the packed path's K: 9 taps x Cin
 
 
 def conv_path(cin: int, cout: int) -> str:
     """The kernel path that takes a (Cin, Cout) call: "wgmma" where TMA can
     describe the input (Cin % 8 == 0) and the weights (Cout % 8 == 0), or
     where Cout <= 16 and Cin <= RES_MAX_CIN (resident weights, the 64->12
-    head); "narrow" otherwise."""
-    if cin % 8 == 0 and (cin <= RES_MAX_CIN if cout <= 16
-                         else cout % 8 == 0):
-        return "wgmma"
-    return "narrow"
+    head); "packed" where Cin % 8 != 0, 9 * Cin <= K_MAX and Cout % 8 == 0
+    (the stem, the head's dx); "narrow" otherwise."""
+    if cin % 8 == 0:
+        tma = cin <= RES_MAX_CIN if cout <= 16 else cout % 8 == 0
+        return "wgmma" if tma else "narrow"
+    return "packed" if 9 * cin <= K_MAX and cout % 8 == 0 else "narrow"
 
 
 def flipped(w: torch.Tensor) -> torch.Tensor:
@@ -112,8 +116,7 @@ def _library() -> ctypes.CDLL:
 def kernel_path(cin: int, cout: int) -> str:
     """The path the built library takes for (Cin, Cout) (``conv_path``'s
     rule as the .cu holds it; chip_smoke checks that the two agree)."""
-    return PATHS[0] if _library().conv3x3_bn_relu_path(cin, cout) else \
-        PATHS[1]
+    return PATHS[_library().conv3x3_bn_relu_path(cin, cout)]
 
 
 def _check(x, w, a, b, flip=False):
@@ -142,9 +145,12 @@ def _check(x, w, a, b, flip=False):
     if min(x.shape) == 0 or max(*x.shape, 9 * cin * cout) >= 2 ** 31:
         raise ValueError(f"unsupported shape x {tuple(x.shape)}, "
                          f"Cout {cout}")
-    if conv_path(cin, cout) == "wgmma" and (x.data_ptr() % 16
-                                            or w.data_ptr() % 16):
+    path = conv_path(cin, cout)
+    if path == "wgmma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError("x and w must be 16-byte aligned (TMA)")
+    if path == "packed" and x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned (the packed path reads "
+                         "its rows in 16-byte vectors)")
 
 
 def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,

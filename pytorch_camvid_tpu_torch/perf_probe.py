@@ -67,6 +67,7 @@ HW = (360, 480)
 PEAK_TFLOPS = bench.H100_BF16_PEAK / 1e12
 HBM_GBPS = bench.H100_HBM_RATE / 1e9
 WARMUP = 3
+TRACE_TRIES = 3     # traces taken before an empty one fails (time_op)
 SEGNET_POOL_CHANNELS = (64, 128, 256, 512, 512)
 POOL_IMPLS = ("argmax", "phase", "k3", "k2")
 
@@ -130,20 +131,25 @@ def time_op(fn: Callable[[], object], k: int,
             fn()
         ms = (time.perf_counter() - t0) / k * 1e3
         return ms, ms
-    torch.cuda.synchronize(dev)
-    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        e0.record()
-        for _ in range(k):
-            fn()
-        e1.record()
+    # the profiler now and then returns a trace without its device records
+    # (seen on the H100 for a 2-microsecond copy): such a trace is taken
+    # again, and a run whose every trace is empty fails
+    for _ in range(TRACE_TRIES):
         torch.cuda.synchronize(dev)
-    spans = [(a, b) for _, a, b in bench.device_spans(prof)]
-    if not spans:
-        raise RuntimeError("perf_probe: the trace holds no device events")
-    return e0.elapsed_time(e1) / k, bench.busy_ms(spans) / k
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with torch.profiler.profile(activities=acts) as prof:
+            e0.record()
+            for _ in range(k):
+                fn()
+            e1.record()
+            torch.cuda.synchronize(dev)
+        spans = [(a, b) for _, a, b in bench.device_spans(prof)]
+        if spans:
+            return e0.elapsed_time(e1) / k, bench.busy_ms(spans) / k
+    raise RuntimeError(f"perf_probe: {TRACE_TRIES} traces held no device "
+                       f"events")
 
 
 def _op(batch, h, w, cin, cout, mode, kernel, pair, dev):

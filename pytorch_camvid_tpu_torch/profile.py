@@ -33,7 +33,7 @@ HW, SEED, STEPS = (360, 480), 0, 3
 
 # kernel-name groups, first match wins
 GROUPS = (
-    ("K4/K1 conv (fwd, dx)", ("conv3x3_bn_relu",)),   # both paths
+    ("K4/K1 conv (fwd, dx)", ("conv3x3_bn_relu",)),   # all paths
     ("K1 dW", ("conv3x3_wgrad", "sum_splits_kernel")),
     ("K3/K2 pools", ("pool_kernel", "phase_gather_kernel")),
     ("reductions", ("reduce_kernel",)),

@@ -41,8 +41,9 @@ def _interpret(fn):
         pl.pallas_call = jax_pct.pl.pallas_call = orig
 
 
-# stem-like Cin=3, head-like Cout=12, odd H x W
-SHAPES = [(2, 5, 7, 3, 8), (1, 9, 11, 8, 12)]
+# stem-like Cin=3, head-like Cout=12, odd H x W; the stem's forward at
+# Cout 64 (the packed path on the card)
+SHAPES = [(2, 5, 7, 3, 8), (1, 9, 11, 8, 12), (2, 9, 15, 3, 64)]
 
 
 @pytest.mark.parametrize("plain", [False, True], ids=["autograd_fn", "plain"])
@@ -121,8 +122,11 @@ def test_wgrad_splits_and_checks():
         conv_train.conv3x3_wgrad(xb.to("meta"), gb.to("meta"))
 
 
+# (2, 9, 15, 64, 12): the head's dx, Cin 12 into Cout 64 (the packed path
+# on the card); (1, 7, 10, 64, 15): its K_MAX boundary, 9 x 15 = 135
 @pytest.mark.parametrize("shape", [(2, 5, 7, 8, 12), (1, 9, 11, 16, 8),
-                                   (1, 6, 10, 12, 16)],
+                                   (1, 6, 10, 12, 16), (2, 9, 15, 64, 12),
+                                   (1, 7, 10, 64, 15)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_dgrad_cpu_branch_matches_pallas_vjp_dx(shape):
     """conv3x3_dgrad on a CPU tensor (its plain version; on the card the
@@ -161,17 +165,18 @@ def test_wgrad_splits_of_the_wgmma_path():
 @pytest.mark.parametrize("net", ["unet", "segnet"])
 def test_kernel_path_of_every_block_shape(net):
     """Every block of both models takes the wgmma path, forward, dx and
-    dW, except the stem's forward and dW (Cin 3) and the head's dx and dW
-    (Cout 12); the head's forward (64->12) takes the wgmma path's N = 16
-    tile."""
+    dW, except the stem's forward (Cin 3) and the head's dx (Cin 12), which
+    take the packed path, and the stem's and the head's dW, which take the
+    dW kernel's narrow path; the head's forward (64->12) takes the wgmma
+    path's N = 16 tile."""
     shapes = bench.block_shapes(net)
     for i, (_, _, cin, cout) in enumerate(shapes):
         stem, head = i == 0, i == len(shapes) - 1
         assert (cin, cout) == ((3, 64) if stem else (64, 12) if head
                                else (cin, cout))
-        assert fused_conv.conv_path(cin, cout) == ("narrow" if stem
+        assert fused_conv.conv_path(cin, cout) == ("packed" if stem
                                                    else "wgmma")
-        assert fused_conv.conv_path(cout, cin) == ("narrow" if head
+        assert fused_conv.conv_path(cout, cin) == ("packed" if head
                                                    else "wgmma")
         assert conv_train.wgrad_path(cin, cout) == ("narrow" if stem or head
                                                     else "wgmma")
@@ -181,22 +186,28 @@ def test_kernel_path_of_every_block_shape(net):
 def test_step_launches_on_each_path(net, blocks):
     """A training step's K1 launches per path (chip_smoke holds the card's
     counters to these): UNet 22 of 23 forwards, 21 of 22 dx and 21 of 23 dW
-    on the wgmma path; SegNet 25 of 26, 24 of 25 and 24 of 26."""
+    on the wgmma path, the stem's forward and the head's dx on the packed
+    path, no forward or dx on the narrow one; SegNet 25 of 26, 24 of 25 and
+    24 of 26."""
     got = conv_train.step_path_launches(bench.block_shapes(net))
     b = blocks
-    assert got == {"fwd": {"wgmma": b - 1, "narrow": 1},
-                   "dgrad": {"wgmma": b - 2, "narrow": 1},
+    assert got == {"fwd": {"wgmma": b - 1, "packed": 1, "narrow": 0},
+                   "dgrad": {"wgmma": b - 2, "packed": 1, "narrow": 0},
                    "wgrad": {"wgmma": b - 2, "narrow": 2}}
 
 
 def test_path_rules_at_edges():
     """The path rules at the shapes chip_smoke adds: a part chunk, a
     partial N tile, the head's N = 16 tile (up to Cin 128), channel counts
-    TMA cannot describe."""
+    TMA cannot describe: packed where Cin % 8 != 0 fits K_MAX = 9 * 16 and
+    Cout % 8 == 0, narrow for the rest."""
     cp, wp = fused_conv.conv_path, conv_train.wgrad_path
     assert cp(48, 32) == cp(64, 24) == cp(64, 16) == cp(128, 12) == "wgmma"
     assert cp(1024, 512) == cp(32, 48) == "wgmma"
-    assert cp(3, 64) == cp(12, 64) == cp(256, 12) == cp(64, 20) == "narrow"
+    assert cp(3, 64) == cp(12, 64) == cp(3, 24) == cp(1, 8) == "packed"
+    assert cp(15, 64) == cp(12, 16) == cp(3, 16) == cp(5, 128) == "packed"
+    assert cp(256, 12) == cp(64, 20) == cp(3, 12) == cp(12, 20) == "narrow"
+    assert cp(17, 64) == cp(20, 64) == cp(3, 60) == "narrow"
     assert wp(48, 32) == wp(64, 24) == wp(1024, 1024) == "wgmma"
     assert wp(3, 64) == wp(64, 12) == wp(64, 20) == "narrow"
 
@@ -213,7 +224,9 @@ def test_cpu_route_is_plain_and_not_counted():
     conv_train.conv3x3_wgrad(x, y)
     assert conv_train.launches() == {"fwd": 0, "dgrad": 0, "wgrad": 0}
     assert conv_train.path_launches() == {
-        p: {"wgmma": 0, "narrow": 0} for p in ("fwd", "dgrad", "wgrad")}
+        "fwd": {"wgmma": 0, "packed": 0, "narrow": 0},
+        "dgrad": {"wgmma": 0, "packed": 0, "narrow": 0},
+        "wgrad": {"wgmma": 0, "narrow": 0}}
 
 
 def _block_and_params(cin, cout, seed):
@@ -317,3 +330,35 @@ def test_max_pool_tie_gradient_goes_to_first_element_like_jax():
         assert want[0, 0, 0, 0] == 1 and want[0, 0:2, 0:2, 0].sum() == 1
         # window (1,0) = [[0, 3], [3, 3]]: its top-right 3 comes first
         assert want[0, 2, 1, 0] == 5 and want[0, 3, 0:2, 0].sum() == 0
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_cpu", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_path_table_and_edge_shapes():
+    """chip_smoke's per-path launch table is the rules' count of a step
+    (it holds the card's counters to it), and its edge shapes put every
+    forward path on the card, the packed one also past 2**31 output
+    elements."""
+    smoke = _chip_smoke()
+    for net in ("unet", "segnet"):
+        assert smoke.PATH_TABLE[net] == conv_train.step_path_launches(
+            bench.block_shapes(net, smoke.HW))
+        assert smoke.path_counts(net, 3)["fwd"] == {
+            p: 3 * k for p, k in smoke.PATH_TABLE[net]["fwd"].items()}
+    paths = {}
+    for n, h, w, cin, cout in smoke.EDGE_SHAPES:
+        paths.setdefault(fused_conv.conv_path(cin, cout), []).append(
+            n * h * w * cout)
+    assert set(paths) == {"wgmma", "packed", "narrow"}
+    assert max(paths["packed"]) >= 2 ** 31
+    dx = {fused_conv.conv_path(cout, cin)
+          for *_, cin, cout in smoke.EDGE_SHAPES}
+    assert "packed" in dx

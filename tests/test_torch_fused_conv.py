@@ -24,9 +24,13 @@ def _inputs(n, h, w, cin, cout, seed=0):
     return x, wt, a, b
 
 
+# (2, 9, 15, 3, 64): the stem (the packed path on the card), ragged;
+# (1, 7, 33, 15, 16): the packed path's K_MAX boundary (9 x 15 = 135)
+# over two 32-column tiles; (1, 6, 9, 64, 20): a shape that stays narrow
 @pytest.mark.parametrize("relu", [True, False])
 @pytest.mark.parametrize("shape", [(1, 8, 12, 3, 16), (2, 9, 15, 16, 12),
-                                   (1, 7, 10, 32, 32)])
+                                   (1, 7, 10, 32, 32), (2, 9, 15, 3, 64),
+                                   (1, 7, 33, 15, 16), (1, 6, 9, 64, 20)])
 def test_conv3x3_bn_relu_matches_pallas_interpret(shape, relu):
     x, wt, a, b = _inputs(*shape)
     want = np.asarray(jax_pc.conv3x3_bn_relu_pallas(
@@ -43,7 +47,9 @@ def test_conv3x3_bn_relu_matches_pallas_interpret(shape, relu):
         assert got.min() >= 0
 
 
-@pytest.mark.parametrize("shape", [(1, 8, 12, 16, 24), (2, 9, 15, 12, 16)],
+# (2, 9, 15, 12, 64): the head's dx, Cin 12 into Cout 64 (the packed path)
+@pytest.mark.parametrize("shape", [(1, 8, 12, 16, 24), (2, 9, 15, 12, 16),
+                                   (2, 9, 15, 12, 64)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_flip_matches_pallas_on_the_reversed_weights(shape):
     """``flip=True`` (the training conv's dx: taps reversed, channel axes
@@ -112,6 +118,18 @@ def test_kernel_checks_reject_wrong_dtype_and_layout():
     assert odd.is_contiguous() and odd.data_ptr() % 16
     with pytest.raises(ValueError, match="aligned"):
         fused_conv._check(odd, wb, a, b)
+    # the packed path (Cin 3) reads x's rows in 16-byte vectors; it reads
+    # the weights element by element, so they may lie anywhere
+    x3, w3 = xb[..., :3].contiguous(), wb[:, :, :3].contiguous()
+    assert fused_conv.conv_path(3, 8) == "packed"
+    fused_conv._check(x3, w3, a, b)
+    odd3 = torch.empty(x3.numel() + 1, dtype=torch.bfloat16)[1:].view(
+        x3.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_conv._check(odd3, w3, a, b)
+    oddw = torch.empty(w3.numel() + 1, dtype=torch.bfloat16)[1:].view(
+        w3.shape)
+    fused_conv._check(x3, oddw, a, b)
     # a device with neither the kernel nor the plain route
     with pytest.raises(ValueError, match="no kernel"):
         fused_conv.conv3x3_bn_relu(xb.to("meta"), wb.to("meta"),
@@ -127,3 +145,22 @@ def test_cpu_route_is_plain_and_not_counted():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert (fused_conv.conv3x3_bn_relu.launches,
             fused_conv.conv3x3_bn_relu.path_launches) == before
+
+
+def test_kernel_path_names_the_library_codes(monkeypatch):
+    """``kernel_path`` reads the built library's path code: 0 narrow, 1
+    wgmma, 2 packed, the order of ``PATHS`` (chip_smoke compares it with
+    ``conv_path`` at every (Cin, Cout) it runs)."""
+
+    class Lib:
+        @staticmethod
+        def conv3x3_bn_relu_path(cin, cout):
+            return {"narrow": 0, "wgmma": 1, "packed": 2}[
+                fused_conv.conv_path(cin, cout)]
+
+    monkeypatch.setattr(fused_conv, "_library", lambda: Lib)
+    for cin, cout in ((3, 64), (12, 64), (64, 12), (64, 64), (64, 20),
+                      (256, 12), (17, 64)):
+        assert fused_conv.kernel_path(cin, cout) == fused_conv.conv_path(
+            cin, cout)
+    assert fused_conv.PATHS == ("narrow", "wgmma", "packed")
