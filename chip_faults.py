@@ -131,6 +131,16 @@ def pair_dx_tap_dropped(x, w, a, b, relu):
     return _pair_launch(x, w, a, b, relu)
 
 
+def pair_second_weight_tile_dropped(x, w, a, b, relu):
+    """K5's launch past Cin 64 with input channels 64.. of x and w left
+    out (copies of the first 64): the second resident weight tile's
+    contribution is lost."""
+    if x.shape[3] > 64:
+        x = x[..., :64].contiguous()
+        w = w[:, :, :64].contiguous()
+    return _pair_launch(x, w, a, b, relu)
+
+
 _probe_launch = layout_probes._launch
 
 
@@ -145,6 +155,27 @@ def m4_at_row_offset_0(op, *args):
     """M4's launch reading its rows from offset 0, not 1."""
     if op == "slice_matmul":   # (x, w, out, rows, K, N, start, n)
         args = args[:6] + (args[6] - 1,) + args[7:]
+    return _probe_launch(op, *args)
+
+
+def m4_last_warp_k_part_dropped(op, *args):
+    """M4's launch without the last warp's share of K: the k8 steps
+    7, 15, 23, ... (w's rows 8 s .. 8 s + 7 zero in a copy)."""
+    if op == "slice_matmul":
+        w = args[1].clone()
+        k = torch.arange(w.shape[0], device=w.device)
+        w[(k // 8) % 8 == 7] = 0
+        args = (args[0], w) + args[2:]
+    return _probe_launch(op, *args)
+
+
+def m4_second_block_dropped(op, *args):
+    """M4's launch without the second 8-column block's contribution
+    (w's columns 8 .. 15 zero in a copy)."""
+    if op == "slice_matmul":
+        w = args[1].clone()
+        w[:, 8:16] = 0
+        args = (args[0], w) + args[2:]
     return _probe_launch(op, *args)
 
 
@@ -192,11 +223,19 @@ def main() -> int:
          lambda: planted(fused_conv_pair, "_launch", pair_rows_swapped)),
         ("K5", "K5 with one dx tap dropped",
          lambda: planted(fused_conv_pair, "_launch", pair_dx_tap_dropped)),
+        ("K5", "K5 past Cin 64 without input channels 64.. of x and w",
+         lambda: planted(fused_conv_pair, "_launch",
+                         pair_second_weight_tile_dropped)),
         ("probes", "M6's second copy at width offset 2 instead of 1",
          lambda: planted(layout_probes, "_launch",
                          m6_second_copy_at_offset_2)),
         ("probes", "M4 at row offset 0 instead of 1",
          lambda: planted(layout_probes, "_launch", m4_at_row_offset_0)),
+        ("probes", "M4 without the last warp's share of K",
+         lambda: planted(layout_probes, "_launch",
+                         m4_last_warp_k_part_dropped)),
+        ("probes", "M4 without the second 8-column block",
+         lambda: planted(layout_probes, "_launch", m4_second_block_dropped)),
     ]
     ok = True
     for path in ("serving", "training", "K5", "probes"):

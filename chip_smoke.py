@@ -63,10 +63,11 @@ Phases (each prints its lines; any failure exits non-zero):
 10. K5 and the per-shape probe: K5 against its plain version in bf16 at
    perf_probe's ``shallow64`` shapes at batch 24 (360x480, 64->64 and
    128->64, with ReLU), the raw ``conv3x3_pair`` with a bias at 64->64,
-   three ragged shapes (W not a multiple of 8 or of the 64-column tile,
-   Cin 48 and Cout 32) and a 2.2e9-element input; at each 360x480 shape
-   also against K4 on the same inputs, with K5, K4, plain and
-   cuDNN-conv-alone times beside the bound.
+   five ragged shapes (W not a multiple of 8 or of the 64-column tile,
+   Cin 48 and Cout 32, Cin = Cout = 16, Cin 80 and Cout 48) and a
+   2.2e9-element input; at each 360x480 shape also against K4 on the same
+   inputs, with K5, K4, plain and cuDNN-conv-alone times beside the bound
+   and the first design's K5 time (PERF.md).
    Then it drives the slice's entry point, ``python -m
    pytorch_camvid_tpu_torch.perf_probe --pair --shapes shallow64 --k 10``
    (through ``perf_probe.main``): K5 must launch once per probe call and
@@ -78,7 +79,8 @@ Phases (each prints its lines; any failure exits non-zero):
    kernels (M1-M6) against its plain version on the tool's inputs and at
    ragged shapes, M6 also at a conv stage (360x488x64 f32): bit for bit,
    M4 (the split-TF32 tensor-core product) within the tool's rtol 1e-3 /
-   atol 5e-2; kernel, plain and library device-busy times (the profiler,
+   atol 5e-2, and M4 twice on the same inputs: bit-equal, one launch a
+   call; kernel, plain and library device-busy times (the profiler,
    as ``perf_probe`` takes them: at the tool's shapes CUDA events time the
    host's launches); M6's conv-stage time beside its byte bound.
 In phases 8 and 9 the plain path replays the kernel path's pool choices
@@ -155,12 +157,18 @@ POOLS = {"unet": 0, "segnet": 5}   # K3 / K2 pools per forward
 # K5 (phase 10): perf_probe's shallow64 family at its default batch; then
 # ragged shapes: W = 61 (not a multiple of 8, a last tile of 61 columns),
 # 30 (one partial tile), H % 4 == 2 (a last tile of one pair) and Cin 48
-# (a part chunk) with Cout 32; and an input past 2**31 elements (64-bit
-# offsets)
+# (a part patch stage) with Cout 32; an input past 2**31 elements (64-bit
+# offsets); the contract's minimum, Cin = Cout = 16 (TMA's zero fill past
+# Cin, the store's clipping past Cout); Cin 80, past one 64-channel weight
+# tile and not a multiple of it, with a partial Cout tile (48)
 PAIR_BATCH = 24
 PAIR_SHAPES = ((360, 480, 64, 64), (360, 480, 128, 64))
 PAIR_EXTRA = ((1, 46, 61, 64, 64), (2, 22, 30, 128, 64), (1, 46, 61, 48, 32),
-              (100, 360, 480, 128, 64))
+              (100, 360, 480, 128, 64), (2, 46, 61, 16, 16),
+              (2, 22, 30, 80, 48))
+# K5's first design (mma.sync, cp.async) at PAIR_SHAPES, b24, ms, on an
+# NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6): printed beside this run's
+PAIR_FIRST_MS = {64: 1.262, 128: 2.625}
 PAIR_PROBE_K = 10
 # phases 3 and 4: both conv sources at ragged and edge shapes, (N, H, W,
 # Cin, Cout): partial tiles (H 45, W 61), 44x60 and 22x30, a part chunk
@@ -1054,11 +1062,14 @@ def pair_checks(gen: torch.Generator, timed: bool = False) -> dict:
                 library_ms=cuda_ms(lambda: F.conv2d(xc, wc, padding=1),
                                    iters=10))
             r["bound_ms"], r["bound_by"] = conv_bound(n, h, w, cin, cout)
-            print(f"K5 {n}x{h}x{w} {cin}->{cout}: K5 {r['ms']:.4f} ms, K4 "
-                  f"{r['k4_ms']:.4f}, plain {r['plain_ms']:.4f}, cuDNN conv "
-                  f"alone {r['library_ms']:.4f}; bound {r['bound_ms']:.4f} "
-                  f"by {r['bound_by']}: K5 at {r['bound_ms'] / r['ms']:.3f} "
-                  f"of it, K4 at {r['bound_ms'] / r['k4_ms']:.3f} (on "
+            first = (f" (first design {PAIR_FIRST_MS[cin]})"
+                     if n == PAIR_BATCH else "")
+            print(f"K5 {n}x{h}x{w} {cin}->{cout}: K5 {r['ms']:.4f} ms{first}, "
+                  f"K4 {r['k4_ms']:.4f}, plain "
+                  f"{r['plain_ms']:.4f}, cuDNN conv alone "
+                  f"{r['library_ms']:.4f}; bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}: K5 at {r['bound_ms'] / r['ms']:.3f} of "
+                  f"it, K4 at {r['bound_ms'] / r['k4_ms']:.3f} (on "
                   f"{bench.card()})", flush=True)
         del x, got, ref
     torch.cuda.empty_cache()
@@ -1211,9 +1222,18 @@ def probe_checks(gen: torch.Generator) -> dict:
         ragged.append((_KEYS[6], f"xp {h}x{wp}x{c}, w {w}",
                        lp.sum_width_shifts(xp, w),
                        lp.sum_width_shifts_plain(xp, w)))
+    # M4 twice on the same inputs: one launch a call, the same bits
+    before = lp.row_slice_matmul.launches
+    twice = [lp.row_slice_matmul(xm, wm, 7, 70) for _ in range(2)]
     torch.cuda.synchronize()
     for key, what, got, ref in ragged:
         errs[key] = max(errs[key], _probe_err(key, got, ref, what))
+    check(lp.row_slice_matmul.launches - before == 2,
+          "M4: one launch per call")
+    same, diff = bit_equal(twice[0], twice[1])
+    check(same, f"M4: two calls on the same inputs differ by {diff:.4g}")
+    print("M4: two calls on the same inputs are bit-equal, one launch each",
+          flush=True)
     print(f"layout probes: every kernel equals its plain version on the "
           f"tool's inputs and at {len(ragged)} other shapes (bit for bit; "
           f"M4 within rtol {M4_RTOL}, atol {M4_ATOL})", flush=True)

@@ -13,382 +13,373 @@
 // the point of the kernel: the weights of a shallow conv are small enough to
 // stay on chip, and vertically adjacent output rows share input rows.
 //
-// Design:
-// - Persistent blocks, one per SM. Each block copies the whole weight tensor
-//   (9 x Cin x 64 bf16, rows padded to 72 for conflict-free ldmatrix.trans:
-//   82,944 B at Cin 64, 165,888 B at Cin 128) into shared memory once with
-//   cp.async, then walks output tiles tile = blockIdx.x + i * gridDim.x.
-//   K4 (conv3x3_bn_relu.cu) stages the weight slice again for every 8x16
-//   pixel tile; at 64->64 that is 73,728 B of weights per 23,040 B patch.
-// - One output tile is two H-pairs: 4 output rows x 64 columns x all 64
-//   output channels (Cout < 64: zero weights, channels masked at the store;
-//   H % 4 == 2: the last tile's second pair is masked). Its input is a
-//   6-row x 66-column patch (one-pixel halo, cp.async zero-fill outside the
-//   image, as in K4), so each input row is read 1.5 times, not 2 as with
-//   one pair per tile.
-// - 8 warps: 4 column groups of 16 pixels x 2 halves of 32 output channels.
-//   Each warp keeps all 4 output rows of its 16 pixels (4 x 4 m16n8 f32
-//   accumulators). For each dx and 16-channel step it loads the B fragments
-//   of the three taps (dy = 0, 1, 2) once, from the resident weights with
-//   ldmatrix.trans, and then walks the 6 input rows: the A fragment of row
-//   r (ldmatrix, straight from the patch at the tap's offset) feeds output
-//   rows r-2 .. r through taps dy = 2 .. 0. That is 12 ldmatrix.x4 per 48
-//   MMAs (a one-pair tile with the same warps needs 10 per 24, and more of
-//   the SM's shared-memory bandwidth), and no zero blocks: the TPU kernel's
-//   pair-tap matrix does 2x the MACs.
-// - Shared memory at 128->64, and the choice made for it: the resident
-//   weights leave 66,560 of the 232,448 B a block may use, where a whole
-//   6 x 66 x (128 + 8) patch is 107,712 B. Of the ways out (a narrower tile,
-//   one patch buffer, the weights streamed in two Cin halves) this kernel
-//   takes none: it streams the patch, not the weights, in chunks of KC input
-//   channels, through a cp.async pipeline over (tile, chunk) stages, so the
-//   next tile's first chunk loads while this tile's last chunk computes.
-//   Cin <= 64: KC = 32 (6 x 66 x 40 bf16 = 31,680 B) in 3 buffers;
-//   Cin > 64: KC = 16 (6 x 66 x 24 bf16 = 19,008 B) in 3 buffers, 222,912 B
-//   in all. The tile keeps its 64 columns at every Cin.
-// - mma.sync m16n8k16 bf16 with f32 accumulators; the epilogue applies
-//   acc * A + B and the ReLU, rounds to bf16, transposes each quad of lanes
-//   with shuffles so that a lane holds 8 consecutive channels of one pixel,
-//   and stores 16 bytes. Offsets into x and out are 64-bit.
+// Design (the machinery of conv3x3_bn_relu.cu's wgmma path, sm90_common.cuh):
+// - Persistent, warp-specialised blocks, one per SM, of two consumer
+//   warpgroups and two producer warps (320 threads). The consumers take the
+//   block's tiles in turn (tile i of the block goes to warpgroup i % 2), so
+//   one's epilogue and loads run while the other's wgmmas do. Producer
+//   thread 256 loads the weights and warpgroup 0's patches, thread 288
+//   warpgroup 1's, each into its consumer's ring of SPW = 2 patch stages
+//   guarded by full/empty mbarriers. ptxas compiles every thread to 168
+//   registers (the SM's four schedulers hold 16,384 each, and three of the
+//   ten warps share one), so the consumers' 128 accumulators leave room for
+//   one patch row's A fragment per commit group (RG = 1): with two or three
+//   rows per group ptxas spills and serializes the wgmmas. One consumer
+//   warpgroup (160 threads, 255 registers) fits more rows per group but
+//   loses the overlap and is slower; k5_variants.py times these variants
+//   on the card (PERF.md).
+// - Weights: all 9 x Cin x 64 stay resident, loaded once per block by TMA
+//   (one 64 (Cin) x 64 (Cout) box of 8192 bytes per tap and 64 input
+//   channels, 128-byte swizzle, zero past Cin and Cout), N-major as the
+//   forward of conv3x3_bn_relu.cu reads them (the descriptor's transpose
+//   bit): 73,728 B at Cin <= 64, 147,456 B at Cin <= 128. No weight copy,
+//   one launch per call.
+// - A tile is TH = 4 output rows x TW = 64 columns x all 64 output channels
+//   (Cout < 64: the zero weights past Cout, and the store clips). Its input
+//   is a 6-row x 66-column patch that TMA loads KC input channels at a time
+//   through a 4-D tensor map over x (C, W, H, N); the halo's coordinates lie
+//   outside the image and TMA fills them with zeros, as it does past Cin.
+// - The MMAs: wgmma.m64n64k16, bf16, f32 accumulators, A in registers. A
+//   warpgroup's m64 tile is one output row of 64 columns (warp w: columns
+//   16w .. 16w+15); a consumer thread holds all TH = 4 rows, 4 x 32 = 128
+//   accumulators.
+// - The H-pair reuse, K5's own idea: for each 16-channel step and tap dx,
+//   the A fragment of patch row r (ldmatrix from the swizzled patch at the
+//   tap's column shift) is loaded once and feeds up to three wgmmas, one
+//   per tap dy, each into the accumulator of output row r - dy, with B by
+//   that tap's descriptor. That is (TH + 2) = 6 A loads per 12 wgmmas, where
+//   K4 loads A anew for each of its 9 taps (36 per 36 at TH = 4): half of
+//   the A side of the shared-memory traffic that bounds K4's N = 64 tiles.
+//   Each patch row's (up to three) wgmmas form a commit group; the A
+//   fragments are double-buffered across groups (wgmma.wait_group 1).
+// - Epilogue: acc * A[co] + B[co], the optional ReLU and bf16; each warp
+//   writes one output row of 16 pixels x 64 channels (2048 B, 128-byte
+//   swizzle) into its staging box and hands it to a TMA store, which clips
+//   H, W and Cout and runs while the next rows are written and the other
+//   warpgroup's wgmmas run.
+// - The shared-memory budget is the crux. At Cin 128 the resident weights
+//   leave 84,992 of the 232,448 B a block may have, where two 64-channel
+//   patch stages (2 x 50,688 B) per consumer do not fit. So the patch stage
+//   narrows with Cin, KC input channels per stage, the swizzle matching the
+//   stage's row of KC x 2 bytes; each consumer keeps two stages:
+//     Cin <= 64:  KC = 32 (64-byte swizzle), 25,344 B a stage, 25,600
+//                 aligned: 1024 + 73,728 + 8 x 2048 + 4 x 25,600 + 72
+//                 = 193,608 B;
+//     Cin <= 128: KC = 16 (32-byte swizzle), 12,672 B a stage, 13,312
+//                 aligned: 1024 + 147,456 + 8 x 2048 + 4 x 13,312 + 72
+//                 = 218,184 B.
+//   smem_bytes() computes these; a static_assert holds the largest and the
+//   launch refuses a plan above the card's limit (no fallback).
+//   ops/fused_conv_pair.py::tile_plan holds the same figures.
 //
 // What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s): at 360x480,
 // 64->64 does 288 FLOP per byte of input + output and is bound by bytes;
-// 128->64 (384 FLOP/byte) by operations. wgmma, TMA and tuning are left for
-// later work.
+// 128->64 (384 FLOP/byte) by operations. Per 12 wgmmas (384 tensor cycles
+// of an SM) the A loads read 12 KB and the wgmmas' B 24 KB of shared
+// memory: 94 of the 128 bytes a cycle it gives.
 //
 // Contract (the wrapper checks it and this file checks it again): H even,
 // Cin a multiple of 16 in [16, 128], Cout a multiple of 16 in [16, 64], any
-// W; x, w and out 16-byte aligned.
+// W; x, w and out 16-byte aligned. TMA addresses x and out with 64-bit
+// strides, so inputs past 2^31 elements are right.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <string.h>
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr int TH = 4;             // output rows per tile (two pairs)
-constexpr int TW = 64;            // output columns per tile
+using sm90::smem_u32;
+
+constexpr int TH = 4;             // output rows per tile
+constexpr int TW = 64;            // output columns per tile (one m64)
 constexpr int PR = TH + 2;        // patch rows (one-row halo each side)
 constexpr int PW = TW + 2;        // patch columns (one-pixel halo)
 constexpr int BN = 64;            // output channels per tile (all of Cout)
-constexpr int BNP = BN + 8;       // weight row stride (144 B)
-constexpr int STAGES = 3;         // chunk buffers in the cp.async pipeline
-constexpr int THREADS = 256;      // 8 warps: 4 column groups x 2 Cout halves
+constexpr int SPW = 2;            // patch stages per consumer warpgroup
+constexpr int RG = 1;             // patch rows per wgmma commit group
+constexpr int THREADS = 320;      // warpgroups 0, 1 consume; warps 8, 9
+                                  // produce
+constexpr int CONSUMER_WARPS = 8;
 constexpr int MAX_CIN = 128;
 constexpr int MAX_COUT = BN;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one block
+constexpr int W_TILE = 64 * BN * 2;  // one tap x 64 input channels: 8192 B
+constexpr int OUT_WARP = 16 * BN * 2;  // a warp's output row: 2048 B
+constexpr int BARS = 1 + 2 * 2 * SPW;  // weights; full/empty per stage
 
-// Patch pixel stride KC + 8: 80 B (KC 32) or 48 B (KC 16), so the 8 rows
-// of an ldmatrix hit distinct banks.
+constexpr int align1024(int b) { return (b + 1023) / 1024 * 1024; }
+
+// KC input channels per patch stage: 32 up to Cin 64, 16 above.
 template <int KC>
-__host__ __device__ constexpr int patch_elems() {
-  return PR * PW * (KC + 8);
-}
-
-template <int KC>
-size_t smem_bytes(int cin) {
-  return (static_cast<size_t>(9) * cin * BNP +
-          static_cast<size_t>(STAGES) * patch_elems<KC>()) *
-         sizeof(__nv_bfloat16);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes == 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (image, first output row, first output column) of a tile; tiles are
-// ordered (image, row tile, column tile) with the column tile fastest.
-struct Tile {
-  int n, h0, w0;
+struct Plan {
+  static constexpr int ROW = KC * 2;               // bytes of a pixel
+  static constexpr int PATCH_TX = PR * PW * ROW;   // one TMA box
+  static constexpr int PATCH = align1024(PATCH_TX);
+  static constexpr int MAX_CIN = KC == 32 ? 64 : 128;
+  static constexpr CUtensorMapSwizzle SWIZZLE =
+      KC == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
 };
 
-__device__ __forceinline__ Tile decode(long long tile, int tiles_w,
-                                       int tiles_h) {
-  Tile t;
-  t.w0 = static_cast<int>(tile % tiles_w) * TW;
-  tile /= tiles_w;
-  t.h0 = static_cast<int>(tile % tiles_h) * TH;
-  t.n = static_cast<int>(tile / tiles_h);
-  return t;
-}
-
-// Stage input channels [c0, c0 + KC) of the PR x PW patch of ``tile``:
-// patch row r is image row h0 - 1 + r, patch column c is image column
-// w0 - 1 + c; outside the image, or past Cin, zeros.
+// Shared bytes of a block at ``cin``: alignment slack, resident weights,
+// output staging, patch stages, barriers.
 template <int KC>
-__device__ __forceinline__ void stage_patch(
-    __nv_bfloat16* patch, const __nv_bfloat16* __restrict__ x, long long tile,
-    int c0, int H, int W, int Cin, int tiles_w, int tiles_h) {
-  const Tile t = decode(tile, tiles_w, tiles_h);
-  const int64_t img = static_cast<int64_t>(t.n) * H * W;
-  constexpr int VPP = KC / 8;  // 16-byte vectors per patch pixel
-  for (int i = threadIdx.x; i < PR * PW * VPP; i += THREADS) {
-    const int pix = i / VPP, v = i % VPP;
-    const int h = t.h0 - 1 + pix / PW, w = t.w0 - 1 + pix % PW;
-    const int c = c0 + v * 8;
-    const bool ok = h >= 0 && h < H && w >= 0 && w < W && c < Cin;
-    const __nv_bfloat16* src =
-        ok ? x + ((img + static_cast<int64_t>(h) * W + w) * Cin + c) : x;
-    cp_async16(patch + pix * (KC + 8) + v * 8, src, ok ? 16 : 0);
-  }
+constexpr int smem_bytes(int cin) {
+  return 1024 + (cin + 63) / 64 * 9 * W_TILE + CONSUMER_WARPS * OUT_WARP +
+         2 * SPW * Plan<KC>::PATCH + BARS * 8;
 }
+static_assert(smem_bytes<32>(64) == 193608, "Cin 64 plan");
+static_assert(smem_bytes<16>(128) == 218184, "Cin 128 plan");
+static_assert(smem_bytes<32>(64) <= SMEM_LIMIT &&
+                  smem_bytes<16>(128) <= SMEM_LIMIT,
+              "each plan fits one block's shared memory");
 
-__device__ __forceinline__ uint32_t pick(const uint32_t (&v)[4], int i) {
-  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &h, sizeof(u));
-  return u;
+// Byte address of 16-byte chunk ``chunk`` of pixel ``pix`` of a patch that
+// TMA wrote with the swizzle of ``row``-byte rows (32, 64 or 128) from a
+// 1024-byte aligned ``base``: offset bits 4.. are XORed with bits 7..
+template <int ROW>
+__device__ __forceinline__ uint32_t swz(uint32_t base, int pix, int chunk) {
+  const uint32_t o = pix * ROW + chunk * 16;
+  return base + (o ^ ((o >> 3) & (ROW - 16)));
 }
 
 template <int KC>
 __global__ void __launch_bounds__(THREADS, 1)
-    conv3x3_pair_kernel(const __nv_bfloat16* __restrict__ x,
-                        const __nv_bfloat16* __restrict__ w,
+    conv3x3_pair_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap wmap,
+                        const __grid_constant__ CUtensorMap omap,
                         const float* __restrict__ scale,
-                        const float* __restrict__ shift,
-                        __nv_bfloat16* __restrict__ out, int H, int W,
-                        int Cin, int Cout, int relu, long long total_tiles) {
-  constexpr int KCP = KC + 8;
-  constexpr int PATCH = patch_elems<KC>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* patches = wsm + 9 * Cin * BNP;
+                        const float* __restrict__ shift, int N, int H, int W,
+                        int Cin, int Cout, int relu) {
+  using P = Plan<KC>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const int nw = (Cin + 63) / 64;  // 64-channel weight tiles per tap
+  unsigned char* wres = smem;
+  unsigned char* ostage = wres + nw * 9 * W_TILE;
+  unsigned char* patch = ostage + CONSUMER_WARPS * OUT_WARP;
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(patch + 2 * SPW * P::PATCH);
+  uint64_t* pfull = wbar + 1;           // [warpgroup][stage]
+  uint64_t* pempty = pfull + 2 * SPW;
 
-  const int tid = threadIdx.x;
   const int tiles_w = (W + TW - 1) / TW;
   const int tiles_h = (H + TH - 1) / TH;
-  const int nchunks = (Cin + KC - 1) / KC;
-  const long long my_tiles =
-      blockIdx.x < total_tiles
-          ? (total_tiles - 1 - blockIdx.x) / gridDim.x + 1
-          : 0;
-  const long long total_stages = my_tiles * nchunks;
+  const int total = N * tiles_h * tiles_w;  // < 2^31 (host)
+  const int nch = (Cin + KC - 1) / KC;
+  // tile -> (image, first row, first column), the column tile fastest
+  auto origin = [&](int t, int& img, int& h0, int& w0) {
+    w0 = t % tiles_w * TW;
+    t /= tiles_w;
+    h0 = t % tiles_h * TH;
+    img = t / tiles_h;
+  };
 
-  // The resident weights: row tap * Cin + ci holds W[tap][ci][0:64] (zero
-  // past Cout). Committed with the first stage's group.
-  for (int i = tid; i < 9 * Cin * (BN / 8); i += THREADS) {
-    const int row = i / (BN / 8), co = (i % (BN / 8)) * 8;
-    const bool ok = co < Cout;
-    const __nv_bfloat16* src =
-        ok ? w + (static_cast<int64_t>(row) * Cout + co) : w;
-    cp_async16(wsm + row * BNP + co, src, ok ? 16 : 0);
-  }
-  // Prologue: stages 0 .. STAGES-2 (an empty group where there is none, so
-  // that the wait counts below hold).
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < total_stages)
-      stage_patch<KC>(
-          patches + s * PATCH, x,
-          blockIdx.x + static_cast<long long>(s / nchunks) * gridDim.x,
-          (s % nchunks) * KC, H, W, Cin, tiles_w, tiles_h);
-    cp_async_commit();
-  }
-
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wc = warp & 3;   // pixel columns wc*16 .. wc*16+15 of the tile
-  const int wn = warp >> 2;  // output channels wn*32 .. wn*32+31
-  // Per-lane ldmatrix offsets (elements). A: lane l reads patch column
-  // wc*16 + (l & 15) (+ dx), channels + (l >> 4) * 8 -> a0..a3 of m16n8k16.
-  // B: lane l reads weight row k = (l & 15), columns + (l >> 4) * 8 ->
-  // (b0, b1) of two adjacent n8 tiles under .trans.
-  const int a_lane = (wc * 16 + (lane & 15)) * KCP + (lane >> 4) * 8;
-  const int b_lane = (lane & 15) * BNP + wn * 32 + (lane >> 4) * 8;
-  // Epilogue: C fragment rows g / g+8 are pixel columns, columns 2t, 2t+1
-  // are channels.
-  const int g = lane >> 2, t4 = lane & 3;
-  float sc[4][2], sh[4][2];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int co = wn * 32 + nt * 8 + 2 * t4 + e;
-      sc[nt][e] = co < Cout ? scale[co] : 0.f;
-      sh[nt][e] = co < Cout ? shift[co] : 0.f;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(wbar, 1);
+    for (int i = 0; i < 2 * SPW; ++i) {
+      sm90::mbar_init(&pfull[i], 1);
+      sm90::mbar_init(&pempty[i], 4);  // the consumer's four warps
     }
-  const uint32_t w_s = smem_u32(wsm);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
 
-  float acc[TH][4][4];
-  int buf = 0;
-  for (long long s = 0; s < total_stages; ++s) {
-    cp_async_wait<STAGES - 2>();  // stage s (and the weights) landed
-    __syncthreads();              // ... for every thread; stage s-1's
-                                  // buffer is free
-    {
-      const long long sn = s + STAGES - 1;
-      if (sn < total_stages) {
-        int nb = buf + STAGES - 1;
-        nb -= nb >= STAGES ? STAGES : 0;
-        stage_patch<KC>(patches + nb * PATCH, x,
-                        blockIdx.x + (sn / nchunks) * gridDim.x,
-                        static_cast<int>(sn % nchunks) * KC, H, W, Cin,
-                        tiles_w, tiles_h);
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    // ----------------------------------------------------- producers
+    const int g = threadIdx.x == 256 ? 0 : threadIdx.x == 288 ? 1 : -1;
+    if (g < 0) return;
+    if (g == 0) {
+      sm90::prefetch_tensormap(&wmap);
+      sm90::mbar_arrive_expect_tx(wbar, nw * 9 * W_TILE);
+      for (int c = 0; c < nw; ++c)
+        for (int tap = 0; tap < 9; ++tap)
+          sm90::tma_load_3d(wres + (c * 9 + tap) * W_TILE, &wmap, wbar, 0,
+                            c * 64, tap);
+    }
+    sm90::prefetch_tensormap(&xmap);
+    uint32_t it = 0;
+    for (int t = blockIdx.x + g * gridDim.x; t < total; t += 2 * gridDim.x) {
+      int img, h0, w0;
+      origin(t, img, h0, w0);
+      for (int c = 0; c < nch; ++c, ++it) {
+        const int s = g * SPW + it % SPW;
+        sm90::mbar_wait(&pempty[s], ((it / SPW) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&pfull[s], P::PATCH_TX);
+        sm90::tma_load_4d(patch + s * P::PATCH, &xmap, &pfull[s], c * KC,
+                          w0 - 1, h0 - 1, img);
       }
-      cp_async_commit();
     }
+    return;
+  }
 
-    const int chunk = static_cast<int>(s % nchunks);
-    if (chunk == 0) {
-#pragma unroll
-      for (int o = 0; o < TH; ++o)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[o][nt][q] = 0.f;
-    }
-    const int c0 = chunk * KC;
-    const int klen = min(KC, Cin - c0);
-    const uint32_t patch_s = smem_u32(patches + buf * PATCH);
+  // ------------------------------------------------------- consumers
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const uint32_t wres0 = smem_u32(wres);
+  const uint32_t patch0 = smem_u32(patch);
+  unsigned char* st = ostage + (wgi * 4 + warp) * OUT_WARP;
+  const uint32_t st0 = smem_u32(st);
+  // patch pixel of row 0, tap dx = 0, for this lane's A row
+  const int pbase = warp * 16 + (lane & 15);
+  sm90::mbar_wait(wbar, 0);
 
+  uint32_t it = 0;
+  for (int t = blockIdx.x + wgi * gridDim.x; t < total; t += 2 * gridDim.x) {
+    int img, h0, w0;
+    origin(t, img, h0, w0);
+    float acc[TH][BN / 2];
 #pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
+    for (int o = 0; o < TH; ++o)
 #pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        if (kk >= klen) continue;
-        uint32_t bt[3][2][4];  // taps (dy, dx), dy = 0..2, for 32 channels
+      for (int i = 0; i < BN / 2; ++i) acc[o][i] = 0.f;
+
+    for (int c = 0; c < nch; ++c, ++it) {
+      const int s = wgi * SPW + it % SPW;
+      sm90::mbar_wait(&pfull[s], (it / SPW) & 1);
+      const uint32_t pb = patch0 + s * P::PATCH;
+      const int steps = min(KC / 16, (Cin - c * KC) / 16);
+      uint32_t afrag[2][RG][4];  // [buffer][row of the group]
 #pragma unroll
-        for (int dy = 0; dy < 3; ++dy)
+      for (int j = 0; j < KC / 16; ++j) {
+        if (j >= steps) break;  // uniform: Cin % KC == 16
+        const int ci = c * KC + 16 * j;  // first input channel of the step
+        const uint32_t wb = wres0 + (ci / 64) * 9 * W_TILE + (ci % 64) / 16 *
+                                                                 2048;
 #pragma unroll
-          for (int j = 0; j < 2; ++j)
-            ldmatrix_x4_trans(
-                bt[dy][j], w_s + 2 * (b_lane +
-                                      ((dy * 3 + dx) * Cin + c0 + kk) * BNP +
-                                      j * 16));
+        for (int dx = 0; dx < 3; ++dx) {
 #pragma unroll
-        for (int r = 0; r < PR; ++r) {
-          uint32_t a[4];
-          ldmatrix_x4(a, patch_s + 2 * (a_lane + (r * PW + dx) * KCP + kk));
-          // input row r feeds output row o through tap dy = r - o
+          for (int rg = 0; rg < PR / RG; ++rg) {
+            const int buf = ((j * 3 + dx) * (PR / RG) + rg) & 1;
 #pragma unroll
-          for (int o = r - 2; o <= r; ++o) {
-            if (o < 0 || o >= TH) continue;
+            for (int q = 0; q < RG; ++q)
+              sm90::ldmatrix_x4(
+                  afrag[buf][q],
+                  swz<P::ROW>(pb, (RG * rg + q) * PW + pbase + dx,
+                              2 * j + (lane >> 4)));
+            sm90::wgmma_fence();
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-              mma_bf16_16816(acc[o][nt], a, bt[r - o][nt >> 1][(nt & 1) * 2],
-                             bt[r - o][nt >> 1][(nt & 1) * 2 + 1]);
+            for (int q = 0; q < RG; ++q) {
+              const int r = RG * rg + q;  // patch row: output row r - dy
+#pragma unroll
+              for (int dy = 0; dy < 3; ++dy) {
+                const int o = r - dy;
+                if (o < 0 || o >= TH) continue;
+                const uint64_t desc = sm90::wgmma_desc(
+                    wb + (dy * 3 + dx) * W_TILE, 8192, 1024, 1);
+                sm90::wgmma_rs<BN, 1>(acc[o], afrag[buf][q], desc);
+              }
+            }
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<1>();
           }
         }
       }
+      sm90::wgmma_wait<0>();
+      if (lane == 0) sm90::mbar_arrive(&pempty[s]);
     }
-
-    if (chunk == nchunks - 1) {
-      const Tile t = decode(blockIdx.x + (s / nchunks) * gridDim.x, tiles_w,
-                            tiles_h);
-      const int co = wn * 32 + t4 * 8;  // this lane's 8 channels after the
-                                        // quad transpose
 #pragma unroll
-      for (int o = 0; o < TH; ++o) {
-        if (t.h0 + o >= H) continue;  // uniform across the block
-        const int64_t row_base =
-            (static_cast<int64_t>(t.n) * H + t.h0 + o) * W;
+    for (int o = 0; o < TH; ++o) sm90::fence_regs(acc[o]);
+
+    // Epilogue. Accumulator i: pixel lane/4 (+8 for i%4 >= 2) of this
+    // warp's 16, channel 8*(i/4) + 2*(lane%4) + i%2.
+#pragma unroll
+    for (int o = 0; o < TH; ++o) {
+      if (h0 + o >= H) break;  // uniform: the last tile at H % 4 == 2
+      if (lane == 0) sm90::bulk_wait<0, true>();  // the box was read
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int co = 8 * j + 2 * (lane & 3);
+        const bool in = co < Cout;  // Cout % 16 == 0: co + 1 too
+        const float a0 = in ? scale[co] : 0.f, a1 = in ? scale[co + 1] : 0.f;
+        const float b0 = in ? shift[co] : 0.f, b1 = in ? shift[co + 1] : 0.f;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          uint32_t v[4];
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            float y0 = acc[o][nt][half * 2] * sc[nt][0] + sh[nt][0];
-            float y1 = acc[o][nt][half * 2 + 1] * sc[nt][1] + sh[nt][1];
-            if (relu) {
-              y0 = fmaxf(y0, 0.f);
-              y1 = fmaxf(y1, 0.f);
-            }
-            v[nt] = pack_bf16x2(y0, y1);
+          float v0 = acc[o][4 * j + 2 * half] * a0 + b0;
+          float v1 = acc[o][4 * j + 2 * half + 1] * a1 + b1;
+          if (relu) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
           }
-          // Quad transpose: lane t4 of the quad gathers n8 tile nt = t4
-          // from the four lanes (round k reads lane (t4 + k) & 3, which
-          // sends its tile (its t4 - k) & 3, i.e. the reader's t4).
-          uint32_t got[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            got[k] = __shfl_sync(0xffffffffu, pick(v, (t4 - k) & 3),
-                                 (lane & ~3) | ((t4 + k) & 3));
-          const int col = t.w0 + wc * 16 + g + half * 8;
-          if (col < W && co < Cout) {
-            uint4 q;
-            q.x = pick(got, (0 - t4) & 3);
-            q.y = pick(got, (1 - t4) & 3);
-            q.z = pick(got, (2 - t4) & 3);
-            q.w = pick(got, (3 - t4) & 3);
-            *reinterpret_cast<uint4*>(out + (row_base + col) * Cout + co) =
-                q;
-          }
+          const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+          const int p = (lane >> 2) + 8 * half;
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                           sm90::swz128(st0, p, j) + 4 * (lane & 3)),
+                       "r"(*reinterpret_cast<const uint32_t*>(&v))
+                       : "memory");
         }
       }
+      sm90::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        sm90::tma_store_4d(&omap, st, 0, w0 + warp * 16, h0 + o, img);
+        sm90::bulk_commit();
+      }
     }
-    buf = buf + 1 == STAGES ? 0 : buf + 1;
   }
-  cp_async_wait<0>();
+  if (lane == 0) sm90::bulk_wait<0, false>();  // the stores are done
 }
 
 template <int KC>
-cudaError_t launch(const void* x, const void* w, const void* a, const void* b,
-                   void* out, int N, int H, int W, int Cin, int Cout,
-                   int relu, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
+cudaError_t launch(const void* x, const void* w, const float* a,
+                   const float* b, void* out, int N, int H, int W, int Cin,
+                   int Cout, int relu, cudaStream_t stream) {
+  using P = Plan<KC>;
+  const int smem = smem_bytes<KC>(Cin);
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return err;
+  if (Cin > P::MAX_CIN || smem > SMEM_LIMIT || smem > optin)
+    return cudaErrorInvalidConfiguration;  // the plan does not fit
+  const int64_t tiles = static_cast<int64_t>(N) * ((H + TH - 1) / TH) *
+                        ((W + TW - 1) / TW);
+  if (tiles > 2147483647LL) return cudaErrorInvalidConfiguration;
+
+  CUtensorMap xmap, wmap, omap;
+  const uint64_t xd[4] = {static_cast<uint64_t>(Cin),
+                          static_cast<uint64_t>(W), static_cast<uint64_t>(H),
+                          static_cast<uint64_t>(N)};
+  const uint64_t xs[3] = {2ull * Cin, 2ull * Cin * W, 2ull * Cin * W * H};
+  const uint32_t xb[4] = {KC, PW, PR, 1};
+  if (!sm90::encode_bf16_map(&xmap, x, 4, xd, xs, xb, P::SWIZZLE))
+    return cudaErrorInvalidValue;
+  // w (3,3,Cin,Cout) HWIO as (Cout, Cin, 9), in 64 x 64 boxes
+  const uint64_t wd[3] = {static_cast<uint64_t>(Cout),
+                          static_cast<uint64_t>(Cin), 9};
+  const uint64_t wstr[2] = {2ull * Cout, 2ull * Cout * Cin};
+  const uint32_t wbox[3] = {64, 64, 1};
+  if (!sm90::encode_bf16_map(&wmap, w, 3, wd, wstr, wbox))
+    return cudaErrorInvalidValue;
+  const uint64_t od[4] = {static_cast<uint64_t>(Cout),
+                          static_cast<uint64_t>(W), static_cast<uint64_t>(H),
+                          static_cast<uint64_t>(N)};
+  const uint64_t os[3] = {2ull * Cout, 2ull * Cout * W, 2ull * Cout * W * H};
+  const uint32_t ob[4] = {BN, 16, 1, 1};
+  if (!sm90::encode_bf16_map(&omap, out, 4, od, os, ob))
+    return cudaErrorInvalidValue;
+
   auto kern = conv3x3_pair_kernel<KC>;
-  const size_t smem = smem_bytes<KC>(Cin);
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const long long tiles =
-      static_cast<long long>(N) * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  if ((err = cudaFuncSetAttribute(
+           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+      cudaSuccess)
+    return err;
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(a),
-      static_cast<const float*>(b), static_cast<__nv_bfloat16*>(out), H, W,
-      Cin, Cout, relu, tiles);
+  kern<<<grid, THREADS, smem, stream>>>(xmap, wmap, omap, a, b, N, H, W, Cin,
+                                        Cout, relu);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// out (N,H,W,Cout) <- x (N,H,W,Cin), w (3,3,Cin,Cout) HWIO; a, b (Cout,)
+// f32.
 extern "C" int conv3x3_pair_bn_relu_bf16(const void* x, const void* w,
                                          const void* a, const void* b,
                                          void* out, int N, int H, int W,
@@ -402,9 +393,12 @@ extern "C" int conv3x3_pair_bn_relu_bf16(const void* x, const void* w,
         reinterpret_cast<uintptr_t>(out)) &
        15) != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
+  auto af = static_cast<const float*>(a);
+  auto bf = static_cast<const float*>(b);
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      Cin <= 64 ? launch<32>(x, w, a, b, out, N, H, W, Cin, Cout, relu, st)
-                : launch<16>(x, w, a, b, out, N, H, W, Cin, Cout, relu, st);
+      Cin <= 64
+          ? launch<32>(x, w, af, bf, out, N, H, W, Cin, Cout, relu, st)
+          : launch<16>(x, w, af, bf, out, N, H, W, Cin, Cout, relu, st);
   return static_cast<int>(err);
 }

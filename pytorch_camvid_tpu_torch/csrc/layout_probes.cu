@@ -25,11 +25,17 @@
 // One template serves f32 and bf16: the kernel moves bytes.
 //
 // slice_matmul_kernel (M4). out = x[start:start+n] @ w in f32 on the tensor
-// cores, fed from a shared tile at an odd row offset. A block computes 32
-// rows x 64 columns; each 32-deep K chunk of x is staged from the 8-row
-// boundary below its first row, and the A fragments of mma.sync.m16n8k8
-// are loaded from shared memory at the unaligned row (row + off, off in
-// 0..7). TF32 keeps 10 mantissa bits: one TF32 product per term has ~1e-3
+// cores, fed from a shared tile at an odd row offset. The product is small
+// (32 x 256 @ 256 x 128 in the probe: a launch and a load's latency bound
+// it), so the work is spread over the card and every load goes out at once:
+// a block computes 32 rows x 8 columns (the probe: 16 blocks), stages x's
+// 39-row slab from the 8-row boundary below its first row and its 8
+// columns of w, up to K = 256 deep, in one cp.async group before its first
+// MMA; its 8 warps take the k8 steps in turn and add their partial sums in
+// warp order through shared memory (no atomics: two calls give the same
+// bits). The A fragments of mma.sync.m16n8k8 are loaded from shared memory
+// at the unaligned row (row + off, off in 0..7). TF32 keeps 10 mantissa
+// bits: one TF32 product per term has ~1e-3
 // relative error, and over K = 256 terms of N(0,1) x N(0,1) the worst of
 // 4,096 outputs can pass the tool's atol of 5e-2. So each operand is split
 // into a TF32 high part and a TF32 residual, and three products are summed
@@ -134,12 +140,13 @@ __global__ void __launch_bounds__(ROW_THREADS)
 
 // --------------------------------------------------- slice matmul (M4)
 
-constexpr int MM_THREADS = 128;     // 4 warps: 2 row halves x 2 col halves
-constexpr int BM = 32;              // output rows per block
-constexpr int BN = 64;              // output columns per block
-constexpr int KT = 32;              // K per staged chunk
+constexpr int MM_THREADS = 256;     // 8 warps, each a share of K
+constexpr int MM_WARPS = MM_THREADS / 32;
+constexpr int BM = 32;              // output rows per block (two m16)
+constexpr int BN = 8;               // output columns per block (one n8)
+constexpr int KT = 256;             // K staged at once
 constexpr int AP = KT + 4;          // A row pitch (floats): conflict-free
-constexpr int BP = BN + 8;          // B row pitch (floats): conflict-free
+constexpr int MM_SMEM = ((BM + 7) * AP + KT * BN + MM_WARPS * BM * BN) * 4;
 
 __device__ __forceinline__ uint32_t to_tf32(float v) {
   uint32_t r;
@@ -168,70 +175,79 @@ __global__ void __launch_bounds__(MM_THREADS)
     slice_matmul_kernel(const float* __restrict__ x,
                         const float* __restrict__ w, float* __restrict__ out,
                         int rows, int K, int N, int start, int n) {
-  __shared__ __align__(16) float As[(BM + 7) * AP];
-  __shared__ __align__(16) float Bs[KT * BP];
+  extern __shared__ __align__(16) float mm_smem[];
+  float* As = mm_smem;                      // (BM + 7) x AP
+  float* Bs = As + (BM + 7) * AP;           // KT x BN
+  float* red = Bs + KT * BN;                // MM_WARPS x BM x BN
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int s0 = start + m0;                   // source row of output m0
   const int a0 = s0 & ~7;
   const int off = s0 - a0;                     // 1 for the tool's probe
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp & 1) * 16, wn = (warp >> 1) * 32;
-  float acc[4][4] = {};
+  float acc[2][4] = {};
   for (int k0 = 0; k0 < K; k0 += KT) {
-    // x rows a0 .. a0 + BM + 6 (zero past the source rows and the slice's
-    // end or K), then w rows k0 .. k0 + KT - 1, columns n0 .. n0 + BN - 1
-    for (int i = threadIdx.x; i < (BM + 7) * (KT / 4); i += MM_THREADS) {
-      const int r = i / (KT / 4), c = (i % (KT / 4)) * 4;
+    const int steps = (min(KT, K - k0) + 7) / 8;  // k8 steps, zero past K
+    // Every load of the round at once, one cp.async group: x rows a0 ..
+    // a0 + BM + 6 (zero past the source rows and the slice's end), then w
+    // rows k0 .., columns n0 .. n0 + BN - 1 (zero past K and N).
+    for (int i = threadIdx.x; i < (BM + 7) * steps * 2; i += MM_THREADS) {
+      const int r = i / (steps * 2), c = (i % (steps * 2)) * 4;
       const int src = a0 + r, k = k0 + c;
       const bool ok = src < rows && src < start + n && k < K;
       cp_async16(&As[r * AP + c],
                  ok ? x + static_cast<int64_t>(src) * K + k : x, ok ? 16 : 0);
     }
-    for (int i = threadIdx.x; i < KT * (BN / 4); i += MM_THREADS) {
+    for (int i = threadIdx.x; i < steps * 8 * (BN / 4); i += MM_THREADS) {
       const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
       const int k = k0 + r, col = n0 + c;
       const bool ok = k < K && col < N;
-      cp_async16(&Bs[r * BP + c],
+      cp_async16(&Bs[r * BN + c],
                  ok ? w + static_cast<int64_t>(k) * N + col : w, ok ? 16 : 0);
     }
     cp_async_wait_all();
     __syncthreads();
+    // warp w takes the k8 steps w, w + MM_WARPS, ...: a fixed order
+    for (int st = warp; st < steps; st += MM_WARPS) {
+      const int kk = st * 8;
+      const float* bp = &Bs[(kk + t) * BN + g];
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(bp[0], bh0, bl0);
+      split_tf32(bp[4 * BN], bh1, bl1);
 #pragma unroll
-    for (int kk = 0; kk < KT; kk += 8) {
-      // A fragment of rows wm .. wm + 15 of the slice: shared rows
-      // off + wm + g and off + wm + g + 8, at the unaligned offset
-      const float* ap = &As[(off + wm + g) * AP + kk + t];
-      uint32_t ah[4], al[4];
-      split_tf32(ap[0], ah[0], al[0]);
-      split_tf32(ap[8 * AP], ah[1], al[1]);
-      split_tf32(ap[4], ah[2], al[2]);
-      split_tf32(ap[8 * AP + 4], ah[3], al[3]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float* bp = &Bs[(kk + t) * BP + wn + j * 8 + g];
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(bp[0], bh0, bl0);
-        split_tf32(bp[4 * BP], bh1, bl1);
-        mma_tf32_1688(acc[j], al, bh0, bh1);
-        mma_tf32_1688(acc[j], ah, bl0, bl1);
-        mma_tf32_1688(acc[j], ah, bh0, bh1);
+      for (int mt = 0; mt < 2; ++mt) {
+        // A fragment of rows 16 mt .. 16 mt + 15 of the slice: shared rows
+        // off + 16 mt + g (+ 8), at the unaligned offset
+        const float* ap = &As[(off + 16 * mt + g) * AP + kk + t];
+        uint32_t ah[4], al[4];
+        split_tf32(ap[0], ah[0], al[0]);
+        split_tf32(ap[8 * AP], ah[1], al[1]);
+        split_tf32(ap[4], ah[2], al[2]);
+        split_tf32(ap[8 * AP + 4], ah[3], al[3]);
+        mma_tf32_1688(acc[mt], al, bh0, bh1);
+        mma_tf32_1688(acc[mt], ah, bl0, bl1);
+        mma_tf32_1688(acc[mt], ah, bh0, bh1);
       }
     }
     __syncthreads();
   }
+  // The warps' partial sums, added in warp order: no atomics, the same
+  // bits on every call.
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = n0 + wn + j * 8 + 2 * t;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm + g + 8 * h;
-      if (row >= n) continue;
-      float* o = out + static_cast<int64_t>(row) * N + col;
-      if (col < N) o[0] = acc[j][2 * h];
-      if (col + 1 < N) o[1] = acc[j][2 * h + 1];
+      float* r = &red[(warp * BM + 16 * mt + g + 8 * h) * BN + 2 * t];
+      r[0] = acc[mt][2 * h];
+      r[1] = acc[mt][2 * h + 1];
     }
-  }
+  __syncthreads();
+  const int row = threadIdx.x / BN, col = threadIdx.x % BN;  // BM x BN
+  float sum = red[row * BN + col];
+#pragma unroll
+  for (int wi = 1; wi < MM_WARPS; ++wi) sum += red[(wi * BM + row) * BN + col];
+  if (m0 + row < n && n0 + col < N)
+    out[static_cast<int64_t>(m0 + row) * N + n0 + col] = sum;
 }
 
 // ------------------------------------------------- width shifts (M6)
@@ -356,8 +372,12 @@ extern "C" int layout_slice_matmul(const float* x, const float* w,
       start + n > rows || K % 4 || N % 4 || !aligned16(x) || !aligned16(w) ||
       (n + BM - 1) / BM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      slice_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      MM_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + BN - 1) / BN, (n + BM - 1) / BM);
-  slice_matmul_kernel<<<grid, MM_THREADS, 0,
+  slice_matmul_kernel<<<grid, MM_THREADS, MM_SMEM,
                         static_cast<cudaStream_t>(stream)>>>(x, w, out, rows,
                                                              K, N, start, n);
   return static_cast<int>(cudaGetLastError());

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the conv kernels: TMA tensor
 // maps and loads, mbarriers, wgmma descriptors and the wgmma instruction
 // with A in registers, fences and register reallocation. Raw PTX, no
-// CUTLASS. Included by conv3x3_bn_relu.cu and conv3x3_wgrad.cu; the build
-// key of each covers this header (ops/cuda_build.py).
+// CUTLASS. Included by conv3x3_bn_relu.cu, conv3x3_wgrad.cu and
+// conv3x3_pair_bn_relu.cu; the build key of each covers this header
+// (ops/cuda_build.py).
 
 #pragma once
 
@@ -368,13 +369,14 @@ inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // A bf16 tensor map of ``rank`` dims (innermost first, extents ``dims``,
-// byte strides of dims 1.. in ``strides``) read in boxes ``box`` with the
-// 128-byte swizzle and zero fill outside the tensor. False on failure
-// (an address not 16-byte aligned, a stride not a multiple of 16, a box
-// row wider than 128 bytes).
-inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
-                            const uint64_t* dims, const uint64_t* strides,
-                            const uint32_t* box) {
+// byte strides of dims 1.. in ``strides``) read in boxes ``box`` with
+// ``swizzle`` (the 128-byte one unless asked) and zero fill outside the
+// tensor. False on failure (an address not 16-byte aligned, a stride not a
+// multiple of 16, a box row wider than the swizzle's span).
+inline bool encode_bf16_map(
+    CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+    const uint64_t* strides, const uint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   cuuint64_t d[5], s[4];
@@ -387,7 +389,7 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
   }
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
             const_cast<void*>(base), d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

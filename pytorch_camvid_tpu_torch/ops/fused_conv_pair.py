@@ -3,9 +3,11 @@ kernel K5: counterpart of ``pytorch_camvid_tpu/ops/pallas_conv_pair.py``.
 
 Same function as ``ops/fused_conv.py`` (K4), relu(conv3x3(x, W) * A + B),
 computed by a kernel specialised for the full-resolution C <= 64 family
-(``csrc/conv3x3_pair_bn_relu.cu``): the whole weight tensor stays in shared
-memory and each tile is two pairs of output rows. No model path calls it, in
-the JAX package or here; ``perf_probe --pair`` times it.
+(``csrc/conv3x3_pair_bn_relu.cu``, wgmma fed by TMA): the whole weight
+tensor stays in shared memory, each tile is two pairs of output rows, and
+each A fragment of an input row feeds the three taps dy that read it. No
+model path calls it, in the JAX package or here; ``perf_probe --pair``
+times it.
 
 - ``conv3x3_pair_bn_relu(x, w, a, b, relu=True)`` is the dispatching
   wrapper: a CPU tensor goes to the plain version; a CUDA tensor launches
@@ -16,6 +18,9 @@ the JAX package or here; ``perf_probe --pair`` times it.
 - ``conv3x3_pair_bn_relu_plain``: the plain version, K4's (``F.conv2d`` in
   x's dtype, then the affine and ReLU in f32).
 - ``conv3x3_pair_bn_relu.launches`` counts kernel launches.
+- ``tile_plan(cin)``: the kernel's shared-memory plan at ``cin`` (input
+  channels per patch stage, stages, bytes), the figures the source's
+  ``smem_bytes`` computes and its ``static_assert``s hold.
 
 The kernel takes bf16 x and w, f32 a and b, Cin a multiple of 16 up to 128,
 Cout a multiple of 16 up to 64, any W, and returns bf16. The TPU function's
@@ -44,6 +49,22 @@ from pytorch_camvid_tpu_torch.ops.fused_conv import (
 
 SOURCE = cuda_build.CSRC / "conv3x3_pair_bn_relu.cu"
 MAX_CIN, MAX_COUT = 128, 64   # the kernel's limits (multiples of 16)
+SMEM_LIMIT = 232448           # shared bytes one block may have on Hopper
+
+
+def tile_plan(cin: int) -> dict:
+    """The kernel's shared-memory plan at ``cin``: ``kc`` input channels
+    per patch stage (32 up to Cin 64, 16 above), ``stages`` (two per
+    consumer warpgroup) and ``bytes``: alignment slack, the resident
+    weights (9 taps x 64 x 64 bf16 per 64 input channels), the output
+    staging (8 warps x 2048), the stages (6 x 66 pixels x kc bf16 each,
+    1024-aligned) and 9 mbarriers."""
+    kc = 32 if cin <= 64 else 16
+    stage = -(-6 * 66 * kc * 2 // 1024) * 1024
+    stages = 4
+    nbytes = (1024 + -(-cin // 64) * 9 * 64 * 64 * 2 + 8 * 2048
+              + stages * stage + 9 * 8)
+    return {"kc": kc, "stages": stages, "bytes": nbytes}
 
 
 @functools.cache

@@ -11,7 +11,9 @@ row or width offset that is not aligned, and at what cost.
   clamps.
 - ``row_slice_matmul(x, w, start, n=32)``: ``x[start:start+n] @ w`` in f32
   on the tensor cores (split TF32, three ``mma.sync`` per product), fed
-  from a shared tile at the unaligned row (M4).
+  from a shared tile at the unaligned row, one block per 32 rows x 8
+  columns, its loads issued at once, its warps' partial sums added in a
+  fixed order (M4: the same bits on every call).
 - ``roll_rows(x, shift)``: ``torch.roll(x, shift, 0)`` through shared
   memory (M5, f32 and bf16).
 - ``sum_width_shifts(xp, w)``: ``xp[:, 0:w] + xp[:, 1:w+1] + xp[:, 2:w+2]``

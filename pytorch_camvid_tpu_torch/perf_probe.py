@@ -39,7 +39,10 @@ as the op's. ``ms_chain_tax = ms_gross - ms`` is the time the device
 waited on the host, the counterpart of the JAX tool's chain tax; it
 includes the profiler's own cost per launch. A row above its roofline is
 re-measured with 3x the launches, up to twice, and then flagged
-``suspect``. On the CPU (``--device cpu``) ``ms = ms_gross`` from the host
+``suspect``. The profiler now and then returns traces without their device
+records (seen on the H100 for microsecond ops, three times in a row in
+one run of ``chip_smoke.py``); after ``TRACE_TRIES`` such traces ``ms``
+is the CUDA events' time, and a line on stderr says so. On the CPU (``--device cpu``) ``ms = ms_gross`` from the host
 clock and the tax is 0; those rows time PyTorch's CPU kernels and say
 nothing about the card. Every row names the device it ran on.
 """
@@ -67,7 +70,7 @@ HW = (360, 480)
 PEAK_TFLOPS = bench.H100_BF16_PEAK / 1e12
 HBM_GBPS = bench.H100_HBM_RATE / 1e9
 WARMUP = 3
-TRACE_TRIES = 3     # traces taken before an empty one fails (time_op)
+TRACE_TRIES = 3     # traces taken before time_op falls back to events
 SEGNET_POOL_CHANNELS = (64, 128, 256, 512, 512)
 POOL_IMPLS = ("argmax", "phase", "k3", "k2")
 
@@ -134,8 +137,7 @@ def time_op(fn: Callable[[], object], k: int,
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     # the profiler now and then returns a trace without its device records
-    # (seen on the H100 for a 2-microsecond copy): such a trace is taken
-    # again, and a run whose every trace is empty fails
+    # (seen on the H100 for microsecond ops): such a trace is taken again
     for _ in range(TRACE_TRIES):
         torch.cuda.synchronize(dev)
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -148,8 +150,11 @@ def time_op(fn: Callable[[], object], k: int,
         spans = [(a, b) for _, a, b in bench.device_spans(prof)]
         if spans:
             return e0.elapsed_time(e1) / k, bench.busy_ms(spans) / k
-    raise RuntimeError(f"perf_probe: {TRACE_TRIES} traces held no device "
-                       f"events")
+    gross = e0.elapsed_time(e1) / k
+    print(f"perf_probe: {TRACE_TRIES} traces held no device records; the "
+          f"time is by CUDA events ({gross:.5f} ms a call)", file=sys.stderr,
+          flush=True)
+    return gross, gross
 
 
 def _op(batch, h, w, cin, cout, mode, kernel, pair, dev):

@@ -20,7 +20,8 @@ def csrc(tmp_path):
 
 
 @pytest.mark.parametrize("source", ["conv3x3_bn_relu.cu",
-                                    "conv3x3_wgrad.cu"])
+                                    "conv3x3_wgrad.cu",
+                                    "conv3x3_pair_bn_relu.cu"])
 def test_key_covers_the_included_header(csrc, source):
     src = csrc / source
     assert cuda_build.local_includes(src) == [csrc / "sm90_common.cuh"]

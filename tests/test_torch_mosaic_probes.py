@@ -152,7 +152,9 @@ def test_roll_rows_on_cpu(dtype, shift):
 
 @pytest.mark.parametrize("rows,k,m,start,n", [(64, 256, 128, 1, 32),
                                               (100, 132, 68, 7, 70),
-                                              (9, 4, 4, 8, 1)])
+                                              (9, 4, 4, 8, 1),
+                                              (50, 64, 12, 3, 45),
+                                              (40, 300, 20, 0, 33)])
 def test_row_slice_matmul_on_cpu(rows, k, m, start, n):
     rng = np.random.default_rng(rows)
     x = rng.normal(size=(rows, k)).astype(np.float32)

@@ -6,12 +6,15 @@ On the CPU the port's wrapper runs its plain version (the CUDA kernel is
 held against that plain version on the card by chip_smoke.py). Inputs come
 from numpy with fixed seeds and go to both packages."""
 
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
 from pytorch_camvid_tpu.ops import pallas_conv_pair as jax_pair
+from pytorch_camvid_tpu_torch import k5_variants
 from pytorch_camvid_tpu_torch.ops import fused_conv_pair
 
 
@@ -22,7 +25,9 @@ def _rand(shape, seed, scale=1.0):
 
 @pytest.mark.parametrize("n,h,w,c,co,seed", [(2, 12, 30, 8, 8, 1),
                                              (1, 8, 15, 16, 8, 2),
-                                             (2, 20, 24, 8, 16, 3)])
+                                             (2, 20, 24, 8, 16, 3),
+                                             (2, 10, 13, 16, 16, 4),
+                                             (1, 6, 11, 80, 48, 5)])
 def test_pair_conv_matches_jax_f32(n, h, w, c, co, seed):
     x = _rand((n, h, w, c), seed)
     wt = _rand((3, 3, c, co), seed + 10, 0.1)
@@ -126,3 +131,40 @@ def test_kernel_checks_reject_what_the_kernel_does_not_take():
         x.shape)
     with pytest.raises(ValueError, match="aligned"):
         fused_conv_pair._check(shifted, w, a, b)
+
+
+@pytest.mark.parametrize("cin", range(16, fused_conv_pair.MAX_CIN + 1, 16))
+def test_tile_plan_fits_a_block_at_every_cin(cin):
+    """The kernel's shared-memory plan fits one Hopper block at every Cin
+    of the contract: two patch stages per consumer warpgroup, 32 channels
+    each up to Cin 64 and 16 above, beside all of the resident weights."""
+    plan = fused_conv_pair.tile_plan(cin)
+    assert plan["bytes"] <= fused_conv_pair.SMEM_LIMIT == 232448
+    assert plan["kc"] == (32 if cin <= 64 else 16) and plan["stages"] == 4
+    weights = -(-cin // 64) * 9 * 64 * 64 * 2
+    assert plan["bytes"] > weights + plan["stages"] * 6 * 66 * plan["kc"] * 2
+
+
+def test_tile_plan_is_the_sources():
+    """tile_plan's bytes are the figures the CUDA source asserts at compile
+    time (``static_assert(smem_bytes<KC>(Cin) == bytes``)."""
+    src = fused_conv_pair.SOURCE.read_text()
+    held = re.findall(r"static_assert\(smem_bytes<(\d+)>\((\d+)\) == (\d+)",
+                      src)
+    assert len(held) == 2
+    for kc, cin, nbytes in held:
+        plan = fused_conv_pair.tile_plan(int(cin))
+        assert (plan["kc"], plan["bytes"]) == (int(kc), int(nbytes))
+
+
+@pytest.mark.parametrize("name", sorted(k5_variants.VARIANTS))
+def test_k5_variant_edits_apply_to_the_source(name):
+    """Each design variant that k5_variants.py times is an edit that still
+    applies to the kernel's source, and changes it (but "kept")."""
+    src = k5_variants._edited(k5_variants.VARIANTS[name])
+    assert (src == fused_conv_pair.SOURCE.read_text()) == (name == "kept")
+
+
+def test_k5_variants_without_a_card_fails(capsys):
+    assert k5_variants.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
