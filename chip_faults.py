@@ -11,7 +11,10 @@ K5's checks against its plain version and K4 (``chip_smoke.pair_checks``,
 phase 10 without its timings) and the layout probes' checks against their
 plain versions (``chip_smoke.probe_checks``, phase 11 without its
 timings), once sound and once under each planted fault. Every fault
-keeps every kernel launch, so only the values can show it. Prints each
+keeps every kernel launch, so only the values can show it (the packed
+dW's and rows_kernel's faults patch the launch functions
+``conv_train._wgrad_launch`` and ``layout_probes._launch``, never a
+wrapper, whose launch counts stay as they are). Prints each
 reading and the check that failed; exits non-zero if the sound run fails
 a check or a fault passes them all.
 """
@@ -114,6 +117,24 @@ def dx_taps_not_reversed(x, w, a, b, relu=True, flip=False):
     return fused_conv.conv3x3_bn_relu(x, w, a, b, relu, flip)
 
 
+_wgrad_launch = conv_train._wgrad_launch
+
+
+def packed_dw_taps_transposed(x, g, path):
+    """The packed dW launch with its taps transposed, dy and dx swapped
+    (the packed M order read the wrong way round): dW[dx, dy] returned for
+    dW[dy, dx], on the stem's and the head's calls."""
+    out = _wgrad_launch(x, g, path)
+    return out.transpose(0, 1).contiguous() if path == "packed" else out
+
+
+def stem_dw_bgr(x, g, path):
+    """The stem's dW launch (Cin 3, the packed path) with its input
+    channels 0 and 2 swapped: a BGR/RGB mix-up in the gradient."""
+    out = _wgrad_launch(x, g, path)
+    return out[:, :, [2, 1, 0]].contiguous() if x.shape[3] == 3 else out
+
+
 _pair_launch = fused_conv_pair._launch
 
 
@@ -179,6 +200,38 @@ def m4_second_block_dropped(op, *args):
     return _probe_launch(op, *args)
 
 
+def rows_one_row_early(op, *args):
+    """rows_kernel's launch reading every output row from the row before
+    it (offset - 1): the static start - 1 where it is past 0, the device
+    start - 1 (a copy), the roll's shift + 1."""
+    if op == "rows":   # (x, out, s_dev, mode, dtype, rows, cols, n, v)
+        x, out, s_dev, mode, dtype, rows, cols, n, v = args
+        if mode == layout_probes.ROWS_MODES["static"] and v > 0:
+            v -= 1
+        elif mode == layout_probes.ROWS_MODES["dynamic"]:
+            s_dev = s_dev - 1
+        elif mode == layout_probes.ROWS_MODES["roll"]:
+            v = (v + 1) % rows
+        args = (x, out, s_dev, mode, dtype, rows, cols, n, v)
+    return _probe_launch(op, *args)
+
+
+def rows_last_block_dropped(op, *args):
+    """rows_kernel's static-start launch without its last block of output
+    rows: n cut to the rows of the blocks before it, the rest of the output
+    left as its allocation held it (NaN here, so that no earlier values
+    can stand in for the rows that were not written)."""
+    if op == "rows" and args[3] == layout_probes.ROWS_MODES["static"]:
+        x, out, s_dev, mode, dtype, rows, cols, n, v = args
+        keep = (n - 1) // layout_probes.ROWS_PER_BLOCK * \
+            layout_probes.ROWS_PER_BLOCK
+        out[keep:] = float("nan")
+        if keep == 0:
+            return None
+        args = (x, out, s_dev, mode, dtype, rows, cols, keep, v)
+    return _probe_launch(op, *args)
+
+
 def failed_check(run, fault) -> str:
     """The message of the chip_smoke check that ``run`` fails under
     ``fault``, or '' when it passes."""
@@ -219,6 +272,13 @@ def main() -> int:
         ("training", "K1 dx with the tap reversal flag off (every launch)",
          lambda: planted(conv_train, "conv3x3_bn_relu",
                          dx_taps_not_reversed)),
+        ("training", "packed dW with its taps transposed (dy and dx "
+         "swapped; the stem's and the head's)",
+         lambda: planted(conv_train, "_wgrad_launch",
+                         packed_dw_taps_transposed)),
+        ("training", "the stem's dW with input channels 0 and 2 swapped "
+         "(BGR/RGB)",
+         lambda: planted(conv_train, "_wgrad_launch", stem_dw_bgr)),
         ("K5", "K5 output rows of each pair swapped",
          lambda: planted(fused_conv_pair, "_launch", pair_rows_swapped)),
         ("K5", "K5 with one dx tap dropped",
@@ -236,6 +296,11 @@ def main() -> int:
                          m4_last_warp_k_part_dropped)),
         ("probes", "M4 without the second 8-column block",
          lambda: planted(layout_probes, "_launch", m4_second_block_dropped)),
+        ("probes", "rows_kernel reading one row early (M1-M3, M5)",
+         lambda: planted(layout_probes, "_launch", rows_one_row_early)),
+        ("probes", "rows_kernel without its last block of rows (M1, M2)",
+         lambda: planted(layout_probes, "_launch",
+                         rows_last_block_dropped)),
     ]
     ok = True
     for path in ("serving", "training", "K5", "probes"):

@@ -10,8 +10,8 @@ Phases (each prints its lines; any failure exits non-zero):
    (K1's dW), the 2x2 max pool / unpool / phase gather (K3, K2), the
    shallow H-pair conv3x3+BN+ReLU (K5) and the six layout probes (M1-M6);
    prints ptxas's register and spill lines. Then checks that the built
-   libraries choose the same kernel path (K4/K1 fwd and dx: wgmma, packed
-   or narrow; dW: wgmma or narrow) as the wrappers' rules
+   libraries choose the same kernel path (K4/K1 fwd and dx, and dW: wgmma,
+   packed or narrow) as the wrappers' rules
    (``fused_conv.conv_path``, ``conv_train.wgrad_path``) at every (Cin,
    Cout) the phases below run, and that a step's launches per path are
    ``PATH_TABLE``'s.
@@ -26,9 +26,13 @@ Phases (each prints its lines; any failure exits non-zero):
    24, SegNet 32): forward and dx (K4's kernel, unit affine, no ReLU; dx
    reads the weights tap-reversed in place) against F.conv2d and
    torch.nn.grad.conv2d_input, dW against the f32 plain version; kernel,
-   plain and cuDNN-bf16-wgrad times; then the three pieces at
-   ``EDGE_SHAPES``. Then, per model, K4's and K1's times summed over its
-   blocks beside their bounds.
+   plain and cuDNN-bf16-wgrad times; the stem's and the head's dW (the
+   packed dW path) beside their bounds, cuDNN's bf16 wgrad and the narrow
+   path's time before it (``WGRAD_NARROW_MS``); then the three pieces at
+   ``EDGE_SHAPES`` (dW on all three paths: the stems, 12->64, 3->24, 64->12
+   and the 4.4 GB stem on the packed one, 64->20 on the narrow one). Then,
+   per model, K4's and K1's times summed over its blocks beside their
+   bounds.
 5. UNet serving: a full-width UNet (random He-scaled weights from a seed)
    saved as a reference-named .pth, loaded by ``Predictor.from_checkpoint``
    and serving three requests (8 images, 13 images, 8 images at 480x640
@@ -43,8 +47,8 @@ Phases (each prints its lines; any failure exits non-zero):
    gradients (norm and difference) and BN running stats must agree
    (``train_parity``); the kernel step must launch 23 forward, 22 dx and
    23 dW kernels, of them 22, 21 and 21 on the wgmma path (the stem's
-   forward and the head's dx on the packed one, the stem's and the head's
-   dW on the dW kernel's narrow one). Then 20 timed steps (img/s, step ms,
+   forward, the head's dx and the stem's and the head's dW on the packed
+   ones). Then 20 timed steps (img/s, step ms,
    MFU, peak memory)
    with a finite loss throughout.
 7. K3 and K2 vs plain at SegNet's five pool shapes (K3 at batch 8, K2 at
@@ -56,8 +60,8 @@ Phases (each prints its lines; any failure exits non-zero):
    launches K4 26 times (25 on the wgmma path, 1 on the packed one) and
    the K3 pool and unpool 5 times each.
 9. SegNet training: as phase 6 at batch 32; the kernel step launches K1
-   26/25/26 times (25/24/24 on the wgmma path, 1/1/0 on the packed one,
-   0/0/2 on the narrow ones), the K2 pool 5, the phase
+   26/25/26 times (25/24/24 on the wgmma path, 1/1/2 on the packed ones,
+   none on the narrow ones), the K2 pool 5, the phase
    unpool 10 (5 unpools and 5 pool backwards) and the phase gather 5
    times.
 10. K5 and the per-shape probe: K5 against its plain version in bf16 at
@@ -82,7 +86,9 @@ Phases (each prints its lines; any failure exits non-zero):
    atol 5e-2, and M4 twice on the same inputs: bit-equal, one launch a
    call; kernel, plain and library device-busy times (the profiler,
    as ``perf_probe`` takes them: at the tool's shapes CUDA events time the
-   host's launches); M6's conv-stage time beside its byte bound.
+   host's launches), M1-M3 and M5 beside rows_kernel's readings before its
+   redesign (``ROWS_BEFORE_MS``); M6's conv-stage time beside its byte
+   bound.
 In phases 8 and 9 the plain path replays the kernel path's pool choices
 (``recorded_choices``, ``replayed_choices``): a 1-ulp difference between
 the two paths' convs would otherwise flip the choice of near-tied windows
@@ -176,7 +182,9 @@ PAIR_PROBE_K = 10
 # its dx, Cin 12 into 64, takes the packed path), a partial N tile (Cout
 # 24), an input past 2**31 elements (64-bit offsets); the packed path at a
 # ragged stem, a ragged Cin 12 forward, a partial Cout tile and an output
-# past 2**31 elements; 64->20, which stays on the narrow path
+# past 2**31 elements; 64->20, which stays on the narrow path. dW: the
+# stems, 12->64, 3->24, 64->12 and the 4.4 GB stem on the packed path,
+# 64->20 on the narrow one, the rest on the wgmma one
 EDGE_SHAPES = ((2, 45, 61, 64, 64), (2, 44, 60, 512, 256),
                (2, 22, 30, 512, 512), (2, 46, 61, 48, 32),
                (2, 22, 30, 1024, 512), (2, 45, 61, 64, 12),
@@ -185,13 +193,17 @@ EDGE_SHAPES = ((2, 45, 61, 64, 64), (2, 44, 60, 512, 256),
                (2, 45, 61, 12, 64), (2, 45, 61, 3, 24),
                (200, 360, 480, 3, 64), (2, 45, 61, 64, 20))
 # K4/K1 launches per path of one forward ("fwd") and one training step:
-# the stem's forward and the head's dx on the packed path, no forward or
-# dx on the narrow one; dW (its own kernel) keeps its two paths
+# the stem's forward, the head's dx and the stem's and the head's dW on the
+# packed paths, nothing on the narrow ones
 PATH_TABLE = {
     net: {"fwd": {"wgmma": b - 1, "packed": 1, "narrow": 0},
           "dgrad": {"wgmma": b - 2, "packed": 1, "narrow": 0},
-          "wgrad": {"wgmma": b - 2, "narrow": 2}}
+          "wgrad": {"wgmma": b - 2, "packed": 2, "narrow": 0}}
     for net, b in (("unet", 23), ("segnet", 26))}
+# the stem's and the head's dW on the narrow path before the packed one
+# (UNet b24, 360x480, ms; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md),
+# printed beside this run's
+WGRAD_NARROW_MS = {("unet", 3, 64): 0.549, ("unet", 64, 12): 1.576}
 
 
 def check(cond: bool, what: str) -> None:
@@ -362,8 +374,30 @@ def phase_k1(gen: torch.Generator):
         line.append(f"cuDNN bf16 wgrad {cudnn_ms:.4f} ms")
         got_shape["cudnn_wgrad_ms"] = cudnn_ms
         print(" ".join(line), flush=True)
+    packed_wgrad_lines(res)
     k1_edge_checks(gen)
     return res
+
+
+def packed_wgrad_lines(res: dict) -> None:
+    """Phase 4's stem and head dW, each model's, on the packed path: time
+    beside the bound, cuDNN's bf16 wgrad and the narrow path's time before
+    it (``WGRAD_NARROW_MS``, UNet's)."""
+    for net, shapes in res.items():
+        n = TRAIN_BATCH[net]
+        for (h, w, cin, cout), got in shapes.items():
+            if conv_train.wgrad_path(cin, cout) != "packed":
+                continue
+            err, ms, _ = got["wgrad"]
+            bound, by = conv_bound(n, h, w, cin, cout, "wgrad")
+            before = WGRAD_NARROW_MS.get((net, cin, cout))
+            print(f"K1 dW {net} b{n} {h}x{w} {cin}->{cout} on the packed "
+                  f"path: {ms:.4f} ms, bound {bound:.4f} by {by} "
+                  f"({bound / ms:.2f} of it), cuDNN bf16 wgrad "
+                  f"{got['cudnn_wgrad_ms']:.4f} ms "
+                  f"({got['cudnn_wgrad_ms'] / ms:.2f}x), narrow path before "
+                  + (f"{before} ms" if before else "not measured")
+                  + f" ({bench.card()})", flush=True)
 
 
 # -------------------------------------------------------------- pools (7)
@@ -1123,6 +1157,13 @@ PROBE_WRAPPER_RUNS = {"layout_probes.row_slice": 2,
                       "layout_probes.roll_rows": 2,
                       "layout_probes.sum_width_shifts": 1}
 M4_RTOL, M4_ATOL = (mosaic_probes.M4_TOL[k] for k in ("rtol", "atol"))
+# rows_kernel's device-busy ms per call before its redesign (one block per
+# 64 rows x 512 bytes; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), printed
+# beside this run's
+ROWS_BEFORE_MS = {"layout_probes.row_slice_f32": 0.00206,
+                  "layout_probes.row_slice_bf16": 0.00205,
+                  "layout_probes.row_slice_dynamic": 0.00218,
+                  "layout_probes.roll_rows": 0.00553}
 # M6 at a conv stage (xp (H, W + 8, C), w = W: 360x480x64 f32) and at a
 # ragged shape (H odd, w = 201 = 3 tiles of 64 columns + 9)
 M6_SHAPES = ((360, 488, 64, 480), (45, 203, 64, 201))
@@ -1314,10 +1355,14 @@ def phase_probes(gen: torch.Generator) -> list:
             b, e["bound_by"] = bound_ms(flops, nbytes, peak)
             e["bound_ms"] += b
         gross = sum(rec[k]["ms_gross"] for k in keys)
+        before = ROWS_BEFORE_MS.get(name)
         print(f"{name} ({'+'.join(keys)}), device-busy ms per call: kernel "
               f"{e['ms']:.5f} ({gross:.5f} by events), plain "
-              f"{e['plain_ms']:.5f}, library {e['library_ms']:.5f}, bound "
-              f"{e['bound_ms']:.3g} by {e['bound_by']}", flush=True)
+              f"{e['plain_ms']:.5f}, library {e['library_ms']:.5f} "
+              f"({e['ms'] / e['library_ms']:.2f}x it), bound "
+              f"{e['bound_ms']:.3g} by {e['bound_by']}"
+              + (f"; before rows_kernel's redesign {before}" if before
+                 else ""), flush=True)
         entries.append(e)
     m6_conv_stage()
     return entries

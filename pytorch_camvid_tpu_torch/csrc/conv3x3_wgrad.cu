@@ -14,7 +14,7 @@
 // float atomics). With one split the first kernel writes dW directly. The
 // pixels are walked in tiles of TH x TW = 8 x 16; offsets are 64-bit.
 //
-// Two paths, chosen by conv3x3_wgrad_path(Cin, Cout) (the wrapper holds the
+// Three paths, chosen by conv3x3_wgrad_path(Cin, Cout) (the wrapper holds the
 // same rule, ops/conv_train.py::wgrad_path):
 //
 // * wgmma (Cin % 8 == 0 and Cout % 8 == 0). Per tap a GEMM with M = Cin,
@@ -36,7 +36,43 @@
 //   (the halo) + Cin/64 * |g| bytes from L2, where a tap-per-block tiling
 //   would read x 9 times as often. The split-K takes whole waves of two
 //   blocks per SM (ops/conv_train.py::wgrad_splits).
-// * narrow (the Cin = 3 stem, the Cout = 12 head): the first design,
+// * packed (one side narrow, the other wide: Cin % 8 != 0 with 9 x Cin <=
+//   144 and Cout % 8 == 0, the Cin = 3 stem; or Cout % 8 != 0 with 9 x
+//   Cout <= 144 and Cin % 8 == 0, the Cout = 12 head). Bound by bytes: at
+//   360x480, batch 24, the stem reads x 25 MB and g 531 MB (0.166 ms at
+//   3.35 TB/s), the head x 531 MB and g 100 MB (0.188 ms), while their
+//   useful work is 14 and 57 GFLOP. The wide tensor (the stem's g, the
+//   head's x; Cw channels) is read once, unshifted, by TMA: per pixel tile
+//   an 8 x 16 x 64 box with the 128-byte swizzle, B of wgmma.m64n64k16 as
+//   the wgmma path reads g (N-major descriptor, one k16 step a tile row).
+//   The narrow tensor (Cn channels) is the shifted operand. Per tile a
+//   producer warpgroup copies its (8 + 2) x (16 + 2) x Cn patch, each
+//   patch row 18 x Cn contiguous elements, as it lies into shared memory
+//   (16-byte cp.async, three tiles ahead: one 2-byte load a pixel and
+//   channel had cost the head a fifth of its time, dw_variants.py), then
+//   each thread takes one (patch row, channel) line of 18 values from
+//   there and writes it transposed, channel-major, three times,
+//   shifted by dx = 0, 1, 2 columns, so that each (tap, channel) row of A
+//   = 16 pixels of one tile row is 32 aligned bytes: M packs the 9 taps x
+//   Cn tap-major, m = (3 dy + dx) Cn + c, padded to 64 per m64 tile (27 ->
+//   64 for the stem, 108 -> 128 for the head), the pad rows reading a zero
+//   plane, and ldmatrix (no transpose) loads each warp's 16 rows straight
+//   from the shifted copies into wgmma's A registers. So
+//       D[(t, c)][w] = sum_p narrow[p + off(t)][c] * wide[p][w],
+//   the stem's dW[t][c][w] and, since g[p + off(t)] = g[q - off(8 - t)],
+//   the head's dW[8 - t][w][c]. MMA work per pixel: 4,096 (stem) and 8,192
+//   (head) MACs, from the narrow path's 18,432 and 36,864: the tensor
+//   cores stay off the critical path (dw_variants.py's no_mma, without the
+//   wgmmas, reads within 3% of it). Each block is one consumer warpgroup
+//   and one producer
+//   warpgroup (thread 0 issues the TMA), a 3- or 4-stage ring under full /
+//   empty mbarriers, two blocks per SM (one at three m64 tiles); split-K
+//   over pixel tiles as the wgmma
+//   path (ops/conv_train.py::wgrad_splits, whole waves of two blocks per
+//   SM); offsets 64-bit. The shared-memory plan is smem_bytes() below,
+//   held by static_asserts and by ops/conv_train.py::wgrad_packed_plan.
+// * narrow (every other shape with a channel count that is not a multiple
+//   of 8, e.g. 64->20 or 3->12): the first design,
 //   mma.sync m16n8k16 on 9 taps x 32 input x 64 output channels per block,
 //   cp.async double buffering, scalar loads for a channel count that is not
 //   a multiple of 8.
@@ -540,15 +576,367 @@ cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* g, float* dst,
 
 }  // namespace wg
 
+// ================================================================ packed
+
+namespace pk {
+
+constexpr int TH = 8, TW = 16;           // pixel tile (the wgmma path's)
+constexpr int PH = TH + 2;               // narrow patch rows (with halo)
+constexpr int PWN = TW + 2;              // narrow patch columns
+// bytes of one (dx, channel) plane: PH rows of 16 pixels (32 B), then 16 B
+// of pad, so a plane is an odd number of 16-byte chunks and the 8 rows one
+// ldmatrix reads from consecutive planes fall in distinct banks
+constexpr int PLANE = PH * TW * 2 + 16;
+constexpr int WIDE_TX = TH * TW * 128;   // 16384: one wide box
+constexpr int THREADS = 256;             // warpgroup 0 consumes, 1 produces
+constexpr int PRODUCERS = 128;
+constexpr int CONSUMER_WARPS = 4;
+constexpr int RAW = 4;                   // raw patch buffers: 3 tiles ahead
+constexpr int SM_SMEM = 233472;          // shared memory of an SM
+constexpr int BLOCK_RESERVED = 1024;     // the runtime's share per block
+
+__host__ __device__ constexpr int m_tiles(int cn) {
+  return (9 * cn + 63) / 64;
+}
+constexpr int blocks_per_sm(int cn) { return m_tiles(cn) == 3 ? 1 : 2; }
+// a ring stage of the narrow patch: 3 shifted copies x cn planes and one
+// zero plane (the pad rows of M), 128-byte aligned
+__host__ __device__ constexpr int narrow_stage(int cn) {
+  return ((3 * cn + 1) * PLANE + 127) / 128 * 128;
+}
+// 16-byte chunks a patch row of 18 x cn elements spans at any alignment
+__host__ __device__ constexpr int raw_chunks(int cn) {
+  return (18 * cn + 6) / 8 + 1;
+}
+// alignment slack, the wide and narrow rings, the raw patch buffers, 2
+// mbarriers a stage
+constexpr int smem_at(int cn, int stages) {
+  return 1024 + stages * (WIDE_TX + narrow_stage(cn)) +
+         RAW * PH * raw_chunks(cn) * 16 + 16 * stages;
+}
+// four stages where blocks_per_sm blocks still fit an SM, else three
+constexpr int stages(int cn) {
+  return blocks_per_sm(cn) * (smem_at(cn, 4) + BLOCK_RESERVED) <= SM_SMEM
+             ? 4
+             : 3;
+}
+constexpr int smem_bytes(int cn) { return smem_at(cn, stages(cn)); }
+// ops/conv_train.py::wgrad_packed_plan holds the same figures
+static_assert(smem_bytes(3) == 85568, "the stem's plan (Cn 3, 4 stages)");
+static_assert(smem_bytes(12) == 105776, "the head's plan (Cn 12, 3 stages)");
+static_assert(smem_bytes(15) == 150976, "Cn 15: 3 m64 tiles, 1 block/SM");
+
+__device__ __forceinline__ uint32_t lds_u16(uint32_t addr) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+  return v;
+}
+
+template <int MT, bool HEAD>
+__global__ void __launch_bounds__(THREADS, MT == 3 ? 1 : 2)
+    conv3x3_wgrad_packed_kernel(const __grid_constant__ CUtensorMap wmap,
+                                const __nv_bfloat16* __restrict__ nar,
+                                float* __restrict__ out, int N, int H, int W,
+                                int Cw, int Cn, int S, int splits) {
+  constexpr int LPT = MT == 1 ? 1 : 2;   // patch lines a producer thread
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const int nb = narrow_stage(Cn);
+  unsigned char* nar0 = smem + S * WIDE_TX;
+  unsigned char* raw0 = nar0 + S * nb;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(raw0 + RAW * raw_chunks(Cn) * PH * 16);
+  uint64_t* empty = full + S;
+
+  const int n0 = blockIdx.x * 64;        // the block's wide channels
+  const int split = blockIdx.y;
+  const int tiles_h = (H + TH - 1) / TH;
+  const int tiles_w = (W + TW - 1) / TW;
+  const int total = N * tiles_h * tiles_w;   // < 2^31 (host)
+  const int t_begin =
+      static_cast<int>(static_cast<int64_t>(total) * split / splits);
+  const int t_end =
+      static_cast<int>(static_cast<int64_t>(total) * (split + 1) / splits);
+
+  // the zero plane of every stage, written once
+  for (int i = threadIdx.x; i < S * (PLANE / 16); i += THREADS)
+    reinterpret_cast<uint4*>(nar0 + (i / (PLANE / 16)) * nb +
+                             3 * Cn * PLANE)[i % (PLANE / 16)] =
+        make_uint4(0, 0, 0, 0);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      sm90::mbar_init(&full[i], 1 + PRODUCERS);
+      sm90::mbar_init(&empty[i], CONSUMER_WARPS);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ------------------------------------------------------ producers
+    const int p = threadIdx.x - 128;
+    if (p == 0) sm90::prefetch_tensormap(&wmap);
+    const unsigned short* xs = reinterpret_cast<const unsigned short*>(nar);
+    // Patch row pr (input row h0 + pr - 1) is L = 18 x Cn elements,
+    // contiguous in NHWC (pixels w0 - 1 .. w0 + TW); it spans CPR 16-byte
+    // chunks, aligned in the narrow tensor. Each tile's rows are copied as
+    // they lie (cp.async, 16 bytes a copy; item i = pr x CPR + q is chunk q
+    // of row pr) into one of RAW buffers, three tiles ahead, skipping rows
+    // outside the image and chunks outside the tensor: the reader below
+    // zeroes what lies outside the image, whatever the buffer holds there.
+    const int CPR = raw_chunks(Cn);
+    const int64_t numel = static_cast<int64_t>(N) * H * W * Cn;
+    auto row_start = [&](int img, int h, int w0) {
+      return ((static_cast<int64_t>(img) * H + h) * W + w0 - 1) * Cn;
+    };
+    auto load_raw = [&](int t) {
+      if (t < t_end) {
+        const int w0 = t % tiles_w * TW;
+        const int h0 = t / tiles_w % tiles_h * TH;
+        const int img = t / (tiles_w * tiles_h);
+        unsigned char* rb = raw0 + (t - t_begin) % RAW * (PH * CPR * 16);
+        for (int i = p; i < PH * CPR; i += PRODUCERS) {
+          const int pr = i / CPR, q = i % CPR;
+          const int h = h0 + pr - 1;
+          if (h < 0 || h >= H) continue;
+          const int64_t g0 =
+              (row_start(img, h, w0) & ~static_cast<int64_t>(7)) + 8 * q;
+          if (g0 < 0 || g0 >= numel) continue;
+          const int n8 = numel - g0 < 8 ? static_cast<int>(numel - g0) : 8;
+          narrow::cp_async16(rb + i * 16, xs + g0, 2 * n8);
+        }
+      }
+      narrow::cp_async_commit();   // one group a tile, empty past the end
+    };
+    // Line (pr, c) of the tile, one a thread (two past 128 lines): its 18
+    // pixels' channel c from the raw rows, zero outside the image, written
+    // transposed into the three shifted copies, 32 bytes each (pixels dx ..
+    // dx + 15 of copy dx, plane (dx, c), row pr).
+    auto put = [&](int t, unsigned char* st) {
+      const int w0 = t % tiles_w * TW;
+      const int h0 = t / tiles_w % tiles_h * TH;
+      const int img = t / (tiles_w * tiles_h);
+      const uint32_t rb =
+          smem_u32(raw0 + (t - t_begin) % RAW * (PH * CPR * 16));
+#pragma unroll
+      for (int j = 0; j < LPT; ++j) {
+        const int l = p + j * PRODUCERS;
+        if (l >= PH * Cn) continue;
+        const int pr = l / Cn, c = l % Cn;
+        const int h = h0 + pr - 1;
+        const bool row = h >= 0 && h < H;
+        const uint32_t src =
+            rb + pr * CPR * 16 +
+            2 * (static_cast<int>(row_start(img, h, w0) & 7) + c);
+        uint32_t v[PWN];
+#pragma unroll
+        for (int q = 0; q < PWN; ++q) {
+          const int w = w0 + q - 1;
+          v[q] = row && w >= 0 && w < W ? lds_u16(src + 2 * q * Cn) : 0u;
+        }
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const uint32_t a =
+              smem_u32(st + (dx * Cn + c) * PLANE + pr * (TW * 2));
+          uint32_t u[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            u[e] = v[dx + 2 * e] | (v[dx + 2 * e + 1] << 16);
+          asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+                       "r"(u[0]), "r"(u[1]), "r"(u[2]), "r"(u[3])
+                       : "memory");
+          asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                           a + 16),
+                       "r"(u[4]), "r"(u[5]), "r"(u[6]), "r"(u[7])
+                       : "memory");
+        }
+      }
+    };
+    int s = 0;
+    uint32_t phase = 0;
+    for (int k = 0; k < RAW - 1; ++k) load_raw(t_begin + k);
+    for (int t = t_begin; t < t_end; ++t) {
+      narrow::cp_async_wait<RAW - 2>();   // this tile's copies, then all
+      asm volatile("bar.sync 1, %0;\n" ::"n"(PRODUCERS) : "memory");
+      sm90::mbar_wait(&empty[s], phase ^ 1);
+      if (p == 0) {
+        const int w0 = t % tiles_w * TW;
+        const int h0 = t / tiles_w % tiles_h * TH;
+        const int img = t / (tiles_w * tiles_h);
+        sm90::mbar_arrive_expect_tx(&full[s], WIDE_TX);
+        sm90::tma_load_4d(smem + s * WIDE_TX, &wmap, &full[s], n0, w0, h0,
+                          img);
+      }
+      put(t, nar0 + s * nb);
+      sm90::mbar_arrive(&full[s]);
+      // into the buffer read one tile ago, before this tile's barrier
+      load_raw(t + RAW - 1);
+      if (++s == S) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    // this lane's ldmatrix row: M row m (matrix lane / 8: rows +8 for odd,
+    // k +8 for lane >= 16), at its tap's shifted copy, channel plane and
+    // patch row dy; a pad row reads the zero plane
+    int aoff[MT];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      const int m = 64 * mi + 16 * warp + 8 * ((lane >> 3) & 1) + (lane & 7);
+      const int tap = m / Cn, c = m % Cn;
+      aoff[mi] = (m < 9 * Cn ? ((tap % 3) * Cn + c) * PLANE +
+                                   (tap / 3) * (TW * 2)
+                             : 3 * Cn * PLANE) +
+                 16 * (lane >> 4);
+    }
+    float acc[MT][32];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[mi][i] = 0.f;
+    const uint32_t wide0 = smem_u32(smem), nar0s = smem_u32(nar0);
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t = t_begin; t < t_end; ++t) {
+      sm90::mbar_wait(&full[s], phase);
+      const uint32_t ws = wide0 + s * WIDE_TX;
+      const uint32_t ns = nar0s + s * nb;
+      uint32_t afrag[2][MT][4];
+#pragma unroll
+      for (int r = 0; r < TH; ++r) {
+        // B: the wide tile's pixel rows 16r .. 16r+15 (K) x 64 channels
+        // (N), N-major, 8 rows are 1024 bytes
+        const uint64_t desc = sm90::wgmma_desc(ws + r * 2048, 8192, 1024, 1);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+          sm90::ldmatrix_x4(afrag[r & 1][mi], ns + aoff[mi] + r * (TW * 2));
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+          sm90::wgmma_rs<64, 1>(acc[mi], afrag[r & 1][mi], desc);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();
+      }
+      sm90::wgmma_wait<0>();
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);
+      if (++s == S) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) sm90::fence_regs(acc[mi]);
+
+    // Accumulator i of M tile mi: row m = 64 mi + 16 warp + lane / 4 (+8
+    // for i % 4 >= 2) = (tap, c), wide channel n0 + 8 (i / 4) + 2 (lane %
+    // 4) + i % 2. The stem's dW[tap][c][w] (pairs adjacent), the head's
+    // dW[8 - tap][w][c].
+    float* dst = out + static_cast<int64_t>(split) * 9 * Cw * Cn;
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = 64 * mi + 16 * warp + (lane >> 2) + 8 * half;
+        if (m >= 9 * Cn) continue;
+        const int tap = m / Cn, c = m % Cn;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int w = n0 + 8 * j + 2 * (lane & 3);
+          if (w >= Cw) continue;   // Cw % 8 == 0: w + 1 is in range too
+          const float v0 = acc[mi][4 * j + 2 * half];
+          const float v1 = acc[mi][4 * j + 2 * half + 1];
+          if constexpr (HEAD) {
+            float* q =
+                dst + (static_cast<int64_t>(8 - tap) * Cw + w) * Cn + c;
+            q[0] = v0;
+            q[Cn] = v1;
+          } else {
+            *reinterpret_cast<float2*>(
+                dst + (static_cast<int64_t>(tap) * Cn + c) * Cw + w) =
+                make_float2(v0, v1);
+          }
+        }
+      }
+  }
+}
+
+template <int MT, bool HEAD>
+cudaError_t launch(const CUtensorMap& wmap, const __nv_bfloat16* nar,
+                   float* dst, int N, int H, int W, int Cw, int Cn,
+                   int splits, cudaStream_t stream) {
+  auto kern = conv3x3_wgrad_packed_kernel<MT, HEAD>;
+  const int smem = smem_bytes(Cn);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Cw + 63) / 64, splits);
+  kern<<<grid, THREADS, smem, stream>>>(wmap, nar, dst, N, H, W, Cw, Cn,
+                                         stages(Cn), splits);
+  return cudaGetLastError();
+}
+
+// x-side (the stem): x narrow, g wide; g-side (the head): g narrow, x wide
+cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* g, float* dst,
+                int N, int H, int W, int Cin, int Cout, int splits,
+                cudaStream_t stream) {
+  const bool head = Cout % 8 != 0;
+  const __nv_bfloat16* wide = head ? x : g;
+  const __nv_bfloat16* nar = head ? g : x;
+  const int Cw = head ? Cin : Cout, Cn = head ? Cout : Cin;
+  if (reinterpret_cast<uintptr_t>(nar) & 15)   // its 16-byte vector loads
+    return cudaErrorInvalidValue;
+  if (static_cast<int64_t>(N) * ((H + TH - 1) / TH) * ((W + TW - 1) / TW) >
+      2147483647LL)
+    return cudaErrorInvalidConfiguration;
+  CUtensorMap wmap;
+  const uint64_t d[4] = {static_cast<uint64_t>(Cw), static_cast<uint64_t>(W),
+                         static_cast<uint64_t>(H), static_cast<uint64_t>(N)};
+  const uint64_t st[3] = {2ull * Cw, 2ull * Cw * W, 2ull * Cw * W * H};
+  const uint32_t box[4] = {64, TW, TH, 1};
+  if (!sm90::encode_bf16_map(&wmap, wide, 4, d, st, box))
+    return cudaErrorInvalidValue;
+  const int mt = m_tiles(Cn);
+  if (mt == 1)
+    return head ? launch<1, true>(wmap, nar, dst, N, H, W, Cw, Cn, splits,
+                                  stream)
+                : launch<1, false>(wmap, nar, dst, N, H, W, Cw, Cn, splits,
+                                   stream);
+  if (mt == 2)
+    return head ? launch<2, true>(wmap, nar, dst, N, H, W, Cw, Cn, splits,
+                                  stream)
+                : launch<2, false>(wmap, nar, dst, N, H, W, Cw, Cn, splits,
+                                   stream);
+  if (mt == 3)
+    return head ? launch<3, true>(wmap, nar, dst, N, H, W, Cw, Cn, splits,
+                                  stream)
+                : launch<3, false>(wmap, nar, dst, N, H, W, Cw, Cn, splits,
+                                   stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace pk
+
+
 
 }  // namespace
 
-// 1: the wgmma path takes (Cin, Cout); 0: the narrow path does.
+// 1: the wgmma path takes (Cin, Cout); 2: the packed path (one side
+// narrow enough to pack 9 taps x its channels into M <= 144, the other
+// side a multiple of 8); 0: the narrow path.
 extern "C" int conv3x3_wgrad_path(int Cin, int Cout) {
-  return Cin % 8 == 0 && Cout % 8 == 0;
+  if (Cin % 8 == 0 && Cout % 8 == 0) return 1;
+  if ((Cin % 8 != 0 && 9 * Cin <= 144 && Cout % 8 == 0) ||
+      (Cout % 8 != 0 && 9 * Cout <= 144 && Cin % 8 == 0))
+    return 2;
+  return 0;
 }
 
-// Pixel tiles of the split-K range (both paths walk 8 x 16 tiles): the
+// Pixel tiles of the split-K range (every path walks 8 x 16 tiles): the
 // wrapper picks splits <= this.
 extern "C" long long conv3x3_wgrad_pixel_tiles(int N, int H, int W) {
   return static_cast<long long>(N) * ((H + wg::TH - 1) / wg::TH) *
@@ -558,7 +946,10 @@ extern "C" long long conv3x3_wgrad_pixel_tiles(int N, int H, int W) {
 // Output tiles (blocks per split) of the path that takes (Cin, Cout): the
 // wrapper sizes the split-K from this.
 extern "C" long long conv3x3_wgrad_out_tiles(int Cin, int Cout) {
-  if (conv3x3_wgrad_path(Cin, Cout))
+  const int path = conv3x3_wgrad_path(Cin, Cout);
+  if (path == 2)   // the wide side's 64-channel tiles
+    return ((Cout % 8 != 0 ? Cin : Cout) + 63) / 64;
+  if (path == 1)
     return static_cast<long long>((Cin + wg::BM - 1) / wg::BM) *
            ((Cout + wg::BN - 1) / wg::BN);
   return static_cast<long long>((Cin + narrow::KC - 1) / narrow::KC) *
@@ -580,10 +971,11 @@ extern "C" int conv3x3_wgrad_bf16(const void* x, const void* g, void* out,
   auto of = static_cast<float*>(out);
   float* dst = splits > 1 ? static_cast<float*>(ws) : of;
   auto st = static_cast<cudaStream_t>(stream);
+  const int path = conv3x3_wgrad_path(Cin, Cout);
   cudaError_t err =
-      conv3x3_wgrad_path(Cin, Cout)
-          ? wg::run(xb, gb, dst, N, H, W, Cin, Cout, splits, st)
-          : narrow::run(xb, gb, dst, N, H, W, Cin, Cout, splits, st);
+      path == 1   ? wg::run(xb, gb, dst, N, H, W, Cin, Cout, splits, st)
+      : path == 2 ? pk::run(xb, gb, dst, N, H, W, Cin, Cout, splits, st)
+                  : narrow::run(xb, gb, dst, N, H, W, Cin, Cout, splits, st);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const int64_t size = static_cast<int64_t>(9) * Cin * Cout;
   const int64_t blocks = (size + 255) / 256;

@@ -12,17 +12,22 @@
 //   M6 :137  probe_d     3 DMAs of xp at width offsets    width_shifts_kernel
 //                        0/1/2 into VMEM, summed
 //
-// rows_kernel (M1, M2, M3, M5). A block owns up to RT output rows of one
-// 512-byte column tile. It stages the source rows, starting at the row
-// s0 & ~7 below the first source row s0 (an 8-row boundary, the TPU's
-// sublane tile), into shared memory with 16-byte cp.async, and then writes
-// its output rows from the staged tile at the unaligned row offset
-// s0 - (s0 & ~7): global memory is never read at the offset. The three
-// modes differ only in s0: a static start (M1, M2), an int32 start read
-// from device memory by the kernel and clamped to [0, rows - n] as
-// lax.dynamic_slice clamps (M3: the host never reads it), and the rotation
-// (M5: s0 = (r0 - shift) mod rows, the staged rows wrapping at the end).
-// One template serves f32 and bf16: the kernel moves bytes.
+// rows_kernel (M1, M2, M3, M5). A block owns RB = 8 output rows of one
+// CT = 256-byte column tile (at the tool's 64 x 256 f32 input, M1 runs 16
+// blocks, M5 32): the probes move 32-64 KB, so a launch and one load's
+// round trip bound them, and the work is spread over the card so that no
+// block waits on more than one round trip. A block stages its source rows,
+// starting at the row s0 & ~7 below its first source row s0 (an 8-row
+// boundary, the TPU's sublane tile), into shared memory with 16-byte
+// cp.async, each thread's one or two copies in a single group issued
+// before any wait, and then writes its output rows from the staged tile at
+// the unaligned row offset s0 - (s0 & ~7): global memory is never read at
+// the offset. The three modes differ only in s0: a static start (M1, M2),
+// an int32 start read from device memory by the kernel and clamped to
+// [0, rows - n] as lax.dynamic_slice clamps (M3: the host never reads it),
+// and the rotation (M5: s0 = (r0 - shift) mod rows, the staged rows
+// wrapping at the end). One template serves f32 and bf16: the kernel moves
+// bytes. ops/layout_probes.py::rows_grid holds the same grid rule.
 //
 // slice_matmul_kernel (M4). out = x[start:start+n] @ w in f32 on the tensor
 // cores, fed from a shared tile at an odd row offset. The product is small
@@ -91,9 +96,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // ------------------------------------------------ rows (M1, M2, M3, M5)
 
-constexpr int ROW_THREADS = 256;
-constexpr int RT = 64;              // output rows per block
-constexpr int CT_BYTES = 512;       // bytes of a row per column tile
+constexpr int RB = 8;               // output rows per block
+constexpr int CT = 256;             // bytes of a row per column tile
+constexpr int CHUNKS = CT / 16;     // 16-byte chunks of a tile row
+constexpr int ROW_THREADS = RB * CHUNKS;  // one output chunk a thread
 
 enum RowMode { STATIC = 0, DYNAMIC = 1, ROLL = 2 };
 
@@ -102,11 +108,12 @@ __global__ void __launch_bounds__(ROW_THREADS)
     rows_kernel(const T* __restrict__ x, T* __restrict__ out,
                 const int* __restrict__ s_dev, int mode, int rows,
                 int row_bytes, int n, int start_or_shift) {
-  __shared__ __align__(16) unsigned char tile[(RT + 7) * CT_BYTES];
-  const int r0 = blockIdx.y * RT;              // first output row
-  const int nr = min(RT, n - r0);              // output rows of the block
-  const int c0 = blockIdx.x * CT_BYTES;        // first byte of the tile
-  const int chunks = min(CT_BYTES, row_bytes - c0) / 16;
+  // RB rows and up to 7 rows above them, from the 8-row boundary
+  __shared__ __align__(16) unsigned char tile[(RB + 7) * CT];
+  const int r0 = blockIdx.x * RB;              // first output row
+  const int nr = min(RB, n - r0);              // output rows of the block
+  const int c0 = blockIdx.y * CT;              // first byte of the tile
+  const int chunks = min(CT, row_bytes - c0) / 16;
   int s0;                                      // source row of output r0
   if (mode == ROLL) {
     s0 = static_cast<int>(
@@ -118,21 +125,27 @@ __global__ void __launch_bounds__(ROW_THREADS)
   }
   const int a0 = s0 & ~7;                      // the 8-row boundary below
   const int off = s0 - a0;                     // unaligned offset, 0..7
-  const int staged = off + nr;
+  const int staged = off + nr;                 // at most 15 rows
   const auto* xb = reinterpret_cast<const unsigned char*>(x);
-  for (int i = threadIdx.x; i < staged * chunks; i += ROW_THREADS) {
-    const int r = i / chunks, c = i % chunks;
-    const int src = (a0 + r) % rows;           // wraps only for ROLL
-    cp_async16(tile + r * CT_BYTES + c * 16,
-               xb + static_cast<int64_t>(src) * row_bytes + c0 + c * 16, 16);
+  // every copy of the block in one group: at most two a thread
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int i = threadIdx.x + j * ROW_THREADS;
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    if (r < staged && c < chunks) {
+      const int src = (a0 + r) % rows;         // wraps only for ROLL
+      cp_async16(tile + r * CT + c * 16,
+                 xb + static_cast<int64_t>(src) * row_bytes + c0 + c * 16,
+                 16);
+    }
   }
   cp_async_wait_all();
   __syncthreads();
-  auto* ob = reinterpret_cast<unsigned char*>(out);
-  for (int i = threadIdx.x; i < nr * chunks; i += ROW_THREADS) {
-    const int r = i / chunks, c = i % chunks;
+  const int r = threadIdx.x / CHUNKS, c = threadIdx.x % CHUNKS;
+  if (r < nr && c < chunks) {
     const uint4 v =
-        *reinterpret_cast<const uint4*>(tile + (off + r) * CT_BYTES + c * 16);
+        *reinterpret_cast<const uint4*>(tile + (off + r) * CT + c * 16);
+    auto* ob = reinterpret_cast<unsigned char*>(out);
     *reinterpret_cast<uint4*>(ob + static_cast<int64_t>(r0 + r) * row_bytes +
                               c0 + c * 16) = v;
   }
@@ -347,9 +360,11 @@ extern "C" int layout_rows(const void* x, void* out, const int* s_dev,
       (mode == ROLL && (n != rows || start_or_shift < 0 ||
                         start_or_shift >= rows)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t ty = (static_cast<int64_t>(n) + RT - 1) / RT;
+  // row blocks along x, column tiles along y (ops/layout_probes.py::
+  // rows_grid)
+  const int64_t ty = (row_bytes + CT - 1) / CT;
   if (ty > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((row_bytes + CT_BYTES - 1) / CT_BYTES),
+  const dim3 grid(static_cast<unsigned>((n + RB - 1) / RB),
                   static_cast<unsigned>(ty));
   auto st = static_cast<cudaStream_t>(stream);
   const int rb = static_cast<int>(row_bytes);

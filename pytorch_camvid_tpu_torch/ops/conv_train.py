@@ -19,7 +19,7 @@ Each piece has a wrapper (``conv3x3_fwd``, ``conv3x3_dgrad``,
 kernel on a CUDA tensor, or raises; each counts its kernel launches in
 ``.launches`` and per kernel path in ``.path_launches``: the forward and
 dx by ``fused_conv.conv_path`` ("wgmma", "packed" or "narrow"), dW by
-``wgrad_path`` ("wgmma" or "narrow"). The plain
+``wgrad_path`` ("wgmma", "packed" or "narrow"). The plain
 versions are ``conv3x3_train_plain`` (``F.conv2d``,
 differentiated by autograd), ``conv3x3_dgrad_plain``
 (``torch.nn.grad.conv2d_input``) and ``conv3x3_wgrad_plain``
@@ -38,13 +38,18 @@ from pytorch_camvid_tpu_torch.ops import cuda_build
 from pytorch_camvid_tpu_torch.ops.fused_conv import (PATHS, conv3x3_bn_relu,
                                                      conv_path)
 
-WGRAD_PATHS = ("narrow", "wgmma")   # the dW kernel's, by its path code
+WGRAD_PATHS = ("narrow", "wgmma", "packed")   # by the .cu's path code
 
 WGRAD_SOURCE = cuda_build.CSRC / "conv3x3_wgrad.cu"
-# split-K target in blocks per SM: the narrow kernel's, and the wgmma
-# kernel's (one resident per SM: two whole waves)
+# split-K target in blocks per SM: the narrow kernel's; the wgmma
+# kernel's (one resident per SM: two whole waves) and the packed kernel's
+# (two resident per SM: one whole wave)
 _BLOCKS_PER_SM = 8
 _WGMMA_BLOCKS_PER_SM = 2
+# the packed dW path (csrc/conv3x3_wgrad.cu, namespace pk): its narrow side
+# packs 9 taps x channels into M <= PACKED_M_MAX
+PACKED_M_MAX = 144
+SM_SMEM, BLOCK_SMEM = 233472, 232448   # shared bytes of an SM, of a block
 
 
 def _nchw(t: torch.Tensor) -> torch.Tensor:
@@ -91,10 +96,51 @@ def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------- wrappers
 
 def wgrad_path(cin: int, cout: int) -> str:
-    """The dW kernel's path for (Cin, Cout): "wgmma" where TMA can describe
-    x and g (Cin % 8 == 0 and Cout % 8 == 0), "narrow" otherwise (the .cu's
-    ``conv3x3_wgrad_path`` holds the same rule)."""
-    return "wgmma" if cin % 8 == 0 and cout % 8 == 0 else "narrow"
+    """The dW kernel's path for (Cin, Cout) (the .cu's
+    ``conv3x3_wgrad_path`` holds the same rule): "wgmma" where TMA can
+    describe x and g (Cin % 8 == 0 and Cout % 8 == 0); "packed" where one
+    side is narrow (its channels not a multiple of 8, 9 x channels <=
+    ``PACKED_M_MAX``) and the other a multiple of 8: the Cin = 3 stem and the
+    Cout = 12 head; "narrow" otherwise (e.g. 64->20, 3->12)."""
+    if cin % 8 == 0 and cout % 8 == 0:
+        return "wgmma"
+    if ((cin % 8 and 9 * cin <= PACKED_M_MAX and cout % 8 == 0)
+            or (cout % 8 and 9 * cout <= PACKED_M_MAX and cin % 8 == 0)):
+        return "packed"
+    return "narrow"
+
+
+def wgrad_packed_plan(cin: int, cout: int) -> dict:
+    """The packed dW kernel's plan at (Cin, Cout) on that path: the narrow
+    side's channels ``narrow`` (x's for the stem, g's for the head), M =
+    9 taps x channels padded to 64-row tiles (``m``), N = 64 channels of the
+    wide side per block, ``blocks_per_sm`` (two; one at three M tiles, for
+    their accumulators), and shared memory: ``stage_bytes`` (one 8 x 16
+    pixel x 64 channel wide box, 16,384 B, and the narrow patch's three
+    shifted channel-major copies plus a zero plane, each (8 + 2) rows x 32 B
+    + 16 B, rounded up to 128), ``stages`` (4 where ``blocks_per_sm``
+    blocks still fit an SM, else 3), ``raw_bytes`` (four buffers of the
+    patch's (8 + 2) rows as they lie in memory, each the 16-byte chunks
+    that 18 x narrow elements span at any alignment) and ``bytes`` (1,024
+    of alignment slack, the stages, the raw buffers and two mbarriers a
+    stage): the figures the source's ``smem_bytes`` computes and its
+    ``static_assert``s hold."""
+    if wgrad_path(cin, cout) != "packed":
+        raise ValueError(f"{cin}->{cout} is not on the packed dW path")
+    narrow = cin if cin % 8 else cout
+    m_tiles = -(-9 * narrow // 64)
+    per_sm = 1 if m_tiles == 3 else 2
+    plane = 10 * 32 + 16
+    nstage = -(-(3 * narrow + 1) * plane // 128) * 128
+    raw = 4 * 10 * ((18 * narrow + 6) // 8 + 1) * 16
+
+    def total(stages):
+        return 1024 + stages * (16384 + nstage) + raw + 16 * stages
+
+    stages = 4 if per_sm * (total(4) + 1024) <= SM_SMEM else 3
+    return {"narrow": narrow, "m": 64 * m_tiles, "n": 64,
+            "blocks_per_sm": per_sm, "stage_bytes": 16384 + nstage,
+            "stages": stages, "raw_bytes": raw, "bytes": total(stages)}
 
 
 def _count(fn, path: str) -> None:
@@ -151,10 +197,11 @@ def wgrad_splits(pixel_tiles: int, out_tiles: int, sms: int,
     """Split-K factor over the kernel's output tiles, at most one split per
     pixel tile (both counts come from the kernel's library). Narrow path:
     at least ``_BLOCKS_PER_SM`` blocks per SM. wgmma path (one block
-    resident per SM): at most ``_WGMMA_BLOCKS_PER_SM`` per SM, rounded
-    down, so power-of-two tile counts fill whole waves (at 16 output tiles
-    17 splits would leave a third wave nearly empty)."""
-    if path == "wgmma":
+    resident per SM) and packed path (two): at most
+    ``_WGMMA_BLOCKS_PER_SM`` per SM, rounded down, so power-of-two tile
+    counts fill whole waves (at 16 output tiles 17 splits would leave a
+    third wave nearly empty)."""
+    if path in ("wgmma", "packed"):
         want = _WGMMA_BLOCKS_PER_SM * sms // out_tiles
     else:
         want = -(-_BLOCKS_PER_SM * sms // out_tiles)
@@ -175,24 +222,20 @@ def _check_wgrad(x: torch.Tensor, g: torch.Tensor) -> None:
     if min(x.shape) == 0 or max(*x.shape, g.shape[3]) >= 2 ** 31:
         raise ValueError(f"unsupported shape x {tuple(x.shape)}, g "
                          f"{tuple(g.shape)}")
+    if (wgrad_path(x.shape[3], g.shape[3]) != "narrow"
+            and (x.data_ptr() % 16 or g.data_ptr() % 16)):
+        raise ValueError("x and g must be 16-byte aligned (TMA; the packed "
+                         "path's 16-byte loads of the narrow tensor)")
 
 
-def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """dW (3,3,Cin,Cout) f32 of conv3x3 pad-1 from x (N,H,W,Cin) and the
-    cotangent g (N,H,W,Cout), NHWC contiguous.
-
-    On a CPU tensor this is ``conv3x3_wgrad_plain``. On a CUDA tensor it
-    launches the Hopper kernel (bf16 x and g, f32 accumulation, split-K
-    with a deterministic second pass) or raises."""
-    if x.device.type == "cpu":
-        return conv3x3_wgrad_plain(x, g)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3_wgrad: no kernel for {x.device}")
-    _check_wgrad(x, g)
+def _wgrad_launch(x: torch.Tensor, g: torch.Tensor,
+                  path: str) -> torch.Tensor:
+    """One call of the dW kernel on checked CUDA inputs (its split-K pass
+    and, past one split, the sum over the splits): returns dW (3,3,Cin,Cout)
+    f32; raises on a CUDA error."""
     n, h, wd, cin = x.shape
     cout = g.shape[3]
     lib = _wgrad_library()
-    path = wgrad_path(cin, cout)
     with torch.cuda.device(x.device):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         splits = wgrad_splits(lib.conv3x3_wgrad_pixel_tiles(n, h, wd),
@@ -209,6 +252,23 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"conv3x3_wgrad kernel launch failed: CUDA error "
                            f"{err} at x {tuple(x.shape)}, Cout {cout}")
+    return out
+
+
+def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dW (3,3,Cin,Cout) f32 of conv3x3 pad-1 from x (N,H,W,Cin) and the
+    cotangent g (N,H,W,Cout), NHWC contiguous.
+
+    On a CPU tensor this is ``conv3x3_wgrad_plain``. On a CUDA tensor it
+    launches the Hopper kernel (bf16 x and g, f32 accumulation, split-K
+    with a deterministic second pass) or raises."""
+    if x.device.type == "cpu":
+        return conv3x3_wgrad_plain(x, g)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_wgrad: no kernel for {x.device}")
+    _check_wgrad(x, g)
+    path = wgrad_path(x.shape[3], g.shape[3])
+    out = _wgrad_launch(x, g, path)
     _count(conv3x3_wgrad, path)
     return out
 

@@ -4,7 +4,8 @@ row or width offset that is not aligned, and at what cost.
 
 - ``row_slice(x, start, n)``: ``x[start:start+n]`` (M1 in f32, M2 in bf16),
   staged in shared memory from the 8-row boundary below ``start`` and read
-  there at the unaligned row.
+  there at the unaligned row, by blocks of 8 rows x 256 bytes spread over
+  the card (``rows_grid``).
 - ``row_slice_dynamic(x, s, n)``: the same at an offset held in an int32
   device tensor ``s`` of one element (M3), which the kernel reads and the
   host never does; clamped to [0, rows - n], as ``lax.dynamic_slice``
@@ -41,6 +42,8 @@ from pytorch_camvid_tpu_torch.ops import cuda_build
 SOURCE = cuda_build.CSRC / "layout_probes.cu"
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _STATIC, _DYNAMIC, _ROLL = 0, 1, 2   # layout_rows' modes
+ROWS_MODES = {"static": _STATIC, "dynamic": _DYNAMIC, "roll": _ROLL}
+ROWS_PER_BLOCK, ROW_TILE_BYTES = 8, 256   # rows_kernel's block: RB x CT
 WIDTH_OFFSETS = (0, 1, 2)
 
 
@@ -81,6 +84,26 @@ def roll_rows_plain(x: torch.Tensor, shift: int) -> torch.Tensor:
 
 def sum_width_shifts_plain(xp: torch.Tensor, w: int) -> torch.Tensor:
     return xp[:, 0:w] + xp[:, 1:w + 1] + xp[:, 2:w + 2]
+
+
+def rows_grid(rows: int, cols: int, dtype: torch.dtype, n: int,
+              mode: str = "static") -> dict:
+    """The grid ``layout_rows`` launches for an (rows, cols) x of ``dtype``
+    and n output rows (``mode``: "static", "dynamic" or "roll", where n is
+    rows): blocks of ``ROWS_PER_BLOCK`` output rows along x by
+    ``ROW_TILE_BYTES`` columns of bytes along y. Returns the grid and each
+    block's output rows and byte columns, [first, last) per index."""
+    if mode not in ROWS_MODES or (mode == "roll" and n != rows):
+        raise ValueError(f"rows_grid: mode {mode!r} with n {n} of {rows}")
+    row_bytes = cols * torch.empty((), dtype=dtype).element_size()
+    gx = -(-n // ROWS_PER_BLOCK)
+    gy = -(-row_bytes // ROW_TILE_BYTES)
+    return {"grid": (gx, gy),
+            "rows": [(i * ROWS_PER_BLOCK, min(n, (i + 1) * ROWS_PER_BLOCK))
+                     for i in range(gx)],
+            "bytes": [(j * ROW_TILE_BYTES,
+                       min(row_bytes, (j + 1) * ROW_TILE_BYTES))
+                      for j in range(gy)]}
 
 
 # ------------------------------------------------------------- checks

@@ -9,6 +9,8 @@ kernel's ``flip``), the dW layout and the dtype casts are what is checked
 here, with the kernel path each call takes; the CUDA kernels are held
 against these plain versions on the card by chip_smoke.py."""
 
+import re
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -19,7 +21,7 @@ from pytorch_camvid_tpu.ops import pallas_conv_train as jax_pct
 from pytorch_camvid_tpu.ops.conv import conv_bn_relu_apply
 from pytorch_camvid_tpu.ops.pooling import max_pool_2x2 as jax_pool
 
-from pytorch_camvid_tpu_torch import bench
+from pytorch_camvid_tpu_torch import bench, dw_variants
 from pytorch_camvid_tpu_torch.ops import conv_train, fused_conv
 from pytorch_camvid_tpu_torch.ops.conv import ConvBNReLU
 from pytorch_camvid_tpu_torch.ops.pooling import max_pool_2x2
@@ -41,9 +43,11 @@ def _interpret(fn):
         pl.pallas_call = jax_pct.pl.pallas_call = orig
 
 
-# stem-like Cin=3, head-like Cout=12, odd H x W; the stem's forward at
-# Cout 64 (the packed path on the card)
-SHAPES = [(2, 5, 7, 3, 8), (1, 9, 11, 8, 12), (2, 9, 15, 3, 64)]
+# stem-like Cin=3, head-like Cout=12, odd H x W; the stem at Cout 64 (its
+# forward and dW on the packed paths on the card); the head, Cin 64 into
+# Cout 12 (its dx and dW on the packed paths)
+SHAPES = [(2, 5, 7, 3, 8), (1, 9, 11, 8, 12), (2, 9, 15, 3, 64),
+          (1, 9, 11, 64, 12)]
 
 
 @pytest.mark.parametrize("plain", [False, True], ids=["autograd_fn", "plain"])
@@ -120,6 +124,11 @@ def test_wgrad_splits_and_checks():
         conv_train._check_wgrad(xb.transpose(1, 2), gb.transpose(1, 2))
     with pytest.raises(ValueError, match="no kernel"):
         conv_train.conv3x3_wgrad(xb.to("meta"), gb.to("meta"))
+    # the packed path's narrow tensor is read in 16-byte vectors
+    shifted = torch.zeros(xb.numel() + 1, dtype=torch.bfloat16)[1:].view(
+        xb.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        conv_train._check_wgrad(shifted, gb)
 
 
 # (2, 9, 15, 64, 12): the head's dx, Cin 12 into Cout 64 (the packed path
@@ -167,7 +176,7 @@ def test_kernel_path_of_every_block_shape(net):
     """Every block of both models takes the wgmma path, forward, dx and
     dW, except the stem's forward (Cin 3) and the head's dx (Cin 12), which
     take the packed path, and the stem's and the head's dW, which take the
-    dW kernel's narrow path; the head's forward (64->12) takes the wgmma
+    dW kernel's packed path; the head's forward (64->12) takes the wgmma
     path's N = 16 tile."""
     shapes = bench.block_shapes(net)
     for i, (_, _, cin, cout) in enumerate(shapes):
@@ -178,7 +187,7 @@ def test_kernel_path_of_every_block_shape(net):
                                                    else "wgmma")
         assert fused_conv.conv_path(cout, cin) == ("packed" if head
                                                    else "wgmma")
-        assert conv_train.wgrad_path(cin, cout) == ("narrow" if stem or head
+        assert conv_train.wgrad_path(cin, cout) == ("packed" if stem or head
                                                     else "wgmma")
 
 
@@ -186,21 +195,24 @@ def test_kernel_path_of_every_block_shape(net):
 def test_step_launches_on_each_path(net, blocks):
     """A training step's K1 launches per path (chip_smoke holds the card's
     counters to these): UNet 22 of 23 forwards, 21 of 22 dx and 21 of 23 dW
-    on the wgmma path, the stem's forward and the head's dx on the packed
-    path, no forward or dx on the narrow one; SegNet 25 of 26, 24 of 25 and
-    24 of 26."""
+    on the wgmma path, the stem's forward, the head's dx and both of their
+    dW on the packed paths, nothing on the narrow ones; SegNet 25 of 26, 24
+    of 25 and 24 of 26."""
     got = conv_train.step_path_launches(bench.block_shapes(net))
     b = blocks
     assert got == {"fwd": {"wgmma": b - 1, "packed": 1, "narrow": 0},
                    "dgrad": {"wgmma": b - 2, "packed": 1, "narrow": 0},
-                   "wgrad": {"wgmma": b - 2, "narrow": 2}}
+                   "wgrad": {"wgmma": b - 2, "packed": 2, "narrow": 0}}
 
 
 def test_path_rules_at_edges():
     """The path rules at the shapes chip_smoke adds: a part chunk, a
     partial N tile, the head's N = 16 tile (up to Cin 128), channel counts
     TMA cannot describe: packed where Cin % 8 != 0 fits K_MAX = 9 * 16 and
-    Cout % 8 == 0, narrow for the rest."""
+    Cout % 8 == 0, narrow for the rest. dW: packed where one side is
+    narrow (9 x its channels <= 144) and the other a multiple of 8 (the
+    stem, 12->64, 3->24, the head), narrow where neither is a multiple of 8
+    or the narrow side is too wide (64->20, 3->12)."""
     cp, wp = fused_conv.conv_path, conv_train.wgrad_path
     assert cp(48, 32) == cp(64, 24) == cp(64, 16) == cp(128, 12) == "wgmma"
     assert cp(1024, 512) == cp(32, 48) == "wgmma"
@@ -209,7 +221,10 @@ def test_path_rules_at_edges():
     assert cp(256, 12) == cp(64, 20) == cp(3, 12) == cp(12, 20) == "narrow"
     assert cp(17, 64) == cp(20, 64) == cp(3, 60) == "narrow"
     assert wp(48, 32) == wp(64, 24) == wp(1024, 1024) == "wgmma"
-    assert wp(3, 64) == wp(64, 12) == wp(64, 20) == "narrow"
+    assert wp(3, 64) == wp(12, 64) == wp(3, 24) == wp(64, 12) == "packed"
+    assert wp(15, 64) == wp(64, 15) == wp(1, 8) == wp(128, 5) == "packed"
+    assert wp(64, 20) == wp(3, 12) == wp(17, 64) == wp(64, 17) == "narrow"
+    assert wp(12, 20) == wp(20, 12) == "narrow"
 
 
 def test_cpu_route_is_plain_and_not_counted():
@@ -226,7 +241,67 @@ def test_cpu_route_is_plain_and_not_counted():
     assert conv_train.path_launches() == {
         "fwd": {"wgmma": 0, "packed": 0, "narrow": 0},
         "dgrad": {"wgmma": 0, "packed": 0, "narrow": 0},
-        "wgrad": {"wgmma": 0, "narrow": 0}}
+        "wgrad": {"wgmma": 0, "packed": 0, "narrow": 0}}
+
+
+# every narrow width of the packed dW rule (9 x C <= 144, C % 8 != 0), on
+# either side: the stem's x (C, 64) and the head's g (64, C)
+PACKED_WGRAD = [(c, 64) for c in range(1, 16) if c % 8] + [
+    (64, c) for c in range(1, 16) if c % 8]
+
+
+@pytest.mark.parametrize("cin,cout", PACKED_WGRAD,
+                         ids=lambda v: str(v))
+def test_wgrad_packed_plan_fits_every_narrow_width(cin, cout):
+    """The packed dW kernel's shared-memory plan fits one block (232,448 B)
+    at every narrow width of its rule, and its blocks per SM fit an SM
+    (233,472 B, 1,024 reserved a block); M packs the 9 taps x the narrow
+    channels into whole 64-row tiles with less than one tile of pad."""
+    plan = conv_train.wgrad_packed_plan(cin, cout)
+    narrow = cin if cin % 8 else cout
+    assert plan["narrow"] == narrow and plan["n"] == 64
+    assert 9 * narrow <= plan["m"] < 9 * narrow + 64 and plan["m"] % 64 == 0
+    assert plan["bytes"] <= conv_train.BLOCK_SMEM == 232448
+    assert (plan["blocks_per_sm"] * (plan["bytes"] + 1024)
+            <= conv_train.SM_SMEM == 233472)
+    assert plan["blocks_per_sm"] == (1 if plan["m"] == 192 else 2)
+    assert plan["stages"] in (3, 4)
+    # one wide box and the 3 shifted copies + a zero plane of the patch;
+    # four raw buffers of the patch's 10 rows, each row's 18 x narrow
+    # elements at any alignment in whole 16-byte chunks
+    assert plan["stage_bytes"] >= 16384 + (3 * narrow + 1) * 336
+    assert plan["raw_bytes"] >= 4 * 10 * (18 * narrow * 2 + 14)
+    assert plan["bytes"] >= (1024 + plan["stages"] * plan["stage_bytes"]
+                             + plan["raw_bytes"])
+
+
+def test_wgrad_packed_plan_is_the_sources():
+    """wgrad_packed_plan's bytes are the figures the CUDA source asserts at
+    compile time (``static_assert(smem_bytes(Cn) == bytes``), the stem's,
+    the head's and the three-tile width's; off the packed path it
+    raises."""
+    src = conv_train.WGRAD_SOURCE.read_text()
+    held = re.findall(r"static_assert\(smem_bytes\((\d+)\) == (\d+)", src)
+    assert [int(c) for c, _ in held] == [3, 12, 15]
+    for cn, nbytes in held:
+        assert conv_train.wgrad_packed_plan(int(cn), 64)["bytes"] == int(
+            nbytes)
+        assert conv_train.wgrad_packed_plan(64, int(cn))["bytes"] == int(
+            nbytes)
+    for cin, cout in ((64, 64), (64, 20), (3, 12)):
+        with pytest.raises(ValueError, match="packed"):
+            conv_train.wgrad_packed_plan(cin, cout)
+
+
+def test_wgrad_splits_of_the_packed_path():
+    """Two packed dW blocks are resident per SM: the split-K fills one
+    whole wave of them over the wide side's 64-channel tiles, at most one
+    split per pixel tile."""
+    # the stem and the head at 360x480, batch 24: one wide tile -> 264
+    assert conv_train.wgrad_splits(24 * 45 * 30, 1, 132, "packed") == 264
+    # 5->128: two wide tiles -> 132; 3 pixel tiles -> 3
+    assert conv_train.wgrad_splits(24 * 45 * 30, 2, 132, "packed") == 132
+    assert conv_train.wgrad_splits(3, 1, 132, "packed") == 3
 
 
 def _block_and_params(cin, cout, seed):
@@ -362,3 +437,26 @@ def test_chip_smoke_path_table_and_edge_shapes():
     dx = {fused_conv.conv_path(cout, cin)
           for *_, cin, cout in smoke.EDGE_SHAPES}
     assert "packed" in dx
+    # dW at every path, the packed one past 2**31 elements of g
+    wgrad = {}
+    for n, h, w, cin, cout in smoke.EDGE_SHAPES:
+        wgrad.setdefault(conv_train.wgrad_path(cin, cout), []).append(
+            n * h * w * max(cin, cout))
+    assert set(wgrad) == {"wgmma", "packed", "narrow"}
+    assert max(wgrad["packed"]) >= 2 ** 31
+
+
+@pytest.mark.parametrize("name", sorted(dw_variants.VARIANTS))
+def test_dw_variant_edits_apply_to_the_source(name):
+    """Each variant of the packed dW that dw_variants.py times is an edit
+    that still applies to the kernel's source, and changes it (but
+    "kept"); the split-K runs name a built variant."""
+    src = dw_variants._edited(dw_variants.VARIANTS[name])
+    assert (src == conv_train.WGRAD_SOURCE.read_text()) == (name == "kept")
+    assert all(s in dw_variants.VARIANTS
+               for s, _ in dw_variants.SPLIT_RUNS.values())
+
+
+def test_dw_variants_without_a_card_fails(capsys):
+    assert dw_variants.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err

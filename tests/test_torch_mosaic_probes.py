@@ -11,6 +11,7 @@ import importlib.util
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -230,6 +231,61 @@ def _cli(args, timeout=120):
         [sys.executable, "-m", "pytorch_camvid_tpu_torch.mosaic_probes",
          *args], cwd=REPO, env=env, capture_output=True, text=True,
         timeout=timeout)
+
+
+# ------------------------------------------------- rows_kernel's grid
+
+# (rows, cols, dtype, n, mode): the tool's M1, M2, M3 and M5, then the
+# ragged 300 x 200 calls of chip_smoke's probe checks
+ROWS_CALLS = [(64, 256, torch.float32, 32, "static"),
+              (64, 256, torch.bfloat16, 32, "static"),
+              (64, 256, torch.float32, 32, "dynamic"),
+              (64, 256, torch.float32, 64, "roll"),
+              (64, 256, torch.bfloat16, 64, "roll"),
+              (300, 200, torch.float32, 150, "static"),
+              (300, 200, torch.bfloat16, 291, "static"),
+              (300, 200, torch.bfloat16, 300, "roll"),
+              (300, 200, torch.float32, 100, "dynamic")]
+
+
+@pytest.mark.parametrize("rows,cols,dtype,n,mode", ROWS_CALLS,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_rows_grid_covers_every_output_row_once(rows, cols, dtype, n, mode):
+    """rows_kernel's grid (``rows_grid``, the rule ``layout_rows`` holds):
+    its blocks of 8 rows x 256 bytes cover every output row and byte
+    exactly once, at the tool's shapes and the ragged ones."""
+    plan = lp.rows_grid(rows, cols, dtype, n, mode)
+    gx, gy = plan["grid"]
+    assert (len(plan["rows"]), len(plan["bytes"])) == (gx, gy)
+    row_bytes = cols * torch.empty((), dtype=dtype).element_size()
+    for spans, size, step in ((plan["rows"], n, lp.ROWS_PER_BLOCK),
+                              (plan["bytes"], row_bytes,
+                               lp.ROW_TILE_BYTES)):
+        hits = np.zeros(size, dtype=int)
+        for first, last in spans:
+            assert 0 < last - first <= step
+            hits[first:last] += 1
+        assert (hits == 1).all()
+    if (rows, cols) == (64, 256):
+        # the tool's shape spreads over the card: M1 on 16 blocks, where
+        # one block per 64 rows x 512 bytes gave 2
+        assert gx * gy >= 8
+        if dtype == torch.float32 and mode == "static":
+            assert gx * gy == 16
+
+
+def test_rows_grid_is_the_sources():
+    """The block of rows_grid is the one csrc/layout_probes.cu's
+    rows_kernel takes (RB rows x CT bytes, one 16-byte chunk a thread);
+    a roll is of every row."""
+    src = lp.SOURCE.read_text()
+    rb = int(re.search(r"constexpr int RB = (\d+);", src).group(1))
+    ct = int(re.search(r"constexpr int CT = (\d+);", src).group(1))
+    assert (rb, ct) == (lp.ROWS_PER_BLOCK, lp.ROW_TILE_BYTES)
+    assert "const int r0 = blockIdx.x * RB;" in src
+    assert "const int c0 = blockIdx.y * CT;" in src
+    with pytest.raises(ValueError, match="roll"):
+        lp.rows_grid(64, 256, torch.float32, 32, "roll")
 
 
 def test_cli_on_cpu():
