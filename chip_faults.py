@@ -10,8 +10,11 @@ the one-step training check (``chip_smoke.train_parity``, batch 32), and
 K5's checks against its plain version and K4 (``chip_smoke.pair_checks``,
 phase 10 without its timings) and the layout probes' checks against their
 plain versions (``chip_smoke.probe_checks``, phase 11 without its
-timings), once sound and once under each planted fault. Every fault
-keeps every kernel launch, so only the values can show it (the packed
+timings), and phase 12's checks after its run A (``resume_checks``,
+``eval_checks`` and ``predictor_checks``: the preempted and resumed run
+against run A, the eval CLI and the Predictor on A's checkpoint), once
+sound and once under each planted fault. Every kernel fault keeps every
+kernel launch, so only the values can show it (the packed
 dW's and rows_kernel's faults patch the launch functions
 ``conv_train._wgrad_launch`` and ``layout_probes._launch``, never a
 wrapper, whose launch counts stay as they are). Prints each
@@ -22,17 +25,23 @@ a check or a fault passes them all.
 from __future__ import annotations
 
 import contextlib
+import itertools
+import os
 import sys
+import tempfile
 
 import numpy as np
 import torch
 
 import chip_smoke as smoke
 from pytorch_camvid_tpu_torch import bench
+from pytorch_camvid_tpu_torch import eval as eval_cli
+from pytorch_camvid_tpu_torch.data.pipeline import DeviceDataLoader
 from pytorch_camvid_tpu_torch.models.segnet import SegNet
 from pytorch_camvid_tpu_torch.ops import (conv, conv_train, fused_conv,
                                           fused_conv_pair, fused_pool,
                                           layout_probes)
+from pytorch_camvid_tpu_torch.train import loop
 
 # the 13th of a step's 26 dW launches (backward order): decoder5.0's
 ZEROED_DW_CALL = 13
@@ -232,6 +241,66 @@ def rows_last_block_dropped(op, *args):
     return _probe_launch(op, *args)
 
 
+_load_checkpoint = loop.load_checkpoint
+
+
+def resume_one_batch_late(path, state):
+    """The loop's resume restarting one batch after the preemption
+    point."""
+    state, meta = _load_checkpoint(path, state)
+    if "resume_batch_idx" in meta:
+        meta = dict(meta, resume_batch_idx=meta["resume_batch_idx"] + 1)
+    return state, meta
+
+
+def resume_without_generator(path, state):
+    """A resume whose checkpoint lacks the generator's state: the
+    generator keeps its fresh seed."""
+    fresh = state.generator.get_state()
+    state, meta = _load_checkpoint(path, state)
+    state.generator.set_state(fresh)
+    return state, meta
+
+
+_loader_epoch = DeviceDataLoader.epoch
+
+
+def epoch_without_ragged_batch(self, epoch=None):
+    """The loader's epoch without its last, short batch (the eval pass's
+    ragged batch; training drops it anyway)."""
+    for images, labels in _loader_epoch(self, epoch):
+        if images.shape[0] == self.batch_size:
+            yield images, labels
+
+
+_make_eval_step = loop.make_eval_step
+
+
+def eval_step_in_train_mode(*args, **kw):
+    """An eval step whose model stays in train mode: batch statistics, and
+    the running stats updated by every eval batch."""
+    step = _make_eval_step(*args, **kw)
+
+    def fn(state, batch):
+        model = state.model
+        model.train()
+        model.eval = lambda: model   # the step's switch to eval mode
+        try:
+            return step(state, batch)
+        finally:
+            del model.eval
+    return fn
+
+
+@contextlib.contextmanager
+def eval_steps_in_train_mode():
+    """``eval_step_in_train_mode`` where the loop and the eval CLI build
+    their eval steps."""
+    with planted(loop, "make_eval_step", eval_step_in_train_mode), \
+            planted(eval_cli, "make_eval_step", eval_step_in_train_mode):
+        yield
+
+
 def failed_check(run, fault) -> str:
     """The message of the chip_smoke check that ``run`` fails under
     ``fault``, or '' when it passes."""
@@ -301,9 +370,19 @@ def main() -> int:
         ("probes", "rows_kernel without its last block of rows (M1, M2)",
          lambda: planted(layout_probes, "_launch",
                          rows_last_block_dropped)),
+        ("training run", "resume one batch past the preemption point",
+         lambda: planted(loop, "load_checkpoint", resume_one_batch_late)),
+        ("training run", "resume without the generator's state",
+         lambda: planted(loop, "load_checkpoint", resume_without_generator)),
+        ("training run", "evaluate without the ragged last batch",
+         lambda: planted(DeviceDataLoader, "epoch",
+                         epoch_without_ragged_batch)),
+        ("training run", "the eval step in train mode",
+         eval_steps_in_train_mode),
     ]
     ok = True
-    for path in ("serving", "training", "K5", "probes"):
+    tmp = tempfile.TemporaryDirectory()
+    for path in ("serving", "training", "K5", "probes", "training run"):
         gen = torch.Generator().manual_seed(smoke.SEED)
         if path == "serving":
             model = bench.he_model("segnet", gen).cuda().eval()
@@ -326,12 +405,22 @@ def main() -> int:
             def run():
                 smoke.pair_checks(torch.Generator(device="cuda").manual_seed(
                     smoke.SEED))
-        else:   # phase 11's checks of the layout probes, likewise
+        elif path == "probes":   # phase 11's checks, likewise
             model = None
 
             def run():
                 smoke.probe_checks(torch.Generator(
                     device="cuda").manual_seed(smoke.SEED))
+        else:   # phase 12 after its run A, which no fault touches
+            model = None
+            data = smoke.write_training_data(os.path.join(tmp.name, "data"))
+            a = smoke.training_run_a(os.path.join(tmp.name, "a"), data)
+            runs = itertools.count()
+
+            def run():
+                smoke.resume_checks(
+                    os.path.join(tmp.name, f"b{next(runs)}"), data, a)
+                smoke.predictor_checks(data, a, smoke.eval_checks(data, a))
         print(f"{path}, sound:", flush=True)
         msg = failed_check(run, contextlib.nullcontext)
         print(f"{path}, sound: {'FAILED ' + msg if msg else 'passed'}",
@@ -345,6 +434,7 @@ def main() -> int:
             ok &= bool(msg)
         del model
         torch.cuda.empty_cache()
+    tmp.cleanup()
     print(bench.card())
     print("chip_faults: " + ("every fault caught, sound runs pass" if ok
                              else "FAILED"))

@@ -26,13 +26,18 @@ Phases (each prints its lines; any failure exits non-zero):
    24, SegNet 32): forward and dx (K4's kernel, unit affine, no ReLU; dx
    reads the weights tap-reversed in place) against F.conv2d and
    torch.nn.grad.conv2d_input, dW against the f32 plain version; kernel,
-   plain and cuDNN-bf16-wgrad times; the stem's and the head's dW (the
+   plain and cuDNN-bf16-wgrad times, and dx's library time as autograd
+   runs it (``conv_train.conv3x3_dgrad_library``: convolution_backward
+   with the real channels-last input); the stem's and the head's dW (the
    packed dW path) beside their bounds, cuDNN's bf16 wgrad and the narrow
    path's time before it (``WGRAD_NARROW_MS``); then the three pieces at
    ``EDGE_SHAPES`` (dW on all three paths: the stems, 12->64, 3->24, 64->12
-   and the 4.4 GB stem on the packed one, 64->20 on the narrow one). Then,
-   per model, K4's and K1's times summed over its blocks beside their
-   bounds.
+   and the 4.4 GB stem on the packed one, 64->20 on the narrow one); then
+   batch views that start off a 16-byte boundary (``x[1:]`` at 45x61,
+   ``misaligned_checks``): K4, K1's three pieces on the packed and wgmma
+   paths and a full-width UNet's eval forward and train step, against
+   their plain versions. Then, per model, K4's and K1's times summed over
+   its blocks beside their bounds.
 5. UNet serving: a full-width UNet (random He-scaled weights from a seed)
    saved as a reference-named .pth, loaded by ``Predictor.from_checkpoint``
    and serving three requests (8 images, 13 images, 8 images at 480x640
@@ -89,6 +94,25 @@ Phases (each prints its lines; any failure exits non-zero):
    host's launches), M1-M3 and M5 beside rows_kernel's readings before its
    redesign (``ROWS_BEFORE_MS``); M6's conv-stage time beside its byte
    bound.
+12. The training run through the port's entry points (UNet, full width,
+   360x480, bf16): CamVid split caches (``data/camvid.py``'s files) from
+   ``synthetic_arrays``, 40 train and 13 val images (a ragged last eval
+   batch); run A through the train CLI's ``main`` (``-b 10 -e 2 -quiet``,
+   8 steps): epochs, steps, the checkpoint files against the cadence rule
+   for its mIoUs, K1's launches (8 x 23/22/23, per path as ``PATH_TABLE``)
+   and K4's in the eval passes (23 per batch, 2 batches, 2 passes); run B
+   through ``loop.run_training`` stopped after 6 batches (``1-preempt``),
+   then the train CLI's ``-resume``: step 8 and every leaf of the final
+   checkpoint (weights, BN stats, moments, step, generator) equal to run
+   A's bit for bit; the eval CLI on A's checkpoint prints A's last mIoU
+   and equals the mIoU of the 13 maps computed here;
+   ``Predictor.from_checkpoint`` on A's ``.ckpt.npz`` agrees with those
+   maps on ``PREDICT_AGREE`` of the pixels; run C, A's configuration
+   through ``loop.run_training`` without the CLI's logger, bit-equal to
+   A; the epoch wall times of A and C and their img/s beside
+   ``bench.measure_train`` at b10, and their eval passes' ms; then
+   ``bench.main`` once: its keys, finite rows, each with the card.
+   ``chip_faults.py`` plants four faults under these checks.
 In phases 8 and 9 the plain path replays the kernel path's pool choices
 (``recorded_choices``, ``replayed_choices``): a 1-ulp difference between
 the two paths' convs would otherwise flip the choice of near-tied windows
@@ -110,6 +134,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import importlib
 import io
 import json
 import os
@@ -123,16 +148,25 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_camvid_tpu_torch import bench, mosaic_probes, perf_probe
+from pytorch_camvid_tpu_torch import eval as eval_cli
 from pytorch_camvid_tpu_torch.config import settings
+from pytorch_camvid_tpu_torch.data import camvid
 from pytorch_camvid_tpu_torch.data.normalize import to_tensor_normalize
+from pytorch_camvid_tpu_torch.data.synthetic import synthetic_arrays
+from pytorch_camvid_tpu_torch.models import get_model, spec_from_state_dict
 from pytorch_camvid_tpu_torch.models.common import halvings
 from pytorch_camvid_tpu_torch.models.segnet import segnet_spec
 from pytorch_camvid_tpu_torch.ops import (conv_train, cuda_build, fused_conv,
                                           fused_conv_pair, fused_pool,
                                           pooling)
 from pytorch_camvid_tpu_torch.ops import layout_probes as lp
+from pytorch_camvid_tpu_torch.ops.metrics import (confusion_matrix,
+                                                  iou_from_confusion)
 from pytorch_camvid_tpu_torch.serving import Predictor
-from pytorch_camvid_tpu_torch.train import TrainState
+from pytorch_camvid_tpu_torch.train import TrainState, loop
+from pytorch_camvid_tpu_torch.train import checkpoint as ckpt
+
+train_cli = importlib.import_module("pytorch_camvid_tpu_torch.train.__main__")
 
 KERNEL_TOL = 2e-2   # max|kernel - plain| / max|plain|, one bf16 block
 LOGITS_TOL = 5e-2   # max|kernel - plain| / max|plain| logits, 23-26 blocks
@@ -332,6 +366,66 @@ def k1_edge_checks(gen: torch.Generator) -> None:
         torch.cuda.empty_cache()
 
 
+def misaligned_checks(gen: torch.Generator) -> None:
+    """Batch views ``x[1:]`` at 45x61 whose data starts off a 16-byte
+    boundary (a Cin = 3 bf16 sample is 16,470 bytes): the wrappers realign
+    them with a copy. K4 and K1's pieces on the packed path (3->64) and the
+    wgmma path (64->64) against their plain versions, then a full-width
+    UNet: its eval logits (LOGITS_TOL) and a train step's loss (finite)
+    and launches."""
+    for cin, cout in ((3, 64), (64, 64)):
+        x, wt = conv_inputs(gen, 3, 45, 61, cin, cout)
+        g = torch.randn(3, 45, 61, cout, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        xv, gv = x[1:], g[1:]
+        if cin == 3:
+            check(xv.data_ptr() % 16 != 0, "the stem's view is misaligned")
+        a = torch.rand(cout, generator=gen, device="cuda") + 0.5
+        b = torch.randn(cout, generator=gen, device="cuda") * 0.1
+        line = [f"misaligned x[1:] 2x45x61 {cin}->{cout}:"]
+        for name, kern, plain, tol in (
+                ("K4", lambda: fused_conv.conv3x3_bn_relu(xv, wt, a, b),
+                 lambda: fused_conv.conv3x3_bn_relu_plain(xv, wt, a, b),
+                 KERNEL_TOL),
+                ("K1 fwd", lambda: conv_train.conv3x3_fwd(xv, wt),
+                 lambda: conv_train.conv3x3_train_plain(xv, wt),
+                 K1_TOL["fwd"]),
+                ("K1 dx", lambda: conv_train.conv3x3_dgrad(gv, wt),
+                 lambda: conv_train.conv3x3_dgrad_plain(gv, wt),
+                 K1_TOL["dx"]),
+                ("K1 dW", lambda: conv_train.conv3x3_wgrad(xv, gv),
+                 lambda: conv_train.conv3x3_wgrad_plain(xv, gv),
+                 K1_TOL["wgrad"])):
+            err, scale = _rel_err(kern(), plain())
+            line.append(f"{name} {err / scale:.3g} (tol {tol});")
+            check(err <= tol * scale, f"{name} on x[1:] at {cin}->{cout}")
+        print(" ".join(line), flush=True)
+    model = bench.he_model("unet", torch.Generator().manual_seed(SEED)).cuda()
+    x = torch.randint(0, 256, (3, 45, 61, 3), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    xn = to_tensor_normalize(x, settings.MEAN, settings.STD,
+                             torch.bfloat16)[1:]
+    check(xn.data_ptr() % 16 != 0, "the model's input view is misaligned")
+    model.eval()
+    with torch.inference_mode():
+        err, scale = _rel_err(model(xn), model(xn, plain=True))
+    model.train()
+    reset_counts()
+    loss = model(xn).float().square().mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = conv_train.launches()
+    print(f"misaligned x[1:] UNet 2x45x61: eval logits {err / scale:.3g} "
+          f"(tol {LOGITS_TOL}); train step loss {loss.item():.4g}, K1 "
+          f"launches {counts}", flush=True)
+    check(err <= LOGITS_TOL * scale, "UNet logits on x[1:]")
+    check(bool(torch.isfinite(loss)), "UNet train loss on x[1:]")
+    check(counts == {"fwd": 23, "dgrad": 22, "wgrad": 23},
+          "UNet train step launches on x[1:]")
+    del model
+    torch.cuda.empty_cache()
+
+
 def phase_k1(gen: torch.Generator):
     """K1's three pieces vs their plain versions at each model's distinct
     block shapes at its training batch; returns {net: {shape: {piece:
@@ -373,9 +467,17 @@ def phase_k1(gen: torch.Generator):
             xc, (cout, cin, 3, 3), gc, padding=1), iters=10)
         line.append(f"cuDNN bf16 wgrad {cudnn_ms:.4f} ms")
         got_shape["cudnn_wgrad_ms"] = cudnn_ms
+        if "dx" in pieces:   # dx as autograd runs it (the library yardstick)
+            lib = lambda: conv_train.conv3x3_dgrad_library(g, wt, x)
+            err, scale = _rel_err(lib(), pieces["dx"][1]())
+            check(err <= K1_TOL["dx"] * scale, f"dx library call at {shape}")
+            got_shape["cudnn_dgrad_ms"] = cuda_ms(lib, iters=10)
+            line.append(f"cuDNN bf16 dgrad (convolution_backward, real "
+                        f"input) {got_shape['cudnn_dgrad_ms']:.4f} ms")
         print(" ".join(line), flush=True)
     packed_wgrad_lines(res)
     k1_edge_checks(gen)
+    misaligned_checks(gen)
     return res
 
 
@@ -1368,6 +1470,282 @@ def phase_probes(gen: torch.Generator) -> list:
     return entries
 
 
+# ------------------------------------------------- the training run (12)
+
+RUN_BATCH, RUN_EPOCHS = 10, 2
+RUN_SPLITS = {"train": (40, 1), "val": (13, 2)}   # images, seed
+RUN_STOP = 6   # run B's preemption point: batch 2 of epoch 2
+# a step's K1 launches and a forward's K4 launches of UNet
+UNET_STEP = {"fwd": 23, "dgrad": 22, "wgrad": 23}
+PREDICT_AGREE = 0.999   # Predictor's maps vs the eval pass's argmax
+
+
+def write_training_data(root: str) -> str:
+    """The CamVid split caches that ``data/camvid.py`` reads at 360x480,
+    from ``synthetic_arrays`` with fixed seeds (the card's host has no cv2
+    to decode a tree; the cache is what later runs of a real one read)."""
+    for split, (n, seed) in RUN_SPLITS.items():
+        images, labels = synthetic_arrays(n, HW, seed=seed)
+        camvid.write_cache(camvid.cache_path(root, split, HW[::-1]), images,
+                           labels, [f"{split}{i:03d}.png" for i in range(n)])
+    return root
+
+
+def run_argv(data: str) -> list:
+    return ["-net", "unet", "-b", str(RUN_BATCH), "-e", str(RUN_EPOCHS),
+            "-dtype", "bfloat16", "-quiet", "-data", data, "-image_size",
+            str(HW[1]), str(HW[0])]
+
+
+def cadence(history, epochs: int, save_epoch: int) -> list:
+    """The checkpoint names the loop's rule gives for ``history``'s mIoUs:
+    best past epochs // 2 when the mIoU beats every earlier one, which
+    skips the regular save; regular every ``save_epoch``."""
+    names, best = [], 0.0
+    for h in history:
+        if best < h["miou"] and h["epoch"] > epochs // 2:
+            best = h["miou"]
+            names.append(f"{h['epoch']}-best.ckpt.npz")
+        elif not h["epoch"] % save_epoch:
+            names.append(f"{h['epoch']}-regular.ckpt.npz")
+    return names
+
+
+def leaves(path: str) -> dict:
+    """A port checkpoint's leaves by name."""
+    z = np.load(path, allow_pickle=False)
+    payload = json.loads(str(z["__payload__"]))
+    names = [n for n, _ in json.loads(payload["treedef"][len("torch:"):])]
+    return {n: z[f"leaf_{i}"] for i, n in enumerate(names)}
+
+
+def run_dir(workdir: str) -> str:
+    (name,) = os.listdir(os.path.join(workdir, "checkpoints"))
+    return os.path.join(workdir, "checkpoints", name)
+
+
+def training_run_a(workdir: str, data: str) -> dict:
+    """Run A through the train CLI: UNet, 2 epochs of 4 steps at batch 10,
+    bf16, quiet, with the loop's eval pass (13 images, a ragged last batch
+    of 3) after each epoch. Checks the epochs, the steps (the NaN guard
+    reads every step's loss), the checkpoint files against the cadence,
+    K1's launches (8 steps) and K4's (2 eval batches a pass, 2 passes)."""
+    os.makedirs(workdir)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.chdir(workdir):
+        history = train_cli.main(run_argv(data))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, paths = conv_train.launches(), conv_train.path_launches()
+    k4 = (fused_conv.conv3x3_bn_relu.launches - counts["fwd"]
+          - counts["dgrad"])
+    k4_paths = {p: fused_conv.conv3x3_bn_relu.path_launches[p]
+                - paths["fwd"][p] - paths["dgrad"][p]
+                for p in fused_conv.PATHS}
+    steps = RUN_EPOCHS * RUN_SPLITS["train"][0] // RUN_BATCH
+    evals = RUN_EPOCHS * -(-RUN_SPLITS["val"][0] // RUN_BATCH)
+    files = sorted(os.listdir(run_dir(workdir)))
+    want = cadence(history, RUN_EPOCHS, settings.SAVE_EPOCH)
+    print(f"training run A (train CLI, UNet b{RUN_BATCH}, {RUN_EPOCHS} "
+          f"epochs, {HW[0]}x{HW[1]}, bf16): mIoU "
+          f"{[round(h['miou'], 4) for h in history]}, checkpoints {files} "
+          f"(cadence {want}); K1 launches {counts} on each path {paths}; "
+          f"K4 launches in the eval passes {k4} on each path {k4_paths}; "
+          f"{wall:.2f} s in all", flush=True)
+    check([h["epoch"] for h in history] == [1, 2], "run A's epochs")
+    check(all(np.isfinite(h["miou"]) for h in history), "run A's mIoU")
+    check(bool(want) and files == sorted(want), "run A's checkpoints")
+    final = os.path.join(run_dir(workdir), want[-1])
+    check(int(leaves(final)["step"]) == steps, "run A's steps")
+    check(counts == {k: v * steps for k, v in UNET_STEP.items()},
+          "run A's K1 launches")
+    check(paths == path_counts("unet", steps), "run A's K1 paths")
+    check(k4 == UNET_STEP["fwd"] * evals, "run A's K4 launches")
+    check(k4_paths == path_counts("unet", evals)["fwd"], "run A's K4 paths")
+    return {"history": history, "ckpt": final, "wall_s": wall}
+
+
+def splits(data: str) -> tuple:
+    """The train and val splits of ``write_training_data``."""
+    return tuple(camvid.CamVid(data, image_set=s, image_size=HW[::-1])
+                 for s in ("train", "val"))
+
+
+def loop_config(checkpoint_dir: str, **kw) -> loop.TrainConfig:
+    """Run A's configuration as ``loop.run_training`` takes it."""
+    return loop.TrainConfig(
+        net="unet", batch_size=RUN_BATCH, epochs=RUN_EPOCHS,
+        compute_dtype="bfloat16", quiet=True, checkpoint_dir=checkpoint_dir,
+        save_epoch=settings.SAVE_EPOCH, **kw)
+
+
+def loop_run(workdir: str, data: str, a: dict) -> dict:
+    """Run C: run A's configuration through ``loop.run_training`` without
+    the CLI's logger (``utils/tb.py``, which writes each step's scalars),
+    in a process that has run the loop. Its final state must equal run
+    A's bit for bit; its epochs time the loop without the logging."""
+    ckpt_dir = os.path.join(workdir, "checkpoints", "c")
+    _, history = loop.run_training(loop_config(ckpt_dir), *splits(data))
+    (name,) = cadence(history, RUN_EPOCHS, settings.SAVE_EPOCH)
+    got, want = leaves(os.path.join(ckpt_dir, name)), leaves(a["ckpt"])
+    unequal = [n for n in want if not np.array_equal(got[n], want[n])]
+    print(f"training run C (loop.run_training, no logger): mIoU "
+          f"{[round(h['miou'], 4) for h in history]}; leaves unequal to run "
+          f"A's: {len(unequal)} of {len(want)}", flush=True)
+    check(not unequal, "run C bit-equal to run A")
+    return {"history": history}
+
+
+def resume_checks(workdir: str, data: str, a: dict) -> None:
+    """Run B: ``run_training`` stopped after ``RUN_STOP`` batches (the JAX
+    CLI has no flag for it either) must save ``1-preempt``; then the train
+    CLI's ``-resume`` in B's directory finishes at step 8, and B's final
+    state (weights, BN stats, moments, step, generator) must equal run A's
+    bit for bit."""
+    preempted = os.path.join(workdir, "checkpoints", "preempted")
+    state, _ = loop.run_training(loop_config(preempted,
+                                             stop_after_batches=RUN_STOP),
+                                 *splits(data))
+    files = sorted(os.listdir(preempted))
+    print(f"training run B: stopped at step {state.step}, checkpoints "
+          f"{files}", flush=True)
+    check(state.step == RUN_STOP and files == ["1-preempt.ckpt.npz"],
+          "run B's preemption checkpoint")
+    del state
+    with contextlib.chdir(workdir):
+        history = train_cli.main(run_argv(data) + ["-resume"])
+    check([h["epoch"] for h in history] == [2], "the resumed run's epochs")
+    (name,) = cadence(history, RUN_EPOCHS, settings.SAVE_EPOCH)
+    got = leaves(os.path.join(workdir, "checkpoints",
+                              settings.TIME_NOW, name))
+    want = leaves(a["ckpt"])
+    unequal = sorted(n for n in want if not np.array_equal(got[n], want[n]))
+    worst = max((float(np.abs(got[n].astype(np.float64)
+                              - want[n].astype(np.float64)).max())
+                 for n in unequal), default=0.0)
+    print(f"training run B resumed (train CLI -resume): step "
+          f"{int(got['step'])}, mIoU {history[0]['miou']:.4f} (A's "
+          f"{a['history'][-1]['miou']:.4f}); leaves unequal to run A's: "
+          f"{len(unequal)} of {len(want)} {unequal[:6]}, max |diff| "
+          f"{worst:.4g}", flush=True)
+    check(int(got["step"]) == RUN_EPOCHS * 4, "the resumed run's step")
+    check(not unequal, "preemption + resume bit-equal to run A")
+
+
+def eval_checks(data: str, a: dict) -> np.ndarray:
+    """The eval CLI on run A's last checkpoint must print the mIoU of A's
+    last epoch (4 decimals), and equal the mIoU of the class maps of the
+    13 val images computed here from the same weights (the eval pass's
+    argmax, batches of 10); K4 launches once per block and batch. Returns
+    those maps."""
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        got = eval_cli.main(["-weight", a["ckpt"], "-net", "unet", "-b",
+                             str(RUN_BATCH), "-data", data, "-image_size",
+                             str(HW[1]), str(HW[0])])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k4 = fused_conv.conv3x3_bn_relu.launches
+    sd = ckpt.load_weights(a["ckpt"], "unet")
+    model = get_model("unet", spec=spec_from_state_dict("unet", sd))
+    model.load_state_dict(sd)
+    model = model.cuda().eval()
+    val = camvid.CamVid(data, image_set="val", image_size=HW[::-1])
+    maps = []
+    with torch.inference_mode():
+        for lo in range(0, len(val), RUN_BATCH):
+            x = torch.from_numpy(val.images[lo: lo + RUN_BATCH]).cuda()
+            maps.append(model(to_tensor_normalize(
+                x, settings.MEAN, settings.STD, torch.bfloat16)).argmax(-1))
+    maps = torch.cat(maps)
+    cm = confusion_matrix(maps, torch.from_numpy(val.labels).cuda(), 12,
+                          val.ignore_index).double().cpu()
+    keep = [i for i in range(12) if i != val.ignore_index]
+    ref = float(np.nanmean(iou_from_confusion(cm).numpy()[keep]))
+    want_line = f"miou: {a['history'][-1]['miou']:.4f}"
+    print(f"eval CLI on run A's {os.path.basename(a['ckpt'])}: "
+          f"{' | '.join(out.getvalue().splitlines()[1:])}; A's last epoch "
+          f"{want_line}; mIoU of the maps computed here {ref:.6f} (CLI "
+          f"{got['miou']:.6f}); K4 launches {k4}; {wall:.2f} s", flush=True)
+    check(want_line in out.getvalue().splitlines(),
+          "eval CLI prints run A's mIoU")
+    check(abs(got["miou"] - ref) <= 1e-9, "eval CLI's mIoU over all 13 "
+          "val images")
+    check(k4 == UNET_STEP["fwd"] * -(-len(val) // RUN_BATCH),
+          "eval CLI's K4 launches")
+    return maps.cpu().numpy()
+
+
+def predictor_checks(data: str, a: dict, maps: np.ndarray) -> None:
+    """``Predictor.from_checkpoint`` on run A's ``.ckpt.npz`` serves the
+    13 val images; its maps must agree with the eval pass's argmax on at
+    least PREDICT_AGREE of the pixels."""
+    val = camvid.CamVid(data, image_set="val", image_size=HW[::-1])
+    with Predictor.from_checkpoint("unet", a["ckpt"], batch_size=BATCH,
+                                   image_hw=HW) as p:
+        got = p.predict(val.images)
+    agree = float((got == maps).mean())
+    print(f"Predictor.from_checkpoint(run A's .ckpt.npz) on the 13 val "
+          f"images: agrees with the eval pass's argmax on {agree:.6f} of "
+          f"the pixels (limit {PREDICT_AGREE})", flush=True)
+    check(got.shape == maps.shape and agree >= PREDICT_AGREE,
+          "Predictor's maps vs the eval pass")
+
+
+def finite_rows(obj) -> bool:
+    if isinstance(obj, dict):
+        return all(finite_rows(v) for v in obj.values())
+    if isinstance(obj, float):
+        return bool(np.isfinite(obj))
+    return True
+
+
+def phase_training_run() -> dict:
+    """Phase 12: the training run through the port's entry points (module
+    docstring); returns the bench JSON object."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_training_data(os.path.join(tmp, "data"))
+        a = training_run_a(os.path.join(tmp, "a"), data)
+        resume_checks(os.path.join(tmp, "b"), data, a)
+        maps = eval_checks(data, a)
+        predictor_checks(data, a, maps)
+        c = loop_run(os.path.join(tmp, "c"), data, a)
+    torch.cuda.empty_cache()
+    model = bench.he_model("unet", torch.Generator().manual_seed(SEED))
+    r = bench.measure_train(model.cuda(), RUN_BATCH, seed=SEED)
+    del model
+    torch.cuda.empty_cache()
+    n = RUN_SPLITS["train"][0]
+    steps = n // RUN_BATCH
+    for name, h in [("A", h) for h in a["history"]] + [
+            ("C", h) for h in c["history"]]:
+        print(f"training run {name} epoch {h['epoch']}: "
+              f"{h['train_s'] * 1e3:.1f} "
+              f"ms for its {steps} steps ({n / h['train_s']:.2f} img/s) "
+              f"against {steps} x measure_train's b{RUN_BATCH} step "
+              f"{r['step_ms']:.2f} ms = {steps * r['step_ms']:.1f} ms "
+              f"({r['images_per_sec']:.2f} img/s); its eval pass "
+              f"{h['eval_s'] * 1e3:.1f} ms ({RUN_SPLITS['val'][0]} images) "
+              f"on {bench.card()}", flush=True)
+    out = bench.main([])
+    print(f"bench: {json.dumps(out)}", flush=True)
+    check(set(out) == {"metric", "value", "unit", "vs_baseline", "mfu",
+                       "extra"}
+          and out["metric"] == "camvid_unet_360x480_train_images_per_sec"
+                               "_per_chip"
+          and set(out["extra"]) == {"unet_train", "segnet_train",
+                                    "unet_serving_fwd", "segnet_serving_fwd"},
+          "bench's keys")
+    check(finite_rows(out) and all("card" in row
+                                   for row in out["extra"].values()),
+          "bench's rows")
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 def summed_bound(n: int, piece: str, shapes) -> tuple:
@@ -1385,9 +1763,11 @@ def conv_sums(per_shape, k1) -> dict:
     K1's pieces over the blocks of one training step at the model's
     batch: {net: {piece: {max_abs_err, ms, plain_ms, library_ms, bound_ms,
     bound_by}}}, printed. Library: cuDNN's conv alone for K4 (there is no
-    fused conv+BN+ReLU call), the plain versions for K1's fwd and dx
-    (cuDNN's calls themselves), cuDNN's bf16 wgrad for dW (the plain one
-    is f32)."""
+    fused conv+BN+ReLU call), the plain version for K1's fwd (cuDNN's call
+    itself), ``convolution_backward`` with the real input for dx (what
+    autograd runs; the plain version, ``conv2d_input``, passes a
+    zero-stride stand-in), cuDNN's bf16 wgrad for dW (the plain one is
+    f32)."""
     sums = {}
     for net, n in TRAIN_BATCH.items():
         shapes = bench.block_shapes(net, HW)
@@ -1407,6 +1787,8 @@ def conv_sums(per_shape, k1) -> dict:
                 "plain_ms": sum(k1[net][s][piece][2] for s in on_path),
                 "library_ms": sum(k1[net][s]["cudnn_wgrad_ms"]
                                   if piece == "wgrad" else
+                                  k1[net][s]["cudnn_dgrad_ms"]
+                                  if piece == "dx" else
                                   k1[net][s][piece][2] for s in on_path),
                 "bound_ms": b, "bound_by": by}
         label = {"k4": f"K4 b{BATCH}", "fwd": f"K1 fwd b{n}",
@@ -1516,6 +1898,7 @@ def main() -> int:
     pair_launches = phase_pair_probe()
     probe_entries = phase_probes(
         torch.Generator(device="cuda").manual_seed(SEED))
+    phase_training_run()
     check("jax" not in sys.modules, "jax was imported")
 
     kernels = conv_entries(sums["unet"], unet_serve, unet_train)

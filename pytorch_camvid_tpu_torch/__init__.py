@@ -12,7 +12,11 @@ with every conv3x3+BN+ReLU block on the fused kernel ``ops/fused_conv.py``
 and SegNet's pools on ``ops/fused_pool.py`` (K3); and the UNet and SegNet
 training steps (``train.make_train_step``, ``bench.measure_train``), with
 every conv3x3 on the training kernels of ``ops/conv_train.py`` and SegNet's
-pools on the phase pair of ``ops/fused_pool.py`` (K2).
+pools on the phase pair of ``ops/fused_pool.py`` (K2); and the training run
+around them: the epoch loop with its eval pass, checkpoints and resume
+(``train/loop.py``, ``train/checkpoint.py``) and the train, eval, predict
+and bench entry points (``python -m pytorch_camvid_tpu_torch.train``,
+``.eval``, ``.predict``, ``.bench``).
 """
 
 __version__ = "0.1.0"

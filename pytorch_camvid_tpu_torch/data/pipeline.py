@@ -8,8 +8,9 @@ advances the epoch's index permutation, the same numpy permutation as the
 JAX package's (``default_rng(seed + epoch)``), so both take the same
 samples in the same batches.
 
-Not ported: the data-parallel sharding, ``pad_to_batch`` (for the eval
-loop) and the host-streamed ``HostLoader`` (ROADMAP.md).
+Not ported: the data-parallel sharding, ``pad_to_batch`` (the
+multi-process eval's; one device runs a ragged last batch as it is) and the
+host-streamed ``HostLoader`` (ROADMAP.md).
 """
 
 from __future__ import annotations

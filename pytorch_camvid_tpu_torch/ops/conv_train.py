@@ -35,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_camvid_tpu_torch.ops import cuda_build
-from pytorch_camvid_tpu_torch.ops.fused_conv import (PATHS, conv3x3_bn_relu,
+from pytorch_camvid_tpu_torch.ops.fused_conv import (PATHS, aligned16,
+                                                     conv3x3_bn_relu,
                                                      conv_path)
 
 WGRAD_PATHS = ("narrow", "wgmma", "packed")   # by the .cu's path code
@@ -81,6 +82,21 @@ def conv3x3_dgrad_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     dx = torch.nn.grad.conv2d_input((n, w.shape[2], h, wd),
                                     _oihw(w.to(g.dtype)), _nchw(g),
                                     padding=1)
+    return dx.permute(0, 2, 3, 1)
+
+
+def conv3x3_dgrad_library(g: torch.Tensor, w: torch.Tensor,
+                          x: torch.Tensor) -> torch.Tensor:
+    """dx as autograd computes it behind ``conv3x3_train_plain``: one
+    ``aten.convolution_backward`` call with the real input x (N,H,W,Cin)
+    in its channels-last layout and ``output_mask`` [True, False, False].
+    K1's dx library yardstick on the card (chip_smoke, ``perf_probe --mode
+    dgrad``); ``conv3x3_dgrad_plain`` stays the tests' reference.
+    ``torch.nn.grad.conv2d_input`` hands ``convolution_backward`` a
+    zero-stride stand-in for x, which is not what autograd runs."""
+    dx = torch.ops.aten.convolution_backward(
+        _nchw(g), _nchw(x), _oihw(w.to(g.dtype)), None, [1, 1], [1, 1],
+        [1, 1], False, [0, 0], 1, [True, False, False])[0]
     return dx.permute(0, 2, 3, 1)
 
 
@@ -261,11 +277,13 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
     On a CPU tensor this is ``conv3x3_wgrad_plain``. On a CUDA tensor it
     launches the Hopper kernel (bf16 x and g, f32 accumulation, split-K
-    with a deterministic second pass) or raises."""
+    with a deterministic second pass) or raises; an x or g whose data is
+    not 16-byte aligned is copied first (``fused_conv.aligned16``)."""
     if x.device.type == "cpu":
         return conv3x3_wgrad_plain(x, g)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_wgrad: no kernel for {x.device}")
+    x, g = aligned16(x), aligned16(g)
     _check_wgrad(x, g)
     path = wgrad_path(x.shape[3], g.shape[3])
     out = _wgrad_launch(x, g, path)

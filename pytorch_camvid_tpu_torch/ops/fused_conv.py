@@ -119,6 +119,15 @@ def kernel_path(cin: int, cout: int) -> str:
     return PATHS[_library().conv3x3_bn_relu_path(cin, cout)]
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as it is when its data starts on a 16-byte boundary, else a
+    copy that does. A batch slice such as ``x[1:]`` keeps its storage
+    offset through ``.contiguous()``, and the wgmma paths' TMA and the
+    packed paths' 16-byte loads need aligned bases; the copy is a fresh
+    allocation, which the caching allocator aligns."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check(x, w, a, b, flip=False):
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(f"conv3x3_bn_relu kernel takes bf16 x and w, got "
@@ -163,11 +172,13 @@ def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
     On a CPU tensor this is ``conv3x3_bn_relu_plain``. On a CUDA tensor it
     launches the Hopper kernel (bf16 x and w, f32 accumulation, bf16 out)
-    on ``conv_path(Cin, Cout)``, or raises."""
+    on ``conv_path(Cin, Cout)``, or raises; an x or w whose data is not
+    16-byte aligned is copied first (``aligned16``)."""
     if x.device.type == "cpu":
         return conv3x3_bn_relu_plain(x, w, a, b, relu, flip)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_bn_relu: no kernel for {x.device}")
+    x, w = aligned16(x), aligned16(w)
     _check(x, w, a, b, flip)
     n, h, wd, cin = x.shape
     cout = a.shape[0]

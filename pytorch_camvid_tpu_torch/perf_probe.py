@@ -15,7 +15,9 @@ Modes: ``fwd`` is the conv3x3+affine+ReLU block on K5 (``--pair``,
 ``ops/fused_conv_pair.py``), on K4 (``--kernel``, ``ops/fused_conv.py``) or
 else on its plain version (cuDNN's conv, then the epilogue). ``dgrad`` and
 ``wgrad`` time cuDNN's bf16 input and weight gradients, as the JAX tool
-times XLA's. ``blockvjp`` times the train block's forward and backward
+times XLA's; ``dgrad`` as autograd runs it, ``convolution_backward`` with
+the real channels-last input (``conv_train.conv3x3_dgrad_library``).
+``blockvjp`` times the train block's forward and backward
 (``ops/conv.py::ConvBNReLU`` in train mode on its plain path: cuDNN's
 convs and the f32 BN+ReLU tail), as the JAX tool differentiates
 ``conv_bn_relu_apply``. ``--kernel`` applies to ``fwd`` only.
@@ -175,7 +177,7 @@ def _op(batch, h, w, cin, cout, mode, kernel, pair, dev):
         return lambda: fn(x, wgt, a, b)
     g = randn(batch, h, w, cout)
     if mode == "dgrad":
-        return lambda: conv_train.conv3x3_dgrad_plain(g, wgt)
+        return lambda: conv_train.conv3x3_dgrad_library(g, wgt, x)
     if mode == "wgrad":
         xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
         return lambda: torch.nn.grad.conv2d_weight(

@@ -7,8 +7,8 @@ Usage:
         [-device cuda]
 
 Writes ``<stem>_mask.png`` (class indices) and, with ``-color``,
-``<stem>_color.png`` (12-class palette) per input image. Takes reference
-``.pth`` checkpoints. ``-device`` names where the model runs (default
+``<stem>_color.png`` (12-class palette) per input image. Takes a reference
+``.pth`` or a ``.ckpt.npz`` of either package. ``-device`` names where the model runs (default
 ``cuda``); without a CUDA device the default fails instead of running on
 the CPU.
 """
@@ -41,7 +41,7 @@ def list_images(path: str):
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("-weight", type=str, required=True,
-                        help="reference-named .pth checkpoint")
+                        help=".pth or .ckpt.npz checkpoint")
     parser.add_argument("-input", type=str, required=True,
                         help="image file or folder")
     parser.add_argument("-output", type=str, required=True,

@@ -34,9 +34,9 @@ import torch
 
 from pytorch_camvid_tpu_torch.config import settings
 from pytorch_camvid_tpu_torch.data.normalize import to_tensor_normalize
-from pytorch_camvid_tpu_torch.interop.weights import load_torch_checkpoint
 from pytorch_camvid_tpu_torch.models import get_model, spec_from_state_dict
 from pytorch_camvid_tpu_torch.ops.resize import resize_bilinear_cv2
+from pytorch_camvid_tpu_torch.train.checkpoint import load_weights
 
 
 class Predictor:
@@ -77,15 +77,9 @@ class Predictor:
 
     @classmethod
     def from_checkpoint(cls, net: str, weight_path: str, **kw):
-        """Build from a reference ``.pth`` state_dict. A native
-        ``.ckpt.npz`` is a flattened JAX TrainState and needs the train
-        state's port first."""
-        if not weight_path.endswith(".pth"):
-            raise NotImplementedError(
-                f"{weight_path}: only reference .pth checkpoints load in the "
-                f"PyTorch port; the native .ckpt.npz reader comes with the "
-                f"train state's port (ROADMAP.md, Queue 1)")
-        return cls(net, load_torch_checkpoint(weight_path), **kw)
+        """Build from a reference ``.pth`` state_dict or a ``.ckpt.npz``
+        of either package (``train/checkpoint.py::load_weights``)."""
+        return cls(net, load_weights(weight_path, net), **kw)
 
     def close(self) -> None:
         """Join the drain thread. The Predictor cannot predict afterwards."""

@@ -1,6 +1,7 @@
 """Training (counterpart of pytorch_camvid_tpu/train): schedules,
-optimizers, the train state and the train / eval steps. The loop,
-checkpoints and CLIs are not ported yet (ROADMAP.md)."""
+optimizers, the train state and the train / eval steps; the loop
+(``train/loop.py``), checkpoints (``train/checkpoint.py``) and the train
+CLI (``python -m pytorch_camvid_tpu_torch.train``) import from here."""
 
 from pytorch_camvid_tpu_torch.train.optim import adamw, sgd
 from pytorch_camvid_tpu_torch.train.schedules import (

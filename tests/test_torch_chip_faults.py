@@ -79,3 +79,49 @@ def test_packed_dw_faults_transpose_taps_and_swap_stem_channels(
     assert torch.equal(got[:, :, 1], dw[:, :, 1])
     assert torch.equal(chip_faults.stem_dw_bgr(x8, None, "packed"), dw)
     assert not math.isnan(got.sum().item())
+
+
+def test_training_run_faults_change_what_they_name(tmp_path):
+    """Phase 12's faults on the CPU: the resume faults move the restart
+    point or keep the fresh generator, the loader fault drops only a short
+    last batch, and the eval-step fault runs the model in train mode (its
+    BN running stats move) and leaves the model's own eval() in place."""
+    import numpy as np
+    from pytorch_camvid_tpu_torch.models.unet import UNet
+    from pytorch_camvid_tpu_torch.train import TrainState, adamw
+    from pytorch_camvid_tpu_torch.train.checkpoint import save_checkpoint
+
+    model = UNet(3, 12, width_mult=1 / 16,
+                 generator=torch.Generator().manual_seed(0))
+    saved = TrainState.create(model, adamw(), seed=1)
+    torch.rand(5, generator=saved.generator)   # the generator moves on
+    path = str(tmp_path / "1-preempt.ckpt.npz")
+    save_checkpoint(path, saved, {"epoch": 1, "resume_batch_idx": 2})
+    fresh = TrainState.create(UNet(3, 12, width_mult=1 / 16), adamw(),
+                              seed=1)
+    start = fresh.generator.get_state()
+    _, meta = chip_faults.resume_one_batch_late(path, fresh)
+    assert meta["resume_batch_idx"] == 3
+    assert torch.equal(fresh.generator.get_state(),
+                       saved.generator.get_state())
+    fresh = TrainState.create(UNet(3, 12, width_mult=1 / 16), adamw(),
+                              seed=1)
+    _, meta = chip_faults.resume_without_generator(path, fresh)
+    assert meta["resume_batch_idx"] == 2
+    assert torch.equal(fresh.generator.get_state(), start)
+
+    loader = chip_faults.DeviceDataLoader(
+        np.zeros((13, 4, 4, 3), np.uint8), np.zeros((13, 4, 4), np.uint8),
+        5, device="cpu")
+    sizes = [len(i) for i, _ in chip_faults.epoch_without_ragged_batch(
+        loader, 0)]
+    assert sizes == [5, 5] and [len(i) for i, _ in loader.epoch(0)] == [
+        5, 5, 3]
+
+    step = chip_faults.eval_step_in_train_mode(12)
+    stats = [b.clone() for b in model.buffers()]
+    x = torch.randn(2, 16, 16, 3)
+    step(saved, (x, torch.zeros(2, 16, 16, dtype=torch.long)))
+    assert model.training and "eval" not in model.__dict__
+    assert any(not torch.equal(a, b) for a, b in zip(stats,
+                                                    model.buffers()))

@@ -81,8 +81,9 @@ def test_conv3x3_train_matches_pallas_vjp(shape, plain):
 
 
 def test_wgrad_and_dgrad_plain_versions_match_autograd():
-    """The plain dx and dW that chip_smoke.py holds the kernels against
-    equal autograd's gradients of the plain forward."""
+    """The plain dx and dW that chip_smoke.py holds the kernels against,
+    and dx's library yardstick, equal autograd's gradients of the plain
+    forward."""
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.normal(size=(2, 6, 9, 5)).astype(np.float32))
     w = torch.from_numpy(rng.normal(size=(3, 3, 5, 4)).astype(np.float32))
@@ -98,6 +99,7 @@ def test_wgrad_and_dgrad_plain_versions_match_autograd():
                                          flip=True)
     for got, want in ((conv_train.conv3x3_dgrad(g, w), dx),
                       (conv_train.conv3x3_dgrad_plain(g, w), dx),
+                      (conv_train.conv3x3_dgrad_library(g, w, x), dx),
                       (flipped, dx),
                       (conv_train.conv3x3_wgrad(x, g), dw),
                       (conv_train.conv3x3_wgrad_plain(x, g), dw)):

@@ -164,3 +164,24 @@ def test_kernel_path_names_the_library_codes(monkeypatch):
         assert fused_conv.kernel_path(cin, cout) == fused_conv.conv_path(
             cin, cout)
     assert fused_conv.PATHS == ("narrow", "wgmma", "packed")
+
+
+def test_aligned16_copies_only_misaligned_batch_views():
+    """The rule the CUDA wrappers apply before their checks: a batch slice
+    whose offset is not a multiple of 16 bytes (the Cin = 3 stem at 45x61:
+    45 * 61 * 3 * 2 = 16,470 bytes a sample) is copied to an aligned tensor
+    with the same values; an aligned one is passed through. On the CPU the
+    misaligned view runs the plain version as it is."""
+    x = torch.randn(3, 45, 61, 3).to(torch.bfloat16)
+    assert x.data_ptr() % 16 == 0
+    assert fused_conv.aligned16(x) is x
+    view = x[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16 == 6
+    fixed = fused_conv.aligned16(view)
+    assert fixed.data_ptr() % 16 == 0 and fixed.is_contiguous()
+    assert torch.equal(fixed, view)
+    w = torch.randn(3, 3, 3, 8).to(torch.bfloat16)
+    a, b = torch.ones(8), torch.zeros(8)
+    torch.testing.assert_close(
+        fused_conv.conv3x3_bn_relu(view, w, a, b),
+        fused_conv.conv3x3_bn_relu(fixed, w, a, b), rtol=0, atol=0)

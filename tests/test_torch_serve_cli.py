@@ -70,6 +70,19 @@ def test_port_imports_no_jax(tmp_path):
             "import pytorch_camvid_tpu_torch.ops.loss\n"
             "import pytorch_camvid_tpu_torch.ops.metrics\n"
             "import pytorch_camvid_tpu_torch.train\n"
+            "import pytorch_camvid_tpu_torch.train.__main__\n"
+            "import pytorch_camvid_tpu_torch.train.loop\n"
+            "import pytorch_camvid_tpu_torch.train.checkpoint\n"
+            "import pytorch_camvid_tpu_torch.eval\n"
+            "import pytorch_camvid_tpu_torch.predict\n"
+            "import pytorch_camvid_tpu_torch.config\n"
+            "import pytorch_camvid_tpu_torch.data.camvid\n"
+            "import pytorch_camvid_tpu_torch.utils.confusion\n"
+            "import pytorch_camvid_tpu_torch.utils.metrics_np\n"
+            "import pytorch_camvid_tpu_torch.utils.stats\n"
+            "import pytorch_camvid_tpu_torch.utils.tb\n"
+            "import pytorch_camvid_tpu_torch.utils.summary\n"
+            "import pytorch_camvid_tpu_torch.utils.profiling\n"
             "from pytorch_camvid_tpu_torch.models import get_model\n"
             "get_model('unet', 3, 12, width_mult=1 / 16)\n"
             "get_model('segnet', 3, 12, width_mult=1 / 16)\n"

@@ -65,7 +65,9 @@ def test_reference_pth_loads_through_predictor(tmp_path):
 
 
 def test_native_checkpoint_is_not_read_yet(tmp_path):
+    """``.ckpt.npz`` files are read now (tests/test_torch_checkpoint.py);
+    one that holds no checkpoint payload of either package is refused."""
     path = str(tmp_path / "1-regular.ckpt.npz")
     np.savez(path, x=np.zeros(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not a checkpoint"):
         Predictor.from_checkpoint("unet", path, device="cpu")
