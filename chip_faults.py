@@ -10,10 +10,14 @@ the one-step training check (``chip_smoke.train_parity``, batch 32), and
 K5's checks against its plain version and K4 (``chip_smoke.pair_checks``,
 phase 10 without its timings) and the layout probes' checks against their
 plain versions (``chip_smoke.probe_checks``, phase 11 without its
-timings), and phase 12's checks after its run A (``resume_checks``,
+timings), phase 12's checks after its run A (``resume_checks``,
 ``eval_checks`` and ``predictor_checks``: the preempted and resumed run
-against run A, the eval CLI and the Predictor on A's checkpoint), once
-sound and once under each planted fault. Every kernel fault keeps every
+against run A, the eval CLI and the Predictor on A's checkpoint), and
+phase 13's (``augment_checks``: the recipes on the card against the CPU
+port; ``host_loader_checks``, ``voc_checks``, ``lr_finder_checks``:
+``-loader host`` against run A, VOC training and eval with the 64->21
+head on the narrow paths, the LR finder's sweeps), once sound and once
+under each planted fault. Every kernel fault keeps every
 kernel launch, so only the values can show it (the packed
 dW's and rows_kernel's faults patch the launch functions
 ``conv_train._wgrad_launch`` and ``layout_probes._launch``, never a
@@ -36,7 +40,9 @@ import torch
 import chip_smoke as smoke
 from pytorch_camvid_tpu_torch import bench
 from pytorch_camvid_tpu_torch import eval as eval_cli
-from pytorch_camvid_tpu_torch.data.pipeline import DeviceDataLoader
+from pytorch_camvid_tpu_torch import lr_finder
+from pytorch_camvid_tpu_torch.data import augment
+from pytorch_camvid_tpu_torch.data.pipeline import DeviceDataLoader, HostLoader
 from pytorch_camvid_tpu_torch.models.segnet import SegNet
 from pytorch_camvid_tpu_torch.ops import (conv, conv_train, fused_conv,
                                           fused_conv_pair, fused_pool,
@@ -49,14 +55,18 @@ ZEROED_DW_CALL = 13
 
 @contextlib.contextmanager
 def planted(owner, name: str, value):
-    """``owner.name`` (a module's function or a class's method) replaced by
-    ``value`` inside the block."""
-    saved = owner.__dict__[name]
+    """``owner.name`` (a module's function or a class's method, its own or
+    inherited) replaced by ``value`` inside the block."""
+    missing = object()
+    saved = owner.__dict__.get(name, missing)
     setattr(owner, name, value)
     try:
         yield
     finally:
-        setattr(owner, name, saved)
+        if saved is missing:
+            delattr(owner, name)   # the inherited one shows again
+        else:
+            setattr(owner, name, saved)
 
 
 def k4_gain(x, w, a, b, relu=True):
@@ -301,6 +311,74 @@ def eval_steps_in_train_mode():
         yield
 
 
+def narrow_dx_tap_dropped(x, w, a, b, relu=True, flip=False):
+    """K1's dx on the narrow path (the VOC head's, Cin 21 into 64)
+    launched without its first tap (w[0, 0] zero in a copy); every other
+    launch as it was."""
+    if flip and fused_conv.conv_path(w.shape[3], w.shape[2]) == "narrow":
+        w = w.clone()
+        w[0, 0] = 0
+    return fused_conv.conv3x3_bn_relu(x, w, a, b, relu, flip)
+
+
+_make_train_step = loop.make_train_step
+
+
+def train_step_with_255_in_the_loss(*args, **kw):
+    """The loop's train step built without its ignore index: VOC's 255
+    pixels (the letterbox rows) stay in the loss."""
+    return _make_train_step(*args, **dict(kw, ignore_index=None))
+
+
+def lr_recorded_before_the_step(lr_fn, it):
+    """The LR finder recording the lr its step used, not the next one."""
+    return float(lr_fn(it - 1))
+
+
+_epoch_indices = HostLoader.epoch_indices
+_host_gather = HostLoader.gather
+
+
+def plan_recording_epoch_indices(self, epoch=None):
+    self.fault_plan = _epoch_indices(self, epoch)
+    return self.fault_plan
+
+
+def gather_next_batch(self, idx):
+    """HostLoader serving the plan's batch t + 1 at step t (the last
+    step's own): the rows its epoch plan lists after ``idx``."""
+    plan = getattr(self, "fault_plan", None)
+    if plan is not None:
+        rows = [i for i, r in enumerate(plan) if np.array_equal(r, idx)]
+        if rows and rows[0] + 1 < len(plan):
+            idx = plan[rows[0] + 1]
+    return _host_gather(self, idx)
+
+
+@contextlib.contextmanager
+def host_loader_serving_next_batch():
+    with planted(HostLoader, "epoch_indices", plan_recording_epoch_indices), \
+            planted(HostLoader, "gather", gather_next_batch):
+        yield
+
+
+def pool_backward_zeroed(ctx, g, _gk):
+    """K2's pool backward returning zeros (after its launch): only SegNet
+    runs K2, so among phase 13's runs only the LR finder's SegNet sweep."""
+    return torch.zeros_like(fused_pool.max_unpool_2x2_phase(
+        g.contiguous(), ctx.saved_tensors[0], ctx.in_hw))
+
+
+_quantize_factor = augment.quantize_factor
+
+
+def card_factor_2pct_high(f):
+    """The brightness and contrast factors 2% too large on the card (the
+    CPU port's as they were): a pixel moves by up to 5 on the 0-255
+    scale, under the full jitter's limit, over the LR finder recipe's."""
+    return _quantize_factor(f * 1.02 if f.is_cuda else f)
+
+
 def failed_check(run, fault) -> str:
     """The message of the chip_smoke check that ``run`` fails under
     ``fault``, or '' when it passes."""
@@ -379,10 +457,28 @@ def main() -> int:
                          epoch_without_ragged_batch)),
         ("training run", "the eval step in train mode",
          eval_steps_in_train_mode),
+        ("augment", "the card's brightness and contrast factors 2% high",
+         lambda: planted(augment, "quantize_factor", card_factor_2pct_high)),
+        ("data side", "K2 pool backward returning zeros (the SegNet LR "
+         "sweep)",
+         lambda: planted(fused_pool._PoolPhaseTrain, "backward",
+                         staticmethod(pool_backward_zeroed))),
+        ("data side", "HostLoader serving batch t + 1 in place of t",
+         host_loader_serving_next_batch),
+        ("data side", "the VOC head's narrow dx with one tap dropped",
+         lambda: planted(conv_train, "conv3x3_bn_relu",
+                         narrow_dx_tap_dropped)),
+        ("data side", "VOC's 255 pixels left in the training loss",
+         lambda: planted(loop, "make_train_step",
+                         train_step_with_255_in_the_loss)),
+        ("data side", "the LR finder recording the lr before the step",
+         lambda: planted(lr_finder, "recorded_lr",
+                         lr_recorded_before_the_step)),
     ]
     ok = True
     tmp = tempfile.TemporaryDirectory()
-    for path in ("serving", "training", "K5", "probes", "training run"):
+    for path in ("serving", "training", "K5", "probes", "training run",
+                 "augment", "data side"):
         gen = torch.Generator().manual_seed(smoke.SEED)
         if path == "serving":
             model = bench.he_model("segnet", gen).cuda().eval()
@@ -411,8 +507,8 @@ def main() -> int:
             def run():
                 smoke.probe_checks(torch.Generator(
                     device="cuda").manual_seed(smoke.SEED))
-        else:   # phase 12 after its run A, which no fault touches
-            model = None
+        elif path == "training run":   # phase 12 after its run A, which
+            model = None                # no fault touches
             data = smoke.write_training_data(os.path.join(tmp.name, "data"))
             a = smoke.training_run_a(os.path.join(tmp.name, "a"), data)
             runs = itertools.count()
@@ -421,6 +517,20 @@ def main() -> int:
                 smoke.resume_checks(
                     os.path.join(tmp.name, f"b{next(runs)}"), data, a)
                 smoke.predictor_checks(data, a, smoke.eval_checks(data, a))
+        elif path == "augment":   # phase 13's first part
+            model = None
+
+            def run():
+                smoke.augment_checks()
+        else:   # phase 13's checks on phase 12's data and run A
+            model = None
+
+            def run():
+                work = os.path.join(tmp.name, f"d{next(runs)}")
+                os.makedirs(work)
+                smoke.host_loader_checks(work, data, a)
+                smoke.voc_checks(work)
+                smoke.lr_finder_checks(data)
         print(f"{path}, sound:", flush=True)
         msg = failed_check(run, contextlib.nullcontext)
         print(f"{path}, sound: {'FAILED ' + msg if msg else 'passed'}",

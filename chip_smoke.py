@@ -113,6 +113,33 @@ Phases (each prints its lines; any failure exits non-zero):
    ``bench.measure_train`` at b10, and their eval passes' ms; then
    ``bench.main`` once: its keys, finite rows, each with the card.
    ``chip_faults.py`` plants four faults under these checks.
+13. The data side and the LR finder, at 360x480: (1) the LR finder's
+   recipe (rotation p 0.5, RandomScale, blur, flip, brightness) and the
+   full jitter (brightness, contrast, saturation and hue in a random
+   order) at b10 on one set of draws, on the card and on the CPU port:
+   masks equal on ``AUG_MASK_EQUAL`` of the pixels, images within the
+   recipe's ``AUG_IMAGE_TOL``; ms a batch of each op. (2) The LR finder
+   CLI's sweep (``lr_finder.sweep`` on its own argument parsing, no plot)
+   on phase 12's CamVid caches, ``-net unet -b 10 -num_it 12`` and ``-net
+   segnet -b 10 -num_it 4``: the recorded lrs are the sweep's after each
+   step, the losses finite, the end (num_it or the NaN stop) printed, K1's
+   and K2's launches a step's times the steps; s/iteration. The sweep
+   again with every K1 and K2 call of every step held against its plain
+   version on the same inputs (``shadowed_kernels``), its first two steps
+   also taken on the plain path from the same state and draws at their
+   pool choices: raw losses within ``TRAIN_LOSS_TOL``. (3) VOC caches (40 train, 13 val, 21 classes, letterbox
+   rows of 255): ``train -dataset voc2012 -net unet -b 10 -e 1`` with
+   every K1 call held against plain on the step's data and each step's
+   loss against ``F.cross_entropy`` over the non-255 pixels; the 64->21
+   head on the narrow paths (fwd, dx and dW once a step, K4 once an eval
+   batch: ``path_counts(net, steps, 21)``); ``eval -dataset voc2012`` on
+   its checkpoint prints the loop's mIoU. (4) Run A again with ``-loader
+   host``: all 347 leaves bit-equal to run A's, every gather native; both
+   runs' epoch img/s and the gather's ms a batch; run C's configuration
+   with the host loader through ``loop.run_training`` as well, bit-equal,
+   its epochs beside run C's. (5) The 64->21 head's
+   K1 fwd, dx and dW at b10 and b24 against cuDNN's bf16 calls and their
+   bounds. ``chip_faults.py`` plants faults under (1)-(4).
 In phases 8 and 9 the plain path replays the kernel path's pool choices
 (``recorded_choices``, ``replayed_choices``): a 1-ulp difference between
 the two paths' convs would otherwise flip the choice of near-tied windows
@@ -126,7 +153,8 @@ plants faults that these checks must catch.
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card and its power limit; the line before that is the per-kernel JSON
 (16 entries: K4, K1's three pieces, the five pool kernels, K5, M1-M6; K4's
-and K1's also give their launches on each path, ``path_launches``).
+and K1's also give their launches on each path, ``path_launches``; K1's
+also the 64->21 head's times, ``head_64_21``).
 Imports neither jax nor cv2.
 """
 
@@ -147,10 +175,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pytorch_camvid_tpu_torch import bench, mosaic_probes, perf_probe
+from pytorch_camvid_tpu_torch import (bench, lr_finder, mosaic_probes,
+                                     perf_probe)
 from pytorch_camvid_tpu_torch import eval as eval_cli
 from pytorch_camvid_tpu_torch.config import settings
-from pytorch_camvid_tpu_torch.data import camvid
+from pytorch_camvid_tpu_torch.data import augment, camvid, native, voc2012
 from pytorch_camvid_tpu_torch.data.normalize import to_tensor_normalize
 from pytorch_camvid_tpu_torch.data.synthetic import synthetic_arrays
 from pytorch_camvid_tpu_torch.models import get_model, spec_from_state_dict
@@ -165,6 +194,7 @@ from pytorch_camvid_tpu_torch.ops.metrics import (confusion_matrix,
 from pytorch_camvid_tpu_torch.serving import Predictor
 from pytorch_camvid_tpu_torch.train import TrainState, loop
 from pytorch_camvid_tpu_torch.train import checkpoint as ckpt
+from pytorch_camvid_tpu_torch.train import steps as steps_mod
 
 train_cli = importlib.import_module("pytorch_camvid_tpu_torch.train.__main__")
 
@@ -226,14 +256,29 @@ EDGE_SHAPES = ((2, 45, 61, 64, 64), (2, 44, 60, 512, 256),
                (100, 360, 480, 128, 64), (2, 45, 61, 3, 64),
                (2, 45, 61, 12, 64), (2, 45, 61, 3, 24),
                (200, 360, 480, 3, 64), (2, 45, 61, 64, 20))
-# K4/K1 launches per path of one forward ("fwd") and one training step:
-# the stem's forward, the head's dx and the stem's and the head's dW on the
-# packed paths, nothing on the narrow ones
-PATH_TABLE = {
-    net: {"fwd": {"wgmma": b - 1, "packed": 1, "narrow": 0},
-          "dgrad": {"wgmma": b - 2, "packed": 1, "narrow": 0},
-          "wgrad": {"wgmma": b - 2, "packed": 2, "narrow": 0}}
-    for net, b in (("unet", 23), ("segnet", 26))}
+# K4/K1 launches per path of one forward ("fwd") and one training step
+# (``path_table``): the body's blocks on the wgmma paths; the stem's
+# forward and dW on the packed ones (no dx: its input is the image); the
+# head's pieces by its class count (``HEAD_PATHS``): 12 classes (CamVid)
+# put its forward on the wgmma path and its dx (Cin 12) and dW on the
+# packed ones, 21 (VOC) all three on the narrow ones (9 x 21 = 189 past
+# the packed paths' 144)
+N_BLOCKS = {"unet": 23, "segnet": 26}
+HEAD_PATHS = {12: {"fwd": "wgmma", "dgrad": "packed", "wgrad": "packed"},
+              21: {"fwd": "narrow", "dgrad": "narrow", "wgrad": "narrow"}}
+
+
+def path_table(net: str, classes: int = 12) -> dict:
+    body = N_BLOCKS[net] - 2
+    table = {"fwd": {"wgmma": body, "packed": 1, "narrow": 0},
+             "dgrad": {"wgmma": body, "packed": 0, "narrow": 0},
+             "wgrad": {"wgmma": body, "packed": 1, "narrow": 0}}
+    for piece, path in HEAD_PATHS[classes].items():
+        table[piece][path] += 1
+    return table
+
+
+PATH_TABLE = {net: path_table(net) for net in N_BLOCKS}
 # the stem's and the head's dW on the narrow path before the packed one
 # (UNet b24, 360x480, ms; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md),
 # printed beside this run's
@@ -688,16 +733,18 @@ def train_counts() -> dict:
     return {**conv_train.launches(), **fused_pool.launches()}
 
 
-def path_counts(net: str, steps: int) -> dict:
+def path_counts(net: str, steps: int, classes: int = 12) -> dict:
     """K1's launches on each path in ``steps`` kernel-path steps of ``net``
-    ({piece: {path: launches}}, ``PATH_TABLE``); a forward's K4 launches
-    are the "fwd" entry's."""
+    with a ``classes``-class head ({piece: {path: launches}},
+    ``path_table``); a forward's K4 launches are the "fwd" entry's."""
     return {piece: {p: k * steps for p, k in paths.items()}
-            for piece, paths in PATH_TABLE[net].items()}
+            for piece, paths in path_table(net, classes).items()}
 
 
 def expected_train_counts(net: str, steps: int) -> dict:
-    """Launches of ``steps`` kernel-path steps."""
+    """Launches of ``steps`` kernel-path steps, in all (the head's class
+    count moves its launches between paths, ``path_counts``, not their
+    number)."""
     nb, pools = n_blocks(net), POOLS[net]
     return {"fwd": nb * steps, "dgrad": (nb - 1) * steps,
             "wgrad": nb * steps, "maxpool2x2.pool_flat": 0,
@@ -785,7 +832,9 @@ SHADOW_TOL = {"K1 fwd": K1_TOL["fwd"], "K1 dx": K1_TOL["dx"],
 
 
 def _note(errs: dict, piece: str, err: float) -> None:
-    errs[piece] = max(errs.get(piece, 0.0), err)
+    """errs[piece] becomes the worse of it and ``err``; NaN is worst."""
+    old = errs.get(piece, 0.0)
+    errs[piece] = err if err != err or err > old else old
 
 
 def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -808,10 +857,11 @@ def _plain_grad(fn, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def shadowed_kernels(errs: dict):
+def shadowed_kernels(errs: dict, by_shape: dict = None):
     """Inside the block every call of the kernel path's autograd Functions
     is held, forward and backward, against plain versions on the same
-    inputs, and ``errs`` gets each piece's worst error (``SHADOW_TOL``):
+    inputs, and ``errs`` gets each piece's worst error (``SHADOW_TOL``;
+    ``by_shape``, when given, K1's per (piece, Cin, Cout) as well):
     K1's conv (``conv_train._Conv3x3Train``) against F.conv2d,
     ``conv2d_input`` and the f32 wgrad; K2's pool and unpool
     (``fused_pool._PoolPhaseTrain``, ``_UnpoolPhaseTrain``) against their
@@ -829,9 +879,14 @@ def shadowed_kernels(errs: dict):
     pool_fwd, pool_bwd = pool_cls.forward, pool_cls.backward
     unpool_fwd, unpool_bwd = unpool_cls.forward, unpool_cls.backward
 
+    def note_conv(piece, w, err):
+        _note(errs, piece, err)
+        if by_shape is not None:
+            _note(by_shape, (piece, w.shape[2], w.shape[3]), err)
+
     def conv_forward(ctx, x, w):
         y = conv_fwd(ctx, x, w)
-        _note(errs, "K1 fwd", _rel(y, conv_train.conv3x3_train_plain(x, w)))
+        note_conv("K1 fwd", w, _rel(y, conv_train.conv3x3_train_plain(x, w)))
         return y
 
     def conv_backward(ctx, g):
@@ -839,9 +894,10 @@ def shadowed_kernels(errs: dict):
         x, w = ctx.saved_tensors
         g = g.to(x.dtype).contiguous()
         if dx is not None:
-            _note(errs, "K1 dx",
-                  _rel(dx, conv_train.conv3x3_dgrad_plain(g, w)))
-        _note(errs, "K1 dW", _rel(dw, conv_train.conv3x3_wgrad_plain(x, g)))
+            note_conv("K1 dx", w,
+                      _rel(dx, conv_train.conv3x3_dgrad_plain(g, w)))
+        note_conv("K1 dW", w,
+                  _rel(dw, conv_train.conv3x3_wgrad_plain(x, g)))
         return dx, dw
 
     def pool_forward(ctx, x):
@@ -1704,16 +1760,16 @@ def finite_rows(obj) -> bool:
     return True
 
 
-def phase_training_run() -> dict:
+def phase_training_run(tmp: str) -> dict:
     """Phase 12: the training run through the port's entry points (module
-    docstring); returns the bench JSON object."""
-    with tempfile.TemporaryDirectory() as tmp:
-        data = write_training_data(os.path.join(tmp, "data"))
-        a = training_run_a(os.path.join(tmp, "a"), data)
-        resume_checks(os.path.join(tmp, "b"), data, a)
-        maps = eval_checks(data, a)
-        predictor_checks(data, a, maps)
-        c = loop_run(os.path.join(tmp, "c"), data, a)
+    docstring), its files under ``tmp``; returns the bench JSON object
+    ("bench"), the CamVid caches' root ("data") and run A ("a")."""
+    data = write_training_data(os.path.join(tmp, "data"))
+    a = training_run_a(os.path.join(tmp, "a"), data)
+    resume_checks(os.path.join(tmp, "b"), data, a)
+    maps = eval_checks(data, a)
+    predictor_checks(data, a, maps)
+    c = loop_run(os.path.join(tmp, "c"), data, a)
     torch.cuda.empty_cache()
     model = bench.he_model("unet", torch.Generator().manual_seed(SEED))
     r = bench.measure_train(model.cuda(), RUN_BATCH, seed=SEED)
@@ -1743,7 +1799,477 @@ def phase_training_run() -> dict:
     check(finite_rows(out) and all("card" in row
                                    for row in out["extra"].values()),
           "bench's rows")
+    return {"bench": out, "data": data, "a": a, "c": c}
+
+
+# ------------------------------------------- the data side and LR finder (13)
+
+AUG_BATCH = 10
+AUG_MASK_EQUAL = 0.9999   # masks, CUDA vs the CPU port: equal but at ties
+# images, CUDA vs the CPU port, on the 0-255 scale, per recipe: the warps'
+# cos, sin and the blur's exp differ by ulps between the devices, so a
+# value at a rounding tie of the blur or the brightness LUT moves by one
+# (the LR finder's recipe); the saturation's and hue's uint8 HSV round
+# trip can widen that, a hue unit moving a channel by up to 6 (the full
+# jitter)
+AUG_IMAGE_TOL = {"lr_finder": 2.0, "full_jitter": 7.0}
+AUG_RECIPES = {
+    "lr_finder": dict(rotation_p=0.5, rotation_angle=10, random_scale=True),
+    "full_jitter": dict(jitter_p=0.2, jitter_brightness=0.4,
+                        jitter_contrast=0.4, jitter_saturation=0.4,
+                        jitter_hue=0.1),
+}
+LR_SWEEPS = (("unet", 12), ("segnet", 4))   # (net, -num_it) at -b 10
+LR_PLAIN_STEPS = 2   # the first steps held against the plain path
+VOC_CLASSES, VOC_PAD = 21, 30   # letterbox rows of 255 at top and bottom
+LOSS_RECOMPUTE_TOL = 1e-5   # the step's loss vs F.cross_entropy, f32
+HEAD_BATCHES = (10, 24)
+DEVICE = torch.device("cuda")   # phase 13's (a rehearsal sets the CPU)
+
+
+def aug_config(name: str) -> augment.AugmentConfig:
+    return augment.AugmentConfig(mean=settings.MEAN, std=settings.STD,
+                                 rotation_fill=11, scale_fill=11,
+                                 **AUG_RECIPES[name])
+
+
+def augment_checks() -> dict:
+    """Part 1: each recipe at b10, 360x480, on one fixed set of draws, on
+    CUDA and on the CPU port: masks equal on AUG_MASK_EQUAL of the pixels
+    (all but warp ties), images within the recipe's AUG_IMAGE_TOL; ms a
+    batch of each op on the card. Returns {op: ms}."""
+    images, labels = synthetic_arrays(AUG_BATCH, HW, seed=SEED + 3)
+    x_cpu, m_cpu = torch.from_numpy(images), torch.from_numpy(labels)
+    x, m = x_cpu.to(DEVICE), m_cpu.to(DEVICE)
+    for name in AUG_RECIPES:
+        cfg = aug_config(name)
+        draws = augment.sample_draws(torch.Generator().manual_seed(SEED),
+                                     AUG_BATCH, cfg, "cpu")
+        got_x, got_m = augment.augment_with_draws(
+            cfg, x, m, {k: v.to(DEVICE) for k, v in draws.items()})
+        want_x, want_m = augment.augment_with_draws(cfg, x_cpu, m_cpu, draws)
+        scale = torch.tensor(cfg.std) * 255.0
+        err = ((got_x.cpu() - want_x).abs() * scale).max().item()
+        equal = (got_m.cpu() == want_m).double().mean().item()
+        print(f"augment {name} b{AUG_BATCH} {HW[0]}x{HW[1]}, CUDA vs the "
+              f"CPU port on one set of draws: masks equal on {equal:.6f} "
+              f"of the pixels (limit {AUG_MASK_EQUAL}), images max |err| "
+              f"{err:.4g} on the 0-255 scale (limit "
+              f"{AUG_IMAGE_TOL[name]})", flush=True)
+        check(equal >= AUG_MASK_EQUAL, f"augment {name}: masks CUDA vs CPU")
+        check(err <= AUG_IMAGE_TOL[name],
+              f"augment {name}: images CUDA vs CPU")
+    cfg = augment.AugmentConfig(**{**aug_config("lr_finder")._asdict(),
+                                   **AUG_RECIPES["full_jitter"]})
+    d = augment.sample_draws(torch.Generator(DEVICE).manual_seed(SEED),
+                             AUG_BATCH, cfg, DEVICE)
+    xf = x.float()
+    jit = {k: d[k] for k in ("brightness", "contrast", "saturation", "hue")}
+    ops = {
+        "rotation": lambda: augment.rotate(xf, m, d["rotation_angle"], 11),
+        "scale_pad_crop": lambda: augment.scale_pad_crop(
+            xf, m, d["scale_s"], d["scale_uy"], d["scale_ux"], 11),
+        "blur": lambda: augment.gaussian_blur(xf, d["blur_sigma"],
+                                              d["blur_apply"]),
+        "hflip": lambda: augment.hflip(xf, m, d["flip"]),
+        "brightness": lambda: augment.adjust_brightness(xf, jit["brightness"]),
+        "contrast": lambda: augment.adjust_contrast(xf, jit["contrast"]),
+        "saturation": lambda: augment.adjust_saturation(xf,
+                                                        jit["saturation"]),
+        "hue": lambda: augment.adjust_hue(xf, jit["hue"]),
+        "jitter (4 ops, random order)": lambda: augment.color_jitter(
+            xf, jit, d["jitter_perm"]),
+        "normalize": lambda: to_tensor_normalize(xf, settings.MEAN,
+                                                 settings.STD,
+                                                 torch.bfloat16)}
+    for name in AUG_RECIPES:
+        c = aug_config(name)
+        dd = augment.sample_draws(torch.Generator(DEVICE).manual_seed(SEED),
+                                  AUG_BATCH, c, DEVICE)
+        ops[f"recipe {name}"] = (
+            lambda c=c, dd=dd: augment.augment_with_draws(
+                c, x, m, dd, torch.bfloat16))
+    times = {k: cuda_ms(fn, iters=10) for k, fn in ops.items()}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops["jitter (4 ops, random order)"]()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    print(f"augment ms a batch (b{AUG_BATCH}, {HW[0]}x{HW[1]}, f32): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f"; the 4-op jitter's peak memory {peak:.0f} MiB above its "
+          f"input on {bench.card()}", flush=True)
+    return times
+
+
+def copied_state(state: TrainState) -> TrainState:
+    """A copy of ``state`` that a step can take without touching it."""
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    return TrainState(model=copy.deepcopy(state.model),
+                      opt_state=copy.deepcopy(state.opt_state),
+                      step=state.step, generator=gen)
+
+
+@contextlib.contextmanager
+def checked_sweep(out: dict):
+    """Inside the block every train step of the LR finder runs under
+    ``shadowed_kernels``: a step's errors join out["shadow"] when its loss
+    is finite (the NaN stop's step is left out of the checks as it is of
+    the curve), and its raw loss (before the smoothing) is appended to
+    out["raw"]. Each of the first LR_PLAIN_STEPS steps is also taken on
+    the plain path from a copy of the state before it, on the same batch
+    and draws, at the kernel step's pool choices (``recorded_choices``,
+    ``replayed_choices``): out["plain"] gets its raw loss, out["choices"]
+    counts the choices replayed and out["plain_launches"] the kernel
+    launches of the plain steps."""
+    saved = lr_finder.make_train_step
+    out.update(raw=[], plain=[], shadow={}, choices=0, plain_launches=0)
+
+    def make(*args, **kw):
+        step = saved(*args, **kw)
+        plain_step = saved(*args, **{**kw, "plain": True})
+
+        def run(state, batch):
+            errs = {}
+            before = (copied_state(state)
+                      if len(out["raw"]) < LR_PLAIN_STEPS else None)
+            with shadowed_kernels(errs), \
+                    recorded_choices(state.model) as choices:
+                state, met = step(state, batch)
+            out["raw"].append(float(met["loss"]))
+            if np.isfinite(out["raw"][-1]):
+                for piece, e in errs.items():
+                    _note(out["shadow"], piece, e)
+            if before is not None:
+                launched = sum(train_counts().values())
+                with replayed_choices(choices):
+                    _, plain_met = plain_step(before, batch)
+                out["plain"].append(float(plain_met["loss"]))
+                out["choices"] += len(choices)
+                out["plain_launches"] += (sum(train_counts().values())
+                                          - launched)
+            return state, met
+        return run
+
+    lr_finder.make_train_step = make
+    try:
+        yield out
+    finally:
+        lr_finder.make_train_step = saved
+
+
+def lr_finder_checks(data: str) -> dict:
+    """Part 2: the LR finder CLI's sweep (its own argument parsing, no
+    plot) on phase 12's CamVid caches, UNet 12 and SegNet 4 iterations at
+    b10: the recorded lrs are the sweep's at 1..k, every loss finite, the
+    sweep ends at num_it or its NaN stop, and K1's and K2's launches are a
+    step's times the steps taken. The sweep again with every kernel call
+    of every step held against its plain version on the same inputs
+    (``shadowed_kernels``, SHADOW_TOL), and each of its first
+    LR_PLAIN_STEPS steps also taken on the plain path from the same state
+    and draws (``checked_sweep``): their raw losses agree within
+    TRAIN_LOSS_TOL. Returns {net: s per iteration} of the first sweep."""
+    out = {}
+    for net, num_it in LR_SWEEPS:
+        args = lr_finder.parser().parse_args(
+            ["-net", net, "-b", str(RUN_BATCH), "-num_it", str(num_it),
+             "-data", data, "-image_size", str(HW[1]), str(HW[0])])
+        torch.cuda.synchronize()
+        reset_counts()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            losses, lrs = lr_finder.sweep(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, paths = train_counts(), conv_train.path_launches()
+        diverged = "diverged" in log.getvalue()
+        steps = len(lrs) + diverged   # the NaN step ran, unrecorded
+        c = {}
+        with contextlib.redirect_stdout(io.StringIO()), checked_sweep(c):
+            lr_finder.sweep(args)
+        torch.cuda.synchronize()
+        raw, plain_raw, shadow = c["raw"], c["plain"], c["shadow"]
+        check(c["plain_launches"] == 0,
+              f"lr_finder {net}: the plain path launched a kernel")
+        sweep = lr_finder.exponential_sweep_lr(args.start_lr, args.end_lr,
+                                               num_it)
+        want_lrs = [sweep(i) for i in range(1, len(lrs) + 1)]
+        k = min(LR_PLAIN_STEPS, len(raw), len(plain_raw))
+        errs = [abs(raw[i] - plain_raw[i]) / abs(plain_raw[i])
+                for i in range(k)]
+        print(f"lr_finder -net {net} -b {RUN_BATCH} -num_it {num_it}: "
+              f"{len(lrs)} iterations recorded, ended by "
+              f"{'its NaN stop' if diverged else 'num_it'}; losses "
+              f"{[round(float(v), 4) for v in losses]}; lrs "
+              f"{[float(f'{v:.4g}') for v in lrs]}; launches {counts}, K1 "
+              f"on each path {paths}; {wall / steps:.3f} s/iteration "
+              f"({wall:.2f} s for {steps}, the first step's set-up "
+              f"included) on {bench.card()}; again with each kernel call "
+              f"against its plain version on the same inputs, worst per "
+              f"piece over {len(raw)} steps: " + "; ".join(
+                  f"{piece} {e:.3g} (tol {SHADOW_TOL[piece]})"
+                  for piece, e in shadow.items())
+              + f"; the first {k} raw losses vs the plain path's from the "
+              f"same state and draws at the kernel steps' {c['choices']} "
+              f"pool choices {[f'{e:.3g}' for e in errs]} (tol "
+              f"{TRAIN_LOSS_TOL})",
+              flush=True)
+        check(list(lrs) == want_lrs, f"lr_finder {net}: the recorded lrs")
+        check(bool(np.isfinite(losses).all()), f"lr_finder {net}: losses")
+        check(len(lrs) == num_it or (diverged and len(lrs) < num_it),
+              f"lr_finder {net}: the sweep's end")
+        check(counts == expected_train_counts(net, steps),
+              f"lr_finder {net}: launches")
+        check(paths == path_counts(net, steps), f"lr_finder {net}: paths")
+        want = [p for p in SHADOW_TOL if POOLS[net] or p.startswith("K1")]
+        check(len(raw) == steps and sorted(shadow) == sorted(want),
+              f"lr_finder {net}: kernel pieces seen")
+        for piece, e in shadow.items():
+            check(e <= SHADOW_TOL[piece],
+                  f"lr_finder {net} {piece} on the step's data")
+        check(k == LR_PLAIN_STEPS and max(errs) <= TRAIN_LOSS_TOL,
+              f"lr_finder {net}: the first raw losses vs the plain path")
+        out[net] = wall / steps
+        del c
+        torch.cuda.empty_cache()
     return out
+
+
+def write_voc_data(root: str) -> str:
+    """VOC split caches (``data/voc2012.py``'s files) at 360x480 from
+    ``synthetic_arrays`` with 21 classes and the letterbox's rows (image
+    0, label 255) at the top and the bottom."""
+    for split, (n, seed) in RUN_SPLITS.items():
+        images, labels = synthetic_arrays(n, HW, VOC_CLASSES, seed=seed)
+        for rows in (slice(0, VOC_PAD), slice(-VOC_PAD, None)):
+            images[:, rows], labels[:, rows] = 0, 255
+        voc2012.write_cache(voc2012.cache_path(root, split, HW[::-1]),
+                            images, labels, [f"{split}{i}" for i in range(n)])
+    return root
+
+
+@contextlib.contextmanager
+def recomputed_losses(out: list):
+    """Inside the block each training loss (logits that need a gradient)
+    is also computed plainly, ``F.cross_entropy`` over the pixels whose
+    label is not 255: ``out`` gets (loss, recomputed) pairs."""
+    saved = steps_mod.cross_entropy_loss
+
+    def loss_fn(logits, labels, *args, **kw):
+        loss = saved(logits, labels, *args, **kw)
+        if logits.requires_grad:
+            with torch.no_grad():
+                want = F.cross_entropy(
+                    logits.detach().float().permute(0, 3, 1, 2),
+                    labels.long(), ignore_index=255)
+            out.append((loss.detach(), want))
+        return loss
+
+    steps_mod.cross_entropy_loss = loss_fn
+    try:
+        yield out
+    finally:
+        steps_mod.cross_entropy_loss = saved
+
+
+def voc_checks(tmp: str) -> None:
+    """Part 3: ``train -dataset voc2012 -net unet -b 10 -e 1`` on VOC
+    caches of 40 train and 13 val images, then ``eval -dataset voc2012``
+    on its checkpoint: the eval's mIoU is the loop's; the 64->21 head runs
+    K1's narrow paths once a step (fwd, dx, dW) and K4's once an eval
+    batch, held against plain on the step's data (``shadowed_kernels``);
+    each step's loss is F.cross_entropy's over the non-255 pixels."""
+    data = write_voc_data(os.path.join(tmp, "voc"))
+    workdir = os.path.join(tmp, "voc_run")
+    os.makedirs(workdir)
+    argv = ["-dataset", "voc2012", "-net", "unet", "-b", str(RUN_BATCH),
+            "-e", "1", "-dtype", "bfloat16", "-quiet", "-data", data,
+            "-image_size", str(HW[1]), str(HW[0])]
+    shadow, by_shape, losses = {}, {}, []
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.chdir(workdir), shadowed_kernels(shadow, by_shape), \
+            recomputed_losses(losses):
+        history = train_cli.main(argv)
+    torch.cuda.synchronize()
+    counts, paths = conv_train.launches(), conv_train.path_launches()
+    k4_paths = {p: fused_conv.conv3x3_bn_relu.path_launches[p]
+                - paths["fwd"][p] - paths["dgrad"][p]
+                for p in fused_conv.PATHS}
+    steps = RUN_SPLITS["train"][0] // RUN_BATCH
+    evals = -(-RUN_SPLITS["val"][0] // RUN_BATCH)
+    head = {piece: by_shape.get((piece, 64, VOC_CLASSES))
+            for piece in ("K1 fwd", "K1 dx", "K1 dW")}
+    loss_errs = [abs(a.item() - b.item()) / abs(b.item()) for a, b in losses]
+    print(f"VOC train CLI (UNet b{RUN_BATCH}, 1 epoch, {VOC_CLASSES} "
+          f"classes, {HW[0]}x{HW[1]}, bf16): mIoU {history[0]['miou']:.4f}; "
+          f"K1 launches {counts} on each path {paths}; K4 in the eval pass "
+          f"on each path {k4_paths}; the 64->{VOC_CLASSES} head against "
+          f"plain on the steps' data: " + ", ".join(
+              f"{p} {e:.3g}" for p, e in head.items() if e is not None)
+          + f" (tol {K1_TOL}); every conv: {shadow}; each step's loss vs "
+          f"F.cross_entropy over the non-255 pixels "
+          f"{[f'{e:.3g}' for e in loss_errs]} (tol {LOSS_RECOMPUTE_TOL})",
+          flush=True)
+    check(counts == {k: v * steps for k, v in UNET_STEP.items()},
+          "VOC training's K1 launches")
+    check(paths == path_counts("unet", steps, VOC_CLASSES),
+          "VOC training's K1 paths (the head on the narrow ones)")
+    check(k4_paths == path_counts("unet", evals, VOC_CLASSES)["fwd"],
+          "VOC eval pass's K4 paths")
+    check(all(e is not None for e in head.values()), "VOC head's pieces")
+    for piece, e in shadow.items():
+        check(e <= SHADOW_TOL[piece], f"VOC {piece} on the step's data")
+    check(len(losses) == steps and max(loss_errs) <= LOSS_RECOMPUTE_TOL,
+          "VOC loss over the non-255 pixels")
+    ckpts = sorted(os.listdir(run_dir(workdir)))
+    check(len(ckpts) == 1, f"VOC run's checkpoint ({ckpts})")
+    reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = eval_cli.main(["-weight", os.path.join(run_dir(workdir),
+                                                     ckpts[0]),
+                             "-dataset", "voc2012", "-net", "unet", "-b",
+                             str(RUN_BATCH), "-data", data, "-image_size",
+                             str(HW[1]), str(HW[0])])
+    torch.cuda.synchronize()
+    k4 = dict(fused_conv.conv3x3_bn_relu.path_launches)
+    print(f"VOC eval CLI on {ckpts[0]}: mIoU {got['miou']:.6f} (the loop's "
+          f"{history[0]['miou']:.6f}), loss {got['loss']:.4f}; K4 on each "
+          f"path {k4}", flush=True)
+    check(abs(got["miou"] - history[0]["miou"]) <= 1e-9,
+          "VOC eval CLI's mIoU is the loop's")
+    check(k4 == path_counts("unet", evals, VOC_CLASSES)["fwd"],
+          "VOC eval CLI's K4 paths")
+
+
+@contextlib.contextmanager
+def recorded_host_loaders(made: list):
+    """Inside the block the loop's HostLoaders are kept in ``made``."""
+    cls = loop.HostLoader
+
+    def make(*args, **kw):
+        made.append(cls(*args, **kw))
+        return made[-1]
+
+    loop.HostLoader = make
+    try:
+        yield made
+    finally:
+        loop.HostLoader = cls
+
+
+def host_loader_checks(tmp: str, data: str, a: dict, c: dict = None
+                       ) -> None:
+    """Part 4: phase 12's run A again with ``-loader host``: every leaf of
+    its final checkpoint bit-equal to run A's, through the native gather.
+    Given run C (``c``), also run C's configuration with the host loader
+    through ``loop.run_training``: bit-equal too, and its epochs' img/s
+    beside run C's (the loop alone, without the CLI's logger)."""
+    n = RUN_SPLITS["train"][0]
+
+    def img_s(history):
+        return ", ".join(f"{n / h['train_s']:.2f}" for h in history)
+
+    workdir = os.path.join(tmp, "host")
+    os.makedirs(workdir)
+    made = []
+    with contextlib.chdir(workdir), recorded_host_loaders(made):
+        history = train_cli.main(run_argv(data) + ["-loader", "host"])
+    (name,) = cadence(history, RUN_EPOCHS, settings.SAVE_EPOCH)
+    want = leaves(a["ckpt"])
+    runs = {"train CLI": (os.path.join(run_dir(workdir), name), history,
+                          a["history"], "run A's")}
+    if c is not None:
+        ckpt_dir = os.path.join(workdir, "loop")
+        with recorded_host_loaders(made):
+            _, loop_history = loop.run_training(
+                loop_config(ckpt_dir, loader="host"), *splits(data))
+        runs["loop.run_training"] = (os.path.join(ckpt_dir, name),
+                                     loop_history, c["history"], "run C's")
+    gathers = sum(ld.gathers for ld in made)
+    native_gathers = sum(ld.native_gathers for ld in made)
+    gather_ms = sum(ld.gather_s for ld in made) / max(gathers, 1) * 1e3
+    for what, (path, got_history, ref_history, ref) in runs.items():
+        got = leaves(path)
+        unequal = [k for k in want if not np.array_equal(got[k], want[k])]
+        print(f"-loader host ({what}, run A's configuration): leaves "
+              f"unequal to run A's: {len(unequal)} of {len(want)}; epoch "
+              f"img/s {img_s(got_history)} against the device loader's "
+              f"{img_s(ref_history)} ({ref}) on {bench.card()}", flush=True)
+        check(not unequal, f"-loader host ({what}) bit-equal to run A")
+    print(f"-loader host: {native_gathers} of {gathers} gathers native "
+          f"({native.build_error() or 'built'}), {gather_ms:.3f} ms a batch "
+          f"on the host (images and labels, b{RUN_BATCH})", flush=True)
+    check(len(made) == 2 * len(runs) and gathers > 0
+          and native_gathers == gathers,
+          "-loader host took the native gather")
+
+
+def head_timings() -> dict:
+    """Part 5: the 64->21 head's K1 fwd, dx and dW at b10 and b24,
+    360x480, against their plain versions (F.conv2d, conv2d_input, the f32
+    wgrad), cuDNN's bf16 calls (F.conv2d; convolution_backward with the
+    real input; the bf16 wgrad) and their bounds. Returns {piece: {batch:
+    {ms, plain_ms, library_ms, bound_ms, bound_by, max_abs_err, path}}}."""
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    h, w = HW
+    out = {"fwd": {}, "dx": {}, "wgrad": {}}
+    for n in HEAD_BATCHES:
+        x, wt = conv_inputs(gen, n, h, w, 64, VOC_CLASSES)
+        g = torch.randn(n, h, w, VOC_CLASSES, generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
+        xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        wc = wt.permute(3, 2, 0, 1)
+        pieces = {
+            "fwd": (lambda: conv_train.conv3x3_fwd(x, wt),
+                    lambda: conv_train.conv3x3_train_plain(x, wt),
+                    lambda: F.conv2d(xc, wc, padding=1)),
+            "dx": (lambda: conv_train.conv3x3_dgrad(g, wt),
+                   lambda: conv_train.conv3x3_dgrad_plain(g, wt),
+                   lambda: conv_train.conv3x3_dgrad_library(g, wt, x)),
+            "wgrad": (lambda: conv_train.conv3x3_wgrad(x, g),
+                      lambda: conv_train.conv3x3_wgrad_plain(x, g),
+                      lambda: torch.nn.grad.conv2d_weight(
+                          xc, (VOC_CLASSES, 64, 3, 3), gc, padding=1))}
+        line = [f"head 64->{VOC_CLASSES} b{n} {h}x{w}:"]
+        for piece, (kern, plain, lib) in pieces.items():
+            path = (conv_train.wgrad_path(64, VOC_CLASSES) if piece ==
+                    "wgrad" else fused_conv.conv_path(
+                        *((VOC_CLASSES, 64) if piece == "dx"
+                          else (64, VOC_CLASSES))))
+            err, scale = _rel_err(kern(), plain())
+            check(err <= K1_TOL[piece] * scale,
+                  f"head {piece} b{n} vs plain")
+            ms, lib_ms = cuda_ms(kern, iters=10), cuda_ms(lib, iters=10)
+            plain_ms = cuda_ms(plain, iters=10)
+            bound, by = conv_bound(n, h, w, 64, VOC_CLASSES, piece)
+            out[piece][n] = {"ms": ms, "plain_ms": plain_ms,
+                             "library_ms": lib_ms, "bound_ms": bound,
+                             "bound_by": by, "max_abs_err": err,
+                             "path": path}
+            line.append(f"{piece} ({path}) {ms:.4f} ms, plain "
+                        f"{plain_ms:.4f} ms, cuDNN bf16 {lib_ms:.4f} ms "
+                        f"({ms / lib_ms:.2f}x), bound {bound:.4f} by {by} "
+                        f"({bound / ms:.2f} of it), err {err / scale:.3g};")
+        print(" ".join(line) + f" on {bench.card()}", flush=True)
+        del x, wt, g, xc, gc, wc
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_data_side(tmp: str, run: dict) -> dict:
+    """Phase 13 (module docstring); returns the head's timings."""
+    t0 = time.perf_counter()
+    augment_checks()
+    lr_finder_checks(run["data"])
+    voc_checks(tmp)
+    host_loader_checks(tmp, run["data"], run["a"], run["c"])
+    head = head_timings()
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+    return head
 
 
 # ------------------------------------------------------------------ main
@@ -1898,10 +2424,14 @@ def main() -> int:
     pair_launches = phase_pair_probe()
     probe_entries = phase_probes(
         torch.Generator(device="cuda").manual_seed(SEED))
-    phase_training_run()
+    with tempfile.TemporaryDirectory() as tmp:
+        run = phase_training_run(tmp)
+        head = phase_data_side(tmp, run)
     check("jax" not in sys.modules, "jax was imported")
 
     kernels = conv_entries(sums["unet"], unet_serve, unet_train)
+    for entry, piece in zip(kernels[1:], ("fwd", "dx", "wgrad")):
+        entry["head_64_21"] = head[piece]
     for name, t in pools.items():
         launches = (seg_serve if name.endswith("flat")
                     else seg_train[0])[name]

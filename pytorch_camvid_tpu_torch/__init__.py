@@ -16,7 +16,11 @@ pools on the phase pair of ``ops/fused_pool.py`` (K2); and the training run
 around them: the epoch loop with its eval pass, checkpoints and resume
 (``train/loop.py``, ``train/checkpoint.py``) and the train, eval, predict
 and bench entry points (``python -m pytorch_camvid_tpu_torch.train``,
-``.eval``, ``.predict``, ``.bench``).
+``.eval``, ``.predict``, ``.bench``); and the data side: the VOC reader
+(``data/voc2012.py``), the host-fed ``HostLoader`` over the native gather
+(``data/pipeline.py``, ``data/native.py``), every augmentation of the JAX
+package (``data/augment.py``, ``data/transforms.py``), the LR finder
+(``.lr_finder``) and the dataset statistics (``.compute_stats``).
 """
 
 __version__ = "0.1.0"

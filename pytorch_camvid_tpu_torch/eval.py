@@ -3,7 +3,7 @@ eval.py):
 
     python -m pytorch_camvid_tpu_torch.eval -weight <ckpt> [-net unet]
         [-b 10] [-data data] [-image_size W H] [-dtype bfloat16]
-        [-device cuda]
+        [-dataset camvid|voc2012] [-device cuda]
 
 Loads a checkpoint (a reference ``.pth``, or a ``.ckpt.npz`` of either
 package), runs the validation split and prints the JAX CLI's lines: the
@@ -15,9 +15,9 @@ As the train CLI: ``-device`` defaults to ``cuda`` and fails without one;
 ``-dtype`` defaults to ``bfloat16`` (the JAX CLI's default is
 ``float32``), and ``-dtype float32`` on a CUDA device is refused. On CUDA
 every conv block runs the fused kernel (K4), so ``-pallas`` (the JAX CLI's
-switch to its fused kernels) changes nothing here. ``-int8`` and
-``-dataset voc2012`` raise ``NotImplementedError`` naming their ROADMAP.md
-items.
+switch to its fused kernels) changes nothing here. ``-dataset voc2012``
+evaluates the VOC val cache with VOC's mean and std (eval.py:61-65).
+``-int8`` raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import torch
 from pytorch_camvid_tpu_torch.config import settings
 from pytorch_camvid_tpu_torch.data.camvid import CamVid
 from pytorch_camvid_tpu_torch.data.pipeline import DeviceDataLoader
+from pytorch_camvid_tpu_torch.data.voc2012 import VOC2012Aug
 from pytorch_camvid_tpu_torch.models import get_model, spec_from_state_dict
 from pytorch_camvid_tpu_torch.ops.metrics import (
     iou_from_confusion, precision_recall_from_confusion)
@@ -62,7 +63,7 @@ def parser() -> argparse.ArgumentParser:
                    "settings.IMAGE_SIZE")
     p.add_argument("-dataset", type=str, default="camvid",
                    choices=["camvid", "voc2012"],
-                   help="dataset to evaluate on (voc2012 is not ported yet)")
+                   help="dataset to evaluate on")
     p.add_argument("-dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"],
                    help="compute dtype (default bfloat16, unlike the JAX "
@@ -81,13 +82,17 @@ def main(argv=None) -> dict:
     dev = check_device(args.device, args.dtype)
     if args.int8:
         raise not_ported("-int8", "int8")
-    if args.dataset == "voc2012":
-        raise not_ported("-dataset voc2012 (the VOC reader)", "VOC reader")
     dtype = DTYPES[args.dtype]
     image_size = (tuple(args.image_size) if args.image_size
                   else settings.IMAGE_SIZE)
-    valid_dataset = CamVid(args.data, image_set="val",
-                           image_size=image_size)
+    mean, std = settings.MEAN, settings.STD
+    if args.dataset == "voc2012":
+        valid_dataset = VOC2012Aug(args.data, image_set="val",
+                                   image_size=image_size)
+        mean, std = settings.VOC_MEAN, settings.VOC_STD
+    else:
+        valid_dataset = CamVid(args.data, image_set="val",
+                               image_size=image_size)
 
     state_dict = load_weights(args.weight, args.net)
     model = get_model(args.net, spec=spec_from_state_dict(args.net,
@@ -102,7 +107,7 @@ def main(argv=None) -> dict:
                               args.b, device=dev)
     loss_sum, cm, n_batches = evaluate(
         state, eval_fn, loader,
-        eval_normalize(settings.MEAN, settings.STD, dtype, dev))
+        eval_normalize(mean, std, dtype, dev))
 
     cmt = torch.from_numpy(cm)
     iou = iou_from_confusion(cmt).numpy()

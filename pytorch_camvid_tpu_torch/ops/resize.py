@@ -20,6 +20,9 @@ as XLA's f32 dot does. A CPU matmul contracts with FMA instead and lands an
 ulp away on 12% of the H pass's values, which flips 0.26% of the uint8
 bytes the serving path rounds to (480x640 -> 360x480).
 
+``resize_nearest_cv2`` is cv2's INTER_NEAREST (``floor(dst * in / out)``),
+the mask's resize (JAX resize.py:134-148).
+
 The JAX package's bucketed dynamic-extent resize
 (``resize_bilinear_cv2_dynamic``) exists only to bound jit's compile cache;
 eager PyTorch has none, so any source size is resized directly.
@@ -108,3 +111,24 @@ def resize_bilinear_cv2(x: torch.Tensor,
         return x
     y = _two_tap(x, 1, _half_pixel_taps(h, ho, x.dtype, x.device))
     return _two_tap(y, 2, _half_pixel_taps(w, wo, x.dtype, x.device))
+
+
+@functools.lru_cache(maxsize=64)
+def _nearest_indices_cv2(n_in: int, n_out: int,
+                         device: torch.device) -> torch.Tensor:
+    """cv2 INTER_NEAREST's source index of each output position,
+    ``floor(dst * n_in / n_out)`` in f64, clamped (JAX resize.py:134-138).
+    Made outside inference mode, like the taps above."""
+    idx = np.floor(np.arange(n_out) * (n_in / n_out)).astype(np.int64)
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.clip(idx, 0, n_in - 1)).to(device)
+
+
+def resize_nearest_cv2(x: torch.Tensor,
+                       out_hw: Tuple[int, int]) -> torch.Tensor:
+    """cv2.resize INTER_NEAREST on NHW[C] tensors of any dtype (masks)."""
+    (h, w), (ho, wo) = x.shape[1:3], out_hw
+    if (h, w) == (ho, wo):
+        return x
+    y = x.index_select(1, _nearest_indices_cv2(h, ho, x.device))
+    return y.index_select(2, _nearest_indices_cv2(w, wo, x.device))

@@ -4,7 +4,7 @@ train.py):
     python -m pytorch_camvid_tpu_torch.train -net unet [-b 10] [-e 120]
         [-lr 5e-4] [-wd 0] [-resume] [-data data] [-image_size W H]
         [-dtype bfloat16] [-accum 1] [-chain 8] [-seed 0] [-quiet]
-        [-device cuda]
+        [-dataset camvid|voc2012] [-loader device|host] [-device cuda]
 
 The JAX CLI's flags plus ``-device`` (default ``cuda``; without a CUDA
 device it fails, ``-device cpu`` runs on the CPU). One deliberate
@@ -13,19 +13,24 @@ default ``float32`` means "reference numerics": the card's conv kernels
 take bf16 only, and ``-dtype float32`` on a CUDA device is refused at
 startup (it runs on the CPU). Checkpoints and TB logs land cwd-relative,
 in ``checkpoints/<time>/`` and ``runs/<time>/``, as the reference's do.
-Flags whose parts are not ported raise ``NotImplementedError`` naming
-their ROADMAP.md item: ``-dataset voc2012``, ``-dp`` > 1, ``-multihost``,
-``-loader host`` and ``-remat``.
+``-dataset voc2012`` trains on the VOC caches (``data/voc2012.py``) with
+VOC's mean and std and 255 (the ignore label and the letterbox pad) kept
+out of the loss, as the JAX CLI does; ``-loader host`` streams the
+batches from host memory (``data/pipeline.py::HostLoader``). Flags whose
+parts are not ported raise ``NotImplementedError`` naming their ROADMAP.md
+item: ``-dp`` > 1, ``-multihost`` and ``-remat``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
 from pytorch_camvid_tpu_torch.config import settings as default_settings
 from pytorch_camvid_tpu_torch.data.camvid import CamVid
+from pytorch_camvid_tpu_torch.data.voc2012 import VOC2012Aug
 from pytorch_camvid_tpu_torch.train.loop import (TrainConfig, check_device,
                                                  check_ported, not_ported,
                                                  run_training)
@@ -50,7 +55,7 @@ def parser() -> argparse.ArgumentParser:
                    help="dataset root folder")
     p.add_argument("-dataset", type=str, default="camvid",
                    choices=["camvid", "voc2012"],
-                   help="dataset to train on (voc2012 is not ported yet)")
+                   help="dataset to train on")
     p.add_argument("-dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"],
                    help="compute dtype (default bfloat16, unlike the JAX "
@@ -74,7 +79,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("-loader", type=str, default="device",
                    choices=["device", "host"],
                    help="input pipeline: device = the split resident on "
-                   "the device (default); host is not ported yet")
+                   "the device (default); host = host arrays, native "
+                   "gather and double-buffered copies")
     p.add_argument("-chain", type=int, default=8,
                    help="train steps queued per metrics copy to the host "
                    "(1 = one step at a time like the reference loop)")
@@ -93,8 +99,6 @@ def main(argv=None):
     check_device(args.device, args.dtype)
     if args.multihost:
         raise not_ported("-multihost", "multi-GPU")
-    if args.dataset == "voc2012":
-        raise not_ported("-dataset voc2012 (the VOC reader)", "VOC reader")
     settings = default_settings
     image_size = (tuple(args.image_size) if args.image_size
                   else settings.IMAGE_SIZE)
@@ -113,10 +117,21 @@ def main(argv=None):
     os.makedirs(checkpoint_path, exist_ok=True)
     os.makedirs(log_dir, exist_ok=True)
 
-    train_dataset = CamVid(args.data, image_set="train",
-                           download=args.download, image_size=image_size)
-    valid_dataset = CamVid(args.data, image_set="val",
-                           download=args.download, image_size=image_size)
+    if args.dataset == "voc2012":
+        train_dataset = VOC2012Aug(args.data, image_set="train",
+                                   image_size=image_size)
+        valid_dataset = VOC2012Aug(args.data, image_set="val",
+                                   image_size=image_size)
+        settings = dataclasses.replace(settings, MEAN=settings.VOC_MEAN,
+                                       STD=settings.VOC_STD)
+        # 255: the ignore label and the letterbox pad (train.py:105-114)
+        cfg = dataclasses.replace(
+            cfg, loss_ignore_index=train_dataset.ignore_index)
+    else:
+        train_dataset = CamVid(args.data, image_set="train",
+                               download=args.download, image_size=image_size)
+        valid_dataset = CamVid(args.data, image_set="val",
+                               download=args.download, image_size=image_size)
     print()
 
     logger = SummaryLogger(log_dir)

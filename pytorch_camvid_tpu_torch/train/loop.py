@@ -30,10 +30,13 @@ Eval runs a ragged last batch as it is: eval-mode BN uses the running
 stats, so its loss and confusion matrix equal the JAX package's, which pads
 the batch with ignored 255 labels to keep one compiled shape.
 
-Options whose parts are not ported raise ``NotImplementedError`` naming
-their ROADMAP.md item: ``data_parallel > 1``, ``loader='host'``, ``remat``;
-so does float32 compute on a CUDA device (the card's conv kernels take
-bf16).
+``loader='host'`` streams the batches from host memory
+(``data/pipeline.py::HostLoader``): the loop names each next batch one
+step ahead (``prefetch``), so its gather and copy overlap the current
+step; the default ``'device'`` keeps the split on the device. Options
+whose parts are not ported raise ``NotImplementedError`` naming their
+ROADMAP.md item: ``data_parallel > 1``, ``remat``; so does float32 compute
+on a CUDA device (the card's conv kernels take bf16).
 """
 
 from __future__ import annotations
@@ -51,7 +54,8 @@ from pytorch_camvid_tpu_torch.config import settings as default_settings
 from pytorch_camvid_tpu_torch.data.augment import (AugmentConfig,
                                                    make_train_augment)
 from pytorch_camvid_tpu_torch.data.normalize import to_tensor_normalize
-from pytorch_camvid_tpu_torch.data.pipeline import DeviceDataLoader
+from pytorch_camvid_tpu_torch.data.pipeline import (DeviceDataLoader,
+                                                    HostLoader)
 from pytorch_camvid_tpu_torch.interop.weights import load_torch_checkpoint
 from pytorch_camvid_tpu_torch.models import get_model
 from pytorch_camvid_tpu_torch.ops.metrics import (accuracy_from_confusion,
@@ -132,9 +136,8 @@ def check_device(device: str, compute_dtype: str) -> torch.device:
 def check_ported(cfg: TrainConfig) -> None:
     if cfg.data_parallel > 1:
         raise not_ported(f"data_parallel={cfg.data_parallel}", "multi-GPU")
-    if cfg.loader != "device":
-        raise not_ported(f"loader={cfg.loader!r} (HostLoader)",
-                         "the rest of augmentation and the pipeline")
+    if cfg.loader not in ("device", "host"):
+        raise ValueError(f"unknown loader {cfg.loader!r}")
     if cfg.remat:
         raise not_ported("remat", "remat and the remaining step options")
 
@@ -239,12 +242,12 @@ def run_training(cfg: TrainConfig, train_ds, val_ds,
     opt = adamw(weight_decay=cfg.weight_decay)
     state = TrainState.create(model, opt, seed=cfg.seed + 1)
 
-    train_loader = DeviceDataLoader(train_ds.images, train_ds.labels,
-                                    cfg.batch_size, shuffle=True,
-                                    seed=cfg.seed, drop_last=True,
-                                    device=dev)
-    val_loader = DeviceDataLoader(val_ds.images, val_ds.labels,
-                                  cfg.batch_size, device=dev)
+    loader_cls = HostLoader if cfg.loader == "host" else DeviceDataLoader
+    train_loader = loader_cls(train_ds.images, train_ds.labels,
+                              cfg.batch_size, shuffle=True, seed=cfg.seed,
+                              drop_last=True, device=dev)
+    val_loader = loader_cls(val_ds.images, val_ds.labels, cfg.batch_size,
+                            device=dev)
     steps_per_epoch = len(train_loader)
     if steps_per_epoch == 0:
         raise ValueError(
@@ -379,9 +382,14 @@ def run_training(cfg: TrainConfig, train_ds, val_ds,
                     # never overshoot a deterministic stop point
                     kk = min(kk, max(cfg.stop_after_batches - applied, 1))
                 ms = []
-                for idx in idx_all[pos: pos + kk]:
-                    state, m = train_step(state, train_loader.gather(idx))
+                for t in range(pos, pos + kk):
+                    state, m = train_step(state,
+                                          train_loader.gather(idx_all[t]))
                     ms.append(m)
+                    if t + 1 < len(idx_all):
+                        # queued behind step t: the host loader's gather
+                        # and copy of batch t + 1 overlap it
+                        train_loader.prefetch(idx_all[t + 1])
                 applied += kk
                 if cfg.stop_after_batches is not None \
                         and applied >= cfg.stop_after_batches:

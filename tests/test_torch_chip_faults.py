@@ -1,16 +1,24 @@
 """The planted faults of chip_faults.py that patch a launch function
-(``conv_train._wgrad_launch``, ``layout_probes._launch``), on the CPU: each
-changes what it should of the launch it wraps, and nothing else. Whether
-chip_smoke's checks catch them is shown on the card (``python3
-chip_faults.py``)."""
+(``conv_train._wgrad_launch``, ``layout_probes._launch``, the caller's
+``conv_train.conv3x3_bn_relu``) or the data side (HostLoader, the loop's
+train step, the LR finder's record, K2's pool backward, the card's jitter
+factors), on the CPU: each changes what it
+should of the call it wraps, and nothing else. Whether chip_smoke's checks
+catch them is shown on the card (``python3 chip_faults.py``)."""
 
 import math
+from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
 import chip_faults
+from pytorch_camvid_tpu_torch.data import augment
+from pytorch_camvid_tpu_torch.data.pipeline import HostLoader
+from pytorch_camvid_tpu_torch.ops import fused_conv, fused_pool
 from pytorch_camvid_tpu_torch.ops import layout_probes as lp
+from pytorch_camvid_tpu_torch.train import schedules
 
 MODES = lp.ROWS_MODES
 
@@ -125,3 +133,107 @@ def test_training_run_faults_change_what_they_name(tmp_path):
     assert model.training and "eval" not in model.__dict__
     assert any(not torch.equal(a, b) for a, b in zip(stats,
                                                     model.buffers()))
+
+
+@pytest.mark.parametrize("cin,cout,hit", [(64, 21, True), (64, 12, False),
+                                          (64, 64, False)])
+def test_narrow_dx_tap_dropped_only_on_the_narrow_dx(cin, cout, hit):
+    """The dx call (flip) of a conv whose dx is on the narrow path (the VOC
+    head's, Cin 21) loses its first tap; other calls are as they were, and
+    the caller's weights are not touched."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 5, 6, cout, generator=g)      # a dx call's input
+    w = torch.randn(3, 3, cin, cout, generator=g)
+    one, zero = torch.ones(cin), torch.zeros(cin)
+    w0 = w.clone()
+    got = chip_faults.narrow_dx_tap_dropped(x, w, one, zero, False, True)
+    assert torch.equal(w, w0)
+    cut = w.clone()
+    cut[0, 0] = 0
+    want = fused_conv.conv3x3_bn_relu(x, cut if hit else w, one, zero,
+                                      False, True)
+    assert torch.equal(got, want)
+    assert hit == (not torch.equal(got, fused_conv.conv3x3_bn_relu(
+        x, w, one, zero, False, True)))
+    xf = torch.randn(1, 5, 6, cin, generator=g)     # forward calls: as is
+    assert torch.equal(
+        chip_faults.narrow_dx_tap_dropped(xf, w, torch.ones(cout),
+                                          torch.zeros(cout)),
+        fused_conv.conv3x3_bn_relu(xf, w, torch.ones(cout),
+                                   torch.zeros(cout)))
+
+
+def test_train_step_with_255_in_the_loss_drops_the_ignore_index(
+        monkeypatch):
+    seen = []
+    monkeypatch.setattr(chip_faults, "_make_train_step",
+                        lambda *a, **kw: seen.append((a, kw)))
+    chip_faults.train_step_with_255_in_the_loss(1, 2, ignore_index=255,
+                                                compute_dtype="x")
+    assert seen == [((1, 2), {"ignore_index": None, "compute_dtype": "x"})]
+
+
+def test_lr_recorded_before_the_step_is_the_steps_own():
+    fn = schedules.exponential_sweep_lr(1e-7, 10, 12)
+    for it in (1, 5, 12):
+        assert chip_faults.lr_recorded_before_the_step(fn, it) == fn(it - 1)
+
+
+def test_host_loader_serving_the_next_batch():
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 256, (9, 2, 3, 3), dtype=np.uint8)
+    masks = rng.integers(0, 12, (9, 2, 3), dtype=np.uint8)
+    host = HostLoader(imgs, masks, 3, shuffle=True, seed=2, drop_last=True,
+                      device="cpu")
+    with chip_faults.host_loader_serving_next_batch():
+        plan = host.epoch_indices(0)
+        got = [host.gather(idx)[0].numpy() for idx in plan]
+    for t, want in enumerate((1, 2, 2)):   # the last step's own
+        np.testing.assert_array_equal(got[t], imgs[plan[want]])
+    # outside the block: each step's own batch
+    np.testing.assert_array_equal(host.gather(plan[0])[0].numpy(),
+                                  imgs[plan[0]])
+
+
+def test_planted_restores_own_and_inherited_methods():
+    """A fault on a method the class inherits (the loaders' shared
+    ``epoch``) is removed after the block, so the base's shows again; a
+    class's own method is put back."""
+    from pytorch_camvid_tpu_torch.data.pipeline import (DeviceDataLoader,
+                                                        _EpochPlan)
+    with chip_faults.planted(DeviceDataLoader, "epoch", len):
+        assert DeviceDataLoader.epoch is len
+    assert "epoch" not in DeviceDataLoader.__dict__
+    assert DeviceDataLoader.epoch is _EpochPlan.epoch
+    own = HostLoader.gather
+    with chip_faults.planted(HostLoader, "gather", len):
+        assert HostLoader.gather is len
+    assert HostLoader.gather is own
+
+
+def test_pool_backward_zeroed_has_the_inputs_shape():
+    x = torch.randn(2, 6, 9, 4, generator=torch.Generator().manual_seed(0))
+    pooled, k = fused_pool.pool_phase_train(x)
+    ctx = SimpleNamespace(saved_tensors=(k,), in_hw=x.shape[1:3])
+    got = chip_faults.pool_backward_zeroed(ctx, torch.ones_like(pooled), None)
+    assert got.shape == x.shape and not got.any()
+
+
+def test_card_factor_fault_leaves_the_cpu_factors():
+    """The fault moves only factors on the card: on the CPU (the port the
+    card is held against) the quantized factors are the sound ones."""
+    f = torch.tensor([0.6, 1.0, 1.37, 0.91])
+    assert torch.equal(chip_faults.card_factor_2pct_high(f),
+                       augment.quantize_factor(f))
+
+
+def test_shadowed_errors_keep_the_worst_and_nan():
+    """chip_smoke's per-piece record of kernel-vs-plain errors keeps the
+    largest, and a NaN once seen (which then fails its limit)."""
+    errs = {}
+    for e in (0.1, 0.3, 0.2):
+        chip_faults.smoke._note(errs, "K1 dW", e)
+    assert errs == {"K1 dW": 0.3}
+    chip_faults.smoke._note(errs, "K1 dW", float("nan"))
+    chip_faults.smoke._note(errs, "K1 dW", 0.5)
+    assert math.isnan(errs["K1 dW"])

@@ -5,20 +5,37 @@ every entry point keeps: CUDA by default with no fallback, float32 refused
 on a CUDA device, and flags whose parts are not ported naming their
 ROADMAP.md item."""
 
+import dataclasses
+import functools
 import importlib
 import os
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 cv2 = pytest.importorskip("cv2")
 
 from pytorch_camvid_tpu.data.synthetic import write_synthetic_camvid  # noqa
+from pytorch_camvid_tpu.utils import stats as jstats  # noqa: E402
 
 from pytorch_camvid_tpu_torch import bench, eval as eval_cli, predict  # noqa
+from pytorch_camvid_tpu_torch import compute_stats  # noqa: E402
+from pytorch_camvid_tpu_torch.config import settings  # noqa: E402
+from pytorch_camvid_tpu_torch.data import camvid, voc2012  # noqa: E402
+from pytorch_camvid_tpu_torch.data.normalize import (  # noqa: E402
+    to_tensor_normalize)
+from pytorch_camvid_tpu_torch.data.synthetic import (  # noqa: E402
+    synthetic_arrays)
+from pytorch_camvid_tpu_torch.models import (  # noqa: E402
+    get_model, spec_from_state_dict)
+from pytorch_camvid_tpu_torch.train import loop, make_train_step  # noqa
+from pytorch_camvid_tpu_torch.train.checkpoint import (  # noqa: E402
+    load_weights)
 
 train_cli = importlib.import_module("pytorch_camvid_tpu_torch.train.__main__")
 
@@ -103,6 +120,37 @@ def test_float32_on_cuda_is_refused_at_startup(main, argv):
         main(argv + ["-device", "cuda", "-dtype", "float32"])
 
 
+def _write_caches(root, hw=(45, 60)):
+    """CamVid and VOC split caches at ``hw`` (no cv2 needed): VOC's with
+    21 classes and letterbox rows of 255 at the top and bottom."""
+    for split, (n, seed) in {"train": (4, 1), "val": (3, 2)}.items():
+        images, labels = synthetic_arrays(n, hw, seed=seed)
+        camvid.write_cache(camvid.cache_path(root, split, hw[::-1]), images,
+                           labels, [f"{split}{i}.png" for i in range(n)])
+        images, labels = synthetic_arrays(n, hw, 21, seed=seed)
+        labels[:, :3] = labels[:, -3:] = 255
+        voc2012.write_cache(voc2012.cache_path(root, split, hw[::-1]),
+                            images, labels, [f"{split}{i}" for i in range(n)])
+    return root
+
+
+@pytest.fixture
+def tiny_run(tmp_path, monkeypatch):
+    """In-process CLI runs on the CPU from ``tmp_path``: UNet at width 1/16
+    and TensorFlow hidden from tensorboard (as ``env`` hides it)."""
+    monkeypatch.setattr(loop, "get_model", functools.partial(
+        get_model, width_mult=1 / 16))
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
+    monkeypatch.chdir(tmp_path)
+    root = _write_caches(str(tmp_path / "data"))
+    return ["-data", root, "-image_size", "60", "45", "-dtype", "float32",
+            "-device", "cpu"]
+
+
+# ROADMAP.md Queue 1 items that are done: their flags run
+PORTED_ITEMS = {"VOC reader", "the rest of augmentation and the pipeline"}
+
+
 @pytest.mark.parametrize("main,argv,item", [
     (train_cli.main, ["-multihost"], "multi-GPU"),
     (train_cli.main, ["-dp", "2"], "multi-GPU"),
@@ -112,11 +160,93 @@ def test_float32_on_cuda_is_refused_at_startup(main, argv):
     (train_cli.main, ["-remat"], "remat"),
     (eval_cli.main, ["-int8"], "int8"),
     (eval_cli.main, ["-dataset", "voc2012"], "VOC reader")])
-def test_unported_flags_name_their_roadmap_item(main, argv, item):
+def test_unported_flags_name_their_roadmap_item(main, argv, item, request):
+    """A flag of a Queue 1 item raises, naming it, until the item is
+    ported; then it runs: one tiny CPU epoch (train) or eval pass."""
     base = (["-net", "unet"] if main is train_cli.main
             else ["-weight", "w.pth"])
-    with pytest.raises(NotImplementedError, match=f"Queue 1: {item}"):
-        main(base + argv + ["-device", "cpu"])
+    if item not in PORTED_ITEMS:
+        with pytest.raises(NotImplementedError, match=f"Queue 1: {item}"):
+            main(base + argv + ["-device", "cpu"])
+        return
+    common = request.getfixturevalue("tiny_run")
+    if main is train_cli.main:
+        history = main(base + argv + ["-b", "2", "-e", "1", "-quiet"]
+                       + common)
+        assert [h["epoch"] for h in history] == [1]
+        assert np.isfinite(history[0]["miou"])
+        return
+    model = get_model("unet", 3, 21, width_mult=1 / 16)
+    torch.save(model.state_dict(), "w.pth")
+    out = main(base + argv + ["-b", "2"] + common)
+    assert set(out) == {"miou", "precision", "recall", "loss"}
+    assert all(np.isfinite(v) for v in out.values())
+
+
+def test_voc2012_train_then_eval_keep_255_out(tiny_run, monkeypatch):
+    """-dataset voc2012 through the train and eval CLIs at 45x60: the
+    training loss ignores 255 (the letterbox rows), the eval CLI's mIoU is
+    the loop's, and its loss and mIoU are the ones computed here over the
+    non-255 pixels with VOC's mean and std."""
+    seen = {}
+
+    def train_step(*a, **kw):
+        seen["ignore_index"] = kw["ignore_index"]
+        return make_train_step(*a, **kw)
+    monkeypatch.setattr(loop, "make_train_step", train_step)
+    # a checkpoint after the one epoch, best or not (an untrained model's
+    # mIoU may be 0, which saves no best)
+    monkeypatch.setattr(train_cli, "default_settings", dataclasses.replace(
+        train_cli.default_settings, SAVE_EPOCH=1))
+    history = train_cli.main(["-net", "unet", "-b", "2", "-e", "1",
+                              "-dataset", "voc2012", "-quiet"] + tiny_run)
+    assert seen["ignore_index"] == 255
+    (run,) = os.listdir("checkpoints")
+    (name,) = os.listdir(os.path.join("checkpoints", run))
+    weight = os.path.join("checkpoints", run, name)
+    out = eval_cli.main(["-weight", weight, "-b", "2", "-dataset",
+                         "voc2012"] + tiny_run)
+    assert abs(out["miou"] - history[0]["miou"]) <= 1e-9
+
+    sd = load_weights(weight, "unet")
+    model = get_model("unet", spec=spec_from_state_dict("unet", sd))
+    model.load_state_dict(sd)
+    model.eval()
+    val = voc2012.VOC2012Aug(tiny_run[1], "val", image_size=(60, 45))
+    cm, losses = torch.zeros(21, 21, dtype=torch.float64), []
+    with torch.no_grad():
+        for lo in range(0, len(val), 2):
+            x = to_tensor_normalize(torch.from_numpy(val.images[lo:lo + 2]),
+                                    settings.VOC_MEAN, settings.VOC_STD)
+            y = torch.from_numpy(val.labels[lo:lo + 2]).long()
+            logits = model(x)
+            losses.append(F.cross_entropy(logits.permute(0, 3, 1, 2), y,
+                                          ignore_index=255))
+            keep = y != 255
+            cm += torch.bincount(y[keep] * 21 + logits.argmax(-1)[keep],
+                                 minlength=21 * 21).reshape(21, 21)
+    assert cm.sum() == (val.labels != 255).sum() < val.labels.size
+    iou = cm.diag() / (cm.sum(0) + cm.sum(1) - cm.diag())
+    assert abs(out["miou"] - float(np.nanmean(iou.numpy()))) <= 1e-9
+    np.testing.assert_allclose(out["loss"], float(sum(losses) / len(losses)),
+                               rtol=1e-5)
+
+
+def test_compute_stats_both_datasets(tmp_path):
+    """CamVid's cache at its native size and VOC's at the reader's default
+    480x360, as the JAX tool reads them (small arrays under those names)."""
+    root = str(tmp_path)
+    images, labels = synthetic_arrays(3, (20, 24), seed=5)
+    camvid.write_cache(camvid.cache_path(root, "train", None), images,
+                       labels, ["a", "b", "c"])
+    voc2012.write_cache(voc2012.cache_path(root, "train", (480, 360)),
+                        images[::-1].copy(), labels, ["a", "b", "c"])
+    for dataset, imgs in (("camvid", images), ("voc2012", images[::-1])):
+        mean, std = compute_stats.main(["-data", root, "-dataset", dataset])
+        want = jstats.compute_mean_and_std(imgs)
+        np.testing.assert_allclose(mean, want[0], rtol=1e-12)
+        np.testing.assert_allclose(std, want[1], rtol=1e-12)
+        assert len(mean) == 3 and all(0 < m < 1 for m in mean)
 
 
 def test_help_states_the_bf16_default():

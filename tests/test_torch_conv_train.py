@@ -448,6 +448,28 @@ def test_chip_smoke_path_table_and_edge_shapes():
     assert max(wgrad["packed"]) >= 2 ** 31
 
 
+@pytest.mark.parametrize("net", ["unet", "segnet"])
+@pytest.mark.parametrize("classes", [12, 21])
+def test_chip_smoke_path_table_by_class_count(net, classes):
+    """chip_smoke's table for a ``classes``-class head is the rules' count
+    over that model's blocks: CamVid's 12 put the head's forward on the
+    wgmma path and its dx and dW on the packed ones, VOC's 21 all three on
+    the narrow ones."""
+    smoke = _chip_smoke()
+    spec = bench.model_class(net).base_spec(3, classes)
+    shapes = bench.block_shapes(net, smoke.HW, spec)
+    assert len(shapes) == smoke.N_BLOCKS[net]
+    assert smoke.path_table(net, classes) == \
+        conv_train.step_path_launches(shapes)
+    head = shapes[-1][2:]
+    assert smoke.HEAD_PATHS[classes] == {
+        "fwd": fused_conv.conv_path(*head),
+        "dgrad": fused_conv.conv_path(*head[::-1]),
+        "wgrad": conv_train.wgrad_path(*head)}
+    assert smoke.path_counts(net, 2, classes)["wgrad"] == {
+        p: 2 * k for p, k in smoke.path_table(net, classes)["wgrad"].items()}
+
+
 @pytest.mark.parametrize("name", sorted(dw_variants.VARIANTS))
 def test_dw_variant_edits_apply_to_the_source(name):
     """Each variant of the packed dW that dw_variants.py times is an edit

@@ -83,6 +83,13 @@ def test_port_imports_no_jax(tmp_path):
             "import pytorch_camvid_tpu_torch.utils.tb\n"
             "import pytorch_camvid_tpu_torch.utils.summary\n"
             "import pytorch_camvid_tpu_torch.utils.profiling\n"
+            "import pytorch_camvid_tpu_torch.data.native\n"
+            "import pytorch_camvid_tpu_torch.data.voc2012\n"
+            "import pytorch_camvid_tpu_torch.data.tableborder\n"
+            "import pytorch_camvid_tpu_torch.data.segmentation_aug\n"
+            "import pytorch_camvid_tpu_torch.data.transforms\n"
+            "import pytorch_camvid_tpu_torch.lr_finder\n"
+            "import pytorch_camvid_tpu_torch.compute_stats\n"
             "from pytorch_camvid_tpu_torch.models import get_model\n"
             "get_model('unet', 3, 12, width_mult=1 / 16)\n"
             "get_model('segnet', 3, 12, width_mult=1 / 16)\n"
@@ -90,6 +97,11 @@ def test_port_imports_no_jax(tmp_path):
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
             "                                            'pytorch_camvid_tpu.')))\n"
             "assert not bad, bad\n"
+            "# the card's host has none of these: imported only to build a\n"
+            "# cache, strip a palette or draw a plot\n"
+            "host = sorted(m for m in sys.modules\n"
+            "              if m.split('.')[0] in ('cv2', 'PIL', 'matplotlib'))\n"
+            "assert not host, host\n"
             "print('ok')\n")
     r = _run(["-c", code], cwd=str(tmp_path), timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]

@@ -9,6 +9,7 @@ CPU tensors. Also here: the augmentation on JAX's own draws, the device
 loader's batches, schedules, loss and metrics."""
 
 import functools
+import math
 
 import numpy as np
 import jax
@@ -316,10 +317,29 @@ def _images(n=3, hw=(12, 17), seed=7):
 
 def _jax_draws(key, n, cfg):
     """The draws JAX's make_train_augment takes from ``key``, by the same
-    splits (data/augment.py:515, :285-287, :244, :427-435)."""
-    _, k2, k3, k4, _ = jax.random.split(key, 5)
+    splits (data/augment.py:515, rotation :131-149, scale :154-174, blur
+    :285-287, flip :244, jitter :427-456)."""
+    k1, k2, k3, k4, k5 = jax.random.split(key, 5)
+    d = {}
+    if cfg.rotation_angle and cfg.rotation_p < 1.0:
+        kr1, kr2 = jax.random.split(k1)
+        apply = jax.random.uniform(kr1, (n,)) >= cfg.rotation_p
+        angle = jax.random.uniform(kr2, (n,), minval=-cfg.rotation_angle,
+                                   maxval=cfg.rotation_angle)
+        d["rotation_apply"] = apply
+        d["rotation_angle"] = jnp.where(apply, angle, 0.0)
+    if cfg.random_scale:
+        ks, ko = jax.random.split(k5)
+        u1, u2 = jax.random.split(ko)
+        d["scale_s"] = jax.random.uniform(ks, (n,), minval=cfg.scale_range[0],
+                                          maxval=cfg.scale_range[1])
+        d["scale_uy"] = jax.random.uniform(u1, (n,))
+        d["scale_ux"] = jax.random.uniform(u2, (n,))
     kb1, kb2 = jax.random.split(k2)
-    k0, kb, kc, _, _, kp = jax.random.split(k4, 6)
+    d["blur_apply"] = jax.random.uniform(kb1, (n,)) < cfg.blur_p
+    d["blur_sigma"] = jax.random.uniform(kb2, (n,), minval=0.0, maxval=3.0)
+    d["flip"] = jax.random.uniform(k3, (n,)) < cfg.hflip_p
+    k0, kb, kc, ks, kh, kp = jax.random.split(k4, 6)
     apply = jax.random.uniform(k0, (n,)) >= cfg.jitter_p
 
     def factor(k, v):
@@ -327,13 +347,21 @@ def _jax_draws(key, n, cfg):
                                maxval=1.0 + v)
         return jnp.where(apply, f, 1.0)
 
-    d = {"blur_apply": jax.random.uniform(kb1, (n,)) < cfg.blur_p,
-         "blur_sigma": jax.random.uniform(kb2, (n,), minval=0.0, maxval=3.0),
-         "flip": jax.random.uniform(k3, (n,)) < cfg.hflip_p,
-         "brightness": factor(kb, cfg.jitter_brightness)}
-    if cfg.jitter_contrast:
-        d["contrast"] = factor(kc, cfg.jitter_contrast)
-        d["jitter_perm"] = jax.random.randint(kp, (n,), 0, 2)
+    ops = 0
+    for name, k, v in (("brightness", kb, cfg.jitter_brightness),
+                       ("contrast", kc, cfg.jitter_contrast),
+                       ("saturation", ks, cfg.jitter_saturation)):
+        if v:
+            d[name] = factor(k, v)
+            ops += 1
+    if cfg.jitter_hue:
+        f = jax.random.uniform(kh, (n,), minval=-cfg.jitter_hue,
+                               maxval=cfg.jitter_hue)
+        d["hue"] = jnp.where(apply, f, 0.0)
+        ops += 1
+    if ops > 1 and cfg.jitter_random_order:
+        d["jitter_perm"] = jax.random.randint(kp, (n,), 0,
+                                              math.factorial(ops))
     return {k: torch.from_numpy(np.array(a)) for k, a in d.items()}
 
 
@@ -400,10 +428,15 @@ def test_augment_sampler_and_unported_options():
     assert 0 <= d["blur_sigma"].min() and d["blur_sigma"].max() < 3
     b = d["brightness"][d["brightness"] != 1]
     assert 0.6 <= b.min() and b.max() < 1.4
-    for bad in (dict(rotation_p=0.5), dict(random_scale=True),
+    # the options once refused now run: each on a batch, finite values,
+    # masks within the classes and the fills
+    for opt in (dict(rotation_p=0.5), dict(random_scale=True),
                 dict(jitter_saturation=0.4), dict(jitter_hue=0.1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            augment.make_train_augment(augment.AugmentConfig(**bad))
+        x, m = augment.make_train_augment(augment.AugmentConfig(**opt))(
+            torch.Generator().manual_seed(1), torch.from_numpy(imgs),
+            torch.from_numpy(masks))
+        assert x.shape == imgs.shape and torch.isfinite(x).all(), opt
+        assert m.shape == masks.shape and int(m.max()) <= 11, opt
 
 
 def test_device_loader_batches_equal_jax():
