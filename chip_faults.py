@@ -16,12 +16,17 @@ against run A, the eval CLI and the Predictor on A's checkpoint), and
 phase 13's (``augment_checks``: the recipes on the card against the CPU
 port; ``host_loader_checks``, ``voc_checks``, ``lr_finder_checks``:
 ``-loader host`` against run A, VOC training and eval with the 64->21
-head on the narrow paths, the LR finder's sweeps), once sound and once
+head on the narrow paths, the LR finder's sweeps) and phase 14's
+per-shape checks of the f32 kernels (``f32_kernel_checks``: the error
+rule against float64 and the dW's determinism), once sound and once
 under each planted fault. Every kernel fault keeps every
 kernel launch, so only the values can show it (the packed
-dW's and rows_kernel's faults patch the launch functions
-``conv_train._wgrad_launch`` and ``layout_probes._launch``, never a
-wrapper, whose launch counts stay as they are). Prints each
+dW's, rows_kernel's and the f32 kernels' faults patch the launch
+functions ``conv_train._wgrad_launch``, ``layout_probes._launch`` and
+``fused_conv._f32_launch``, never a wrapper, whose launch counts stay as
+they are; the f32 kernels' arithmetic faults are edits of their source,
+``f32_variants.FAULTS``, built beside it and put in place of the
+library). Prints each
 reading and the check that failed; exits non-zero if the sound run fails
 a check or a fault passes them all.
 """
@@ -38,7 +43,7 @@ import numpy as np
 import torch
 
 import chip_smoke as smoke
-from pytorch_camvid_tpu_torch import bench
+from pytorch_camvid_tpu_torch import bench, f32_variants
 from pytorch_camvid_tpu_torch import eval as eval_cli
 from pytorch_camvid_tpu_torch import lr_finder
 from pytorch_camvid_tpu_torch.data import augment
@@ -152,6 +157,41 @@ def stem_dw_bgr(x, g, path):
     channels 0 and 2 swapped: a BGR/RGB mix-up in the gradient."""
     out = _wgrad_launch(x, g, path)
     return out[:, :, [2, 1, 0]].contiguous() if x.shape[3] == 3 else out
+
+
+_f32_launch = fused_conv._f32_launch
+_F32_LIBS = {}   # the fault variants of csrc/conv3x3_f32.cu, built once
+
+
+@contextlib.contextmanager
+def f32_variant(name: str):
+    """The f32 kernels built from ``f32_variants.VARIANTS[name]`` (a fault:
+    single-pass TF32, the lo*hi product dropped, the dW's splits added by
+    atomics) in place of the source, for both callers of the library."""
+    if not _F32_LIBS:
+        libs, logs = f32_variants.build(f32_variants.FAULTS)
+        for n, ok, log in logs:
+            print(f"build f32 variant {n}: {'ok' if ok else 'FAILED'}; "
+                  + " | ".join(log), flush=True)
+        _F32_LIBS.update(libs)
+    lib = _F32_LIBS[name]
+    with planted(fused_conv, "f32_library", lambda: lib), \
+            planted(conv_train, "f32_library", lambda: lib):
+        yield
+
+
+def f32_dx_tap_dropped(x, w, a, b, relu, flip):
+    """The f32 dx (``flip``) launched without its first tap (w[0, 0] zero
+    in a copy); the forwards as they were."""
+    if flip:
+        w = w.clone()
+        w[0, 0] = 0
+    return _f32_launch(x, w, a, b, relu, flip)
+
+
+def f32_out_through_bf16(x, w, a, b, relu, flip):
+    """The f32 forward's output rounded through bf16."""
+    return _f32_launch(x, w, a, b, relu, flip).bfloat16().float()
 
 
 _pair_launch = fused_conv_pair._launch
@@ -474,11 +514,21 @@ def main() -> int:
         ("data side", "the LR finder recording the lr before the step",
          lambda: planted(lr_finder, "recorded_lr",
                          lr_recorded_before_the_step)),
+        ("f32", "single-pass TF32 (hi*hi only; forward and dW)",
+         lambda: f32_variant("single_pass")),
+        ("f32", "the lo*hi product dropped (forward and dW)",
+         lambda: f32_variant("lo_hi_dropped")),
+        ("f32", "the f32 dx without its first tap",
+         lambda: planted(fused_conv, "_f32_launch", f32_dx_tap_dropped)),
+        ("f32", "the f32 forward's output rounded through bf16",
+         lambda: planted(fused_conv, "_f32_launch", f32_out_through_bf16)),
+        ("f32", "the f32 dW's splits summed in launch order (atomics)",
+         lambda: f32_variant("atomic_splits")),
     ]
     ok = True
     tmp = tempfile.TemporaryDirectory()
     for path in ("serving", "training", "K5", "probes", "training run",
-                 "augment", "data side"):
+                 "augment", "data side", "f32"):
         gen = torch.Generator().manual_seed(smoke.SEED)
         if path == "serving":
             model = bench.he_model("segnet", gen).cuda().eval()
@@ -522,6 +572,12 @@ def main() -> int:
 
             def run():
                 smoke.augment_checks()
+        elif path == "f32":   # phase 14's per-shape checks
+            model = None
+
+            def run():
+                smoke.f32_kernel_checks(torch.Generator(
+                    device="cuda").manual_seed(smoke.SEED))
         else:   # phase 13's checks on phase 12's data and run A
             model = None
 

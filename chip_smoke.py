@@ -5,16 +5,18 @@
 Phases (each prints its lines; any failure exits non-zero):
 1. device: needs CUDA; prints torch's version and the card's name and
    power limit (nvidia-smi).
-2. build: compiles the five kernel sources of csrc/ with nvcc, in
+2. build: compiles the six kernel sources of csrc/ with nvcc, in
    parallel: the fused conv3x3+BN+ReLU (K4), the conv3x3 weight gradient
    (K1's dW), the 2x2 max pool / unpool / phase gather (K3, K2), the
-   shallow H-pair conv3x3+BN+ReLU (K5) and the six layout probes (M1-M6);
-   prints ptxas's register and spill lines. Then checks that the built
-   libraries choose the same kernel path (K4/K1 fwd and dx, and dW: wgmma,
-   packed or narrow) as the wrappers' rules
+   shallow H-pair conv3x3+BN+ReLU (K5), the six layout probes (M1-M6) and
+   the f32 conv3x3 forward and weight gradient (K4's and K1's f32
+   instances); prints ptxas's register and spill lines. Then checks that
+   the built libraries choose the same kernel path (K4/K1 fwd and dx, and
+   dW: wgmma, packed or narrow) as the wrappers' rules
    (``fused_conv.conv_path``, ``conv_train.wgrad_path``) at every (Cin,
-   Cout) the phases below run, and that a step's launches per path are
-   ``PATH_TABLE``'s.
+   Cout) the phases below run, that the f32 dW library's tile counts are
+   its split rule's (``conv_train.wgrad_f32_*``), and that a step's
+   launches per path are ``PATH_TABLE``'s (and at f32 all on "f32").
 3. K4 vs plain: the kernel against its plain PyTorch version in bf16 at
    every distinct conv block shape of UNet and SegNet at 360x480, batch 8:
    error, both times and cuDNN's conv alone (CUDA events); then at
@@ -140,6 +142,34 @@ Phases (each prints its lines; any failure exits non-zero):
    its epochs beside run C's. (5) The 64->21 head's
    K1 fwd, dx and dW at b10 and b24 against cuDNN's bf16 calls and their
    bounds. ``chip_faults.py`` plants faults under (1)-(4).
+   Phases 12 and 13 pass ``-dtype bfloat16`` to the CLIs (their default
+   is float32, as the JAX CLIs').
+14. f32 on the card, the JAX CLIs' default numerics: (1) K4 and K1's
+   forward, dx and dW at float32 (``csrc/conv3x3_f32.cu``, split-TF32
+   products) at every distinct block shape of both models at b2, at
+   ``F32_EDGE`` (64->21, ragged 45x61 tiles, the stem, the head), on a
+   misaligned view ``x[1:]`` and (K4) on an input past 2**31 elements:
+   err(kernel) <= max(4 err(plain f32, TF32 off), 2e-6 max|f64|), err
+   the max distance to the same function in float64 on the card; the f32
+   dW bit-equal on two launches; then their times at b10 beside the plain
+   f32 version, the library call with TF32 off and on, and the bound (the
+   FLOPs at a third of the TF32 peak, or the f32 bytes), summed per
+   model. (2) The train CLI with no -dtype (float32), UNet and SegNet,
+   b10, one epoch of 4 steps on phase 12's caches: every K1 and K2 call
+   against plain on its inputs (``F32_SHADOW_TOL``), the first step also
+   on the plain f32 path from the same state and draws
+   (``F32_TRAIN_*``), launches per step all on the f32 kernels
+   (23/22/23, 26/25/26; K2 5/10/5); run B stopped after 2 batches and
+   resumed with ``-resume``: every leaf equal to run A's. (3) The eval
+   CLI at its default on A's checkpoint: the loop's mIoU; K4 at f32 23
+   (UNet) or 26 (SegNet, with K3's pool and unpool 5 each) times a batch.
+   (4) ``predict.main`` at its default (f32) on a val image with UNet's
+   checkpoint (cv2 stood in by ``Cv2Stand``: the card's host has none):
+   its map against the plain f32 path's on ``PREDICT_AGREE`` of the
+   pixels. (5) The LR finder at its default, UNet, 4 iterations: finite
+   losses, K1's launches at f32. (6) UNet's b10 f32 train step, kernel
+   against plain (TF32 off): ms, img/s, peak memory.
+   ``chip_faults.py`` plants five faults under (1).
 In phases 8 and 9 the plain path replays the kernel path's pool choices
 (``recorded_choices``, ``replayed_choices``): a 1-ulp difference between
 the two paths' convs would otherwise flip the choice of near-tied windows
@@ -152,9 +182,11 @@ plants faults that these checks must catch.
 
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card and its power limit; the line before that is the per-kernel JSON
-(16 entries: K4, K1's three pieces, the five pool kernels, K5, M1-M6; K4's
-and K1's also give their launches on each path, ``path_launches``; K1's
-also the 64->21 head's times, ``head_64_21``).
+(20 entries: K4, K1's three pieces, the five pool kernels, K5, M1-M6, and
+the f32 instances of K4 and K1's three pieces; K4's and K1's also give
+their launches on each path, ``path_launches``; K1's also the 64->21
+head's times, ``head_64_21``; the f32 ones the library call's time with
+TF32 on, ``library_tf32_ms``).
 Imports neither jax nor cv2.
 """
 
@@ -175,9 +207,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pytorch_camvid_tpu_torch import (bench, lr_finder, mosaic_probes,
-                                     perf_probe)
+from pytorch_camvid_tpu_torch import (bench, f32_variants, lr_finder,
+                                     mosaic_probes, perf_probe)
 from pytorch_camvid_tpu_torch import eval as eval_cli
+from pytorch_camvid_tpu_torch import predict as predict_cli
 from pytorch_camvid_tpu_torch.config import settings
 from pytorch_camvid_tpu_torch.data import augment, camvid, native, voc2012
 from pytorch_camvid_tpu_torch.data.normalize import to_tensor_normalize
@@ -268,11 +301,20 @@ HEAD_PATHS = {12: {"fwd": "wgmma", "dgrad": "packed", "wgrad": "packed"},
               21: {"fwd": "narrow", "dgrad": "narrow", "wgrad": "narrow"}}
 
 
-def path_table(net: str, classes: int = 12) -> dict:
-    body = N_BLOCKS[net] - 2
-    table = {"fwd": {"wgmma": body, "packed": 1, "narrow": 0},
-             "dgrad": {"wgmma": body, "packed": 0, "narrow": 0},
-             "wgrad": {"wgmma": body, "packed": 1, "narrow": 0}}
+def path_table(net: str, classes: int = 12,
+               dtype: torch.dtype = torch.bfloat16) -> dict:
+    """K4/K1 launches per path of one forward and one training step at
+    ``dtype``: at bf16 as the comment above says, at float32 every launch
+    on the f32 kernels."""
+    nb = N_BLOCKS[net]
+    if dtype == torch.float32:
+        return {piece: {"wgmma": 0, "packed": 0, "narrow": 0, "f32": k}
+                for piece, k in (("fwd", nb), ("dgrad", nb - 1),
+                                 ("wgrad", nb))}
+    body = nb - 2
+    table = {"fwd": {"wgmma": body, "packed": 1, "narrow": 0, "f32": 0},
+             "dgrad": {"wgmma": body, "packed": 0, "narrow": 0, "f32": 0},
+             "wgrad": {"wgmma": body, "packed": 1, "narrow": 0, "f32": 0}}
     for piece, path in HEAD_PATHS[classes].items():
         table[piece][path] += 1
     return table
@@ -733,12 +775,13 @@ def train_counts() -> dict:
     return {**conv_train.launches(), **fused_pool.launches()}
 
 
-def path_counts(net: str, steps: int, classes: int = 12) -> dict:
+def path_counts(net: str, steps: int, classes: int = 12,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
     """K1's launches on each path in ``steps`` kernel-path steps of ``net``
-    with a ``classes``-class head ({piece: {path: launches}},
+    with a ``classes``-class head at ``dtype`` ({piece: {path: launches}},
     ``path_table``); a forward's K4 launches are the "fwd" entry's."""
     return {piece: {p: k * steps for p, k in paths.items()}
-            for piece, paths in path_table(net, classes).items()}
+            for piece, paths in path_table(net, classes, dtype).items()}
 
 
 def expected_train_counts(net: str, steps: int) -> dict:
@@ -1599,7 +1642,7 @@ def training_run_a(workdir: str, data: str) -> dict:
           - counts["dgrad"])
     k4_paths = {p: fused_conv.conv3x3_bn_relu.path_launches[p]
                 - paths["fwd"][p] - paths["dgrad"][p]
-                for p in fused_conv.PATHS}
+                for p in fused_conv.ROUTES}
     steps = RUN_EPOCHS * RUN_SPLITS["train"][0] // RUN_BATCH
     evals = RUN_EPOCHS * -(-RUN_SPLITS["val"][0] // RUN_BATCH)
     files = sorted(os.listdir(run_dir(workdir)))
@@ -1630,11 +1673,13 @@ def splits(data: str) -> tuple:
 
 
 def loop_config(checkpoint_dir: str, **kw) -> loop.TrainConfig:
-    """Run A's configuration as ``loop.run_training`` takes it."""
-    return loop.TrainConfig(
-        net="unet", batch_size=RUN_BATCH, epochs=RUN_EPOCHS,
-        compute_dtype="bfloat16", quiet=True, checkpoint_dir=checkpoint_dir,
-        save_epoch=settings.SAVE_EPOCH, **kw)
+    """Run A's configuration as ``loop.run_training`` takes it (``kw``
+    sets or overrides fields)."""
+    return loop.TrainConfig(**{
+        **dict(net="unet", batch_size=RUN_BATCH, epochs=RUN_EPOCHS,
+               compute_dtype="bfloat16", quiet=True,
+               checkpoint_dir=checkpoint_dir, save_epoch=settings.SAVE_EPOCH),
+        **kw})
 
 
 def loop_run(workdir: str, data: str, a: dict) -> dict:
@@ -1701,8 +1746,8 @@ def eval_checks(data: str, a: dict) -> np.ndarray:
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         got = eval_cli.main(["-weight", a["ckpt"], "-net", "unet", "-b",
-                             str(RUN_BATCH), "-data", data, "-image_size",
-                             str(HW[1]), str(HW[0])])
+                             str(RUN_BATCH), "-dtype", "bfloat16", "-data",
+                             data, "-image_size", str(HW[1]), str(HW[0])])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k4 = fused_conv.conv3x3_bn_relu.launches
@@ -1911,19 +1956,35 @@ def copied_state(state: TrainState) -> TrainState:
                       step=state.step, generator=gen)
 
 
+def step_result(state: TrainState, met: dict) -> dict:
+    """A first step's per-leaf gradients (AdamW's first moment after one
+    update from zero is (1 - beta1) g) and the BN running stats after it,
+    copied."""
+    b1 = float(met["beta1"])
+    return {"grads": {k: v / (1.0 - b1)
+                      for k, v in state.opt_state["m"].items()},
+            "stats": {k: v.float().clone()
+                      for k, v in state.model.state_dict().items()
+                      if "running" in k}}
+
+
 @contextlib.contextmanager
-def checked_sweep(out: dict):
-    """Inside the block every train step of the LR finder runs under
-    ``shadowed_kernels``: a step's errors join out["shadow"] when its loss
-    is finite (the NaN stop's step is left out of the checks as it is of
-    the curve), and its raw loss (before the smoothing) is appended to
-    out["raw"]. Each of the first LR_PLAIN_STEPS steps is also taken on
-    the plain path from a copy of the state before it, on the same batch
-    and draws, at the kernel step's pool choices (``recorded_choices``,
-    ``replayed_choices``): out["plain"] gets its raw loss, out["choices"]
-    counts the choices replayed and out["plain_launches"] the kernel
-    launches of the plain steps."""
-    saved = lr_finder.make_train_step
+def checked_sweep(out: dict, owner=lr_finder,
+                  plain_steps: int = LR_PLAIN_STEPS):
+    """Inside the block every train step that ``owner`` (a module calling
+    its ``make_train_step``: the LR finder, or the training loop) builds
+    runs under ``shadowed_kernels``: a step's errors join out["shadow"]
+    when its loss is finite (the LR finder's NaN stop's step is left out
+    of the checks as it is of the curve), and its raw loss (before any
+    smoothing) is appended to out["raw"]. Each of the first
+    ``plain_steps`` steps is also taken on the plain path from a copy of
+    the state before it, on the same batch and draws, at the kernel step's
+    pool choices (``recorded_choices``, ``replayed_choices``):
+    out["plain"] gets its raw loss, out["choices"] counts the choices
+    replayed and out["plain_launches"] the kernel launches of the plain
+    steps; out["first"] holds both paths' ``step_result`` of the first
+    step and out["model"] the kernel path's model."""
+    saved = owner.make_train_step
     out.update(raw=[], plain=[], shadow={}, choices=0, plain_launches=0)
 
     def make(*args, **kw):
@@ -1933,7 +1994,7 @@ def checked_sweep(out: dict):
         def run(state, batch):
             errs = {}
             before = (copied_state(state)
-                      if len(out["raw"]) < LR_PLAIN_STEPS else None)
+                      if len(out["raw"]) < plain_steps else None)
             with shadowed_kernels(errs), \
                     recorded_choices(state.model) as choices:
                 state, met = step(state, batch)
@@ -1944,19 +2005,24 @@ def checked_sweep(out: dict):
             if before is not None:
                 launched = sum(train_counts().values())
                 with replayed_choices(choices):
-                    _, plain_met = plain_step(before, batch)
+                    after, plain_met = plain_step(before, batch)
                 out["plain"].append(float(plain_met["loss"]))
                 out["choices"] += len(choices)
                 out["plain_launches"] += (sum(train_counts().values())
                                           - launched)
+                if "first" not in out:
+                    out["first"] = {"kernel": step_result(state, met),
+                                    "plain": step_result(after, plain_met)}
+                    out["model"] = state.model
+                del after
             return state, met
         return run
 
-    lr_finder.make_train_step = make
+    owner.make_train_step = make
     try:
         yield out
     finally:
-        lr_finder.make_train_step = saved
+        owner.make_train_step = saved
 
 
 def lr_finder_checks(data: str) -> dict:
@@ -1974,7 +2040,8 @@ def lr_finder_checks(data: str) -> dict:
     for net, num_it in LR_SWEEPS:
         args = lr_finder.parser().parse_args(
             ["-net", net, "-b", str(RUN_BATCH), "-num_it", str(num_it),
-             "-data", data, "-image_size", str(HW[1]), str(HW[0])])
+             "-dtype", "bfloat16", "-data", data, "-image_size", str(HW[1]),
+             str(HW[0])])
         torch.cuda.synchronize()
         reset_counts()
         log = io.StringIO()
@@ -2097,7 +2164,7 @@ def voc_checks(tmp: str) -> None:
     counts, paths = conv_train.launches(), conv_train.path_launches()
     k4_paths = {p: fused_conv.conv3x3_bn_relu.path_launches[p]
                 - paths["fwd"][p] - paths["dgrad"][p]
-                for p in fused_conv.PATHS}
+                for p in fused_conv.ROUTES}
     steps = RUN_SPLITS["train"][0] // RUN_BATCH
     evals = -(-RUN_SPLITS["val"][0] // RUN_BATCH)
     head = {piece: by_shape.get((piece, 64, VOC_CLASSES))
@@ -2132,8 +2199,8 @@ def voc_checks(tmp: str) -> None:
         got = eval_cli.main(["-weight", os.path.join(run_dir(workdir),
                                                      ckpts[0]),
                              "-dataset", "voc2012", "-net", "unet", "-b",
-                             str(RUN_BATCH), "-data", data, "-image_size",
-                             str(HW[1]), str(HW[0])])
+                             str(RUN_BATCH), "-dtype", "bfloat16", "-data",
+                             data, "-image_size", str(HW[1]), str(HW[0])])
     torch.cuda.synchronize()
     k4 = dict(fused_conv.conv3x3_bn_relu.path_launches)
     print(f"VOC eval CLI on {ckpts[0]}: mIoU {got['miou']:.6f} (the loop's "
@@ -2272,6 +2339,557 @@ def phase_data_side(tmp: str, run: dict) -> dict:
     return head
 
 
+# ---------------------------------------------------- f32 on the card (14)
+
+# the error rule of the f32 kernels at every shape: with err(t) = max|t -
+# f64|, where f64 is the same function in float64 on the card, err(kernel)
+# <= max(4 err(plain f32, TF32 off), 2e-6 max|f64|)
+# (``f32_variants.error_rule``)
+F32_CHECK_BATCH, F32_TIME_BATCH, F32_TIME_ITERS = 2, 10, 5
+# the split product's rate: three TF32 products a term
+F32_SPLIT_RATE = bench.H100_TF32_PEAK / 3
+# edge shapes (N, H, W, Cin, Cout) beside the models' blocks: VOC's 64->21
+# head (4-byte copies of Cout 21 rows and scalar stores; its dx reads
+# Cin 21 by 4-byte copies), ragged 45x61 tiles at 64->64, the stem and the
+# head; a batch view x[1:] of the stem whose data starts off a 16-byte
+# boundary; a forward input past 2**31 elements, checked on its last image
+F32_EDGE = ((2, 360, 480, 64, 21), (2, 45, 61, 64, 64), (2, 45, 61, 3, 64),
+            (2, 45, 61, 64, 12))
+F32_VIEW = (3, 45, 61, 3, 64)
+F32_BIG = (100, 360, 480, 128, 64)
+# the f32 training CLI runs against the plain f32 path (TF32 off): each
+# kernel call on the step's data (max|kernel - plain| / max|plain|; the
+# plain f32 dW, cuDNN's, carries ~1e-4 of rounding over a b10 step's
+# pixels), and the first step from the same state and draws (each 10x
+# tighter than its bf16 counterpart above)
+F32_SHADOW_TOL = {"K1 fwd": 1e-5, "K1 dx": 1e-5, "K1 dW": 2e-3,
+                  "K2 pool": 0.0, "K2 pool backward": 0.0,
+                  "K2 unpool": 0.0, "K2 unpool backward": 0.0}
+F32_TRAIN_LOSS_TOL = 1e-5
+F32_TRAIN_GRAD_TOL = 5e-3
+F32_TRAIN_GRAD_DIFF_TOL = 5e-2
+F32_TRAIN_STAT_TOL = 1e-4
+F32_RUN_STOP = 2   # run B's preemption point in the 4-step epoch
+F32_LR_ITERS = 4
+F32_TIME_STEPS = 10
+F32_PIECES = ("k4", "fwd", "dx", "wgrad")
+
+
+def conv64(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """conv3x3 pad 1 of NHWC x and HWIO w in float64 on the card."""
+    return F.conv2d(x.double().permute(0, 3, 1, 2),
+                    w.double().permute(3, 2, 0, 1),
+                    padding=1).permute(0, 2, 3, 1)
+
+
+def wgrad64(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dW (3,3,Cin,Cout) of conv3x3 pad 1 in float64 on the card."""
+    dw = torch.nn.grad.conv2d_weight(
+        x.double().permute(0, 3, 1, 2), (g.shape[3], x.shape[3], 3, 3),
+        g.double().permute(0, 3, 1, 2), padding=1)
+    return dw.permute(2, 3, 1, 0)
+
+
+@contextlib.contextmanager
+def tf32_convs():
+    """cuDNN's f32 convolutions in TF32 inside the block (PyTorch's
+    default; ``start`` turns it off for the plain versions)."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def f32_inputs(gen: torch.Generator, n, h, w, cin, cout) -> tuple:
+    """f32 x (n,h,w,cin), He-scaled HWIO weights, a cotangent g
+    (n,h,w,cout) and a BN fold (a, b), on the card."""
+    dev = torch.device("cuda")
+    x = torch.randn(n, h, w, cin, generator=gen, device=dev)
+    wt = (torch.randn(3, 3, cin, cout, generator=gen, device=dev)
+          * (2.0 / (9 * cin)) ** 0.5)
+    g = torch.randn(n, h, w, cout, generator=gen, device=dev)
+    a = torch.rand(cout, generator=gen, device=dev) + 0.5
+    b = torch.randn(cout, generator=gen, device=dev) * 0.1
+    return x, wt, g, a, b
+
+
+def f32_pieces(x, wt, g, a, b) -> dict:
+    """{piece: (kernel, plain f32, float64)} calls at one shape: K4 (BN
+    fold and ReLU), K1's forward, dx and dW."""
+    return {
+        "k4": (lambda: fused_conv.conv3x3_bn_relu(x, wt, a, b),
+               lambda: fused_conv.conv3x3_bn_relu_plain(x, wt, a, b),
+               lambda: torch.relu(conv64(x, wt) * a.double() + b.double())),
+        "fwd": (lambda: conv_train.conv3x3_fwd(x, wt),
+                lambda: conv_train.conv3x3_train_plain(x, wt),
+                lambda: conv64(x, wt)),
+        "dx": (lambda: conv_train.conv3x3_dgrad(g, wt),
+               lambda: conv_train.conv3x3_dgrad_plain(g, wt),
+               lambda: conv64(g, fused_conv.flipped(wt))),
+        "wgrad": (lambda: conv_train.conv3x3_wgrad(x, g),
+                  lambda: conv_train.conv3x3_wgrad_plain(x, g),
+                  lambda: wgrad64(x, g))}
+
+
+def f32_shape_checks(label: str, x, wt, g, a, b) -> dict:
+    """The error rule for each piece at one shape, and the f32 dW launched
+    twice on the same inputs: equal bits. Prints one line; returns {piece:
+    err(kernel)}."""
+    line, errs = [f"f32 {label}:"], {}
+    for piece, (kern, plain, ref) in f32_pieces(x, wt, g, a, b).items():
+        got = kern()
+        ek, ep, scale, limit = f32_variants.error_rule(got, plain(), ref())
+        line.append(f"{piece} {ek:.3g} (plain {ep:.3g}, max|f64| "
+                    f"{scale:.4g}, limit {limit:.3g});")
+        check(ek <= limit, f"f32 {piece} error rule at {label}")
+        errs[piece] = ek
+        if piece == "wgrad":
+            same = torch.equal(got, kern())
+            line.append(f"dW twice bit-equal {same}")
+            check(same, f"f32 dW bit-equal on two launches at {label}")
+        del got
+    print(" ".join(line), flush=True)
+    return errs
+
+
+def f32_kernel_checks(gen: torch.Generator) -> dict:
+    """Phase 14 (1), the checks: the error rule and the dW's determinism
+    at every distinct block shape of both models at F32_CHECK_BATCH, at
+    ``F32_EDGE``, on the misaligned view ``F32_VIEW`` and (K4) past 2**31
+    input elements. Returns {(h, w, cin, cout): {piece: err}} of the
+    blocks."""
+    out = {}
+    for h, w, cin, cout in all_block_shapes():
+        shape = (F32_CHECK_BATCH, h, w, cin, cout)
+        out[(h, w, cin, cout)] = f32_shape_checks(
+            f"{F32_CHECK_BATCH}x{h}x{w} {cin}->{cout}", *f32_inputs(gen,
+                                                                    *shape))
+    for n, h, w, cin, cout in F32_EDGE:
+        f32_shape_checks(f"{n}x{h}x{w} {cin}->{cout} (edge)",
+                         *f32_inputs(gen, n, h, w, cin, cout))
+    n, h, w, cin, cout = F32_VIEW
+    x, wt, g, a, b = f32_inputs(gen, n, h, w, cin, cout)
+    check(x[1:].data_ptr() % 16 != 0, "the f32 view x[1:] is misaligned")
+    f32_shape_checks(f"x[1:] {n - 1}x{h}x{w} {cin}->{cout}", x[1:], wt,
+                     g[1:], a, b)
+    del x, g
+    torch.cuda.empty_cache()
+    n, h, w, cin, cout = F32_BIG
+    x, wt, _, a, b = f32_inputs(gen, 1, h, w, cin, cout)
+    x = torch.randn(n, h, w, cin, generator=gen, device="cuda")
+    check(x[-1:].storage_offset() >= 2 ** 31,
+          "the big input's last image lies past 2**31 elements")
+    got = fused_conv.conv3x3_bn_relu(x, wt, a, b)[-1:].clone()
+    tail = x[-1:].clone()
+    del x
+    torch.cuda.empty_cache()
+    ek, ep, scale, limit = f32_variants.error_rule(
+        got, fused_conv.conv3x3_bn_relu_plain(tail, wt, a, b),
+        torch.relu(conv64(tail, wt) * a.double() + b.double()))
+    print(f"f32 K4 {n}x{h}x{w} {cin}->{cout} (input past 2**31 elements), "
+          f"its last image: {ek:.3g} (plain {ep:.3g}, max|f64| "
+          f"{scale:.4g}, limit {limit:.3g})", flush=True)
+    check(ek <= limit, "f32 K4 error rule past 2**31 input elements")
+    del got, tail
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_bound(n, h, w, cin, cout) -> tuple:
+    """Bound of one f32 conv3x3 pass (fwd, dx and dW alike): the FLOPs at
+    the split product's rate or each f32 tensor moved once at the memory
+    rate, whichever is larger."""
+    flops = 2.0 * 9 * n * h * w * cin * cout
+    nbytes = 4 * (n * h * w * (cin + cout) + 9 * cin * cout)
+    return bound_ms(flops, nbytes, F32_SPLIT_RATE)
+
+
+def f32_timings(gen: torch.Generator) -> dict:
+    """Phase 14 (1), the times at F32_TIME_BATCH, per distinct block shape
+    and piece (CUDA events): the kernel, the plain f32 version (TF32 off),
+    the library call with TF32 off (``F.conv2d`` for K4, whose plain
+    version adds the fold; ``convolution_backward`` with the real input for
+    dx; the plain version itself for K1's forward and dW) and with TF32
+    on. The stem has no dx on the path. Returns {(h, w, cin, cout):
+    {piece: {ms, plain_ms, library_ms, library_tf32_ms}}}."""
+    res, n = {}, F32_TIME_BATCH
+    for shape in all_block_shapes():
+        h, w, cin, cout = shape
+        x, wt, g, a, b = f32_inputs(gen, n, h, w, cin, cout)
+        xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
+        pieces = f32_pieces(x, wt, g, a, b)
+        library = {
+            "k4": lambda: F.conv2d(xc, wc, padding=1),
+            "fwd": pieces["fwd"][1],
+            "dx": lambda: conv_train.conv3x3_dgrad_library(g, wt, x),
+            "wgrad": pieces["wgrad"][1]}
+        res[shape] = got = {}
+        line = [f"f32 b{n} {h}x{w} {cin}->{cout}:"]
+        for piece, (kern, plain, _) in pieces.items():
+            if piece == "dx" and cin == 3:
+                continue
+            t = {"ms": cuda_ms(kern, F32_TIME_ITERS, 2),
+                 "plain_ms": cuda_ms(plain, F32_TIME_ITERS, 2)}
+            t["library_ms"] = (t["plain_ms"] if library[piece] is plain
+                               else cuda_ms(library[piece], F32_TIME_ITERS, 2))
+            with tf32_convs():
+                t["library_tf32_ms"] = cuda_ms(library[piece],
+                                               F32_TIME_ITERS, 2)
+            got[piece] = t
+            line.append(f"{piece} {t['ms']:.3f} ms (plain {t['plain_ms']:.3f}"
+                        f", library {t['library_ms']:.3f}, TF32 "
+                        f"{t['library_tf32_ms']:.3f});")
+        bound, by = f32_bound(n, h, w, cin, cout)
+        print(" ".join(line) + f" bound {bound:.3f} ms by {by}", flush=True)
+        del x, wt, g, xc, wc, pieces, library
+        torch.cuda.empty_cache()
+    return res
+
+
+def f32_sums(times: dict, errs: dict) -> dict:
+    """Per model and piece, the f32 times summed over the model's blocks
+    at F32_TIME_BATCH (K4 one forward, K1 one step: no dx at the stem),
+    beside the summed bound (the FFMA peak's time too) and the worst
+    error at F32_CHECK_BATCH: {net: {piece: {max_abs_err, ms, plain_ms,
+    library_ms, library_tf32_ms, bound_ms, bound_by}}}, printed."""
+    sums, n = {}, F32_TIME_BATCH
+    for net in TRAIN_BATCH:
+        shapes = bench.block_shapes(net, HW)
+        sums[net] = {}
+        for piece in F32_PIECES:
+            on = shapes[1:] if piece == "dx" else shapes
+            by = {}
+            for s in on:
+                t, kind = f32_bound(n, *s)
+                by[kind] = by.get(kind, 0.0) + t
+            row = {"max_abs_err": max(errs[s][piece] for s in on)}
+            for key in ("ms", "plain_ms", "library_ms", "library_tf32_ms"):
+                row[key] = sum(times[s][piece][key] for s in on)
+            row.update(bound_ms=sum(by.values()), bound_by=max(by, key=by.get))
+            sums[net][piece] = row
+        ffma = {piece: sum(2.0 * 9 * n * s[0] * s[1] * s[2] * s[3]
+                           for s in (shapes[1:] if piece == "dx" else shapes))
+                / bench.H100_F32_PEAK * 1e3 for piece in F32_PIECES}
+        print(f"{net} f32 sums over its {len(shapes)} blocks at b{n}: "
+              + "; ".join(
+                  f"{p} {t['ms']:.3f} ms (plain {t['plain_ms']:.3f}, "
+                  f"library {t['library_ms']:.3f}, TF32 "
+                  f"{t['library_tf32_ms']:.3f}; bound {t['bound_ms']:.3f} "
+                  f"by {t['bound_by']}: {t['bound_ms'] / t['ms']:.2f} of "
+                  f"it; the FFMA peak's time {ffma[p]:.3f}; max err "
+                  f"{t['max_abs_err']:.3g})" for p, t in sums[net].items())
+              + f" on {bench.card()}", flush=True)
+    return sums
+
+
+def f32_argv(net: str, data: str) -> list:
+    """The train CLI at JAX's defaults (no -dtype: float32), one epoch."""
+    return ["-net", net, "-b", str(RUN_BATCH), "-e", "1", "-quiet", "-data",
+            data, "-image_size", str(HW[1]), str(HW[0])]
+
+
+def f32_first_step(net: str, c: dict) -> None:
+    """The first step of the f32 CLI run against the plain f32 path from
+    the same state and draws (``checked_sweep``): loss, per-leaf gradients
+    (norm and difference) and BN running stats within the F32_TRAIN_*
+    limits."""
+    k, p = c["first"]["kernel"], c["first"]["plain"]
+    loss_err = abs(c["raw"][0] - c["plain"][0]) / abs(c["plain"][0])
+    norm_errs, diff_errs = grad_errors(c["model"], k["grads"], p["grads"])
+    stat_errs = {n: ((k["stats"][n] - v).abs().max()
+                     / v.abs().max().clamp_min(1e-30)).item()
+                 for n, v in p["stats"].items()}
+    worst_n, worst_d, worst_s = (_worst(e) for e in
+                                 (norm_errs, diff_errs, stat_errs))
+    print(f"{net} f32 first step, kernel vs plain f32 path (TF32 off) from "
+          f"the same state and draws at {c['choices']} pool choices: loss "
+          f"{c['raw'][0]:.6f} vs {c['plain'][0]:.6f}, rel {loss_err:.3g} "
+          f"(tol {F32_TRAIN_LOSS_TOL}); per leaf, grad norm rel max "
+          f"{worst_n[1]:.3g} at {worst_n[0]}, median {worst_n[2]:.3g} (tol "
+          f"{F32_TRAIN_GRAD_TOL}); |grad diff| rel max {worst_d[1]:.3g} at "
+          f"{worst_d[0]}, median {worst_d[2]:.3g} (tol "
+          f"{F32_TRAIN_GRAD_DIFF_TOL}); BN stats rel max {worst_s[1]:.3g} "
+          f"at {worst_s[0]} (tol {F32_TRAIN_STAT_TOL})", flush=True)
+    check(c["plain_launches"] == 0, f"{net} f32: the plain step launched")
+    check(np.isfinite(c["raw"][0]) and loss_err <= F32_TRAIN_LOSS_TOL,
+          f"{net} f32 first step's loss vs plain")
+    check(worst_n[1] <= F32_TRAIN_GRAD_TOL, f"{net} f32 grad norms vs plain")
+    check(worst_d[1] <= F32_TRAIN_GRAD_DIFF_TOL, f"{net} f32 grads vs plain")
+    check(worst_s[1] <= F32_TRAIN_STAT_TOL, f"{net} f32 BN stats vs plain")
+
+
+def f32_training_run(tmp: str, data: str, net: str) -> dict:
+    """Phase 14 (2) and (3) for ``net``: the train CLI at its defaults
+    (f32) for one epoch of 4 steps on phase 12's caches, every K1 and K2
+    call held against plain and the first step against the plain path;
+    launches per step on the f32 kernels; run B stopped after
+    F32_RUN_STOP batches and resumed through the CLI, bit-equal to A; the
+    eval CLI at its default on A's checkpoint: the loop's mIoU, K4 (and
+    K3) at f32. Returns A's history, checkpoint and launches."""
+    workdir = os.path.join(tmp, f"f32_{net}")
+    os.makedirs(workdir)
+    c = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.chdir(workdir), checked_sweep(c, loop, 1):
+        history = train_cli.main(f32_argv(net, data))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, paths = train_counts(), conv_train.path_launches()
+    steps = RUN_SPLITS["train"][0] // RUN_BATCH
+    evals = -(-RUN_SPLITS["val"][0] // RUN_BATCH)
+    k4_paths = {p: fused_conv.conv3x3_bn_relu.path_launches[p]
+                - paths["fwd"][p] - paths["dgrad"][p]
+                for p in fused_conv.ROUTES}
+    want = expected_train_counts(net, steps)
+    for key in ("maxpool2x2.pool_flat", "maxpool2x2.unpool_flat"):
+        want[key] = POOLS[net] * evals   # K3 in the eval pass
+    files = sorted(os.listdir(run_dir(workdir)))
+    names = cadence(history, 1, settings.SAVE_EPOCH)
+    print(f"{net} f32 train CLI (no -dtype; b{RUN_BATCH}, 1 epoch, "
+          f"{HW[0]}x{HW[1]}): mIoU {history[-1]['miou']:.4f}, checkpoints "
+          f"{files}; launches {counts}, K1 on each path {paths}; K4 in the "
+          f"eval pass on each path {k4_paths}; every kernel call against "
+          f"its plain version on the same inputs, worst per piece over "
+          f"{len(c['raw'])} steps: " + "; ".join(
+              f"{piece} {e:.3g} (tol {F32_SHADOW_TOL[piece]})"
+              for piece, e in c["shadow"].items())
+          + f"; {wall:.2f} s in all on {bench.card()}", flush=True)
+    check([h["epoch"] for h in history] == [1], f"{net} f32 run's epoch")
+    check(bool(names) and files == sorted(names), f"{net} f32 checkpoints")
+    final = os.path.join(run_dir(workdir), names[-1])
+    check(int(leaves(final)["step"]) == steps, f"{net} f32 run's steps")
+    check(counts == want, f"{net} f32 launches")
+    check(paths == path_counts(net, steps, dtype=torch.float32),
+          f"{net} f32 K1 launches per path")
+    check(k4_paths == path_counts(net, evals, dtype=torch.float32)["fwd"],
+          f"{net} f32 eval pass's K4 launches")
+    pieces = [p for p in F32_SHADOW_TOL if POOLS[net] or p.startswith("K1")]
+    check(len(c["raw"]) == steps and sorted(c["shadow"]) == sorted(pieces),
+          f"{net} f32 kernel pieces seen")
+    for piece, e in c["shadow"].items():
+        check(e <= F32_SHADOW_TOL[piece], f"{net} f32 {piece} vs plain")
+    f32_first_step(net, c)
+    del c
+    torch.cuda.empty_cache()
+
+    # run B: stopped after F32_RUN_STOP batches, resumed by the CLI
+    work_b = os.path.join(tmp, f"f32_{net}_b")
+    preempted = os.path.join(work_b, "checkpoints", "preempted")
+    state, _ = loop.run_training(
+        loop_config(preempted, net=net, epochs=1, compute_dtype="float32",
+                    stop_after_batches=F32_RUN_STOP), *splits(data))
+    check(state.step == F32_RUN_STOP
+          and sorted(os.listdir(preempted)) == ["0-preempt.ckpt.npz"],
+          f"{net} f32 run B's preemption checkpoint")
+    del state
+    with contextlib.chdir(work_b):
+        resumed = train_cli.main(f32_argv(net, data) + ["-resume"])
+    (name,) = cadence(resumed, 1, settings.SAVE_EPOCH)
+    got = leaves(os.path.join(work_b, "checkpoints", settings.TIME_NOW,
+                              name))
+    ref = leaves(final)
+    unequal = sorted(k for k in ref if not np.array_equal(got[k], ref[k]))
+    print(f"{net} f32 run B resumed (train CLI -resume after "
+          f"{F32_RUN_STOP} batches): step {int(got['step'])}; leaves "
+          f"unequal to run A's: {len(unequal)} of {len(ref)} "
+          f"{unequal[:6]}", flush=True)
+    check(int(got["step"]) == steps and not unequal,
+          f"{net} f32 preemption + resume bit-equal to run A")
+
+    # the eval CLI at its default dtype on A's checkpoint
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        ev = eval_cli.main(["-weight", final, "-net", net, "-b",
+                            str(RUN_BATCH), "-data", data, "-image_size",
+                            str(HW[1]), str(HW[0])])
+    torch.cuda.synchronize()
+    k4 = dict(fused_conv.conv3x3_bn_relu.path_launches)
+    k3 = {k: v for k, v in fused_pool.launches().items() if v}
+    want_k3 = ({"maxpool2x2.pool_flat": POOLS[net] * evals,
+                "maxpool2x2.unpool_flat": POOLS[net] * evals}
+               if POOLS[net] else {})
+    line = f"miou: {history[-1]['miou']:.4f}"
+    print(f"{net} f32 eval CLI (no -dtype) on {os.path.basename(final)}: "
+          f"mIoU {ev['miou']:.6f} (the loop's {history[-1]['miou']:.6f}); "
+          f"K4 on each path {k4}; K3 {k3}", flush=True)
+    check(line in out.getvalue().splitlines()
+          and abs(ev["miou"] - history[-1]["miou"]) <= 1e-9,
+          f"{net} f32 eval CLI's mIoU is the loop's")
+    check(k4 == path_counts(net, evals, dtype=torch.float32)["fwd"],
+          f"{net} f32 eval CLI's K4 launches")
+    check(k3 == want_k3, f"{net} f32 eval CLI's K3 launches")
+    return {"history": history, "ckpt": final, "counts": counts,
+            "k4": sum(k4.values())}
+
+
+class Cv2Stand:
+    """The cv2 calls of ``predict.main``, for a host without cv2 (the
+    card's): ``imread`` reads a .npy, ``resize`` takes only sizes the
+    image already has (the image is written at the working size, so both
+    of predict's resizes are the identity), ``imwrite`` keeps the
+    arrays."""
+    INTER_NEAREST = 0
+
+    def __init__(self):
+        self.written = {}
+
+    @staticmethod
+    def imread(path):
+        return np.load(path)
+
+    @staticmethod
+    def resize(img, size, interpolation=None):
+        check(tuple(img.shape[1::-1]) == tuple(size),
+              f"predict resized {img.shape} to {size}")
+        return img
+
+    def imwrite(self, name, img):
+        self.written[name] = img
+        return True
+
+
+def f32_predict_checks(tmp: str, data: str, weight: str) -> None:
+    """Phase 14 (4): ``predict.main`` at its default (f32 on the card) on
+    a val image with UNet's f32 checkpoint: 23 K4 launches on the f32
+    kernel, and its map agrees with the plain f32 path's on PREDICT_AGREE
+    of the pixels."""
+    val = camvid.CamVid(data, image_set="val", image_size=HW[::-1])
+    path = os.path.join(tmp, "predict_src.npy")
+    np.save(path, val.images[0])
+    stand = Cv2Stand()
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = stand
+    reset_counts()
+    try:
+        with contextlib.chdir(tmp), contextlib.redirect_stdout(io.StringIO()):
+            got = predict_cli.main(["-img", path, "-weight", weight])
+    finally:
+        if saved is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+    torch.cuda.synchronize()
+    k4 = dict(fused_conv.conv3x3_bn_relu.path_launches)
+    sd = ckpt.load_weights(weight, "unet")
+    model = get_model("unet", spec=spec_from_state_dict("unet", sd))
+    model.load_state_dict(sd)
+    model = model.cuda().eval()
+    with torch.inference_mode():
+        x = torch.from_numpy(val.images[:1]).cuda()
+        want = model(to_tensor_normalize(x, settings.MEAN, settings.STD,
+                                         torch.float32), plain=True)
+    want = want.argmax(-1)[0].to(torch.uint8).cpu().numpy()
+    agree = float((got == want).mean())
+    print(f"predict CLI (no -dtype: f32) on a val image with UNet's f32 "
+          f"checkpoint: agrees with the plain f32 path on {agree:.6f} of the "
+          f"pixels (limit {PREDICT_AGREE}); K4 on each path {k4}; wrote "
+          f"{sorted(stand.written)}", flush=True)
+    check(got.shape == HW and agree >= PREDICT_AGREE,
+          "f32 predict vs the plain f32 path")
+    check(k4 == path_counts("unet", 1, dtype=torch.float32)["fwd"],
+          "f32 predict's K4 launches")
+
+
+def f32_lr_finder_checks(data: str) -> None:
+    """Phase 14 (5): the LR finder at its default dtype (f32), UNet,
+    F32_LR_ITERS iterations at b10: finite losses, K1's launches on the
+    f32 kernels."""
+    args = lr_finder.parser().parse_args(
+        ["-net", "unet", "-b", str(RUN_BATCH), "-num_it", str(F32_LR_ITERS),
+         "-data", data, "-image_size", str(HW[1]), str(HW[0])])
+    torch.cuda.synchronize()
+    reset_counts()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        losses, lrs = lr_finder.sweep(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, paths = train_counts(), conv_train.path_launches()
+    diverged = "diverged" in log.getvalue()
+    steps = len(lrs) + diverged
+    print(f"lr_finder -net unet -b {RUN_BATCH} -num_it {F32_LR_ITERS} "
+          f"(-dtype {args.dtype}): losses "
+          f"{[round(float(v), 4) for v in losses]}; launches {counts}, K1 "
+          f"on each path {paths}; {wall / max(steps, 1):.3f} s/iteration on "
+          f"{bench.card()}", flush=True)
+    check(args.dtype == "float32", "the LR finder's default dtype")
+    check(bool(np.isfinite(losses).all())
+          and (len(lrs) == F32_LR_ITERS
+               or (diverged and len(lrs) < F32_LR_ITERS)),
+          "f32 lr_finder's losses and end")
+    check(counts == expected_train_counts("unet", steps)
+          and paths == path_counts("unet", steps, dtype=torch.float32),
+          "f32 lr_finder's launches")
+
+
+def f32_step_timing() -> dict:
+    """Phase 14 (6): UNet's b10 f32 train step, kernel path and plain f32
+    path (TF32 off): ms, img/s and peak memory (``bench.measure_train``,
+    F32_TIME_STEPS steps after 3 warm-ups)."""
+    out = {}
+    for plain in (False, True):
+        model = bench.he_model("unet", torch.Generator().manual_seed(SEED))
+        r = bench.measure_train(model.cuda(), RUN_BATCH, F32_TIME_STEPS,
+                                hw=HW, plain=plain, seed=SEED,
+                                compute_dtype=torch.float32)
+        out["plain" if plain else "kernel"] = r
+        print(f"unet f32 train {'plain (TF32 off)' if plain else 'kernel'} "
+              f"path b{RUN_BATCH}: step {r['step_ms']:.2f} ms, "
+              f"{r['images_per_sec']:.2f} img/s, peak memory "
+              f"{r['max_memory_allocated'] / 2 ** 30:.2f} GiB, losses "
+              f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f} on "
+              f"{bench.card()}", flush=True)
+        check(r["finite"], "f32 timed step's losses")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_f32(tmp: str, data: str) -> dict:
+    """Phase 14 (module docstring). Returns UNet's f32 sums and the main
+    paths' launches for the JSON entries."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errs = f32_kernel_checks(gen)
+    sums = f32_sums(f32_timings(gen), errs)
+    runs = {net: f32_training_run(tmp, data, net) for net in TRAIN_BATCH}
+    f32_predict_checks(tmp, data, runs["unet"]["ckpt"])
+    f32_lr_finder_checks(data)
+    f32_step_timing()
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"sums": sums["unet"], "k4": runs["unet"]["k4"],
+            "k1": runs["unet"]["counts"]}
+
+
+def f32_entries(f32: dict) -> list:
+    """The JSON entries of the four f32 instances: UNet's sums at b10 over
+    its blocks (``f32_sums``), launches from the f32 eval CLI (K4) and the
+    f32 train CLI run (K1)."""
+    src = "pytorch_camvid_tpu_torch/csrc/conv3x3_f32.cu"
+    out = []
+    for piece, name, replaces, launches in (
+            ("k4", "conv3x3_bn_relu_f32",
+             "pytorch_camvid_tpu/ops/pallas_conv.py:230", f32["k4"]),
+            ("fwd", "conv3x3_train_f32.fwd",
+             "pytorch_camvid_tpu/ops/pallas_conv.py:230", f32["k1"]["fwd"]),
+            ("dx", "conv3x3_train_f32.dgrad",
+             "pytorch_camvid_tpu/ops/pallas_conv.py:230",
+             f32["k1"]["dgrad"]),
+            ("wgrad", "conv3x3_train_f32.wgrad",
+             "pytorch_camvid_tpu/ops/pallas_conv_train.py:172",
+             f32["k1"]["wgrad"])):
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": launches,
+                    **f32["sums"][piece]})
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 def summed_bound(n: int, piece: str, shapes) -> tuple:
@@ -2368,12 +2986,12 @@ POOL_REPLACES = {
 
 
 def start() -> None:
-    """Phases 1 and 2: the device, then the five kernel sources built in
+    """Phases 1 and 2: the device, then the six kernel sources built in
     parallel; TF32 off for the plain versions."""
     print(f"device: torch {torch.__version__} (CUDA {torch.version.cuda}); "
           f"{bench.card()}", flush=True)
     sources = (fused_conv.SOURCE, conv_train.WGRAD_SOURCE, fused_pool.SOURCE,
-               fused_conv_pair.SOURCE, lp.SOURCE)
+               fused_conv_pair.SOURCE, lp.SOURCE, fused_conv.F32_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(cuda_build.build, sources))
     for path, secs, log in builds:
@@ -2394,10 +3012,29 @@ def start() -> None:
               f"kernel path rule of the libraries at {cin}->{cout}")
     print(f"paths: the libraries and the wrappers choose alike at "
           f"{len(pairs)} (Cin, Cout) pairs", flush=True)
+    f32 = fused_conv.f32_library()
+    for cin, cout in sorted(pairs | {(cin, cout)
+                                     for *_, cin, cout in F32_EDGE}):
+        check(f32.conv3x3_wgrad_f32_out_tiles(cin, cout)
+              == conv_train.wgrad_f32_out_tiles(cin, cout),
+              f"f32 dW output tiles of the library at {cin}->{cout}")
+    sizes = {(n, h, w) for h, w, _, _ in all_block_shapes()
+             for n in (F32_CHECK_BATCH, F32_TIME_BATCH)}
+    sizes |= {(n, h, w) for n, h, w, *_ in F32_EDGE + (F32_VIEW,)}
+    for n, h, w in sorted(sizes):
+        check(f32.conv3x3_wgrad_f32_pixel_chunks(n, h, w)
+              == conv_train.wgrad_f32_pixel_chunks(n, h, w),
+              f"f32 dW pixel chunks of the library at {n}x{h}x{w}")
+    print(f"f32 dW: the library's and the split rule's tile counts agree at "
+          f"{len(sizes)} sizes and their (Cin, Cout) pairs", flush=True)
     for net in TRAIN_BATCH:
-        rule = conv_train.step_path_launches(bench.block_shapes(net, HW))
+        shapes = bench.block_shapes(net, HW)
+        rule = conv_train.step_path_launches(shapes)
         check(rule == PATH_TABLE[net],
               f"{net} launches per path of a step by the rules: {rule}")
+        check(conv_train.step_path_launches(shapes, torch.float32)
+              == path_table(net, dtype=torch.float32),
+              f"{net} f32 launches per path of a step by the rules")
     torch.cuda.synchronize()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2427,6 +3064,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run = phase_training_run(tmp)
         head = phase_data_side(tmp, run)
+        f32 = phase_f32(tmp, run["data"])
     check("jax" not in sys.modules, "jax was imported")
 
     kernels = conv_entries(sums["unet"], unet_serve, unet_train)
@@ -2451,7 +3089,8 @@ def main() -> int:
         "bound_ms": pair["bound_ms"], "bound_by": pair["bound_by"],
         "library_ms": pair["library_ms"]})
     kernels += probe_entries
-    check(len(kernels) == 16, "one JSON entry per ported kernel")
+    kernels += f32_entries(f32)
+    check(len(kernels) == 20, "one JSON entry per ported kernel")
     print(json.dumps({"kernels": kernels}))
     print(bench.card())
     print(json.dumps({"ok": True, "device": {

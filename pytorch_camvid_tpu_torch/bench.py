@@ -64,6 +64,7 @@ from pytorch_camvid_tpu_torch.train import (TrainState, adamw,
 H100_BF16_PEAK = 989e12
 H100_HBM_RATE = 3.35e12
 H100_F32_PEAK = 67e12   # f32 FLOP/s outside the tensor cores
+H100_TF32_PEAK = 494.7e12   # dense TF32 tensor-core FLOP/s
 MAX_LR = 5e-4  # OneCycle's peak lr, as the JAX bench (bench.py:134)
 P100_IMAGES_PER_SEC_EST = 3.6  # the JAX bench's analytic baseline
 HW = (360, 480)
@@ -146,16 +147,17 @@ def resident_batch(batch_size: int, hw: Tuple[int, int], seed: int,
     return loader.gather(loader.epoch_indices(0)[0])
 
 
-def make_bench_step(total_steps: int, plain: bool = False):
+def make_bench_step(total_steps: int, plain: bool = False,
+                    compute_dtype: torch.dtype = torch.bfloat16):
     """bench.py's step: default augmentation (reference recipe with the
-    CamVid mean/std), OneCycle lr/beta1, AdamW (wd 0), bf16 compute.
-    Returns (optimizer, step_fn)."""
+    CamVid mean/std), OneCycle lr/beta1, AdamW (wd 0), bf16 compute (or
+    ``compute_dtype``). Returns (optimizer, step_fn)."""
     cfg = AugmentConfig(mean=settings.MEAN, std=settings.STD)
     opt = adamw(weight_decay=0.0)
     step = make_train_step(opt, onecycle_lr(MAX_LR, total_steps),
                            onecycle_beta1(total_steps),
-                           augment_fn=make_train_augment(cfg, torch.bfloat16),
-                           compute_dtype=torch.bfloat16,
+                           augment_fn=make_train_augment(cfg, compute_dtype),
+                           compute_dtype=compute_dtype,
                            log_grad_norms=False, plain=plain)
     return opt, step
 
@@ -170,10 +172,11 @@ def _mfu(ips: float, flops_per_image: float, dev):
 
 def measure_train(model, batch_size: int = 24, steps: int = 20,
                   warmup: int = 3, hw: Tuple[int, int] = (360, 480),
-                  plain: bool = False, seed: int = 0) -> dict:
+                  plain: bool = False, seed: int = 0,
+                  compute_dtype: torch.dtype = torch.bfloat16) -> dict:
     """Time ``steps`` train steps of ``model`` (on a CUDA device) after
-    ``warmup``. Returns img/s, step ms, MFU, the losses and the peak
-    device memory of the run."""
+    ``warmup``, at ``compute_dtype``. Returns img/s, step ms, MFU (against
+    the bf16 peak), the losses and the peak device memory of the run."""
     dev = next(model.parameters()).device
     if dev.type != "cuda":
         raise RuntimeError("measure_train times a CUDA device")
@@ -182,7 +185,7 @@ def measure_train(model, batch_size: int = 24, steps: int = 20,
     loader = DeviceDataLoader(images, labels, batch_size, shuffle=True,
                               seed=seed, drop_last=True, device=dev)
     total = steps + warmup + 1
-    opt, step = make_bench_step(total, plain)
+    opt, step = make_bench_step(total, plain, compute_dtype)
     state = TrainState.create(model, opt, seed=seed)
 
     def batches():

@@ -2,7 +2,7 @@
 eval.py):
 
     python -m pytorch_camvid_tpu_torch.eval -weight <ckpt> [-net unet]
-        [-b 10] [-data data] [-image_size W H] [-dtype bfloat16]
+        [-b 10] [-data data] [-image_size W H] [-dtype float32]
         [-dataset camvid|voc2012] [-device cuda]
 
 Loads a checkpoint (a reference ``.pth``, or a ``.ckpt.npz`` of either
@@ -12,10 +12,10 @@ the eval pass's confusion matrix (``train/loop.py::evaluate``, the loop's
 own). The model's width follows the checkpoint.
 
 As the train CLI: ``-device`` defaults to ``cuda`` and fails without one;
-``-dtype`` defaults to ``bfloat16`` (the JAX CLI's default is
-``float32``), and ``-dtype float32`` on a CUDA device is refused. On CUDA
-every conv block runs the fused kernel (K4), so ``-pallas`` (the JAX CLI's
-switch to its fused kernels) changes nothing here. ``-dataset voc2012``
+``-dtype`` defaults to ``float32``, as the JAX CLI's does. On CUDA every
+conv block runs the fused kernel (K4, at f32 its split-TF32 instance), so
+``-pallas`` (the JAX CLI's switch to its fused kernels) changes nothing
+here. ``-dataset voc2012``
 evaluates the VOC val cache with VOC's mean and std (eval.py:61-65).
 ``-int8`` raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
@@ -64,11 +64,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("-dataset", type=str, default="camvid",
                    choices=["camvid", "voc2012"],
                    help="dataset to evaluate on")
-    p.add_argument("-dtype", type=str, default="bfloat16",
+    p.add_argument("-dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="compute dtype (default bfloat16, unlike the JAX "
-                   "CLI's float32: the card's kernels take bf16 only, and "
-                   "float32 runs on -device cpu only)")
+                   help="compute dtype (float32: reference numerics)")
     p.add_argument("-device", type=str, default="cuda",
                    help="torch device the model runs on (default cuda; no "
                    "fallback to the CPU)")

@@ -4,7 +4,7 @@ reference lr_finder.py, a fastai-style sweep):
     python -m pytorch_camvid_tpu_torch.lr_finder -net unet [-b 10]
         [-start_lr 1e-7] [-end_lr 10] [-num_it 100] [-skip_start 10]
         [-skip_end 5] [-weight_decay 0] [-smoothing reference|fastai]
-        [-data data] [-image_size W H] [-dtype bfloat16] [-device cuda]
+        [-data data] [-image_size W H] [-dtype float32] [-device cuda]
 
 Runs up to ``-num_it`` train steps on CamVid's train split with the
 geometric sweep ``exponential_sweep_lr`` and saves a log-x loss-vs-lr
@@ -18,8 +18,8 @@ bias-corrected beta 0.98 average and stops when it exceeds 4x the best.
 The recipe adds rotation (p 0.5, which fires under the reference's skip
 rule) and RandomScale to the training one (lr_finder.py:144-153).
 
-The JAX CLI's flags plus ``-image_size``, ``-dtype`` (default bfloat16:
-the card's kernels take bf16) and ``-device`` (default cuda, no fallback),
+The JAX CLI's flags plus ``-image_size``, ``-dtype`` (default float32,
+the JAX CLI's compute dtype) and ``-device`` (default cuda, no fallback),
 as the port's other CLIs. ``sweep(args)`` runs the sweep alone; ``plot``
 imports matplotlib only when it draws.
 """
@@ -159,10 +159,9 @@ def parser() -> argparse.ArgumentParser:
                    metavar=("W", "H"),
                    help="working size in cv2 (W, H) order; default "
                    "settings.IMAGE_SIZE")
-    p.add_argument("-dtype", type=str, default="bfloat16",
+    p.add_argument("-dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="compute dtype (default bfloat16, unlike the JAX "
-                   "CLI's float32: the card's kernels take bf16 only)")
+                   help="compute dtype (float32: reference numerics)")
     p.add_argument("-device", type=str, default="cuda",
                    help="torch device (default cuda; no fallback to the "
                    "CPU)")

@@ -14,12 +14,18 @@ and backward kernels: counterpart of
 - dW: ``conv3x3_wgrad(x, g)``, the kernel ``csrc/conv3x3_wgrad.cu``, in f32,
   cast to ``w``'s dtype on return as JAX's ``_vjp_bwd`` does.
 
+At float32 (the JAX CLIs' default) all three pieces run
+``csrc/conv3x3_f32.cu``: the forward and dx on its split-TF32 forward
+kernel (``fused_conv``'s f32 route), dW on its split-TF32 dW kernel with a
+split-K over pixel chunks (``wgrad_f32_splits``) and a second pass that
+sums the splits in a fixed order, so two launches give the same bits.
+
 Each piece has a wrapper (``conv3x3_fwd``, ``conv3x3_dgrad``,
 ``conv3x3_wgrad``) that runs its plain version on a CPU tensor and its
 kernel on a CUDA tensor, or raises; each counts its kernel launches in
 ``.launches`` and per kernel path in ``.path_launches``: the forward and
-dx by ``fused_conv.conv_path`` ("wgmma", "packed" or "narrow"), dW by
-``wgrad_path`` ("wgmma", "packed" or "narrow"). The plain
+dx by ``fused_conv.route`` ("wgmma", "packed" or "narrow" in bf16, "f32"),
+dW by ``wgrad_route`` ("wgmma", "packed" or "narrow" in bf16, "f32"). The plain
 versions are ``conv3x3_train_plain`` (``F.conv2d``,
 differentiated by autograd), ``conv3x3_dgrad_plain``
 (``torch.nn.grad.conv2d_input``) and ``conv3x3_wgrad_plain``
@@ -35,11 +41,12 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_camvid_tpu_torch.ops import cuda_build
-from pytorch_camvid_tpu_torch.ops.fused_conv import (PATHS, aligned16,
+from pytorch_camvid_tpu_torch.ops.fused_conv import (ROUTES, aligned16,
                                                      conv3x3_bn_relu,
-                                                     conv_path)
+                                                     f32_library, route)
 
 WGRAD_PATHS = ("narrow", "wgmma", "packed")   # by the .cu's path code
+WGRAD_ROUTES = WGRAD_PATHS + ("f32",)   # the launch counters' keys
 
 WGRAD_SOURCE = cuda_build.CSRC / "conv3x3_wgrad.cu"
 # split-K target in blocks per SM: the narrow kernel's; the wgmma
@@ -51,6 +58,10 @@ _WGMMA_BLOCKS_PER_SM = 2
 # packs 9 taps x channels into M <= PACKED_M_MAX
 PACKED_M_MAX = 144
 SM_SMEM, BLOCK_SMEM = 233472, 232448   # shared bytes of an SM, of a block
+# the f32 dW (csrc/conv3x3_f32.cu): 32-pixel chunks, 64 x 64 output tiles
+# of (tap, Cin) rows x Cout, four blocks resident per SM (55 KB of shared
+# memory each)
+F32_CHUNK, F32_TILE, F32_BLOCKS_PER_SM = 32, 64, 4
 
 
 def _nchw(t: torch.Tensor) -> torch.Tensor:
@@ -126,6 +137,33 @@ def wgrad_path(cin: int, cout: int) -> str:
     return "narrow"
 
 
+def wgrad_route(dtype: torch.dtype, cin: int, cout: int) -> str:
+    """The dW kernel that takes a (Cin, Cout) call at ``dtype``: "f32" for
+    float32, else the bf16 source's ``wgrad_path``."""
+    return "f32" if dtype == torch.float32 else wgrad_path(cin, cout)
+
+
+def wgrad_f32_pixel_chunks(n: int, h: int, w: int) -> int:
+    """The f32 dW's split-K range: 32-pixel chunks of the flattened N*H*W
+    (the .cu's ``conv3x3_wgrad_f32_pixel_chunks``)."""
+    return -(-n * h * w // F32_CHUNK)
+
+
+def wgrad_f32_out_tiles(cin: int, cout: int) -> int:
+    """The f32 dW's blocks per split: 64-row tiles of the 9 x Cin (tap,
+    channel) rows times 64-channel tiles of Cout (the .cu's
+    ``conv3x3_wgrad_f32_out_tiles``)."""
+    return -(-9 * cin // F32_TILE) * -(-cout // F32_TILE)
+
+
+def wgrad_f32_splits(n: int, h: int, w: int, cin: int, cout: int,
+                     sms: int) -> int:
+    """The f32 dW's split-K factor: enough splits for ``F32_BLOCKS_PER_SM``
+    blocks on each of ``sms`` SMs, at most one per pixel chunk."""
+    want = -(-F32_BLOCKS_PER_SM * sms // wgrad_f32_out_tiles(cin, cout))
+    return max(1, min(want, wgrad_f32_pixel_chunks(n, h, w), 65535))
+
+
 def wgrad_packed_plan(cin: int, cout: int) -> dict:
     """The packed dW kernel's plan at (Cin, Cout) on that path: the narrow
     side's channels ``narrow`` (x's for the stem, g's for the head), M =
@@ -170,7 +208,7 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ones, zeros = _unit_affine(w.shape[3], x.device)
     out = conv3x3_bn_relu(x, w, ones, zeros, relu=False)
     if x.device.type == "cuda":
-        _count(conv3x3_fwd, conv_path(w.shape[2], w.shape[3]))
+        _count(conv3x3_fwd, route(x.dtype, w.shape[2], w.shape[3]))
     return out
 
 
@@ -183,7 +221,7 @@ def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return conv3x3_dgrad_plain(g, w)
     ones, zeros = _unit_affine(w.shape[2], g.device)
     out = conv3x3_bn_relu(g, w, ones, zeros, relu=False, flip=True)
-    _count(conv3x3_dgrad, conv_path(w.shape[3], w.shape[2]))
+    _count(conv3x3_dgrad, route(g.dtype, w.shape[3], w.shape[2]))
     return out
 
 
@@ -225,9 +263,9 @@ def wgrad_splits(pixel_tiles: int, out_tiles: int, sms: int,
 
 
 def _check_wgrad(x: torch.Tensor, g: torch.Tensor) -> None:
-    if x.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
-        raise TypeError(f"conv3x3_wgrad kernel takes bf16 x and g, got "
-                        f"{x.dtype} and {g.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or g.dtype != x.dtype:
+        raise TypeError(f"conv3x3_wgrad kernel takes bf16 or f32 x and g of "
+                        f"one dtype, got {x.dtype} and {g.dtype}")
     if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
         raise ValueError(f"x (N,H,W,Cin) and g (N,H,W,Cout) must share "
                          f"N,H,W: {tuple(x.shape)} vs {tuple(g.shape)}")
@@ -238,6 +276,12 @@ def _check_wgrad(x: torch.Tensor, g: torch.Tensor) -> None:
     if min(x.shape) == 0 or max(*x.shape, g.shape[3]) >= 2 ** 31:
         raise ValueError(f"unsupported shape x {tuple(x.shape)}, g "
                          f"{tuple(g.shape)}")
+    if x.dtype == torch.float32:
+        if (x.shape[0] * x.shape[1] * x.shape[2] >= 2 ** 31 - 4 * F32_CHUNK
+                or 9 * x.shape[3] * g.shape[3] >= 2 ** 31):
+            raise ValueError(f"unsupported shape for the f32 dW: x "
+                             f"{tuple(x.shape)}, g {tuple(g.shape)}")
+        return   # any alignment: 16-byte copies where it allows
     if (wgrad_path(x.shape[3], g.shape[3]) != "narrow"
             and (x.data_ptr() % 16 or g.data_ptr() % 16)):
         raise ValueError("x and g must be 16-byte aligned (TMA; the packed "
@@ -271,29 +315,55 @@ def _wgrad_launch(x: torch.Tensor, g: torch.Tensor,
     return out
 
 
+def _wgrad_f32_launch(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """One call of the f32 dW kernel on checked CUDA inputs (its split-K
+    pass and, past one split, the sum over the splits in split order):
+    returns dW (3,3,Cin,Cout) f32; raises on a CUDA error."""
+    n, h, wd, cin = x.shape
+    cout = g.shape[3]
+    with torch.cuda.device(x.device):
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        splits = wgrad_f32_splits(n, h, wd, cin, cout, sms)
+        out = torch.empty((3, 3, cin, cout), dtype=torch.float32,
+                          device=x.device)
+        ws = (torch.empty((splits, 3, 3, cin, cout), dtype=torch.float32,
+                          device=x.device) if splits > 1 else None)
+        err = f32_library().conv3x3_wgrad_f32(
+            x.data_ptr(), g.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, n, h, wd, cin, cout,
+            splits, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3_wgrad f32 kernel launch failed: CUDA "
+                           f"error {err} at x {tuple(x.shape)}, Cout {cout}")
+    return out
+
+
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dW (3,3,Cin,Cout) f32 of conv3x3 pad-1 from x (N,H,W,Cin) and the
     cotangent g (N,H,W,Cout), NHWC contiguous.
 
     On a CPU tensor this is ``conv3x3_wgrad_plain``. On a CUDA tensor it
-    launches the Hopper kernel (bf16 x and g, f32 accumulation, split-K
-    with a deterministic second pass) or raises; an x or g whose data is
-    not 16-byte aligned is copied first (``fused_conv.aligned16``)."""
+    launches a Hopper kernel or raises: bf16 x and g on
+    ``csrc/conv3x3_wgrad.cu`` (f32 accumulation), f32 x and g on the
+    split-TF32 dW of ``csrc/conv3x3_f32.cu``, both split-K with a
+    deterministic second pass; an x or g whose data is not 16-byte aligned
+    is copied first (``fused_conv.aligned16``)."""
     if x.device.type == "cpu":
         return conv3x3_wgrad_plain(x, g)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_wgrad: no kernel for {x.device}")
     x, g = aligned16(x), aligned16(g)
     _check_wgrad(x, g)
-    path = wgrad_path(x.shape[3], g.shape[3])
-    out = _wgrad_launch(x, g, path)
+    path = wgrad_route(x.dtype, x.shape[3], g.shape[3])
+    out = (_wgrad_f32_launch(x, g) if path == "f32"
+           else _wgrad_launch(x, g, path))
     _count(conv3x3_wgrad, path)
     return out
 
 
 def reset_launches() -> None:
-    for fn, paths in ((conv3x3_fwd, PATHS), (conv3x3_dgrad, PATHS),
-                      (conv3x3_wgrad, WGRAD_PATHS)):
+    for fn, paths in ((conv3x3_fwd, ROUTES), (conv3x3_dgrad, ROUTES),
+                      (conv3x3_wgrad, WGRAD_ROUTES)):
         fn.launches = 0
         fn.path_launches = dict.fromkeys(paths, 0)
 
@@ -313,18 +383,18 @@ def path_launches() -> dict:
             "wgrad": dict(conv3x3_wgrad.path_launches)}
 
 
-def step_path_launches(shapes) -> dict:
-    """{piece: {path: launches}} of one training step over conv blocks
-    ``shapes`` ((H, W, Cin, Cout) each, forward order): the first block is
-    the stem, whose input needs no gradient, so it has no dx. Serving's
-    forward launches are the "fwd" entry's."""
-    out = {"fwd": dict.fromkeys(PATHS, 0), "dgrad": dict.fromkeys(PATHS, 0),
-           "wgrad": dict.fromkeys(WGRAD_PATHS, 0)}
+def step_path_launches(shapes, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """{piece: {path: launches}} of one training step at ``dtype`` over conv
+    blocks ``shapes`` ((H, W, Cin, Cout) each, forward order): the first
+    block is the stem, whose input needs no gradient, so it has no dx.
+    Serving's forward launches are the "fwd" entry's."""
+    out = {"fwd": dict.fromkeys(ROUTES, 0), "dgrad": dict.fromkeys(ROUTES, 0),
+           "wgrad": dict.fromkeys(WGRAD_ROUTES, 0)}
     for i, (_, _, cin, cout) in enumerate(shapes):
-        out["fwd"][conv_path(cin, cout)] += 1
+        out["fwd"][route(dtype, cin, cout)] += 1
         if i:
-            out["dgrad"][conv_path(cout, cin)] += 1
-        out["wgrad"][wgrad_path(cin, cout)] += 1
+            out["dgrad"][route(dtype, cout, cin)] += 1
+        out["wgrad"][wgrad_route(dtype, cin, cout)] += 1
     return out
 
 

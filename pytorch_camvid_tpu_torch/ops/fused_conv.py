@@ -21,11 +21,18 @@ per-channel affine of the conv output, so the block is one pass:
   % 8 == 0: the Cin = 3 stem and the head's dx with Cin = 12, on the 9 taps
   x Cin packed into K with weights resident per block) and "narrow" (the
   first mma.sync design, for what neither takes, e.g. 64->20).
+- float32 x and w go to a second source, ``csrc/conv3x3_f32.cu``: an
+  implicit GEMM on split-TF32 tensor-core products (each operand split
+  into a TF32 high part and residual, three products summed), f32 in and
+  out, with the same contract (``flip``, a, b, ``relu``). It is the f32
+  instance of K4 (``pallas_conv.py`` emits x's dtype), launched as route
+  "f32" (``route``).
 - ``conv3x3_bn_relu_plain`` is the same function from stock PyTorch ops.
   The CPU tests run it, and the card check compares the kernel with it.
 - ``conv3x3_bn_relu.launches`` counts kernel launches, and
-  ``conv3x3_bn_relu.path_launches`` counts them per path, so a run can show
-  that its main path went through the kernel.
+  ``conv3x3_bn_relu.path_launches`` counts them per route (the bf16
+  source's three paths and "f32"), so a run can show that its main path
+  went through the kernel.
 
 Tolerance against the JAX package's unfused eval path: JAX computes
 ``(conv + b - mean) * inv + bias`` (pytorch_camvid_tpu/ops/conv.py:195-198)
@@ -49,7 +56,9 @@ from pytorch_camvid_tpu_torch.ops import cuda_build
 BN_EPS = 1e-5  # torch.nn.BatchNorm2d default
 
 SOURCE = cuda_build.CSRC / "conv3x3_bn_relu.cu"
+F32_SOURCE = cuda_build.CSRC / "conv3x3_f32.cu"
 PATHS = ("narrow", "wgmma", "packed")   # by the .cu's path code
+ROUTES = PATHS + ("f32",)   # the launch counters' keys
 RES_MAX_CIN = 128   # the wgmma path's N = 16 tile keeps 9 x Cin x 16 weights
 K_MAX = 144         # the packed path's K: 9 taps x Cin
 
@@ -64,6 +73,12 @@ def conv_path(cin: int, cout: int) -> str:
         tma = cin <= RES_MAX_CIN if cout <= 16 else cout % 8 == 0
         return "wgmma" if tma else "narrow"
     return "packed" if 9 * cin <= K_MAX and cout % 8 == 0 else "narrow"
+
+
+def route(dtype: torch.dtype, cin: int, cout: int) -> str:
+    """The kernel that takes a (Cin, Cout) call at ``dtype``: "f32" for
+    float32, else the bf16 source's ``conv_path``."""
+    return "f32" if dtype == torch.float32 else conv_path(cin, cout)
 
 
 def flipped(w: torch.Tensor) -> torch.Tensor:
@@ -113,6 +128,29 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def f32_library() -> ctypes.CDLL:
+    """``csrc/conv3x3_f32.cu`` built and bound: the f32 forward (K4, K1 fwd
+    and dx) and the f32 dW (K1's, ``conv_train``) with its tile counts."""
+    return bind_f32(cuda_build.load(F32_SOURCE))
+
+
+def bind_f32(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C entry points of a library built from ``conv3x3_f32.cu`` (or
+    an edit of it, ``f32_variants``), typed."""
+    lib.conv3x3_bn_relu_f32.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.conv3x3_bn_relu_f32.restype = ctypes.c_int
+    lib.conv3x3_wgrad_f32.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.conv3x3_wgrad_f32.restype = ctypes.c_int
+    lib.conv3x3_wgrad_f32_pixel_chunks.argtypes = [ctypes.c_int] * 3
+    lib.conv3x3_wgrad_f32_pixel_chunks.restype = ctypes.c_longlong
+    lib.conv3x3_wgrad_f32_out_tiles.argtypes = [ctypes.c_int] * 2
+    lib.conv3x3_wgrad_f32_out_tiles.restype = ctypes.c_longlong
+    return lib
+
+
 def kernel_path(cin: int, cout: int) -> str:
     """The path the built library takes for (Cin, Cout) (``conv_path``'s
     rule as the .cu holds it; chip_smoke checks that the two agree)."""
@@ -129,9 +167,9 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 
 
 def _check(x, w, a, b, flip=False):
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(f"conv3x3_bn_relu kernel takes bf16 x and w, got "
-                        f"{x.dtype} and {w.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or w.dtype != x.dtype:
+        raise TypeError(f"conv3x3_bn_relu kernel takes bf16 or f32 x and w "
+                        f"of one dtype, got {x.dtype} and {w.dtype}")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError("conv3x3_bn_relu kernel takes f32 a and b")
     if x.dim() != 4:
@@ -154,6 +192,11 @@ def _check(x, w, a, b, flip=False):
     if min(x.shape) == 0 or max(*x.shape, 9 * cin * cout) >= 2 ** 31:
         raise ValueError(f"unsupported shape x {tuple(x.shape)}, "
                          f"Cout {cout}")
+    if x.dtype == torch.float32:
+        if x.shape[0] * x.shape[1] * x.shape[2] >= 2 ** 31 - 128:
+            raise ValueError(f"the f32 kernel takes fewer than 2**31 - 128 "
+                             f"pixels, got x {tuple(x.shape)}")
+        return   # any alignment: 16-byte copies where it allows
     path = conv_path(cin, cout)
     if path == "wgmma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError("x and w must be 16-byte aligned (TMA)")
@@ -171,8 +214,9 @@ def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     a, b: (Cout,) f32.
 
     On a CPU tensor this is ``conv3x3_bn_relu_plain``. On a CUDA tensor it
-    launches the Hopper kernel (bf16 x and w, f32 accumulation, bf16 out)
-    on ``conv_path(Cin, Cout)``, or raises; an x or w whose data is not
+    launches a Hopper kernel, or raises: bf16 x and w (f32 accumulation,
+    bf16 out) on ``conv_path(Cin, Cout)``; f32 x and w (split-TF32
+    products, f32 out) on the f32 kernel. An x or w whose data is not
     16-byte aligned is copied first (``aligned16``)."""
     if x.device.type == "cpu":
         return conv3x3_bn_relu_plain(x, w, a, b, relu, flip)
@@ -182,6 +226,11 @@ def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     _check(x, w, a, b, flip)
     n, h, wd, cin = x.shape
     cout = a.shape[0]
+    if x.dtype == torch.float32:
+        out = _f32_launch(x, w, a, b, relu, flip)
+        conv3x3_bn_relu.launches += 1
+        conv3x3_bn_relu.path_launches["f32"] += 1
+        return out
     lib = _library()
     with torch.cuda.device(x.device):
         out = torch.empty((n, h, wd, cout), dtype=torch.bfloat16,
@@ -198,9 +247,28 @@ def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     return out
 
 
+def _f32_launch(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, relu: bool, flip: bool) -> torch.Tensor:
+    """One launch of the f32 kernel on checked CUDA inputs; raises on a
+    CUDA error."""
+    n, h, wd, cin = x.shape
+    cout = a.shape[0]
+    with torch.cuda.device(x.device):
+        out = torch.empty((n, h, wd, cout), dtype=torch.float32,
+                          device=x.device)
+        err = f32_library().conv3x3_bn_relu_f32(
+            x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), n, h, wd, cin, cout, int(relu), int(flip),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3_bn_relu f32 kernel launch failed: CUDA "
+                           f"error {err} at x {tuple(x.shape)}, Cout {cout}")
+    return out
+
+
 def reset_launches() -> None:
     conv3x3_bn_relu.launches = 0
-    conv3x3_bn_relu.path_launches = dict.fromkeys(PATHS, 0)
+    conv3x3_bn_relu.path_launches = dict.fromkeys(ROUTES, 0)
 
 
 reset_launches()

@@ -5,8 +5,9 @@ predict.py): single-image inference.
         [-net unet] [-c 12] [-device cuda]
 
 Reads an image with cv2, resizes it to ``settings.IMAGE_SIZE``, runs it
-through ``serving.Predictor`` (bf16 compute, every conv block on the fused
-kernel on CUDA; the JAX CLI computes in f32), nearest-resizes the class map
+through ``serving.Predictor`` in float32, as the JAX CLI computes (every
+conv block on the fused kernel's f32 instance on CUDA), nearest-resizes the
+class map
 back to the source size and writes the JAX CLI's three files in the working
 directory: ``src.jpg``, ``predict.jpg`` (class indices) and
 ``predict_color.png`` (12-class palette). Takes a reference ``.pth`` or a
@@ -20,6 +21,7 @@ import argparse
 import sys
 
 import numpy as np
+import torch
 
 from pytorch_camvid_tpu_torch.config import settings
 
@@ -48,7 +50,7 @@ def main(argv=None) -> np.ndarray:
     from pytorch_camvid_tpu_torch.train.loop import check_device
     from pytorch_camvid_tpu_torch.utils.viz import colorize_mask
 
-    check_device(args.device, "bfloat16")
+    check_device(args.device, "float32")
     src = cv2.imread(args.img)
     if src is None:
         raise FileNotFoundError(args.img)
@@ -56,6 +58,7 @@ def main(argv=None) -> np.ndarray:
     image = cv2.resize(src, (w, h))
     with Predictor.from_checkpoint(args.net, args.weight, batch_size=1,
                                    image_hw=(h, w), num_classes=args.c,
+                                   compute_dtype=torch.float32,
                                    device=args.device) as p:
         preds = p.predict(image[None])[0]
     preds = cv2.resize(preds, src.shape[:2][::-1],

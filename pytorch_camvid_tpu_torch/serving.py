@@ -3,7 +3,8 @@ pytorch_camvid_tpu/serving.py).
 
 - Any number of images pads up to the fixed serving batch.
 - Resize (cv2 bilinear convention) and normalization run on the device;
-  compute is bf16 by default with f32 logits.
+  compute is bf16 by default with f32 logits (``compute_dtype=
+  torch.float32`` runs the f32 kernels, as the predict CLI does).
 - The class map leaves the device as uint8, nibble-packed (two pixels per
   byte) when there are <= 16 classes and the width is even, and is unpacked
   on the host.

@@ -3,15 +3,14 @@ train.py):
 
     python -m pytorch_camvid_tpu_torch.train -net unet [-b 10] [-e 120]
         [-lr 5e-4] [-wd 0] [-resume] [-data data] [-image_size W H]
-        [-dtype bfloat16] [-accum 1] [-chain 8] [-seed 0] [-quiet]
+        [-dtype float32] [-accum 1] [-chain 8] [-seed 0] [-quiet]
         [-dataset camvid|voc2012] [-loader device|host] [-device cuda]
 
 The JAX CLI's flags plus ``-device`` (default ``cuda``; without a CUDA
-device it fails, ``-device cpu`` runs on the CPU). One deliberate
-difference: ``-dtype`` defaults to ``bfloat16`` here, where the JAX CLI's
-default ``float32`` means "reference numerics": the card's conv kernels
-take bf16 only, and ``-dtype float32`` on a CUDA device is refused at
-startup (it runs on the CPU). Checkpoints and TB logs land cwd-relative,
+device it fails, ``-device cpu`` runs on the CPU). ``-dtype`` defaults to
+``float32``, the JAX CLI's "reference numerics", which runs on the card's
+f32 kernels; ``-dtype bfloat16`` runs the bf16 ones. Checkpoints and TB
+logs land cwd-relative,
 in ``checkpoints/<time>/`` and ``runs/<time>/``, as the reference's do.
 ``-dataset voc2012`` trains on the VOC caches (``data/voc2012.py``) with
 VOC's mean and std and 255 (the ignore label and the letterbox pad) kept
@@ -56,11 +55,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("-dataset", type=str, default="camvid",
                    choices=["camvid", "voc2012"],
                    help="dataset to train on")
-    p.add_argument("-dtype", type=str, default="bfloat16",
+    p.add_argument("-dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="compute dtype (default bfloat16, unlike the JAX "
-                   "CLI's float32: the card's kernels take bf16 only, and "
-                   "float32 runs on -device cpu only)")
+                   help="compute dtype (float32: reference numerics)")
     p.add_argument("-dp", type=int, default=0,
                    help="data-parallel devices (0 and 1: one device; more "
                    "is not ported yet)")

@@ -35,8 +35,10 @@ the batch with ignored 255 labels to keep one compiled shape.
 step ahead (``prefetch``), so its gather and copy overlap the current
 step; the default ``'device'`` keeps the split on the device. Options
 whose parts are not ported raise ``NotImplementedError`` naming their
-ROADMAP.md item: ``data_parallel > 1``, ``remat``; so does float32 compute
-on a CUDA device (the card's conv kernels take bf16).
+ROADMAP.md item: ``data_parallel > 1``, ``remat``. Both compute dtypes run
+on the card: bfloat16 on the bf16 conv kernels, float32 (the default, the
+JAX package's reference numerics) on the split-TF32 f32 kernels
+(``csrc/conv3x3_f32.cu``).
 """
 
 from __future__ import annotations
@@ -111,19 +113,13 @@ def not_ported(what: str, item: str):
 
 
 def check_device(device: str, compute_dtype: str) -> torch.device:
-    """The device an entry point runs on. A CUDA device takes bfloat16
-    compute only and must be there; the CPU takes both dtypes (the plain
-    versions of the kernels). Nothing falls back to the CPU."""
+    """The device an entry point runs on, for either compute dtype: a CUDA
+    device (its kernels) must be there; the CPU runs the plain versions of
+    the kernels. Nothing falls back to the CPU."""
     dev = torch.device(device)
     if compute_dtype not in DTYPES:
         raise ValueError(f"unknown compute dtype {compute_dtype!r}")
     if dev.type == "cuda":
-        if compute_dtype != "bfloat16":
-            raise not_ported(
-                f"-dtype {compute_dtype} on {device} (the card's conv "
-                f"kernels take bfloat16; run -dtype bfloat16 on the card, "
-                f"or -device cpu for float32 on the plain versions)",
-                "f32 on the card")
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {device!r} requested but no CUDA device is "

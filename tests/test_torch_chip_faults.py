@@ -237,3 +237,60 @@ def test_shadowed_errors_keep_the_worst_and_nan():
     chip_faults.smoke._note(errs, "K1 dW", float("nan"))
     chip_faults.smoke._note(errs, "K1 dW", 0.5)
     assert math.isnan(errs["K1 dW"])
+
+
+@pytest.fixture
+def f32_launches(monkeypatch):
+    """The weights of each f32 forward launch the faults pass on; each
+    launch returns 1 + 2**-12."""
+    seen = []
+
+    def fwd(x, w, a, b, relu, flip):
+        seen.append((w, flip))
+        return torch.full((2, 3), 1.0 + 2.0 ** -12)
+
+    monkeypatch.setattr(chip_faults, "_f32_launch", fwd)
+    return seen
+
+
+def test_f32_dx_tap_dropped_zeroes_a_copy_on_dx_only(f32_launches):
+    w = torch.ones(3, 3, 4, 2)
+    chip_faults.f32_dx_tap_dropped(None, w, None, None, False, False)
+    chip_faults.f32_dx_tap_dropped(None, w, None, None, False, True)
+    (fwd_w, _), (dx_w, flip) = f32_launches
+    assert fwd_w is w and flip
+    assert not dx_w[0, 0].any() and dx_w[1:].all() and dx_w[0, 1:].all()
+    assert w.all()   # the caller's weights untouched
+
+
+def test_f32_output_through_bf16_rounds(f32_launches):
+    """1 + 2**-12 leaves the faulty forward as 1.0, in f32."""
+    out = chip_faults.f32_out_through_bf16(None, None, None, None, True,
+                                           False)
+    assert out.dtype == torch.float32 and torch.equal(out,
+                                                      torch.ones(2, 3))
+
+
+@pytest.mark.parametrize("name", ["single_pass", "lo_hi_dropped",
+                                  "atomic_splits"])
+def test_f32_variant_faults_replace_both_callers_library(monkeypatch, name):
+    """A planted f32 variant stands in for ``f32_library`` where both the
+    forward's and the dW's launches look it up, and only inside the
+    block; the variants are built once, all together."""
+    from pytorch_camvid_tpu_torch.ops import conv_train
+    builds = []
+
+    def build(names):
+        builds.append(tuple(names))
+        return {n: f"lib {n}" for n in names}, [(n, True, []) for n in names]
+
+    monkeypatch.setattr(chip_faults.f32_variants, "build", build)
+    monkeypatch.setattr(chip_faults, "_F32_LIBS", {})
+    sound = fused_conv.f32_library, conv_train.f32_library
+    with chip_faults.f32_variant(name):
+        assert fused_conv.f32_library() == conv_train.f32_library() == \
+            f"lib {name}"
+    with chip_faults.f32_variant(name):
+        pass
+    assert (fused_conv.f32_library, conv_train.f32_library) == sound
+    assert builds == [chip_faults.f32_variants.FAULTS]

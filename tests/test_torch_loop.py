@@ -303,7 +303,8 @@ def test_batch_larger_than_the_split_raises(small_unet):
 
 
 # ROADMAP.md Queue 1 items that are done: their options run
-PORTED_ITEMS = {"the rest of augmentation and the pipeline"}
+PORTED_ITEMS = {"the rest of augmentation and the pipeline",
+                "f32 on the card"}
 
 
 @pytest.mark.parametrize("change,item", [
@@ -314,9 +315,17 @@ PORTED_ITEMS = {"the rest of augmentation and the pipeline"}
 def test_unported_options_name_their_roadmap_item(small_unet, change, item):
     """An option of a Queue 1 item raises, naming it, until the item is
     ported; then it runs: ``loader='host'`` trains a tiny CPU epoch
-    (with its eval pass) bit-equal to the device loader's."""
+    (with its eval pass) bit-equal to the device loader's; float32 on a
+    CUDA device is taken, so without a card the run stops at the device
+    check."""
     if item not in PORTED_ITEMS:
         with pytest.raises(NotImplementedError, match=f"Queue 1: {item}"):
+            loop.run_training(replace(CFG, **change), _DS(4), _DS(4))
+        return
+    if item == "f32 on the card":
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             loop.run_training(replace(CFG, **change), _DS(4), _DS(4))
         return
     cfg = replace(CFG, epochs=1, **change)
@@ -331,11 +340,10 @@ def test_unported_options_name_their_roadmap_item(small_unet, change, item):
 def test_device_rule():
     assert loop.check_device("cpu", "float32") == torch.device("cpu")
     assert loop.check_device("cpu", "bfloat16") == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="f32 on the card"):
-        loop.check_device("cuda", "float32")
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            loop.check_device("cuda", "bfloat16")
+        for dtype in ("float32", "bfloat16"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                loop.check_device("cuda", dtype)
     with pytest.raises(ValueError):
         loop.check_device("cpu", "float16")
 

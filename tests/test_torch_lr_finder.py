@@ -163,4 +163,4 @@ def test_recorded_lr_is_the_next_iterations():
     assert port.recorded_lr(fn, 1) == fn(1) > fn(0)
     args = port.parser().parse_args(["-net", "unet", "-stop_div", "false"])
     assert args.stop_div is False
-    assert (args.device, args.dtype) == ("cuda", "bfloat16")
+    assert (args.device, args.dtype) == ("cuda", "float32")   # JAX's
