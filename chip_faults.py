@@ -166,8 +166,9 @@ _F32_LIBS = {}   # the fault variants of csrc/conv3x3_f32.cu, built once
 @contextlib.contextmanager
 def f32_variant(name: str):
     """The f32 kernels built from ``f32_variants.VARIANTS[name]`` (a fault:
-    single-pass TF32, the lo*hi product dropped, the dW's splits added by
-    atomics) in place of the source, for both callers of the library."""
+    single-pass TF32, the lo*hi product dropped, a step sum started on the
+    stale scratch, the dW's splits added by atomics) in place of the
+    source, for both callers of the library."""
     if not _F32_LIBS:
         libs, logs = f32_variants.build(f32_variants.FAULTS)
         for n, ok, log in logs:
@@ -524,6 +525,9 @@ def main() -> int:
          lambda: planted(fused_conv, "_f32_launch", f32_out_through_bf16)),
         ("f32", "the f32 dW's splits summed in launch order (atomics)",
          lambda: f32_variant("atomic_splits")),
+        ("f32", "a step sum's first product added onto the stale scratch "
+         "(scale-d 1; forward and dW, the wgmma route)",
+         lambda: f32_variant("stale_scratch")),
     ]
     ok = True
     tmp = tempfile.TemporaryDirectory()

@@ -15,8 +15,10 @@ Phases (each prints its lines; any failure exits non-zero):
    dW: wgmma, packed or narrow) as the wrappers' rules
    (``fused_conv.conv_path``, ``conv_train.wgrad_path``) at every (Cin,
    Cout) the phases below run, that the f32 dW library's tile counts are
-   its split rule's (``conv_train.wgrad_f32_*``), and that a step's
-   launches per path are ``PATH_TABLE``'s (and at f32 all on "f32").
+   its split rule's (``conv_train.wgrad_f32_*``), that the f32 library
+   picks the wrappers' f32 routes ("f32", wgmma, or "f32_narrow") and
+   forward tile N, and that a step's launches per path are
+   ``PATH_TABLE``'s (and ``path_table(net, dtype=torch.float32)``'s).
 3. K4 vs plain: the kernel against its plain PyTorch version in bf16 at
    every distinct conv block shape of UNet and SegNet at 360x480, batch 8:
    error, both times and cuDNN's conv alone (CUDA events); then at
@@ -146,7 +148,9 @@ Phases (each prints its lines; any failure exits non-zero):
    is float32, as the JAX CLIs').
 14. f32 on the card, the JAX CLIs' default numerics: (1) K4 and K1's
    forward, dx and dW at float32 (``csrc/conv3x3_f32.cu``, split-TF32
-   products) at every distinct block shape of both models at b2, at
+   products: the wgmma route "f32", or the mma.sync route "f32_narrow"
+   for the stem's forward and dW and VOC's 21-channel dx and dW) at every
+   distinct block shape of both models at b2, at
    ``F32_EDGE`` (64->21, ragged 45x61 tiles, the stem, the head), on a
    misaligned view ``x[1:]`` and (K4) on an input past 2**31 elements:
    err(kernel) <= max(4 err(plain f32, TF32 off), 2e-6 max|f64|), err
@@ -154,13 +158,15 @@ Phases (each prints its lines; any failure exits non-zero):
    dW bit-equal on two launches; then their times at b10 beside the plain
    f32 version, the library call with TF32 off and on, and the bound (the
    FLOPs at a third of the TF32 peak, or the f32 bytes), summed per
-   model. (2) The train CLI with no -dtype (float32), UNet and SegNet,
-   b10, one epoch of 4 steps on phase 12's caches: every K1 and K2 call
-   against plain on its inputs (``F32_SHADOW_TOL``), the first step also
-   on the plain f32 path from the same state and draws
+   model, with each piece's route; VOC's 64->21 head timed too
+   (``F32_EXTRA_TIMED``). (2) The train CLI with no -dtype (float32),
+   UNet and SegNet, b10, one epoch of 4 steps on phase 12's caches: every
+   K1 and K2 call against plain on its inputs (``F32_SHADOW_TOL``), the
+   first step also on the plain f32 path from the same state and draws
    (``F32_TRAIN_*``), launches per step all on the f32 kernels
-   (23/22/23, 26/25/26; K2 5/10/5); run B stopped after 2 batches and
-   resumed with ``-resume``: every leaf equal to run A's. (3) The eval
+   (23/22/23, 26/25/26, of them 1/0/1 on "f32_narrow"; K2 5/10/5); run
+   B stopped after 2 batches and resumed with ``-resume``: every leaf
+   equal to run A's. (3) The eval
    CLI at its default on A's checkpoint: the loop's mIoU; K4 at f32 23
    (UNet) or 26 (SegNet, with K3's pool and unpool 5 each) times a batch.
    (4) ``predict.main`` at its default (f32) on a val image with UNet's
@@ -169,7 +175,7 @@ Phases (each prints its lines; any failure exits non-zero):
    pixels. (5) The LR finder at its default, UNet, 4 iterations: finite
    losses, K1's launches at f32. (6) UNet's b10 f32 train step, kernel
    against plain (TF32 off): ms, img/s, peak memory.
-   ``chip_faults.py`` plants five faults under (1).
+   ``chip_faults.py`` plants six faults under (1).
 In phases 8 and 9 the plain path replays the kernel path's pool choices
 (``recorded_choices``, ``replayed_choices``): a 1-ulp difference between
 the two paths' convs would otherwise flip the choice of near-tied windows
@@ -186,7 +192,8 @@ the card and its power limit; the line before that is the per-kernel JSON
 the f32 instances of K4 and K1's three pieces; K4's and K1's also give
 their launches on each path, ``path_launches``; K1's also the 64->21
 head's times, ``head_64_21``; the f32 ones the library call's time with
-TF32 on, ``library_tf32_ms``).
+TF32 on, ``library_tf32_ms``, and their launches on each f32 route,
+``path_launches``).
 Imports neither jax nor cv2.
 """
 
@@ -299,23 +306,34 @@ EDGE_SHAPES = ((2, 45, 61, 64, 64), (2, 44, 60, 512, 256),
 N_BLOCKS = {"unet": 23, "segnet": 26}
 HEAD_PATHS = {12: {"fwd": "wgmma", "dgrad": "packed", "wgrad": "packed"},
               21: {"fwd": "narrow", "dgrad": "narrow", "wgrad": "narrow"}}
+# at float32 the body's blocks take the f32 wgmma route ("f32"), the
+# stem's forward and dW (Cin 3) the narrow one ("f32_narrow"), the head's
+# pieces by its class count: 12 all three on "f32" (the forward's N tile
+# 16, the dx's Cin 12, the dW's N tile 16), 21 its forward on "f32" (N
+# tile 24) and its dx (Cin 21) and dW (Cout 21) on "f32_narrow"
+F32_HEAD_ROUTES = {12: {"fwd": "f32", "dgrad": "f32", "wgrad": "f32"},
+                   21: {"fwd": "f32", "dgrad": "f32_narrow",
+                        "wgrad": "f32_narrow"}}
 
 
 def path_table(net: str, classes: int = 12,
                dtype: torch.dtype = torch.bfloat16) -> dict:
     """K4/K1 launches per path of one forward and one training step at
-    ``dtype``: at bf16 as the comment above says, at float32 every launch
-    on the f32 kernels."""
+    ``dtype``, as the comments above say: the body's blocks on the wgmma
+    path (bf16) or route (f32), the stem's forward and dW on the packed
+    path or the narrow f32 route (its dx is not taken), the head's by its
+    class count."""
     nb = N_BLOCKS[net]
-    if dtype == torch.float32:
-        return {piece: {"wgmma": 0, "packed": 0, "narrow": 0, "f32": k}
-                for piece, k in (("fwd", nb), ("dgrad", nb - 1),
-                                 ("wgrad", nb))}
-    body = nb - 2
-    table = {"fwd": {"wgmma": body, "packed": 1, "narrow": 0, "f32": 0},
-             "dgrad": {"wgmma": body, "packed": 0, "narrow": 0, "f32": 0},
-             "wgrad": {"wgmma": body, "packed": 1, "narrow": 0, "f32": 0}}
-    for piece, path in HEAD_PATHS[classes].items():
+    f32 = dtype == torch.float32
+    body, stem = ("f32", "f32_narrow") if f32 else ("wgmma", "packed")
+    table = {piece: dict.fromkeys(fused_conv.ROUTES, 0)
+             for piece in ("fwd", "dgrad", "wgrad")}
+    for piece in table:
+        table[piece][body] = nb - 2
+    table["fwd"][stem] += 1
+    table["wgrad"][stem] += 1
+    for piece, path in (F32_HEAD_ROUTES if f32 else HEAD_PATHS)[
+            classes].items():
         table[piece][path] += 1
     return table
 
@@ -2356,6 +2374,10 @@ F32_SPLIT_RATE = bench.H100_TF32_PEAK / 3
 F32_EDGE = ((2, 360, 480, 64, 21), (2, 45, 61, 64, 64), (2, 45, 61, 3, 64),
             (2, 45, 61, 64, 12))
 F32_VIEW = (3, 45, 61, 3, 64)
+# timed beside the blocks, in no model sum: VOC's 64->21 head at 360x480
+# (its forward on the wgmma route with N tile 24, its dx and dW on the
+# narrow one)
+F32_EXTRA_TIMED = ((360, 480, 64, 21),)
 F32_BIG = (100, 360, 480, 128, 64)
 # the f32 training CLI runs against the plain f32 path (TF32 off): each
 # kernel call on the step's data (max|kernel - plain| / max|plain|; the
@@ -2512,10 +2534,11 @@ def f32_timings(gen: torch.Generator) -> dict:
     the library call with TF32 off (``F.conv2d`` for K4, whose plain
     version adds the fold; ``convolution_backward`` with the real input for
     dx; the plain version itself for K1's forward and dW) and with TF32
-    on. The stem has no dx on the path. Returns {(h, w, cin, cout):
-    {piece: {ms, plain_ms, library_ms, library_tf32_ms}}}."""
+    on. The stem has no dx on the path. Also at ``F32_EXTRA_TIMED``.
+    Returns {(h, w, cin, cout): {piece: {ms, plain_ms, library_ms,
+    library_tf32_ms, route}}}."""
     res, n = {}, F32_TIME_BATCH
-    for shape in all_block_shapes():
+    for shape in list(all_block_shapes()) + list(F32_EXTRA_TIMED):
         h, w, cin, cout = shape
         x, wt, g, a, b = f32_inputs(gen, n, h, w, cin, cout)
         xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
@@ -2537,9 +2560,14 @@ def f32_timings(gen: torch.Generator) -> dict:
             with tf32_convs():
                 t["library_tf32_ms"] = cuda_ms(library[piece],
                                                F32_TIME_ITERS, 2)
+            t["route"] = (conv_train.wgrad_f32_route(cin, cout)
+                          if piece == "wgrad" else
+                          fused_conv.f32_route(cout, cin) if piece == "dx"
+                          else fused_conv.f32_route(cin, cout))
             got[piece] = t
-            line.append(f"{piece} {t['ms']:.3f} ms (plain {t['plain_ms']:.3f}"
-                        f", library {t['library_ms']:.3f}, TF32 "
+            line.append(f"{piece} {t['ms']:.3f} ms on {t['route']} (plain "
+                        f"{t['plain_ms']:.3f}, library "
+                        f"{t['library_ms']:.3f}, TF32 "
                         f"{t['library_tf32_ms']:.3f});")
         bound, by = f32_bound(n, h, w, cin, cout)
         print(" ".join(line) + f" bound {bound:.3f} ms by {by}", flush=True)
@@ -2724,7 +2752,7 @@ def f32_training_run(tmp: str, data: str, net: str) -> dict:
           f"{net} f32 eval CLI's K4 launches")
     check(k3 == want_k3, f"{net} f32 eval CLI's K3 launches")
     return {"history": history, "ckpt": final, "counts": counts,
-            "k4": sum(k4.values())}
+            "paths": paths, "k4": sum(k4.values()), "k4_paths": k4}
 
 
 class Cv2Stand:
@@ -2864,29 +2892,32 @@ def phase_f32(tmp: str, data: str) -> dict:
     f32_step_timing()
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
     return {"sums": sums["unet"], "k4": runs["unet"]["k4"],
-            "k1": runs["unet"]["counts"]}
+            "k1": runs["unet"]["counts"], "k4_paths": runs["unet"]["k4_paths"],
+            "k1_paths": runs["unet"]["paths"]}
 
 
 def f32_entries(f32: dict) -> list:
     """The JSON entries of the four f32 instances: UNet's sums at b10 over
     its blocks (``f32_sums``), launches from the f32 eval CLI (K4) and the
-    f32 train CLI run (K1)."""
+    f32 train CLI run (K1), in all and on each f32 route."""
     src = "pytorch_camvid_tpu_torch/csrc/conv3x3_f32.cu"
     out = []
-    for piece, name, replaces, launches in (
+    for piece, name, replaces, key in (
             ("k4", "conv3x3_bn_relu_f32",
-             "pytorch_camvid_tpu/ops/pallas_conv.py:230", f32["k4"]),
+             "pytorch_camvid_tpu/ops/pallas_conv.py:230", None),
             ("fwd", "conv3x3_train_f32.fwd",
-             "pytorch_camvid_tpu/ops/pallas_conv.py:230", f32["k1"]["fwd"]),
+             "pytorch_camvid_tpu/ops/pallas_conv.py:230", "fwd"),
             ("dx", "conv3x3_train_f32.dgrad",
-             "pytorch_camvid_tpu/ops/pallas_conv.py:230",
-             f32["k1"]["dgrad"]),
+             "pytorch_camvid_tpu/ops/pallas_conv.py:230", "dgrad"),
             ("wgrad", "conv3x3_train_f32.wgrad",
-             "pytorch_camvid_tpu/ops/pallas_conv_train.py:172",
-             f32["k1"]["wgrad"])):
+             "pytorch_camvid_tpu/ops/pallas_conv_train.py:172", "wgrad")):
+        launches = f32["k4"] if key is None else f32["k1"][key]
+        by_route = f32["k4_paths"] if key is None else f32["k1_paths"][key]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": launches,
-                    **f32["sums"][piece]})
+                    **f32["sums"][piece],
+                    "path_launches": {r: by_route[r]
+                                      for r in ("f32", "f32_narrow")}})
     return out
 
 
@@ -3013,20 +3044,30 @@ def start() -> None:
     print(f"paths: the libraries and the wrappers choose alike at "
           f"{len(pairs)} (Cin, Cout) pairs", flush=True)
     f32 = fused_conv.f32_library()
-    for cin, cout in sorted(pairs | {(cin, cout)
-                                     for *_, cin, cout in F32_EDGE}):
-        check(f32.conv3x3_wgrad_f32_out_tiles(cin, cout)
+    f32_pairs = sorted(pairs | {(cin, cout) for *_, cin, cout in F32_EDGE}
+                       | {(cout, cin) for *_, cin, cout in F32_EDGE})
+    for cin, cout in f32_pairs:
+        check(fused_conv.f32_kernel_route(cin, cout)
+              == fused_conv.f32_route(cin, cout)
+              and fused_conv.f32_kernel_route(cin, cout, wgrad=True)
+              == conv_train.wgrad_f32_route(cin, cout)
+              and f32.conv3x3_f32_tile_n(cout) == fused_conv.f32_tile_n(cout)
+              and f32.conv3x3_wgrad_f32_out_tiles(cin, cout)
               == conv_train.wgrad_f32_out_tiles(cin, cout),
-              f"f32 dW output tiles of the library at {cin}->{cout}")
+              f"f32 routes, tile N and dW output tiles of the library at "
+              f"{cin}->{cout}")
     sizes = {(n, h, w) for h, w, _, _ in all_block_shapes()
              for n in (F32_CHECK_BATCH, F32_TIME_BATCH)}
     sizes |= {(n, h, w) for n, h, w, *_ in F32_EDGE + (F32_VIEW,)}
     for n, h, w in sorted(sizes):
-        check(f32.conv3x3_wgrad_f32_pixel_chunks(n, h, w)
-              == conv_train.wgrad_f32_pixel_chunks(n, h, w),
-              f"f32 dW pixel chunks of the library at {n}x{h}x{w}")
-    print(f"f32 dW: the library's and the split rule's tile counts agree at "
-          f"{len(sizes)} sizes and their (Cin, Cout) pairs", flush=True)
+        for cin, cout in f32_pairs:
+            check(f32.conv3x3_wgrad_f32_pixel_tiles(n, h, w, cin, cout)
+                  == conv_train.wgrad_f32_pixel_tiles(n, h, w, cin, cout),
+                  f"f32 dW pixel tiles of the library at {n}x{h}x{w} "
+                  f"{cin}->{cout}")
+    print(f"f32: the library's and the wrappers' routes, tile N and dW "
+          f"tile counts agree at {len(f32_pairs)} (Cin, Cout) pairs and "
+          f"{len(sizes)} sizes", flush=True)
     for net in TRAIN_BATCH:
         shapes = bench.block_shapes(net, HW)
         rule = conv_train.step_path_launches(shapes)

@@ -11,44 +11,168 @@
 //            (_conv3x3_dw :147), f32 (3,3,Cin,Cout) out            -> wgrad
 //
 // Precision. A TF32 operand keeps 10 mantissa bits, so one TF32 product
-// per term is ~5e-4 relative: a different function from f32. As M4 does
-// (layout_probes.cu), each f32 operand v is split into hi = tf32(v) and
-// lo = tf32(v - hi) (cvt.rna), and three mma.sync.m16n8k8 products are
-// summed per fragment, the small ones first: lo*hi + hi*lo + hi*hi (lo*lo
-// is below f32's rounding). Each k8 step's three products are summed from
-// zero and added to the f32 accumulator with FADD (``mma3``): the tensor
-// core truncates its sums, and a running accumulator broke phase 14's
-// error rule at 7 of 12 checks, up to 63x cuDNN's f32 error, on an H100
-// (``f32_variants``); the step sums cost 5-11% more time.
+// per term is ~5e-4 relative: a different function from f32. Each f32
+// operand v is split into hi = tf32(v) and lo = tf32(v - hi) (cvt.rna),
+// and three products are summed per term, the small ones first: lo*hi +
+// hi*lo + hi*hi (lo*lo is below f32's rounding). The tensor core truncates
+// the sums it forms, and its truncation errors all lean one way, so in a
+// running accumulator they grow with K: that broke phase 14's error rule
+// at 7 of 12 checks, up to 63x cuDNN's f32 error, on an H100
+// (``f32_variants``). So the products of a step are summed from zero in a
+// scratch accumulator (the first with scale-d 0) and added to the running
+// f32 accumulator with FADD, which rounds to nearest: the step sums, of
+// STEP_K8 = 4 k8 steps (k32, 12 products) each. Their depth was k8 in the
+// first design; at k32 every block shape and edge of phase 14 keeps the
+// error rule, and the wgmma pipeline holds four times the work between
+// waits (f32_variants: k8 1.17-1.40x slower in the forward on an H100).
 //
 // What bounds it. Three tensor-core products per term: 494.7 / 3 = 165
 // TFLOP/s of f32 work at most on an H100 SXM, against 67 TFLOP/s for
 // FFMA; bytes matter only at the narrow head and the stem.
 //
-// Design (simple and right first; no wgmma or TMA yet):
-// - fwd: an implicit GEMM, M = pixels (N*H*W flattened), N = Cout, K =
-//   9 taps x Cin (k = tap * Cin + c, so the Cin = 3 stem packs into one
-//   32-deep chunk). Blocks of 128 pixels x 64 channels, 4 warps of 64 x 32;
-//   32-deep K chunks staged through a 3-stage cp.async ring: 16-byte
-//   copies where the channels allow (Cin % 4 == 0 and 16-byte aligned
-//   bases), 4-byte copies otherwise (the stem, Cout 21); the pad-1 halo,
-//   the ragged pixel tile and K past 9 * Cin are zero-filled by the copy.
-//   ``flip`` (K1's dx) reads w (3,3,Cout,Cin), the forward's HWIO weight,
-//   tap-reversed and transposed in place: B[k = (t, c)][n] = w[8 - t][n][c].
-//   Epilogue: acc * a + b, ReLU, scalar f32 stores clipped at P and Cout.
-// - wgrad: dW[t][ci][co] = sum_p x[p shifted by t][ci] * g[p][co]: M = 9 x
-//   Cin rows (t, ci), N = Cout, K = pixels. Blocks of 64 x 64, 4 warps of
-//   32 x 32, 32-pixel chunks through the same ring; each thread follows
-//   its pixels' (h, w) by increments, so the loads need no division.
-//   Split-K over pixel chunks: each split writes its own slice of an f32
-//   workspace, and a second kernel sums the slices in split order, so two
-//   launches on the same inputs give the same bits.
-// - 64-bit element offsets throughout; pixels (N*H*W) stay below 2^31.
+// Constraints of the card that shape the design:
+// - The instruction. wgmma.mma_async.m64nNk8.f32.tf32.tf32 takes B (and an
+//   A from shared memory) K-major only: its transpose bits exist for
+//   16-bit types, and ldmatrix(.trans) moves 16-bit elements, so neither
+//   transposes tf32. A may come from registers, and does here in both
+//   kernels: each thread loads its fragment from the TMA-landed tile at
+//   any 4-byte offset, splits it in registers and feeds the three wgmmas.
+// - Alignment. A descriptor's start address is 16-byte aligned, so a
+//   one-pixel shift along K cannot be a descriptor offset: the shifted
+//   operand (x, the im2col side, in both kernels) is the register one.
+// - The rate. At 67 TFLOP/s of FFMA (cuDNN's f32 reaches about that) the
+//   split product has to sustain 39% of its 165 TFLOP/s to win.
+// - Precision. The step sums above. In the forward two scratch
+//   accumulators alternate up to N = 64 (PINGPONG): step sum s's products
+//   are issued, wgmma.wait_group 1 waits for s - 1's, and its FADDs run
+//   while s's wgmmas do. The dW keeps one scratch (DW_PINGPONG, below):
+//   its three consumer warpgroups overlap one another's FADDs and wgmmas.
+// - Registers. A 64 x N accumulator is N/2 floats a thread. ptxas gives
+//   every thread the launch's share, 168 of a 384-thread block and 128 of
+//   a 512-thread one, setmaxnreg notwithstanding (it still moves the
+//   producers' registers at run time). Ping-pong holds three accumulators
+//   and, with A from registers, a step sum's 32 A registers stay live
+//   until its wait: at N = 64 that fits the forward's 168 and spills in
+//   the dW's 128 (10-13% slower), at N = 128 (192 accumulators) in
+//   neither, so the forward's N = 128 tile and the dW run one scratch.
+//
+// Two routes, chosen by conv3x3_f32_route (ops/fused_conv.py::f32_route,
+// ops/conv_train.py::wgrad_f32_route hold the same rule):
+//
+// * wgmma ("f32"): the forward where TMA can describe x (Cin % 4 == 0),
+//   the dW where it can describe x and g (Cin % 4 == 0, Cout % 4 == 0).
+//   - fwd (namespace fw): an implicit GEMM, M = output pixels, N = Cout,
+//     K = 9 taps x Cin in 32-channel chunks. A small kernel first splits
+//     the weights once per call into K-major hi and lo copies in global
+//     memory, [2][Cout][9][Cin] (tap-reversed and transposed for flip:
+//     B[(t, c)][n] = w[8 - t][n][c]), so B needs no split in the main
+//     kernel. A persistent block of three warpgroups: a producer (one
+//     thread streams the (TH+2) x 18 x 32 input patch through a 4-D
+//     tensor map over x (C, W, H, N), whose halo lies outside the image
+//     and is filled with zero: the pad 1; another the weights, one (tap,
+//     chunk) hi box and lo box of N x 32 at a time, through a 4-D map over
+//     the copies), both with the 128-byte swizzle into rings under full /
+//     empty mbarriers; two consumer warpgroups, each one m64 tile of 4
+//     output rows x 16 columns, so one staged patch serves all 9 taps and
+//     a block tile is 128 pixels x N. Each consumer thread loads its A
+//     fragment at the tap's shifted patch row (swizzle XOR in the
+//     address), splits it once for the whole N tile and issues the three
+//     wgmma.m64nNk8 of the k8 step. N by Cout: 16 (the 64->12 head), 24
+//     (VOC's 21), 64, else 128 (against 64 there: 1.12-1.29x faster).
+//     Epilogue acc * a + b, ReLU, f32 stores masked at H, W and Cout.
+//   - dW (namespace wgf): dW[t][ci][co] = sum_p x[p + off(t)][ci] g[p][co],
+//     per tap a GEMM with M = Cin (64 a block), N = Cout (64, or 16 for
+//     the head), K = pixels in tiles of TH x TW = 4 x 16. A block owns
+//     one kernel row dy, 64 input and N output channels; its three
+//     consumer warpgroups own one tap dx each. The producer warpgroup's
+//     first thread keeps two TMA rings full: the 4 x 18 x 64 x patch of
+//     the tile's rows shifted by dy (halo zero-filled), and g's 4 x 16 x
+//     32-channel boxes, unshifted. g is B, and its K is pixels, so it has
+//     to be K-major: the producer's other three warps transpose each g
+//     tile once into [co][pixel] hi and lo planes (no swizzle, 8 x 16-byte
+//     core matrices, channel groups 272 bytes apart), fence.proxy.async,
+//     and hand the planes (double buffered) to all three consumers, so the
+//     split is done once per element. A transposer thread reads 4 pixels
+//     x 4 channels as four 16-byte vectors and writes 4 rows of 16 bytes
+//     (with one 4-byte access an element, as first written, the
+//     transposers bounded the kernel). x is A from registers at the
+//     tap's shift. Pixels enter K
+//     in the order 0, 2, 4, 6, 1, 3, 5, 7 within each k8 step, in both
+//     operands, so a warp's A loads fall on 8 distinct swizzled chunks
+//     (no bank conflict). Split-K over pixel tiles: each split writes its
+//     own slice of an f32 workspace and sum_splits_kernel adds the slices
+//     in split order: two launches on the same inputs give the same bits,
+//     no float atomics. The splits fill waves of one block per SM
+//     (ops/conv_train.py::wgrad_f32_splits).
+// * narrow ("f32_narrow"): the rest, the Cin = 3 stem (fwd and dW), VOC's
+//   64 -> 21 head's dW and its 21 -> 64 dx: the first design, split-TF32
+//   mma.sync.m16n8k8 from a 3-stage cp.async ring (namespace nar). Its
+//   forward writes a thread's two adjacent channels as one 8-byte store
+//   and steps (tap, channel) along K without a division (the stem's
+//   forward had been 1.41x cuDNN's f32 conv at b10 on an H100 with a
+//   4-byte store an element and a division a k; chip_smoke phase 14).
+//
+// 64-bit element offsets throughout; pixels (N*H*W) stay below 2^31.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace f32c {
+
+using sm90::smem_u32;
+
+// The step sums (see the note above): k8 steps a step sum, the step sums
+// themselves (off: the running accumulator) and the scratch ping-pong,
+// which holds three 64 x N accumulators a thread: the forward takes it up
+// to N = PINGPONG_MAX_N (at its widest N tile, MAX_TILE_N = 128, they
+// would be 192 of the 168 registers a thread of its 384 gets), the dW
+// (DW_PINGPONG) not: ptxas gives each of its 512 threads 128 registers,
+// setmaxnreg notwithstanding, and 96 accumulators and a step sum's 32 A
+// registers spill there (f32_variants: 10-13% slower on an H100).
+constexpr int STEP_K8 = 4;
+constexpr bool STEP_SUMS = true;
+constexpr bool PINGPONG = true;
+constexpr int PINGPONG_MAX_N = 64;
+constexpr bool DW_PINGPONG = false;
+constexpr int MAX_TILE_N = 128;
+
+template <int N>
+constexpr bool kPingpong = PINGPONG && N <= PINGPONG_MAX_N;
+
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo, both TF32: hi keeps v's top 11 significant bits, lo the
+// next 11.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ bool inside(int v, int n) {
+  return static_cast<unsigned>(v) < static_cast<unsigned>(n);
+}
+
+// out[i] = ws[0][i] + ws[1][i] + ... in split order: the same bits on
+// every launch.
+__global__ void sum_splits_kernel(const float* __restrict__ ws,
+                                  float* __restrict__ out, int64_t n,
+                                  int splits) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float s = ws[i];
+    for (int k = 1; k < splits; ++k) s += ws[k * n + i];
+    out[i] = s;
+  }
+}
+
+// ================================================================ narrow
+
+namespace nar {
 
 constexpr int THREADS = 128;   // 4 warps
 constexpr int STAGES = 3;
@@ -95,20 +219,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = hi + lo, both TF32: hi keeps v's top 11 significant bits, lo the
-// next 11.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(v);
-  lo = to_tf32(v - __uint_as_float(hi));
-}
-
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -146,10 +256,6 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   mma_tf32(s, ah, bh0, bh1);
 #pragma unroll
   for (int i = 0; i < 4; ++i) d[i] += s[i];
-}
-
-__device__ __forceinline__ bool inside(int v, int n) {
-  return static_cast<unsigned>(v) < static_cast<unsigned>(n);
 }
 
 // ------------------------------------------------------------------ fwd
@@ -206,18 +312,20 @@ __global__ void __launch_bounds__(THREADS, 2)
                : x;
         cp_async16(&As[((tid >> 3) + 16 * j) * AP + 4 * grp], src, ok);
       }
-    } else {       // one row x 32 single channels
+    } else {       // one row x 32 single channels, (tap, c) stepped along
+      int tap = k0 / Cin, c = k0 - tap * Cin;
       for (int kk = 0; kk < BK; ++kk) {
-        const int k = k0 + kk;
-        const int tap = k < K ? k / Cin : 9;
-        const int c = k - tap * Cin;
         const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-        const bool ok = tap < 9 && inside(ph[0] + dy, H) &&
+        const bool ok = k0 + kk < K && inside(ph[0] + dy, H) &&
                         inside(pw[0] + dx, W);
         const float* src =
             ok ? x + static_cast<int64_t>(pixel(0) + dy * W + dx) * Cin + c
                : x;
         cp_async4(&As[tid * AP + kk], src, ok);
+        if (++c == Cin) {
+          c = 0;
+          ++tap;
+        }
       }
     }
     if (!FLIP) {   // B [k][n] = w[k * Cout + n]
@@ -318,25 +426,36 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
   cp_async_wait<0>();
 
+  // a thread's two adjacent channels go out as one 8-byte store where
+  // Cout is even (the stem writes 64 f32 channels a pixel)
+  const bool pair = (Cout & 1) == 0;
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
     const int c0 = n0 + wn * 32 + nt * 8 + 2 * t;
+    if (c0 >= Cout) continue;
+    const bool two = c0 + 1 < Cout;
+    const float sa0 = av[c0], sb0 = bv[c0];
+    const float sa1 = two ? av[c0 + 1] : 0.0f, sb1 = two ? bv[c0 + 1] : 0.0f;
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = c0 + e;
-      if (c >= Cout) continue;
-      const float sa = av[c], sb = bv[c];
+    for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int m = m0 + wm * 64 + mt * 16 + g + 8 * half;
-          if (m >= P) continue;
-          float v = acc[mt][nt][2 * half + e] * sa + sb;
-          if (relu) v = fmaxf(v, 0.0f);
-          out[static_cast<int64_t>(m) * Cout + c] = v;
+      for (int half = 0; half < 2; ++half) {
+        const int m = m0 + wm * 64 + mt * 16 + g + 8 * half;
+        if (m >= P) continue;
+        float v0 = acc[mt][nt][2 * half] * sa0 + sb0;
+        float v1 = acc[mt][nt][2 * half + 1] * sa1 + sb1;
+        if (relu) {
+          v0 = fmaxf(v0, 0.0f);
+          v1 = fmaxf(v1, 0.0f);
         }
-    }
+        float* o = out + static_cast<int64_t>(m) * Cout + c0;
+        if (two && pair) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          o[0] = v0;
+          if (two) o[1] = v1;
+        }
+      }
   }
 }
 
@@ -511,63 +630,788 @@ __global__ void __launch_bounds__(THREADS)
     }
 }
 
-// out[i] = ws[0][i] + ws[1][i] + ... in split order: the same bits on
-// every launch.
-__global__ void sum_splits_kernel(const float* __restrict__ ws,
-                                  float* __restrict__ out, int64_t n,
-                                  int splits) {
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                   threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    float s = ws[i];
-    for (int k = 1; k < splits; ++k) s += ws[k * n + i];
-    out[i] = s;
+}  // namespace nar
+
+// ============================================================ wgmma: both
+
+// One k8 step's split product into d: lo*hi + hi*lo + hi*hi, the small
+// ones first; ``first`` starts d from zero (scale-d 0), the others add.
+template <int N>
+__device__ __forceinline__ void split_products(float (&d)[N / 2],
+                                               const uint32_t (&ah)[4],
+                                               const uint32_t (&al)[4],
+                                               uint64_t bh, uint64_t bl,
+                                               bool first) {
+  sm90::wgmma_tf32<N>(d, al, bh, first ? 0 : 1);   // lo * hi
+  sm90::wgmma_tf32<N>(d, ah, bl, 1);               // hi * lo
+  sm90::wgmma_tf32<N>(d, ah, bh, 1);               // hi * hi
+}
+
+template <int K>
+__device__ __forceinline__ void add_into(float (&acc)[K], float (&s)[K]) {
+  sm90::fence_regs(s);   // after the wait: the wgmmas wrote s
+#pragma unroll
+  for (int i = 0; i < K; ++i) acc[i] += s[i];
+}
+
+// k8 step ``u`` of a sequence (u from 0; a constant once the caller's loop
+// is unrolled) with A fragment (ah, al) and B descriptors (bh, bl): its
+// products go into the scratch of its step sum (with STEP_SUMS off,
+// straight into acc). At a step sum's last k8 step the wgmmas are
+// committed; with ping-pong the previous step sum is waited for and added
+// to acc while this one runs, without, this one is.
+template <int N, bool PP>
+__device__ __forceinline__ void k8_step(float (&acc)[N / 2],
+                                        float (&sc)[2][N / 2], int u,
+                                        const uint32_t (&ah)[4],
+                                        const uint32_t (&al)[4], uint64_t bh,
+                                        uint64_t bl) {
+  const int grp = u / STEP_K8, pos = u % STEP_K8;
+  sm90::wgmma_fence();   // the A registers (and a scratch) were written
+  if constexpr (STEP_SUMS)
+    split_products<N>(sc[PP ? grp & 1 : 0], ah, al, bh, bl, pos == 0);
+  else
+    split_products<N>(acc, ah, al, bh, bl, false);
+  if (pos == STEP_K8 - 1) {
+    sm90::wgmma_commit();
+    if constexpr (!STEP_SUMS) {
+      sm90::wgmma_wait<1>();
+    } else if constexpr (PP) {
+      sm90::wgmma_wait<1>();
+      if (grp > 0) add_into(acc, sc[(grp - 1) & 1]);
+    } else {
+      sm90::wgmma_wait<0>();
+      add_into(acc, sc[0]);
+    }
   }
 }
+
+// The end of a sequence of ``steps`` k8 steps: every wgmma waited for and
+// the last step sum added.
+template <int N, bool PP>
+__device__ __forceinline__ void k8_drain(float (&acc)[N / 2],
+                                         float (&sc)[2][N / 2], int steps) {
+  sm90::wgmma_wait<0>();
+  if constexpr (STEP_SUMS && PP)
+    add_into(acc, sc[(steps / STEP_K8 - 1) & 1]);
+  if constexpr (!STEP_SUMS) sm90::fence_regs(acc);
+}
+
+__device__ __forceinline__ void split4(const float (&v)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(v[i], hi[i], lo[i]);
+}
+
+// Byte offset of 16-byte chunk ``chunk`` of 128-byte row ``row`` of a
+// tile that TMA wrote with the 128-byte swizzle from a 1024-byte aligned
+// base.
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return (row << 7) + (((chunk ^ row) & 7) << 4);
+}
+
+__device__ __forceinline__ float lds(const unsigned char* base, int off) {
+  return *reinterpret_cast<const float*>(base + off);
+}
+
+// ------------------------------------------------------------- weights
+
+// The forward's B, split once per call: w2[h][n][t][c] (h 0: hi, 1: lo;
+// K-major, k = (t, c)) = split(w[t][c][n]) of w (3,3,Cin,Cout), or with
+// flip split(w[8 - t][n][c]) of w (3,3,Cout,Cin): the tap-reversed
+// transpose, K1's dx.
+__global__ void split_weights_kernel(const float* __restrict__ w,
+                                     float* __restrict__ w2, int Cin,
+                                     int Cout, int flip) {
+  const int64_t n_el = 9LL * Cin * Cout;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < n_el; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int c = static_cast<int>(i % Cin);
+    const int64_t r = i / Cin;
+    const int t = static_cast<int>(r % 9);
+    const int n = static_cast<int>(r / 9);
+    const float v =
+        flip ? w[(static_cast<int64_t>(8 - t) * Cout + n) * Cin + c]
+             : w[(static_cast<int64_t>(t) * Cin + c) * Cout + n];
+    uint32_t hi, lo;
+    split_tf32(v, hi, lo);
+    w2[i] = __uint_as_float(hi);
+    w2[n_el + i] = __uint_as_float(lo);
+  }
+}
+
+// ================================================================= fwd
+
+namespace fw {
+
+constexpr int TW = 16;              // output columns a tile: one warp's m16
+constexpr int TH = 8;               // output rows: 2 consumer WGs x 4 warps
+constexpr int PW = TW + 2, PH = TH + 2;
+constexpr int KC = 32;              // channels a chunk: one swizzle row
+constexpr int THREADS = 384;        // warpgroups 0, 1 consume; 2 produces
+constexpr int CONSUMER_WARPS = 8;
+constexpr int PATCH_TX = PH * PW * 128;                     // 23040
+constexpr int PATCH_BYTES = (PATCH_TX + 1023) / 1024 * 1024;  // 23552
+constexpr int P_STAGES = 2;
+
+template <int BN>
+struct Plan {
+  static constexpr int W_BOX = BN * 128;     // N x 32 f32 of one (tap, chunk)
+  static constexpr int W_TX = 2 * W_BOX;     // its hi and lo boxes
+  static constexpr int W_STAGES = BN == 128 ? 4 : 6;
+  static constexpr int BAR_OFF = P_STAGES * PATCH_BYTES + W_STAGES * W_TX;
+  static constexpr int SMEM = BAR_OFF + 2 * (P_STAGES + W_STAGES) * 8 + 1024;
+};
+// ops/fused_conv.py::f32_fwd_plan holds the same figures
+static_assert(Plan<128>::SMEM == 179296, "fwd plan at N 128");
+static_assert(Plan<64>::SMEM == 146560, "fwd plan at N 64");
+static_assert(Plan<24>::SMEM == 85120, "fwd plan at N 24");
+static_assert(Plan<16>::SMEM == 72832, "fwd plan at N 16");
+
+// Tile N for Cout.
+inline int tile_n(int Cout) {
+  return Cout <= 16 ? 16 : Cout <= 24 ? 24 : Cout <= 64 ? 64 : MAX_TILE_N;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+    conv_f32_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap wmap,
+                          const float* __restrict__ scale,
+                          const float* __restrict__ shift,
+                          float* __restrict__ out, int N, int H, int W,
+                          int Cin, int Cout, int relu) {
+  using T = Plan<BN>;
+  constexpr int S = T::W_STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  unsigned char* patch = smem;
+  unsigned char* wring = smem + P_STAGES * PATCH_BYTES;
+  uint64_t* pfull = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
+  uint64_t* pempty = pfull + P_STAGES;
+  uint64_t* wfull = pempty + P_STAGES;
+  uint64_t* wempty = wfull + S;
+
+  const int tiles_w = (W + TW - 1) / TW;
+  const int tiles_h = (H + TH - 1) / TH;
+  const int tiles_n = (Cout + BN - 1) / BN;
+  const int total = N * tiles_h * tiles_w * tiles_n;   // < 2^31 (host)
+  const int nch = (Cin + KC - 1) / KC;
+  // tile -> (image, row, column, cout tile), the cout tile fastest so
+  // blocks that share an input patch run together
+  auto origin = [&](int t, int& img, int& h0, int& w0, int& n0) {
+    n0 = t % tiles_n * BN;
+    t /= tiles_n;
+    w0 = t % tiles_w * TW;
+    t /= tiles_w;
+    h0 = t % tiles_h * TH;
+    img = t / tiles_h;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < P_STAGES; ++i) {
+      sm90::mbar_init(&pfull[i], 1);
+      sm90::mbar_init(&pempty[i], CONSUMER_WARPS);
+    }
+    for (int i = 0; i < S; ++i) {
+      sm90::mbar_init(&wfull[i], 1);
+      sm90::mbar_init(&wempty[i], CONSUMER_WARPS);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    // ----------------------------------------------------- producers
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      sm90::prefetch_tensormap(&xmap);
+      uint32_t pit = 0;
+      for (int t = blockIdx.x; t < total; t += gridDim.x) {
+        int img, h0, w0, n0;
+        origin(t, img, h0, w0, n0);
+        for (int c = 0; c < nch; ++c, ++pit) {
+          const int ps = pit % P_STAGES;
+          sm90::mbar_wait(&pempty[ps], ((pit / P_STAGES) & 1) ^ 1);
+          sm90::mbar_arrive_expect_tx(&pfull[ps], PATCH_TX);
+          sm90::tma_load_4d(patch + ps * PATCH_BYTES, &xmap, &pfull[ps],
+                            c * KC, w0 - 1, h0 - 1, img);
+        }
+      }
+    } else if (threadIdx.x == 288) {
+      sm90::prefetch_tensormap(&wmap);
+      uint32_t wit = 0;
+      for (int t = blockIdx.x; t < total; t += gridDim.x) {
+        const int n0 = t % tiles_n * BN;
+        for (int c = 0; c < nch; ++c) {
+          for (int tap = 0; tap < 9; ++tap, ++wit) {
+            const int ws = wit % S;
+            sm90::mbar_wait(&wempty[ws], ((wit / S) & 1) ^ 1);
+            sm90::mbar_arrive_expect_tx(&wfull[ws], T::W_TX);
+            unsigned char* dst = wring + ws * T::W_TX;
+            sm90::tma_load_4d(dst, &wmap, &wfull[ws], c * KC, tap, n0, 0);
+            sm90::tma_load_4d(dst + T::W_BOX, &wmap, &wfull[ws], c * KC, tap,
+                              n0, 1);
+          }
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    sm90::setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    const uint32_t wring0 = smem_u32(wring);
+    // patch row of tap (0, 0) for this lane's A rows: output row wgi*4 +
+    // warp, columns g (a0, a2) and g + 8 (a1, a3)
+    const int prow0 = (wgi * 4 + warp) * PW + g;
+    float sc[2][BN / 2];   // the step sums' scratch
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[0][i] = sc[1][i] = 0.f;
+    uint32_t pit = 0, wit = 0;
+    for (int t = blockIdx.x; t < total; t += gridDim.x) {
+      int img, h0, w0, n0;
+      origin(t, img, h0, w0, n0);
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+      for (int c = 0; c < nch; ++c, ++pit) {
+        const int ps = pit % P_STAGES;
+        sm90::mbar_wait(&pfull[ps], (pit / P_STAGES) & 1);
+        const unsigned char* pb = patch + ps * PATCH_BYTES;
+        int ws_prev = 0;
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const int ws = wit % S;
+          sm90::mbar_wait(&wfull[ws], (wit / S) & 1);
+          const uint32_t wb = wring0 + ws * T::W_TX;
+          const int r = prow0 + (tap / 3) * PW + tap % 3;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            // channels 8kk + tq (a0, a1) and 8kk + tq + 4 (a2, a3)
+            const float v[4] = {lds(pb, swz(r, 2 * kk) + 4 * tq),
+                                lds(pb, swz(r + 8, 2 * kk) + 4 * tq),
+                                lds(pb, swz(r, 2 * kk + 1) + 4 * tq),
+                                lds(pb, swz(r + 8, 2 * kk + 1) + 4 * tq)};
+            uint32_t ah[4], al[4];
+            split4(v, ah, al);
+            // B: N rows of 128 bytes (32 K), 8 rows 1024 bytes apart; a
+            // k8 step is 32 bytes along the swizzled row
+            const uint64_t bh = sm90::wgmma_desc(wb + kk * 32, 16, 1024, 1);
+            const uint64_t bl =
+                sm90::wgmma_desc(wb + T::W_BOX + kk * 32, 16, 1024, 1);
+            k8_step<BN, kPingpong<BN>>(acc, sc, tap * 4 + kk, ah, al, bh,
+                                       bl);
+            // the previous tap's wgmmas have completed: its weights go
+            if (kk == STEP_K8 - 1 && tap > 0 && lane == 0)
+              sm90::mbar_arrive(&wempty[ws_prev]);
+          }
+          ws_prev = ws;
+          ++wit;
+        }
+        k8_drain<BN, kPingpong<BN>>(acc, sc, 36);
+        if (lane == 0) {
+          sm90::mbar_arrive(&wempty[ws_prev]);
+          sm90::mbar_arrive(&pempty[ps]);
+        }
+      }
+
+      // Epilogue. Accumulator i: output row h0 + wgi*4 + warp, column
+      // w0 + g (+8 for i%4 >= 2); channel n0 + 8*(i/4) + 2*tq + i%2.
+      const int h = h0 + wgi * 4 + warp;
+      const bool pair = Cout % 2 == 0;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int co = n0 + 8 * j + 2 * tq;
+        if (co >= Cout) continue;
+        const bool two = co + 1 < Cout;
+        const float a0 = scale[co], b0 = shift[co];
+        const float a1 = two ? scale[co + 1] : 0.f;
+        const float b1 = two ? shift[co + 1] : 0.f;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int ww = w0 + g + 8 * half;
+          if (h >= H || ww >= W) continue;
+          float* o =
+              out + ((static_cast<int64_t>(img) * H + h) * W + ww) * Cout + co;
+          float v0 = acc[4 * j + 2 * half] * a0 + b0;
+          float v1 = acc[4 * j + 2 * half + 1] * a1 + b1;
+          if (relu) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+          if (two && pair) {
+            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+          } else {
+            o[0] = v0;
+            if (two) o[1] = v1;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int BN>
+cudaError_t launch(const float* x, const float* w2, const float* a,
+                   const float* b, float* out, int N, int H, int W, int Cin,
+                   int Cout, int relu, cudaStream_t stream) {
+  using T = Plan<BN>;
+  CUtensorMap xmap, wmap;
+  const uint64_t xd[4] = {static_cast<uint64_t>(Cin),
+                          static_cast<uint64_t>(W), static_cast<uint64_t>(H),
+                          static_cast<uint64_t>(N)};
+  const uint64_t xs[3] = {4ull * Cin, 4ull * Cin * W, 4ull * Cin * W * H};
+  const uint32_t xb[4] = {KC, PW, PH, 1};
+  // the split copies [2][Cout][9][Cin] as (Cin, 9, Cout, 2)
+  const uint64_t wd[4] = {static_cast<uint64_t>(Cin), 9,
+                          static_cast<uint64_t>(Cout), 2};
+  const uint64_t wstr[3] = {4ull * Cin, 36ull * Cin, 36ull * Cin * Cout};
+  const uint32_t wbox[4] = {KC, 1, BN, 1};
+  if (!sm90::encode_f32_map(&xmap, x, 4, xd, xs, xb) ||
+      !sm90::encode_f32_map(&wmap, w2, 4, wd, wstr, wbox))
+    return cudaErrorInvalidValue;
+  auto kern = conv_f32_wgmma_kernel<BN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const int64_t tiles = static_cast<int64_t>(N) * ((H + TH - 1) / TH) *
+                        ((W + TW - 1) / TW) * ((Cout + BN - 1) / BN);
+  if (tiles > 2147483647LL) return cudaErrorInvalidConfiguration;
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  kern<<<grid, THREADS, T::SMEM, stream>>>(xmap, wmap, a, b, out, N, H, W,
+                                           Cin, Cout, relu);
+  return cudaGetLastError();
+}
+
+cudaError_t run(const float* x, const float* w, const float* a,
+                const float* b, float* out, float* w2, int N, int H, int W,
+                int Cin, int Cout, int relu, int flip, cudaStream_t st) {
+  const int64_t n_el = 9LL * Cin * Cout;
+  const int64_t blocks = (n_el + 255) / 256;
+  split_weights_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks
+                                                             : 4096),
+                         256, 0, st>>>(w, w2, Cin, Cout, flip);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  switch (tile_n(Cout)) {
+    case 16:
+      return launch<16>(x, w2, a, b, out, N, H, W, Cin, Cout, relu, st);
+    case 24:
+      return launch<24>(x, w2, a, b, out, N, H, W, Cin, Cout, relu, st);
+    case 64:
+      return launch<64>(x, w2, a, b, out, N, H, W, Cin, Cout, relu, st);
+    default:
+      if constexpr (MAX_TILE_N == 128)
+        return launch<128>(x, w2, a, b, out, N, H, W, Cin, Cout, relu, st);
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace fw
+
+// ================================================================== dW
+
+namespace wgf {
+
+constexpr int TH = 4, TW = 16;      // a pixel tile: 64 pixels, 8 k8 steps
+constexpr int PW = TW + 2;          // x patch columns (with halo)
+constexpr int BM = 64;              // input channels a block: 2 x 32
+constexpr int THREADS = 512;        // WGs 0-2 consume (dx); WG 3 produces
+constexpr int CONSUMER_WARPS = 12;
+constexpr int TRANSPOSERS = 96;     // warps 13-15
+constexpr int X_HALF = TH * PW * 128;   // 9216: one 32-channel x box
+constexpr int X_TX = 2 * X_HALF;
+constexpr int G_BOX = TH * TW * 128;    // 8192: one 32-channel g box
+constexpr int X_STAGES = 4, G_STAGES = 3;
+// registers a thread after setmaxnreg: the producer warpgroup (TMA and the
+// transposers), the consumers; 128 x PRODUCER_REGS + 384 x CONSUMER_REGS
+// <= 65,536
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 152;
+static_assert(128 * PRODUCER_REGS + 384 * CONSUMER_REGS <= 65536, "regs");
+
+template <int BN>
+struct Plan {
+  static constexpr int G_BOXES = (BN + 31) / 32;
+  static constexpr int G_TX = G_BOXES * G_BOX;
+  // a plane's k8 step: N/8 channel groups of two 128-byte core matrices
+  // (K halves), SBO apart: 256 + 16, so the 16-byte rows the transposers
+  // write to neighbouring groups fall in different banks
+  static constexpr int SBO = 272;
+  static constexpr int STEP_B = BN / 8 * SBO;
+  static constexpr int PLANE = 8 * STEP_B;   // the tile's 64 pixels
+  static constexpr int PBUF = 2 * PLANE;     // hi and lo
+  static constexpr int G_OFF = X_STAGES * X_TX;
+  static constexpr int P_OFF = G_OFF + G_STAGES * G_TX;
+  static constexpr int BAR_OFF = P_OFF + 2 * PBUF;
+  static constexpr int SMEM =
+      BAR_OFF + 2 * (X_STAGES + G_STAGES + 2) * 8 + 1024;
+};
+// ops/conv_train.py::wgrad_f32_plan holds the same figures
+static_assert(Plan<64>::SMEM == 193680, "dW plan at N 64");
+static_assert(Plan<16>::SMEM == 116880, "dW plan at N 16");
+
+inline int tile_n(int Cout) { return Cout <= 16 ? 16 : 64; }
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+    wgrad_f32_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                           const __grid_constant__ CUtensorMap gmap,
+                           float* __restrict__ out, int N, int H, int W,
+                           int Cin, int Cout, int splits) {
+  using T = Plan<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
+  uint64_t* xempty = xfull + X_STAGES;
+  uint64_t* gfull = xempty + X_STAGES;
+  uint64_t* gempty = gfull + G_STAGES;
+  uint64_t* pfull = gempty + G_STAGES;
+  uint64_t* pempty = pfull + 2;
+
+  // blockIdx.x -> (Cin tile, Cout tile, dy), dy fastest; blockIdx.y is the
+  // split. Blocks of one split read the same pixels, so they run close
+  // together and share x and g in L2.
+  const int dy = blockIdx.x % 3;
+  const int tiles_co = (Cout + BN - 1) / BN;
+  const int n0 = (blockIdx.x / 3 % tiles_co) * BN;
+  const int c0 = (blockIdx.x / 3 / tiles_co) * BM;
+  const int split = blockIdx.y;
+  const int tiles_h = (H + TH - 1) / TH;
+  const int tiles_w = (W + TW - 1) / TW;
+  const int total = N * tiles_h * tiles_w;   // < 2^31 (host)
+  const int t_begin =
+      static_cast<int>(static_cast<int64_t>(total) * split / splits);
+  const int t_end =
+      static_cast<int>(static_cast<int64_t>(total) * (split + 1) / splits);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < X_STAGES; ++i) {
+      sm90::mbar_init(&xfull[i], 1);
+      sm90::mbar_init(&xempty[i], CONSUMER_WARPS);
+    }
+    for (int i = 0; i < G_STAGES; ++i) {
+      sm90::mbar_init(&gfull[i], 1);
+      sm90::mbar_init(&gempty[i], TRANSPOSERS / 32);
+    }
+    for (int i = 0; i < 2; ++i) {
+      sm90::mbar_init(&pfull[i], TRANSPOSERS);
+      sm90::mbar_init(&pempty[i], CONSUMER_WARPS);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  if (wgi == 3) {
+    sm90::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x < 416) {
+      // ----------------------------------------------- TMA, one thread
+      if (threadIdx.x == 384) {
+        sm90::prefetch_tensormap(&xmap);
+        sm90::prefetch_tensormap(&gmap);
+        int w0 = t_begin % tiles_w * TW;
+        int h0 = t_begin / tiles_w % tiles_h * TH;
+        int img = t_begin / (tiles_w * tiles_h);
+        for (int it = 0; it < t_end - t_begin; ++it) {
+          const int xs = it % X_STAGES;
+          sm90::mbar_wait(&xempty[xs], ((it / X_STAGES) & 1) ^ 1);
+          sm90::mbar_arrive_expect_tx(&xfull[xs], X_TX);
+          unsigned char* xd = smem + xs * X_TX;
+          sm90::tma_load_4d(xd, &xmap, &xfull[xs], c0, w0 - 1, h0 + dy - 1,
+                            img);
+          sm90::tma_load_4d(xd + X_HALF, &xmap, &xfull[xs], c0 + 32, w0 - 1,
+                            h0 + dy - 1, img);
+          const int gs = it % G_STAGES;
+          sm90::mbar_wait(&gempty[gs], ((it / G_STAGES) & 1) ^ 1);
+          sm90::mbar_arrive_expect_tx(&gfull[gs], T::G_TX);
+          unsigned char* gd = smem + T::G_OFF + gs * T::G_TX;
+#pragma unroll
+          for (int b = 0; b < T::G_BOXES; ++b)
+            sm90::tma_load_4d(gd + b * G_BOX, &gmap, &gfull[gs], n0 + 32 * b,
+                              w0, h0, img);
+          if ((w0 += TW) >= W) {
+            w0 = 0;
+            if ((h0 += TH) >= H) {
+              h0 = 0;
+              ++img;
+            }
+          }
+        }
+      }
+    } else {
+      // ------------------------------------- transposers, warps 13-15
+      // Core matrix cm of the tile's planes (8 k8 steps j x N/8 channel
+      // groups x 2 K halves, 128 bytes each, in that order) holds channels
+      // n0 + 8 cg + lane / 4 at logical k = 4 kh + lane % 4 of step j,
+      // i.e. pixel 16 (j / 2) + 8 (j % 2) + 2 (k % 4) + k / 4 of the tile.
+      // Item i: channel quad q = i % (N/4) (channels 4q .. 4q+3) of K half
+      // kh of k8 step j, (j, kh) = i / (N/4). Its four pixels (logical k =
+      // 4 kh .. 4 kh + 3: pixels 2k' + kh of the step, k' = 0..3) are read
+      // as 16-byte vectors of 4 channels, split, and written as 4 rows of
+      // 16 bytes (one channel, the 4 pixels) of core matrix (j, q / 2, kh).
+      // Eight neighbouring lanes take eight quads of one 32-channel box at
+      // one pixel: distinct swizzled chunks to read, and rows of distinct
+      // banks to write (the groups SBO apart).
+      constexpr int Q = BN / 4, ITEMS = 16 * Q;
+      const int tt = threadIdx.x - 416;
+      for (int it = 0; it < t_end - t_begin; ++it) {
+        const int gs = it % G_STAGES, pbuf = it & 1;
+        sm90::mbar_wait(&gfull[gs], (it / G_STAGES) & 1);
+        sm90::mbar_wait(&pempty[pbuf], ((it >> 1) & 1) ^ 1);
+        const unsigned char* gb = smem + T::G_OFF + gs * T::G_TX;
+        unsigned char* pb = smem + T::P_OFF + pbuf * T::PBUF;
+#pragma unroll
+        for (int r = 0; r < (ITEMS + TRANSPOSERS - 1) / TRANSPOSERS; ++r) {
+          const int i = tt + r * TRANSPOSERS;
+          if (i >= ITEMS) break;
+          const int q = i % Q, jk = i / Q, j = jk >> 1, kh = jk & 1;
+          const unsigned char* src = gb + (q >> 3) * G_BOX;
+          float4 v[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            v[k] = *reinterpret_cast<const float4*>(
+                src + swz(16 * (j >> 1) + 8 * (j & 1) + 2 * k + kh, q & 7));
+          uint32_t hi[4][4], lo[4][4];   // [channel][pixel]
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            split_tf32(v[k].x, hi[0][k], lo[0][k]);
+            split_tf32(v[k].y, hi[1][k], lo[1][k]);
+            split_tf32(v[k].z, hi[2][k], lo[2][k]);
+            split_tf32(v[k].w, hi[3][k], lo[3][k]);
+          }
+          unsigned char* dst = pb + j * T::STEP_B + (q >> 1) * T::SBO +
+                               kh * 128 + (q & 1) * 64;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            *reinterpret_cast<uint4*>(dst + c * 16) =
+                make_uint4(hi[c][0], hi[c][1], hi[c][2], hi[c][3]);
+            *reinterpret_cast<uint4*>(dst + T::PLANE + c * 16) =
+                make_uint4(lo[c][0], lo[c][1], lo[c][2], lo[c][3]);
+          }
+        }
+        sm90::fence_proxy_async();   // the planes, for the wgmmas
+        sm90::mbar_arrive(&pfull[pbuf]);
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(&gempty[gs]);
+      }
+    }
+  } else {
+    // ------------------------------------------- consumers: dx = wgi
+    sm90::setmaxnreg_inc<CONSUMER_REGS>();
+    const int dx = wgi;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, tq = lane & 3;
+    // A = x^T: rows ci = c0 + 16 warp + g (+8: a1, a3), K = the step's
+    // pixels 2 tq (a0, a1) and 2 tq + 1 (a2, a3) at the tap's shift; the
+    // warp's 16 channels lie in x box warp / 2, 16-byte chunks ch0 and
+    // ch0 + 2, word g % 4
+    const int ch0 = (16 * (warp & 1) + g) >> 2;
+    const int word = 4 * (g & 3);
+    const uint32_t smem0 = smem_u32(smem);
+    float acc[BN / 2], sc[2][BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = sc[0][i] = sc[1][i] = 0.f;
+    for (int it = 0; it < t_end - t_begin; ++it) {
+      const int xs = it % X_STAGES, pbuf = it & 1;
+      sm90::mbar_wait(&xfull[xs], (it / X_STAGES) & 1);
+      sm90::mbar_wait(&pfull[pbuf], (it >> 1) & 1);
+      const unsigned char* xb = smem + xs * X_TX + (warp >> 1) * X_HALF;
+      const uint32_t pb = smem0 + T::P_OFF + pbuf * T::PBUF;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int prow = (j >> 1) * PW + 8 * (j & 1) + 2 * tq + dx;
+        const float v[4] = {lds(xb, swz(prow, ch0) + word),
+                            lds(xb, swz(prow, ch0 + 2) + word),
+                            lds(xb, swz(prow + 1, ch0) + word),
+                            lds(xb, swz(prow + 1, ch0 + 2) + word)};
+        uint32_t ah[4], al[4];
+        split4(v, ah, al);
+        // B: the planes' step j, K-major core matrices, K halves 128 bytes
+        // apart, 8-channel groups SBO
+        const uint64_t bh =
+            sm90::wgmma_desc(pb + j * T::STEP_B, 128, T::SBO, 0);
+        const uint64_t bl =
+            sm90::wgmma_desc(pb + T::PLANE + j * T::STEP_B, 128, T::SBO,
+                             0);
+        k8_step<BN, PINGPONG && DW_PINGPONG>(acc, sc, j, ah, al, bh, bl);
+      }
+      k8_drain<BN, PINGPONG && DW_PINGPONG>(acc, sc, 8);
+      if (lane == 0) {
+        sm90::mbar_arrive(&xempty[xs]);
+        sm90::mbar_arrive(&pempty[pbuf]);
+      }
+    }
+
+    // Accumulator i of tap (dy, dx): input channel c0 + 16 warp + g (+8
+    // for i%4 >= 2), output channel n0 + 8 (i/4) + 2 tq + i%2.
+    float* dst = out + static_cast<int64_t>(split) * 9 * Cin * Cout;
+    const int tap = dy * 3 + dx;
+    const bool pair = Cout % 2 == 0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int ci = c0 + 16 * warp + g + 8 * half;
+      if (ci >= Cin) continue;
+      float* row = dst + (static_cast<int64_t>(tap) * Cin + ci) * Cout;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int co = n0 + 8 * j + 2 * tq;
+        if (co >= Cout) continue;
+        const float v0 = acc[4 * j + 2 * half];
+        const float v1 = acc[4 * j + 2 * half + 1];
+        if (pair) {   // co even, Cout even: an aligned pair in range
+          *reinterpret_cast<float2*>(row + co) = make_float2(v0, v1);
+        } else {
+          row[co] = v0;
+          if (co + 1 < Cout) row[co + 1] = v1;
+        }
+      }
+    }
+  }
+}
+
+// Pixel tiles of the split-K range.
+inline long long pixel_tiles(int N, int H, int W) {
+  return static_cast<long long>(N) * ((H + TH - 1) / TH) *
+         ((W + TW - 1) / TW);
+}
+
+// Blocks of one split: 3 kernel rows x 64-channel Cin tiles x N tiles.
+inline long long out_tiles(int Cin, int Cout) {
+  const int bn = tile_n(Cout);
+  return 3LL * ((Cin + BM - 1) / BM) * ((Cout + bn - 1) / bn);
+}
+
+template <int BN>
+cudaError_t launch(const float* x, const float* g, float* dst, int N, int H,
+                   int W, int Cin, int Cout, int splits,
+                   cudaStream_t stream) {
+  using T = Plan<BN>;
+  CUtensorMap xmap, gmap;
+  const uint64_t xd[4] = {static_cast<uint64_t>(Cin),
+                          static_cast<uint64_t>(W), static_cast<uint64_t>(H),
+                          static_cast<uint64_t>(N)};
+  const uint64_t xs[3] = {4ull * Cin, 4ull * Cin * W, 4ull * Cin * W * H};
+  const uint32_t xb[4] = {32, PW, TH, 1};
+  const uint64_t gd[4] = {static_cast<uint64_t>(Cout),
+                          static_cast<uint64_t>(W), static_cast<uint64_t>(H),
+                          static_cast<uint64_t>(N)};
+  const uint64_t gstr[3] = {4ull * Cout, 4ull * Cout * W,
+                            4ull * Cout * W * H};
+  const uint32_t gb[4] = {32, TW, TH, 1};
+  if (!sm90::encode_f32_map(&xmap, x, 4, xd, xs, xb) ||
+      !sm90::encode_f32_map(&gmap, g, 4, gd, gstr, gb))
+    return cudaErrorInvalidValue;
+  auto kern = wgrad_f32_wgmma_kernel<BN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(out_tiles(Cin, Cout)), splits);
+  kern<<<grid, THREADS, T::SMEM, stream>>>(xmap, gmap, dst, N, H, W, Cin,
+                                           Cout, splits);
+  return cudaGetLastError();
+}
+
+cudaError_t run(const float* x, const float* g, float* dst, int N, int H,
+                int W, int Cin, int Cout, int splits, cudaStream_t st) {
+  return tile_n(Cout) == 16
+             ? launch<16>(x, g, dst, N, H, W, Cin, Cout, splits, st)
+             : launch<64>(x, g, dst, N, H, W, Cin, Cout, splits, st);
+}
+
+}  // namespace wgf
 
 }  // namespace f32c
 
 // ---------------------------------------------------------- C interface
 
+// The route of a (Cin, Cout) call: 1 wgmma (the forward: Cin % 4 == 0;
+// the dW, ``wgrad`` != 0: Cin % 4 == 0 and Cout % 4 == 0, so TMA can
+// describe x and g), 0 narrow.
+extern "C" int conv3x3_f32_route(int Cin, int Cout, int wgrad) {
+  return Cin % 4 == 0 && (!wgrad || Cout % 4 == 0) ? 1 : 0;
+}
+
+// The forward's tile N on the wgmma route.
+extern "C" int conv3x3_f32_tile_n(int Cout) { return f32c::fw::tile_n(Cout); }
+
+// f32 elements of the forward's workspace (the split weights on the wgmma
+// route; none on the narrow one).
+extern "C" long long conv3x3_bn_relu_f32_ws_floats(int Cin, int Cout) {
+  return conv3x3_f32_route(Cin, Cout, 0) ? 18LL * Cin * Cout : 0;
+}
+
 // out (N,H,W,Cout) f32 = relu(conv3x3_pad1(x, w) * a + b): x (N,H,W,Cin)
 // f32; w (3,3,Cin,Cout) f32, or with ``flip`` (3,3,Cout,Cin) read as the
-// tap-reversed transpose (K1's dx); a, b (Cout,) f32. Returns the CUDA
-// error of the launch.
+// tap-reversed transpose (K1's dx); a, b (Cout,) f32; ws: the workspace of
+// conv3x3_bn_relu_f32_ws_floats elements (16-byte aligned; may be null on
+// the narrow route). Returns the CUDA error of the launches.
 extern "C" int conv3x3_bn_relu_f32(const void* x, const void* w,
                                    const void* a, const void* b, void* out,
-                                   int N, int H, int W, int Cin, int Cout,
-                                   int relu, int flip, void* stream) {
+                                   void* ws, int N, int H, int W, int Cin,
+                                   int Cout, int relu, int flip,
+                                   void* stream) {
   using namespace f32c;
   const long long P = static_cast<long long>(N) * H * W;
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 ||
-      P >= (1LL << 31) - BM || 9LL * Cin >= (1LL << 31) ||
-      (Cout + BN - 1) / BN > 65535)
+      P >= (1LL << 31) - nar::BM || 9LL * Cin * Cout >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((P + BM - 1) / BM),
-                  (Cout + BN - 1) / BN);
   auto st = static_cast<cudaStream_t>(stream);
+  auto xf = static_cast<const float*>(x);
+  auto wf = static_cast<const float*>(w);
+  auto af = static_cast<const float*>(a);
+  auto bf = static_cast<const float*>(b);
+  auto of = static_cast<float*>(out);
+  if (conv3x3_f32_route(Cin, Cout, 0)) {
+    if (ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(fw::run(xf, wf, af, bf, of,
+                                     static_cast<float*>(ws), N, H, W, Cin,
+                                     Cout, relu, flip, st));
+  }
+  if ((Cout + nar::BN - 1) / nar::BN > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((P + nar::BM - 1) / nar::BM),
+                  (Cout + nar::BN - 1) / nar::BN);
   void (*kernel)(const float*, const float*, const float*, const float*,
                  float*, int, int, int, int, int, int) =
-      flip ? conv_f32_kernel<true> : conv_f32_kernel<false>;
+      flip ? nar::conv_f32_kernel<true> : nar::conv_f32_kernel<false>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       FWD_SMEM);
-  kernel<<<grid, THREADS, FWD_SMEM, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(out), H, W, static_cast<int>(P), Cin, Cout, relu);
+                       nar::FWD_SMEM);
+  kernel<<<grid, nar::THREADS, nar::FWD_SMEM, st>>>(
+      xf, wf, af, bf, of, H, W, static_cast<int>(P), Cin, Cout, relu);
   return static_cast<int>(cudaGetLastError());
 }
 
-// 32-pixel chunks of the split-K range: the wrapper picks splits <= this.
-extern "C" long long conv3x3_wgrad_f32_pixel_chunks(int N, int H, int W) {
+// The dW's split-K range: on the wgmma route 4 x 16 pixel tiles, on the
+// narrow one 32-pixel chunks of the flattened N*H*W. The wrapper picks
+// splits <= this.
+extern "C" long long conv3x3_wgrad_f32_pixel_tiles(int N, int H, int W,
+                                                   int Cin, int Cout) {
+  if (conv3x3_f32_route(Cin, Cout, 1)) return f32c::wgf::pixel_tiles(N, H, W);
   const long long P = static_cast<long long>(N) * H * W;
-  return (P + f32c::BK - 1) / f32c::BK;
+  return (P + f32c::nar::BK - 1) / f32c::nar::BK;
 }
 
-// Output tiles (blocks per split): 64 rows of (tap, Cin) x 64 of Cout.
+// Blocks per split: on the wgmma route 3 kernel rows x 64-channel Cin
+// tiles x N tiles of Cout; on the narrow one 64 rows of (tap, Cin) x 64 of
+// Cout.
 extern "C" long long conv3x3_wgrad_f32_out_tiles(int Cin, int Cout) {
-  return ((9LL * Cin + f32c::WM - 1) / f32c::WM) *
-         ((Cout + f32c::WN - 1) / f32c::WN);
+  if (conv3x3_f32_route(Cin, Cout, 1))
+    return f32c::wgf::out_tiles(Cin, Cout);
+  return ((9LL * Cin + f32c::nar::WM - 1) / f32c::nar::WM) *
+         ((Cout + f32c::nar::WN - 1) / f32c::nar::WN);
 }
 
 // dW (3,3,Cin,Cout) f32 <- x (N,H,W,Cin) f32, g (N,H,W,Cout) f32. ws: f32
@@ -578,25 +1422,36 @@ extern "C" int conv3x3_wgrad_f32(const void* x, const void* g, void* out,
                                  int Cout, int splits, void* stream) {
   using namespace f32c;
   const long long P = static_cast<long long>(N) * H * W;
-  const long long chunks = conv3x3_wgrad_f32_pixel_chunks(N, H, W);
+  const long long range = conv3x3_wgrad_f32_pixel_tiles(N, H, W, Cin, Cout);
   const long long elems = 9LL * Cin * Cout;
+  const bool wg = conv3x3_f32_route(Cin, Cout, 1);
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 ||
-      P >= (1LL << 31) - 4 * BK || elems >= (1LL << 31) || splits <= 0 ||
-      splits > 65535 || splits > chunks || (Cout + WN - 1) / WN > 65535 ||
+      P >= (1LL << 31) - 4 * nar::BK || elems >= (1LL << 31) || splits <= 0 ||
+      splits > 65535 || splits > range ||
+      conv3x3_wgrad_f32_out_tiles(Cin, Cout) > 2147483647LL ||
+      (!wg && (Cout + nar::WN - 1) / nar::WN > 65535) ||
       (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
+  auto xf = static_cast<const float*>(x);
+  auto gf = static_cast<const float*>(g);
   auto of = static_cast<float*>(out);
   float* dst = splits > 1 ? static_cast<float*>(ws) : of;
-  const int per = static_cast<int>((chunks + splits - 1) / splits);
-  const dim3 grid(static_cast<unsigned>((9LL * Cin + WM - 1) / WM),
-                  (Cout + WN - 1) / WN, splits);
-  cudaFuncSetAttribute(wgrad_f32_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
-  wgrad_f32_kernel<<<grid, THREADS, WG_SMEM, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(g), dst, H, W,
-      static_cast<int>(P), Cin, Cout, per, static_cast<int>(chunks));
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e;
+  if (wg) {
+    e = wgf::run(xf, gf, dst, N, H, W, Cin, Cout, splits, st);
+  } else {
+    const int per = static_cast<int>((range + splits - 1) / splits);
+    const dim3 grid(static_cast<unsigned>((9LL * Cin + nar::WM - 1) / nar::WM),
+                    (Cout + nar::WN - 1) / nar::WN, splits);
+    cudaFuncSetAttribute(nar::wgrad_f32_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         nar::WG_SMEM);
+    nar::wgrad_f32_kernel<<<grid, nar::THREADS, nar::WG_SMEM, st>>>(
+        xf, gf, dst, H, W, static_cast<int>(P), Cin, Cout, per,
+        static_cast<int>(range));
+    e = cudaGetLastError();
+  }
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   const int blocks = static_cast<int>(
       (elems + 255) / 256 < 8192 ? (elems + 255) / 256 : 8192);

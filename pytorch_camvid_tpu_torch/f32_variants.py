@@ -11,16 +11,25 @@ lines name each kernel and its registers.
     python -m pytorch_camvid_tpu_torch.f32_variants [variant ...]
 
 Variants (``VARIANTS``): ``kept`` (the source as it is; it must pass the
-rule); ``running_accumulator`` (the first design: the three split
-products of each k8 step go straight into the running accumulator, so the
-tensor core's truncated sums are taken at the accumulator's magnitude
-instead of one step's); and the faults chip_faults.py plants
-(``FAULTS``): ``single_pass`` (single-pass TF32, the hi*hi product only),
-``lo_hi_dropped`` (without the lo*hi product) and ``atomic_splits`` (the
-dW's splits added with atomics into a zeroed dW in launch order instead
-of the ordered second pass). All but ``kept`` are diagnostic, not held to
-the rule. Needs a CUDA card and nvcc; exits 1 without a card, or when a
-build fails or ``kept`` breaks the rule.
+rule); the wgmma route's design knobs: ``step_k8`` and ``step_k16`` (a
+step sum over one or two k8 steps, 3 or 6 products into one scratch,
+where the kept design sums four k8 steps' 12), ``no_pingpong`` (the
+forward on one scratch accumulator: each step sum waited for and added
+before the next is issued, as the kept dW does), ``dw_pingpong`` (the dW
+on two, as the kept forward up to N = 64), ``n64`` (the forward's N tile
+at most 64, where the kept one takes 128 for Cout > 64) and
+``running_accumulator`` (no step sums: every product goes straight into
+the running accumulator, so the tensor core's truncated sums are taken at
+the accumulator's magnitude instead of one step's);
+and the faults chip_faults.py plants (``FAULTS``), in the wgmma route's
+kernels: ``single_pass`` (single-pass TF32, the hi*hi product only),
+``lo_hi_dropped`` (without the lo*hi product), ``stale_scratch`` (a step
+sum's first product added onto the scratch, scale-d 1, which still holds
+the step sum two steps back) and ``atomic_splits`` (the dW's splits added
+with atomics into a zeroed dW in launch order instead of the ordered
+second pass). All but ``kept`` are diagnostic, not held to the rule.
+Needs a CUDA card and nvcc; exits 1 without a card, or when a build fails
+or ``kept`` breaks the rule.
 """
 
 from __future__ import annotations
@@ -36,50 +45,60 @@ from pytorch_camvid_tpu_torch import bench
 from pytorch_camvid_tpu_torch.ops import conv_train, cuda_build, fused_conv
 
 OUT = cuda_build.BUILD_DIR / "f32_variants"
-# (N, H, W, Cin, Cout): the stem, UNet's widest block, a 512-channel block
-# at 22x30 and a ragged 45x61 tile, at b2 for the errors
-SHAPES = ((2, 360, 480, 3, 64), (2, 360, 480, 64, 64),
-          (2, 22, 30, 512, 512), (2, 45, 61, 64, 64))
-TIMED = ((10, 360, 480, 64, 64), (10, 45, 60, 512, 512))
+# (N, H, W, Cin, Cout): UNet's widest block, the 64->12 head (N tile 16),
+# a 512-channel block at 22x30, a 1024->512 block and a ragged 45x61
+# tile, at b2 for the errors (the stem runs the narrow route, which the
+# design variants leave as it is)
+SHAPES = ((2, 360, 480, 64, 64), (2, 360, 480, 64, 12),
+          (2, 22, 30, 512, 512), (2, 45, 60, 1024, 512),
+          (2, 45, 61, 64, 64))
+TIMED = ((10, 360, 480, 64, 64), (10, 45, 60, 512, 512),
+         (10, 180, 240, 256, 128), (10, 45, 60, 1024, 512))
 # chip_smoke's phase 14 rule: err(t) = max|t - f64|; a kernel passes where
 # err(kernel) <= max(ERR_FACTOR * err(plain f32), ERR_FLOOR * max|f64|)
 ERR_FACTOR, ERR_FLOOR = 4.0, 2e-6
-_SUM = """  mma_tf32_z(s, al, bh0, bh1);
-  mma_tf32(s, ah, bl0, bl1);
-  mma_tf32(s, ah, bh0, bh1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += s[i];
+# the split product of one k8 step, in both wgmma kernels
+_PRODUCTS = """  sm90::wgmma_tf32<N>(d, al, bh, first ? 0 : 1);   // lo * hi
+  sm90::wgmma_tf32<N>(d, ah, bl, 1);               // hi * lo
+  sm90::wgmma_tf32<N>(d, ah, bh, 1);               // hi * hi
 """
-_RUNNING_SUM = """  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
-"""
-_SINGLE_SUM = """  mma_tf32_z(s, ah, bh0, bh1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += s[i];
-"""
-_NO_LO_HI_SUM = """  mma_tf32_z(s, ah, bl0, bl1);
-  mma_tf32(s, ah, bh0, bh1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += s[i];
-"""
+_SINGLE = [(_PRODUCTS,
+            "  sm90::wgmma_tf32<N>(d, ah, bh, first ? 0 : 1);   // hi * hi\n")]
+_NO_LO_HI = [(_PRODUCTS,
+              "  sm90::wgmma_tf32<N>(d, ah, bl, first ? 0 : 1);   // hi * lo\n"
+              "  sm90::wgmma_tf32<N>(d, ah, bh, 1);"
+              "               // hi * hi\n")]
+_STALE = [("  sm90::wgmma_tf32<N>(d, al, bh, first ? 0 : 1);   // lo * hi",
+           "  sm90::wgmma_tf32<N>(d, al, bh, 1);   // lo * hi")]
 _ATOMIC = [
-    ("  float* d = dst + static_cast<int64_t>(blockIdx.z) * M * Cout;",
-     "  float* d = dst;"),
-    ("          d[static_cast<int64_t>(r) * Cout + c] = "
-     "acc[mt][nt][2 * half + e];",
-     "          atomicAdd(&d[static_cast<int64_t>(r) * Cout + c],\n"
-     "                    acc[mt][nt][2 * half + e]);"),
-    ("  float* dst = splits > 1 ? static_cast<float*>(ws) : of;",
-     "  float* dst = of;\n"
-     "  cudaMemsetAsync(of, 0, elems * sizeof(float), st);"),
-    ("  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);",
-     "  return static_cast<int>(e);   // no ordered second pass")]
-VARIANTS = {"kept": [], "running_accumulator": [(_SUM, _RUNNING_SUM)],
-            "single_pass": [(_SUM, _SINGLE_SUM)],
-            "lo_hi_dropped": [(_SUM, _NO_LO_HI_SUM)],
-            "atomic_splits": _ATOMIC}
-FAULTS = ("single_pass", "lo_hi_dropped", "atomic_splits")
+    ("    float* dst = out + static_cast<int64_t>(split) * 9 * Cin * Cout;",
+     "    float* dst = out;"),
+    ("          *reinterpret_cast<float2*>(row + co) = make_float2(v0, v1);",
+     "          atomicAdd(row + co, v0);\n"
+     "          atomicAdd(row + co + 1, v1);"),
+    ("          row[co] = v0;\n          if (co + 1 < Cout) row[co + 1] = v1;",
+     "          atomicAdd(row + co, v0);\n"
+     "          if (co + 1 < Cout) atomicAdd(row + co + 1, v1);"),
+    ("    e = wgf::run(xf, gf, dst, N, H, W, Cin, Cout, splits, st);",
+     "    cudaMemsetAsync(of, 0, elems * sizeof(float), st);\n"
+     "    // no ordered second pass\n"
+     "    return static_cast<int>(\n"
+     "        wgf::run(xf, gf, of, N, H, W, Cin, Cout, splits, st));")]
+VARIANTS = {
+    "kept": [],
+    "step_k8": [("constexpr int STEP_K8 = 4;", "constexpr int STEP_K8 = 1;")],
+    "step_k16": [("constexpr int STEP_K8 = 4;", "constexpr int STEP_K8 = 2;")],
+    "no_pingpong": [("constexpr bool PINGPONG = true;",
+                     "constexpr bool PINGPONG = false;")],
+    "dw_pingpong": [("constexpr bool DW_PINGPONG = false;",
+                     "constexpr bool DW_PINGPONG = true;")],
+    "n64": [("constexpr int MAX_TILE_N = 128;",
+             "constexpr int MAX_TILE_N = 64;")],
+    "running_accumulator": [("constexpr bool STEP_SUMS = true;",
+                             "constexpr bool STEP_SUMS = false;")],
+    "single_pass": _SINGLE, "lo_hi_dropped": _NO_LO_HI,
+    "stale_scratch": _STALE, "atomic_splits": _ATOMIC}
+FAULTS = ("single_pass", "lo_hi_dropped", "stale_scratch", "atomic_splits")
 
 
 def error_rule(got: torch.Tensor, plain: torch.Tensor,
@@ -106,11 +125,12 @@ def _build(name: str):
     src = OUT / f"f32_{name}.cu"
     src.write_text(_edited(VARIANTS[name]))
     lib = src.with_suffix(".so")
-    r = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-                        str(lib), str(src)], capture_output=True, text=True)
+    r = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+                        "-I", str(cuda_build.CSRC), "-o", str(lib), str(src)],
+                       capture_output=True, text=True)
     log = [ln.strip()[:120] for ln in (r.stdout + r.stderr).splitlines()
            if "error" in ln or "registers" in ln or "spill" in ln
-           or "Compiling entry" in ln]
+           or "Compiling entry" in ln or "serialized" in ln]
     if r.returncode:
         return name, None, log
     return name, fused_conv.bind_f32(ctypes.CDLL(str(lib))), log
@@ -149,14 +169,15 @@ def _calls(lib, x, w, g):
     ones = {c: (torch.ones(c, device="cuda"), torch.zeros(c, device="cuda"))
             for c in (cin, cout)}
     ws = torch.empty(splits, 3, 3, cin, cout, device="cuda")
+    wsplit = torch.empty(18 * cin * cout, device="cuda")
 
     def conv(t, cout_, flip):
         out = torch.empty(t.shape[:3] + (cout_,), device="cuda")
         a, b = ones[cout_]
         err = lib.conv3x3_bn_relu_f32(
             t.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), n, h, wd, t.shape[3], cout_, 0, int(flip),
-            stream)
+            out.data_ptr(), wsplit.data_ptr(), n, h, wd, t.shape[3], cout_,
+            0, int(flip), stream)
         if err:
             raise RuntimeError(f"CUDA error {err}")
         return out

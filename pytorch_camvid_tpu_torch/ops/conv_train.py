@@ -16,16 +16,20 @@ and backward kernels: counterpart of
 
 At float32 (the JAX CLIs' default) all three pieces run
 ``csrc/conv3x3_f32.cu``: the forward and dx on its split-TF32 forward
-kernel (``fused_conv``'s f32 route), dW on its split-TF32 dW kernel with a
-split-K over pixel chunks (``wgrad_f32_splits``) and a second pass that
-sums the splits in a fixed order, so two launches give the same bits.
+(``fused_conv``'s f32 routes), dW on its split-TF32 dW, route "f32"
+(wgmma + TMA: 4 x 16 pixel tiles, each g tile transposed once into hi and
+lo planes) where TMA can describe x and g (Cin % 4 == 0, Cout % 4 == 0),
+"f32_narrow" (mma.sync over 32-pixel chunks) otherwise
+(``wgrad_f32_route``); both split-K (``wgrad_f32_splits``) with a second
+pass that sums the splits in a fixed order, so two launches give the same
+bits.
 
 Each piece has a wrapper (``conv3x3_fwd``, ``conv3x3_dgrad``,
 ``conv3x3_wgrad``) that runs its plain version on a CPU tensor and its
 kernel on a CUDA tensor, or raises; each counts its kernel launches in
 ``.launches`` and per kernel path in ``.path_launches``: the forward and
-dx by ``fused_conv.route`` ("wgmma", "packed" or "narrow" in bf16, "f32"),
-dW by ``wgrad_route`` ("wgmma", "packed" or "narrow" in bf16, "f32"). The plain
+dx by ``fused_conv.route`` ("wgmma", "packed" or "narrow" in bf16, "f32"
+or "f32_narrow"), dW by ``wgrad_route`` (likewise). The plain
 versions are ``conv3x3_train_plain`` (``F.conv2d``,
 differentiated by autograd), ``conv3x3_dgrad_plain``
 (``torch.nn.grad.conv2d_input``) and ``conv3x3_wgrad_plain``
@@ -46,7 +50,7 @@ from pytorch_camvid_tpu_torch.ops.fused_conv import (ROUTES, aligned16,
                                                      f32_library, route)
 
 WGRAD_PATHS = ("narrow", "wgmma", "packed")   # by the .cu's path code
-WGRAD_ROUTES = WGRAD_PATHS + ("f32",)   # the launch counters' keys
+WGRAD_ROUTES = WGRAD_PATHS + ("f32", "f32_narrow")   # the counters' keys
 
 WGRAD_SOURCE = cuda_build.CSRC / "conv3x3_wgrad.cu"
 # split-K target in blocks per SM: the narrow kernel's; the wgmma
@@ -58,9 +62,12 @@ _WGMMA_BLOCKS_PER_SM = 2
 # packs 9 taps x channels into M <= PACKED_M_MAX
 PACKED_M_MAX = 144
 SM_SMEM, BLOCK_SMEM = 233472, 232448   # shared bytes of an SM, of a block
-# the f32 dW (csrc/conv3x3_f32.cu): 32-pixel chunks, 64 x 64 output tiles
-# of (tap, Cin) rows x Cout, four blocks resident per SM (55 KB of shared
-# memory each)
+# the f32 dW (csrc/conv3x3_f32.cu). Route "f32" (namespace wgf): pixel
+# tiles of F32_TH x F32_TW, blocks of one kernel row x F32_BM input
+# channels x an N tile of Cout (``wgrad_f32_tile_n``), one resident per
+# SM. Route "f32_narrow" (namespace nar): 32-pixel chunks, 64 x 64 output
+# tiles of (tap, Cin) rows x Cout, four blocks resident per SM.
+F32_TH, F32_TW, F32_BM = 4, 16, 64
 F32_CHUNK, F32_TILE, F32_BLOCKS_PER_SM = 32, 64, 4
 
 
@@ -137,31 +144,83 @@ def wgrad_path(cin: int, cout: int) -> str:
     return "narrow"
 
 
+def wgrad_f32_route(cin: int, cout: int) -> str:
+    """The f32 dW's route at (Cin, Cout): "f32" (wgmma + TMA) where TMA can
+    describe x and g, Cin % 4 == 0 and Cout % 4 == 0; "f32_narrow"
+    (mma.sync) otherwise: the Cin = 3 stem, VOC's 64 -> 21 head."""
+    return "f32" if cin % 4 == 0 and cout % 4 == 0 else "f32_narrow"
+
+
 def wgrad_route(dtype: torch.dtype, cin: int, cout: int) -> str:
-    """The dW kernel that takes a (Cin, Cout) call at ``dtype``: "f32" for
-    float32, else the bf16 source's ``wgrad_path``."""
-    return "f32" if dtype == torch.float32 else wgrad_path(cin, cout)
+    """The dW kernel that takes a (Cin, Cout) call at ``dtype``: the f32
+    source's ``wgrad_f32_route`` for float32, else the bf16 source's
+    ``wgrad_path``."""
+    return (wgrad_f32_route(cin, cout) if dtype == torch.float32
+            else wgrad_path(cin, cout))
 
 
-def wgrad_f32_pixel_chunks(n: int, h: int, w: int) -> int:
-    """The f32 dW's split-K range: 32-pixel chunks of the flattened N*H*W
-    (the .cu's ``conv3x3_wgrad_f32_pixel_chunks``)."""
+def wgrad_f32_tile_n(cout: int) -> int:
+    """The f32 wgmma dW's N tile: 16 for Cout <= 16 (the 12-class head),
+    else 64 (the .cu's ``wgf::tile_n``)."""
+    return 16 if cout <= 16 else 64
+
+
+def wgrad_f32_plan(cout: int) -> dict:
+    """The f32 wgmma dW's shared memory at Cout's N tile: four x stages
+    (two 32-channel boxes of 4 x 18 pixels, 9,216 B each), three g stages
+    (N / 32 rounded up boxes of 4 x 16 pixels x 32 channels, 8,192 B
+    each), two plane buffers (hi and lo, each 8 k8 steps of N / 8 channel
+    groups 272 B apart: two 128-byte core matrices and 16 B of pad), two
+    mbarriers a stage and a buffer, and 1,024 B of alignment slack: the
+    figures the source's ``Plan`` computes and its ``static_assert``s
+    hold."""
+    bn = wgrad_f32_tile_n(cout)
+    x_stage, g_stage = 2 * 9216, -(-bn // 32) * 8192
+    planes = 2 * 2 * 8 * (bn // 8) * 272
+    return {"n": bn, "x_stage_bytes": x_stage, "g_stage_bytes": g_stage,
+            "plane_bytes": planes,
+            "bytes": 4 * x_stage + 3 * g_stage + planes + 16 * (4 + 3 + 2)
+            + 1024}
+
+
+def wgrad_f32_pixel_tiles(n: int, h: int, w: int, cin: int,
+                          cout: int) -> int:
+    """The f32 dW's split-K range (the .cu's
+    ``conv3x3_wgrad_f32_pixel_tiles``): F32_TH x F32_TW pixel tiles on the
+    "f32" route, 32-pixel chunks of the flattened N*H*W on "f32_narrow"."""
+    if wgrad_f32_route(cin, cout) == "f32":
+        return n * -(-h // F32_TH) * -(-w // F32_TW)
     return -(-n * h * w // F32_CHUNK)
 
 
 def wgrad_f32_out_tiles(cin: int, cout: int) -> int:
-    """The f32 dW's blocks per split: 64-row tiles of the 9 x Cin (tap,
-    channel) rows times 64-channel tiles of Cout (the .cu's
-    ``conv3x3_wgrad_f32_out_tiles``)."""
+    """The f32 dW's blocks per split (the .cu's
+    ``conv3x3_wgrad_f32_out_tiles``): on "f32" 3 kernel rows x F32_BM-
+    channel tiles of Cin x N tiles of Cout; on "f32_narrow" 64-row tiles
+    of the 9 x Cin (tap, channel) rows x 64-channel tiles of Cout."""
+    if wgrad_f32_route(cin, cout) == "f32":
+        return 3 * -(-cin // F32_BM) * -(-cout // wgrad_f32_tile_n(cout))
     return -(-9 * cin // F32_TILE) * -(-cout // F32_TILE)
 
 
 def wgrad_f32_splits(n: int, h: int, w: int, cin: int, cout: int,
                      sms: int) -> int:
-    """The f32 dW's split-K factor: enough splits for ``F32_BLOCKS_PER_SM``
-    blocks on each of ``sms`` SMs, at most one per pixel chunk."""
-    want = -(-F32_BLOCKS_PER_SM * sms // wgrad_f32_out_tiles(cin, cout))
-    return max(1, min(want, wgrad_f32_pixel_chunks(n, h, w), 65535))
+    """The f32 dW's split-K factor, at most one split per pixel tile. On
+    "f32_narrow": enough splits for ``F32_BLOCKS_PER_SM`` blocks on each of
+    ``sms`` SMs. On "f32" (one block resident per SM): from two waves'
+    worth of blocks, rounded down, the fewest splits up to eight times as
+    many whose last wave is at least 90% full, so the splits fill whole
+    waves (at 192 blocks a split, one split would leave the second wave
+    45% full; two fill 91% of the third)."""
+    blocks = wgrad_f32_out_tiles(cin, cout)
+    cap = min(wgrad_f32_pixel_tiles(n, h, w, cin, cout), 65535)
+    if wgrad_f32_route(cin, cout) == "f32_narrow":
+        return max(1, min(-(-F32_BLOCKS_PER_SM * sms // blocks), cap))
+    want = max(1, 2 * sms // blocks)
+    for s in range(want, min(cap, 8 * want) + 1):
+        if s * blocks % sms == 0 or s * blocks % sms >= 0.9 * sms:
+            return s
+    return max(1, min(want, cap))
 
 
 def wgrad_packed_plan(cin: int, cout: int) -> dict:
@@ -281,7 +340,7 @@ def _check_wgrad(x: torch.Tensor, g: torch.Tensor) -> None:
                 or 9 * x.shape[3] * g.shape[3] >= 2 ** 31):
             raise ValueError(f"unsupported shape for the f32 dW: x "
                              f"{tuple(x.shape)}, g {tuple(g.shape)}")
-        return   # any alignment: 16-byte copies where it allows
+        return   # aligned16 gave TMA its 16-byte bases (narrow: any)
     if (wgrad_path(x.shape[3], g.shape[3]) != "narrow"
             and (x.data_ptr() % 16 or g.data_ptr() % 16)):
         raise ValueError("x and g must be 16-byte aligned (TMA; the packed "
@@ -316,9 +375,9 @@ def _wgrad_launch(x: torch.Tensor, g: torch.Tensor,
 
 
 def _wgrad_f32_launch(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """One call of the f32 dW kernel on checked CUDA inputs (its split-K
-    pass and, past one split, the sum over the splits in split order):
-    returns dW (3,3,Cin,Cout) f32; raises on a CUDA error."""
+    """One call of the f32 dW on checked CUDA inputs, on its route (the
+    split-K pass and, past one split, the sum over the splits in split
+    order): returns dW (3,3,Cin,Cout) f32; raises on a CUDA error."""
     n, h, wd, cin = x.shape
     cout = g.shape[3]
     with torch.cuda.device(x.device):
@@ -345,9 +404,9 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     On a CPU tensor this is ``conv3x3_wgrad_plain``. On a CUDA tensor it
     launches a Hopper kernel or raises: bf16 x and g on
     ``csrc/conv3x3_wgrad.cu`` (f32 accumulation), f32 x and g on the
-    split-TF32 dW of ``csrc/conv3x3_f32.cu``, both split-K with a
-    deterministic second pass; an x or g whose data is not 16-byte aligned
-    is copied first (``fused_conv.aligned16``)."""
+    split-TF32 dW of ``csrc/conv3x3_f32.cu`` (``wgrad_f32_route``), both
+    split-K with a deterministic second pass; an x or g whose data is not
+    16-byte aligned is copied first (``fused_conv.aligned16``)."""
     if x.device.type == "cpu":
         return conv3x3_wgrad_plain(x, g)
     if x.device.type != "cuda":
@@ -355,7 +414,7 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     x, g = aligned16(x), aligned16(g)
     _check_wgrad(x, g)
     path = wgrad_route(x.dtype, x.shape[3], g.shape[3])
-    out = (_wgrad_f32_launch(x, g) if path == "f32"
+    out = (_wgrad_f32_launch(x, g) if x.dtype == torch.float32
            else _wgrad_launch(x, g, path))
     _count(conv3x3_wgrad, path)
     return out

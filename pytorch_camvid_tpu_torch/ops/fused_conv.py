@@ -25,14 +25,19 @@ per-channel affine of the conv output, so the block is one pass:
   implicit GEMM on split-TF32 tensor-core products (each operand split
   into a TF32 high part and residual, three products summed), f32 in and
   out, with the same contract (``flip``, a, b, ``relu``). It is the f32
-  instance of K4 (``pallas_conv.py`` emits x's dtype), launched as route
-  "f32" (``route``).
+  instance of K4 (``pallas_conv.py`` emits x's dtype), on two routes
+  (``f32_route``, the .cu's ``conv3x3_f32_route``): "f32", wgmma fed by
+  TMA where TMA can describe x (Cin % 4 == 0), its weights split once per
+  call into K-major hi and lo copies (``split_weights_plain`` is that
+  step's plain version) in a workspace the wrapper allocates; and
+  "f32_narrow", the first split-TF32 ``mma.sync`` design, for the rest
+  (the Cin = 3 stem, VOC's Cin = 21 dx).
 - ``conv3x3_bn_relu_plain`` is the same function from stock PyTorch ops.
   The CPU tests run it, and the card check compares the kernel with it.
 - ``conv3x3_bn_relu.launches`` counts kernel launches, and
   ``conv3x3_bn_relu.path_launches`` counts them per route (the bf16
-  source's three paths and "f32"), so a run can show that its main path
-  went through the kernel.
+  source's three paths and the two f32 routes), so a run can show that
+  its main path went through the kernel.
 
 Tolerance against the JAX package's unfused eval path: JAX computes
 ``(conv + b - mean) * inv + bias`` (pytorch_camvid_tpu/ops/conv.py:195-198)
@@ -58,7 +63,7 @@ BN_EPS = 1e-5  # torch.nn.BatchNorm2d default
 SOURCE = cuda_build.CSRC / "conv3x3_bn_relu.cu"
 F32_SOURCE = cuda_build.CSRC / "conv3x3_f32.cu"
 PATHS = ("narrow", "wgmma", "packed")   # by the .cu's path code
-ROUTES = PATHS + ("f32",)   # the launch counters' keys
+ROUTES = PATHS + ("f32", "f32_narrow")   # the launch counters' keys
 RES_MAX_CIN = 128   # the wgmma path's N = 16 tile keeps 9 x Cin x 16 weights
 K_MAX = 144         # the packed path's K: 9 taps x Cin
 
@@ -75,10 +80,66 @@ def conv_path(cin: int, cout: int) -> str:
     return "packed" if 9 * cin <= K_MAX and cout % 8 == 0 else "narrow"
 
 
+def f32_route(cin: int, cout: int) -> str:
+    """The f32 forward's route at (Cin, Cout): "f32" (wgmma + TMA) where TMA
+    can describe x, Cin % 4 == 0; "f32_narrow" (mma.sync) otherwise."""
+    return "f32" if cin % 4 == 0 else "f32_narrow"
+
+
 def route(dtype: torch.dtype, cin: int, cout: int) -> str:
-    """The kernel that takes a (Cin, Cout) call at ``dtype``: "f32" for
-    float32, else the bf16 source's ``conv_path``."""
-    return "f32" if dtype == torch.float32 else conv_path(cin, cout)
+    """The kernel that takes a (Cin, Cout) call at ``dtype``: the f32
+    source's ``f32_route`` for float32, else the bf16 source's
+    ``conv_path``."""
+    return (f32_route(cin, cout) if dtype == torch.float32
+            else conv_path(cin, cout))
+
+
+def f32_tile_n(cout: int) -> int:
+    """The f32 wgmma forward's N tile for Cout (the .cu's ``tile_n``): 16
+    for the 12-class head, 24 for VOC's 21, 64, else 128 (three 64 x N
+    accumulators a thread, the running one and two scratch, leave no room
+    for 256)."""
+    return 16 if cout <= 16 else 24 if cout <= 24 else 64 if cout <= 64 \
+        else 128
+
+
+def f32_fwd_plan(bn: int) -> dict:
+    """The f32 wgmma forward's shared memory at tile N ``bn``: two patch
+    stages of (8 + 2) x 18 pixels x 32 channels (23,040 B of TMA box,
+    rounded up to 1,024), weight stages of one (tap, 32-channel chunk) hi
+    box and lo box of bn x 128 B (4 stages at N = 128, else 6), two
+    mbarriers a stage and 1,024 B of alignment slack: the figures the
+    source's ``Plan`` computes and its ``static_assert``s hold."""
+    patch = -(-10 * 18 * 128 // 1024) * 1024
+    w_tx = 2 * bn * 128
+    stages = 4 if bn == 128 else 6
+    return {"patch_bytes": patch, "w_stage_bytes": w_tx, "w_stages": stages,
+            "bytes": 2 * patch + stages * w_tx + 16 * (2 + stages) + 1024}
+
+
+def tf32_rna_bits(v: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on f32 ``v``, by integer operations on its
+    bits: the magnitude rounded to 10 mantissa bits, ties away from zero
+    (add half of the 13 dropped bits' range, then clear them)."""
+    u = v.contiguous().view(torch.int32)
+    return ((u + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_weights_plain(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """The f32 forward's weights as its wgmma route reads them: (2, Cout, 9,
+    Cin), [0] the TF32 hi parts, [1] the lo parts (``tf32_rna_bits`` of v
+    and of v - hi), K-major: [h][n][t][c] from w (3,3,Cin,Cout), or with
+    ``flip`` from the tap-reversed transpose of w (3,3,Cout,Cin), w[8 -
+    t][n][c] (K1's dx). The plain version of the source's
+    ``split_weights_kernel``."""
+    w = w.float()
+    if flip:
+        kmaj = w.flip((0, 1)).reshape(9, w.shape[2], w.shape[3])
+    else:
+        kmaj = w.reshape(9, w.shape[2], w.shape[3]).transpose(1, 2)
+    kmaj = kmaj.transpose(0, 1).contiguous()   # (Cout, 9, Cin)
+    hi = tf32_rna_bits(kmaj)
+    return torch.stack([hi, tf32_rna_bits(kmaj - hi)])
 
 
 def flipped(w: torch.Tensor) -> torch.Tensor:
@@ -138,17 +199,32 @@ def f32_library() -> ctypes.CDLL:
 def bind_f32(lib: ctypes.CDLL) -> ctypes.CDLL:
     """The C entry points of a library built from ``conv3x3_f32.cu`` (or
     an edit of it, ``f32_variants``), typed."""
-    lib.conv3x3_bn_relu_f32.argtypes = [ctypes.c_void_p] * 5 + [
+    lib.conv3x3_bn_relu_f32.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.conv3x3_bn_relu_f32.restype = ctypes.c_int
     lib.conv3x3_wgrad_f32.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.conv3x3_wgrad_f32.restype = ctypes.c_int
-    lib.conv3x3_wgrad_f32_pixel_chunks.argtypes = [ctypes.c_int] * 3
-    lib.conv3x3_wgrad_f32_pixel_chunks.restype = ctypes.c_longlong
-    lib.conv3x3_wgrad_f32_out_tiles.argtypes = [ctypes.c_int] * 2
-    lib.conv3x3_wgrad_f32_out_tiles.restype = ctypes.c_longlong
+    for name, n, res in (("conv3x3_f32_route", 3, ctypes.c_int),
+                         ("conv3x3_f32_tile_n", 1, ctypes.c_int),
+                         ("conv3x3_bn_relu_f32_ws_floats", 2,
+                          ctypes.c_longlong),
+                         ("conv3x3_wgrad_f32_pixel_tiles", 5,
+                          ctypes.c_longlong),
+                         ("conv3x3_wgrad_f32_out_tiles", 2,
+                          ctypes.c_longlong)):
+        getattr(lib, name).argtypes = [ctypes.c_int] * n
+        getattr(lib, name).restype = res
     return lib
+
+
+def f32_kernel_route(cin: int, cout: int, wgrad: bool = False) -> str:
+    """The f32 route the built library takes for (Cin, Cout), of the
+    forward or (``wgrad``) the dW (``f32_route``'s and
+    ``conv_train.wgrad_f32_route``'s rules as the .cu holds them;
+    chip_smoke checks that they agree)."""
+    return ("f32" if f32_library().conv3x3_f32_route(cin, cout, int(wgrad))
+            else "f32_narrow")
 
 
 def kernel_path(cin: int, cout: int) -> str:
@@ -196,7 +272,7 @@ def _check(x, w, a, b, flip=False):
         if x.shape[0] * x.shape[1] * x.shape[2] >= 2 ** 31 - 128:
             raise ValueError(f"the f32 kernel takes fewer than 2**31 - 128 "
                              f"pixels, got x {tuple(x.shape)}")
-        return   # any alignment: 16-byte copies where it allows
+        return   # aligned16 gave TMA its 16-byte bases (narrow: any)
     path = conv_path(cin, cout)
     if path == "wgmma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError("x and w must be 16-byte aligned (TMA)")
@@ -229,7 +305,7 @@ def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     if x.dtype == torch.float32:
         out = _f32_launch(x, w, a, b, relu, flip)
         conv3x3_bn_relu.launches += 1
-        conv3x3_bn_relu.path_launches["f32"] += 1
+        conv3x3_bn_relu.path_launches[f32_route(cin, cout)] += 1
         return out
     lib = _library()
     with torch.cuda.device(x.device):
@@ -249,16 +325,21 @@ def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
 def _f32_launch(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, relu: bool, flip: bool) -> torch.Tensor:
-    """One launch of the f32 kernel on checked CUDA inputs; raises on a
-    CUDA error."""
+    """One call of the f32 forward on checked CUDA inputs (on the wgmma
+    route the weights' split, then the conv); raises on a CUDA error."""
     n, h, wd, cin = x.shape
     cout = a.shape[0]
+    lib = f32_library()
     with torch.cuda.device(x.device):
         out = torch.empty((n, h, wd, cout), dtype=torch.float32,
                           device=x.device)
-        err = f32_library().conv3x3_bn_relu_f32(
+        floats = lib.conv3x3_bn_relu_f32_ws_floats(cin, cout)
+        ws = (torch.empty(floats, dtype=torch.float32, device=x.device)
+              if floats else None)
+        err = lib.conv3x3_bn_relu_f32(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), n, h, wd, cin, cout, int(relu), int(flip),
+            out.data_ptr(), ws.data_ptr() if ws is not None else None, n, h,
+            wd, cin, cout, int(relu), int(flip),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_bn_relu f32 kernel launch failed: CUDA "

@@ -33,8 +33,9 @@ HW, SEED, STEPS = (360, 480), 0, 3
 
 # kernel-name groups, first match wins
 GROUPS = (
-    ("K4/K1 conv (fwd, dx)", ("conv3x3_bn_relu", "conv_f32_kernel")),
-    ("K1 dW", ("conv3x3_wgrad", "wgrad_f32_kernel", "sum_splits_kernel")),
+    ("K4/K1 conv (fwd, dx)", ("conv3x3_bn_relu", "conv_f32_",
+                              "split_weights_kernel")),
+    ("K1 dW", ("conv3x3_wgrad", "wgrad_f32_", "sum_splits_kernel")),
     ("K3/K2 pools", ("pool_kernel", "phase_gather_kernel")),
     ("reductions", ("reduce_kernel",)),
     ("elementwise and copies", ("elementwise_kernel", "copy_kernel")),

@@ -272,7 +272,7 @@ def test_f32_output_through_bf16_rounds(f32_launches):
 
 
 @pytest.mark.parametrize("name", ["single_pass", "lo_hi_dropped",
-                                  "atomic_splits"])
+                                  "stale_scratch", "atomic_splits"])
 def test_f32_variant_faults_replace_both_callers_library(monkeypatch, name):
     """A planted f32 variant stands in for ``f32_library`` where both the
     forward's and the dW's launches look it up, and only inside the

@@ -199,19 +199,23 @@ def test_step_launches_on_each_path(net, blocks):
     counters to these): UNet 22 of 23 forwards, 21 of 22 dx and 21 of 23 dW
     on the wgmma path, the stem's forward, the head's dx and both of their
     dW on the packed paths, nothing on the narrow ones; SegNet 25 of 26, 24
-    of 25 and 24 of 26. At float32 every launch takes the f32 kernels."""
+    of 25 and 24 of 26. At float32 every launch takes the f32 kernels: the
+    stem's forward and dW (Cin 3) the narrow route, the rest the wgmma
+    one."""
     got = conv_train.step_path_launches(bench.block_shapes(net))
     b = blocks
+    none = {"f32": 0, "f32_narrow": 0}
     assert got == {
-        "fwd": {"wgmma": b - 1, "packed": 1, "narrow": 0, "f32": 0},
-        "dgrad": {"wgmma": b - 2, "packed": 1, "narrow": 0, "f32": 0},
-        "wgrad": {"wgmma": b - 2, "packed": 2, "narrow": 0, "f32": 0}}
+        "fwd": {"wgmma": b - 1, "packed": 1, "narrow": 0, **none},
+        "dgrad": {"wgmma": b - 2, "packed": 1, "narrow": 0, **none},
+        "wgrad": {"wgmma": b - 2, "packed": 2, "narrow": 0, **none}}
     got = conv_train.step_path_launches(bench.block_shapes(net),
                                         torch.float32)
+    bf16 = {"wgmma": 0, "packed": 0, "narrow": 0}
     assert got == {
-        "fwd": {"wgmma": 0, "packed": 0, "narrow": 0, "f32": b},
-        "dgrad": {"wgmma": 0, "packed": 0, "narrow": 0, "f32": b - 1},
-        "wgrad": {"wgmma": 0, "packed": 0, "narrow": 0, "f32": b}}
+        "fwd": {**bf16, "f32": b - 1, "f32_narrow": 1},
+        "dgrad": {**bf16, "f32": b - 1, "f32_narrow": 0},
+        "wgrad": {**bf16, "f32": b - 1, "f32_narrow": 1}}
 
 
 def test_path_rules_at_edges():
@@ -247,10 +251,9 @@ def test_cpu_route_is_plain_and_not_counted():
     conv_train.conv3x3_dgrad(y, w)
     conv_train.conv3x3_wgrad(x, y)
     assert conv_train.launches() == {"fwd": 0, "dgrad": 0, "wgrad": 0}
+    zero = {"wgmma": 0, "packed": 0, "narrow": 0, "f32": 0, "f32_narrow": 0}
     assert conv_train.path_launches() == {
-        "fwd": {"wgmma": 0, "packed": 0, "narrow": 0, "f32": 0},
-        "dgrad": {"wgmma": 0, "packed": 0, "narrow": 0, "f32": 0},
-        "wgrad": {"wgmma": 0, "packed": 0, "narrow": 0, "f32": 0}}
+        "fwd": zero, "dgrad": zero, "wgrad": zero}
 
 
 # every narrow width of the packed dW rule (9 x C <= 144, C % 8 != 0), on

@@ -123,45 +123,70 @@ def test_tf32_rounding_and_split_are_exact_where_they_should_be():
 
 # ------------------------------------------------------ the dW's splits
 
-def _cu_int(name: str) -> int:
+def _cu_int(name: str, ns: str = "") -> int:
+    """A constant of conv3x3_f32.cu, looked up after ``namespace ns {``."""
     src = (cuda_build.CSRC / "conv3x3_f32.cu").read_text()
+    if ns:
+        src = src[src.index(f"namespace {ns} {{"):]
     m = re.search(rf"\b{name} == (\d+)", src) or re.search(
         rf"constexpr int [^;]*\b{name} = (\d+)", src)
     return int(m.group(1))
 
 
 def test_f32_dw_split_rule():
-    """Chunks of 32 pixels, 64 x 64 output tiles of (tap, Cin) rows x Cout,
-    as the .cu's constants; the splits fill 4 blocks on each SM, at most
-    one per chunk; 4 blocks of the dW's shared memory fit an SM."""
-    assert conv_train.F32_CHUNK == _cu_int("BK") == 32
-    assert conv_train.F32_TILE == _cu_int("WM") == _cu_int("WN") == 64
-    assert (conv_train.F32_BLOCKS_PER_SM * (_cu_int("WG_SMEM") + 1024)
-            <= conv_train.SM_SMEM)
-    chunks, tiles = (conv_train.wgrad_f32_pixel_chunks,
+    """Both routes' split-K ranges and blocks as the .cu's constants. The
+    wgmma route ("f32"): 4 x 16 pixel tiles, blocks of one kernel row x 64
+    input channels x an N tile of 64 (16 at Cout <= 16), one resident per
+    SM, so the splits fill waves: two waves' worth of blocks, or the
+    fewest more whose last wave is at least 90% full. The narrow route:
+    32-pixel chunks, 64 x 64 output tiles of (tap, Cin) rows x Cout, four
+    blocks an SM, whose shared memory fits."""
+    assert (conv_train.F32_TH, conv_train.F32_TW, conv_train.F32_BM) == (
+        _cu_int("TH", "wgf"), _cu_int("TW", "wgf"), _cu_int("BM", "wgf"))
+    assert conv_train.F32_CHUNK == _cu_int("BK", "nar") == 32
+    assert conv_train.F32_TILE == _cu_int("WM", "nar") == \
+        _cu_int("WN", "nar") == 64
+    assert (conv_train.F32_BLOCKS_PER_SM * (_cu_int("WG_SMEM", "nar")
+                                            + 1024) <= conv_train.SM_SMEM)
+    tiles, blocks = (conv_train.wgrad_f32_pixel_tiles,
                      conv_train.wgrad_f32_out_tiles)
-    assert chunks(10, 360, 480) == 54000 and chunks(1, 2, 3) == 1
-    assert chunks(2, 45, 61) == 172   # 5490 pixels, a ragged last chunk
-    assert tiles(64, 64) == 9 and tiles(3, 64) == 1 and tiles(64, 12) == 9
-    assert tiles(512, 512) == 72 * 8 and tiles(64, 21) == 9
+    assert tiles(10, 360, 480, 64, 64) == 10 * 90 * 30
+    assert tiles(2, 45, 61, 64, 64) == 2 * 12 * 4     # ragged tiles
+    assert tiles(10, 360, 480, 3, 64) == 54000        # narrow: chunks
+    assert tiles(2, 45, 61, 64, 21) == 172            # 5490 pixels
+    assert blocks(64, 64) == 3 and blocks(64, 12) == 3
+    assert blocks(512, 512) == 3 * 8 * 8 and blocks(1024, 512) == 384
+    assert blocks(3, 64) == 1 and blocks(64, 21) == 9
     splits = conv_train.wgrad_f32_splits
-    assert splits(10, 360, 480, 64, 64, 132) == 59   # ceil(528 / 9)
-    assert splits(10, 360, 480, 3, 64, 132) == 528
-    assert splits(10, 22, 30, 512, 512, 132) == 1
-    assert splits(1, 2, 3, 64, 64, 132) == 1          # one chunk
-    assert splits(10, 45, 60, 512, 256, 132) == 2     # ceil(528 / 288)
+    assert splits(10, 360, 480, 64, 64, 132) == 88     # 264 blocks: 2 waves
+    assert splits(10, 45, 60, 512, 512, 132) == 2      # 384: 2.91 waves
+    assert splits(10, 45, 60, 1024, 512, 132) == 1     # 384 again
+    assert splits(10, 360, 480, 3, 64, 132) == 528     # narrow
+    assert splits(1, 4, 16, 64, 64, 132) == 1          # one pixel tile
+    for n, h, w, cin, cout in ((10, 180, 240, 64, 128), (10, 90, 120, 256,
+                                                        256),
+                               (10, 22, 30, 512, 512), (2, 45, 61, 64, 64)):
+        s, b = splits(n, h, w, cin, cout, 132), blocks(cin, cout)
+        assert 1 <= s <= tiles(n, h, w, cin, cout)
+        assert s * b % 132 == 0 or s * b % 132 >= 0.9 * 132 or \
+            s == tiles(n, h, w, cin, cout), (n, h, w, cin, cout, s)
 
 
 # ------------------------------------------------- routes and checks
 
 def test_f32_routes_and_checks():
-    """float32 x and w take the f32 kernels on every (Cin, Cout); mixed
-    dtypes are refused; the f32 kernels take any alignment and at most
-    2**31 - 128 pixels."""
+    """float32 x and w take the f32 kernels on every (Cin, Cout): the wgmma
+    route where TMA can describe x (and g, for the dW), the narrow one
+    otherwise; mixed dtypes are refused; the f32 kernels take any
+    alignment and at most 2**31 - 128 pixels."""
     f32, bf16 = torch.float32, torch.bfloat16
-    for cin, cout in ((3, 64), (64, 12), (64, 21), (512, 512)):
-        assert fused_conv.route(f32, cin, cout) == "f32"
-        assert conv_train.wgrad_route(f32, cin, cout) == "f32"
+    for cin, cout, fwd, dw in ((3, 64, "f32_narrow", "f32_narrow"),
+                               (64, 12, "f32", "f32"),
+                               (64, 21, "f32", "f32_narrow"),
+                               (21, 64, "f32_narrow", "f32_narrow"),
+                               (512, 512, "f32", "f32")):
+        assert fused_conv.route(f32, cin, cout) == fwd
+        assert conv_train.wgrad_route(f32, cin, cout) == dw
         assert fused_conv.route(bf16, cin, cout) == fused_conv.conv_path(
             cin, cout)
         assert conv_train.wgrad_route(bf16, cin, cout) == \
@@ -180,7 +205,8 @@ def test_f32_routes_and_checks():
     with pytest.raises(ValueError, match="pixels"):
         fused_conv._check(torch.empty(4096, 1024, 512, 3, device="meta"),
                           *meta)
-    assert fused_conv.ROUTES == ("narrow", "wgmma", "packed", "f32")
+    assert fused_conv.ROUTES == ("narrow", "wgmma", "packed", "f32",
+                                 "f32_narrow")
 
 
 def test_f32_blocks_keep_f32_through_both_models(monkeypatch):
