@@ -16,7 +16,8 @@ against run A, the eval CLI and the Predictor on A's checkpoint), and
 phase 13's (``augment_checks``: the recipes on the card against the CPU
 port; ``host_loader_checks``, ``voc_checks``, ``lr_finder_checks``:
 ``-loader host`` against run A, VOC training and eval with the 64->21
-head on the narrow paths, the LR finder's sweeps) and phase 14's
+head on the wgmma head tile and the packed paths, the LR finder's
+sweeps) and phase 14's
 per-shape checks of the f32 kernels (``f32_kernel_checks``: the error
 rule against float64 and the dW's determinism), once sound and once
 under each planted fault. Every kernel fault keeps every
@@ -353,10 +354,11 @@ def eval_steps_in_train_mode():
 
 
 def narrow_dx_tap_dropped(x, w, a, b, relu=True, flip=False):
-    """K1's dx on the narrow path (the VOC head's, Cin 21 into 64)
-    launched without its first tap (w[0, 0] zero in a copy); every other
-    launch as it was."""
-    if flip and fused_conv.conv_path(w.shape[3], w.shape[2]) == "narrow":
+    """K1's dx of the VOC head, the narrow 21-channel cotangent into 64
+    channels (on the packed path), launched without its first tap (w[0,
+    0] zero in a copy); every other launch, the 12-class head's dx among
+    them, as it was."""
+    if flip and w.shape[3] == smoke.VOC_CLASSES:
         w = w.clone()
         w[0, 0] = 0
     return fused_conv.conv3x3_bn_relu(x, w, a, b, relu, flip)
@@ -506,7 +508,7 @@ def main() -> int:
                          staticmethod(pool_backward_zeroed))),
         ("data side", "HostLoader serving batch t + 1 in place of t",
          host_loader_serving_next_batch),
-        ("data side", "the VOC head's narrow dx with one tap dropped",
+        ("data side", "the VOC head's dx (Cin 21) with one tap dropped",
          lambda: planted(conv_train, "conv3x3_bn_relu",
                          narrow_dx_tap_dropped)),
         ("data side", "VOC's 255 pixels left in the training loss",

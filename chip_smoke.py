@@ -22,10 +22,10 @@ Phases (each prints its lines; any failure exits non-zero):
 3. K4 vs plain: the kernel against its plain PyTorch version in bf16 at
    every distinct conv block shape of UNet and SegNet at 360x480, batch 8:
    error, both times and cuDNN's conv alone (CUDA events); then at
-   ``EDGE_SHAPES`` (ragged tiles, a part chunk, Cin 1024, the head's N = 16
-   tile, a partial N tile, an input past 2**31 elements; on the packed
-   path a ragged stem, a ragged Cin 12, a partial Cout tile and an output
-   past 2**31 elements; 64->20 on the narrow path).
+   ``EDGE_SHAPES`` (ragged tiles, a part chunk, Cin 1024, the head tile
+   at N = 16 and 24, an input past 2**31 elements; on the packed path a
+   ragged stem, a ragged Cin 12, Cin 20 (K 180), a partial Cout tile and
+   an output past 2**31 elements; 64->28 on the narrow path).
 4. K1 vs plain at each model's block shapes at its training batch (UNet
    24, SegNet 32): forward and dx (K4's kernel, unit affine, no ReLU; dx
    reads the weights tap-reversed in place) against F.conv2d and
@@ -36,7 +36,8 @@ Phases (each prints its lines; any failure exits non-zero):
    packed dW path) beside their bounds, cuDNN's bf16 wgrad and the narrow
    path's time before it (``WGRAD_NARROW_MS``); then the three pieces at
    ``EDGE_SHAPES`` (dW on all three paths: the stems, 12->64, 3->24, 64->12
-   and the 4.4 GB stem on the packed one, 64->20 on the narrow one); then
+   and the 4.4 GB stem, 64->20 (M 180) on the packed one, 64->28 on the
+   narrow one); then
    batch views that start off a 16-byte boundary (``x[1:]`` at 45x61,
    ``misaligned_checks``): K4, K1's three pieces on the packed and wgmma
    paths and a full-width UNet's eval forward and train step, against
@@ -135,15 +136,18 @@ Phases (each prints its lines; any failure exits non-zero):
    rows of 255): ``train -dataset voc2012 -net unet -b 10 -e 1`` with
    every K1 call held against plain on the step's data and each step's
    loss against ``F.cross_entropy`` over the non-255 pixels; the 64->21
-   head on the narrow paths (fwd, dx and dW once a step, K4 once an eval
-   batch: ``path_counts(net, steps, 21)``); ``eval -dataset voc2012`` on
-   its checkpoint prints the loop's mIoU. (4) Run A again with ``-loader
-   host``: all 347 leaves bit-equal to run A's, every gather native; both
-   runs' epoch img/s and the gather's ms a batch; run C's configuration
-   with the host loader through ``loop.run_training`` as well, bit-equal,
-   its epochs beside run C's. (5) The 64->21 head's
-   K1 fwd, dx and dW at b10 and b24 against cuDNN's bf16 calls and their
-   bounds. ``chip_faults.py`` plants faults under (1)-(4).
+   head's forward on the wgmma path's N = 24 head tile, its dx (Cin 21)
+   and dW (Cout 21) on the packed ones (once a step each, K4 once an eval
+   batch; none on the narrow ones: ``path_counts(net, steps, 21)``);
+   ``eval -dataset voc2012`` on its checkpoint prints the loop's mIoU.
+   (4) Run A again with ``-loader host``: all 347 leaves bit-equal to run
+   A's, every gather native; both runs' epoch img/s and the gather's ms a
+   batch; run C's configuration with the host loader through
+   ``loop.run_training`` as well, bit-equal, its epochs beside run C's. (5)
+   The 64->21 head's K1 fwd, dx and dW at b10 and b24 against cuDNN's bf16
+   calls and their bounds, beside the narrow paths' times before
+   (``HEAD_NARROW_MS``).
+   ``chip_faults.py`` plants faults under (1)-(4).
    Phases 12 and 13 pass ``-dtype bfloat16`` to the CLIs (their default
    is float32, as the JAX CLIs').
 14. f32 on the card, the JAX CLIs' default numerics: (1) K4 and K1's
@@ -282,30 +286,34 @@ PAIR_FIRST_MS = {64: 1.262, 128: 2.625}
 PAIR_PROBE_K = 10
 # phases 3 and 4: both conv sources at ragged and edge shapes, (N, H, W,
 # Cin, Cout): partial tiles (H 45, W 61), 44x60 and 22x30, a part chunk
-# (Cin 48) with Cout 32, Cin 1024, the head's N = 16 tile (Cout 12 and 16;
-# its dx, Cin 12 into 64, takes the packed path), a partial N tile (Cout
-# 24), an input past 2**31 elements (64-bit offsets); the packed path at a
+# (Cin 48) with Cout 32, Cin 1024, the head tile at N = 16 (Cout 12 and
+# 16; the dx, Cin 12 into 64, takes the packed path) and N = 24 (Cout 24,
+# and 64->20, whose dx, Cin 20 into 64, takes the packed path at K = 180),
+# an input past 2**31 elements (64-bit offsets); the packed path at a
 # ragged stem, a ragged Cin 12 forward, a partial Cout tile and an output
-# past 2**31 elements; 64->20, which stays on the narrow path. dW: the
-# stems, 12->64, 3->24, 64->12 and the 4.4 GB stem on the packed path,
-# 64->20 on the narrow one, the rest on the wgmma one
+# past 2**31 elements; 64->28, whose forward, dx and dW stay on the narrow
+# paths. dW: the stems, 12->64, 3->24, 64->12, 64->20 (M = 180) and the
+# 4.4 GB stem on the packed path, 64->28 on the narrow one, the rest on
+# the wgmma one
 EDGE_SHAPES = ((2, 45, 61, 64, 64), (2, 44, 60, 512, 256),
                (2, 22, 30, 512, 512), (2, 46, 61, 48, 32),
                (2, 22, 30, 1024, 512), (2, 45, 61, 64, 12),
                (2, 45, 61, 64, 16), (2, 45, 61, 64, 24),
                (100, 360, 480, 128, 64), (2, 45, 61, 3, 64),
                (2, 45, 61, 12, 64), (2, 45, 61, 3, 24),
-               (200, 360, 480, 3, 64), (2, 45, 61, 64, 20))
+               (200, 360, 480, 3, 64), (2, 45, 61, 64, 20),
+               (2, 45, 61, 64, 28))
 # K4/K1 launches per path of one forward ("fwd") and one training step
 # (``path_table``): the body's blocks on the wgmma paths; the stem's
 # forward and dW on the packed ones (no dx: its input is the image); the
 # head's pieces by its class count (``HEAD_PATHS``): 12 classes (CamVid)
-# put its forward on the wgmma path and its dx (Cin 12) and dW on the
-# packed ones, 21 (VOC) all three on the narrow ones (9 x 21 = 189 past
-# the packed paths' 144)
+# put its forward on the wgmma path's head tile (N = 16) and its dx (Cin
+# 12) and dW on the packed ones; 21 (VOC) likewise, its forward at N = 24
+# and its dx (Cin 21, K = 189) and dW (M = 189) within the packed paths'
+# 192
 N_BLOCKS = {"unet": 23, "segnet": 26}
 HEAD_PATHS = {12: {"fwd": "wgmma", "dgrad": "packed", "wgrad": "packed"},
-              21: {"fwd": "narrow", "dgrad": "narrow", "wgrad": "narrow"}}
+              21: {"fwd": "wgmma", "dgrad": "packed", "wgrad": "packed"}}
 # at float32 the body's blocks take the f32 wgmma route ("f32"), the
 # stem's forward and dW (Cin 3) the narrow one ("f32_narrow"), the head's
 # pieces by its class count: 12 all three on "f32" (the forward's N tile
@@ -343,6 +351,12 @@ PATH_TABLE = {net: path_table(net) for net in N_BLOCKS}
 # (UNet b24, 360x480, ms; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md),
 # printed beside this run's
 WGRAD_NARROW_MS = {("unet", 3, 64): 0.549, ("unet", 64, 12): 1.576}
+# VOC's 64->21 head on the narrow paths before the head tile and the
+# packed paths took it ({piece: {batch: ms}} at 360x480; NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md), printed beside this run's
+HEAD_NARROW_MS = {"fwd": {10: 0.978, 24: 2.305},
+                  "dx": {10: 0.975, 24: 2.315},
+                  "wgrad": {10: 1.082, 24: 2.485}}
 
 
 def check(cond: bool, what: str) -> None:
@@ -2163,8 +2177,9 @@ def voc_checks(tmp: str) -> None:
     """Part 3: ``train -dataset voc2012 -net unet -b 10 -e 1`` on VOC
     caches of 40 train and 13 val images, then ``eval -dataset voc2012``
     on its checkpoint: the eval's mIoU is the loop's; the 64->21 head runs
-    K1's narrow paths once a step (fwd, dx, dW) and K4's once an eval
-    batch, held against plain on the step's data (``shadowed_kernels``);
+    K1 once a step on each of its paths (fwd on wgmma, dx and dW on
+    packed) and K4 once an eval batch, held against plain on the step's
+    data (``shadowed_kernels``);
     each step's loss is F.cross_entropy's over the non-255 pixels."""
     data = write_voc_data(os.path.join(tmp, "voc"))
     workdir = os.path.join(tmp, "voc_run")
@@ -2201,7 +2216,7 @@ def voc_checks(tmp: str) -> None:
     check(counts == {k: v * steps for k, v in UNET_STEP.items()},
           "VOC training's K1 launches")
     check(paths == path_counts("unet", steps, VOC_CLASSES),
-          "VOC training's K1 paths (the head on the narrow ones)")
+          "VOC training's K1 paths (the head on wgmma, packed, packed)")
     check(k4_paths == path_counts("unet", evals, VOC_CLASSES)["fwd"],
           "VOC eval pass's K4 paths")
     check(all(e is not None for e in head.values()), "VOC head's pieces")
@@ -2297,8 +2312,9 @@ def head_timings() -> dict:
     """Part 5: the 64->21 head's K1 fwd, dx and dW at b10 and b24,
     360x480, against their plain versions (F.conv2d, conv2d_input, the f32
     wgrad), cuDNN's bf16 calls (F.conv2d; convolution_backward with the
-    real input; the bf16 wgrad) and their bounds. Returns {piece: {batch:
-    {ms, plain_ms, library_ms, bound_ms, bound_by, max_abs_err, path}}}."""
+    real input; the bf16 wgrad) and their bounds, beside the narrow paths'
+    times before (``HEAD_NARROW_MS``). Returns {piece: {batch: {ms,
+    plain_ms, library_ms, bound_ms, bound_by, max_abs_err, path}}}."""
     gen = torch.Generator(DEVICE).manual_seed(SEED)
     h, w = HW
     out = {"fwd": {}, "dx": {}, "wgrad": {}}
@@ -2338,7 +2354,9 @@ def head_timings() -> dict:
             line.append(f"{piece} ({path}) {ms:.4f} ms, plain "
                         f"{plain_ms:.4f} ms, cuDNN bf16 {lib_ms:.4f} ms "
                         f"({ms / lib_ms:.2f}x), bound {bound:.4f} by {by} "
-                        f"({bound / ms:.2f} of it), err {err / scale:.3g};")
+                        f"({bound / ms:.2f} of it), narrow path before "
+                        f"{HEAD_NARROW_MS[piece][n]} ms, err "
+                        f"{err / scale:.3g};")
         print(" ".join(line) + f" on {bench.card()}", flush=True)
         del x, wt, g, xc, gc, wc
         torch.cuda.empty_cache()

@@ -20,66 +20,85 @@
 // Three paths, chosen by conv3x3_bn_relu_path(Cin, Cout) (the wrapper holds
 // the same rule, ops/fused_conv.py::conv_path):
 //
-// * wgmma (Cin % 8 == 0 and Cout % 8 == 0; or Cout <= 16 with Cin <= 128,
-//   the head). An implicit GEMM, M = output pixels, N = output channels,
-//   K = 9 taps x Cin in 64-channel chunks, on a warp-specialised persistent
-//   block of three warpgroups: two producer threads of the third issue TMA
-//   loads into rings guarded by full/empty mbarriers, one for the patches
-//   and one for the weights, so neither ring waits for the other; two
-//   consumer warpgroups run wgmma.m64nNk16 (bf16, f32 accumulators in
-//   registers), and setmaxnreg moves registers from the producers to them.
-//   Per chunk one TMA box loads the (TH+2) x 18 x 64 input patch with the
-//   128-byte swizzle through a 4-D tensor map over x (C, W, H, N): the
-//   halo's coordinates lie outside the image and TMA fills them with zero,
-//   so there are no bounds checks. The weights come one tap at a time
-//   (64 x N bf16), N-major W[tap][ci][co] for the forward (the descriptor's
-//   transpose bit set) or K-major W[8-tap][co][ci] for flip. A is read from
-//   registers: each warp loads its 16 pixels x 16 channels of tap (dy, dx)
-//   with ldmatrix straight out of the patch at the tap's shifted row, the
-//   swizzle XOR in the address, so one staged patch serves all 9 taps
-//   (option (a); three shifted copies for A in shared memory would take 3x
-//   the patch's shared memory and halve the tile). The wgmmas of two (RES:
-//   four) k16 steps go out as one commit group, their A fragments
-//   double-buffered across groups (wgmma.wait_group 1). Tiles: TW = 16
-//   columns, each warp one output row per m64 tile, 128 accumulators per
-//   consumer thread: N = 256 (TH = 8) or 128 (TH = 16) by Cout, streaming
-//   the weights through a 3- or 4-stage ring; N = 64 with Cin > 64 (TH =
-//   32, 4 stages); N = 64 with Cin <= 64 (RES, TH = 16), whose 9 taps stay
-//   resident (a block keeps one channel tile: the grid is a multiple of the
-//   channel tiles); Cout <= 16 (the 64->12 head, whose 24-byte weight and
-//   output rows TMA cannot describe) takes an N = 16 tile whose 9 x Cin x
-//   16 weights are loaded once per block, zero-padded, into a no-swizzle
-//   K-major tile. The epilogue is acc * A[co] + B[co], the optional ReLU
-//   and bf16; each warp writes its output row into shared memory (128-byte
-//   swizzle, conflict-free) and hands it to a TMA store that runs while the
-//   next tile's wgmmas do and drops what lies past H, W or Cout (the head
-//   stores directly, masked).
-// * packed (Cin % 8 != 0 with 9 x Cin <= K_MAX = 144, and Cout % 8 == 0:
-//   the Cin = 3 stem's forward and the Cin = 12 input gradient of the
-//   64->12 head). Bound by the bytes it writes: at 360x480, batch 24, it
-//   reads 25 MB (stem) or 100 MB (head dx) and writes 531 MB of 64-channel
-//   output, so its bound is 0.17-0.19 ms, while its FLOPs (14-57 G) take
-//   0.06 ms at the tensor rate. The design keeps the tensor cores off the
-//   critical path and the output stream moving: K packs the 9 taps x Cin
-//   tap-major, k = (3 dy + dx) Cin + ci, padded to a multiple of 16 (K =
-//   32 at Cin 3, 112 at Cin 12: 2 and 7 k16 steps where a 32-channel chunk
-//   per tap took 18). Each persistent block (two per SM, a fixed tile of
-//   64 output channels) loads its K x 64 weights once, applying flip and
-//   the zero padding in that load, and walks tiles of 8 rows x 32 columns.
-//   A tile's input rows, (TW + 2) x Cin contiguous elements each, are read
-//   as 16-byte vectors into registers while the previous tile computes and
-//   written after it into a double-buffered patch at any element
-//   alignment (the halo outside the image zero); A fragments are gathered
-//   straight from the patch at each packed k (32-bit pairs when Cin is
-//   even), B comes by ldmatrix from the resident weights, mma.sync
-//   m16n8k16 accumulates in f32. Each warp stages its output row (32
-//   pixels x 128 bytes, swizzled) and hands it to a TMA store that runs
-//   while the next tile computes and clips H, W and Cout.
-// * narrow (every other shape: Cout % 8 != 0 above 16 such as 64->20, a
-//   head-like Cin > 128 into Cout <= 16, Cin % 8 != 0 above K_MAX / 9):
-//   the first design, mma.sync m16n8k16 from a cp.async double-buffered
-//   patch and weight slice, scalar loads where a channel count is not a
-//   multiple of 8 or the weights are read under flip.
+// * wgmma (Cin % 8 == 0, and Cout % 8 == 0 above 16 or, the head tile,
+//   Cout <= 24 with Cin <= 128). An implicit GEMM, M = output pixels, N =
+//   output channels, K = 9 taps x Cin in 64-channel chunks, on a
+//   warp-specialised persistent block of three warpgroups: two producer
+//   threads of the third issue TMA loads into rings guarded by full/empty
+//   mbarriers, one for the patches and one for the weights, so neither
+//   ring waits for the other; two consumer warpgroups run wgmma.m64nNk16
+//   (bf16, f32 accumulators in registers), and setmaxnreg moves registers
+//   from the producers to them. Per chunk one TMA box loads the (TH+2) x
+//   18 x 64 input patch with the 128-byte swizzle through a 4-D tensor map
+//   over x (C, W, H, N): the halo's coordinates lie outside the image and
+//   TMA fills them with zero, so there are no bounds checks. The weights
+//   come one tap at a time (64 x N bf16), N-major W[tap][ci][co] for the
+//   forward (the descriptor's transpose bit set) or K-major W[8-tap][co][ci]
+//   for flip. A is read from registers: each warp loads its 16 pixels x 16
+//   channels of tap (dy, dx) with ldmatrix straight out of the patch at the
+//   tap's shifted row, the swizzle XOR in the address, so one staged patch
+//   serves all 9 taps (option (a); three shifted copies for A in shared
+//   memory would take 3x the patch's shared memory and halve the tile).
+//   The wgmmas of two (RES: four) k16 steps go out as one commit group,
+//   their A fragments double-buffered across groups (wgmma.wait_group 1).
+//   Tiles: TW = 16 columns, each warp one output row per m64 tile, 128
+//   accumulators per consumer thread: N = 256 (TH = 8) or 128 (TH = 16) by
+//   Cout, streaming the weights through a 3- or 4-stage ring; N = 64 with
+//   Cin > 64 (TH = 32, 4 stages); N = 64 with Cin <= 64 (RES, TH = 16),
+//   whose 9 taps stay resident (a block keeps one channel tile: the grid is
+//   a multiple of the channel tiles). The epilogue is acc * A[co] + B[co],
+//   the optional ReLU and bf16; each warp writes its output row into shared
+//   memory (128-byte swizzle, conflict-free) and hands it to a TMA store
+//   that runs while the next tile's wgmmas do and drops what lies past H,
+//   W or Cout.
+//   The head tile (Cout <= 24: the 64->12 CamVid head at N = 16, VOC's
+//   64->21 head at N = 24, wgmma.m64n24k16; TMA cannot describe their 24-
+//   and 42-byte weight and output rows) loads the block's 9 x Cin x N
+//   weights once, zero-padded to N and to whole 64-channel chunks, into a
+//   no-swizzle K-major tile (Tile<N>::SMEM: 195,616 B at N 16, 214,048 at
+//   N 24, both below a block's 232,448), and takes TH = 32 rows a tile (MT
+//   = 4, 32 or 48 accumulators a consumer thread). It is bound by bytes:
+//   VOC's head at 360x480, batch 24, reads 531 MB of x and writes 174 MB,
+//   0.210 ms at 3.35 TB/s, while its 100 GFLOP (115 at N = 24) take 0.10
+//   ms at the tensor rate. So the design keeps x's stream whole (one TMA
+//   box a tile, every tap from it) and the MMA padding small (24 of 21
+//   channels, where the narrow path's mma.sync tile was 64 wide); the
+//   epilogue stores each pixel's channels directly, masked, pairs as one
+//   4-byte store where the address allows (every other pixel at odd Cout).
+// * packed (Cin % 8 != 0 with 9 x Cin <= K_MAX = 192, and Cout % 8 == 0:
+//   the Cin = 3 stem's forward and the input gradients of the 64->12 and
+//   64->21 heads, Cin 12 and 21). Bound by the bytes it writes: at
+//   360x480, batch 24, it reads 25 MB (stem), 100 MB (Cin 12) or 174 MB
+//   (Cin 21) and writes 531 MB of 64-channel output, so its bound is
+//   0.17-0.21 ms, while its FLOPs (14-100 G) take 0.01-0.10 ms at the
+//   tensor rate. The design keeps the tensor cores off the critical path
+//   and the output stream moving: K packs the 9 taps x Cin tap-major, k =
+//   (3 dy + dx) Cin + ci, padded to a multiple of 16 (K = 32 at Cin 3, 112
+//   at Cin 12, 192 at Cin 21: 2, 7 and 12 k16 steps, where a 32-channel
+//   chunk per tap took 18). Each persistent block (two per SM, a fixed
+//   tile of 64 output channels) loads its K x 64 weights once, applying
+//   flip and the zero padding in that load, and walks tiles of 8 rows x 32
+//   columns. A tile's input rows, (TW + 2) x Cin contiguous elements each,
+//   are read as 16-byte vectors into registers while the previous tile
+//   computes and written after it into a double-buffered patch at any
+//   element alignment (the halo outside the image zero); A fragments are
+//   gathered straight from the patch at each packed k (32-bit pairs when
+//   Cin is even, 16-bit values when it is odd), at per-lane offsets held
+//   in registers up to Cin 12 and past it in a shared table, one 8-byte
+//   read a k16 step (at Cin 21 the 12 steps' offsets in registers made
+//   ptxas spill 116 B, and the dx ran 12% slower); B comes by ldmatrix
+//   from the resident weights, mma.sync m16n8k16 accumulates in f32. Each
+//   warp stages its output row (32 pixels x 128 bytes, swizzled) and
+//   hands it to a TMA store that runs while the next tile computes and
+//   clips H, W and Cout. Shared memory (Geo<CIN>::SMEM): 46,400 B at Cin
+//   3, 79,808 at 12, 114,176 at 21, so two blocks fit an SM at every Cin.
+//   Instances: Cin 1-7, 9-15 and 17-21, every Cin the rule admits.
+// * narrow (every other shape: Cout % 8 != 0 above 24 such as 64->28, a
+//   head-like Cin > 128 into Cout <= 16 or 17-23, Cin % 8 != 0 above
+//   K_MAX / 9 or into Cout % 8 != 0 such as 3->12): the first design,
+//   mma.sync m16n8k16 from a cp.async double-buffered patch and weight
+//   slice, scalar loads where a channel count is not a multiple of 8 or
+//   the weights are read under flip. No model runs it.
 //
 // What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s: ridge ~295
 // FLOP/byte): every block shape with Cin, Cout >= 64 has 290 to several
@@ -95,11 +114,13 @@
 // warpgroup's wgmmas in the instances that hold 128 accumulators and
 // stream their weights, for want of registers; the two consumer
 // warpgroups overlap one another's. The epilogue's TMA store took 40% off
-// the shallow shapes, whose direct 4-byte stores had bound them. The head
-// (~90 FLOP/byte), the stem (~26) and the head's dx (~90) are bound by
+// the shallow shapes, whose direct 4-byte stores had bound them. The heads
+// (~90 FLOP/byte), the stem (~26) and the heads' dx (~90) are bound by
 // bytes.
 
 #include "sm90_common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -397,7 +418,7 @@ cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* w,
 
 namespace packed {
 
-constexpr int K_MAX = 144;       // 9 x Cin packed into K: Cin <= 16
+constexpr int K_MAX = 192;       // 9 x Cin packed into K: Cin <= 21
 constexpr int TH = 8;            // output rows per tile: one per warp
 constexpr int TW = 32;           // output columns per tile: two m16 per warp
 constexpr int MT = TW / 16;      // m16 tiles per warp
@@ -424,13 +445,23 @@ struct Geo {
   // (k >= K) read, whatever the pixel
   static constexpr int BUF = (PH + TH) * RS;
   static constexpr int PAD_OFF = PH * RS;
+  // past Cin 12 the A offsets of the k16 steps (2 x KSTEPS registers)
+  // live in a shared table, one 8-byte entry a (step, t4)
+  static constexpr bool TABLE = CIN > 12;
   // shared memory (bytes): per-warp output staging (1024-aligned for the
-  // 128-byte swizzle), resident weights, two patch buffers, A and B
+  // 128-byte swizzle), resident weights, two patch buffers, A and B, the
+  // offset table
   static constexpr int W_OFF = WARPS * OUT_WARP_BYTES;
   static constexpr int P_OFF = W_OFF + KP * BNP * 2;
   static constexpr int AB_OFF = P_OFF + 2 * BUF * 2;
-  static constexpr int SMEM = AB_OFF + 2 * BN * 4 + 1024;
+  static constexpr int TAB_OFF = AB_OFF + 2 * BN * 4;
+  static constexpr int SMEM = TAB_OFF + (TABLE ? KSTEPS * 4 * 8 : 0) + 1024;
 };
+// ops/fused_conv.py::packed_fwd_plan holds the same figures; two blocks an
+// SM need 2 x (SMEM + 1,024) <= 233,472 B
+static_assert(Geo<3>::SMEM == 46400, "the stem (Cin 3)");
+static_assert(Geo<12>::SMEM == 79808, "the 12-class head's dx (Cin 12)");
+static_assert(Geo<21>::SMEM == 114176, "VOC's 21-class head's dx (Cin 21)");
 
 __device__ __forceinline__ uint32_t lds32(uint32_t addr) {
   uint32_t v;
@@ -452,6 +483,11 @@ __device__ __forceinline__ int koff(int k) {
   const int tap = k / CIN, ci = k % CIN;
   return (tap / 3) * G::RS + (tap % 3) * CIN + ci;
 }
+// The byte offsets of k and k + 1 as the two 16-bit halves of one word.
+template <int CIN>
+__device__ __forceinline__ uint32_t koff2(int k) {
+  return 2 * koff<CIN>(k) | 2 * koff<CIN>(k + 1) << 16;
+}
 
 template <int CIN>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
@@ -464,7 +500,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
                                   int flip) {
   using G = Geo<CIN>;
   constexpr bool PAIRED = CIN % 2 == 0;  // k, k+1 (k even) adjacent
-  constexpr int NO = PAIRED ? 2 : 4;     // patch offsets per k16 step
+  static_assert(2 * G::PAD_OFF < 32768, "16-bit patch offsets");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
@@ -583,19 +619,25 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   // byte offsets in the patch of this lane's A elements per k16 step:
-  // k = 16 s + 2 t4 (+1) and + 8 (+1) (m16n8k16's A fragment columns)
-  int off[G::KSTEPS][NO];
+  // k = 16 s + 2 t4 (+1) and + 8 (+1) (m16n8k16's A fragment columns).
+  // Up to Cin 12 they stay in registers (odd CIN: k's and k + 1's as the
+  // two 16-bit halves of one); past it, in the table (koff2 of k and of
+  // k + 8 per (step, t4)): at Cin 21 its 12 k16 steps would hold 24
+  // registers through the tile loop, and ptxas spilled.
+  uint32_t off[G::TABLE ? 1 : G::KSTEPS][2];
+  const uint32_t tab_s = smem_u32(smem + G::TAB_OFF) + 8 * t4;
+  if constexpr (G::TABLE) {
+    for (int i = threadIdx.x; i < G::KSTEPS * 4; i += THREADS) {
+      const int k = 16 * (i / 4) + 2 * (i % 4);
+      reinterpret_cast<uint2*>(smem + G::TAB_OFF)[i] =
+          make_uint2(koff2<CIN>(k), koff2<CIN>(k + 8));
+    }
+  } else {
 #pragma unroll
-  for (int s = 0; s < G::KSTEPS; ++s) {
-    const int k = 16 * s + 2 * t4;
-    if constexpr (PAIRED) {
-      off[s][0] = 2 * koff<CIN>(k);
-      off[s][1] = 2 * koff<CIN>(k + 8);
-    } else {
-      off[s][0] = 2 * koff<CIN>(k);
-      off[s][1] = 2 * koff<CIN>(k + 1);
-      off[s][2] = 2 * koff<CIN>(k + 8);
-      off[s][3] = 2 * koff<CIN>(k + 9);
+    for (int s = 0; s < G::KSTEPS; ++s) {
+      const int k = 16 * s + 2 * t4;
+      off[s][0] = PAIRED ? 2 * koff<CIN>(k) : koff2<CIN>(k);
+      off[s][1] = PAIRED ? 2 * koff<CIN>(k + 8) : koff2<CIN>(k + 8);
     }
   }
   const uint32_t wt_s = smem_u32(wt);
@@ -628,19 +670,31 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 #pragma unroll
     for (int s = 0; s < G::KSTEPS; ++s) {
       uint32_t a[MT][4];
+      uint32_t e0, e1;
+      if constexpr (G::TABLE)
+        asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                     : "=r"(e0), "=r"(e1)
+                     : "r"(tab_s + 32 * s));
+      else
+        e0 = off[s][0], e1 = off[s][1];
+      // PAIRED reads k, k + 1 as one word at o0 and k + 8, k + 9 at o8
+      // (in registers, whole offsets)
+      const uint32_t o0 = PAIRED && !G::TABLE ? e0 : e0 & 0xFFFF;
+      const uint32_t o8 = PAIRED && !G::TABLE ? e1 : e1 & 0xFFFF;
+      const uint32_t o1 = e0 >> 16, o9 = e1 >> 16;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const uint32_t p0 = pix + 2 * 16 * mt * CIN, p1 = p0 + 2 * 8 * CIN;
         if constexpr (PAIRED) {
-          a[mt][0] = lds32(p0 + off[s][0]);
-          a[mt][1] = lds32(p1 + off[s][0]);
-          a[mt][2] = lds32(p0 + off[s][1]);
-          a[mt][3] = lds32(p1 + off[s][1]);
+          a[mt][0] = lds32(p0 + o0);
+          a[mt][1] = lds32(p1 + o0);
+          a[mt][2] = lds32(p0 + o8);
+          a[mt][3] = lds32(p1 + o8);
         } else {
-          a[mt][0] = lds16(p0 + off[s][0]) | lds16(p0 + off[s][1]) << 16;
-          a[mt][1] = lds16(p1 + off[s][0]) | lds16(p1 + off[s][1]) << 16;
-          a[mt][2] = lds16(p0 + off[s][2]) | lds16(p0 + off[s][3]) << 16;
-          a[mt][3] = lds16(p1 + off[s][2]) | lds16(p1 + off[s][3]) << 16;
+          a[mt][0] = lds16(p0 + o0) | lds16(p0 + o1) << 16;
+          a[mt][1] = lds16(p1 + o0) | lds16(p1 + o1) << 16;
+          a[mt][2] = lds16(p0 + o8) | lds16(p0 + o9) << 16;
+          a[mt][3] = lds16(p1 + o8) | lds16(p1 + o9) << 16;
         }
       }
 #pragma unroll
@@ -752,7 +806,8 @@ cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* w,
     PACKED_CASE(1) PACKED_CASE(2) PACKED_CASE(3) PACKED_CASE(4)
     PACKED_CASE(5) PACKED_CASE(6) PACKED_CASE(7) PACKED_CASE(9)
     PACKED_CASE(10) PACKED_CASE(11) PACKED_CASE(12) PACKED_CASE(13)
-    PACKED_CASE(14) PACKED_CASE(15)
+    PACKED_CASE(14) PACKED_CASE(15) PACKED_CASE(17) PACKED_CASE(18)
+    PACKED_CASE(19) PACKED_CASE(20) PACKED_CASE(21)
     default:
       return cudaErrorInvalidValue;
   }
@@ -769,29 +824,36 @@ constexpr int TW = 16;           // output columns per tile: one warp's m16
 constexpr int PW = TW + 2;       // patch columns (with halo)
 constexpr int THREADS = 384;     // warpgroups 0, 1 consume; 2 produces
 constexpr int CONSUMER_WARPS = 8;
-constexpr int RES_MAX_CIN = 128;  // the N = 16 tile keeps 9 x Cin x 16
+constexpr int RES_MAX_CIN = 128;  // the head tile keeps 9 x Cin x N
+constexpr int HEAD_MAX_COUT = 24;  // the head tile's widest N
 
 // RES: Cin <= 64, one chunk, so a block's weights change only with its
 // output-channel tile; the 9 taps (BN = 64) stay resident in a 9-stage ring
 // and are loaded again only when the next tile's channels differ.
+// HEAD (BN 16 or 24): the head tile, all 9 x RES_MAX_CIN x BN weights
+// resident from the block's start, no weight ring, no output staging.
 template <int BN, bool RES>
 struct Tile {
-  static constexpr int MT = BN == 16 ? 4 : RES ? 2 : 256 / BN;  // m64 / WG
+  static constexpr bool HEAD = BN <= HEAD_MAX_COUT;
+  static constexpr int MT = HEAD ? 4 : RES ? 2 : 256 / BN;  // m64 / WG
   static constexpr int TH = 8 * MT;  // 2 WGs x MT x 4 output rows
   static constexpr int PH = TH + 2;
   static constexpr int PATCH_TX = PH * PW * 128;  // one 64-channel box
   static constexpr int PATCH_BYTES = (PATCH_TX + 1023) / 1024 * 1024;
   static constexpr int P_STAGES = 2;
-  static constexpr int W_STAGES = BN == 16 ? 0 : RES ? 9 : BN == 256 ? 3 : 4;
+  static constexpr int W_STAGES = HEAD ? 0 : RES ? 9 : BN == 256 ? 3 : 4;
   static constexpr int W_BYTES = BN * 128;  // one tap: 64 (K) x BN bf16
-  static constexpr int RES_BYTES = BN == 16 ? 9 * RES_MAX_CIN * 16 * 2 : 0;
+  static constexpr int RES_BYTES = HEAD ? 9 * RES_MAX_CIN * BN * 2 : 0;
   // output staging for the TMA store: per consumer warp, one output row
   // of 16 pixels x BN channels as BN/64 boxes of 16 x 128 bytes
-  static constexpr int OUT_WARP_BYTES = BN == 16 ? 0 : 16 * BN * 2;
+  static constexpr int OUT_WARP_BYTES = HEAD ? 0 : 16 * BN * 2;
   static constexpr int BAR_OFF = P_STAGES * PATCH_BYTES + W_STAGES * W_BYTES +
                                  RES_BYTES + CONSUMER_WARPS * OUT_WARP_BYTES;
   static constexpr int SMEM = BAR_OFF + 2 * (P_STAGES + W_STAGES) * 8 + 1024;
 };
+// ops/fused_conv.py::head_tile_plan holds the same figures
+static_assert(Tile<16, false>::SMEM == 195616, "the head tile at N 16");
+static_assert(Tile<24, false>::SMEM == 214048, "the head tile at N 24");
 
 // Shared-memory descriptor of B for one k16 step ``kk`` of a weight stage.
 // N-major (TNSPB 1): TMA wrote BN/64 boxes of 64 K-rows x 128 bytes, one
@@ -818,6 +880,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                          __nv_bfloat16* __restrict__ out, int N, int H, int W,
                          int Cin, int Cout, int relu, int flip) {
   using T = Tile<BN, RES>;
+  constexpr bool HEAD = T::HEAD;
   constexpr int MT = T::MT, TH = T::TH, P = T::P_STAGES, S = T::W_STAGES;
   // k16 steps per wgmma commit group: 4 where the registers allow (RES,
   // 64 accumulators), else 2 (at 4, ptxas serializes the wgmmas)
@@ -861,23 +924,25 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     sm90::fence_barrier_init();
   }
-  if constexpr (BN == 16) {
-    // Resident weights, zero-padded to 16 output channels and to whole
-    // 64-channel chunks: block (chunk, tap, k16 step) of 512 bytes holds
-    // 16 (N) x 16 (K) as four 8x8 core matrices, K-major, no swizzle
-    // (8-row groups 256 bytes apart, the two K halves 128 bytes apart).
+  if constexpr (HEAD) {
+    // Resident weights, zero-padded to BN output channels and to whole
+    // 64-channel chunks: block (chunk, tap, k16 step) of BN x 32 bytes
+    // holds BN (N) x 16 (K) as BN / 4 8x8 core matrices, K-major, no
+    // swizzle (8-row groups 256 bytes apart, the two K halves 128 bytes
+    // apart).
     const __nv_bfloat16 zero = __float2bfloat16(0.f);
-    for (int i = threadIdx.x; i < nch * 9 * 64 * 16; i += THREADS) {
-      const int n = i & 15, k = (i >> 4) & 63, t = (i >> 10) % 9,
-                c = (i >> 10) / 9;
+    for (int i = threadIdx.x; i < nch * 9 * 64 * BN; i += THREADS) {
+      const int n = i % BN, k = (i / BN) & 63, t = i / (BN * 64) % 9,
+                c = i / (BN * 64 * 9);
       const int ci = c * 64 + k;
       __nv_bfloat16 v = zero;
       if (ci < Cin && n < Cout)
         v = flip ? w[(static_cast<int64_t>(8 - t) * Cout + n) * Cin + ci]
                  : w[(static_cast<int64_t>(t) * Cin + ci) * Cout + n];
       const int kl = k & 15;
-      const int off = ((c * 9 + t) * 4 + (k >> 4)) * 512 + (n >> 3) * 256 +
-                      (kl >> 3) * 128 + (n & 7) * 16 + (kl & 7) * 2;
+      const int off = ((c * 9 + t) * 4 + (k >> 4)) * (BN * 32) +
+                      (n >> 3) * 256 + (kl >> 3) * 128 + (n & 7) * 16 +
+                      (kl & 7) * 2;
       *reinterpret_cast<__nv_bfloat16*>(res + off) = v;
     }
     sm90::fence_proxy_async();
@@ -906,7 +971,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
     } else if (threadIdx.x == 288) {
-      if constexpr (BN != 16) {
+      if constexpr (!HEAD) {
       sm90::prefetch_tensormap(&wmap);
       uint32_t wit = 0;
       int res_n0 = -1;
@@ -978,7 +1043,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             ws = tap;
             sm90::mbar_wait(&wfull[ws], ((wit - 9) / 9) & 1);
             wb = wring0 + ws * T::W_BYTES;
-          } else if constexpr (BN != 16) {
+          } else if constexpr (!HEAD) {
             ws = wit % S;
             sm90::mbar_wait(&wfull[ws], (wit / S) & 1);
             wb = wring0 + ws * T::W_BYTES;
@@ -998,9 +1063,10 @@ __global__ void __launch_bounds__(THREADS, 1)
             for (int j = 0; j < G; ++j) {
               const int kk = gi * G + j;
               uint64_t desc;
-              if constexpr (BN == 16)
+              if constexpr (HEAD)
                 desc = sm90::wgmma_desc(
-                    res0 + ((c * 9 + tap) * 4 + kk) * 512, 128, 256, 0);
+                    res0 + ((c * 9 + tap) * 4 + kk) * (BN * 32), 128, 256,
+                    0);
               else
                 desc = b_desc<TNSPB>(wb, kk);
 #pragma unroll
@@ -1011,18 +1077,18 @@ __global__ void __launch_bounds__(THREADS, 1)
             sm90::wgmma_wait<1>();
             // the previous group, the previous tap's last, has completed:
             // its weights go
-            if constexpr (BN != 16 && !RES)
+            if constexpr (!HEAD && !RES)
               if (gi == 0 && tap > 0 && lane == 0)
                 sm90::mbar_arrive(&wempty[ws_prev]);
           }
-          if constexpr (BN != 16 && !RES) {
+          if constexpr (!HEAD && !RES) {
             ws_prev = ws;
             ++wit;
           }
         }
         sm90::wgmma_wait<0>();
         if (lane == 0) {
-          if constexpr (BN != 16 && !RES) sm90::mbar_arrive(&wempty[ws_prev]);
+          if constexpr (!HEAD && !RES) sm90::mbar_arrive(&wempty[ws_prev]);
           sm90::mbar_arrive(&pempty[ps]);
         }
       }
@@ -1038,43 +1104,55 @@ __global__ void __launch_bounds__(THREADS, 1)
       // Epilogue. Accumulator i of m64 tile mt: row 16*warp + lane/4
       // (+8 for i%4 >= 2), i.e. output row h, column lane/4 (+8); channel
       // 8*(i/4) + 2*(lane%4) + i%2. Each (A, B) pair is read once per tile.
-      if constexpr (BN == 16) {
-        // the head: 24-byte output rows, stored directly, masked
-        const bool pair = Cout % 2 == 0;
+      if constexpr (HEAD) {
+        // the head: output rows of Cout x 2 bytes (24 at 12 classes, 42 at
+        // 21), stored directly, masked; a channel pair as one 4-byte
+        // store where its address is 4-byte aligned (every pair at even
+        // Cout, every other pixel's at odd Cout)
+        // EVEN (Cout % 2 == 0) a compile-time constant, so the 12-class
+        // head's stores take no alignment test (it cost 1.9%)
+        auto store = [&](auto even_t) {
+          constexpr bool EVEN = decltype(even_t)::value;
 #pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const int co = n0 + 8 * j + 2 * (lane & 3);
-          if (co >= Cout) continue;
-          const bool two = co + 1 < Cout;
-          const float a0 = scale[co], b0 = shift[co];
-          const float a1 = two ? scale[co + 1] : 0.f;
-          const float b1 = two ? shift[co + 1] : 0.f;
+          for (int j = 0; j < BN / 8; ++j) {
+            const int co = n0 + 8 * j + 2 * (lane & 3);
+            if (co >= Cout) continue;
+            const bool two = co + 1 < Cout;
+            const float a0 = scale[co], b0 = shift[co];
+            const float a1 = two ? scale[co + 1] : 0.f;
+            const float b1 = two ? shift[co + 1] : 0.f;
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            const int h = h0 + wgi * 4 * MT + mt * 4 + warp;
+            for (int mt = 0; mt < MT; ++mt) {
+              const int h = h0 + wgi * 4 * MT + mt * 4 + warp;
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const int ww = w0 + (lane >> 2) + 8 * half;
-              if (h >= H || ww >= W) continue;
-              __nv_bfloat16* o =
-                  out + ((static_cast<int64_t>(img) * H + h) * W + ww) * Cout +
-                  co;
-              float v0 = acc[mt][4 * j + 2 * half] * a0 + b0;
-              float v1 = acc[mt][4 * j + 2 * half + 1] * a1 + b1;
-              if (relu) {
-                v0 = fmaxf(v0, 0.f);
-                v1 = fmaxf(v1, 0.f);
-              }
-              if (two && pair) {
-                *reinterpret_cast<__nv_bfloat162*>(o) =
-                    __floats2bfloat162_rn(v0, v1);
-              } else {
-                o[0] = __float2bfloat16(v0);
-                if (two) o[1] = __float2bfloat16(v1);
+              for (int half = 0; half < 2; ++half) {
+                const int ww = w0 + (lane >> 2) + 8 * half;
+                if (h >= H || ww >= W) continue;
+                __nv_bfloat16* o =
+                    out +
+                    ((static_cast<int64_t>(img) * H + h) * W + ww) * Cout + co;
+                float v0 = acc[mt][4 * j + 2 * half] * a0 + b0;
+                float v1 = acc[mt][4 * j + 2 * half + 1] * a1 + b1;
+                if (relu) {
+                  v0 = fmaxf(v0, 0.f);
+                  v1 = fmaxf(v1, 0.f);
+                }
+                if (two &&
+                    (EVEN || (reinterpret_cast<uintptr_t>(o) & 3) == 0)) {
+                  *reinterpret_cast<__nv_bfloat162*>(o) =
+                      __floats2bfloat162_rn(v0, v1);
+                } else {
+                  o[0] = __float2bfloat16(v0);
+                  if (two) o[1] = __float2bfloat16(v1);
+                }
               }
             }
           }
-        }
+        };
+        if (Cout % 2 == 0)
+          store(std::true_type{});
+        else
+          store(std::false_type{});
       } else {
         // Each warp writes its output row (16 pixels x BN channels) into
         // its staging boxes with the 128-byte swizzle (conflict-free: the
@@ -1125,14 +1203,17 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
     }
-    if constexpr (BN != 16)
+    if constexpr (!HEAD)
       if (lane == 0) sm90::bulk_wait<0, false>();  // the stores are done
   }
 }
 
-// Tile N for Cout: 16 (resident weights), 64, 128 or 256.
-int tile_n(int Cout) {
-  return Cout <= 16 ? 16 : Cout <= 64 ? 64 : Cout <= 128 ? 128 : 256;
+// Tile N for (Cin, Cout): the head tile, 16 or 24 (resident weights, Cin
+// <= RES_MAX_CIN), else 64, 128 or 256.
+int tile_n(int Cin, int Cout) {
+  if (Cout <= HEAD_MAX_COUT && Cin <= RES_MAX_CIN)
+    return Cout <= 16 ? 16 : 24;
+  return Cout <= 64 ? 64 : Cout <= 128 ? 128 : 256;
 }
 
 template <int BN, int TNSPB, bool RES = false>
@@ -1149,7 +1230,7 @@ cudaError_t launch(const __nv_bfloat16* x, const __nv_bfloat16* w,
   const uint32_t xb[4] = {64, PW, T::PH, 1};
   if (!sm90::encode_bf16_map(&xmap, x, 4, xd, xs, xb))
     return cudaErrorInvalidValue;
-  if constexpr (BN != 16) {
+  if constexpr (!T::HEAD) {
     // forward: (Cout, Cin, 9) in 64 x 64 boxes; flip: (Cin, Cout, 9) with
     // this call's Cin innermost, in 64 x BN boxes
     const uint64_t inner = TNSPB == 1 ? Cout : Cin;
@@ -1163,8 +1244,8 @@ cudaError_t launch(const __nv_bfloat16* x, const __nv_bfloat16* w,
   } else {
     wmap = xmap;  // unused
   }
-  CUtensorMap omap = xmap;  // the head (BN 16) stores directly
-  if constexpr (BN != 16) {
+  CUtensorMap omap = xmap;  // the head tile stores directly
+  if constexpr (!T::HEAD) {
     const uint64_t od[4] = {static_cast<uint64_t>(Cout),
                             static_cast<uint64_t>(W), static_cast<uint64_t>(H),
                             static_cast<uint64_t>(N)};
@@ -1200,7 +1281,7 @@ cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* w,
                 const float* a, const float* b, __nv_bfloat16* out, int N,
                 int H, int W, int Cin, int Cout, int relu, int flip,
                 cudaStream_t st) {
-  const int bn = tile_n(Cout);
+  const int bn = tile_n(Cin, Cout);
   if (Cin <= 64 && (bn == 64 || bn == 128))
     return flip ? launch<64, 0, true>(x, w, a, b, out, N, H, W, Cin, Cout,
                                       relu, flip, st)
@@ -1209,6 +1290,9 @@ cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* w,
   switch (bn) {
     case 16:
       return launch<16, 0>(x, w, a, b, out, N, H, W, Cin, Cout, relu, flip,
+                           st);
+    case 24:
+      return launch<24, 0>(x, w, a, b, out, N, H, W, Cin, Cout, relu, flip,
                            st);
     case 64:
       return flip ? launch<64, 0>(x, w, a, b, out, N, H, W, Cin, Cout, relu,
@@ -1232,13 +1316,16 @@ cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* w,
 
 }  // namespace
 
-// The path that takes (Cin, Cout): 1 wgmma (TMA can describe x and the
-// weights, or the Cout <= 16 head with Cin <= 128), 2 packed (Cin % 8 != 0
-// with 9 x Cin <= K_MAX and Cout % 8 == 0: the stem, the head's dx), 0
-// narrow (the rest). ops/fused_conv.py::conv_path holds the same rule.
+// The path that takes (Cin, Cout): 1 wgmma (Cin % 8 == 0, and the head
+// tile's Cout <= 24 with Cin <= 128, or TMA's tiles for Cout % 8 == 0
+// above 16), 2 packed (Cin % 8 != 0 with 9 x Cin <= K_MAX and Cout % 8 ==
+// 0: the stem, the heads' dx), 0 narrow (the rest).
+// ops/fused_conv.py::conv_path holds the same rule.
 extern "C" int conv3x3_bn_relu_path(int Cin, int Cout) {
-  if (Cin % 8 == 0)
-    return (Cout <= 16 ? Cin <= wg::RES_MAX_CIN : Cout % 8 == 0) ? 1 : 0;
+  if (Cin % 8 == 0) {
+    if (Cout <= wg::HEAD_MAX_COUT && Cin <= wg::RES_MAX_CIN) return 1;
+    return Cout > 16 && Cout % 8 == 0 ? 1 : 0;
+  }
   return 9 * Cin <= packed::K_MAX && Cout % 8 == 0 ? 2 : 0;
 }
 

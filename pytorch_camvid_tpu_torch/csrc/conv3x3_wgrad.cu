@@ -37,45 +37,49 @@
 //   would read x 9 times as often. The split-K takes whole waves of two
 //   blocks per SM (ops/conv_train.py::wgrad_splits).
 // * packed (one side narrow, the other wide: Cin % 8 != 0 with 9 x Cin <=
-//   144 and Cout % 8 == 0, the Cin = 3 stem; or Cout % 8 != 0 with 9 x
-//   Cout <= 144 and Cin % 8 == 0, the Cout = 12 head). Bound by bytes: at
-//   360x480, batch 24, the stem reads x 25 MB and g 531 MB (0.166 ms at
-//   3.35 TB/s), the head x 531 MB and g 100 MB (0.188 ms), while their
-//   useful work is 14 and 57 GFLOP. The wide tensor (the stem's g, the
-//   head's x; Cw channels) is read once, unshifted, by TMA: per pixel tile
-//   an 8 x 16 x 64 box with the 128-byte swizzle, B of wgmma.m64n64k16 as
-//   the wgmma path reads g (N-major descriptor, one k16 step a tile row).
-//   The narrow tensor (Cn channels) is the shifted operand. Per tile a
-//   producer warpgroup copies its (8 + 2) x (16 + 2) x Cn patch, each
-//   patch row 18 x Cn contiguous elements, as it lies into shared memory
-//   (16-byte cp.async, three tiles ahead: one 2-byte load a pixel and
-//   channel had cost the head a fifth of its time, dw_variants.py), then
-//   each thread takes one (patch row, channel) line of 18 values from
-//   there and writes it transposed, channel-major, three times,
-//   shifted by dx = 0, 1, 2 columns, so that each (tap, channel) row of A
-//   = 16 pixels of one tile row is 32 aligned bytes: M packs the 9 taps x
-//   Cn tap-major, m = (3 dy + dx) Cn + c, padded to 64 per m64 tile (27 ->
-//   64 for the stem, 108 -> 128 for the head), the pad rows reading a zero
-//   plane, and ldmatrix (no transpose) loads each warp's 16 rows straight
-//   from the shifted copies into wgmma's A registers. So
+//   M_MAX = 192 and Cout % 8 == 0, the Cin = 3 stem; or Cout % 8 != 0 with
+//   9 x Cout <= 192 and Cin % 8 == 0, the heads, Cout 12 (CamVid) and 21
+//   (VOC)). Bound by bytes: at 360x480, batch 24, the stem reads x 25 MB
+//   and g 531 MB (0.166 ms at 3.35 TB/s), the 12-class head x 531 MB and g
+//   100 MB (0.188 ms), the 21-class head x 531 MB and g 174 MB (0.210 ms),
+//   while their useful work is 14, 57 and 100 GFLOP. The wide tensor (the
+//   stem's g, the heads' x; Cw channels) is read once, unshifted, by TMA:
+//   per pixel tile an 8 x 16 x 64 box with the 128-byte swizzle, B of
+//   wgmma.m64n64k16 as the wgmma path reads g (N-major descriptor, one k16
+//   step a tile row). The narrow tensor (Cn channels) is the shifted
+//   operand. Per tile a producer warpgroup copies its (8 + 2) x (16 + 2) x
+//   Cn patch, each patch row 18 x Cn contiguous elements, as it lies into
+//   shared memory (16-byte cp.async, three tiles ahead: one 2-byte load a
+//   pixel and channel had cost the head a fifth of its time,
+//   dw_variants.py), then each thread takes one (patch row, channel) line
+//   of 18 values from there (two lines past 128: 210 at Cn 21) and writes
+//   it transposed, channel-major, three times, shifted by dx = 0, 1, 2
+//   columns, so that each (tap, channel) row of A = 16 pixels of one tile
+//   row is 32 aligned bytes: M packs the 9 taps x Cn tap-major, m = (3 dy
+//   + dx) Cn + c, padded to 64 per m64 tile (27 -> 64 for the stem, 108 ->
+//   128 for the 12-class head, 189 -> 192 for the 21-class one), the pad
+//   rows reading a zero plane, and ldmatrix (no transpose) loads each
+//   warp's 16 rows straight from the shifted copies into wgmma's A
+//   registers. So
 //       D[(t, c)][w] = sum_p narrow[p + off(t)][c] * wide[p][w],
 //   the stem's dW[t][c][w] and, since g[p + off(t)] = g[q - off(8 - t)],
-//   the head's dW[8 - t][w][c]. MMA work per pixel: 4,096 (stem) and 8,192
-//   (head) MACs, from the narrow path's 18,432 and 36,864: the tensor
-//   cores stay off the critical path (dw_variants.py's no_mma, without the
-//   wgmmas, reads within 3% of it). Each block is one consumer warpgroup
-//   and one producer
-//   warpgroup (thread 0 issues the TMA), a 3- or 4-stage ring under full /
-//   empty mbarriers, two blocks per SM (one at three m64 tiles); split-K
-//   over pixel tiles as the wgmma
-//   path (ops/conv_train.py::wgrad_splits, whole waves of two blocks per
-//   SM); offsets 64-bit. The shared-memory plan is smem_bytes() below,
-//   held by static_asserts and by ops/conv_train.py::wgrad_packed_plan.
+//   the heads' dW[8 - t][w][c]. MMA work per pixel: 4,096 (stem), 8,192
+//   (Cn 12) and 12,288 (Cn 21) MACs, from the narrow path's 18,432,
+//   36,864 and 36,864: the tensor cores stay off the critical path
+//   (dw_variants.py's no_mma, without the wgmmas, reads within 3% of it).
+//   Each block is one consumer warpgroup and one producer warpgroup
+//   (thread 0 issues the TMA), a 3- or 4-stage ring under full / empty
+//   mbarriers, two blocks per SM, one at three m64 tiles (Cn 15-21: 96
+//   accumulators a consumer thread; smem_bytes(21) = 184,000 B at 4
+//   stages); split-K over pixel tiles as the wgmma path
+//   (ops/conv_train.py::wgrad_splits, whole waves of two blocks per SM);
+//   offsets 64-bit. The shared-memory plan is smem_bytes() below, held by
+//   static_asserts and by ops/conv_train.py::wgrad_packed_plan.
 // * narrow (every other shape with a channel count that is not a multiple
-//   of 8, e.g. 64->20 or 3->12): the first design,
+//   of 8, e.g. 64->28 or 3->12): the first design,
 //   mma.sync m16n8k16 on 9 taps x 32 input x 64 output channels per block,
 //   cp.async double buffering, scalar loads for a channel count that is not
-//   a multiple of 8.
+//   a multiple of 8. No model runs it.
 //
 // What bounds it on the H100: 2*9*M*Cin*Cout FLOP against reading x and g
 // once per (Cin, Cout) tile from L2: for Cin, Cout >= 64 it is
@@ -594,6 +598,7 @@ constexpr int CONSUMER_WARPS = 4;
 constexpr int RAW = 4;                   // raw patch buffers: 3 tiles ahead
 constexpr int SM_SMEM = 233472;          // shared memory of an SM
 constexpr int BLOCK_RESERVED = 1024;     // the runtime's share per block
+constexpr int M_MAX = 192;               // 9 taps x Cn: three m64 tiles
 
 __host__ __device__ constexpr int m_tiles(int cn) {
   return (9 * cn + 63) / 64;
@@ -625,6 +630,7 @@ constexpr int smem_bytes(int cn) { return smem_at(cn, stages(cn)); }
 static_assert(smem_bytes(3) == 85568, "the stem's plan (Cn 3, 4 stages)");
 static_assert(smem_bytes(12) == 105776, "the head's plan (Cn 12, 3 stages)");
 static_assert(smem_bytes(15) == 150976, "Cn 15: 3 m64 tiles, 1 block/SM");
+static_assert(smem_bytes(21) == 184000, "VOC's head (Cn 21, 4 stages)");
 
 __device__ __forceinline__ uint32_t lds_u16(uint32_t addr) {
   unsigned short v;
@@ -926,12 +932,12 @@ cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* g, float* dst,
 }  // namespace
 
 // 1: the wgmma path takes (Cin, Cout); 2: the packed path (one side
-// narrow enough to pack 9 taps x its channels into M <= 144, the other
-// side a multiple of 8); 0: the narrow path.
+// narrow enough to pack 9 taps x its channels into M <= pk::M_MAX = 192,
+// the other side a multiple of 8); 0: the narrow path.
 extern "C" int conv3x3_wgrad_path(int Cin, int Cout) {
   if (Cin % 8 == 0 && Cout % 8 == 0) return 1;
-  if ((Cin % 8 != 0 && 9 * Cin <= 144 && Cout % 8 == 0) ||
-      (Cout % 8 != 0 && 9 * Cout <= 144 && Cin % 8 == 0))
+  if ((Cin % 8 != 0 && 9 * Cin <= pk::M_MAX && Cout % 8 == 0) ||
+      (Cout % 8 != 0 && 9 * Cout <= pk::M_MAX && Cin % 8 == 0))
     return 2;
   return 0;
 }

@@ -224,6 +224,23 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
 }
 
 template <int TNSPB>
+__device__ __forceinline__ void wgmma_rs_n24(float (&d)[12],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, {%12, %13, %14, %15}, %16, p, 1, 1, %18;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(TNSPB));
+}
+
+template <int TNSPB>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                             const uint32_t (&a)[4],
                                             uint64_t desc_b) {
@@ -339,6 +356,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b) {
   if constexpr (N == 16) wgmma_rs_n16<TNSPB>(d, a, desc_b);
+  else if constexpr (N == 24) wgmma_rs_n24<TNSPB>(d, a, desc_b);
   else if constexpr (N == 64) wgmma_rs_n64<TNSPB>(d, a, desc_b);
   else if constexpr (N == 128) wgmma_rs_n128<TNSPB>(d, a, desc_b);
   else wgmma_rs_n256<TNSPB>(d, a, desc_b);

@@ -59,8 +59,9 @@ WGRAD_SOURCE = cuda_build.CSRC / "conv3x3_wgrad.cu"
 _BLOCKS_PER_SM = 8
 _WGMMA_BLOCKS_PER_SM = 2
 # the packed dW path (csrc/conv3x3_wgrad.cu, namespace pk): its narrow side
-# packs 9 taps x channels into M <= PACKED_M_MAX
-PACKED_M_MAX = 144
+# packs 9 taps x channels into M <= PACKED_M_MAX (the .cu's pk::M_MAX):
+# three m64 tiles, Cn <= 21
+PACKED_M_MAX = 192
 SM_SMEM, BLOCK_SMEM = 233472, 232448   # shared bytes of an SM, of a block
 # the f32 dW (csrc/conv3x3_f32.cu). Route "f32" (namespace wgf): pixel
 # tiles of F32_TH x F32_TW, blocks of one kernel row x F32_BM input
@@ -134,8 +135,9 @@ def wgrad_path(cin: int, cout: int) -> str:
     ``conv3x3_wgrad_path`` holds the same rule): "wgmma" where TMA can
     describe x and g (Cin % 8 == 0 and Cout % 8 == 0); "packed" where one
     side is narrow (its channels not a multiple of 8, 9 x channels <=
-    ``PACKED_M_MAX``) and the other a multiple of 8: the Cin = 3 stem and the
-    Cout = 12 head; "narrow" otherwise (e.g. 64->20, 3->12)."""
+    ``PACKED_M_MAX`` = 192) and the other a multiple of 8: the Cin = 3 stem
+    and the Cout = 12 and 21 heads; "narrow" otherwise (e.g. 64->28,
+    3->12)."""
     if cin % 8 == 0 and cout % 8 == 0:
         return "wgmma"
     if ((cin % 8 and 9 * cin <= PACKED_M_MAX and cout % 8 == 0)
@@ -226,9 +228,11 @@ def wgrad_f32_splits(n: int, h: int, w: int, cin: int, cout: int,
 def wgrad_packed_plan(cin: int, cout: int) -> dict:
     """The packed dW kernel's plan at (Cin, Cout) on that path: the narrow
     side's channels ``narrow`` (x's for the stem, g's for the head), M =
-    9 taps x channels padded to 64-row tiles (``m``), N = 64 channels of the
-    wide side per block, ``blocks_per_sm`` (two; one at three M tiles, for
-    their accumulators), and shared memory: ``stage_bytes`` (one 8 x 16
+    9 taps x channels padded to 64-row tiles (``m``: 64 for the stem, 128
+    for the 12-class head, 192 for Cn 15-21 such as the 21-class head), N =
+    64 channels of the wide side per block, ``blocks_per_sm`` (two; one at
+    three M tiles, for their 96 accumulators a thread), and shared memory:
+    ``stage_bytes`` (one 8 x 16
     pixel x 64 channel wide box, 16,384 B, and the narrow patch's three
     shifted channel-major copies plus a zero plane, each (8 + 2) rows x 32 B
     + 16 B, rounded up to 128), ``stages`` (4 where ``blocks_per_sm``
@@ -237,7 +241,8 @@ def wgrad_packed_plan(cin: int, cout: int) -> dict:
     that 18 x narrow elements span at any alignment) and ``bytes`` (1,024
     of alignment slack, the stages, the raw buffers and two mbarriers a
     stage): the figures the source's ``smem_bytes`` computes and its
-    ``static_assert``s hold."""
+    ``static_assert``s hold (at Cn 3, 12, 15 and 21). Off the packed path
+    (e.g. 64->28) it raises."""
     if wgrad_path(cin, cout) != "packed":
         raise ValueError(f"{cin}->{cout} is not on the packed dW path")
     narrow = cin if cin % 8 else cout

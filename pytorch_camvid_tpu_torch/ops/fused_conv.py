@@ -16,11 +16,13 @@ per-channel affine of the conv output, so the block is one pass:
   kernel): the training conv's dx (``ops/conv_train.py``).
 - The source has three paths, chosen by ``conv_path(Cin, Cout)`` (the
   .cu's ``conv3x3_bn_relu_path`` holds the same rule): "wgmma" (wgmma fed
-  by TMA, for Cin % 8 == 0 with Cout % 8 == 0, or Cout <= 16 with Cin <=
-  128: the head), "packed" (Cin % 8 != 0 with 9 * Cin <= ``K_MAX`` and Cout
-  % 8 == 0: the Cin = 3 stem and the head's dx with Cin = 12, on the 9 taps
-  x Cin packed into K with weights resident per block) and "narrow" (the
-  first mma.sync design, for what neither takes, e.g. 64->20).
+  by TMA, for Cin % 8 == 0 with Cout % 8 == 0 above 16, or with Cout <=
+  ``HEAD_MAX_COUT`` = 24 and Cin <= ``RES_MAX_CIN`` = 128 on the head
+  tile: the 12- and 21-class heads), "packed" (Cin % 8 != 0 with 9 * Cin
+  <= ``K_MAX`` = 192 and Cout % 8 == 0: the Cin = 3 stem and the heads'
+  dx with Cin = 12 and 21, on the 9 taps x Cin packed into K with weights
+  resident per block) and "narrow" (the first mma.sync design, for what
+  neither takes, e.g. 64->28; no model runs it).
 - float32 x and w go to a second source, ``csrc/conv3x3_f32.cu``: an
   implicit GEMM on split-TF32 tensor-core products (each operand split
   into a TF32 high part and residual, three products summed), f32 in and
@@ -64,20 +66,67 @@ SOURCE = cuda_build.CSRC / "conv3x3_bn_relu.cu"
 F32_SOURCE = cuda_build.CSRC / "conv3x3_f32.cu"
 PATHS = ("narrow", "wgmma", "packed")   # by the .cu's path code
 ROUTES = PATHS + ("f32", "f32_narrow")   # the launch counters' keys
-RES_MAX_CIN = 128   # the wgmma path's N = 16 tile keeps 9 x Cin x 16 weights
-K_MAX = 144         # the packed path's K: 9 taps x Cin
+RES_MAX_CIN = 128   # the wgmma head tile keeps 9 x Cin x N weights
+HEAD_MAX_COUT = 24  # the head tile's widest N
+K_MAX = 192         # the packed path's K: 9 taps x Cin
 
 
 def conv_path(cin: int, cout: int) -> str:
     """The kernel path that takes a (Cin, Cout) call: "wgmma" where TMA can
-    describe the input (Cin % 8 == 0) and the weights (Cout % 8 == 0), or
-    where Cout <= 16 and Cin <= RES_MAX_CIN (resident weights, the 64->12
-    head); "packed" where Cin % 8 != 0, 9 * Cin <= K_MAX and Cout % 8 == 0
-    (the stem, the head's dx); "narrow" otherwise."""
+    describe the input (Cin % 8 == 0) and either the weights (Cout % 8 ==
+    0, above 16) or Cout <= HEAD_MAX_COUT with Cin <= RES_MAX_CIN (the head
+    tile, its weights resident: the 64->12 and 64->21 heads); "packed"
+    where Cin % 8 != 0, 9 * Cin <= K_MAX and Cout % 8 == 0 (the stem, the
+    heads' dx); "narrow" otherwise."""
     if cin % 8 == 0:
-        tma = cin <= RES_MAX_CIN if cout <= 16 else cout % 8 == 0
-        return "wgmma" if tma else "narrow"
+        if cout <= HEAD_MAX_COUT and cin <= RES_MAX_CIN:
+            return "wgmma"
+        return "wgmma" if cout > 16 and cout % 8 == 0 else "narrow"
     return "packed" if 9 * cin <= K_MAX and cout % 8 == 0 else "narrow"
+
+
+def head_tile_plan(cout: int) -> dict:
+    """The wgmma path's head tile at Cout <= HEAD_MAX_COUT (the .cu's
+    ``Tile<N>`` with N = ``n``, 16 up to 16 channels and 24 above): MT = 4
+    m64 tiles a consumer warpgroup, so TH = 32 output rows a tile and
+    ``accumulators`` = 4 x N / 2 a consumer thread; shared memory: two
+    patch stages of (32 + 2) x 18 pixels x 128 B (78,336 B of TMA box,
+    rounded up to 1,024), the resident weights 9 x RES_MAX_CIN x N bf16,
+    two mbarriers a patch stage and 1,024 B of alignment slack: the figures
+    the source's ``static_assert``s hold."""
+    if cout > HEAD_MAX_COUT:
+        raise ValueError(f"Cout {cout} is past the head tile's "
+                         f"{HEAD_MAX_COUT}")
+    n = 16 if cout <= 16 else 24
+    patch = -(-34 * 18 * 128 // 1024) * 1024
+    weights = 9 * RES_MAX_CIN * n * 2
+    return {"n": n, "mt": 4, "th": 32, "accumulators": 4 * n // 2,
+            "patch_bytes": patch, "weight_bytes": weights,
+            "bytes": 2 * patch + weights + 2 * 2 * 8 + 1024}
+
+
+def packed_fwd_plan(cin: int) -> dict:
+    """The packed path's plan at ``cin`` (the .cu's ``Geo<CIN>``): K = 9 x
+    Cin packed tap-major, ``kp`` padded to whole k16 steps (``ksteps``);
+    the patch row of (32 + 2) x Cin elements at a stride of ``row_stride``
+    (rounded up to 8); shared memory: eight warps' output staging rows (32
+    pixels x 128 B), the resident K x 64 weights at a row stride of 72,
+    two patch buffers of (8 + 2) rows and 8 zero rows (what the padded k
+    read), the affine's 2 x 64 floats, past Cin 12 the A offsets' table
+    (``table``: 8 B a k16 step and lane column, where up to Cin 12 they
+    stay in registers) and 1,024 B of alignment slack: the figures the
+    source's ``static_assert``s hold. Two blocks an SM."""
+    if cin % 8 == 0 or 9 * cin > K_MAX:
+        raise ValueError(f"Cin {cin} is not on the packed path")
+    kp = -(-9 * cin // 16) * 16
+    stride = -(-34 * cin // 8) * 8
+    buf = (10 + 8) * stride
+    table = kp // 16 * 4 * 8 if cin > 12 else 0
+    nbytes = (8 * 32 * 128 + kp * 72 * 2 + 2 * buf * 2 + 2 * 64 * 4 + table
+              + 1024)
+    return {"k": 9 * cin, "kp": kp, "ksteps": kp // 16,
+            "row_stride": stride, "table_bytes": table, "blocks_per_sm": 2,
+            "bytes": nbytes}
 
 
 def f32_route(cin: int, cout: int) -> str:

@@ -138,9 +138,10 @@ def test_training_run_faults_change_what_they_name(tmp_path):
 @pytest.mark.parametrize("cin,cout,hit", [(64, 21, True), (64, 12, False),
                                           (64, 64, False)])
 def test_narrow_dx_tap_dropped_only_on_the_narrow_dx(cin, cout, hit):
-    """The dx call (flip) of a conv whose dx is on the narrow path (the VOC
-    head's, Cin 21) loses its first tap; other calls are as they were, and
-    the caller's weights are not touched."""
+    """The dx call (flip) of the VOC head's conv (its 21-channel cotangent,
+    on the packed path since the head left the narrow kernels) loses its
+    first tap; other calls, the 12-class head's dx among them, are as they
+    were, and the caller's weights are not touched."""
     g = torch.Generator().manual_seed(0)
     x = torch.randn(1, 5, 6, cout, generator=g)      # a dx call's input
     w = torch.randn(3, 3, cin, cout, generator=g)

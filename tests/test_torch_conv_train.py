@@ -45,9 +45,11 @@ def _interpret(fn):
 
 # stem-like Cin=3, head-like Cout=12, odd H x W; the stem at Cout 64 (its
 # forward and dW on the packed paths on the card); the head, Cin 64 into
-# Cout 12 (its dx and dW on the packed paths)
+# Cout 12 (its dx and dW on the packed paths); VOC's head, Cin 64 into
+# Cout 21 (its forward on the wgmma path's N = 24 head tile, its dx at K =
+# 189 and dW at M = 189 on the packed paths)
 SHAPES = [(2, 5, 7, 3, 8), (1, 9, 11, 8, 12), (2, 9, 15, 3, 64),
-          (1, 9, 11, 64, 12)]
+          (1, 9, 11, 64, 12), (1, 9, 11, 64, 21)]
 
 
 @pytest.mark.parametrize("plain", [False, True], ids=["autograd_fn", "plain"])
@@ -134,10 +136,11 @@ def test_wgrad_splits_and_checks():
 
 
 # (2, 9, 15, 64, 12): the head's dx, Cin 12 into Cout 64 (the packed path
-# on the card); (1, 7, 10, 64, 15): its K_MAX boundary, 9 x 15 = 135
+# on the card); (1, 7, 10, 64, 15): three k16 tiles' 9 x 15 = 135; (1, 7,
+# 10, 64, 21): VOC's head's dx at the K_MAX boundary, 9 x 21 = 189
 @pytest.mark.parametrize("shape", [(2, 5, 7, 8, 12), (1, 9, 11, 16, 8),
                                    (1, 6, 10, 12, 16), (2, 9, 15, 64, 12),
-                                   (1, 7, 10, 64, 15)],
+                                   (1, 7, 10, 64, 15), (1, 7, 10, 64, 21)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_dgrad_cpu_branch_matches_pallas_vjp_dx(shape):
     """conv3x3_dgrad on a CPU tensor (its plain version; on the card the
@@ -220,23 +223,28 @@ def test_step_launches_on_each_path(net, blocks):
 
 def test_path_rules_at_edges():
     """The path rules at the shapes chip_smoke adds: a part chunk, a
-    partial N tile, the head's N = 16 tile (up to Cin 128), channel counts
-    TMA cannot describe: packed where Cin % 8 != 0 fits K_MAX = 9 * 16 and
-    Cout % 8 == 0, narrow for the rest. dW: packed where one side is
-    narrow (9 x its channels <= 144) and the other a multiple of 8 (the
-    stem, 12->64, 3->24, the head), narrow where neither is a multiple of 8
-    or the narrow side is too wide (64->20, 3->12)."""
+    partial N tile, the head tile (Cout <= 24 up to Cin 128: N = 16, and
+    N = 24 for 64->17, 64->20, 64->21 and 64->24), channel counts TMA
+    cannot describe: packed where Cin % 8 != 0 fits K_MAX = 9 * 21 + 3 and
+    Cout % 8 == 0, narrow for the rest (64->28, 3->12, Cin > 128 into Cout
+    <= 16 or 17-23). dW: packed where one side is narrow (9 x its channels
+    <= 192) and the other a multiple of 8 (the stem, 12->64, 3->24, the
+    heads, 64->17, 64->20), narrow where neither is a multiple of 8 or the
+    narrow side is too wide (64->28, 22->64, 3->12)."""
     cp, wp = fused_conv.conv_path, conv_train.wgrad_path
     assert cp(48, 32) == cp(64, 24) == cp(64, 16) == cp(128, 12) == "wgmma"
-    assert cp(1024, 512) == cp(32, 48) == "wgmma"
+    assert cp(1024, 512) == cp(32, 48) == cp(256, 24) == "wgmma"
+    assert cp(64, 20) == cp(64, 17) == cp(64, 21) == cp(128, 23) == "wgmma"
     assert cp(3, 64) == cp(12, 64) == cp(3, 24) == cp(1, 8) == "packed"
     assert cp(15, 64) == cp(12, 16) == cp(3, 16) == cp(5, 128) == "packed"
-    assert cp(256, 12) == cp(64, 20) == cp(3, 12) == cp(12, 20) == "narrow"
-    assert cp(17, 64) == cp(20, 64) == cp(3, 60) == "narrow"
+    assert cp(17, 64) == cp(20, 64) == cp(21, 64) == cp(21, 8) == "packed"
+    assert cp(256, 12) == cp(64, 28) == cp(3, 12) == cp(12, 20) == "narrow"
+    assert cp(22, 64) == cp(3, 60) == cp(256, 21) == cp(136, 20) == "narrow"
     assert wp(48, 32) == wp(64, 24) == wp(1024, 1024) == "wgmma"
     assert wp(3, 64) == wp(12, 64) == wp(3, 24) == wp(64, 12) == "packed"
     assert wp(15, 64) == wp(64, 15) == wp(1, 8) == wp(128, 5) == "packed"
-    assert wp(64, 20) == wp(3, 12) == wp(17, 64) == wp(64, 17) == "narrow"
+    assert wp(64, 20) == wp(17, 64) == wp(64, 17) == wp(64, 21) == "packed"
+    assert wp(64, 28) == wp(3, 12) == wp(22, 64) == wp(64, 22) == "narrow"
     assert wp(12, 20) == wp(20, 12) == "narrow"
 
 
@@ -256,10 +264,10 @@ def test_cpu_route_is_plain_and_not_counted():
         "fwd": zero, "dgrad": zero, "wgrad": zero}
 
 
-# every narrow width of the packed dW rule (9 x C <= 144, C % 8 != 0), on
-# either side: the stem's x (C, 64) and the head's g (64, C)
-PACKED_WGRAD = [(c, 64) for c in range(1, 16) if c % 8] + [
-    (64, c) for c in range(1, 16) if c % 8]
+# every narrow width of the packed dW rule (9 x C <= 192, C % 8 != 0), on
+# either side: the stem's x (C, 64) and the heads' g (64, C)
+PACKED_WGRAD = [(c, 64) for c in range(1, 22) if c % 8] + [
+    (64, c) for c in range(1, 22) if c % 8]
 
 
 @pytest.mark.parametrize("cin,cout", PACKED_WGRAD,
@@ -290,17 +298,20 @@ def test_wgrad_packed_plan_fits_every_narrow_width(cin, cout):
 def test_wgrad_packed_plan_is_the_sources():
     """wgrad_packed_plan's bytes are the figures the CUDA source asserts at
     compile time (``static_assert(smem_bytes(Cn) == bytes``), the stem's,
-    the head's and the three-tile width's; off the packed path it
+    the 12-class head's, the three-tile width's and VOC's 21-class head's;
+    the rule's limit is the source's ``M_MAX``; off the packed path it
     raises."""
     src = conv_train.WGRAD_SOURCE.read_text()
     held = re.findall(r"static_assert\(smem_bytes\((\d+)\) == (\d+)", src)
-    assert [int(c) for c, _ in held] == [3, 12, 15]
+    assert [int(c) for c, _ in held] == [3, 12, 15, 21]
+    assert re.search(r"constexpr int M_MAX = (\d+);", src).group(1) == str(
+        conv_train.PACKED_M_MAX)
     for cn, nbytes in held:
         assert conv_train.wgrad_packed_plan(int(cn), 64)["bytes"] == int(
             nbytes)
         assert conv_train.wgrad_packed_plan(64, int(cn))["bytes"] == int(
             nbytes)
-    for cin, cout in ((64, 64), (64, 20), (3, 12)):
+    for cin, cout in ((64, 64), (64, 28), (3, 12)):
         with pytest.raises(ValueError, match="packed"):
             conv_train.wgrad_packed_plan(cin, cout)
 
@@ -462,9 +473,10 @@ def test_chip_smoke_path_table_and_edge_shapes():
 @pytest.mark.parametrize("classes", [12, 21])
 def test_chip_smoke_path_table_by_class_count(net, classes):
     """chip_smoke's table for a ``classes``-class head is the rules' count
-    over that model's blocks: CamVid's 12 put the head's forward on the
-    wgmma path and its dx and dW on the packed ones, VOC's 21 all three on
-    the narrow ones."""
+    over that model's blocks: CamVid's 12 and VOC's 21 both put the head's
+    forward on the wgmma path (the head tile, N = 16 or 24) and its dx and
+    dW on the packed ones; none of a step's launches is on a narrow
+    path."""
     smoke = _chip_smoke()
     spec = bench.model_class(net).base_spec(3, classes)
     shapes = bench.block_shapes(net, smoke.HW, spec)
@@ -478,6 +490,8 @@ def test_chip_smoke_path_table_by_class_count(net, classes):
         "wgrad": conv_train.wgrad_path(*head)}
     assert smoke.path_counts(net, 2, classes)["wgrad"] == {
         p: 2 * k for p, k in smoke.path_table(net, classes)["wgrad"].items()}
+    assert all(smoke.path_table(net, classes)[p]["narrow"] == 0
+               for p in ("fwd", "dgrad", "wgrad"))
 
 
 @pytest.mark.parametrize("name", sorted(dw_variants.VARIANTS))

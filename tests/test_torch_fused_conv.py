@@ -5,12 +5,15 @@ On the CPU the port's wrapper runs its plain version (the CUDA kernel is
 checked against that plain version on the card by chip_smoke.py). Inputs
 come from numpy with a fixed seed and go to both packages in f32."""
 
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
 from pytorch_camvid_tpu.ops import pallas_conv as jax_pc
+from pytorch_camvid_tpu_torch import head_variants
 from pytorch_camvid_tpu_torch.ops import fused_conv
 
 
@@ -25,12 +28,14 @@ def _inputs(n, h, w, cin, cout, seed=0):
 
 
 # (2, 9, 15, 3, 64): the stem (the packed path on the card), ragged;
-# (1, 7, 33, 15, 16): the packed path's K_MAX boundary (9 x 15 = 135)
-# over two 32-column tiles; (1, 6, 9, 64, 20): a shape that stays narrow
+# (1, 7, 33, 15, 16): the packed path at 9 x 15 = 135 over two 32-column
+# tiles; (1, 6, 9, 64, 20): the wgmma head tile at N = 24, a partial
+# tile; (1, 9, 11, 64, 21): VOC's 64->21 head, the same tile
 @pytest.mark.parametrize("relu", [True, False])
 @pytest.mark.parametrize("shape", [(1, 8, 12, 3, 16), (2, 9, 15, 16, 12),
                                    (1, 7, 10, 32, 32), (2, 9, 15, 3, 64),
-                                   (1, 7, 33, 15, 16), (1, 6, 9, 64, 20)])
+                                   (1, 7, 33, 15, 16), (1, 6, 9, 64, 20),
+                                   (1, 9, 11, 64, 21)])
 def test_conv3x3_bn_relu_matches_pallas_interpret(shape, relu):
     x, wt, a, b = _inputs(*shape)
     want = np.asarray(jax_pc.conv3x3_bn_relu_pallas(
@@ -47,9 +52,10 @@ def test_conv3x3_bn_relu_matches_pallas_interpret(shape, relu):
         assert got.min() >= 0
 
 
-# (2, 9, 15, 12, 64): the head's dx, Cin 12 into Cout 64 (the packed path)
+# (2, 9, 15, 12, 64): the head's dx, Cin 12 into Cout 64 (the packed path);
+# (2, 9, 15, 21, 64): VOC's head's dx, Cin 21 (the packed path at K = 189)
 @pytest.mark.parametrize("shape", [(1, 8, 12, 16, 24), (2, 9, 15, 12, 16),
-                                   (2, 9, 15, 12, 64)],
+                                   (2, 9, 15, 12, 64), (2, 9, 15, 21, 64)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_flip_matches_pallas_on_the_reversed_weights(shape):
     """``flip=True`` (the training conv's dx: taps reversed, channel axes
@@ -160,7 +166,7 @@ def test_kernel_path_names_the_library_codes(monkeypatch):
 
     monkeypatch.setattr(fused_conv, "_library", lambda: Lib)
     for cin, cout in ((3, 64), (12, 64), (64, 12), (64, 64), (64, 20),
-                      (256, 12), (17, 64)):
+                      (256, 12), (17, 64), (64, 28), (21, 64)):
         assert fused_conv.kernel_path(cin, cout) == fused_conv.conv_path(
             cin, cout)
     assert fused_conv.PATHS == ("narrow", "wgmma", "packed")
@@ -185,3 +191,70 @@ def test_aligned16_copies_only_misaligned_batch_views():
     torch.testing.assert_close(
         fused_conv.conv3x3_bn_relu(view, w, a, b),
         fused_conv.conv3x3_bn_relu(fixed, w, a, b), rtol=0, atol=0)
+
+
+SRC = fused_conv.SOURCE.read_text()
+
+
+@pytest.mark.parametrize("cin", [3, 12, 21])
+def test_packed_fwd_plan_is_the_sources(cin):
+    """``packed_fwd_plan``'s bytes at the stem's Cin 3 and the heads' dx
+    (Cin 12 and 21) are the figures the source asserts at compile time
+    (``static_assert(Geo<CIN>::SMEM == bytes``), and ``K_MAX`` is the
+    source's; two blocks fit an SM (233,472 B, 1,024 reserved a block) at
+    every Cin the rule admits, each with an instance in the source's
+    switch."""
+    held = {int(c): int(b) for c, b in re.findall(
+        r"static_assert\(Geo<(\d+)>::SMEM == (\d+)", SRC)}
+    assert sorted(held) == [3, 12, 21]
+    plan = fused_conv.packed_fwd_plan(cin)
+    assert plan["bytes"] == held[cin]
+    assert plan["k"] == 9 * cin <= plan["kp"] < 9 * cin + 16
+    assert re.search(r"constexpr int K_MAX = (\d+);", SRC).group(1) == str(
+        fused_conv.K_MAX)
+    cases = {int(c) for c in re.findall(r"PACKED_CASE\((\d+)\)", SRC)}
+    admitted = {c for c in range(1, 64)
+                if fused_conv.conv_path(c, 64) == "packed"}
+    assert cases == admitted == {c for c in range(1, 22) if c % 8}
+    for c in admitted:
+        p = fused_conv.packed_fwd_plan(c)
+        assert 2 * (p["bytes"] + 1024) <= 233472
+    with pytest.raises(ValueError, match="packed"):
+        fused_conv.packed_fwd_plan(22)
+
+
+@pytest.mark.parametrize("cout,n", [(12, 16), (16, 16), (17, 24), (21, 24),
+                                    (24, 24)])
+def test_head_tile_plan_is_the_sources(cout, n):
+    """``head_tile_plan``: N = 16 up to 16 channels and 24 above, as the
+    source's ``tile_n``; its bytes are the figures the source asserts at
+    compile time (``static_assert(Tile<N, false>::SMEM == bytes``), within
+    a block's 232,448 B; 4 x N / 2 accumulators a consumer thread; the
+    head tile's limits are the source's."""
+    held = {int(b_n): int(b) for b_n, b in re.findall(
+        r"static_assert\(Tile<(\d+), false>::SMEM == (\d+)", SRC)}
+    assert sorted(held) == [16, 24]
+    plan = fused_conv.head_tile_plan(cout)
+    assert plan["n"] == n and plan["bytes"] == held[n] <= 232448
+    assert plan["accumulators"] == 2 * n
+    assert re.search(r"return Cout <= 16 \? 16 : 24;", SRC)
+    for name in ("HEAD_MAX_COUT", "RES_MAX_CIN"):
+        assert re.search(rf"constexpr int {name} = (\d+);", SRC).group(
+            1) == str(getattr(fused_conv, name))
+    assert fused_conv.conv_path(64, cout) == "wgmma"
+    with pytest.raises(ValueError, match="head tile"):
+        fused_conv.head_tile_plan(28)
+
+
+@pytest.mark.parametrize("name", sorted(head_variants.VARIANTS))
+def test_head_variant_edits_apply_to_the_source(name):
+    """Each variant of the head tile and the packed path that
+    head_variants.py times is an edit that still applies to the kernel's
+    source, and changes it (but "kept")."""
+    src = head_variants._edited(head_variants.VARIANTS[name])
+    assert (src == fused_conv.SOURCE.read_text()) == (name == "kept")
+
+
+def test_head_variants_without_a_card_fails(capsys):
+    assert head_variants.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
