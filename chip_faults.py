@@ -168,8 +168,9 @@ _F32_LIBS = {}   # the fault variants of csrc/conv3x3_f32.cu, built once
 def f32_variant(name: str):
     """The f32 kernels built from ``f32_variants.VARIANTS[name]`` (a fault:
     single-pass TF32, the lo*hi product dropped, a step sum started on the
-    stale scratch, the dW's splits added by atomics) in place of the
-    source, for both callers of the library."""
+    stale scratch, the dW's splits added by atomics, the packed dW's planes
+    with the stem's x channels 0 and 2 swapped) in place of the source,
+    for both callers of the library."""
     if not _F32_LIBS:
         libs, logs = f32_variants.build(f32_variants.FAULTS)
         for n, ok, log in logs:
@@ -183,9 +184,10 @@ def f32_variant(name: str):
 
 
 def f32_dx_tap_dropped(x, w, a, b, relu, flip):
-    """The f32 dx (``flip``) launched without its first tap (w[0, 0] zero
-    in a copy); the forwards as they were."""
-    if flip:
+    """The f32 dx on the packed route (``flip``, Cin % 4 != 0: VOC's 21 ->
+    64) launched without its first tap (w[0, 0] zero in a copy); every
+    other launch as it was."""
+    if flip and fused_conv.f32_route(x.shape[3], w.shape[2]) == "f32_packed":
         w = w.clone()
         w[0, 0] = 0
     return _f32_launch(x, w, a, b, relu, flip)
@@ -517,18 +519,22 @@ def main() -> int:
         ("data side", "the LR finder recording the lr before the step",
          lambda: planted(lr_finder, "recorded_lr",
                          lr_recorded_before_the_step)),
-        ("f32", "single-pass TF32 (hi*hi only; forward and dW)",
+        ("f32", "single-pass TF32 (hi*hi only; the wgmma and packed "
+         "kernels, forward and dW)",
          lambda: f32_variant("single_pass")),
-        ("f32", "the lo*hi product dropped (forward and dW)",
+        ("f32", "the lo*hi product dropped (the wgmma and packed kernels)",
          lambda: f32_variant("lo_hi_dropped")),
-        ("f32", "the f32 dx without its first tap",
+        ("f32", "the f32 packed dx (Cin 21) without its first tap",
          lambda: planted(fused_conv, "_f32_launch", f32_dx_tap_dropped)),
         ("f32", "the f32 forward's output rounded through bf16",
          lambda: planted(fused_conv, "_f32_launch", f32_out_through_bf16)),
         ("f32", "the f32 dW's splits summed in launch order (atomics)",
          lambda: f32_variant("atomic_splits")),
+        ("f32", "the f32 packed dW's planes built with the stem's x "
+         "channels 0 and 2 swapped (BGR/RGB)",
+         lambda: f32_variant("packed_dw_bgr")),
         ("f32", "a step sum's first product added onto the stale scratch "
-         "(scale-d 1; forward and dW, the wgmma route)",
+         "(scale-d 1; the wgmma and packed kernels)",
          lambda: f32_variant("stale_scratch")),
     ]
     ok = True

@@ -16,7 +16,8 @@ Phases (each prints its lines; any failure exits non-zero):
    (``fused_conv.conv_path``, ``conv_train.wgrad_path``) at every (Cin,
    Cout) the phases below run, that the f32 dW library's tile counts are
    its split rule's (``conv_train.wgrad_f32_*``), that the f32 library
-   picks the wrappers' f32 routes ("f32", wgmma, or "f32_narrow") and
+   picks the wrappers' f32 routes ("f32", wgmma; "f32_packed", wgmma with
+   9 taps x the narrow side's channels packed; or "f32_narrow") and
    forward tile N, and that a step's launches per path are
    ``PATH_TABLE``'s (and ``path_table(net, dtype=torch.float32)``'s).
 3. K4 vs plain: the kernel against its plain PyTorch version in bf16 at
@@ -152,25 +153,29 @@ Phases (each prints its lines; any failure exits non-zero):
    is float32, as the JAX CLIs').
 14. f32 on the card, the JAX CLIs' default numerics: (1) K4 and K1's
    forward, dx and dW at float32 (``csrc/conv3x3_f32.cu``, split-TF32
-   products: the wgmma route "f32", or the mma.sync route "f32_narrow"
-   for the stem's forward and dW and VOC's 21-channel dx and dW) at every
-   distinct block shape of both models at b2, at
-   ``F32_EDGE`` (64->21, ragged 45x61 tiles, the stem, the head), on a
-   misaligned view ``x[1:]`` and (K4) on an input past 2**31 elements:
-   err(kernel) <= max(4 err(plain f32, TF32 off), 2e-6 max|f64|), err
-   the max distance to the same function in float64 on the card; the f32
-   dW bit-equal on two launches; then their times at b10 beside the plain
-   f32 version, the library call with TF32 off and on, and the bound (the
-   FLOPs at a third of the TF32 peak, or the f32 bytes), summed per
-   model, with each piece's route; VOC's 64->21 head timed too
-   (``F32_EXTRA_TIMED``). (2) The train CLI with no -dtype (float32),
-   UNet and SegNet, b10, one epoch of 4 steps on phase 12's caches: every
-   K1 and K2 call against plain on its inputs (``F32_SHADOW_TOL``), the
-   first step also on the plain f32 path from the same state and draws
-   (``F32_TRAIN_*``), launches per step all on the f32 kernels
-   (23/22/23, 26/25/26, of them 1/0/1 on "f32_narrow"; K2 5/10/5); run
-   B stopped after 2 batches and resumed with ``-resume``: every leaf
-   equal to run A's. (3) The eval
+   products: the wgmma route "f32"; the packed route "f32_packed" for the
+   stem's forward and dW and VOC's 21-channel dx and dW; the mma.sync
+   route "f32_narrow" for what neither takes, no model's) at every
+   distinct block shape of both models at b2, at ``F32_EDGE`` (64->21,
+   ragged 45x61 tiles, the stem, the head, and 23->64 and 3->21 on
+   "f32_narrow"), on a misaligned view ``x[1:]`` and (K4) on an input
+   past 2**31 elements: err(kernel) <= max(4 err(plain f32, TF32 off),
+   2e-6 max|f64|), err the max distance to the same function in float64
+   on the card; the f32 dW bit-equal on two launches; then their times at
+   b10 beside the plain f32 version, the library call with TF32 off and
+   on, the bound (the FLOPs at a third of the TF32 peak, or the f32
+   bytes) and, for a piece on "f32_packed", the narrow kernel's time on
+   the same inputs, summed per model, with each piece's route; VOC's
+   64->21 head timed too (``F32_EXTRA_TIMED``). (2) The train CLI with no
+   -dtype (float32), UNet and SegNet, b10, one epoch of 4 steps on phase
+   12's caches: every K1 and K2 call against plain on its inputs
+   (``F32_SHADOW_TOL``), the first step also on the plain f32 path from
+   the same state and draws (``F32_TRAIN_*``), launches per step all on
+   the f32 kernels (23/22/23, 26/25/26, of them 1/0/1 on "f32_packed",
+   none on "f32_narrow"; K2 5/10/5); run B stopped after 2 batches and
+   resumed with ``-resume``: every leaf equal to run A's; VOC's train and
+   eval CLIs at f32 (``voc_checks`` at float32: the head's dx and dW on
+   "f32_packed", none on "f32_narrow"). (3) The eval
    CLI at its default on A's checkpoint: the loop's mIoU; K4 at f32 23
    (UNet) or 26 (SegNet, with K3's pool and unpool 5 each) times a batch.
    (4) ``predict.main`` at its default (f32) on a val image with UNet's
@@ -315,13 +320,14 @@ N_BLOCKS = {"unet": 23, "segnet": 26}
 HEAD_PATHS = {12: {"fwd": "wgmma", "dgrad": "packed", "wgrad": "packed"},
               21: {"fwd": "wgmma", "dgrad": "packed", "wgrad": "packed"}}
 # at float32 the body's blocks take the f32 wgmma route ("f32"), the
-# stem's forward and dW (Cin 3) the narrow one ("f32_narrow"), the head's
+# stem's forward and dW (Cin 3) the packed one ("f32_packed"), the head's
 # pieces by its class count: 12 all three on "f32" (the forward's N tile
 # 16, the dx's Cin 12, the dW's N tile 16), 21 its forward on "f32" (N
-# tile 24) and its dx (Cin 21) and dW (Cout 21) on "f32_narrow"
+# tile 24) and its dx (Cin 21, K 189 of 192) and dW (Cout 21) on
+# "f32_packed"; no model path takes "f32_narrow"
 F32_HEAD_ROUTES = {12: {"fwd": "f32", "dgrad": "f32", "wgrad": "f32"},
-                   21: {"fwd": "f32", "dgrad": "f32_narrow",
-                        "wgrad": "f32_narrow"}}
+                   21: {"fwd": "f32", "dgrad": "f32_packed",
+                        "wgrad": "f32_packed"}}
 
 
 def path_table(net: str, classes: int = 12,
@@ -329,11 +335,11 @@ def path_table(net: str, classes: int = 12,
     """K4/K1 launches per path of one forward and one training step at
     ``dtype``, as the comments above say: the body's blocks on the wgmma
     path (bf16) or route (f32), the stem's forward and dW on the packed
-    path or the narrow f32 route (its dx is not taken), the head's by its
-    class count."""
+    path or route (its dx is not taken), the head's by its class
+    count."""
     nb = N_BLOCKS[net]
     f32 = dtype == torch.float32
-    body, stem = ("f32", "f32_narrow") if f32 else ("wgmma", "packed")
+    body, stem = ("f32", "f32_packed") if f32 else ("wgmma", "packed")
     table = {piece: dict.fromkeys(fused_conv.ROUTES, 0)
              for piece in ("fwd", "dgrad", "wgrad")}
     for piece in table:
@@ -2173,19 +2179,23 @@ def recomputed_losses(out: list):
         steps_mod.cross_entropy_loss = saved
 
 
-def voc_checks(tmp: str) -> None:
-    """Part 3: ``train -dataset voc2012 -net unet -b 10 -e 1`` on VOC
-    caches of 40 train and 13 val images, then ``eval -dataset voc2012``
-    on its checkpoint: the eval's mIoU is the loop's; the 64->21 head runs
-    K1 once a step on each of its paths (fwd on wgmma, dx and dW on
-    packed) and K4 once an eval batch, held against plain on the step's
-    data (``shadowed_kernels``);
-    each step's loss is F.cross_entropy's over the non-255 pixels."""
+def voc_checks(tmp: str, dtype: str = "bfloat16") -> None:
+    """Part 3: ``train -dataset voc2012 -net unet -b 10 -e 1 -dtype
+    <dtype>`` on VOC caches of 40 train and 13 val images, then ``eval
+    -dataset voc2012`` on its checkpoint: the eval's mIoU is the loop's;
+    the 64->21 head runs K1 once a step on each of its paths (bf16: fwd on
+    wgmma, dx and dW on packed; float32, phase 14: fwd on "f32", dx and dW
+    on "f32_packed") and K4 once an eval batch, held against plain on the
+    step's data (``shadowed_kernels``; ``SHADOW_TOL``, at float32
+    ``F32_SHADOW_TOL``); each step's loss is F.cross_entropy's over the
+    non-255 pixels."""
+    tdtype = torch.float32 if dtype == "float32" else torch.bfloat16
+    tol = F32_SHADOW_TOL if tdtype == torch.float32 else SHADOW_TOL
     data = write_voc_data(os.path.join(tmp, "voc"))
     workdir = os.path.join(tmp, "voc_run")
     os.makedirs(workdir)
     argv = ["-dataset", "voc2012", "-net", "unet", "-b", str(RUN_BATCH),
-            "-e", "1", "-dtype", "bfloat16", "-quiet", "-data", data,
+            "-e", "1", "-dtype", dtype, "-quiet", "-data", data,
             "-image_size", str(HW[1]), str(HW[0])]
     shadow, by_shape, losses = {}, {}, []
     torch.cuda.synchronize()
@@ -2204,24 +2214,26 @@ def voc_checks(tmp: str) -> None:
             for piece in ("K1 fwd", "K1 dx", "K1 dW")}
     loss_errs = [abs(a.item() - b.item()) / abs(b.item()) for a, b in losses]
     print(f"VOC train CLI (UNet b{RUN_BATCH}, 1 epoch, {VOC_CLASSES} "
-          f"classes, {HW[0]}x{HW[1]}, bf16): mIoU {history[0]['miou']:.4f}; "
+          f"classes, {HW[0]}x{HW[1]}, {dtype}): mIoU "
+          f"{history[0]['miou']:.4f}; "
           f"K1 launches {counts} on each path {paths}; K4 in the eval pass "
           f"on each path {k4_paths}; the 64->{VOC_CLASSES} head against "
           f"plain on the steps' data: " + ", ".join(
               f"{p} {e:.3g}" for p, e in head.items() if e is not None)
-          + f" (tol {K1_TOL}); every conv: {shadow}; each step's loss vs "
+          + f" (tol {tol}); every conv: {shadow}; each step's loss vs "
           f"F.cross_entropy over the non-255 pixels "
           f"{[f'{e:.3g}' for e in loss_errs]} (tol {LOSS_RECOMPUTE_TOL})",
           flush=True)
     check(counts == {k: v * steps for k, v in UNET_STEP.items()},
           "VOC training's K1 launches")
-    check(paths == path_counts("unet", steps, VOC_CLASSES),
-          "VOC training's K1 paths (the head on wgmma, packed, packed)")
-    check(k4_paths == path_counts("unet", evals, VOC_CLASSES)["fwd"],
-          "VOC eval pass's K4 paths")
+    check(paths == path_counts("unet", steps, VOC_CLASSES, tdtype),
+          f"VOC {dtype} training's K1 paths (the head on wgmma, packed, "
+          f"packed; at float32 f32, f32_packed, f32_packed)")
+    check(k4_paths == path_counts("unet", evals, VOC_CLASSES, tdtype)["fwd"],
+          f"VOC {dtype} eval pass's K4 paths")
     check(all(e is not None for e in head.values()), "VOC head's pieces")
     for piece, e in shadow.items():
-        check(e <= SHADOW_TOL[piece], f"VOC {piece} on the step's data")
+        check(e <= tol[piece], f"VOC {dtype} {piece} on the step's data")
     check(len(losses) == steps and max(loss_errs) <= LOSS_RECOMPUTE_TOL,
           "VOC loss over the non-255 pixels")
     ckpts = sorted(os.listdir(run_dir(workdir)))
@@ -2232,7 +2244,7 @@ def voc_checks(tmp: str) -> None:
         got = eval_cli.main(["-weight", os.path.join(run_dir(workdir),
                                                      ckpts[0]),
                              "-dataset", "voc2012", "-net", "unet", "-b",
-                             str(RUN_BATCH), "-dtype", "bfloat16", "-data",
+                             str(RUN_BATCH), "-dtype", dtype, "-data",
                              data, "-image_size", str(HW[1]), str(HW[0])])
     torch.cuda.synchronize()
     k4 = dict(fused_conv.conv3x3_bn_relu.path_launches)
@@ -2241,8 +2253,8 @@ def voc_checks(tmp: str) -> None:
           f"path {k4}", flush=True)
     check(abs(got["miou"] - history[0]["miou"]) <= 1e-9,
           "VOC eval CLI's mIoU is the loop's")
-    check(k4 == path_counts("unet", evals, VOC_CLASSES)["fwd"],
-          "VOC eval CLI's K4 paths")
+    check(k4 == path_counts("unet", evals, VOC_CLASSES, tdtype)["fwd"],
+          f"VOC {dtype} eval CLI's K4 paths")
 
 
 @contextlib.contextmanager
@@ -2385,16 +2397,20 @@ F32_CHECK_BATCH, F32_TIME_BATCH, F32_TIME_ITERS = 2, 10, 5
 # the split product's rate: three TF32 products a term
 F32_SPLIT_RATE = bench.H100_TF32_PEAK / 3
 # edge shapes (N, H, W, Cin, Cout) beside the models' blocks: VOC's 64->21
-# head (4-byte copies of Cout 21 rows and scalar stores; its dx reads
-# Cin 21 by 4-byte copies), ragged 45x61 tiles at 64->64, the stem and the
-# head; a batch view x[1:] of the stem whose data starts off a 16-byte
-# boundary; a forward input past 2**31 elements, checked on its last image
+# head (its forward on the wgmma route's N tile 24; its dx, Cin 21, and
+# dW, Cout 21, on the packed route: raw chunks of 84-byte pixel rows),
+# ragged 45x61 tiles at 64->64, the stem (packed) and the head; 23->64
+# (9 x 23 > 192: forward and dW on "f32_narrow") and 3->21 (both sides
+# narrow: dW on "f32_narrow"; its forward and dx on the packed route at
+# Cout 21 and 3, with direct stores); a batch view x[1:] of the stem
+# whose data starts off a 16-byte boundary; a forward input past 2**31
+# elements, checked on its last image
 F32_EDGE = ((2, 360, 480, 64, 21), (2, 45, 61, 64, 64), (2, 45, 61, 3, 64),
-            (2, 45, 61, 64, 12))
+            (2, 45, 61, 64, 12), (2, 45, 61, 23, 64), (2, 45, 61, 3, 21))
 F32_VIEW = (3, 45, 61, 3, 64)
 # timed beside the blocks, in no model sum: VOC's 64->21 head at 360x480
 # (its forward on the wgmma route with N tile 24, its dx and dW on the
-# narrow one)
+# packed one)
 F32_EXTRA_TIMED = ((360, 480, 64, 21),)
 F32_BIG = (100, 360, 480, 128, 64)
 # the f32 training CLI runs against the plain f32 path (TF32 off): each
@@ -2475,22 +2491,27 @@ def f32_pieces(x, wt, g, a, b) -> dict:
 
 def f32_shape_checks(label: str, x, wt, g, a, b) -> dict:
     """The error rule for each piece at one shape, and the f32 dW launched
-    twice on the same inputs: equal bits. Prints one line; returns {piece:
-    err(kernel)}."""
-    line, errs = [f"f32 {label}:"], {}
+    twice on the same inputs: equal bits. Prints one line (also when a
+    check fails: the readings under a planted fault), then fails at the
+    first check missed; returns {piece: err(kernel)}."""
+    line, errs, missed = [f"f32 {label}:"], {}, []
     for piece, (kern, plain, ref) in f32_pieces(x, wt, g, a, b).items():
         got = kern()
         ek, ep, scale, limit = f32_variants.error_rule(got, plain(), ref())
         line.append(f"{piece} {ek:.3g} (plain {ep:.3g}, max|f64| "
                     f"{scale:.4g}, limit {limit:.3g});")
-        check(ek <= limit, f"f32 {piece} error rule at {label}")
+        if not ek <= limit:
+            missed.append(f"f32 {piece} error rule at {label}")
         errs[piece] = ek
         if piece == "wgrad":
             same = torch.equal(got, kern())
             line.append(f"dW twice bit-equal {same}")
-            check(same, f"f32 dW bit-equal on two launches at {label}")
+            if not same:
+                missed.append(f"f32 dW bit-equal on two launches at {label}")
         del got
     print(" ".join(line), flush=True)
+    for what in missed:
+        check(False, what)
     return errs
 
 
@@ -2546,15 +2567,55 @@ def f32_bound(n, h, w, cin, cout) -> tuple:
     return bound_ms(flops, nbytes, F32_SPLIT_RATE)
 
 
+def f32_narrow_call(piece: str, x, wt, g, a, b):
+    """``piece`` (f32_pieces' keys) on the narrow route's kernels (the
+    first mma.sync design; the library's ``*_narrow`` entries) on the
+    same inputs, whatever route the shape takes: timed beside the packed
+    route's kernels."""
+    lib = fused_conv.f32_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    n, h, w, cin = x.shape
+    cout = g.shape[3]
+    if piece == "wgrad":
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = conv_train.wgrad_f32_splits(n, h, w, cin, cout, sms,
+                                             "f32_narrow")
+        ws = torch.empty(splits, 3, 3, cin, cout, device="cuda")
+
+        def dw():
+            out = torch.empty(3, 3, cin, cout, device="cuda")
+            err = lib.conv3x3_wgrad_f32_narrow(
+                x.data_ptr(), g.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                n, h, w, cin, cout, splits, stream)
+            check(err == 0, f"the narrow f32 dW launch: CUDA error {err}")
+            return out
+        return dw
+    src, cin_, cout_, flip = ((g, cout, cin, 1) if piece == "dx"
+                              else (x, cin, cout, 0))
+    scale, shift = (a, b) if piece == "k4" else conv_train._unit_affine(
+        cout_, x.device)
+
+    def fwd():
+        out = torch.empty(n, h, w, cout_, device="cuda")
+        err = lib.conv3x3_bn_relu_f32_narrow(
+            src.data_ptr(), wt.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), out.data_ptr(), n, h, w, cin_, cout_,
+            int(piece == "k4"), flip, stream)
+        check(err == 0, f"the narrow f32 forward launch: CUDA error {err}")
+        return out
+    return fwd
+
+
 def f32_timings(gen: torch.Generator) -> dict:
     """Phase 14 (1), the times at F32_TIME_BATCH, per distinct block shape
     and piece (CUDA events): the kernel, the plain f32 version (TF32 off),
     the library call with TF32 off (``F.conv2d`` for K4, whose plain
     version adds the fold; ``convolution_backward`` with the real input for
     dx; the plain version itself for K1's forward and dW) and with TF32
-    on. The stem has no dx on the path. Also at ``F32_EXTRA_TIMED``.
-    Returns {(h, w, cin, cout): {piece: {ms, plain_ms, library_ms,
-    library_tf32_ms, route}}}."""
+    on; a piece on "f32_packed" also on the narrow route's kernel
+    (``f32_narrow_call``). The stem has no dx on the path. Also at
+    ``F32_EXTRA_TIMED``. Returns {(h, w, cin, cout): {piece: {ms,
+    plain_ms, library_ms, library_tf32_ms, route[, narrow_ms]}}}."""
     res, n = {}, F32_TIME_BATCH
     for shape in list(all_block_shapes()) + list(F32_EXTRA_TIMED):
         h, w, cin, cout = shape
@@ -2582,13 +2643,20 @@ def f32_timings(gen: torch.Generator) -> dict:
                           if piece == "wgrad" else
                           fused_conv.f32_route(cout, cin) if piece == "dx"
                           else fused_conv.f32_route(cin, cout))
+            narrow = ""
+            if t["route"] == "f32_packed":
+                t["narrow_ms"] = cuda_ms(
+                    f32_narrow_call(piece, x, wt, g, a, b), F32_TIME_ITERS,
+                    2)
+                narrow = f", narrow route {t['narrow_ms']:.4f}"
             got[piece] = t
-            line.append(f"{piece} {t['ms']:.3f} ms on {t['route']} (plain "
+            line.append(f"{piece} {t['ms']:.4f} ms on {t['route']} (plain "
                         f"{t['plain_ms']:.3f}, library "
-                        f"{t['library_ms']:.3f}, TF32 "
-                        f"{t['library_tf32_ms']:.3f});")
+                        f"{t['library_ms']:.4f}, TF32 "
+                        f"{t['library_tf32_ms']:.4f}{narrow});")
         bound, by = f32_bound(n, h, w, cin, cout)
-        print(" ".join(line) + f" bound {bound:.3f} ms by {by}", flush=True)
+        print(" ".join(line) + f" bound {bound:.4f} ms by {by} on "
+              f"{bench.card()}", flush=True)
         del x, wt, g, xc, wc, pieces, library
         torch.cuda.empty_cache()
     return res
@@ -2905,6 +2973,7 @@ def phase_f32(tmp: str, data: str) -> dict:
     errs = f32_kernel_checks(gen)
     sums = f32_sums(f32_timings(gen), errs)
     runs = {net: f32_training_run(tmp, data, net) for net in TRAIN_BATCH}
+    voc_checks(os.path.join(tmp, "f32_voc"), "float32")
     f32_predict_checks(tmp, data, runs["unet"]["ckpt"])
     f32_lr_finder_checks(data)
     f32_step_timing()
@@ -2935,7 +3004,8 @@ def f32_entries(f32: dict) -> list:
                     "replaces": replaces, "launches": launches,
                     **f32["sums"][piece],
                     "path_launches": {r: by_route[r]
-                                      for r in ("f32", "f32_narrow")}})
+                                      for r in ("f32", "f32_packed",
+                                                "f32_narrow")}})
     return out
 
 

@@ -56,7 +56,7 @@
 //   the dW's 128 (10-13% slower), at N = 128 (192 accumulators) in
 //   neither, so the forward's N = 128 tile and the dW run one scratch.
 //
-// Two routes, chosen by conv3x3_f32_route (ops/fused_conv.py::f32_route,
+// Three routes, chosen by conv3x3_f32_route (ops/fused_conv.py::f32_route,
 // ops/conv_train.py::wgrad_f32_route hold the same rule):
 //
 // * wgmma ("f32"): the forward where TMA can describe x (Cin % 4 == 0),
@@ -104,13 +104,58 @@
 //     in split order: two launches on the same inputs give the same bits,
 //     no float atomics. The splits fill waves of one block per SM
 //     (ops/conv_train.py::wgrad_f32_splits).
-// * narrow ("f32_narrow"): the rest, the Cin = 3 stem (fwd and dW), VOC's
-//   64 -> 21 head's dW and its 21 -> 64 dx: the first design, split-TF32
-//   mma.sync.m16n8k8 from a 3-stage cp.async ring (namespace nar). Its
-//   forward writes a thread's two adjacent channels as one 8-byte store
-//   and steps (tap, channel) along K without a division (the stem's
-//   forward had been 1.41x cuDNN's f32 conv at b10 on an H100 with a
-//   4-byte store an element and a division a k; chip_smoke phase 14).
+// * packed ("f32_packed", namespace pk): where one side's channels are
+//   not a multiple of 4, so TMA cannot describe its 12- or 84-byte pixel
+//   rows, but 9 taps x those channels fit K_MAX = 192: the forward where
+//   Cin % 4 != 0 with 9 x Cin <= 192 (the Cin = 3 stem, VOC's 21 -> 64
+//   dx), the dW where one side is so and the other's channels % 4 == 0
+//   (the stem's 3 -> 64, VOC's 64 -> 21). The narrow side is read as raw
+//   16-byte chunks of its patch rows, whatever their alignment, the way
+//   the bf16 packed paths read theirs.
+//   - fwd (conv_f32_packed_kernel<NG>): M = output pixels (tiles of 8 x
+//     16, one row a consumer warp, as fw's), N = 64 output channels, K = 9
+//     taps x Cin packed tap-major, k = (3 dy + dx) Cin + c, zero-padded to
+//     NG step sums of 32 (32 at the stem, 192 at Cin 21). The weights are
+//     split once per call by split_weights_kernel (flip there) and loaded
+//     once per block, zero-padded, into a resident K-major B (96 KiB at
+//     Cin 21: a 756-byte row is no TMA row). The producer warpgroup copies
+//     each tile's 10 patch rows as they lie in x (cp.async, two tiles in
+//     flight, rows outside the image and chunks past x as zeros), zeroes
+//     the columns outside the image at the left and right edges and hands
+//     the stage over. Each consumer thread gathers its fragment at a
+//     table's (dy, dx c + c) offsets from the raw stage at each patch
+//     row's misalignment (a per-row word offset, (s0 + pr W Cin) mod 4),
+//     splits it and issues wgmma.m64n64k8 (three split products, the step
+//     sums, ping-pong). The epilogue stages each warp's 16 x 64 output row
+//     (two 128-byte-swizzled boxes) for a TMA store that runs while the
+//     next tile computes (Cout % 4 == 0; else 8-byte stores).
+//   - dW (wgrad_f32_packed_kernel<BN>): tf32 wgmma takes B K-major only,
+//     so the roles of the bf16 packed dW swap: the wide side (64 channels
+//     a block) is A, M = wide channels, K = pixels of a 4 x 16 tile, read
+//     unshifted by TMA (two 32-channel boxes, 128-byte swizzle) and split
+//     in registers as wgf reads x; the narrow side's (tap, channel) rows
+//     are B, built once per tile by three builder warps into K-major hi
+//     and lo planes: per (patch row, channel) line its 18 values, zero
+//     outside the image, each split once and written as the rows of all
+//     three tap columns dx, 16-byte core-matrix rows in the pixel order
+//     0, 2, 4, 6, 1, 3, 5, 7; kernel row dy is then a patch-row offset, so
+//     consumer warpgroup dy reads its N = 3 x Cn rows (the stem's 9 in an
+//     N = 16 tile, VOC's 63 in 64) from the same planes. For the stem (x narrow) D is dW[t][c][co]; for the head (g narrow)
+//     the sum runs at g's shift, g[q + off(t)] = g[p - off(8 - t)], so D
+//     is dW[8 - t][ci][co]. Split-K as wgf, one wave of blocks, the
+//     ordered split sum.
+//   What bounds them: the stem's forward writes 442 MB at b10 (0.132 ms at
+//   3.35 TB/s), its dW reads g's 442 MB; VOC's dx and dW are bound by the
+//   split product (0.254 ms at 165 TFLOP/s). On an H100 neither reaches
+//   its bound: the data path alone (gathers, copies, planes, handoffs;
+//   f32_variants' pk_no_mma) takes most of each one's time, and the
+//   wgmmas add to it rather than hide under it (PERF.md).
+// * narrow ("f32_narrow"): the rest, e.g. Cin 23 (9 x 23 > 192) or both
+//   sides narrow (3 -> 21): the first design, split-TF32 mma.sync.m16n8k8
+//   from a 3-stage cp.async ring (namespace nar). No model runs it since
+//   the packed route took the stem and VOC's head. Its forward writes a
+//   thread's two adjacent channels as one 8-byte store and steps (tap,
+//   channel) along K without a division.
 //
 // 64-bit element offsets throughout; pixels (N*H*W) stay below 2^31.
 
@@ -157,7 +202,8 @@ __device__ __forceinline__ bool inside(int v, int n) {
 }
 
 // out[i] = ws[0][i] + ws[1][i] + ... in split order: the same bits on
-// every launch.
+// every launch. The loads go out eight at a time (a split count in the
+// hundreds, one dependent load after another, had taken tens of us).
 __global__ void sum_splits_kernel(const float* __restrict__ ws,
                                   float* __restrict__ out, int64_t n,
                                   int splits) {
@@ -165,7 +211,15 @@ __global__ void sum_splits_kernel(const float* __restrict__ ws,
                    threadIdx.x;
        i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     float s = ws[i];
-    for (int k = 1; k < splits; ++k) s += ws[k * n + i];
+    int k = 1;
+    for (; k + 8 <= splits; k += 8) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = ws[(k + u) * n + i];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) s += v[u];
+    }
+    for (; k < splits; ++k) s += ws[k * n + i];
     out[i] = s;
   }
 }
@@ -741,6 +795,17 @@ __global__ void split_weights_kernel(const float* __restrict__ w,
   }
 }
 
+// split_weights_kernel on the caller's stream; the CUDA error of the launch.
+cudaError_t split_weights(const float* w, float* w2, int Cin, int Cout,
+                          int flip, cudaStream_t st) {
+  const int64_t n_el = 9LL * Cin * Cout;
+  const int64_t blocks = (n_el + 255) / 256;
+  split_weights_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks
+                                                             : 4096),
+                         256, 0, st>>>(w, w2, Cin, Cout, flip);
+  return cudaGetLastError();
+}
+
 // ================================================================= fwd
 
 namespace fw {
@@ -997,12 +1062,7 @@ cudaError_t launch(const float* x, const float* w2, const float* a,
 cudaError_t run(const float* x, const float* w, const float* a,
                 const float* b, float* out, float* w2, int N, int H, int W,
                 int Cin, int Cout, int relu, int flip, cudaStream_t st) {
-  const int64_t n_el = 9LL * Cin * Cout;
-  const int64_t blocks = (n_el + 255) / 256;
-  split_weights_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks
-                                                             : 4096),
-                         256, 0, st>>>(w, w2, Cin, Cout, flip);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = split_weights(w, w2, Cin, Cout, flip, st);
   if (err != cudaSuccess) return err;
   switch (tile_n(Cout)) {
     case 16:
@@ -1111,6 +1171,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     sm90::fence_barrier_init();
   }
+  sm90::fence_proxy_async();   // the pad rows, for the wgmmas
   __syncthreads();
 
   const int wgi = threadIdx.x / 128;
@@ -1333,53 +1394,781 @@ cudaError_t run(const float* x, const float* g, float* dst, int N, int H,
 
 }  // namespace wgf
 
+// ================================================================ packed
+
+namespace pk {
+
+constexpr int K_MAX = 192;   // 9 taps x the narrow side's channels
+
+// 16-byte chunks that a row of ``len`` f32 elements spans at any element
+// alignment
+__host__ __device__ constexpr int raw_chunks(int len) {
+  return (len + 2) / 4 + 1;
+}
+
+// A 16-byte cp.async of which the first ``bytes`` come from ``src``, the
+// rest zero.
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// ------------------------------------------------------------- forward
+
+// A tile is 8 output rows x 16 columns, one row a consumer warp, as fw's;
+// N = 64 output channels; K = 9 taps x Cin packed tap-major, k = (3 dy +
+// dx) Cin + c, zero-padded to NG step sums of 32 (K = 32 at Cin 3, 192 at
+// Cin 21).
+constexpr int F_TH = 8, F_TW = 16;
+constexpr int F_PH = F_TH + 2, F_PW = F_TW + 2;
+constexpr int F_BN = 64;
+constexpr int F_THREADS = 384;        // warpgroups 0, 1 consume; 2 produces
+constexpr int F_CONSUMER_WARPS = 8;
+constexpr int F_PRODUCERS = 128;
+constexpr int F_STAGES = 4;           // raw patch stages
+constexpr int F_LAG = 2;              // tiles of copies in flight
+static_assert(F_STAGES > F_LAG, "a stage for the consumers");
+// one k8 step of B: 8 channel groups x two 128-byte core matrices (K
+// halves), K-major, no swizzle
+constexpr int F_STEP_B = F_BN / 8 * 256;
+// a warp's output row, staged for its TMA store: two 32-channel boxes of
+// 16 pixels x 128 B, 128-byte swizzle
+constexpr int F_OUT_BOX = F_TW * 128;
+constexpr int F_OUT_WARP = 2 * F_OUT_BOX;
+
+__host__ __device__ constexpr int f_groups(int cin) {
+  return (9 * cin + 31) / 32;
+}
+// a raw stage: the tile's 10 patch rows, each the 16-byte chunks that 18 x
+// Cin elements span, as they lie in x
+__host__ __device__ constexpr int f_raw_stage(int cin) {
+  return F_PH * raw_chunks(F_PW * cin) * 16;
+}
+// the zeros that a padded k reads, at either of a lane's two pixels
+__host__ __device__ constexpr int f_zero(int cin) { return 32 * cin + 16; }
+// shared memory: alignment slack; the output staging (1024-aligned for
+// the swizzle); the resident B, hi and lo; the raw stages; the zeros; the
+// affine (a, b); the A offsets' table (8 bytes a k8 step and lane column);
+// two mbarriers a stage
+__host__ __device__ constexpr int fwd_smem(int cin) {
+  return 1024 + F_CONSUMER_WARPS * F_OUT_WARP + 2 * 4 * f_groups(cin) *
+         F_STEP_B + F_STAGES * f_raw_stage(cin) + f_zero(cin) + 2 * F_BN * 4 +
+         4 * f_groups(cin) * 4 * 8 + 2 * F_STAGES * 8;
+}
+// ops/fused_conv.py::f32_packed_fwd_plan holds the same figures
+static_assert(fwd_smem(3) == 60592, "the stem's forward (Cin 3)");
+static_assert(fwd_smem(21) == 195568, "VOC's dx (Cin 21)");
+
+template <int NG>
+__global__ void __launch_bounds__(F_THREADS, 1)
+    conv_f32_packed_kernel(const __grid_constant__ CUtensorMap omap,
+                           const float* __restrict__ x,
+                           const float* __restrict__ w2,
+                           const float* __restrict__ scale,
+                           const float* __restrict__ shift,
+                           float* __restrict__ out, int N, int H, int W,
+                           int Cin, int Cout, int relu, int tma_out) {
+  constexpr int KP = 32 * NG, KSTEPS = 4 * NG;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  unsigned char* bw = smem + F_CONSUMER_WARPS * F_OUT_WARP;
+  unsigned char* stages = bw + 2 * KSTEPS * F_STEP_B;
+  const int CPR = raw_chunks(F_PW * Cin), RSTAGE = f_raw_stage(Cin);
+  unsigned char* zeros = stages + F_STAGES * RSTAGE;
+  float* sa = reinterpret_cast<float*>(zeros + f_zero(Cin));
+  float* sb = sa + F_BN;
+  uint2* tab = reinterpret_cast<uint2*>(sb + F_BN);
+  uint64_t* pfull = reinterpret_cast<uint64_t*>(tab + KSTEPS * 4);
+  uint64_t* pempty = pfull + F_STAGES;
+  const int K = 9 * Cin;
+
+  const int n0 = blockIdx.y * F_BN;
+  const int tiles_w = (W + F_TW - 1) / F_TW;
+  const int tiles_h = (H + F_TH - 1) / F_TH;
+  const int total = N * tiles_h * tiles_w;   // < 2^31 (host)
+  auto origin = [&](int t, int& img, int& h0, int& w0) {
+    w0 = t % tiles_w * F_TW;
+    t /= tiles_w;
+    h0 = t % tiles_h * F_TH;
+    img = t / tiles_h;
+  };
+  // element 0 of patch row 0 of a tile lies at word s0 of its first raw
+  // chunk, row pr's at (s0 + pr W Cin) mod 4 (32-bit arithmetic keeps the
+  // residue)
+  auto s_first = [&](int img, int h0, int w0) {
+    return ((static_cast<uint32_t>(img) * H + h0 - 1) * W + w0 - 1) *
+           static_cast<uint32_t>(Cin);
+  };
+  const uint32_t wc = static_cast<uint32_t>(W) * static_cast<uint32_t>(Cin);
+
+  // B, resident: element (k, n) of w2[h][n0 + n][k] (the split weights,
+  // K-major; flip applied by split_weights_kernel), zero past K and Cout,
+  // at k8 step k / 8, channel group n / 8, K half (k / 4) % 2, row n % 8
+  for (int i = threadIdx.x; i < 2 * KP * F_BN; i += F_THREADS) {
+    const int k = i % KP, r = i / KP, n = r % F_BN, h = r / F_BN;
+    const int co = n0 + n;
+    const float v =
+        k < K && co < Cout
+            ? w2[(static_cast<int64_t>(h) * Cout + co) * K + k]
+            : 0.f;
+    *reinterpret_cast<float*>(bw + (h * KSTEPS + (k >> 3)) * F_STEP_B +
+                              (n >> 3) * 256 + ((k >> 2) & 1) * 128 +
+                              (n & 7) * 16 + (k & 3) * 4) = v;
+  }
+  for (int i = threadIdx.x; i < f_zero(Cin) / 4; i += F_THREADS)
+    reinterpret_cast<float*>(zeros)[i] = 0.f;
+  for (int j = threadIdx.x; j < F_BN; j += F_THREADS) {
+    const bool in = n0 + j < Cout;
+    sa[j] = in ? scale[n0 + j] : 0.f;
+    sb[j] = in ? shift[n0 + j] : 0.f;
+  }
+  // k = 8 s + t and 8 s + t + 4 (a fragment's K columns): kernel row dy in
+  // the top 16 bits (3: a padded k, read from the zeros) and the byte
+  // offset of (dx, c) from a pixel's place in its patch row
+  auto kent = [&](int k) {
+    if (k >= K) return 3u << 16;
+    const int tap = k / Cin, c = k - tap * Cin;
+    return static_cast<uint32_t>(tap / 3) << 16 |
+           static_cast<uint32_t>(4 * ((tap % 3) * Cin + c));
+  };
+  for (int i = threadIdx.x; i < KSTEPS * 4; i += F_THREADS) {
+    const int k = 8 * (i >> 2) + (i & 3);
+    tab[i] = make_uint2(kent(k), kent(k + 4));
+  }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < F_STAGES; ++i) {
+      sm90::mbar_init(&pfull[i], F_PRODUCERS);
+      sm90::mbar_init(&pempty[i], F_CONSUMER_WARPS);
+    }
+    sm90::fence_barrier_init();
+  }
+  sm90::fence_proxy_async();   // B, for the wgmmas
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  if (wgi == 2) {
+    // ------------------------------------------------------ producers
+    // Patch row pr of tile (img, h0, w0) is input row h0 + pr - 1,
+    // columns w0 - 1 .. w0 + 16: 18 x Cin elements, contiguous in NHWC,
+    // spanning CPR 16-byte chunks of x. Each tile's rows are copied as
+    // they lie (cp.async, F_LAG tiles in flight) into a raw stage, rows
+    // outside the image and chunks outside x as zeros; once a tile's
+    // copies have landed, the columns outside the image (at its left or
+    // right edge) are zeroed, and the stage goes to the consumers.
+    const int p = threadIdx.x - 256;
+    const int64_t numel = static_cast<int64_t>(N) * H * W * Cin;
+    const int first = blockIdx.x;
+    const int mine = first < total ? (total - 1 - first) / gridDim.x + 1 : 0;
+    for (int it = 0; it < mine + F_LAG; ++it) {
+      if (it < mine) {
+        const int st = it % F_STAGES;
+        int img, h0, w0;
+        origin(first + it * gridDim.x, img, h0, w0);
+        sm90::mbar_wait(&pempty[st], ((it / F_STAGES) & 1) ^ 1);
+        unsigned char* rb = stages + st * RSTAGE;
+        for (int i = p; i < F_PH * CPR; i += F_PRODUCERS) {
+          const int pr = i / CPR, q = i - pr * CPR;
+          const int h = h0 + pr - 1;
+          const int64_t g0 =
+              ((((static_cast<int64_t>(img) * H + h) * W + w0 - 1) * Cin) &
+               ~static_cast<int64_t>(3)) + 4 * q;
+          const int bytes =
+              h < 0 || h >= H || g0 < 0 || g0 >= numel
+                  ? 0
+                  : 4 * static_cast<int>(numel - g0 < 4 ? numel - g0 : 4);
+          cp_async_n(rb + i * 16, bytes ? x + g0 : x, bytes);
+        }
+      }
+      nar::cp_async_commit();   // one group a tile, empty past the end
+      if (it < F_LAG) continue;
+      const int done = it - F_LAG, st = done % F_STAGES;
+      int img, h0, w0;
+      origin(first + done * gridDim.x, img, h0, w0);
+      nar::cp_async_wait<F_LAG>();   // tile ``done``'s copies, then all
+      asm volatile("bar.sync 1, %0;\n" ::"n"(F_PRODUCERS) : "memory");
+      if (w0 == 0 || w0 + F_TW + 1 > W) {
+        float* rf = reinterpret_cast<float*>(stages + st * RSTAGE);
+        const uint32_t s0 = s_first(img, h0, w0);
+        for (int i = p; i < F_PH * F_PW * Cin; i += F_PRODUCERS) {
+          const int pr = i / (F_PW * Cin), e = i - pr * (F_PW * Cin);
+          const int w = w0 + e / Cin - 1;
+          if (w < 0 || w >= W)
+            rf[pr * CPR * 4 + ((s0 + pr * wc) & 3u) + e] = 0.f;
+        }
+      }
+      sm90::mbar_arrive(&pfull[st]);
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    // A: warp ``warp`` of warpgroup wgi takes output row r = 4 wgi + warp,
+    // rows g (a0, a2) and g + 8 (a1, a3) its columns; each k8 step's two
+    // K columns (8 s + tq, + 4) at the table's kernel row and offset, from
+    // the raw stage at that patch row's misalignment, split once and fed
+    // to the three wgmma.m64n64k8 of the step, whose B is the resident
+    // weights' step s.
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, tq = lane & 3;
+    const int r = wgi * 4 + warp;
+    const uint32_t b0 = smem_u32(bw);
+    const int zb = static_cast<int>(zeros - smem);
+    unsigned char* st_out = smem + r * F_OUT_WARP;
+    float sc[2][F_BN / 2];
+#pragma unroll
+    for (int i = 0; i < F_BN / 2; ++i) sc[0][i] = sc[1][i] = 0.f;
+    int it = 0;
+    for (int t = blockIdx.x; t < total; t += gridDim.x, ++it) {
+      const int st = it % F_STAGES;
+      int img, h0, w0;
+      origin(t, img, h0, w0);
+      // the byte offsets of this lane's pixel (r, g) in patch rows r + dy
+      const uint32_t s0 = s_first(img, h0, w0);
+      int rb[3];
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const int pr = r + dy;
+        rb[dy] = static_cast<int>(stages - smem) + st * RSTAGE +
+                 4 * (pr * CPR * 4 + static_cast<int>((s0 + pr * wc) & 3u) +
+                      g * Cin);
+      }
+      auto at = [&](uint32_t e) {
+        const uint32_t dy = e >> 16;
+        return (dy == 0 ? rb[0] : dy == 1 ? rb[1] : dy == 2 ? rb[2] : zb) +
+               static_cast<int>(e & 0xFFFFu);
+      };
+      float acc[F_BN / 2];
+#pragma unroll
+      for (int i = 0; i < F_BN / 2; ++i) acc[i] = 0.f;
+      sm90::mbar_wait(&pfull[st], (it / F_STAGES) & 1);
+      uint2 e = tab[tq];
+#pragma unroll
+      for (int s = 0; s < KSTEPS; ++s) {
+        const int ox = at(e.x), oy = at(e.y);
+        const float v[4] = {lds(smem, ox), lds(smem, ox + 32 * Cin),
+                            lds(smem, oy), lds(smem, oy + 32 * Cin)};
+        if (s + 1 < KSTEPS) e = tab[4 * (s + 1) + tq];   // the next step's
+        uint32_t ah[4], al[4];
+        split4(v, ah, al);
+        const uint64_t bh = sm90::wgmma_desc(b0 + s * F_STEP_B, 128, 256, 0);
+        const uint64_t bl =
+            sm90::wgmma_desc(b0 + (KSTEPS + s) * F_STEP_B, 128, 256, 0);
+        k8_step<F_BN, kPingpong<F_BN>>(acc, sc, s, ah, al, bh, bl);
+      }
+      k8_drain<F_BN, kPingpong<F_BN>>(acc, sc, KSTEPS);
+      if (lane == 0) sm90::mbar_arrive(&pempty[st]);
+
+      // Epilogue: acc * a + b, ReLU. Accumulator i: output row h0 + r,
+      // column w0 + g (+8 for i%4 >= 2); channel n0 + 8*(i/4) + 2*tq + i%2.
+      // Where TMA can describe the output (Cout % 4 == 0: 256-byte rows at
+      // 64 channels) the warp stages its row in shared memory (two boxes of
+      // 32 channels, 128-byte swizzle) and hands it to a TMA store that
+      // runs while the next tile computes and clips H, W and Cout; else
+      // each channel pair goes out as one 8-byte store where Cout is even.
+      const int h = h0 + r;
+      if (tma_out) {
+        if (lane == 0) sm90::bulk_wait<0, true>();   // the row was read
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < F_BN / 8; ++j) {
+          const int c = 8 * j + 2 * tq;
+          const float a0 = sa[c], a1 = sa[c + 1], c0 = sb[c], c1 = sb[c + 1];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float v0 = acc[4 * j + 2 * half] * a0 + c0;
+            float v1 = acc[4 * j + 2 * half + 1] * a1 + c1;
+            if (relu) {
+              v0 = fmaxf(v0, 0.f);
+              v1 = fmaxf(v1, 0.f);
+            }
+            *reinterpret_cast<float2*>(st_out + (c >> 5) * F_OUT_BOX +
+                                       swz(g + 8 * half, (c & 31) >> 2) +
+                                       4 * (c & 3)) = make_float2(v0, v1);
+          }
+        }
+        sm90::fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          if (h < H) {
+            sm90::tma_store_4d(&omap, st_out, n0, w0, h, img);
+            if (n0 + 32 < Cout)
+              sm90::tma_store_4d(&omap, st_out + F_OUT_BOX, n0 + 32, w0, h,
+                                 img);
+          }
+          sm90::bulk_commit();
+        }
+      } else {
+        const bool pair = Cout % 2 == 0;
+#pragma unroll
+        for (int j = 0; j < F_BN / 8; ++j) {
+          const int c = 8 * j + 2 * tq, co = n0 + c;
+          if (co >= Cout) continue;
+          const bool two = co + 1 < Cout;
+          const float a0 = sa[c], a1 = sa[c + 1], c0 = sb[c], c1 = sb[c + 1];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int ww = w0 + g + 8 * half;
+            if (ww >= W || h >= H) continue;
+            float* o = out + ((static_cast<int64_t>(img) * H + h) * W + ww) *
+                                 Cout + co;
+            float v0 = acc[4 * j + 2 * half] * a0 + c0;
+            float v1 = acc[4 * j + 2 * half + 1] * a1 + c1;
+            if (relu) {
+              v0 = fmaxf(v0, 0.f);
+              v1 = fmaxf(v1, 0.f);
+            }
+            if (two && pair) {
+              *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+            } else {
+              o[0] = v0;
+              if (two) o[1] = v1;
+            }
+          }
+        }
+      }
+    }
+    if (lane == 0) sm90::bulk_wait<0, false>();   // the stores are done
+  }
+}
+
+template <int NG>
+cudaError_t fwd_launch(const float* x, const float* w2, const float* a,
+                       const float* b, float* out, int N, int H, int W,
+                       int Cin, int Cout, int relu, cudaStream_t stream) {
+  // the output's tensor map where TMA can describe it (Cout % 4 == 0)
+  CUtensorMap omap = {};
+  const int tma_out = Cout % 4 == 0;
+  if (tma_out) {
+    const uint64_t od[4] = {static_cast<uint64_t>(Cout),
+                            static_cast<uint64_t>(W),
+                            static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(N)};
+    const uint64_t os[3] = {4ull * Cout, 4ull * Cout * W,
+                            4ull * Cout * W * H};
+    const uint32_t ob[4] = {32, F_TW, 1, 1};
+    if (!sm90::encode_f32_map(&omap, out, 4, od, os, ob))
+      return cudaErrorInvalidValue;
+  }
+  auto kern = conv_f32_packed_kernel<NG>;
+  const int smem = fwd_smem(Cin);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const int64_t tiles = static_cast<int64_t>(N) * ((H + F_TH - 1) / F_TH) *
+                        ((W + F_TW - 1) / F_TW);
+  const int tiles_n = (Cout + F_BN - 1) / F_BN;
+  if (tiles > 2147483647LL || tiles_n > 65535)
+    return cudaErrorInvalidConfiguration;
+  const dim3 grid(static_cast<unsigned>(tiles < sms ? tiles : sms), tiles_n);
+  kern<<<grid, F_THREADS, smem, stream>>>(omap, x, w2, a, b, out, N, H, W,
+                                          Cin, Cout, relu, tma_out);
+  return cudaGetLastError();
+}
+
+// The forward: the weights split once into ws (flip applied), then the
+// packed kernel for the step sums K needs.
+cudaError_t fwd_run(const float* x, const float* w, const float* a,
+                    const float* b, float* out, float* w2, int N, int H,
+                    int W, int Cin, int Cout, int relu, int flip,
+                    cudaStream_t st) {
+  if (reinterpret_cast<uintptr_t>(x) & 15)   // its 16-byte copies
+    return cudaErrorInvalidValue;
+  const cudaError_t err = split_weights(w, w2, Cin, Cout, flip, st);
+  if (err != cudaSuccess) return err;
+#define PK_FWD_CASE(G) \
+  case G:              \
+    return fwd_launch<G>(x, w2, a, b, out, N, H, W, Cin, Cout, relu, st);
+  switch (f_groups(Cin)) {
+    PK_FWD_CASE(1) PK_FWD_CASE(2) PK_FWD_CASE(3)
+    PK_FWD_CASE(4) PK_FWD_CASE(5) PK_FWD_CASE(6)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PK_FWD_CASE
+}
+
+// ------------------------------------------------------------------ dW
+
+// A pixel tile is 4 x 16 pixels, 8 k8 steps, as wgf's. The block owns 64
+// channels of the wide side (M); consumer warpgroup dy owns the narrow
+// side's rows (dx, c) = dx Cn + c of kernel row dy, N = 3 Cn padded to
+// the tile N (16 at Cn <= 5, 24 at Cn 6-7, 64 up to 21).
+constexpr int W_TH = 4, W_TW = 16;
+constexpr int W_PH = W_TH + 2, W_PW = W_TW + 2;   // the narrow patch
+constexpr int W_CB = W_TW / 8;                    // 8-pixel column blocks
+constexpr int W_THREADS = 512;   // WGs 0-2 consume; warp 12 TMA; 13-15 build
+constexpr int W_CONSUMER_WARPS = 12;
+constexpr int W_BUILDERS = 96;
+constexpr int W_BOX = W_TH * W_TW * 128;   // one 32-channel box of the tile
+constexpr int W_X_TX = 2 * W_BOX;          // the block's 64 wide channels
+constexpr int W_X_STAGES = 4, W_RAW = 4;
+
+__host__ __device__ constexpr int w_tile_n(int cn) {
+  return 3 * cn <= 16 ? 16 : 3 * cn <= 24 ? 24 : 64;
+}
+// one plane (hi or lo): 6 patch rows x 2 column blocks of N / 8 channel
+// groups x two 128-byte core matrices (K halves)
+__host__ __device__ constexpr int w_plane(int bn) {
+  return W_PH * W_CB * bn * 32;
+}
+// a raw patch buffer: 6 rows of the 16-byte chunks that 18 x cn elements
+// span
+__host__ __device__ constexpr int w_raw(int cn) {
+  return W_PH * raw_chunks(W_PW * cn) * 16;
+}
+// alignment slack, the wide stages, two plane buffers (hi and lo), the raw
+// buffers and two mbarriers a stage and a buffer
+__host__ __device__ constexpr int wgrad_smem(int cn) {
+  return 1024 + W_X_STAGES * W_X_TX + 2 * 2 * w_plane(w_tile_n(cn)) +
+         W_RAW * w_raw(cn) + 2 * (W_X_STAGES + 2) * 8;
+}
+// ops/conv_train.py::wgrad_f32_packed_plan holds the same figures
+static_assert(w_tile_n(3) == 16 && wgrad_smem(3) == 96992,
+              "the stem's dW (Cn 3)");
+static_assert(w_tile_n(21) == 64 && wgrad_smem(21) == 201824,
+              "VOC's head dW (Cn 21)");
+static_assert(W_TH == wgf::TH && W_TW == wgf::TW,
+              "the f32 dW routes walk the same pixel tiles");
+
+template <int BN>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    wgrad_f32_packed_kernel(const __grid_constant__ CUtensorMap wmap,
+                            const float* __restrict__ nar,
+                            float* __restrict__ out, int N, int H, int W,
+                            int Cw, int Cn, int head, int splits) {
+  constexpr int PLANE = w_plane(BN);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  unsigned char* planes = smem + W_X_STAGES * W_X_TX;
+  unsigned char* raw0 = planes + 4 * PLANE;
+  const int CPR = raw_chunks(W_PW * Cn);
+  const int RAWB = W_PH * CPR * 16;
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(raw0 + W_RAW * RAWB);
+  uint64_t* xempty = xfull + W_X_STAGES;
+  uint64_t* pfull = xempty + W_X_STAGES;
+  uint64_t* pempty = pfull + 2;
+
+  const int n0 = blockIdx.x * 64;   // the block's wide channels
+  const int split = blockIdx.y;
+  const int tiles_h = (H + W_TH - 1) / W_TH;
+  const int tiles_w = (W + W_TW - 1) / W_TW;
+  const int total = N * tiles_h * tiles_w;   // < 2^31 (host)
+  const int t_begin =
+      static_cast<int>(static_cast<int64_t>(total) * split / splits);
+  const int t_end =
+      static_cast<int>(static_cast<int64_t>(total) * (split + 1) / splits);
+  auto origin = [&](int t, int& img, int& h0, int& w0) {
+    w0 = t % tiles_w * W_TW;
+    h0 = t / tiles_w % tiles_h * W_TH;
+    img = t / (tiles_w * tiles_h);
+  };
+
+  // row n of a plane: its dx (n = dx Cn + c), -1 past 3 Cn (zero)
+  const int tid = threadIdx.x;
+  // the planes' pad rows n >= 3 Cn: zero in both buffers, hi and lo
+  for (int i = tid; i < 4 * W_PH * W_CB * 2 * BN; i += W_THREADS) {
+    const int n = i % BN, cm = i / BN;   // core-matrix row of (pr, cb, kh)
+    if (n >= 3 * Cn)
+      *reinterpret_cast<uint4*>(planes + cm / (W_PH * W_CB * 2) * PLANE +
+                                (cm % (W_PH * W_CB * 2) / 2 * (BN / 8) +
+                                 (n >> 3)) * 256 + (cm & 1) * 128 +
+                                (n & 7) * 16) = make_uint4(0, 0, 0, 0);
+  }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < W_X_STAGES; ++i) {
+      sm90::mbar_init(&xfull[i], 1);
+      sm90::mbar_init(&xempty[i], W_CONSUMER_WARPS);
+    }
+    for (int i = 0; i < 2; ++i) {
+      sm90::mbar_init(&pfull[i], W_BUILDERS);
+      sm90::mbar_init(&pempty[i], W_CONSUMER_WARPS);
+    }
+    sm90::fence_barrier_init();
+  }
+  sm90::fence_proxy_async();   // the pad rows, for the wgmmas
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  if (wgi == 3) {
+    if (threadIdx.x == 384) {
+      // ------------------------------------ TMA: the wide tile, unshifted
+      sm90::prefetch_tensormap(&wmap);
+      for (int it = 0; it < t_end - t_begin; ++it) {
+        int img, h0, w0;
+        origin(t_begin + it, img, h0, w0);
+        const int xs = it % W_X_STAGES;
+        sm90::mbar_wait(&xempty[xs], ((it / W_X_STAGES) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&xfull[xs], W_X_TX);
+        unsigned char* d = smem + xs * W_X_TX;
+        sm90::tma_load_4d(d, &wmap, &xfull[xs], n0, w0, h0, img);
+        sm90::tma_load_4d(d + W_BOX, &wmap, &xfull[xs], n0 + 32, w0, h0,
+                          img);
+      }
+    } else if (threadIdx.x >= 416) {
+      // ------------------------------------- builders, warps 13-15
+      // Patch row pr (input row h0 + pr - 1) of the narrow tensor is 18 x
+      // Cn contiguous elements (pixels w0 - 1 .. w0 + 16), spanning CPR
+      // 16-byte chunks; each tile's rows are copied as they lie (cp.async,
+      // three tiles ahead) into one of W_RAW buffers, skipping rows
+      // outside the image and chunks outside the tensor. Then a builder
+      // takes a line (patch row pr, channel c): its 18 values, zero
+      // outside the image, each split once, written as plane row n = dx Cn
+      // + c of each tap column dx, pixels dx .. dx + 15, in 16-byte rows of
+      // four (columns 8 cb + 2 k + kh, k = 0..3: the pixel order 0, 2, 4,
+      // 6, 1, 3, 5, 7 of the consumers' A) of the hi and of the lo plane:
+      // every (tap, channel) row of every kernel row dy, built once, its dy
+      // a patch-row offset for the consumers. The pad rows (n >= 3 Cn)
+      // stay the zeros written at the start.
+      const int bt = threadIdx.x - 416;
+      const int64_t numel = static_cast<int64_t>(N) * H * W * Cn;
+      auto row_start = [&](int img, int h, int w0) {
+        return ((static_cast<int64_t>(img) * H + h) * W + w0 - 1) * Cn;
+      };
+      auto load_raw = [&](int t) {
+        if (t < t_end) {
+          int img, h0, w0;
+          origin(t, img, h0, w0);
+          unsigned char* rb = raw0 + (t - t_begin) % W_RAW * RAWB;
+          for (int i = bt; i < W_PH * CPR; i += W_BUILDERS) {
+            const int pr = i / CPR, q = i - pr * CPR;
+            const int h = h0 + pr - 1;
+            if (h < 0 || h >= H) continue;
+            const int64_t g0 =
+                (row_start(img, h, w0) & ~static_cast<int64_t>(3)) + 4 * q;
+            if (g0 < 0 || g0 >= numel) continue;
+            const int n4 = numel - g0 < 4 ? static_cast<int>(numel - g0) : 4;
+            cp_async_n(rb + i * 16, nar + g0, 4 * n4);
+          }
+        }
+        nar::cp_async_commit();   // one group a tile, empty past the end
+      };
+      auto build = [&](int t, unsigned char* pl, const unsigned char* rb) {
+        int img, h0, w0;
+        origin(t, img, h0, w0);
+        for (int l = bt; l < W_PH * Cn; l += W_BUILDERS) {
+          const int pr = l / Cn, c = l - pr * Cn;
+          const int h = h0 + pr - 1;
+          const bool row = h >= 0 && h < H;
+          // the row's element misalignment in the raw buffer (mod 4 of
+          // row_start, in 32-bit arithmetic)
+          const int s = static_cast<int>(
+              ((static_cast<uint32_t>(img) * H + h) * W + w0 - 1) *
+              static_cast<uint32_t>(Cn) & 3u);
+          const float* rp =
+              reinterpret_cast<const float*>(rb + pr * CPR * 16) + s + c;
+          uint32_t hi[W_PW], lo[W_PW];
+#pragma unroll
+          for (int q = 0; q < W_PW; ++q) {
+            const int w = w0 + q - 1;
+            split_tf32(row && w >= 0 && w < W ? rp[q * Cn] : 0.f, hi[q],
+                       lo[q]);
+          }
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const int n = dx * Cn + c;   // the plane row of tap column dx
+            unsigned char* d = pl + (pr * W_CB * (BN / 8) + (n >> 3)) * 256 +
+                               (n & 7) * 16;
+#pragma unroll
+            for (int cb = 0; cb < W_CB; ++cb)
+#pragma unroll
+              for (int kh = 0; kh < 2; ++kh) {
+                const int q = 8 * cb + kh + dx;   // pixels q, q+2, q+4, q+6
+                unsigned char* e = d + cb * (BN / 8) * 256 + kh * 128;
+                *reinterpret_cast<uint4*>(e) =
+                    make_uint4(hi[q], hi[q + 2], hi[q + 4], hi[q + 6]);
+                *reinterpret_cast<uint4*>(e + PLANE) =
+                    make_uint4(lo[q], lo[q + 2], lo[q + 4], lo[q + 6]);
+              }
+          }
+        }
+      };
+      for (int k = 0; k < W_RAW - 1; ++k) load_raw(t_begin + k);
+      for (int it = 0; it < t_end - t_begin; ++it) {
+        const int pbuf = it & 1;
+        nar::cp_async_wait<W_RAW - 2>();   // this tile's copies
+        asm volatile("bar.sync 1, %0;\n" ::"n"(W_BUILDERS) : "memory");
+        sm90::mbar_wait(&pempty[pbuf], ((it >> 1) & 1) ^ 1);
+        build(t_begin + it, planes + pbuf * 2 * PLANE,
+              raw0 + it % W_RAW * RAWB);
+        sm90::fence_proxy_async();   // the planes, for the wgmmas
+        sm90::mbar_arrive(&pfull[pbuf]);
+        // into the buffer read one tile ago (every builder is past it)
+        load_raw(t_begin + it + W_RAW - 1);
+      }
+    }
+  } else {
+    // ------------------------------------------- consumers: dy = wgi
+    // A = the wide tile^T: rows (wide channels) n0 + 16 warp + g (+8: a1,
+    // a3), K = the step's pixels 2 tq (a0, a1) and 2 tq + 1 (a2, a3), as
+    // wgf reads x (here unshifted); B = the planes' k8 block at patch row
+    // (tile row + dy), N = this kernel row's (dx, c) rows.
+    constexpr bool PP = PINGPONG && DW_PINGPONG;   // one scratch, as wgf's
+    const int dy = wgi;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, tq = lane & 3;
+    const int ch0 = (16 * (warp & 1) + g) >> 2;
+    const int word = 4 * (g & 3);
+    const uint32_t pl0 = smem_u32(planes);
+    float acc[BN / 2], sc[2][BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = sc[0][i] = sc[1][i] = 0.f;
+    for (int it = 0; it < t_end - t_begin; ++it) {
+      const int xs = it % W_X_STAGES, pbuf = it & 1;
+      sm90::mbar_wait(&xfull[xs], (it / W_X_STAGES) & 1);
+      sm90::mbar_wait(&pfull[pbuf], (it >> 1) & 1);
+      const unsigned char* xb = smem + xs * W_X_TX + (warp >> 1) * W_BOX;
+      const uint32_t pb = pl0 + pbuf * 2 * PLANE;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = j >> 1, cb = j & 1;
+        const int prow = i * W_TW + 8 * cb + 2 * tq;
+        const float v[4] = {lds(xb, swz(prow, ch0) + word),
+                            lds(xb, swz(prow, ch0 + 2) + word),
+                            lds(xb, swz(prow + 1, ch0) + word),
+                            lds(xb, swz(prow + 1, ch0 + 2) + word)};
+        uint32_t ah[4], al[4];
+        split4(v, ah, al);
+        const uint32_t blk = pb + ((i + dy) * W_CB + cb) * (BN * 32);
+        const uint64_t bh = sm90::wgmma_desc(blk, 128, 256, 0);
+        const uint64_t bl = sm90::wgmma_desc(blk + PLANE, 128, 256, 0);
+        k8_step<BN, PP>(acc, sc, j, ah, al, bh, bl);
+      }
+      k8_drain<BN, PP>(acc, sc, 8);
+      if (lane == 0) {
+        sm90::mbar_arrive(&xempty[xs]);
+        sm90::mbar_arrive(&pempty[pbuf]);
+      }
+    }
+
+    // Accumulator i: wide channel n0 + 16 warp + g (+8 for i%4 >= 2),
+    // narrow row n = 8 (i/4) + 2 tq + i%2 = (dx, c), tap t = 3 dy + dx.
+    // The stem (x narrow): dW[t][c][wide]; the head (g narrow, summed at
+    // g's shift off(t) = -off(8 - t)): dW[8 - t][wide][c].
+    float* dst = out + static_cast<int64_t>(split) * 9 * Cw * Cn;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int wc = n0 + 16 * warp + g + 8 * half;
+      if (wc >= Cw) continue;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = 8 * j + 2 * tq + e;
+          if (n >= 3 * Cn) continue;
+          const int dx = n / Cn, c = n - dx * Cn, tap = 3 * dy + dx;
+          const int64_t at =
+              head ? (static_cast<int64_t>(8 - tap) * Cw + wc) * Cn + c
+                   : (static_cast<int64_t>(tap) * Cn + c) * Cw + wc;
+          dst[at] = acc[4 * j + 2 * half + e];
+        }
+    }
+  }
+}
+
+// Blocks of one split: the wide side's 64-channel tiles.
+inline long long out_tiles(int Cin, int Cout) {
+  return ((Cout % 4 != 0 ? Cin : Cout) + 63) / 64;
+}
+
+template <int BN>
+cudaError_t wgrad_launch(const CUtensorMap& wmap, const float* nar,
+                         float* dst, int N, int H, int W, int Cw, int Cn,
+                         int head, int splits, cudaStream_t stream) {
+  auto kern = wgrad_f32_packed_kernel<BN>;
+  const int smem = wgrad_smem(Cn);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Cw + 63) / 64, splits);
+  kern<<<grid, W_THREADS, smem, stream>>>(wmap, nar, dst, N, H, W, Cw, Cn,
+                                          head, splits);
+  return cudaGetLastError();
+}
+
+// x-side (the stem): x narrow, g wide; g-side (the head): g narrow, x
+// wide.
+cudaError_t wgrad_run(const float* x, const float* g, float* dst, int N,
+                      int H, int W, int Cin, int Cout, int splits,
+                      cudaStream_t st) {
+  const int head = Cout % 4 != 0;
+  const float* wide = head ? x : g;
+  const float* nar = head ? g : x;
+  const int Cw = head ? Cin : Cout, Cn = head ? Cout : Cin;
+  if (reinterpret_cast<uintptr_t>(nar) & 15)   // its 16-byte copies
+    return cudaErrorInvalidValue;
+  CUtensorMap wmap;
+  const uint64_t d[4] = {static_cast<uint64_t>(Cw), static_cast<uint64_t>(W),
+                         static_cast<uint64_t>(H), static_cast<uint64_t>(N)};
+  const uint64_t s[3] = {4ull * Cw, 4ull * Cw * W, 4ull * Cw * W * H};
+  const uint32_t box[4] = {32, W_TW, W_TH, 1};
+  if (!sm90::encode_f32_map(&wmap, wide, 4, d, s, box))
+    return cudaErrorInvalidValue;
+  switch (w_tile_n(Cn)) {
+    case 16:
+      return wgrad_launch<16>(wmap, nar, dst, N, H, W, Cw, Cn, head, splits,
+                              st);
+    case 24:
+      return wgrad_launch<24>(wmap, nar, dst, N, H, W, Cw, Cn, head, splits,
+                              st);
+    default:
+      return wgrad_launch<64>(wmap, nar, dst, N, H, W, Cw, Cn, head, splits,
+                              st);
+  }
+}
+
+}  // namespace pk
+
 }  // namespace f32c
 
 // ---------------------------------------------------------- C interface
 
-// The route of a (Cin, Cout) call: 1 wgmma (the forward: Cin % 4 == 0;
-// the dW, ``wgrad`` != 0: Cin % 4 == 0 and Cout % 4 == 0, so TMA can
-// describe x and g), 0 narrow.
+// The route of a (Cin, Cout) call, of the forward or (``wgrad`` != 0) the
+// dW: 1 wgmma (the forward: Cin % 4 == 0; the dW: Cin % 4 == 0 and Cout %
+// 4 == 0, so TMA can describe x and g); 2 packed (the forward: Cin % 4 !=
+// 0 with 9 x Cin <= pk::K_MAX = 192; the dW: one side so, the other's
+// channels % 4 == 0); 0 narrow.
 extern "C" int conv3x3_f32_route(int Cin, int Cout, int wgrad) {
-  return Cin % 4 == 0 && (!wgrad || Cout % 4 == 0) ? 1 : 0;
+  using f32c::pk::K_MAX;
+  if (!wgrad) return Cin % 4 == 0 ? 1 : 9 * Cin <= K_MAX ? 2 : 0;
+  if (Cin % 4 == 0 && Cout % 4 == 0) return 1;
+  if ((Cin % 4 != 0 && 9 * Cin <= K_MAX && Cout % 4 == 0) ||
+      (Cout % 4 != 0 && 9 * Cout <= K_MAX && Cin % 4 == 0))
+    return 2;
+  return 0;
 }
 
 // The forward's tile N on the wgmma route.
 extern "C" int conv3x3_f32_tile_n(int Cout) { return f32c::fw::tile_n(Cout); }
 
 // f32 elements of the forward's workspace (the split weights on the wgmma
-// route; none on the narrow one).
+// and packed routes; none on the narrow one).
 extern "C" long long conv3x3_bn_relu_f32_ws_floats(int Cin, int Cout) {
   return conv3x3_f32_route(Cin, Cout, 0) ? 18LL * Cin * Cout : 0;
 }
 
-// out (N,H,W,Cout) f32 = relu(conv3x3_pad1(x, w) * a + b): x (N,H,W,Cin)
-// f32; w (3,3,Cin,Cout) f32, or with ``flip`` (3,3,Cout,Cin) read as the
-// tap-reversed transpose (K1's dx); a, b (Cout,) f32; ws: the workspace of
-// conv3x3_bn_relu_f32_ws_floats elements (16-byte aligned; may be null on
-// the narrow route). Returns the CUDA error of the launches.
-extern "C" int conv3x3_bn_relu_f32(const void* x, const void* w,
-                                   const void* a, const void* b, void* out,
-                                   void* ws, int N, int H, int W, int Cin,
-                                   int Cout, int relu, int flip,
-                                   void* stream) {
+namespace {
+
+bool bad_fwd_shape(int N, int H, int W, int Cin, int Cout) {
+  const long long P = static_cast<long long>(N) * H * W;
+  return N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 ||
+         P >= (1LL << 31) - f32c::nar::BM || 9LL * Cin * Cout >= (1LL << 31);
+}
+
+int narrow_fwd(const float* x, const float* w, const float* a,
+               const float* b, float* out, int N, int H, int W, int Cin,
+               int Cout, int relu, int flip, cudaStream_t st) {
   using namespace f32c;
   const long long P = static_cast<long long>(N) * H * W;
-  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 ||
-      P >= (1LL << 31) - nar::BM || 9LL * Cin * Cout >= (1LL << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  auto xf = static_cast<const float*>(x);
-  auto wf = static_cast<const float*>(w);
-  auto af = static_cast<const float*>(a);
-  auto bf = static_cast<const float*>(b);
-  auto of = static_cast<float*>(out);
-  if (conv3x3_f32_route(Cin, Cout, 0)) {
-    if (ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(fw::run(xf, wf, af, bf, of,
-                                     static_cast<float*>(ws), N, H, W, Cin,
-                                     Cout, relu, flip, st));
-  }
   if ((Cout + nar::BN - 1) / nar::BN > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((P + nar::BM - 1) / nar::BM),
@@ -1390,47 +2179,93 @@ extern "C" int conv3x3_bn_relu_f32(const void* x, const void* w,
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        nar::FWD_SMEM);
   kernel<<<grid, nar::THREADS, nar::FWD_SMEM, st>>>(
-      xf, wf, af, bf, of, H, W, static_cast<int>(P), Cin, Cout, relu);
+      x, w, a, b, out, H, W, static_cast<int>(P), Cin, Cout, relu);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The dW's split-K range: on the wgmma route 4 x 16 pixel tiles, on the
-// narrow one 32-pixel chunks of the flattened N*H*W. The wrapper picks
-// splits <= this.
-extern "C" long long conv3x3_wgrad_f32_pixel_tiles(int N, int H, int W,
-                                                   int Cin, int Cout) {
-  if (conv3x3_f32_route(Cin, Cout, 1)) return f32c::wgf::pixel_tiles(N, H, W);
+}  // namespace
+
+// out (N,H,W,Cout) f32 = relu(conv3x3_pad1(x, w) * a + b): x (N,H,W,Cin)
+// f32; w (3,3,Cin,Cout) f32, or with ``flip`` (3,3,Cout,Cin) read as the
+// tap-reversed transpose (K1's dx); a, b (Cout,) f32; ws: the workspace of
+// conv3x3_bn_relu_f32_ws_floats elements (16-byte aligned; may be null on
+// the narrow route). x 16-byte aligned on the wgmma and packed routes.
+// Returns the CUDA error of the launches.
+extern "C" int conv3x3_bn_relu_f32(const void* x, const void* w,
+                                   const void* a, const void* b, void* out,
+                                   void* ws, int N, int H, int W, int Cin,
+                                   int Cout, int relu, int flip,
+                                   void* stream) {
+  using namespace f32c;
+  if (bad_fwd_shape(N, H, W, Cin, Cout))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto xf = static_cast<const float*>(x);
+  auto wf = static_cast<const float*>(w);
+  auto af = static_cast<const float*>(a);
+  auto bf = static_cast<const float*>(b);
+  auto of = static_cast<float*>(out);
+  const int route = conv3x3_f32_route(Cin, Cout, 0);
+  if (route && ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 1)
+    return static_cast<int>(fw::run(xf, wf, af, bf, of,
+                                     static_cast<float*>(ws), N, H, W, Cin,
+                                     Cout, relu, flip, st));
+  if (route == 2)
+    return static_cast<int>(pk::fwd_run(xf, wf, af, bf, of,
+                                        static_cast<float*>(ws), N, H, W,
+                                        Cin, Cout, relu, flip, st));
+  return narrow_fwd(xf, wf, af, bf, of, N, H, W, Cin, Cout, relu, flip, st);
+}
+
+// The same on the narrow route whatever (Cin, Cout): the first design,
+// timed beside the packed route's kernels (chip_smoke phase 14).
+extern "C" int conv3x3_bn_relu_f32_narrow(const void* x, const void* w,
+                                          const void* a, const void* b,
+                                          void* out, int N, int H, int W,
+                                          int Cin, int Cout, int relu,
+                                          int flip, void* stream) {
+  if (bad_fwd_shape(N, H, W, Cin, Cout))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return narrow_fwd(static_cast<const float*>(x),
+                    static_cast<const float*>(w),
+                    static_cast<const float*>(a),
+                    static_cast<const float*>(b), static_cast<float*>(out),
+                    N, H, W, Cin, Cout, relu, flip,
+                    static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+// The narrow dW's split-K range: 32-pixel chunks of the flattened N*H*W.
+long long narrow_chunks(int N, int H, int W) {
   const long long P = static_cast<long long>(N) * H * W;
   return (P + f32c::nar::BK - 1) / f32c::nar::BK;
 }
 
-// Blocks per split: on the wgmma route 3 kernel rows x 64-channel Cin
-// tiles x N tiles of Cout; on the narrow one 64 rows of (tap, Cin) x 64 of
-// Cout.
-extern "C" long long conv3x3_wgrad_f32_out_tiles(int Cin, int Cout) {
-  if (conv3x3_f32_route(Cin, Cout, 1))
-    return f32c::wgf::out_tiles(Cin, Cout);
+long long narrow_out_tiles(int Cin, int Cout) {
   return ((9LL * Cin + f32c::nar::WM - 1) / f32c::nar::WM) *
          ((Cout + f32c::nar::WN - 1) / f32c::nar::WN);
 }
 
-// dW (3,3,Cin,Cout) f32 <- x (N,H,W,Cin) f32, g (N,H,W,Cout) f32. ws: f32
-// workspace of splits * 9 * Cin * Cout elements when splits > 1 (unused
-// at one split). Returns the CUDA error of the launches.
-extern "C" int conv3x3_wgrad_f32(const void* x, const void* g, void* out,
-                                 void* ws, int N, int H, int W, int Cin,
-                                 int Cout, int splits, void* stream) {
+// The dW on ``route`` (1 wgmma, 2 packed, 0 narrow): its split-K pass
+// and, past one split, the ordered sum of the splits.
+int wgrad_on(int route, const void* x, const void* g, void* out, void* ws,
+             int N, int H, int W, int Cin, int Cout, int splits,
+             void* stream) {
   using namespace f32c;
   const long long P = static_cast<long long>(N) * H * W;
-  const long long range = conv3x3_wgrad_f32_pixel_tiles(N, H, W, Cin, Cout);
+  const long long range =
+      route ? wgf::pixel_tiles(N, H, W) : narrow_chunks(N, H, W);
+  const long long blocks = route == 1   ? wgf::out_tiles(Cin, Cout)
+                           : route == 2 ? pk::out_tiles(Cin, Cout)
+                                        : narrow_out_tiles(Cin, Cout);
   const long long elems = 9LL * Cin * Cout;
-  const bool wg = conv3x3_f32_route(Cin, Cout, 1);
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 ||
       P >= (1LL << 31) - 4 * nar::BK || elems >= (1LL << 31) || splits <= 0 ||
-      splits > 65535 || splits > range ||
-      conv3x3_wgrad_f32_out_tiles(Cin, Cout) > 2147483647LL ||
-      (!wg && (Cout + nar::WN - 1) / nar::WN > 65535) ||
-      (splits > 1 && ws == nullptr))
+      splits > 65535 || splits > range || blocks > 2147483647LL ||
+      (!route && (Cout + nar::WN - 1) / nar::WN > 65535) ||
+      (route == 2 && blocks > 65535) || (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto xf = static_cast<const float*>(x);
@@ -1438,8 +2273,10 @@ extern "C" int conv3x3_wgrad_f32(const void* x, const void* g, void* out,
   auto of = static_cast<float*>(out);
   float* dst = splits > 1 ? static_cast<float*>(ws) : of;
   cudaError_t e;
-  if (wg) {
+  if (route == 1) {
     e = wgf::run(xf, gf, dst, N, H, W, Cin, Cout, splits, st);
+  } else if (route == 2) {
+    e = pk::wgrad_run(xf, gf, dst, N, H, W, Cin, Cout, splits, st);
   } else {
     const int per = static_cast<int>((range + splits - 1) / splits);
     const dim3 grid(static_cast<unsigned>((9LL * Cin + nar::WM - 1) / nar::WM),
@@ -1453,8 +2290,53 @@ extern "C" int conv3x3_wgrad_f32(const void* x, const void* g, void* out,
     e = cudaGetLastError();
   }
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  const int blocks = static_cast<int>(
+  const int sum_blocks = static_cast<int>(
       (elems + 255) / 256 < 8192 ? (elems + 255) / 256 : 8192);
-  sum_splits_kernel<<<blocks, 256, 0, st>>>(dst, of, elems, splits);
+  sum_splits_kernel<<<sum_blocks, 256, 0, st>>>(dst, of, elems, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The dW's split-K range: on the wgmma and packed routes 4 x 16 pixel
+// tiles, on the narrow one 32-pixel chunks of the flattened N*H*W. The
+// wrapper picks splits <= this.
+extern "C" long long conv3x3_wgrad_f32_pixel_tiles(int N, int H, int W,
+                                                   int Cin, int Cout) {
+  if (conv3x3_f32_route(Cin, Cout, 1)) return f32c::wgf::pixel_tiles(N, H, W);
+  return narrow_chunks(N, H, W);
+}
+
+// Blocks per split: on the wgmma route 3 kernel rows x 64-channel Cin
+// tiles x N tiles of Cout; on the packed one the wide side's 64-channel
+// tiles; on the narrow one 64 rows of (tap, Cin) x 64 of Cout.
+extern "C" long long conv3x3_wgrad_f32_out_tiles(int Cin, int Cout) {
+  switch (conv3x3_f32_route(Cin, Cout, 1)) {
+    case 1:
+      return f32c::wgf::out_tiles(Cin, Cout);
+    case 2:
+      return f32c::pk::out_tiles(Cin, Cout);
+    default:
+      return narrow_out_tiles(Cin, Cout);
+  }
+}
+
+// dW (3,3,Cin,Cout) f32 <- x (N,H,W,Cin) f32, g (N,H,W,Cout) f32. ws: f32
+// workspace of splits * 9 * Cin * Cout elements when splits > 1 (unused
+// at one split). x and g 16-byte aligned on the wgmma and packed routes.
+// Returns the CUDA error of the launches.
+extern "C" int conv3x3_wgrad_f32(const void* x, const void* g, void* out,
+                                 void* ws, int N, int H, int W, int Cin,
+                                 int Cout, int splits, void* stream) {
+  return wgrad_on(conv3x3_f32_route(Cin, Cout, 1), x, g, out, ws, N, H, W,
+                  Cin, Cout, splits, stream);
+}
+
+// The same on the narrow route whatever (Cin, Cout), splits <= its 32-pixel
+// chunks: the first design, timed beside the packed route's kernels.
+extern "C" int conv3x3_wgrad_f32_narrow(const void* x, const void* g,
+                                        void* out, void* ws, int N, int H,
+                                        int W, int Cin, int Cout, int splits,
+                                        void* stream) {
+  return wgrad_on(0, x, g, out, ws, N, H, W, Cin, Cout, splits, stream);
 }

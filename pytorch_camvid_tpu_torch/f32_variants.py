@@ -20,14 +20,23 @@ on two, as the kept forward up to N = 64), ``n64`` (the forward's N tile
 at most 64, where the kept one takes 128 for Cout > 64) and
 ``running_accumulator`` (no step sums: every product goes straight into
 the running accumulator, so the tensor core's truncated sums are taken at
-the accumulator's magnitude instead of one step's);
-and the faults chip_faults.py plants (``FAULTS``), in the wgmma route's
-kernels: ``single_pass`` (single-pass TF32, the hi*hi product only),
+the accumulator's magnitude instead of one step's); the packed route's
+knob and diagnostics: ``pk_fwd_no_pingpong`` (its forward on one
+scratch, where the kept one ping-pongs as fw's), ``pk_no_mma``
+(both packed kernels without their wgmmas: the data path alone),
+``pk_no_stores`` (the packed forward without its output stores),
+``pk_fwd_producer_only`` (its consumers hand each stage back untouched:
+the producers' copies alone), ``pk_fwd_consumer_only`` (its producers copy
+nothing: the consumers alone) and ``pk_dw_no_build`` (the packed dW's
+builders hand over the planes without building them); and the faults chip_faults.py plants (``FAULTS``), in the
+wgmma and packed kernels: ``single_pass`` (single-pass TF32, the hi*hi product only),
 ``lo_hi_dropped`` (without the lo*hi product), ``stale_scratch`` (a step
 sum's first product added onto the scratch, scale-d 1, which still holds
-the step sum two steps back) and ``atomic_splits`` (the dW's splits added
-with atomics into a zeroed dW in launch order instead of the ordered
-second pass). All but ``kept`` are diagnostic, not held to the rule.
+the step sum two steps back), ``atomic_splits`` (the wgmma route's dW's
+splits added with atomics into a zeroed dW in launch order instead of the
+ordered second pass) and ``packed_dw_bgr`` (the packed dW's planes built
+with the stem's x channels 0 and 2 swapped). All but ``kept`` are
+diagnostic, not held to the rule.
 Needs a CUDA card and nvcc; exits 1 without a card, or when a build fails
 or ``kept`` breaks the rule.
 """
@@ -47,13 +56,14 @@ from pytorch_camvid_tpu_torch.ops import conv_train, cuda_build, fused_conv
 OUT = cuda_build.BUILD_DIR / "f32_variants"
 # (N, H, W, Cin, Cout): UNet's widest block, the 64->12 head (N tile 16),
 # a 512-channel block at 22x30, a 1024->512 block and a ragged 45x61
-# tile, at b2 for the errors (the stem runs the narrow route, which the
-# design variants leave as it is)
+# tile, the ragged stem and VOC's 64->21 head (the packed route's forward
+# and dW, its dx), at b2 for the errors; the stem and VOC's head timed too
 SHAPES = ((2, 360, 480, 64, 64), (2, 360, 480, 64, 12),
           (2, 22, 30, 512, 512), (2, 45, 60, 1024, 512),
-          (2, 45, 61, 64, 64))
+          (2, 45, 61, 64, 64), (2, 45, 61, 3, 64), (2, 360, 480, 64, 21))
 TIMED = ((10, 360, 480, 64, 64), (10, 45, 60, 512, 512),
-         (10, 180, 240, 256, 128), (10, 45, 60, 1024, 512))
+         (10, 180, 240, 256, 128), (10, 45, 60, 1024, 512),
+         (10, 360, 480, 3, 64), (10, 360, 480, 64, 21))
 # chip_smoke's phase 14 rule: err(t) = max|t - f64|; a kernel passes where
 # err(kernel) <= max(ERR_FACTOR * err(plain f32), ERR_FLOOR * max|f64|)
 ERR_FACTOR, ERR_FLOOR = 4.0, 2e-6
@@ -84,6 +94,9 @@ _ATOMIC = [
      "    // no ordered second pass\n"
      "    return static_cast<int>(\n"
      "        wgf::run(xf, gf, of, N, H, W, Cin, Cout, splits, st));")]
+_PACKED_BGR = [("            const int n = dx * Cn + c;   // the plane row "
+                "of tap column dx",
+                "            const int n = dx * Cn + (Cn == 3 ? 2 - c : c);")]
 VARIANTS = {
     "kept": [],
     "step_k8": [("constexpr int STEP_K8 = 4;", "constexpr int STEP_K8 = 1;")],
@@ -96,9 +109,41 @@ VARIANTS = {
              "constexpr int MAX_TILE_N = 64;")],
     "running_accumulator": [("constexpr bool STEP_SUMS = true;",
                              "constexpr bool STEP_SUMS = false;")],
+    "pk_fwd_no_pingpong": [
+        ("        k8_step<F_BN, kPingpong<F_BN>>(acc, sc, s, ah, al, bh, bl);",
+         "        k8_step<F_BN, false>(acc, sc, s, ah, al, bh, bl);"),
+        ("      k8_drain<F_BN, kPingpong<F_BN>>(acc, sc, KSTEPS);",
+         "      k8_drain<F_BN, false>(acc, sc, KSTEPS);")],
+    "pk_no_mma": [
+        ("        k8_step<F_BN, kPingpong<F_BN>>(acc, sc, s, ah, al, bh, bl);",
+         "        acc[s % 32] += __uint_as_float(ah[0] ^ al[1] ^ ah[2] ^ al[3]"
+         " ^ static_cast<uint32_t>(bh ^ bl));"),
+        ("        k8_step<BN, PP>(acc, sc, j, ah, al, bh, bl);",
+         "        acc[j % (BN / 2)] += __uint_as_float(ah[0] ^ al[1] ^ ah[2]"
+         " ^ al[3] ^ static_cast<uint32_t>(bh ^ bl));")],
+    "pk_no_stores": [("          if (ww >= W || h >= H) continue;",
+                      "          if (ww >= W || h >= H || relu < 2) continue;"),
+                     ("          if (h < H) {\n            sm90::tma_store_4d",
+                      "          if (h < H && relu > 1) {\n"
+                      "            sm90::tma_store_4d")],
+    "pk_dw_no_build": [("        build(t_begin + it, planes + pbuf * 2 * PLANE,",
+                        "        if (Cn < 0) build(t_begin + it, planes + pbuf * 2 * PLANE,")],
+    "pk_fwd_producer_only": [
+        ("      sm90::mbar_wait(&pfull[st], (it / F_STAGES) & 1);\n",
+         "      sm90::mbar_wait(&pfull[st], (it / F_STAGES) & 1);\n"
+         "      if (relu < 2) {\n"
+         "        if (lane == 0) sm90::mbar_arrive(&pempty[st]);\n"
+         "        continue;\n"
+         "      }\n")],
+    "pk_fwd_consumer_only": [
+        ("        for (int i = p; i < F_PH * CPR; i += F_PRODUCERS) {",
+         "        for (int i = p; i < F_PH * CPR && relu > 1;"
+         " i += F_PRODUCERS) {")],
+    "packed_dw_bgr": _PACKED_BGR,
     "single_pass": _SINGLE, "lo_hi_dropped": _NO_LO_HI,
     "stale_scratch": _STALE, "atomic_splits": _ATOMIC}
-FAULTS = ("single_pass", "lo_hi_dropped", "stale_scratch", "atomic_splits")
+FAULTS = ("single_pass", "lo_hi_dropped", "stale_scratch", "atomic_splits",
+          "packed_dw_bgr")
 
 
 def error_rule(got: torch.Tensor, plain: torch.Tensor,
@@ -248,7 +293,7 @@ def main(argv=None) -> int:
                 for name, fn in reversed(list(fns.items())):
                     times[name].append(_ms(fn))
                 line.append(f"{piece} " + " ".join(
-                    f"{k} {t[0]:.3f}/{t[1]:.3f} ms"
+                    f"{k} {t[0]:.4f}/{t[1]:.4f} ms"
                     for k, t in times.items()))
         print(f"{n}x{h}x{w} {cin}->{cout}: " + "; ".join(line), flush=True)
         del x, wt, g, calls

@@ -19,17 +19,20 @@ At float32 (the JAX CLIs' default) all three pieces run
 (``fused_conv``'s f32 routes), dW on its split-TF32 dW, route "f32"
 (wgmma + TMA: 4 x 16 pixel tiles, each g tile transposed once into hi and
 lo planes) where TMA can describe x and g (Cin % 4 == 0, Cout % 4 == 0),
-"f32_narrow" (mma.sync over 32-pixel chunks) otherwise
-(``wgrad_f32_route``); both split-K (``wgrad_f32_splits``) with a second
-pass that sums the splits in a fixed order, so two launches give the same
-bits.
+"f32_packed" (wgmma: the wide side by TMA as A, the narrow side's 9 taps
+x channels as K-major hi and lo planes, the same pixel tiles) where one
+side is narrow (channels % 4 != 0, 9 x channels <= 192: the stem, VOC's
+64 -> 21 head) and the other not, "f32_narrow" (mma.sync over 32-pixel
+chunks) otherwise (``wgrad_f32_route``); all split-K
+(``wgrad_f32_splits``) with a second pass that sums the splits in a
+fixed order, so two launches give the same bits.
 
 Each piece has a wrapper (``conv3x3_fwd``, ``conv3x3_dgrad``,
 ``conv3x3_wgrad``) that runs its plain version on a CPU tensor and its
 kernel on a CUDA tensor, or raises; each counts its kernel launches in
 ``.launches`` and per kernel path in ``.path_launches``: the forward and
-dx by ``fused_conv.route`` ("wgmma", "packed" or "narrow" in bf16, "f32"
-or "f32_narrow"), dW by ``wgrad_route`` (likewise). The plain
+dx by ``fused_conv.route`` ("wgmma", "packed" or "narrow" in bf16, "f32",
+"f32_packed" or "f32_narrow"), dW by ``wgrad_route`` (likewise). The plain
 versions are ``conv3x3_train_plain`` (``F.conv2d``,
 differentiated by autograd), ``conv3x3_dgrad_plain``
 (``torch.nn.grad.conv2d_input``) and ``conv3x3_wgrad_plain``
@@ -50,7 +53,8 @@ from pytorch_camvid_tpu_torch.ops.fused_conv import (ROUTES, aligned16,
                                                      f32_library, route)
 
 WGRAD_PATHS = ("narrow", "wgmma", "packed")   # by the .cu's path code
-WGRAD_ROUTES = WGRAD_PATHS + ("f32", "f32_narrow")   # the counters' keys
+WGRAD_ROUTES = WGRAD_PATHS + ("f32", "f32_narrow",
+                              "f32_packed")   # the counters' keys
 
 WGRAD_SOURCE = cuda_build.CSRC / "conv3x3_wgrad.cu"
 # split-K target in blocks per SM: the narrow kernel's; the wgmma
@@ -66,8 +70,10 @@ SM_SMEM, BLOCK_SMEM = 233472, 232448   # shared bytes of an SM, of a block
 # the f32 dW (csrc/conv3x3_f32.cu). Route "f32" (namespace wgf): pixel
 # tiles of F32_TH x F32_TW, blocks of one kernel row x F32_BM input
 # channels x an N tile of Cout (``wgrad_f32_tile_n``), one resident per
-# SM. Route "f32_narrow" (namespace nar): 32-pixel chunks, 64 x 64 output
-# tiles of (tap, Cin) rows x Cout, four blocks resident per SM.
+# SM. Route "f32_packed" (namespace pk): the same pixel tiles, blocks of
+# F32_BM channels of the wide side, one resident per SM. Route
+# "f32_narrow" (namespace nar): 32-pixel chunks, 64 x 64 output tiles of
+# (tap, Cin) rows x Cout, four blocks resident per SM.
 F32_TH, F32_TW, F32_BM = 4, 16, 64
 F32_CHUNK, F32_TILE, F32_BLOCKS_PER_SM = 32, 64, 4
 
@@ -148,9 +154,16 @@ def wgrad_path(cin: int, cout: int) -> str:
 
 def wgrad_f32_route(cin: int, cout: int) -> str:
     """The f32 dW's route at (Cin, Cout): "f32" (wgmma + TMA) where TMA can
-    describe x and g, Cin % 4 == 0 and Cout % 4 == 0; "f32_narrow"
-    (mma.sync) otherwise: the Cin = 3 stem, VOC's 64 -> 21 head."""
-    return "f32" if cin % 4 == 0 and cout % 4 == 0 else "f32_narrow"
+    describe x and g, Cin % 4 == 0 and Cout % 4 == 0; "f32_packed" where
+    one side is narrow (channels % 4 != 0, 9 x channels <= PACKED_M_MAX)
+    and the other's channels % 4 == 0: the Cin = 3 stem, VOC's 64 -> 21
+    head; "f32_narrow" (mma.sync) otherwise, e.g. 23 -> 64 or 3 -> 21."""
+    if cin % 4 == 0 and cout % 4 == 0:
+        return "f32"
+    if ((cin % 4 and 9 * cin <= PACKED_M_MAX and cout % 4 == 0)
+            or (cout % 4 and 9 * cout <= PACKED_M_MAX and cin % 4 == 0)):
+        return "f32_packed"
+    return "f32_narrow"
 
 
 def wgrad_route(dtype: torch.dtype, cin: int, cout: int) -> str:
@@ -185,44 +198,85 @@ def wgrad_f32_plan(cout: int) -> dict:
             + 1024}
 
 
-def wgrad_f32_pixel_tiles(n: int, h: int, w: int, cin: int,
-                          cout: int) -> int:
-    """The f32 dW's split-K range (the .cu's
-    ``conv3x3_wgrad_f32_pixel_tiles``): F32_TH x F32_TW pixel tiles on the
-    "f32" route, 32-pixel chunks of the flattened N*H*W on "f32_narrow"."""
-    if wgrad_f32_route(cin, cout) == "f32":
+def wgrad_f32_pixel_tiles(n: int, h: int, w: int, cin: int, cout: int,
+                          route: str = None) -> int:
+    """The f32 dW's split-K range on ``route`` (by default
+    ``wgrad_f32_route``'s; the .cu's ``conv3x3_wgrad_f32_pixel_tiles``):
+    F32_TH x F32_TW pixel tiles on "f32" and "f32_packed", 32-pixel chunks
+    of the flattened N*H*W on "f32_narrow"."""
+    if (route or wgrad_f32_route(cin, cout)) != "f32_narrow":
         return n * -(-h // F32_TH) * -(-w // F32_TW)
     return -(-n * h * w // F32_CHUNK)
 
 
-def wgrad_f32_out_tiles(cin: int, cout: int) -> int:
-    """The f32 dW's blocks per split (the .cu's
-    ``conv3x3_wgrad_f32_out_tiles``): on "f32" 3 kernel rows x F32_BM-
-    channel tiles of Cin x N tiles of Cout; on "f32_narrow" 64-row tiles
-    of the 9 x Cin (tap, channel) rows x 64-channel tiles of Cout."""
-    if wgrad_f32_route(cin, cout) == "f32":
+def wgrad_f32_out_tiles(cin: int, cout: int, route: str = None) -> int:
+    """The f32 dW's blocks per split on ``route`` (by default
+    ``wgrad_f32_route``'s; the .cu's ``conv3x3_wgrad_f32_out_tiles``): on
+    "f32" 3 kernel rows x F32_BM-channel tiles of Cin x N tiles of Cout;
+    on "f32_packed" F32_BM-channel tiles of the wide side; on
+    "f32_narrow" 64-row tiles of the 9 x Cin (tap, channel) rows x
+    64-channel tiles of Cout."""
+    route = route or wgrad_f32_route(cin, cout)
+    if route == "f32":
         return 3 * -(-cin // F32_BM) * -(-cout // wgrad_f32_tile_n(cout))
+    if route == "f32_packed":
+        return -(-(cin if cout % 4 else cout) // F32_BM)
     return -(-9 * cin // F32_TILE) * -(-cout // F32_TILE)
 
 
 def wgrad_f32_splits(n: int, h: int, w: int, cin: int, cout: int,
-                     sms: int) -> int:
-    """The f32 dW's split-K factor, at most one split per pixel tile. On
+                     sms: int, route: str = None) -> int:
+    """The f32 dW's split-K factor on ``route`` (by default
+    ``wgrad_f32_route``'s), at most one split per pixel tile. On
     "f32_narrow": enough splits for ``F32_BLOCKS_PER_SM`` blocks on each of
-    ``sms`` SMs. On "f32" (one block resident per SM): from two waves'
-    worth of blocks, rounded down, the fewest splits up to eight times as
-    many whose last wave is at least 90% full, so the splits fill whole
-    waves (at 192 blocks a split, one split would leave the second wave
-    45% full; two fill 91% of the third)."""
-    blocks = wgrad_f32_out_tiles(cin, cout)
-    cap = min(wgrad_f32_pixel_tiles(n, h, w, cin, cout), 65535)
-    if wgrad_f32_route(cin, cout) == "f32_narrow":
+    ``sms`` SMs. On "f32" and "f32_packed" (one block resident per SM):
+    from two waves' worth of blocks ("f32_packed": one; its blocks are
+    alike, so one wave keeps every SM busy with half the workspace),
+    rounded down, the fewest splits up to eight times as many whose last
+    wave is at least 90% full, so the splits fill whole waves (at 192
+    blocks a split, one split would leave the second wave 45% full; two
+    fill 91% of the third)."""
+    route = route or wgrad_f32_route(cin, cout)
+    blocks = wgrad_f32_out_tiles(cin, cout, route)
+    cap = min(wgrad_f32_pixel_tiles(n, h, w, cin, cout, route), 65535)
+    if route == "f32_narrow":
         return max(1, min(-(-F32_BLOCKS_PER_SM * sms // blocks), cap))
-    want = max(1, 2 * sms // blocks)
+    waves = 1 if route == "f32_packed" else 2
+    want = max(1, waves * sms // blocks)
     for s in range(want, min(cap, 8 * want) + 1):
         if s * blocks % sms == 0 or s * blocks % sms >= 0.9 * sms:
             return s
     return max(1, min(want, cap))
+
+
+def wgrad_f32_packed_plan(cin: int, cout: int) -> dict:
+    """The f32 packed dW's plan at (Cin, Cout) on that route (the .cu's
+    ``pk::w_tile_n`` and ``pk::wgrad_smem``): the narrow side's channels
+    ``narrow`` (x's for the stem, g's for the head); consumer warpgroup dy
+    takes kernel row dy's 3 x narrow (dx, channel) rows as N, padded to
+    ``n`` (16 up to 16 rows, 24 up to 24, else 64: 16 at the stem, 64 at
+    VOC's 21); M = 64 channels of the wide side a block, one block an SM.
+    Shared memory: 1,024 B of alignment slack; ``x_stages`` (4) of the
+    wide tile, two 32-channel boxes of 4 x 16 pixels (16,384 B); two plane
+    buffers, each hi and lo of ``plane_bytes`` (6 patch rows x 2 column
+    blocks of 8 pixels x n rows x 32 B); four raw buffers of the patch's 6
+    rows as they lie in memory (``raw_bytes`` each: the 16-byte chunks
+    that 18 x narrow elements span at any alignment); two mbarriers a
+    stage and a buffer: the figures the source's
+    ``static_assert``s hold (at Cn 3 and 21). Off the route it raises."""
+    if wgrad_f32_route(cin, cout) != "f32_packed":
+        raise ValueError(f"{cin}->{cout} is not on the f32 packed dW route")
+    narrow = cin if cin % 4 else cout
+    rows = 3 * narrow
+    n = 16 if rows <= 16 else 24 if rows <= 24 else 64
+    plane = 6 * 2 * n * 32
+    raw = 6 * ((18 * narrow + 2) // 4 + 1) * 16
+    x_stage, x_stages = 2 * 4 * 16 * 128, 4
+    return {"narrow": narrow, "n": n, "x_stages": x_stages,
+            "x_stage_bytes": x_stage, "plane_bytes": plane,
+            "raw_bytes": raw, "blocks_per_sm": 1,
+            "bytes": 1024 + x_stages * x_stage + 4 * plane + 4 * raw
+            + 2 * (x_stages + 2) * 8}
 
 
 def wgrad_packed_plan(cin: int, cout: int) -> dict:

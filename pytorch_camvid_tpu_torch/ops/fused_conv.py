@@ -27,18 +27,21 @@ per-channel affine of the conv output, so the block is one pass:
   implicit GEMM on split-TF32 tensor-core products (each operand split
   into a TF32 high part and residual, three products summed), f32 in and
   out, with the same contract (``flip``, a, b, ``relu``). It is the f32
-  instance of K4 (``pallas_conv.py`` emits x's dtype), on two routes
+  instance of K4 (``pallas_conv.py`` emits x's dtype), on three routes
   (``f32_route``, the .cu's ``conv3x3_f32_route``): "f32", wgmma fed by
   TMA where TMA can describe x (Cin % 4 == 0), its weights split once per
   call into K-major hi and lo copies (``split_weights_plain`` is that
-  step's plain version) in a workspace the wrapper allocates; and
+  step's plain version) in a workspace the wrapper allocates;
+  "f32_packed", wgmma with 9 taps x Cin packed into K <= ``K_MAX`` = 192
+  (Cin % 4 != 0: the Cin = 3 stem, VOC's Cin = 21 dx; the same split
+  weights, resident per block; plan ``f32_packed_fwd_plan``); and
   "f32_narrow", the first split-TF32 ``mma.sync`` design, for the rest
-  (the Cin = 3 stem, VOC's Cin = 21 dx).
+  (Cin % 4 != 0 past 21, e.g. 23; no model runs it).
 - ``conv3x3_bn_relu_plain`` is the same function from stock PyTorch ops.
   The CPU tests run it, and the card check compares the kernel with it.
 - ``conv3x3_bn_relu.launches`` counts kernel launches, and
   ``conv3x3_bn_relu.path_launches`` counts them per route (the bf16
-  source's three paths and the two f32 routes), so a run can show that
+  source's three paths and the three f32 routes), so a run can show that
   its main path went through the kernel.
 
 Tolerance against the JAX package's unfused eval path: JAX computes
@@ -65,7 +68,8 @@ BN_EPS = 1e-5  # torch.nn.BatchNorm2d default
 SOURCE = cuda_build.CSRC / "conv3x3_bn_relu.cu"
 F32_SOURCE = cuda_build.CSRC / "conv3x3_f32.cu"
 PATHS = ("narrow", "wgmma", "packed")   # by the .cu's path code
-ROUTES = PATHS + ("f32", "f32_narrow")   # the launch counters' keys
+F32_ROUTES = ("f32_narrow", "f32", "f32_packed")   # by the .cu's route code
+ROUTES = PATHS + ("f32", "f32_narrow", "f32_packed")   # the counters' keys
 RES_MAX_CIN = 128   # the wgmma head tile keeps 9 x Cin x N weights
 HEAD_MAX_COUT = 24  # the head tile's widest N
 K_MAX = 192         # the packed path's K: 9 taps x Cin
@@ -131,8 +135,11 @@ def packed_fwd_plan(cin: int) -> dict:
 
 def f32_route(cin: int, cout: int) -> str:
     """The f32 forward's route at (Cin, Cout): "f32" (wgmma + TMA) where TMA
-    can describe x, Cin % 4 == 0; "f32_narrow" (mma.sync) otherwise."""
-    return "f32" if cin % 4 == 0 else "f32_narrow"
+    can describe x, Cin % 4 == 0; "f32_packed" (wgmma, 9 x Cin packed into
+    K) where 9 * Cin <= K_MAX; "f32_narrow" (mma.sync) otherwise."""
+    if cin % 4 == 0:
+        return "f32"
+    return "f32_packed" if 9 * cin <= K_MAX else "f32_narrow"
 
 
 def route(dtype: torch.dtype, cin: int, cout: int) -> str:
@@ -164,6 +171,34 @@ def f32_fwd_plan(bn: int) -> dict:
     stages = 4 if bn == 128 else 6
     return {"patch_bytes": patch, "w_stage_bytes": w_tx, "w_stages": stages,
             "bytes": 2 * patch + stages * w_tx + 16 * (2 + stages) + 1024}
+
+
+def f32_packed_fwd_plan(cin: int) -> dict:
+    """The f32 packed forward's plan at ``cin`` (the .cu's ``pk::fwd_smem``
+    and the kernel's template): K = 9 x Cin packed tap-major, k = (3 dy +
+    dx) Cin + c, zero-padded to ``groups`` step sums of four k8 steps
+    (``kp`` = 32 x groups: 32 at the stem, 192 at Cin 21); N = 64 output
+    channels a block; tiles of 8 rows x 16 columns. Shared memory: 1,024 B
+    of alignment slack; the eight consumer warps' output rows staged for
+    their TMA stores (16 pixels x 64 channels, 4,096 B each); the resident
+    B, hi and lo, kp x 64 f32 each (16 KiB at the stem, 96 at Cin 21);
+    ``stages`` (4) raw stages of the tile's 10 patch rows as they lie in x
+    (``raw_bytes``: each row the 16-byte chunks that 18 x Cin elements
+    span at any alignment); the zeros a padded k reads (32 x Cin + 16 B);
+    the affine's 2 x 64 floats; the A offsets' table, 8 bytes a k8 step
+    and lane column; two mbarriers a stage: the figures the source's
+    ``static_assert``s hold. One block an SM."""
+    if f32_route(cin, 64) != "f32_packed":
+        raise ValueError(f"Cin {cin} is not on the f32 packed route")
+    groups = -(-9 * cin // 32)
+    raw = 10 * ((18 * cin + 2) // 4 + 1) * 16
+    b = 2 * 4 * groups * 64 * 32
+    table = 4 * groups * 4 * 8
+    return {"k": 9 * cin, "kp": 32 * groups, "groups": groups, "n": 64,
+            "b_bytes": b, "stages": 4, "raw_bytes": raw,
+            "table_bytes": table,
+            "bytes": 1024 + 8 * 4096 + b + 4 * raw + 32 * cin + 16 + 2 * 64 * 4
+            + table + 2 * 4 * 8}
 
 
 def tf32_rna_bits(v: torch.Tensor) -> torch.Tensor:
@@ -254,6 +289,12 @@ def bind_f32(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.conv3x3_wgrad_f32.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.conv3x3_wgrad_f32.restype = ctypes.c_int
+    lib.conv3x3_bn_relu_f32_narrow.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.conv3x3_bn_relu_f32_narrow.restype = ctypes.c_int
+    lib.conv3x3_wgrad_f32_narrow.argtypes = \
+        lib.conv3x3_wgrad_f32.argtypes
+    lib.conv3x3_wgrad_f32_narrow.restype = ctypes.c_int
     for name, n, res in (("conv3x3_f32_route", 3, ctypes.c_int),
                          ("conv3x3_f32_tile_n", 1, ctypes.c_int),
                          ("conv3x3_bn_relu_f32_ws_floats", 2,
@@ -272,8 +313,8 @@ def f32_kernel_route(cin: int, cout: int, wgrad: bool = False) -> str:
     forward or (``wgrad``) the dW (``f32_route``'s and
     ``conv_train.wgrad_f32_route``'s rules as the .cu holds them;
     chip_smoke checks that they agree)."""
-    return ("f32" if f32_library().conv3x3_f32_route(cin, cout, int(wgrad))
-            else "f32_narrow")
+    return F32_ROUTES[f32_library().conv3x3_f32_route(cin, cout,
+                                                       int(wgrad))]
 
 
 def kernel_path(cin: int, cout: int) -> str:
@@ -321,7 +362,8 @@ def _check(x, w, a, b, flip=False):
         if x.shape[0] * x.shape[1] * x.shape[2] >= 2 ** 31 - 128:
             raise ValueError(f"the f32 kernel takes fewer than 2**31 - 128 "
                              f"pixels, got x {tuple(x.shape)}")
-        return   # aligned16 gave TMA its 16-byte bases (narrow: any)
+        return   # aligned16 gave TMA and the packed route's 16-byte
+                 # loads their bases (narrow: any)
     path = conv_path(cin, cout)
     if path == "wgmma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError("x and w must be 16-byte aligned (TMA)")
@@ -375,7 +417,8 @@ def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 def _f32_launch(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, relu: bool, flip: bool) -> torch.Tensor:
     """One call of the f32 forward on checked CUDA inputs (on the wgmma
-    route the weights' split, then the conv); raises on a CUDA error."""
+    and packed routes the weights' split, then the conv); raises on a CUDA
+    error."""
     n, h, wd, cin = x.shape
     cout = a.shape[0]
     lib = f32_library()

@@ -255,11 +255,20 @@ def f32_launches(monkeypatch):
 
 
 def test_f32_dx_tap_dropped_zeroes_a_copy_on_dx_only(f32_launches):
-    w = torch.ones(3, 3, 4, 2)
-    chip_faults.f32_dx_tap_dropped(None, w, None, None, False, False)
-    chip_faults.f32_dx_tap_dropped(None, w, None, None, False, True)
-    (fwd_w, _), (dx_w, flip) = f32_launches
-    assert fwd_w is w and flip
+    """Only the dx on the packed route (VOC's 21 -> 64: g has 21 channels,
+    Cin % 4 != 0) loses its first tap; a forward, and a dx on the wgmma
+    route (64 -> 21's forward weights read the other way), pass as they
+    were."""
+    w = torch.ones(3, 3, 64, 21)
+    chip_faults.f32_dx_tap_dropped(torch.zeros(1, 2, 2, 64), w, None, None,
+                                   False, False)
+    chip_faults.f32_dx_tap_dropped(torch.zeros(1, 2, 2, 21), w, None, None,
+                                   False, True)
+    wide = torch.ones(3, 3, 21, 64)
+    chip_faults.f32_dx_tap_dropped(torch.zeros(1, 2, 2, 64), wide, None,
+                                   None, False, True)
+    (fwd_w, _), (dx_w, flip), (wide_w, _) = f32_launches
+    assert fwd_w is w and flip and wide_w is wide
     assert not dx_w[0, 0].any() and dx_w[1:].all() and dx_w[0, 1:].all()
     assert w.all()   # the caller's weights untouched
 
@@ -273,7 +282,8 @@ def test_f32_output_through_bf16_rounds(f32_launches):
 
 
 @pytest.mark.parametrize("name", ["single_pass", "lo_hi_dropped",
-                                  "stale_scratch", "atomic_splits"])
+                                  "stale_scratch", "atomic_splits",
+                                  "packed_dw_bgr"])
 def test_f32_variant_faults_replace_both_callers_library(monkeypatch, name):
     """A planted f32 variant stands in for ``f32_library`` where both the
     forward's and the dW's launches look it up, and only inside the

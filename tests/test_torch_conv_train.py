@@ -203,11 +203,11 @@ def test_step_launches_on_each_path(net, blocks):
     on the wgmma path, the stem's forward, the head's dx and both of their
     dW on the packed paths, nothing on the narrow ones; SegNet 25 of 26, 24
     of 25 and 24 of 26. At float32 every launch takes the f32 kernels: the
-    stem's forward and dW (Cin 3) the narrow route, the rest the wgmma
-    one."""
+    stem's forward and dW (Cin 3) the packed route, the rest the wgmma
+    one, none the narrow one."""
     got = conv_train.step_path_launches(bench.block_shapes(net))
     b = blocks
-    none = {"f32": 0, "f32_narrow": 0}
+    none = {"f32": 0, "f32_narrow": 0, "f32_packed": 0}
     assert got == {
         "fwd": {"wgmma": b - 1, "packed": 1, "narrow": 0, **none},
         "dgrad": {"wgmma": b - 2, "packed": 1, "narrow": 0, **none},
@@ -216,9 +216,9 @@ def test_step_launches_on_each_path(net, blocks):
                                         torch.float32)
     bf16 = {"wgmma": 0, "packed": 0, "narrow": 0}
     assert got == {
-        "fwd": {**bf16, "f32": b - 1, "f32_narrow": 1},
-        "dgrad": {**bf16, "f32": b - 1, "f32_narrow": 0},
-        "wgrad": {**bf16, "f32": b - 1, "f32_narrow": 1}}
+        "fwd": {**bf16, "f32": b - 1, "f32_narrow": 0, "f32_packed": 1},
+        "dgrad": {**bf16, "f32": b - 1, "f32_narrow": 0, "f32_packed": 0},
+        "wgrad": {**bf16, "f32": b - 1, "f32_narrow": 0, "f32_packed": 1}}
 
 
 def test_path_rules_at_edges():
@@ -259,7 +259,8 @@ def test_cpu_route_is_plain_and_not_counted():
     conv_train.conv3x3_dgrad(y, w)
     conv_train.conv3x3_wgrad(x, y)
     assert conv_train.launches() == {"fwd": 0, "dgrad": 0, "wgrad": 0}
-    zero = {"wgmma": 0, "packed": 0, "narrow": 0, "f32": 0, "f32_narrow": 0}
+    zero = {"wgmma": 0, "packed": 0, "narrow": 0, "f32": 0, "f32_narrow": 0,
+            "f32_packed": 0}
     assert conv_train.path_launches() == {
         "fwd": zero, "dgrad": zero, "wgrad": zero}
 

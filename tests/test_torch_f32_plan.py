@@ -141,24 +141,24 @@ def _chip_smoke():
 @pytest.mark.parametrize("net", ["unet", "segnet"])
 @pytest.mark.parametrize("classes", [12, 21])
 def test_f32_route_of_every_block(net, classes):
-    """At float32 the stem's forward and dW (Cin 3) take the narrow route,
+    """At float32 the stem's forward and dW (Cin 3) take the packed route,
     every body block's three pieces the wgmma one; the head's by its class
     count: 12 (CamVid) all three on wgmma (the forward's N tile 16, the
     dx's Cin 12, the dW's N tile 16), 21 (VOC) its forward on wgmma (N
-    tile 24), its dx (Cin 21) and dW (Cout 21) on the narrow route. The
-    count is chip_smoke's f32 launch table."""
+    tile 24), its dx (Cin 21) and dW (Cout 21) on the packed route; none on
+    the narrow one. The count is chip_smoke's f32 launch table."""
     shapes = bench.block_shapes(net, spec=bench.model_class(net).base_spec(
         3, classes))
     f32 = torch.float32
     for i, (_, _, cin, cout) in enumerate(shapes):
         stem, head = i == 0, i == len(shapes) - 1
-        want = "f32_narrow" if stem else "f32"
+        want = "f32_packed" if stem else "f32"
         assert fused_conv.route(f32, cin, cout) == want
         assert conv_train.wgrad_route(f32, cin, cout) == (
-            "f32_narrow" if stem or (head and classes == 21) else "f32")
+            "f32_packed" if stem or (head and classes == 21) else "f32")
         if not stem:
             assert fused_conv.route(f32, cout, cin) == (
-                "f32_narrow" if head and classes == 21 else "f32")
+                "f32_packed" if head and classes == 21 else "f32")
     head = shapes[-1][2:]
     assert fused_conv.f32_tile_n(head[1]) == (16 if classes == 12 else 24)
     smoke = _chip_smoke()
@@ -171,15 +171,16 @@ def test_f32_route_of_every_block(net, classes):
 @pytest.mark.parametrize("net", ["unet", "segnet"])
 @pytest.mark.parametrize("batch", [2, 10, 24])
 def test_wgrad_f32_splits_fill_waves_at_every_block(net, batch):
-    """On the wgmma route the dW's splits, at most one a pixel tile, leave
-    the last wave of blocks (one an SM, 132 SMs) at least 90% full, or run
-    one split a pixel tile; the narrow route's fill four blocks an SM."""
+    """On the wgmma and packed routes the dW's splits, at most one a pixel
+    tile, leave the last wave of blocks (one an SM, 132 SMs) at least 90%
+    full, or run one split a pixel tile; the narrow route's fill four
+    blocks an SM."""
     for _, (h, w, cin, cout) in enumerate(bench.block_shapes(net)):
         s = conv_train.wgrad_f32_splits(batch, h, w, cin, cout, 132)
         blocks = conv_train.wgrad_f32_out_tiles(cin, cout)
         tiles = conv_train.wgrad_f32_pixel_tiles(batch, h, w, cin, cout)
         assert 1 <= s <= tiles
-        if conv_train.wgrad_f32_route(cin, cout) == "f32":
+        if conv_train.wgrad_f32_route(cin, cout) != "f32_narrow":
             last = s * blocks % 132
             assert last == 0 or last >= 0.9 * 132 or s == tiles or \
                 s == max(1, 2 * 132 // blocks), (h, w, cin, cout, s)
