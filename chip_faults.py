@@ -17,10 +17,12 @@ phase 13's (``augment_checks``: the recipes on the card against the CPU
 port; ``host_loader_checks``, ``voc_checks``, ``lr_finder_checks``:
 ``-loader host`` against run A, VOC training and eval with the 64->21
 head on the wgmma head tile and the packed paths, the LR finder's
-sweeps) and phase 14's
+sweeps), phase 14's
 per-shape checks of the f32 kernels (``f32_kernel_checks``: the error
-rule against float64 and the dW's determinism), once sound and once
-under each planted fault. Every kernel fault keeps every
+rule against float64 and the dW's determinism) and phase 15's remat
+check on a full-width UNet at batch 24 (``remat_parity``: the remat step
+bit for bit against the step without), once sound and once under each
+planted fault. Every kernel fault keeps every
 kernel launch, so only the values can show it (the packed
 dW's, rows_kernel's and the f32 kernels' faults patch the launch
 functions ``conv_train._wgrad_launch``, ``layout_probes._launch`` and
@@ -49,6 +51,7 @@ from pytorch_camvid_tpu_torch import eval as eval_cli
 from pytorch_camvid_tpu_torch import lr_finder
 from pytorch_camvid_tpu_torch.data import augment
 from pytorch_camvid_tpu_torch.data.pipeline import DeviceDataLoader, HostLoader
+from pytorch_camvid_tpu_torch.models import common
 from pytorch_camvid_tpu_torch.models.segnet import SegNet
 from pytorch_camvid_tpu_torch.ops import (conv, conv_train, fused_conv,
                                           fused_conv_pair, fused_pool,
@@ -424,6 +427,12 @@ def card_factor_2pct_high(f):
     return _quantize_factor(f * 1.02 if f.is_cuda else f)
 
 
+def recompute_updates_bn_again():
+    """``checkpoint``'s contexts without ``recomputing()``: the recompute
+    moves every block's BN running stats and count a second time."""
+    return contextlib.nullcontext(), contextlib.nullcontext()
+
+
 def failed_check(run, fault) -> str:
     """The message of the chip_smoke check that ``run`` fails under
     ``fault``, or '' when it passes."""
@@ -536,11 +545,14 @@ def main() -> int:
         ("f32", "a step sum's first product added onto the stale scratch "
          "(scale-d 1; the wgmma and packed kernels)",
          lambda: f32_variant("stale_scratch")),
+        ("remat", "the recompute updating the BN running stats again",
+         lambda: planted(common, "remat_contexts",
+                         recompute_updates_bn_again)),
     ]
     ok = True
     tmp = tempfile.TemporaryDirectory()
     for path in ("serving", "training", "K5", "probes", "training run",
-                 "augment", "data side", "f32"):
+                 "augment", "data side", "f32", "remat"):
         gen = torch.Generator().manual_seed(smoke.SEED)
         if path == "serving":
             model = bench.he_model("segnet", gen).cuda().eval()
@@ -590,6 +602,11 @@ def main() -> int:
             def run():
                 smoke.f32_kernel_checks(torch.Generator(
                     device="cuda").manual_seed(smoke.SEED))
+        elif path == "remat":   # phase 15's first part, on UNet
+            model, batch = smoke.train_setup("unet", gen)
+
+            def run():
+                smoke.remat_parity("unet", model, batch)
         else:   # phase 13's checks on phase 12's data and run A
             model = None
 

@@ -185,6 +185,26 @@ Phases (each prints its lines; any failure exits non-zero):
    losses, K1's launches at f32. (6) UNet's b10 f32 train step, kernel
    against plain (TF32 off): ms, img/s, peak memory.
    ``chip_faults.py`` plants six faults under (1).
+15. Stage rematerialization and the data-side CLIs: (1) for UNet b24 and
+   SegNet b32 (bf16, 360x480, He-scaled, the bench step) one step without
+   remat and one with (``make_train_step(remat=True)``: each stage's conv
+   blocks recomputed in the backward) from one state on one batch: loss,
+   every gradient leaf and every buffer bit for bit, each BN count
+   advanced by exactly one; the remat step launches K1's forward twice a
+   block (46/22/23 and 52/25/26, ``remat_path_counts``) and K2 5/10/5, and
+   each of its kernel calls, the recompute's included, is held against its
+   plain version (``shadowed_kernels``, phase 9's limits). (2) Both steps
+   through ``bench.measure_train(remat=)``: the median of 5 steps after 2
+   warm-ups and ``torch.cuda.max_memory_allocated``; the remat peak at
+   most ``REMAT_PEAK_RATIO`` (0.75) of the other. (3) The train CLI with
+   ``-remat`` at its default (f32), phase 14's UNet arguments and data:
+   its per-step losses equal phase 14's run's bit for bit, K1's launches
+   on "f32" and "f32_packed" only. (4) ``benchmark -synthetic`` (125
+   epochs) and ``batch_sweep -net unet -batches 24 -steps 3 -remat``
+   through their ``main``s: JAX's line format and sample counts; one
+   sweep row with the card, then the same sweep skipped as recorded.
+   ``chip_faults.py`` plants a recompute that updates the BN stats again
+   under (1).
 In phases 8 and 9 the plain path replays the kernel path's pool choices
 (``recorded_choices``, ``replayed_choices``): a 1-ulp difference between
 the two paths' convs would otherwise flip the choice of near-tied windows
@@ -202,7 +222,8 @@ the f32 instances of K4 and K1's three pieces; K4's and K1's also give
 their launches on each path, ``path_launches``; K1's also the 64->21
 head's times, ``head_64_21``; the f32 ones the library call's time with
 TF32 on, ``library_tf32_ms``, and their launches on each f32 route,
-``path_launches``).
+``path_launches``; K1's pieces their launches on each path in phase 15's
+UNet remat step, ``remat_path_launches``).
 Imports neither jax nor cv2.
 """
 
@@ -214,6 +235,7 @@ import importlib
 import io
 import json
 import os
+import re
 import sys
 import tempfile
 import time
@@ -223,8 +245,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pytorch_camvid_tpu_torch import (bench, f32_variants, lr_finder,
-                                     mosaic_probes, perf_probe)
+from pytorch_camvid_tpu_torch import (batch_sweep, bench, f32_variants,
+                                     lr_finder, mosaic_probes, perf_probe)
+from pytorch_camvid_tpu_torch import benchmark as benchmark_cli
 from pytorch_camvid_tpu_torch import eval as eval_cli
 from pytorch_camvid_tpu_torch import predict as predict_cli
 from pytorch_camvid_tpu_torch.config import settings
@@ -968,11 +991,14 @@ def shadowed_kernels(errs: dict, by_shape: dict = None):
     def conv_forward(ctx, x, w):
         y = conv_fwd(ctx, x, w)
         note_conv("K1 fwd", w, _rel(y, conv_train.conv3x3_train_plain(x, w)))
+        # kept beside the saved tensors: under a remat checkpoint those may
+        # be unpacked once only, by the Function's own backward
+        ctx.shadow = (x.detach(), w.detach())
         return y
 
     def conv_backward(ctx, g):
         dx, dw = conv_bwd(ctx, g)
-        x, w = ctx.saved_tensors
+        x, w = ctx.shadow
         g = g.to(x.dtype).contiguous()
         if dx is not None:
             note_conv("K1 dx", w,
@@ -2787,6 +2813,7 @@ def f32_training_run(tmp: str, data: str, net: str) -> dict:
     for piece, e in c["shadow"].items():
         check(e <= F32_SHADOW_TOL[piece], f"{net} f32 {piece} vs plain")
     f32_first_step(net, c)
+    raw = c["raw"]
     del c
     torch.cuda.empty_cache()
 
@@ -2838,7 +2865,8 @@ def f32_training_run(tmp: str, data: str, net: str) -> dict:
           f"{net} f32 eval CLI's K4 launches")
     check(k3 == want_k3, f"{net} f32 eval CLI's K3 launches")
     return {"history": history, "ckpt": final, "counts": counts,
-            "paths": paths, "k4": sum(k4.values()), "k4_paths": k4}
+            "paths": paths, "k4": sum(k4.values()), "k4_paths": k4,
+            "raw": raw}
 
 
 class Cv2Stand:
@@ -2967,7 +2995,8 @@ def f32_step_timing() -> dict:
 
 def phase_f32(tmp: str, data: str) -> dict:
     """Phase 14 (module docstring). Returns UNet's f32 sums and the main
-    paths' launches for the JSON entries."""
+    paths' launches for the JSON entries, and the f32 train CLI run's raw
+    losses for UNet ("unet_raw", phase 15's reference)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = f32_kernel_checks(gen)
@@ -2980,7 +3009,8 @@ def phase_f32(tmp: str, data: str) -> dict:
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
     return {"sums": sums["unet"], "k4": runs["unet"]["k4"],
             "k1": runs["unet"]["counts"], "k4_paths": runs["unet"]["k4_paths"],
-            "k1_paths": runs["unet"]["paths"]}
+            "k1_paths": runs["unet"]["paths"],
+            "unet_raw": runs["unet"]["raw"]}
 
 
 def f32_entries(f32: dict) -> list:
@@ -3007,6 +3037,259 @@ def f32_entries(f32: dict) -> list:
                                       for r in ("f32", "f32_packed",
                                                 "f32_narrow")}})
     return out
+
+
+# ------------------------------------- remat and the data-side CLIs (15)
+
+REMAT_TIME_STEPS, REMAT_WARMUP = 5, 2
+REMAT_PEAK_RATIO = 0.75   # the remat step's peak memory / the step's without
+BENCHMARK_EPOCHS = 125    # 64 synthetic images at b8: 8000 samples
+BENCHMARK_LINE = re.compile(
+    r"total (\d+) samples, total \d+\.\d\ds, average \d+ samples/sec")
+
+
+def remat_path_counts(net: str, steps: int,
+                      dtype: torch.dtype = torch.bfloat16) -> dict:
+    """K1's launches on each path in ``steps`` remat steps: every block's
+    forward twice (the recompute), dx and dW once."""
+    out = path_counts(net, steps, dtype=dtype)
+    out["fwd"] = {p: 2 * k for p, k in out["fwd"].items()}
+    return out
+
+
+def expected_remat_counts(net: str, steps: int) -> dict:
+    """Launches of ``steps`` remat steps: the pools (K2) stay outside the
+    recomputed stages, so only K1's forward doubles."""
+    out = expected_train_counts(net, steps)
+    out["fwd"] *= 2
+    return out
+
+
+@contextlib.contextmanager
+def recorded_grads(out: list):
+    """Inside the block each ``loss_and_grads`` of a train step appends a
+    copy of its (loss, {name: gradient})."""
+    saved = steps_mod.loss_and_grads
+
+    def record(*args, **kw):
+        loss, grads = saved(*args, **kw)
+        out.append((loss.clone(), {k: g.clone() for k, g in grads.items()}))
+        return loss, grads
+
+    steps_mod.loss_and_grads = record
+    try:
+        yield out
+    finally:
+        steps_mod.loss_and_grads = saved
+
+
+def remat_step(model, batch, remat: bool) -> dict:
+    """One bench step (bf16) from ``model``'s state on a copy, with or
+    without ``remat``: its loss and gradients, the model's buffers after it
+    (BN running stats and counts), its launches, K1's on each path, and
+    every kernel call against its plain version (``shadowed_kernels``)."""
+    m = copy.deepcopy(model)
+    opt, step = bench.make_bench_step(TRAIN_STEPS + 10, remat=remat)
+    state = TrainState.create(m, opt, seed=SEED)
+    shadow, seen = {}, []
+    torch.cuda.synchronize()
+    reset_counts()
+    with shadowed_kernels(shadow), recorded_grads(seen):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    (loss, grads), = seen
+    out = {"loss": loss, "grads": grads, "shadow": shadow,
+           "buffers": {k: v.clone() for k, v in m.named_buffers()},
+           "counts": train_counts(), "paths": conv_train.path_launches()}
+    del m, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_parity(net: str, model, batch) -> dict:
+    """Phase 15 (1): the step without remat and the remat step from one
+    state on one batch: the loss, every gradient leaf and every buffer
+    bit for bit, each BN count advanced by exactly one; each step's
+    launches (the remat step's forwards twice, ``remat_path_counts``) and
+    every kernel call of the remat step, the recompute's included, against
+    its plain version (phase 9's limits). Returns the remat step's
+    launches and K1's on each path."""
+    p, r = remat_step(model, batch, False), remat_step(model, batch, True)
+    grads_off = sorted(k for k in p["grads"]
+                       if not torch.equal(p["grads"][k], r["grads"][k]))
+    bufs_off = sorted(k for k in p["buffers"]
+                      if not torch.equal(p["buffers"][k], r["buffers"][k]))
+    counts = {int(v) for k, v in r["buffers"].items()
+              if k.endswith("num_batches_tracked")}
+    print(f"{net} remat step b{TRAIN_BATCH[net]} (bf16) against the step "
+          f"without remat from one state: loss {p['loss'].item():.6f} / "
+          f"{r['loss'].item():.6f}, bit-equal "
+          f"{torch.equal(p['loss'], r['loss'])}; gradient leaves unequal "
+          f"{len(grads_off)} of {len(p['grads'])} {grads_off[:4]}; buffers "
+          f"unequal {len(bufs_off)} of {len(p['buffers'])} {bufs_off[:4]}; "
+          f"BN counts after it {sorted(counts)}; launches {r['counts']} "
+          f"(without remat {p['counts']}); K1 on each path {r['paths']}; "
+          f"each kernel call against its plain version, worst per piece: "
+          + "; ".join(f"{piece} {e:.3g} (tol {SHADOW_TOL[piece]})"
+                      for piece, e in r["shadow"].items()), flush=True)
+    check(p["counts"] == expected_train_counts(net, 1)
+          and p["paths"] == path_counts(net, 1),
+          f"{net} launches of the step without remat")
+    check(r["counts"] == expected_remat_counts(net, 1)
+          and r["paths"] == remat_path_counts(net, 1),
+          f"{net} launches of the remat step")
+    want = [piece for piece in SHADOW_TOL
+            if POOLS[net] or piece.startswith("K1")]
+    check(sorted(r["shadow"]) == sorted(want),
+          f"{net} remat step's kernel pieces seen")
+    for piece, e in r["shadow"].items():
+        check(e <= SHADOW_TOL[piece], f"{net} remat step's {piece}")
+    check(counts == {1}, f"{net} remat step's BN counts advanced by one")
+    check(torch.equal(p["loss"], r["loss"]) and not grads_off
+          and not bufs_off, f"{net} remat step bit-equal to the step "
+          f"without remat")
+    return {"counts": r["counts"], "paths": r["paths"]}
+
+
+def remat_timings(net: str, model) -> dict:
+    """Phase 15 (2): ``measure_train`` without and with remat from one
+    state: the median of REMAT_TIME_STEPS steps after REMAT_WARMUP, the
+    peak memory (the remat one at most REMAT_PEAK_RATIO of the other's)
+    and the launches."""
+    b, out = TRAIN_BATCH[net], {}
+    for remat in (False, True):
+        m = copy.deepcopy(model)
+        torch.cuda.empty_cache()
+        reset_counts()
+        r = bench.measure_train(m, b, REMAT_TIME_STEPS, REMAT_WARMUP, hw=HW,
+                                seed=SEED, remat=remat)
+        counts, paths = train_counts(), conv_train.path_launches()
+        steps = REMAT_TIME_STEPS + REMAT_WARMUP
+        print(f"{net} train b{b} bf16 {'remat' if remat else 'without remat'}"
+              f": step median {r['step_ms_median']:.2f} ms (each "
+              f"{' '.join(f'{t:.2f}' for t in r['step_ms_each'])}), peak "
+              f"memory {r['max_memory_allocated'] / 2 ** 30:.3f} GiB "
+              f"({r['max_memory_allocated']} B), losses "
+              f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; launches "
+              f"{counts}, K1 on each path {paths} ({steps} steps) on "
+              f"{bench.card()}", flush=True)
+        check(r["finite"], f"{net} remat timing's losses")
+        want = ((expected_remat_counts(net, steps),
+                 remat_path_counts(net, steps)) if remat else
+                (expected_train_counts(net, steps), path_counts(net, steps)))
+        check((counts, paths) == want, f"{net} launches in the timed run "
+              f"(remat {remat})")
+        out["remat" if remat else "plain"] = r
+        del m
+        torch.cuda.empty_cache()
+    ratio = (out["remat"]["max_memory_allocated"]
+             / out["plain"]["max_memory_allocated"])
+    speed = out["remat"]["step_ms_median"] / out["plain"]["step_ms_median"]
+    print(f"{net} remat against without: peak memory x{ratio:.3f} (limit "
+          f"{REMAT_PEAK_RATIO}), step median x{speed:.3f} on {bench.card()}",
+          flush=True)
+    check(ratio <= REMAT_PEAK_RATIO, f"{net} remat peak memory")
+    return out
+
+
+@contextlib.contextmanager
+def recorded_losses(out: list):
+    """Inside the block each train step that the training loop builds
+    appends its raw loss to ``out``."""
+    saved = loop.make_train_step
+
+    def make(*args, **kw):
+        step = saved(*args, **kw)
+
+        def run(state, batch):
+            state, met = step(state, batch)
+            out.append(float(met["loss"]))
+            return state, met
+        return run
+
+    loop.make_train_step = make
+    try:
+        yield out
+    finally:
+        loop.make_train_step = saved
+
+
+def remat_cli_run(tmp: str, data: str, want: list) -> dict:
+    """Phase 15 (3): the train CLI with ``-remat`` at its default (f32),
+    phase 14's UNet arguments and data: its per-step losses are phase
+    14's run's (``want``) bit for bit, its K1 launches on "f32" and
+    "f32_packed" only, every forward twice."""
+    workdir = os.path.join(tmp, "remat_unet")
+    os.makedirs(workdir)
+    raw = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.chdir(workdir), recorded_losses(raw):
+        history = train_cli.main(f32_argv("unet", data) + ["-remat"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths = conv_train.path_launches()
+    steps = RUN_SPLITS["train"][0] // RUN_BATCH
+    print(f"unet train CLI -remat (no -dtype: f32; b{RUN_BATCH}, 1 epoch): "
+          f"losses {raw} against phase 14's {want}; K1 on each path "
+          f"{paths}; {wall:.2f} s in all on {bench.card()}", flush=True)
+    check([h["epoch"] for h in history] == [1], "remat CLI run's epoch")
+    check(paths == remat_path_counts("unet", steps, torch.float32),
+          "remat CLI run's K1 launches on the f32 routes")
+    check(len(raw) == steps and raw == want,
+          "remat CLI run's losses bit-equal to phase 14's")
+    return {"paths": paths}
+
+
+def data_cli_checks(tmp: str) -> None:
+    """Phase 15 (4): ``python -m pytorch_camvid_tpu_torch.benchmark
+    -synthetic`` (BENCHMARK_EPOCHS epochs) and ``batch_sweep -net unet
+    -batches 24 -steps 3 -remat`` through their ``main``s on the card:
+    the benchmark's lines in JAX's format with JAX's sample counts, after
+    the card's; one sweep row with the card and no error, and the same
+    sweep again skipped as recorded."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        n = benchmark_cli.main(["-synthetic", "-epochs",
+                                str(BENCHMARK_EPOCHS)])
+    lines = out.getvalue().splitlines()
+    print("benchmark -synthetic: " + " | ".join(lines), flush=True)
+    counts = [int(m.group(1)) for m in map(BENCHMARK_LINE.fullmatch,
+                                           lines[1:]) if m]
+    check(lines[0] == f"device: {bench.card()}"
+          and len(counts) == len(lines) - 1
+          and counts == list(range(1000, n + 1, 1000)) + [n]
+          and n == BENCHMARK_EPOCHS * 64, "benchmark's lines and counts")
+    path = os.path.join(tmp, "sweep.jsonl")
+    argv = ["-net", "unet", "-batches", "24", "-steps", "3", "-remat",
+            "-out", path]
+    rows = batch_sweep.main(argv)
+    print(f"batch_sweep: {json.dumps(rows)}", flush=True)
+    check(len(rows) == 1 and "error" not in rows[0]
+          and rows[0]["card"] == bench.card() and rows[0]["remat"]
+          and finite_rows(rows[0]), "batch_sweep's row")
+    with contextlib.redirect_stdout(io.StringIO()):
+        again = batch_sweep.main(argv)
+    check(again == [], "batch_sweep skips a recorded row")
+
+
+def phase_remat(tmp: str, data: str, f32_raw: list) -> dict:
+    """Phase 15 (module docstring). Returns UNet's remat launches (the
+    bf16 step's K1 on each path) for the JSON entries."""
+    t0 = time.perf_counter()
+    out = {}
+    for net in TRAIN_BATCH:
+        model, batch = train_setup(net, torch.Generator().manual_seed(SEED))
+        out[net] = remat_parity(net, model, batch)
+        remat_timings(net, model)
+        del model, batch
+        torch.cuda.empty_cache()
+    remat_cli_run(tmp, data, f32_raw)
+    data_cli_checks(tmp)
+    check("jax" not in sys.modules, "jax was imported")
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out["unet"]
 
 
 # ------------------------------------------------------------------ main
@@ -3194,11 +3477,14 @@ def main() -> int:
         run = phase_training_run(tmp)
         head = phase_data_side(tmp, run)
         f32 = phase_f32(tmp, run["data"])
+        remat = phase_remat(tmp, run["data"], f32["unet_raw"])
     check("jax" not in sys.modules, "jax was imported")
 
     kernels = conv_entries(sums["unet"], unet_serve, unet_train)
-    for entry, piece in zip(kernels[1:], ("fwd", "dx", "wgrad")):
+    for entry, piece, key in zip(kernels[1:], ("fwd", "dx", "wgrad"),
+                                 ("fwd", "dgrad", "wgrad")):
         entry["head_64_21"] = head[piece]
+        entry["remat_path_launches"] = remat["paths"][key]
     for name, t in pools.items():
         launches = (seg_serve if name.endswith("flat")
                     else seg_train[0])[name]

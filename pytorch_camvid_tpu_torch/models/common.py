@@ -1,23 +1,57 @@
-"""What UNet and SegNet share: a stage of conv blocks, and the base class
-that knows a model's blocks, its parameter names and its block sizes."""
+"""What UNet and SegNet share: a stage of conv blocks, stage
+rematerialization, and the base class that knows a model's blocks, its
+parameter names and its block sizes.
+
+Rematerialization (``remat=True``, the JAX package's ``jax.checkpoint`` of
+each stage, JAX ``models/unet.py::_stage_fn``): each stage's conv blocks
+run under ``torch.utils.checkpoint`` (non-reentrant, which works under
+``torch.autograd.grad``), so the forward keeps only the stage's input and
+the backward runs the stage's forward again to get what its blocks saved.
+The recompute runs inside ``ops/conv.py::recomputing()``, so it does not
+move the BN running stats a second time; it computes the same batch
+statistics, and autograd saves the same tensors in both passes.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import contextlib
+from typing import Callable, Dict, List, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
-from pytorch_camvid_tpu_torch.ops.conv import ConvBNReLU
+from pytorch_camvid_tpu_torch.ops.conv import ConvBNReLU, recomputing
 
 # (stage name, [(cin, cout) per conv block]) in forward order
 Spec = List[Tuple[str, List[Tuple[int, int]]]]
 
 
-class Stage(nn.Sequential):
-    """Conv blocks run in order; ``plain`` goes to each."""
+def remat_contexts():
+    """``checkpoint``'s ``context_fn``: nothing around the forward,
+    ``recomputing()`` around the recompute."""
+    return contextlib.nullcontext(), recomputing()
 
-    def forward(self, x, plain: bool = False):
+
+def remat_call(fn: Callable, x: torch.Tensor, plain: bool,
+               remat: bool) -> torch.Tensor:
+    """``fn(x, plain)``; with ``remat`` its activations are recomputed in
+    the backward instead of kept. The forward draws no random numbers, so
+    no RNG state is kept for it."""
+    if not remat:
+        return fn(x, plain)
+    return checkpoint(fn, x, plain, use_reentrant=False,
+                      context_fn=remat_contexts, preserve_rng_state=False)
+
+
+class Stage(nn.Sequential):
+    """Conv blocks run in order; ``plain`` goes to each. With ``remat``
+    the stage is the unit that is checkpointed."""
+
+    def forward(self, x, plain: bool = False, remat: bool = False):
+        return remat_call(self._blocks, x, plain, remat)
+
+    def _blocks(self, x, plain: bool):
         for blk in self:
             x = blk(x, plain)
         return x

@@ -22,7 +22,10 @@ NHWC in, f32 logits out, computed in the input's dtype. The pools:
   phases, kernels forward and backward), as JAX's TPU default
   ``pallas_phase``; the convs run K1 (``ops/conv_train.py``).
 ``plain=True`` runs the plain versions of every kernel, conv and pool, in
-both modes; in train mode autograd differentiates them.
+both modes; in train mode autograd differentiates them. ``remat=True``
+checkpoints each stage's conv blocks (``models/common.py::remat_call``),
+as JAX's ``apply_segnet(remat=True)``: the pools and unpools stay outside,
+and the phases they save stay stored.
 """
 
 from __future__ import annotations
@@ -117,17 +120,19 @@ class SegNet(SegmentationNet):
             return pooling.max_pool_2x2_with_argmax, pooling.max_unpool_2x2
         return fused_pool.max_pool_2x2_argmax, fused_pool.max_unpool_2x2
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                remat: bool = False) -> torch.Tensor:
         """x: (N,H,W,C) float -> f32 logits (N,H,W,class_num), computed in
-        x's dtype."""
+        x's dtype; ``remat=True`` recomputes each stage in the backward."""
         pool, unpool = self._pools(plain)
         skips = []  # (index, pre-pool (H, W)) per encoder stage
         for k in range(1, 6):
-            x = getattr(self, f"encoder{k}")(x, plain)
+            x = getattr(self, f"encoder{k}")(x, plain, remat)
             hw = (x.shape[1], x.shape[2])
             x, idx = pool(x)
             skips.append((idx, hw))
         for k in range(5, 0, -1):
             idx, hw = skips[k - 1]
-            x = getattr(self, f"decoder{k}")(unpool(x, idx, hw), plain)
+            x = getattr(self, f"decoder{k}")(unpool(x, idx, hw), plain,
+                                             remat)
         return x.float()

@@ -16,7 +16,11 @@ NHWC in, NHWC f32 logits out. The model computes in its input's dtype
 (the caller casts, as serving's normalize and the train step's augmentation
 do) and returns f32 logits (JAX unet.py:156,171). In train mode every block
 runs K1 (``ops/conv_train.py``) and BatchNorm with batch statistics,
-updating the running stats in place (``ops/conv.py``).
+updating the running stats in place (``ops/conv.py``). ``remat=True``
+checkpoints every stage's conv blocks (``models/common.py::remat_call``),
+as JAX's ``apply_unet(remat=True)``: the upsamples' conv blocks and the
+head too; the bilinear upsample, the pools, the pad and the concat stay
+outside.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pytorch_camvid_tpu_torch.models.common import (SegmentationNet, Spec,
-                                                    Stage, halvings)
+                                                    Stage, halvings,
+                                                    remat_call)
 from pytorch_camvid_tpu_torch.ops.conv import ConvBNReLU
 from pytorch_camvid_tpu_torch.ops.pooling import max_pool_2x2
 from pytorch_camvid_tpu_torch.ops.resize import (
@@ -108,8 +113,9 @@ class UpSample2d(nn.Module):
         super().__init__()
         self.conv = ConvBNReLU(cin, cout, generator)
 
-    def forward(self, x, plain: bool = False):
-        return self.conv(upsample2x_bilinear_align_corners(x), plain)
+    def forward(self, x, plain: bool = False, remat: bool = False):
+        return remat_call(self.conv, upsample2x_bilinear_align_corners(x),
+                          plain, remat)
 
 
 # state_dict suffix of each JAX block leaf under a block's prefix
@@ -171,18 +177,20 @@ class UNet(SegmentationNet):
             out += [size] * len(pairs)
         return out
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                remat: bool = False) -> torch.Tensor:
         """x: (N,H,W,C) float -> f32 logits (N,H,W,class_num), computed in
         x's dtype. ``plain=True`` runs every block's plain version, in eval
-        and in train mode: the reference for the kernel path."""
+        and in train mode: the reference for the kernel path. ``remat=True``
+        recomputes each stage in the backward."""
         skips = []
         for k in range(1, 6):
-            x = getattr(self, f"down{k}")(x, plain)
+            x = getattr(self, f"down{k}")(x, plain, remat)
             if k < 5:
                 skips.append(x)
                 x = max_pool_2x2(x)
         for k, skip in zip(range(1, 5), reversed(skips)):
-            x = getattr(self, f"upsample{k}")(x, plain)
+            x = getattr(self, f"upsample{k}")(x, plain, remat)
             x = torch.cat([pad_to_match(x, skip), skip], dim=-1)
-            x = getattr(self, f"up{k}")(x, plain)
-        return self.output(x, plain).float()
+            x = getattr(self, f"up{k}")(x, plain, remat)
+        return remat_call(self.output, x, plain, remat).float()

@@ -24,13 +24,18 @@ compute from the (conv, bn) pair that ``conv_bn()`` returns.
   ``(y - mean) * rsqrt(var + eps) * scale + bias`` and the ReLU, cast back
   to the input's dtype. The ReLU is ``maximum(y, 0)``, whose gradient at a
   tie is split in half in both frameworks. The running stats are updated in
-  place with momentum 0.1 and the unbiased variance ``var * n / (n - 1)``.
+  place with momentum 0.1 and the unbiased variance ``var * n / (n - 1)``,
+  except inside ``recomputing()``: there the block is a checkpoint's
+  recompute of a forward that already updated them (``models/common.py::
+  remat_call``), with the same batch, so the same statistics.
 
 Tensors are NHWC at this interface, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -42,6 +47,25 @@ from pytorch_camvid_tpu_torch.ops.fused_conv import (
 from pytorch_camvid_tpu_torch.ops.initializers import conv_init_
 
 BN_MOMENTUM = 0.1  # torch: running = (1 - m) * running + m * batch
+
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Inside the block, train-mode blocks compute as before but leave
+    their BN running stats and counts alone. The flag is the thread's: the
+    autograd engine recomputes on the thread of the backward."""
+    before = getattr(_recompute, "on", False)
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = before
+
+
+def is_recomputing() -> bool:
+    return getattr(_recompute, "on", False)
 
 
 class ConvBNReLU(nn.Module):
@@ -98,13 +122,15 @@ class ConvBNReLU(nn.Module):
         y = (y + conv.bias.to(dt)).float()
         mean = y.mean(dim=(0, 1, 2))
         var = (y * y).mean(dim=(0, 1, 2)) - mean * mean
-        with torch.no_grad():
-            n = y.shape[0] * y.shape[1] * y.shape[2]
-            bn.running_mean.copy_((1 - BN_MOMENTUM) * bn.running_mean
-                                  + BN_MOMENTUM * mean)
-            bn.running_var.copy_((1 - BN_MOMENTUM) * bn.running_var
-                                 + BN_MOMENTUM * (var * (n / max(n - 1, 1))))
-            bn.num_batches_tracked += 1
+        if not is_recomputing():
+            with torch.no_grad():
+                n = y.shape[0] * y.shape[1] * y.shape[2]
+                bn.running_mean.copy_((1 - BN_MOMENTUM) * bn.running_mean
+                                      + BN_MOMENTUM * mean)
+                bn.running_var.copy_(
+                    (1 - BN_MOMENTUM) * bn.running_var
+                    + BN_MOMENTUM * (var * (n / max(n - 1, 1))))
+                bn.num_batches_tracked += 1
         inv = torch.rsqrt(var + bn.eps) * bn.weight
         y = (y - mean) * inv + bn.bias
         return torch.maximum(y, y.new_zeros(())).to(dt)

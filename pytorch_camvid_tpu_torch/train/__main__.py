@@ -3,7 +3,7 @@ train.py):
 
     python -m pytorch_camvid_tpu_torch.train -net unet [-b 10] [-e 120]
         [-lr 5e-4] [-wd 0] [-resume] [-data data] [-image_size W H]
-        [-dtype float32] [-accum 1] [-chain 8] [-seed 0] [-quiet]
+        [-dtype float32] [-accum 1] [-remat] [-chain 8] [-seed 0] [-quiet]
         [-dataset camvid|voc2012] [-loader device|host] [-device cuda]
 
 The JAX CLI's flags plus ``-device`` (default ``cuda``; without a CUDA
@@ -15,9 +15,11 @@ in ``checkpoints/<time>/`` and ``runs/<time>/``, as the reference's do.
 ``-dataset voc2012`` trains on the VOC caches (``data/voc2012.py``) with
 VOC's mean and std and 255 (the ignore label and the letterbox pad) kept
 out of the loss, as the JAX CLI does; ``-loader host`` streams the
-batches from host memory (``data/pipeline.py::HostLoader``). Flags whose
-parts are not ported raise ``NotImplementedError`` naming their ROADMAP.md
-item: ``-dp`` > 1, ``-multihost`` and ``-remat``.
+batches from host memory (``data/pipeline.py::HostLoader``); ``-remat``
+recomputes each model stage's activations in the backward (less memory,
+one more forward; the same losses). Flags whose parts are not ported raise
+``NotImplementedError`` naming their ROADMAP.md item: ``-dp`` > 1 and
+``-multihost``.
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ def parser() -> argparse.ArgumentParser:
                    "settings.IMAGE_SIZE = (480, 360)")
     p.add_argument("-remat", action="store_true", default=False,
                    help="recompute each stage's activations in the "
-                   "backward (not ported yet)")
+                   "backward (less activation memory, one more forward)")
     p.add_argument("-accum", type=int, default=1,
                    help="gradient-accumulation microbatches per step "
                    "(batch must divide; lowers activation memory)")

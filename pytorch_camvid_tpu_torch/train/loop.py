@@ -35,7 +35,8 @@ the batch with ignored 255 labels to keep one compiled shape.
 step ahead (``prefetch``), so its gather and copy overlap the current
 step; the default ``'device'`` keeps the split on the device. Options
 whose parts are not ported raise ``NotImplementedError`` naming their
-ROADMAP.md item: ``data_parallel > 1``, ``remat``. Both compute dtypes run
+ROADMAP.md item: ``data_parallel > 1``. ``remat`` recomputes each model
+stage in the backward (``train/steps.py``). Both compute dtypes run
 on the card: bfloat16 on the bf16 conv kernels, float32 (the default, the
 JAX package's reference numerics) on the split-TF32 f32 kernels
 (``csrc/conv3x3_f32.cu``).
@@ -134,8 +135,6 @@ def check_ported(cfg: TrainConfig) -> None:
         raise not_ported(f"data_parallel={cfg.data_parallel}", "multi-GPU")
     if cfg.loader not in ("device", "host"):
         raise ValueError(f"unknown loader {cfg.loader!r}")
-    if cfg.remat:
-        raise not_ported("remat", "remat and the remaining step options")
 
 
 def eval_normalize(mean, std, dtype: torch.dtype, device: torch.device):
@@ -270,7 +269,7 @@ def run_training(cfg: TrainConfig, train_ds, val_ds,
                                  onecycle_beta1(total_steps),
                                  class_weights=cw, ignore_index=loss_ignore,
                                  augment_fn=augment, compute_dtype=dtype,
-                                 grad_accum=cfg.grad_accum)
+                                 grad_accum=cfg.grad_accum, remat=cfg.remat)
     # the eval loss drops the pad sentinel 255 and whatever the training
     # loss ignores, so Test/Loss measures the same objective as JAX's
     eval_loss_ignore = {255} | ({loss_ignore} if loss_ignore is not None

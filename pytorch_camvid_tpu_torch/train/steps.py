@@ -7,9 +7,11 @@ the lr and beta1 schedules (host scalars of the step) and the optimizer
 update. Its metrics are device tensors, read only when the caller wants
 them. It updates the ``TrainState`` in place and returns it.
 
-Not carried over yet: ``remat``. ``torch.utils.checkpoint`` would run each
-stage's forward twice and so update the BatchNorm running stats twice; it
-needs its own design (ROADMAP.md).
+``remat=True`` recomputes each model stage's activations in the backward
+instead of keeping them (``models/common.py::remat_call``, the JAX
+package's ``jax.checkpoint`` per stage): less activation memory for one
+more forward of every conv block, with the same loss, gradients and BN
+running stats.
 """
 
 from __future__ import annotations
@@ -28,12 +30,14 @@ from pytorch_camvid_tpu_torch.train.state import TrainState
 def loss_and_grads(model: nn.Module, images: torch.Tensor,
                    labels: torch.Tensor,
                    class_weights: Optional[torch.Tensor] = None,
-                   ignore_index: IgnoreIndex = None, plain: bool = False
+                   ignore_index: IgnoreIndex = None, plain: bool = False,
+                   remat: bool = False
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Train-mode forward (updating the BN running stats), loss and the
-    gradient of every parameter, keyed by its name."""
+    gradient of every parameter, keyed by its name; ``remat`` recomputes
+    each stage in the backward."""
     model.train()
-    logits = model(images, plain)
+    logits = model(images, plain, remat)
     loss = cross_entropy_loss(logits, labels, class_weights, ignore_index)
     names, params = zip(*model.named_parameters())
     grads = torch.autograd.grad(loss, params)
@@ -47,7 +51,7 @@ def make_train_step(optimizer: Optimizer, lr_schedule: Callable[[int], float],
                     augment_fn: Optional[Callable] = None,
                     compute_dtype: torch.dtype = torch.float32,
                     log_grad_norms: bool = True, grad_accum: int = 1,
-                    plain: bool = False):
+                    plain: bool = False, remat: bool = False):
     """Build ``step_fn(state, (images, labels)) -> (state, metrics)``.
 
     images: float NHWC already normalized, or raw uint8 when ``augment_fn``
@@ -57,8 +61,10 @@ def make_train_step(optimizer: Optimizer, lr_schedule: Callable[[int], float],
     ``grad_accum > 1`` splits the batch into that many microbatches: each
     is normalized by its own BN statistics, the running stats are updated
     microbatch by microbatch, and the mean gradient makes one optimizer
-    update (the JAX package's ``lax.scan``). ``plain=True`` runs the plain
-    versions of the kernels, the reference for the kernel path."""
+    update (the JAX package's ``lax.scan``). ``remat=True`` recomputes
+    each model stage's activations in the backward; it works with either
+    compute dtype, ``plain`` and ``grad_accum``. ``plain=True`` runs the
+    plain versions of the kernels, the reference for the kernel path."""
 
     def step_fn(state: TrainState, batch):
         images, labels = batch
@@ -75,7 +81,7 @@ def make_train_step(optimizer: Optimizer, lr_schedule: Callable[[int], float],
             for im, lb in zip(images.chunk(grad_accum),
                               labels.chunk(grad_accum)):
                 mb_loss, mb_grads = loss_and_grads(
-                    model, im, lb, class_weights, ignore_index, plain)
+                    model, im, lb, class_weights, ignore_index, plain, remat)
                 if grads is None:
                     loss, grads = mb_loss, mb_grads
                 else:
@@ -86,7 +92,8 @@ def make_train_step(optimizer: Optimizer, lr_schedule: Callable[[int], float],
             grads = {k: g * inv for k, g in grads.items()}
         else:
             loss, grads = loss_and_grads(model, images, labels,
-                                         class_weights, ignore_index, plain)
+                                         class_weights, ignore_index, plain,
+                                         remat)
 
         lr = lr_schedule(state.step)
         beta1 = beta1_schedule(state.step) if beta1_schedule else 0.9

@@ -6,6 +6,7 @@ factors), on the CPU: each changes what it
 should of the call it wraps, and nothing else. Whether chip_smoke's checks
 catch them is shown on the card (``python3 chip_faults.py``)."""
 
+import copy
 import math
 from types import SimpleNamespace
 
@@ -305,3 +306,29 @@ def test_f32_variant_faults_replace_both_callers_library(monkeypatch, name):
         pass
     assert (fused_conv.f32_library, conv_train.f32_library) == sound
     assert builds == [chip_faults.f32_variants.FAULTS]
+
+
+def test_recompute_updating_bn_again_moves_each_count_twice():
+    """The remat fault: with ``recompute_updates_bn_again`` in place of
+    ``remat_contexts`` a remat forward and backward advances every BN
+    count by two and moves the running stats again; after the block the
+    recompute leaves them alone."""
+    from pytorch_camvid_tpu_torch.models import common, get_model
+    model = get_model("unet", 3, 12, width_mult=1 / 16,
+                      generator=torch.Generator().manual_seed(0)).train()
+    x = torch.randn(2, 24, 32, 3, generator=torch.Generator().manual_seed(1))
+
+    def after_step():
+        m = copy.deepcopy(model)
+        m(x, False, True).sum().backward()
+        return m.state_dict()
+
+    with chip_faults.planted(common, "remat_contexts",
+                             chip_faults.recompute_updates_bn_again):
+        planted = after_step()
+    sound = after_step()
+    for k, v in sound.items():
+        if k.endswith("num_batches_tracked"):
+            assert int(v) == 1 and int(planted[k]) == 2, k
+        elif "running" in k:
+            assert not torch.equal(v, planted[k]), k

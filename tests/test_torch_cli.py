@@ -156,7 +156,8 @@ def tiny_run(tmp_path, monkeypatch):
 
 
 # ROADMAP.md Queue 1 items that are done: their flags run
-PORTED_ITEMS = {"VOC reader", "the rest of augmentation and the pipeline"}
+PORTED_ITEMS = {"VOC reader", "the rest of augmentation and the pipeline",
+                "remat"}
 
 
 @pytest.mark.parametrize("main,argv,item", [

@@ -304,7 +304,7 @@ def test_batch_larger_than_the_split_raises(small_unet):
 
 # ROADMAP.md Queue 1 items that are done: their options run
 PORTED_ITEMS = {"the rest of augmentation and the pipeline",
-                "f32 on the card"}
+                "f32 on the card", "remat"}
 
 
 @pytest.mark.parametrize("change,item", [
@@ -314,10 +314,10 @@ PORTED_ITEMS = {"the rest of augmentation and the pipeline",
     ({"device": "cuda", "compute_dtype": "float32"}, "f32 on the card")])
 def test_unported_options_name_their_roadmap_item(small_unet, change, item):
     """An option of a Queue 1 item raises, naming it, until the item is
-    ported; then it runs: ``loader='host'`` trains a tiny CPU epoch
-    (with its eval pass) bit-equal to the device loader's; float32 on a
-    CUDA device is taken, so without a card the run stops at the device
-    check."""
+    ported; then it runs: ``loader='host'`` and ``remat`` each train a
+    tiny CPU epoch (with its eval pass) bit-equal to the run without the
+    option; float32 on a CUDA device is taken, so without a card the run
+    stops at the device check."""
     if item not in PORTED_ITEMS:
         with pytest.raises(NotImplementedError, match=f"Queue 1: {item}"):
             loop.run_training(replace(CFG, **change), _DS(4), _DS(4))
@@ -330,8 +330,9 @@ def test_unported_options_name_their_roadmap_item(small_unet, change, item):
         return
     cfg = replace(CFG, epochs=1, **change)
     got, hist = loop.run_training(cfg, _DS(12), _DS(5, seed=1))
-    want, want_hist = loop.run_training(replace(cfg, loader="device"),
-                                        _DS(12), _DS(5, seed=1))
+    want, want_hist = loop.run_training(
+        replace(cfg, **{k: getattr(CFG, k) for k in change}), _DS(12),
+        _DS(5, seed=1))
     _assert_same_state(got, want)
     assert [(h["miou"], h["all_acc"]) for h in hist] == \
         [(h["miou"], h["all_acc"]) for h in want_hist]

@@ -55,6 +55,9 @@ def test_port_imports_no_jax(tmp_path):
             "import pytorch_camvid_tpu_torch.interop.weights\n"
             "import pytorch_camvid_tpu_torch.utils.viz\n"
             "import pytorch_camvid_tpu_torch.bench\n"
+            "import pytorch_camvid_tpu_torch.benchmark\n"
+            "import pytorch_camvid_tpu_torch.batch_sweep\n"
+            "import pytorch_camvid_tpu_torch.data.camvid_records\n"
             "import pytorch_camvid_tpu_torch.profile\n"
             "import pytorch_camvid_tpu_torch.perf_probe\n"
             "import pytorch_camvid_tpu_torch.ops.fused_conv_pair\n"
