@@ -19,9 +19,12 @@ port; ``host_loader_checks``, ``voc_checks``, ``lr_finder_checks``:
 head on the wgmma head tile and the packed paths, the LR finder's
 sweeps), phase 14's
 per-shape checks of the f32 kernels (``f32_kernel_checks``: the error
-rule against float64 and the dW's determinism) and phase 15's remat
+rule against float64 and the dW's determinism), phase 15's remat
 check on a full-width UNet at batch 24 (``remat_parity``: the remat step
-bit for bit against the step without), once sound and once under each
+bit for bit against the step without) and phase 16's int8 checks
+(``int8_kernel_checks`` and ``int8_pool_checks`` without their timings:
+the int8 block bit for bit in three output modes at every quantized
+block shape, K3 on int8 with ties), once sound and once under each
 planted fault. Every kernel fault keeps every
 kernel launch, so only the values can show it (the packed
 dW's, rows_kernel's and the f32 kernels' faults patch the launch
@@ -29,7 +32,11 @@ functions ``conv_train._wgrad_launch``, ``layout_probes._launch`` and
 ``fused_conv._f32_launch``, never a wrapper, whose launch counts stay as
 they are; the f32 kernels' arithmetic faults are edits of their source,
 ``f32_variants.FAULTS``, built beside it and put in place of the
-library). Prints each
+library; so are the int8 block's and K3's int8 faults, ``INT8_FAULTS``:
+the requantize by the reciprocal alone, the epilogue contracted to an
+FMA, the pool keeping the last maximum of a tie, the input quantize by
+the reciprocal; the int8 weights without
+the K-major repack patch ``fused_conv_int8.pack_weights``). Prints each
 reading and the check that failed; exits non-zero if the sound run fails
 a check or a fault passes them all.
 """
@@ -37,10 +44,13 @@ a check or a fault passes them all.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import itertools
 import os
+import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -53,7 +63,8 @@ from pytorch_camvid_tpu_torch.data import augment
 from pytorch_camvid_tpu_torch.data.pipeline import DeviceDataLoader, HostLoader
 from pytorch_camvid_tpu_torch.models import common
 from pytorch_camvid_tpu_torch.models.segnet import SegNet
-from pytorch_camvid_tpu_torch.ops import (conv, conv_train, fused_conv,
+from pytorch_camvid_tpu_torch.ops import (conv, conv_train, cuda_build,
+                                          fused_conv, fused_conv_int8,
                                           fused_conv_pair, fused_pool,
                                           layout_probes)
 from pytorch_camvid_tpu_torch.train import loop
@@ -433,6 +444,87 @@ def recompute_updates_bn_again():
     return contextlib.nullcontext(), contextlib.nullcontext()
 
 
+# int8 faults that are edits of a kernel source: (the wrapper's module,
+# whose ``SOURCE`` is edited and whose ``bind`` types the library, edits)
+INT8_FAULTS = {
+    # the requantize's product by 1/s_out everywhere: no IEEE division
+    # where it rounds otherwise (near the half-integers)
+    "reciprocal_requantize": (fused_conv_int8, [(
+        "  near = fabsf(__fsub_rn(0.5f, fabsf(d))) <= q0 * 0x1p-22f && "
+        "q0 < 127.f;",
+        "  near = false;")]),
+    # the dequantize's multiply and add contracted to one FMA
+    "fmaf_epilogue": (fused_conv_int8, [(
+        "  const float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), scale), "
+        "bias);",
+        "  const float y = fmaf(__int2float_rn(acc), scale, bias);")]),
+    # K3's pool keeping the last maximum of a window at a tie
+    "k3_last_max": (fused_pool, [("      if (v > m || isnan(v)) {",
+                                  "      if (v >= m || isnan(v)) {")]),
+    # the input quantize multiplying by 1/s instead of dividing by s
+    "reciprocal_quantize": (fused_conv_int8, [(
+        "  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), "
+        "127.f);",
+        "  const float q = fminf(fmaxf(rintf(__fmul_rn(v, __frcp_rn(s))), "
+        "-127.f), 127.f);")]),
+}
+_INT8_LIBS = {}   # the fault variants, built once
+
+
+def edited_source(name: str) -> str:
+    """``INT8_FAULTS[name]``'s source: the kernel source with its edits
+    (each must apply)."""
+    module, edits = INT8_FAULTS[name]
+    src = module.SOURCE.read_text()
+    for old, new in edits:
+        if old not in src:
+            raise ValueError(f"fault edit does not apply: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def _build_fault(name: str):
+    out = cuda_build.BUILD_DIR / "int8_faults"
+    out.mkdir(parents=True, exist_ok=True)
+    src = out / f"{name}.cu"
+    src.write_text(edited_source(name))
+    lib = src.with_suffix(".so")
+    r = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+                        str(cuda_build.CSRC), "-o", str(lib), str(src)],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"fault {name}: nvcc failed:\n{r.stderr[-3000:]}")
+    return name, INT8_FAULTS[name][0].bind(ctypes.CDLL(str(lib)))
+
+
+@contextlib.contextmanager
+def int8_fault(name: str):
+    """The kernel source of ``INT8_FAULTS[name]`` built with its edits and
+    put in place of its library (every variant is built, in parallel, at
+    the first use)."""
+    if not _INT8_LIBS:
+        with ThreadPoolExecutor(len(INT8_FAULTS)) as pool:
+            _INT8_LIBS.update(pool.map(_build_fault, INT8_FAULTS))
+    module = INT8_FAULTS[name][0]
+    with planted(module, "_library", lambda: _INT8_LIBS[name]):
+        yield
+
+
+def weights_hwio(w_q):
+    """conv3x3_int8's packed weights made of the HWIO bytes as they lie,
+    without the K-major repack: the same bytes in the packed shape (zero
+    padded to it on the packed path)."""
+    want = _pack_weights(w_q).shape
+    flat = w_q.contiguous().view(-1)
+    pad = want.numel() - flat.numel()
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.view(want).contiguous()
+
+
+_pack_weights = fused_conv_int8.pack_weights
+
+
 def failed_check(run, fault) -> str:
     """The message of the chip_smoke check that ``run`` fails under
     ``fault``, or '' when it passes."""
@@ -548,11 +640,22 @@ def main() -> int:
         ("remat", "the recompute updating the BN running stats again",
          lambda: planted(common, "remat_contexts",
                          recompute_updates_bn_again)),
+        ("int8", "the int8 requantize multiplying by 1/s_out (no IEEE "
+         "division near the half-integers)",
+         lambda: int8_fault("reciprocal_requantize")),
+        ("int8", "the int8 weights read as HWIO, without the K-major repack",
+         lambda: planted(fused_conv_int8, "pack_weights", weights_hwio)),
+        ("int8", "the int8 epilogue's multiply and add contracted to fmaf",
+         lambda: int8_fault("fmaf_epilogue")),
+        ("int8", "K3's int8 pool taking the last maximum at a tie",
+         lambda: int8_fault("k3_last_max")),
+        ("int8", "the input quantize kernel multiplying by 1/s",
+         lambda: int8_fault("reciprocal_quantize")),
     ]
     ok = True
     tmp = tempfile.TemporaryDirectory()
     for path in ("serving", "training", "K5", "probes", "training run",
-                 "augment", "data side", "f32", "remat"):
+                 "augment", "data side", "f32", "remat", "int8"):
         gen = torch.Generator().manual_seed(smoke.SEED)
         if path == "serving":
             model = bench.he_model("segnet", gen).cuda().eval()
@@ -607,6 +710,13 @@ def main() -> int:
 
             def run():
                 smoke.remat_parity("unet", model, batch)
+        elif path == "int8":   # phase 16's per-shape and K3 int8 checks
+            model = None
+
+            def run():
+                g = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+                smoke.int8_kernel_checks(g, timed=False)
+                smoke.int8_pool_checks(g, timed=False)
         else:   # phase 13's checks on phase 12's data and run A
             model = None
 

@@ -5,16 +5,19 @@
 Phases (each prints its lines; any failure exits non-zero):
 1. device: needs CUDA; prints torch's version and the card's name and
    power limit (nvidia-smi).
-2. build: compiles the six kernel sources of csrc/ with nvcc, in
+2. build: compiles the seven kernel sources of csrc/ with nvcc, in
    parallel: the fused conv3x3+BN+ReLU (K4), the conv3x3 weight gradient
-   (K1's dW), the 2x2 max pool / unpool / phase gather (K3, K2), the
-   shallow H-pair conv3x3+BN+ReLU (K5), the six layout probes (M1-M6) and
-   the f32 conv3x3 forward and weight gradient (K4's and K1's f32
-   instances); prints ptxas's register and spill lines. Then checks that
+   (K1's dW), the 2x2 max pool / unpool / phase gather (K3, K2; K3 also
+   on int8), the shallow H-pair conv3x3+BN+ReLU (K5), the six layout
+   probes (M1-M6), the f32 conv3x3 forward and weight gradient (K4's and
+   K1's f32 instances) and the int8 quantized block (``conv3x3_int8``);
+   prints ptxas's register and spill lines. Then checks that
    the built libraries choose the same kernel path (K4/K1 fwd and dx, and
    dW: wgmma, packed or narrow) as the wrappers' rules
    (``fused_conv.conv_path``, ``conv_train.wgrad_path``) at every (Cin,
-   Cout) the phases below run, that the f32 dW library's tile counts are
+   Cout) the phases below run, that the int8 library picks the wrapper's
+   path (``fused_conv_int8.int8_path``) and packed K at each Cin, that the
+   f32 dW library's tile counts are
    its split rule's (``conv_train.wgrad_f32_*``), that the f32 library
    picks the wrappers' f32 routes ("f32", wgmma; "f32_packed", wgmma with
    9 taps x the narrow side's channels packed; or "f32_narrow") and
@@ -205,6 +208,37 @@ Phases (each prints its lines; any failure exits non-zero):
    sweep row with the card, then the same sweep skipped as recorded.
    ``chip_faults.py`` plants a recompute that updates the BN stats again
    under (1).
+16. int8 serving (``ops/quant.py``, ``csrc/conv3x3_int8.cu``): (1)
+   conv3x3_int8 against its plain version, bit for bit in its int8, bf16
+   and f32 output modes, at every block shape that UNet and SegNet
+   quantize (Cout >= 64) at 360x480, b8, at ``INT8_EDGE`` (the 12- and
+   21-class heads in int8, Cout 24 and 200, Cin 192) and on the batch
+   views of ``INT8_VIEW`` (the stem's 45x61 ``x[1:]`` off a 16-byte
+   boundary); per shape the kernel's ms in the int8 and bf16 output modes
+   (CUDA events), the plain version's, the bound (operations at 1,979
+   TOPS or bytes), K4 bf16, cuDNN's bf16 conv and ``torch._int_mm`` on a
+   prebuilt im2col matrix (the GEMM alone); sums over each model's
+   quantized blocks in their output modes; the input quantize kernel
+   (bf16 and f32 in, int8 out) bit for bit at ``INT8_QUANTIZE`` and a
+   batch view, ties planted, and timed over each model's quantized inputs
+   beside stock ops and its byte bound. (2) K3's pool and unpool on
+   int8 values with ties at SegNet's five pool shapes, bit for bit, with
+   kernel, plain and bound times. (3) Full-width UNet and SegNet
+   (``he_model``, seed 0) in a b8 Predictor, ``quantize_int8`` on 8
+   frames, ``predict`` on 24: conv3x3_int8 once per quantized block a
+   forward (22 and 25; the stem on the packed path), K4 once (the float
+   head), K3's flat pair 5 times (SegNet, on int8), each int8 launch
+   bit-equal to plain on its own input (``shadowed_int8``; the blocks'
+   input quantize kernel, once for each block whose input comes float,
+   13 and 1 a forward, inside the same check), the kernel
+   path's logits within ``LOGITS_TOL`` of the plain path's; ms a forward
+   and img/s beside the bf16 Predictor's, and the share of pixels where
+   the two class maps agree (printed, not held: random weights). (4) The
+   eval CLI's ``-int8`` at its f32 default and the serve CLI's ``-int8``
+   on phase 12's caches and run A's checkpoint: finite figures, the int8
+   mIoU beside the float one, launches, every eval int8 launch bit-equal
+   to plain; and phase 12's ``bench.main`` int8 keys.
+   ``chip_faults.py`` plants five faults under (1) and (2).
 In phases 8 and 9 the plain path replays the kernel path's pool choices
 (``recorded_choices``, ``replayed_choices``): a 1-ulp difference between
 the two paths' convs would otherwise flip the choice of near-tied windows
@@ -217,8 +251,11 @@ plants faults that these checks must catch.
 
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card and its power limit; the line before that is the per-kernel JSON
-(20 entries: K4, K1's three pieces, the five pool kernels, K5, M1-M6, and
-the f32 instances of K4 and K1's three pieces; K4's and K1's also give
+(22 entries: K4, K1's three pieces, the five pool kernels, K5, M1-M6, the
+f32 instances of K4 and K1's three pieces, conv3x3_int8 with its
+yardsticks and SegNet's sums, and the input quantize kernel; K3's flat
+pair also gives its int8 times,
+``int8``; K4's and K1's also give
 their launches on each path, ``path_launches``; K1's also the 64->21
 head's times, ``head_64_21``; the f32 ones the library call's time with
 TF32 on, ``library_tf32_ms``, and their launches on each f32 route,
@@ -250,6 +287,7 @@ from pytorch_camvid_tpu_torch import (batch_sweep, bench, f32_variants,
 from pytorch_camvid_tpu_torch import benchmark as benchmark_cli
 from pytorch_camvid_tpu_torch import eval as eval_cli
 from pytorch_camvid_tpu_torch import predict as predict_cli
+from pytorch_camvid_tpu_torch import serve as serve_cli
 from pytorch_camvid_tpu_torch.config import settings
 from pytorch_camvid_tpu_torch.data import augment, camvid, native, voc2012
 from pytorch_camvid_tpu_torch.data.normalize import to_tensor_normalize
@@ -258,8 +296,8 @@ from pytorch_camvid_tpu_torch.models import get_model, spec_from_state_dict
 from pytorch_camvid_tpu_torch.models.common import halvings
 from pytorch_camvid_tpu_torch.models.segnet import segnet_spec
 from pytorch_camvid_tpu_torch.ops import (conv_train, cuda_build, fused_conv,
-                                          fused_conv_pair, fused_pool,
-                                          pooling)
+                                          fused_conv_int8, fused_conv_pair,
+                                          fused_pool, pooling, quant)
 from pytorch_camvid_tpu_torch.ops import layout_probes as lp
 from pytorch_camvid_tpu_torch.ops.metrics import (confusion_matrix,
                                                   iou_from_confusion)
@@ -830,6 +868,7 @@ def reset_counts() -> None:
     conv_train.reset_launches()
     fused_pool.reset_launches()
     lp.reset_launches()
+    fused_conv_int8.reset_launches()
 
 
 def train_counts() -> dict:
@@ -3294,6 +3333,580 @@ def phase_remat(tmp: str, data: str, f32_raw: list) -> dict:
 
 # ------------------------------------------------------------------ main
 
+# ------------------------------------------------- int8 serving (phase 16)
+
+INT8_MIN_COUT = 64   # quant.quantize_model's default: the heads stay float
+# edges: the 12- and 21-class heads in int8 (min_cout=0), a Cout that is no
+# tile multiple
+INT8_EDGE = ((BATCH, 360, 480, 64, 12), (BATCH, 360, 480, 64, 21),
+             (BATCH, 360, 480, 64, 24), (2, 45, 61, 192, 200))
+# batch views x[1:] at 45x61: the stem's starts off a 16-byte boundary
+INT8_VIEW = ((3, 45, 61, 3, 64), (3, 45, 61, 64, 64))
+INT8_FRAMES = {"calib": 8, "served": 24}
+# the input quantize kernel: (N, H, W, C, dtype): UNet's largest stage
+# entry, the stem, an f32 input (eval's default), a ragged element count;
+# and a batch view off a 16-byte boundary
+INT8_QUANTIZE = ((BATCH, 360, 480, 128, torch.bfloat16),
+                 (BATCH, 360, 480, 3, torch.bfloat16),
+                 (2, 45, 61, 64, torch.float32), (1, 7, 9, 5, torch.bfloat16))
+INT8_QUANTIZE_VIEW = (3, 45, 61, 3, torch.float32)
+INT8_MODES = (torch.int8, torch.bfloat16, torch.float32)
+
+
+def int8_block_shapes(net: str) -> list:
+    """(H, W, Cin, Cout) of each block ``quantize_model`` quantizes at its
+    default ``min_cout``, in spec order."""
+    return [s for s in bench.block_shapes(net, HW) if s[3] >= INT8_MIN_COUT]
+
+
+def int8_inputs(gen: torch.Generator, n, h, w, cin, cout) -> dict:
+    """A quantized block's operands on the card: int8 x and w_q uniform in
+    [-127, 127] (a product's rms 73.3^2), scales that keep acc * s_x * s_w
+    of order 1 at every pixel (rms 0.5-1.5 by channel), so the int8 output
+    spreads over its range as a real block's does, and the packed
+    weights."""
+    dev = torch.device("cuda")
+    x = torch.randint(-127, 128, (n, h, w, cin), generator=gen, device=dev,
+                      dtype=torch.int8)
+    wq = torch.randint(-127, 128, (3, 3, cin, cout), generator=gen,
+                       device=dev, dtype=torch.int8)
+    s_w = (torch.rand(cout, generator=gen, device=dev) + 0.5) \
+        / (73.3 * (9 * cin) ** 0.5)
+    return {"x": x, "w_q": wq, "s_w": s_w,
+            "s_x": torch.tensor(1 / 127, device=dev),
+            "b_eff": torch.randn(cout, generator=gen, device=dev) * 0.5,
+            "s_out": torch.tensor(4 / 127, device=dev),
+            "packed": fused_conv_int8.pack_weights(wq)}
+
+
+def int8_call(t: dict, mode: torch.dtype, plain: bool = False):
+    """One call of the quantized block in output ``mode`` (int8: with
+    ``s_out``) on the kernel or its plain version."""
+    s_out = t["s_out"] if mode == torch.int8 else None
+    args = (t["x"], t["w_q"], t["s_w"], t["s_x"], t["b_eff"], s_out, mode)
+    if plain:
+        return fused_conv_int8.conv3x3_int8_block_plain(*args)
+    return fused_conv_int8.conv3x3_int8_block(*args, packed=t["packed"])
+
+
+def int8_modes_equal(t: dict, what: str) -> None:
+    """The kernel equals its plain version bit for bit in all three output
+    modes (one exact int32 accumulator for the three plain epilogues)."""
+    got = [int8_call(t, m) for m in INT8_MODES]
+    torch.cuda.synchronize()
+    acc = fused_conv_int8.conv2d_int8(t["x"], t["w_q"])
+    for m, g in zip(INT8_MODES, got):
+        want = fused_conv_int8.int8_epilogue(
+            acc, t["s_w"], t["s_x"], t["b_eff"],
+            t["s_out"] if m == torch.int8 else None, m)
+        same, err = bit_equal(g, want)
+        check(same, f"conv3x3_int8 bit-equal to plain at {what} "
+                    f"({str(m)[6:]} out; max|diff| {err})")
+
+
+def quantize_inputs(gen: torch.Generator, n, h, w, c, dtype) -> tuple:
+    """(x, s): x normal in ``dtype`` with a quarter of its values put on
+    the half-integers of x / s, where the rounding's tie rule and the
+    division's last bit decide; s an f32 scalar on the card."""
+    dev = torch.device("cuda")
+    s = torch.tensor(0.0123, device=dev)
+    x = torch.randn(n, h, w, c, generator=gen, device=dev)
+    k = torch.randint(-130, 131, x.shape, generator=gen, device=dev)
+    ties = torch.rand(x.shape, generator=gen, device=dev) < 0.25
+    x = torch.where(ties, (k + 0.5) * s, x).to(dtype)
+    return x, s
+
+
+def quantize_equal(x: torch.Tensor, s: torch.Tensor, what: str) -> None:
+    got = fused_conv_int8.quantize(x, s)
+    torch.cuda.synchronize()
+    same, err = bit_equal(got, fused_conv_int8.quantize_plain(x, s))
+    check(same, f"the quantize kernel bit-equal to plain at {what} "
+                f"(max|diff| {err})")
+
+
+def int8_bound(n, h, w, cin, cout, out_bytes: int) -> tuple:
+    """(ms, by) of one quantized block: its operations at the int8 peak,
+    or its bytes: int8 x and w read once, the output written once."""
+    ops = 2.0 * 9 * n * h * w * cin * cout
+    nbytes = n * h * w * cin + 9 * cin * cout + n * h * w * cout * out_bytes
+    return bound_ms(ops, nbytes, bench.H100_INT8_PEAK)
+
+
+def im2col_int8(x: torch.Tensor) -> torch.Tensor:
+    """(N*H*W, 9*Cin) int8, the conv's patches, K zero-padded to a
+    multiple of 8 (``torch._int_mm``'s rule)."""
+    n, h, w, c = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    cols = torch.stack([xp[:, dy:dy + h, dx:dx + w] for dy in range(3)
+                        for dx in range(3)], dim=3).reshape(n * h * w, 9 * c)
+    return F.pad(cols, (0, -(-9 * c // 8) * 8 - 9 * c)).contiguous()
+
+
+def int8_yardsticks(t: dict, n, h, w, cin, cout) -> dict:
+    """K4 and cuDNN's conv in bf16 on the same shape, and cuBLASLt's int8
+    GEMM (``torch._int_mm``) on a prebuilt im2col matrix, the GEMM alone
+    (None where it refuses the shape)."""
+    dev = torch.device("cuda")
+    xb = t["x"].to(torch.bfloat16)
+    wb = t["w_q"].to(torch.bfloat16)
+    a = torch.ones(cout, device=dev)
+    out = {"k4_ms": cuda_ms(lambda: fused_conv.conv3x3_bn_relu(
+        xb, wb, a, t["b_eff"]))}
+    xc, wc = xb.permute(0, 3, 1, 2), wb.permute(3, 2, 0, 1)
+    out["cudnn_ms"] = cuda_ms(lambda: F.conv2d(xc, wc, padding=1))
+    del xb, wb, xc, wc
+    out["int_mm_ms"] = None
+    if cout % 8 == 0:
+        cols = im2col_int8(t["x"])
+        wm = F.pad(t["w_q"].reshape(9 * cin, cout),
+                   (0, 0, 0, cols.shape[1] - 9 * cin)).contiguous()
+        try:
+            out["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(cols, wm))
+        except RuntimeError as e:
+            print(f"torch._int_mm refused {tuple(cols.shape)} x "
+                  f"{tuple(wm.shape)}: {str(e).splitlines()[0]}", flush=True)
+        del cols, wm
+    return out
+
+
+def int8_kernel_checks(gen: torch.Generator, timed: bool = True) -> dict:
+    """Phase 16 (1): conv3x3_int8 against its plain version, bit for bit
+    in all three output modes, at every quantized block shape of both
+    models at b8 (``int8_block_shapes``), at ``INT8_EDGE`` and on the views
+    of ``INT8_VIEW``; with ``timed``, per shape: the kernel in the int8 and
+    the bf16 output mode, the plain version, the bounds and the yardsticks.
+    Returns {shape: timings}."""
+    res = {}
+    shapes = list(dict.fromkeys(int8_block_shapes("unet")
+                                + int8_block_shapes("segnet")))
+    for h, w, cin, cout in shapes:
+        t = int8_inputs(gen, BATCH, h, w, cin, cout)
+        what = f"{BATCH}x{h}x{w} {cin}->{cout}"
+        int8_modes_equal(t, what)
+        if not timed:
+            continue
+        r = {"ms_int8": cuda_ms(lambda: int8_call(t, torch.int8)),
+             "ms_bf16": cuda_ms(lambda: int8_call(t, torch.bfloat16)),
+             "plain_ms": cuda_ms(lambda: int8_call(t, torch.bfloat16, True),
+                                 iters=3, warmup=1),
+             "bound_int8": int8_bound(BATCH, h, w, cin, cout, 1),
+             "bound_bf16": int8_bound(BATCH, h, w, cin, cout, 2),
+             **int8_yardsticks(t, BATCH, h, w, cin, cout)}
+        res[(h, w, cin, cout)] = r
+        mm = r["int_mm_ms"]
+        print(f"int8 {what} ({fused_conv_int8.int8_path(cin)}): bit-equal "
+              f"in 3 modes; kernel {r['ms_int8']:.4f} ms int8 out (bound "
+              f"{r['bound_int8'][0]:.4f} by {r['bound_int8'][1]}), "
+              f"{r['ms_bf16']:.4f} ms bf16 out (bound "
+              f"{r['bound_bf16'][0]:.4f}); plain {r['plain_ms']:.3f}; K4 "
+              f"bf16 {r['k4_ms']:.4f}, cuDNN bf16 {r['cudnn_ms']:.4f}, "
+              f"_int_mm on im2col "
+              f"{'n/a' if mm is None else f'{mm:.4f}'} ms", flush=True)
+        del t
+    for n, h, w, cin, cout in INT8_EDGE:
+        int8_modes_equal(int8_inputs(gen, n, h, w, cin, cout),
+                         f"{n}x{h}x{w} {cin}->{cout}")
+    for n, h, w, cin, cout in INT8_VIEW:
+        t = int8_inputs(gen, n, h, w, cin, cout)
+        t["x"] = t["x"][1:]
+        int8_modes_equal(t, f"the view x[1:] of {n}x{h}x{w} {cin}->{cout} "
+                            f"(data offset {t['x'].data_ptr() % 16} mod 16)")
+    for *shape, dtype in INT8_QUANTIZE:
+        quantize_equal(*quantize_inputs(gen, *shape, dtype),
+                       f"{'x'.join(map(str, shape))} {str(dtype)[6:]}")
+    *shape, dtype = INT8_QUANTIZE_VIEW
+    x, s = quantize_inputs(gen, *shape, dtype)
+    quantize_equal(x[1:], s, f"the view x[1:] of {'x'.join(map(str, shape))} "
+                             f"(data offset {x[1:].data_ptr() % 16} mod 16)")
+    torch.cuda.empty_cache()
+    print(f"int8: conv3x3_int8 bit-equal to plain in the int8, bf16 and f32 "
+          f"output modes at {len(shapes)} block shapes, {len(INT8_EDGE)} "
+          f"edge shapes and {len(INT8_VIEW)} batch views; the quantize "
+          f"kernel at {len(INT8_QUANTIZE) + 1} inputs, ties planted",
+          flush=True)
+    return res
+
+
+def int8_pool_checks(gen: torch.Generator, timed: bool = True) -> dict:
+    """Phase 16 (2): K3's int8 pool and unpool against their plain pair at
+    SegNet's five pool shapes (b8), on int8 values in [-3, 3] (most windows
+    tie), bit for bit; with ``timed``, the kernel, plain and bound times
+    summed over the stages (library: ``F.max_pool2d`` / ``max_unpool2d``
+    on the int8 tensor, None where torch has no int8 instance)."""
+    dev = torch.device("cuda")
+    out = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                  "library_ms": 0.0, "bound_ms": 0.0}
+           for name in ("maxpool2x2.pool_flat", "maxpool2x2.unpool_flat")}
+    for h, w, c in pool_stages():
+        x = torch.randint(-3, 4, (BATCH, h, w, c), generator=gen,
+                          device=dev, dtype=torch.int8)
+        hw = (h, w)
+        p, idx = pooling.max_pool_2x2_with_argmax(x)
+        got = fused_pool.max_pool_2x2_argmax(x)
+        unp = fused_pool.max_unpool_2x2(p, idx, hw)
+        torch.cuda.synchronize()
+        check(got[0].dtype == torch.int8 and torch.equal(got[0], p)
+              and torch.equal(got[1], idx),
+              f"K3 int8 pool bit-equal at {BATCH}x{h}x{w}x{c}")
+        check(torch.equal(unp, pooling.max_unpool_2x2(p, idx, hw)),
+              f"K3 int8 unpool bit-equal at {BATCH}x{h}x{w}x{c}")
+        if not timed:
+            continue
+        nbytes = pool_bytes(BATCH, h, w, c, 1)
+        xc, pc = x.permute(0, 3, 1, 2), p.permute(0, 3, 1, 2)
+        idx64 = idx.permute(0, 3, 1, 2).long()
+        fns = {"maxpool2x2.pool_flat": (
+                   lambda: fused_pool.max_pool_2x2_argmax(x),
+                   lambda: pooling.max_pool_2x2_with_argmax(x),
+                   lambda: F.max_pool2d(xc, 2, 2, return_indices=True)),
+               "maxpool2x2.unpool_flat": (
+                   lambda: fused_pool.max_unpool_2x2(p, idx, hw),
+                   lambda: pooling.max_unpool_2x2(p, idx, hw),
+                   lambda: F.max_unpool2d(pc, idx64, 2, 2, output_size=hw))}
+        line = [f"K3 int8 {BATCH}x{h}x{w}x{c}:"]
+        for name, (kern, plain, lib) in fns.items():
+            try:
+                lib_ms = cuda_ms(lib)
+            except (RuntimeError, NotImplementedError):
+                lib_ms = None
+            t = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+                 "bound_ms": nbytes[name] / bench.H100_HBM_RATE * 1e3}
+            for key, v in t.items():
+                out[name][key] += v
+            if lib_ms is None or out[name]["library_ms"] is None:
+                out[name]["library_ms"] = None
+            else:
+                out[name]["library_ms"] += lib_ms
+            line.append(f"{name.split('.')[1]} {t['ms']:.4f} ms (plain "
+                        f"{t['plain_ms']:.4f}, library "
+                        f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'}, "
+                        f"bound {t['bound_ms']:.4f}: "
+                        f"{t['bound_ms'] / t['ms']:.2f} of it);")
+        print(" ".join(line), flush=True)
+        del x, p, idx
+    print("K3 int8: pool and unpool bit-equal to the plain pair at SegNet's "
+          "5 pool shapes with ties", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def shadowed_int8(errs: dict, quantized: list = None):
+    """Inside the block every quantized block of the main path
+    (``quant.quantized_block_apply``, the int8 blocks' one caller of
+    conv3x3_int8 and of the quantize kernel) is held against its plain
+    version on its own input; ``errs`` gets, per (Cin, Cout, output
+    dtype), 0 when bit-equal, else the max difference; ``quantized``, when
+    given, the (shape, dtype) of each input the block quantized. The plain
+    version launches no counted kernel."""
+    real = quant.quantized_block_apply
+
+    def shadow(params_q, x, compute_dtype=torch.bfloat16, plain=False):
+        out = real(params_q, x, compute_dtype, plain)
+        if not plain:
+            want = real(params_q, x, compute_dtype, True)
+            _note(errs, (x.shape[3], params_q["w_q"].shape[3],
+                         str(out.dtype)[6:]), _bits(out, want))
+            if quantized is not None and x.dtype != torch.int8:
+                quantized.append((tuple(x.shape), x.dtype))
+        return out
+    quant.quantized_block_apply = shadow
+    try:
+        yield errs
+    finally:
+        quant.quantized_block_apply = real
+
+
+def int8_counts() -> dict:
+    return {"conv3x3_int8": fused_conv_int8.conv3x3_int8_block.launches,
+            "quantize": fused_conv_int8.quantize.launches,
+            "conv3x3_int8_paths":
+                dict(fused_conv_int8.conv3x3_int8_block.path_launches),
+            "conv3x3_bn_relu": fused_conv.conv3x3_bn_relu.launches,
+            **fused_pool.launches()}
+
+
+def int8_expected(net: str, forwards: int, fused: int) -> dict:
+    """Launches of ``forwards`` int8 forwards: conv3x3_int8 on each
+    quantized block (the stem on the packed path), the quantize kernel on
+    each one whose input comes float (all but the ``fused`` ones, whose
+    producer emits int8), K4 on the float head, K3's flat pair on SegNet's
+    pools."""
+    shapes = int8_block_shapes(net)
+    packed = sum(fused_conv_int8.int8_path(s[2]) == "packed" for s in shapes)
+    pools = POOLS[net] * forwards
+    return {"conv3x3_int8": len(shapes) * forwards,
+            "quantize": (len(shapes) - fused) * forwards,
+            "conv3x3_int8_paths": {"wgmma": (len(shapes) - packed) * forwards,
+                                   "packed": packed * forwards},
+            "conv3x3_bn_relu": (n_blocks(net) - len(shapes)) * forwards,
+            "maxpool2x2.pool_flat": pools, "maxpool2x2.unpool_flat": pools,
+            "maxpool2x2.pool_phase": 0, "maxpool2x2.unpool_phase": 0,
+            "maxpool2x2.phase_gather": 0}
+
+
+def int8_slice(net: str, rng: np.random.Generator) -> dict:
+    """Phase 16 (3): full-width ``he_model(net)`` (seed 0) in a Predictor
+    at b8, quantized by ``quantize_int8`` on 8 frames, then ``predict`` on
+    24: launches per forward, every int8 launch against plain on its own
+    inputs, the kernel path's logits against the plain path's; ms a
+    forward and img/s beside the bf16 Predictor's, and the share of
+    pixels on which the two class maps agree (information only: random
+    weights). Returns the counts, the modes of the blocks and the times."""
+    sd = bench.he_model(net, torch.Generator().manual_seed(SEED)).state_dict()
+    calib = rng.integers(0, 256, (INT8_FRAMES["calib"],) + HW + (3,),
+                         dtype=np.uint8)
+    frames = rng.integers(0, 256, (INT8_FRAMES["served"],) + HW + (3,),
+                          dtype=np.uint8)
+    out = {}
+    with Predictor(net, sd, batch_size=BATCH, image_hw=HW) as p8, \
+            Predictor(net, sd, batch_size=BATCH, image_hw=HW) as pf:
+        p8.quantize_int8(calib)
+        qb = quant.quantized_blocks(p8.model)
+        out["modes"] = ["int8" if b.s_out is not None else "bf16" for b in qb]
+        check(len(qb) == len(int8_block_shapes(net)),
+              f"{net}: the quantized blocks")
+        if net == "unet":
+            check(all(b.s_out is None for b in (
+                p8.model.stage_blocks(s)[-1] for s, _ in p8.model.spec)
+                if b.quantized), "unet: a stage-final block emits int8")
+        forwards = -(-len(frames) // BATCH)
+        errs, quantized = {}, []
+        torch.cuda.synchronize()
+        reset_counts()
+        with shadowed_int8(errs, quantized):
+            maps8 = p8.predict(frames)
+        torch.cuda.synchronize()
+        counts = int8_counts()
+        want = int8_expected(net, forwards,
+                             sum(b.s_out is not None for b in qb))
+        out["quantized"] = quantized[: len(quantized) // forwards]
+        print(f"{net} int8 serving: {len(frames)} images in {forwards} "
+              f"forwards; launches {counts} (expected {want}); each int8 "
+              f"launch against plain on its inputs: "
+              f"{'bit-equal' if not any(errs.values()) else errs} over "
+              f"{len(errs)} (Cin, Cout, out) kinds", flush=True)
+        check(counts == want, f"{net} int8 launches per forward")
+        check(errs and not any(errs.values()),
+              f"{net} int8 launches bit-equal to plain on their inputs")
+        check(maps8.shape == (len(frames),) + HW and int(maps8.max()) < 12,
+              f"{net} int8 class maps")
+        out["launches"] = counts
+        xn = logits_parity(f"{net} int8", p8.model,
+                           torch.from_numpy(frames[:BATCH]).cuda())
+        mapsf = pf.predict(frames)
+        out["agree"] = float((maps8 == mapsf).mean())
+        with torch.inference_mode():
+            out["fwd_ms"] = cuda_ms(lambda: p8.model(xn), iters=10)
+            out["fwd_ms_bf16"] = cuda_ms(lambda: pf.model(xn), iters=10)
+        imgs = rng.integers(0, 256, (8 * BATCH,) + HW + (3,), dtype=np.uint8)
+        for key, p in (("ips", p8), ("ips_bf16", pf)):
+            p.predict(imgs[:BATCH])
+            rates = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p.predict(imgs)
+                torch.cuda.synchronize()
+                rates.append(len(imgs) / (time.perf_counter() - t0))
+            out[key] = sorted(rates)[1]
+            out[key + "_all"] = rates
+    print(f"{net} int8 serving b{BATCH}: forward {out['fwd_ms']:.3f} ms "
+          f"(bf16 {out['fwd_ms_bf16']:.3f} ms); predict() end to end "
+          f"median {out['ips']:.2f} img/s of "
+          f"{', '.join(f'{r:.2f}' for r in out['ips_all'])} (bf16 "
+          f"{out['ips_bf16']:.2f} of "
+          f"{', '.join(f'{r:.2f}' for r in out['ips_bf16_all'])}); int8 and "
+          f"bf16 class maps agree on {out['agree']:.4f} of the pixels "
+          f"(random weights; information only) on {bench.card()}",
+          flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def quantize_sums(gen: torch.Generator, slices: dict) -> dict:
+    """Per model, the quantize kernel over the inputs one b8 forward
+    quantizes (recorded in ``int8_slice``) beside its plain version and
+    its byte bound (x read once, int8 written once): {net: {...}}."""
+    sums = {}
+    for net, sl in slices.items():
+        s = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+             "calls": len(sl["quantized"])}
+        for shape, dtype in sl["quantized"]:
+            x, sc = quantize_inputs(gen, *shape, dtype)
+            s["ms"] += cuda_ms(lambda: fused_conv_int8.quantize(x, sc))
+            s["plain_ms"] += cuda_ms(
+                lambda: fused_conv_int8.quantize_plain(x, sc))
+            s["bound_ms"] += (x.numel() * (x.element_size() + 1)
+                              / bench.H100_HBM_RATE * 1e3)
+            del x
+        sums[net] = s
+        print(f"{net} quantize kernel over the {s['calls']} inputs a b{BATCH} "
+              f"int8 forward quantizes: {s['ms']:.3f} ms (plain "
+              f"{s['plain_ms']:.3f}, bound {s['bound_ms']:.3f} by bytes: "
+              f"{s['bound_ms'] / s['ms']:.2f} of it)", flush=True)
+    torch.cuda.empty_cache()
+    return sums
+
+
+def int8_sums(per_shape: dict, slices: dict) -> dict:
+    """Per model, conv3x3_int8 over its quantized blocks of one b8 forward
+    (each block in its output mode) beside the bound, the plain version
+    and the yardsticks on the same shapes: {net: {...}}, printed."""
+    sums = {}
+    for net, sl in slices.items():
+        shapes = int8_block_shapes(net)
+        s = {"ms": 0.0, "plain_ms": 0.0, "k4_bf16_ms": 0.0,
+             "cudnn_bf16_ms": 0.0, "int_mm_im2col_ms": 0.0}
+        by = {}
+        for shape, mode in zip(shapes, sl["modes"]):
+            r = per_shape[shape]
+            s["ms"] += r["ms_" + mode]
+            s["plain_ms"] += r["plain_ms"]
+            s["k4_bf16_ms"] += r["k4_ms"]
+            s["cudnn_bf16_ms"] += r["cudnn_ms"]
+            s["int_mm_im2col_ms"] += r["int_mm_ms"]
+            t, kind = r["bound_" + mode]
+            by[kind] = by.get(kind, 0.0) + t
+        s["bound_ms"] = sum(by.values())
+        s["bound_by"] = max(by, key=by.get)
+        s["blocks"] = len(shapes)
+        sums[net] = s
+        print(f"{net} int8 conv sums over its {len(shapes)} quantized blocks "
+              f"(b{BATCH}, each in its output mode): conv3x3_int8 "
+              f"{s['ms']:.3f} ms (bound {s['bound_ms']:.3f} by "
+              f"{s['bound_by']}: {s['bound_ms'] / s['ms']:.2f} of it; plain "
+              f"{s['plain_ms']:.3f}); K4 bf16 {s['k4_bf16_ms']:.3f}, cuDNN "
+              f"bf16 {s['cudnn_bf16_ms']:.3f}, _int_mm on im2col "
+              f"{s['int_mm_im2col_ms']:.3f} ms", flush=True)
+    return sums
+
+
+def int8_cli_checks(tmp: str, run: dict) -> dict:
+    """Phase 16 (4): ``eval -int8`` (its f32 default) and ``serve -int8``
+    on phase 12's caches and run A's checkpoint. Every int8 launch of the
+    eval pass equals plain on its inputs; eval's int8 mIoU beside the
+    float eval's; serve's masks and launches."""
+    data, a = run["data"], run["a"]
+    argv = ["-weight", a["ckpt"], "-net", "unet", "-b", str(RUN_BATCH),
+            "-data", data, "-image_size", str(HW[1]), str(HW[0])]
+    with contextlib.redirect_stdout(io.StringIO()):
+        flt = eval_cli.main(argv)
+    errs = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    with shadowed_int8(errs), contextlib.redirect_stdout(io.StringIO()):
+        got = eval_cli.main(argv + ["-int8"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = int8_counts()
+    batches = -(-RUN_SPLITS["val"][0] // RUN_BATCH)
+    n8 = len(int8_block_shapes("unet"))
+    print(f"eval -int8 (f32) on run A's checkpoint: miou {got['miou']:.6f} "
+          f"(float eval {flt['miou']:.6f}), loss {got['loss']:.4f} (float "
+          f"{flt['loss']:.4f}); conv3x3_int8 launches "
+          f"{counts['conv3x3_int8']} on {counts['conv3x3_int8_paths']} "
+          f"(expected {n8 * batches}), each bit-equal to plain: "
+          f"{not any(errs.values())}; K4 f32 launches "
+          f"{counts['conv3x3_bn_relu']} (calibration's float forwards and "
+          f"the head); {wall:.2f} s", flush=True)
+    check(all(np.isfinite(v) for v in got.values()), "eval -int8 figures")
+    check(counts["conv3x3_int8"] == n8 * batches, "eval -int8 launches")
+    check(errs and not any(errs.values()),
+          "eval -int8 launches bit-equal to plain")
+    check(set(e[2] for e in errs) <= {"int8", "float32"},
+          "eval -int8 emits int8 or f32")
+    val = camvid.CamVid(data, image_set="val", image_size=HW[::-1])
+    src = os.path.join(tmp, "serve_in")
+    os.makedirs(src, exist_ok=True)
+    for i in range(3):
+        with open(os.path.join(src, f"{i}.png"), "wb") as f:
+            np.save(f, val.images[i])
+    stand = Cv2Stand()
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = stand
+    reset_counts()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            serve_cli.main(["-weight", a["ckpt"], "-input", src, "-output",
+                            os.path.join(tmp, "serve_out"), "-b", "2",
+                            "-int8"])
+    finally:
+        if saved is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+    torch.cuda.synchronize()
+    counts = int8_counts()
+    masks = [v for k, v in sorted(stand.written.items())]
+    print(f"serve -int8 on 3 val images: {said.getvalue().strip()}; "
+          f"conv3x3_int8 launches {counts['conv3x3_int8']} (expected "
+          f"{n8 * 2}); {len(masks)} masks", flush=True)
+    check(len(masks) == 3 and all(m.shape == HW and m.max() < 12
+                                  for m in masks), "serve -int8 masks")
+    check(counts["conv3x3_int8"] == n8 * 2, "serve -int8 launches")
+    for net in ("unet", "segnet"):
+        row = run["bench"]["extra"][f"{net}_serving_fwd"]
+        keys = {k: row[k] for k in ("images_per_sec_int8",
+                                    "images_per_sec_compute_only_int8",
+                                    "mfu_compute_only_int8", "int8_speedup")}
+        print(f"bench {net}_serving_fwd int8 keys (phase 12's bench.main): "
+              f"{json.dumps(keys)}; bf16 compute-only "
+              f"{row['images_per_sec_compute_only']:.2f} img/s on "
+              f"{row['card']}", flush=True)
+        check(all(np.isfinite(v) for v in keys.values()),
+              f"bench {net} int8 keys")
+    return {"miou_int8": got["miou"], "miou_float": flt["miou"]}
+
+
+def phase_int8(tmp: str, run: dict) -> dict:
+    """Phase 16: int8 serving (module docstring)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    per_shape = int8_kernel_checks(gen)
+    pools = int8_pool_checks(gen)
+    rng = np.random.default_rng(SEED)
+    slices = {net: int8_slice(net, rng) for net in ("unet", "segnet")}
+    sums = int8_sums(per_shape, slices)
+    qsums = quantize_sums(gen, slices)
+    clis = int8_cli_checks(tmp, run)
+    return {"sums": sums, "quantize": qsums, "pools": pools,
+            "slices": slices, "cli": clis}
+
+
+def int8_entries(r: dict) -> list:
+    """The JSON entries of conv3x3_int8 and the quantize kernel: UNet's
+    sums over its quantized blocks (its quantized inputs), launches from
+    UNet's int8 slice; SegNet's sums beside. No single PyTorch call
+    computes either (no int8 conv on CUDA; the quantize is five stock
+    ops), so ``library_ms`` is null; the conv's yardsticks are keys of
+    their own."""
+    u, s = r["sums"]["unet"], r["sums"]["segnet"]
+    launches = r["slices"]["unet"]["launches"]
+    qu, qs = r["quantize"]["unet"], r["quantize"]["segnet"]
+    quantize = {
+        "name": "conv3x3_int8.quantize", "route": "cuda",
+        "source": "pytorch_camvid_tpu_torch/csrc/conv3x3_int8.cu",
+        "replaces": "pytorch_camvid_tpu/ops/quant.py:275",
+        "launches": launches["quantize"], "max_abs_err": 0.0,
+        "ms": qu["ms"], "plain_ms": qu["plain_ms"],
+        "bound_ms": qu["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "segnet": {**qs, "launches":
+                   r["slices"]["segnet"]["launches"]["quantize"]}}
+    return [{"name": "conv3x3_int8", "route": "cuda",
+            "source": "pytorch_camvid_tpu_torch/csrc/conv3x3_int8.cu",
+            "replaces": "pytorch_camvid_tpu/ops/quant.py:246",
+            "launches": launches["conv3x3_int8"], "max_abs_err": 0.0,
+            "ms": u["ms"], "plain_ms": u["plain_ms"],
+            "bound_ms": u["bound_ms"], "bound_by": u["bound_by"],
+            "library_ms": None, "k4_bf16_ms": u["k4_bf16_ms"],
+            "cudnn_bf16_ms": u["cudnn_bf16_ms"],
+            "int_mm_im2col_ms": u["int_mm_im2col_ms"],
+            "path_launches": launches["conv3x3_int8_paths"],
+            "segnet": {**s, "launches":
+                       r["slices"]["segnet"]["launches"]["conv3x3_int8"]}},
+            quantize]
+
+
 def summed_bound(n: int, piece: str, shapes) -> tuple:
     """Bound of one pass over ``shapes`` (one per block), named by what
     bounds most of it."""
@@ -3388,12 +4001,13 @@ POOL_REPLACES = {
 
 
 def start() -> None:
-    """Phases 1 and 2: the device, then the six kernel sources built in
+    """Phases 1 and 2: the device, then the seven kernel sources built in
     parallel; TF32 off for the plain versions."""
     print(f"device: torch {torch.__version__} (CUDA {torch.version.cuda}); "
           f"{bench.card()}", flush=True)
     sources = (fused_conv.SOURCE, conv_train.WGRAD_SOURCE, fused_pool.SOURCE,
-               fused_conv_pair.SOURCE, lp.SOURCE, fused_conv.F32_SOURCE)
+               fused_conv_pair.SOURCE, lp.SOURCE, fused_conv.F32_SOURCE,
+               fused_conv_int8.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(cuda_build.build, sources))
     for path, secs, log in builds:
@@ -3414,6 +4028,15 @@ def start() -> None:
               f"kernel path rule of the libraries at {cin}->{cout}")
     print(f"paths: the libraries and the wrappers choose alike at "
           f"{len(pairs)} (Cin, Cout) pairs", flush=True)
+    for cin in sorted({cin for _, _, cin, _ in all_block_shapes()}
+                      | {cin for *_, cin, _ in INT8_EDGE + INT8_VIEW}
+                      | set(range(1, 34)) | {48, 96, 100}):
+        check(fused_conv_int8.kernel_path(cin)
+              == fused_conv_int8.int8_path(cin)
+              and (fused_conv_int8.int8_path(cin) != "packed"
+                   or fused_conv_int8.kernel_packed_k(cin)
+                   == fused_conv_int8.packed_k(cin)),
+              f"int8 path rule and packed K of the library at Cin {cin}")
     f32 = fused_conv.f32_library()
     f32_pairs = sorted(pairs | {(cin, cout) for *_, cin, cout in F32_EDGE}
                        | {(cout, cin) for *_, cin, cout in F32_EDGE})
@@ -3478,6 +4101,9 @@ def main() -> int:
         head = phase_data_side(tmp, run)
         f32 = phase_f32(tmp, run["data"])
         remat = phase_remat(tmp, run["data"], f32["unet_raw"])
+        t16 = time.perf_counter()
+        int8 = phase_int8(tmp, run)
+        print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
     check("jax" not in sys.modules, "jax was imported")
 
     kernels = conv_entries(sums["unet"], unet_serve, unet_train)
@@ -3495,6 +4121,9 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": t["library_ms"]})
+        if name in int8["pools"]:
+            kernels[-1]["int8"] = {**int8["pools"][name], "launches":
+                                   int8["slices"]["segnet"]["launches"][name]}
     kernels.append({
         "name": "conv3x3_pair_bn_relu", "route": "cuda",
         "source": "pytorch_camvid_tpu_torch/csrc/conv3x3_pair_bn_relu.cu",
@@ -3505,7 +4134,8 @@ def main() -> int:
         "library_ms": pair["library_ms"]})
     kernels += probe_entries
     kernels += f32_entries(f32)
-    check(len(kernels) == 20, "one JSON entry per ported kernel")
+    kernels += int8_entries(int8)
+    check(len(kernels) == 22, "one JSON entry per ported kernel")
     print(json.dumps({"kernels": kernels}))
     print(bench.card())
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,10 @@ and bench entry points (``python -m pytorch_camvid_tpu_torch.train``,
 (``data/voc2012.py``), the host-fed ``HostLoader`` over the native gather
 (``data/pipeline.py``, ``data/native.py``), every augmentation of the JAX
 package (``data/augment.py``, ``data/transforms.py``), the LR finder
-(``.lr_finder``) and the dataset statistics (``.compute_stats``).
+(``.lr_finder``) and the dataset statistics (``.compute_stats``); and int8
+serving: post-training quantization (``ops/quant.py``,
+``Predictor.quantize_int8``, ``serve -int8``, ``eval -int8``) with every
+quantized block on the int8 kernel ``ops/fused_conv_int8.py``.
 """
 
 __version__ = "0.1.0"

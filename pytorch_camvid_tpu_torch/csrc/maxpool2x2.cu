@@ -16,7 +16,9 @@
 // kernel covers each pair of TPU variants.
 //
 // Three templates, on the element type T (bf16 for the model, f32 as a
-// second instance), on the index type I (int32 flat y*W+x for K3, int8 phase
+// second instance, int8 for K3 on the int8-quantized SegNet's fused pool
+// edges, where each pool sees the next block's int8 operand), on the index
+// type I (int32 flat y*W+x for K3, int8 phase
 // k = 2*dy+dx for K2) and on V, the channels a thread owns:
 //   pool          (N,H,W,C) -> pooled (N,H/2,W/2,C) + index; odd H, W floor
 //   unpool        pooled + index -> (N,Ho,Wo,C): a gather, each thread owns V
@@ -29,13 +31,16 @@
 // Selection rule, equal to torch's max_pool2d (the port's plain version): the
 // window is scanned (0,0),(0,1),(1,0),(1,1) and a pixel takes over when it is
 // strictly greater than the running maximum (compared in f32, exact for
-// bf16) or is NaN. The pooled value is the selected element itself.
+// bf16 and int8) or is NaN. The pooled value is the selected element itself.
+// On int8 values ties are common: the first maximal pixel wins, which is the
+// index the JAX package's argmax pair gives (ops/pooling.py::
+// max_pool_2x2_with_argmax). The unpool's fill 0 is quantize(0).
 //
 // What bounds it on the H100: bytes. Each kernel reads its inputs once and
 // writes its output once, with no arithmetic to speak of (at 3.35 TB/s the
 // stage-1 pool of a batch-32 SegNet step, 0.97 GB, takes >= 0.29 ms). The
 // design keeps each access 16 bytes wide where it can: V = 16 / sizeof(T)
-// channels per thread (8 for bf16) when C % V == 0 and every pointer is
+// channels per thread (8 for bf16, 16 for int8) when C % V == 0 and every pointer is
 // 16-byte aligned (all SegNet shapes, C = 64..512), so the four window loads
 // and the pooled store are one 16-byte access each, the int32 index store two,
 // the int8 phase one 8-byte access. Neighbouring threads own neighbouring
@@ -70,6 +75,9 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return static_cast<float>(v);
+}
 
 template <typename T>
 __device__ __forceinline__ T zero();
@@ -79,6 +87,8 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
   return __float2bfloat16(0.0f);
 }
+template <>
+__device__ __forceinline__ int8_t zero<int8_t>() { return 0; }
 
 // The 2x2 window whose top-left pixel is (2i, 2j) of image n, V channels
 // from c0: w[q] is window pixel q = 2*dy + dx.
@@ -287,8 +297,8 @@ cudaError_t phase_gather(const void* g, const void* k, void* out, int N,
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = f32. phase: 0 = flat int32 index (K3), 1 = int8
-// phase (K2). Each returns a cudaError_t as int (0 on success) and does not
+// dtype: 0 = bf16, 1 = f32, 2 = int8 (pool and unpool only). phase: 0 =
+// flat int32 index (K3), 1 = int8 phase (K2). Each returns a cudaError_t as int (0 on success) and does not
 // synchronize.
 
 extern "C" int maxpool2x2_pool(const void* x, void* out, void* idx,
@@ -302,9 +312,14 @@ extern "C" int maxpool2x2_pool(const void* x, void* out, void* idx,
   if (dtype == 0)
     err = phase ? pool<__nv_bfloat16, int8_t>(x, out, idx, N, H, W, C, st)
                 : pool<__nv_bfloat16, int32_t>(x, out, idx, N, H, W, C, st);
-  else
+  else if (dtype == 1)
     err = phase ? pool<float, int8_t>(x, out, idx, N, H, W, C, st)
                 : pool<float, int32_t>(x, out, idx, N, H, W, C, st);
+  else if (dtype == 2)
+    err = phase ? pool<int8_t, int8_t>(x, out, idx, N, H, W, C, st)
+                : pool<int8_t, int32_t>(x, out, idx, N, H, W, C, st);
+  else
+    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 
@@ -321,11 +336,18 @@ extern "C" int maxpool2x2_unpool(const void* x, const void* idx, void* out,
                                                 Ho, Wo, st)
                 : unpool<__nv_bfloat16, int32_t>(x, idx, out, N, H2, W2, C,
                                                  Ho, Wo, st);
-  else
+  else if (dtype == 1)
     err = phase ? unpool<float, int8_t>(x, idx, out, N, H2, W2, C, Ho, Wo,
                                         st)
                 : unpool<float, int32_t>(x, idx, out, N, H2, W2, C, Ho, Wo,
                                          st);
+  else if (dtype == 2)
+    err = phase ? unpool<int8_t, int8_t>(x, idx, out, N, H2, W2, C, Ho, Wo,
+                                         st)
+                : unpool<int8_t, int32_t>(x, idx, out, N, H2, W2, C, Ho, Wo,
+                                          st);
+  else
+    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 
@@ -337,8 +359,9 @@ extern "C" int maxpool2x2_phase_gather(const void* g, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      dtype == 0
-          ? phase_gather<__nv_bfloat16>(g, k, out, N, H, W, C, H2, W2, st)
-          : phase_gather<float>(g, k, out, N, H, W, C, H2, W2, st);
+      dtype == 0   ? phase_gather<__nv_bfloat16>(g, k, out, N, H, W, C, H2,
+                                                 W2, st)
+      : dtype == 1 ? phase_gather<float>(g, k, out, N, H, W, C, H2, W2, st)
+                   : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -17,7 +17,11 @@ conv block runs the fused kernel (K4, at f32 its split-TF32 instance), so
 ``-pallas`` (the JAX CLI's switch to its fused kernels) changes nothing
 here. ``-dataset voc2012``
 evaluates the VOC val cache with VOC's mean and std (eval.py:61-65).
-``-int8`` raises ``NotImplementedError`` naming its ROADMAP.md item.
+``-int8`` (eval.py:84-100) calibrates on up to 4 validation batches through
+the eval normalize and quantizes the model in place (``ops/quant.py``):
+every block with 64 or more output channels then runs ``conv3x3_int8`` and
+emits the compute dtype (f32 by default) where it feeds no int8 block, and
+the head stays on K4.
 """
 
 from __future__ import annotations
@@ -33,13 +37,13 @@ from pytorch_camvid_tpu_torch.data.camvid import CamVid
 from pytorch_camvid_tpu_torch.data.pipeline import DeviceDataLoader
 from pytorch_camvid_tpu_torch.data.voc2012 import VOC2012Aug
 from pytorch_camvid_tpu_torch.models import get_model, spec_from_state_dict
+from pytorch_camvid_tpu_torch.ops.quant import calibrate, quantize_model
 from pytorch_camvid_tpu_torch.ops.metrics import (
     iou_from_confusion, precision_recall_from_confusion)
 from pytorch_camvid_tpu_torch.train import TrainState, make_eval_step
 from pytorch_camvid_tpu_torch.train.checkpoint import load_weights
 from pytorch_camvid_tpu_torch.train.loop import (DTYPES, check_device,
-                                                 eval_normalize, evaluate,
-                                                 not_ported)
+                                                 eval_normalize, evaluate)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -56,7 +60,9 @@ def parser() -> argparse.ArgumentParser:
                    help="the JAX CLI's fused-kernel switch; on CUDA the "
                    "port always runs its fused kernel")
     p.add_argument("-int8", action="store_true", default=False,
-                   help="post-training int8 quantization (not ported yet)")
+                   help="post-training int8 quantization: calibrate on "
+                   "the first 4 val batches, then run every block of 64 or "
+                   "more output channels on the int8 kernel")
     p.add_argument("-image_size", type=int, nargs=2, default=None,
                    metavar=("W", "H"),
                    help="working size in cv2 (W, H) order; default "
@@ -78,8 +84,6 @@ def main(argv=None) -> dict:
     loss)."""
     args = parser().parse_args(argv)
     dev = check_device(args.device, args.dtype)
-    if args.int8:
-        raise not_ported("-int8", "int8")
     dtype = DTYPES[args.dtype]
     image_size = (tuple(args.image_size) if args.image_size
                   else settings.IMAGE_SIZE)
@@ -96,16 +100,23 @@ def main(argv=None) -> dict:
     model = get_model(args.net, spec=spec_from_state_dict(args.net,
                                                           state_dict))
     model.load_state_dict(state_dict, strict=True)
-    state = TrainState(model=model.to(dev), opt_state={}, step=0,
+    model = model.to(dev).eval()
+    normalize = eval_normalize(mean, std, dtype, dev)
+    loader = DeviceDataLoader(valid_dataset.images, valid_dataset.labels,
+                              args.b, device=dev)
+    if args.int8:
+        batches = []
+        for images, _ in loader.epoch(0):
+            batches.append(normalize(images))
+            if len(batches) >= 4:
+                break
+        quantize_model(model, calibrate(model, batches))
+    state = TrainState(model=model, opt_state={}, step=0,
                        generator=torch.Generator())
     eval_fn = make_eval_step(valid_dataset.class_num,
                              ignore_index=valid_dataset.ignore_index,
                              loss_ignore_index=255, compute_dtype=dtype)
-    loader = DeviceDataLoader(valid_dataset.images, valid_dataset.labels,
-                              args.b, device=dev)
-    loss_sum, cm, n_batches = evaluate(
-        state, eval_fn, loader,
-        eval_normalize(mean, std, dtype, dev))
+    loss_sum, cm, n_batches = evaluate(state, eval_fn, loader, normalize)
 
     cmt = torch.from_numpy(cm)
     iou = iou_from_confusion(cmt).numpy()

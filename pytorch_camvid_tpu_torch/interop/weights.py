@@ -11,7 +11,11 @@ Pure numpy and torch.
 - ``train_state_from_jax``: a whole JAX ``TrainState`` (params, BN state,
   optimizer state, step) carried into the port's ``TrainState``;
 - ``jax_variables_from_model``: the port's parameters and BN running stats
-  back in JAX's layout as numpy, so tests compare after N steps.
+  back in JAX's layout as numpy, so tests compare after N steps;
+- ``quantized_from_jax``: the int8 tree of the JAX package's
+  ``ops/quant.py::quantize_variables`` carried into a model's blocks
+  (``amax_to_jax`` / ``amax_from_jax`` carry a calibration's amax tree
+  across), so both packages serve from the same quantized weights.
 
 The JAX package keeps a model as ``{"params": {stage: [block, ...]},
 "state": {stage: [bn_state, ...]}}`` with block = {w (HWIO), b, scale,
@@ -112,6 +116,34 @@ def jax_variables_from_model(model) -> dict:
                      for i in range(len(pairs))]
              for stage, pairs in model.spec}
     return {"params": params, "state": state}
+
+
+def quantized_from_jax(params_q_np, model) -> None:
+    """Put the int8 blocks of a JAX ``quantize_variables(...)["params"]``
+    tree (numpy leaves: w_q HWIO int8, s_w, s_x, b_eff and, on fused
+    edges, s_out) into ``model``'s blocks, in place; the blocks JAX left
+    float (no w_q) stay float, with the model's own weights."""
+    for stage, blocks in params_q_np.items():
+        for blk, p in zip(model.stage_blocks(stage), blocks):
+            if "w_q" not in p:
+                continue
+            t = {k: torch.from_numpy(np.array(p[k]))
+                 for k in ("w_q", "s_w", "s_x", "b_eff", "s_out") if k in p}
+            blk.set_quantized(t["w_q"], t["s_w"], t["s_x"], t["b_eff"],
+                              t.get("s_out"))
+
+
+def amax_to_jax(amax) -> dict:
+    """{stage: [f32 scalar tensor]} (``ops/quant.py::calibrate``) ->
+    {stage: [np.float32 0-d array]}, the JAX calibration's tree."""
+    return {stage: [np.array(a.detach().cpu().numpy(), np.float32)
+                    for a in blocks] for stage, blocks in amax.items()}
+
+
+def amax_from_jax(tree, device="cpu") -> dict:
+    """The inverse of ``amax_to_jax``: f32 scalar tensors on ``device``."""
+    return {stage: [torch.tensor(np.asarray(a, np.float32), device=device)
+                    for a in blocks] for stage, blocks in tree.items()}
 
 
 def train_state_from_jax(jax_state, model, generator: Optional[

@@ -46,7 +46,10 @@ def remat_call(fn: Callable, x: torch.Tensor, plain: bool,
 
 class Stage(nn.Sequential):
     """Conv blocks run in order; ``plain`` goes to each. With ``remat``
-    the stage is the unit that is checkpointed."""
+    the stage is the unit that is checkpointed. In an int8-quantized model
+    (``ops/quant.py``) an int8 tensor passes from block to block inside a
+    stage; the last block emits the compute dtype unless a pool edge is
+    fused."""
 
     def forward(self, x, plain: bool = False, remat: bool = False):
         return remat_call(self._blocks, x, plain, remat)
@@ -87,6 +90,11 @@ class SegmentationNet(nn.Module):
         """The conv blocks in spec order."""
         return [m for m in self.modules() if isinstance(m, ConvBNReLU)]
 
+    def stage_blocks(self, stage: str) -> List[ConvBNReLU]:
+        """The conv blocks of ``stage`` (a spec entry), in order."""
+        return [m for m in getattr(self, stage).modules()
+                if isinstance(m, ConvBNReLU)]
+
     def head_names(self) -> Dict[str, str]:
         """``block_names`` of the head, the last block: the 'last layer'
         whose BN gradient norms the reference logs (utils.py:15-36)."""
@@ -98,7 +106,8 @@ class SegmentationNet(nn.Module):
         """Fold BN and lay out every block's weight for the fused kernel in
         ``dtype`` once, ahead of eval-mode forwards."""
         for blk in self.blocks():
-            blk.prepare(dtype)
+            if not blk.quantized:
+                blk.prepare(dtype)
         return self
 
 

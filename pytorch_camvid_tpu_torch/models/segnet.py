@@ -17,7 +17,10 @@ loads with ``strict=True``. 26 blocks, 29.45M parameters at full width.
 NHWC in, f32 logits out, computed in the input's dtype. The pools:
 - eval mode: K3, ``ops/fused_pool.py::max_pool_2x2_argmax`` and
   ``max_unpool_2x2`` (flat int32 indices), as the JAX model's
-  ``use_pallas=True`` path;
+  ``use_pallas=True`` path; in an int8-quantized model every fused pool
+  edge (``ops/quant.py::fuse_pool_edges``) carries the next block's int8
+  operand, and K3 runs on the int8 values (ties to the first maximum, as
+  JAX's argmax pair, its quantized default);
 - train mode: K2, ``pool_phase_train`` and ``unpool_phase_train`` (int8
   phases, kernels forward and backward), as JAX's TPU default
   ``pallas_phase``; the convs run K1 (``ops/conv_train.py``).
@@ -37,7 +40,7 @@ import torch
 from pytorch_camvid_tpu_torch.models.common import (SegmentationNet, Spec,
                                                     Stage, halvings)
 from pytorch_camvid_tpu_torch.ops import fused_pool, pooling
-from pytorch_camvid_tpu_torch.ops.conv import BasicConv
+from pytorch_camvid_tpu_torch.ops.conv import BasicConv, computing_in
 
 
 def segnet_spec(in_ch: int, num_classes: int) -> Spec:
@@ -125,14 +128,15 @@ class SegNet(SegmentationNet):
         """x: (N,H,W,C) float -> f32 logits (N,H,W,class_num), computed in
         x's dtype; ``remat=True`` recomputes each stage in the backward."""
         pool, unpool = self._pools(plain)
-        skips = []  # (index, pre-pool (H, W)) per encoder stage
-        for k in range(1, 6):
-            x = getattr(self, f"encoder{k}")(x, plain, remat)
-            hw = (x.shape[1], x.shape[2])
-            x, idx = pool(x)
-            skips.append((idx, hw))
-        for k in range(5, 0, -1):
-            idx, hw = skips[k - 1]
-            x = getattr(self, f"decoder{k}")(unpool(x, idx, hw), plain,
-                                             remat)
+        with computing_in(x.dtype):
+            skips = []  # (index, pre-pool (H, W)) per encoder stage
+            for k in range(1, 6):
+                x = getattr(self, f"encoder{k}")(x, plain, remat)
+                hw = (x.shape[1], x.shape[2])
+                x, idx = pool(x)
+                skips.append((idx, hw))
+            for k in range(5, 0, -1):
+                idx, hw = skips[k - 1]
+                x = getattr(self, f"decoder{k}")(unpool(x, idx, hw), plain,
+                                                 remat)
         return x.float()

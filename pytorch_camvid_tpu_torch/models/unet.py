@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from pytorch_camvid_tpu_torch.models.common import (SegmentationNet, Spec,
                                                     Stage, halvings,
                                                     remat_call)
-from pytorch_camvid_tpu_torch.ops.conv import ConvBNReLU
+from pytorch_camvid_tpu_torch.ops.conv import ConvBNReLU, computing_in
 from pytorch_camvid_tpu_torch.ops.pooling import max_pool_2x2
 from pytorch_camvid_tpu_torch.ops.resize import (
     upsample2x_bilinear_align_corners)
@@ -182,15 +182,19 @@ class UNet(SegmentationNet):
         """x: (N,H,W,C) float -> f32 logits (N,H,W,class_num), computed in
         x's dtype. ``plain=True`` runs every block's plain version, in eval
         and in train mode: the reference for the kernel path. ``remat=True``
-        recomputes each stage in the backward."""
-        skips = []
-        for k in range(1, 6):
-            x = getattr(self, f"down{k}")(x, plain, remat)
-            if k < 5:
-                skips.append(x)
-                x = max_pool_2x2(x)
-        for k, skip in zip(range(1, 5), reversed(skips)):
-            x = getattr(self, f"upsample{k}")(x, plain, remat)
-            x = torch.cat([pad_to_match(x, skip), skip], dim=-1)
-            x = getattr(self, f"up{k}")(x, plain, remat)
-        return remat_call(self.output, x, plain, remat).float()
+        recomputes each stage in the backward. In an int8-quantized model
+        (``ops/quant.py``) int8 passes only inside the down and up stages:
+        every stage ends in the compute dtype, so the skips, the pools and
+        the bilinear upsample stay float."""
+        with computing_in(x.dtype):
+            skips = []
+            for k in range(1, 6):
+                x = getattr(self, f"down{k}")(x, plain, remat)
+                if k < 5:
+                    skips.append(x)
+                    x = max_pool_2x2(x)
+            for k, skip in zip(range(1, 5), reversed(skips)):
+                x = getattr(self, f"upsample{k}")(x, plain, remat)
+                x = torch.cat([pad_to_match(x, skip), skip], dim=-1)
+                x = getattr(self, f"up{k}")(x, plain, remat)
+            return remat_call(self.output, x, plain, remat).float()

@@ -28,6 +28,20 @@ compute from the (conv, bn) pair that ``conv_bn()`` returns.
   except inside ``recomputing()``: there the block is a checkpoint's
   recompute of a forward that already updated them (``models/common.py::
   remat_call``), with the same batch, so the same statistics.
+- Calibration (JAX ``ops/conv.py:188-193``): inside ``calibrating()`` an
+  eval-mode block runs its ordinary forward and also records the running
+  max|input| in f32 (``calib_amax``, which ``ops/quant.py::calibrate``
+  sets up and reads).
+- int8 (``set_quantized``, from ``ops/quant.py::quantize_model``; JAX's
+  ``w_q`` dispatch, ``ops/conv.py:137-141``): the block keeps ``w_q``
+  (HWIO int8), ``s_w``, ``s_x``, ``b_eff``, the optional ``s_out`` and the
+  kernel's packed weights ``w_k`` as non-persistent buffers, so
+  ``.to(device)`` moves them and the reference-named state_dict stays as it
+  is, and runs ``quant.quantized_block_apply`` (``conv3x3_int8`` on CUDA).
+  It takes an int8 input from its producer as it is and emits int8 where it
+  has ``s_out``, else the compute dtype: the input's, or for an int8 input
+  the one the model's forward set (``computing_in``). In train mode it
+  raises; loading a state_dict makes it a float block again.
 
 Tensors are NHWC at this interface, as in the JAX package.
 """
@@ -49,6 +63,8 @@ from pytorch_camvid_tpu_torch.ops.initializers import conv_init_
 BN_MOMENTUM = 0.1  # torch: running = (1 - m) * running + m * batch
 
 _recompute = threading.local()
+_calibrate = threading.local()
+_compute = threading.local()
 
 
 @contextlib.contextmanager
@@ -68,6 +84,31 @@ def is_recomputing() -> bool:
     return getattr(_recompute, "on", False)
 
 
+@contextlib.contextmanager
+def calibrating():
+    """Inside the block, eval-mode float blocks also record the running
+    max|input| (``ops/quant.py::calibrate``)."""
+    before = getattr(_calibrate, "on", False)
+    _calibrate.on = True
+    try:
+        yield
+    finally:
+        _calibrate.on = before
+
+
+@contextlib.contextmanager
+def computing_in(dtype: torch.dtype):
+    """The compute dtype of a model's forward, for int8 blocks whose
+    input is int8 and whose output is not (the models enter this with
+    their input's dtype)."""
+    before = getattr(_compute, "dtype", None)
+    _compute.dtype = dtype
+    try:
+        yield
+    finally:
+        _compute.dtype = before
+
+
 class ConvBNReLU(nn.Module):
     def __init__(self, cin: int, cout: int,
                  generator: Optional[torch.Generator] = None):
@@ -75,6 +116,8 @@ class ConvBNReLU(nn.Module):
         self._build(cin, cout)
         conv_init_(self.conv_bn()[0], generator)
         self._kernel_args: Optional[Tuple[torch.Tensor, ...]] = None
+        self.calib_amax: Optional[torch.Tensor] = None
+        self.quantized = False
 
     def _build(self, cin: int, cout: int) -> None:
         self.conv = nn.Sequential(nn.Conv2d(cin, cout, 3, padding=1),
@@ -89,7 +132,49 @@ class ConvBNReLU(nn.Module):
 
     def _load_from_state_dict(self, *args, **kwargs):
         self._kernel_args = None
+        self.clear_quantized()
         super()._load_from_state_dict(*args, **kwargs)
+
+    _QBUFFERS = ("w_q", "s_w", "s_x", "b_eff", "s_out", "w_k")
+
+    @torch.no_grad()
+    def set_quantized(self, w_q: torch.Tensor, s_w: torch.Tensor,
+                      s_x: torch.Tensor, b_eff: torch.Tensor,
+                      s_out: Optional[torch.Tensor] = None) -> None:
+        """Make this an int8 block: ``w_q`` (3,3,Cin,Cout) int8, ``s_w``
+        and ``b_eff`` (Cout,) f32, ``s_x`` and ``s_out`` f32 scalars; the
+        kernel's packed weights are made here, once."""
+        from pytorch_camvid_tpu_torch.ops.fused_conv_int8 import pack_weights
+        conv = self.conv_bn()[0]
+        if tuple(w_q.shape) != (3, 3, conv.in_channels, conv.out_channels):
+            raise ValueError(f"w_q {tuple(w_q.shape)} does not fit the "
+                             f"block's {conv.in_channels}->"
+                             f"{conv.out_channels}")
+        dev = conv.weight.device
+        for name, t in (("w_q", w_q), ("s_w", s_w), ("s_x", s_x),
+                        ("b_eff", b_eff), ("s_out", s_out)):
+            if t is not None:
+                t = t.to(dev, torch.int8 if name == "w_q"
+                         else torch.float32).contiguous()
+            self.register_buffer(name, t, persistent=False)
+        self.register_buffer("w_k", pack_weights(self.w_q), persistent=False)
+        self.quantized = True
+        self._kernel_args = None   # K4's layout is not used any more
+
+    def clear_quantized(self) -> None:
+        """Back to the float block (its float weights were kept)."""
+        if self.quantized:
+            for name in self._QBUFFERS:
+                delattr(self, name)
+            self.quantized = False
+
+    def qparams(self) -> dict:
+        """The int8 block's params as ``quant.quantized_block_apply``
+        takes them."""
+        p = {name: getattr(self, name) for name in self._QBUFFERS}
+        if p["s_out"] is None:
+            del p["s_out"]
+        return p
 
     @torch.no_grad()
     def prepare(self, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
@@ -108,11 +193,30 @@ class ConvBNReLU(nn.Module):
         """x: (N,H,W,Cin) -> (N,H,W,Cout) in x's dtype. ``plain=True`` runs
         the plain versions of the kernels on any device: the reference the
         kernel path is checked against."""
+        if self.quantized:
+            return self._int8_forward(x, plain)
         if self.training:
             return self._train_forward(x, plain)
+        if getattr(_calibrate, "on", False):
+            self.calib_amax = torch.maximum(self.calib_amax,
+                                            x.abs().amax().float())
         w, a, b = self.prepare(x.dtype)
         fn = conv3x3_bn_relu_plain if plain else conv3x3_bn_relu
         return fn(x.contiguous(), w, a, b)
+
+    def _int8_forward(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
+        from pytorch_camvid_tpu_torch.ops.quant import quantized_block_apply
+        if self.training:
+            raise RuntimeError("int8-quantized blocks are serving-only: "
+                               "call eval() first")
+        dtype = x.dtype
+        if dtype == torch.int8:
+            dtype = getattr(_compute, "dtype", None)
+            if dtype is None and self.s_out is None:
+                raise ValueError("an int8 input to a block that emits the "
+                                 "compute dtype needs computing_in(dtype) "
+                                 "(the models' forwards set it)")
+        return quantized_block_apply(self.qparams(), x, dtype, plain)
 
     def _train_forward(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
         conv, bn = self.conv_bn()

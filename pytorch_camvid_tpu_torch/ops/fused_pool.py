@@ -17,7 +17,9 @@ kernels (``csrc/maxpool2x2.cu``): counterpart of
 Each wrapper runs its plain version (``ops/pooling.py``) on a CPU tensor; on
 a CUDA tensor it launches its kernel or raises, and counts the launch in
 ``.launches``. Kernel and plain version agree bit for bit, NaN included
-(``ops/pooling.py`` states the selection rule). bf16 and f32 are taken.
+(``ops/pooling.py`` states the selection rule). bf16 and f32 are taken,
+and by K3 also int8 (the int8-quantized SegNet's fused pool edges; ties go
+to the first maximum, as on the other types).
 """
 
 from __future__ import annotations
@@ -31,12 +33,19 @@ import torch
 from pytorch_camvid_tpu_torch.ops import cuda_build, pooling
 
 SOURCE = cuda_build.CSRC / "maxpool2x2.cu"
-_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+K2_DTYPES = (torch.bfloat16, torch.float32)
+K3_DTYPES = K2_DTYPES + (torch.int8,)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load(SOURCE)
+    return bind(cuda_build.load(SOURCE))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C entry points of a library built from ``maxpool2x2.cu`` (or an
+    edit of it, chip_faults.py), typed."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.maxpool2x2_pool.argtypes = [p] * 3 + [i] * 6 + [p]
     lib.maxpool2x2_unpool.argtypes = [p] * 3 + [i] * 8 + [p]
@@ -47,15 +56,18 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _on_cuda(name: str, x: torch.Tensor, *others: torch.Tensor) -> bool:
+def _on_cuda(name: str, x: torch.Tensor, *others: torch.Tensor,
+             dtypes=K2_DTYPES) -> bool:
     """False for a CPU tensor (the caller runs the plain version); True
     when the kernel can take the tensors; raises otherwise."""
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {x.device}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"{name} kernel takes bf16 or f32, got {x.dtype}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name} kernel takes "
+                        f"{', '.join(str(d)[6:] for d in dtypes)}, got "
+                        f"{x.dtype}")
     for t in (x,) + others:
         if t.dim() != 4:
             raise ValueError(f"{name}: tensors must be NHWC, got "
@@ -115,7 +127,7 @@ def max_pool_2x2_argmax(x: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(pooled, flat int32 index y*W + x) of an NHWC tensor; odd sizes
     floor."""
-    if not _on_cuda("max_pool_2x2_argmax", x):
+    if not _on_cuda("max_pool_2x2_argmax", x, dtypes=K3_DTYPES):
         return pooling.max_pool_2x2_with_argmax(x)
     out = _pool("max_pool_2x2_argmax", x, phase=False)
     max_pool_2x2_argmax.launches += 1
@@ -125,7 +137,7 @@ def max_pool_2x2_argmax(x: torch.Tensor
 def max_unpool_2x2(x: torch.Tensor, idx: torch.Tensor,
                    out_hw: Tuple[int, int]) -> torch.Tensor:
     """Each pooled value at its flat index in an (Ho, Wo) plane of zeros."""
-    if not _on_cuda("max_unpool_2x2", x, idx):
+    if not _on_cuda("max_unpool_2x2", x, idx, dtypes=K3_DTYPES):
         return pooling.max_unpool_2x2(x, idx, out_hw)
     out = _unpool("max_unpool_2x2", x, idx, out_hw, phase=False)
     max_unpool_2x2.launches += 1

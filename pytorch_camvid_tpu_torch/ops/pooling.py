@@ -21,6 +21,10 @@ package's XLA pair also lets NaN win (the first); its Pallas kernels do not
 
 Odd sizes floor on the pool (45 -> 22) and zero-pad on the unpool
 (22 -> 45): the last row or column is never selected.
+
+int8 (the quantized SegNet's fused pool edges): the pair runs on the values
+as f32, which is exact, and casts back; ties, common on int8 values, go to
+the first maximum, as JAX's argmax pair gives them.
 """
 
 from __future__ import annotations
@@ -45,6 +49,9 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
 
 
 def _pool_int64(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    if x.dtype == torch.int8:
+        y, idx = _pool_int64(x.float())
+        return y.to(torch.int8), idx
     y, idx = F.max_pool2d(_nchw(x), 2, 2, return_indices=True)
     return _nhwc(y), _nhwc(idx)
 
@@ -80,6 +87,8 @@ def max_unpool_2x2(x: torch.Tensor, idx: torch.Tensor,
                    out_hw: Tuple[int, int]) -> torch.Tensor:
     """Place each pooled value at its flat index in an (Ho, Wo) plane of
     zeros (``F.max_unpool2d``, which takes int64 indices)."""
+    if x.dtype == torch.int8:
+        return max_unpool_2x2(x.float(), idx, out_hw).to(torch.int8)
     y = F.max_unpool2d(_nchw(x), _nchw(idx).long(), 2, 2,
                        output_size=tuple(out_hw))
     return _nhwc(y)

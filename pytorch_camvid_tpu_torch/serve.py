@@ -4,13 +4,16 @@
 Usage:
     python -m pytorch_camvid_tpu_torch.serve -weight model.pth \
         -input imgs/ -output masks/ [-net unet] [-b 8] [-c 12] [-color] \
-        [-device cuda]
+        [-int8] [-device cuda]
 
 Writes ``<stem>_mask.png`` (class indices) and, with ``-color``,
 ``<stem>_color.png`` (12-class palette) per input image. Takes a reference
 ``.pth`` or a ``.ckpt.npz`` of either package. ``-device`` names where the model runs (default
 ``cuda``); without a CUDA device the default fails instead of running on
-the CPU.
+the CPU. ``-int8`` quantizes the model after post-training calibration on
+the served images (``Predictor.quantize_int8``, as the JAX CLI's
+serve.py:111-112), so every block of 64 or more output channels runs the
+int8 kernel.
 """
 
 from __future__ import annotations
@@ -53,6 +56,11 @@ def main(argv=None):
                         help="class number")
     parser.add_argument("-color", action="store_true",
                         help="also write palette-colorized masks")
+    parser.add_argument("-int8", action="store_true",
+                        help="post-training int8 quantization: calibrate "
+                        "on the request's first images, then run every "
+                        "block of 64 or more output channels on the int8 "
+                        "kernel")
     parser.add_argument("-device", type=str, default="cuda",
                         help="torch device the model runs on")
     args = parser.parse_args(argv)
@@ -84,6 +92,8 @@ def main(argv=None):
             images = [cv2.resize(i, (w, h), interpolation=cv2.INTER_LINEAR)
                       for i in images]
         batch = np.stack(images)
+        if args.int8:
+            predictor.quantize_int8(batch)
         t0 = time.perf_counter()
         masks = predictor.predict(batch)
         dt = time.perf_counter() - t0

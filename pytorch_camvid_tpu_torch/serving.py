@@ -14,10 +14,15 @@ pytorch_camvid_tpu/serving.py).
 - Every conv block runs the fused Hopper kernel (ops/fused_conv.py); the BN
   fold and the kernel's weight layout are prepared once, at construction.
   SegNet's pools and unpools run K3 (ops/fused_pool.py).
+- ``quantize_int8`` (post-training int8 quantization, ops/quant.py)
+  calibrates on a few batches of representative images and turns the model
+  into an int8 one in place: every block with 64 or more output channels
+  then runs ``conv3x3_int8`` (ops/fused_conv_int8.py), the head stays on K4
+  in the compute dtype, and SegNet's pools run K3 on int8 values.
 
 Not carried over from the JAX Predictor: the bucketed dynamic resize (it
 bounds jit's compile cache; eager PyTorch has none, so any source size is
-resized directly, with the same values), the device mesh, int8 and StableHLO
+resized directly, with the same values), the device mesh and StableHLO
 export (ROADMAP.md).
 
 Example:
@@ -36,6 +41,7 @@ import torch
 from pytorch_camvid_tpu_torch.config import settings
 from pytorch_camvid_tpu_torch.data.normalize import to_tensor_normalize
 from pytorch_camvid_tpu_torch.models import get_model, spec_from_state_dict
+from pytorch_camvid_tpu_torch.ops.quant import calibrate, quantize_model
 from pytorch_camvid_tpu_torch.ops.resize import resize_bilinear_cv2
 from pytorch_camvid_tpu_torch.train.checkpoint import load_weights
 
@@ -92,17 +98,47 @@ class Predictor:
     def __exit__(self, *exc):
         self.close()
 
+    def _normalized(self, images_u8: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) uint8 BGR on the device, any H/W -> the model's
+        input at the working size: resized, normalized, compute dtype."""
+        x = images_u8
+        if tuple(x.shape[1:3]) != self.image_hw:
+            x = resize_bilinear_cv2(x.float(), self.image_hw)
+            x = x.clamp(0, 255).round().to(torch.uint8)
+        return to_tensor_normalize(x, self._mean, self._std, self._dtype)
+
+    @torch.inference_mode()
+    def quantize_int8(self, calib_images: np.ndarray,
+                      max_batches: int = 4) -> None:
+        """Post-training int8 quantization of the loaded model, in place
+        (JAX ``serving.py::Predictor.quantize_int8``). calib_images: (N, H,
+        W, 3) uint8 BGR representative inputs, any size (resized on the
+        device as ``predict`` does). Runs at most ``max_batches``
+        calibration forwards at the serving batch (a short last chunk tiled
+        up to it) to record each block's input range, then replaces the
+        blocks' weights by BN-folded per-channel int8 ones
+        (``ops/quant.py``)."""
+        if len(calib_images) == 0:
+            raise ValueError("need at least one calibration image")
+        batches = []
+        for lo in range(0, min(len(calib_images),
+                               max_batches * self._batch), self._batch):
+            chunk = calib_images[lo: lo + self._batch]
+            if len(chunk) < self._batch:   # tile up to the serving batch
+                reps = -(-self._batch // len(chunk))
+                chunk = np.concatenate([chunk] * reps)[: self._batch]
+            x = torch.from_numpy(np.ascontiguousarray(chunk)).to(
+                self.device)
+            batches.append(self._normalized(x))
+        quantize_model(self.model, calibrate(self.model, batches))
+
     @torch.inference_mode()
     def _forward(self, images_u8: torch.Tensor) -> torch.Tensor:
         """One device batch: (B, H, W, 3) uint8 BGR on the device, any H/W ->
         (B, h, w) uint8 class map at the working size, nibble-packed to
         (B, h, w/2) when packing applies."""
-        x = images_u8
-        if tuple(x.shape[1:3]) != self.image_hw:
-            x = resize_bilinear_cv2(x.float(), self.image_hw)
-            x = x.clamp(0, 255).round().to(torch.uint8)
-        x = to_tensor_normalize(x, self._mean, self._std, self._dtype)
-        m = self.model(x).argmax(dim=-1).to(torch.uint8)
+        m = self.model(self._normalized(images_u8)).argmax(dim=-1).to(
+            torch.uint8)
         if self._pack:
             m = (m[:, :, 0::2] << 4) | m[:, :, 1::2]
         return m

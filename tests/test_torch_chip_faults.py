@@ -332,3 +332,61 @@ def test_recompute_updating_bn_again_moves_each_count_twice():
             assert int(v) == 1 and int(planted[k]) == 2, k
         elif "running" in k:
             assert not torch.equal(v, planted[k]), k
+
+
+@pytest.mark.parametrize("name", sorted(chip_faults.INT8_FAULTS))
+def test_int8_fault_edits_apply(name):
+    """Each int8 fault's edits apply to the kernel source it names, once
+    each, and change it (built on the card by ``chip_faults.int8_fault``)."""
+    module, edits = chip_faults.INT8_FAULTS[name]
+    src = module.SOURCE.read_text()
+    for old, new in edits:
+        assert src.count(old) == 1 and old != new, old
+    edited = chip_faults.edited_source(name)
+    assert edited != src and all(new in edited for _, new in edits)
+
+
+def test_int8_fault_libraries_take_the_wrappers_place(monkeypatch):
+    """``int8_fault`` builds every variant once and puts the named one in
+    place of its module's library inside the block only."""
+    from pytorch_camvid_tpu_torch.ops import fused_conv_int8
+    builds = []
+    monkeypatch.setattr(chip_faults, "_INT8_LIBS", {})
+    monkeypatch.setattr(chip_faults, "_build_fault", lambda n: (
+        builds.append(n) or (n, f"lib {n}")))
+    sound = fused_conv_int8._library, fused_pool._library
+    with chip_faults.int8_fault("fmaf_epilogue"):
+        assert fused_conv_int8._library() == "lib fmaf_epilogue"
+        assert fused_pool._library is sound[1]
+    with chip_faults.int8_fault("k3_last_max"):
+        assert fused_pool._library() == "lib k3_last_max"
+    assert (fused_conv_int8._library, fused_pool._library) == sound
+    assert sorted(builds) == sorted(chip_faults.INT8_FAULTS)
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 64), (64, 64), (128, 24)])
+def test_weights_hwio_keeps_the_bytes_in_the_packed_shape(cin, cout):
+    """The unrepacked-weights fault hands the kernel HWIO's bytes in the
+    packed layout's shape: same shape and dtype, other values."""
+    from pytorch_camvid_tpu_torch.ops import fused_conv_int8
+    w = torch.randint(-127, 128, (3, 3, cin, cout), dtype=torch.int8,
+                      generator=torch.Generator().manual_seed(cin))
+    got = chip_faults.weights_hwio(w)
+    want = fused_conv_int8.pack_weights(w)
+    assert got.shape == want.shape and got.dtype == torch.int8
+    assert torch.equal(got.view(-1)[:w.numel()], w.view(-1))
+    assert not torch.equal(got, want)
+
+
+def test_fmaf_epilogue_rounds_otherwise():
+    """The contracted epilogue rounds float(acc) * scale + bias once (an
+    FMA: exact in float64, then to f32) where the kernel rounds twice; on
+    random operands the two differ, so phase 16's bit-equality catches
+    it."""
+    rng = np.random.default_rng(0)
+    acc = rng.integers(-2 ** 20, 2 ** 20, 100000).astype(np.float32)
+    scale = rng.uniform(1e-6, 1e-4, 100000).astype(np.float32)
+    bias = rng.normal(0, 1, 100000).astype(np.float32)
+    twice = (acc * scale).astype(np.float32) + bias
+    once = (acc.astype(np.float64) * scale + bias).astype(np.float32)
+    assert (twice != once).mean() > 0.01

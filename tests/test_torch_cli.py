@@ -157,7 +157,7 @@ def tiny_run(tmp_path, monkeypatch):
 
 # ROADMAP.md Queue 1 items that are done: their flags run
 PORTED_ITEMS = {"VOC reader", "the rest of augmentation and the pipeline",
-                "remat"}
+                "remat", "int8"}
 
 
 @pytest.mark.parametrize("main,argv,item", [

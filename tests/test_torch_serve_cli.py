@@ -68,6 +68,8 @@ def test_port_imports_no_jax(tmp_path):
             "import pytorch_camvid_tpu_torch.data.synthetic\n"
             "import pytorch_camvid_tpu_torch.ops.conv_train\n"
             "import pytorch_camvid_tpu_torch.ops.fused_pool\n"
+            "import pytorch_camvid_tpu_torch.ops.quant\n"
+            "import pytorch_camvid_tpu_torch.ops.fused_conv_int8\n"
             "import pytorch_camvid_tpu_torch.ops.pooling\n"
             "import pytorch_camvid_tpu_torch.models.segnet\n"
             "import pytorch_camvid_tpu_torch.ops.loss\n"
