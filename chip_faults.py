@@ -36,9 +36,16 @@ library; so are the int8 block's and K3's int8 faults, ``INT8_FAULTS``:
 the requantize by the reciprocal alone, the epilogue contracted to an
 FMA, the pool keeping the last maximum of a tie, the input quantize by
 the reciprocal; the int8 weights without
-the K-major repack patch ``fused_conv_int8.pack_weights``). Prints each
-reading and the check that failed; exits non-zero if the sound run fails
-a check or a fault passes them all.
+the K-major repack patch ``fused_conv_int8.pack_weights``), and phase 17's
+checks of two ranks sharing the card (``dp_phase`` on UNet: the
+data-parallel step against the one-process step, the ranks against each
+other, and the H-sharded stage against the unsharded one). The ranks are
+processes of their own, so their faults are functions each rank runs
+first (``dp_phase``'s ``rank_setup``): rank 1 keeping its own gradients
+after the all-reduce, sync-BN on each rank's own moments, the loss
+divided by each rank's own sum of weights, the halo's top and bottom rows
+swapped. Prints each reading and the check that failed; exits non-zero if
+the sound run fails a check or a fault passes them all.
 """
 
 from __future__ import annotations
@@ -67,7 +74,10 @@ from pytorch_camvid_tpu_torch.ops import (conv, conv_train, cuda_build,
                                           fused_conv, fused_conv_int8,
                                           fused_conv_pair, fused_pool,
                                           layout_probes)
+from pytorch_camvid_tpu_torch.parallel import mesh as mesh_mod
+from pytorch_camvid_tpu_torch.parallel import spatial
 from pytorch_camvid_tpu_torch.train import loop
+from pytorch_camvid_tpu_torch.train import steps as steps_mod
 
 # the 13th of a step's 26 dW launches (backward order): decoder5.0's
 ZEROED_DW_CALL = 13
@@ -525,6 +535,51 @@ def weights_hwio(w_q):
 _pack_weights = fused_conv_int8.pack_weights
 
 
+# ------------------------------------------- faults run inside the ranks
+
+def rank1_keeps_its_gradients():
+    """Rank 1 takes part in the gradient all-reduce and keeps its own
+    gradients."""
+    sound = mesh_mod.Mesh.reduce_grads
+
+    def reduce_grads(self, grads, mean):
+        reduced = sound(self, grads, mean)
+        return grads if self.rank == 1 else reduced
+    mesh_mod.Mesh.reduce_grads = reduce_grads
+
+
+def bn_on_local_moments():
+    """Sync-BN off: every block normalizes by its rank's own moments."""
+    conv.sync_mesh = lambda: None
+
+
+def loss_over_local_weights():
+    """The inferred step's loss divided by the rank's own sum of weights
+    (``loss_and_grads`` without the mesh)."""
+    sound = steps_mod.loss_and_grads
+    steps_mod.loss_and_grads = lambda *args: sound(*args[:7])
+
+
+def halo_rows_swapped():
+    """Each rank's top and bottom halo rows swapped."""
+    sound = spatial.exchange_rows
+    spatial.exchange_rows = lambda top, bottom, mesh: sound(
+        top, bottom, mesh)[::-1]
+
+
+_rank_fault = [None]   # the fault dp_phase's ranks run first
+
+
+@contextlib.contextmanager
+def in_ranks(setup):
+    """Inside the block phase 17's ranks run ``setup`` first."""
+    _rank_fault[0] = setup
+    try:
+        yield
+    finally:
+        _rank_fault[0] = None
+
+
 def failed_check(run, fault) -> str:
     """The message of the chip_smoke check that ``run`` fails under
     ``fault``, or '' when it passes."""
@@ -651,11 +706,20 @@ def main() -> int:
          lambda: int8_fault("k3_last_max")),
         ("int8", "the input quantize kernel multiplying by 1/s",
          lambda: int8_fault("reciprocal_quantize")),
+        ("multi-GPU", "rank 1 keeping its own gradients after the "
+         "all-reduce", lambda: in_ranks(rank1_keeps_its_gradients)),
+        ("multi-GPU", "sync-BN on each rank's own moments",
+         lambda: in_ranks(bn_on_local_moments)),
+        ("multi-GPU", "the loss divided by the rank's own sum of weights "
+         "(255 on one rank only)", lambda: in_ranks(loss_over_local_weights)),
+        ("multi-GPU", "the halo's top and bottom rows swapped",
+         lambda: in_ranks(halo_rows_swapped)),
     ]
     ok = True
     tmp = tempfile.TemporaryDirectory()
     for path in ("serving", "training", "K5", "probes", "training run",
-                 "augment", "data side", "f32", "remat", "int8"):
+                 "augment", "data side", "f32", "remat", "int8",
+                 "multi-GPU"):
         gen = torch.Generator().manual_seed(smoke.SEED)
         if path == "serving":
             model = bench.he_model("segnet", gen).cuda().eval()
@@ -717,6 +781,11 @@ def main() -> int:
                 g = torch.Generator(device="cuda").manual_seed(smoke.SEED)
                 smoke.int8_kernel_checks(g, timed=False)
                 smoke.int8_pool_checks(g, timed=False)
+        elif path == "multi-GPU":   # phase 17 (a) on UNet and (e)
+            model = None
+
+            def run():
+                smoke.dp_phase(nets=("unet",), rank_setup=_rank_fault[0])
         else:   # phase 13's checks on phase 12's data and run A
             model = None
 

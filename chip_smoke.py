@@ -238,7 +238,41 @@ Phases (each prints its lines; any failure exits non-zero):
    on phase 12's caches and run A's checkpoint: finite figures, the int8
    mIoU beside the float one, launches, every eval int8 launch bit-equal
    to plain; and phase 12's ``bench.main`` int8 keys.
-   ``chip_faults.py`` plants five faults under (1) and (2).
+   ``chip_faults.py`` plants five faults under (1) and (2). The quantize
+   kernel's sums also time the library's call,
+   ``torch.quantize_per_tensor`` (on an f32 copy), and print the share of
+   its bytes equal to the kernel's.
+17. Multi-GPU (``parallel/``): (a) two ranks sharing cuda:0 (gloo,
+   spawned by ``parallel/launch.py::spawn``) take the data-parallel step
+   (``parallel.jit_train_step``: sync-BN, the global loss, one summed f32
+   gradient bucket) of full-width UNet at b24 and SegNet at b32, each
+   rank on its half, from the He-scaled state on the same images and
+   draws as the one-process step here: loss within ``TRAIN_LOSS_TOL``
+   (also with 255 over half of the first rank's rows, where the ranks'
+   loss denominators differ), the all-reduced gradients within phase 6's
+   limits (UNet; SegNet's printed, as phase 9), BN stats within
+   ``TRAIN_STAT_TOL``, the ranks' every leaf bit-equal after two steps
+   (SHA-256), K1 23/22/23 and 26/25/26 a rank on ``PATH_TABLE``'s paths,
+   K2 5/10/5 with every SegNet kernel call held against its plain version
+   (``shadowed_kernels``); each rank's step ms, its gradient all-reduce
+   alone and its peak memory. (b) A one-rank NCCL group: the data-parallel
+   UNet step bit-equal to the step without, and both timed in turns. (c)
+   Where two cards are visible, (a) over NCCL on both; else one line
+   says it was not run. (d) ``python -m pytorch_camvid_tpu_torch.train
+   -multihost`` in two processes set up by ``PCT_*`` on the one card
+   (gloo; a card each and NCCL where there are two), UNet b10 on phase
+   12's data for an epoch and its eval pass: rank 1 prints no
+   epoch line, one run folder, the ranks' states bit-equal (the loop's
+   check), mIoU within 0.02 and the parameter checksum within rtol 1e-3 of
+   the same run in one process, and the two-rank checkpoint resumed on one
+   rank with its step and every leaf as saved. (e) UNet's first encoder
+   stage (3->64->64, pool) at b8, H split over the two ranks of (a)
+   (``parallel/spatial.py``, a halo of two rows each side, K4): bit-equal
+   to the unsharded stage on K4, or within ``KERNEL_TOL``. (f)
+   ``Predictor(devices=["cuda:0", "cuda:0"])`` at b8, UNet and SegNet:
+   class maps bit-equal to one device's, K4 (and K3) launched once a block
+   (pool) by each replica on its half of every batch.
+   ``chip_faults.py`` plants four faults in the ranks of (a) and (e).
 In phases 8 and 9 the plain path replays the kernel path's pool choices
 (``recorded_choices``, ``replayed_choices``): a 1-ulp difference between
 the two paths' convs would otherwise flip the choice of near-tied windows
@@ -260,7 +294,9 @@ their launches on each path, ``path_launches``; K1's also the 64->21
 head's times, ``head_64_21``; the f32 ones the library call's time with
 TF32 on, ``library_tf32_ms``, and their launches on each f32 route,
 ``path_launches``; K1's pieces their launches on each path in phase 15's
-UNet remat step, ``remat_path_launches``).
+UNet remat step, ``remat_path_launches``, and each rank's launches in
+phase 17 (a), ``dp_rank_launches``; the quantize kernel its
+``library_ms`` and ``library_equal``).
 Imports neither jax nor cv2.
 """
 
@@ -273,6 +309,7 @@ import io
 import json
 import os
 import re
+import subprocess
 import sys
 import tempfile
 import time
@@ -283,11 +320,13 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_camvid_tpu_torch import (batch_sweep, bench, f32_variants,
-                                     lr_finder, mosaic_probes, perf_probe)
+                                     lr_finder, mosaic_probes, parallel,
+                                     perf_probe)
 from pytorch_camvid_tpu_torch import benchmark as benchmark_cli
 from pytorch_camvid_tpu_torch import eval as eval_cli
 from pytorch_camvid_tpu_torch import predict as predict_cli
 from pytorch_camvid_tpu_torch import serve as serve_cli
+from pytorch_camvid_tpu_torch import train as train_mod
 from pytorch_camvid_tpu_torch.config import settings
 from pytorch_camvid_tpu_torch.data import augment, camvid, native, voc2012
 from pytorch_camvid_tpu_torch.data.normalize import to_tensor_normalize
@@ -301,6 +340,7 @@ from pytorch_camvid_tpu_torch.ops import (conv_train, cuda_build, fused_conv,
 from pytorch_camvid_tpu_torch.ops import layout_probes as lp
 from pytorch_camvid_tpu_torch.ops.metrics import (confusion_matrix,
                                                   iou_from_confusion)
+from pytorch_camvid_tpu_torch.parallel import launch, multihost, spatial
 from pytorch_camvid_tpu_torch.serving import Predictor
 from pytorch_camvid_tpu_torch.train import TrainState, loop
 from pytorch_camvid_tpu_torch.train import checkpoint as ckpt
@@ -1613,6 +1653,16 @@ def m6_conv_stage() -> None:
           flush=True)
 
 
+def probe_launches_ok(launches: int, runs: int) -> bool:
+    """``runs`` probe runs' launches: each run one launch for the checked
+    call and each warm-up call, and ``mosaic_probes.ITERS`` for each
+    profiler trace ``perf_probe.time_op`` took (1 to ``TRACE_TRIES``: it
+    takes a trace again when one holds no device records)."""
+    extra = launches - runs * mosaic_probes.calls_per_probe("cuda")
+    return (extra >= 0 and extra % mosaic_probes.ITERS == 0 and extra
+            <= runs * (perf_probe.TRACE_TRIES - 1) * mosaic_probes.ITERS)
+
+
 def phase_probes(gen: torch.Generator) -> list:
     """Phase 11: the slice's entry point, ``python -m
     pytorch_camvid_tpu_torch.mosaic_probes`` (through
@@ -1634,10 +1684,14 @@ def phase_probes(gen: torch.Generator) -> list:
           f"timed)", flush=True)
     check(rc == 0, "mosaic_probes exit code")
     check([r["key"] for r in records] == _KEYS
-          and all(r["ok"] and r["launches"] == per for r in records),
+          and all(r["ok"] and probe_launches_ok(r["launches"], 1)
+                  for r in records),
           "mosaic_probes: a probe failed or its kernel launched other than "
           "once per call")
-    check(counts == {k: n * per for k, n in PROBE_WRAPPER_RUNS.items()},
+    check(set(counts) == set(PROBE_WRAPPER_RUNS)
+          and all(probe_launches_ok(counts[k], n)
+                  for k, n in PROBE_WRAPPER_RUNS.items())
+          and sum(counts.values()) == sum(r["launches"] for r in records),
           "layout probe launches in the tool's run")
     errs = probe_checks(gen)
     rec = {r["key"]: r for r in records}
@@ -1694,9 +1748,10 @@ def write_training_data(root: str) -> str:
 
 
 def run_argv(data: str) -> list:
+    """Run A's arguments: one process (``-dp 1``) on the first card."""
     return ["-net", "unet", "-b", str(RUN_BATCH), "-e", str(RUN_EPOCHS),
             "-dtype", "bfloat16", "-quiet", "-data", data, "-image_size",
-            str(HW[1]), str(HW[0])]
+            str(HW[1]), str(HW[0]), "-dp", "1"]
 
 
 def cadence(history, epochs: int, save_epoch: int) -> list:
@@ -1972,7 +2027,7 @@ LR_PLAIN_STEPS = 2   # the first steps held against the plain path
 VOC_CLASSES, VOC_PAD = 21, 30   # letterbox rows of 255 at top and bottom
 LOSS_RECOMPUTE_TOL = 1e-5   # the step's loss vs F.cross_entropy, f32
 HEAD_BATCHES = (10, 24)
-DEVICE = torch.device("cuda")   # phase 13's (a rehearsal sets the CPU)
+DEVICE = torch.device("cuda")   # phases 13 and 17 (a rehearsal sets the CPU)
 
 
 def aug_config(name: str) -> augment.AugmentConfig:
@@ -2261,7 +2316,7 @@ def voc_checks(tmp: str, dtype: str = "bfloat16") -> None:
     os.makedirs(workdir)
     argv = ["-dataset", "voc2012", "-net", "unet", "-b", str(RUN_BATCH),
             "-e", "1", "-dtype", dtype, "-quiet", "-data", data,
-            "-image_size", str(HW[1]), str(HW[0])]
+            "-image_size", str(HW[1]), str(HW[0]), "-dp", "1"]
     shadow, by_shape, losses = {}, {}, []
     torch.cuda.synchronize()
     reset_counts()
@@ -2764,9 +2819,10 @@ def f32_sums(times: dict, errs: dict) -> dict:
 
 
 def f32_argv(net: str, data: str) -> list:
-    """The train CLI at JAX's defaults (no -dtype: float32), one epoch."""
+    """The train CLI at JAX's defaults (no -dtype: float32), one epoch, one
+    process."""
     return ["-net", net, "-b", str(RUN_BATCH), "-e", "1", "-quiet", "-data",
-            data, "-image_size", str(HW[1]), str(HW[0])]
+            data, "-image_size", str(HW[1]), str(HW[0]), "-dp", "1"]
 
 
 def f32_first_step(net: str, c: dict) -> None:
@@ -3724,27 +3780,48 @@ def int8_slice(net: str, rng: np.random.Generator) -> dict:
     return out
 
 
+def library_quantize(x: torch.Tensor, s: float) -> torch.Tensor:
+    """The library's one call for the quantize: ``quantize_per_tensor``
+    (zero point 0, qint8) on an f32 copy of x (it takes f32), its int8
+    values."""
+    return torch.quantize_per_tensor(x.float(), s, 0,
+                                     torch.qint8).int_repr()
+
+
 def quantize_sums(gen: torch.Generator, slices: dict) -> dict:
     """Per model, the quantize kernel over the inputs one b8 forward
-    quantizes (recorded in ``int8_slice``) beside its plain version and
-    its byte bound (x read once, int8 written once): {net: {...}}."""
+    quantizes (recorded in ``int8_slice``) beside its plain version, its
+    byte bound (x read once, int8 written once) and the library's call
+    (``library_quantize``, which may multiply by 1/s where the kernel
+    divides: the share of its bytes equal to the kernel's is printed):
+    {net: {...}}."""
     sums = {}
     for net, sl in slices.items():
-        s = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+        s = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
              "calls": len(sl["quantized"])}
+        same = total = 0
         for shape, dtype in sl["quantized"]:
             x, sc = quantize_inputs(gen, *shape, dtype)
             s["ms"] += cuda_ms(lambda: fused_conv_int8.quantize(x, sc))
             s["plain_ms"] += cuda_ms(
                 lambda: fused_conv_int8.quantize_plain(x, sc))
+            sf = float(sc)
+            s["library_ms"] += cuda_ms(lambda: library_quantize(x, sf))
             s["bound_ms"] += (x.numel() * (x.element_size() + 1)
                               / bench.H100_HBM_RATE * 1e3)
+            same += int((library_quantize(x, sf)
+                         == fused_conv_int8.quantize(x, sc)).sum())
+            total += x.numel()
             del x
+        s["library_equal"] = same / total
         sums[net] = s
         print(f"{net} quantize kernel over the {s['calls']} inputs a b{BATCH} "
               f"int8 forward quantizes: {s['ms']:.3f} ms (plain "
               f"{s['plain_ms']:.3f}, bound {s['bound_ms']:.3f} by bytes: "
-              f"{s['bound_ms'] / s['ms']:.2f} of it)", flush=True)
+              f"{s['bound_ms'] / s['ms']:.2f} of it; library "
+              f"quantize_per_tensor on an f32 copy {s['library_ms']:.3f} ms, "
+              f"its bytes equal to the kernel's on {s['library_equal']:.6f} "
+              f"of {total})", flush=True)
     torch.cuda.empty_cache()
     return sums
 
@@ -3877,9 +3954,10 @@ def int8_entries(r: dict) -> list:
     """The JSON entries of conv3x3_int8 and the quantize kernel: UNet's
     sums over its quantized blocks (its quantized inputs), launches from
     UNet's int8 slice; SegNet's sums beside. No single PyTorch call
-    computes either (no int8 conv on CUDA; the quantize is five stock
-    ops), so ``library_ms`` is null; the conv's yardsticks are keys of
-    their own."""
+    computes the conv (no int8 conv on CUDA), so its ``library_ms`` is
+    null and its yardsticks are keys of their own; the quantize's is
+    ``quantize_per_tensor`` (``library_quantize``), with the share of its
+    bytes equal to the kernel's, ``library_equal``."""
     u, s = r["sums"]["unet"], r["sums"]["segnet"]
     launches = r["slices"]["unet"]["launches"]
     qu, qs = r["quantize"]["unet"], r["quantize"]["segnet"]
@@ -3889,7 +3967,8 @@ def int8_entries(r: dict) -> list:
         "replaces": "pytorch_camvid_tpu/ops/quant.py:275",
         "launches": launches["quantize"], "max_abs_err": 0.0,
         "ms": qu["ms"], "plain_ms": qu["plain_ms"],
-        "bound_ms": qu["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "bound_ms": qu["bound_ms"], "bound_by": "bytes",
+        "library_ms": qu["library_ms"], "library_equal": qu["library_equal"],
         "segnet": {**qs, "launches":
                    r["slices"]["segnet"]["launches"]["quantize"]}}
     return [{"name": "conv3x3_int8", "route": "cuda",
@@ -3905,6 +3984,527 @@ def int8_entries(r: dict) -> list:
             "segnet": {**s, "launches":
                        r["slices"]["segnet"]["launches"]["conv3x3_int8"]}},
             quantize]
+
+
+# --------------------------------------------------- phase 17: multi-GPU
+
+DP_RANKS = 2
+DP_TIMED = 3          # timed steps of each rank after its two checked ones
+MH_BATCH = 10         # (d): the train CLI's global batch
+HALO_BATCH = 8
+MH_MIOU_TOL, MH_CHECKSUM_RTOL = 0.02, 1e-3   # JAX's tests/test_multihost.py
+DP_TIMEOUT_S = 300
+
+
+def dp_batch(net: str, dev, uneven: bool = False) -> tuple:
+    """(a)'s global batch, phase 6's / 9's; ``uneven``: with 255 (kept out
+    of the loss) over the top half of the first rank's images, so the
+    ranks' loss denominators differ."""
+    images, labels = bench.resident_batch(TRAIN_BATCH[net], HW, SEED, dev)
+    if uneven:
+        labels = labels.clone()
+        labels[: TRAIN_BATCH[net] // DP_RANKS, : HW[0] // 2] = 255
+    return images, labels
+
+
+def first_loss(model, opt, step, batch) -> float:
+    """The loss of one ``step`` from ``model``'s state (which it updates)
+    on ``batch``."""
+    _, met = step(TrainState.create(model, opt, seed=SEED), batch)
+    return float(met["loss"])
+
+
+def dp_step_fn():
+    """bench's step (default augmentation, OneCycle, AdamW, bf16) with 255
+    kept out of the loss. Returns (optimizer, step_fn)."""
+    total = TRAIN_STEPS + 10
+    opt = train_mod.adamw(weight_decay=0.0)
+    return opt, steps_mod.make_train_step(
+        opt, train_mod.onecycle_lr(bench.MAX_LR, total),
+        train_mod.onecycle_beta1(total), ignore_index=255,
+        augment_fn=augment.make_train_augment(augment.AugmentConfig(
+            mean=settings.MEAN, std=settings.STD), torch.bfloat16),
+        compute_dtype=torch.bfloat16, log_grad_norms=False)
+
+
+def dp_result(state: TrainState, met: dict, grads: bool) -> dict:
+    """A first step's loss, BN running stats and (``grads``) the gradients
+    (AdamW's first moment after one update from zero is (1 - beta1) g), on
+    the host."""
+    out = {"loss": float(met["loss"]),
+           "stats": {k: v.float().cpu().numpy().copy() for k, v in
+                     state.model.state_dict().items() if "running" in k}}
+    if grads:
+        out["grads"] = {k: (v / (1.0 - met["beta1"])).cpu().numpy()
+                        for k, v in state.opt_state["m"].items()}
+    return out
+
+
+def dp_reference(net: str) -> dict:
+    """The one-process step of (a) from the He-scaled state on the global
+    batch: loss, gradients, BN stats, launches; then ``DP_TIMED`` steps'
+    median ms; then the loss of a step from the same state on the
+    ``uneven`` batch."""
+    model = bench.he_model(net, torch.Generator().manual_seed(SEED)).to(
+        DEVICE)
+    start = copy.deepcopy(model)
+    batch = dp_batch(net, DEVICE)
+    opt, step = dp_step_fn()
+    state = TrainState.create(model, opt, seed=SEED)
+    torch.cuda.synchronize()
+    reset_counts()
+    state, met = step(state, batch)
+    torch.cuda.synchronize()
+    out = dp_result(state, met, True)
+    out["counts"], out["paths"] = train_counts(), conv_train.path_launches()
+    out["step_ms"] = timed_steps(step, state, batch, DP_TIMED)
+    out["uneven_loss"] = first_loss(start, opt, step,
+                                    dp_batch(net, DEVICE, uneven=True))
+    del model, start, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def timed_steps(step, state, batch, n: int) -> float:
+    """Median ms of ``n`` steps on the host clock, each ended by a
+    synchronize."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def dp_rank_net(mesh, net: str) -> dict:
+    """(a) on one rank: the step of ``dp_reference`` as one rank of
+    ``mesh`` (``parallel.jit_train_step``) on its rows of the same batch
+    and draws, the first step's launches (SegNet's calls against their
+    plain versions, ``shadowed_kernels``), a second step and the SHA-256
+    of every leaf after it, then ``DP_TIMED`` timed steps, the gradient
+    all-reduce alone and the peak memory; then the loss of a step from the
+    same state on its rows of the ``uneven`` batch."""
+    dev = mesh.device
+    model = bench.he_model(net, torch.Generator().manual_seed(SEED)).to(dev)
+    start = copy.deepcopy(model)
+    images, labels = dp_batch(net, dev)
+    rows = mesh.rows(len(images))
+    batch = (images[rows], labels[rows])
+    opt, step = dp_step_fn()
+    step = parallel.jit_train_step(step, mesh)
+    state = TrainState.create(model, opt, seed=SEED)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    shadow = {}
+    with (shadowed_kernels(shadow) if POOLS[net]
+          else contextlib.nullcontext()):
+        state, met = step(state, batch)
+    torch.cuda.synchronize(dev)
+    out = dp_result(state, met, mesh.rank == 0)
+    out.update(counts=train_counts(), paths=conv_train.path_launches(),
+               shadow=shadow)
+    state, _ = step(state, batch)
+    out["sha256"] = multihost.state_sha256(state)
+    out["step_ms"] = timed_steps(step, state, batch, DP_TIMED)
+    grads = {k: torch.ones_like(p) for k, p in state.params().items()}
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        mesh.reduce_grads(grads, mean=False)
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["allreduce_ms"] = float(np.median(ms))
+    out["allreduce_mb"] = sum(g.numel() for g in grads.values()) * 4 / 1e6
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del state, grads
+    images, labels = dp_batch(net, dev, uneven=True)
+    out["uneven_loss"] = first_loss(start, opt, step,
+                                    (images[rows], labels[rows]))
+    del model, start, images, labels, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def halo_inputs(dev) -> tuple:
+    """(e)'s inputs: UNet's first encoder stage (3->64->64) from the
+    He-scaled model in eval mode on K4 (bf16), and a normalized b8 input at
+    360x480."""
+    model = bench.he_model("unet", torch.Generator().manual_seed(SEED))
+    blocks = [b.to(dev).eval() for b in model.stage_blocks("down1")]
+    images, _ = synthetic_arrays(HALO_BATCH, HW, seed=SEED + 17)
+    mean, std = (torch.tensor(v, device=dev) for v in (settings.MEAN,
+                                                       settings.STD))
+    x = to_tensor_normalize(torch.from_numpy(images).to(dev), mean, std,
+                            torch.bfloat16)
+    return blocks, x
+
+
+def halo_rank(mesh) -> dict:
+    """(e) on one rank: its rows of the H-sharded stage (its halo rows
+    exchanged with its neighbour), K4's launches, and the stage's ms."""
+    blocks, x = halo_inputs(mesh.device)
+    local = spatial.shard_height(x, mesh)
+    with torch.no_grad():
+        reset_counts()
+        y = spatial.encoder_stage_halo(blocks, local, mesh)
+        torch.cuda.synchronize(mesh.device)
+        launches = fused_conv.conv3x3_bn_relu.launches
+        t0 = time.perf_counter()
+        spatial.encoder_stage_halo(blocks, local, mesh)
+        torch.cuda.synchronize(mesh.device)
+    return {"rows": y.float().cpu().numpy(), "launches": launches,
+            "ms": (time.perf_counter() - t0) * 1e3}
+
+
+def dp_rank(mesh, nets, rank_setup=None, halo=True) -> dict:
+    """A rank of (a), (c) and (e): ``rank_setup`` (a planted fault of
+    ``chip_faults.py``) first, then each net's step and the halo stage."""
+    if rank_setup is not None:
+        rank_setup()
+    out = {net: dp_rank_net(mesh, net) for net in nets}
+    if halo:
+        out["halo"] = halo_rank(mesh)
+    out["backend"] = torch.distributed.get_backend()
+    return out
+
+
+def dp_checks(refs: dict, ranks: list, label: str) -> dict:
+    """Hold each rank's results to the one-process step's (``refs``) and
+    the ranks to each other; returns each net's readings."""
+    out = {}
+    for net, ref in refs.items():
+        got = [r[net] for r in ranks]
+        n = TRAIN_BATCH[net]
+        model = get_model(net, 3, 12)
+        loss_err = max(abs(g["loss"] - ref["loss"]) / abs(ref["loss"])
+                       for g in got)
+        uneven_err = max(abs(g["uneven_loss"] - ref["uneven_loss"])
+                         / abs(ref["uneven_loss"]) for g in got)
+        stat_err = max(float(np.abs(g["stats"][k] - v).max()
+                             / max(np.abs(v).max(), 1e-30))
+                       for g in got for k, v in ref["stats"].items())
+        norm_errs, diff_errs = grad_errors(
+            model, {k: torch.from_numpy(v) for k, v in
+                    got[0]["grads"].items()},
+            {k: torch.from_numpy(v) for k, v in ref["grads"].items()})
+        worst_n, worst_d = _worst(norm_errs), _worst(diff_errs)
+        equal = len({g["sha256"] for g in got}) == 1
+        per_rank = {"fwd": n_blocks(net), "dgrad": n_blocks(net) - 1,
+                    "wgrad": n_blocks(net)}
+        print(f"{label} {net} b{n} over {len(got)} ranks of b"
+              f"{n // len(got)}: loss {[round(g['loss'], 6) for g in got]} "
+              f"vs one process {ref['loss']:.6f} (rel {loss_err:.3g}, tol "
+              f"{TRAIN_LOSS_TOL}); with 255 over half of the first rank's "
+              f"rows: loss {[round(g['uneven_loss'], 6) for g in got]} vs "
+              f"{ref['uneven_loss']:.6f} (rel {uneven_err:.3g}); "
+              f"all-reduced grads vs one process: norm "
+              f"rel max {worst_n[1]:.3g} at {worst_n[0]} (tol "
+              f"{TRAIN_GRAD_TOL}), |diff| rel max {worst_d[1]:.3g} at "
+              f"{worst_d[0]}, median {worst_d[2]:.3g} (tol "
+              f"{TRAIN_GRAD_DIFF_TOL}); BN stats rel max {stat_err:.3g} "
+              f"(tol {TRAIN_STAT_TOL}); after 2 steps every leaf bit-equal "
+              f"across the ranks: {equal}; launches per rank "
+              f"{[g['counts'] for g in got]}, K1 on each path "
+              f"{[g['paths'] for g in got]}; kernel calls vs plain "
+              f"{[g['shadow'] for g in got]}", flush=True)
+        print(f"{label} {net}: DP step {[round(g['step_ms'], 3) for g in got]}"
+              f" ms per rank (one process at b{n}: {ref['step_ms']:.3f} ms); "
+              f"gradient all-reduce of {got[0]['allreduce_mb']:.1f} MB "
+              f"{[round(g['allreduce_ms'], 3) for g in got]} ms; peak "
+              f"memory per rank {[round(g['peak_gib'], 3) for g in got]} "
+              f"GiB; backend {ranks[0]['backend']}; {bench.card()}",
+              flush=True)
+        check(np.isfinite(loss_err) and loss_err <= TRAIN_LOSS_TOL,
+              f"{label} {net} loss vs one process")
+        check(np.isfinite(uneven_err) and uneven_err <= TRAIN_LOSS_TOL,
+              f"{label} {net} loss vs one process, uneven ignore labels")
+        check(stat_err <= TRAIN_STAT_TOL,
+              f"{label} {net} BN stats vs one process")
+        if GRADS_END_TO_END[net]:
+            check(worst_n[1] <= TRAIN_GRAD_TOL,
+                  f"{label} {net} grad norms vs one process")
+            check(worst_d[1] <= TRAIN_GRAD_DIFF_TOL,
+                  f"{label} {net} grads vs one process")
+        check(equal, f"{label} {net}: the ranks' leaves bit-equal")
+        want = expected_train_counts(net, 1)
+        for g in got:
+            check({k: g["counts"][k] for k in per_rank} == per_rank
+                  and g["counts"] == want,
+                  f"{label} {net} launches per rank")
+            check(g["paths"] == path_counts(net, 1),
+                  f"{label} {net} K1 launches per path per rank")
+            if POOLS[net]:
+                check(sorted(g["shadow"]) == sorted(SHADOW_TOL),
+                      f"{label} {net} kernel pieces seen")
+                for piece, e in g["shadow"].items():
+                    check(e <= SHADOW_TOL[piece], f"{label} {net} {piece} "
+                          f"on the rank's data (K2: bit for bit)")
+        out[net] = {"launches": [g["counts"] for g in got],
+                    "step_ms": [g["step_ms"] for g in got],
+                    "allreduce_ms": [g["allreduce_ms"] for g in got],
+                    "peak_gib": [g["peak_gib"] for g in got],
+                    "one_process_step_ms": ref["step_ms"]}
+    return out
+
+
+def halo_checks(ranks: list) -> dict:
+    """(e): the ranks' rows of the H-sharded stage joined, against the
+    unsharded stage on K4 in this process: bit-equal, or within K4's
+    limit of max|plain|."""
+    blocks, x = halo_inputs(DEVICE)
+    with torch.no_grad():
+        y = x
+        for blk in blocks:
+            y = blk(y)
+        want = pooling.max_pool_2x2(y).float()
+    got = torch.from_numpy(np.concatenate([r["halo"]["rows"] for r in ranks],
+                                          axis=1)).to(DEVICE)
+    same = bool(torch.equal(got, want))
+    err = _rel(got, want)
+    launches = [r["halo"]["launches"] for r in ranks]
+    print(f"phase 17 (e) H-sharded stage (UNet down1, 3->64->64 + pool, "
+          f"b{HALO_BATCH}, {HW[0]}x{HW[1]} over {len(ranks)} ranks of "
+          f"{HW[0] // len(ranks)} rows, K4): "
+          f"{'bit-equal' if same else f'max err {err:.3g} of max|plain| (tol {KERNEL_TOL})'}"
+          f" to the unsharded stage on K4; K4 launches per rank "
+          f"{launches}; stage ms per rank "
+          f"{[round(r['halo']['ms'], 3) for r in ranks]}; {bench.card()}",
+          flush=True)
+    check(got.shape == want.shape and (same or err <= KERNEL_TOL),
+          "phase 17 (e) the H-sharded stage vs the unsharded one")
+    check(launches == [len(blocks)] * len(ranks),
+          "phase 17 (e) K4 launches per rank")
+    return {"bit_equal": same, "max_err": err, "launches": launches}
+
+
+def dp_phase(nets=("unet", "segnet"), rank_setup=None, devices=None,
+             label: str = "phase 17 (a)") -> dict:
+    """(a) (or (c) on ``devices``) and (e): the one-process references,
+    then one spawn of the ranks, then the checks."""
+    refs = {net: dp_reference(net) for net in nets}
+    devices = devices or [str(DEVICE)] * DP_RANKS
+    ranks = launch.spawn(dp_rank, len(devices), nets, rank_setup,
+                         devices=devices, timeout=DP_TIMEOUT_S)
+    out = dp_checks(refs, ranks, label)
+    out["halo"] = halo_checks(ranks)
+    out["backend"] = ranks[0]["backend"]
+    return out
+
+
+def nccl_world1(tmp: str) -> dict:
+    """(b): a one-rank NCCL group on cuda:0. The data-parallel step
+    (``parallel.jit_train_step``, every collective over the group) and the
+    step without it from one state on one batch: every leaf bit-equal;
+    then their ms in turns (plain, DP, DP, plain)."""
+    multihost.init_distributed(f"file://{tmp}/nccl_rendezvous", 1, 0,
+                               "cuda:0")
+    try:
+        check(torch.distributed.get_backend() == "nccl",
+              "phase 17 (b) one rank on one card takes NCCL")
+        mesh = parallel.make_mesh()
+        dev = mesh.device
+        model = bench.he_model("unet", torch.Generator().manual_seed(SEED))
+        batch = dp_batch("unet", dev)
+        opt, plain_step = dp_step_fn()
+        dp_step = parallel.jit_train_step(plain_step, mesh)
+        states = [TrainState.create(copy.deepcopy(model).to(dev), opt,
+                                    seed=SEED) for _ in range(2)]
+        losses = []
+        for i, step in enumerate((plain_step, dp_step)):
+            states[i], met = step(states[i], batch)
+            losses.append(float(met["loss"]))
+        same = (multihost.state_sha256(states[0])
+                == multihost.state_sha256(states[1]))
+        ms = {"plain": [], "dp": []}
+        for name in ("plain", "dp", "dp", "plain"):
+            i = 0 if name == "plain" else 1
+            step = plain_step if name == "plain" else dp_step
+            ms[name].append(timed_steps(step, states[i], batch, DP_TIMED))
+        plain_ms, dp_ms = (float(np.mean(v)) for v in ms.values())
+        print(f"phase 17 (b) one-rank NCCL group: UNet b"
+              f"{TRAIN_BATCH['unet']} DP step vs the step without DP: loss "
+              f"{losses}, every leaf bit-equal: {same}; step {plain_ms:.3f} "
+              f"ms without, {dp_ms:.3f} ms with the NCCL wrapper (overhead "
+              f"{dp_ms - plain_ms:.3f} ms; plain, DP, DP, plain: {ms}); "
+              f"{bench.card()}", flush=True)
+        check(same and losses[0] == losses[1],
+              "phase 17 (b) the NCCL world-1 step bit-equal to the step "
+              "without DP")
+        del states, model, batch
+        torch.cuda.empty_cache()
+        return {"bit_equal": same, "plain_ms": plain_ms, "dp_ms": dp_ms}
+    finally:
+        multihost.shutdown()
+
+
+def checksum(path: str) -> float:
+    """Sum of |float leaf| over a checkpoint's model tensors."""
+    return float(sum(np.abs(v.numpy()).astype(np.float64).sum()
+                     for v in ckpt.load_weights(path, "unet").values()
+                     if v.is_floating_point()))
+
+
+def multihost_checks(tmp: str, data: str) -> dict:
+    """(d): ``python -m pytorch_camvid_tpu_torch.train -multihost`` in two
+    processes set up by ``PCT_*``, both on the one card (gloo; on two
+    cards, a card each and NCCL), UNet at
+    global b10 on phase 12's data for one epoch and its eval pass; then the
+    same arguments in this process on one rank; then the two-rank
+    checkpoint resumed on one rank."""
+    argv = ["-net", "unet", "-b", str(MH_BATCH), "-e", "1", "-dtype",
+            "bfloat16", "-data", data, "-image_size", str(HW[1]),
+            str(HW[0]), "-device", DEVICE.type]
+    mh, one = os.path.join(tmp, "mh"), os.path.join(tmp, "mh_one")
+    os.makedirs(mh)
+    os.makedirs(one)
+    env = dict(os.environ, PCT_COORDINATOR=f"file://{tmp}/mh_rendezvous",
+               PCT_NUM_PROCS=str(DP_RANKS), PCT_INIT_TIMEOUT=str(
+                   DP_TIMEOUT_S))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "pytorch_camvid_tpu_torch.train",
+         "-multihost"] + argv, cwd=mh, env=dict(env, PCT_PROC_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DP_RANKS)]
+    try:
+        outs = [p.communicate(timeout=DP_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            print(f"phase 17 (d) rank {r} exited {p.returncode}:\n"
+                  f"{o[-3000:]}", flush=True)
+    check(all(p.returncode == 0 for p in procs),
+          "phase 17 (d) the -multihost ranks exit 0")
+    with contextlib.chdir(one):
+        history = train_cli.main(argv + ["-dp", "1"])
+    mh_runs = os.listdir(os.path.join(mh, "checkpoints"))
+    miou = [float(m) for m in re.findall(r"Mean_iou ([\d.]+)", outs[0])]
+    got_ckpt = os.path.join(run_dir(mh), sorted(os.listdir(run_dir(mh)))[-1])
+    want_ckpt = os.path.join(run_dir(one),
+                             sorted(os.listdir(run_dir(one)))[-1])
+    sums = checksum(got_ckpt), checksum(want_ckpt)
+    cfg = loop_config(os.path.join(mh, "checkpoints", "resumed"),
+                      batch_size=MH_BATCH, epochs=1, resume=True,
+                      device=DEVICE.type)
+    state, resumed = loop.run_training(cfg, *splits(data))
+    saved = leaves(got_ckpt)
+    unequal = [n for n, (_, a) in zip(saved, ckpt.port_leaves(state))
+               if not np.array_equal(a, saved[n])]
+    steps = RUN_SPLITS["train"][0] // MH_BATCH
+    # each takes the card of its place on the host: one card is shared
+    backend = ("gloo (ranks share a card)"
+               if torch.cuda.device_count() < DP_RANKS
+               else "nccl (one card per rank)")
+    print(f"phase 17 (d) train CLI -multihost, {DP_RANKS} processes, "
+          f"backend {backend}, UNet b{MH_BATCH}, 1 epoch + eval, bf16: "
+          f"{wall:.1f} s; "
+          f"rank 0 epoch lines "
+          f"{outs[0].count('Training Epoch:')}, rank 1 "
+          f"{outs[1].count('Training Epoch:')}; run folders written "
+          f"{mh_runs}; mIoU {miou} vs one process "
+          f"{[round(h['miou'], 4) for h in history]} (tol {MH_MIOU_TOL}); "
+          f"parameter checksum {sums[0]:.6f} vs {sums[1]:.6f} (rtol "
+          f"{MH_CHECKSUM_RTOL}); resumed on one rank: step {state.step}, "
+          f"leaves unequal to the checkpoint {len(unequal)} of "
+          f"{len(saved)}; {bench.card()}", flush=True)
+    check(f"backend {backend}" in outs[0],
+          f"phase 17 (d) the ranks take {backend}")
+    check(outs[0].count("Training Epoch:") == steps
+          and "Training Epoch:" not in outs[1],
+          "phase 17 (d) rank 0 alone prints the epoch's lines")
+    check(len(mh_runs) == 1 and len(os.listdir(os.path.join(mh, "runs")))
+          == 1, "phase 17 (d) one writer of checkpoints and logs")
+    check(f"the {DP_RANKS} ranks' states agree bit for bit" in outs[0],
+          "phase 17 (d) the ranks' final leaves bit-equal")
+    check(len(miou) == 1 and abs(miou[0] - history[-1]["miou"])
+          <= MH_MIOU_TOL, "phase 17 (d) mIoU vs one process")
+    check(abs(sums[0] - sums[1]) <= MH_CHECKSUM_RTOL * abs(sums[1]),
+          "phase 17 (d) parameter checksum vs one process")
+    check(resumed == [] and state.step == steps and not unequal,
+          "phase 17 (d) the two-rank checkpoint resumed on one rank")
+    return {"wall_s": wall, "miou": miou, "one_miou": history[-1]["miou"],
+            "checksums": sums}
+
+
+def replica_checks() -> dict:
+    """(f): ``Predictor(devices=["cuda:0", "cuda:0"])`` at b8, UNet and
+    SegNet, against the one-device Predictor on 16 images: class maps
+    bit-equal; K4 (and SegNet's K3) launched by each replica on its half
+    of every batch."""
+    images, _ = synthetic_arrays(2 * BATCH, HW, seed=SEED + 5)
+    out = {}
+    for net in ("unet", "segnet"):
+        sd = bench.he_model(net, torch.Generator().manual_seed(
+            SEED)).state_dict()
+        maps, counts = [], []
+        for devices in ([str(DEVICE)], [str(DEVICE)] * DP_RANKS):
+            with Predictor(net, sd, batch_size=BATCH,
+                           devices=devices) as p:
+                p.predict(images[:BATCH])   # warm-up
+                torch.cuda.synchronize()
+                reset_counts()
+                maps.append(p.predict(images))
+                torch.cuda.synchronize()
+                counts.append({"conv3x3_bn_relu":
+                               fused_conv.conv3x3_bn_relu.launches,
+                               **{k: v for k, v in
+                                  fused_pool.launches().items()
+                                  if k.endswith("flat")}})
+        same = bool(np.array_equal(maps[0], maps[1]))
+        want = {k: v * DP_RANKS for k, v in counts[0].items()}
+        print(f"phase 17 (f) {net} Predictor, {DP_RANKS} replicas on "
+              f"{DEVICE} vs one device, b{BATCH}, {len(images)} images: class "
+              f"maps bit-equal {same}; launches one device {counts[0]}, "
+              f"replicas {counts[1]}", flush=True)
+        check(same, f"phase 17 (f) {net} replicas' maps vs one device")
+        check(counts[1] == want and counts[0]["conv3x3_bn_relu"]
+              == 2 * n_blocks(net), f"phase 17 (f) {net} launches per "
+              f"replica")
+        out[net] = {"bit_equal": same, "launches": counts[1]}
+    return out
+
+
+def phase_multi_gpu(tmp: str, data: str) -> dict:
+    """Phase 17: (a) and (e) on two ranks sharing cuda:0 (gloo), (b) a
+    one-rank NCCL group, (c) two cards over NCCL where there are two, (d)
+    the train CLI's -multihost, (f) the Predictor's replicas."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    secs = {}
+
+    def part(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out[name] = fn(*args, **kw)
+        secs[name] = round(time.perf_counter() - t, 1)
+
+    out = {}
+    part("a", dp_phase)
+    if torch.cuda.device_count() >= 2:
+        part("c", dp_phase, devices=["cuda:0", "cuda:1"],
+             label="phase 17 (c)")
+        check(out["c"]["backend"] == "nccl",
+              "phase 17 (c) one card per rank takes NCCL")
+    else:
+        print(f"phase 17 (c) not run: {torch.cuda.device_count()} card "
+              f"visible, two-card NCCL needs two", flush=True)
+    part("b", nccl_world1, tmp)
+    part("d", multihost_checks, tmp, data)
+    part("f", replica_checks)
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s (by part {secs})",
+          flush=True)
+    return out
 
 
 def summed_bound(n: int, piece: str, shapes) -> tuple:
@@ -4104,6 +4704,7 @@ def main() -> int:
         t16 = time.perf_counter()
         int8 = phase_int8(tmp, run)
         print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
+        dp = phase_multi_gpu(tmp, run["data"])
     check("jax" not in sys.modules, "jax was imported")
 
     kernels = conv_entries(sums["unet"], unet_serve, unet_train)
@@ -4111,6 +4712,9 @@ def main() -> int:
                                  ("fwd", "dgrad", "wgrad")):
         entry["head_64_21"] = head[piece]
         entry["remat_path_launches"] = remat["paths"][key]
+        entry["dp_rank_launches"] = {
+            net: [c[key] for c in dp["a"][net]["launches"]]
+            for net in ("unet", "segnet")}
     for name, t in pools.items():
         launches = (seg_serve if name.endswith("flat")
                     else seg_train[0])[name]

@@ -23,7 +23,10 @@ package (``data/augment.py``, ``data/transforms.py``), the LR finder
 (``.lr_finder``) and the dataset statistics (``.compute_stats``); and int8
 serving: post-training quantization (``ops/quant.py``,
 ``Predictor.quantize_int8``, ``serve -int8``, ``eval -int8``) with every
-quantized block on the int8 kernel ``ops/fused_conv_int8.py``.
+quantized block on the int8 kernel ``ops/fused_conv_int8.py``; and
+data parallelism on ``torch.distributed`` (``parallel/``: sync-BN, the
+inferred and explicit steps, the train CLI's ``-dp`` and ``-multihost``,
+``train_tpu``, H-sharded halo stages on K4, ``Predictor(devices=...)``).
 """
 
 __version__ = "0.1.0"

@@ -466,11 +466,18 @@ def augment_with_draws(cfg: AugmentConfig, images: torch.Tensor,
 
 def make_train_augment(cfg: AugmentConfig,
                        compute_dtype: torch.dtype = torch.float32):
-    """augment_fn(generator, images_u8, masks) -> (images, masks int64)
-    for ``train/steps.py::make_train_step``."""
+    """augment_fn(generator, images_u8, masks, rows=None) -> (images,
+    masks int64) for ``train/steps.py::make_train_step``. ``rows=(start,
+    total)``: the batch is the rows ``start:start + n`` of a global batch
+    of ``total`` (a data-parallel rank's), and takes those rows of the
+    global batch's draws, so the generator advances as for ``total``."""
 
-    def fn(generator, images, masks):
-        draws = sample_draws(generator, images.shape[0], cfg, images.device)
+    def fn(generator, images, masks, rows=None):
+        n = images.shape[0]
+        start, total = rows if rows is not None else (0, n)
+        draws = sample_draws(generator, total, cfg, images.device)
+        if rows is not None:
+            draws = {k: v[start: start + n] for k, v in draws.items()}
         return augment_with_draws(cfg, images, masks, draws, compute_dtype)
 
     return fn

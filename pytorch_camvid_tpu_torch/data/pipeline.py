@@ -18,9 +18,16 @@ ahead (``prefetch``), so its gather and copy run while the device runs the
 current step.
 
 Both loaders have ``epoch_indices(e)`` and ``gather(idx)`` (the training
-loop's), ``prefetch(idx)`` and ``epoch(e)`` (the eval pass's). Not
-ported: the data-parallel sharding and ``pad_to_batch`` (the
-multi-process eval's; one device runs a ragged last batch as it is).
+loop's), ``prefetch(idx)`` and ``epoch(e)`` (the eval pass's).
+
+Data parallelism (``mesh=``, a ``parallel/mesh.py::Mesh`` of more than one
+rank): every rank keeps the whole split (the JAX package's dataset
+replication) and computes the same permutation from the seed; ``gather``
+and ``prefetch`` take the global batch's indices and fetch only the rank's
+rows (``mesh.rows``). ``pad_to_batch`` (the multi-rank eval's) pads the
+split to a multiple of the batch with rows labelled ``pad_label`` (255),
+which the eval loss and the confusion matrix drop, so every eval batch
+splits evenly over the ranks.
 """
 
 from __future__ import annotations
@@ -41,13 +48,19 @@ class _EpochPlan:
     ``prefetch(t + 1)`` (a no-op where the data is on the device)."""
 
     def __init__(self, n: int, batch_size: int, shuffle: bool, seed: int,
-                 drop_last: bool):
+                 drop_last: bool, mesh=None):
         self.n = n
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
         self._epoch = 0
+
+    def _local(self, idx) -> np.ndarray:
+        """The rank's share of a global batch's indices."""
+        idx = np.asarray(idx)
+        return idx if self.mesh is None else idx[self.mesh.rows(len(idx))]
 
     def __len__(self) -> int:
         if self.drop_last:
@@ -90,24 +103,44 @@ class _EpochPlan:
         return self.epoch()
 
 
+def padded_to_batch(images: np.ndarray, labels: np.ndarray,
+                    batch_size: int, pad_label: int = 255
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """The split padded to a multiple of ``batch_size`` with zero images
+    labelled ``pad_label``."""
+    pad = (-images.shape[0]) % batch_size
+    if not pad:
+        return images, labels
+    return (np.concatenate([images, np.zeros((pad,) + images.shape[1:],
+                                             images.dtype)]),
+            np.concatenate([labels, np.full((pad,) + labels.shape[1:],
+                                            pad_label, labels.dtype)]))
+
+
 class DeviceDataLoader(_EpochPlan):
     """Yields (images_u8 (B,H,W,3), labels_u8 (B,H,W)) tensors gathered on
-    ``device`` from resident copies of the arrays. With drop_last=False the
-    last batch may be smaller, like the reference DataLoader's."""
+    ``device`` from resident copies of the arrays (the rank's rows of each
+    batch under a ``mesh``). With drop_last=False the last batch may be
+    smaller, like the reference DataLoader's, unless ``pad_to_batch``."""
 
     def __init__(self, images: np.ndarray, labels: np.ndarray,
                  batch_size: int, shuffle: bool = False, seed: int = 0,
-                 drop_last: bool = False, device="cuda"):
+                 drop_last: bool = False, device="cuda", mesh=None,
+                 pad_to_batch: bool = False, pad_label: int = 255):
+        if pad_to_batch:
+            images, labels = padded_to_batch(images, labels, batch_size,
+                                             pad_label)
         super().__init__(images.shape[0], batch_size, shuffle, seed,
-                         drop_last)
+                         drop_last, mesh)
         self.images = torch.from_numpy(np.ascontiguousarray(images)).to(
             device)
         self.labels = torch.from_numpy(np.ascontiguousarray(labels)).to(
             device)
 
     def gather(self, idx) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The batch at sample indices ``idx``, gathered on the device."""
-        i = torch.as_tensor(np.asarray(idx), dtype=torch.long).to(
+        """The batch at sample indices ``idx`` (the rank's rows of it),
+        gathered on the device."""
+        i = torch.as_tensor(self._local(idx), dtype=torch.long).to(
             self.images.device, non_blocking=True)
         return (self.images.index_select(0, i),
                 self.labels.index_select(0, i))
@@ -140,13 +173,18 @@ class HostLoader(_EpochPlan):
     ``native`` says whether the native library runs (built here, at the
     loader's construction, so no batch waits for the compiler);
     ``gathers`` counts the gathers, ``native_gathers`` those that ran the
-    native library, ``gather_s`` their host seconds."""
+    native library, ``gather_s`` their host seconds. Under a ``mesh`` only
+    the rank's rows of each batch are gathered and copied."""
 
     def __init__(self, images: np.ndarray, labels: np.ndarray,
                  batch_size: int, shuffle: bool = False, seed: int = 0,
-                 drop_last: bool = False, device="cuda"):
+                 drop_last: bool = False, device="cuda", mesh=None,
+                 pad_to_batch: bool = False, pad_label: int = 255):
+        if pad_to_batch:
+            images, labels = padded_to_batch(images, labels, batch_size,
+                                             pad_label)
         super().__init__(images.shape[0], batch_size, shuffle, seed,
-                         drop_last)
+                         drop_last, mesh)
         self.images = np.ascontiguousarray(images)
         self.labels = np.ascontiguousarray(labels)
         self.device = torch.device(device)
@@ -176,7 +214,9 @@ class HostLoader(_EpochPlan):
     def prefetch(self, idx) -> None:
         """Start staging the batch at ``idx`` (the loop calls this one
         step ahead)."""
-        idx = np.asarray(idx)
+        self._stage(self._local(idx))
+
+    def _stage(self, idx: np.ndarray) -> None:
         if self.device.type != "cuda":
             im, lb = self._host_gather(idx)
             self._staged.append(_Staged(idx, torch.from_numpy(im),
@@ -203,11 +243,11 @@ class HostLoader(_EpochPlan):
     def gather(self, idx) -> Tuple[torch.Tensor, torch.Tensor]:
         """The batch at ``idx`` on the device, ready for the compute
         stream: the one ``prefetch`` staged, else staged now."""
-        idx = np.asarray(idx)
+        idx = self._local(idx)
         while self._staged and not np.array_equal(self._staged[0].idx, idx):
             self._staged.pop(0)   # staged for a plan that changed
         if not self._staged:
-            self.prefetch(idx)
+            self._stage(idx)
         b = self._staged.pop(0)
         if b.ready is not None:
             stream = torch.cuda.current_stream(self.device)

@@ -9,7 +9,11 @@ run under ``torch.utils.checkpoint`` (non-reentrant, which works under
 the backward runs the stage's forward again to get what its blocks saved.
 The recompute runs inside ``ops/conv.py::recomputing()``, so it does not
 move the BN running stats a second time; it computes the same batch
-statistics, and autograd saves the same tensors in both passes.
+statistics, and autograd saves the same tensors in both passes. It also
+runs in the forward's ``ops/conv.py::syncing`` mesh: the recompute may run
+on autograd's own thread, so the mesh is taken when the forward runs and
+the recompute's sync-BN all-reduces are issued again, in the same order on
+every rank.
 """
 
 from __future__ import annotations
@@ -21,16 +25,24 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from pytorch_camvid_tpu_torch.ops.conv import ConvBNReLU, recomputing
+from pytorch_camvid_tpu_torch.ops.conv import (ConvBNReLU, recomputing,
+                                               sync_mesh, syncing)
 
 # (stage name, [(cin, cout) per conv block]) in forward order
 Spec = List[Tuple[str, List[Tuple[int, int]]]]
 
 
+@contextlib.contextmanager
+def _recompute_in(mesh):
+    with syncing(mesh), recomputing():
+        yield
+
+
 def remat_contexts():
-    """``checkpoint``'s ``context_fn``: nothing around the forward,
-    ``recomputing()`` around the recompute."""
-    return contextlib.nullcontext(), recomputing()
+    """``checkpoint``'s ``context_fn``: nothing around the forward;
+    ``recomputing()`` and the forward's sync-BN mesh around the
+    recompute."""
+    return contextlib.nullcontext(), _recompute_in(sync_mesh())
 
 
 def remat_call(fn: Callable, x: torch.Tensor, plain: bool,

@@ -28,6 +28,15 @@ compute from the (conv, bn) pair that ``conv_bn()`` returns.
   except inside ``recomputing()``: there the block is a checkpoint's
   recompute of a forward that already updated them (``models/common.py::
   remat_call``), with the same batch, so the same statistics.
+- Sync-BN (JAX ``ops/conv.py:172-179``, ``axis_name``): inside
+  ``syncing(mesh)`` a train-mode block takes the mean of its E[y] and
+  E[y^2] over the mesh's ranks as one 2·Cout f32 vector
+  (``parallel/mesh.py::Mesh.pmean``: a sum in the forward, a sum of the
+  gradient in the backward, each divided by the world), and the running
+  variance's n counts every rank's pixels. The mesh reaches the blocks
+  through this context, not through the models' arguments; a stage's
+  recompute under remat runs in the same context (``models/common.py::
+  remat_contexts``), so it issues the forward's all-reduces again.
 - Calibration (JAX ``ops/conv.py:188-193``): inside ``calibrating()`` an
   eval-mode block runs its ordinary forward and also records the running
   max|input| in f32 (``calib_amax``, which ``ops/quant.py::calibrate``
@@ -65,6 +74,7 @@ BN_MOMENTUM = 0.1  # torch: running = (1 - m) * running + m * batch
 _recompute = threading.local()
 _calibrate = threading.local()
 _compute = threading.local()
+_sync = threading.local()
 
 
 @contextlib.contextmanager
@@ -82,6 +92,23 @@ def recomputing():
 
 def is_recomputing() -> bool:
     return getattr(_recompute, "on", False)
+
+
+@contextlib.contextmanager
+def syncing(mesh):
+    """Inside the block, train-mode blocks take their batch moments over
+    the ranks of ``mesh`` (sync-BN); ``None`` keeps them local."""
+    before = getattr(_sync, "mesh", None)
+    _sync.mesh = mesh
+    try:
+        yield
+    finally:
+        _sync.mesh = before
+
+
+def sync_mesh():
+    """The mesh of the enclosing ``syncing`` block, or None."""
+    return getattr(_sync, "mesh", None)
 
 
 @contextlib.contextmanager
@@ -225,10 +252,15 @@ class ConvBNReLU(nn.Module):
         y = conv3x3_train(x.contiguous(), w, plain)
         y = (y + conv.bias.to(dt)).float()
         mean = y.mean(dim=(0, 1, 2))
-        var = (y * y).mean(dim=(0, 1, 2)) - mean * mean
+        sq = (y * y).mean(dim=(0, 1, 2))
+        n = y.shape[0] * y.shape[1] * y.shape[2]
+        mesh = sync_mesh()
+        if mesh is not None:
+            mean, sq = mesh.pmean(torch.cat([mean, sq])).chunk(2)
+            n *= mesh.world
+        var = sq - mean * mean
         if not is_recomputing():
             with torch.no_grad():
-                n = y.shape[0] * y.shape[1] * y.shape[2]
                 bn.running_mean.copy_((1 - BN_MOMENTUM) * bn.running_mean
                                       + BN_MOMENTUM * mean)
                 bn.running_var.copy_(

@@ -13,7 +13,7 @@ under class weights.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -28,10 +28,13 @@ def _ignore_tuple(ignore_index: IgnoreIndex) -> tuple:
     return (int(ignore_index),)
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+def cross_entropy_sums(logits: torch.Tensor, labels: torch.Tensor,
                        class_weights: Optional[torch.Tensor] = None,
-                       ignore_index: IgnoreIndex = None) -> torch.Tensor:
-    """logits (N,H,W,C) float, labels (N,H,W) int -> scalar f32 mean CE."""
+                       ignore_index: IgnoreIndex = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of w * nll, sum of w) over the pixels: the loss's numerator
+    and denominator, which a data-parallel step sums over its ranks before
+    it divides (the global batch's mean, JAX ``ops/loss.py:62``)."""
     logits = logits.float()
     ignore = _ignore_tuple(ignore_index)
     labels = labels.long()
@@ -49,4 +52,13 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         w = class_weights.to(nll)[idx.squeeze(-1)].masked_fill(~inside, 0.0)
     if ignore:
         w = w.masked_fill(ignored, 0.0)
-    return (nll * w).sum() / w.sum().clamp_min(1e-12)
+    return (nll * w).sum(), w.sum()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       class_weights: Optional[torch.Tensor] = None,
+                       ignore_index: IgnoreIndex = None) -> torch.Tensor:
+    """logits (N,H,W,C) float, labels (N,H,W) int -> scalar f32 mean CE."""
+    num, den = cross_entropy_sums(logits, labels, class_weights,
+                                  ignore_index)
+    return num / den.clamp_min(1e-12)

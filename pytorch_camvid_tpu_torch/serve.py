@@ -4,7 +4,7 @@
 Usage:
     python -m pytorch_camvid_tpu_torch.serve -weight model.pth \
         -input imgs/ -output masks/ [-net unet] [-b 8] [-c 12] [-color] \
-        [-int8] [-device cuda]
+        [-int8] [-dp 1] [-device cuda]
 
 Writes ``<stem>_mask.png`` (class indices) and, with ``-color``,
 ``<stem>_color.png`` (12-class palette) per input image. Takes a reference
@@ -13,7 +13,10 @@ Writes ``<stem>_mask.png`` (class indices) and, with ``-color``,
 the CPU. ``-int8`` quantizes the model after post-training calibration on
 the served images (``Predictor.quantize_int8``, as the JAX CLI's
 serve.py:111-112), so every block of 64 or more output channels runs the
-int8 kernel.
+int8 kernel. ``-dp n`` serves with one replica on each of the first n
+cards (``Predictor(devices=...)``; the batch must divide by n); more than
+are visible exits with the JAX CLI's message. With ``-device cpu`` the n
+replicas share the CPU.
 """
 
 from __future__ import annotations
@@ -61,9 +64,21 @@ def main(argv=None):
                         "on the request's first images, then run every "
                         "block of 64 or more output channels on the int8 "
                         "kernel")
+    parser.add_argument("-dp", type=int, default=1,
+                        help="data-parallel serving over the first N "
+                        "devices (batch must divide by N)")
     parser.add_argument("-device", type=str, default="cuda",
                         help="torch device the model runs on")
     args = parser.parse_args(argv)
+
+    devices = [args.device] * args.dp
+    if args.dp > 1 and args.device.startswith("cuda"):
+        import torch
+        visible = torch.cuda.device_count()
+        if visible < args.dp:
+            raise SystemExit(f"-dp {args.dp} but only {visible} devices "
+                             f"visible")
+        devices = [f"cuda:{i}" for i in range(args.dp)]
 
     import cv2
 
@@ -81,8 +96,8 @@ def main(argv=None):
         images.append(img)
 
     with Predictor.from_checkpoint(args.net, args.weight, batch_size=args.b,
-                                   num_classes=args.c,
-                                   device=args.device) as predictor:
+                                   num_classes=args.c, device=args.device,
+                                   devices=devices) as predictor:
         # Predictor resizes uniform stacks on the device. Ragged folders are
         # resized per image on the host (cv2 bilinear, the device path's
         # convention): one max-extent canvas would misalign every smaller

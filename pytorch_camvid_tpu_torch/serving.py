@@ -19,11 +19,16 @@ pytorch_camvid_tpu/serving.py).
   into an int8 one in place: every block with 64 or more output channels
   then runs ``conv3x3_int8`` (ops/fused_conv_int8.py), the head stays on K4
   in the compute dtype, and SegNet's pools run K3 on int8 values.
+- ``devices=[...]`` (the JAX Predictor's ``mesh``, ``serve -dp``): one
+  replica of the model per listed device; each serving batch is split in
+  order into equal parts, one a replica, and the class maps are joined in
+  that order. A list may name a device twice (two replicas on one card).
+  Per image the arithmetic is the one-device Predictor's, so the maps are
+  the same.
 
 Not carried over from the JAX Predictor: the bucketed dynamic resize (it
 bounds jit's compile cache; eager PyTorch has none, so any source size is
-resized directly, with the same values), the device mesh and StableHLO
-export (ROADMAP.md).
+resized directly, with the same values) and StableHLO export (ROADMAP.md).
 
 Example:
     with Predictor.from_checkpoint("unet", "model.pth", batch_size=8) as p:
@@ -33,7 +38,8 @@ Example:
 from __future__ import annotations
 
 import concurrent.futures
-from typing import Dict, Optional, Tuple
+import copy
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,15 +58,23 @@ class Predictor:
                  image_hw: Tuple[int, int] = (360, 480),
                  num_classes: int = settings.NUM_CLASSES,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 device: str = "cuda"):
+                 device: str = "cuda",
+                 devices: Optional[Sequence[str]] = None):
         """net: "unet" or "segnet". state_dict: reference-named weights
         (``.pth`` layout); the model is built from its conv shapes, so any
         width loads. device: where the model runs; a CUDA device that is
-        not there raises, nothing falls back to the CPU."""
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        not there raises, nothing falls back to the CPU. devices: one
+        replica per entry instead (``batch_size`` must divide over them);
+        the first is ``device``."""
+        self.devices = [torch.device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
+        if any(d.type == "cuda" for d in self.devices) \
+                and not torch.cuda.is_available():
             raise RuntimeError("Predictor: device 'cuda' requested but no "
                                "CUDA device is available")
+        if batch_size % len(self.devices):
+            raise ValueError(f"batch_size {batch_size} must divide over the "
+                             f"{len(self.devices)} replicas")
         self._batch = batch_size
         self.image_hw = tuple(image_hw)  # the working size
         self._dtype = compute_dtype
@@ -77,6 +91,7 @@ class Predictor:
         model = get_model(net, spec=spec)
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval().prepare(compute_dtype)
+        self._replicate()
         # two class indices per byte: halves the device->host bytes
         self._pack = num_classes <= 16 and self.image_hw[1] % 2 == 0
         self._drain = concurrent.futures.ThreadPoolExecutor(
@@ -87,6 +102,12 @@ class Predictor:
         """Build from a reference ``.pth`` state_dict or a ``.ckpt.npz``
         of either package (``train/checkpoint.py::load_weights``)."""
         return cls(net, load_weights(weight_path, net), **kw)
+
+    def _replicate(self) -> None:
+        """The model on every listed device (the first is ``model``)."""
+        self.replicas: List[torch.nn.Module] = [self.model] + [
+            copy.deepcopy(self.model).to(d).eval().prepare(self._dtype)
+            for d in self.devices[1:]]
 
     def close(self) -> None:
         """Join the drain thread. The Predictor cannot predict afterwards."""
@@ -131,24 +152,29 @@ class Predictor:
                 self.device)
             batches.append(self._normalized(x))
         quantize_model(self.model, calibrate(self.model, batches))
+        self._replicate()
 
     @torch.inference_mode()
-    def _forward(self, images_u8: torch.Tensor) -> torch.Tensor:
+    def _forward(self, images_u8: torch.Tensor,
+                 model: Optional[torch.nn.Module] = None) -> torch.Tensor:
         """One device batch: (B, H, W, 3) uint8 BGR on the device, any H/W ->
         (B, h, w) uint8 class map at the working size, nibble-packed to
-        (B, h, w/2) when packing applies."""
-        m = self.model(self._normalized(images_u8)).argmax(dim=-1).to(
+        (B, h, w/2) when packing applies; on ``model`` (a replica, default
+        the first)."""
+        model = self.model if model is None else model
+        m = model(self._normalized(images_u8)).argmax(dim=-1).to(
             torch.uint8)
         if self._pack:
             m = (m[:, :, 0::2] << 4) | m[:, :, 1::2]
         return m
 
-    def _to_host(self, host: torch.Tensor, done: Optional[torch.cuda.Event],
-                 keep: int) -> np.ndarray:
-        """Drain thread: wait for one chunk's copy, unpack the nibbles."""
-        if done is not None:
-            done.synchronize()
-        a = host.numpy()[:keep]
+    def _to_host(self, parts: list, keep: int) -> np.ndarray:
+        """Drain thread: wait for one chunk's copies (one a replica), join
+        them, unpack the nibbles."""
+        for _, done in parts:
+            if done is not None:
+                done.synchronize()
+        a = np.concatenate([host.numpy() for host, _ in parts])[:keep]
         if self._pack:
             out = np.empty(a.shape[:2] + (a.shape[2] * 2,), np.uint8)
             out[:, :, 0::2] = a >> 4
@@ -174,7 +200,7 @@ class Predictor:
         n = images.shape[0]
         h, w = self.image_hw
         max_inflight = self._inflight_window(images.shape[1:3])
-        cuda = self.device.type == "cuda"
+        cuda = any(d.type == "cuda" for d in self.devices)
         out, futures = [], []
         try:
             for lo in range(0, n, self._batch):
@@ -188,17 +214,21 @@ class Predictor:
                 x = torch.from_numpy(chunk)
                 if cuda:  # pinned + async: the host runs ahead of the card
                     x = x.pin_memory()
-                m = self._forward(x.to(self.device, non_blocking=True))
-                done = None
-                if cuda:
-                    host = torch.empty(m.shape, dtype=torch.uint8,
-                                       pin_memory=True)
-                    host.copy_(m, non_blocking=True)
-                    done = torch.cuda.Event()
-                    done.record()
-                else:
-                    host = m
-                futures.append(self._drain.submit(self._to_host, host, done,
+                parts = []
+                for dev, model, part in zip(self.devices, self.replicas,
+                                            x.chunk(len(self.replicas))):
+                    m = self._forward(part.to(dev, non_blocking=True), model)
+                    done = None
+                    if dev.type == "cuda":
+                        host = torch.empty(m.shape, dtype=torch.uint8,
+                                           pin_memory=True)
+                        host.copy_(m, non_blocking=True)
+                        done = torch.cuda.Event()
+                        done.record(torch.cuda.current_stream(dev))
+                    else:
+                        host = m
+                    parts.append((host, done))
+                futures.append(self._drain.submit(self._to_host, parts,
                                                   keep))
             out.extend(f.result() for f in futures)
         finally:

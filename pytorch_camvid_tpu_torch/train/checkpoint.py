@@ -24,6 +24,11 @@ one ``.npz`` holding ``__payload__`` (JSON: ``treedef``, ``meta``,
 - Loading into a ``TrainState`` checks the leaf count and the structure
   (the fingerprint, or each JAX leaf's shape) and raises ``ValueError`` on
   a mismatched model or optimizer.
+- Data parallelism: in a run of several ranks every rank reads the file and
+  rank 0 alone writes (``train/loop.py``); after loading the ranks take
+  rank 0's state (``parallel/multihost.py::put_global_tree``, JAX's
+  ``put_global`` on load). Nothing in a file depends on the number of
+  ranks, so a checkpoint of N ranks resumes on M (JAX's elastic restore).
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Library-level training and evaluation loops (counterpart of
 pytorch_camvid_tpu/train/loop.py; reference train.py:116-240).
 
-The JAX package's console, TB and checkpoint surface, on one device:
+The JAX package's console, TB and checkpoint surface, on one device or on
+the ranks of a data-parallel run:
 
 - per-batch 'Training Epoch:{e} [{seen}/{total}] Lr:… Loss:… Beta1:…'
   (train.py:136-144), printed one dispatch behind the device: step t is
@@ -33,13 +34,26 @@ the batch with ignored 255 labels to keep one compiled shape.
 ``loader='host'`` streams the batches from host memory
 (``data/pipeline.py::HostLoader``): the loop names each next batch one
 step ahead (``prefetch``), so its gather and copy overlap the current
-step; the default ``'device'`` keeps the split on the device. Options
-whose parts are not ported raise ``NotImplementedError`` naming their
-ROADMAP.md item: ``data_parallel > 1``. ``remat`` recomputes each model
-stage in the backward (``train/steps.py``). Both compute dtypes run
-on the card: bfloat16 on the bf16 conv kernels, float32 (the default, the
-JAX package's reference numerics) on the split-TF32 f32 kernels
-(``csrc/conv3x3_f32.cu``).
+step; the default ``'device'`` keeps the split on the device. ``remat``
+recomputes each model stage in the backward (``train/steps.py``). Both
+compute dtypes run on the card: bfloat16 on the bf16 conv kernels,
+float32 (the default, the JAX package's reference numerics) on the
+split-TF32 f32 kernels (``csrc/conv3x3_f32.cu``).
+
+Data parallelism: run under a process group (``parallel/multihost.py``,
+started by the train CLI's ``-dp`` or ``-multihost``), each rank calls
+``run_training`` with its own device. ``data_parallel`` is the number of
+ranks (0: the process group's world; without a process group more than 1
+raises, naming the launchers). ``batch_size`` is the global batch and
+must divide over the ranks; each rank gathers its rows, and the step is
+one step over the global batch (``parallel/data_parallel.py``: sync-BN,
+the global loss, summed gradients). The eval split is padded to whole
+batches of 255-labelled rows that the loss and the confusion matrix drop.
+Rank 0 alone prints, logs and writes checkpoints; every rank reads a
+checkpoint to resume, then takes rank 0's state (``put_global_tree``), so
+a run saved on N ranks resumes on M. The ranks agree on SIGTERM's stop at
+each dispatch, read metrics on one cadence, and at the end check that
+their states are bit-equal (``multihost.check_agree``).
 """
 
 from __future__ import annotations
@@ -63,6 +77,10 @@ from pytorch_camvid_tpu_torch.interop.weights import load_torch_checkpoint
 from pytorch_camvid_tpu_torch.models import get_model
 from pytorch_camvid_tpu_torch.ops.metrics import (accuracy_from_confusion,
                                                   iou_from_confusion)
+from pytorch_camvid_tpu_torch.parallel import (jit_eval_step, jit_train_step,
+                                               make_mesh, put_global_tree,
+                                               replicated_sharding)
+from pytorch_camvid_tpu_torch.parallel.multihost import check_agree
 from pytorch_camvid_tpu_torch.train import (TrainState, adamw,
                                             make_eval_step, make_train_step,
                                             onecycle_beta1, onecycle_lr)
@@ -83,7 +101,9 @@ class TrainConfig:
     resume: bool = False
     seed: int = 0
     compute_dtype: str = "float32"
-    data_parallel: int = 0        # 0 and 1: this device
+    # ranks of the run: 0 = the process group's world (one device without
+    # one); the train CLI's -dp 0 spawns one rank a visible card
+    data_parallel: int = 0
     checkpoint_dir: Optional[str] = None
     log_dir: Optional[str] = None
     class_weights: Optional[Sequence[float]] = None
@@ -106,13 +126,6 @@ class TrainConfig:
     device: str = "cuda"
 
 
-def not_ported(what: str, item: str):
-    """The error of an option whose part is not ported yet."""
-    return NotImplementedError(
-        f"{what} is not ported to pytorch_camvid_tpu_torch yet "
-        f"(ROADMAP.md Queue 1: {item})")
-
-
 def check_device(device: str, compute_dtype: str) -> torch.device:
     """The device an entry point runs on, for either compute dtype: a CUDA
     device (its kernels) must be there; the CPU runs the plain versions of
@@ -131,8 +144,6 @@ def check_device(device: str, compute_dtype: str) -> torch.device:
 
 
 def check_ported(cfg: TrainConfig) -> None:
-    if cfg.data_parallel > 1:
-        raise not_ported(f"data_parallel={cfg.data_parallel}", "multi-GPU")
     if cfg.loader not in ("device", "host"):
         raise ValueError(f"unknown loader {cfg.loader!r}")
 
@@ -229,20 +240,31 @@ def run_training(cfg: TrainConfig, train_ds, val_ds,
     dev = check_device(cfg.device, cfg.compute_dtype)
     check_ported(cfg)
     dtype = DTYPES[cfg.compute_dtype]
-    quiet = cfg.quiet
+    mesh = make_mesh(cfg.data_parallel, device=dev)
+    multi = mesh.world > 1
+    if cfg.batch_size % mesh.world:
+        raise ValueError(f"batch size {cfg.batch_size} must divide over "
+                         f"{mesh.world} ranks")
+    primary = mesh.is_primary()
+    had_logger = logger is not None
+    if not primary:
+        logger = None
+    quiet = cfg.quiet or not primary
+    replicated = replicated_sharding(mesh)
 
     model = get_model(cfg.net, 3, train_ds.class_num,
                       generator=torch.Generator().manual_seed(cfg.seed))
     model = model.to(dev)
     opt = adamw(weight_decay=cfg.weight_decay)
-    state = TrainState.create(model, opt, seed=cfg.seed + 1)
+    state = put_global_tree(TrainState.create(model, opt,
+                                              seed=cfg.seed + 1), replicated)
 
     loader_cls = HostLoader if cfg.loader == "host" else DeviceDataLoader
     train_loader = loader_cls(train_ds.images, train_ds.labels,
                               cfg.batch_size, shuffle=True, seed=cfg.seed,
-                              drop_last=True, device=dev)
+                              drop_last=True, device=dev, mesh=mesh)
     val_loader = loader_cls(val_ds.images, val_ds.labels, cfg.batch_size,
-                            device=dev)
+                            device=dev, mesh=mesh, pad_to_batch=multi)
     steps_per_epoch = len(train_loader)
     if steps_per_epoch == 0:
         raise ValueError(
@@ -265,20 +287,19 @@ def run_training(cfg: TrainConfig, train_ds, val_ds,
         # out-of-range ignore labels (VOC's 255) must stay out of the loss;
         # CamVid's in-range Void (11) is trained like the reference
         loss_ignore = train_ds.ignore_index
-    train_step = make_train_step(opt, onecycle_lr(cfg.lr, total_steps),
-                                 onecycle_beta1(total_steps),
-                                 class_weights=cw, ignore_index=loss_ignore,
-                                 augment_fn=augment, compute_dtype=dtype,
-                                 grad_accum=cfg.grad_accum, remat=cfg.remat)
+    train_step = jit_train_step(make_train_step(
+        opt, onecycle_lr(cfg.lr, total_steps), onecycle_beta1(total_steps),
+        class_weights=cw, ignore_index=loss_ignore, augment_fn=augment,
+        compute_dtype=dtype, grad_accum=cfg.grad_accum, remat=cfg.remat),
+        mesh)
     # the eval loss drops the pad sentinel 255 and whatever the training
     # loss ignores, so Test/Loss measures the same objective as JAX's
     eval_loss_ignore = {255} | ({loss_ignore} if loss_ignore is not None
                                 else set())
-    eval_step = make_eval_step(train_ds.class_num,
-                               ignore_index=train_ds.ignore_index,
-                               class_weights=cw,
-                               loss_ignore_index=tuple(eval_loss_ignore),
-                               compute_dtype=dtype)
+    eval_step = jit_eval_step(make_eval_step(
+        train_ds.class_num, ignore_index=train_ds.ignore_index,
+        class_weights=cw, loss_ignore_index=tuple(eval_loss_ignore),
+        compute_dtype=dtype), mesh)
 
     if logger is not None and cfg.log_dir:
         from pytorch_camvid_tpu_torch.utils.summary import visualize_network
@@ -303,9 +324,10 @@ def run_training(cfg: TrainConfig, train_ds, val_ds,
                 trained_epochs = meta.get("epoch", parse_epoch(weight_path))
                 resume_epoch = meta.get("preempted_in_epoch", 0)
                 resume_skip = meta.get("resume_batch_idx", 0)
+            state = put_global_tree(state, replicated)
             print("Done loading!")
 
-    ckpt_dir = cfg.checkpoint_dir
+    ckpt_dir = cfg.checkpoint_dir if primary else None
     best_iou = 0.0  # never reset (fixes SURVEY.md §2.5.4)
     history = []
     n_train = train_ds.images.shape[0]
@@ -319,9 +341,18 @@ def run_training(cfg: TrainConfig, train_ds, val_ds,
         pass  # not the main thread (e.g. under a test runner)
 
     # quiet runs with no logger and one step per dispatch read metrics
-    # every 16 steps, like the JAX package's
-    sync_every = 16 if (cfg.quiet and logger is None) else 1
+    # every 16 steps, like the JAX package's; on one cadence on every rank
+    # (only rank 0 has the logger), so the NaN guard stops them together
+    sync_every = 16 if (cfg.quiet and (multi or not had_logger)) else 1
     chain = max(cfg.dispatch_chain, 1)
+
+    def agreed(state):
+        if multi:
+            n = check_agree(state, mesh)
+            if not quiet:
+                print(f"ranks: the {mesh.world} ranks' states agree bit for "
+                      f"bit ({n} leaves)")
+        return state
 
     applied = 0  # batches applied in this run (drives stop_after_batches)
     try:
@@ -369,9 +400,9 @@ def run_training(cfg: TrainConfig, train_ds, val_ds,
             idx_all = train_loader.epoch_indices(epoch - 1)
             pos = skip
             while pos < len(idx_all):
-                if stop["flag"]:
+                if mesh.any(stop["flag"]):   # the ranks stop together
                     preempt_save(pos)
-                    return state, history
+                    return agreed(state), history
                 kk = min(chain, len(idx_all) - pos)
                 if cfg.stop_after_batches is not None:
                     # never overshoot a deterministic stop point
@@ -441,4 +472,4 @@ def run_training(cfg: TrainConfig, train_ds, val_ds,
         # never swallows a later SIGTERM
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
-    return state, history
+    return agreed(state), history

@@ -390,3 +390,83 @@ def test_fmaf_epilogue_rounds_otherwise():
     twice = (acc * scale).astype(np.float32) + bias
     once = (acc.astype(np.float64) * scale + bias).astype(np.float32)
     assert (twice != once).mean() > 0.01
+
+
+# ------------------------------------------------ phase 17's rank faults
+
+def _mesh(rank):
+    """A two-rank mesh whose all-reduce doubles (the sum of two equal
+    ranks), without a process group."""
+    from pytorch_camvid_tpu_torch.parallel.mesh import Mesh
+    return Mesh(2, rank, torch.device("cpu"), levels=("stand-in",))
+
+
+@pytest.fixture
+def two_equal_ranks(monkeypatch):
+    """``Mesh.all_reduce`` as two equal ranks' sum; the rank faults'
+    patches undone after the test."""
+    from pytorch_camvid_tpu_torch.ops import conv
+    from pytorch_camvid_tpu_torch.parallel import mesh, spatial
+    from pytorch_camvid_tpu_torch.train import steps
+    monkeypatch.setattr(mesh.Mesh, "all_reduce",
+                        lambda self, t, op=None: t.mul_(2))
+    for owner, name in ((mesh.Mesh, "reduce_grads"), (conv, "sync_mesh"),
+                        (steps, "loss_and_grads"),
+                        (spatial, "exchange_rows")):
+        monkeypatch.setattr(owner, name, getattr(owner, name))
+
+
+def test_rank1_keeps_its_gradients(two_equal_ranks):
+    grads = {"w": torch.ones(3)}
+    chip_faults.rank1_keeps_its_gradients()
+    assert torch.equal(_mesh(0).reduce_grads(grads, mean=False)["w"],
+                       torch.full((3,), 2.0))
+    assert _mesh(1).reduce_grads(grads, mean=False) is grads
+
+
+def test_bn_on_local_moments_skips_the_sync(two_equal_ranks, monkeypatch):
+    """A train-mode block under ``syncing``, the other rank's moments
+    twice this one's: the synced output differs from the local one; under
+    the fault it is the local one."""
+    from pytorch_camvid_tpu_torch.ops.conv import ConvBNReLU, syncing
+    from pytorch_camvid_tpu_torch.parallel.mesh import Mesh
+    monkeypatch.setattr(Mesh, "all_reduce",
+                        lambda self, t, op=None: t.mul_(3))
+    blk = ConvBNReLU(3, 4, torch.Generator().manual_seed(0)).train()
+    x = torch.randn(2, 6, 5, 3, generator=torch.Generator().manual_seed(1))
+    local = copy.deepcopy(blk)(x)
+    with syncing(_mesh(0)):
+        synced = copy.deepcopy(blk)(x)
+        chip_faults.bn_on_local_moments()
+        faulty = copy.deepcopy(blk)(x)
+    assert not torch.equal(synced, local)
+    assert torch.equal(faulty, local)
+
+
+def test_loss_over_local_weights_drops_the_mesh(two_equal_ranks):
+    """The inferred step's ``loss_and_grads`` divides by the summed weights
+    (twice the local sum here); under the fault by the local sum."""
+    from pytorch_camvid_tpu_torch.models import get_model
+    from pytorch_camvid_tpu_torch.train import steps
+    model = get_model("unet", 3, 12, width_mult=1 / 16,
+                      generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    y = torch.randint(0, 12, (2, 32, 32),
+                      generator=torch.Generator().manual_seed(2))
+
+    def loss():
+        args = (copy.deepcopy(model), x, y, None, None, False, False,
+                _mesh(0))
+        return float(steps.loss_and_grads(*args)[0])
+    sound = loss()
+    chip_faults.loss_over_local_weights()
+    assert loss() == pytest.approx(2 * sound, rel=1e-6)
+
+
+def test_halo_rows_swapped_swaps_top_and_bottom(two_equal_ranks):
+    from pytorch_camvid_tpu_torch.parallel import spatial
+    top, bottom = torch.zeros(1, 2, 3, 4), torch.ones(1, 2, 3, 4)
+    spatial.exchange_rows = lambda t, b, mesh: (b, t)   # the neighbours'
+    chip_faults.halo_rows_swapped()
+    got = spatial.exchange_rows(top, bottom, None)
+    assert got[0] is top and got[1] is bottom

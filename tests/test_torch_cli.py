@@ -157,7 +157,7 @@ def tiny_run(tmp_path, monkeypatch):
 
 # ROADMAP.md Queue 1 items that are done: their flags run
 PORTED_ITEMS = {"VOC reader", "the rest of augmentation and the pipeline",
-                "remat", "int8"}
+                "remat", "int8", "multi-GPU"}
 
 
 @pytest.mark.parametrize("main,argv,item", [
@@ -171,7 +171,12 @@ PORTED_ITEMS = {"VOC reader", "the rest of augmentation and the pipeline",
     (eval_cli.main, ["-dataset", "voc2012"], "VOC reader")])
 def test_unported_flags_name_their_roadmap_item(main, argv, item, request):
     """A flag of a Queue 1 item raises, naming it, until the item is
-    ported; then it runs: one tiny CPU epoch (train) or eval pass."""
+    ported; then it runs: one tiny CPU epoch (train) or eval pass.
+    ``-multihost`` runs this process as the one rank of a ``PCT_*`` run;
+    ``-dp 2`` spawns two CPU ranks, which build the full-width UNet (a
+    spawned process does not see this test's narrowed model) and find
+    TensorFlow hidden on the path they inherit; rank 0 alone makes a run
+    folder."""
     base = (["-net", "unet"] if main is train_cli.main
             else ["-weight", "w.pth"])
     if item not in PORTED_ITEMS:
@@ -179,6 +184,23 @@ def test_unported_flags_name_their_roadmap_item(main, argv, item, request):
             main(base + argv + ["-device", "cpu"])
         return
     common = request.getfixturevalue("tiny_run")
+    if item == "multi-GPU":
+        monkeypatch = request.getfixturevalue("monkeypatch")
+        tmp = request.getfixturevalue("tmp_path")
+        monkeypatch.setenv("PCT_COORDINATOR", f"file://{tmp}/rendezvous")
+        monkeypatch.setenv("PCT_NUM_PROCS", "1")
+        monkeypatch.setenv("PCT_PROC_ID", "0")
+        stub = tmp / "stub"
+        (stub / "tensorflow").mkdir(parents=True)
+        (stub / "tensorflow" / "__init__.py").write_text(
+            "raise ImportError('tensorflow is hidden from this test')\n")
+        monkeypatch.syspath_prepend(str(stub))
+        history = main(base + argv + ["-b", "2", "-e", "1", "-quiet"]
+                       + common)
+        assert [h["epoch"] for h in history] == [1]
+        assert np.isfinite(history[0]["miou"])
+        assert len(os.listdir("checkpoints")) == len(os.listdir("runs")) == 1
+        return
     if main is train_cli.main:
         history = main(base + argv + ["-b", "2", "-e", "1", "-quiet"]
                        + common)

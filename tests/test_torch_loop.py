@@ -38,6 +38,7 @@ from pytorch_camvid_tpu_torch.interop.weights import (jax_variables_from_model,
                                                       train_state_from_jax)
 from pytorch_camvid_tpu_torch.models import get_model
 from pytorch_camvid_tpu_torch.models.unet import UNet, scaled_spec
+from pytorch_camvid_tpu_torch.parallel import multihost
 from pytorch_camvid_tpu_torch.train import loop, make_eval_step
 from pytorch_camvid_tpu_torch.utils import (confusion, metrics_np, stats,
                                             summary, tb)
@@ -304,7 +305,7 @@ def test_batch_larger_than_the_split_raises(small_unet):
 
 # ROADMAP.md Queue 1 items that are done: their options run
 PORTED_ITEMS = {"the rest of augmentation and the pipeline",
-                "f32 on the card", "remat"}
+                "f32 on the card", "remat", "multi-GPU"}
 
 
 @pytest.mark.parametrize("change,item", [
@@ -312,15 +313,36 @@ PORTED_ITEMS = {"the rest of augmentation and the pipeline",
     ({"loader": "host"}, "the rest of augmentation and the pipeline"),
     ({"remat": True}, "remat"),
     ({"device": "cuda", "compute_dtype": "float32"}, "f32 on the card")])
-def test_unported_options_name_their_roadmap_item(small_unet, change, item):
+def test_unported_options_name_their_roadmap_item(small_unet, change, item,
+                                                  tmp_path):
     """An option of a Queue 1 item raises, naming it, until the item is
     ported; then it runs: ``loader='host'`` and ``remat`` each train a
     tiny CPU epoch (with its eval pass) bit-equal to the run without the
     option; float32 on a CUDA device is taken, so without a card the run
-    stops at the device check."""
+    stops at the device check; ``data_parallel=2`` needs two ranks (without
+    a process group it raises, naming the launchers), and in a process
+    group of one rank, where every collective of the data-parallel path
+    runs, the epoch is bit-equal to the run without one
+    (``test_torch_multihost.py`` trains on two ranks)."""
     if item not in PORTED_ITEMS:
         with pytest.raises(NotImplementedError, match=f"Queue 1: {item}"):
             loop.run_training(replace(CFG, **change), _DS(4), _DS(4))
+        return
+    if item == "multi-GPU":
+        with pytest.raises(ValueError, match="needs 2 ranks.*-dp 2"):
+            loop.run_training(replace(CFG, **change), _DS(4), _DS(4))
+        cfg = replace(CFG, epochs=1)
+        want, want_hist = loop.run_training(cfg, _DS(12), _DS(5, seed=1))
+        multihost.init_distributed(f"file://{tmp_path}/rendezvous", 1, 0,
+                                   "cpu")
+        try:
+            got, hist = loop.run_training(replace(cfg, data_parallel=1),
+                                          _DS(12), _DS(5, seed=1))
+        finally:
+            multihost.shutdown()
+        _assert_same_state(got, want)
+        assert [(h["miou"], h["all_acc"]) for h in hist] == \
+            [(h["miou"], h["all_acc"]) for h in want_hist]
         return
     if item == "f32 on the card":
         if torch.cuda.is_available():

@@ -118,6 +118,24 @@ def test_cpu_run_counts_no_launch():
     assert mosaic_probes.calls_per_probe("cpu") == 1
 
 
+@pytest.mark.parametrize("runs,traces,ok", [
+    (1, 1, True), (1, 3, True), (2, 2, True), (2, 6, True), (1, 4, False),
+    (2, 7, False)])
+def test_chip_smoke_probe_launch_rule_counts_retried_traces(runs, traces,
+                                                            ok):
+    """chip_smoke's launch check of phase 11: each run launches once for
+    the checked call and each warm-up call, and ITERS times for each
+    profiler trace the timing took (one to TRACE_TRIES a run, as
+    ``perf_probe.time_op`` takes a trace again when it holds no device
+    records); one launch more or less is never right."""
+    import chip_smoke
+    from pytorch_camvid_tpu_torch import perf_probe
+    n = runs * (1 + perf_probe.WARMUP) + traces * mosaic_probes.ITERS
+    assert chip_smoke.probe_launches_ok(n, runs) is ok
+    assert not chip_smoke.probe_launches_ok(n + 1, runs)
+    assert not chip_smoke.probe_launches_ok(n - 1, runs)
+
+
 # ---------------------------------------- plain versions against numpy
 
 RNG = np.random.default_rng(5)

@@ -47,6 +47,32 @@ def test_serve_cli_writes_masks(tmp_path):
         assert c is not None and c.shape == (360, 480, 3)
 
 
+def test_serve_cli_dp_replicas_write_the_same_masks(tmp_path):
+    """``serve -dp 2 -device cpu``: two replicas on the CPU, each batch of
+    2 split 1 + 1, write the masks one replica writes."""
+    from pytorch_camvid_tpu_torch import serve
+    from pytorch_camvid_tpu_torch.models import get_model
+    torch.set_num_threads(2)
+    model = get_model("unet", 3, 12, width_mult=1 / 16,
+                      generator=torch.Generator().manual_seed(0))
+    weight = str(tmp_path / "unet.pth")
+    torch.save(model.state_dict(), weight)
+    src = tmp_path / "imgs"
+    src.mkdir()
+    rng = np.random.default_rng(4)
+    for name in "abc":
+        cv2.imwrite(str(src / f"{name}.png"),
+                    rng.integers(0, 256, (60, 88, 3), dtype=np.uint8))
+    for dp in ("1", "2"):
+        assert serve.main(["-weight", weight, "-input", str(src), "-output",
+                           str(tmp_path / dp), "-b", "2", "-dp", dp,
+                           "-device", "cpu"]) == 0
+    for name in "abc":
+        one, two = (cv2.imread(str(tmp_path / dp / f"{name}_mask.png"),
+                               cv2.IMREAD_GRAYSCALE) for dp in "12")
+        np.testing.assert_array_equal(two, one)
+
+
 def test_port_imports_no_jax(tmp_path):
     code = ("import sys\n"
             "import pytorch_camvid_tpu_torch\n"
@@ -95,6 +121,14 @@ def test_port_imports_no_jax(tmp_path):
             "import pytorch_camvid_tpu_torch.data.transforms\n"
             "import pytorch_camvid_tpu_torch.lr_finder\n"
             "import pytorch_camvid_tpu_torch.compute_stats\n"
+            "import pytorch_camvid_tpu_torch.train_tpu\n"
+            "import pytorch_camvid_tpu_torch.parallel\n"
+            "import pytorch_camvid_tpu_torch.parallel.launch\n"
+            "import pytorch_camvid_tpu_torch.parallel.mesh\n"
+            "import pytorch_camvid_tpu_torch.parallel.multihost\n"
+            "import pytorch_camvid_tpu_torch.parallel.data_parallel\n"
+            "import pytorch_camvid_tpu_torch.parallel.shard_map_dp\n"
+            "import pytorch_camvid_tpu_torch.parallel.spatial\n"
             "from pytorch_camvid_tpu_torch.models import get_model\n"
             "get_model('unet', 3, 12, width_mult=1 / 16)\n"
             "get_model('segnet', 3, 12, width_mult=1 / 16)\n"
