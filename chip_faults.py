@@ -44,14 +44,21 @@ processes of their own, so their faults are functions each rank runs
 first (``dp_phase``'s ``rank_setup``): rank 1 keeping its own gradients
 after the all-reduce, sync-BN on each rank's own moments, the loss
 divided by each rank's own sum of weights, the halo's top and bottom rows
-swapped. Prints each reading and the check that failed; exits non-zero if
-the sound run fails a check or a fault passes them all.
+swapped; and phase 18's (a) and (c) (``export_checks``: the bf16 UNet
+Predictor's export, its maps after it and the program's launches and
+maps; the int8 UNet's) under three faults of the export: K4's op with its
+CUDA kernel registered to the plain version, the upsample matrices cached
+while tracing (a plain ``lru_cache``), the int8 op's fake giving int8
+where the kernel emits bf16. Prints each reading and the check that
+failed; exits non-zero if the sound run fails a check or a fault passes
+them all.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import itertools
 import os
 import subprocess
@@ -73,7 +80,7 @@ from pytorch_camvid_tpu_torch.models.segnet import SegNet
 from pytorch_camvid_tpu_torch.ops import (conv, conv_train, cuda_build,
                                           fused_conv, fused_conv_int8,
                                           fused_conv_pair, fused_pool,
-                                          layout_probes)
+                                          layout_probes, library, resize)
 from pytorch_camvid_tpu_torch.parallel import mesh as mesh_mod
 from pytorch_camvid_tpu_torch.parallel import spatial
 from pytorch_camvid_tpu_torch.train import loop
@@ -537,6 +544,43 @@ _pack_weights = fused_conv_int8.pack_weights
 
 # ------------------------------------------- faults run inside the ranks
 
+@contextlib.contextmanager
+def op_kernel_plain():
+    """``camvid::conv3x3_bn_relu``'s CUDA kernel registered to the plain
+    version (cuDNN through ``F.conv2d``), a fallback nobody sees: eager
+    calls keep the launcher, a loaded program launches no K4."""
+    op = library.conv3x3_bn_relu
+    op.register_kernel("cuda")(
+        lambda x, w, a, b, relu, flip: fused_conv.conv3x3_bn_relu_plain(
+            x, w, a, b, relu, flip).contiguous())
+    try:
+        yield
+    finally:
+        op.register_kernel("cuda")(op._init_fn)
+
+
+def upsample_cache_kept_while_tracing():
+    """``resize._upsample_matrices`` as a plain ``lru_cache`` (a fresh
+    one), which keeps the tensors a trace builds."""
+    return planted(resize, "_upsample_matrices", functools.lru_cache(
+        maxsize=64)(resize._upsample_matrices.__wrapped__))
+
+
+@contextlib.contextmanager
+def int8_fake_says_int8():
+    """``camvid::conv3x3_int8_block``'s fake giving an int8 output where
+    the kernel emits the compute dtype (``s_out`` absent)."""
+    op = library.conv3x3_int8_block
+    fake = op._abstract_fn
+    op.register_fake(lambda x, w_q, packed, s_w, s_x, b_eff, s_out,
+                     out_dtype: x.new_empty(x.shape[:3] + w_q.shape[3:],
+                                            dtype=torch.int8))
+    try:
+        yield
+    finally:
+        op.register_fake(fake)
+
+
 def rank1_keeps_its_gradients():
     """Rank 1 takes part in the gradient all-reduce and keeps its own
     gradients."""
@@ -714,12 +758,18 @@ def main() -> int:
          "(255 on one rank only)", lambda: in_ranks(loss_over_local_weights)),
         ("multi-GPU", "the halo's top and bottom rows swapped",
          lambda: in_ranks(halo_rows_swapped)),
+        ("export", "the K4 op's CUDA kernel registered to the plain version",
+         op_kernel_plain),
+        ("export", "the upsample matrices cached while tracing",
+         upsample_cache_kept_while_tracing),
+        ("export", "the int8 op's fake giving int8 where the kernel emits "
+         "bf16", int8_fake_says_int8),
     ]
     ok = True
     tmp = tempfile.TemporaryDirectory()
     for path in ("serving", "training", "K5", "probes", "training run",
                  "augment", "data side", "f32", "remat", "int8",
-                 "multi-GPU"):
+                 "multi-GPU", "export"):
         gen = torch.Generator().manual_seed(smoke.SEED)
         if path == "serving":
             model = bench.he_model("segnet", gen).cuda().eval()
@@ -786,6 +836,14 @@ def main() -> int:
 
             def run():
                 smoke.dp_phase(nets=("unet",), rank_setup=_rank_fault[0])
+        elif path == "export":   # phase 18 (a) and (c)
+            model = None
+            exports = itertools.count()
+
+            def run():
+                work = os.path.join(tmp.name, f"e{next(exports)}")
+                os.makedirs(work)
+                smoke.export_checks(work)
         else:   # phase 13's checks on phase 12's data and run A
             model = None
 

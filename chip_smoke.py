@@ -273,6 +273,31 @@ Phases (each prints its lines; any failure exits non-zero):
    class maps bit-equal to one device's, K4 (and K3) launched once a block
    (pool) by each replica on its half of every batch.
    ``chip_faults.py`` plants four faults in the ranks of (a) and (e).
+18. Export (``Predictor.export_program``, ``ops/library.py``'s ``camvid::``
+   ops, ``torch.export``), full width, 360x480, He-scaled weights from
+   seed 0: (a) a bf16 UNet Predictor at b8 that has not predicted exports
+   its program (seconds, MB; op nodes: K4 23 and no library conv or pool),
+   then predicts: its maps bit-equal to a second Predictor's that never
+   exported; the program loaded here: one run launches K4 23 times (22
+   wgmma, 1 packed), its maps bit-equal to the live ones, its forward ms
+   beside the live ``_forward``'s. (b) SegNet bf16 b8: K4 26 (25, 1), K3's
+   pool and unpool 5 each. (c) The int8 UNet (``quantize_int8`` on 8
+   frames, as phase 16): 22 int8 blocks, 13 quantizes, K4 once (the head).
+   (d) The f32 UNet at b4 (K4 on "f32" 22, "f32_packed" 1). Then one
+   process that imports ``ops.library`` and nothing of the models, the
+   Predictor or jax loads the four programs on the card: each run's
+   launches as above and maps bit-equal to the live Predictor's. (e) (a)'s
+   program loaded on the CPU runs the plain versions: its maps agree with
+   the card's on ``EXPORT_CPU_AGREE`` of the pixels. (f) ``dump_program``
+   of UNet's train-mode forward at b10 bf16 (seconds; K1's forward op 23
+   times, no launch, no state moved); ``python -m
+   pytorch_camvid_tpu_torch.export_program`` on run A's checkpoint prints
+   "roundtrip verified" at 100.00%; ``export_torch`` writes a ``.pth``
+   equal to the checkpoint's weights that loads strictly; run A's
+   ``program_unet.txt`` names K1's forward op 23 times (phase 12's resume
+   ran with the dump in both runs). (g) In (a), the eager forward's ms
+   through the launchers (the route eager calls take) and through the op,
+   in turns. ``chip_faults.py`` plants three faults under (a) and (c).
 In phases 8 and 9 the plain path replays the kernel path's pool choices
 (``recorded_choices``, ``replayed_choices``): a 1-ulp difference between
 the two paths' convs would otherwise flip the choice of near-tied windows
@@ -296,7 +321,10 @@ TF32 on, ``library_tf32_ms``, and their launches on each f32 route,
 ``path_launches``; K1's pieces their launches on each path in phase 15's
 UNet remat step, ``remat_path_launches``, and each rank's launches in
 phase 17 (a), ``dp_rank_launches``; the quantize kernel its
-``library_ms`` and ``library_equal``).
+``library_ms`` and ``library_equal``; K4, its f32 instance, K3's flat
+pair, conv3x3_int8 and the quantize kernel the launches of one run of each
+phase-18 program that holds them in the loader process,
+``program_launches``).
 Imports neither jax nor cv2.
 """
 
@@ -304,6 +332,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import glob
 import importlib
 import io
 import json
@@ -324,6 +353,8 @@ from pytorch_camvid_tpu_torch import (batch_sweep, bench, f32_variants,
                                      perf_probe)
 from pytorch_camvid_tpu_torch import benchmark as benchmark_cli
 from pytorch_camvid_tpu_torch import eval as eval_cli
+from pytorch_camvid_tpu_torch import export_program as export_program_cli
+from pytorch_camvid_tpu_torch import export_torch as export_torch_cli
 from pytorch_camvid_tpu_torch import predict as predict_cli
 from pytorch_camvid_tpu_torch import serve as serve_cli
 from pytorch_camvid_tpu_torch import train as train_mod
@@ -337,7 +368,9 @@ from pytorch_camvid_tpu_torch.models.segnet import segnet_spec
 from pytorch_camvid_tpu_torch.ops import (conv_train, cuda_build, fused_conv,
                                           fused_conv_int8, fused_conv_pair,
                                           fused_pool, pooling, quant)
+from pytorch_camvid_tpu_torch.ops import conv as conv_ops
 from pytorch_camvid_tpu_torch.ops import layout_probes as lp
+from pytorch_camvid_tpu_torch.ops import library
 from pytorch_camvid_tpu_torch.ops.metrics import (confusion_matrix,
                                                   iou_from_confusion)
 from pytorch_camvid_tpu_torch.parallel import launch, multihost, spatial
@@ -345,6 +378,7 @@ from pytorch_camvid_tpu_torch.serving import Predictor
 from pytorch_camvid_tpu_torch.train import TrainState, loop
 from pytorch_camvid_tpu_torch.train import checkpoint as ckpt
 from pytorch_camvid_tpu_torch.train import steps as steps_mod
+from pytorch_camvid_tpu_torch.utils import summary
 
 train_cli = importlib.import_module("pytorch_camvid_tpu_torch.train.__main__")
 
@@ -4507,6 +4541,378 @@ def phase_multi_gpu(tmp: str, data: str) -> dict:
     return out
 
 
+# ------------------------------------------------------ phase 18: export
+
+EXPORT_CPU_AGREE = 0.99   # the card's program run on the CPU (JAX's rule)
+EXPORT_F32_BATCH = 4
+LIBRARY_NODES = ("aten::convolution", "aten::conv2d", "aten::_convolution",
+                 "aten::cudnn_convolution", "aten::max_pool2d_with_indices",
+                 "aten::max_unpool2d")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# a process that imports ops.library and nothing of the models, the
+# Predictor or jax: loads each program on the card, runs it once on its
+# images and writes its maps and launches (program_counts' keys)
+PROGRAM_LOADER = r"""
+import json, sys, time
+import numpy as np
+import torch
+from pytorch_camvid_tpu_torch.ops import (fused_conv, fused_conv_int8,
+                                          fused_pool, library)
+
+def foreign():
+    return sorted(m for m in sys.modules if m.split(".")[0] == "jax"
+                  or m == "pytorch_camvid_tpu"
+                  or m.startswith(("pytorch_camvid_tpu.",
+                                   "pytorch_camvid_tpu_torch.models",
+                                   "pytorch_camvid_tpu_torch.serving")))
+
+out = {}
+for job in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    program = library.load_program(job["path"], "cuda:0")
+    load_s = time.perf_counter() - t0
+    x = torch.from_numpy(np.load(job["images"])).cuda()
+    for m in (fused_conv, fused_conv_int8, fused_pool):
+        m.reset_launches()
+    with torch.inference_mode():
+        maps = program(x).cpu().numpy()
+    np.save(job["maps"], maps)
+    out[job["name"]] = {"load_s": load_s, "counts": {
+        "conv3x3_int8": fused_conv_int8.conv3x3_int8_block.launches,
+        "quantize": fused_conv_int8.quantize.launches,
+        "conv3x3_int8_paths":
+            dict(fused_conv_int8.conv3x3_int8_block.path_launches),
+        "conv3x3_bn_relu": fused_conv.conv3x3_bn_relu.launches,
+        **fused_pool.launches(),
+        "conv3x3_bn_relu_paths":
+            dict(fused_conv.conv3x3_bn_relu.path_launches)}}
+    del program
+out["foreign"] = foreign()
+print(json.dumps(out))
+"""
+
+
+def checked(fn, what: str):
+    """``fn()``; an exception from it fails the check ``what``."""
+    try:
+        return fn()
+    except Exception as e:   # e.g. a traced tensor reaching an eager call
+        check(False, f"{what}: {type(e).__name__}: {e}")
+
+
+def program_counts() -> dict:
+    return {**int8_counts(), "conv3x3_bn_relu_paths":
+            dict(fused_conv.conv3x3_bn_relu.path_launches)}
+
+
+def program_expected(net: str, dtype: torch.dtype = torch.bfloat16,
+                     fused=None) -> tuple:
+    """(camvid:: op nodes, ``program_counts`` of one run) of ``net``'s
+    serving program: K4 per float block, SegNet's K3 pair per pool; an int8
+    model (``fused``: its blocks that emit int8) the int8 block per
+    quantized block, the quantize per one whose input comes float and K4
+    only on the float head."""
+    nb, pools = n_blocks(net), POOLS[net]
+    if fused is None:
+        launches = {"conv3x3_int8": 0, "quantize": 0,
+                    "conv3x3_int8_paths": {"wgmma": 0, "packed": 0},
+                    "conv3x3_bn_relu": nb,
+                    "maxpool2x2.pool_flat": pools,
+                    "maxpool2x2.unpool_flat": pools,
+                    "maxpool2x2.pool_phase": 0, "maxpool2x2.unpool_phase": 0,
+                    "maxpool2x2.phase_gather": 0,
+                    "conv3x3_bn_relu_paths":
+                        path_counts(net, 1, dtype=dtype)["fwd"]}
+        nodes = {"camvid::conv3x3_bn_relu": nb}
+    else:
+        nq = len(int8_block_shapes(net))
+        head = dict.fromkeys(fused_conv.ROUTES, 0)
+        head[fused_conv.conv_path(64, 12)] = nb - nq
+        launches = {**int8_expected(net, 1, fused),
+                    "conv3x3_bn_relu_paths": head}
+        nodes = {"camvid::conv3x3_bn_relu": nb - nq,
+                 "camvid::conv3x3_int8_block": nq,
+                 "camvid::quantize_int8": nq - fused}
+    if pools:
+        nodes |= {"camvid::max_pool_2x2_argmax": pools,
+                  "camvid::max_unpool_2x2": pools}
+    return nodes, launches
+
+
+def export_case(label: str, p: Predictor, images: np.ndarray, tmp: str,
+                want: tuple, never: Predictor = None) -> dict:
+    """``p.export_program`` (seconds, MB, its op nodes: ``want[0]``, no
+    library conv or pool), then ``p.predict`` after the export (bit-equal
+    to the maps of ``never``, a Predictor that never exported, where
+    given: it predicts after the export, so a cache that the trace filled
+    reaches both), then the program loaded here on the card: one run's
+    launches (``want[1]``) and maps (bit-equal to the live ones); its
+    forward's ms beside the live ``_forward``'s (CUDA events)."""
+    path = os.path.join(tmp, f"{label}.pt2")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    program = checked(lambda: p.export_program(path), f"{label} export")
+    secs = time.perf_counter() - t0
+    nodes = library.op_counts(program.graph)
+    ops = {k: v for k, v in nodes.items() if k.startswith("camvid::")}
+    lib = {k: nodes[k] for k in LIBRARY_NODES if nodes[k]}
+    mb = os.path.getsize(path) / 1e6
+    print(f"export {label}: {secs:.2f} s, {mb:.1f} MB; op nodes {ops} "
+          f"(expected {want[0]}); library conv or pool nodes {lib}",
+          flush=True)
+    check(ops == want[0], f"{label}: the program's op nodes")
+    check(not lib, f"{label}: a library conv or pool in the program")
+    live = checked(lambda: p.predict(images),
+                   f"{label}: the Predictor's predict after its export")
+    if never is not None:
+        same = np.array_equal(live, checked(
+            lambda: never.predict(images),
+            f"{label}: a Predictor that never exported"))
+        print(f"export {label}: the exporting Predictor's maps "
+              f"{'bit-equal to' if same else 'DIFFER from'} those of one "
+              f"that never exported", flush=True)
+        check(same, f"{label}: the maps after the export")
+    x = torch.from_numpy(images).cuda()
+    loaded = library.load_program(path, "cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    maps = checked(lambda: loaded(x).cpu().numpy(),
+                   f"{label}: the loaded program's run")
+    counts = program_counts()
+    check(counts == want[1], f"{label}: the loaded program's launches "
+          f"{counts} (expected {want[1]})")
+    check(np.array_equal(maps, live), f"{label}: the loaded program's "
+          f"maps against the live Predictor's")
+    with torch.inference_mode():
+        prog_ms = cuda_ms(lambda: loaded(x), iters=10)
+        live_ms = cuda_ms(lambda: p._forward(x), iters=10)
+    print(f"export {label}: the program loaded on the card, one run: "
+          f"launches {counts}, maps bit-equal to the live Predictor's; "
+          f"forward {prog_ms:.3f} ms (live _forward {live_ms:.3f} ms) on "
+          f"{bench.card()}", flush=True)
+    return {"path": path, "s": secs, "mb": mb, "maps": live,
+            "launches": counts, "program_ms": prog_ms, "live_ms": live_ms}
+
+
+def eager_op_ms(p: Predictor, x: torch.Tensor) -> dict:
+    """(g) ``p._forward(x)``'s ms with each block's K4 call as eager calls
+    take it (the launcher) and through the op ``camvid::conv3x3_bn_relu``
+    (``ops/conv.py``'s name patched), in turns direct, op, op, direct, 20
+    forwards each (CUDA events); the op route's launches a forward."""
+    direct = conv_ops.conv3x3_bn_relu
+    op = torch.ops.camvid.conv3x3_bn_relu
+
+    def via_op(x, w, a, b, relu=True, flip=False):
+        return op(x, w, a, b, relu, flip)
+
+    times = {"direct": [], "op": []}
+    try:
+        for route in ("direct", "op", "op", "direct"):
+            conv_ops.conv3x3_bn_relu = via_op if route == "op" else direct
+            times[route].append(cuda_ms(lambda: p._forward(x), iters=20))
+        conv_ops.conv3x3_bn_relu = via_op
+        reset_counts()
+        p._forward(x)
+        torch.cuda.synchronize()
+        launches = fused_conv.conv3x3_bn_relu.launches
+    finally:
+        conv_ops.conv3x3_bn_relu = direct
+    out = {k: sum(v) / len(v) for k, v in times.items()}
+    print(f"export (g): UNet b{BATCH} bf16 eager forward "
+          f"{out['direct']:.3f} ms through the launchers (the route eager "
+          f"calls take), {out['op']:.3f} ms through the op "
+          f"({out['op'] / out['direct'] - 1:+.2%}; runs {times}); the op "
+          f"route launched K4 {launches} times a forward on "
+          f"{bench.card()}", flush=True)
+    check(launches == n_blocks("unet"), "(g) K4 through the op")
+    return {**out, "runs": times}
+
+
+def dump_checks(tmp: str) -> dict:
+    """The loop's program dump on the card: a full-width UNet's
+    train-mode forward at run A's batch, bf16: one trace, no launch, the
+    model's parameters, BN stats and counts unchanged."""
+    model = bench.he_model("unet", torch.Generator().manual_seed(SEED)
+                           ).cuda()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    x = torch.zeros((RUN_BATCH,) + HW + (3,), dtype=torch.bfloat16,
+                    device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    path = summary.dump_program(model, (x,), os.path.join(
+        tmp, "program_unet_b10.txt"))
+    secs = time.perf_counter() - t0
+    text = open(path).read()
+    nodes = text.count("torch.ops.camvid.conv3x3_bn_relu.default(")
+    moved = sum(not torch.equal(v, before[k])
+                for k, v in model.state_dict().items())
+    launches = sum(conv_train.launches().values()) + \
+        fused_conv.conv3x3_bn_relu.launches
+    print(f"export (f): dump_program of UNet's train-mode forward at "
+          f"b{RUN_BATCH} bf16: {secs:.2f} s, {len(text)} characters, K1's "
+          f"forward op {nodes} times, {launches} launches, {moved} of "
+          f"{len(before)} state tensors moved", flush=True)
+    check(nodes == n_blocks("unet") and launches == 0 and moved == 0,
+          "the program dump")
+    return {"s": secs}
+
+
+def cli_checks(tmp: str, run: dict, run_root: str) -> dict:
+    """(f) ``export_program`` and ``export_torch`` through their ``main``s
+    on run A's checkpoint, and run A's ``program_unet.txt`` (run A's
+    working directory is ``run_root``/a)."""
+    ckpt_path = run["a"]["ckpt"]
+    out = os.path.join(tmp, "cli_unet.pt2")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        export_program_cli.main(["-weight", ckpt_path, "-net", "unet",
+                                 "-b", str(BATCH), "-out", out])
+    secs = time.perf_counter() - t0
+    line = buf.getvalue().strip()
+    print(f"export (f): export_program on run A's checkpoint ({secs:.1f} "
+          f"s): {line}", flush=True)
+    check("roundtrip verified" in line
+          and "(100.00% pixel agreement)" in line,
+          "export_program's roundtrip")
+    pth = os.path.join(tmp, "cli_unet.pth")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        export_torch_cli.main(["-weight", ckpt_path, "-net", "unet",
+                               "-out", pth])
+    got = torch.load(pth, weights_only=True)
+    want = ckpt.load_weights(ckpt_path, "unet")
+    equal = sorted(got) == sorted(want) and all(
+        torch.equal(got[k], v) for k, v in want.items())
+    get_model("unet", spec=spec_from_state_dict("unet", got)
+              ).load_state_dict(got, strict=True)
+    print(f"export (f): {buf.getvalue().strip()}; every tensor "
+          f"{'equal to' if equal else 'DIFFERS from'} the checkpoint's, "
+          f"loads strictly into the port's UNet", flush=True)
+    check(equal, "export_torch's state_dict")
+    (program,) = glob.glob(os.path.join(run_root, "a", "runs", "*",
+                                        "program_unet.txt"))
+    n = open(program).read().count(
+        "torch.ops.camvid.conv3x3_bn_relu.default(")
+    print(f"export (f): run A wrote {os.path.relpath(program, run_root)}, "
+          f"K1's forward op {n} times (run A's resume above bit-equal "
+          f"with the dump in both runs)", flush=True)
+    check(n == n_blocks("unet"), "run A's program dump")
+    return {"cli_s": secs}
+
+
+def export_checks(tmp: str) -> dict:
+    """(a) and (c), as chip_faults.py runs them: the bf16 UNet Predictor,
+    fresh, exported; the int8 UNet Predictor exported."""
+    rng = np.random.default_rng(SEED)
+    images = rng.integers(0, 256, (BATCH,) + HW + (3,), dtype=np.uint8)
+    sd = bench.he_model("unet", torch.Generator().manual_seed(SEED)
+                        ).state_dict()
+    out = {"images": images}
+    with Predictor("unet", sd, batch_size=BATCH, image_hw=HW) as p, \
+            Predictor("unet", sd, batch_size=BATCH, image_hw=HW) as q:
+        out["unet_bf16"] = export_case("unet_bf16", p, images, tmp,
+                                       program_expected("unet"), q)
+        out["eager"] = eager_op_ms(p, torch.from_numpy(images).cuda())
+    calib = rng.integers(0, 256, (INT8_FRAMES["calib"],) + HW + (3,),
+                         dtype=np.uint8)
+    with Predictor("unet", sd, batch_size=BATCH, image_hw=HW) as p8:
+        p8.quantize_int8(calib)
+        fused = sum(b.s_out is not None for b in quant.quantized_blocks(
+            p8.model))
+        out["unet_int8"] = export_case("unet_int8", p8, images, tmp,
+                                       program_expected("unet",
+                                                        fused=fused))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_export(tmp: str, run: dict) -> dict:
+    """Phase 18 (module docstring): (a)-(d) exported, (a)-(d) loaded in a
+    process without the model code, (e) (a) on the CPU, (f) the CLIs and
+    the dump, (g) in (a)."""
+    t0 = time.perf_counter()
+    root, tmp = tmp, os.path.join(tmp, "export")
+    os.makedirs(tmp, exist_ok=True)
+    out = export_checks(tmp)
+    images = out["images"]
+    for net, label, kw in (("segnet", "segnet_bf16", {}),
+                           ("unet", "unet_f32",
+                            {"compute_dtype": torch.float32,
+                             "batch_size": EXPORT_F32_BATCH})):
+        sd = bench.he_model(net, torch.Generator().manual_seed(SEED)
+                            ).state_dict()
+        imgs = images[:kw.get("batch_size", BATCH)]
+        with Predictor(net, sd, **{"batch_size": BATCH, "image_hw": HW,
+                                   **kw}) as p:
+            out[label] = export_case(label, p, imgs, tmp,
+                                     program_expected(net, kw.get(
+                                         "compute_dtype", torch.bfloat16)))
+        torch.cuda.empty_cache()
+    labels = ("unet_bf16", "segnet_bf16", "unet_int8", "unet_f32")
+    jobs = []
+    for label in labels:
+        n = len(out[label]["maps"])
+        path = os.path.join(tmp, f"images_{n}.npy")
+        np.save(path, images[:n])
+        jobs.append({"name": label, "path": out[label]["path"],
+                     "images": path,
+                     "maps": os.path.join(tmp, f"{label}_maps.npy")})
+    t = time.perf_counter()
+    logs = [os.path.join(tmp, f"loader.{k}") for k in ("out", "err")]
+    with open(logs[0], "w") as fo, open(logs[1], "w") as fe:
+        loader = subprocess.Popen(
+            [sys.executable, "-c", PROGRAM_LOADER, json.dumps(jobs)],
+            cwd=ROOT, stdout=fo, stderr=fe,
+            env=dict(os.environ, PYTHONPATH=ROOT))
+        try:
+            # (e) (a)'s program on the CPU (the plain versions), while the
+            # loader process runs the four on the card
+            cpu = library.load_program(out["unet_bf16"]["path"], "cpu")
+            with torch.inference_mode():
+                cpu_maps = cpu(torch.from_numpy(images)).numpy()
+            cpu_s = time.perf_counter() - t
+            loader.wait(timeout=600)
+        finally:
+            if loader.poll() is None:
+                loader.kill()
+                loader.wait()
+    child_s = time.perf_counter() - t
+    stdout, stderr = (open(path).read() for path in logs)
+    check(loader.returncode == 0, f"the loader process: {stderr[-2000:]}")
+    child = json.loads(stdout.strip().splitlines()[-1])
+    print(f"export (a)-(d): a process that imports ops.library only "
+          f"({child_s:.1f} s, beside (e); modules of the models, the "
+          f"Predictor or jax in it: {child['foreign']}) loaded the four "
+          f"programs on the card", flush=True)
+    check(not child["foreign"], "the loader process imported model code")
+    for job in jobs:
+        label, res = job["name"], child[job["name"]]
+        maps = np.load(job["maps"])
+        same = np.array_equal(maps, out[label]["maps"])
+        print(f"export {label} in the loader process: load "
+              f"{res['load_s']:.2f} s, launches {res['counts']}, maps "
+              f"{'bit-equal to' if same else 'DIFFER from'} the live "
+              f"Predictor's", flush=True)
+        check(res["counts"] == out[label]["launches"],
+              f"{label}: launches in the loader process")
+        check(same, f"{label}: maps in the loader process")
+        out[label]["child"] = res
+    agree = float((cpu_maps == out["unet_bf16"]["maps"]).mean())
+    print(f"export (e): unet_bf16's program loaded and run on the CPU "
+          f"({cpu_s:.1f} s, the plain versions, while the loader process "
+          f"ran): its maps agree with the "
+          f"card's on {agree:.6f} of the pixels (limit {EXPORT_CPU_AGREE})",
+          flush=True)
+    check(agree >= EXPORT_CPU_AGREE, "(e) the program on the CPU")
+    out["cpu"] = {"s": cpu_s, "agree": agree}
+    out["dump"] = dump_checks(tmp)
+    out["cli"] = cli_checks(tmp, run, root)
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def summed_bound(n: int, piece: str, shapes) -> tuple:
     """Bound of one pass over ``shapes`` (one per block), named by what
     bounds most of it."""
@@ -4705,9 +5111,16 @@ def main() -> int:
         int8 = phase_int8(tmp, run)
         print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
         dp = phase_multi_gpu(tmp, run["data"])
+        export = phase_export(tmp, run)
     check("jax" not in sys.modules, "jax was imported")
 
     kernels = conv_entries(sums["unet"], unet_serve, unet_train)
+    # each loaded program's launches in the loader process (phase 18)
+    ran = {label: export[label]["child"]["counts"] for label in
+           ("unet_bf16", "segnet_bf16", "unet_int8", "unet_f32")}
+    kernels[0]["program_launches"] = {
+        label: ran[label]["conv3x3_bn_relu"]
+        for label in ("unet_bf16", "segnet_bf16", "unet_int8")}
     for entry, piece, key in zip(kernels[1:], ("fwd", "dx", "wgrad"),
                                  ("fwd", "dgrad", "wgrad")):
         entry["head_64_21"] = head[piece]
@@ -4728,6 +5141,8 @@ def main() -> int:
         if name in int8["pools"]:
             kernels[-1]["int8"] = {**int8["pools"][name], "launches":
                                    int8["slices"]["segnet"]["launches"][name]}
+            kernels[-1]["program_launches"] = {
+                "segnet_bf16": ran["segnet_bf16"][name]}
     kernels.append({
         "name": "conv3x3_pair_bn_relu", "route": "cuda",
         "source": "pytorch_camvid_tpu_torch/csrc/conv3x3_pair_bn_relu.cu",
@@ -4738,7 +5153,11 @@ def main() -> int:
         "library_ms": pair["library_ms"]})
     kernels += probe_entries
     kernels += f32_entries(f32)
+    kernels[-4]["program_launches"] = {
+        "unet_f32": ran["unet_f32"]["conv3x3_bn_relu"]}
     kernels += int8_entries(int8)
+    for entry, key in zip(kernels[-2:], ("conv3x3_int8", "quantize")):
+        entry["program_launches"] = {"unet_int8": ran["unet_int8"][key]}
     check(len(kernels) == 22, "one JSON entry per ported kernel")
     print(json.dumps({"kernels": kernels}))
     print(bench.card())

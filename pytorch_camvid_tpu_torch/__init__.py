@@ -26,7 +26,12 @@ serving: post-training quantization (``ops/quant.py``,
 quantized block on the int8 kernel ``ops/fused_conv_int8.py``; and
 data parallelism on ``torch.distributed`` (``parallel/``: sync-BN, the
 inferred and explicit steps, the train CLI's ``-dp`` and ``-multihost``,
-``train_tpu``, H-sharded halo stages on K4, ``Predictor(devices=...)``).
+``train_tpu``, H-sharded halo stages on K4, ``Predictor(devices=...)``);
+and export: the hand-written kernels as ``torch.library`` ops
+(``ops/library.py``: ``camvid::``, ``load_program``),
+``Predictor.export_program``, ``python -m
+pytorch_camvid_tpu_torch.export_program`` and ``.export_torch``, and the
+loop's program dump (``utils/summary.py::dump_program``).
 """
 
 __version__ = "0.1.0"

@@ -64,6 +64,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
+from pytorch_camvid_tpu_torch.ops import library  # noqa: F401 (camvid:: ops)
 from pytorch_camvid_tpu_torch.ops.conv_train import conv3x3_train
 from pytorch_camvid_tpu_torch.ops.fused_conv import (
     conv3x3_bn_relu, conv3x3_bn_relu_plain, fold_bn_affine)
@@ -203,18 +204,23 @@ class ConvBNReLU(nn.Module):
             del p["s_out"]
         return p
 
-    @torch.no_grad()
     def prepare(self, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
-        """(w HWIO in ``dtype``, A, B f32) for the fused kernel, cached."""
+        """(w HWIO in ``dtype``, A, B f32) for the fused kernel, cached. A
+        traced forward takes the cached tensors as they are (its program's
+        constants); where there are none it builds them in its graph and
+        caches nothing."""
         conv, bn = self.conv_bn()
         cached = self._kernel_args
-        if (cached is None or cached[0].dtype != dtype
-                or cached[0].device != conv.weight.device):
+        if (cached is not None and cached[0].dtype == dtype
+                and cached[0].device == conv.weight.device):
+            return cached
+        with torch.no_grad():
             w = conv.weight.permute(2, 3, 1, 0).to(dtype).contiguous()
             a, b = fold_bn_affine(conv.bias, bn.weight, bn.bias,
                                   bn.running_mean, bn.running_var, bn.eps)
-            cached = self._kernel_args = (w, a, b)
-        return cached
+        if not torch.compiler.is_compiling():
+            self._kernel_args = (w, a, b)
+        return w, a, b
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """x: (N,H,W,Cin) -> (N,H,W,Cout) in x's dtype. ``plain=True`` runs
@@ -260,13 +266,14 @@ class ConvBNReLU(nn.Module):
             n *= mesh.world
         var = sq - mean * mean
         if not is_recomputing():
-            with torch.no_grad():
-                bn.running_mean.copy_((1 - BN_MOMENTUM) * bn.running_mean
-                                      + BN_MOMENTUM * mean)
-                bn.running_var.copy_(
-                    (1 - BN_MOMENTUM) * bn.running_var
-                    + BN_MOMENTUM * (var * (n / max(n - 1, 1))))
-                bn.num_batches_tracked += 1
+            # on detached moments, so no grad mode is switched (a traced
+            # forward records no set_grad_enabled around the update)
+            m, v = mean.detach(), var.detach()
+            bn.running_mean.copy_((1 - BN_MOMENTUM) * bn.running_mean
+                                  + BN_MOMENTUM * m)
+            bn.running_var.copy_((1 - BN_MOMENTUM) * bn.running_var
+                                 + BN_MOMENTUM * (v * (n / max(n - 1, 1))))
+            bn.num_batches_tracked += 1
         inv = torch.rsqrt(var + bn.eps) * bn.weight
         y = (y - mean) * inv + bn.bias
         return torch.maximum(y, y.new_zeros(())).to(dt)

@@ -51,6 +51,7 @@ from pytorch_camvid_tpu_torch.ops import cuda_build
 from pytorch_camvid_tpu_torch.ops.fused_conv import (ROUTES, aligned16,
                                                      conv3x3_bn_relu,
                                                      f32_library, route)
+from pytorch_camvid_tpu_torch.ops.library import eager_cache
 
 WGRAD_PATHS = ("narrow", "wgmma", "packed")   # by the .cu's path code
 WGRAD_ROUTES = WGRAD_PATHS + ("f32", "f32_narrow",
@@ -86,8 +87,9 @@ def _oihw(w: torch.Tensor) -> torch.Tensor:
     return w.permute(3, 2, 0, 1)
 
 
-@functools.lru_cache(maxsize=64)
+@eager_cache
 def _unit_affine(cout: int, device: torch.device):
+    """K1's unit affine (ones, zeros) of Cout f32, cached by eager calls."""
     return (torch.ones(cout, dtype=torch.float32, device=device),
             torch.zeros(cout, dtype=torch.float32, device=device))
 
@@ -322,10 +324,11 @@ def _count(fn, path: str) -> None:
 
 def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """conv3x3 pad-1: K4's kernel with a unit affine and no ReLU (on a CPU
-    tensor, its plain version)."""
+    tensor, its plain version; while tracing, K4's op). Counts launches,
+    not traces."""
     ones, zeros = _unit_affine(w.shape[3], x.device)
     out = conv3x3_bn_relu(x, w, ones, zeros, relu=False)
-    if x.device.type == "cuda":
+    if x.device.type == "cuda" and not torch.compiler.is_compiling():
         _count(conv3x3_fwd, route(x.dtype, w.shape[2], w.shape[3]))
     return out
 

@@ -8,9 +8,11 @@ per-channel affine of the conv output, so the block is one pass:
                                            B = (b - mean) * A + beta
 
 - ``conv3x3_bn_relu`` is the dispatching wrapper. A CUDA tensor goes to the
-  hand-written Hopper kernel (``csrc/conv3x3_bn_relu.cu``), built with nvcc
-  at first use and bound with ctypes; a CPU tensor goes to the plain
-  version. Nothing falls back: a failed build or launch raises.
+  hand-written Hopper kernel (``csrc/conv3x3_bn_relu.cu``) through
+  ``launch``, built with nvcc at first use and bound with ctypes; a CPU
+  tensor goes to the plain version; a traced call becomes the op
+  ``camvid::conv3x3_bn_relu`` (``ops/library.py``), whose CUDA kernel is
+  ``launch``. Nothing falls back: a failed build or launch raises.
   ``flip=True`` computes the input gradient of a conv with weights ``w``
   (the taps reversed and the channel axes swapped, read in place by the
   kernel): the training conv's dx (``ops/conv_train.py``).
@@ -381,12 +383,23 @@ def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     a, b: (Cout,) f32.
 
     On a CPU tensor this is ``conv3x3_bn_relu_plain``. On a CUDA tensor it
-    launches a Hopper kernel, or raises: bf16 x and w (f32 accumulation,
-    bf16 out) on ``conv_path(Cin, Cout)``; f32 x and w (split-TF32
-    products, f32 out) on the f32 kernel. An x or w whose data is not
-    16-byte aligned is copied first (``aligned16``)."""
+    is ``launch``. While tracing (``torch.export``) it is the op
+    ``camvid::conv3x3_bn_relu`` (``ops/library.py``), whose kernels are
+    those two, so the program holds one node for the call."""
+    if torch.compiler.is_compiling():
+        return torch.ops.camvid.conv3x3_bn_relu(x, w, a, b, relu, flip)
     if x.device.type == "cpu":
         return conv3x3_bn_relu_plain(x, w, a, b, relu, flip)
+    return launch(x, w, a, b, relu, flip)
+
+
+def launch(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+           b: torch.Tensor, relu: bool, flip: bool) -> torch.Tensor:
+    """The kernel on CUDA tensors, or raises: bf16 x and w (f32
+    accumulation, bf16 out) on ``conv_path(Cin, Cout)``; f32 x and w
+    (split-TF32 products, f32 out) on the f32 kernel. An x or w whose data
+    is not 16-byte aligned is copied first (``aligned16``). Counts the
+    launch."""
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_bn_relu: no kernel for {x.device}")
     x, w = aligned16(x), aligned16(w)

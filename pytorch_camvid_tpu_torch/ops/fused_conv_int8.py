@@ -9,8 +9,10 @@ quant.py:246) fused with ``quantized_block_apply``'s epilogue (quant.py:261):
         = y in ``out_dtype`` (bf16 or f32)            otherwise
 
 - ``conv3x3_int8_block`` is the wrapper: on a CPU tensor it runs
-  ``conv3x3_int8_block_plain``; on a CUDA tensor it launches the kernel
-  (built with nvcc at first use, bound with ctypes) or raises. Nothing falls
+  ``conv3x3_int8_block_plain``; on a CUDA tensor ``launch`` launches the
+  kernel (built with nvcc at first use, bound with ctypes) or raises;
+  while tracing it is the op ``camvid::conv3x3_int8_block``
+  (``ops/library.py``), whose CUDA kernel is ``launch``. Nothing falls
   back: a shape the kernel does not take, a failed build or a failed launch
   raises.
 - ``conv3x3_int8_block_plain`` is the same function from stock PyTorch ops.
@@ -27,8 +29,10 @@ quant.py:246) fused with ``quantized_block_apply``'s epilogue (quant.py:261):
   it; the quantized block caches the result (``ops/conv.py``).
 - ``quantize`` is the blocks' input quantize (clip(round(x / s)) to int8,
   JAX quant.py:275), where the input does not come as int8 from the
-  producer: on CUDA the same source's one-pass kernel, on the CPU
-  ``quantize_plain`` (stock ops: five passes over an f32 copy on the card).
+  producer: on CUDA the same source's one-pass kernel
+  (``launch_quantize``; traced, the op ``camvid::quantize_int8``), on the
+  CPU ``quantize_plain`` (stock ops: five passes over an f32 copy on the
+  card).
 - ``conv3x3_int8_block.launches`` counts kernel launches and
   ``.path_launches`` counts them per path; ``quantize.launches`` the
   quantize kernel's.
@@ -212,13 +216,29 @@ def conv3x3_int8_block(x_q: torch.Tensor, w_q: torch.Tensor,
                        packed: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """The quantized block: ``conv3x3_int8_block_plain``'s function. On a
-    CPU tensor it is the plain version; on a CUDA tensor it launches the
-    kernel on ``packed`` (``pack_weights(w_q)``, made here when not given)
-    or raises. An x whose data is not 16-byte aligned (a batch view) is
-    copied first (``aligned16``)."""
+    CPU tensor it is the plain version; on a CUDA tensor ``launch`` on
+    ``packed`` (``pack_weights(w_q)``, made when not given). While tracing
+    it is the op ``camvid::conv3x3_int8_block`` (``ops/library.py``),
+    whose kernels are those two."""
+    if torch.compiler.is_compiling():
+        if packed is None:
+            packed = pack_weights(w_q)
+        return torch.ops.camvid.conv3x3_int8_block(
+            x_q, w_q, packed, s_w, s_x, b_eff, s_out, out_dtype)
     if x_q.device.type == "cpu":
         return conv3x3_int8_block_plain(x_q, w_q, s_w, s_x, b_eff, s_out,
                                         out_dtype)
+    return launch(x_q, w_q, packed, s_w, s_x, b_eff, s_out, out_dtype)
+
+
+def launch(x_q: torch.Tensor, w_q: torch.Tensor,
+           packed: Optional[torch.Tensor], s_w: torch.Tensor,
+           s_x: torch.Tensor, b_eff: torch.Tensor,
+           s_out: Optional[torch.Tensor],
+           out_dtype: torch.dtype) -> torch.Tensor:
+    """The kernel on CUDA tensors, or raises. An x whose data is not
+    16-byte aligned (a batch view) is copied first (``aligned16``). Counts
+    the launch."""
     if x_q.device.type != "cuda":
         raise ValueError(f"conv3x3_int8: no kernel for {x_q.device}")
     if packed is None:
@@ -250,11 +270,19 @@ _QUANTIZE_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 def quantize(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """``quantize_plain``'s function: on a CPU tensor the plain version; on
-    a CUDA tensor (bf16 or f32, any shape) the quantize kernel of the
-    int8 source, one pass, or raises. An x whose data is not 16-byte
-    aligned is copied first (``aligned16``)."""
+    a CUDA tensor ``launch_quantize``. While tracing it is the op
+    ``camvid::quantize_int8`` (``ops/library.py``)."""
+    if torch.compiler.is_compiling():
+        return torch.ops.camvid.quantize_int8(x, s)
     if x.device.type == "cpu":
         return quantize_plain(x, s)
+    return launch_quantize(x, s)
+
+
+def launch_quantize(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The quantize kernel of the int8 source on a CUDA x (bf16 or f32, any
+    shape), one pass, or raises. An x whose data is not 16-byte aligned is
+    copied first (``aligned16``). Counts the launch."""
     if x.device.type != "cuda":
         raise ValueError(f"quantize: no kernel for {x.device}")
     if x.dtype not in _QUANTIZE_DTYPES:

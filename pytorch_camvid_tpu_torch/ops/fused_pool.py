@@ -16,10 +16,15 @@ kernels (``csrc/maxpool2x2.cu``): counterpart of
 
 Each wrapper runs its plain version (``ops/pooling.py``) on a CPU tensor; on
 a CUDA tensor it launches its kernel or raises, and counts the launch in
-``.launches``. Kernel and plain version agree bit for bit, NaN included
-(``ops/pooling.py`` states the selection rule). bf16 and f32 are taken,
-and by K3 also int8 (the int8-quantized SegNet's fused pool edges; ties go
-to the first maximum, as on the other types).
+``.launches``. While tracing, the four forward wrappers are the ops
+``camvid::max_pool_2x2_argmax``, ``max_unpool_2x2``, ``max_pool_2x2_phase``
+and ``max_unpool_2x2_phase`` (``ops/library.py``), whose CUDA kernels are
+the launchers ``launch_pool_argmax``, ``launch_unpool``,
+``launch_pool_phase`` and ``launch_unpool_phase``. Kernel and plain
+version agree bit for bit, NaN included (``ops/pooling.py`` states the
+selection rule). bf16 and f32 are taken, and by K3 also int8 (the
+int8-quantized SegNet's fused pool edges; ties go to the first maximum, as
+on the other types).
 """
 
 from __future__ import annotations
@@ -80,6 +85,15 @@ def _on_cuda(name: str, x: torch.Tensor, *others: torch.Tensor,
     return True
 
 
+def _cuda_only(name: str, x: torch.Tensor, *others: torch.Tensor,
+               dtypes=K2_DTYPES) -> None:
+    """``_on_cuda``'s checks for a launcher, which takes CUDA tensors
+    only."""
+    if not _on_cuda(name, x, *others, dtypes=dtypes):
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
+                         f"{x.device}")
+
+
 def _launch(name: str, fn, x: torch.Tensor, *args) -> None:
     with torch.cuda.device(x.device):
         err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
@@ -127,8 +141,16 @@ def max_pool_2x2_argmax(x: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(pooled, flat int32 index y*W + x) of an NHWC tensor; odd sizes
     floor."""
-    if not _on_cuda("max_pool_2x2_argmax", x, dtypes=K3_DTYPES):
+    if torch.compiler.is_compiling():
+        return torch.ops.camvid.max_pool_2x2_argmax(x)
+    if x.device.type == "cpu":
         return pooling.max_pool_2x2_with_argmax(x)
+    return launch_pool_argmax(x)
+
+
+def launch_pool_argmax(x: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    _cuda_only("max_pool_2x2_argmax", x, dtypes=K3_DTYPES)
     out = _pool("max_pool_2x2_argmax", x, phase=False)
     max_pool_2x2_argmax.launches += 1
     return out
@@ -137,8 +159,16 @@ def max_pool_2x2_argmax(x: torch.Tensor
 def max_unpool_2x2(x: torch.Tensor, idx: torch.Tensor,
                    out_hw: Tuple[int, int]) -> torch.Tensor:
     """Each pooled value at its flat index in an (Ho, Wo) plane of zeros."""
-    if not _on_cuda("max_unpool_2x2", x, idx, dtypes=K3_DTYPES):
+    if torch.compiler.is_compiling():
+        return torch.ops.camvid.max_unpool_2x2(x, idx, list(out_hw))
+    if x.device.type == "cpu":
         return pooling.max_unpool_2x2(x, idx, out_hw)
+    return launch_unpool(x, idx, out_hw)
+
+
+def launch_unpool(x: torch.Tensor, idx: torch.Tensor,
+                  out_hw: Tuple[int, int]) -> torch.Tensor:
+    _cuda_only("max_unpool_2x2", x, idx, dtypes=K3_DTYPES)
     out = _unpool("max_unpool_2x2", x, idx, out_hw, phase=False)
     max_unpool_2x2.launches += 1
     return out
@@ -149,8 +179,16 @@ def max_unpool_2x2(x: torch.Tensor, idx: torch.Tensor,
 def max_pool_2x2_phase(x: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(pooled, int8 phase k = 2*dy + dx) of an NHWC tensor."""
-    if not _on_cuda("max_pool_2x2_phase", x):
+    if torch.compiler.is_compiling():
+        return torch.ops.camvid.max_pool_2x2_phase(x)
+    if x.device.type == "cpu":
         return pooling.max_pool_2x2_argmax_phase(x)
+    return launch_pool_phase(x)
+
+
+def launch_pool_phase(x: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    _cuda_only("max_pool_2x2_phase", x)
     out = _pool("max_pool_2x2_phase", x, phase=True)
     max_pool_2x2_phase.launches += 1
     return out
@@ -160,8 +198,16 @@ def max_unpool_2x2_phase(x: torch.Tensor, k: torch.Tensor,
                          out_hw: Tuple[int, int]) -> torch.Tensor:
     """The unpool from int8 phases, zero-padded to ``out_hw``; also the
     phase pool's backward."""
-    if not _on_cuda("max_unpool_2x2_phase", x, k):
+    if torch.compiler.is_compiling():
+        return torch.ops.camvid.max_unpool_2x2_phase(x, k, list(out_hw))
+    if x.device.type == "cpu":
         return pooling.max_unpool_2x2_from_phase(x, k, out_hw)
+    return launch_unpool_phase(x, k, out_hw)
+
+
+def launch_unpool_phase(x: torch.Tensor, k: torch.Tensor,
+                        out_hw: Tuple[int, int]) -> torch.Tensor:
+    _cuda_only("max_unpool_2x2_phase", x, k)
     out = _unpool("max_unpool_2x2_phase", x, k, out_hw, phase=True)
     max_unpool_2x2_phase.launches += 1
     return out

@@ -20,6 +20,10 @@ as XLA's f32 dot does. A CPU matmul contracts with FMA instead and lands an
 ulp away on 12% of the H pass's values, which flips 0.26% of the uint8
 bytes the serving path rounds to (480x640 -> 360x480).
 
+The matrices and taps are cached per shape, dtype and device for eager
+calls (``ops/library.py::eager_cache``); a traced forward (``torch.export``)
+builds them in its graph and leaves the cache alone.
+
 ``resize_nearest_cv2`` is cv2's INTER_NEAREST (``floor(dst * in / out)``),
 the mask's resize (JAX resize.py:134-148).
 
@@ -30,11 +34,12 @@ eager PyTorch has none, so any source size is resized directly.
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import numpy as np
 import torch
+
+from pytorch_camvid_tpu_torch.ops.library import eager_cache
 
 
 def _interp_matrix_align_corners(n_in: int, n_out: int) -> np.ndarray:
@@ -51,7 +56,7 @@ def _interp_matrix_align_corners(n_in: int, n_out: int) -> np.ndarray:
     return a
 
 
-@functools.lru_cache(maxsize=64)
+@eager_cache
 def _upsample_matrices(h: int, w: int, dtype: torch.dtype,
                        device: torch.device):
     """(A_h, A_w) for a 2x upsample of an (h, w) plane, kept on the device
@@ -73,7 +78,7 @@ def upsample2x_bilinear_align_corners(x: torch.Tensor) -> torch.Tensor:
     return y.reshape(n, 2 * h, 2 * w, c)
 
 
-@functools.lru_cache(maxsize=64)
+@eager_cache
 def _half_pixel_taps(n_in: int, n_out: int, dtype: torch.dtype,
                      device: torch.device):
     """The two taps of each row of cv2's half-pixel matrix, edge taps
@@ -113,7 +118,7 @@ def resize_bilinear_cv2(x: torch.Tensor,
     return _two_tap(y, 2, _half_pixel_taps(w, wo, x.dtype, x.device))
 
 
-@functools.lru_cache(maxsize=64)
+@eager_cache
 def _nearest_indices_cv2(n_in: int, n_out: int,
                          device: torch.device) -> torch.Tensor:
     """cv2 INTER_NEAREST's source index of each output position,

@@ -26,9 +26,17 @@ pytorch_camvid_tpu/serving.py).
   Per image the arithmetic is the one-device Predictor's, so the maps are
   the same.
 
+- ``export_program(path)`` (JAX ``export_stablehlo``): the serving
+  function as a ``torch.export`` program with the weights in it, uint8
+  (B, h, w, 3) BGR in, uint8 (B, h, w) class map out, saved with
+  ``torch.export.save``. Its kernel calls are the ``camvid::`` ops of
+  ``ops/library.py``, so ``ops.library.load_program(path, device)`` runs it
+  without this module or the model code: on the card through the
+  hand-written kernels, on the CPU through their plain versions.
+
 Not carried over from the JAX Predictor: the bucketed dynamic resize (it
 bounds jit's compile cache; eager PyTorch has none, so any source size is
-resized directly, with the same values) and StableHLO export (ROADMAP.md).
+resized directly, with the same values).
 
 Example:
     with Predictor.from_checkpoint("unet", "model.pth", batch_size=8) as p:
@@ -50,6 +58,26 @@ from pytorch_camvid_tpu_torch.models import get_model, spec_from_state_dict
 from pytorch_camvid_tpu_torch.ops.quant import calibrate, quantize_model
 from pytorch_camvid_tpu_torch.ops.resize import resize_bilinear_cv2
 from pytorch_camvid_tpu_torch.train.checkpoint import load_weights
+
+
+class ServingProgram(torch.nn.Module):
+    """What ``Predictor.export_program`` traces: uint8 (B, h, w, 3) BGR ->
+    ``to_tensor_normalize`` in ``dtype`` -> ``model`` (eval mode, prepared)
+    -> argmax -> uint8 (B, h, w). The model is kept out of the module tree,
+    so the program takes only the tensors its eval forward reads (the
+    prepared or int8 tensors) and not the float parameters beside them."""
+
+    def __init__(self, model: torch.nn.Module, mean: torch.Tensor,
+                 std: torch.Tensor, dtype: torch.dtype):
+        super().__init__()
+        object.__setattr__(self, "model", model)   # not a submodule
+        self.register_buffer("mean", mean)
+        self.register_buffer("std", std)
+        self.dtype = dtype
+
+    def forward(self, images_u8: torch.Tensor) -> torch.Tensor:
+        x = to_tensor_normalize(images_u8, self.mean, self.std, self.dtype)
+        return self.model(x).argmax(dim=-1).to(torch.uint8)
 
 
 class Predictor:
@@ -167,6 +195,26 @@ class Predictor:
         if self._pack:
             m = (m[:, :, 0::2] << 4) | m[:, :, 1::2]
         return m
+
+    def export_program(self, path: str) -> torch.export.ExportedProgram:
+        """The serving function as one program, saved to ``path`` (JAX
+        ``Predictor.export_stablehlo``): uint8 (B, h, w, 3) BGR at the
+        working size in, normalized in the compute dtype, the first
+        replica's model, argmax, uint8 (B, h, w) class map out; no resize
+        and no nibble pack. The blocks' prepared (w, A, B), or an int8
+        model's int8 buffers and scales, are its constants. Exported under
+        ``no_grad``; the Predictor's outputs and caches stay as they were.
+        Returns the ``ExportedProgram``; ``ops.library.load_program`` loads
+        the file."""
+        h, w = self.image_hw
+        program = ServingProgram(self.model, self._mean, self._std,
+                                 self._dtype)
+        example = torch.zeros((self._batch, h, w, 3), dtype=torch.uint8,
+                              device=self.device)
+        with torch.no_grad():
+            exported = torch.export.export(program, (example,), strict=False)
+        torch.export.save(exported, path)
+        return exported
 
     def _to_host(self, parts: list, keep: int) -> np.ndarray:
         """Drain thread: wait for one chunk's copies (one a replica), join

@@ -245,6 +245,14 @@ def load_weights(path: str, net: str) -> Dict[str, torch.Tensor]:
             for i, n in enumerate(names) if n.startswith("model/")}
 
 
+def read_meta(path: str) -> dict:
+    """The free-form meta (epoch, mIOU, ...) a ``.ckpt.npz`` of either
+    package holds; ``{}`` for a reference ``.pth``."""
+    if path.endswith(".pth"):
+        return {}
+    return _read(path)[1].get("meta", {})
+
+
 def checkpoint_name(folder: str, epoch: int, kind: str) -> str:
     """checkpoints/<run>/<epoch>-{best|regular|preempt}.ckpt.npz
     (train.py:42; 'preempt' is the mid-epoch SIGTERM save, under its own

@@ -25,7 +25,13 @@ the ranks of a data-parallel run:
   restarts there step-exactly (the loader's permutation depends only on
   seed and epoch; the generator's state is in the checkpoint);
 - the NaN guard raises ``FloatingPointError``; the SIGTERM handler is
-  restored on every exit.
+  restored on every exit;
+- with a logger and a ``log_dir``, the model summary as TB text and
+  ``program_{net}.txt``, the ``torch.export`` program of the train-mode
+  forward the step differentiates (``utils/summary.py::dump_program``: one
+  trace, nothing launched or moved; the backward is autograd's and not in
+  it); a failed dump prints "program dump skipped: ..." and the run goes
+  on.
 
 Eval runs a ragged last batch as it is: eval-mode BN uses the running
 stats, so its loss and confusion matrix equal the JAX package's, which pads
@@ -302,8 +308,20 @@ def run_training(cfg: TrainConfig, train_ds, val_ds,
         compute_dtype=dtype), mesh)
 
     if logger is not None and cfg.log_dir:
-        from pytorch_camvid_tpu_torch.utils.summary import visualize_network
+        # the reference logs the model graph once a run (train.py:97-98);
+        # the program is the forward at one rank's microbatch
+        from pytorch_camvid_tpu_torch.utils.summary import (dump_program,
+                                                            visualize_network)
         visualize_network(logger, model, cfg.net)
+        rows = cfg.batch_size // mesh.world // max(cfg.grad_accum, 1)
+        try:
+            x = torch.zeros((rows,) + tuple(train_ds.images.shape[1:3])
+                            + (3,), dtype=dtype, device=dev)
+            dump_program(model, (x,), os.path.join(
+                cfg.log_dir, f"program_{cfg.net}.txt"))
+        except Exception as e:  # a dump failure must not end a run
+            if not quiet:
+                print(f"program dump skipped: {e}")
 
     trained_epochs = 0
     resume_epoch = 0      # epoch a preemption interrupted (0 = none)

@@ -2,7 +2,8 @@
 (``conv_train._wgrad_launch``, ``layout_probes._launch``, the caller's
 ``conv_train.conv3x3_bn_relu``) or the data side (HostLoader, the loop's
 train step, the LR finder's record, K2's pool backward, the card's jitter
-factors), on the CPU: each changes what it
+factors) or the export (the K4 op's CUDA kernel, the upsample cache, the
+int8 op's fake), on the CPU: each changes what it
 should of the call it wraps, and nothing else. Whether chip_smoke's checks
 catch them is shown on the card (``python3 chip_faults.py``)."""
 
@@ -470,3 +471,77 @@ def test_halo_rows_swapped_swaps_top_and_bottom(two_equal_ranks):
     chip_faults.halo_rows_swapped()
     got = spatial.exchange_rows(top, bottom, None)
     assert got[0] is top and got[1] is bottom
+
+
+# ------------------------------------------------- phase 18's export faults
+
+def _conv_args():
+    g = torch.Generator().manual_seed(0)
+    return (torch.randn(1, 4, 5, 8, generator=g).to(torch.bfloat16),
+            torch.randn(3, 3, 8, 16, generator=g).to(torch.bfloat16),
+            torch.ones(16), torch.zeros(16), True, False)
+
+
+def test_op_kernel_plain_swaps_the_cuda_kernel_and_restores_it(monkeypatch):
+    """Under the fault, the op's CUDA kernel (reached with the CUDA key on
+    CPU tensors) is the plain version and never the launcher; after it,
+    the launcher again."""
+    from pytorch_camvid_tpu_torch.ops import library  # noqa: F401
+    seen = []
+    monkeypatch.setattr(fused_conv, "launch",
+                        lambda *a: seen.append(a) or torch.zeros(1))
+    op = torch.ops.camvid.conv3x3_bn_relu.default
+    cuda = torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA)
+    args = _conv_args()
+    with chip_faults.op_kernel_plain():
+        got = op.redispatch(cuda, *args)
+    assert not seen
+    assert torch.equal(got, fused_conv.conv3x3_bn_relu_plain(*args))
+    op.redispatch(cuda, *args)
+    assert len(seen) == 1
+
+
+def _upsampling_export():
+    """Export a module whose forward upsamples (UNet's 2x matrices)."""
+    from pytorch_camvid_tpu_torch.ops import resize
+
+    class Up(torch.nn.Module):
+        def forward(self, x):
+            return resize.upsample2x_bilinear_align_corners(x)
+
+    x = torch.zeros(1, 3, 5, 2)
+    with torch.no_grad():
+        torch.export.export(Up(), (x,), strict=False)
+    return resize.upsample2x_bilinear_align_corners(x + 1)
+
+
+def test_upsample_cache_kept_while_tracing_poisons_the_next_call():
+    """The sound cache leaves an eager call after a trace real; under the
+    fault the trace's tensors reach it."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    assert not isinstance(_upsampling_export(), FakeTensor)
+    with chip_faults.upsample_cache_kept_while_tracing():
+        with pytest.raises(Exception):
+            out = _upsampling_export()
+            assert not isinstance(out, FakeTensor)
+    assert not isinstance(_upsampling_export(), FakeTensor)
+
+
+def test_int8_fake_says_int8_only_inside_the_fault():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from pytorch_camvid_tpu_torch.ops import fused_conv_int8, library
+    w_q = torch.zeros(3, 3, 8, 16, dtype=torch.int8)
+    args = (torch.zeros(1, 4, 5, 8, dtype=torch.int8), w_q,
+            fused_conv_int8.pack_weights(w_q), torch.ones(16),
+            torch.tensor(1.0), torch.zeros(16), None, torch.bfloat16)
+
+    def fake_dtype():
+        with FakeTensorMode() as mode:
+            fake = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+                    for a in args]
+            return torch.ops.camvid.conv3x3_int8_block(*fake).dtype
+
+    assert library.OPS and fake_dtype() == torch.bfloat16
+    with chip_faults.int8_fake_says_int8():
+        assert fake_dtype() == torch.int8
+    assert fake_dtype() == torch.bfloat16

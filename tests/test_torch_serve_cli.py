@@ -129,6 +129,9 @@ def test_port_imports_no_jax(tmp_path):
             "import pytorch_camvid_tpu_torch.parallel.data_parallel\n"
             "import pytorch_camvid_tpu_torch.parallel.shard_map_dp\n"
             "import pytorch_camvid_tpu_torch.parallel.spatial\n"
+            "import pytorch_camvid_tpu_torch.ops.library\n"
+            "import pytorch_camvid_tpu_torch.export_program\n"
+            "import pytorch_camvid_tpu_torch.export_torch\n"
             "from pytorch_camvid_tpu_torch.models import get_model\n"
             "get_model('unet', 3, 12, width_mult=1 / 16)\n"
             "get_model('segnet', 3, 12, width_mult=1 / 16)\n"
