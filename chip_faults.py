@@ -1,15 +1,19 @@
 """Planted faults against chip_smoke.py's checks on one NVIDIA GPU (Hopper,
 sm_90a): each fault must make a check fail.
 
-    python3 chip_faults.py
+    python3 chip_faults.py [path ...]
+
+(``PATHS``; all of them by default: "K5 f32" runs K5's f32 checks alone.)
 
 Builds the kernels (chip_smoke's phases 1 and 2), then runs, on a
 full-width SegNet with chip_smoke's He-scaled weights from seed 0, the
 serving logits check (``chip_smoke.logits_parity``, batch 8, 360x480) and
 the one-step training check (``chip_smoke.train_parity``, batch 32), and
 K5's checks against its plain version and K4 (``chip_smoke.pair_checks``,
-phase 10 without its timings) and the layout probes' checks against their
-plain versions (``chip_smoke.probe_checks``, phase 11 without its
+phase 10 without its timings), K5 f32's under phase 14's error rule
+(``chip_smoke.pair_f32_checks``: single-pass TF32, a pair's output rows
+swapped, the dx = 2 taps' weights zeroed), the layout probes' checks
+against their plain versions (``chip_smoke.probe_checks``, phase 11 without its
 timings), phase 12's checks after its run A (``resume_checks``,
 ``eval_checks`` and ``predictor_checks``: the preempted and resumed run
 against run A, the eval CLI and the Predictor on A's checkpoint), and
@@ -254,6 +258,23 @@ def pair_second_weight_tile_dropped(x, w, a, b, relu):
         x = x[..., :64].contiguous()
         w = w[:, :, :64].contiguous()
     return _pair_launch(x, w, a, b, relu)
+
+
+_pair_f32_launch = fused_conv_pair._f32_launch
+
+
+def pair_f32_rows_swapped(x, w, a, b, relu):
+    """K5 f32's launch with the two output rows of every pair swapped."""
+    out = _pair_f32_launch(x, w, a, b, relu)
+    n, h, wd, c = out.shape
+    return out.view(n, h // 2, 2, wd, c).flip(2).reshape(out.shape)
+
+
+def pair_f32_dx_tap_zeroed(x, w, a, b, relu):
+    """K5 f32's launch with the dx = 2 taps' weights zeroed (in a copy)."""
+    w = w.clone()
+    w[:, 2] = 0
+    return _pair_f32_launch(x, w, a, b, relu)
 
 
 _probe_launch = layout_probes._launch
@@ -637,14 +658,11 @@ def failed_check(run, fault) -> str:
     return ""
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_faults: no CUDA device", file=sys.stderr)
-        return 1
-    smoke.start()
-    rng = np.random.default_rng(smoke.SEED)
+def fault_cases() -> list:
+    """(path, what, fault) of every planted fault: ``fault()`` gives the
+    context that plants it."""
     train = conv_train._Conv3x3Train
-    cases = [
+    return [
         ("serving", "K4 output x1.01 (every launch)",
          lambda: planted(conv, "conv3x3_bn_relu", k4_gain)),
         ("serving", "stem weights' input channels 0 and 2 swapped (BGR/RGB)",
@@ -678,6 +696,14 @@ def main() -> int:
         ("K5", "K5 past Cin 64 without input channels 64.. of x and w",
          lambda: planted(fused_conv_pair, "_launch",
                          pair_second_weight_tile_dropped)),
+        ("K5 f32", "K5 f32 as single-pass TF32 (hi*hi only)",
+         lambda: f32_variant("single_pass")),
+        ("K5 f32", "K5 f32 output rows of each pair swapped",
+         lambda: planted(fused_conv_pair, "_f32_launch",
+                         pair_f32_rows_swapped)),
+        ("K5 f32", "K5 f32 with the dx = 2 taps' weights zeroed",
+         lambda: planted(fused_conv_pair, "_f32_launch",
+                         pair_f32_dx_tap_zeroed)),
         ("probes", "M6's second copy at width offset 2 instead of 1",
          lambda: planted(layout_probes, "_launch",
                          m6_second_copy_at_offset_2)),
@@ -765,12 +791,37 @@ def main() -> int:
         ("export", "the int8 op's fake giving int8 where the kernel emits "
          "bf16", int8_fake_says_int8),
     ]
+
+
+PATHS = ("serving", "training", "K5", "K5 f32", "probes", "training run",
+         "augment", "data side", "f32", "remat", "int8", "multi-GPU",
+         "export")
+
+
+def main(argv=None) -> int:
+    paths = list(sys.argv[1:] if argv is None else argv) or list(PATHS)
+    unknown = [p for p in paths if p not in PATHS]
+    if unknown:
+        print(f"chip_faults: unknown paths {unknown}; the paths are "
+              f"{list(PATHS)}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_faults: no CUDA device", file=sys.stderr)
+        return 1
+    smoke.start()
+    rng = np.random.default_rng(smoke.SEED)
+    cases = fault_cases()
     ok = True
     tmp = tempfile.TemporaryDirectory()
-    for path in ("serving", "training", "K5", "probes", "training run",
-                 "augment", "data side", "f32", "remat", "int8",
-                 "multi-GPU", "export"):
+    data = None
+    for path in (p for p in PATHS if p in paths):
         gen = torch.Generator().manual_seed(smoke.SEED)
+        if path in ("training run", "data side") and data is None:
+            # phase 12's data and run A, which no fault touches; phase 13's
+            # checks take them too
+            data = smoke.write_training_data(os.path.join(tmp.name, "data"))
+            a = smoke.training_run_a(os.path.join(tmp.name, "a"), data)
+            runs = itertools.count()
         if path == "serving":
             model = bench.he_model("segnet", gen).cuda().eval()
             model.prepare(torch.bfloat16)
@@ -792,17 +843,20 @@ def main() -> int:
             def run():
                 smoke.pair_checks(torch.Generator(device="cuda").manual_seed(
                     smoke.SEED))
+        elif path == "K5 f32":   # phase 10's f32 checks, likewise
+            model = None
+
+            def run():
+                smoke.pair_f32_checks(torch.Generator(
+                    device="cuda").manual_seed(smoke.SEED))
         elif path == "probes":   # phase 11's checks, likewise
             model = None
 
             def run():
                 smoke.probe_checks(torch.Generator(
                     device="cuda").manual_seed(smoke.SEED))
-        elif path == "training run":   # phase 12 after its run A, which
-            model = None                # no fault touches
-            data = smoke.write_training_data(os.path.join(tmp.name, "data"))
-            a = smoke.training_run_a(os.path.join(tmp.name, "a"), data)
-            runs = itertools.count()
+        elif path == "training run":   # phase 12 after its run A
+            model = None
 
             def run():
                 smoke.resume_checks(

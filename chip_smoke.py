@@ -21,8 +21,9 @@ Phases (each prints its lines; any failure exits non-zero):
    its split rule's (``conv_train.wgrad_f32_*``), that the f32 library
    picks the wrappers' f32 routes ("f32", wgmma; "f32_packed", wgmma with
    9 taps x the narrow side's channels packed; or "f32_narrow") and
-   forward tile N, and that a step's launches per path are
-   ``PATH_TABLE``'s (and ``path_table(net, dtype=torch.float32)``'s).
+   forward tile N, that K5 f32's shared-memory plan at every Cout is
+   ``fused_conv_pair.tile_plan``'s, and that a step's launches per path
+   are ``PATH_TABLE``'s (and ``path_table(net, dtype=torch.float32)``'s).
 3. K4 vs plain: the kernel against its plain PyTorch version in bf16 at
    every distinct conv block shape of UNet and SegNet at 360x480, batch 8:
    error, both times and cuDNN's conv alone (CUDA events); then at
@@ -77,7 +78,15 @@ Phases (each prints its lines; any failure exits non-zero):
    26/25/26 times (25/24/24 on the wgmma path, 1/1/2 on the packed ones,
    none on the narrow ones), the K2 pool 5, the phase
    unpool 10 (5 unpools and 5 pool backwards) and the phase gather 5
-   times.
+   times. Then SegNet under 32 rows (``segnet_small_checks``, b2, its
+   biases and BN stats drawn from the seed): at 24x32 (the fifth pool's
+   output empty) and 12x40 (the fourth's too: the fifth stage's blocks on
+   an empty map) the bf16 eval logits kernel vs plain within
+   ``LOGITS_TOL`` and a train step within phase 9's limits (BN stats NaN
+   on both paths where the map is empty), each kernel call against its
+   plain version; the launches of the blocks and pools with a pixel only
+   (``small_counts``: K4 26 / 20, K3 4 / 3; K1 26/25/26 / 20/19/20, K2
+   4/8/4 / 3/6/3).
 10. K5 and the per-shape probe: K5 against its plain version in bf16 at
    perf_probe's ``shallow64`` shapes at batch 24 (360x480, 64->64 and
    128->64, with ReLU), the raw ``conv3x3_pair`` with a bias at 64->64,
@@ -89,7 +98,17 @@ Phases (each prints its lines; any failure exits non-zero):
    Then it drives the slice's entry point, ``python -m
    pytorch_camvid_tpu_torch.perf_probe --pair --shapes shallow64 --k 10``
    (through ``perf_probe.main``): K5 must launch once per probe call and
-   no row may exceed its roofline unflagged.
+   no row may exceed its roofline unflagged. Then K5's f32 instance
+   (``csrc/conv3x3_f32.cu`` namespace ``k5``, ``pair_f32_checks``): at
+   ``PAIR_F32_CHECKS`` (both shallow64 shapes, JAX's test shapes, a ragged
+   46x61 and Cin 80 -> 48) at b2, err(K5 f32) and err(K4 f32) on the same
+   inputs under phase 14's rule against float64 on the card, beside
+   err(plain f32, TF32 off), K5 twice bit-equal, the raw ``conv3x3_pair``
+   with a bias at 64->64; K5 f32, K4 f32, plain f32 and cuDNN f32 (TF32
+   off; on as a note) at b24 at both 360x480 shapes beside the bound (the
+   split product at a third of the TF32 peak); then
+   ``perf_probe.probe_shape(pair=True, dtype=torch.float32)`` at both
+   shapes: K5 f32 launched once per probe call.
 11. Layout probes: drives ``python -m pytorch_camvid_tpu_torch.mosaic_probes``
    (through ``mosaic_probes.main``, the port of ``tools/mosaic_probes.py``):
    all seven probes OK, each kernel launched once per call of its probe
@@ -247,12 +266,14 @@ Phases (each prints its lines; any failure exits non-zero):
    (``parallel.jit_train_step``: sync-BN, the global loss, one summed f32
    gradient bucket) of full-width UNet at b24 and SegNet at b32, each
    rank on its half, from the He-scaled state on the same images and
-   draws as the one-process step here: loss within ``TRAIN_LOSS_TOL``
-   (also with 255 over half of the first rank's rows, where the ranks'
-   loss denominators differ), the all-reduced gradients within phase 6's
-   limits (UNet; SegNet's printed, as phase 9), BN stats within
-   ``TRAIN_STAT_TOL``, the ranks' every leaf bit-equal after two steps
-   (SHA-256), K1 23/22/23 and 26/25/26 a rank on ``PATH_TABLE``'s paths,
+   draws as the one-process step here: loss within ``TRAIN_LOSS_TOL``,
+   the all-reduced gradients within phase 6's limits (UNet; SegNet's
+   printed, as phase 9), BN stats within ``TRAIN_STAT_TOL``; the same
+   with 255 over half of the first rank's rows, where the ranks' loss
+   denominators differ (the grad norms within ``DP_UNEVEN_GRAD_TOL``),
+   and at float32 on ``DP_F32_BATCH`` images with and without those rows
+   under phase 14's f32 limits (``DP_STEPS``); the ranks' every leaf
+   bit-equal after two steps (SHA-256), K1 23/22/23 and 26/25/26 a rank on ``PATH_TABLE``'s paths,
    K2 5/10/5 with every SegNet kernel call held against its plain version
    (``shadowed_kernels``); each rank's step ms, its gradient all-reduce
    alone and its peak memory. (b) A one-rank NCCL group: the data-parallel
@@ -310,7 +331,8 @@ plants faults that these checks must catch.
 
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card and its power limit; the line before that is the per-kernel JSON
-(22 entries: K4, K1's three pieces, the five pool kernels, K5, M1-M6, the
+(23 entries: K4, K1's three pieces, the five pool kernels, K5 and its f32
+instance (64->64's readings, 128->64's under ``128_64``), M1-M6, the
 f32 instances of K4 and K1's three pieces, conv3x3_int8 with its
 yardsticks and SegNet's sums, and the input quantize kernel; K3's flat
 pair also gives its int8 times,
@@ -938,7 +960,7 @@ def n_blocks(net: str) -> int:
 
 def reset_counts() -> None:
     fused_conv.reset_launches()
-    fused_conv_pair.conv3x3_pair_bn_relu.launches = 0
+    fused_conv_pair.reset_launches()
     conv_train.reset_launches()
     fused_pool.reset_launches()
     lp.reset_launches()
@@ -1055,6 +1077,10 @@ def _note(errs: dict, piece: str, err: float) -> None:
 
 
 def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    if got.shape != want.shape:
+        return float("inf")
+    if want.numel() == 0:   # an empty map (SegNet under 32 rows)
+        return 0.0
     want = want.float()
     return ((got.float() - want).abs().max()
             / want.abs().max().clamp_min(1e-30)).item()
@@ -1314,6 +1340,116 @@ def phase_train(net: str, cpu_gen: torch.Generator):
     return counts, paths
 
 
+# SegNet under 32 rows or columns (after phase 9): at 24x32 its fifth
+# pool's output is empty (24 -> 12, 6, 3, 1, 0) and the decoder starts from
+# the unpool's zeros; at 12x40 its fourth pool's too, and the fifth
+# stage's six blocks run on an empty map (BN stats NaN, as JAX's)
+SMALL_HW = ((24, 32), (12, 40))
+SMALL_BATCH = 2
+
+
+def small_counts(hw) -> dict:
+    """SegNet's launches at ``hw``: K4 (eval) and K1 (train) for the blocks
+    whose map has a pixel, K3 and K2 for each pool whose output has one
+    (its unpool's input), none for the empty results."""
+    sizes = halvings(hw, 6)
+    level = {k: sizes[k - 1][0] * sizes[k - 1][1] > 0 for k in range(1, 6)}
+    blocks = sum(len(pairs) for name, pairs in segnet_spec(3, 12)
+                 if level[int(name[7:])])
+    pools = sum(sizes[k][0] * sizes[k][1] > 0 for k in range(1, 6))
+    return {"k4": blocks, "k3": pools,
+            "train": {"fwd": blocks, "dgrad": blocks - 1, "wgrad": blocks,
+                      "maxpool2x2.pool_flat": 0,
+                      "maxpool2x2.unpool_flat": 0,
+                      "maxpool2x2.pool_phase": pools,
+                      "maxpool2x2.unpool_phase": 2 * pools,
+                      "maxpool2x2.phase_gather": pools}}
+
+
+def segnet_small_checks(cpu_gen: torch.Generator) -> dict:
+    """A full-width SegNet (He-scaled) at each of ``SMALL_HW``, batch
+    ``SMALL_BATCH``, its biases and BN running stats drawn from
+    ``cpu_gen``: the bf16 eval forward's logits on the kernel path
+    against the plain path (LOGITS_TOL) and its K4 and K3 launches; one
+    bench train step on each path from the same state at the kernel
+    path's pool choices: loss (TRAIN_LOSS_TOL), BN stats (TRAIN_STAT_TOL,
+    NaN where the map is empty on both paths), every kernel call against
+    its plain version (``shadowed_kernels``) and the launches
+    (``small_counts``). Returns {hw: launches}."""
+    model = bench.he_model("segnet", cpu_gen)
+    # the decoder starts from the unpool's zeros: conv and BN biases and
+    # running stats drawn from the seed, so that its maps are not zero
+    with torch.no_grad():
+        for blk in model.blocks():
+            conv, bn = blk.conv_bn()
+            for t in (conv.bias, bn.bias, bn.running_mean):
+                t.copy_(torch.randn(t.shape, generator=cpu_gen) * 0.1)
+            bn.running_var.copy_(
+                torch.rand(bn.running_var.shape, generator=cpu_gen) + 0.5)
+    model = model.to(DEVICE)
+    out = {}
+    for hw in SMALL_HW:
+        want = small_counts(hw)
+        images, labels = bench.resident_batch(SMALL_BATCH, hw, SEED, DEVICE)
+        m = copy.deepcopy(model).eval()
+        m.prepare(torch.bfloat16)
+        reset_counts()
+        with torch.inference_mode():
+            xn = to_tensor_normalize(images, settings.MEAN, settings.STD,
+                                     torch.bfloat16)
+            with recorded_choices(m) as choices:
+                got = m(xn)
+            counts = {"k4": fused_conv.conv3x3_bn_relu.launches,
+                      "k3": fused_pool.max_pool_2x2_argmax.launches,
+                      "k3 unpool": fused_pool.max_unpool_2x2.launches}
+            with replayed_choices(choices):
+                ref = m(xn, plain=True)
+        err, scale = _rel_err(got, ref)
+        k = one_step(model, (images, labels), plain=False)
+        p = one_step(model, (images, labels), plain=True,
+                     choices=k["choices"])
+        loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+        nan_equal = all(torch.equal(torch.isnan(k["stats"][n]),
+                                    torch.isnan(v))
+                        for n, v in p["stats"].items())
+        stat_err = max((torch.nan_to_num(k["stats"][n] - v).abs().max()
+                        / torch.nan_to_num(v).abs().max().clamp_min(1e-30)
+                        ).item() for n, v in p["stats"].items())
+        stale = sum(bool(torch.isnan(v).any()) for v in p["stats"].values())
+        print(f"segnet {SMALL_BATCH}x{hw[0]}x{hw[1]} (pools to "
+              f"{halvings(hw, 6)[1:]}): eval logits {tuple(got.shape)} max"
+              f"|kernel - plain| {err:.4g} / max|plain| {scale:.4g} (tol "
+              f"{LOGITS_TOL}), launches {counts} (expected K4 {want['k4']}, "
+              f"K3 {want['k3']} each); train step loss kernel "
+              f"{k['loss']:.6f} plain {p['loss']:.6f} (rel {loss_err:.3g}, "
+              f"tol {TRAIN_LOSS_TOL}), BN stats rel max {stat_err:.3g} (tol "
+              f"{TRAIN_STAT_TOL}; {stale} NaN buffers on both paths: "
+              f"{nan_equal}), launches {k['counts']}, kernel calls vs plain "
+              f"{k['shadow']}", flush=True)
+        check(bool(torch.isfinite(got).all()) and got.shape[1:3] == hw
+              and err <= LOGITS_TOL * scale,
+              f"segnet eval logits at {hw}, kernel vs plain")
+        check(counts == {"k4": want["k4"], "k3": want["k3"],
+                         "k3 unpool": want["k3"]},
+              f"segnet eval launches at {hw}")
+        check(np.isfinite(k["loss"]) and loss_err <= TRAIN_LOSS_TOL,
+              f"segnet train loss at {hw}, kernel vs plain")
+        check(nan_equal and stat_err <= TRAIN_STAT_TOL
+              and (stale > 0) == (min(hw) < 16),
+              f"segnet BN stats at {hw}, kernel vs plain")
+        check(k["counts"] == want["train"]
+              and set(p["counts"].values()) == {0},
+              f"segnet train launches at {hw}")
+        for piece, e in k["shadow"].items():
+            check(e <= SHADOW_TOL[piece],
+                  f"segnet {piece} on the step's data at {hw}")
+        out[f"{hw[0]}x{hw[1]}"] = {"eval": counts, "train": k["counts"]}
+        del m, images, labels, xn, got, ref
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def logits_parity(net: str, model, x_u8: torch.Tensor) -> torch.Tensor:
     """The eval-mode model's logits for one uint8 batch on the kernel path
     and on the plain path (at the kernel path's pool choices): within
@@ -1516,6 +1652,140 @@ def phase_pair_probe() -> int:
               and (r["tflops"] <= r["roofline_tflops"] or "suspect" in r),
               f"perf_probe row {r['shape']} over its roofline unflagged")
     return launches
+
+
+# K5's f32 instance (phase 10): the error rule of phase 14 at
+# ``F32_CHECK_BATCH`` on the shallow64 shapes, JAX's test shapes
+# (tests/test_pallas_conv_pair.py: 12x30 8->8, 8x15 16->8, 20x24 8->16), a
+# ragged 46x61 64->64 and Cin 80 -> 48 (a part chunk, a part tile of
+# Cout), as (H, W, Cin, Cout); then the times at PAIR_BATCH
+PAIR_F32_CHECKS = ((360, 480, 64, 64), (360, 480, 128, 64), (12, 30, 8, 8),
+                   (8, 15, 16, 8), (20, 24, 8, 16), (46, 61, 64, 64),
+                   (6, 11, 80, 48))
+
+
+def pair_f32_checks(gen: torch.Generator, timed: bool = False) -> dict:
+    """K5's f32 instance at ``PAIR_F32_CHECKS``: err(K5), err(K4 f32) and
+    err(plain f32, TF32 off) against the same function in float64 on the
+    card, K5 and K4 each under phase 14's rule; K5 twice on the same
+    inputs bit-equal; at 64->64 the raw ``conv3x3_pair`` with a bias too.
+    ``timed``: K5 f32, K4 f32, plain f32 and the library call (cuDNN's
+    conv, TF32 off; TF32 on as a note) at PAIR_BATCH beside the bound, at
+    each 360x480 shape. Prints each line before its checks; returns
+    {(h, w, cin, cout): readings}."""
+    out = {}
+    for h, w, cin, cout in PAIR_F32_CHECKS:
+        x, wt, _, a, b = f32_inputs(gen, F32_CHECK_BATCH, h, w, cin, cout)
+        label = f"{F32_CHECK_BATCH}x{h}x{w} {cin}->{cout}"
+        got = fused_conv_pair.conv3x3_pair_bn_relu(x, wt, a, b)
+        again = fused_conv_pair.conv3x3_pair_bn_relu(x, wt, a, b)
+        ref = torch.relu(conv64(x, wt) * a.double() + b.double())
+        ek, ep, scale, limit = f32_variants.error_rule(
+            got, fused_conv_pair.conv3x3_pair_bn_relu_plain(x, wt, a, b),
+            ref)
+        e4 = f32_variants.error_rule(fused_conv.conv3x3_bn_relu(x, wt, a, b),
+                                     got, ref)[0]
+        same = torch.equal(got, again)
+        r = out[(h, w, cin, cout)] = {"err": ek, "plain_err": ep,
+                                      "k4_err": e4, "scale": scale,
+                                      "limit": limit}
+        line = [f"K5 f32 {label}: {ek:.3g} (plain {ep:.3g}, K4 f32 "
+                f"{e4:.3g}, max|f64| {scale:.4g}, limit {limit:.3g}); "
+                f"twice bit-equal {same}"]
+        checks = [(ek <= limit, f"K5 f32 error rule at {label}"),
+                  (e4 <= limit, f"K4 f32 error rule at {label} (K5's "
+                                f"inputs)"),
+                  (same, f"K5 f32 bit-equal on two launches at {label}")]
+        if (h, w, cin) == (360, 480, 64):
+            ones = torch.ones(cout, device="cuda")
+            raw = f32_variants.error_rule(
+                fused_conv_pair.conv3x3_pair(x, wt, b),
+                fused_conv_pair.conv3x3_pair_bn_relu_plain(
+                    x, wt, ones, b, relu=False),
+                conv64(x, wt) + b.double())
+            line.append(f"raw conv3x3_pair + bias {raw[0]:.3g} (plain "
+                        f"{raw[1]:.3g}, limit {raw[3]:.3g})")
+            checks.append((raw[0] <= raw[3],
+                           f"raw K5 f32 error rule at {label}"))
+        print("; ".join(line), flush=True)
+        for ok, what in checks:
+            check(ok, what)
+        del x, got, again, ref
+        if timed and (h, w) == HW:
+            x, wt, _, a, b = f32_inputs(gen, PAIR_BATCH, h, w, cin, cout)
+            xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
+            r.update(
+                ms=cuda_ms(lambda: fused_conv_pair.conv3x3_pair_bn_relu(
+                    x, wt, a, b), iters=10),
+                k4_ms=cuda_ms(lambda: fused_conv.conv3x3_bn_relu(
+                    x, wt, a, b), iters=10),
+                plain_ms=cuda_ms(
+                    lambda: fused_conv_pair.conv3x3_pair_bn_relu_plain(
+                        x, wt, a, b), iters=10),
+                library_ms=cuda_ms(lambda: F.conv2d(xc, wc, padding=1),
+                                   iters=10))
+            with tf32_convs():
+                r["library_tf32_ms"] = cuda_ms(
+                    lambda: F.conv2d(xc, wc, padding=1), iters=10)
+            r["bound_ms"], r["bound_by"] = f32_bound(PAIR_BATCH, h, w, cin,
+                                                     cout)
+            print(f"K5 f32 {PAIR_BATCH}x{h}x{w} {cin}->{cout}: K5 "
+                  f"{r['ms']:.4f} ms, K4 f32 {r['k4_ms']:.4f}, plain f32 "
+                  f"{r['plain_ms']:.4f}, cuDNN f32 (TF32 off) "
+                  f"{r['library_ms']:.4f}, TF32 on {r['library_tf32_ms']:.4f}"
+                  f"; bound {r['bound_ms']:.4f} by {r['bound_by']} (the split "
+                  f"product at {F32_SPLIT_RATE / 1e12:.1f} TFLOP/s): K5 at "
+                  f"{r['bound_ms'] / r['ms']:.3f} of it, K4 at "
+                  f"{r['bound_ms'] / r['k4_ms']:.3f} (on {bench.card()})",
+                  flush=True)
+            del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def pair_f32_entry(checks: dict, launches: int) -> dict:
+    """The JSON entry of K5's f32 instance: 64->64's readings at the top
+    level, 128->64's under ``"128_64"``; launches from the probe run."""
+    def keys(r):
+        return {"max_abs_err": r["err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "library_tf32_ms": r["library_tf32_ms"],
+                "k4_f32_ms": r["k4_ms"]}
+    return {"name": "conv3x3_pair_bn_relu_f32", "route": "cuda",
+            "source": "pytorch_camvid_tpu_torch/csrc/conv3x3_f32.cu",
+            "replaces": "pytorch_camvid_tpu/ops/pallas_conv_pair.py:229",
+            "launches": launches, **keys(checks[PAIR_SHAPES[0]]),
+            "128_64": keys(checks[PAIR_SHAPES[1]])}
+
+
+def phase_pair_f32_probe() -> dict:
+    """K5's f32 instance on the slice's path: ``perf_probe.probe_shape(...,
+    pair=True, dtype=torch.float32)`` at both shallow64 shapes, b24.
+    Returns its rows and K5's f32 launches in them."""
+    torch.cuda.synchronize()
+    reset_counts()
+    rows = [perf_probe.probe_shape(PAIR_BATCH, *s, k=PAIR_PROBE_K,
+                                   pair=True, dtype=torch.float32)
+            for s in PAIR_SHAPES]
+    torch.cuda.synchronize()
+    launches = fused_conv_pair.conv3x3_pair_bn_relu.dtype_launches["f32"]
+    want = sum(perf_probe.op_calls(PAIR_PROBE_K, r["k"]) for r in rows)
+    for r in rows:
+        print(json.dumps(r), flush=True)
+    print(f"perf_probe.probe_shape(pair=True, dtype=float32) at "
+          f"shallow64: {len(rows)} rows, K5 f32 launches {launches} "
+          f"(expected {want}; bf16 "
+          f"{fused_conv_pair.conv3x3_pair_bn_relu.dtype_launches['bf16']})",
+          flush=True)
+    check(launches == want and fused_conv_pair.conv3x3_pair_bn_relu.launches
+          == want, "K5 f32 launches in the probe run")
+    for r in rows:
+        check(r["impl"] == "pair" and r["dtype"] == "float32"
+              and np.isfinite(r["ms"]) and r["ms"] > 0
+              and (r["tflops"] <= r["roofline_tflops"] or "suspect" in r),
+              f"perf_probe f32 row {r['shape']}")
+    return {"rows": rows, "launches": launches}
 
 
 # ----------------------------------------------------- layout probes (11)
@@ -4028,37 +4298,84 @@ MH_BATCH = 10         # (d): the train CLI's global batch
 HALO_BATCH = 8
 MH_MIOU_TOL, MH_CHECKSUM_RTOL = 0.02, 1e-3   # JAX's tests/test_multihost.py
 DP_TIMEOUT_S = 300
+# (a)'s limits against the one-process step (loss, per-leaf grad norm,
+# grad difference, BN stats): phase 6's in bf16; the steps with 255 over
+# half of the first rank's rows (``uneven_steps``) in bf16 at
+# ``DP_UNEVEN_GRAD_TOL`` for the grad norms, and at float32, on
+# ``DP_F32_BATCH`` images (an f32 UNet step at b24 would not fit the card
+# beside its one-process reference), with and without them, at phase 14's
+# f32 limits. On an H100 the bf16 255 step's worst grad norm read 0.0554
+# (the stem's weight; 0.0178 without the 255 rows), the f32 steps' 0.000597
+# and 0.000523: at f32 the 255 rows move nothing, so the bf16 gap is bf16
+# rounding, held at about twice its reading (PERF.md)
+DP_F32_BATCH = 8
+DP_UNEVEN_GRAD_TOL = 1e-1
+DP_LIMITS = (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_GRAD_DIFF_TOL,
+             TRAIN_STAT_TOL)
+F32_DP_LIMITS = (F32_TRAIN_LOSS_TOL, F32_TRAIN_GRAD_TOL,
+                 F32_TRAIN_GRAD_DIFF_TOL, F32_TRAIN_STAT_TOL)
+# {key: (dtype, batch (None: (a)'s), 255 rows, limits)}
+DP_STEPS = {
+    "bf16_255": (torch.bfloat16, None, True,
+                 (TRAIN_LOSS_TOL, DP_UNEVEN_GRAD_TOL, TRAIN_GRAD_DIFF_TOL,
+                  TRAIN_STAT_TOL)),
+    "f32": (torch.float32, DP_F32_BATCH, False, F32_DP_LIMITS),
+    "f32_255": (torch.float32, DP_F32_BATCH, True, F32_DP_LIMITS)}
+DP_255 = ", 255 over half of the first rank's rows"
 
 
-def dp_batch(net: str, dev, uneven: bool = False) -> tuple:
-    """(a)'s global batch, phase 6's / 9's; ``uneven``: with 255 (kept out
-    of the loss) over the top half of the first rank's images, so the
-    ranks' loss denominators differ."""
-    images, labels = bench.resident_batch(TRAIN_BATCH[net], HW, SEED, dev)
+def dp_batch(net: str, dev, uneven: bool = False, n: int = None) -> tuple:
+    """(a)'s global batch, phase 6's / 9's (or ``n`` images); ``uneven``:
+    with 255 (kept out of the loss) over the top half of the first rank's
+    images, so the ranks' loss denominators differ."""
+    n = n or TRAIN_BATCH[net]
+    images, labels = bench.resident_batch(n, HW, SEED, dev)
     if uneven:
         labels = labels.clone()
-        labels[: TRAIN_BATCH[net] // DP_RANKS, : HW[0] // 2] = 255
+        labels[: n // DP_RANKS, : HW[0] // 2] = 255
     return images, labels
 
 
-def first_loss(model, opt, step, batch) -> float:
-    """The loss of one ``step`` from ``model``'s state (which it updates)
-    on ``batch``."""
-    _, met = step(TrainState.create(model, opt, seed=SEED), batch)
-    return float(met["loss"])
+def first_step(model, opt, step, batch, grads: bool) -> dict:
+    """``dp_result`` of one ``step`` from a copy of ``model``'s state on
+    ``batch``."""
+    state, met = step(TrainState.create(copy.deepcopy(model), opt,
+                                        seed=SEED), batch)
+    return dp_result(state, met, grads)
 
 
-def dp_step_fn():
-    """bench's step (default augmentation, OneCycle, AdamW, bf16) with 255
-    kept out of the loss. Returns (optimizer, step_fn)."""
+def dp_step_fn(dtype: torch.dtype = torch.bfloat16):
+    """bench's step (default augmentation, OneCycle, AdamW; bf16, or
+    ``dtype``) with 255 kept out of the loss. Returns (optimizer,
+    step_fn)."""
     total = TRAIN_STEPS + 10
     opt = train_mod.adamw(weight_decay=0.0)
     return opt, steps_mod.make_train_step(
         opt, train_mod.onecycle_lr(bench.MAX_LR, total),
         train_mod.onecycle_beta1(total), ignore_index=255,
         augment_fn=augment.make_train_augment(augment.AugmentConfig(
-            mean=settings.MEAN, std=settings.STD), torch.bfloat16),
-        compute_dtype=torch.bfloat16, log_grad_norms=False)
+            mean=settings.MEAN, std=settings.STD), dtype),
+        compute_dtype=dtype, log_grad_norms=False)
+
+
+def uneven_steps(net: str, model, step_of, dev,
+                 rows=lambda n: slice(None), grads: bool = True) -> dict:
+    """The steps of ``DP_STEPS`` from a copy of ``model``: with 255 over
+    half of the first rank's rows in bf16 on (a)'s batch ("bf16_255"),
+    and at float32 on ``DP_F32_BATCH`` images without and with them
+    ("f32", "f32_255"); ``step_of(dtype)`` gives (optimizer, step),
+    ``rows(n)`` this rank's rows of a batch of n. Each ``dp_result`` with
+    ``grads``."""
+    out = {}
+    for key, (dtype, n, uneven, _) in DP_STEPS.items():
+        opt, step = step_of(dtype)
+        images, labels = dp_batch(net, dev, uneven, n)
+        r = rows(len(images))
+        out[key] = first_step(model, opt, step, (images[r], labels[r]),
+                              grads)
+        del images, labels
+        torch.cuda.empty_cache()
+    return out
 
 
 def dp_result(state: TrainState, met: dict, grads: bool) -> dict:
@@ -4077,8 +4394,7 @@ def dp_result(state: TrainState, met: dict, grads: bool) -> dict:
 def dp_reference(net: str) -> dict:
     """The one-process step of (a) from the He-scaled state on the global
     batch: loss, gradients, BN stats, launches; then ``DP_TIMED`` steps'
-    median ms; then the loss of a step from the same state on the
-    ``uneven`` batch."""
+    median ms; then ``uneven_steps`` from the same state."""
     model = bench.he_model(net, torch.Generator().manual_seed(SEED)).to(
         DEVICE)
     start = copy.deepcopy(model)
@@ -4092,9 +4408,10 @@ def dp_reference(net: str) -> dict:
     out = dp_result(state, met, True)
     out["counts"], out["paths"] = train_counts(), conv_train.path_launches()
     out["step_ms"] = timed_steps(step, state, batch, DP_TIMED)
-    out["uneven_loss"] = first_loss(start, opt, step,
-                                    dp_batch(net, DEVICE, uneven=True))
-    del model, start, state, batch
+    del model, state, batch
+    torch.cuda.empty_cache()
+    out["uneven"] = uneven_steps(net, start, dp_step_fn, DEVICE)
+    del start
     torch.cuda.empty_cache()
     return out
 
@@ -4118,8 +4435,8 @@ def dp_rank_net(mesh, net: str) -> dict:
     and draws, the first step's launches (SegNet's calls against their
     plain versions, ``shadowed_kernels``), a second step and the SHA-256
     of every leaf after it, then ``DP_TIMED`` timed steps, the gradient
-    all-reduce alone and the peak memory; then the loss of a step from the
-    same state on its rows of the ``uneven`` batch."""
+    all-reduce alone and the peak memory; then ``uneven_steps`` from the
+    same state on its rows."""
     dev = mesh.device
     model = bench.he_model(net, torch.Generator().manual_seed(SEED)).to(dev)
     start = copy.deepcopy(model)
@@ -4154,11 +4471,15 @@ def dp_rank_net(mesh, net: str) -> dict:
     out["allreduce_ms"] = float(np.median(ms))
     out["allreduce_mb"] = sum(g.numel() for g in grads.values()) * 4 / 1e6
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    del state, grads
-    images, labels = dp_batch(net, dev, uneven=True)
-    out["uneven_loss"] = first_loss(start, opt, step,
-                                    (images[rows], labels[rows]))
-    del model, start, images, labels, batch
+    del state, grads, model, images, labels, batch
+    torch.cuda.empty_cache()
+
+    def step_of(dtype):
+        opt, step = dp_step_fn(dtype)
+        return opt, parallel.jit_train_step(step, mesh)
+    out["uneven"] = uneven_steps(net, start, step_of, dev, mesh.rows,
+                                 mesh.rank == 0)
+    del start
     torch.cuda.empty_cache()
     return out
 
@@ -4206,45 +4527,74 @@ def dp_rank(mesh, nets, rank_setup=None, halo=True) -> dict:
     return out
 
 
+def dp_step_errors(model, ref: dict, got: list) -> dict:
+    """One step's DP results (``got``, a ``dp_result`` a rank, rank 0's
+    with the gradients) against the one-process step's (``ref``): the
+    loss's and the BN stats' largest relative error over the ranks, and
+    the worst per-leaf gradient norm and difference (``grad_errors``)."""
+    norm_errs, diff_errs = grad_errors(
+        model, {k: torch.from_numpy(v) for k, v in got[0]["grads"].items()},
+        {k: torch.from_numpy(v) for k, v in ref["grads"].items()})
+    return {
+        "loss": max(abs(g["loss"] - ref["loss"]) / abs(ref["loss"])
+                    for g in got),
+        "stats": max(float(np.abs(g["stats"][k] - v).max()
+                           / max(np.abs(v).max(), 1e-30))
+                     for g in got for k, v in ref["stats"].items()),
+        "norm": _worst(norm_errs), "diff": _worst(diff_errs)}
+
+
+def dp_step_line(e: dict, limits: tuple) -> str:
+    """``dp_step_errors``' readings beside ``limits`` (loss, grad norm,
+    grad difference, BN stats)."""
+    lo, gn, gd, st = limits
+    return (f"loss rel {e['loss']:.3g} (tol {lo}); grads: norm rel max "
+            f"{e['norm'][1]:.3g} at {e['norm'][0]} (tol {gn}), |diff| rel "
+            f"max {e['diff'][1]:.3g} at {e['diff'][0]}, median "
+            f"{e['diff'][2]:.3g} (tol {gd}); BN stats rel max "
+            f"{e['stats']:.3g} (tol {st})")
+
+
+def dp_step_checks(e: dict, limits: tuple, what: str, grads: bool) -> None:
+    lo, gn, gd, st = limits
+    check(np.isfinite(e["loss"]) and e["loss"] <= lo, f"{what}: loss")
+    check(e["stats"] <= st, f"{what}: BN stats")
+    if grads:
+        check(e["norm"][1] <= gn, f"{what}: grad norms")
+        check(e["diff"][1] <= gd, f"{what}: grads")
+
+
 def dp_checks(refs: dict, ranks: list, label: str) -> dict:
     """Hold each rank's results to the one-process step's (``refs``) and
-    the ranks to each other; returns each net's readings."""
+    the ranks to each other: the step on (a)'s batch, and the steps with
+    255 over half of the first rank's rows in bf16 and, with and without
+    them, at float32 (``uneven_steps``); returns each net's readings."""
     out = {}
     for net, ref in refs.items():
         got = [r[net] for r in ranks]
         n = TRAIN_BATCH[net]
         model = get_model(net, 3, 12)
-        loss_err = max(abs(g["loss"] - ref["loss"]) / abs(ref["loss"])
-                       for g in got)
-        uneven_err = max(abs(g["uneven_loss"] - ref["uneven_loss"])
-                         / abs(ref["uneven_loss"]) for g in got)
-        stat_err = max(float(np.abs(g["stats"][k] - v).max()
-                             / max(np.abs(v).max(), 1e-30))
-                       for g in got for k, v in ref["stats"].items())
-        norm_errs, diff_errs = grad_errors(
-            model, {k: torch.from_numpy(v) for k, v in
-                    got[0]["grads"].items()},
-            {k: torch.from_numpy(v) for k, v in ref["grads"].items()})
-        worst_n, worst_d = _worst(norm_errs), _worst(diff_errs)
+        steps = {"bf16": dp_step_errors(model, ref, got)}
+        for key in DP_STEPS:
+            steps[key] = dp_step_errors(
+                model, ref["uneven"][key], [g["uneven"][key] for g in got])
         equal = len({g["sha256"] for g in got}) == 1
         per_rank = {"fwd": n_blocks(net), "dgrad": n_blocks(net) - 1,
                     "wgrad": n_blocks(net)}
         print(f"{label} {net} b{n} over {len(got)} ranks of b"
               f"{n // len(got)}: loss {[round(g['loss'], 6) for g in got]} "
-              f"vs one process {ref['loss']:.6f} (rel {loss_err:.3g}, tol "
-              f"{TRAIN_LOSS_TOL}); with 255 over half of the first rank's "
-              f"rows: loss {[round(g['uneven_loss'], 6) for g in got]} vs "
-              f"{ref['uneven_loss']:.6f} (rel {uneven_err:.3g}); "
-              f"all-reduced grads vs one process: norm "
-              f"rel max {worst_n[1]:.3g} at {worst_n[0]} (tol "
-              f"{TRAIN_GRAD_TOL}), |diff| rel max {worst_d[1]:.3g} at "
-              f"{worst_d[0]}, median {worst_d[2]:.3g} (tol "
-              f"{TRAIN_GRAD_DIFF_TOL}); BN stats rel max {stat_err:.3g} "
-              f"(tol {TRAIN_STAT_TOL}); after 2 steps every leaf bit-equal "
-              f"across the ranks: {equal}; launches per rank "
-              f"{[g['counts'] for g in got]}, K1 on each path "
+              f"vs one process {ref['loss']:.6f}; "
+              f"{dp_step_line(steps['bf16'], DP_LIMITS)}; after 2 steps "
+              f"every leaf bit-equal across the ranks: {equal}; launches "
+              f"per rank {[g['counts'] for g in got]}, K1 on each path "
               f"{[g['paths'] for g in got]}; kernel calls vs plain "
               f"{[g['shadow'] for g in got]}", flush=True)
+        for key, (dtype, batch, uneven, limits) in DP_STEPS.items():
+            print(f"{label} {net} {str(dtype)[6:]} b{batch or n}"
+                  f"{DP_255 if uneven else ''}: loss "
+                  f"{[round(g['uneven'][key]['loss'], 6) for g in got]} vs "
+                  f"one process {ref['uneven'][key]['loss']:.6f}; "
+                  f"{dp_step_line(steps[key], limits)}", flush=True)
         print(f"{label} {net}: DP step {[round(g['step_ms'], 3) for g in got]}"
               f" ms per rank (one process at b{n}: {ref['step_ms']:.3f} ms); "
               f"gradient all-reduce of {got[0]['allreduce_mb']:.1f} MB "
@@ -4252,17 +4602,13 @@ def dp_checks(refs: dict, ranks: list, label: str) -> dict:
               f"memory per rank {[round(g['peak_gib'], 3) for g in got]} "
               f"GiB; backend {ranks[0]['backend']}; {bench.card()}",
               flush=True)
-        check(np.isfinite(loss_err) and loss_err <= TRAIN_LOSS_TOL,
-              f"{label} {net} loss vs one process")
-        check(np.isfinite(uneven_err) and uneven_err <= TRAIN_LOSS_TOL,
-              f"{label} {net} loss vs one process, uneven ignore labels")
-        check(stat_err <= TRAIN_STAT_TOL,
-              f"{label} {net} BN stats vs one process")
-        if GRADS_END_TO_END[net]:
-            check(worst_n[1] <= TRAIN_GRAD_TOL,
-                  f"{label} {net} grad norms vs one process")
-            check(worst_d[1] <= TRAIN_GRAD_DIFF_TOL,
-                  f"{label} {net} grads vs one process")
+        dp_step_checks(steps["bf16"], DP_LIMITS, f"{label} {net} vs one "
+                       f"process", GRADS_END_TO_END[net])
+        for key, (dtype, _, uneven, limits) in DP_STEPS.items():
+            dp_step_checks(steps[key], limits, f"{label} {net} vs one "
+                           f"process, {str(dtype)[6:]}"
+                           f"{DP_255 if uneven else ''}",
+                           GRADS_END_TO_END[net])
         check(equal, f"{label} {net}: the ranks' leaves bit-equal")
         want = expected_train_counts(net, 1)
         for g in got:
@@ -4281,7 +4627,11 @@ def dp_checks(refs: dict, ranks: list, label: str) -> dict:
                     "step_ms": [g["step_ms"] for g in got],
                     "allreduce_ms": [g["allreduce_ms"] for g in got],
                     "peak_gib": [g["peak_gib"] for g in got],
-                    "one_process_step_ms": ref["step_ms"]}
+                    "one_process_step_ms": ref["step_ms"],
+                    "steps": {k: {"loss": e["loss"], "stats": e["stats"],
+                                  "grad_norm": e["norm"][1],
+                                  "grad_diff": e["diff"][1]}
+                              for k, e in steps.items()}}
     return out
 
 
@@ -5068,6 +5418,13 @@ def start() -> None:
     print(f"f32: the library's and the wrappers' routes, tile N and dW "
           f"tile counts agree at {len(f32_pairs)} (Cin, Cout) pairs and "
           f"{len(sizes)} sizes", flush=True)
+    couts = range(4, fused_conv_pair.MAX_COUT + 1, 4)
+    for cout in couts:
+        check(f32.conv3x3_pair_f32_smem(cout) == fused_conv_pair.tile_plan(
+            fused_conv_pair.MAX_CIN, torch.float32, cout)["bytes"],
+              f"K5 f32's shared-memory plan of the library at Cout {cout}")
+    print(f"K5 f32: the library's and the wrapper's shared-memory plans "
+          f"agree at {len(couts)} Cout", flush=True)
     for net in TRAIN_BATCH:
         shapes = bench.block_shapes(net, HW)
         rule = conv_train.step_path_launches(shapes)
@@ -5097,9 +5454,13 @@ def main() -> int:
     seg_serve = phase_slice("segnet", torch.Generator().manual_seed(SEED),
                             np.random.default_rng(SEED))
     seg_train = phase_train("segnet", torch.Generator().manual_seed(SEED))
+    segnet_small_checks(torch.Generator().manual_seed(SEED))
     pair = pair_checks(torch.Generator(device="cuda").manual_seed(SEED),
                        timed=True)[(PAIR_BATCH,) + PAIR_SHAPES[0]]
     pair_launches = phase_pair_probe()
+    pair_f32 = pair_f32_checks(
+        torch.Generator(device="cuda").manual_seed(SEED), timed=True)
+    pair_f32_launches = phase_pair_f32_probe()["launches"]
     probe_entries = phase_probes(
         torch.Generator(device="cuda").manual_seed(SEED))
     with tempfile.TemporaryDirectory() as tmp:
@@ -5151,14 +5512,19 @@ def main() -> int:
         "ms": pair["ms"], "plain_ms": pair["plain_ms"],
         "bound_ms": pair["bound_ms"], "bound_by": pair["bound_by"],
         "library_ms": pair["library_ms"]})
+    kernels.append(pair_f32_entry(pair_f32, pair_f32_launches))
     kernels += probe_entries
     kernels += f32_entries(f32)
-    kernels[-4]["program_launches"] = {
-        "unet_f32": ran["unet_f32"]["conv3x3_bn_relu"]}
     kernels += int8_entries(int8)
-    for entry, key in zip(kernels[-2:], ("conv3x3_int8", "quantize")):
-        entry["program_launches"] = {"unet_int8": ran["unet_int8"][key]}
-    check(len(kernels) == 22, "one JSON entry per ported kernel")
+    by_name = {k["name"]: k for k in kernels}
+    by_name["conv3x3_bn_relu_f32"]["program_launches"] = {
+        "unet_f32": ran["unet_f32"]["conv3x3_bn_relu"]}
+    for name, key in (("conv3x3_int8", "conv3x3_int8"),
+                      ("conv3x3_int8.quantize", "quantize")):
+        by_name[name]["program_launches"] = {
+            "unet_int8": ran["unet_int8"][key]}
+    check(len(by_name) == len(kernels) == 23,
+          "one JSON entry per ported kernel")
     print(json.dumps({"kernels": kernels}))
     print(bench.card())
     print(json.dumps({"ok": True, "device": {

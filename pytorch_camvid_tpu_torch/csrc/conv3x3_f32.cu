@@ -1,5 +1,5 @@
 // f32 conv3x3 (pad 1, NHWC) for Hopper (sm_90a) on split-TF32 tensor-core
-// products: the float32 instances of K4 and of K1's three pieces.
+// products: the float32 instances of K4, of K1's three pieces and of K5.
 //
 // Replaces, at float32 (the JAX package's default compute dtype):
 //   K4       pytorch_camvid_tpu/ops/pallas_conv.py:230 (_conv3x3_impl :190)
@@ -9,6 +9,9 @@
 //            (_vjp_bwd :208)                                   -> fwd, flip
 //   K1 dW    pytorch_camvid_tpu/ops/pallas_conv_train.py:172
 //            (_conv3x3_dw :147), f32 (3,3,Cin,Cout) out            -> wgrad
+//   K5       pytorch_camvid_tpu/ops/pallas_conv_pair.py:229
+//            (_conv3x3_pair_impl :182), K4's function for the shallow
+//            full-resolution convs, reusing each H pair of rows  -> k5
 //
 // Precision. A TF32 operand keeps 10 mantissa bits, so one TF32 product
 // per term is ~5e-4 relative: a different function from f32. Each f32
@@ -2128,6 +2131,319 @@ cudaError_t wgrad_run(const float* x, const float* g, float* dst, int N,
 
 }  // namespace pk
 
+// ================================================================== pair
+
+// K5 at float32: relu(conv3x3(x, W) * A + B) for the full-resolution
+// shallow convs (Cin <= 128, Cout <= 64), the f32 instance of
+// pytorch_camvid_tpu/ops/pallas_conv_pair.py:229 (_conv3x3_pair_impl
+// :182, which takes x's dtype and accumulates in f32). What carries over
+// from the bf16 K5 (conv3x3_pair_bn_relu.cu) is its idea: vertically
+// adjacent output rows share input rows, so the split A fragment of one
+// patch row feeds a wgmma for every output row it reaches, one per tap
+// dy. At f32 the reuse saves more than at bf16: each A element costs a
+// cvt, a sub and a cvt to split, paid once for up to three rows' products
+// (24 splits an output row and 32-channel chunk, where fw splits 36).
+// - A block tile is TH = 4 output rows x TW = 64 columns x BN output
+//   channels (all of Cout: 16, 32 or 64 by Cout); consumer warpgroup g
+//   takes its pair of rows 2g, 2g + 1 (the TPU kernel's H pair), each
+//   output row one m64 (warp w: columns 16w .. 16w+15). Both read one
+//   6-row x 66-column x 32-channel patch stage (the halo and the pad
+//   zero-filled by TMA, as everything past Cin) and one weight stage, so
+//   they run in lockstep over the same stages.
+// - The weights are split once per call into K-major hi and lo copies
+//   (split_weights_kernel, as fw) and streamed through a ring of W_STAGES
+//   stages, one stage a (32-channel chunk, tap column dx): the three taps
+//   dy, hi and lo, BN rows x 128 bytes each (the 128-byte swizzle). A
+//   resident copy would take 8 bytes an element, 294,912 B at 64->64,
+//   over a block's 232,448. Per output pixel the ring reads half of fw's
+//   weight bytes from L2 (a block tile of 256 pixels against fw's 128).
+// - The products: for each stage, each of the warpgroup's four patch rows
+//   r is loaded and split once (4 k8 steps, 32 A registers kept), then
+//   for each of its output rows o = r - dy it reaches, the tap's four k8
+//   steps go into one scratch accumulator from zero (scale-d 0), which
+//   after its wait is added to row o's running accumulator with FADD: the
+//   step sums of fw, one tap over one 32-channel chunk each, in the order
+//   chunk, dx, r, dy, so the error is fw's (chip_smoke's f32 rule; its
+//   depth is the chunk's KK = 4 k8 steps, fw's STEP_K8). One
+//   scratch and the kept A fragment hold a thread to 2 x BN/2 + BN/2 + 32
+//   registers (128 at BN = 64) of the 168 a thread of this 320-thread
+//   block gets; the other warpgroup's wgmmas run during a scratch's wait.
+// - Epilogue acc * a + b and the ReLU, f32 pairs stored at the pixel,
+//   masked at H (a last tile of one pair), W and Cout.
+// What bounds it: at 360x480 64->64 the split product (165 TFLOP/s of f32
+// work on an H100 SXM) at 1.85 ms for b24 against 0.63 ms of bytes.
+// Contract: H even, any W; Cin and Cout multiples of 4 (TMA's 16-byte
+// rows), Cin <= 128, Cout <= 64; x, the split weights and out 16-byte
+// aligned.
+namespace k5 {
+
+constexpr int TH = 4;                 // output rows a block tile: 2 pairs
+constexpr int TW = 64;                // output columns: one m64 a row
+constexpr int PR = TH + 2, PW = TW + 2;
+constexpr int KC = 32;                // channels a chunk: one swizzle row
+constexpr int KK = KC / 8;            // k8 steps a chunk: a step sum
+constexpr int THREADS = 320;          // WGs 0, 1 consume; warps 8, 9 produce
+constexpr int CONSUMER_WARPS = 8;
+constexpr int MAX_CIN = 128, MAX_COUT = 64;
+constexpr int PATCH_TX = PR * PW * 128;                       // 50688
+constexpr int PATCH = (PATCH_TX + 1023) / 1024 * 1024;        // 51200
+constexpr int P_STAGES = 2, W_STAGES = 2;
+
+// The tile N at ``cout``: all of Cout in 16, 32 or 64 channels.
+inline int tile_n(int cout) { return cout <= 16 ? 16 : cout <= 32 ? 32 : 64; }
+
+template <int BN>
+struct Plan {
+  static constexpr int W_BOX = BN * 128;       // one (tap, half) box
+  static constexpr int W_STAGE = 6 * W_BOX;    // the three taps dy, hi, lo
+  static constexpr int BAR_OFF = P_STAGES * PATCH + W_STAGES * W_STAGE;
+  static constexpr int SMEM =
+      1024 + BAR_OFF + 2 * (P_STAGES + W_STAGES) * 8;
+};
+// ops/fused_conv_pair.py::tile_plan(cin, torch.float32, cout) holds the
+// same figures
+static_assert(Plan<64>::SMEM == 201792, "f32 pair plan at N 64");
+static_assert(Plan<32>::SMEM == 152640, "f32 pair plan at N 32");
+static_assert(Plan<16>::SMEM == 128064, "f32 pair plan at N 16");
+static_assert(Plan<64>::SMEM <= 232448, "the plan fits one block");
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+    conv_pair_f32_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap wmap,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ shift,
+                         float* __restrict__ out, int N, int H, int W,
+                         int Cin, int Cout, int relu) {
+  using T = Plan<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  unsigned char* patch = smem;
+  unsigned char* wring = smem + P_STAGES * PATCH;
+  uint64_t* pfull = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
+  uint64_t* pempty = pfull + P_STAGES;
+  uint64_t* wfull = pempty + P_STAGES;
+  uint64_t* wempty = wfull + W_STAGES;
+
+  const int tiles_w = (W + TW - 1) / TW;
+  const int tiles_h = (H + TH - 1) / TH;
+  const int total = N * tiles_h * tiles_w;   // < 2^31 (host)
+  const int nch = (Cin + KC - 1) / KC;
+  // tile -> (image, first row, first column), the column tile fastest
+  auto origin = [&](int t, int& img, int& h0, int& w0) {
+    w0 = t % tiles_w * TW;
+    t /= tiles_w;
+    h0 = t % tiles_h * TH;
+    img = t / tiles_h;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < P_STAGES; ++i) {
+      sm90::mbar_init(&pfull[i], 1);
+      sm90::mbar_init(&pempty[i], CONSUMER_WARPS);
+    }
+    for (int i = 0; i < W_STAGES; ++i) {
+      sm90::mbar_init(&wfull[i], 1);
+      sm90::mbar_init(&wempty[i], CONSUMER_WARPS);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    // ----------------------------------------------------- producers
+    if (threadIdx.x == 256) {
+      sm90::prefetch_tensormap(&xmap);
+      uint32_t pit = 0;
+      for (int t = blockIdx.x; t < total; t += gridDim.x) {
+        int img, h0, w0;
+        origin(t, img, h0, w0);
+        for (int c = 0; c < nch; ++c, ++pit) {
+          const int ps = pit % P_STAGES;
+          sm90::mbar_wait(&pempty[ps], ((pit / P_STAGES) & 1) ^ 1);
+          sm90::mbar_arrive_expect_tx(&pfull[ps], PATCH_TX);
+          sm90::tma_load_4d(patch + ps * PATCH, &xmap, &pfull[ps], c * KC,
+                            w0 - 1, h0 - 1, img);
+        }
+      }
+    } else if (threadIdx.x == 288) {
+      sm90::prefetch_tensormap(&wmap);
+      uint32_t wit = 0;
+      for (int t = blockIdx.x; t < total; t += gridDim.x) {
+        for (int c = 0; c < nch; ++c) {
+          for (int dx = 0; dx < 3; ++dx, ++wit) {
+            const int ws = wit % W_STAGES;
+            sm90::mbar_wait(&wempty[ws], ((wit / W_STAGES) & 1) ^ 1);
+            sm90::mbar_arrive_expect_tx(&wfull[ws], T::W_STAGE);
+            unsigned char* dst = wring + ws * T::W_STAGE;
+            for (int dy = 0; dy < 3; ++dy)
+              for (int h = 0; h < 2; ++h)
+                sm90::tma_load_4d(dst + (dy * 2 + h) * T::W_BOX, &wmap,
+                                  &wfull[ws], c * KC, dy * 3 + dx, 0, h);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------- consumers
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const uint32_t wring0 = smem_u32(wring);
+  // patch column of tap dx = 0 for this lane's A rows g (a0, a2) and g + 8
+  // (a1, a3): output columns 16 warp + g (+ 8); this warpgroup's first
+  // patch row: 2 wgi
+  const int col0 = warp * 16 + g;
+  float sc[BN / 2];   // the step sums' scratch
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+  uint32_t pit = 0, wit = 0;
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    int img, h0, w0;
+    origin(t, img, h0, w0);
+    float acc[2][BN / 2];
+#pragma unroll
+    for (int o = 0; o < 2; ++o)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[o][i] = 0.f;
+
+    for (int c = 0; c < nch; ++c, ++pit) {
+      const int ps = pit % P_STAGES;
+      sm90::mbar_wait(&pfull[ps], (pit / P_STAGES) & 1);
+      const unsigned char* pb = patch + ps * PATCH;
+#pragma unroll 1
+      for (int dx = 0; dx < 3; ++dx, ++wit) {
+        const int ws = wit % W_STAGES;
+        sm90::mbar_wait(&wfull[ws], (wit / W_STAGES) & 1);
+        const uint32_t wb = wring0 + ws * T::W_STAGE;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {   // this warpgroup's patch rows
+          const int row = (2 * wgi + r) * PW + col0 + dx;
+          uint32_t ah[KK][4], al[KK][4];
+#pragma unroll
+          for (int kk = 0; kk < KK; ++kk) {
+            // channels 8kk + tq (a0, a1) and 8kk + tq + 4 (a2, a3)
+            const float v[4] = {lds(pb, swz(row, 2 * kk) + 4 * tq),
+                                lds(pb, swz(row + 8, 2 * kk) + 4 * tq),
+                                lds(pb, swz(row, 2 * kk + 1) + 4 * tq),
+                                lds(pb, swz(row + 8, 2 * kk + 1) + 4 * tq)};
+            split4(v, ah[kk], al[kk]);
+          }
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            const int o = r - dy;   // the output row of the pair it reaches
+            if (o < 0 || o > 1) continue;
+            sm90::wgmma_fence();   // the A registers and the scratch
+#pragma unroll
+            for (int kk = 0; kk < KK; ++kk) {
+              const uint32_t b = wb + dy * 2 * T::W_BOX + kk * 32;
+              split_products<BN>(sc, ah[kk], al[kk],
+                                 sm90::wgmma_desc(b, 16, 1024, 1),
+                                 sm90::wgmma_desc(b + T::W_BOX, 16, 1024, 1),
+                                 kk == 0);
+            }
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            add_into(acc[o], sc);
+          }
+        }
+        if (lane == 0) sm90::mbar_arrive(&wempty[ws]);
+      }
+      if (lane == 0) sm90::mbar_arrive(&pempty[ps]);
+    }
+
+    // Epilogue. Accumulator i of row o: output row h0 + 2 wgi + o, column
+    // w0 + 16 warp + g (+8 for i%4 >= 2); channel 8*(i/4) + 2*tq + i%2.
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+      const int h = h0 + 2 * wgi + o;
+      if (h >= H) break;   // the last tile at H % 4 == 2
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int co = 8 * j + 2 * tq;
+        if (co >= Cout) continue;   // Cout % 4 == 0: co + 1 too
+        const float a0 = scale[co], a1 = scale[co + 1];
+        const float b0 = shift[co], b1 = shift[co + 1];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int ww = w0 + col0 + 8 * half;
+          if (ww >= W) continue;
+          float v0 = acc[o][4 * j + 2 * half] * a0 + b0;
+          float v1 = acc[o][4 * j + 2 * half + 1] * a1 + b1;
+          if (relu) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+          *reinterpret_cast<float2*>(
+              out + ((static_cast<int64_t>(img) * H + h) * W + ww) * Cout +
+              co) = make_float2(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+template <int BN>
+cudaError_t launch(const float* x, const float* w2, const float* a,
+                   const float* b, float* out, int N, int H, int W, int Cin,
+                   int Cout, int relu, cudaStream_t stream) {
+  using T = Plan<BN>;
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const int64_t tiles = static_cast<int64_t>(N) * ((H + TH - 1) / TH) *
+                        ((W + TW - 1) / TW);
+  if (tiles > 2147483647LL) return cudaErrorInvalidConfiguration;
+
+  CUtensorMap xmap, wmap;
+  const uint64_t xd[4] = {static_cast<uint64_t>(Cin),
+                          static_cast<uint64_t>(W), static_cast<uint64_t>(H),
+                          static_cast<uint64_t>(N)};
+  const uint64_t xs[3] = {4ull * Cin, 4ull * Cin * W, 4ull * Cin * W * H};
+  const uint32_t xb[4] = {KC, PW, PR, 1};
+  // the split copies [2][Cout][9][Cin] as (Cin, 9, Cout, 2), as fw's
+  const uint64_t wd[4] = {static_cast<uint64_t>(Cin), 9,
+                          static_cast<uint64_t>(Cout), 2};
+  const uint64_t wstr[3] = {4ull * Cin, 36ull * Cin, 36ull * Cin * Cout};
+  const uint32_t wbox[4] = {KC, 1, BN, 1};
+  if (!sm90::encode_f32_map(&xmap, x, 4, xd, xs, xb) ||
+      !sm90::encode_f32_map(&wmap, w2, 4, wd, wstr, wbox))
+    return cudaErrorInvalidValue;
+  auto kern = conv_pair_f32_kernel<BN>;
+  if ((err = cudaFuncSetAttribute(
+           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM)) !=
+      cudaSuccess)
+    return err;
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  kern<<<grid, THREADS, T::SMEM, stream>>>(xmap, wmap, a, b, out, N, H, W,
+                                           Cin, Cout, relu);
+  return cudaGetLastError();
+}
+
+cudaError_t run(const float* x, const float* w, const float* a,
+                const float* b, float* out, float* w2, int N, int H, int W,
+                int Cin, int Cout, int relu, cudaStream_t st) {
+  const cudaError_t err = split_weights(w, w2, Cin, Cout, 0, st);
+  if (err != cudaSuccess) return err;
+  switch (tile_n(Cout)) {
+    case 16:
+      return launch<16>(x, w2, a, b, out, N, H, W, Cin, Cout, relu, st);
+    case 32:
+      return launch<32>(x, w2, a, b, out, N, H, W, Cin, Cout, relu, st);
+    default:
+      return launch<64>(x, w2, a, b, out, N, H, W, Cin, Cout, relu, st);
+  }
+}
+
+}  // namespace k5
+
 }  // namespace f32c
 
 // ---------------------------------------------------------- C interface
@@ -2216,6 +2532,47 @@ extern "C" int conv3x3_bn_relu_f32(const void* x, const void* w,
                                         static_cast<float*>(ws), N, H, W,
                                         Cin, Cout, relu, flip, st));
   return narrow_fwd(xf, wf, af, bf, of, N, H, W, Cin, Cout, relu, flip, st);
+}
+
+// The f32 K5's shared bytes a block at ``Cout`` (0 outside its contract):
+// its tile N and plan, which ops/fused_conv_pair.py::tile_plan holds too.
+extern "C" int conv3x3_pair_f32_smem(int Cout) {
+  using namespace f32c::k5;
+  if (Cout < 4 || Cout > MAX_COUT || Cout % 4 != 0) return 0;
+  switch (tile_n(Cout)) {
+    case 16:
+      return Plan<16>::SMEM;
+    case 32:
+      return Plan<32>::SMEM;
+    default:
+      return Plan<64>::SMEM;
+  }
+}
+
+// out (N,H,W,Cout) f32 = relu(conv3x3_pad1(x, w) * a + b) on the f32 K5:
+// x (N,H,W,Cin) f32 with H even, w (3,3,Cin,Cout) f32, a, b (Cout,) f32;
+// ws: 18 * Cin * Cout f32 for the split weights. Cin, Cout multiples of 4,
+// Cin <= 128, Cout <= 64; x, ws and out 16-byte aligned. Returns the CUDA
+// error of the launches.
+extern "C" int conv3x3_pair_bn_relu_f32(const void* x, const void* w,
+                                        const void* a, const void* b,
+                                        void* out, void* ws, int N, int H,
+                                        int W, int Cin, int Cout, int relu,
+                                        void* stream) {
+  using namespace f32c;
+  if (N <= 0 || H <= 0 || W <= 0 || H % 2 != 0 || Cin % 4 != 0 ||
+      Cin < 4 || Cin > k5::MAX_CIN || Cout % 4 != 0 || Cout < 4 ||
+      Cout > k5::MAX_COUT || ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(ws) |
+        reinterpret_cast<uintptr_t>(out)) &
+       15) != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return static_cast<int>(k5::run(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(out), static_cast<float*>(ws), N, H, W, Cin, Cout,
+      relu, static_cast<cudaStream_t>(stream)));
 }
 
 // The same on the narrow route whatever (Cin, Cout): the first design,

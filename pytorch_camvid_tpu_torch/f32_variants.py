@@ -29,7 +29,8 @@ scratch, where the kept one ping-pongs as fw's), ``pk_no_mma``
 the producers' copies alone), ``pk_fwd_consumer_only`` (its producers copy
 nothing: the consumers alone) and ``pk_dw_no_build`` (the packed dW's
 builders hand over the planes without building them); and the faults chip_faults.py plants (``FAULTS``), in the
-wgmma and packed kernels: ``single_pass`` (single-pass TF32, the hi*hi product only),
+wgmma, packed and K5 kernels: ``single_pass`` (single-pass TF32, the
+hi*hi product only),
 ``lo_hi_dropped`` (without the lo*hi product), ``stale_scratch`` (a step
 sum's first product added onto the scratch, scale-d 1, which still holds
 the step sum two steps back), ``atomic_splits`` (the wgmma route's dW's
@@ -67,7 +68,7 @@ TIMED = ((10, 360, 480, 64, 64), (10, 45, 60, 512, 512),
 # chip_smoke's phase 14 rule: err(t) = max|t - f64|; a kernel passes where
 # err(kernel) <= max(ERR_FACTOR * err(plain f32), ERR_FLOOR * max|f64|)
 ERR_FACTOR, ERR_FLOOR = 4.0, 2e-6
-# the split product of one k8 step, in both wgmma kernels
+# the split product of one k8 step, in every wgmma kernel (K5's too)
 _PRODUCTS = """  sm90::wgmma_tf32<N>(d, al, bh, first ? 0 : 1);   // lo * hi
   sm90::wgmma_tf32<N>(d, ah, bl, 1);               // hi * lo
   sm90::wgmma_tf32<N>(d, ah, bh, 1);               // hi * hi

@@ -29,7 +29,9 @@ fixed order, so two launches give the same bits.
 
 Each piece has a wrapper (``conv3x3_fwd``, ``conv3x3_dgrad``,
 ``conv3x3_wgrad``) that runs its plain version on a CPU tensor and its
-kernel on a CUDA tensor, or raises; each counts its kernel launches in
+kernel on a CUDA tensor, or raises (an empty map, SegNet's deepest stage
+under 16 rows or columns, is no work: an empty result, or dW's zeros,
+without a launch); each counts its kernel launches in
 ``.launches`` and per kernel path in ``.path_launches``: the forward and
 dx by ``fused_conv.route`` ("wgmma", "packed" or "narrow" in bf16, "f32",
 "f32_packed" or "f32_narrow"), dW by ``wgrad_route`` (likewise). The plain
@@ -98,7 +100,11 @@ def _unit_affine(cout: int, device: torch.device):
 
 def conv3x3_train_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """conv3x3 pad-1, NHWC x, HWIO w, in x's dtype, from ``F.conv2d``;
-    autograd differentiates it."""
+    autograd differentiates it. An empty map (no pixel: ``F.conv2d``
+    refuses one) gives its empty output through the centre tap's matmul,
+    whose gradient is zero for w and empty for x."""
+    if x.numel() == 0:
+        return x @ w.to(x.dtype)[1, 1]
     return F.conv2d(_nchw(x), _oihw(w.to(x.dtype)),
                     padding=1).permute(0, 2, 3, 1)
 
@@ -106,6 +112,8 @@ def conv3x3_train_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def conv3x3_dgrad_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """dx of conv3x3 pad-1 for cotangent g (N,H,W,Cout), in g's dtype."""
     n, h, wd, _ = g.shape
+    if g.numel() == 0:   # an empty map
+        return g.new_empty((n, h, wd, w.shape[2]))
     dx = torch.nn.grad.conv2d_input((n, w.shape[2], h, wd),
                                     _oihw(w.to(g.dtype)), _nchw(g),
                                     padding=1)
@@ -131,6 +139,8 @@ def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dW (3,3,Cin,Cout) f32 of conv3x3 pad-1, from the f32 upcasts of x
     (N,H,W,Cin) and g (N,H,W,Cout)."""
     cin, cout = x.shape[3], g.shape[3]
+    if x.numel() == 0:   # an empty map: the sum over no pixel
+        return torch.zeros((3, 3, cin, cout), device=x.device)
     dw = torch.nn.grad.conv2d_weight(_nchw(x.float()), (cout, cin, 3, 3),
                                      _nchw(g.float()), padding=1)
     return dw.permute(2, 3, 1, 0).contiguous()
@@ -328,7 +338,8 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     not traces."""
     ones, zeros = _unit_affine(w.shape[3], x.device)
     out = conv3x3_bn_relu(x, w, ones, zeros, relu=False)
-    if x.device.type == "cuda" and not torch.compiler.is_compiling():
+    if (x.device.type == "cuda" and x.numel()
+            and not torch.compiler.is_compiling()):
         _count(conv3x3_fwd, route(x.dtype, w.shape[2], w.shape[3]))
     return out
 
@@ -342,7 +353,8 @@ def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return conv3x3_dgrad_plain(g, w)
     ones, zeros = _unit_affine(w.shape[2], g.device)
     out = conv3x3_bn_relu(g, w, ones, zeros, relu=False, flip=True)
-    _count(conv3x3_dgrad, route(g.dtype, w.shape[3], w.shape[2]))
+    if g.numel():
+        _count(conv3x3_dgrad, route(g.dtype, w.shape[3], w.shape[2]))
     return out
 
 
@@ -473,6 +485,9 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return conv3x3_wgrad_plain(x, g)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_wgrad: no kernel for {x.device}")
+    if x.numel() == 0 and x.shape[:3] == g.shape[:3]:
+        # an empty map: the sum over no pixel, no work and no launch
+        return torch.zeros((3, 3, x.shape[3], g.shape[3]), device=x.device)
     x, g = aligned16(x), aligned16(g)
     _check_wgrad(x, g)
     path = wgrad_route(x.dtype, x.shape[3], g.shape[3])

@@ -255,6 +255,8 @@ def conv3x3_bn_relu_plain(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     the conv runs in x's dtype, the epilogue in f32."""
     if flip:
         w = flipped(w)
+    if x.numel() == 0:   # an empty map (SegNet under 16 rows or columns)
+        return x.new_empty(x.shape[:3] + (w.shape[3],))
     y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
                  padding=1)
     y = y.permute(0, 2, 3, 1).float() * a + b
@@ -278,7 +280,8 @@ def _library() -> ctypes.CDLL:
 @functools.cache
 def f32_library() -> ctypes.CDLL:
     """``csrc/conv3x3_f32.cu`` built and bound: the f32 forward (K4, K1 fwd
-    and dx) and the f32 dW (K1's, ``conv_train``) with its tile counts."""
+    and dx), the f32 dW (K1's, ``conv_train``) with its tile counts and
+    the f32 K5 (``fused_conv_pair``)."""
     return bind_f32(cuda_build.load(F32_SOURCE))
 
 
@@ -297,6 +300,9 @@ def bind_f32(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.conv3x3_wgrad_f32_narrow.argtypes = \
         lib.conv3x3_wgrad_f32.argtypes
     lib.conv3x3_wgrad_f32_narrow.restype = ctypes.c_int
+    lib.conv3x3_pair_bn_relu_f32.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.conv3x3_pair_bn_relu_f32.restype = ctypes.c_int
     for name, n, res in (("conv3x3_f32_route", 3, ctypes.c_int),
                          ("conv3x3_f32_tile_n", 1, ctypes.c_int),
                          ("conv3x3_bn_relu_f32_ws_floats", 2,
@@ -304,7 +310,8 @@ def bind_f32(lib: ctypes.CDLL) -> ctypes.CDLL:
                          ("conv3x3_wgrad_f32_pixel_tiles", 5,
                           ctypes.c_longlong),
                          ("conv3x3_wgrad_f32_out_tiles", 2,
-                          ctypes.c_longlong)):
+                          ctypes.c_longlong),
+                         ("conv3x3_pair_f32_smem", 1, ctypes.c_int)):
         getattr(lib, name).argtypes = [ctypes.c_int] * n
         getattr(lib, name).restype = res
     return lib
@@ -357,7 +364,7 @@ def _check(x, w, a, b, flip=False):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous (x in NHWC)")
-    if min(x.shape) == 0 or max(*x.shape, 9 * cin * cout) >= 2 ** 31:
+    if min(cin, cout) == 0 or max(*x.shape, 9 * cin * cout) >= 2 ** 31:
         raise ValueError(f"unsupported shape x {tuple(x.shape)}, "
                          f"Cout {cout}")
     if x.dtype == torch.float32:
@@ -383,7 +390,8 @@ def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     a, b: (Cout,) f32.
 
     On a CPU tensor this is ``conv3x3_bn_relu_plain``. On a CUDA tensor it
-    is ``launch``. While tracing (``torch.export``) it is the op
+    is ``launch``; an empty map (no pixel) is no work, and gives the empty
+    output without a launch. While tracing (``torch.export``) it is the op
     ``camvid::conv3x3_bn_relu`` (``ops/library.py``), whose kernels are
     those two, so the program holds one node for the call."""
     if torch.compiler.is_compiling():
@@ -406,6 +414,8 @@ def launch(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     _check(x, w, a, b, flip)
     n, h, wd, cin = x.shape
     cout = a.shape[0]
+    if x.numel() == 0:   # an empty map: no work, nothing launched
+        return x.new_empty((n, h, wd, cout))
     if x.dtype == torch.float32:
         out = _f32_launch(x, w, a, b, relu, flip)
         conv3x3_bn_relu.launches += 1

@@ -16,7 +16,10 @@ kernels (``csrc/maxpool2x2.cu``): counterpart of
 
 Each wrapper runs its plain version (``ops/pooling.py``) on a CPU tensor; on
 a CUDA tensor it launches its kernel or raises, and counts the launch in
-``.launches``. While tracing, the four forward wrappers are the ops
+``.launches``. An empty result (a pool of a side under 2, an unpool or
+gather of an empty map: SegNet under 32 rows or columns) is no work: the
+wrappers return it, the unpool's as zeros of its output size, without a
+launch and count none. While tracing, the four forward wrappers are the ops
 ``camvid::max_pool_2x2_argmax``, ``max_unpool_2x2``, ``max_pool_2x2_phase``
 and ``max_unpool_2x2_phase`` (``ops/library.py``), whose CUDA kernels are
 the launchers ``launch_pool_argmax``, ``launch_unpool``,
@@ -103,21 +106,27 @@ def _launch(name: str, fn, x: torch.Tensor, *args) -> None:
 
 
 def _pool(name: str, x: torch.Tensor, phase: bool):
+    """(pooled, index, launched): the kernel's outputs, launched unless
+    they are empty (a side under 2, SegNet's fifth pool under 32 rows or
+    columns), where there is no work and nothing is launched."""
     n, h, w, c = x.shape
-    if h < 2 or w < 2:
-        raise ValueError(f"{name}: H and W must be >= 2, got {tuple(x.shape)}")
-    shape = (n, h // 2, w // 2, c)
+    shape = pooling.pooled_shape(x)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     idx = torch.empty(shape, dtype=torch.int8 if phase else torch.int32,
                       device=x.device)
+    if out.numel() == 0:
+        return out, idx, False
     _launch(name, _library().maxpool2x2_pool, x, x.data_ptr(),
             out.data_ptr(), idx.data_ptr(), _DTYPES[x.dtype], int(phase),
             n, h, w, c)
-    return out, idx
+    return out, idx, True
 
 
 def _unpool(name: str, x: torch.Tensor, idx: torch.Tensor,
-            out_hw: Tuple[int, int], phase: bool) -> torch.Tensor:
+            out_hw: Tuple[int, int], phase: bool):
+    """(unpooled, launched): the kernel's output, launched unless x is
+    empty, whose unpool is the zeros of ``out_hw`` with nothing to
+    place."""
     want = torch.int8 if phase else torch.int32
     if idx.dtype != want or idx.shape != x.shape:
         raise ValueError(f"{name}: index must be {want} of x's shape "
@@ -128,11 +137,13 @@ def _unpool(name: str, x: torch.Tensor, idx: torch.Tensor,
     if not (2 * h2 <= ho and 2 * w2 <= wo):
         raise ValueError(f"{name}: out_hw {tuple(out_hw)} smaller than 2x "
                          f"{(h2, w2)}")
+    if x.numel() == 0:
+        return x.new_zeros((n, ho, wo, c)), False
     out = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
     _launch(name, _library().maxpool2x2_unpool, x, x.data_ptr(),
             idx.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], int(phase),
             n, h2, w2, c, ho, wo)
-    return out
+    return out, True
 
 
 # ------------------------------------------------------------- K3 (eval)
@@ -151,9 +162,9 @@ def max_pool_2x2_argmax(x: torch.Tensor
 def launch_pool_argmax(x: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     _cuda_only("max_pool_2x2_argmax", x, dtypes=K3_DTYPES)
-    out = _pool("max_pool_2x2_argmax", x, phase=False)
-    max_pool_2x2_argmax.launches += 1
-    return out
+    out, idx, launched = _pool("max_pool_2x2_argmax", x, phase=False)
+    max_pool_2x2_argmax.launches += launched
+    return out, idx
 
 
 def max_unpool_2x2(x: torch.Tensor, idx: torch.Tensor,
@@ -169,8 +180,8 @@ def max_unpool_2x2(x: torch.Tensor, idx: torch.Tensor,
 def launch_unpool(x: torch.Tensor, idx: torch.Tensor,
                   out_hw: Tuple[int, int]) -> torch.Tensor:
     _cuda_only("max_unpool_2x2", x, idx, dtypes=K3_DTYPES)
-    out = _unpool("max_unpool_2x2", x, idx, out_hw, phase=False)
-    max_unpool_2x2.launches += 1
+    out, launched = _unpool("max_unpool_2x2", x, idx, out_hw, phase=False)
+    max_unpool_2x2.launches += launched
     return out
 
 
@@ -189,9 +200,9 @@ def max_pool_2x2_phase(x: torch.Tensor
 def launch_pool_phase(x: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     _cuda_only("max_pool_2x2_phase", x)
-    out = _pool("max_pool_2x2_phase", x, phase=True)
-    max_pool_2x2_phase.launches += 1
-    return out
+    out, idx, launched = _pool("max_pool_2x2_phase", x, phase=True)
+    max_pool_2x2_phase.launches += launched
+    return out, idx
 
 
 def max_unpool_2x2_phase(x: torch.Tensor, k: torch.Tensor,
@@ -208,8 +219,8 @@ def max_unpool_2x2_phase(x: torch.Tensor, k: torch.Tensor,
 def launch_unpool_phase(x: torch.Tensor, k: torch.Tensor,
                         out_hw: Tuple[int, int]) -> torch.Tensor:
     _cuda_only("max_unpool_2x2_phase", x, k)
-    out = _unpool("max_unpool_2x2_phase", x, k, out_hw, phase=True)
-    max_unpool_2x2_phase.launches += 1
+    out, launched = _unpool("max_unpool_2x2_phase", x, k, out_hw, phase=True)
+    max_unpool_2x2_phase.launches += launched
     return out
 
 
@@ -225,6 +236,8 @@ def gather_phase(g: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gather_phase: k {tuple(k.shape)} does not fit g "
                          f"{tuple(g.shape)}")
     out = torch.empty(k.shape, dtype=g.dtype, device=g.device)
+    if out.numel() == 0:   # the unpool of an empty map: nothing to gather
+        return out
     _launch("gather_phase", _library().maxpool2x2_phase_gather, g,
             g.data_ptr(), k.data_ptr(), out.data_ptr(), _DTYPES[g.dtype],
             n, h, w, c, h2, w2)

@@ -77,6 +77,13 @@ def _nhwc(x: Tensor, c: int, h: Optional[int] = None,
                        dtype=dtype or x.dtype)
 
 
+def _own(t: Tensor) -> Tensor:
+    """``t`` contiguous, and never a view of an input: an op's output may
+    not alias its inputs, and an empty pool's plain result is an empty
+    slice of x."""
+    return t.clone() if t.numel() == 0 else t.contiguous()
+
+
 # --------------------------------------------------------- K4 / K1 fwd, dx
 
 @torch.library.custom_op(f"{NAMESPACE}::conv3x3_bn_relu", mutates_args=(),
@@ -108,7 +115,7 @@ def max_pool_2x2_argmax(x: Tensor) -> tuple[Tensor, Tensor]:
 @max_pool_2x2_argmax.register_kernel("cpu")
 def _(x):
     y, idx = pooling.max_pool_2x2_with_argmax(x)
-    return y.contiguous(), idx.contiguous()
+    return _own(y), _own(idx)
 
 
 @max_pool_2x2_argmax.register_fake
@@ -145,7 +152,7 @@ def max_pool_2x2_phase(x: Tensor) -> tuple[Tensor, Tensor]:
 @max_pool_2x2_phase.register_kernel("cpu")
 def _(x):
     y, k = pooling.max_pool_2x2_argmax_phase(x)
-    return y.contiguous(), k.contiguous()
+    return _own(y), _own(k)
 
 
 @max_pool_2x2_phase.register_fake

@@ -20,7 +20,11 @@ package's XLA pair also lets NaN win (the first); its Pallas kernels do not
 (ROADMAP.md, Queue 3).
 
 Odd sizes floor on the pool (45 -> 22) and zero-pad on the unpool
-(22 -> 45): the last row or column is never selected.
+(22 -> 45): the last row or column is never selected. A side under 2 floors
+to an empty map (SegNet's fifth pool under 32 rows or columns: 24 -> 12 ->
+6 -> 3 -> 1 -> 0), and the unpool of an empty map is zeros of its output
+size, as the JAX package's pools give them (``F.max_pool2d`` refuses an
+empty output, ``F.max_unpool2d`` an empty input).
 
 int8 (the quantized SegNet's fused pool edges): the pair runs on the values
 as f32, which is exact, and casts back; ties, common on int8 values, go to
@@ -43,12 +47,30 @@ def _nhwc(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 3, 1)
 
 
+def pooled_shape(x: torch.Tensor) -> Tuple[int, int, int, int]:
+    """The 2x2 pool's output shape of an NHWC tensor: H and W floored."""
+    n, h, w, c = x.shape
+    return n, h // 2, w // 2, c
+
+
+def _empty_pool(x: torch.Tensor) -> torch.Tensor:
+    """The empty pooled map of x as a slice of it, on autograd's graph."""
+    _, h2, w2, _ = pooled_shape(x)
+    return x[:, :2 * h2:2, :2 * w2:2]
+
+
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
-    """NHWC max pool; odd spatial sizes floor like torch (45 -> 22)."""
+    """NHWC max pool; odd spatial sizes floor like torch (45 -> 22), a
+    side under 2 to an empty map."""
+    if 0 in pooled_shape(x):
+        return _empty_pool(x)
     return _nhwc(F.max_pool2d(_nchw(x), 2, 2))
 
 
 def _pool_int64(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    shape = pooled_shape(x)
+    if 0 in shape:
+        return _empty_pool(x), x.new_empty(shape, dtype=torch.int64)
     if x.dtype == torch.int8:
         y, idx = _pool_int64(x.float())
         return y.to(torch.int8), idx
@@ -87,6 +109,10 @@ def max_unpool_2x2(x: torch.Tensor, idx: torch.Tensor,
                    out_hw: Tuple[int, int]) -> torch.Tensor:
     """Place each pooled value at its flat index in an (Ho, Wo) plane of
     zeros (``F.max_unpool2d``, which takes int64 indices)."""
+    if x.numel() == 0:   # zeros: the empty map padded to out_hw, which
+        # keeps it on autograd's graph
+        return F.pad(x, (0, 0, 0, out_hw[1] - x.shape[2],
+                         0, out_hw[0] - x.shape[1]))
     if x.dtype == torch.int8:
         return max_unpool_2x2(x.float(), idx, out_hw).to(torch.int8)
     y = F.max_unpool2d(_nchw(x), _nchw(idx).long(), 2, 2,

@@ -14,13 +14,20 @@ at the H100's 989 TFLOP/s and 3.35 TB/s.
 Modes: ``fwd`` is the conv3x3+affine+ReLU block on K5 (``--pair``,
 ``ops/fused_conv_pair.py``), on K4 (``--kernel``, ``ops/fused_conv.py``) or
 else on its plain version (cuDNN's conv, then the epilogue). ``dgrad`` and
-``wgrad`` time cuDNN's bf16 input and weight gradients, as the JAX tool
+``wgrad`` time cuDNN's input and weight gradients, as the JAX tool
 times XLA's; ``dgrad`` as autograd runs it, ``convolution_backward`` with
 the real channels-last input (``conv_train.conv3x3_dgrad_library``).
 ``blockvjp`` times the train block's forward and backward
 (``ops/conv.py::ConvBNReLU`` in train mode on its plain path: cuDNN's
 convs and the f32 BN+ReLU tail), as the JAX tool differentiates
 ``conv_bn_relu_apply``. ``--kernel`` applies to ``fwd`` only.
+
+The ops run in bf16 by default. ``probe_shape(..., dtype=torch.float32)``
+runs them in float32, as the JAX tool's ``probe_shape(..., dtype=)``: K5
+and K4 on their split-TF32 kernels, cuDNN's convs with TF32 off. Its
+roofline counts 4 bytes an element and the split product's rate, a third
+of the H100's 494.7 TF32 TFLOP/s; the CLI has no dtype flag, as the JAX
+tool's has none.
 
 ``--shapes pool`` times SegNet's pool + unpool pair at its five stages
 against the byte bound. The JAX tool's ``--pool-impl`` values map so:
@@ -70,6 +77,8 @@ from pytorch_camvid_tpu_torch.ops.conv import ConvBNReLU
 HW = (360, 480)
 # the JAX tool's units: TFLOP/s and GB/s
 PEAK_TFLOPS = bench.H100_BF16_PEAK / 1e12
+# float32: the split-TF32 product's rate, three TF32 products a term
+F32_PEAK_TFLOPS = bench.H100_TF32_PEAK / 3 / 1e12
 HBM_GBPS = bench.H100_HBM_RATE / 1e9
 WARMUP = 3
 TRACE_TRIES = 3     # traces taken before time_op falls back to events
@@ -159,15 +168,16 @@ def time_op(fn: Callable[[], object], k: int,
     return gross, gross
 
 
-def _op(batch, h, w, cin, cout, mode, kernel, pair, dev):
-    """The op to time, as a closure over its inputs (made from seed 0)."""
+def _op(batch, h, w, cin, cout, mode, kernel, pair, dev,
+        dtype=torch.bfloat16):
+    """The op to time in ``dtype``, as a closure over its inputs (made
+    from seed 0)."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    bf16 = torch.bfloat16
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
     x = randn(batch, h, w, cin)
-    wgt = (randn(3, 3, cin, cout).float() * 0.05).to(bf16)
+    wgt = (randn(3, 3, cin, cout).float() * 0.05).to(dtype)
     a = torch.ones(cout, device=dev)
     b = torch.zeros(cout, device=dev)
     if mode == "fwd":
@@ -196,12 +206,18 @@ def _op(batch, h, w, cin, cout, mode, kernel, pair, dev):
 
 
 def probe_shape(batch, h, w, cin, cout, k=30, kernel=False, mode="fwd",
-                pair=False, device="cuda") -> dict:
-    """One JSON row: the op's device time at (batch, h, w, cin, cout) against
-    the shape's roofline (module docstring)."""
+                pair=False, device="cuda", dtype=None) -> dict:
+    """One JSON row: the op's device time at (batch, h, w, cin, cout) in
+    ``dtype`` (bf16 by default) against the shape's roofline (module
+    docstring)."""
     dev = _device(device)
-    op = _op(batch, h, w, cin, cout, mode, kernel, pair, dev)
-    bound, flops = roofline_tflops(batch, h, w, cin, cout)
+    dtype = dtype or torch.bfloat16
+    op = _op(batch, h, w, cin, cout, mode, kernel, pair, dev, dtype)
+    if dtype == torch.float32:
+        bound, flops = roofline_tflops(batch, h, w, cin, cout, 4,
+                                       F32_PEAK_TFLOPS)
+    else:
+        bound, flops = roofline_tflops(batch, h, w, cin, cout)
     kk = k
     for _ in range(3):
         gross, ms = time_op(op, kk, dev)
@@ -220,6 +236,7 @@ def probe_shape(batch, h, w, cin, cout, k=30, kernel=False, mode="fwd",
         "impl": ("pair" if pair else "kernel" if kernel else "plain")
                 if mode == "fwd" else "plain",
         "mode": mode,
+        "dtype": str(dtype)[6:],
         "k": kk,
         "device": _device_name(dev),
     }

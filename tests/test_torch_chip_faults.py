@@ -545,3 +545,52 @@ def test_int8_fake_says_int8_only_inside_the_fault():
     with chip_faults.int8_fake_says_int8():
         assert fake_dtype() == torch.int8
     assert fake_dtype() == torch.bfloat16
+
+
+def test_k5_f32_faults_are_registered():
+    """Three planted faults of K5's f32 instance, each under phase 10's
+    f32 checks: single-pass TF32 (the f32 source's variant), a pair's
+    output rows swapped and the dx = 2 taps' weights zeroed (patches of
+    ``fused_conv_pair._f32_launch``, whose launch counts stay)."""
+    cases = [c for c in chip_faults.fault_cases() if c[0] == "K5 f32"]
+    assert [what for _, what, _ in cases] == [
+        "K5 f32 as single-pass TF32 (hi*hi only)",
+        "K5 f32 output rows of each pair swapped",
+        "K5 f32 with the dx = 2 taps' weights zeroed"]
+    assert "K5 f32" in chip_faults.PATHS
+    assert {path for path, _, _ in chip_faults.fault_cases()} == set(
+        chip_faults.PATHS)
+    assert "single_pass" in chip_faults.f32_variants.FAULTS
+    from pytorch_camvid_tpu_torch.ops import fused_conv_pair
+    sound = fused_conv_pair._f32_launch
+    for _, _, fault in cases[1:]:
+        with fault():
+            assert fused_conv_pair._f32_launch is not sound
+        assert fused_conv_pair._f32_launch is sound
+
+
+def test_k5_f32_pair_faults_change_what_they_name(monkeypatch):
+    """Rows swapped within each pair of the output; the weights' dx = 2
+    column zeroed in a copy; nothing else."""
+    seen = []
+
+    def launch(x, w, a, b, relu):
+        seen.append(w)
+        return x + 0
+
+    monkeypatch.setattr(chip_faults, "_pair_f32_launch", launch)
+    x = torch.arange(2 * 4 * 3 * 1, dtype=torch.float32).view(2, 4, 3, 1)
+    out = chip_faults.pair_f32_rows_swapped(x, None, None, None, True)
+    assert torch.equal(out[:, 0::2], x[:, 1::2])
+    assert torch.equal(out[:, 1::2], x[:, 0::2])
+    w = torch.ones(3, 3, 4, 4)
+    chip_faults.pair_f32_dx_tap_zeroed(x, w, None, None, True)
+    got = seen[-1]
+    assert not got[:, 2].any() and got[:, :2].all() and w.all()
+
+
+def test_main_takes_paths():
+    """``python3 chip_faults.py [path ...]``: an unknown path exits 2,
+    a known one needs the card (1 here)."""
+    assert chip_faults.main(["no such path"]) == 2
+    assert chip_faults.main(["K5 f32"]) == 1

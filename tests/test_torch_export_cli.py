@@ -1,9 +1,8 @@
 """The port's export CLIs and program dump against the JAX package, on the
 CPU: ``python -m pytorch_camvid_tpu_torch.export_program`` on a JAX
-checkpoint (full-width SegNet at batch 1, as
-tests/test_export_stablehlo.py runs the JAX tool, at 64x32: the port's
-SegNet needs an image of 32 rows for its five pools), ``export_torch`` against
-JAX's ``state_dict_from_variables``, ``utils/summary.py::dump_program``
+checkpoint (full-width SegNet at batch 1, at 64x32 and at 32x24, the
+size tests/test_export_stablehlo.py runs the JAX tool at),
+``export_torch`` against JAX's ``state_dict_from_variables``, ``utils/summary.py::dump_program``
 (the ops it names, a train step after a dump bit-equal to one without) and
 the loop writing ``program_{net}.txt`` into its run directory."""
 
@@ -75,6 +74,22 @@ def test_export_program_cli_on_a_jax_checkpoint(jax_segnet, tmp_path,
     assert "signature uint8[1,32,64,3] -> uint8[1,32,64]" in line
     assert "roundtrip verified" in line and "(100.00% pixel" in line
     assert os.path.getsize(out) > 1e6   # the weights are in it
+
+
+def test_export_program_cli_at_the_jax_tools_size(jax_segnet, tmp_path,
+                                                  capsys):
+    """``-image_size 32 24``, the size tests/test_export_stablehlo.py
+    exports JAX's SegNet at: its fifth pool's output is empty (24 rows ->
+    12, 6, 3, 1, 0), and the program traces and round-trips all the
+    same."""
+    ckpt, _ = jax_segnet
+    out = str(tmp_path / "segnet.pt2")
+    export_program.main(["-weight", ckpt, "-net", "segnet", "-b", "1",
+                         "-image_size", "32", "24", "-device", "cpu",
+                         "-out", out])
+    line = capsys.readouterr().out
+    assert "signature uint8[1,24,32,3] -> uint8[1,24,32]" in line
+    assert "roundtrip verified" in line and "(100.00% pixel" in line
 
 
 def test_export_program_cli_without_a_card_fails(jax_segnet, tmp_path):

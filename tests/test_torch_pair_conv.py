@@ -168,3 +168,89 @@ def test_k5_variant_edits_apply_to_the_source(name):
 def test_k5_variants_without_a_card_fails(capsys):
     assert k5_variants.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def _f32_inputs(cin=64, cout=64, h=8):
+    return (torch.zeros(1, h, 12, cin), torch.zeros(3, 3, cin, cout),
+            torch.ones(cout), torch.zeros(cout))
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 4), (8, 8), (16, 8), (8, 16),
+                                      (64, 64), (128, 64), (80, 48),
+                                      (48, 32), (68, 60)])
+def test_f32_kernel_checks_take_its_contract(cin, cout):
+    """K5's f32 instance takes f32 x, w, a and b with Cin and Cout
+    multiples of 4 (TMA's 16-byte rows of f32), Cin <= 128, Cout <= 64:
+    JAX's test shapes, the port's and shallow64's."""
+    fused_conv_pair._check(*_f32_inputs(cin, cout))
+
+
+def test_f32_kernel_checks_reject_what_it_does_not_take():
+    """Outside the f32 contract the CUDA route raises (it never falls back
+    to K4 or to the plain version): Cin 6, Cout 72, Cin 132, odd H, f32 x
+    with bf16 w, f64."""
+    for cin, cout in ((6, 64), (64, 72), (132, 64), (64, 6), (2, 64)):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            fused_conv_pair._check(*_f32_inputs(cin, cout))
+    with pytest.raises(ValueError, match="even H"):
+        fused_conv_pair._check_even_h(_f32_inputs(h=7)[0])
+    x, w, a, b = _f32_inputs()
+    with pytest.raises(TypeError, match="one dtype"):
+        fused_conv_pair._check(x, w.bfloat16(), a, b)
+    with pytest.raises(TypeError, match="one dtype"):
+        fused_conv_pair._check(x.double(), w.double(), a, b)
+    with pytest.raises(TypeError, match="f32 a and b"):
+        fused_conv_pair._check(x, w, a.bfloat16(), b)
+    shifted = torch.zeros(x.numel() + 1)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_conv_pair._check(shifted, w, a, b)
+
+
+@pytest.mark.parametrize("cout", range(4, fused_conv_pair.MAX_COUT + 1, 4))
+def test_f32_tile_plan_fits_a_block_at_every_cout(cout):
+    """The f32 plan fits one Hopper block at every Cout of its contract
+    (at any Cin: the weights stream): all of Cout in one tile N of 16, 32
+    or 64 channels, two patch stages of 6 x 66 pixels x 32 channels and
+    two weight stages of three taps, hi and lo."""
+    plan = fused_conv_pair.tile_plan(128, torch.float32, cout)
+    assert plan["bytes"] <= fused_conv_pair.SMEM_LIMIT
+    assert plan["bn"] >= cout and plan["bn"] in (16, 32, 64)
+    assert plan["kc"] == 32 and plan["stages"] == 2
+    assert plan == fused_conv_pair.tile_plan(4, torch.float32, cout)
+    weights = 2 * 3 * 2 * plan["bn"] * 32 * 4
+    assert plan["bytes"] > weights + 2 * 6 * 66 * 32 * 4
+
+
+def test_f32_tile_plan_is_the_sources():
+    """tile_plan's f32 bytes are the figures the CUDA source asserts at
+    compile time (``static_assert(Plan<BN>::SMEM == bytes``, the k5
+    namespace of conv3x3_f32.cu), at each tile N."""
+    src = fused_conv_pair.F32_SOURCE.read_text()
+    held = re.findall(r"static_assert\(Plan<(\d+)>::SMEM == (\d+), "
+                      r"\"f32 pair plan", src)
+    assert sorted(int(bn) for bn, _ in held) == [16, 32, 64]
+    for bn, nbytes in held:
+        plan = fused_conv_pair.tile_plan(64, torch.float32, int(bn))
+        assert (plan["bn"], plan["bytes"]) == (int(bn), int(nbytes))
+
+
+def test_probe_shape_f32_pair_row_on_cpu():
+    """``probe_shape(pair=True, dtype=torch.float32)``, as the JAX tool's
+    ``dtype=``: its roofline counts 4 bytes an element and the split
+    product's rate (a third of the H100's TF32 peak, 164.9 TFLOP/s); on
+    the CPU no kernel is launched."""
+    from pytorch_camvid_tpu_torch import bench, perf_probe
+    before = fused_conv_pair.conv3x3_pair_bn_relu.launches
+    row = perf_probe.probe_shape(2, 6, 10, 16, 32, k=1, pair=True,
+                                 device="cpu", dtype=torch.float32)
+    assert (row["impl"], row["dtype"], row["mode"]) == ("pair", "float32",
+                                                        "fwd")
+    flops = 2.0 * 9 * 2 * 6 * 10 * 16 * 32
+    nbytes = 4 * (2 * 6 * 10 * (16 + 32) + 9 * 16 * 32)
+    peak = bench.H100_TF32_PEAK / 3 / 1e12
+    assert peak == pytest.approx(164.9)
+    assert row["roofline_tflops"] == pytest.approx(
+        min(peak, flops / nbytes * 3350.0 / 1000.0))
+    big = perf_probe.roofline_tflops(24, 360, 480, 64, 64, 4, peak)
+    assert big[0] == pytest.approx(peak)   # shallow64 is bound by the FLOPs
+    assert fused_conv_pair.conv3x3_pair_bn_relu.launches == before
