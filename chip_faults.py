@@ -39,7 +39,9 @@ they are; the f32 kernels' arithmetic faults are edits of their source,
 library; so are the int8 block's and K3's int8 faults, ``INT8_FAULTS``:
 the requantize by the reciprocal alone, the epilogue contracted to an
 FMA, the pool keeping the last maximum of a tie, the input quantize by
-the reciprocal; the int8 weights without
+the reciprocal, the ping-pong's second warpgroup storing at the first
+one's tile, the stem's packed-k offsets one word on; the int8 weights
+without
 the K-major repack patch ``fused_conv_int8.pack_weights``), and phase 17's
 checks of two ranks sharing the card (``dp_phase`` on UNet: the
 data-parallel step against the one-process step, the ranks against each
@@ -499,6 +501,18 @@ INT8_FAULTS = {
     # K3's pool keeping the last maximum of a window at a tie
     "k3_last_max": (fused_pool, [("      if (v > m || isnan(v)) {",
                                   "      if (v >= m || isnan(v)) {")]),
+    # the ping-pong's second warpgroup storing its rows at the first one's
+    # tile (the block's tile before its own)
+    "pingpong_other_tile": (fused_conv_int8, [(
+        "      origin(t, img, h0, w0, n0);  // where this tile's rows go",
+        "      origin(RES && wgi ? t - static_cast<int>(gridDim.x) : t, img, "
+        "h0, w0, n0);")]),
+    # the packed path's per-lane offsets of packed k one A word (4
+    # channels: at the stem the next tap) on: a one-byte shift would be a
+    # misaligned 32-bit load, which ends the process instead of a check
+    "stem_koff_shifted": (fused_conv_int8, [(
+        "  return (tap / 3) * Geo<C4>::RS + (tap % 3) * C4 + ci;",
+        "  return (tap / 3) * Geo<C4>::RS + (tap % 3) * C4 + ci + 4;")]),
     # the input quantize multiplying by 1/s instead of dividing by s
     "reciprocal_quantize": (fused_conv_int8, [(
         "  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), "
@@ -776,6 +790,10 @@ def fault_cases() -> list:
          lambda: int8_fault("k3_last_max")),
         ("int8", "the input quantize kernel multiplying by 1/s",
          lambda: int8_fault("reciprocal_quantize")),
+        ("int8", "the int8 ping-pong's second warpgroup storing at the "
+         "first one's tile", lambda: int8_fault("pingpong_other_tile")),
+        ("int8", "the int8 stem's packed-k offsets one A word (4 channels) "
+         "on", lambda: int8_fault("stem_koff_shifted")),
         ("multi-GPU", "rank 1 keeping its own gradients after the "
          "all-reduce", lambda: in_ranks(rank1_keeps_its_gradients)),
         ("multi-GPU", "sync-BN on each rank's own moments",

@@ -227,13 +227,17 @@ Phases (each prints its lines; any failure exits non-zero):
    sweep row with the card, then the same sweep skipped as recorded.
    ``chip_faults.py`` plants a recompute that updates the BN stats again
    under (1).
-16. int8 serving (``ops/quant.py``, ``csrc/conv3x3_int8.cu``): (1)
+16. int8 serving (``ops/quant.py``, ``csrc/conv3x3_int8.cu``): (1) the
+   int8 build's ptxas warnings on a line of their own (no C7519, an
+   injected warpgroup.arrive, may remain; each C7512 with its instance);
    conv3x3_int8 against its plain version, bit for bit in its int8, bf16
    and f32 output modes, at every block shape that UNet and SegNet
    quantize (Cout >= 64) at 360x480, b8, at ``INT8_EDGE`` (the 12- and
-   21-class heads in int8, Cout 24 and 200, Cin 192) and on the batch
-   views of ``INT8_VIEW`` (the stem's 45x61 ``x[1:]`` off a 16-byte
-   boundary); per shape the kernel's ms in the int8 and bf16 output modes
+   21-class heads in int8, Cout 24 and 200, Cin 192), at ``INT8_CIN48``
+   (a width-3/4 model's Cin 48 and 96, which the wgmma path takes with
+   TMA's zeros past Cin) and on the batch views of ``INT8_VIEW`` (the
+   stem's 45x61 ``x[1:]`` off a 16-byte boundary); a Cin 40 raises; per
+   shape the kernel's ms in the int8 and bf16 output modes
    (CUDA events), the plain version's, the bound (operations at 1,979
    TOPS or bytes), K4 bf16, cuDNN's bf16 conv and ``torch._int_mm`` on a
    prebuilt im2col matrix (the GEMM alone); sums over each model's
@@ -3702,6 +3706,10 @@ INT8_EDGE = ((BATCH, 360, 480, 64, 12), (BATCH, 360, 480, 64, 21),
              (BATCH, 360, 480, 64, 24), (2, 45, 61, 192, 200))
 # batch views x[1:] at 45x61: the stem's starts off a 16-byte boundary
 INT8_VIEW = ((3, 45, 61, 3, 64), (3, 45, 61, 64, 64))
+# a width-3/4 model's channels: Cin 48 (the 64-byte box, its last k32 step
+# half TMA's zeros) into 48 and 96, and 96 (the 128-byte box) into 64
+INT8_CIN48 = ((BATCH, 90, 120, 48, 48), (BATCH, 90, 120, 48, 96),
+              (BATCH, 90, 120, 96, 64))
 INT8_FRAMES = {"calib": 8, "served": 24}
 # the input quantize kernel: (N, H, W, C, dtype): UNet's largest stage
 # entry, the stem, an f32 input (eval's default), a ragged element count;
@@ -3830,13 +3838,36 @@ def int8_yardsticks(t: dict, n, h, w, cin, cout) -> dict:
     return out
 
 
+PTXAS_WARNING = re.compile(r"\((C75\d\d)\).*?function '[^']*?"
+                           r"conv3x3_int8_(wgmma|packed)_kernelI(\w*?)EEv")
+
+
+def int8_build_warnings() -> dict:
+    """{ptxas code: [kernel instance, e.g. "wgmma<128,0,128>"]} of the
+    int8 build's performance warnings (C7519: a warpgroup.arrive injected
+    to let a wgmma use its registers; C7512: wgmmas serialized for want of
+    registers), from its nvcc log."""
+    _, _, log = cuda_build.build(fused_conv_int8.SOURCE)
+    out = {"C7519": [], "C7512": []}
+    for code, kind, args in PTXAS_WARNING.findall(log):
+        vals = ",".join(v for _, v in re.findall(r"L([ib])(\d+)E", args + "E"))
+        out.setdefault(code, []).append(f"{kind}<{vals}>")
+    return out
+
+
 def int8_kernel_checks(gen: torch.Generator, timed: bool = True) -> dict:
-    """Phase 16 (1): conv3x3_int8 against its plain version, bit for bit
-    in all three output modes, at every quantized block shape of both
-    models at b8 (``int8_block_shapes``), at ``INT8_EDGE`` and on the views
-    of ``INT8_VIEW``; with ``timed``, per shape: the kernel in the int8 and
-    the bf16 output mode, the plain version, the bounds and the yardsticks.
-    Returns {shape: timings}."""
+    """Phase 16 (1): the int8 build's ptxas warnings (no C7519); then
+    conv3x3_int8 against its plain version, bit for bit in all three
+    output modes, at every quantized block shape of both models at b8
+    (``int8_block_shapes``), at ``INT8_EDGE``, at ``INT8_CIN48`` (on the
+    wgmma path: its launches counted there) and on the views of
+    ``INT8_VIEW``; a Cin 40 refused; with ``timed``, per shape: the kernel
+    in the int8 and the bf16 output mode, the plain version, the bounds
+    and the yardsticks. Returns {shape: timings}."""
+    warn = int8_build_warnings()
+    print(f"int8 build ptxas: C7519 {len(warn['C7519'])}, C7512 "
+          f"{len(warn['C7512'])} {sorted(set(warn['C7512']))}", flush=True)
+    check(not warn["C7519"], f"no C7519 in the int8 build: {warn['C7519']}")
     res = {}
     shapes = list(dict.fromkeys(int8_block_shapes("unet")
                                 + int8_block_shapes("segnet")))
@@ -3857,7 +3888,8 @@ def int8_kernel_checks(gen: torch.Generator, timed: bool = True) -> dict:
         mm = r["int_mm_ms"]
         print(f"int8 {what} ({fused_conv_int8.int8_path(cin)}): bit-equal "
               f"in 3 modes; kernel {r['ms_int8']:.4f} ms int8 out (bound "
-              f"{r['bound_int8'][0]:.4f} by {r['bound_int8'][1]}), "
+              f"{r['bound_int8'][0]:.4f} by {r['bound_int8'][1]}: "
+              f"{r['bound_int8'][0] / r['ms_int8']:.2f} of it), "
               f"{r['ms_bf16']:.4f} ms bf16 out (bound "
               f"{r['bound_bf16'][0]:.4f}); plain {r['plain_ms']:.3f}; K4 "
               f"bf16 {r['k4_ms']:.4f}, cuDNN bf16 {r['cudnn_ms']:.4f}, "
@@ -3872,6 +3904,24 @@ def int8_kernel_checks(gen: torch.Generator, timed: bool = True) -> dict:
         t["x"] = t["x"][1:]
         int8_modes_equal(t, f"the view x[1:] of {n}x{h}x{w} {cin}->{cout} "
                             f"(data offset {t['x'].data_ptr() % 16} mod 16)")
+    fused_conv_int8.reset_launches()
+    for n, h, w, cin, cout in INT8_CIN48:
+        int8_modes_equal(int8_inputs(gen, n, h, w, cin, cout),
+                         f"{n}x{h}x{w} {cin}->{cout}")
+    paths = dict(fused_conv_int8.conv3x3_int8_block.path_launches)
+    check(paths == {"wgmma": 3 * len(INT8_CIN48), "packed": 0},
+          f"Cin 48 and 96 on the wgmma path: {paths}")
+    dev = torch.device("cuda")
+    try:
+        fused_conv_int8.conv3x3_int8_block(
+            torch.zeros((1, 8, 8, 40), dtype=torch.int8, device=dev),
+            torch.zeros((3, 3, 40, 64), dtype=torch.int8, device=dev),
+            torch.ones(64, device=dev), torch.tensor(1.0, device=dev),
+            torch.zeros(64, device=dev))
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "conv3x3_int8 refuses Cin 40 on the card")
     for *shape, dtype in INT8_QUANTIZE:
         quantize_equal(*quantize_inputs(gen, *shape, dtype),
                        f"{'x'.join(map(str, shape))} {str(dtype)[6:]}")
@@ -3882,7 +3932,8 @@ def int8_kernel_checks(gen: torch.Generator, timed: bool = True) -> dict:
     torch.cuda.empty_cache()
     print(f"int8: conv3x3_int8 bit-equal to plain in the int8, bf16 and f32 "
           f"output modes at {len(shapes)} block shapes, {len(INT8_EDGE)} "
-          f"edge shapes and {len(INT8_VIEW)} batch views; the quantize "
+          f"edge shapes, {len(INT8_CIN48)} Cin 48/96 shapes and "
+          f"{len(INT8_VIEW)} batch views, Cin 40 refused; the quantize "
           f"kernel at {len(INT8_QUANTIZE) + 1} inputs, ties planted",
           flush=True)
     return res
@@ -5385,8 +5436,9 @@ def start() -> None:
     print(f"paths: the libraries and the wrappers choose alike at "
           f"{len(pairs)} (Cin, Cout) pairs", flush=True)
     for cin in sorted({cin for _, _, cin, _ in all_block_shapes()}
-                      | {cin for *_, cin, _ in INT8_EDGE + INT8_VIEW}
-                      | set(range(1, 34)) | {48, 96, 100}):
+                      | {cin for *_, cin, _ in INT8_EDGE + INT8_VIEW
+                         + INT8_CIN48}
+                      | set(range(1, 34)) | {40, 48, 80, 96, 100}):
         check(fused_conv_int8.kernel_path(cin)
               == fused_conv_int8.int8_path(cin)
               and (fused_conv_int8.int8_path(cin) != "packed"

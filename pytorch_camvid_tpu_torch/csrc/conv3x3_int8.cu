@@ -25,50 +25,80 @@
 //
 // The weights come repacked once, at quantize time (fused_conv_int8.py::
 // pack_weights), K-major as both 8-bit operands of wgmma and mma.sync must
-// be: (9, Cout, Cin) for the wgmma path, (Cout, Kp) with k = tap * Cin + ci
-// zero-padded to Kp = 32 * ceil(9 * Cin / 32) for the packed path.
+// be: (9, Cout, Cin) for the wgmma path; (Cout, Kp) for the packed path,
+// k = tap * Cin4 + ci with each tap's channels padded to Cin4 = 4 *
+// ceil(Cin / 4) and Kp = 32 * ceil(9 * Cin4 / 32), zeros in the padding.
+//
+// What bounds it on the H100 (1,979 TOPS int8 dense, 3.35 TB/s, ~590
+// operations a byte at the ridge): the stem (Cin 3) writes 88 MB of int8
+// at 360x480, b8, for 8 GOPS, and the 64-channel full-resolution blocks
+// move about as many bytes as their operations take at the tensor rate, so
+// both are bound by bytes; from Cin 128 up every block of the models is
+// bound by operations. The tensor cores are fed from shared memory: a
+// wgmma.m64nNk32 s8 reads its 32N-byte B there and its A fragments cost
+// 2048 bytes more (ldmatrix), so at the int8 rate (8,192 operations a
+// cycle an SM) N = 64 needs 128 bytes a cycle, the SM's whole bandwidth,
+// N = 128 96 and N = 256 80: the N = 64 blocks cannot reach the tensor
+// rate, the wider ones can come near it. The int8-out epilogue is about
+// 17 instructions a value (dequant 4, the requantize 11, staging 2, by
+// count of the source): at the stem's and a 64-channel full-resolution
+// block's 88.5 M output values that count alone is some 50 us of issue on
+// 132 SMs, twice the stem's byte bound.
 //
 // Two paths (conv3x3_int8_path; fused_conv_int8.int8_path holds the rule):
-// * wgmma (Cin % 32 == 0: every quantized block of the models but the
-//   stem). K4's wgmma design (conv3x3_bn_relu.cu, namespace wg) on int8:
-//   an implicit GEMM, M = output pixels, N = output channels, K = 9 taps x
-//   Cin in chunks of 128 channels (one 128-byte swizzle row), a persistent
-//   block of three warpgroups: two producer threads of the third stream
-//   TMA boxes into a patch ring and a weight ring guarded by full/empty
-//   mbarriers; the two consumer warpgroups run wgmma.m64nNk32.s32.s8.s8
-//   with A from registers (ldmatrix of the tap's shifted patch rows: the
-//   16 x 32-byte A tile of a k32 step has the layout of bf16's 16 x 16, so
-//   K4's addressing serves unchanged) and B K-major from shared memory (one
-//   (tap, chunk) box of N rows x 128 bytes, 128-byte swizzle). TMA fills
-//   the halo and the channels past Cin with zeros; the k32 steps past Cin
-//   (Cin = 64: half of the chunk) are not issued. Tiles: at Cin <= 128 (one
-//   chunk) N = 64 with the 9 taps resident (RES, 16 output rows, the grid a
-//   multiple of the channel tiles, so a block loads its taps once): a
-//   tap's few k32 steps are too short to hide the load of the next box,
-//   which at first (4 streamed stages) left the 64- and 128-channel
-//   full-resolution blocks waiting on their weights; past Cin 128 the
-//   weights stream a tap at a time, N = 64, 128 or 256 by Cout.
+// * wgmma (Cin % 16 == 0 from 32: TMA's 16-byte row stride). An implicit
+//   GEMM, M = output pixels, N = output channels, K = 9 taps x Cin in
+//   chunks of KC channels, one TMA box row: KC = 64 (the 64-byte swizzle)
+//   up to Cin 64, 128 (the 128-byte swizzle) above, so no box is half TMA's
+//   zero fill at Cin 64; the k32 steps of a chunk are a compile-time count
+//   and the last chunk's steps past Cin multiply the zeros TMA filled in
+//   (Cin 48: 16 of 64 channels). A persistent block of three warpgroups:
+//   two producer threads of the third stream TMA boxes into a patch ring
+//   and a weight ring guarded by full/empty mbarriers; two consumer
+//   warpgroups run wgmma.m64nNk32.s32.s8.s8 with A from registers
+//   (ldmatrix of the tap's shifted patch rows, the swizzle XOR in the
+//   address, so one staged patch serves all 9 taps) and B K-major from
+//   shared memory. Each group of k32 steps loads its A fragments into the
+//   buffer that the group before last used, which the last wait_group
+//   freed, and no step is skipped at run time: ptxas serializes no wgmma
+//   for want of knowing which registers an in-flight group owns.
+//   - Cin <= 128 (RES): N = 64 with the block's 9 weight taps resident (the
+//     grid is a multiple of the channel tiles, so a block's channels never
+//     change), and the two consumer warpgroups ping-pong: each takes every
+//     other tile of 8 rows x 16 columns, and a named barrier hands the
+//     tensor cores from one warpgroup's mainloop to the other's, so one
+//     warpgroup's dequant/ReLU/requant epilogue runs under the other's
+//     wgmmas (without the handoff both warpgroups multiply at once: up to
+//     3.6% slower a block on an H100 at 700 W, int8_variants.py).
+//   - Cin > 128: the weights stream a tap at a time through a 4-stage
+//     ring, and both consumer warpgroups work on one tile, its weights
+//     read once for both: a ping-pong would stream every weight twice, and
+//     there the epilogue is a small share of a tile's 72 or more k32
+//     steps. N = 64 (two m64 tiles a warpgroup) up to Cout 64, else 128
+//     (one): 128 accumulators a thread (N = 256, or N = 128 with two m64
+//     tiles) within the 168 registers a thread of a 384-thread block
+//     holds made ptxas serialize the wgmmas (C7512), up to 37% and 50%
+//     slower a block on an H100 at 700 W (int8_variants.py, PERF.md).
 // * packed (Cin < 32: the Cin = 3 stem and narrow test widths). A 3-byte
 //   pixel row is no TMA row and K = 27 is no k32 step, so K packs the 9
-//   taps x Cin tap-major, zero-padded to whole k32 steps (one at the stem).
-//   Persistent blocks of 8 warps (three an SM) walk tiles of 8 output rows
-//   x 32 columns x 64 channels: the Kp x 64 weights stay resident while the
-//   channel tile does; each tile's (8 + 2) x (32 + 2) x Cin patch comes in
-//   by byte loads (zeros outside the image); each A fragment is gathered
-//   byte by byte at a table of packed-k offsets, B read as 32-bit words of
-//   the K-major weights, and mma.sync.m16n8k32.s32.s8.s8 accumulates.
-// Both epilogues stage each warp's 16 pixels x 64 channels in shared
-// memory in the output type (the first design's direct 2-byte int8 stores
-// took 40% of a full-resolution block on an H100) and write them with
-// 16-byte stores, each pixel's channels contiguous, masked at H, W and
-// Cout.
-//
-// What bounds it on the H100 (1,979 TOPS int8 dense, 3.35 TB/s): at
-// 360x480 the quantized blocks with Cin >= 128 sit above the ridge (~590
-// operations a byte) and are bound by the tensor cores; the stem and the
-// 64-channel full-resolution blocks by bytes. The epilogue is not
-// overlapped with the next tile's products (no ping-pong), the known cost
-// of this design (PERF.md).
+//   taps x Cin4 tap-major, zero-padded to whole k32 steps (two at the
+//   stem). Persistent blocks of 8 warps (BLOCKS an SM) keep one tile of 64
+//   output channels and its Kp x 64 weights resident and walk tiles of 8
+//   output rows x 32 columns. A tile's 10 input rows, (32 + 2) x Cin
+//   contiguous bytes each, are read as 16-byte vectors into registers
+//   while the previous tile computes and written after it into a
+//   double-buffered patch whose pixels are Cin4 bytes (the pad channels
+//   zero), so every A fragment word is one pixel's 4 channels of one tap:
+//   one 32-bit shared load at a per-lane offset held in registers; B
+//   comes as 32-bit words of the resident weights and mma.sync
+//   .m16n8k32.s32.s8.s8 accumulates.
+// Both paths stage each warp's output row (16 or 32 pixels x 64 channels)
+// in shared memory in the output type with the 64-byte (int8) or 128-byte
+// (bf16, f32 in two 32-channel boxes) swizzle and hand it to a TMA store,
+// which runs under the next products and drops what lies past H, W or
+// Cout; where Cout x the output's bytes is no multiple of 16 (TMA's row
+// stride: the 12- and 21-class heads in int8) the warp copies the staged
+// row out element by element.
 
 #include <type_traits>
 
@@ -96,10 +126,10 @@ __device__ __forceinline__ float dequant_relu(int acc, float scale,
 // (exact below 2^22; q0 is clipped to 255 first): the sum's low bits are
 // the integer, on the FMA pipe. requant_exact divides: a warp whose lanes
 // flagged any value of a staged row takes a second pass over the row in
-// which each lane divides for its flagged values (store_row, store_tile),
-// one vote a row. The division in line, predicated for every value,
-// tripled the int8-out epilogue's time; a vote and branch for each channel
-// pair cost 0.1 ms of a 64->64 block at 360x480, b8, on an H100 at 700 W
+// which each lane divides for its flagged values (wg_row, packed_row), one
+// vote a row. The division in line, predicated for every value, tripled
+// the int8-out epilogue's time; a vote and branch for each channel pair
+// cost 0.1 ms of a 64->64 block at 360x480, b8, on an H100 at 700 W
 // (PERF.md).
 __device__ __forceinline__ int requant_fast(float y, float r_out,
                                             bool& near) {
@@ -115,23 +145,31 @@ __device__ __noinline__ int requant_exact(float y, float s_out) {
   return min(max(__float2int_rn(__fdiv_rn(y, s_out)), -127), 127);
 }
 
-// Output staging: a warp's 16 output pixels x 64 channels in shared
-// memory, each pixel's channels at a stride of STAGE_ROW bytes (the widest
-// output type, f32, plus a pad that spreads the pixels over the banks),
-// filled from the accumulators in the output type and then written to
-// global memory with 16-byte stores, each pixel's channels contiguous there.
-constexpr int STAGE_ROW = 64 * 4 + 32;
-constexpr int STAGE_WARP = 16 * STAGE_ROW;
+// Output staging: one output row of NP pixels x 64 channels in shared
+// memory as the TMA store's box(es) lay it out: int8 one box of 64-byte
+// rows with the 64-byte swizzle, bf16 one of 128-byte rows and f32 two
+// (32 channels each) with the 128-byte swizzle; the 16-byte chunk index is
+// XORed with the row's bits, so the 8 pixels a fragment writes fall in
+// different banks. The byte offset of (pixel p, channel c):
+template <int MODE, int NP>
+__device__ __forceinline__ int stage_off(int p, int c) {
+  if constexpr (MODE == 0)
+    return p * 64 + ((((c >> 4) ^ (p >> 1)) & 3) << 4) + (c & 15);
+  else if constexpr (MODE == 1)
+    return p * 128 + ((((c >> 3) ^ p) & 7) << 4) + ((c & 7) << 1);
+  else
+    return (c >> 5) * (NP * 128) + p * 128 +
+           (((((c & 31) >> 2) ^ p) & 7) << 4) + ((c & 3) << 2);
+}
 
 // Channels (c, c + 1) of staged pixel p from their epilogue values. In the
 // int8 mode the fast requantize (``near`` gets the pair's flags) or, with
 // EXACT, the division.
-template <int MODE, bool EXACT = false>
+template <int MODE, int NP, bool EXACT = false>
 __device__ __forceinline__ void stage_pair(unsigned char* st, int p, int c,
                                            float v0, float v1, float s_out,
                                            float r_out, bool& near) {
-  constexpr int OB = MODE == 0 ? 1 : MODE == 1 ? 2 : 4;
-  unsigned char* d = st + p * STAGE_ROW + c * OB;
+  unsigned char* d = st + stage_off<MODE, NP>(p, c);
   if constexpr (MODE == 0) {
     int q0, q1;
     bool n0, n1;
@@ -152,35 +190,86 @@ __device__ __forceinline__ void stage_pair(unsigned char* st, int p, int c,
   }
 }
 
-// The staged 16 pixels x ``nc`` channels (the chunk's channels below Cout)
-// to output pixels pix0.. (flat, the row's first; ``np`` of them inside W)
-// at channel c0. 16-byte vectors where Cout and nc allow, else elementwise.
-template <int MODE>
-__device__ __forceinline__ void copy_out(const unsigned char* st, void* out,
-                                         int64_t pix0, int np, int c0,
-                                         int nc, int Cout, int lane) {
-  constexpr int OB = MODE == 0 ? 1 : MODE == 1 ? 2 : 4;
-  unsigned char* o = static_cast<unsigned char*>(out);
-  if ((Cout * OB) % 16 == 0 && (nc * OB) % 16 == 0) {
-    constexpr int VPP = 64 * OB / 16;  // 16-byte vectors a pixel, at most
-    const int vpp = nc * OB / 16;
-    for (int v = lane; v < 16 * VPP; v += 32) {
-      const int p = v / VPP, q = v % VPP;
-      if (q >= vpp || p >= np) continue;
-      *reinterpret_cast<uint4*>(o + ((pix0 + p) * Cout + c0) * OB +
-                                q * 16) =
-          *reinterpret_cast<const uint4*>(st + p * STAGE_ROW + q * 16);
+// A warp's staging buffer ``st`` may be written: lane 0's TMA stores but
+// the last PENDING have read theirs, and the warp's copy-out is done.
+template <int PENDING>
+__device__ __forceinline__ void staging_free(int lane) {
+  if (lane == 0) sm90::bulk_wait<PENDING, true>();
+  __syncwarp();
+}
+
+// The staged row (NP pixels from w0 of row h, image img, channels c0..) to
+// the output: with ``tma`` one TMA store a box, in one bulk group of lane
+// 0 (committed even when the row lies past H, so each row is one group);
+// else element by element, masked at H, W and Cout.
+template <int MODE, int NP>
+__device__ __forceinline__ void store_staged(const CUtensorMap* omap,
+                                             const unsigned char* st,
+                                             void* out, bool tma, int img,
+                                             int h, int w0, int c0, int H,
+                                             int W, int Cout, int lane) {
+  if (tma) {
+    sm90::fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) {
+      if (h < H) {
+        sm90::tma_store_4d(omap, st, c0, w0, h, img);
+        if constexpr (MODE == 2)
+          if (c0 + 32 < Cout)
+            sm90::tma_store_4d(omap, st + NP * 128, c0 + 32, w0, h, img);
+      }
+      sm90::bulk_commit();
     }
-  } else {
-    for (int e = lane; e < 16 * 64; e += 32) {
-      const int p = e / 64, c = e % 64;
-      if (c >= nc || p >= np) continue;
-      unsigned char* d = o + ((pix0 + p) * Cout + c0 + c) * OB;
-      const unsigned char* src = st + p * STAGE_ROW + c * OB;
-#pragma unroll
-      for (int b = 0; b < OB; ++b) d[b] = src[b];
-    }
+    return;
   }
+  __syncwarp();
+  if (h >= H) return;
+  constexpr int OB = MODE == 0 ? 1 : MODE == 1 ? 2 : 4;
+  const int np = min(NP, W - w0), nc = min(64, Cout - c0);
+  const int64_t pix0 = (static_cast<int64_t>(img) * H + h) * W + w0;
+  unsigned char* o = static_cast<unsigned char*>(out);
+  for (int e = lane; e < NP * 64; e += 32) {
+    const int p = e >> 6, c = e & 63;
+    if (c >= nc || p >= np) continue;
+    unsigned char* d = o + ((pix0 + p) * Cout + c0 + c) * OB;
+    const unsigned char* s = st + stage_off<MODE, NP>(p, c);
+#pragma unroll
+    for (int b = 0; b < OB; ++b) d[b] = s[b];
+  }
+}
+
+// The output's tensor map for the TMA stores: (Cout, W, H, N) in the
+// output type, boxes of 64 channels (f32: 32) x np pixels, swizzled as
+// stage_off lays them out. tma_ok: TMA can address the rows.
+inline bool tma_ok(int mode, int Cout) {
+  return Cout * (mode == 0 ? 1 : mode == 1 ? 2 : 4) % 16 == 0;
+}
+
+inline bool encode_out_map(CUtensorMap* map, void* out, int mode, int N,
+                           int H, int W, int Cout, int np) {
+  const uint64_t ob = mode == 0 ? 1 : mode == 1 ? 2 : 4;
+  const uint64_t dims[4] = {static_cast<uint64_t>(Cout),
+                            static_cast<uint64_t>(W),
+                            static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(N)};
+  const uint64_t strides[3] = {ob * Cout, ob * Cout * W, ob * Cout * W * H};
+  const uint32_t box[4] = {mode == 2 ? 32u : 64u, static_cast<uint32_t>(np),
+                           1, 1};
+  return sm90::encode_map(
+      map,
+      mode == 0   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+      : mode == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      out, 4, dims, strides, box,
+      mode == 0 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// Named barriers 1 and 2 (0 is __syncthreads'): ``n`` threads in all.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // ---------------------------------------------------------- s8 wgmma
@@ -242,64 +331,12 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128],
-                                              const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
-        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
-        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
-        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
-        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
-        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
-        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
-        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
-        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
-        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
-        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
-        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
-        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
-        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
-        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
-        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
-        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
 template <int N>
 __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b) {
   if constexpr (N == 64) wgmma_s8_n64(d, a, desc_b);
-  else if constexpr (N == 128) wgmma_s8_n128(d, a, desc_b);
-  else wgmma_s8_n256(d, a, desc_b);
+  else wgmma_s8_n128(d, a, desc_b);
 }
 
 // Keeps the compiler from moving reads or writes of an accumulator across
@@ -316,60 +353,80 @@ namespace wg {
 
 constexpr int TW = 16;       // output columns per tile: one warp's m16
 constexpr int PW = TW + 2;   // patch columns (with halo)
-constexpr int KC = 128;      // input channels a chunk: one swizzle row
 constexpr int THREADS = 384; // warpgroups 0, 1 consume; 2 produces
-constexpr int CONSUMER_WARPS = 8;
-constexpr int RES_MAX_CIN = KC;  // one chunk: the 9 taps can stay resident
+constexpr int RES_MAX_CIN = 128;  // one chunk: the 9 taps can stay resident
+// output staging: 8 KB a consumer warp, buffers of one output row of 16
+// pixels x 64 channels in the output type (1, 2 or 4 KB), used in turn, so
+// a warp waits for a TMA store to read its buffer only 8, 4 or 2 rows on
+constexpr int OUT_WARP = 8192;
 
-// RES (Cin <= 128, one chunk): BN = 64, and the block's 9 (tap) weight
-// boxes stay resident in a 9-stage ring while its output-channel tile
-// stays the same (the grid is a multiple of the channel tiles), so they
-// are loaded once a block: streamed a tap at a time, a k32 step of one tap
-// is too short to hide the load of the next box.
-template <int BN, bool RES>
+// RES (Cin <= 128): BN = 64, the 9 taps resident, the consumer warpgroups
+// ping-pong on tiles of MT m64 tiles each (8 rows); else both warpgroups
+// work on one tile of 2 x MT m64 tiles. KC: the box's channels (bytes).
+template <int BN, bool RES, int KC>
 struct Tile {
-  static constexpr int MT = RES ? 2 : 256 / BN;  // m64 tiles a WG
-  static constexpr int TH = 8 * MT;    // 2 WGs x MT x 4 output rows
+  static constexpr int MT = RES || BN == 64 ? 2 : 1;  // m64 a WG
+  static constexpr int TH = RES ? 4 * MT : 8 * MT;  // output rows a tile
   static constexpr int PH = TH + 2;
-  static constexpr int PATCH_TX = PH * PW * KC;  // one 128-channel box
+  static constexpr int KSTEPS = KC / 32;  // k32 steps a (tap, chunk)
+  static constexpr int PATCH_TX = PH * PW * KC;
   static constexpr int PATCH_BYTES = (PATCH_TX + 1023) / 1024 * 1024;
-  static constexpr int P_STAGES = 2;
-  static constexpr int W_STAGES = RES ? 9 : BN == 256 ? 3 : 4;
-  static constexpr int W_BYTES = BN * KC;  // one (tap, chunk): BN x 128
-  static constexpr int STAGE_OFF = P_STAGES * PATCH_BYTES + W_STAGES * W_BYTES;
-  static constexpr int BAR_OFF = STAGE_OFF + CONSUMER_WARPS * STAGE_WARP;
+  static constexpr int P_STAGES = RES ? (KC == 64 ? 4 : 3) : 2;
+  static constexpr int W_STAGES = RES ? 9 : 4;
+  static constexpr int W_BYTES = BN * KC;  // one (tap, chunk): BN x KC
+  static constexpr int OUT_OFF = P_STAGES * PATCH_BYTES + W_STAGES * W_BYTES;
+  static constexpr int SC_OFF = OUT_OFF + 8 * OUT_WARP;  // 2 x BN f32
+  static constexpr int BAR_OFF = SC_OFF + 2 * BN * 4;
   static constexpr int SMEM = BAR_OFF + 2 * (P_STAGES + W_STAGES) * 8 + 1024;
 };
-static_assert(Tile<64, true>::SMEM <= 232448, "the resident tile fits");
-static_assert(Tile<64, false>::SMEM <= 232448, "the N = 64 tile fits");
-static_assert(Tile<128, false>::SMEM <= 232448, "the N = 128 tile fits");
-static_assert(Tile<256, false>::SMEM <= 232448, "the N = 256 tile fits");
+static_assert(Tile<64, true, 64>::SMEM <= 232448, "RES at Cin <= 64 fits");
+static_assert(Tile<64, true, 128>::SMEM <= 232448, "RES at Cin <= 128 fits");
+static_assert(Tile<64, false, 128>::SMEM <= 232448, "the N = 64 tile fits");
+static_assert(Tile<128, false, 128>::SMEM <= 232448, "the N = 128 tile fits");
+
+// Byte address of 16-byte chunk ``chunk`` of row ``row`` of a box that TMA
+// wrote with the KC-byte swizzle from an aligned ``base``.
+template <int KC>
+__device__ __forceinline__ uint32_t swz(uint32_t base, int row, int chunk) {
+  if constexpr (KC == 128)
+    return sm90::swz128(base, row, chunk);
+  else
+    return base + (row << 6) + (((chunk ^ (row >> 1)) & 3) << 4);
+}
+
+// B's descriptor for k32 step s of a weight stage: BN K-major rows of KC
+// bytes, 8 rows a swizzle atom (8 x KC bytes apart).
+template <int KC>
+__device__ __forceinline__ uint64_t b_desc(uint32_t stage, int s) {
+  return sm90::wgmma_desc(stage + s * 32, 16, 8 * KC, KC == 128 ? 1 : 2);
+}
 
 // A warp's output row: 16 pixels (w0.., row h) x the 64 channels from c0,
-// from accumulators acc (its m64 tile), through its staging buffer.
+// from accumulators acc (its m64 tile) and the chunk's dequant factors
+// ssc, sbb (shared memory), staged in the warp's buffer for its ``row``-th
+// row, then stored.
 template <int MODE, int NACC>
-__device__ __forceinline__ void store_row(const int (&acc)[NACC], int j0,
-                                          unsigned char* st, void* out,
-                                          int img, int h, int w0, int c0,
-                                          int H, int W, int Cout, int lane,
-                                          const float* s_w,
-                                          const float* b_eff, float s_x,
-                                          float s_out, float r_out) {
-  __syncwarp();  // the last row's copy-out has read the buffer
+__device__ __forceinline__ void wg_row(const int (&acc)[NACC], int j0,
+                                       const float* ssc, const float* sbb,
+                                       unsigned char* st0, int row,
+                                       const CUtensorMap* omap, void* out,
+                                       bool tma, int img, int h, int w0,
+                                       int c0, int H, int W, int Cout,
+                                       int lane, float s_out, float r_out) {
+  constexpr int BYTES = 16 * 64 * (MODE == 0 ? 1 : MODE == 1 ? 2 : 4);
+  constexpr int NB = OUT_WARP / BYTES;
+  unsigned char* st = st0 + row % NB * BYTES;
+  staging_free<NB - 1>(lane);
   bool near = false;
   auto stage = [&](auto exact) {
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
       const int c = 8 * jj + 2 * (lane & 3);
-      const int co = c0 + c;
-      const bool in0 = co < Cout, in1 = co + 1 < Cout;
-      const float sc0 = in0 ? __fmul_rn(s_x, s_w[co]) : 0.f;
-      const float bb0 = in0 ? b_eff[co] : 0.f;
-      const float sc1 = in1 ? __fmul_rn(s_x, s_w[co + 1]) : 0.f;
-      const float bb1 = in1 ? b_eff[co + 1] : 0.f;
+      const float sc0 = ssc[c], bb0 = sbb[c];
+      const float sc1 = ssc[c + 1], bb1 = sbb[c + 1];
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf)
-        stage_pair<MODE, decltype(exact)::value>(
+        stage_pair<MODE, 16, decltype(exact)::value>(
             st, (lane >> 2) + 8 * hf, c,
             dequant_relu(acc[4 * (j0 + jj) + 2 * hf], sc0, bb0),
             dequant_relu(acc[4 * (j0 + jj) + 2 * hf + 1], sc1, bb1), s_out,
@@ -379,33 +436,36 @@ __device__ __forceinline__ void store_row(const int (&acc)[NACC], int j0,
   stage(std::false_type{});
   if constexpr (MODE == 0)
     if (__any_sync(0xffffffffu, near)) stage(std::true_type{});
-  __syncwarp();
-  if (h < H)
-    copy_out<MODE>(st, out, (static_cast<int64_t>(img) * H + h) * W + w0,
-                   min(16, W - w0), c0, min(64, Cout - c0), Cout, lane);
+  store_staged<MODE, 16>(omap, st, out, tma, img, h, w0, c0, H, W, Cout,
+                         lane);
 }
 
-template <int BN, bool RES>
+template <int BN, bool RES, int KC>
 __global__ void __launch_bounds__(THREADS, 1)
     conv3x3_int8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                               const __grid_constant__ CUtensorMap wmap,
+                              const __grid_constant__ CUtensorMap omap,
                               const float* __restrict__ s_w,
                               const float* __restrict__ b_eff,
                               const float* __restrict__ s_x_p,
                               const float* __restrict__ s_out_p,
-                              void* __restrict__ out, int mode, int N, int H,
-                              int W, int Cin, int Cout) {
-  using T = Tile<BN, RES>;
+                              void* __restrict__ out, int mode, int tma_out,
+                              int N, int H, int W, int Cin, int Cout) {
+  using T = Tile<BN, RES, KC>;
   constexpr int MT = T::MT, TH = T::TH, P = T::P_STAGES, S = T::W_STAGES;
-  // k32 steps per wgmma commit group: a tap's 4 where the registers allow
+  constexpr int KS = T::KSTEPS;
+  // k32 steps a wgmma commit group: a tap's where the registers allow
   // (RES, 64 accumulators), else 2
-  constexpr int G = RES ? 4 : 2;
+  constexpr int G = RES ? KS : 2;
+  constexpr int NG = KS / G;  // groups a (tap, chunk)
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
   unsigned char* patch = smem;
   unsigned char* wring = smem + P * T::PATCH_BYTES;
-  unsigned char* ostage = smem + T::STAGE_OFF;
+  unsigned char* ostage = smem + T::OUT_OFF;
+  float* ssc = reinterpret_cast<float*>(smem + T::SC_OFF);
+  float* sbb = ssc + BN;
   uint64_t* pfull = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
   uint64_t* pempty = pfull + P;
   uint64_t* wfull = pempty + P;
@@ -430,13 +490,22 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (threadIdx.x == 0) {
     for (int i = 0; i < P; ++i) {
       sm90::mbar_init(&pfull[i], 1);
-      sm90::mbar_init(&pempty[i], CONSUMER_WARPS);
+      // RES: a patch stage is one warpgroup's; else both read it
+      sm90::mbar_init(&pempty[i], RES ? 4 : 8);
     }
     for (int i = 0; i < S; ++i) {
       sm90::mbar_init(&wfull[i], 1);
-      sm90::mbar_init(&wempty[i], CONSUMER_WARPS);
+      sm90::mbar_init(&wempty[i], 8);
     }
     sm90::fence_barrier_init();
+  }
+  // the dequant factors s_x * s_w and b_eff of the block's output channels
+  // (the grid is a multiple of the channel tiles: a block keeps its n0)
+  const int bn0 = blockIdx.x % tiles_n * BN;
+  for (int c = threadIdx.x; c < BN; c += THREADS) {
+    const bool in = bn0 + c < Cout;
+    ssc[c] = in ? __fmul_rn(*s_x_p, s_w[bn0 + c]) : 0.f;
+    sbb[c] = in ? b_eff[bn0 + c] : 0.f;
   }
   __syncthreads();
 
@@ -460,19 +529,24 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     } else if (threadIdx.x == 288) {
       sm90::prefetch_tensormap(&wmap);
-      uint32_t wit = 0;
-      int res_n0 = -1;
-      for (int t = blockIdx.x; t < total; t += gridDim.x) {
-        const int n0 = t % tiles_n * BN;
-        if (RES && n0 == res_n0) continue;  // the resident taps serve
-        res_n0 = n0;
-        for (int c = 0; c < nch; ++c) {
-          for (int tap = 0; tap < 9; ++tap, ++wit) {
-            const int ws = wit % S;
-            sm90::mbar_wait(&wempty[ws], ((wit / S) & 1) ^ 1);
-            sm90::mbar_arrive_expect_tx(&wfull[ws], T::W_BYTES);
-            sm90::tma_load_3d(wring + ws * T::W_BYTES, &wmap, &wfull[ws],
-                              c * KC, n0, tap);
+      if constexpr (RES) {
+        // the block's channel tile never changes: its 9 taps load once
+        for (int tap = 0; tap < 9; ++tap) {
+          sm90::mbar_arrive_expect_tx(&wfull[tap], T::W_BYTES);
+          sm90::tma_load_3d(wring + tap * T::W_BYTES, &wmap, &wfull[tap], 0,
+                            bn0, tap);
+        }
+      } else {
+        uint32_t wit = 0;
+        for (int t = blockIdx.x; t < total; t += gridDim.x) {
+          for (int c = 0; c < nch; ++c) {
+            for (int tap = 0; tap < 9; ++tap, ++wit) {
+              const int ws = wit % S;
+              sm90::mbar_wait(&wempty[ws], ((wit / S) & 1) ^ 1);
+              sm90::mbar_arrive_expect_tx(&wfull[ws], T::W_BYTES);
+              sm90::tma_load_3d(wring + ws * T::W_BYTES, &wmap, &wfull[ws],
+                                c * KC, bn0, tap);
+            }
           }
         }
       }
@@ -484,156 +558,169 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int lane = threadIdx.x & 31;
     const uint32_t patch0 = smem_u32(patch);
     const uint32_t wring0 = smem_u32(wring);
-    unsigned char* st = ostage + (wgi * 4 + warp) * STAGE_WARP;
-    const float s_x = *s_x_p;
+    unsigned char* st0 = ostage + (wgi * 4 + warp) * OUT_WARP;
+    const bool tma = tma_out != 0;
     const float s_out = mode == 0 ? *s_out_p : 1.f;
     const float r_out = __frcp_rn(s_out);
+    // this warpgroup's first output row in its tile
+    const int rbase = RES ? 0 : wgi * 4 * MT;
     // patch pixel of tap (0, 0) for this lane's A row in m64 tile mt
     int pbase[MT];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
-      pbase[mt] = (wgi * 4 * MT + mt * 4 + warp) * PW + (lane & 15);
+      pbase[mt] = (rbase + mt * 4 + warp) * PW + (lane & 15);
     uint32_t pit = 0, wit = 0;
-    int res_n0 = -1;
-    for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    int nrow = 0;  // output rows this warp has staged
+    // RES: the block's tiles j = wgi, wgi + 2, ...; else every tile
+    for (int j = RES ? wgi : 0;; j += RES ? 2 : 1) {
+      const int t = blockIdx.x + j * gridDim.x;
+      if (t >= total) break;
       int img, h0, w0, n0;
-      origin(t, img, h0, w0, n0);
-      if (RES && n0 != res_n0) {  // a new round of resident taps
-        res_n0 = n0;
-        wit += 9;
-      }
+      origin(t, img, h0, w0, n0);  // where this tile's rows go
       int acc[MT][BN / 2];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0;
 
-      for (int c = 0; c < nch; ++c, ++pit) {
-        const int ps = pit % P;
-        sm90::mbar_wait(&pfull[ps], (pit / P) & 1);
+      if constexpr (RES) {
+        // ping-pong: this mainloop starts when the other warpgroup's of
+        // tile j - 1 has ended
+        if (j > 0) named_sync(1 + wgi, 256);
+        const int ps = j % P;
+        sm90::mbar_wait(&pfull[ps], (j / P) & 1);
         const uint32_t pb = patch0 + ps * T::PATCH_BYTES;
-        // k32 steps of this chunk inside Cin (uniform): the rest would add
-        // the zeros TMA filled in
-        const int steps = min(4, (Cin - c * KC) / 32);
-        // A fragments of G k32 steps (one group, committed together) per
-        // buffer; two buffers, so one group loads while the last runs
-        uint32_t afrag[2][G][MT][4];
-        int ws_prev = 0;
+        // A fragments of one tap per buffer; two buffers, so one tap's
+        // fragments load while the last tap's group runs
+        uint32_t afrag[2][KS][MT][4];
 #pragma unroll
         for (int tap = 0; tap < 9; ++tap) {
           const int shift_px = (tap / 3) * PW + tap % 3;
-          int ws;
-          if constexpr (RES) {  // stage tap of round wit / 9
-            ws = tap;
-            sm90::mbar_wait(&wfull[ws], ((wit - 9) / 9) & 1);
-          } else {
-            ws = wit % S;
-            sm90::mbar_wait(&wfull[ws], (wit / S) & 1);
+          sm90::mbar_wait(&wfull[tap], 0);
+          const uint32_t wb = wring0 + tap * T::W_BYTES;
+          const int buf = tap & 1;
+#pragma unroll
+          for (int s = 0; s < KS; ++s)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              sm90::ldmatrix_x4(afrag[buf][s][mt],
+                                swz<KC>(pb, pbase[mt] + shift_px,
+                                        2 * s + (lane >> 4)));
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < KS; ++s) {
+            const uint64_t desc = b_desc<KC>(wb, s);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              wgmma_s8<BN>(acc[mt], afrag[buf][s][mt], desc);
           }
-          const uint32_t wb = wring0 + ws * T::W_BYTES;
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<1>();
+        }
+        sm90::wgmma_wait<0>();
+        if (lane == 0) sm90::mbar_arrive(&pempty[ps]);
+        if (t + gridDim.x < total) named_arrive(2 - wgi, 256);
+      } else {
+        for (int c = 0; c < nch; ++c, ++pit) {
+          const int ps = pit % P;
+          sm90::mbar_wait(&pfull[ps], (pit / P) & 1);
+          const uint32_t pb = patch0 + ps * T::PATCH_BYTES;
+          // A fragments of G k32 steps (one group, committed together) per
+          // buffer; two buffers, so one group loads while the last runs
+          uint32_t afrag[2][G][MT][4];
+          int ws_prev = 0;
 #pragma unroll
-          for (int gi = 0; gi < 4 / G; ++gi) {
-            if (gi * G >= steps) {
-              // nothing to add; let the last group finish, so the next
-              // group's A buffer (this one's parity) is free
-              sm90::wgmma_wait<0>();
-              continue;
-            }
-            const int buf = (tap * (4 / G) + gi) & 1;
+          for (int tap = 0; tap < 9; ++tap) {
+            const int shift_px = (tap / 3) * PW + tap % 3;
+            const int ws = wit % S;
+            sm90::mbar_wait(&wfull[ws], (wit / S) & 1);
+            const uint32_t wb = wring0 + ws * T::W_BYTES;
 #pragma unroll
-            for (int j = 0; j < G; ++j)
-              if (gi * G + j < steps)
+            for (int gi = 0; gi < NG; ++gi) {
+              const int buf = (tap * NG + gi) & 1;
+#pragma unroll
+              for (int jj = 0; jj < G; ++jj)
 #pragma unroll
                 for (int mt = 0; mt < MT; ++mt)
                   sm90::ldmatrix_x4(
-                      afrag[buf][j][mt],
-                      sm90::swz128(pb, pbase[mt] + shift_px,
-                                   2 * (gi * G + j) + (lane >> 4)));
-            sm90::wgmma_fence();
+                      afrag[buf][jj][mt],
+                      swz<KC>(pb, pbase[mt] + shift_px,
+                              2 * (gi * G + jj) + (lane >> 4)));
+              sm90::wgmma_fence();
 #pragma unroll
-            for (int j = 0; j < G; ++j) {
-              if (gi * G + j >= steps) continue;
-              const uint64_t desc =
-                  sm90::wgmma_desc(wb + (gi * G + j) * 32, 16, 1024, 1);
+              for (int jj = 0; jj < G; ++jj) {
+                const uint64_t desc = b_desc<KC>(wb, gi * G + jj);
 #pragma unroll
-              for (int mt = 0; mt < MT; ++mt)
-                wgmma_s8<BN>(acc[mt], afrag[buf][j][mt], desc);
-            }
-            sm90::wgmma_commit();
-            sm90::wgmma_wait<1>();
-            // the previous group, the previous tap's last, has completed:
-            // its weights go
-            if constexpr (!RES)
+                for (int mt = 0; mt < MT; ++mt)
+                  wgmma_s8<BN>(acc[mt], afrag[buf][jj][mt], desc);
+              }
+              sm90::wgmma_commit();
+              sm90::wgmma_wait<1>();
+              // the previous group, the previous tap's last, has
+              // completed: its weights go
               if (gi == 0 && tap > 0 && lane == 0)
                 sm90::mbar_arrive(&wempty[ws_prev]);
-          }
-          if constexpr (!RES) {
+            }
             ws_prev = ws;
             ++wit;
           }
+          sm90::wgmma_wait<0>();
+          if (lane == 0) {
+            sm90::mbar_arrive(&wempty[ws_prev]);
+            sm90::mbar_arrive(&pempty[ps]);
+          }
         }
-        sm90::wgmma_wait<0>();
-        if (lane == 0) {
-          if constexpr (!RES) sm90::mbar_arrive(&wempty[ws_prev]);
-          sm90::mbar_arrive(&pempty[ps]);
-        }
-      }
-      if constexpr (RES) {
-        // the round ends with this block's last tile of these channels
-        const int next = t + gridDim.x;
-        if (lane == 0 && (next >= total || next % tiles_n * BN != n0))
-          for (int tap = 0; tap < 9; ++tap) sm90::mbar_arrive(&wempty[tap]);
       }
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
 
       // Epilogue: each warp's output row of each m64 tile, 64 channels at
-      // a time, through its staging buffer (store_row). Accumulator i of
-      // m64 tile mt: output row h, column lane/4 (+8 for i%4 >= 2);
-      // channel 8*(i/4) + 2*(lane%4) + i%2.
+      // a time, through its staging buffers in turn (wg_row).
+      // Accumulator i of m64 tile mt: output row h, column lane/4 (+8 for
+      // i%4 >= 2); channel 8*(i/4) + 2*(lane%4) + i%2.
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        const int h = h0 + wgi * 4 * MT + mt * 4 + warp;
+        const int h = h0 + rbase + mt * 4 + warp;
 #pragma unroll
         for (int cb = 0; cb < BN / 64; ++cb) {
           const int c0 = n0 + 64 * cb;
           if (c0 >= Cout) break;
+          const float* sc = ssc + 64 * cb;
+          const float* bb = sbb + 64 * cb;
           if (mode == 0)
-            store_row<0>(acc[mt], 8 * cb, st, out, img, h, w0, c0, H, W,
-                         Cout, lane, s_w, b_eff, s_x, s_out, r_out);
+            wg_row<0>(acc[mt], 8 * cb, sc, bb, st0, nrow, &omap, out, tma,
+                      img, h, w0, c0, H, W, Cout, lane, s_out, r_out);
           else if (mode == 1)
-            store_row<1>(acc[mt], 8 * cb, st, out, img, h, w0, c0, H, W,
-                         Cout, lane, s_w, b_eff, s_x, s_out, r_out);
+            wg_row<1>(acc[mt], 8 * cb, sc, bb, st0, nrow, &omap, out, tma,
+                      img, h, w0, c0, H, W, Cout, lane, s_out, r_out);
           else
-            store_row<2>(acc[mt], 8 * cb, st, out, img, h, w0, c0, H, W,
-                         Cout, lane, s_w, b_eff, s_x, s_out, r_out);
+            wg_row<2>(acc[mt], 8 * cb, sc, bb, st0, nrow, &omap, out, tma,
+                      img, h, w0, c0, H, W, Cout, lane, s_out, r_out);
+          ++nrow;
         }
       }
     }
+    if (lane == 0) sm90::bulk_wait<0, false>();  // the stores are done
   }
 }
 
-// Tile N for (Cin, Cout): 64 with the taps resident (Cin <= 128), else 64,
-// 128 or 256 by Cout.
-int tile_n(int Cin, int Cout) {
-  if (Cin <= RES_MAX_CIN) return 64;
-  return Cout <= 64 ? 64 : Cout <= 128 ? 128 : 256;
-}
 
-template <int BN, bool RES>
+template <int BN, bool RES, int KC>
 cudaError_t launch(const int8_t* x, const int8_t* wk, const float* s_w,
                    const float* b_eff, const float* s_x, const float* s_out,
                    void* out, int mode, int N, int H, int W, int Cin,
                    int Cout, cudaStream_t stream) {
-  using T = Tile<BN, RES>;
-  CUtensorMap xmap, wmap;
+  using T = Tile<BN, RES, KC>;
+  const CUtensorMapSwizzle swizzle =
+      KC == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap xmap, wmap, omap{};
   const uint64_t xd[4] = {static_cast<uint64_t>(Cin),
                           static_cast<uint64_t>(W), static_cast<uint64_t>(H),
                           static_cast<uint64_t>(N)};
   const uint64_t xs[3] = {1ull * Cin, 1ull * Cin * W, 1ull * Cin * W * H};
   const uint32_t xb[4] = {KC, PW, T::PH, 1};
   if (!sm90::encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, 4, xd, xs,
-                        xb, CU_TENSOR_MAP_SWIZZLE_128B))
+                        xb, swizzle))
     return cudaErrorInvalidValue;
   // the repacked weights (9, Cout, Cin), Cin innermost, in KC x BN boxes
   const uint64_t wd[3] = {static_cast<uint64_t>(Cin),
@@ -641,9 +728,12 @@ cudaError_t launch(const int8_t* x, const int8_t* wk, const float* s_w,
   const uint64_t wstr[2] = {1ull * Cin, 1ull * Cin * Cout};
   const uint32_t wbox[3] = {KC, static_cast<uint32_t>(BN), 1};
   if (!sm90::encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, wk, 3, wd,
-                        wstr, wbox, CU_TENSOR_MAP_SWIZZLE_128B))
+                        wstr, wbox, swizzle))
     return cudaErrorInvalidValue;
-  auto kern = conv3x3_int8_wgmma_kernel<BN, RES>;
+  const bool tma = tma_ok(mode, Cout);
+  if (tma && !encode_out_map(&omap, out, mode, N, H, W, Cout, TW))
+    return cudaErrorInvalidValue;
+  auto kern = conv3x3_int8_wgmma_kernel<BN, RES, KC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return err;
@@ -656,12 +746,14 @@ cudaError_t launch(const int8_t* x, const int8_t* wk, const float* s_w,
   const int64_t tiles = static_cast<int64_t>(N) * ((H + T::TH - 1) / T::TH) *
                         ((W + TW - 1) / TW) * tiles_n;
   if (tiles > 2147483647LL) return cudaErrorInvalidConfiguration;
-  // with RES, a grid that is a multiple of the output-channel tiles keeps
-  // each block on one tile of channels, so its taps load once
+  // a multiple of the output-channel tiles (the tiles are one), so each
+  // block keeps one tile of channels: its dequant factors and, with RES,
+  // its weight taps load once
   int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  if (RES && grid > tiles_n) grid -= grid % tiles_n;
-  kern<<<grid, THREADS, T::SMEM, stream>>>(xmap, wmap, s_w, b_eff, s_x, s_out,
-                                           out, mode, N, H, W, Cin, Cout);
+  grid = grid < tiles_n ? tiles_n : grid - grid % tiles_n;
+  kern<<<grid, THREADS, T::SMEM, stream>>>(xmap, wmap, omap, s_w, b_eff, s_x,
+                                           s_out, out, mode, tma ? 1 : 0, N,
+                                           H, W, Cin, Cout);
   return cudaGetLastError();
 }
 
@@ -669,20 +761,19 @@ cudaError_t run(const int8_t* x, const int8_t* wk, const float* s_w,
                 const float* b_eff, const float* s_x, const float* s_out,
                 void* out, int mode, int N, int H, int W, int Cin, int Cout,
                 cudaStream_t st) {
+  if (Cin <= 64)
+    return launch<64, true, 64>(x, wk, s_w, b_eff, s_x, s_out, out, mode, N,
+                                H, W, Cin, Cout, st);
   if (Cin <= RES_MAX_CIN)
-    return launch<64, true>(x, wk, s_w, b_eff, s_x, s_out, out, mode, N, H,
-                            W, Cin, Cout, st);
-  switch (tile_n(Cin, Cout)) {
-    case 64:
-      return launch<64, false>(x, wk, s_w, b_eff, s_x, s_out, out, mode, N,
-                               H, W, Cin, Cout, st);
-    case 128:
-      return launch<128, false>(x, wk, s_w, b_eff, s_x, s_out, out, mode, N,
-                                H, W, Cin, Cout, st);
-    default:
-      return launch<256, false>(x, wk, s_w, b_eff, s_x, s_out, out, mode, N,
-                                H, W, Cin, Cout, st);
-  }
+    return launch<64, true, 128>(x, wk, s_w, b_eff, s_x, s_out, out, mode,
+                                 N, H, W, Cin, Cout, st);
+  // streamed weights: N = 64 (two m64 tiles a warpgroup) up to Cout 64,
+  // else 128 (one)
+  if (Cout <= 64)
+    return launch<64, false, 128>(x, wk, s_w, b_eff, s_x, s_out, out, mode,
+                                  N, H, W, Cin, Cout, st);
+  return launch<128, false, 128>(x, wk, s_w, b_eff, s_x, s_out, out, mode, N,
+                                 H, W, Cin, Cout, st);
 }
 
 }  // namespace wg
@@ -692,30 +783,66 @@ cudaError_t run(const int8_t* x, const int8_t* wk, const float* s_w,
 namespace packed {
 
 constexpr int TH = 8;          // output rows a tile: one a warp
-constexpr int TW = 32;         // output columns: two m16 tiles a warp
+constexpr int TW = 32;         // output columns: MT m16 tiles a warp
+constexpr int MT = TW / 16;
+constexpr int BLOCKS = 2;      // resident blocks an SM (registers <= 128)
 constexpr int PW = TW + 2;
+constexpr int PH = TH + 2;
 constexpr int BN = 64;         // output channels a tile: 8 n8 tiles
 constexpr int THREADS = 256;
 constexpr int MAX_CIN = 31;
-constexpr int KP_MAX = 288;    // 9 x 31 = 279 packed k, in whole k32 steps
-constexpr int BLOCKS_PER_SM = 3;
+// output staging: one buffer a warp, an output row of TW pixels x 64
+// channels in the widest type (f32)
+constexpr int STAGE_WARP = TW * 64 * 4;
 
-// Kp: 9 taps x Cin packed, padded to whole k32 steps.
-__host__ __device__ constexpr int kp(int Cin) { return (9 * Cin + 31) / 32 * 32; }
-static_assert(kp(MAX_CIN) == KP_MAX, "the widest packed K");
+// Cin4: a pixel's channels in the patch and a tap's in K, a multiple of 4
+// (one 32-bit A word); Kp: 9 taps x Cin4, padded to whole k32 steps.
+__host__ __device__ constexpr int cin4(int Cin) { return (Cin + 3) / 4 * 4; }
+__host__ __device__ constexpr int kp(int Cin) {
+  return (9 * cin4(Cin) + 31) / 32 * 32;
+}
 
-// Shared memory: the resident weights, K-major rows of Kp bytes at a
-// stride of Kp + 16 (the 8 rows a B fragment reads fall in distinct banks
-// at Kp = 32); the tile's (8 + 2) x (32 + 2) x Cin patch; the packed-k
-// offset table; the eight warps' staging buffers.
-constexpr int W_BYTES = BN * (KP_MAX + 16);
-constexpr int PATCH_BYTES = (TH + 2) * PW * MAX_CIN;
-constexpr int PATCH_OFF = W_BYTES;
-constexpr int KOFF_OFF = (PATCH_OFF + PATCH_BYTES + 15) / 16 * 16;
-constexpr int STAGE_OFF = (KOFF_OFF + 2 * KP_MAX + 15) / 16 * 16;
-constexpr int SMEM = STAGE_OFF + 8 * STAGE_WARP;
-static_assert(BLOCKS_PER_SM * (SMEM + 1024) <= 228 * 1024,
-              "three blocks an SM");
+// Shared memory (bytes): the eight warps' staging buffers (1024-aligned for
+// the swizzle), the resident weights (K-major rows of KP bytes at a stride
+// of KP + 16: the 8 rows a B fragment reads fall in distinct banks), two
+// patch buffers of PH rows x PW pixels x C4 bytes, the channel tile's
+// dequant factors s_x * s_w and b_eff.
+template <int C4>
+struct Geo {
+  static constexpr int KP = kp(C4);
+  static constexpr int KSTEPS = KP / 32;
+  static constexpr int RS = PW * C4;  // patch row
+  static constexpr int BUF = PH * RS;
+  static constexpr int WS = KP + 16;  // weight row stride
+  // 16-byte chunks an input row (PW x Cin <= PW x C4 bytes) spans
+  static constexpr int CPR = (PW * C4 + 30) / 16;
+  static constexpr int ITEMS = PH * CPR;
+  static constexpr int LPT = (ITEMS + THREADS - 1) / THREADS;
+  static constexpr int W_OFF = 8 * STAGE_WARP;
+  static constexpr int P_OFF = W_OFF + BN * WS;
+  static constexpr int SC_OFF = P_OFF + 2 * BUF;
+  static constexpr int SMEM = SC_OFF + 2 * BN * 4 + 1024;
+};
+static_assert(Geo<4>::KSTEPS == 2, "the stem: two k32 steps");
+static_assert(Geo<32>::KP == 288 &&
+                  BLOCKS * (Geo<32>::SMEM + 1024) <= 233472,
+              "BLOCKS blocks an SM at the widest Cin4");
+
+// The patch offset (bytes) of packed k for the pixel at patch (0, 0): tap
+// (dy, dx) = k / C4, channel k % C4 (a multiple of 4: one A word); past
+// 9 x C4 any word serves, as the weights there are zero.
+template <int C4>
+__device__ __forceinline__ int koff(int k) {
+  if (k >= 9 * C4) return 0;
+  const int tap = k / C4, ci = k % C4;
+  return (tap / 3) * Geo<C4>::RS + (tap % 3) * C4 + ci;
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
@@ -726,196 +853,299 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One m16 column tile's output (16 pixels x 64 channels) of a warp from
-// its accumulators acc[nt] (pixel g: channels 2t, 2t+1 of n8 tile nt in
-// [0], [1]; pixel g + 8 in [2], [3]), through the warp's staging buffer.
+// A warp's output row (TW pixels from w0 x 64 channels from n0) from its
+// accumulators acc[m][nt] (pixel 16 m + g: channels 2t, 2t+1 of n8 tile nt
+// in [0], [1]; pixel 16 m + g + 8 in [2], [3]), staged in ``st``, stored.
 template <int MODE>
-__device__ __forceinline__ void store_tile(const int (&acc)[8][4],
-                                           unsigned char* st, void* out,
-                                           int64_t pix0, int np, int n0,
-                                           int Cout, int lane,
-                                           const float* s_w,
-                                           const float* b_eff, float s_x,
-                                           float s_out, float r_out) {
+__device__ __forceinline__ void packed_row(const int (&acc)[MT][8][4],
+                                           unsigned char* st,
+                                           const CUtensorMap* omap,
+                                           void* out, bool tma, int img,
+                                           int h, int w0, int n0, int H,
+                                           int W, int Cout, int lane,
+                                           const float* ssc,
+                                           const float* sbb, float s_out,
+                                           float r_out) {
   const int g = lane >> 2, tq = lane & 3;
-  __syncwarp();  // the last tile's copy-out has read the buffer
   bool near = false;
   auto stage = [&](auto exact) {
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const int c = nt * 8 + 2 * tq;
-      const int co = n0 + c;
-      const bool in0 = co < Cout, in1 = co + 1 < Cout;
-      const float sc0 = in0 ? __fmul_rn(s_x, s_w[co]) : 0.f;
-      const float bb0 = in0 ? b_eff[co] : 0.f;
-      const float sc1 = in1 ? __fmul_rn(s_x, s_w[co + 1]) : 0.f;
-      const float bb1 = in1 ? b_eff[co + 1] : 0.f;
+      const float sc0 = ssc[c], bb0 = sbb[c];
+      const float sc1 = ssc[c + 1], bb1 = sbb[c + 1];
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        stage_pair<MODE, decltype(exact)::value>(
-            st, g + 8 * hf, c, dequant_relu(acc[nt][2 * hf], sc0, bb0),
-            dequant_relu(acc[nt][2 * hf + 1], sc1, bb1), s_out, r_out,
-            near);
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          stage_pair<MODE, TW, decltype(exact)::value>(
+              st, 16 * m + g + 8 * hf, c,
+              dequant_relu(acc[m][nt][2 * hf], sc0, bb0),
+              dequant_relu(acc[m][nt][2 * hf + 1], sc1, bb1), s_out, r_out,
+              near);
     }
   };
   stage(std::false_type{});
   if constexpr (MODE == 0)
     if (__any_sync(0xffffffffu, near)) stage(std::true_type{});
-  __syncwarp();
-  copy_out<MODE>(st, out, pix0, np, n0, min(BN, Cout - n0), Cout, lane);
+  store_staged<MODE, TW>(omap, st, out, tma, img, h, w0, n0, H, W, Cout,
+                         lane);
 }
 
-// A persistent block walks tiles of 8 rows x 32 columns x 64 channels,
-// the channel tile fastest; it loads its channel tile's weights only when
-// that changes (never, at Cout <= 64), each tile's patch with byte loads.
-__global__ void __launch_bounds__(THREADS)
-    conv3x3_int8_packed_kernel(const int8_t* __restrict__ x,
+// A persistent block keeps one tile of 64 output channels (the grid is a
+// multiple of the channel tiles) with its weights resident and walks tiles
+// of 8 rows x 32 columns; it reads a tile's input rows while the one
+// before computes.
+template <int C4>
+__global__ void __launch_bounds__(THREADS, BLOCKS)
+    conv3x3_int8_packed_kernel(const __grid_constant__ CUtensorMap omap,
+                               const int8_t* __restrict__ x,
                                const int8_t* __restrict__ wk,
                                const float* __restrict__ s_w,
                                const float* __restrict__ b_eff,
                                const float* __restrict__ s_x_p,
                                const float* __restrict__ s_out_p,
-                               void* __restrict__ out, int mode, int N, int H,
-                               int W, int Cin, int Cout) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* w_s = reinterpret_cast<int8_t*>(smem);
-  int8_t* patch = reinterpret_cast<int8_t*>(smem + PATCH_OFF);
-  int16_t* koff = reinterpret_cast<int16_t*>(smem + KOFF_OFF);
+                               void* __restrict__ out, int mode, int tma_out,
+                               int N, int H, int W, int Cin, int Cout) {
+  using G = Geo<C4>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  unsigned char* w_s = smem + G::W_OFF;
+  unsigned char* patch = smem + G::P_OFF;
+  float* ssc = reinterpret_cast<float*>(smem + G::SC_OFF);
+  float* sbb = ssc + BN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
-  unsigned char* st = smem + STAGE_OFF + warp * STAGE_WARP;
-  const int Kp = kp(Cin);
-  const int wstride = Kp + 16;
   const int tiles_w = (W + TW - 1) / TW;
   const int tiles_h = (H + TH - 1) / TH;
   const int tiles_n = (Cout + BN - 1) / BN;
   const int total = N * tiles_h * tiles_w * tiles_n;  // < 2^31 (host)
+  const int n0 = blockIdx.x % tiles_n * BN;
+  auto origin = [&](int t, int& img, int& h0, int& w0) {
+    t /= tiles_n;
+    w0 = t % tiles_w * TW;
+    t /= tiles_w;
+    h0 = t % tiles_h * TH;
+    img = t / tiles_h;
+  };
   const float s_x = *s_x_p;
   const float s_out = mode == 0 ? *s_out_p : 1.f;
   const float r_out = __frcp_rn(s_out);
-  const int prow = PW * Cin;  // bytes of one patch row
+  const bool tma = tma_out != 0;
 
-  for (int k = threadIdx.x; k < Kp; k += THREADS) {
-    int o = -1;
-    if (k < 9 * Cin) {
-      const int tap = k / Cin;
-      o = ((tap / 3) * PW + tap % 3) * Cin + k % Cin;
-    }
-    koff[k] = static_cast<int16_t>(o);
+  // Resident weights, once a block, as 16-byte vectors (zero past Cout);
+  // both patch buffers zeroed, so the pad channels past Cin read zero.
+  for (int i = threadIdx.x; i < BN * (G::KP / 16); i += THREADS) {
+    const int n = i / (G::KP / 16), v = i % (G::KP / 16);
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (n0 + n < Cout)
+      val = __ldg(reinterpret_cast<const uint4*>(
+          wk + static_cast<int64_t>(n0 + n) * G::KP + 16 * v));
+    *reinterpret_cast<uint4*>(w_s + n * G::WS + 16 * v) = val;
   }
-  int res_n0 = -1;
-  for (int t = blockIdx.x; t < total; t += gridDim.x) {
-    int r = t;
-    const int n0 = r % tiles_n * BN;
-    r /= tiles_n;
-    const int w0 = r % tiles_w * TW;
-    r /= tiles_w;
-    const int h0 = r % tiles_h * TH;
-    const int img = r / tiles_h;
-    __syncthreads();  // the last tile's reads of the patch (and weights)
-    if (n0 != res_n0) {
-      res_n0 = n0;
-      for (int i = threadIdx.x; i < BN * Kp; i += THREADS) {
-        const int n = i / Kp, k = i % Kp;
-        w_s[n * wstride + k] =
-            n0 + n < Cout ? wk[static_cast<int64_t>(n0 + n) * Kp + k] : 0;
+  for (int i = threadIdx.x; i < 2 * G::BUF / 16; i += THREADS)
+    reinterpret_cast<uint4*>(patch)[i] = make_uint4(0, 0, 0, 0);
+  for (int c = threadIdx.x; c < BN; c += THREADS) {
+    const bool in = n0 + c < Cout;
+    ssc[c] = in ? __fmul_rn(s_x, s_w[n0 + c]) : 0.f;
+    sbb[c] = in ? b_eff[n0 + c] : 0.f;
+  }
+  __syncthreads();  // the zeros before any patch byte
+
+  // Patch row pr of tile (img, h0, w0) is input row h0 + pr - 1, columns
+  // w0 - 1 .. w0 + TW: PW x Cin bytes, contiguous in NHWC from byte grs.
+  // Its 16-byte chunks (aligned in x) are loaded as vectors into
+  // registers; a chunk that straddles the image's edge (a halo column
+  // outside the image, or the row before or after) loads only its bytes
+  // inside it, and rows outside the image load nothing: what is not
+  // loaded is zero.
+  const int L = PW * Cin;
+  uint4 pre[G::LPT];
+  auto fetch = [&](int t) {
+    int img, h0, w0;
+    origin(t, img, h0, w0);
+#pragma unroll
+    for (int j = 0; j < G::LPT; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      pre[j] = make_uint4(0, 0, 0, 0);
+      const int pr = i / G::CPR, q = i % G::CPR;
+      const int h = h0 + pr - 1;
+      if (i >= G::ITEMS || h < 0 || h >= H) continue;
+      const int64_t rowpix = (static_cast<int64_t>(img) * H + h) * W;
+      const int64_t grs = (rowpix + w0 - 1) * Cin;
+      const int64_t g0 = (grs & ~static_cast<int64_t>(15)) + 16 * q;
+      const int64_t e0 = (rowpix + max(w0 - 1, 0)) * Cin;
+      const int64_t e1 = (rowpix + min(w0 + TW + 1, W)) * Cin;
+      if (g0 >= e0 && g0 + 16 <= e1) {
+        pre[j] = __ldg(reinterpret_cast<const uint4*>(x + g0));
+      } else if (g0 + 16 > e0 && g0 < e1) {
+        uint32_t v[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int u = 0; u < 16; ++u)
+          if (g0 + u >= e0 && g0 + u < e1)
+            v[u / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(
+                            __ldg(x + g0 + u)))
+                        << (8 * (u % 4));
+        pre[j] = make_uint4(v[0], v[1], v[2], v[3]);
       }
     }
-    for (int i = threadIdx.x; i < (TH + 2) * prow; i += THREADS) {
-      const int pr = i / prow, rem = i % prow;
-      const int h = h0 - 1 + pr, ww = w0 - 1 + rem / Cin;
-      int8_t v = 0;
-      if (h >= 0 && h < H && ww >= 0 && ww < W)
-        v = x[((static_cast<int64_t>(img) * H + h) * W + ww) * Cin +
-              rem % Cin];
-      patch[i] = v;
-    }
-    __syncthreads();
-
-    int acc[2][8][4];
+  };
+  // ... and written to the patch: byte d of the row (0 <= d < L) is pixel
+  // d / Cin's channel d % Cin, at (d / Cin) * C4 + d % Cin
+  auto put = [&](int t, unsigned char* buf) {
+    int img, h0, w0;
+    origin(t, img, h0, w0);
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int j = 0; j < G::LPT; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      if (i >= G::ITEMS) continue;
+      const int pr = i / G::CPR, q = i % G::CPR;
+      const int64_t grs =
+          ((static_cast<int64_t>(img) * H + h0 + pr - 1) * W + w0 - 1) * Cin;
+      const int d0 = 16 * q - static_cast<int>(grs & 15);
+      if (d0 >= L || d0 + 16 <= 0) continue;
+      unsigned char* row = buf + pr * G::RS;
+      const uint32_t v[4] = {pre[j].x, pre[j].y, pre[j].z, pre[j].w};
+      const int u0 = d0 < 0 ? -d0 : 0;  // the chunk's first byte in the row
+      int px = (d0 + u0) / Cin, ci = d0 + u0 - px * Cin;
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        if (u < u0 || d0 + u >= L) continue;
+        row[px * C4 + ci] = static_cast<unsigned char>(v[u / 4] >>
+                                                       (8 * (u % 4)));
+        if (++ci == Cin) {
+          ci = 0;
+          ++px;
+        }
+      }
+    }
+  };
+
+  // byte offsets in the patch of this lane's A words per k32 step: k = 32
+  // s + 4 tq (a0, a1: pixels g, g + 8) and k + 16 (a2, a3)
+  int off[G::KSTEPS][2];
+#pragma unroll
+  for (int s = 0; s < G::KSTEPS; ++s)
+#pragma unroll
+    for (int hk = 0; hk < 2; ++hk)
+      off[s][hk] = koff<C4>(32 * s + 16 * hk + 4 * tq);
+  unsigned char* st = smem + warp * STAGE_WARP;
+
+  int t = blockIdx.x;
+  if (t < total) {
+    fetch(t);
+    put(t, patch);
+  }
+  __syncthreads();  // weights, zeros and the first patch
+  for (int it = 0; t < total; t += gridDim.x, ++it) {
+    const int tn = t + gridDim.x;
+    if (tn < total) fetch(tn);  // in flight while this tile computes
+
+    // Implicit GEMM: warp ``warp`` computes output row h0 + warp, TW
+    // pixels (MT m16 tiles) x 64 channels; A words from the patch at
+    // each packed k, B words from the resident weights.
+    int acc[MT][8][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[m][nt][i] = 0;
-    const int rowbase = warp * prow;  // the warp's output row's patch row
-    for (int ks = 0; ks < Kp / 32; ++ks) {
-      int kof[2][4];  // offsets of k = 32 ks + 16 hk + 4 tq + e
+        for (int e = 0; e < 4; ++e) acc[m][nt][e] = 0;
+    const uint32_t pix =
+        smem_u32(patch + (it & 1) * G::BUF) + warp * G::RS + g * C4;
 #pragma unroll
-      for (int hk = 0; hk < 2; ++hk)
+    for (int s = 0; s < G::KSTEPS; ++s) {
+      uint32_t a[MT][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          kof[hk][e] = koff[ks * 32 + 16 * hk + 4 * tq + e];
-      uint32_t a[2][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          // a0 (g, k 4t..), a1 (g + 8, k 4t..), a2 (g, k 16 + 4t..), a3
-          const int base = rowbase + (m * 16 + g + 8 * (q & 1)) * Cin;
-          uint32_t v = 0;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int o = kof[q >> 1][e];
-            const uint32_t byte =
-                o >= 0 ? static_cast<uint8_t>(patch[base + o]) : 0u;
-            v |= byte << (8 * e);
-          }
-          a[m][q] = v;
-        }
+      for (int m = 0; m < MT; ++m) {
+        const uint32_t p0 = pix + 16 * m * C4, p1 = p0 + 8 * C4;
+        a[m][0] = lds32(p0 + off[s][0]);
+        a[m][1] = lds32(p1 + off[s][0]);
+        a[m][2] = lds32(p0 + off[s][1]);
+        a[m][3] = lds32(p1 + off[s][1]);
+      }
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
-        const int8_t* wr = w_s + (nt * 8 + g) * wstride + ks * 32 + 4 * tq;
+        const unsigned char* wr = w_s + (nt * 8 + g) * G::WS + 32 * s + 4 * tq;
         const uint32_t b0 = *reinterpret_cast<const uint32_t*>(wr);
         const uint32_t b1 = *reinterpret_cast<const uint32_t*>(wr + 16);
 #pragma unroll
-        for (int m = 0; m < 2; ++m) mma_s8(acc[m][nt], a[m], b0, b1);
+        for (int m = 0; m < MT; ++m) mma_s8(acc[m][nt], a[m], b0, b1);
       }
     }
 
-    const int h = h0 + warp;
-    if (h >= H) continue;
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const int wc = w0 + m * 16;
-      if (wc >= W) break;
-      const int64_t pix0 = (static_cast<int64_t>(img) * H + h) * W + wc;
-      const int np = min(16, W - wc);
-      if (mode == 0)
-        store_tile<0>(acc[m], st, out, pix0, np, n0, Cout, lane, s_w, b_eff,
-                      s_x, s_out, r_out);
-      else if (mode == 1)
-        store_tile<1>(acc[m], st, out, pix0, np, n0, Cout, lane, s_w, b_eff,
-                      s_x, s_out, r_out);
-      else
-        store_tile<2>(acc[m], st, out, pix0, np, n0, Cout, lane, s_w, b_eff,
-                      s_x, s_out, r_out);
-    }
+    int img, h0, w0;
+    origin(t, img, h0, w0);
+    staging_free<0>(lane);  // the last tile's store has read the buffer
+    if (mode == 0)
+      packed_row<0>(acc, st, &omap, out, tma, img, h0 + warp, w0, n0, H, W,
+                    Cout, lane, ssc, sbb, s_out, r_out);
+    else if (mode == 1)
+      packed_row<1>(acc, st, &omap, out, tma, img, h0 + warp, w0, n0, H, W,
+                    Cout, lane, ssc, sbb, s_out, r_out);
+    else
+      packed_row<2>(acc, st, &omap, out, tma, img, h0 + warp, w0, n0, H, W,
+                    Cout, lane, ssc, sbb, s_out, r_out);
+
+    if (tn < total) put(tn, patch + ((it + 1) & 1) * G::BUF);
+    __syncthreads();  // the next patch is in place; this one may go
   }
+  if (lane == 0) sm90::bulk_wait<0, false>();  // the stores are done
+}
+
+template <int C4>
+cudaError_t launch(const int8_t* x, const int8_t* wk, const float* s_w,
+                   const float* b_eff, const float* s_x, const float* s_out,
+                   void* out, int mode, int N, int H, int W, int Cin,
+                   int Cout, cudaStream_t st) {
+  using G = Geo<C4>;
+  CUtensorMap omap{};
+  const bool tma = tma_ok(mode, Cout);
+  if (tma && !encode_out_map(&omap, out, mode, N, H, W, Cout, TW))
+    return cudaErrorInvalidValue;
+  auto kern = conv3x3_int8_packed_kernel<C4>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, THREADS, G::SMEM)) != cudaSuccess)
+    return err;
+  const int64_t tiles_n = (Cout + BN - 1) / BN;
+  const int64_t tiles = static_cast<int64_t>(N) * ((H + TH - 1) / TH) *
+                        ((W + TW - 1) / TW) * tiles_n;
+  if (tiles > 2147483647LL) return cudaErrorInvalidConfiguration;
+  // persistent: the blocks that fit at once, a multiple of the channel
+  // tiles so that each block's weights stay resident
+  const int64_t fit = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  int64_t grid = (tiles < fit ? tiles : fit) / tiles_n * tiles_n;
+  if (grid < tiles_n) grid = tiles_n;
+  kern<<<static_cast<unsigned>(grid), THREADS, G::SMEM, st>>>(
+      omap, x, wk, s_w, b_eff, s_x, s_out, out, mode, tma ? 1 : 0, N, H, W,
+      Cin, Cout);
+  return cudaGetLastError();
 }
 
 cudaError_t run(const int8_t* x, const int8_t* wk, const float* s_w,
                 const float* b_eff, const float* s_x, const float* s_out,
                 void* out, int mode, int N, int H, int W, int Cin, int Cout,
                 cudaStream_t st) {
-  const int64_t tiles = static_cast<int64_t>(N) * ((H + TH - 1) / TH) *
-                        ((W + TW - 1) / TW) * ((Cout + BN - 1) / BN);
-  if (tiles > 2147483647LL) return cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_int8_packed_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
-  const int64_t cap = static_cast<int64_t>(sms) * BLOCKS_PER_SM;
-  const int grid = static_cast<int>(tiles < cap ? tiles : cap);
-  conv3x3_int8_packed_kernel<<<grid, THREADS, SMEM, st>>>(
-      x, wk, s_w, b_eff, s_x, s_out, out, mode, N, H, W, Cin, Cout);
-  return cudaGetLastError();
+#define PACKED_CASE(C4)                                                   \
+  case C4:                                                                \
+    return launch<C4>(x, wk, s_w, b_eff, s_x, s_out, out, mode, N, H, W, \
+                      Cin, Cout, st);
+  switch (cin4(Cin)) {
+    PACKED_CASE(4) PACKED_CASE(8) PACKED_CASE(12) PACKED_CASE(16)
+    PACKED_CASE(20) PACKED_CASE(24) PACKED_CASE(28) PACKED_CASE(32)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PACKED_CASE
 }
 
 }  // namespace packed
@@ -984,17 +1214,17 @@ cudaError_t run(const void* x, const float* s, int8_t* out, int64_t n,
 
 }  // namespace
 
-// The path that takes Cin: 1 wgmma (Cin % 32 == 0), 2 packed (Cin < 32),
-// 0 none (the wrapper refuses such a call). fused_conv_int8.int8_path
-// holds the same rule.
+// The path that takes Cin: 1 wgmma (Cin % 16 == 0 from 32), 2 packed (Cin
+// < 32), 0 none (the wrapper refuses such a call). fused_conv_int8.
+// int8_path holds the same rule.
 extern "C" int conv3x3_int8_path(int Cin) {
   if (Cin <= 0) return 0;
-  if (Cin % 32 == 0) return 1;
-  return Cin <= packed::MAX_CIN ? 2 : 0;
+  if (Cin <= packed::MAX_CIN) return 2;
+  return Cin % 16 == 0 ? 1 : 0;
 }
 
-// The packed path's K (9 x Cin in whole k32 steps): the repacked weights'
-// row length there.
+// The packed path's K (9 x Cin4 in whole k32 steps): the repacked
+// weights' row length there.
 extern "C" int conv3x3_int8_packed_k(int Cin) { return packed::kp(Cin); }
 
 // out (N,H,W,Cout) <- x (N,H,W,Cin) int8, the repacked weights wk, s_w and

@@ -22,9 +22,10 @@ quant.py:246) fused with ``quantized_block_apply``'s epilogue (quant.py:261):
   the divisors as tensors on the data's device (a CUDA division by a CPU
   scalar multiplies by its reciprocal). The kernel equals it bit for bit.
 - The kernel's paths (``int8_path``, the .cu's ``conv3x3_int8_path``):
-  "wgmma" for Cin % 32 == 0, "packed" for Cin < 32 (the Cin = 3 stem, narrow
-  widths); any other Cin raises. Any Cout: the weights are zero-padded to
-  the tile and the padded columns are not stored.
+  "wgmma" for Cin % 16 == 0 from 32 (TMA's 16-byte row stride; width 3/4
+  models have Cin 48, 96, ...), "packed" for Cin < 32 (the Cin = 3 stem,
+  narrow widths); any other Cin raises. Any Cout: the weights are
+  zero-padded to the tile and the padded columns are not stored.
 - ``pack_weights`` repacks HWIO ``w_q`` once, K-major as the kernel reads
   it; the quantized block caches the result (``ops/conv.py``).
 - ``quantize`` is the blocks' input quantize (clip(round(x / s)) to int8,
@@ -58,17 +59,24 @@ PACKED_MAX_CIN = 31
 
 
 def int8_path(cin: int) -> str:
-    """The kernel path that takes an input of ``cin`` channels: "wgmma"
-    (Cin % 32 == 0: TMA rows of whole k32 steps), "packed" (Cin < 32: 9
-    taps x Cin packed into K), "none" (the wrapper refuses it)."""
-    if cin > 0 and cin % 32 == 0:
-        return "wgmma"
-    return "packed" if 0 < cin <= PACKED_MAX_CIN else "none"
+    """The kernel path that takes an input of ``cin`` channels: "packed"
+    (Cin < 32: 9 taps x Cin packed into K), "wgmma" (Cin % 16 == 0 from 32:
+    TMA rows, a 16-byte stride; the last k32 step takes TMA's zeros past
+    Cin), "none" (the wrapper refuses it)."""
+    if 0 < cin <= PACKED_MAX_CIN:
+        return "packed"
+    return "wgmma" if cin > 0 and cin % 16 == 0 else "none"
+
+
+def packed_cin(cin: int) -> int:
+    """The packed path's channels a pixel and a tap: Cin rounded up to a
+    multiple of 4, so that one 32-bit A word is one pixel's 4 channels."""
+    return -(-cin // 4) * 4
 
 
 def packed_k(cin: int) -> int:
-    """The packed path's K: 9 taps x Cin in whole k32 steps."""
-    return -(-9 * cin // 32) * 32
+    """The packed path's K: 9 taps x ``packed_cin`` in whole k32 steps."""
+    return -(-9 * packed_cin(cin) // 32) * 32
 
 
 def quantize_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -81,16 +89,19 @@ def quantize_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 def pack_weights(w_q: torch.Tensor) -> torch.Tensor:
     """HWIO int8 (3,3,Cin,Cout) -> the kernel's K-major layout: (9, Cout,
-    Cin) on the wgmma path; (Cout, Kp) with k = tap * Cin + ci, zero-padded
+    Cin) on the wgmma path; (Cout, Kp) with k = tap * Cin4 + ci (Cin4 =
+    ``packed_cin(Cin)``, each tap's channels zero-padded to it), zero-padded
     to ``packed_k(Cin)``, on the packed path."""
     cin, cout = w_q.shape[2], w_q.shape[3]
     path = int8_path(cin)
     if path == "wgmma":
         return w_q.reshape(9, cin, cout).transpose(1, 2).contiguous()
     if path == "packed":
-        k = w_q.reshape(9 * cin, cout).t()
-        return F.pad(k, (0, packed_k(cin) - 9 * cin)).contiguous()
-    raise ValueError(f"conv3x3_int8 takes Cin % 32 == 0 or Cin < 32, got "
+        c4 = packed_cin(cin)
+        k = F.pad(w_q.reshape(9, cin, cout), (0, 0, 0, c4 - cin))
+        k = k.reshape(9 * c4, cout).t()
+        return F.pad(k, (0, packed_k(cin) - 9 * c4)).contiguous()
+    raise ValueError(f"conv3x3_int8 takes Cin % 16 == 0 or Cin < 32, got "
                      f"Cin {cin}")
 
 
@@ -184,7 +195,7 @@ def _check(x_q, w_q, s_w, s_x, b_eff, s_out, out_dtype, packed):
                          "given")
     path = int8_path(cin)
     if path == "none":
-        raise ValueError(f"conv3x3_int8 takes Cin % 32 == 0 or Cin < 32, "
+        raise ValueError(f"conv3x3_int8 takes Cin % 16 == 0 or Cin < 32, "
                          f"got Cin {cin}")
     want = ((9, cout, cin) if path == "wgmma"
             else (cout, packed_k(cin)))

@@ -219,17 +219,17 @@ def test_requantize_divides():
     assert not torch.equal(q, by_recip)
 
 
-@pytest.mark.parametrize("cin", [1, 3, 4, 16, 31, 32, 64, 96])
+@pytest.mark.parametrize("cin", [1, 3, 4, 16, 31, 32, 48, 64, 96])
 def test_int8_path_rule(cin):
-    want = "wgmma" if cin % 32 == 0 else "packed"
+    want = "packed" if cin < 32 else "wgmma"
     assert fq.int8_path(cin) == want
     assert fq.packed_k(cin) % 32 == 0 and fq.packed_k(cin) >= 9 * cin
 
 
-@pytest.mark.parametrize("cin", [33, 48, 100])
+@pytest.mark.parametrize("cin", [33, 40, 100])
 def test_int8_path_refuses(cin):
     assert fq.int8_path(cin) == "none"
-    with pytest.raises(ValueError, match="Cin % 32"):
+    with pytest.raises(ValueError, match="Cin % 16"):
         fq.pack_weights(torch.zeros((3, 3, cin, 8), dtype=torch.int8))
 
 
@@ -241,50 +241,188 @@ def _shifted(x, dy, dx):
     return p[:, dy: dy + h, dx: dx + w]
 
 
-@pytest.mark.parametrize("cin,cout", [(32, 24), (64, 8)])
+def _tma_swizzle(off, span):
+    """The shared-memory byte at which TMA puts byte ``off`` of a box
+    written with the ``span``-byte swizzle (128 or 64): the 16-byte chunk
+    index XORed with the low bits of the 128-byte line's."""
+    mask = 7 if span == 128 else 3
+    return off ^ (((off >> 7) & mask) << 4)
+
+
+def _kernel_swz(row, chunk, kc):
+    """conv3x3_int8.cu's ``wg::swz<KC>``: the byte of 16-byte chunk
+    ``chunk`` of box row ``row`` (a patch pixel) that ldmatrix reads."""
+    if kc == 128:
+        return row * 128 + (((chunk ^ row) & 7) << 4)
+    return row * 64 + (((chunk ^ (row >> 1)) & 3) << 4)
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 24), (64, 8), (48, 16),
+                                      (192, 40)])
 def test_wgmma_layout_model(cin, cout):
-    """A numpy model of the wgmma path's reads: tap t's (Cout, Cin) slice of
-    the packed weights against the input shifted by the tap, summed over
-    taps, equals conv2d_int8."""
-    rng = np.random.default_rng(cin)
-    x = rng.integers(-127, 128, (1, 5, 6, cin), dtype=np.int8)
+    """A numpy model of the wgmma path's reads: per chunk of KC channels
+    (64 up to Cin 64, else 128), TMA's swizzled box of the patch with zeros
+    past Cin; each k32 step's A row read at the kernel's ldmatrix
+    addresses (``swz<KC>``) of the tap's shifted pixel, against the (tap,
+    chunk) slice of the packed weights; summed over taps, chunks and
+    steps, it equals conv2d_int8."""
+    rng = np.random.default_rng(cin + cout)
+    h, w = 5, 6
+    x = rng.integers(-127, 128, (1, h, w, cin), dtype=np.int8)
     wq = rng.integers(-127, 128, (3, 3, cin, cout), dtype=np.int8)
     wk = fq.pack_weights(torch.from_numpy(wq)).numpy()
     assert wk.shape == (9, cout, cin)
-    acc = sum(_shifted(x, t // 3, t % 3) @ wk[t].T.astype(np.int64)
-              for t in range(9))
+    kc = 64 if cin <= 64 else 128
+    nch = -(-cin // kc)
+    pw = w + 2
+    xp = np.zeros((h + 2, pw, nch * kc), np.int64)
+    xp[1:-1, 1:-1, :cin] = x[0]
+    wp = np.zeros((9, cout, nch * kc), np.int64)
+    wp[..., :cin] = wk
+    oy, ox = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    acc = np.zeros((h, w, cout), np.int64)
+    for c in range(nch):
+        box = xp[..., c * kc:(c + 1) * kc].reshape(-1)
+        smem = np.zeros_like(box)
+        smem[_tma_swizzle(np.arange(box.size), kc)] = box
+        for t in range(9):
+            row = (oy + t // 3) * pw + ox + t % 3
+            for s in range(kc // 32):
+                a = np.concatenate(
+                    [smem[_kernel_swz(row, 2 * s + hf, kc)[..., None]
+                          + np.arange(16)] for hf in range(2)], axis=-1)
+                acc += a @ wp[t, :, c * kc + 32 * s:c * kc + 32 * s + 32].T
     want = tq.conv2d_int8(torch.from_numpy(x), torch.from_numpy(wq))
-    np.testing.assert_array_equal(acc, want.numpy())
+    np.testing.assert_array_equal(acc, want[0].numpy())
+
+
+def _stage_off(mode, np_, p, c):
+    """conv3x3_int8.cu's ``stage_off<MODE, NP>``: the byte of (pixel p,
+    channel c) in a warp's staged output row."""
+    if mode == 0:
+        return p * 64 + ((((c >> 4) ^ (p >> 1)) & 3) << 4) + (c & 15)
+    if mode == 1:
+        return p * 128 + ((((c >> 3) ^ p) & 7) << 4) + ((c & 7) << 1)
+    return ((c >> 5) * (np_ * 128) + p * 128
+            + (((((c & 31) >> 2) ^ p) & 7) << 4) + ((c & 3) << 2))
+
+
+@pytest.mark.parametrize("np_", [16, 32])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_output_staging_model(mode, np_):
+    """The staged output row is the TMA store's box as TMA reads it: int8
+    one box of 64-byte rows (64-byte swizzle), bf16 one of 128-byte rows
+    and f32 two of 32 channels (128-byte swizzle); every (pixel, channel)
+    has its own bytes, and the 8 pixels of an accumulator fragment (same
+    channel) fall in 8 different 16-byte chunks' banks."""
+    ob = (1, 2, 4)[mode]
+    p, c = np.meshgrid(np.arange(np_), np.arange(64), indexing="ij")
+    got = _stage_off(mode, np_, p, c)
+    if mode < 2:
+        span = 64 * ob
+        want = _tma_swizzle(p * span + c * ob, span)
+    else:
+        want = (c >> 5) * np_ * 128 + _tma_swizzle(p * 128 + (c & 31) * 4,
+                                                   128)
+    np.testing.assert_array_equal(got, want)
+    for c0 in range(0, 64, 2):
+        banks = (_stage_off(mode, np_, np.arange(8), c0) // 4) % 32
+        assert len(set(banks)) == 8
+
+
+def _packed_patch(x, h0, w0, c4):
+    """The packed kernel's patch of the tile at (h0, w0), built as the
+    kernel builds it: each of the 10 rows, (32 + 2) x Cin bytes of NHWC x
+    from byte grs, read in 16-byte chunks aligned in x (a chunk across the
+    image's edge bytewise, rows outside the image not at all) and scattered
+    to pixel d // Cin, channel d % Cin of a row of 34 x Cin4 bytes."""
+    _, hh, ww, cin = x.shape
+    flat = x.reshape(-1).astype(np.int64)
+    rs = 34 * c4
+    patch = np.zeros((10, rs), np.int64)
+    for pr in range(10):
+        hr = h0 + pr - 1
+        if not 0 <= hr < hh:
+            continue
+        rowpix = hr * ww
+        grs = (rowpix + w0 - 1) * cin
+        e0 = (rowpix + max(w0 - 1, 0)) * cin
+        e1 = (rowpix + min(w0 + 33, ww)) * cin
+        for q in range(((grs & 15) + 34 * cin + 15) // 16):
+            g0 = (grs & ~15) + 16 * q
+            chunk = [flat[g] if e0 <= g < e1 else 0
+                     for g in range(g0, g0 + 16)]
+            for u, v in enumerate(chunk):
+                d = g0 + u - grs
+                if 0 <= d < 34 * cin:
+                    patch[pr, d // cin * c4 + d % cin] = v
+    return patch.reshape(-1)
 
 
 @pytest.mark.parametrize("cin,cout", [(3, 64), (4, 12), (16, 8), (31, 21)])
 def test_packed_layout_model(cin, cout):
-    """A numpy model of the packed path: the patch offset table of packed k
-    (k = tap * Cin + ci, -1 past 9 * Cin) gathers each pixel's A row from
-    a (rows + 2) x (34) x Cin patch; its product with the packed (Cout, Kp)
-    weights equals conv2d_int8."""
+    """A numpy model of the packed path: the patch as the kernel builds it
+    (``_packed_patch``: pixels of Cin4 bytes, the pad channels zero) at a
+    tile inside the image and one across its right and bottom edges; each
+    pixel's A row gathered as 4-byte words at the per-lane offsets of
+    packed k (k = tap * Cin4 + ci, any word past 9 * Cin4); its product
+    with the packed (Cout, Kp) weights equals conv2d_int8."""
     rng = np.random.default_rng(cin + cout)
-    h, w = 8, 32
+    h, w = 11, 45
     x = rng.integers(-127, 128, (1, h, w, cin), dtype=np.int8)
     wq = rng.integers(-127, 128, (3, 3, cin, cout), dtype=np.int8)
-    wk = fq.pack_weights(torch.from_numpy(wq)).numpy()
-    kp = fq.packed_k(cin)
-    assert wk.shape == (cout, kp) and not wk[:, 9 * cin:].any()
-    pw = w + 2
-    koff = np.full(kp, -1)
-    for k in range(9 * cin):
-        tap = k // cin
-        koff[k] = ((tap // 3) * pw + tap % 3) * cin + k % cin
-    patch = np.zeros((h + 2, pw, cin), np.int64)
-    patch[1:-1, 1:-1] = x[0]
-    flat = np.concatenate([patch.reshape(-1), [0]])   # [-1]: the zero
-    acc = np.zeros((h, w, cout), np.int64)
-    for r in range(h):
-        for c in range(w):
-            a = flat[np.where(koff >= 0, r * pw * cin + c * cin + koff, -1)]
-            acc[r, c] = wk.astype(np.int64) @ a
-    want = tq.conv2d_int8(torch.from_numpy(x), torch.from_numpy(wq))
-    np.testing.assert_array_equal(acc, want[0].numpy())
+    wk = fq.pack_weights(torch.from_numpy(wq)).numpy().astype(np.int64)
+    c4, kp = fq.packed_cin(cin), fq.packed_k(cin)
+    assert wk.shape == (cout, kp) and not wk[:, 9 * c4:].any()
+    assert not wk[:, :9 * c4].reshape(cout, 9, c4)[..., cin:].any()
+    rs = 34 * c4
+
+    def koff(k):
+        if k >= 9 * c4:
+            return 0
+        tap, ci = divmod(k, c4)
+        return (tap // 3) * rs + (tap % 3) * c4 + ci
+
+    offs = np.array([koff(k) for k in range(0, kp, 4)])
+    want = tq.conv2d_int8(torch.from_numpy(x), torch.from_numpy(wq))[0]
+    for h0, w0 in ((0, 0), (8, 32)):
+        patch = _packed_patch(x, h0, w0, c4)
+        for r in range(min(8, h - h0)):
+            for c in range(min(32, w - w0)):
+                base = r * rs + c * c4
+                a = patch[base + offs[:, None] + np.arange(4)].reshape(-1)
+                np.testing.assert_array_equal(wk @ a,
+                                              want[h0 + r, w0 + c].numpy())
+
+
+def _width_three_quarter_shapes():
+    """(H, W, Cin, Cout) of the int8 blocks of a width-3/4 UNet at 45x60
+    (Cin 48, 96, 192, 384, 768), each once."""
+    from pytorch_camvid_tpu_torch import bench
+    from pytorch_camvid_tpu_torch.models import get_model
+    spec = get_model("unet", 3, 12, width_mult=0.75).spec
+    return sorted(set(bench.block_shapes("unet", (45, 60), spec)))
+
+
+@pytest.mark.parametrize("h,w,cin,cout", _width_three_quarter_shapes())
+def test_width_three_quarter_unet_blocks(h, w, cin, cout):
+    """Every block of a width-3/4 UNet takes a kernel path (no Cin is
+    refused), and its quantized block, int8 in and int8 out, matches JAX's
+    ``quantized_block_apply`` (within 1 LSB on at most 0.1% of the values,
+    as ``test_quantized_block_apply``)."""
+    assert fq.int8_path(cin) != "none"
+    rng = np.random.default_rng(h * w + cin + cout)
+    q = _qparams(rng, cin, cout, s_out=True)
+    x = rng.integers(-127, 128, (1, h, w, cin), dtype=np.int8)
+    want = np.asarray(jq.quantized_block_apply(
+        {k: jnp.asarray(v) for k, v in q.items()}, jnp.asarray(x),
+        jnp.bfloat16).astype(jnp.int8))
+    qt = {k: torch.from_numpy(np.array(v)) for k, v in q.items()}
+    assert fq.pack_weights(qt["w_q"]).dtype == torch.int8
+    got = tq.quantized_block_apply(qt, torch.from_numpy(x), torch.bfloat16)
+    assert got.dtype == torch.int8
+    d = np.abs(got.numpy().astype(int) - want.astype(int))
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-3, (d > 0).mean()
 
 
 def _qblock(cls=ConvBNReLU, cin=8, cout=16, s_out=False):
