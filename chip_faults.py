@@ -40,9 +40,11 @@ library; so are the int8 block's and K3's int8 faults, ``INT8_FAULTS``:
 the requantize by the reciprocal alone, the epilogue contracted to an
 FMA, the pool keeping the last maximum of a tie, the input quantize by
 the reciprocal, the ping-pong's second warpgroup storing at the first
-one's tile, the stem's packed-k offsets one word on; the int8 weights
-without
-the K-major repack patch ``fused_conv_int8.pack_weights``), and phase 17's
+one's tile, the stem's packed-k offsets one word on, x's tensor map over
+the padded channels past Cin (with the wrapper's padded buffers holding
+1s there, ``padded_ones``); the int8 weights without the K-major repack,
+or with 1s in place of their zero columns past Cin, patch
+``fused_conv_int8.pack_weights``), and phase 17's
 checks of two ranks sharing the card (``dp_phase`` on UNet: the
 data-parallel step against the one-process step, the ranks against each
 other, and the H-sharded stage against the unsharded one). The ranks are
@@ -513,6 +515,11 @@ INT8_FAULTS = {
     "stem_koff_shifted": (fused_conv_int8, [(
         "  return (tap / 3) * Geo<C4>::RS + (tap % 3) * C4 + ci;",
         "  return (tap / 3) * Geo<C4>::RS + (tap % 3) * C4 + ci + 4;")]),
+    # x's tensor map reading the padded layout's channels past Cin (extent
+    # Cs where it is Cin): with ``padded_ones`` the buffer holds 1s there
+    "x_extent_cs": (fused_conv_int8, [(
+        "  const uint64_t xd[4] = {static_cast<uint64_t>(Cin),",
+        "  const uint64_t xd[4] = {cs,")]),
     # the input quantize multiplying by 1/s instead of dividing by s
     "reciprocal_quantize": (fused_conv_int8, [(
         "  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), "
@@ -575,6 +582,32 @@ def weights_hwio(w_q):
 
 
 _pack_weights = fused_conv_int8.pack_weights
+
+
+def weights_ones_past_cin(w_q):
+    """``pack_weights``' layout with 1s where its wgmma layout has its zero
+    columns past Cin."""
+    k = _pack_weights(w_q).clone()
+    if fused_conv_int8.int8_path(w_q.shape[2]) == "wgmma":
+        k[..., w_q.shape[2]:] = 1
+    return k
+
+
+def ones_block_input(shape, device):
+    """``empty_block_input``'s layout with its buffer filled with 1s (the
+    channels past Cin included)."""
+    n, h, w, cin = shape
+    return torch.ones((n, h, w, fused_conv_int8.pixel_stride(cin)),
+                      dtype=torch.int8, device=device)[..., :cin]
+
+
+@contextlib.contextmanager
+def padded_ones():
+    """x's tensor map over the whole padded pixel (``x_extent_cs``) and the
+    wrapper's padded buffers holding 1s past Cin (``ones_block_input``)."""
+    with int8_fault("x_extent_cs"), planted(
+            fused_conv_int8, "empty_block_input", ones_block_input):
+        yield
 
 
 # ------------------------------------------- faults run inside the ranks
@@ -794,6 +827,12 @@ def fault_cases() -> list:
          "first one's tile", lambda: int8_fault("pingpong_other_tile")),
         ("int8", "the int8 stem's packed-k offsets one A word (4 channels) "
          "on", lambda: int8_fault("stem_koff_shifted")),
+        ("int8", "x's tensor map reading the padded channels past Cin, the "
+         "padded buffer holding 1s there", padded_ones),
+        ("int8", "the int8 wgmma weights packed without their zero columns "
+         "past Cin (1s there)",
+         lambda: planted(fused_conv_int8, "pack_weights",
+                         weights_ones_past_cin)),
         ("multi-GPU", "rank 1 keeping its own gradients after the "
          "all-reduce", lambda: in_ranks(rank1_keeps_its_gradients)),
         ("multi-GPU", "sync-BN on each rank's own moments",

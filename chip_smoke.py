@@ -16,7 +16,8 @@ Phases (each prints its lines; any failure exits non-zero):
    dW: wgmma, packed or narrow) as the wrappers' rules
    (``fused_conv.conv_path``, ``conv_train.wgrad_path``) at every (Cin,
    Cout) the phases below run, that the int8 library picks the wrapper's
-   path (``fused_conv_int8.int8_path``) and packed K at each Cin, that the
+   path (``fused_conv_int8.int8_path``), pixel stride and packed K at
+   each Cin from -1 to 149, that the
    f32 dW library's tile counts are
    its split rule's (``conv_train.wgrad_f32_*``), that the f32 library
    picks the wrappers' f32 routes ("f32", wgmma; "f32_packed", wgmma with
@@ -236,17 +237,30 @@ Phases (each prints its lines; any failure exits non-zero):
    21-class heads in int8, Cout 24 and 200, Cin 192), at ``INT8_CIN48``
    (a width-3/4 model's Cin 48 and 96, which the wgmma path takes with
    TMA's zeros past Cin) and on the batch views of ``INT8_VIEW`` (the
-   stem's 45x61 ``x[1:]`` off a 16-byte boundary); a Cin 40 raises; per
+   stem's 45x61 ``x[1:]`` off a 16-byte boundary); at ``INT8_ODD`` (Cin
+   33, 36, 40, 72 and 100: x at the padded pixel stride), there also with
+   the channels past Cin set to 1 in x's buffer and in the packed weights
+   (``poisoned``), their launches on the wgmma path, and the packed
+   weights' zero columns (``padded_weights_ok``); a Cin 0 raises; the
+   padded route's cost at ``INT8_ODD_TIMED`` (device-busy: the kernel on
+   a padded x, from a contiguous one with the wrapper's copy pass, the
+   copy alone, K4 bf16; none under its bound, ``within_bound``); per
    shape the kernel's ms in the int8 and bf16 output modes
    (CUDA events), the plain version's, the bound (operations at 1,979
    TOPS or bytes), K4 bf16, cuDNN's bf16 conv and ``torch._int_mm`` on a
    prebuilt im2col matrix (the GEMM alone); sums over each model's
    quantized blocks in their output modes; the input quantize kernel
-   (bf16 and f32 in, int8 out) bit for bit at ``INT8_QUANTIZE`` and a
+   (bf16 and f32 in, int8 out) bit for bit at ``INT8_QUANTIZE`` (its
+   (N,H,W,C) results at the block's pixel stride) and a
    batch view, ties planted, and timed over each model's quantized inputs
    beside stock ops and its byte bound. (2) K3's pool and unpool on
-   int8 values with ties at SegNet's five pool shapes, bit for bit, with
-   kernel, plain and bound times. (3) Full-width UNet and SegNet
+   int8 values with ties at SegNet's five pool shapes and at C 40, bit for
+   bit; at the five stages the int8 and the bf16 pair's device-busy ms
+   (``perf_probe.time_op``, over inputs that read cold from HBM,
+   ``cold_inputs``; none under the byte bound) beside the wrapper's
+   CUDA-events ms, the plain pair's, the library's and the byte bound, per
+   stage and summed.
+   (3) Full-width UNet and SegNet
    (``he_model``, seed 0) in a b8 Predictor, ``quantize_int8`` on 8
    frames, ``predict`` on 24: conv3x3_int8 once per quantized block a
    forward (22 and 25; the stem on the packed path), K4 once (the float
@@ -256,12 +270,19 @@ Phases (each prints its lines; any failure exits non-zero):
    13 and 1 a forward, inside the same check), the kernel
    path's logits within ``LOGITS_TOL`` of the plain path's; ms a forward
    and img/s beside the bf16 Predictor's, and the share of pixels where
-   the two class maps agree (printed, not held: random weights). (4) The
+   the two class maps agree (printed, not held: random weights). (3b)
+   SegNet at width 5/8 and UNet at 9/16 (``INT8_ODD_WIDTH``) the same
+   way on 8 frames (``odd_width_slice``): their blocks of Cin 40, 36 and
+   72 on the wgmma path, every int8 launch bit-equal to plain and every
+   K4 launch within ``KERNEL_TOL`` of plain on its own inputs
+   (``shadowed_k4``), the logits and the Predictor's maps bit-equal to
+   the path whose int8 pieces run plain (the all-plain path printed
+   beside), the int8 and bf16 forwards' ms. (4) The
    eval CLI's ``-int8`` at its f32 default and the serve CLI's ``-int8``
    on phase 12's caches and run A's checkpoint: finite figures, the int8
    mIoU beside the float one, launches, every eval int8 launch bit-equal
    to plain; and phase 12's ``bench.main`` int8 keys.
-   ``chip_faults.py`` plants five faults under (1) and (2). The quantize
+   ``chip_faults.py`` plants nine faults under (1) and (2). The quantize
    kernel's sums also time the library's call,
    ``torch.quantize_per_tensor`` (on an f32 copy), and print the share of
    its bytes equal to the kernel's.
@@ -361,6 +382,7 @@ import copy
 import glob
 import importlib
 import io
+import itertools
 import json
 import os
 import re
@@ -1642,7 +1664,7 @@ def phase_pair_probe() -> int:
     print(buf.getvalue(), end="", flush=True)
     rows = [json.loads(ln) for ln in buf.getvalue().splitlines()
             if ln.startswith("{")]
-    want = sum(perf_probe.op_calls(PAIR_PROBE_K, r["k"]) for r in rows)
+    want = sum(r["calls"] for r in rows)
     print(f"perf_probe --pair --shapes shallow64: {len(rows)} rows, K5 "
           f"launches {launches} (expected {want})", flush=True)
     check(rc == 0, "perf_probe exit code")
@@ -1774,7 +1796,7 @@ def phase_pair_f32_probe() -> dict:
             for s in PAIR_SHAPES]
     torch.cuda.synchronize()
     launches = fused_conv_pair.conv3x3_pair_bn_relu.dtype_launches["f32"]
-    want = sum(perf_probe.op_calls(PAIR_PROBE_K, r["k"]) for r in rows)
+    want = sum(r["calls"] for r in rows)
     for r in rows:
         print(json.dumps(r), flush=True)
     print(f"perf_probe.probe_shape(pair=True, dtype=float32) at "
@@ -1933,11 +1955,20 @@ def probe_checks(gen: torch.Generator) -> dict:
     return errs
 
 
-def device_ms(fn) -> float:
+def device_ms(fn, bound: float = 0.0) -> float:
     """Device-busy ms per call over ``mosaic_probes.ITERS`` calls after a
-    warm-up (``perf_probe.time_op``, as the probe tool times its kernels)."""
+    warm-up (``perf_probe.time_op``, as the probe tool times its kernels);
+    a trace busy for less than ``bound`` ms a call (the least time the card
+    could take) is taken again."""
     return perf_probe.time_op(fn, mosaic_probes.ITERS,
-                              torch.device("cuda"))[1]
+                              torch.device("cuda"), bound)[1]
+
+
+def within_bound(ms: float, bound: float, what: str) -> None:
+    """Fails unless the reading ``ms`` takes at least the least time the
+    card could take, ``bound`` (a reading under it lost records)."""
+    check(bound <= ms, f"{what}: {ms:.5f} ms at or above its bound "
+                       f"{bound:.5f} ms")
 
 
 def m6_conv_stage() -> None:
@@ -1946,12 +1977,14 @@ def m6_conv_stage() -> None:
     h, wp, c, w = M6_SHAPES[0]
     xp = torch.randn(h, wp, c, generator=torch.Generator(
         device="cuda").manual_seed(SEED), device="cuda")
-    r = {"ms": device_ms(lambda: lp.sum_width_shifts(xp, w)),
+    bound = bound_ms(0, 4 * h * c * (2 * w + 2))[0]
+    r = {"ms": device_ms(lambda: lp.sum_width_shifts(xp, w), bound),
          "events_ms": cuda_ms(lambda: lp.sum_width_shifts(xp, w)),
-         "plain_ms": device_ms(lambda: lp.sum_width_shifts_plain(xp, w)),
+         "plain_ms": device_ms(lambda: lp.sum_width_shifts_plain(xp, w),
+                               bound),
          "library_ms": device_ms(
-             lambda: xp.unfold(1, 3, 1)[:, :w].sum(-1)),
-         "bound_ms": bound_ms(0, 4 * h * c * (2 * w + 2))[0]}
+             lambda: xp.unfold(1, 3, 1)[:, :w].sum(-1), bound),
+         "bound_ms": bound}
     print(f"M6 sum_width_shifts at xp {h}x{wp}x{c} -> {h}x{w}x{c} f32, "
           f"device-busy ms per call: kernel {r['ms']:.5f} "
           f"({r['events_ms']:.5f} by events), plain {r['plain_ms']:.5f}, "
@@ -3710,21 +3743,42 @@ INT8_VIEW = ((3, 45, 61, 3, 64), (3, 45, 61, 64, 64))
 # half TMA's zeros) into 48 and 96, and 96 (the 128-byte box) into 64
 INT8_CIN48 = ((BATCH, 90, 120, 48, 48), (BATCH, 90, 120, 48, 96),
               (BATCH, 90, 120, 96, 64))
+# Cin from 32 that is no multiple of 16: the wgmma path over x's padded
+# layout (pixel stride 16 * ceil(Cin / 16)); Cin 40 (first: the planted
+# faults of that layout are caught there) is SegNet's at 5/8, 36 and 72
+# UNet's at 9/16; 40 -> 12 copies its int8 rows out by element
+INT8_ODD = ((BATCH, 90, 120, 40, 40), (2, 45, 61, 33, 64),
+            (2, 45, 61, 36, 36), (2, 45, 61, 72, 72),
+            (2, 45, 61, 100, 128), (2, 23, 31, 40, 12))
+# the padded route's cost at the stage sizes of those widths (b8), beside
+# the wgmma path at Cin 48 and 80 and K4 bf16 on the same shapes
+INT8_ODD_TIMED = ((360, 480, 36, 36), (360, 480, 40, 40),
+                  (180, 240, 72, 72), (360, 480, 48, 48),
+                  (180, 240, 80, 80))
+# the widths the JAX package serves in int8 whose block Cin are no
+# multiple of 16: SegNet 3, 40, 80, ...; UNet 3, 36, 72, 144, ...
+INT8_ODD_WIDTH = {"segnet": 0.625, "unet": 0.5625}
 INT8_FRAMES = {"calib": 8, "served": 24}
 # the input quantize kernel: (N, H, W, C, dtype): UNet's largest stage
 # entry, the stem, an f32 input (eval's default), a ragged element count;
 # and a batch view off a 16-byte boundary
 INT8_QUANTIZE = ((BATCH, 360, 480, 128, torch.bfloat16),
                  (BATCH, 360, 480, 3, torch.bfloat16),
-                 (2, 45, 61, 64, torch.float32), (1, 7, 9, 5, torch.bfloat16))
+                 (2, 45, 61, 64, torch.float32), (1, 7, 9, 5, torch.bfloat16),
+                 # written at the padded pixel stride
+                 (2, 45, 61, 36, torch.bfloat16),
+                 (2, 45, 61, 40, torch.float32),
+                 (1, 7, 9, 33, torch.bfloat16))
 INT8_QUANTIZE_VIEW = (3, 45, 61, 3, torch.float32)
 INT8_MODES = (torch.int8, torch.bfloat16, torch.float32)
 
 
-def int8_block_shapes(net: str) -> list:
+def int8_block_shapes(net: str, spec=None) -> list:
     """(H, W, Cin, Cout) of each block ``quantize_model`` quantizes at its
-    default ``min_cout``, in spec order."""
-    return [s for s in bench.block_shapes(net, HW) if s[3] >= INT8_MIN_COUT]
+    default ``min_cout``, in spec order (``spec``: the model's, default
+    full width)."""
+    return [s for s in bench.block_shapes(net, HW, spec)
+            if s[3] >= INT8_MIN_COUT]
 
 
 def int8_inputs(gen: torch.Generator, n, h, w, cin, cout) -> dict:
@@ -3772,6 +3826,38 @@ def int8_modes_equal(t: dict, what: str) -> None:
                     f"({str(m)[6:]} out; max|diff| {err})")
 
 
+def padded_weights_ok(packed: torch.Tensor, w_q: torch.Tensor) -> bool:
+    """``pack_weights``' wgmma layout: (9, Cout, Cs), below Cin the K-major
+    bytes of ``w_q``, zeros past it."""
+    cin, cout = w_q.shape[2], w_q.shape[3]
+    cs = fused_conv_int8.pixel_stride(cin)
+    return (tuple(packed.shape) == (9, cout, cs)
+            and torch.equal(packed[..., :cin],
+                            w_q.reshape(9, cin, cout).transpose(1, 2))
+            and not bool(packed[..., cin:].any()))
+
+
+def poisoned(t: dict) -> dict:
+    """``t`` with x in the padded layout (``empty_block_input``'s) and the
+    channels past Cin set to 1, both in x's buffer and in the packed
+    weights: x's tensor map stops at Cin, so the result must not move."""
+    n, h, w, cin = t["x"].shape
+    buf = torch.ones((n, h, w, fused_conv_int8.pixel_stride(cin)),
+                     dtype=torch.int8, device=t["x"].device)
+    buf[..., :cin] = t["x"]
+    packed = t["packed"].clone()
+    packed[..., cin:] = 1
+    return dict(t, x=buf[..., :cin], packed=packed)
+
+
+def refused(fn) -> bool:
+    try:
+        fn()
+    except ValueError:
+        return True
+    return False
+
+
 def quantize_inputs(gen: torch.Generator, n, h, w, c, dtype) -> tuple:
     """(x, s): x normal in ``dtype`` with a quarter of its values put on
     the half-integers of x / s, where the rounding's tie rule and the
@@ -3786,11 +3872,16 @@ def quantize_inputs(gen: torch.Generator, n, h, w, c, dtype) -> tuple:
 
 
 def quantize_equal(x: torch.Tensor, s: torch.Tensor, what: str) -> None:
+    """The quantize kernel bit-equal to plain, its (N,H,W,C) result in the
+    int8 block's layout (padded where C >= 32 is no multiple of 16)."""
     got = fused_conv_int8.quantize(x, s)
     torch.cuda.synchronize()
     same, err = bit_equal(got, fused_conv_int8.quantize_plain(x, s))
     check(same, f"the quantize kernel bit-equal to plain at {what} "
                 f"(max|diff| {err})")
+    check(got.stride() == fused_conv_int8.block_strides(*got.shape),
+          f"the quantize kernel's result in the block layout at {what}: "
+          f"strides {got.stride()}")
 
 
 def int8_bound(n, h, w, cin, cout, out_bytes: int) -> tuple:
@@ -3861,9 +3952,12 @@ def int8_kernel_checks(gen: torch.Generator, timed: bool = True) -> dict:
     output modes, at every quantized block shape of both models at b8
     (``int8_block_shapes``), at ``INT8_EDGE``, at ``INT8_CIN48`` (on the
     wgmma path: its launches counted there) and on the views of
-    ``INT8_VIEW``; a Cin 40 refused; with ``timed``, per shape: the kernel
-    in the int8 and the bf16 output mode, the plain version, the bounds
-    and the yardsticks. Returns {shape: timings}."""
+    ``INT8_VIEW``; at ``INT8_ODD`` (Cin 33-100, no multiple of 16: their
+    launches counted on the wgmma path) also with the channels past Cin
+    poisoned (``poisoned``), and the packed weights' zero columns
+    (``padded_weights_ok``); Cin 0 refused; with ``timed``, per shape: the
+    kernel in the int8 and the bf16 output mode, the plain version, the
+    bounds and the yardsticks. Returns {shape: timings}."""
     warn = int8_build_warnings()
     print(f"int8 build ptxas: C7519 {len(warn['C7519'])}, C7512 "
           f"{len(warn['C7512'])} {sorted(set(warn['C7512']))}", flush=True)
@@ -3911,17 +4005,26 @@ def int8_kernel_checks(gen: torch.Generator, timed: bool = True) -> dict:
     paths = dict(fused_conv_int8.conv3x3_int8_block.path_launches)
     check(paths == {"wgmma": 3 * len(INT8_CIN48), "packed": 0},
           f"Cin 48 and 96 on the wgmma path: {paths}")
+    fused_conv_int8.reset_launches()
+    for n, h, w, cin, cout in INT8_ODD:
+        t = int8_inputs(gen, n, h, w, cin, cout)
+        what = f"{n}x{h}x{w} {cin}->{cout}"
+        check(padded_weights_ok(t["packed"], t["w_q"]),
+              f"pack_weights at Cin {cin}: (9, Cout, "
+              f"{fused_conv_int8.pixel_stride(cin)}), zero columns past Cin")
+        int8_modes_equal(t, what)
+        int8_modes_equal(poisoned(t), f"{what}, the channels past Cin of "
+                                      f"x's buffer and the weights 1")
+        del t
+    paths = dict(fused_conv_int8.conv3x3_int8_block.path_launches)
+    check(paths == {"wgmma": 6 * len(INT8_ODD), "packed": 0},
+          f"Cin 33-100 on the wgmma path: {paths}")
     dev = torch.device("cuda")
-    try:
-        fused_conv_int8.conv3x3_int8_block(
-            torch.zeros((1, 8, 8, 40), dtype=torch.int8, device=dev),
-            torch.zeros((3, 3, 40, 64), dtype=torch.int8, device=dev),
-            torch.ones(64, device=dev), torch.tensor(1.0, device=dev),
-            torch.zeros(64, device=dev))
-        refused = False
-    except ValueError:
-        refused = True
-    check(refused, "conv3x3_int8 refuses Cin 40 on the card")
+    check(refused(lambda: fused_conv_int8.conv3x3_int8_block(
+        torch.zeros((1, 8, 8, 0), dtype=torch.int8, device=dev),
+        torch.zeros((3, 3, 0, 64), dtype=torch.int8, device=dev),
+        torch.ones(64, device=dev), torch.tensor(1.0, device=dev),
+        torch.zeros(64, device=dev))), "conv3x3_int8 refuses Cin 0")
     for *shape, dtype in INT8_QUANTIZE:
         quantize_equal(*quantize_inputs(gen, *shape, dtype),
                        f"{'x'.join(map(str, shape))} {str(dtype)[6:]}")
@@ -3932,24 +4035,109 @@ def int8_kernel_checks(gen: torch.Generator, timed: bool = True) -> dict:
     torch.cuda.empty_cache()
     print(f"int8: conv3x3_int8 bit-equal to plain in the int8, bf16 and f32 "
           f"output modes at {len(shapes)} block shapes, {len(INT8_EDGE)} "
-          f"edge shapes, {len(INT8_CIN48)} Cin 48/96 shapes and "
-          f"{len(INT8_VIEW)} batch views, Cin 40 refused; the quantize "
-          f"kernel at {len(INT8_QUANTIZE) + 1} inputs, ties planted",
-          flush=True)
+          f"edge shapes, {len(INT8_CIN48)} Cin 48/96 shapes, "
+          f"{len(INT8_VIEW)} batch views and {len(INT8_ODD)} shapes of Cin "
+          f"33-100 on the padded layout (also poisoned past Cin), Cin 0 "
+          f"refused; the quantize kernel at {len(INT8_QUANTIZE) + 1} "
+          f"inputs, ties planted", flush=True)
     return res
+
+
+def pool_pair_fns(x: torch.Tensor) -> dict:
+    """K3's pool and unpool on ``x`` as {name: (kernel, plain, library)}
+    closures (library: ``F.max_pool2d`` / ``max_unpool2d``, which may have
+    no instance for x's dtype)."""
+    hw = (x.shape[1], x.shape[2])
+    p, idx = pooling.max_pool_2x2_with_argmax(x)
+    xc, pc = x.permute(0, 3, 1, 2), p.permute(0, 3, 1, 2)
+    idx64 = idx.permute(0, 3, 1, 2).long()
+    return {"maxpool2x2.pool_flat": (
+                lambda: fused_pool.max_pool_2x2_argmax(x),
+                lambda: pooling.max_pool_2x2_with_argmax(x),
+                lambda: F.max_pool2d(xc, 2, 2, return_indices=True)),
+            "maxpool2x2.unpool_flat": (
+                lambda: fused_pool.max_unpool_2x2(p, idx, hw),
+                lambda: pooling.max_unpool_2x2(p, idx, hw),
+                lambda: F.max_unpool2d(pc, idx64, 2, 2, output_size=hw))}
+
+
+def library_device_ms(fn, bound: float = 0.0):
+    """``device_ms`` of a library call, None where torch has no instance
+    for its dtype."""
+    try:
+        return device_ms(fn, bound)
+    except (RuntimeError, NotImplementedError):
+        return None
+
+
+# bytes of inputs a timed rotation spans: four times the H100's 50 MB L2,
+# so that each call reads its input from HBM as the byte bound assumes (on
+# one input repeated, SegNet's 45x60x512 bf16 pool ran under that bound
+# from L2)
+COLD_SPAN = 200_000_000
+
+
+def cold_inputs(make, nbytes: int, first: torch.Tensor = None) -> list:
+    """``first``, where given, and ``make()``'s tensors, of ``nbytes``
+    each, enough of them (2 to ``mosaic_probes.ITERS``) to span
+    ``COLD_SPAN``."""
+    n = min(mosaic_probes.ITERS, max(2, -(-COLD_SPAN // nbytes)))
+    xs = [] if first is None else [first]
+    return xs + [make() for _ in range(n - len(xs))]
+
+
+def rotated(fns: list):
+    """One closure that calls ``fns`` in turn."""
+    turn = itertools.cycle(fns)
+    return lambda: next(turn)()
+
+
+def k3_device_times(xs: list) -> dict:
+    """K3's pool and unpool timed over the inputs ``xs`` in turn
+    (``cold_inputs``): per function the kernel's device-busy ms
+    (``device_ms``, held to the byte bound), the wrapper's CUDA-events ms
+    (``cuda_ms``: host time included), the plain pair's and the library's
+    device-busy ms and the byte bound."""
+    x = xs[0]
+    nbytes = pool_bytes(*x.shape, x.element_size())
+    pairs = [pool_pair_fns(t) for t in xs]
+    out = {}
+    for name in pairs[0]:
+        kern, plain, lib = (rotated([f[name][i] for f in pairs])
+                            for i in range(3))
+        bound = nbytes[name] / bench.H100_HBM_RATE * 1e3
+        out[name] = {"ms": device_ms(kern, bound),
+                     "wrapper_events_ms": cuda_ms(kern),
+                     "plain_ms": device_ms(plain, bound),
+                     "library_ms": library_device_ms(lib, bound),
+                     "bound_ms": bound}
+        within_bound(out[name]["ms"], bound,
+                     f"K3 {name} device-busy at {tuple(x.shape)} "
+                     f"{x.dtype}")
+    return out
+
+
+def add_times(into: dict, t: dict) -> None:
+    """Adds ``t``'s figures to ``into``'s (a None stays None)."""
+    for key, v in t.items():
+        if v is None or into.get(key, 0.0) is None:
+            into[key] = None
+        else:
+            into[key] = into.get(key, 0.0) + v
 
 
 def int8_pool_checks(gen: torch.Generator, timed: bool = True) -> dict:
     """Phase 16 (2): K3's int8 pool and unpool against their plain pair at
-    SegNet's five pool shapes (b8), on int8 values in [-3, 3] (most windows
-    tie), bit for bit; with ``timed``, the kernel, plain and bound times
-    summed over the stages (library: ``F.max_pool2d`` / ``max_unpool2d``
-    on the int8 tensor, None where torch has no int8 instance)."""
+    SegNet's five pool shapes (b8) and at C = 40 (SegNet 5/8's first
+    pool: V = 1 channel a thread, as below C % 16), on int8 values in
+    [-3, 3] (most windows tie), bit for bit; with ``timed``, at each of
+    the five stages ``k3_device_times`` of the int8 pair and of the bf16
+    pair on the same shapes, over inputs that read cold, printed per stage
+    and summed: {"int8": {name: sums}, "bf16": {name: sums}, "stages":
+    [...]}."""
     dev = torch.device("cuda")
-    out = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                  "library_ms": 0.0, "bound_ms": 0.0}
-           for name in ("maxpool2x2.pool_flat", "maxpool2x2.unpool_flat")}
-    for h, w, c in pool_stages():
+    out = {"int8": {}, "bf16": {}, "stages": []}
+    for h, w, c in pool_stages() + [HW + (40,)]:
         x = torch.randint(-3, 4, (BATCH, h, w, c), generator=gen,
                           device=dev, dtype=torch.int8)
         hw = (h, w)
@@ -3962,43 +4150,92 @@ def int8_pool_checks(gen: torch.Generator, timed: bool = True) -> dict:
               f"K3 int8 pool bit-equal at {BATCH}x{h}x{w}x{c}")
         check(torch.equal(unp, pooling.max_unpool_2x2(p, idx, hw)),
               f"K3 int8 unpool bit-equal at {BATCH}x{h}x{w}x{c}")
-        if not timed:
+        del p, idx, got, unp
+        if not timed or c == 40:
             continue
-        nbytes = pool_bytes(BATCH, h, w, c, 1)
-        xc, pc = x.permute(0, 3, 1, 2), p.permute(0, 3, 1, 2)
-        idx64 = idx.permute(0, 3, 1, 2).long()
-        fns = {"maxpool2x2.pool_flat": (
-                   lambda: fused_pool.max_pool_2x2_argmax(x),
-                   lambda: pooling.max_pool_2x2_with_argmax(x),
-                   lambda: F.max_pool2d(xc, 2, 2, return_indices=True)),
-               "maxpool2x2.unpool_flat": (
-                   lambda: fused_pool.max_unpool_2x2(p, idx, hw),
-                   lambda: pooling.max_unpool_2x2(p, idx, hw),
-                   lambda: F.max_unpool2d(pc, idx64, 2, 2, output_size=hw))}
-        line = [f"K3 int8 {BATCH}x{h}x{w}x{c}:"]
-        for name, (kern, plain, lib) in fns.items():
-            try:
-                lib_ms = cuda_ms(lib)
-            except (RuntimeError, NotImplementedError):
-                lib_ms = None
-            t = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
-                 "bound_ms": nbytes[name] / bench.H100_HBM_RATE * 1e3}
-            for key, v in t.items():
-                out[name][key] += v
-            if lib_ms is None or out[name]["library_ms"] is None:
-                out[name]["library_ms"] = None
-            else:
-                out[name]["library_ms"] += lib_ms
-            line.append(f"{name.split('.')[1]} {t['ms']:.4f} ms (plain "
-                        f"{t['plain_ms']:.4f}, library "
-                        f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'}, "
-                        f"bound {t['bound_ms']:.4f}: "
-                        f"{t['bound_ms'] / t['ms']:.2f} of it);")
+        xs = cold_inputs(
+            lambda: torch.randint(-3, 4, x.shape, generator=gen, device=dev,
+                                  dtype=torch.int8), x.numel(), x)
+        xbs = cold_inputs(lambda: torch.randn(
+            x.shape, generator=gen, device=dev).to(torch.bfloat16),
+            2 * x.numel())
+        stage = {"shape": (BATCH, h, w, c), "int8": k3_device_times(xs),
+                 "bf16": k3_device_times(xbs)}
+        out["stages"].append(stage)
+        line = [f"K3 {BATCH}x{h}x{w}x{c}, device-busy ms:"]
+        for dt in ("int8", "bf16"):
+            for name, t in stage[dt].items():
+                add_times(out[dt].setdefault(name, {}), t)
+                lib = t["library_ms"]
+                line.append(
+                    f"{dt} {name.split('.')[1]} {t['ms']:.5f} (wrapper by "
+                    f"events {t['wrapper_events_ms']:.5f}; plain "
+                    f"{t['plain_ms']:.5f}, library "
+                    f"{'n/a' if lib is None else f'{lib:.5f}'}, bound "
+                    f"{t['bound_ms']:.5f}: {t['bound_ms'] / t['ms']:.2f} of "
+                    f"it);")
         print(" ".join(line), flush=True)
-        del x, p, idx
+        del x, xs, xbs
+    for dt in ("int8", "bf16") if timed else ():
+        for name, t in out[dt].items():
+            print(f"K3 {dt} {name} over SegNet's 5 b{BATCH} pools: "
+                  f"device-busy {t['ms']:.5f} ms (the wrapper by events "
+                  f"{t['wrapper_events_ms']:.5f}), bound {t['bound_ms']:.5f}:"
+                  f" {t['bound_ms'] / t['ms']:.3f} of it; plain "
+                  f"{t['plain_ms']:.5f} ({bench.card()})", flush=True)
     print("K3 int8: pool and unpool bit-equal to the plain pair at SegNet's "
-          "5 pool shapes with ties", flush=True)
+          "5 pool shapes and at C 40, with ties", flush=True)
     return out
+
+
+def int8_odd_timings(gen: torch.Generator) -> dict:
+    """The padded route's cost at ``INT8_ODD_TIMED`` (b8), device-busy ms:
+    the kernel on an x already in the padded layout (as the quantize
+    kernel writes it) in the int8 and bf16 output modes, the same from a
+    contiguous x (the wrapper's one copy pass included), the copy pass
+    alone, K4 bf16 on the same shape, and the bound: {shape: {...}}. Each
+    reading is held to its bound (``within_bound``)."""
+    dev = torch.device("cuda")
+    res = {}
+    for h, w, cin, cout in INT8_ODD_TIMED:
+        t = int8_inputs(gen, BATCH, h, w, cin, cout)
+        laid = dict(t, x=fused_conv_int8.block_input(t["x"]))
+        xb = t["x"].to(torch.bfloat16)
+        wb = t["w_q"].to(torch.bfloat16)
+        a = torch.ones(cout, device=dev)
+        copied = laid["x"].data_ptr() != t["x"].data_ptr()
+        bounds = {"int8_ms": int8_bound(BATCH, h, w, cin, cout, 1)[0],
+                  "bf16_ms": int8_bound(BATCH, h, w, cin, cout, 2)[0],
+                  "int8_from_contiguous_ms":
+                      int8_bound(BATCH, h, w, cin, cout, 1)[0],
+                  "copy_ms": (2 * BATCH * h * w * cin / bench.H100_HBM_RATE
+                              * 1e3 if copied else 0.0),
+                  "k4_bf16_ms": conv_bound(BATCH, h, w, cin, cout)[0]}
+        fns = {"int8_ms": lambda: int8_call(laid, torch.int8),
+               "bf16_ms": lambda: int8_call(laid, torch.bfloat16),
+               "int8_from_contiguous_ms": lambda: int8_call(t, torch.int8),
+               "copy_ms": lambda: fused_conv_int8.block_input(t["x"]),
+               "k4_bf16_ms": lambda: fused_conv.conv3x3_bn_relu(
+                   xb, wb, a, t["b_eff"])}
+        r = {key: (device_ms(fn, bounds[key])
+                   if key != "copy_ms" or copied else 0.0)
+             for key, fn in fns.items()}
+        for key, bound in bounds.items():
+            within_bound(r[key], bound, f"padded route {key} at b{BATCH} "
+                                        f"{h}x{w} {cin}->{cout}")
+        r["bound_int8"] = int8_bound(BATCH, h, w, cin, cout, 1)
+        res[(h, w, cin, cout)] = r
+        print(f"int8 padded route b{BATCH} {h}x{w} {cin}->{cout} (Cs "
+              f"{fused_conv_int8.pixel_stride(cin)}), device-busy ms: "
+              f"kernel on the padded x {r['int8_ms']:.5f} int8 out, "
+              f"{r['bf16_ms']:.5f} bf16 out; from a contiguous x "
+              f"{r['int8_from_contiguous_ms']:.5f} (the copy pass "
+              f"{r['copy_ms']:.5f}); K4 bf16 {r['k4_bf16_ms']:.5f}; bound "
+              f"{r['bound_int8'][0]:.5f} by {r['bound_int8'][1]} "
+              f"({bench.card()})", flush=True)
+        del t, laid, xb, wb
+    torch.cuda.empty_cache()
+    return res
 
 
 @contextlib.contextmanager
@@ -4028,6 +4265,30 @@ def shadowed_int8(errs: dict, quantized: list = None):
         quant.quantized_block_apply = real
 
 
+@contextlib.contextmanager
+def shadowed_k4(errs: dict):
+    """Inside the block every eval-mode K4 call of the main path
+    (``ops/conv.py``'s ``conv3x3_bn_relu``, its one caller) is held
+    against ``conv3x3_bn_relu_plain`` on its own inputs; ``errs`` gets, per
+    (Cin, Cout, K4 path), the worst max|kernel - plain| / max|plain|, to be
+    held to ``KERNEL_TOL``. The plain version launches no counted
+    kernel."""
+    real = conv_ops.conv3x3_bn_relu
+
+    def shadow(x, w, a, b, *args, **kw):
+        out = real(x, w, a, b, *args, **kw)
+        want = fused_conv.conv3x3_bn_relu_plain(x, w, a, b, *args, **kw)
+        cin, cout = x.shape[3], out.shape[3]
+        _note(errs, (cin, cout, fused_conv.conv_path(cin, cout)),
+              _rel(out, want))
+        return out
+    conv_ops.conv3x3_bn_relu = shadow
+    try:
+        yield errs
+    finally:
+        conv_ops.conv3x3_bn_relu = real
+
+
 def int8_counts() -> dict:
     return {"conv3x3_int8": fused_conv_int8.conv3x3_int8_block.launches,
             "quantize": fused_conv_int8.quantize.launches,
@@ -4037,13 +4298,13 @@ def int8_counts() -> dict:
             **fused_pool.launches()}
 
 
-def int8_expected(net: str, forwards: int, fused: int) -> dict:
+def int8_expected(net: str, forwards: int, fused: int, spec=None) -> dict:
     """Launches of ``forwards`` int8 forwards: conv3x3_int8 on each
     quantized block (the stem on the packed path), the quantize kernel on
     each one whose input comes float (all but the ``fused`` ones, whose
     producer emits int8), K4 on the float head, K3's flat pair on SegNet's
-    pools."""
-    shapes = int8_block_shapes(net)
+    pools (``spec``: the model's, default full width)."""
+    shapes = int8_block_shapes(net, spec)
     packed = sum(fused_conv_int8.int8_path(s[2]) == "packed" for s in shapes)
     pools = POOLS[net] * forwards
     return {"conv3x3_int8": len(shapes) * forwards,
@@ -4131,6 +4392,129 @@ def int8_slice(net: str, rng: np.random.Generator) -> dict:
           f"bf16 class maps agree on {out['agree']:.4f} of the pixels "
           f"(random weights; information only) on {bench.card()}",
           flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def plain_int8_pieces(model):
+    """Inside the block ``model``'s kernel path runs the plain version of
+    every piece but its float convs: each quantized block and its input
+    quantize (``quant.quantized_block_apply`` with ``plain``) and SegNet's
+    pools; the float blocks stay on K4. Its result differs from the kernel
+    path's only where an int8 kernel or K3 differs from its plain
+    version."""
+    real = quant.quantized_block_apply
+
+    def plain_apply(params_q, x, compute_dtype=torch.bfloat16, plain=False):
+        return real(params_q, x, compute_dtype, True)
+    quant.quantized_block_apply = plain_apply
+    pools = type(model).__dict__.get("_pools")
+    if pools is not None:
+        model._pools = lambda plain: pools(model, True)
+    try:
+        yield
+    finally:
+        quant.quantized_block_apply = real
+        if pools is not None:
+            del model._pools
+
+
+def odd_width_slice(net: str, rng: np.random.Generator) -> dict:
+    """Phase 16 (3b): ``he_model(net)`` at ``INT8_ODD_WIDTH`` (seed 0; its
+    blocks of Cin 40, or 36 and 72, on the wgmma path over the padded
+    layout) in a b8 Predictor, ``quantize_int8`` on 8 frames, ``predict``
+    on 8: launches per forward, every int8 launch bit-equal to plain on
+    its own inputs (``shadowed_int8``), every K4 launch of its float
+    blocks within ``KERNEL_TOL`` of plain on its own inputs
+    (``shadowed_k4``), the packed weights' zero columns, the Predictor's
+    class maps and the model's logits bit-equal to those of the path whose
+    int8 pieces all run plain (``plain_int8_pieces``). The all-plain path
+    is printed beside, not held: at these widths the blocks of Cout < 64
+    stay float (K4 against cuDNN: bf16 roundings), and the next block's
+    quantize turns a rounding into an int8 step that random weights carry
+    on (0.0707 of max|plain| in SegNet 5/8's logits on the H100), so the
+    witnesses are the per-call checks of both kernels. The int8 forward's
+    ms beside a bf16 Predictor's on the same weights."""
+    width = INT8_ODD_WIDTH[net]
+    base = bench.he_model(net, torch.Generator().manual_seed(SEED), width)
+    spec, sd = base.spec, base.state_dict()
+    calib = rng.integers(0, 256, (INT8_FRAMES["calib"],) + HW + (3,),
+                         dtype=np.uint8)
+    frames = rng.integers(0, 256, (BATCH,) + HW + (3,), dtype=np.uint8)
+    out = {"width": width}
+    with Predictor(net, sd, batch_size=BATCH, image_hw=HW) as p8, \
+            Predictor(net, sd, batch_size=BATCH, image_hw=HW) as pf:
+        p8.quantize_int8(calib)
+        qb = quant.quantized_blocks(p8.model)
+        check(len(qb) == len(int8_block_shapes(net, spec)),
+              f"{net} {width}: the quantized blocks")
+        odd = sorted({b.w_q.shape[2] for b in qb
+                      if b.w_q.shape[2] >= 32 and b.w_q.shape[2] % 16})
+        check(odd == ([40] if net == "segnet" else [36, 72]),
+              f"{net} {width}: blocks of Cin {odd} off 16-byte strides")
+        check(all(padded_weights_ok(b.w_k, b.w_q) for b in qb
+                  if fused_conv_int8.int8_path(b.w_q.shape[2]) == "wgmma"),
+              f"{net} {width}: the packed weights' zero columns")
+        errs, k4_errs = {}, {}
+        torch.cuda.synchronize()
+        reset_counts()
+        with shadowed_int8(errs), shadowed_k4(k4_errs):
+            maps8 = p8.predict(frames)
+        torch.cuda.synchronize()
+        counts = int8_counts()
+        want = int8_expected(net, 1, sum(b.s_out is not None for b in qb),
+                             spec)
+        check(counts == want, f"{net} {width} int8 launches per forward: "
+                              f"{counts}, expected {want}")
+        check(errs and not any(errs.values()),
+              f"{net} {width} int8 launches bit-equal to plain: {errs}")
+        k4_worst = max(k4_errs.values(), default=float("inf"))
+        k4_line = ", ".join(f"{k}: {v:.3g}" for k, v in sorted(
+            k4_errs.items()))
+        print(f"{net} at width {width}: each K4 launch against plain on "
+              f"its inputs, max|kernel - plain| / max|plain| by (Cin, "
+              f"Cout, path): {k4_line} (tol {KERNEL_TOL})", flush=True)
+        check(len(k4_errs) > 0 and k4_worst <= KERNEL_TOL,
+              f"{net} {width} K4 launches within KERNEL_TOL of plain on "
+              f"their inputs: worst {k4_worst:.3g}")
+        with torch.inference_mode():
+            xn = to_tensor_normalize(torch.from_numpy(frames).cuda(),
+                                     settings.MEAN, settings.STD,
+                                     torch.bfloat16)
+            got = p8.model(xn)
+            with plain_int8_pieces(p8.model):
+                ref = p8.model(xn)
+            with recorded_choices(p8.model) as choices:
+                p8.model(xn)
+            with replayed_choices(choices):
+                full = p8.model(xn, plain=True)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(torch.from_numpy(maps8).cuda(),
+                                    ref.argmax(-1).to(torch.uint8)))
+            err = (got - full).abs().max().item() / full.abs().max().item()
+            agree = (got.argmax(-1) == full.argmax(-1)).float().mean().item()
+            out["fwd_ms"] = cuda_ms(lambda: p8.model(xn), iters=10)
+            out["fwd_ms_bf16"] = cuda_ms(lambda: pf.model(xn), iters=10)
+            reset_counts()
+            pf.model(xn)
+            k4_bf16 = dict(fused_conv.conv3x3_bn_relu.path_launches)
+        out.update(launches=counts, all_plain_err=err, all_plain_agree=agree,
+                   odd_cin=odd, k4_paths_bf16=k4_bf16, k4_worst=k4_worst)
+        print(f"{net} at width {width} int8 serving b{BATCH}: launches "
+              f"{counts}; each int8 launch bit-equal to plain over "
+              f"{len(errs)} (Cin, Cout, out) kinds; logits bit-equal to "
+              f"the int8-plain path's: {bool(torch.equal(got, ref))}, the "
+              f"Predictor's class maps equal to its: {same}; the all-plain "
+              f"path (not held): max|diff| / max|plain| {err:.3g}, argmax "
+              f"agreement {agree:.4f}; forward {out['fwd_ms']:.3f} ms int8, "
+              f"{out['fwd_ms_bf16']:.3f} ms bf16 (its K4 launches by path "
+              f"{k4_bf16}) ({bench.card()})", flush=True)
+        check(bool(torch.isfinite(got).all()), f"{net} {width} logits")
+        check(torch.equal(got, ref), f"{net} {width} logits bit-equal to "
+                                     f"the int8-plain path's")
+        check(same, f"{net} {width} class maps equal to the int8-plain "
+                    f"path's")
     torch.cuda.empty_cache()
     return out
 
@@ -4295,14 +4679,17 @@ def phase_int8(tmp: str, run: dict) -> dict:
     """Phase 16: int8 serving (module docstring)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     per_shape = int8_kernel_checks(gen)
+    odd = int8_odd_timings(gen)
     pools = int8_pool_checks(gen)
     rng = np.random.default_rng(SEED)
     slices = {net: int8_slice(net, rng) for net in ("unet", "segnet")}
+    odd_slices = {net: odd_width_slice(net, rng) for net in INT8_ODD_WIDTH}
     sums = int8_sums(per_shape, slices)
     qsums = quantize_sums(gen, slices)
     clis = int8_cli_checks(tmp, run)
     return {"sums": sums, "quantize": qsums, "pools": pools,
-            "slices": slices, "cli": clis}
+            "slices": slices, "odd_slices": odd_slices, "odd": odd,
+            "cli": clis}
 
 
 def int8_entries(r: dict) -> list:
@@ -4337,7 +4724,16 @@ def int8_entries(r: dict) -> list:
             "int_mm_im2col_ms": u["int_mm_im2col_ms"],
             "path_launches": launches["conv3x3_int8_paths"],
             "segnet": {**s, "launches":
-                       r["slices"]["segnet"]["launches"]["conv3x3_int8"]}},
+                       r["slices"]["segnet"]["launches"]["conv3x3_int8"]},
+            "odd_widths": {
+                net: {"width": o["width"], "odd_cin": o["odd_cin"],
+                      "path_launches": o["launches"]["conv3x3_int8_paths"],
+                      "fwd_ms": o["fwd_ms"], "fwd_ms_bf16": o["fwd_ms_bf16"],
+                      "k4_worst_rel_err": o["k4_worst"]}
+                for net, o in r["odd_slices"].items()},
+            "padded_route": {f"{h}x{w} {ci}->{co}": {
+                k: v for k, v in t.items() if k != "bound_int8"}
+                for (h, w, ci, co), t in r["odd"].items()}},
             quantize]
 
 
@@ -5435,16 +5831,23 @@ def start() -> None:
               f"kernel path rule of the libraries at {cin}->{cout}")
     print(f"paths: the libraries and the wrappers choose alike at "
           f"{len(pairs)} (Cin, Cout) pairs", flush=True)
-    for cin in sorted({cin for _, _, cin, _ in all_block_shapes()}
-                      | {cin for *_, cin, _ in INT8_EDGE + INT8_VIEW
-                         + INT8_CIN48}
-                      | set(range(1, 34)) | {40, 48, 80, 96, 100}):
+    int8_cins = sorted({cin for _, _, cin, _ in all_block_shapes()}
+                       | {cin for *_, cin, _ in INT8_EDGE + INT8_VIEW
+                          + INT8_CIN48 + INT8_ODD}
+                       | set(range(-1, 150)) | {288, 576})
+    for cin in int8_cins:
         check(fused_conv_int8.kernel_path(cin)
               == fused_conv_int8.int8_path(cin)
+              and fused_conv_int8.kernel_pixel_stride(cin)
+              == fused_conv_int8.pixel_stride(cin)
               and (fused_conv_int8.int8_path(cin) != "packed"
                    or fused_conv_int8.kernel_packed_k(cin)
                    == fused_conv_int8.packed_k(cin)),
-              f"int8 path rule and packed K of the library at Cin {cin}")
+              f"int8 path rule, pixel stride and packed K of the library "
+              f"at Cin {cin}")
+    print(f"int8: the library's and the wrapper's path, pixel stride and "
+          f"packed K rules agree at {len(int8_cins)} Cin",
+          flush=True)
     f32 = fused_conv.f32_library()
     f32_pairs = sorted(pairs | {(cin, cout) for *_, cin, cout in F32_EDGE}
                        | {(cout, cin) for *_, cin, cout in F32_EDGE})
@@ -5551,9 +5954,13 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": t["library_ms"]})
-        if name in int8["pools"]:
-            kernels[-1]["int8"] = {**int8["pools"][name], "launches":
+        if name in int8["pools"]["int8"]:
+            # phase 16's device-busy sums over the five b8 pools: int8,
+            # and bf16 at the same shapes
+            kernels[-1]["int8"] = {**int8["pools"]["int8"][name],
+                                   "max_abs_err": 0.0, "launches":
                                    int8["slices"]["segnet"]["launches"][name]}
+            kernels[-1]["device_busy"] = int8["pools"]["bf16"][name]
             kernels[-1]["program_launches"] = {
                 "segnet_bf16": ran["segnet_bf16"][name]}
     kernels.append({

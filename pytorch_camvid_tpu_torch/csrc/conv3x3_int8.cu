@@ -25,9 +25,10 @@
 //
 // The weights come repacked once, at quantize time (fused_conv_int8.py::
 // pack_weights), K-major as both 8-bit operands of wgmma and mma.sync must
-// be: (9, Cout, Cin) for the wgmma path; (Cout, Kp) for the packed path,
-// k = tap * Cin4 + ci with each tap's channels padded to Cin4 = 4 *
-// ceil(Cin / 4) and Kp = 32 * ceil(9 * Cin4 / 32), zeros in the padding.
+// be: (9, Cout, Cs) for the wgmma path, Cs = 16 * ceil(Cin / 16) (zero
+// columns past Cin); (Cout, Kp) for the packed path, k = tap * Cin4 + ci
+// with each tap's channels padded to Cin4 = 4 * ceil(Cin / 4) and Kp = 32 *
+// ceil(9 * Cin4 / 32), zeros in the padding.
 //
 // What bounds it on the H100 (1,979 TOPS int8 dense, 3.35 TB/s, ~590
 // operations a byte at the ridge): the stem (Cin 3) writes 88 MB of int8
@@ -46,15 +47,20 @@
 // 132 SMs, twice the stem's byte bound.
 //
 // Two paths (conv3x3_int8_path; fused_conv_int8.int8_path holds the rule):
-// * wgmma (Cin % 16 == 0 from 32: TMA's 16-byte row stride). An implicit
-//   GEMM, M = output pixels, N = output channels, K = 9 taps x Cin in
-//   chunks of KC channels, one TMA box row: KC = 64 (the 64-byte swizzle)
-//   up to Cin 64, 128 (the 128-byte swizzle) above, so no box is half TMA's
-//   zero fill at Cin 64; the k32 steps of a chunk are a compile-time count
-//   and the last chunk's steps past Cin multiply the zeros TMA filled in
-//   (Cin 48: 16 of 64 channels). A persistent block of three warpgroups:
-//   two producer threads of the third stream TMA boxes into a patch ring
-//   and a weight ring guarded by full/empty mbarriers; two consumer
+// * wgmma (Cin >= 32). TMA's global strides are multiples of 16 bytes, so
+//   x comes with a pixel stride of Cs = 16 * ceil(Cin / 16) bytes (the
+//   wrapper's padded buffer, or the quantize kernel's padded output; Cs =
+//   Cin where Cin % 16 == 0): its tensor map has channel extent Cin and
+//   stride Cs, so the channels Cin..Cs of a pixel are never read and TMA
+//   fills zeros there; the weights' map reads their zero columns. An
+//   implicit GEMM, M = output pixels, N = output channels, K = 9 taps x Cin
+//   in chunks of KC channels, one TMA box row: KC = 64 (the 64-byte
+//   swizzle) up to Cin 64, 128 (the 128-byte swizzle) above, so no box is
+//   half TMA's zero fill at Cin 64; the k32 steps of a chunk are a
+//   compile-time count and the last chunk's steps past Cin multiply the
+//   zeros TMA filled in (Cin 48: 16 of 64 channels; Cin 40: 24). A
+//   persistent block of three warpgroups: two producer threads of the
+//   third stream TMA boxes into a patch ring and a weight ring guarded by full/empty mbarriers; two consumer
 //   warpgroups run wgmma.m64nNk32.s32.s8.s8 with A from registers
 //   (ldmatrix of the tap's shifted patch rows, the swizzle XOR in the
 //   address, so one staged patch serves all 9 taps) and B K-major from
@@ -705,6 +711,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 
+// x's pixel stride and the repacked weights' row on this path, in bytes:
+// TMA's global strides are multiples of 16.
+constexpr int pixel_stride(int Cin) { return (Cin + 15) / 16 * 16; }
+
 template <int BN, bool RES, int KC>
 cudaError_t launch(const int8_t* x, const int8_t* wk, const float* s_w,
                    const float* b_eff, const float* s_x, const float* s_out,
@@ -714,18 +724,21 @@ cudaError_t launch(const int8_t* x, const int8_t* wk, const float* s_w,
   const CUtensorMapSwizzle swizzle =
       KC == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   CUtensorMap xmap, wmap, omap{};
+  // x (Cin, W, H, N) at pixel stride Cs: TMA reads Cin channels of each
+  // pixel and fills zeros past them
+  const uint64_t cs = static_cast<uint64_t>(pixel_stride(Cin));
   const uint64_t xd[4] = {static_cast<uint64_t>(Cin),
                           static_cast<uint64_t>(W), static_cast<uint64_t>(H),
                           static_cast<uint64_t>(N)};
-  const uint64_t xs[3] = {1ull * Cin, 1ull * Cin * W, 1ull * Cin * W * H};
+  const uint64_t xs[3] = {cs, cs * W, cs * W * H};
   const uint32_t xb[4] = {KC, PW, T::PH, 1};
   if (!sm90::encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, 4, xd, xs,
                         xb, swizzle))
     return cudaErrorInvalidValue;
-  // the repacked weights (9, Cout, Cin), Cin innermost, in KC x BN boxes
-  const uint64_t wd[3] = {static_cast<uint64_t>(Cin),
-                          static_cast<uint64_t>(Cout), 9};
-  const uint64_t wstr[2] = {1ull * Cin, 1ull * Cin * Cout};
+  // the repacked weights (9, Cout, Cs), channels innermost (their zero
+  // columns past Cin included), in KC x BN boxes
+  const uint64_t wd[3] = {cs, static_cast<uint64_t>(Cout), 9};
+  const uint64_t wstr[2] = {cs, cs * Cout};
   const uint32_t wbox[3] = {KC, static_cast<uint32_t>(BN), 1};
   if (!sm90::encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, wk, 3, wd,
                         wstr, wbox, swizzle))
@@ -1161,7 +1174,12 @@ cudaError_t run(const int8_t* x, const int8_t* wk, const float* s_w,
 // 16.5 ms int8 forward at 360x480, b8, on an H100 at 700 W. One pass
 // here, bound by its bytes: each thread reads 8 elements (16 or 32 bytes)
 // and writes 8. The division is IEEE (__fdiv_rn), as torch's by a tensor
-// on the device; the rounding rintf, half to even, as torch.round.
+// on the device; the rounding rintf, half to even, as torch.round. The
+// output has its own pixel stride OS (x's last dimension C a pixel): OS =
+// Cs for the input of a wgmma block whose Cin % 16 != 0, so the block
+// reads it as it is; element i goes to (i / C) * OS + i % C, an 8-byte
+// store where a thread's 8 elements share a pixel (C % 8 == 0 or OS ==
+// C), else one at a time.
 namespace qz {
 
 constexpr int THREADS = 256;
@@ -1180,10 +1198,18 @@ __device__ __forceinline__ int8_t quantize1(float v, float s) {
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     quantize_kernel(const T* __restrict__ x, const float* __restrict__ s_p,
-                    int8_t* __restrict__ out, int64_t n) {
+                    int8_t* __restrict__ out, int64_t n, int C, int OS) {
   const float s = *s_p;
   const int64_t i0 =
       (static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x) * V;
+  if (i0 >= n) return;
+  // element i0 at out + pix * OS + c (where OS == C any split of i0 gives
+  // that address, so the division is skipped)
+  int64_t pix = 0, c = i0;
+  if (OS != C) {
+    pix = i0 / C;
+    c = i0 - pix * C;
+  }
   if (i0 + V <= n) {
     alignas(16) T v[V];
     // 16-byte loads: the wrapper's x and out start on 16-byte boundaries
@@ -1194,19 +1220,31 @@ __global__ void __launch_bounds__(THREADS)
     alignas(8) int8_t q[V];
 #pragma unroll
     for (int e = 0; e < V; ++e) q[e] = quantize1(to_f32(v[e]), s);
-    *reinterpret_cast<uint2*>(out + i0) = *reinterpret_cast<const uint2*>(q);
+    if (OS == C || C % V == 0) {
+      *reinterpret_cast<uint2*>(out + pix * OS + c) =
+          *reinterpret_cast<const uint2*>(q);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        out[pix * OS + c] = q[e];
+        if (++c == C) c = 0, ++pix;
+      }
+    }
   } else {
-    for (int64_t i = i0; i < n; ++i) out[i] = quantize1(to_f32(x[i]), s);
+    for (int64_t i = i0; i < n; ++i) {
+      out[pix * OS + c] = quantize1(to_f32(x[i]), s);
+      if (++c == C) c = 0, ++pix;
+    }
   }
 }
 
 template <typename T>
 cudaError_t run(const void* x, const float* s, int8_t* out, int64_t n,
-                cudaStream_t st) {
+                int C, int OS, cudaStream_t st) {
   const int64_t blocks = (n + THREADS * V - 1) / (THREADS * V);
   if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
   quantize_kernel<T><<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
-      static_cast<const T*>(x), s, out, n);
+      static_cast<const T*>(x), s, out, n, C, OS);
   return cudaGetLastError();
 }
 
@@ -1214,22 +1252,33 @@ cudaError_t run(const void* x, const float* s, int8_t* out, int64_t n,
 
 }  // namespace
 
-// The path that takes Cin: 1 wgmma (Cin % 16 == 0 from 32), 2 packed (Cin
-// < 32), 0 none (the wrapper refuses such a call). fused_conv_int8.
+// The path that takes Cin: 1 wgmma (Cin >= 32), 2 packed (Cin < 32), 0
+// none (Cin <= 0; the wrapper refuses such a call). fused_conv_int8.
 // int8_path holds the same rule.
 extern "C" int conv3x3_int8_path(int Cin) {
   if (Cin <= 0) return 0;
-  if (Cin <= packed::MAX_CIN) return 2;
-  return Cin % 16 == 0 ? 1 : 0;
+  return Cin <= packed::MAX_CIN ? 2 : 1;
+}
+
+// x's pixel stride in bytes that the path of Cin reads: 16 * ceil(Cin / 16)
+// on the wgmma path (TMA's 16-byte strides), Cin on the packed path, 0 for
+// none. fused_conv_int8.pixel_stride holds the same rule.
+extern "C" int conv3x3_int8_pixel_stride(int Cin) {
+  switch (conv3x3_int8_path(Cin)) {
+    case 1: return wg::pixel_stride(Cin);
+    case 2: return Cin;
+    default: return 0;
+  }
 }
 
 // The packed path's K (9 x Cin4 in whole k32 steps): the repacked
 // weights' row length there.
 extern "C" int conv3x3_int8_packed_k(int Cin) { return packed::kp(Cin); }
 
-// out (N,H,W,Cout) <- x (N,H,W,Cin) int8, the repacked weights wk, s_w and
-// b_eff (Cout,) f32, s_x and (mode 0) s_out f32 scalars on the device;
-// mode 0 int8 out (requantized at s_out), 1 bf16, 2 f32.
+// out (N,H,W,Cout) <- x (N,H,W,Cin) int8 at the pixel stride
+// conv3x3_int8_pixel_stride(Cin), the repacked weights wk, s_w and b_eff
+// (Cout,) f32, s_x and (mode 0) s_out f32 scalars on the device; mode 0
+// int8 out (requantized at s_out), 1 bf16, 2 f32.
 extern "C" int conv3x3_int8(const void* x, const void* wk, const void* s_w,
                             const void* b_eff, const void* s_x,
                             const void* s_out, void* out, int mode, int N,
@@ -1256,16 +1305,20 @@ extern "C" int conv3x3_int8(const void* x, const void* wk, const void* s_w,
   }
 }
 
-// out (n,) int8 <- clip(round_half_even(x / s), -127, 127), x (n,) bf16
-// (dtype 0) or f32 (dtype 1), s an f32 scalar on the device; x and out
-// 16-byte aligned.
+// out <- clip(round_half_even(x / s), -127, 127), x (n,) bf16 (dtype 0) or
+// f32 (dtype 1), C elements a pixel, out at pixel stride OS >= C (OS % 16
+// == 0 where OS != C), s an f32 scalar on the device; x and out 16-byte
+// aligned.
 extern "C" int quantize_int8(const void* x, const void* s, void* out,
-                             long long n, int dtype, void* stream) {
-  if (n <= 0 || dtype < 0 || dtype > 1)
+                             long long n, int C, int OS, int dtype,
+                             void* stream) {
+  if (n <= 0 || C <= 0 || n % C != 0 || OS < C || (OS != C && OS % 16) ||
+      dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto sp = static_cast<const float*>(s);
   auto o = static_cast<int8_t*>(out);
-  return static_cast<int>(dtype == 0 ? qz::run<__nv_bfloat16>(x, sp, o, n, st)
-                                     : qz::run<float>(x, sp, o, n, st));
+  return static_cast<int>(
+      dtype == 0 ? qz::run<__nv_bfloat16>(x, sp, o, n, C, OS, st)
+                 : qz::run<float>(x, sp, o, n, C, OS, st));
 }

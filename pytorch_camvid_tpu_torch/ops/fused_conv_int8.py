@@ -22,10 +22,16 @@ quant.py:246) fused with ``quantized_block_apply``'s epilogue (quant.py:261):
   the divisors as tensors on the data's device (a CUDA division by a CPU
   scalar multiplies by its reciprocal). The kernel equals it bit for bit.
 - The kernel's paths (``int8_path``, the .cu's ``conv3x3_int8_path``):
-  "wgmma" for Cin % 16 == 0 from 32 (TMA's 16-byte row stride; width 3/4
-  models have Cin 48, 96, ...), "packed" for Cin < 32 (the Cin = 3 stem,
-  narrow widths); any other Cin raises. Any Cout: the weights are
-  zero-padded to the tile and the padded columns are not stored.
+  "wgmma" for Cin >= 32, "packed" for Cin < 32 (the Cin = 3 stem, narrow
+  widths). Any Cout: the weights are zero-padded to the tile and the
+  padded columns are not stored.
+- The wgmma path reads x through TMA, whose strides are multiples of 16
+  bytes: x comes with a pixel stride of ``pixel_stride(Cin)`` = 16 *
+  ceil(Cin / 16) bytes, as the view ``[..., :Cin]`` of an (N,H,W,Cs)
+  buffer (``empty_block_input``); ``block_input`` copies any other x into
+  that layout in one pass, and ``quantize`` writes it itself. At Cin % 16
+  == 0 it is the contiguous layout. The .cu derives the same stride from
+  Cin (``conv3x3_int8_pixel_stride``) for its tensor maps.
 - ``pack_weights`` repacks HWIO ``w_q`` once, K-major as the kernel reads
   it; the quantized block caches the result (``ops/conv.py``).
 - ``quantize`` is the blocks' input quantize (clip(round(x / s)) to int8,
@@ -60,12 +66,23 @@ PACKED_MAX_CIN = 31
 
 def int8_path(cin: int) -> str:
     """The kernel path that takes an input of ``cin`` channels: "packed"
-    (Cin < 32: 9 taps x Cin packed into K), "wgmma" (Cin % 16 == 0 from 32:
-    TMA rows, a 16-byte stride; the last k32 step takes TMA's zeros past
-    Cin), "none" (the wrapper refuses it)."""
-    if 0 < cin <= PACKED_MAX_CIN:
-        return "packed"
-    return "wgmma" if cin > 0 and cin % 16 == 0 else "none"
+    (Cin < 32: 9 taps x Cin packed into K), "wgmma" (Cin >= 32: TMA rows at
+    ``pixel_stride(cin)``; the last k32 step takes TMA's zeros past Cin),
+    "none" (Cin <= 0: the wrapper refuses it)."""
+    if cin <= 0:
+        return "none"
+    return "packed" if cin <= PACKED_MAX_CIN else "wgmma"
+
+
+def pixel_stride(cin: int) -> int:
+    """The bytes from one pixel of x to the next that the kernel reads,
+    Cs: 16 * ceil(Cin / 16) on the wgmma path (TMA's strides are multiples
+    of 16 bytes; its packed weights' rows are as long), Cin on the packed
+    path, 0 for none."""
+    path = int8_path(cin)
+    if path == "wgmma":
+        return -(-cin // 16) * 16
+    return cin if path == "packed" else 0
 
 
 def packed_cin(cin: int) -> int:
@@ -89,20 +106,50 @@ def quantize_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 def pack_weights(w_q: torch.Tensor) -> torch.Tensor:
     """HWIO int8 (3,3,Cin,Cout) -> the kernel's K-major layout: (9, Cout,
-    Cin) on the wgmma path; (Cout, Kp) with k = tap * Cin4 + ci (Cin4 =
-    ``packed_cin(Cin)``, each tap's channels zero-padded to it), zero-padded
-    to ``packed_k(Cin)``, on the packed path."""
+    Cs) on the wgmma path, Cs = ``pixel_stride(Cin)``, zero columns past
+    Cin; (Cout, Kp) with k = tap * Cin4 + ci (Cin4 = ``packed_cin(Cin)``,
+    each tap's channels zero-padded to it), zero-padded to
+    ``packed_k(Cin)``, on the packed path."""
     cin, cout = w_q.shape[2], w_q.shape[3]
     path = int8_path(cin)
     if path == "wgmma":
-        return w_q.reshape(9, cin, cout).transpose(1, 2).contiguous()
+        k = w_q.reshape(9, cin, cout).transpose(1, 2)
+        return F.pad(k, (0, pixel_stride(cin) - cin)).contiguous()
     if path == "packed":
         c4 = packed_cin(cin)
         k = F.pad(w_q.reshape(9, cin, cout), (0, 0, 0, c4 - cin))
         k = k.reshape(9 * c4, cout).t()
         return F.pad(k, (0, packed_k(cin) - 9 * c4)).contiguous()
-    raise ValueError(f"conv3x3_int8 takes Cin % 16 == 0 or Cin < 32, got "
-                     f"Cin {cin}")
+    raise ValueError(f"conv3x3_int8 takes Cin > 0, got Cin {cin}")
+
+
+def block_strides(n: int, h: int, w: int, cin: int) -> tuple:
+    """The strides of an (N,H,W,Cin) int8 block input in the kernel's
+    layout: pixel stride ``pixel_stride(Cin)``."""
+    cs = pixel_stride(cin)
+    return (h * w * cs, w * cs, cs, 1)
+
+
+def empty_block_input(shape, device) -> torch.Tensor:
+    """An empty int8 tensor of ``shape`` (N,H,W,Cin) in the kernel's
+    layout: the view ``[..., :Cin]`` of a new (N,H,W,Cs) buffer (the
+    channels past Cin are never read), or contiguous where Cs = Cin."""
+    n, h, w, cin = shape
+    buf = torch.empty((n, h, w, pixel_stride(cin)), dtype=torch.int8,
+                      device=device)
+    return buf[..., :cin]
+
+
+def block_input(x_q: torch.Tensor) -> torch.Tensor:
+    """``x_q`` (N,H,W,Cin) int8 as the kernel reads it: as it is where it
+    has ``block_strides`` and 16-byte aligned data (TMA, the packed path's
+    16-byte loads), else copied once into ``empty_block_input``."""
+    if (x_q.stride() == block_strides(*x_q.shape)
+            and x_q.data_ptr() % 16 == 0):
+        return x_q
+    out = empty_block_input(x_q.shape, x_q.device)
+    out.copy_(x_q)
+    return out
 
 
 def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
@@ -145,16 +192,17 @@ def _library() -> ctypes.CDLL:
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """The C entry points of a library built from ``conv3x3_int8.cu`` (or
-    an edit of it, chip_faults.py), typed."""
-    lib.conv3x3_int8.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
+    an edit of it, chip_faults.py), typed. The rule entries
+    (``conv3x3_int8_path``, ``_packed_k``, ``_pixel_stride``: int -> int)
+    keep ctypes' default types, so a library from before the padded layout
+    (``int8_variants --parent``), which has no ``_pixel_stride``, binds
+    too."""
+    lib.conv3x3_int8.argtypes = [ctypes.c_void_p] * 7 \
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.conv3x3_int8.restype = ctypes.c_int
     lib.quantize_int8.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.quantize_int8.restype = ctypes.c_int
-    for name in ("conv3x3_int8_path", "conv3x3_int8_packed_k"):
-        getattr(lib, name).argtypes = [ctypes.c_int]
-        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -166,6 +214,12 @@ def kernel_path(cin: int) -> str:
 
 def kernel_packed_k(cin: int) -> int:
     return _library().conv3x3_int8_packed_k(cin)
+
+
+def kernel_pixel_stride(cin: int) -> int:
+    """``pixel_stride``'s rule as the .cu holds it (its tensor maps' x
+    stride; chip_smoke checks that the two agree)."""
+    return _library().conv3x3_int8_pixel_stride(cin)
 
 
 def _check(x_q, w_q, s_w, s_x, b_eff, s_out, out_dtype, packed):
@@ -195,9 +249,8 @@ def _check(x_q, w_q, s_w, s_x, b_eff, s_out, out_dtype, packed):
                          "given")
     path = int8_path(cin)
     if path == "none":
-        raise ValueError(f"conv3x3_int8 takes Cin % 16 == 0 or Cin < 32, "
-                         f"got Cin {cin}")
-    want = ((9, cout, cin) if path == "wgmma"
+        raise ValueError(f"conv3x3_int8 takes Cin > 0, got Cin {cin}")
+    want = ((9, cout, pixel_stride(cin)) if path == "wgmma"
             else (cout, packed_k(cin)))
     if packed.dtype != torch.int8 or tuple(packed.shape) != want:
         raise ValueError(f"packed weights must be int8 {want} "
@@ -209,14 +262,14 @@ def _check(x_q, w_q, s_w, s_x, b_eff, s_out, out_dtype, packed):
             continue
         if t.device != x_q.device:
             raise ValueError(f"{name} is on {t.device}, x on {x_q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous (x in NHWC)")
-    if min(x_q.shape) == 0 or max(*x_q.shape, 9 * cin * cout) >= 2 ** 31:
+        if t is not x_q and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if min(x_q.shape) == 0 or max(*x_q.shape, 9 * pixel_stride(cin) * cout
+                                  ) >= 2 ** 31:
         raise ValueError(f"unsupported shape x {tuple(x_q.shape)}, Cout "
                          f"{cout}")
-    if x_q.data_ptr() % 16 or packed.data_ptr() % 16:
-        raise ValueError("x and the packed weights must be 16-byte aligned "
-                         "(TMA)")
+    if packed.data_ptr() % 16:
+        raise ValueError("the packed weights must be 16-byte aligned (TMA)")
 
 
 def conv3x3_int8_block(x_q: torch.Tensor, w_q: torch.Tensor,
@@ -247,15 +300,17 @@ def launch(x_q: torch.Tensor, w_q: torch.Tensor,
            s_x: torch.Tensor, b_eff: torch.Tensor,
            s_out: Optional[torch.Tensor],
            out_dtype: torch.dtype) -> torch.Tensor:
-    """The kernel on CUDA tensors, or raises. An x whose data is not
-    16-byte aligned (a batch view) is copied first (``aligned16``). Counts
-    the launch."""
+    """The kernel on CUDA tensors, or raises. An x that is not in the
+    kernel's layout (``block_input``: at Cin % 16 != 0 from 32 a contiguous
+    x, or a batch view whose data is not 16-byte aligned) is copied into it
+    first. Counts the launch."""
     if x_q.device.type != "cuda":
         raise ValueError(f"conv3x3_int8: no kernel for {x_q.device}")
     if packed is None:
         packed = pack_weights(w_q)
-    x_q, packed = aligned16(x_q), aligned16(packed)
+    packed = aligned16(packed)
     _check(x_q, w_q, s_w, s_x, b_eff, s_out, out_dtype, packed)
+    x_q = block_input(x_q)
     n, h, w, cin = x_q.shape
     cout = w_q.shape[3]
     lib = _library()
@@ -279,21 +334,40 @@ def launch(x_q: torch.Tensor, w_q: torch.Tensor,
 _QUANTIZE_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
+def quantized_layout(shape, device) -> torch.Tensor:
+    """An empty int8 tensor of ``shape`` in the layout ``quantize``
+    returns: a 4-D (N,H,W,C) one as a block input
+    (``empty_block_input``), any other contiguous."""
+    if len(shape) == 4:
+        return empty_block_input(shape, device)
+    return torch.empty(shape, dtype=torch.int8, device=device)
+
+
+def quantize_cpu(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``quantize_plain`` in ``quantized_layout`` (a 4-D result copied
+    into it where its pixel stride differs)."""
+    q = quantize_plain(x, s)
+    return block_input(q) if q.dim() == 4 else q
+
+
 def quantize(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """``quantize_plain``'s function: on a CPU tensor the plain version; on
-    a CUDA tensor ``launch_quantize``. While tracing it is the op
+    """``quantize_plain``'s function in ``quantized_layout``, so that an
+    (N,H,W,Cin) result is the int8 block's input as the kernel reads it: on
+    a CPU tensor the plain version (``quantize_cpu``); on a CUDA tensor
+    ``launch_quantize``. While tracing it is the op
     ``camvid::quantize_int8`` (``ops/library.py``)."""
     if torch.compiler.is_compiling():
         return torch.ops.camvid.quantize_int8(x, s)
     if x.device.type == "cpu":
-        return quantize_plain(x, s)
+        return quantize_cpu(x, s)
     return launch_quantize(x, s)
 
 
 def launch_quantize(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """The quantize kernel of the int8 source on a CUDA x (bf16 or f32, any
-    shape), one pass, or raises. An x whose data is not 16-byte aligned is
-    copied first (``aligned16``). Counts the launch."""
+    shape), one pass, or raises: the result in ``quantized_layout`` (a 4-D
+    x's pixels written at ``pixel_stride(C)``). An x whose data is not
+    16-byte aligned is copied first (``aligned16``). Counts the launch."""
     if x.device.type != "cuda":
         raise ValueError(f"quantize: no kernel for {x.device}")
     if x.dtype not in _QUANTIZE_DTYPES:
@@ -306,10 +380,12 @@ def launch_quantize(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"quantize takes a contiguous, non-empty x, got "
                          f"{tuple(x.shape)}")
     x = aligned16(x)
+    c = x.shape[-1] if x.dim() else 1
     with torch.cuda.device(x.device):
-        out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        out = quantized_layout(x.shape, x.device)
         err = _library().quantize_int8(
-            x.data_ptr(), s.data_ptr(), out.data_ptr(), x.numel(),
+            x.data_ptr(), s.data_ptr(), out.data_ptr(), x.numel(), c,
+            out.stride(-2) if x.dim() == 4 else c,
             _QUANTIZE_DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

@@ -209,12 +209,12 @@ def quantize_int8(x: Tensor, s: Tensor) -> Tensor:
 
 @quantize_int8.register_kernel("cpu")
 def _(x, s):
-    return fused_conv_int8.quantize_plain(x, s)
+    return fused_conv_int8.quantize_cpu(x, s)
 
 
 @quantize_int8.register_fake
 def _(x, s):
-    return torch.empty_like(x, dtype=torch.int8)
+    return fused_conv_int8.quantized_layout(x.shape, x.device)
 
 
 OPS = {f"{NAMESPACE}::{name}": op for name, op in (

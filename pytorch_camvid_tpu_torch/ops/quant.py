@@ -188,7 +188,7 @@ def quantized_block_apply(params_q, x: torch.Tensor,
         x_q = (quantize_plain if plain else quantize)(x.contiguous(), s_x)
     s_out = params_q.get("s_out")
     out_dtype = torch.int8 if s_out is not None else compute_dtype
-    args = (x_q.contiguous(), params_q["w_q"], params_q["s_w"], s_x,
+    args = (x_q, params_q["w_q"], params_q["s_w"], s_x,
             params_q["b_eff"], s_out, out_dtype)
     if plain:
         return fused_conv_int8.conv3x3_int8_block_plain(*args)

@@ -50,8 +50,19 @@ includes the profiler's own cost per launch. A row above its roofline is
 re-measured with 3x the launches, up to twice, and then flagged
 ``suspect``. The profiler now and then returns traces without their device
 records (seen on the H100 for microsecond ops, three times in a row in
-one run of ``chip_smoke.py``); after ``TRACE_TRIES`` such traces ``ms``
-is the CUDA events' time, and a line on stderr says so. On the CPU (``--device cpu``) ``ms = ms_gross`` from the host
+one run of ``chip_smoke.py``), or with some of them (late in a whole
+``chip_smoke.py`` run, one kernel of 20 calls): a trace whose device
+records are fewer than the calls, no whole number a call, or whose busy
+time a call is under the caller's ``bound_ms`` (the least time the card
+could take; an input read warm from L2 can beat a bound of HBM bytes, so
+a caller that passes one uses inputs that do not stay in L2) is taken
+again. Late in a whole ``chip_smoke.py`` run such traces
+came back every time (one kind of kernel a call held one record a
+trace), so the last try queues its calls behind a spin of the device
+(``torch.cuda._sleep``) and ``ms = ms_gross`` is their CUDA events' time:
+the calls run back to back, and no host time enters. A line on stderr
+says the reading is suspect. A row's ``calls`` counts every call of the
+op behind it: the warm-ups and every trace, those taken again too. On the CPU (``--device cpu``) ``ms = ms_gross`` from the host
 clock and the tax is 0; those rows time PyTorch's CPU kernels and say
 nothing about the card. Every row names the device it ran on.
 """
@@ -81,7 +92,10 @@ PEAK_TFLOPS = bench.H100_BF16_PEAK / 1e12
 F32_PEAK_TFLOPS = bench.H100_TF32_PEAK / 3 / 1e12
 HBM_GBPS = bench.H100_HBM_RATE / 1e9
 WARMUP = 3
-TRACE_TRIES = 3     # traces taken before time_op falls back to events
+TRACE_TRIES = 3     # traces time_op takes, the last queued behind a spin
+# device cycles of that spin: ~0.1 s at the H100's clock, time enough for
+# the host to queue the calls behind it
+SPIN_CYCLES = 200_000_000
 SEGNET_POOL_CHANNELS = (64, 128, 256, 512, 512)
 POOL_IMPLS = ("argmax", "phase", "k3", "k2")
 
@@ -106,17 +120,6 @@ def roofline_tflops(batch, h, w, cin, cout, dtype_bytes=2,
     return min(peak_tflops, flops / bytes_ * hbm_gbps / 1000.0), flops
 
 
-def op_calls(k_start: int, k_final: int) -> int:
-    """Calls of the op behind a row that started at ``k_start`` launches
-    and ended at ``k_final``: per attempt a warm-up and the timed
-    launches."""
-    calls, kk = 0, k_start
-    while kk <= k_final:
-        calls += WARMUP + kk
-        kk *= 3
-    return calls
-
-
 def _device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -133,10 +136,11 @@ def _device_name(dev: torch.device) -> str:
                       else torch.cuda.current_device())
 
 
-def time_op(fn: Callable[[], object], k: int,
-            dev: torch.device) -> Tuple[float, float]:
+def time_op(fn: Callable[[], object], k: int, dev: torch.device,
+            bound_ms: float = 0.0) -> Tuple[float, float]:
     """(ms_gross, ms) per call of ``fn`` over ``k`` calls after a warm-up
-    (module docstring)."""
+    (module docstring); ``bound_ms``: the least device time a call can
+    take, under which a trace is taken again."""
     for _ in range(WARMUP):
         fn()
     if dev.type != "cuda":
@@ -147,23 +151,36 @@ def time_op(fn: Callable[[], object], k: int,
         return ms, ms
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    # the profiler now and then returns a trace without its device records
-    # (seen on the H100 for microsecond ops): such a trace is taken again
-    for _ in range(TRACE_TRIES):
+    # the profiler now and then returns a trace without its device records,
+    # or with some of them (seen on the H100): each call launches the same
+    # device ops, one at least, so a whole trace holds a multiple of k and
+    # is busy for bound_ms a call at least; another is taken again
+    seen = []
+    for attempt in range(TRACE_TRIES):
+        last = attempt == TRACE_TRIES - 1
         torch.cuda.synchronize(dev)
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         with torch.profiler.profile(activities=acts) as prof:
+            if last and torch.cuda.is_available():
+                torch.cuda._sleep(SPIN_CYCLES)
             e0.record()
             for _ in range(k):
                 fn()
             e1.record()
             torch.cuda.synchronize(dev)
+        if last:
+            break
         spans = [(a, b) for _, a, b in bench.device_spans(prof)]
-        if spans:
-            return e0.elapsed_time(e1) / k, bench.busy_ms(spans) / k
+        busy = bench.busy_ms(spans) / k
+        if spans and len(spans) % k == 0 and busy >= bound_ms:
+            return e0.elapsed_time(e1) / k, busy
+        seen.append(f"{len(spans)} records, {busy:.5f} ms")
     gross = e0.elapsed_time(e1) / k
-    print(f"perf_probe: {TRACE_TRIES} traces held no device records; the "
-          f"time is by CUDA events ({gross:.5f} ms a call)", file=sys.stderr,
+    print(f"perf_probe: suspect reading: {TRACE_TRIES - 1} traces held no "
+          f"device records, not a whole number a call, or less busy time "
+          f"than the bound ({bound_ms:.5f} ms) for {k} calls ("
+          f"{'; '.join(seen)}); the time is by CUDA events of the calls "
+          f"queued behind a spin ({gross:.5f} ms a call)", file=sys.stderr,
           flush=True)
     return gross, gross
 
@@ -212,7 +229,13 @@ def probe_shape(batch, h, w, cin, cout, k=30, kernel=False, mode="fwd",
     docstring)."""
     dev = _device(device)
     dtype = dtype or torch.bfloat16
-    op = _op(batch, h, w, cin, cout, mode, kernel, pair, dev, dtype)
+    op_ = _op(batch, h, w, cin, cout, mode, kernel, pair, dev, dtype)
+    calls = 0
+
+    def op():
+        nonlocal calls
+        calls += 1
+        return op_()
     if dtype == torch.float32:
         bound, flops = roofline_tflops(batch, h, w, cin, cout, 4,
                                        F32_PEAK_TFLOPS)
@@ -238,6 +261,7 @@ def probe_shape(batch, h, w, cin, cout, k=30, kernel=False, mode="fwd",
         "mode": mode,
         "dtype": str(dtype)[6:],
         "k": kk,
+        "calls": calls,
         "device": _device_name(dev),
     }
     if achieved > bound:

@@ -379,6 +379,39 @@ def test_weights_hwio_keeps_the_bytes_in_the_packed_shape(cin, cout):
     assert not torch.equal(got, want)
 
 
+@pytest.mark.parametrize("cin", [40, 36, 100])
+def test_padded_layout_faults_change_what_they_name(cin):
+    """The weights' fault puts 1s in the packed weights' zero columns past
+    Cin and leaves the rest (chip_smoke's ``padded_weights_ok`` tells the
+    two apart); the buffer's fault hands out the padded layout with 1s past
+    Cin; the map's fault edits x's extent (``x_extent_cs``, built on the
+    card). The padded layout's x and weights poisoned so give the plain
+    block's result on the CPU too."""
+    import chip_smoke
+    from pytorch_camvid_tpu_torch.ops import fused_conv_int8
+    w = torch.randint(-127, 128, (3, 3, cin, 16), dtype=torch.int8,
+                      generator=torch.Generator().manual_seed(cin))
+    sound, bad = fused_conv_int8.pack_weights(w), \
+        chip_faults.weights_ones_past_cin(w)
+    assert torch.equal(bad[..., :cin], sound[..., :cin])
+    assert bool((bad[..., cin:] == 1).all()) and bad.shape[2] > cin
+    assert chip_smoke.padded_weights_ok(sound, w)
+    assert not chip_smoke.padded_weights_ok(bad, w)
+    x = chip_faults.ones_block_input((2, 3, 5, cin), "cpu")
+    assert x.stride() == fused_conv_int8.block_strides(2, 3, 5, cin)
+    assert bool((x.as_strided((30 * x.stride(2),), (1,)) == 1).all())
+    assert "xd[4] = {cs," in chip_faults.edited_source("x_extent_cs")
+    t = {"x": torch.randint(-127, 128, (1, 4, 5, cin), dtype=torch.int8),
+         "packed": sound}
+    p = chip_smoke.poisoned(t)
+    assert torch.equal(p["x"], t["x"]) and torch.equal(p["packed"], bad)
+    args = (w, torch.rand(16) * 1e-3, torch.tensor(0.02), torch.randn(16))
+    assert torch.equal(
+        fused_conv_int8.conv3x3_int8_block(p["x"], *args,
+                                           packed=p["packed"]),
+        fused_conv_int8.conv3x3_int8_block_plain(t["x"], *args))
+
+
 def test_fmaf_epilogue_rounds_otherwise():
     """The contracted epilogue rounds float(acc) * scale + bias once (an
     FMA: exact in float64, then to f32) where the kernel rounds twice; on

@@ -358,6 +358,37 @@ def test_int8_predictor_program(net, tmp_path):
             program(torch.from_numpy(images)).numpy(), want)
 
 
+def test_int8_odd_width_program(tmp_path):
+    """SegNet at width 5/8 (blocks of Cin 40, no multiple of 16: the int8
+    kernel's padded layout, which the quantize op writes), every block
+    int8: the program traces with one int8 op a block, its quantize op's
+    output in the padded layout, and the loaded program's maps are
+    bit-equal to the live int8 Predictor's."""
+    net = "segnet"
+    sd = get_model(net, 3, 12, width_mult=0.625,
+                   generator=_gen(10)).state_dict()
+    rng = np.random.default_rng(11)
+    calib = rng.integers(0, 256, (2,) + INT8_HW + (3,), dtype=np.uint8)
+    images = rng.integers(0, 256, (2,) + INT8_HW + (3,), dtype=np.uint8)
+    with Predictor(net, sd, batch_size=2, image_hw=INT8_HW,
+                   device="cpu") as p:
+        p.quantize_int8(calib)
+        qb = quant.quantized_blocks(p.model)
+        assert 40 in {b.w_q.shape[2] for b in qb}
+        path = str(tmp_path / "segnet_5_8_int8.pt2")
+        program = p.export_program(path)
+        want = p.predict(images)
+    counts = library.op_counts(program.graph)
+    assert counts["camvid::conv3x3_int8_block"] == len(qb)
+    fused = sum(b.s_out is not None for b in qb)
+    assert counts["camvid::quantize_int8"] == len(qb) - fused
+    assert not any(counts[op] for op in LIBRARY_OPS), counts
+    loaded = library.load_program(path, "cpu")
+    with torch.inference_mode():
+        np.testing.assert_array_equal(
+            loaded(torch.from_numpy(images)).numpy(), want)
+
+
 def test_load_program_on_a_missing_card_raises(exported):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

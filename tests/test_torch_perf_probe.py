@@ -52,10 +52,20 @@ def test_roofline_matches_jax_tool(jax_tool, shape):
     assert got == pytest.approx(want, rel=1e-12)
 
 
-def test_op_calls_counts_every_attempt():
-    w = perf_probe.WARMUP
-    assert perf_probe.op_calls(10, 10) == w + 10
-    assert perf_probe.op_calls(10, 90) == 3 * w + 10 + 30 + 90
+@pytest.mark.parametrize("traces", [1, perf_probe.TRACE_TRIES])
+def test_op_calls_counts_every_attempt(monkeypatch, traces):
+    """A row's ``calls`` is every call of its op: the warm-ups, each trace
+    ``time_op`` took again and each attempt over the roofline (here a
+    stand-in ``time_op`` that reads 1e-12 ms, so all three attempts run)."""
+    def time_op(fn, k, dev, bound_ms=0.0):
+        for _ in range(perf_probe.WARMUP + traces * k):
+            fn()
+        return 1e-12, 1e-12
+    monkeypatch.setattr(perf_probe, "time_op", time_op)
+    row = perf_probe.probe_shape(1, 4, 6, 8, 8, k=2, device="cpu")
+    assert "suspect" in row
+    assert row["calls"] == sum(perf_probe.WARMUP + traces * kk
+                               for kk in (2, 6, 18))
 
 
 def test_busy_ms_counts_overlaps_once():
@@ -205,3 +215,59 @@ def test_time_op_times_by_events_when_every_trace_is_empty(monkeypatch,
     assert len(traces) == perf_probe.TRACE_TRIES
     assert len(calls) == perf_probe.WARMUP + 4 * perf_probe.TRACE_TRIES
     assert "held no device records" in capsys.readouterr().err
+
+
+
+_SHORT = [("k", 1000.0 * i, 1000.0 * i + 250.0) for i in range(4)]
+_WHOLE = [("k", 1000.0 * i, 1000.0 * i + 500.0) for i in range(4)]
+
+
+@pytest.mark.parametrize("traces_seen,bound,want", [
+    # one kernel of the 4 calls left (seen late in a whole chip_smoke run)
+    ([[("k", 0.0, 500.0)], _WHOLE], 0.0, 0.5),
+    # whole records, each busy for less than the bound (a K3 stage read
+    # 1.38 of its byte bound)
+    ([_SHORT, _WHOLE], 0.4, 0.5),
+    # every trace under the bound: the last try's events' time (its calls
+    # queued behind a spin of the device), a suspect reading
+    ([_SHORT] * (perf_probe.TRACE_TRIES - 1), 0.4, 2.0)])
+def test_time_op_takes_a_trace_again(monkeypatch, capsys, traces_seen,
+                                     bound, want):
+    """A trace holding fewer device records than calls, or whose busy time
+    a call is under the caller's bound, is taken again, and the next sound
+    trace gives ``ms``; where every trace but the last fails, ``ms`` is the
+    last try's CUDA events' time and stderr says the reading is suspect.
+    Fakes stand in for the card."""
+    import contextlib
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            pass
+
+        def record(self):
+            pass
+
+        def elapsed_time(self, other):
+            return 8.0
+
+    traces = []
+
+    @contextlib.contextmanager
+    def profile(activities):
+        traces.append(activities)
+        yield object()
+
+    spans = iter(traces_seen)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda dev=None: None)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.profiler, "profile", profile)
+    monkeypatch.setattr(perf_probe.bench, "device_spans",
+                        lambda prof: next(spans))
+    calls = []
+    got = perf_probe.time_op(lambda: calls.append(1), 4,
+                             torch.device("cuda"), bound)
+    tries = len(traces_seen) + (want == 2.0)
+    assert got == (2.0, want)
+    assert len(traces) == tries
+    assert len(calls) == perf_probe.WARMUP + 4 * tries
+    assert ("suspect reading" in capsys.readouterr().err) == (want == 2.0)

@@ -219,18 +219,103 @@ def test_requantize_divides():
     assert not torch.equal(q, by_recip)
 
 
-@pytest.mark.parametrize("cin", [1, 3, 4, 16, 31, 32, 48, 64, 96])
+ODD_CIN = [33, 36, 40, 72, 100]   # wgmma at Cin % 16 != 0
+
+
+@pytest.mark.parametrize("cin", [1, 3, 4, 16, 31, 32, 48, 64, 96]
+                         + ODD_CIN)
 def test_int8_path_rule(cin):
     want = "packed" if cin < 32 else "wgmma"
     assert fq.int8_path(cin) == want
     assert fq.packed_k(cin) % 32 == 0 and fq.packed_k(cin) >= 9 * cin
 
 
-@pytest.mark.parametrize("cin", [33, 40, 100])
-def test_int8_path_refuses(cin):
+@pytest.mark.parametrize("cin", [0, -4])
+def test_int8_path_refuses_no_channels(cin):
     assert fq.int8_path(cin) == "none"
-    with pytest.raises(ValueError, match="Cin % 16"):
-        fq.pack_weights(torch.zeros((3, 3, cin, 8), dtype=torch.int8))
+    with pytest.raises(ValueError, match="Cin > 0"):
+        fq.pack_weights(torch.zeros((3, 3, max(cin, 0), 8),
+                                    dtype=torch.int8))
+
+
+@pytest.mark.parametrize("cin", ODD_CIN + [48, 128])
+def test_pack_weights_pads_the_wgmma_layout(cin):
+    """On the wgmma path the packed weights are (9, Cout, Cs), Cs = 16 *
+    ceil(Cin / 16): below Cin bit-equal to the unpadded K-major layout
+    (tap, Cout, Cin), zero columns past it."""
+    cout = 24
+    rng = np.random.default_rng(cin)
+    wq = torch.from_numpy(rng.integers(-127, 128, (3, 3, cin, cout),
+                                       dtype=np.int8))
+    cs = -(-cin // 16) * 16
+    wk = fq.pack_weights(wq)
+    assert wk.dtype == torch.int8 and wk.is_contiguous()
+    assert tuple(wk.shape) == (9, cout, cs)
+    assert torch.equal(wk[..., :cin],
+                       wq.reshape(9, cin, cout).transpose(1, 2))
+    assert not wk[..., cin:].any()
+
+
+@pytest.mark.parametrize("cin,cs", [(3, 3), (31, 31), (32, 32), (33, 48),
+                                    (36, 48), (40, 48), (48, 48), (72, 80),
+                                    (100, 112), (144, 144), (576, 576)])
+def test_pixel_stride_and_block_layout(cin, cs):
+    """The pixel stride the kernel reads (Cin on the packed path, Cin
+    rounded up to 16 bytes on the wgmma path, where x's tensor map takes
+    the block layout's pixel, row and image strides, each a multiple of 16
+    bytes as TMA needs); the block layout's strides, an empty block input,
+    and ``block_input`` copying a contiguous x into it once (values kept)
+    and leaving an x already in it as it is."""
+    n, h, w = 2, 5, 7
+    assert fq.pixel_stride(cin) == cs
+    if fq.int8_path(cin) == "wgmma":
+        assert all(v % 16 == 0 for v in fq.block_strides(n, h, w, cin)[:3])
+    assert fq.block_strides(n, h, w, cin) == (h * w * cs, w * cs, cs, 1)
+    e = fq.empty_block_input((n, h, w, cin), "cpu")
+    assert e.shape == (n, h, w, cin) and e.stride() == fq.block_strides(
+        n, h, w, cin) and e.dtype == torch.int8
+    x = torch.from_numpy(np.random.default_rng(cin).integers(
+        -127, 128, (n, h, w, cin), dtype=np.int8))
+    laid = fq.block_input(x)
+    assert torch.equal(laid, x)
+    assert laid.stride() == fq.block_strides(n, h, w, cin)
+    assert (laid.data_ptr() == x.data_ptr()) == (cs == cin)
+    assert fq.block_input(laid).data_ptr() == laid.data_ptr()
+
+
+@pytest.mark.parametrize("c", [36, 40, 64, 3])
+def test_quantize_writes_the_block_layout(c):
+    """``quantize`` (and its op, ``camvid::quantize_int8``: opcheck)
+    returns an (N,H,W,C) input in the int8 block's layout, its values
+    ``quantize_plain``'s; 2-D stays contiguous."""
+    x = torch.from_numpy(np.random.default_rng(c).normal(
+        0, 1, (2, 3, 5, c)).astype(np.float32))
+    s = torch.tensor(0.013)
+    q = fq.quantize(x, s)
+    assert torch.equal(q, fq.quantize_plain(x, s))
+    assert q.stride() == fq.block_strides(*q.shape)
+    op = torch.ops.camvid.quantize_int8
+    torch.library.opcheck(op, (x, s))
+    assert op(x, s).stride() == q.stride()
+    flat = fq.quantize(x.reshape(-1, c), s)
+    assert flat.is_contiguous() and torch.equal(flat, q.reshape(-1, c))
+
+
+def test_odd_cin_block_on_the_padded_layout():
+    """The block takes its x in the padded layout (the channels past Cin
+    holding anything) and contiguous alike, with the same result."""
+    rng = np.random.default_rng(40)
+    q = _qparams(rng, 40, 48, s_out=True)
+    qt = {k: torch.from_numpy(np.array(v)) for k, v in q.items()}
+    x = torch.from_numpy(rng.integers(-127, 128, (1, 6, 7, 40),
+                                      dtype=np.int8))
+    buf = torch.full((1, 6, 7, 48), 99, dtype=torch.int8)
+    buf[..., :40] = x
+    args = (qt["w_q"], qt["s_w"], qt["s_x"], qt["b_eff"], qt["s_out"],
+            torch.int8)
+    want = fq.conv3x3_int8_block_plain(x, *args)
+    assert torch.equal(fq.conv3x3_int8_block(buf[..., :40], *args), want)
+    assert torch.equal(tq.quantized_block_apply(qt, buf[..., :40]), want)
 
 
 def _shifted(x, dy, dx):
@@ -258,7 +343,8 @@ def _kernel_swz(row, chunk, kc):
 
 
 @pytest.mark.parametrize("cin,cout", [(32, 24), (64, 8), (48, 16),
-                                      (192, 40)])
+                                      (192, 40), (40, 16), (100, 8),
+                                      (136, 24)])
 def test_wgmma_layout_model(cin, cout):
     """A numpy model of the wgmma path's reads: per chunk of KC channels
     (64 up to Cin 64, else 128), TMA's swizzled box of the patch with zeros
@@ -271,14 +357,17 @@ def test_wgmma_layout_model(cin, cout):
     x = rng.integers(-127, 128, (1, h, w, cin), dtype=np.int8)
     wq = rng.integers(-127, 128, (3, 3, cin, cout), dtype=np.int8)
     wk = fq.pack_weights(torch.from_numpy(wq)).numpy()
-    assert wk.shape == (9, cout, cin)
+    cs = fq.pixel_stride(cin)
+    assert wk.shape == (9, cout, cs)
     kc = 64 if cin <= 64 else 128
     nch = -(-cin // kc)
     pw = w + 2
+    # x's map reads Cin channels of each pixel (TMA's zeros past them, in
+    # the halo too); the weights' map reads Cs, its zero columns included
     xp = np.zeros((h + 2, pw, nch * kc), np.int64)
     xp[1:-1, 1:-1, :cin] = x[0]
     wp = np.zeros((9, cout, nch * kc), np.int64)
-    wp[..., :cin] = wk
+    wp[..., :cs] = wk
     oy, ox = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
     acc = np.zeros((h, w, cout), np.int64)
     for c in range(nch):

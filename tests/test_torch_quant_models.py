@@ -4,7 +4,9 @@ JAX's quantized tree, K3's int8 pair and the Predictor.
 
 Models at width 1/16 (SegNet 1/8) with the same numpy variables in both
 packages (BN with non-trivial running stats), 32x48 inputs, f32 compute
-unless stated. ``min_cout=0`` quantizes the heads too, so every block runs
+unless stated; SegNet at 5/8 and UNet at 9/16 (``ODD_WIDTH``: block Cin
+40, 80, ... and 36, 72, ..., the int8 kernel's padded wgmma layout) where
+named. ``min_cout=0`` quantizes the heads too, so every block runs
 the int8 block. Tolerances:
 - calibration amax: rtol 1e-5 (the float forwards differ in rounding);
 - logits from JAX's own quantized tree (``quantized_from_jax``): both
@@ -39,6 +41,7 @@ from pytorch_camvid_tpu_torch.ops import quant as tq
 from pytorch_camvid_tpu_torch.serving import Predictor
 
 WIDTH = {"unet": 1 / 16, "segnet": 1 / 8}
+ODD_WIDTH = {"segnet": 0.625, "unet": 0.5625}
 HW = (32, 48)
 
 
@@ -50,12 +53,12 @@ def _threads():
     torch.set_num_threads(before)
 
 
-def _variables(net, seed=0):
-    """JAX variables as numpy, from JAX's init at the test width, with
-    non-trivial BN affine and running stats."""
+def _variables(net, seed=0, width=None):
+    """JAX variables as numpy, from JAX's init at the test width (or
+    ``width``), with non-trivial BN affine and running stats."""
     init_fn, _ = jax_get_model(net, 3, 12)
     v = jax.tree.map(np.asarray, init_fn(jax.random.PRNGKey(seed),
-                                         width_mult=WIDTH[net]))
+                                         width_mult=width or WIDTH[net]))
     rng = np.random.default_rng(seed)
     for stage in v["params"]:
         for p, s in zip(v["params"][stage], v["state"][stage]):
@@ -244,3 +247,80 @@ def test_predictor_quantize_int8_needs_images():
                    image_hw=HW, device="cpu") as p:
         with pytest.raises(ValueError, match="calibration image"):
             p.quantize_int8(np.zeros((0,) + HW + (3,), np.uint8))
+
+
+@pytest.fixture(scope="module", params=sorted(ODD_WIDTH))
+def odd_case(request):
+    """``case`` at ``ODD_WIDTH``: (net, JAX variables, JAX apply_fn, input,
+    JAX amax at f32)."""
+    net = request.param
+    v = _variables(net, seed=2, width=ODD_WIDTH[net])
+    _, apply_fn = jax_get_model(net, 3, 12)
+    x = _x(seed=3)
+    amax = jq.calibrate(apply_fn, jax.tree.map(jnp.asarray, v),
+                        [jnp.asarray(x)], compute_dtype=jnp.float32)
+    return net, v, apply_fn, x, jax.tree.map(np.asarray, amax)
+
+
+def test_odd_width_models_from_jax_quantized_tree(odd_case):
+    """SegNet at 5/8 and UNet at 9/16, every block int8 (``min_cout=0``),
+    from JAX's quantized tree: blocks of Cin 40 / 36 and their multiples
+    (not multiples of 16) run, the wrapper equals the plain path bit for
+    bit, and the logits match JAX's as ``test_models_from_jax_quantized_
+    tree`` holds them."""
+    net, v, apply_fn, x, amax_j = odd_case
+    qv = jq.quantize_variables(v, amax_j, min_cout=0)
+    want = _jax_logits(apply_fn, qv, x)
+    model = _port(net, v)
+    quantized_from_jax(jax.tree.map(np.asarray, qv["params"]), model)
+    blocks = tq.quantized_blocks(model)
+    assert len(blocks) == len(model.blocks())
+    odd = {b.w_q.shape[2] for b in blocks
+           if b.w_q.shape[2] >= 32 and b.w_q.shape[2] % 16}
+    assert odd == ({40} if net == "segnet" else {36, 72}), odd
+    with torch.no_grad():
+        got = model(torch.from_numpy(x))
+        plain = model(torch.from_numpy(x), plain=True)
+    assert got.dtype == torch.float32 and torch.equal(got, plain)
+    got = got.numpy()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    agree = (got.argmax(-1) == want.argmax(-1)).mean()
+    assert err <= 1e-5 and agree >= 0.999, (err, agree)
+
+
+@pytest.mark.parametrize("net", sorted(ODD_WIDTH))
+def test_odd_width_quantize_model_from_own_calibration(net):
+    """``quant.quantize_model`` takes the odd widths (it refused Cin 40
+    and 36 before the padded layout): the port's own calibration and
+    quantization at bf16 compute gives finite f32 logits, and the kernel
+    path's logits equal the plain path's."""
+    model = _port(net, _variables(net, seed=4, width=ODD_WIDTH[net]))
+    x = torch.from_numpy(_x(seed=5)).to(torch.bfloat16)
+    with torch.no_grad():
+        tq.quantize_model(model, tq.calibrate(model, [x]))
+        assert tq.quantized_blocks(model)
+        y = model(x)
+        assert torch.equal(y, model(x, plain=True))
+    assert y.dtype == torch.float32 and torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("net", sorted(ODD_WIDTH))
+def test_odd_width_predictor_quantize_int8_matches_jax(net):
+    """``Predictor.quantize_int8`` at SegNet 5/8 and UNet 9/16 (bf16
+    compute, each package calibrating on the same frames): the class maps
+    agree with JAX's as ``test_predictor_quantize_int8_matches_jax``
+    holds them."""
+    v = _variables(net, seed=6, width=ODD_WIDTH[net])
+    frames = np.random.default_rng(7).integers(0, 256, (2,) + HW + (3,),
+                                               dtype=np.uint8)
+    jp = JaxPredictor(net, jax.tree.map(jnp.asarray, v), batch_size=2,
+                      image_hw=HW)
+    jp.quantize_int8(frames)
+    want = jp.predict(frames)
+    with Predictor(net, state_dict_from_jax_variables(v), batch_size=2,
+                   image_hw=HW, device="cpu") as p:
+        p.quantize_int8(frames)
+        assert tq.quantized_blocks(p.model)
+        got = p.predict(frames)
+    assert got.shape == want.shape == (2,) + HW
+    assert (got == want).mean() >= 0.97, (got == want).mean()
