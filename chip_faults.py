@@ -28,8 +28,12 @@ check on a full-width UNet at batch 24 (``remat_parity``: the remat step
 bit for bit against the step without) and phase 16's int8 checks
 (``int8_kernel_checks`` and ``int8_pool_checks`` without their timings:
 the int8 block bit for bit in three output modes at every quantized
-block shape, K3 on int8 with ties), once sound and once under each
-planted fault. Every kernel fault keeps every
+block shape, K3 on int8 with ties), phase 3's narrow-path checks
+(``narrow_checks``: K4's narrow path against plain at UNet 9/16's and the
+edge shapes, forward and dx, aligned and on views; faults ``NARROW_FAULTS``,
+edits of its source: the patch's columns outside the image left unzeroed,
+each output run's last partial 16-byte chunk dropped, flip without the tap
+reversal), once sound and once under each planted fault. Every kernel fault keeps every
 kernel launch, so only the values can show it (the packed
 dW's, rows_kernel's and the f32 kernels' faults patch the launch
 functions ``conv_train._wgrad_launch``, ``layout_probes._launch`` and
@@ -529,11 +533,39 @@ INT8_FAULTS = {
 }
 _INT8_LIBS = {}   # the fault variants, built once
 
+# faults of K4's narrow path (``csrc/conv3x3_bn_relu.cu`` namespace
+# ``narrow``), edits of its source as INT8_FAULTS, under chip_smoke's
+# ``narrow_checks``
+NARROW_FAULTS = {
+    # the patch's columns outside the image left as x holds them there
+    # (the neighbouring row's pixels) instead of zero
+    "halo_unzeroed": (fused_conv, [(
+        "    if (w0 == 0 || w0 + TW + 1 > W) {",
+        "    if (false) {")]),
+    # an output run's last partial 16-byte chunk never written
+    "last_chunk_dropped": (fused_conv, [(
+        "                if (ca + u >= gs && ca + u < gs + len)\n"
+        "                  out16[ca + u] = os[sq + u];",
+        "                if (ca < gs && ca + u >= gs && ca + u < gs + len)\n"
+        "                  out16[ca + u] = os[sq + u];")]),
+    # flip's weights read without the tap reversal: w[tap], not w[8 - tap]
+    "flip_taps_not_reversed": (fused_conv, [(
+        "        v = w[(static_cast<int64_t>(8 - tap) * Cout + co) * Cin + ci];",
+        "        v = w[(static_cast<int64_t>(tap) * Cout + co) * Cin + ci];")]),
+}
+_NARROW_LIBS = {}
+
+
+def source_fault(name: str) -> tuple:
+    """(module, edits) of a source-edit fault, int8's or the narrow
+    path's."""
+    return INT8_FAULTS[name] if name in INT8_FAULTS else NARROW_FAULTS[name]
+
 
 def edited_source(name: str) -> str:
-    """``INT8_FAULTS[name]``'s source: the kernel source with its edits
+    """``source_fault(name)``'s source: the kernel source with its edits
     (each must apply)."""
-    module, edits = INT8_FAULTS[name]
+    module, edits = source_fault(name)
     src = module.SOURCE.read_text()
     for old, new in edits:
         if old not in src:
@@ -553,7 +585,7 @@ def _build_fault(name: str):
                        capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"fault {name}: nvcc failed:\n{r.stderr[-3000:]}")
-    return name, INT8_FAULTS[name][0].bind(ctypes.CDLL(str(lib)))
+    return name, source_fault(name)[0].bind(ctypes.CDLL(str(lib)))
 
 
 @contextlib.contextmanager
@@ -566,6 +598,18 @@ def int8_fault(name: str):
             _INT8_LIBS.update(pool.map(_build_fault, INT8_FAULTS))
     module = INT8_FAULTS[name][0]
     with planted(module, "_library", lambda: _INT8_LIBS[name]):
+        yield
+
+
+@contextlib.contextmanager
+def narrow_fault(name: str):
+    """The K4 source with ``NARROW_FAULTS[name]``'s edits built and put
+    in place of ``fused_conv``'s library (every variant built, in
+    parallel, at the first use)."""
+    if not _NARROW_LIBS:
+        with ThreadPoolExecutor(len(NARROW_FAULTS)) as pool:
+            _NARROW_LIBS.update(pool.map(_build_fault, NARROW_FAULTS))
+    with planted(fused_conv, "_library", lambda: _NARROW_LIBS[name]):
         yield
 
 
@@ -833,6 +877,13 @@ def fault_cases() -> list:
          "past Cin (1s there)",
          lambda: planted(fused_conv_int8, "pack_weights",
                          weights_ones_past_cin)),
+        ("narrow", "the narrow path's patch columns outside the image left "
+         "unzeroed (the neighbouring row's pixels)",
+         lambda: narrow_fault("halo_unzeroed")),
+        ("narrow", "the narrow path without each output run's last partial "
+         "16-byte chunk", lambda: narrow_fault("last_chunk_dropped")),
+        ("narrow", "the narrow path's flip without the tap reversal",
+         lambda: narrow_fault("flip_taps_not_reversed")),
         ("multi-GPU", "rank 1 keeping its own gradients after the "
          "all-reduce", lambda: in_ranks(rank1_keeps_its_gradients)),
         ("multi-GPU", "sync-BN on each rank's own moments",
@@ -851,8 +902,8 @@ def fault_cases() -> list:
 
 
 PATHS = ("serving", "training", "K5", "K5 f32", "probes", "training run",
-         "augment", "data side", "f32", "remat", "int8", "multi-GPU",
-         "export")
+         "augment", "data side", "f32", "remat", "int8", "narrow",
+         "multi-GPU", "export")
 
 
 def main(argv=None) -> int:
@@ -942,6 +993,12 @@ def main(argv=None) -> int:
                 g = torch.Generator(device="cuda").manual_seed(smoke.SEED)
                 smoke.int8_kernel_checks(g, timed=False)
                 smoke.int8_pool_checks(g, timed=False)
+        elif path == "narrow":   # phase 3's narrow-path checks
+            model = None
+
+            def run():
+                smoke.narrow_checks(torch.Generator(
+                    device="cuda").manual_seed(smoke.SEED))
         elif path == "multi-GPU":   # phase 17 (a) on UNet and (e)
             model = None
 

@@ -31,7 +31,15 @@ Phases (each prints its lines; any failure exits non-zero):
    ``EDGE_SHAPES`` (ragged tiles, a part chunk, Cin 1024, the head tile
    at N = 16 and 24, an input past 2**31 elements; on the packed path a
    ragged stem, a ragged Cin 12, Cin 20 (K 180), a partial Cout tile and
-   an output past 2**31 elements; 64->28 on the narrow path).
+   an output past 2**31 elements; on the narrow path 64->28, a 150-class
+   head 64->150, 36->12, 256->12 and 3->36). Then the narrow path at UNet
+   9/16's seven narrow blocks (b8) and their dx (b24, ``narrow_timings``):
+   each against plain, its device-busy ms beside its bound, plain's and
+   the library call's, after ``narrow_checks``: those shapes, the narrow
+   edge shapes' forward and dx and ``NARROW_NO_TILE`` (a plan with no
+   tile: the first design, the .cu's ``mma_sync``, takes the forward) at
+   2x45x61, aligned and on views x[1:], each call's kernel as the C entry
+   reports it.
 4. K1 vs plain at each model's block shapes at its training batch (UNet
    24, SegNet 32): forward and dx (K4's kernel, unit affine, no ReLU; dx
    reads the weights tap-reversed in place) against F.conv2d and
@@ -45,10 +53,14 @@ Phases (each prints its lines; any failure exits non-zero):
    and the 4.4 GB stem, 64->20 (M 180) on the packed one, 64->28 on the
    narrow one); then
    batch views that start off a 16-byte boundary (``x[1:]`` at 45x61,
-   ``misaligned_checks``): K4, K1's three pieces on the packed and wgmma
-   paths and a full-width UNet's eval forward and train step, against
+   ``misaligned_checks``): K4, K1's three pieces on the packed, wgmma and
+   narrow paths and a full-width UNet's eval forward and train step, against
    their plain versions. Then, per model, K4's and K1's times summed over
-   its blocks beside their bounds.
+   its blocks beside their bounds. Then UNet at width 9/16
+   (``odd_width_train``): one bf16 training step at b24 from He-scaled
+   weights, each K1 call held to plain on its own inputs, K1's launches
+   per path (fwd 7, dx 6 and dW 7 narrow; none on ``mma_sync``), the
+   loss against the plain path's step.
 5. UNet serving: a full-width UNet (random He-scaled weights from a seed)
    saved as a reference-named .pth, loaded by ``Predictor.from_checkpoint``
    and serving three requests (8 images, 13 images, 8 images at 480x640
@@ -379,6 +391,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import glob
 import importlib
 import io
@@ -413,6 +426,7 @@ from pytorch_camvid_tpu_torch.data.synthetic import synthetic_arrays
 from pytorch_camvid_tpu_torch.models import get_model, spec_from_state_dict
 from pytorch_camvid_tpu_torch.models.common import halvings
 from pytorch_camvid_tpu_torch.models.segnet import segnet_spec
+from pytorch_camvid_tpu_torch.models import unet as unet_model
 from pytorch_camvid_tpu_torch.ops import (conv_train, cuda_build, fused_conv,
                                           fused_conv_int8, fused_conv_pair,
                                           fused_pool, pooling, quant)
@@ -480,9 +494,12 @@ PAIR_PROBE_K = 10
 # an input past 2**31 elements (64-bit offsets); the packed path at a
 # ragged stem, a ragged Cin 12 forward, a partial Cout tile and an output
 # past 2**31 elements; 64->28, whose forward, dx and dW stay on the narrow
-# paths. dW: the stems, 12->64, 3->24, 64->12, 64->20 (M = 180) and the
-# 4.4 GB stem on the packed path, 64->28 on the narrow one, the rest on
-# the wgmma one
+# paths; on the narrow path a 150-class head (64->150: N split in two
+# tiles of 80; its dx 150->64 in two of 32), UNet 9/16's head 36->12 (its
+# dx 12->36), 256->12 (Cin past the head tile's 128) and 3->36 (UNet
+# 9/16's stem). dW: the stems, 12->64, 3->24, 64->12, 64->20 (M = 180),
+# 256->12 and the 4.4 GB stem on the packed path, 64->28, 64->150, 36->12
+# and 3->36 on the narrow one, the rest on the wgmma one
 EDGE_SHAPES = ((2, 45, 61, 64, 64), (2, 44, 60, 512, 256),
                (2, 22, 30, 512, 512), (2, 46, 61, 48, 32),
                (2, 22, 30, 1024, 512), (2, 45, 61, 64, 12),
@@ -490,7 +507,9 @@ EDGE_SHAPES = ((2, 45, 61, 64, 64), (2, 44, 60, 512, 256),
                (100, 360, 480, 128, 64), (2, 45, 61, 3, 64),
                (2, 45, 61, 12, 64), (2, 45, 61, 3, 24),
                (200, 360, 480, 3, 64), (2, 45, 61, 64, 20),
-               (2, 45, 61, 64, 28))
+               (2, 45, 61, 64, 28), (2, 45, 61, 64, 150),
+               (2, 45, 61, 36, 12), (2, 45, 61, 256, 12),
+               (2, 45, 61, 3, 36))
 # K4/K1 launches per path of one forward ("fwd") and one training step
 # (``path_table``): the body's blocks on the wgmma paths; the stem's
 # forward and dW on the packed ones (no dx: its input is the image); the
@@ -565,24 +584,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def bound_ms(flops: float, nbytes: float,
-             peak: float = bench.H100_BF16_PEAK) -> tuple:
-    """(least ms on the card, "operations" or "bytes"); ``peak``: the
-    rate of the operations' type."""
-    f = flops / peak * 1e3
-    b = nbytes / bench.H100_HBM_RATE * 1e3
-    return (f, "operations") if f >= b else (b, "bytes")
-
-
-def conv_bound(n, h, w, cin, cout, piece="fwd"):
-    """Bound of one conv3x3 pass; fwd, dx and dW do the same FLOPs and
-    move different bytes: bf16 activations and weight, f32 dW."""
-    flops = 2.0 * 9 * n * h * w * cin * cout
-    act_in, act_out, weight = n * h * w * cin, n * h * w * cout, 9 * cin * cout
-    nbytes = {"fwd": 2 * (act_in + weight + act_out),
-              "dx": 2 * (act_out + weight + act_in),
-              "wgrad": 2 * (act_in + act_out) + 4 * weight}[piece]
-    return bound_ms(flops, nbytes)
+bound_ms, conv_bound = bench.bound_ms, bench.conv_bound
 
 
 def all_block_shapes():
@@ -677,17 +679,18 @@ def k1_edge_checks(gen: torch.Generator) -> None:
 def misaligned_checks(gen: torch.Generator) -> None:
     """Batch views ``x[1:]`` at 45x61 whose data starts off a 16-byte
     boundary (a Cin = 3 bf16 sample is 16,470 bytes): the wrappers realign
-    them with a copy. K4 and K1's pieces on the packed path (3->64) and the
-    wgmma path (64->64) against their plain versions, then a full-width
+    them with a copy. K4 and K1's pieces on the packed path (3->64), the
+    wgmma path (64->64) and the narrow path (36->36, UNet 9/16's) against
+    their plain versions, then a full-width
     UNet: its eval logits (LOGITS_TOL) and a train step's loss (finite)
     and launches."""
-    for cin, cout in ((3, 64), (64, 64)):
+    for cin, cout in ((3, 64), (64, 64), (36, 36)):
         x, wt = conv_inputs(gen, 3, 45, 61, cin, cout)
         g = torch.randn(3, 45, 61, cout, generator=gen, device="cuda").to(
             torch.bfloat16)
         xv, gv = x[1:], g[1:]
-        if cin == 3:
-            check(xv.data_ptr() % 16 != 0, "the stem's view is misaligned")
+        if cin in (3, 36):
+            check(xv.data_ptr() % 16 != 0, f"the Cin {cin} view is misaligned")
         a = torch.rand(cout, generator=gen, device="cuda") + 0.5
         b = torch.randn(cout, generator=gen, device="cuda") * 0.1
         line = [f"misaligned x[1:] 2x45x61 {cin}->{cout}:"]
@@ -811,6 +814,226 @@ def packed_wgrad_lines(res: dict) -> None:
 
 
 # -------------------------------------------------------------- pools (7)
+
+# UNet at width 9/16 (``INT8_ODD_WIDTH``'s): the seven blocks of its
+# forward on K4's narrow path (Cin or Cout 36, off 16-byte strides: the
+# stem, 36->36 x2, 72->36 x2, 36->72 at half resolution, the head) and the
+# dx of each but the stem (flip: 36->36 x2, 36->72 x2, 72->36, 12->36)
+ODD_WIDTH = 0.5625
+ODD_TRAIN_BATCH = 24
+# the first (mma_sync) design at 8x360x480 36->36, device-busy ms, when
+# it took the call (PERF.md §6, NVIDIA H100 80GB HBM3 at 700.00 W)
+NARROW_BEFORE_MS = {(BATCH, 360, 480, 36, 36, False): 1.1890}
+
+
+def odd_width_shapes() -> list:
+    """(H, W, Cin, Cout) of each conv block of UNet at ``ODD_WIDTH``."""
+    return bench.block_shapes("unet", HW,
+                              unet_model.scaled_spec(3, 12, ODD_WIDTH))
+
+
+def narrow_cases() -> list:
+    """(n, h, w, cin, cout, flip, blocks): UNet 9/16's distinct narrow
+    forwards at b8 and their dx at ``ODD_TRAIN_BATCH``, with the number of
+    its blocks of each."""
+    return bench.narrow_cases(ODD_WIDTH, BATCH, ODD_TRAIN_BATCH, HW)
+
+
+def narrow_timings(gen: torch.Generator) -> dict:
+    """The narrow path at ``narrow_cases()``: per case the kernel against
+    plain (``KERNEL_TOL``), its device-busy ms on inputs spanning
+    ``COLD_SPAN`` (``cold_inputs``: each call reads x from HBM) beside the
+    byte or FLOP bound, the plain version's and one library call's
+    (cuDNN's bf16 conv on channels-last tensors, of w or under flip of its
+    tap-reversed transpose); then the sums over UNet 9/16's seven forward
+    blocks and its six dx (``blocks``) beside the design's aims. Returns
+    {"fwd" | "dx": {...sums, "shapes": {...}}}."""
+    dev = torch.device("cuda")
+    out = {"fwd": {"shapes": {}}, "dx": {"shapes": {}}}
+    for n, h, w, cin, cout, flip, blocks in narrow_cases():
+        def make():
+            x = torch.randn(n, h, w, cin, generator=gen, device=dev).to(
+                torch.bfloat16)
+            shape = (3, 3, cout, cin) if flip else (3, 3, cin, cout)
+            wt = (torch.randn(*shape, generator=gen, device=dev)
+                  * (2.0 / (9 * cin)) ** 0.5).to(torch.bfloat16)
+            return x, wt
+        a = torch.rand(cout, generator=gen, device=dev) + 0.5
+        b = torch.randn(cout, generator=gen, device=dev) * 0.1
+        ins = cold_inputs(make, 2 * n * h * w * cin)
+        x, wt = ins[0]
+        err, scale = _rel_err(
+            fused_conv.conv3x3_bn_relu(x, wt, a, b, True, flip),
+            fused_conv.conv3x3_bn_relu_plain(x, wt, a, b, True, flip))
+        check(err <= KERNEL_TOL * scale,
+              f"narrow path vs plain at {(n, h, w, cin, cout, flip)}")
+        bound, by = conv_bound(n, h, w, cin, cout)
+        conv = fused_conv.flipped(wt) if flip else wt
+        t = {"blocks": blocks, "max_abs_err": err / scale,
+             "bound_ms": bound, "bound_by": by}
+        for key, fn in (
+                ("ms", lambda x, wt: fused_conv.conv3x3_bn_relu(
+                    x, wt, a, b, True, flip)),
+                ("plain_ms", lambda x, wt: fused_conv.conv3x3_bn_relu_plain(
+                    x, wt, a, b, True, flip))):
+            t[key] = device_ms(rotated([functools.partial(fn, *i)
+                                        for i in ins]),
+                               bound if key != "plain_ms" else 0.0)
+        wl = conv.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        t["library_ms"] = library_device_ms(rotated([
+            functools.partial(F.conv2d, i[0].permute(0, 3, 1, 2), wl,
+                              padding=1) for i in ins]))
+        within_bound(t["ms"], bound, f"narrow {(n, h, w, cin, cout, flip)}")
+        before = NARROW_BEFORE_MS.get((n, h, w, cin, cout, flip))
+        print(f"narrow path b{n} {h}x{w} {cin}->{cout}"
+              f"{' (flip)' if flip else ''} x{blocks}: err {err / scale:.3g}"
+              f" (tol {KERNEL_TOL}); device-busy {t['ms']:.4f} ms, bound "
+              f"{bound:.4f} by {by} ({bound / t['ms']:.2f} of it), plain "
+              f"{t['plain_ms']:.4f}, cuDNN bf16 {t['library_ms']:.4f}"
+              + (f" (the first design's reading when it took the call "
+                 f"{before:.4f})"
+                 if before else "")
+              + f" on {bench.card()}", flush=True)
+        out["dx" if flip else "fwd"]["shapes"][
+            f"{n}x{h}x{w} {cin}->{cout}"] = t
+        del ins, x, wt
+        torch.cuda.empty_cache()
+    for piece, aim in (("fwd", NARROW_AIM_MS), ("dx", None)):
+        shapes = out[piece]["shapes"].values()
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            out[piece][key] = sum(t[key] * t["blocks"] for t in shapes)
+        out[piece]["max_abs_err"] = max(t["max_abs_err"] for t in shapes)
+        out[piece]["blocks"] = sum(t["blocks"] for t in shapes)
+        o = out[piece]
+        print(f"narrow path, UNet 9/16's {o['blocks']} {piece} blocks "
+              f"summed: {o['ms']:.4f} ms (bound {o['bound_ms']:.4f}, "
+              f"{o['bound_ms'] / o['ms']:.2f} of it; plain "
+              f"{o['plain_ms']:.4f}, cuDNN bf16 {o['library_ms']:.4f})"
+              + (f"; aim {aim} ms: {'met' if o['ms'] <= aim else 'missed'}"
+                 if aim else ""), flush=True)
+    return out
+
+
+def narrow_checks(gen: torch.Generator) -> dict:
+    """The narrow path against plain (``KERNEL_TOL``) at 45x61 (ragged
+    tiles at both image edges; odd row runs of 16-byte chunks) for UNet
+    9/16's narrow forwards and dx (``narrow_cases``), the narrow
+    ``EDGE_SHAPES`` and ``NARROW_NO_TILE`` and their narrow dx, each on an
+    aligned batch x[:2] and on the view x[1:]. Each call's kernel, as the
+    C entry reports it, is the first design (``mma_sync_launches``) where
+    ``narrow_fwd_plan`` holds no tile and the new one elsewhere. Returns
+    {(Cin, Cout, flip): worst error}."""
+    dev = torch.device("cuda")
+    cases = {(cin, cout, flip) for *_, cin, cout, flip, _ in narrow_cases()}
+    for *_, cin, cout in EDGE_SHAPES + NARROW_NO_TILE:
+        if fused_conv.conv_path(cin, cout) == "narrow":
+            cases.add((cin, cout, False))
+        if fused_conv.conv_path(cout, cin) == "narrow":
+            cases.add((cout, cin, True))
+    errs, routes = {}, {}
+    for cin, cout, flip in sorted(cases):
+        x = torch.randn(3, 45, 61, cin, generator=gen, device=dev).to(
+            torch.bfloat16)
+        shape = (3, 3, cout, cin) if flip else (3, 3, cin, cout)
+        wt = (torch.randn(*shape, generator=gen, device=dev)
+              * (2.0 / (9 * cin)) ** 0.5).to(torch.bfloat16)
+        a = torch.rand(cout, generator=gen, device=dev) + 0.5
+        b = torch.randn(cout, generator=gen, device=dev) * 0.1
+        for xv in (x[:2], x[1:]):
+            reset_counts()
+            got = fused_conv.conv3x3_bn_relu(xv, wt, a, b, True, flip)
+            k4 = fused_conv.conv3x3_bn_relu
+            routes.setdefault((cin, cout, flip), set()).add(
+                (k4.path_launches["narrow"], k4.mma_sync_launches))
+            err, scale = _rel_err(
+                got,
+                fused_conv.conv3x3_bn_relu_plain(xv, wt, a, b, True, flip))
+            _note(errs, (cin, cout, flip), err / scale)
+    line = ", ".join(f"{ci}->{co}{' flip' if f else ''} {e:.3g}"
+                     + (" (mma_sync)" if fused_conv.narrow_fwd_plan(ci, co)
+                        is None else "")
+                     for (ci, co, f), e in sorted(errs.items()))
+    print(f"narrow path at 2x45x61, aligned and x[1:], max|kernel - plain| "
+          f"/ max|plain|: {line} (tol {KERNEL_TOL})", flush=True)
+    for case, e in errs.items():
+        check(e <= KERNEL_TOL, f"narrow path vs plain at {case}: {e:.3g}")
+    for (cin, cout, flip), seen in routes.items():
+        want = (1, int(fused_conv.narrow_fwd_plan(cin, cout) is None))
+        check(seen == {want}, f"narrow rule at {(cin, cout, flip)}: launches "
+                              f"(narrow, of them mma_sync) {seen}, expected "
+                              f"{want}")
+    check(any(fused_conv.narrow_fwd_plan(ci, co) is None
+              for ci, co, _ in routes), "a narrow shape with no tile ran")
+    return errs
+
+
+# the design's aim for the seven forward launches' sum at b8 (ms): a
+# quarter of the sum of their bounds
+NARROW_AIM_MS = 1.6
+# a narrow shape whose plan holds no tile (a tile's patch rows and resident
+# weights pass a block's shared memory past Cin ~330): the first design,
+# the .cu's mma_sync, takes its forward; its dx 12->350 has a tile
+NARROW_NO_TILE = ((2, 45, 61, 350, 12),)
+
+
+def odd_width_train(cpu_gen: torch.Generator) -> dict:
+    """UNet at ``ODD_WIDTH`` (He-scaled, seed 0), one bf16 training step at
+    ``ODD_TRAIN_BATCH`` on the kernel path with every K1 call held to its
+    plain version on its own inputs (``shadowed_kernels``, per piece and
+    (Cin, Cout)), its K1 launches per path (``conv_train.
+    step_path_launches``: the forward 7, dx 6 and dW 7 on the narrow
+    paths) and none on the first (``mma_sync``) kernel; one step on the
+    plain path from the same state: the loss within ``TRAIN_LOSS_TOL``.
+    Returns the
+    launches per path."""
+    dev = torch.device("cuda")
+    model = bench.he_model("unet", cpu_gen, ODD_WIDTH).to(dev)
+    batch = bench.resident_batch(ODD_TRAIN_BATCH, HW, SEED, dev)
+    losses, paths, by_shape, errs = {}, None, {}, {}
+    for plain in (False, True):
+        m = copy.deepcopy(model)
+        opt, step = bench.make_bench_step(10, plain=plain)
+        state = TrainState.create(m, opt, seed=SEED)
+        torch.cuda.synchronize()
+        reset_counts()
+        with contextlib.ExitStack() as stack:
+            if not plain:
+                stack.enter_context(shadowed_kernels(errs, by_shape))
+            state, met = step(state, batch)
+        torch.cuda.synchronize()
+        losses[plain] = float(met["loss"])
+        if not plain:
+            paths = conv_train.path_launches()
+            mma_sync = fused_conv.conv3x3_bn_relu.mma_sync_launches
+        del m, state, step
+        torch.cuda.empty_cache()
+    want = conv_train.step_path_launches(odd_width_shapes())
+    loss_err = abs(losses[False] - losses[True]) / abs(losses[True])
+    line = ", ".join(f"{k[0]} {k[1]}->{k[2]} {v:.3g}"
+                     for k, v in sorted(by_shape.items()))
+    print(f"unet at width {ODD_WIDTH} train step b{ODD_TRAIN_BATCH}: loss "
+          f"kernel {losses[False]:.6f} plain {losses[True]:.6f} (rel "
+          f"{loss_err:.3g}, tol {TRAIN_LOSS_TOL}); K1 launches per path "
+          f"{paths} (expected {want}); on mma_sync "
+          f"{mma_sync}; each K1 call against plain on its inputs: {line}",
+          flush=True)
+    check(paths == want, "unet 9/16 K1 launches per path")
+    check((paths["fwd"]["narrow"], paths["dgrad"]["narrow"],
+           paths["wgrad"]["narrow"]) == (7, 6, 7),
+          "unet 9/16: 7 forward, 6 dx and 7 dW launches narrow")
+    check(mma_sync == 0, "unet 9/16: no launch on mma_sync")
+    for (piece, _, _), e in by_shape.items():
+        check(e <= SHADOW_TOL[piece], f"unet 9/16 {piece} on the step's "
+                                      f"data: {e:.3g}")
+    check(np.isfinite(losses[False]) and loss_err <= TRAIN_LOSS_TOL,
+          "unet 9/16 train loss kernel vs plain")
+    del model, batch
+    torch.cuda.empty_cache()
+    return {"path_launches": paths, "loss_rel": loss_err,
+            "worst": {p: max(e for (q, _, _), e in by_shape.items()
+                             if q == p) for p in ("K1 fwd", "K1 dx", "K1 dW")}}
+
 
 def pool_stages():
     """(H, W, C) entering each of SegNet's five pools at HW."""
@@ -4420,6 +4643,12 @@ def plain_int8_pieces(model):
             del model._pools
 
 
+# the b8 forwards at INT8_ODD_WIDTH before the narrow path's design (ms,
+# CUDA events; PERF.md §5, NVIDIA H100 80GB HBM3 at 700.00 W)
+ODD_FWD_BEFORE_MS = {"unet": {"bf16": 11.332, "int8": 10.651},
+                   "segnet": {"bf16": 3.130, "int8": 2.543}}
+
+
 def odd_width_slice(net: str, rng: np.random.Generator) -> dict:
     """Phase 16 (3b): ``he_model(net)`` at ``INT8_ODD_WIDTH`` (seed 0; its
     blocks of Cin 40, or 36 and 72, on the wgmma path over the padded
@@ -4427,7 +4656,10 @@ def odd_width_slice(net: str, rng: np.random.Generator) -> dict:
     on 8: launches per forward, every int8 launch bit-equal to plain on
     its own inputs (``shadowed_int8``), every K4 launch of its float
     blocks within ``KERNEL_TOL`` of plain on its own inputs
-    (``shadowed_k4``), the packed weights' zero columns, the Predictor's
+    (``shadowed_k4``), K4's launches per path in the int8 and the bf16
+    forward (UNet's seven narrow blocks on the narrow path, six of them
+    float in int8; none on ``mma_sync``), the packed weights' zero
+    columns, the Predictor's
     class maps and the model's logits bit-equal to those of the path whose
     int8 pieces all run plain (``plain_int8_pieces``). The all-plain path
     is printed beside, not held: at these widths the blocks of Cout < 64
@@ -4463,6 +4695,8 @@ def odd_width_slice(net: str, rng: np.random.Generator) -> dict:
             maps8 = p8.predict(frames)
         torch.cuda.synchronize()
         counts = int8_counts()
+        k4_int8 = dict(fused_conv.conv3x3_bn_relu.path_launches)
+        mma_sync = fused_conv.conv3x3_bn_relu.mma_sync_launches
         want = int8_expected(net, 1, sum(b.s_out is not None for b in qb),
                              spec)
         check(counts == want, f"{net} {width} int8 launches per forward: "
@@ -4499,8 +4733,24 @@ def odd_width_slice(net: str, rng: np.random.Generator) -> dict:
             reset_counts()
             pf.model(xn)
             k4_bf16 = dict(fused_conv.conv3x3_bn_relu.path_launches)
+            mma_sync += fused_conv.conv3x3_bn_relu.mma_sync_launches
+        shapes = bench.block_shapes(net, HW, spec)
+        floats = [s for s in shapes if s[3] < INT8_MIN_COUT]
+        want_bf16 = conv_train.step_path_launches(shapes)["fwd"]
+        want_int8 = conv_train.step_path_launches(floats)["fwd"]
         out.update(launches=counts, all_plain_err=err, all_plain_agree=agree,
-                   odd_cin=odd, k4_paths_bf16=k4_bf16, k4_worst=k4_worst)
+                   odd_cin=odd, k4_paths_bf16=k4_bf16, k4_paths_int8=k4_int8,
+                   k4_mma_sync=mma_sync, k4_worst=k4_worst)
+        before = ODD_FWD_BEFORE_MS[net]
+        print(f"{net} at width {width}: K4 launches by path, bf16 forward "
+              f"{k4_bf16} (expected {want_bf16}), int8 forward's float "
+              f"blocks {k4_int8} (expected {want_int8}); on mma_sync "
+              f"{mma_sync}; b{BATCH} forward {out['fwd_ms_bf16']:.3f} ms "
+              f"bf16 (before: {before['bf16']}), {out['fwd_ms']:.3f} ms int8 "
+              f"(before: {before['int8']})", flush=True)
+        check(k4_bf16 == want_bf16 and k4_int8 == want_int8,
+              f"{net} {width} K4 launches per path")
+        check(mma_sync == 0, f"{net} {width}: no K4 launch on mma_sync")
         print(f"{net} at width {width} int8 serving b{BATCH}: launches "
               f"{counts}; each int8 launch bit-equal to plain over "
               f"{len(errs)} (Cin, Cout, out) kinds; logits bit-equal to "
@@ -4729,7 +4979,10 @@ def int8_entries(r: dict) -> list:
                 net: {"width": o["width"], "odd_cin": o["odd_cin"],
                       "path_launches": o["launches"]["conv3x3_int8_paths"],
                       "fwd_ms": o["fwd_ms"], "fwd_ms_bf16": o["fwd_ms_bf16"],
-                      "k4_worst_rel_err": o["k4_worst"]}
+                      "k4_worst_rel_err": o["k4_worst"],
+                      "k4_path_launches_bf16": o["k4_paths_bf16"],
+                      "k4_path_launches_int8": o["k4_paths_int8"],
+                      "k4_mma_sync_launches": o["k4_mma_sync"]}
                 for net, o in r["odd_slices"].items()},
             "padded_route": {f"{h}x{w} {ci}->{co}": {
                 k: v for k, v in t.items() if k != "bound_int8"}
@@ -5821,7 +6074,9 @@ def start() -> None:
               f"{' | '.join(regs)}", flush=True)
     pairs = {(cin, cout) for net in TRAIN_BATCH
              for _, _, cin, cout in bench.block_shapes(net, HW)}
-    pairs |= {(cin, cout) for *_, cin, cout in EDGE_SHAPES}
+    pairs |= {(cin, cout)
+              for *_, cin, cout in EDGE_SHAPES + NARROW_NO_TILE}
+    pairs |= {(cin, cout) for *_, cin, cout in odd_width_shapes()}
     pairs |= {(cout, cin) for cin, cout in pairs}   # the dx calls
     for cin, cout in sorted(pairs):
         check(fused_conv.kernel_path(cin, cout)
@@ -5831,6 +6086,19 @@ def start() -> None:
               f"kernel path rule of the libraries at {cin}->{cout}")
     print(f"paths: the libraries and the wrappers choose alike at "
           f"{len(pairs)} (Cin, Cout) pairs", flush=True)
+    # the narrow path's plan (N tile, channel tiles, patch stages, shared
+    # memory; zeros where no tile fits and ``mma_sync`` takes the call)
+    plans = sorted({pr for pr in pairs if fused_conv.conv_path(*pr)
+                    == "narrow"} | {(c, 12) for c in range(1, 420, 7)}
+                   | {(36, c) for c in range(1, 420, 11)})
+    for cin, cout in plans:
+        p = fused_conv.narrow_fwd_plan(cin, cout)
+        want = (p["bn"], p["tiles_n"], p["stages"], p["bytes"]) if p \
+            else (0, 0, 0, 0)
+        check(fused_conv.kernel_narrow_plan(cin, cout) == want,
+              f"the narrow plan of the library at {cin}->{cout}")
+    print(f"narrow: the library's and the wrapper's plans agree at "
+          f"{len(plans)} (Cin, Cout) pairs", flush=True)
     int8_cins = sorted({cin for _, _, cin, _ in all_block_shapes()}
                        | {cin for *_, cin, _ in INT8_EDGE + INT8_VIEW
                           + INT8_CIN48 + INT8_ODD}
@@ -5902,9 +6170,12 @@ def main() -> int:
         torch.Generator(device="cuda").manual_seed(SEED))
     k1 = phase_k1(torch.Generator(device="cuda").manual_seed(SEED))
     sums = conv_sums(per_shape, k1)
+    narrow_checks(torch.Generator(device="cuda").manual_seed(SEED))
+    narrow = narrow_timings(torch.Generator(device="cuda").manual_seed(SEED))
     unet_serve = phase_slice("unet", torch.Generator().manual_seed(SEED),
                              np.random.default_rng(SEED))
     unet_train = phase_train("unet", torch.Generator().manual_seed(SEED))
+    odd_train = odd_width_train(torch.Generator().manual_seed(SEED))
     pools = phase_pools(torch.Generator(device="cuda").manual_seed(SEED))
     seg_serve = phase_slice("segnet", torch.Generator().manual_seed(SEED),
                             np.random.default_rng(SEED))
@@ -5937,8 +6208,20 @@ def main() -> int:
     kernels[0]["program_launches"] = {
         label: ran[label]["conv3x3_bn_relu"]
         for label in ("unet_bf16", "segnet_bf16", "unet_int8")}
+    # the narrow path at UNet 9/16's blocks (phase 3), with the narrow
+    # launches counted in its b8 bf16 serving forward (phase 16) and its
+    # training step's dx (phase 6), and its training step's launches per
+    # path
+    kernels[0]["narrow_unet_9_16"] = {
+        **narrow["fwd"], "launches": int8["odd_slices"]["unet"][
+            "k4_paths_bf16"]["narrow"]}
+    kernels[2]["narrow_unet_9_16"] = {
+        **narrow["dx"],
+        "launches": odd_train["path_launches"]["dgrad"]["narrow"]}
     for entry, piece, key in zip(kernels[1:], ("fwd", "dx", "wgrad"),
                                  ("fwd", "dgrad", "wgrad")):
+        entry["unet_9_16_step_path_launches"] = odd_train[
+            "path_launches"][key]
         entry["head_64_21"] = head[piece]
         entry["remat_path_launches"] = remat["paths"][key]
         entry["dp_rank_launches"] = {

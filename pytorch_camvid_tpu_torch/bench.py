@@ -118,6 +118,47 @@ def block_shapes(net: str = "unet", hw: Tuple[int, int] = (360, 480),
     return [size + p for size, p in zip(cls.block_sizes(hw), pairs)]
 
 
+def bound_ms(flops: float, nbytes: float,
+             peak: float = H100_BF16_PEAK) -> tuple:
+    """(least ms on an H100, "operations" or "bytes"); ``peak``: the
+    rate of the operations' type."""
+    f = flops / peak * 1e3
+    b = nbytes / H100_HBM_RATE * 1e3
+    return (f, "operations") if f >= b else (b, "bytes")
+
+
+def conv_bound(n, h, w, cin, cout, piece="fwd"):
+    """Bound of one conv3x3 pass; fwd, dx and dW do the same FLOPs and
+    move different bytes: bf16 activations and weight, f32 dW."""
+    flops = 2.0 * 9 * n * h * w * cin * cout
+    act_in, act_out, weight = n * h * w * cin, n * h * w * cout, 9 * cin * cout
+    nbytes = {"fwd": 2 * (act_in + weight + act_out),
+              "dx": 2 * (act_out + weight + act_in),
+              "wgrad": 2 * (act_in + act_out) + 4 * weight}[piece]
+    return bound_ms(flops, nbytes)
+
+
+def narrow_cases(width: float, batch: int, train_batch: int,
+                 hw: Tuple[int, int] = HW) -> list:
+    """(n, h, w, cin, cout, flip, blocks): UNet at ``width``'s distinct
+    forwards on K4's narrow path at ``batch`` and the dx on it at
+    ``train_batch`` (flip, the reversed pair), with the number of its
+    blocks of each."""
+    from pytorch_camvid_tpu_torch.models import unet as unet_model
+    from pytorch_camvid_tpu_torch.ops import fused_conv
+
+    shapes = block_shapes("unet", hw, unet_model.scaled_spec(3, 12, width))
+    fwd, dx = {}, {}
+    for i, (h, w, cin, cout) in enumerate(shapes):
+        if fused_conv.conv_path(cin, cout) == "narrow":
+            key = (batch, h, w, cin, cout, False)
+            fwd[key] = fwd.get(key, 0) + 1
+        if i and fused_conv.conv_path(cout, cin) == "narrow":
+            key = (train_batch, h, w, cout, cin, True)
+            dx[key] = dx.get(key, 0) + 1
+    return [k + (v,) for k, v in list(fwd.items()) + list(dx.items())]
+
+
 def conv_fwd_flops(net: str = "unet", hw: Tuple[int, int] = (360, 480),
                    spec=None) -> float:
     """A model's forward conv FLOPs per image: 2*9*cin*cout*h*w per block

@@ -93,12 +93,39 @@
 //   clips H, W and Cout. Shared memory (Geo<CIN>::SMEM): 46,400 B at Cin
 //   3, 79,808 at 12, 114,176 at 21, so two blocks fit an SM at every Cin.
 //   Instances: Cin 1-7, 9-15 and 17-21, every Cin the rule admits.
-// * narrow (every other shape: Cout % 8 != 0 above 24 such as 64->28, a
-//   head-like Cin > 128 into Cout <= 16 or 17-23, Cin % 8 != 0 above
-//   K_MAX / 9 or into Cout % 8 != 0 such as 3->12): the first design,
-//   mma.sync m16n8k16 from a cp.async double-buffered patch and weight
-//   slice, scalar loads where a channel count is not a multiple of 8 or
-//   the weights are read under flip. No model runs it.
+// * narrow (every other shape: Cin % 8 != 0 above K_MAX / 9 or into
+//   Cout % 8 != 0, Cout % 8 != 0 above 24, a head-like Cin > 128 into
+//   Cout <= 24). Models run it: UNet at width 9/16 (channels 36 and 72)
+//   sends seven of its 23 blocks here (the stem 3->36, 36->36 x2, 72->36
+//   x2, 36->72, the head 36->12) and six dx (36->36 x2, 36->72 x2, 72->36,
+//   12->36); a head past 24 classes and off a multiple of 8 (ADE20K's 150)
+//   its forward 64->150 and dx 150->64. Bound by bytes: at 360x480, batch
+//   8, 36->36 moves 199 MB (0.059 ms at 3.35 TB/s) for 32 GFLOP (0.033 ms
+//   at the tensor rate); every UNet 9/16 shape sits at 160-220 FLOP a
+//   byte, under the ridge. So the design reads x once, in 16-byte chunks,
+//   whatever Cin's alignment, writes the output once in 16-byte chunks,
+//   and keeps the tensor work's padding small (K = 9 x Cin packed, N =
+//   Cout rounded up to 8): a persistent block (one channel tile, its
+//   weights resident: 9 x Cin x N bf16 in wgmma's K-major layout, zero
+//   past K and Cout, read once under flip tap-reversed and transposed)
+//   walks tiles of 8 x MT rows x 16 columns. A tile's 8 MT + 2 input rows,
+//   (16 + 2) x Cin contiguous elements each, come as the 16-byte chunks of
+//   x that hold them (cp.async, the next tile's while this one computes) to a
+//   row stride = W x Cin mod 8, so that any element offset lands on a
+//   16-byte boundary; the columns outside the image are zeroed after.
+//   Each warpgroup runs wgmma.m64nNk16 with A from registers, gathered per
+//   lane at a shared table's offsets of packed k (the register form: the
+//   patch is not in wgmma's canonical layout) for MT m64s on the same
+//   weights, and N as a sum of wgmma sizes (40 = 32 + 8). The epilogue
+//   stages each output row of 16 pixels x Cout, contiguous in NHWC, at
+//   the offset that aligns it with out, and writes it in 16-byte chunks.
+//   Instances: N 16-128 (Cout past 128 or weights past shared memory split
+//   into channel tiles, 64->150 into two of 80), MT 2 up to N 40 where two
+//   stages fit. The rest of its cost is shared memory: the A gather reads
+//   2 bytes a (pixel, k), the pixel order per lane chosen to spread them
+//   over the banks. Past Cin ~330 no tile fits and the first design,
+//   namespace mma_sync, takes the call (no model reaches it; chip_smoke's
+//   350->12 does), and the C entry reports it as route 3.
 //
 // What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s: ridge ~295
 // FLOP/byte): every block shape with Cin, Cout >= 64 has 290 to several
@@ -120,15 +147,23 @@
 
 #include "sm90_common.cuh"
 
+#include <array>
+#include <mutex>
 #include <type_traits>
 
 namespace {
 
 using sm90::smem_u32;
 
-// ================================================================ narrow
+// ============================================================== mma_sync
 
-namespace narrow {
+// The first design, kept for the shapes the narrow path's plan holds no tile
+// of (Cin past ~330, where a tile's patch rows and resident weights pass a
+// block's shared memory; no model runs one): mma.sync m16n8k16 from a
+// cp.async double-buffered patch and weight slice, 32 channels a chunk,
+// scalar loads where a channel count is not a multiple of 8 or the weights
+// are read under flip.
+namespace mma_sync {
 
 constexpr int TH = 8;            // output rows per block tile
 constexpr int TW = 16;           // output cols per block tile (= one m16 tile)
@@ -145,31 +180,6 @@ constexpr int PATCH_ELEMS = PH * PW * KCP;
 constexpr int WTILE_ELEMS = 9 * KC * BNP;
 constexpr int STAGE_ELEMS = PATCH_ELEMS + WTILE_ELEMS;
 constexpr int SMEM_BYTES = 2 * STAGE_ELEMS * 2;  // two stages of bf16
-
-// 16-byte async copy; src_bytes == 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Stage input channels [c0, c0+KC) of the patch around output tile
 // (n, h0, w0) and the matching weight slice for output channels [n0, n0+BN).
@@ -194,7 +204,8 @@ __device__ __forceinline__ void stage_chunk(
       const __nv_bfloat16* src =
           ok ? x + ((img_base + static_cast<int64_t>(h) * W + ww) * Cin + c)
              : x;
-      cp_async16(patch + pix * KCP + v * 8, src, ok ? 16 : 0);
+      sm90::cp_async16(smem_u32(patch + pix * KCP + v * 8), src,
+                       ok ? 16 : 0);
     }
   } else {
     const __nv_bfloat16 zero = __float2bfloat16(0.f);
@@ -217,7 +228,8 @@ __device__ __forceinline__ void stage_chunk(
       const bool ok = ci < Cin && co < Cout;
       const __nv_bfloat16* src =
           ok ? w + ((static_cast<int64_t>(tap) * Cin + ci) * Cout + co) : w;
-      cp_async16(wt + row * BNP + v * 8, src, ok ? 16 : 0);
+      sm90::cp_async16(smem_u32(wt + row * BNP + v * 8), src,
+                       ok ? 16 : 0);
     }
   } else {
     const __nv_bfloat16 zero = __float2bfloat16(0.f);
@@ -286,17 +298,17 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int nchunks = (Cin + KC - 1) / KC;
   stage_chunk<VEC_X, VEC_W, FLIP>(smem, smem + PATCH_ELEMS, x, w, n, h0, w0,
                                   n0, 0, H, W, Cin, Cout);
-  cp_async_commit();
+  sm90::cp_async_commit();
 
   for (int c = 0; c < nchunks; ++c) {
     if (c + 1 < nchunks) {
       __nv_bfloat16* nxt = smem + ((c + 1) & 1) * STAGE_ELEMS;
       stage_chunk<VEC_X, VEC_W, FLIP>(nxt, nxt + PATCH_ELEMS, x, w, n, h0,
                                       w0, n0, (c + 1) * KC, H, W, Cin, Cout);
-      cp_async_commit();
-      cp_async_wait<1>();
+      sm90::cp_async_commit();
+      sm90::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      sm90::cp_async_wait<0>();
     }
     __syncthreads();
 
@@ -323,7 +335,7 @@ __global__ void __launch_bounds__(THREADS, 2)
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt)
-            mma_bf16_16816(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2],
+            sm90::mma_bf16_16816(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2],
                            b[nt >> 1][(nt & 1) * 2 + 1]);
       }
     }
@@ -410,6 +422,599 @@ cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* w,
                                       relu, st);
   return launch<false, false, false>(x, w, a, b, out, N, H, W, Cin, Cout,
                                      relu, st);
+}
+
+}  // namespace mma_sync
+
+// ================================================================ narrow
+
+namespace narrow {
+
+constexpr int TW = 16;            // output columns per tile: a warp's 16 A rows
+constexpr int PW = TW + 2;        // patch columns (with halo)
+constexpr int THREADS = 256;      // two warpgroups, MT m64s of 4 rows each
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_N = 128;        // the widest N tile
+constexpr int SMEM_MAX = 232448;  // a block's shared memory
+constexpr int SMEM_SM = 233472;   // an SM's, 1,024 of it reserved a block
+constexpr int MAX_STAGES = 2;     // patch stages: a tile in flight
+constexpr int G = 2;              // k16 steps a wgmma commit group
+constexpr int KGROUP = 2 * G;     // K padded to whole pairs of groups
+constexpr int MAX_N_MT2 = 40;     // the widest N at two m64s a warpgroup
+constexpr uint32_t NO_K = 0xFFFFFFFFu;  // a table entry past K: reads zero
+
+// The N tiles the kernel is built for: sums of the sizes one wgmma takes
+// (mma_n). Cout splits into tiles_n tiles, each the least of these that
+// holds ceil(Cout / tiles_n) channels.
+constexpr int BNS[] = {16, 24, 32, 40, 48, 64, 80, 96, 128};
+constexpr int NBNS = sizeof(BNS) / sizeof(BNS[0]);
+
+constexpr int up(int v, int m) { return (v + m - 1) / m * m; }
+
+// A call's tiling and shared memory (bytes from the 16-byte aligned base):
+// tiles of 8 x ``mt`` rows (each warp's row and, at mt 2, the one 8 below:
+// a warpgroup's second m64 on the same weights); ``stages`` patch stages,
+// each 8 mt + 2 rows of ``row`` = PW x Cin elements at
+// a stride RS in [row + 14, row + 21] (RS = W x Cin mod 8, so that every
+// 16-byte chunk of x lands on a 16-byte chunk of the stage), from an
+// element offset below 8; the resident weights, kp x bn bf16 in wgmma's
+// K-major layout without swizzle; the A offsets' table (8 B a k16 step and
+// lane column, 16 at odd Cin); the affine's 2 x bn floats and a zero word;
+// each warp's output row, 16 pixels at a pixel stride ``ops`` (= Cout when
+// one tile holds every channel: the row is one contiguous run).
+struct Plan {
+  int bn, mt, tiles_n, kp, ksteps, row, ops, stages, blocks, stage_bytes;
+  int w_off, tab_off, ab_off, out_off, out_warp_bytes, smem;
+};
+
+constexpr Plan geometry(int cin, int cout, int bn, int mt) {
+  Plan p{};
+  p.bn = bn;
+  p.mt = mt;
+  p.tiles_n = (cout + bn - 1) / bn;
+  p.kp = up(9 * cin, 16 * KGROUP);
+  p.ksteps = p.kp / 16;
+  p.row = PW * cin;
+  p.stage_bytes = up(2 * ((8 * mt + 2) * (p.row + 21) + 16), 128);
+  p.ops = p.tiles_n == 1 ? cout : bn + ((cout - bn) % 8 + 8) % 8;
+  p.out_warp_bytes = up(2 * (16 * p.ops + 8), 128);  // one row at a time
+  const int w = up(p.kp * bn * 2, 128);
+  const int tab = up(p.ksteps * 4 * (cin % 2 ? 16 : 8), 128);
+  const int ab = up(8 * bn + 16, 128);
+  const int fixed = w + tab + ab + WARPS * p.out_warp_bytes;
+  // the patch stages, two where they fit (more timed the same): at two
+  // blocks an SM where each holds two (BN <= 80: 128 registers a thread),
+  // so that one block's loads and epilogue run beside the other's wgmmas;
+  // else at one block
+  p.stages = 0;
+  for (int blocks = bn <= 80 ? 2 : 1; blocks >= 1 && p.stages < 2;
+       --blocks) {
+    int st = (SMEM_SM / blocks - 1024 - fixed) / p.stage_bytes;
+    p.stages = st < MAX_STAGES ? st : MAX_STAGES;
+    p.blocks = blocks;
+  }
+  if (p.stages < 1) p.stages = 1;  // too big: smem > SMEM_MAX below
+  p.w_off = p.stages * p.stage_bytes;
+  p.tab_off = p.w_off + w;
+  p.ab_off = p.tab_off + tab;
+  p.out_off = p.ab_off + ab;
+  p.smem = p.out_off + WARPS * p.out_warp_bytes;
+  return p;
+}
+
+// The plan of (Cin, Cout): the widest N tile (at most MAX_N, Cout split
+// evenly) whose patch stages, weights and staging fit a block, at two m64s
+// a warpgroup where N <= MAX_N_MT2 and two stages fit, else one; smem 0
+// where none fits (Cin past ~330).
+// ops/fused_conv.py::narrow_fwd_plan holds the same rule.
+constexpr Plan plan(int cin, int cout) {
+  for (int tn = (cout + MAX_N - 1) / MAX_N;; ++tn) {
+    const int want = (cout + tn - 1) / tn;
+    int bn = BNS[NBNS - 1];
+    for (int i = NBNS - 1; i >= 0; --i)
+      if (BNS[i] >= want) bn = BNS[i];
+    if (bn <= MAX_N_MT2) {
+      const Plan p = geometry(cin, cout, bn, 2);
+      if (p.smem <= SMEM_MAX && p.stages >= 2) return p;
+    }
+    const Plan p = geometry(cin, cout, bn, 1);
+    if (p.smem <= SMEM_MAX) return p;
+    if (bn == BNS[0]) return Plan{};
+  }
+}
+static_assert(plan(3, 36).smem == 21632, "UNet 9/16's stem");
+static_assert(plan(36, 36).smem == 90496, "UNet 9/16's 36->36");
+static_assert(plan(72, 36).smem == 163328, "UNet 9/16's 72->36");
+static_assert(plan(36, 72).smem == 109312, "UNet 9/16's 36->72");
+static_assert(plan(36, 12).smem == 65792, "UNet 9/16's head");
+static_assert(plan(12, 36).smem == 38272, "the head's dx");
+static_assert(plan(64, 150).smem == 163712, "a 150-class head");
+static_assert(plan(150, 64).smem == 211584, "its dx");
+
+// The call's figures, by value in the kernel's parameters.
+struct Geo {
+  int tiles_n, ksteps, row, rs, stages, stage_bytes;
+  int w_off, tab_off, ab_off, out_off, out_warp_bytes, ops, il;
+};
+
+// The A rows of lane group g8 (0..7) of a warp: the tile's pixels g8 and
+// g8 + 8, or with ``il`` 2 g8 and 2 g8 + 1. The gather's 32 lanes read
+// 8 pixels x 4 words at a pixel stride of Cin / 2 words; il is the order
+// whose words fall on fewer banks at once (at Cin 36, 18 words: 2 g8 puts
+// the 8 pixels 4 banks apart, one wavefront a load where g8 takes two).
+// conflicts: the most distinct words one bank serves in a load.
+int conflicts(int cin, bool il) {
+  int worst = 0;
+  for (int set = 0; set < 2; ++set) {
+    int words[32], per_bank[32] = {};
+    for (int l = 0; l < 32; ++l) {
+      const int g8 = l >> 2, px = il ? 2 * g8 + set : g8 + 8 * set;
+      words[l] = (px * cin + 2 * (l & 3)) >> 1;
+      bool first = true;
+      for (int m = 0; m < l && first; ++m) first = words[m] != words[l];
+      if (first) {
+        const int n = ++per_bank[words[l] % 32];
+        worst = n > worst ? n : worst;
+      }
+    }
+  }
+  return worst;
+}
+
+// il by Cin, worked out once: every Cin with a tile (up to ~345) is in it.
+constexpr int IL_CINS = 512;
+bool interleaved(int cin) {
+  static const auto table = [] {
+    std::array<bool, IL_CINS> t{};
+    for (int c = 1; c < IL_CINS; ++c)
+      t[c] = conflicts(c, true) < conflicts(c, false);
+    return t;
+  }();
+  if (cin > 0 && cin < IL_CINS) return table[cin];
+  return conflicts(cin, true) < conflicts(cin, false);
+}
+
+// Waits until at most n (0 or 1) of this thread's copy groups are pending.
+__device__ __forceinline__ void cp_async_wait(int n) {
+  if (n)
+    sm90::cp_async_wait<1>();
+  else
+    sm90::cp_async_wait<0>();
+}
+static_assert(MAX_STAGES == 2, "cp_async_wait's cases");
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ uint32_t lds16(uint32_t addr) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+  return v;
+}
+
+// D (64 x N) += A (registers) x B over N as a sum of the sizes wgmma_rs
+// issues (40 = 32 + 8, 80 = 64 + 16, ...), each on the same A; B K-major
+// without swizzle at ``wb``: 8-row groups of N 256 bytes apart, the two K
+// halves 128 bytes apart.
+template <int N, int OFF, int TOTAL>
+__device__ __forceinline__ void mma_n(float (&acc)[TOTAL / 2],
+                                      const uint32_t (&a)[4], uint32_t wb) {
+  if constexpr (N > 0) {
+    constexpr int P = N >= 128 ? 128 : N >= 64 ? 64 : N >= 32 ? 32
+                    : N >= 24 ? 24 : N >= 16 ? 16 : 8;
+    sm90::wgmma_rs<P, 0>(*reinterpret_cast<float(*)[P / 2]>(&acc[OFF / 2]),
+                         a, sm90::wgmma_desc(wb + OFF * 32, 128, 256, 0));
+    mma_n<N - P, OFF + P, TOTAL>(acc, a, wb);
+  }
+}
+
+// PAIRED: Cin even, so packed k and k + 1 (k even) are adjacent in the
+// patch and read as one 32-bit word.
+template <int BN, int MT, bool PAIRED>
+__global__ void __launch_bounds__(THREADS, BN <= 80 ? 2 : 1)
+    conv3x3_bn_relu_narrow_kernel(const __nv_bfloat16* __restrict__ x,
+                                  const __nv_bfloat16* __restrict__ w,
+                                  const float* __restrict__ scale,
+                                  const float* __restrict__ shift,
+                                  __nv_bfloat16* __restrict__ out, int N,
+                                  int H, int W, int Cin, int Cout, int relu,
+                                  int flip, const Geo g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int TH = 8 * MT, PH = TH + 2;  // tile rows, patch rows
+  const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
+  const int tiles_n = g.tiles_n;
+  const int total = N * tiles_h * tiles_w * tiles_n;  // < 2^31 (host)
+  // the grid is a multiple of tiles_n: a block keeps one channel tile
+  const int n0 = blockIdx.x % tiles_n * BN;
+  const int bnc = min(BN, Cout - n0);
+  const int K = 9 * Cin, L = g.row, RS = g.rs, S = g.stages;
+  const int64_t pitch = static_cast<int64_t>(W) * Cin;
+  const int64_t xtotal = static_cast<int64_t>(N) * H * pitch;
+  auto origin = [&](int t, int& img, int& h0, int& w0) {
+    t /= tiles_n;
+    w0 = t % tiles_w * TW;
+    t /= tiles_w;
+    h0 = t % tiles_h * TH;
+    img = t / tiles_h;
+  };
+  // the element of x at patch row 0, column 0 (it may lie before x)
+  auto corner = [&](int img, int h0, int w0) {
+    return (static_cast<int64_t>(img) * H + h0 - 1) * pitch +
+           static_cast<int64_t>(w0 - 1) * Cin;
+  };
+
+  // Resident weights, once a block: W'[k][n] for packed k = tap x Cin +
+  // ci and the block's channels n0 + n, zero past K and past Cout; under
+  // flip W'[tap][ci][co] = w[8 - tap][co][ci], read in place (k fastest,
+  // contiguous in w). Byte (k, n) of the K-major layout: k16 step k / 16
+  // at BN x 32 bytes a step, then (n / 8, (k % 16) / 8, n % 8, k % 8).
+  unsigned char* wt = smem + g.w_off;
+  const int kp = 16 * g.ksteps;
+  for (int i = tid; i < kp * BN; i += THREADS) {
+    int k, n;
+    if (flip) {
+      n = i / kp;
+      k = i - n * kp;
+    } else {
+      k = i / BN;
+      n = i - k * BN;
+    }
+    __nv_bfloat16 v = __float2bfloat16(0.f);
+    if (k < K && n < bnc) {
+      const int co = n0 + n;
+      if (flip) {
+        const int tap = k / Cin, ci = k - tap * Cin;
+        v = w[(static_cast<int64_t>(8 - tap) * Cout + co) * Cin + ci];
+      } else {
+        v = w[static_cast<int64_t>(k) * Cout + co];
+      }
+    }
+    const int kl = k & 15;
+    *reinterpret_cast<__nv_bfloat16*>(wt + (k >> 4) * (BN * 32) +
+                                      (n >> 3) * 256 + (kl >> 3) * 128 +
+                                      (n & 7) * 16 + (kl & 7) * 2) = v;
+  }
+  sm90::fence_proxy_async();  // the wgmmas read them through the async proxy
+  // the affine of the block's channels (zero past Cout) and a zero word
+  float* sa = reinterpret_cast<float*>(smem + g.ab_off);
+  const float* sb = sa + BN;
+  for (int j = tid; j < 2 * BN + 4; j += THREADS) {
+    float v = 0.f;
+    if (j < bnc) v = scale[n0 + j];
+    else if (j >= BN && j < BN + bnc) v = shift[n0 + j - BN];
+    sa[j] = v;
+  }
+  const uint32_t zero_s = smem_u32(sa + 2 * BN);
+  // A's offsets (bytes from the lane's pixel) of packed k for each k16
+  // step s and lane column t4: k = 16 s + 2 t4 and k + 8 (PAIRED), or k,
+  // k + 1, k + 8, k + 9; tap (dy, dx) = k / Cin at dy rows and dx pixels
+  // on; NO_K past K.
+  constexpr int TE = PAIRED ? 2 : 4;
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + g.tab_off);
+  for (int i = tid; i < g.ksteps * 4; i += THREADS) {
+    const int k0 = 16 * (i >> 2) + 2 * (i & 3);
+    auto off = [&](int k) -> uint32_t {
+      if (k >= K) return NO_K;
+      const int tap = k / Cin, ci = k - tap * Cin;
+      return 2u * static_cast<uint32_t>((tap / 3) * RS + (tap % 3) * Cin +
+                                        ci);
+    };
+    if (PAIRED) {
+      tab[2 * i] = off(k0);
+      tab[2 * i + 1] = off(k0 + 8);
+    } else {
+      tab[4 * i] = off(k0);
+      tab[4 * i + 1] = off(k0 + 1);
+      tab[4 * i + 2] = off(k0 + 8);
+      tab[4 * i + 3] = off(k0 + 9);
+    }
+  }
+
+  // A tile's patch: PH rows of x, each PW x Cin contiguous elements from
+  // corner + r x pitch, copied as the 16-byte chunks of x that hold them
+  // (cp.async, the rows outside the image and chunks outside x zero-
+  // filled) to B + r x RS - (its offset in its first chunk), B = corner
+  // mod 8: a 16-byte boundary, as RS = pitch mod 8.
+  const uint32_t stage0 = smem_u32(smem);
+  const int cpr = (L + 14) / 8;  // chunks a row spans, at most
+  auto issue = [&](int t, int st) {
+    if (t < total) {
+      int img, h0, w0;
+      origin(t, img, h0, w0);
+      const int64_t g0 = corner(img, h0, w0);
+      const int b = static_cast<int>(g0 & 7);
+      const uint32_t base = stage0 + st * g.stage_bytes;
+      for (int i = tid; i < PH * cpr; i += THREADS) {
+        const int r = i / cpr, q = i - r * cpr;
+        const int64_t gr = g0 + r * pitch;
+        const int sr = static_cast<int>(gr & 7);
+        const int64_t a = gr - sr + 8 * q;
+        if (a >= gr + L) continue;
+        const int h = h0 + r - 1;
+        const bool ok = h >= 0 && h < H && a >= 0 && a < xtotal;
+        // x's last chunk may end past x; the launcher gives x a storage
+        // that holds it (fused_conv.whole_chunks): a clamp here cost 3.5%
+        // of UNet 9/16's narrow forwards on an H100
+        sm90::cp_async16(base + 2 * (b + r * RS - sr + 8 * q),
+                         ok ? x + a : x, ok ? 16 : 0);
+      }
+    }
+    sm90::cp_async_commit();  // one group a tile, empty past the end
+  };
+
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int pa = g.il ? 2 * g8 : g8, pb = g.il ? 2 * g8 + 1 : g8 + 8;
+  const uint32_t tab_s = smem_u32(tab) + t4 * 4 * TE;
+  const uint32_t w_s = smem_u32(wt);
+  unsigned short* os =
+      reinterpret_cast<unsigned short*>(smem + g.out_off +
+                                        warp * g.out_warp_bytes);
+  unsigned short* out16 = reinterpret_cast<unsigned short*>(out);
+
+  for (int j = 0; j < S; ++j) issue(blockIdx.x + j * gridDim.x, j);
+  for (int t = blockIdx.x, it = 0; t < total; t += gridDim.x, ++it) {
+    const int st = it % S;
+    cp_async_wait(S - 1);  // this tile's group; S - 1 tiles stay in flight
+    __syncthreads();  // this tile's patch (and the first time the weights)
+    int img, h0, w0;
+    origin(t, img, h0, w0);
+    const int b = static_cast<int>(corner(img, h0, w0) & 7);
+    // at the image's left or right edge the row's elements of columns
+    // outside it came from the neighbouring row: zero them
+    if (w0 == 0 || w0 + TW + 1 > W) {
+      unsigned short* pz =
+          reinterpret_cast<unsigned short*>(smem + st * g.stage_bytes);
+      const int lo = w0 == 0 ? Cin : 0;
+      const int hi = min(W - w0 + 1, PW) * Cin;
+      const int span = lo + L - hi;
+      for (int i = tid; i < PH * span; i += THREADS) {
+        const int r = i / span, e = i - r * span;
+        const int h = h0 + r - 1;
+        if (h >= 0 && h < H) pz[b + r * RS + (e < lo ? e : hi + e - lo)] = 0;
+      }
+      __syncthreads();
+    }
+
+    // Implicit GEMM: warpgroup wg's m64 mt is tile rows 8 mt + 4 wg .. 8
+    // mt + 4 wg + 3, warp `warp` row 8 mt + `warp`, its lanes' A rows
+    // pixels pa and pb, gathered from the patch at the table's offsets
+    // (one table read for the MT m64s); B the resident
+    // weights. The wgmmas of G k16 steps go out as one commit group, their
+    // A fragments in two buffers: a group's loads run while the last
+    // group's wgmmas do.
+    const uint32_t row0 = stage0 + st * g.stage_bytes + 2 * (b + warp * RS);
+    const uint32_t pix0 = row0 + 2 * pa * Cin, pix8 = row0 + 2 * pb * Cin;
+    const uint32_t mstep = 2 * 8 * RS;  // the second m64: 8 rows below
+    // a step's A fragments; MASKED (the last pair of groups, where the
+    // padded k lie) reads the zero word at NO_K
+    auto load_a = [&](auto masked, uint32_t (&a)[MT][4], int s) {
+      constexpr bool M = decltype(masked)::value;
+      if constexpr (PAIRED) {
+        uint32_t o0, o8;
+        asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                     : "=r"(o0), "=r"(o8)
+                     : "r"(tab_s + 32 * s));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint32_t p0 = pix0 + mt * mstep, p8 = pix8 + mt * mstep;
+          a[mt][0] = lds32(M && o0 == NO_K ? zero_s : p0 + o0);
+          a[mt][1] = lds32(M && o0 == NO_K ? zero_s : p8 + o0);
+          a[mt][2] = lds32(M && o8 == NO_K ? zero_s : p0 + o8);
+          a[mt][3] = lds32(M && o8 == NO_K ? zero_s : p8 + o8);
+        }
+      } else {
+        uint32_t o[4];
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(o[0]), "=r"(o[1]), "=r"(o[2]), "=r"(o[3])
+                     : "r"(tab_s + 64 * s));
+        auto e = [&](uint32_t p, uint32_t off) {
+          return lds16(M && off == NO_K ? zero_s : p + off);
+        };
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint32_t p0 = pix0 + mt * mstep, p8 = pix8 + mt * mstep;
+          a[mt][0] = e(p0, o[0]) | e(p0, o[1]) << 16;
+          a[mt][1] = e(p8, o[0]) | e(p8, o[1]) << 16;
+          a[mt][2] = e(p0, o[2]) | e(p0, o[3]) << 16;
+          a[mt][3] = e(p8, o[2]) | e(p8, o[3]) << 16;
+        }
+      }
+    };
+    float acc[MT][BN / 2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.f;
+    // K is padded to whole pairs of groups (zero weights, A from the zero
+    // word), so no wgmma sits under a branch
+    const int ks = g.ksteps;
+    uint32_t fa[G][MT][4], fb[G][MT][4];
+    const int tail = ks - KGROUP;  // kp - K < 16 x KGROUP
+    auto load_g = [&](uint32_t (&f)[G][MT][4], int s) {
+      if (s >= tail) {
+#pragma unroll
+        for (int j = 0; j < G; ++j) load_a(std::true_type{}, f[j], s + j);
+      } else {
+#pragma unroll
+        for (int j = 0; j < G; ++j) load_a(std::false_type{}, f[j], s + j);
+      }
+    };
+    auto mma_g = [&](const uint32_t (&f)[G][MT][4], int s) {
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma_n<BN, 0, BN>(acc[mt], f[j][mt], w_s + (s + j) * (BN * 32));
+      sm90::wgmma_commit();
+    };
+    load_g(fa, 0);
+    for (int s = 0; s < ks; s += 2 * G) {
+      mma_g(fa, s);
+      sm90::wgmma_wait<1>();  // the group before is done: fb is free
+      load_g(fb, s + G);
+      mma_g(fb, s + G);
+      sm90::wgmma_wait<1>();  // group s is done: fa is free
+      if (s + 2 * G < ks) load_g(fa, s + 2 * G);
+    }
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) sm90::fence_regs(acc[mt]);
+    __syncthreads();  // every warp has read the stage
+    issue(t + S * gridDim.x, st);
+
+    // Epilogue: acc * A + B, ReLU, bf16 into the warp's staging row at
+    // element sb0 + p x ops + c, sb0 = the row's first element of out mod
+    // 8, so that out's 16-byte chunks are the staging's; then the warp
+    // copies the row (or, with the channels split, each pixel's run)
+    // chunk by chunk, 16-byte stores inside the run and element stores
+    // at its two ends. Accumulator i: A row g8 (+8 for i % 4 >= 2), that
+    // is pixel pa (pb), channel 8 (i / 4) + 2 t4 + i % 2.
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int h = h0 + warp + 8 * mt;
+      if (h < H) {
+        const int npx = min(TW, W - w0);
+        const int64_t go =
+            ((static_cast<int64_t>(img) * H + h) * W + w0) * Cout + n0;
+        const int sb0 = static_cast<int>(go & 7), ops = g.ops;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int c = 8 * j + 2 * t4;
+          if (c >= bnc) continue;
+          const float a0 = sa[c], a1 = sa[c + 1];
+          const float b0 = sb[c], b1 = sb[c + 1];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float v0 = acc[mt][4 * j + 2 * half] * a0 + b0;
+            float v1 = acc[mt][4 * j + 2 * half + 1] * a1 + b1;
+            if (relu) {
+              v0 = fmaxf(v0, 0.f);
+              v1 = fmaxf(v1, 0.f);
+            }
+            const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+            const uint32_t u = *reinterpret_cast<const uint32_t*>(&v);
+            const int e = sb0 + (half ? pb : pa) * ops + c;
+            if (c + 1 < bnc && (e & 1) == 0) {
+              *reinterpret_cast<uint32_t*>(os + e) = u;
+            } else {
+              os[e] = static_cast<unsigned short>(u);
+              if (c + 1 < bnc)
+                os[e + 1] = static_cast<unsigned short>(u >> 16);
+            }
+          }
+        }
+        __syncwarp();
+        auto copy = [&](int s0, int64_t gs, int len) {
+          const int64_t c0 = gs & ~static_cast<int64_t>(7);
+          const int nch = static_cast<int>((gs + len - c0 + 7) >> 3);
+          for (int q = lane; q < nch; q += 32) {
+            const int64_t ca = c0 + 8 * q;
+            const int sq = s0 + static_cast<int>(ca - gs);
+            if (ca >= gs && ca + 8 <= gs + len) {
+              *reinterpret_cast<uint4*>(out16 + ca) =
+                  *reinterpret_cast<const uint4*>(os + sq);
+            } else {
+#pragma unroll
+              for (int u = 0; u < 8; ++u)
+                if (ca + u >= gs && ca + u < gs + len)
+                  out16[ca + u] = os[sq + u];
+            }
+          }
+        };
+        if (tiles_n == 1) {
+          copy(sb0, go, npx * Cout);
+        } else {
+          for (int p = 0; p < npx; ++p)
+            copy(sb0 + p * ops, go + static_cast<int64_t>(p) * Cout, bnc);
+        }
+        __syncwarp();
+      }
+    }
+  }
+  sm90::cp_async_wait<0>();
+}
+
+template <int BN, int MT, bool PAIRED>
+cudaError_t launch(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                   const float* a, const float* b, __nv_bfloat16* out, int N,
+                   int H, int W, int Cin, int Cout, int relu, int flip,
+                   const Plan& p, cudaStream_t stream) {
+  const int mod = static_cast<int>(
+      ((static_cast<int64_t>(W) * Cin - p.row - 14) % 8 + 8) % 8);
+  const Geo g{p.tiles_n,  p.ksteps, p.row,          p.row + 14 + mod,
+              p.stages,   p.stage_bytes, p.w_off,   p.tab_off,
+              p.ab_off,   p.out_off,     p.out_warp_bytes, p.ops,
+              interleaved(Cin)};
+  auto kern = conv3x3_bn_relu_narrow_kernel<BN, MT, PAIRED>;
+  // the instance's shared-memory ceiling and blocks an SM, set and asked
+  // once a (device, bytes)
+  static std::mutex mu;
+  static int set_dev = -1, set_smem = -1, set_sms = 0, set_per_sm = 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (dev != set_dev || p.smem != set_smem) {
+      set_dev = -1;
+      if ((err = cudaFuncSetAttribute(
+               kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+               p.smem)) != cudaSuccess ||
+          (err = cudaDeviceGetAttribute(&set_sms,
+                                        cudaDevAttrMultiProcessorCount,
+                                        dev)) != cudaSuccess ||
+          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &set_per_sm, kern, THREADS, p.smem)) != cudaSuccess)
+        return err;
+      set_dev = dev;
+      set_smem = p.smem;
+    }
+    sms = set_sms;
+    per_sm = set_per_sm;
+  }
+  const int64_t tiles = static_cast<int64_t>(N) * ((H + 8 * MT - 1) /
+                                                   (8 * MT)) *
+                        ((W + TW - 1) / TW) * p.tiles_n;
+  if (tiles > 2147483647LL) return cudaErrorInvalidConfiguration;
+  // persistent: the blocks that fit at once, a multiple of the channel
+  // tiles so that each block's weights stay resident
+  const int64_t fit = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  int64_t grid = (tiles < fit ? tiles : fit) / p.tiles_n * p.tiles_n;
+  if (grid < p.tiles_n) grid = p.tiles_n;
+  kern<<<static_cast<unsigned>(grid), THREADS, p.smem, stream>>>(
+      x, w, a, b, out, N, H, W, Cin, Cout, relu, flip, g);
+  return cudaGetLastError();
+}
+
+// *route: 0 (this design) or 3 (mma_sync, where no tile fits).
+cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                const float* a, const float* b, __nv_bfloat16* out, int N,
+                int H, int W, int Cin, int Cout, int relu, int flip,
+                cudaStream_t st, int* route) {
+  const Plan p = plan(Cin, Cout);
+  *route = p.smem == 0 ? 3 : 0;
+  if (p.smem == 0)  // no tile fits: the first design
+    return mma_sync::run(x, w, a, b, out, N, H, W, Cin, Cout, relu, flip, st);
+#define NARROW_CASE(BN, MT)                                                \
+  case BN * 2 + MT - 1:                                                    \
+    return Cin % 2 ? launch<BN, MT, false>(x, w, a, b, out, N, H, W, Cin,  \
+                                           Cout, relu, flip, p, st)        \
+                   : launch<BN, MT, true>(x, w, a, b, out, N, H, W, Cin,   \
+                                          Cout, relu, flip, p, st);
+  switch (p.bn * 2 + p.mt - 1) {
+    NARROW_CASE(16, 1) NARROW_CASE(24, 1) NARROW_CASE(32, 1)
+    NARROW_CASE(40, 1) NARROW_CASE(16, 2) NARROW_CASE(24, 2)
+    NARROW_CASE(32, 2) NARROW_CASE(40, 2) NARROW_CASE(48, 1)
+    NARROW_CASE(64, 1) NARROW_CASE(80, 1) NARROW_CASE(96, 1)
+    NARROW_CASE(128, 1)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef NARROW_CASE
 }
 
 }  // namespace narrow
@@ -703,8 +1308,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
         sm90::ldmatrix_x4_trans(b, wt_s + 2 * (b_off + 16 * s * BNP + 16 * j));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          narrow::mma_bf16_16816(acc[mt][2 * j], a[mt], b[0], b[1]);
-          narrow::mma_bf16_16816(acc[mt][2 * j + 1], a[mt], b[2], b[3]);
+          sm90::mma_bf16_16816(acc[mt][2 * j], a[mt], b[0], b[1]);
+          sm90::mma_bf16_16816(acc[mt][2 * j + 1], a[mt], b[2], b[3]);
         }
       }
     }
@@ -1319,7 +1924,8 @@ cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* w,
 // The path that takes (Cin, Cout): 1 wgmma (Cin % 8 == 0, and the head
 // tile's Cout <= 24 with Cin <= 128, or TMA's tiles for Cout % 8 == 0
 // above 16), 2 packed (Cin % 8 != 0 with 9 x Cin <= K_MAX and Cout % 8 ==
-// 0: the stem, the heads' dx), 0 narrow (the rest).
+// 0: the stem, the heads' dx), 0 narrow (the rest: UNet 9/16's 36- and
+// 72-channel blocks, a 150-class head).
 // ops/fused_conv.py::conv_path holds the same rule.
 extern "C" int conv3x3_bn_relu_path(int Cin, int Cout) {
   if (Cin % 8 == 0) {
@@ -1329,12 +1935,27 @@ extern "C" int conv3x3_bn_relu_path(int Cin, int Cout) {
   return 9 * Cin <= packed::K_MAX && Cout % 8 == 0 ? 2 : 0;
 }
 
+// The narrow path's plan of (Cin, Cout) into out[4]: N tile, channel
+// tiles, patch stages, shared memory bytes (0 where none fits).
+// ops/fused_conv.py::narrow_fwd_plan holds the same rule.
+extern "C" void conv3x3_bn_relu_narrow_plan(int Cin, int Cout, int* out) {
+  const narrow::Plan p = narrow::plan(Cin, Cout);
+  out[0] = p.bn;
+  out[1] = p.tiles_n;
+  out[2] = p.stages;
+  out[3] = p.smem;
+}
+
 // out (N,H,W,Cout) <- x (N,H,W,Cin), w (3,3,Cin,Cout) HWIO, or with flip
 // w (3,3,Cout,Cin) read tap-reversed and transposed; a, b (Cout,) f32.
+// *route: the kernel launched, the path's code (conv3x3_bn_relu_path) or 3
+// where the narrow path's plan holds no tile and mma_sync takes the call.
 extern "C" int conv3x3_bn_relu_bf16(const void* x, const void* w,
                                     const void* a, const void* b, void* out,
                                     int N, int H, int W, int Cin, int Cout,
-                                    int relu, int flip, void* stream) {
+                                    int relu, int flip, void* stream,
+                                    int* route) {
+  *route = -1;
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto xb = static_cast<const __nv_bfloat16*>(x);
@@ -1344,7 +1965,7 @@ extern "C" int conv3x3_bn_relu_bf16(const void* x, const void* w,
   auto ob = static_cast<__nv_bfloat16*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (conv3x3_bn_relu_path(Cin, Cout)) {
+  switch (*route = conv3x3_bn_relu_path(Cin, Cout)) {
     case 1:
       err = wg::run(xb, wb, af, bf, ob, N, H, W, Cin, Cout, relu, flip, st);
       break;
@@ -1354,7 +1975,7 @@ extern "C" int conv3x3_bn_relu_bf16(const void* x, const void* w,
       break;
     default:
       err = narrow::run(xb, wb, af, bf, ob, N, H, W, Cin, Cout, relu, flip,
-                        st);
+                        st, route);
   }
   return static_cast<int>(err);
 }

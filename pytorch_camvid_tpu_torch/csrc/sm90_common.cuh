@@ -153,6 +153,37 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
+// mma.sync m16n8k16 bf16 -> f32: D += A (16 x 16, four 32-bit fragments)
+// x B (16 x 8, two), the packed path's product.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// --------------------------------------------------------------- cp.async
+
+// 16-byte asynchronous copy into shared memory, bypassing L1; src_bytes 0
+// reads nothing and zero-fills the destination.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Byte address of 16-byte chunk ``chunk`` (0..7) of 128-byte row ``row``
 // of a tile that TMA wrote with the 128-byte swizzle from a 1024-byte
 // aligned ``base``: the chunk index is XORed with the row's index mod 8.
@@ -208,6 +239,21 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // and B from shared memory by descriptor; TNSPB 0: B K-major, 1: B
 // N-major. D accumulates (scale-d 1).
 template <int TNSPB>
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(TNSPB));
+}
+
+template <int TNSPB>
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
                                             const uint32_t (&a)[4],
                                             uint64_t desc_b) {
@@ -236,6 +282,24 @@ __device__ __forceinline__ void wgmma_rs_n24(float (&d)[12],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(TNSPB));
+}
+
+template <int TNSPB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
         "n"(TNSPB));
 }
@@ -355,8 +419,10 @@ template <int N, int TNSPB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  if constexpr (N == 16) wgmma_rs_n16<TNSPB>(d, a, desc_b);
+  if constexpr (N == 8) wgmma_rs_n8<TNSPB>(d, a, desc_b);
+  else if constexpr (N == 16) wgmma_rs_n16<TNSPB>(d, a, desc_b);
   else if constexpr (N == 24) wgmma_rs_n24<TNSPB>(d, a, desc_b);
+  else if constexpr (N == 32) wgmma_rs_n32<TNSPB>(d, a, desc_b);
   else if constexpr (N == 64) wgmma_rs_n64<TNSPB>(d, a, desc_b);
   else if constexpr (N == 128) wgmma_rs_n128<TNSPB>(d, a, desc_b);
   else wgmma_rs_n256<TNSPB>(d, a, desc_b);

@@ -101,10 +101,7 @@ def _build(name: str):
             log.append(f"{entry} {m.group(1)} B" if m else ln.strip()[:160])
     if r.returncode:
         return name, None, log
-    fn = ctypes.CDLL(str(lib)).conv3x3_bn_relu_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = fused_conv.bind(ctypes.CDLL(str(lib))).conv3x3_bn_relu_bf16
     return name, fn, log
 
 
@@ -143,7 +140,8 @@ def main(argv=None) -> int:
         calls = {name: (lambda fn=fn: fn(
                      x.data_ptr(), wt.data_ptr(), a.data_ptr(), b.data_ptr(),
                      out.data_ptr(), n, h, w, cin, cout, 0, int(flip),
-                     torch.cuda.current_stream().cuda_stream))
+                     torch.cuda.current_stream().cuda_stream,
+                     ctypes.byref(ctypes.c_int())))
                  for name, fn in fns.items()}
         line = []
         for name, call in calls.items():

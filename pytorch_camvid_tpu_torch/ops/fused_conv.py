@@ -23,8 +23,15 @@ per-channel affine of the conv output, so the block is one pass:
   tile: the 12- and 21-class heads), "packed" (Cin % 8 != 0 with 9 * Cin
   <= ``K_MAX`` = 192 and Cout % 8 == 0: the Cin = 3 stem and the heads'
   dx with Cin = 12 and 21, on the 9 taps x Cin packed into K with weights
-  resident per block) and "narrow" (the first mma.sync design, for what
-  neither takes, e.g. 64->28; no model runs it).
+  resident per block) and "narrow" for what neither takes: UNet at width
+  9/16's seven blocks of 36 channels (and six of their dx), a head past 24
+  classes off a multiple of 8 (64->150 and its dx), 64->28. It is wgmma
+  with A gathered into registers from raw 16-byte chunks of x's rows at
+  a table's offsets of K = 9 x Cin packed, N = Cout rounded up to 8,
+  weights resident per block, output rows written in 16-byte chunks (plan
+  ``narrow_fwd_plan``); where its plan holds no tile (Cin past ~330) the
+  first, mma.sync design takes the call (``conv3x3_bn_relu.
+  mma_sync_launches`` counts the calls the C entry reports it took).
 - float32 x and w go to a second source, ``csrc/conv3x3_f32.cu``: an
   implicit GEMM on split-TF32 tensor-core products (each operand split
   into a TF32 high part and residual, three products summed), f32 in and
@@ -75,6 +82,12 @@ ROUTES = PATHS + ("f32", "f32_narrow", "f32_packed")   # the counters' keys
 RES_MAX_CIN = 128   # the wgmma head tile keeps 9 x Cin x N weights
 HEAD_MAX_COUT = 24  # the head tile's widest N
 K_MAX = 192         # the packed path's K: 9 taps x Cin
+NARROW_BNS = (16, 24, 32, 40, 48, 64, 80, 96, 128)   # the narrow N tiles
+NARROW_MAX_N = 128
+NARROW_MAX_N_MT2 = 40   # the widest N at two m64s a warpgroup
+NARROW_MAX_STAGES = 2   # patch stages: one tile in flight
+SMEM_MAX = 232448   # a block's shared memory on the H100
+SMEM_SM = 233472    # an SM's, 1,024 of it reserved a block
 
 
 def conv_path(cin: int, cout: int) -> str:
@@ -133,6 +146,64 @@ def packed_fwd_plan(cin: int) -> dict:
     return {"k": 9 * cin, "kp": kp, "ksteps": kp // 16,
             "row_stride": stride, "table_bytes": table, "blocks_per_sm": 2,
             "bytes": nbytes}
+
+
+@functools.cache
+def narrow_fwd_plan(cin: int, cout: int) -> dict:
+    """The narrow path's plan at (Cin, Cout) (the .cu's ``narrow::plan``):
+    tiles of 8 x ``mt`` rows x 16 columns (``mt`` m64s a warpgroup: 2
+    where N <= ``NARROW_MAX_N_MT2`` and two patch stages fit, else 1), K =
+    9 x Cin packed tap-major to ``kp`` (whole pairs of 2-step wgmma groups,
+    ``ksteps``); N tile ``bn``, the least of ``NARROW_BNS`` that holds
+    ceil(Cout / ``tiles_n``) channels, starting from tiles_n = ceil(Cout /
+    ``NARROW_MAX_N``) and splitting further until a block's shared memory
+    (232,448 B) holds: ``stages`` patch stages (as many as fit, up to
+    ``NARROW_MAX_STAGES``, at ``blocks_per_sm`` two where bn <= 80 and
+    each holds two, else one) of 8 mt + 2 rows x (18 x Cin + 21)
+    elements (``stage_bytes``), the resident kp x bn weights, the A
+    offsets' table (8 B a k16 step and lane column, 16 at odd Cin), the
+    affine's 2 x bn floats and a zero word, eight warps' output rows of 16
+    pixels at a pixel stride ``ops`` (Cout in one tile, else bn up to the
+    next of Cout mod 8), each region rounded to 128 B: the figures the
+    source's ``static_assert``s hold. None where no tile fits (Cin past
+    ~330: the first, mma.sync design takes those calls)."""
+    up = lambda v, m: -(-v // m) * m   # noqa: E731
+    kp = up(9 * cin, 64)
+    row = 18 * cin
+
+    def geometry(bn, mt):
+        tiles_n = -(-cout // bn)
+        stage = up(2 * ((8 * mt + 2) * (row + 21) + 16), 128)
+        ops = cout if tiles_n == 1 else bn + (cout - bn) % 8
+        out_warp = up(2 * (16 * ops + 8), 128)
+        fixed = (up(kp * bn * 2, 128) + up(kp // 16 * 4 * (16 if cin % 2
+                                                           else 8), 128)
+                 + up(8 * bn + 16, 128) + 8 * out_warp)
+        for blocks in ((2, 1) if bn <= 80 else (1,)):
+            stages = min(NARROW_MAX_STAGES,
+                         (SMEM_SM // blocks - 1024 - fixed) // stage)
+            if stages >= 2:
+                break
+        stages = max(stages, 1)
+        return {"bn": bn, "mt": mt, "tiles_n": tiles_n, "kp": kp,
+                "ksteps": kp // 16, "row": row, "ops": ops,
+                "stages": stages, "blocks_per_sm": blocks,
+                "stage_bytes": stage, "out_warp_bytes": out_warp,
+                "bytes": stages * stage + fixed}
+
+    tn = -(-cout // NARROW_MAX_N)
+    while True:
+        bn = min(b for b in NARROW_BNS if b >= -(-cout // tn))
+        if bn <= NARROW_MAX_N_MT2:
+            p = geometry(bn, 2)
+            if p["bytes"] <= SMEM_MAX and p["stages"] >= 2:
+                return p
+        p = geometry(bn, 1)
+        if p["bytes"] <= SMEM_MAX:
+            return p
+        if bn == NARROW_BNS[0]:
+            return None
+        tn += 1
 
 
 def f32_route(cin: int, cout: int) -> str:
@@ -267,13 +338,21 @@ def conv3x3_bn_relu_plain(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load(SOURCE)
+    return bind(cuda_build.load(SOURCE))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C entry points of a library built from ``conv3x3_bn_relu.cu``
+    (or an edit of it, chip_faults.py), typed."""
     fn = lib.conv3x3_bn_relu_bf16
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     lib.conv3x3_bn_relu_path.argtypes = [ctypes.c_int] * 2
     lib.conv3x3_bn_relu_path.restype = ctypes.c_int
+    lib.conv3x3_bn_relu_narrow_plan.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    lib.conv3x3_bn_relu_narrow_plan.restype = None
     return lib
 
 
@@ -332,13 +411,46 @@ def kernel_path(cin: int, cout: int) -> str:
     return PATHS[_library().conv3x3_bn_relu_path(cin, cout)]
 
 
+def kernel_narrow_plan(cin: int, cout: int) -> tuple:
+    """(N tile, channel tiles, patch stages, shared memory bytes) of the
+    built library's narrow path at (Cin, Cout) (``narrow_fwd_plan``'s rule
+    as the .cu holds it; chip_smoke checks that the two agree)."""
+    out = (ctypes.c_int * 4)()
+    _library().conv3x3_bn_relu_narrow_plan(cin, cout, out)
+    return tuple(out)
+
+
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t`` as it is when its data starts on a 16-byte boundary, else a
     copy that does. A batch slice such as ``x[1:]`` keeps its storage
-    offset through ``.contiguous()``, and the wgmma paths' TMA and the
-    packed paths' 16-byte loads need aligned bases; the copy is a fresh
-    allocation, which the caching allocator aligns."""
+    offset through ``.contiguous()``, and the wgmma paths' TMA, the packed
+    paths' 16-byte loads and the narrow path's 16-byte chunks need aligned
+    bases; the copy is a fresh allocation, which the caching allocator
+    aligns."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _holds_last_chunk(t: torch.Tensor) -> bool:
+    """Whether ``t``'s storage runs on to the end of the 16-byte chunk
+    (from ``t``'s aligned start) that holds its last element."""
+    nbytes = t.numel() * t.element_size()
+    room = (t.untyped_storage().nbytes()
+            - t.storage_offset() * t.element_size())
+    return room >= -(-nbytes // 16) * 16
+
+
+def whole_chunks(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as it is when its storage holds the whole 16-byte chunk its
+    last element lies in, else a copy into a buffer rounded up to 16
+    bytes. The narrow path copies x's rows as whole 16-byte chunks; where
+    N x H x W x Cin is no multiple of 8 the last one ends past x (no model
+    shape at 360x480 has such an x)."""
+    if _holds_last_chunk(t):
+        return t
+    n = -(-t.numel() * t.element_size() // 16) * 16 // t.element_size()
+    buf = t.new_empty(n)
+    buf[:t.numel()].copy_(t.reshape(-1))
+    return buf[:t.numel()].view(t.shape)
 
 
 def _check(x, w, a, b, flip=False):
@@ -376,9 +488,12 @@ def _check(x, w, a, b, flip=False):
     path = conv_path(cin, cout)
     if path == "wgmma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError("x and w must be 16-byte aligned (TMA)")
-    if path == "packed" and x.data_ptr() % 16:
-        raise ValueError("x must be 16-byte aligned (the packed path reads "
-                         "its rows in 16-byte vectors)")
+    if path in ("packed", "narrow") and x.data_ptr() % 16:
+        raise ValueError(f"x must be 16-byte aligned (the {path} path reads "
+                         f"its rows in 16-byte chunks)")
+    if path == "narrow" and not _holds_last_chunk(x):
+        raise ValueError("x's storage must hold its last 16-byte chunk (the "
+                         "narrow path copies whole chunks)")
 
 
 def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -411,6 +526,9 @@ def launch(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_bn_relu: no kernel for {x.device}")
     x, w = aligned16(x), aligned16(w)
+    if (x.dtype == torch.bfloat16 and x.dim() == 4 and x.is_contiguous()
+            and conv_path(x.shape[3], a.shape[0]) == "narrow"):
+        x = whole_chunks(x)
     _check(x, w, a, b, flip)
     n, h, wd, cin = x.shape
     cout = a.shape[0]
@@ -422,18 +540,23 @@ def launch(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         conv3x3_bn_relu.path_launches[f32_route(cin, cout)] += 1
         return out
     lib = _library()
+    route = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         out = torch.empty((n, h, wd, cout), dtype=torch.bfloat16,
                           device=x.device)
         err = lib.conv3x3_bn_relu_bf16(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             out.data_ptr(), n, h, wd, cin, cout, int(relu), int(flip),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            torch.cuda.current_stream(x.device).cuda_stream,
+            ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"conv3x3_bn_relu kernel launch failed: CUDA "
                            f"error {err} at x {tuple(x.shape)}, Cout {cout}")
+    # the kernel the C entry launched: a path's code, or 3 where the narrow
+    # path's plan holds no tile and mma_sync took the call
     conv3x3_bn_relu.launches += 1
-    conv3x3_bn_relu.path_launches[conv_path(cin, cout)] += 1
+    conv3x3_bn_relu.path_launches[PATHS[route.value % 3]] += 1
+    conv3x3_bn_relu.mma_sync_launches += int(route.value == 3)
     return out
 
 
@@ -464,6 +587,7 @@ def _f32_launch(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
 def reset_launches() -> None:
     conv3x3_bn_relu.launches = 0
+    conv3x3_bn_relu.mma_sync_launches = 0   # narrow's rest: mma_sync
     conv3x3_bn_relu.path_launches = dict.fromkeys(ROUTES, 0)
 
 

@@ -365,6 +365,40 @@ def test_int8_fault_libraries_take_the_wrappers_place(monkeypatch):
     assert sorted(builds) == sorted(chip_faults.INT8_FAULTS)
 
 
+@pytest.mark.parametrize("name", sorted(chip_faults.NARROW_FAULTS))
+def test_narrow_fault_edits_apply(name):
+    """Each fault of K4's narrow path edits its source once, inside the
+    narrow namespace, and changes it (built on the card by
+    ``chip_faults.narrow_fault``, caught there by ``narrow_checks``)."""
+    module, edits = chip_faults.NARROW_FAULTS[name]
+    assert module is fused_conv
+    src = module.SOURCE.read_text()
+    ns = src[src.index("namespace narrow {"):
+             src.index("}  // namespace narrow")]
+    for old, new in edits:
+        assert src.count(old) == 1 and ns.count(old) == 1 and old != new
+    edited = chip_faults.edited_source(name)
+    assert edited != src and all(new in edited for _, new in edits)
+
+
+def test_narrow_fault_libraries_take_the_wrappers_place(monkeypatch):
+    """``narrow_fault`` builds the three variants once and puts the named
+    one in place of fused_conv's library inside the block only."""
+    builds = []
+    monkeypatch.setattr(chip_faults, "_NARROW_LIBS", {})
+    monkeypatch.setattr(chip_faults, "_build_fault", lambda n: (
+        builds.append(n) or (n, f"lib {n}")))
+    sound = fused_conv._library
+    with chip_faults.narrow_fault("halo_unzeroed"):
+        assert fused_conv._library() == "lib halo_unzeroed"
+    with chip_faults.narrow_fault("flip_taps_not_reversed"):
+        assert fused_conv._library() == "lib flip_taps_not_reversed"
+    assert fused_conv._library is sound
+    assert sorted(builds) == sorted(chip_faults.NARROW_FAULTS)
+    assert ("narrow" in chip_faults.PATHS
+            and sum(c[0] == "narrow" for c in chip_faults.fault_cases()) == 3)
+
+
 @pytest.mark.parametrize("cin,cout", [(3, 64), (64, 64), (128, 24)])
 def test_weights_hwio_keeps_the_bytes_in_the_packed_shape(cin, cout):
     """The unrepacked-weights fault hands the kernel HWIO's bytes in the
