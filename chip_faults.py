@@ -33,8 +33,13 @@ block shape, K3 on int8 with ties), phase 3's narrow-path checks
 edge shapes, forward and dx, aligned and on views; faults ``NARROW_FAULTS``,
 edits of its source: the patch's columns outside the image left unzeroed,
 each output run's last partial 16-byte chunk dropped, flip without the tap
-reversal), once sound and once under each planted fault. Every kernel fault keeps every
-kernel launch, so only the values can show it (the packed
+reversal; then the narrow dW's checks, ``narrow_wgrad_checks``, with its
+faults ``NARROW_DW_FAULTS``, edits of ``conv3x3_wgrad.cu``: the third
+kernel column's taps shifted by one pixel, the N side's last group of 8
+channels never transposed, each split's pixel range overlapping the next
+one's first tile), once sound and once under each planted fault. Every
+kernel fault keeps every kernel launch, so only the values can show it
+(the packed
 dW's, rows_kernel's and the f32 kernels' faults patch the launch
 functions ``conv_train._wgrad_launch``, ``layout_probes._launch`` and
 ``fused_conv._f32_launch``, never a wrapper, whose launch counts stay as
@@ -76,6 +81,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -555,11 +561,44 @@ NARROW_FAULTS = {
 }
 _NARROW_LIBS = {}
 
+# the narrow dW's source and the binding of its library, for the faults
+# below (``source_fault``'s (module, edits))
+_WGRAD = types.SimpleNamespace(SOURCE=conv_train.WGRAD_SOURCE,
+                               bind=conv_train.bind_wgrad)
+# faults of K1's narrow dW (``csrc/conv3x3_wgrad.cu`` namespace ``narrow``),
+# under chip_smoke's ``narrow_wgrad_checks``
+NARROW_DW_FAULTS = {
+    # the taps of kernel column dx = 2 read one pixel short: plane (2, c)
+    # built from pixels 1 .. 16 of the patch row
+    "tap_column_shift": (_WGRAD, [(
+        "          store(st + (dx * cmb + c) * geo.plane + pr * 32, v + dx, "
+        "16);",
+        "          store(st + (dx * cmb + c) * geo.plane + pr * 32,\n"
+        "                v + dx - (dx == 2), 16);")]),
+    # the N side's last group of 8 channels (the tile's channels from the
+    # last multiple of 8 below its count) never written into B
+    "last_n_group_dropped": (_WGRAD, [(
+        "        const int r = l / bnc, n = l - r * bnc;\n",
+        "        const int r = l / bnc, n = l - r * bnc;\n"
+        "        if (n >= (bnc - 1) / 8 * 8) continue;\n")]),
+    # each split's pixel range running one tile into the next split's
+    "split_ranges_overlap": (_WGRAD, [(
+        "      static_cast<int>(static_cast<int64_t>(total) * (split + 1) / "
+        "splits);\n  const int S = geo.stages",
+        "      static_cast<int>(static_cast<int64_t>(total) * (split + 1) / "
+        "splits) +\n      (split + 1 < splits);\n  const int S = "
+        "geo.stages")]),
+}
+_NARROW_DW_LIBS = {}
+
 
 def source_fault(name: str) -> tuple:
-    """(module, edits) of a source-edit fault, int8's or the narrow
-    path's."""
-    return INT8_FAULTS[name] if name in INT8_FAULTS else NARROW_FAULTS[name]
+    """(module, edits) of a source-edit fault, int8's, the narrow path's
+    or the narrow dW's."""
+    for faults in (INT8_FAULTS, NARROW_FAULTS, NARROW_DW_FAULTS):
+        if name in faults:
+            return faults[name]
+    raise KeyError(name)
 
 
 def edited_source(name: str) -> str:
@@ -610,6 +649,19 @@ def narrow_fault(name: str):
         with ThreadPoolExecutor(len(NARROW_FAULTS)) as pool:
             _NARROW_LIBS.update(pool.map(_build_fault, NARROW_FAULTS))
     with planted(fused_conv, "_library", lambda: _NARROW_LIBS[name]):
+        yield
+
+
+@contextlib.contextmanager
+def narrow_dw_fault(name: str):
+    """The dW source with ``NARROW_DW_FAULTS[name]``'s edits built and put
+    in place of ``conv_train``'s library (every variant built, in
+    parallel, at the first use)."""
+    if not _NARROW_DW_LIBS:
+        with ThreadPoolExecutor(len(NARROW_DW_FAULTS)) as pool:
+            _NARROW_DW_LIBS.update(pool.map(_build_fault, NARROW_DW_FAULTS))
+    with planted(conv_train, "_wgrad_library",
+                 lambda: _NARROW_DW_LIBS[name]):
         yield
 
 
@@ -884,6 +936,12 @@ def fault_cases() -> list:
          "16-byte chunk", lambda: narrow_fault("last_chunk_dropped")),
         ("narrow", "the narrow path's flip without the tap reversal",
          lambda: narrow_fault("flip_taps_not_reversed")),
+        ("narrow", "the narrow dW's third kernel column one pixel short",
+         lambda: narrow_dw_fault("tap_column_shift")),
+        ("narrow", "the narrow dW without the N side's last 8-channel group",
+         lambda: narrow_dw_fault("last_n_group_dropped")),
+        ("narrow", "the narrow dW's splits each running one tile into the "
+         "next", lambda: narrow_dw_fault("split_ranges_overlap")),
         ("multi-GPU", "rank 1 keeping its own gradients after the "
          "all-reduce", lambda: in_ranks(rank1_keeps_its_gradients)),
         ("multi-GPU", "sync-BN on each rank's own moments",

@@ -23,7 +23,9 @@ Phases (each prints its lines; any failure exits non-zero):
    picks the wrappers' f32 routes ("f32", wgmma; "f32_packed", wgmma with
    9 taps x the narrow side's channels packed; or "f32_narrow") and
    forward tile N, that K5 f32's shared-memory plan at every Cout is
-   ``fused_conv_pair.tile_plan``'s, and that a step's launches per path
+   ``fused_conv_pair.tile_plan``'s, that the K4 narrow path's and the
+   narrow dW's plans are ``fused_conv.narrow_fwd_plan``'s and
+   ``conv_train.wgrad_narrow_plan``'s, and that a step's launches per path
    are ``PATH_TABLE``'s (and ``path_table(net, dtype=torch.float32)``'s).
 3. K4 vs plain: the kernel against its plain PyTorch version in bf16 at
    every distinct conv block shape of UNet and SegNet at 360x480, batch 8:
@@ -39,7 +41,15 @@ Phases (each prints its lines; any failure exits non-zero):
    edge shapes' forward and dx and ``NARROW_NO_TILE`` (a plan with no
    tile: the first design, the .cu's ``mma_sync``, takes the forward) at
    2x45x61, aligned and on views x[1:], each call's kernel as the C entry
-   reports it.
+   reports it. Then K1's narrow dW (``csrc/conv3x3_wgrad.cu`` namespace
+   ``narrow``): ``narrow_wgrad_checks`` at 2x45x61, aligned and on views,
+   at UNet 9/16's narrow dW shapes and ``WGRAD_NARROW_EXTRA`` (64->150,
+   64->28, 3->12, 350->12, 72->100 and 100->72 in two M channel tiles,
+   340->340 copied as pixel runs), each launched twice bit-equal;
+   ``narrow_wgrad_timings`` at UNet 9/16's seven dW at b24 and 64->150:
+   device-busy ms beside the bound, plain and cuDNN bf16 wgrad (and the
+   first design's reading from before the redesign, printed only), the
+   seven summed against ``WGRAD_NARROW_AIM_MS``.
 4. K1 vs plain at each model's block shapes at its training batch (UNet
    24, SegNet 32): forward and dx (K4's kernel, unit affine, no ReLU; dx
    reads the weights tap-reversed in place) against F.conv2d and
@@ -59,8 +69,10 @@ Phases (each prints its lines; any failure exits non-zero):
    its blocks beside their bounds. Then UNet at width 9/16
    (``odd_width_train``): one bf16 training step at b24 from He-scaled
    weights, each K1 call held to plain on its own inputs, K1's launches
-   per path (fwd 7, dx 6 and dW 7 narrow; none on ``mma_sync``), the
-   loss against the plain path's step.
+   per path (fwd 7, dx 6 and dW 7 narrow; none on K4's first, mma.sync,
+   kernel), the loss against the plain path's step; then 10 timed steps
+   after 3 warm-ups, printed beside the step before the narrow dW's
+   redesign (``ODD_STEP_BEFORE_MS``).
 5. UNet serving: a full-width UNet (random He-scaled weights from a seed)
    saved as a reference-named .pth, loaded by ``Predictor.from_checkpoint``
    and serving three requests (8 images, 13 images, 8 images at 480x640
@@ -824,6 +836,22 @@ ODD_TRAIN_BATCH = 24
 # the first (mma_sync) design at 8x360x480 36->36, device-busy ms, when
 # it took the call (PERF.md §6, NVIDIA H100 80GB HBM3 at 700.00 W)
 NARROW_BEFORE_MS = {(BATCH, 360, 480, 36, 36, False): 1.1890}
+# the narrow dW before its redesign (the first, mma.sync, design),
+# device-busy ms on cold inputs at b24 (the tree before the redesign, on
+# an NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md §6), printed beside this
+# run's and kept out of the kernels line
+WGRAD_NARROW_BEFORE_MS = {(360, 480, 3, 36): 2.2728,
+                          (360, 480, 36, 36): 4.5632,
+                          (180, 240, 36, 72): 1.0811,
+                          (360, 480, 72, 36): 6.2818,
+                          (360, 480, 36, 12): 2.9473,
+                          (360, 480, 64, 150): 12.1311}
+# the narrow dW's aim for UNet 9/16's seven launches summed at b24 (ms),
+# about 0.39 of their 1.174 ms bound
+WGRAD_NARROW_AIM_MS = 3.0
+# UNet 9/16's b24 bf16 step before the narrow dW's redesign (ms, 10 steps
+# after 3 warm-ups, ``bench.measure_train``; the same card), printed only
+ODD_STEP_BEFORE_MS = 212.906
 
 
 def odd_width_shapes() -> list:
@@ -839,6 +867,81 @@ def narrow_cases() -> list:
     return bench.narrow_cases(ODD_WIDTH, BATCH, ODD_TRAIN_BATCH, HW)
 
 
+def narrow_wgrad_cases() -> list:
+    """(n, h, w, cin, cout, blocks): UNet 9/16's distinct dW on the narrow
+    dW path at ``ODD_TRAIN_BATCH``, then a 150-class head's 64->150 (no
+    block of UNet 9/16; timed, not summed)."""
+    return (bench.narrow_wgrad_cases(ODD_WIDTH, ODD_TRAIN_BATCH, HW)
+            + [(ODD_TRAIN_BATCH, 360, 480, 64, 150, 0)])
+
+
+def narrow_wgrad_timings(gen: torch.Generator) -> dict:
+    """The narrow dW at ``narrow_wgrad_cases()``: per case the kernel
+    against plain (``K1_TOL["wgrad"]``), its device-busy ms on inputs
+    spanning ``COLD_SPAN`` beside the byte or FLOP bound, the plain
+    version's and cuDNN's bf16 wgrad on channels-last tensors, all from
+    this run, printed beside the first design's reading from before the
+    redesign (``WGRAD_NARROW_BEFORE_MS``, not returned); then the sum over
+    UNet 9/16's seven dW beside ``WGRAD_NARROW_AIM_MS``. Returns
+    {...sums, "shapes": {...}, "head_64_150": {...}}."""
+    dev = torch.device("cuda")
+    out, before = {"shapes": {}}, 0.0
+    for n, h, w, cin, cout, blocks in narrow_wgrad_cases():
+        def make():
+            return (torch.randn(n, h, w, cin, generator=gen, device=dev).to(
+                        torch.bfloat16),
+                    torch.randn(n, h, w, cout, generator=gen, device=dev).to(
+                        torch.bfloat16))
+        ins = cold_inputs(make, 2 * n * h * w * (cin + cout))
+        x, g = ins[0]
+        err, scale = _rel_err(conv_train.conv3x3_wgrad(x, g),
+                              conv_train.conv3x3_wgrad_plain(x, g))
+        check(err <= K1_TOL["wgrad"] * scale,
+              f"narrow dW vs plain at {(n, h, w, cin, cout)}")
+        bound, by = conv_bound(n, h, w, cin, cout, "wgrad")
+        t = {"blocks": blocks, "max_abs_err": err / scale,
+             "bound_ms": bound, "bound_by": by}
+        t["ms"] = device_ms(rotated([functools.partial(
+            conv_train.conv3x3_wgrad, *i) for i in ins]), bound)
+        t["plain_ms"] = device_ms(rotated([functools.partial(
+            conv_train.conv3x3_wgrad_plain, *i) for i in ins[:2]]))
+        t["library_ms"] = library_device_ms(rotated([functools.partial(
+            torch.nn.grad.conv2d_weight, i[0].permute(0, 3, 1, 2),
+            (cout, cin, 3, 3), i[1].permute(0, 3, 1, 2), padding=1)
+            for i in ins]))
+        within_bound(t["ms"], bound, f"narrow dW {(n, h, w, cin, cout)}")
+        print(f"narrow dW b{n} {h}x{w} {cin}->{cout} x{blocks}: err "
+              f"{err / scale:.3g} (tol {K1_TOL['wgrad']}); device-busy "
+              f"{t['ms']:.4f} ms, bound {bound:.4f} by {by} "
+              f"({bound / t['ms']:.2f} of it), plain {t['plain_ms']:.4f}, "
+              f"cuDNN bf16 wgrad {t['library_ms']:.4f}; the first design "
+              f"{WGRAD_NARROW_BEFORE_MS[(h, w, cin, cout)]:.4f} before the "
+              f"redesign (not this run's) on {bench.card()}", flush=True)
+        key = f"{n}x{h}x{w} {cin}->{cout}"
+        before += WGRAD_NARROW_BEFORE_MS[(h, w, cin, cout)] * blocks
+        if blocks:
+            out["shapes"][key] = t
+        else:
+            out["head_64_150"] = t
+        del ins, x, g
+        torch.cuda.empty_cache()
+    shapes = out["shapes"].values()
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        out[key] = sum(t[key] * t["blocks"] for t in shapes)
+    out["max_abs_err"] = max(t["max_abs_err"] for t in shapes)
+    out["blocks"] = sum(t["blocks"] for t in shapes)
+    out["bound_by"] = "bytes"
+    print(f"narrow dW, UNet 9/16's {out['blocks']} dW summed: "
+          f"{out['ms']:.4f} ms (bound {out['bound_ms']:.4f}, "
+          f"{out['bound_ms'] / out['ms']:.2f} of it; plain "
+          f"{out['plain_ms']:.4f}, cuDNN bf16 {out['library_ms']:.4f}; the "
+          f"first design {before:.4f} before the redesign, not this run's); "
+          f"aim {WGRAD_NARROW_AIM_MS} "
+          f"ms: {'met' if out['ms'] <= WGRAD_NARROW_AIM_MS else 'missed'}",
+          flush=True)
+    return out
+
+
 def narrow_timings(gen: torch.Generator) -> dict:
     """The narrow path at ``narrow_cases()``: per case the kernel against
     plain (``KERNEL_TOL``), its device-busy ms on inputs spanning
@@ -846,8 +949,9 @@ def narrow_timings(gen: torch.Generator) -> dict:
     byte or FLOP bound, the plain version's and one library call's
     (cuDNN's bf16 conv on channels-last tensors, of w or under flip of its
     tap-reversed transpose); then the sums over UNet 9/16's seven forward
-    blocks and its six dx (``blocks``) beside the design's aims. Returns
-    {"fwd" | "dx": {...sums, "shapes": {...}}}."""
+    blocks and its six dx (``blocks``) beside the design's aims; then the
+    narrow dW (``narrow_wgrad_timings``). Returns {"fwd" | "dx" | "wgrad":
+    {...sums, "shapes": {...}}}."""
     dev = torch.device("cuda")
     out = {"fwd": {"shapes": {}}, "dx": {"shapes": {}}}
     for n, h, w, cin, cout, flip, blocks in narrow_cases():
@@ -912,6 +1016,7 @@ def narrow_timings(gen: torch.Generator) -> dict:
               f"{o['plain_ms']:.4f}, cuDNN bf16 {o['library_ms']:.4f})"
               + (f"; aim {aim} ms: {'met' if o['ms'] <= aim else 'missed'}"
                  if aim else ""), flush=True)
+    out["wgrad"] = narrow_wgrad_timings(gen)
     return out
 
 
@@ -965,6 +1070,68 @@ def narrow_checks(gen: torch.Generator) -> dict:
                               f"{want}")
     check(any(fused_conv.narrow_fwd_plan(ci, co) is None
               for ci, co, _ in routes), "a narrow shape with no tile ran")
+    errs.update(narrow_wgrad_checks(gen))
+    return errs
+
+
+# the narrow dW's check shapes beyond UNet 9/16's: a 150-class head, 64->28,
+# 3->12, 350->12 (N in three tiles of 128), 72->100 and 100->72 (both
+# sides past 64 channels: M in two channel tiles of 36, on x and on g) and
+# 340->340 (whole rows pass shared memory: each pixel's run of a tile's
+# channels copied, six M tiles of 57, nine N tiles of 40)
+WGRAD_NARROW_EXTRA = ((64, 150), (64, 28), (3, 12), (350, 12), (72, 100),
+                      (100, 72), (340, 340))
+
+
+def narrow_wgrad_checks(gen: torch.Generator) -> dict:
+    """The narrow dW against plain (``K1_TOL["wgrad"]``) at 2x45x61 at UNet
+    9/16's narrow dW shapes and ``WGRAD_NARROW_EXTRA``, on an aligned batch
+    and on the views x[1:], g[1:], one narrow launch a call; the kernel
+    launched twice on the same inputs gives equal bits; the shapes take
+    both sides, M channel tiles and pixel runs. Returns {("dW", Cin,
+    Cout): worst error}."""
+    dev = torch.device("cuda")
+    cases = sorted({(ci, co) for *_, ci, co, _ in narrow_wgrad_cases()}
+                   | set(WGRAD_NARROW_EXTRA))
+    errs, routes = {}, {}
+    for cin, cout in cases:
+        check(conv_train.wgrad_path(cin, cout) == "narrow",
+              f"{cin}->{cout} on the narrow dW path")
+        x = torch.randn(3, 45, 61, cin, generator=gen, device=dev).to(
+            torch.bfloat16)
+        g = torch.randn(3, 45, 61, cout, generator=gen, device=dev).to(
+            torch.bfloat16)
+        for xv, gv in ((x[:2], g[:2]), (x[1:], g[1:])):
+            reset_counts()
+            got = conv_train.conv3x3_wgrad(xv, gv)
+            k1 = conv_train.conv3x3_wgrad
+            routes.setdefault((cin, cout), set()).add(
+                k1.path_launches["narrow"])
+            err, scale = _rel_err(got, conv_train.conv3x3_wgrad_plain(xv, gv))
+            _note(errs, ("dW", cin, cout), err / scale)
+            again = conv_train.conv3x3_wgrad(xv, gv)
+            check(torch.equal(got, again),
+                  f"narrow dW twice on the same inputs at {cin}->{cout}: "
+                  f"bits differ")
+    plans = {pr: conv_train.wgrad_narrow_plan(*pr) for pr in routes}
+    line = ", ".join(f"{ci}->{co} {e:.3g} ({plans[ci, co]['side']}, "
+                     f"{plans[ci, co]['tiles_m']}x{plans[ci, co]['tiles_n']}"
+                     f"{' runs' if plans[ci, co]['runs'] else ''})"
+                     for (_, ci, co), e in sorted(errs.items()))
+    print(f"narrow dW at 2x45x61, aligned and x[1:], max|kernel - plain| / "
+          f"max|plain|: {line} (tol {K1_TOL['wgrad']}); each launched twice "
+          f"bit-equal", flush=True)
+    for case, e in errs.items():
+        check(e <= K1_TOL["wgrad"], f"narrow dW vs plain at {case}: {e:.3g}")
+    for (cin, cout), seen in routes.items():
+        check(seen == {1}, f"narrow dW rule at {(cin, cout)}: narrow "
+                           f"launches a call {seen}, expected 1")
+    for what, ran in (("x side", any(p["side"] == "x" for p in plans.values())),
+                      ("g side", any(p["side"] == "g" for p in plans.values())),
+                      ("M tiles", any(p["tiles_m"] > 1 and not p["runs"]
+                                      for p in plans.values())),
+                      ("runs", any(p["runs"] for p in plans.values()))):
+        check(ran, f"narrow dW checks: no shape with {what}")
     return errs
 
 
@@ -983,10 +1150,11 @@ def odd_width_train(cpu_gen: torch.Generator) -> dict:
     plain version on its own inputs (``shadowed_kernels``, per piece and
     (Cin, Cout)), its K1 launches per path (``conv_train.
     step_path_launches``: the forward 7, dx 6 and dW 7 on the narrow
-    paths) and none on the first (``mma_sync``) kernel; one step on the
-    plain path from the same state: the loss within ``TRAIN_LOSS_TOL``.
-    Returns the
-    launches per path."""
+    paths) and none on K4's first (``mma_sync``) kernel (the dW's first
+    design is no longer in its library); one step on the plain path from the same state: the loss within
+    ``TRAIN_LOSS_TOL``; then 10 timed steps after 3 warm-ups
+    (``bench.measure_train``). Returns the launches per path and the step
+    ms."""
     dev = torch.device("cuda")
     model = bench.he_model("unet", cpu_gen, ODD_WIDTH).to(dev)
     batch = bench.resident_batch(ODD_TRAIN_BATCH, HW, SEED, dev)
@@ -1015,9 +1183,8 @@ def odd_width_train(cpu_gen: torch.Generator) -> dict:
     print(f"unet at width {ODD_WIDTH} train step b{ODD_TRAIN_BATCH}: loss "
           f"kernel {losses[False]:.6f} plain {losses[True]:.6f} (rel "
           f"{loss_err:.3g}, tol {TRAIN_LOSS_TOL}); K1 launches per path "
-          f"{paths} (expected {want}); on mma_sync "
-          f"{mma_sync}; each K1 call against plain on its inputs: {line}",
-          flush=True)
+          f"{paths} (expected {want}); on K4's mma_sync {mma_sync}; each "
+          f"K1 call against plain on its inputs: {line}", flush=True)
     check(paths == want, "unet 9/16 K1 launches per path")
     check((paths["fwd"]["narrow"], paths["dgrad"]["narrow"],
            paths["wgrad"]["narrow"]) == (7, 6, 7),
@@ -1028,9 +1195,19 @@ def odd_width_train(cpu_gen: torch.Generator) -> dict:
                                       f"data: {e:.3g}")
     check(np.isfinite(losses[False]) and loss_err <= TRAIN_LOSS_TOL,
           "unet 9/16 train loss kernel vs plain")
-    del model, batch
+    del batch
+    torch.cuda.empty_cache()
+    timed = bench.measure_train(model, ODD_TRAIN_BATCH, steps=10, warmup=3)
+    check(timed["finite"], "unet 9/16 timed steps: a loss not finite")
+    print(f"unet at width {ODD_WIDTH} b{ODD_TRAIN_BATCH} bf16 step: "
+          f"{timed['step_ms']:.3f} ms (median {timed['step_ms_median']:.3f}; "
+          f"10 steps after 3 warm-ups; before the narrow dW's redesign "
+          f"{ODD_STEP_BEFORE_MS}, not this run's) on {bench.card()}",
+          flush=True)
+    del model
     torch.cuda.empty_cache()
     return {"path_launches": paths, "loss_rel": loss_err,
+            "step_ms": timed["step_ms"],
             "worst": {p: max(e for (q, _, _), e in by_shape.items()
                              if q == p) for p in ("K1 fwd", "K1 dx", "K1 dW")}}
 
@@ -6076,6 +6253,7 @@ def start() -> None:
              for _, _, cin, cout in bench.block_shapes(net, HW)}
     pairs |= {(cin, cout)
               for *_, cin, cout in EDGE_SHAPES + NARROW_NO_TILE}
+    pairs |= set(WGRAD_NARROW_EXTRA)
     pairs |= {(cin, cout) for *_, cin, cout in odd_width_shapes()}
     pairs |= {(cout, cin) for cin, cout in pairs}   # the dx calls
     for cin, cout in sorted(pairs):
@@ -6099,6 +6277,21 @@ def start() -> None:
               f"the narrow plan of the library at {cin}->{cout}")
     print(f"narrow: the library's and the wrapper's plans agree at "
           f"{len(plans)} (Cin, Cout) pairs", flush=True)
+    # the narrow dW's plan (M side, m64 tiles a warpgroup, N tile, N and M
+    # channel tiles, pixel rows, runs, stages, shared memory), with both
+    # sides wide enough for M tiles and runs
+    dw_plans = sorted({pr for pr in pairs if conv_train.wgrad_path(*pr)
+                       == "narrow"} | set(WGRAD_NARROW_EXTRA)
+                      | {(c, 36) for c in range(1, 400, 7)}
+                      | {(36, c) for c in range(1, 400, 9)}
+                      | {(c, c + 3) for c in range(61, 700, 17)})
+    for cin, cout in dw_plans:
+        check(conv_train.wgrad_kernel_narrow_plan(cin, cout)
+              == conv_train.narrow_plan_key(
+                  conv_train.wgrad_narrow_plan(cin, cout)),
+              f"the narrow dW plan of the library at {cin}->{cout}")
+    print(f"narrow dW: the library's and the wrapper's plans agree at "
+          f"{len(dw_plans)} (Cin, Cout) pairs", flush=True)
     int8_cins = sorted({cin for _, _, cin, _ in all_block_shapes()}
                        | {cin for *_, cin, _ in INT8_EDGE + INT8_VIEW
                           + INT8_CIN48 + INT8_ODD}
@@ -6218,6 +6411,12 @@ def main() -> int:
     kernels[2]["narrow_unet_9_16"] = {
         **narrow["dx"],
         "launches": odd_train["path_launches"]["dgrad"]["narrow"]}
+    # the narrow dW at UNet 9/16's seven dW (phase 3), with the narrow dW
+    # launches of its training step (phase 6) and its step's ms
+    kernels[3]["narrow_unet_9_16"] = {
+        **narrow["wgrad"],
+        "launches": odd_train["path_launches"]["wgrad"]["narrow"],
+        "step_ms": odd_train["step_ms"]}
     for entry, piece, key in zip(kernels[1:], ("fwd", "dx", "wgrad"),
                                  ("fwd", "dgrad", "wgrad")):
         entry["unet_9_16_step_path_launches"] = odd_train[

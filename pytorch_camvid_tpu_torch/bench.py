@@ -159,6 +159,22 @@ def narrow_cases(width: float, batch: int, train_batch: int,
     return [k + (v,) for k, v in list(fwd.items()) + list(dx.items())]
 
 
+def narrow_wgrad_cases(width: float, batch: int,
+                       hw: Tuple[int, int] = HW) -> list:
+    """(n, h, w, cin, cout, blocks): UNet at ``width``'s distinct dW on the
+    narrow dW path at ``batch``, with the number of its blocks of each."""
+    from pytorch_camvid_tpu_torch.models import unet as unet_model
+    from pytorch_camvid_tpu_torch.ops import conv_train
+
+    cases = {}
+    for h, w, cin, cout in block_shapes("unet", hw,
+                                        unet_model.scaled_spec(3, 12, width)):
+        if conv_train.wgrad_path(cin, cout) == "narrow":
+            key = (batch, h, w, cin, cout)
+            cases[key] = cases.get(key, 0) + 1
+    return [k + (v,) for k, v in cases.items()]
+
+
 def conv_fwd_flops(net: str = "unet", hw: Tuple[int, int] = (360, 480),
                    spec=None) -> float:
     """A model's forward conv FLOPs per image: 2*9*cin*cout*h*w per block

@@ -444,8 +444,8 @@ constexpr int MAX_N_MT2 = 40;     // the widest N at two m64s a warpgroup
 constexpr uint32_t NO_K = 0xFFFFFFFFu;  // a table entry past K: reads zero
 
 // The N tiles the kernel is built for: sums of the sizes one wgmma takes
-// (mma_n). Cout splits into tiles_n tiles, each the least of these that
-// holds ceil(Cout / tiles_n) channels.
+// (sm90::wgmma_rs_kmajor). Cout splits into tiles_n tiles, each the least
+// of these that holds ceil(Cout / tiles_n) channels.
 constexpr int BNS[] = {16, 24, 32, 40, 48, 64, 80, 96, 128};
 constexpr int NBNS = sizeof(BNS) / sizeof(BNS[0]);
 
@@ -592,22 +592,6 @@ __device__ __forceinline__ uint32_t lds16(uint32_t addr) {
   unsigned short v;
   asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
   return v;
-}
-
-// D (64 x N) += A (registers) x B over N as a sum of the sizes wgmma_rs
-// issues (40 = 32 + 8, 80 = 64 + 16, ...), each on the same A; B K-major
-// without swizzle at ``wb``: 8-row groups of N 256 bytes apart, the two K
-// halves 128 bytes apart.
-template <int N, int OFF, int TOTAL>
-__device__ __forceinline__ void mma_n(float (&acc)[TOTAL / 2],
-                                      const uint32_t (&a)[4], uint32_t wb) {
-  if constexpr (N > 0) {
-    constexpr int P = N >= 128 ? 128 : N >= 64 ? 64 : N >= 32 ? 32
-                    : N >= 24 ? 24 : N >= 16 ? 16 : 8;
-    sm90::wgmma_rs<P, 0>(*reinterpret_cast<float(*)[P / 2]>(&acc[OFF / 2]),
-                         a, sm90::wgmma_desc(wb + OFF * 32, 128, 256, 0));
-    mma_n<N - P, OFF + P, TOTAL>(acc, a, wb);
-  }
 }
 
 // PAIRED: Cin even, so packed k and k + 1 (k even) are adjacent in the
@@ -848,7 +832,8 @@ __global__ void __launch_bounds__(THREADS, BN <= 80 ? 2 : 1)
       for (int j = 0; j < G; ++j)
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
-          mma_n<BN, 0, BN>(acc[mt], f[j][mt], w_s + (s + j) * (BN * 32));
+          sm90::wgmma_rs_kmajor<BN>(acc[mt], f[j][mt],
+                                    w_s + (s + j) * (BN * 32));
       sm90::wgmma_commit();
     };
     load_g(fa, 0);

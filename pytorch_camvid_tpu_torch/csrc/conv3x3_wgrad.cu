@@ -76,12 +76,59 @@
 //   offsets 64-bit. The shared-memory plan is smem_bytes() below, held by
 //   static_asserts and by ops/conv_train.py::wgrad_packed_plan.
 // * narrow (every other shape with a channel count that is not a multiple
-//   of 8, e.g. 64->28 or 3->12): the first design,
-//   mma.sync m16n8k16 on 9 taps x 32 input x 64 output channels per block,
-//   cp.async double buffering, scalar loads for a channel count that is not
-//   a multiple of 8. Models run it: UNet at width 9/16's training step
-//   sends it the dW of seven blocks (3->36, 36->36 x2, 72->36 x2, 36->72,
-//   36->12), a 150-class head its dW (64->150).
+//   of 8: UNet at width 9/16's training step sends it the dW of seven
+//   blocks, 3->36, 36->36 x2, 72->36 x2, 36->72 and 36->12; a 150-class
+//   head its 64->150; 64->28, 3->12). Bound by bytes: at 360x480, batch
+//   24, the seven read x and g once for 1.174 ms at 3.35 TB/s, at up to
+//   ~215 FLOP a byte (72->36), under the ridge. So x and g are each read
+//   once a channel tile, in 16-byte chunks at any channel alignment, and
+//   the MMA padding is kept small: M packs 9 taps x the channels of the
+//   side with fewer (a tile of up to MAX_CM = 64) tap-major, m = (3 dy +
+//   dx) cm + c,
+//   in whole m64 tiles (27 -> 64 at the stem, 324 -> 384 at 36), split
+//   over two consumer warpgroups; N is the other side's channels rounded
+//   to 8 (36 -> 40, 72 -> 72) as a sum of wgmma sizes, in channel tiles
+//   past what a warpgroup's accumulators hold (64->150: 4 x 40); K is 16
+//   pixels of a tile row. Where x is the narrower side D[(t, c)][n] is
+//   dW[t][c][n]; where g is, it is dW[8 - t][n][c] (as the packed path).
+//   A block of 384 threads (two consumer warpgroups and a producer; 512
+//   would cap the consumers at 128 registers) walks its split's pixel
+//   tiles of th rows x 16 columns (th 8, or 4 or 2 where 8 does not
+//   fit); per tile the consumer warps copy its rows,
+//   the M side's th + 2 (with the halo) and the N side's th, as the
+//   16-byte chunks that hold them (cp.async, a row a warp, two tiles
+//   ahead of the transposition, at a row stride congruent to W x channels
+//   mod 8 so that each chunk lands on a 16-byte boundary); the producer
+//   warpgroup transposes each (patch row, channel) line of the M side,
+//   zero outside the image, into three column-shifted channel-major
+//   planes (dx = 0, 1, 2; each row 16 pixels = 32 bytes, an odd number of
+//   16-byte units a plane so the rows ldmatrix reads and the stores meet
+//   distinct banks) and each (tile row, channel) line of the N side
+//   into B in wgmma's K-major layout without swizzle; the consumers load
+//   each warp's 16 (tap, channel) rows of A by ldmatrix from plane (tap %
+//   3, c) at patch row tap / 3 + r (pad rows from a zero plane) and issue
+//   wgmma.m64nNk16 with A in registers, two tile rows' loads in flight.
+//   Ring stages (planes and B) under full / empty mbarriers, raw buffers
+//   under cp.async's mbarrier arrivals. Split-K over pixel tiles in one
+//   whole wave of the resident blocks (ops/conv_train.py::wgrad_splits).
+//   Measured choices (dw_variants.py's narrow_* variants; PERF.md §6):
+//   route (b), the planes read by ldmatrix, against (a), A gathered per
+//   lane from the raw rows; the copies on the consumer warps against the
+//   producers' own, one copier warp or the bulk copy engine a row at a
+//   time, or two channels a line by 32-bit loads (earlier forms of this
+//   source); two ring stages or three, three raw buffers or four.
+//   Where the M side has more than MAX_CM = 64 channels they are split
+//   into channel tiles too (a grid dimension, as N's): each block packs
+//   its tile's channels and reads the whole M rows, as an N tile reads the
+//   whole N rows. Where a tile's whole rows pass shared memory (both sides
+//   wide, from about 250 channels), each pixel's run of the tile's
+//   channels is copied instead (``runs``: the chunks that hold it, at a
+//   pixel stride congruent to the channel count mod 8). So every shape the
+//   rule sends has a tile. Those shapes take instances of their own
+//   (TILED), so a one-tile shape runs the code it ran before: in one
+//   instance with them the tile and run arithmetic cost UNet 9/16's seven
+//   dW 4-5% (PERF.md §6). The plan is ops/conv_train.py::wgrad_narrow_plan,
+//   held to the static_asserts below.
 //
 // What bounds it on the H100: 2*9*M*Cin*Cout FLOP against reading x and g
 // once per (Cin, Cout) tile from L2: for Cin, Cout >= 64 it is
@@ -93,6 +140,8 @@
 // 192 accumulators per thread), so N stays 64. ptxas serializes each
 // warpgroup's wgmmas for want of registers; the three warpgroups overlap
 // one another's. It runs at about half the tensor rate.
+
+#include <mutex>
 
 #include "sm90_common.cuh"
 
@@ -118,279 +167,606 @@ __global__ void sum_splits_kernel(const float* __restrict__ ws,
 
 namespace narrow {
 
-constexpr int TH = 8;            // pixel rows per tile
-constexpr int TW = 16;           // pixel cols per tile (= one k16 step)
-constexpr int PH = TH + 2;       // patch rows (with halo)
-constexpr int PW = TW + 2;       // patch cols (with halo)
-constexpr int KC = 32;           // input channels per block
-constexpr int KCP = KC + 8;      // padded patch pixel stride (80 B: ldmatrix
-                                 // rows hit distinct banks)
-constexpr int BN = 64;           // output channels per block
-constexpr int BNP = BN + 8;      // padded cotangent pixel stride (144 B)
-constexpr int THREADS = 256;     // 8 warps: 2 along Cin x 4 along Cout
-
-constexpr int PATCH_ELEMS = PH * PW * KCP;
-constexpr int GTILE_ELEMS = TH * TW * BNP;
-constexpr int STAGE_ELEMS = PATCH_ELEMS + GTILE_ELEMS;
-constexpr int SMEM_BYTES = 2 * STAGE_ELEMS * 2;  // two stages of bf16
-
-// 16-byte async copy; src_bytes == 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
+constexpr int TW = 16;             // pixel columns a tile (= one k16 step)
+constexpr int PW = TW + 2;         // M-side patch columns (with halo)
+constexpr int CONSUMER_WGS = 2;    // warpgroups 0 and 1 run the wgmmas
+constexpr int PRODUCERS = 128;     // warpgroup 2 transposes
+constexpr int COPIERS = 128 * CONSUMER_WGS;  // the consumers copy too
+constexpr int THREADS = 128 * CONSUMER_WGS + PRODUCERS;
+constexpr int CONSUMER_WARPS = 4 * CONSUMER_WGS;
+// setmaxnreg's budget: the block holds 384 x 168 registers (65,536 a
+// thread count of 384 allows, in steps of 8), 128 x 96 + 256 x 200 of them
+constexpr int PRODUCER_REGS = 96;
+constexpr int CONSUMER_REGS = 200;
+static_assert(PRODUCERS * PRODUCER_REGS + 128 * CONSUMER_WGS * CONSUMER_REGS
+                  <= THREADS * 168,
+              "setmaxnreg.inc would wait for registers no warp gives back");
+constexpr int MAX_CM = 64;         // an M tile's channels: 9 m64 tiles
+constexpr int RAW = 3;             // raw tile buffers: two tiles ahead
+constexpr int MAX_STAGES = 3;      // ring stages of planes and B
+constexpr int SMEM_MAX = 232448;   // a block's shared memory
+constexpr int ACC_MAX = 128;       // accumulators a consumer thread
+constexpr int THS[] = {8, 4, 2};   // pixel rows a tile, in order of choice
+constexpr int MTWS[] = {1, 2, 3, 5};  // m64 tiles a consumer warpgroup
+// the instances (m64 tiles a consumer warpgroup, N tile); ops/conv_train.py
+// NARROW_INSTANCES holds the same list
+struct Inst {
+  int mtw, bn;
+};
+constexpr Inst INSTANCES[] = {{1, 16}, {1, 40}, {1, 64}, {1, 72}, {1, 128},
+                              {2, 16}, {2, 40}, {2, 64}, {3, 40}, {3, 72},
+                              {5, 40}};
+constexpr int NINST = sizeof(INSTANCES) / sizeof(INSTANCES[0]);
+constexpr bool accumulators_fit() {
+  for (const Inst& i : INSTANCES)
+    if (i.mtw * i.bn / 2 > ACC_MAX) return false;
+  return true;
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+static_assert(accumulators_fit(), "an instance's accumulators");
+
+constexpr int up(int v, int m) { return (v + m - 1) / m * m; }
+
+// A call's plan (ops/conv_train.py::wgrad_narrow_plan holds the same rule):
+// M = 9 taps x the channels of the side with fewer (side 0: x, the
+// stem-like case, D[(t, c)][n] = dW[t][c][n]; side 1: g, the head-like
+// case, D[(t, c)][n] = dW[8 - t][n][c]): its cm channels in tiles_m tiles
+// of cmt (at most MAX_CM), 9 cmt rows in mt m64 tiles, mtw of them a
+// consumer warpgroup; N = the other side's cn channels in tiles_n tiles of
+// bn; pixel tiles of th rows x 16 columns. Shared memory: ``stages`` ring
+// stages, each the M tile's three column-shifted channel-major copies and
+// a zero plane (3 cmt + 1 planes of (th + 2) rows x 32 B + 16 B: an odd
+// number of 16-byte units, so the rows one ldmatrix reads fall in distinct
+// banks) and B, th k16 steps of bn x 32 B in wgmma's K-major layout
+// without swizzle; RAW raw buffers, the M side's th + 2 rows of 18 pixels
+// and the N side's th rows of 16, as the 16-byte chunks of the tensors
+// that hold them: whole rows of all the side's channels (a row at a
+// stride of its length + 14 to 21, congruent to W x channels mod 8, so
+// that every chunk lands on a 16-byte boundary) or, with ``runs`` where
+// those do not fit, each pixel's run of the tile's channels (a run at a
+// stride of its length + 14 to 21, congruent to the channels mod 8; a
+// row at one of its runs' span + 14 to 21, congruent to W x channels);
+// 128 B of mbarriers. Every shape has a plan.
+struct Plan {
+  int side, cm, cn, cmt, tiles_m, mt, mtw, bn, tiles_n, th, runs, stages,
+      plane, planes_bytes, stage_bytes, raw_m, raw_n, smem;
+};
+
+constexpr Plan geometry(int side, int cm, int cn, int tiles_m, int mtw,
+                        int bn, int th, int runs) {
+  Plan p{};
+  p.side = side;
+  p.cm = cm;
+  p.cn = cn;
+  p.tiles_m = tiles_m;
+  p.cmt = (cm + tiles_m - 1) / tiles_m;
+  p.mt = (9 * p.cmt + 63) / 64;
+  p.mtw = mtw;
+  p.bn = bn;
+  p.tiles_n = (cn + bn - 1) / bn;
+  p.th = th;
+  p.runs = runs;
+  p.plane = 32 * (th + 2) + 16;
+  p.planes_bytes = up((3 * p.cmt + 1) * p.plane, 128);
+  p.stage_bytes = p.planes_bytes + th * bn * 32;
+  // a raw row's elements at most: whole, 18 x cm + 21; in runs, 17 run
+  // strides of cmt + 21 and a run, + 21
+  p.raw_m = up(2 * ((th + 2) * (runs ? 18 * p.cmt + 378 : 18 * cm + 21) +
+                    16), 128);
+  p.raw_n = up(2 * (th * (runs ? 16 * bn + 336 : 16 * cn + 21) + 16), 128);
+  const int st =
+      (SMEM_MAX - RAW * (p.raw_m + p.raw_n) - 128) / p.stage_bytes;
+  p.stages = st < MAX_STAGES ? st : MAX_STAGES;
+  p.smem = p.stages * p.stage_bytes + RAW * (p.raw_m + p.raw_n) + 128;
+  return p;
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Stage pixel tile (n, h0, w0): the input patch for channels [c0, c0+KC)
-// and the cotangent tile for channels [n0, n0+BN). VEC_X: Cin % 8 == 0 and
-// x 16-byte aligned -> 16-byte cp.async per 8 channels; otherwise scalar
-// loads of the valid channels only (the Cin=3 stem). VEC_G likewise for
-// Cout (the Cout=12 head takes the scalar path). Channels past Cin / Cout
-// are left unwritten in the scalar paths: they only feed output rows and
-// columns that are never stored. Pixels outside the image are zero, which
-// is the conv's padding for x and keeps g's ragged tiles out of the sum.
-template <bool VEC_X, bool VEC_G>
-__device__ __forceinline__ void stage_tile(
-    __nv_bfloat16* patch, __nv_bfloat16* gt,
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
-    int n, int h0, int w0, int c0, int n0, int H, int W, int Cin, int Cout) {
-  const int tid = threadIdx.x;
-  const int64_t img_base = static_cast<int64_t>(n) * H * W;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  if (VEC_X) {
-    constexpr int VPP = KC / 8;  // 16-byte vectors per patch pixel
-    for (int i = tid; i < PH * PW * VPP; i += THREADS) {
-      const int pix = i / VPP, v = i % VPP;
-      const int h = h0 + pix / PW - 1, ww = w0 + pix % PW - 1;
-      const int c = c0 + v * 8;
-      const bool ok = h >= 0 && h < H && ww >= 0 && ww < W && c < Cin;
-      const __nv_bfloat16* src =
-          ok ? x + ((img_base + static_cast<int64_t>(h) * W + ww) * Cin + c)
-             : x;
-      cp_async16(patch + pix * KCP + v * 8, src, ok ? 16 : 0);
+constexpr Plan plan(int cin, int cout) {
+  const int side = cin <= cout ? 0 : 1;
+  const int cm = side ? cout : cin, cn = side ? cin : cout;
+  const int tiles_m = (cm + MAX_CM - 1) / MAX_CM;
+  const int mt = (9 * ((cm + tiles_m - 1) / tiles_m) + 63) / 64;
+  int mtw = 0;
+  for (int i = 3; i >= 0; --i)
+    if (MTWS[i] >= (mt + 1) / 2) mtw = MTWS[i];
+  int widest = 0, narrowest = 1 << 30;
+  for (int i = 0; i < NINST; ++i)
+    if (INSTANCES[i].mtw == mtw) {
+      widest = INSTANCES[i].bn > widest ? INSTANCES[i].bn : widest;
+      narrowest = INSTANCES[i].bn < narrowest ? INSTANCES[i].bn : narrowest;
     }
-  } else {
-    // the valid channels, walked in a power-of-two stride (shifts, not
-    // divisions, keep the loop within the registers of two blocks per SM)
-    const int kc = min(KC, Cin - c0);
-    const int lg = 32 - __clz(kc - 1);
-    for (int i = tid; i < (PH * PW) << lg; i += THREADS) {
-      const int pix = i >> lg, k = i & ((1 << lg) - 1);
-      const int h = h0 + pix / PW - 1, ww = w0 + pix % PW - 1;
-      const bool ok = h >= 0 && h < H && ww >= 0 && ww < W;
-      if (k < kc)
-        patch[pix * KCP + k] =
-            ok ? x[(img_base + static_cast<int64_t>(h) * W + ww) * Cin + c0 +
-                   k]
-               : zero;
+  // whole rows where they fit, else runs; the fewest N tiles, then the
+  // most pixel rows
+  for (int runs = 0; runs < 2; ++runs)
+    for (int tn = (cn + widest - 1) / widest;; ++tn) {
+      const int want = (cn + tn - 1) / tn;
+      int bn = widest;
+      for (int i = 0; i < NINST; ++i)
+        if (INSTANCES[i].mtw == mtw && INSTANCES[i].bn >= want &&
+            INSTANCES[i].bn < bn)
+          bn = INSTANCES[i].bn;
+      for (int th : THS) {
+        const Plan p = geometry(side, cm, cn, tiles_m, mtw, bn, th, runs);
+        if (p.stages >= 2) return p;
+      }
+      if (bn == narrowest) break;
     }
-  }
-  if (VEC_G) {
-    constexpr int VPP = BN / 8;
-    for (int i = tid; i < TH * TW * VPP; i += THREADS) {
-      const int pix = i / VPP, v = i % VPP;
-      const int h = h0 + pix / TW, ww = w0 + pix % TW;
-      const int co = n0 + v * 8;
-      const bool ok = h < H && ww < W && co < Cout;
-      const __nv_bfloat16* src =
-          ok ? g + ((img_base + static_cast<int64_t>(h) * W + ww) * Cout +
-                    co)
-             : g;
-      cp_async16(gt + pix * BNP + v * 8, src, ok ? 16 : 0);
-    }
-  } else {
-    const int bn = min(BN, Cout - n0);
-    const int lg = 32 - __clz(bn - 1);
-    for (int i = tid; i < (TH * TW) << lg; i += THREADS) {
-      const int pix = i >> lg, j = i & ((1 << lg) - 1);
-      const int h = h0 + pix / TW, ww = w0 + pix % TW;
-      const bool ok = h < H && ww < W;
-      if (j < bn)
-        gt[pix * BNP + j] =
-            ok ? g[(img_base + static_cast<int64_t>(h) * W + ww) * Cout + n0 +
-                   j]
-               : zero;
-    }
-  }
+  return Plan{};
+}
+static_assert(plan(3, 36).smem == 74624, "UNet 9/16's stem");
+static_assert(plan(36, 36).smem == 210176, "UNet 9/16's 36->36");
+static_assert(plan(72, 36).smem == 207232, "UNet 9/16's 72->36");
+static_assert(plan(36, 72).smem == 207232, "UNet 9/16's 36->72");
+static_assert(plan(36, 12).smem == 111872, "UNet 9/16's head");
+static_assert(plan(64, 150).smem == 191744, "a 150-class head");
+static_assert(plan(64, 28).smem == 217472, "64->28");
+static_assert(plan(350, 12).smem == 216704, "350->12");
+static_assert(plan(72, 100).smem == 182912, "72->100: two M tiles");
+static_assert(plan(340, 340).smem == 197504, "340->340: runs");
+static_assert((2 * MAX_STAGES + RAW) * 8 <= 128, "the mbarriers' 128 bytes");
+// the copiers take a tile's 2 th + 2 rows in th / 2 slots of a warp each
+constexpr bool rows_in_slots() {
+  for (int th : THS)
+    if (COPIERS / 32 * (th / 2) < 2 * th + 2) return false;
+  return true;
+}
+static_assert(rows_in_slots(), "a tile's rows in th / 2 copy slots");
+
+// The call's figures, by value in the kernel's parameters; rsm and rsn
+// the raw rows' strides, psm and psn the raw pixels' (elements).
+struct Geo {
+  int side, cm, cn, cmt, mt, th, runs, stages, plane, planes_bytes,
+      stage_bytes, raw_m, raw_n, rsm, rsn, psm, psn;
+};
+
+__device__ __forceinline__ uint32_t lds16(uint32_t addr) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts128(uint32_t addr, uint32_t a, uint32_t b,
+                                       uint32_t c, uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
 }
 
-template <bool VEC_X, bool VEC_G>
-__global__ void __launch_bounds__(THREADS, 2)
+// Block (N tile blockIdx.x, split blockIdx.y, M tile blockIdx.z): D (9 cmb
+// x bn, cmb the M tile's channels) summed over the split's pixel tiles, K =
+// the 16 pixels of one tile row a k16 step.
+// Warpgroups 0 and 1 copy each tile's rows into a raw buffer two tiles
+// ahead (``copy_rows``) and consume: warpgroup w owns m64 tiles w x MTW ..
+// w x MTW + MTW - 1 (rows past 9 cmb read the zero plane; a warpgroup
+// without a tile idles), each warp's 16 rows (tap, c) loaded by ldmatrix
+// from plane (tap % 3, c) at patch row tap / 3 + r, one wgmma.m64nBNk16 (a
+// sum of wgmma sizes) a tile and row. Warpgroup 2 produces: each (patch
+// row, channel) line of 18 values of the M tile, zero outside the image,
+// into the three column-shifted planes of a ring stage, and each (tile
+// row, channel) line of the N side's 16 into B. TILED: M in channel tiles
+// or the raw rows as pixel runs (geo.runs); else one M tile of whole rows.
+template <int MTW, int BN, bool TILED>
+__global__ void __launch_bounds__(THREADS, 1)
     conv3x3_wgrad_narrow_kernel(const __nv_bfloat16* __restrict__ x,
-                         const __nv_bfloat16* __restrict__ g,
-                         float* __restrict__ out, int N, int H, int W,
-                         int Cin, int Cout, int splits) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-
-  // blockIdx.x -> (Cin chunk, Cout tile), Cout tile fastest; blockIdx.y is
-  // the split. Blocks of one split read the same pixels, so they run
-  // close together and share x and g in L2.
-  const int tiles_co = (Cout + BN - 1) / BN;
-  const int tco = blockIdx.x % tiles_co;
-  const int c0 = (blockIdx.x / tiles_co) * KC;
-  const int n0 = tco * BN;
+                                const __nv_bfloat16* __restrict__ g,
+                                float* __restrict__ out, int N, int H, int W,
+                                int Cin, int Cout, int splits, const Geo geo) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int th = geo.th, ph = th + 2, cm = geo.cm, cn = geo.cn;
+  const int n0 = blockIdx.x * BN;  // the block's N channels
+  const int bnc = min(BN, cn - n0);
+  const int m0 = TILED ? blockIdx.z * geo.cmt : 0;  // and M channels
+  const int cmb = TILED ? min(geo.cmt, cm - m0) : cm;
+  const bool runs = TILED && geo.runs;
   const int split = blockIdx.y;
+  const int tiles_h = (H + th - 1) / th, tiles_w = (W + TW - 1) / TW;
+  const int total = N * tiles_h * tiles_w;  // < 2^31 (host)
+  const int t_begin =
+      static_cast<int>(static_cast<int64_t>(total) * split / splits);
+  const int t_end =
+      static_cast<int>(static_cast<int64_t>(total) * (split + 1) / splits);
+  const int S = geo.stages, raw_bytes = geo.raw_m + geo.raw_n;
+  unsigned char* raw0 = smem + S * geo.stage_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(raw0 + RAW * raw_bytes);
+  uint64_t* empty = full + S;
+  uint64_t* raw_full = empty + S;   // a raw buffer's rows have landed
 
-  const int tiles_h = (H + TH - 1) / TH;
-  const int tiles_w = (W + TW - 1) / TW;
-  const int64_t total = static_cast<int64_t>(N) * tiles_h * tiles_w;
-  const int64_t t_begin = total * split / splits;
-  const int64_t t_end = total * (split + 1) / splits;
+  // once: each stage's zero plane (the pad rows of M) and B's columns past
+  // the tile's channels
+  for (int s = 0; s < S; ++s) {
+    unsigned char* st = smem + s * geo.stage_bytes;
+    for (int i = threadIdx.x; i < geo.plane / 16; i += THREADS)
+      reinterpret_cast<uint4*>(st + 3 * geo.cmt * geo.plane)[i] =
+          make_uint4(0, 0, 0, 0);
+    for (int i = threadIdx.x; i < th * (BN - bnc) * 2; i += THREADS) {
+      const int r = i / (2 * (BN - bnc)), j = i % (2 * (BN - bnc));
+      const int n = bnc + j / 2;
+      *reinterpret_cast<uint4*>(st + geo.planes_bytes + r * (BN * 32) +
+                                (n >> 3) * 256 + (j & 1) * 128 +
+                                (n & 7) * 16) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  sm90::fence_proxy_async();  // B's zeros, read by the wgmmas
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      sm90::mbar_init(&full[i], PRODUCERS);
+      sm90::mbar_init(&empty[i], CONSUMER_WARPS);
+    }
+    for (int i = 0; i < RAW; ++i)   // each copier's copies of a tile
+      sm90::mbar_init(&raw_full[i], COPIERS);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp & 1;   // input channels wm*16 .. +15 of the chunk
-  const int wn = warp >> 1;  // output channels wn*16 .. +15 of the tile
-
-  float acc[9][2][4];
-#pragma unroll
-  for (int t = 0; t < 9; ++t)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[t][j][q] = 0.f;
-
-  // Per-lane ldmatrix row offsets (elements, within one stage). Lane l
-  // addresses row (l & 7) of 8x8 matrix l >> 3.
-  // A (rows ci, cols pixel k): matrices a0..a3 = (ci +0, k +0), (ci +8,
-  //   k +0), (ci +0, k +8), (ci +8, k +8); memory rows are pixels, so
-  //   .trans hands each lane its A[ci][k] pair.
-  // B (rows pixel k, cols co): lanes 0-15 give pixels 0-15 at co +0, lanes
-  //   16-31 the same pixels at co +8 -> (b0, b1) of two adjacent n8 tiles.
-  const int a_off = ((lane & 7) + ((lane >> 4) << 3)) * KCP + wm * 16 +
-                    ((lane >> 3) & 1) * 8;
-  const int b_off = (lane & 15) * BNP + wn * 16 + (lane >> 4) * 8;
-
-  auto tile_origin = [&](int64_t t, int& n, int& h0, int& w0) {
-    w0 = static_cast<int>(t % tiles_w) * TW;
+  auto origin = [&](int t, int& img, int& h0, int& w0) {
+    w0 = t % tiles_w * TW;
     t /= tiles_w;
-    h0 = static_cast<int>(t % tiles_h) * TH;
-    n = static_cast<int>(t / tiles_h);
+    h0 = t % tiles_h * th;
+    img = t / tiles_h;
+  };
+  const int64_t pitch_m = static_cast<int64_t>(W) * cm;
+  const int64_t pitch_n = static_cast<int64_t>(W) * cn;
+  // the element of the M side at patch row 0, column 0, and of the N side
+  // at the tile's first pixel (either may lie before the tensor)
+  auto corner_m = [&](int img, int h0, int w0) {
+    return (static_cast<int64_t>(img) * H + h0 - 1) * pitch_m +
+           static_cast<int64_t>(w0 - 1) * cm;
+  };
+  auto corner_n = [&](int img, int h0, int w0) {
+    return (static_cast<int64_t>(img) * H + h0) * pitch_n +
+           static_cast<int64_t>(w0) * cn;
   };
 
-  {
-    int n, h0, w0;
-    tile_origin(t_begin, n, h0, w0);
-    stage_tile<VEC_X, VEC_G>(smem, smem + PATCH_ELEMS, x, g, n, h0, w0, c0,
-                             n0, H, W, Cin, Cout);
-    cp_async_commit();
-  }
-
-  for (int64_t t = t_begin; t < t_end; ++t) {
-    const int buf = static_cast<int>((t - t_begin) & 1);
-    if (t + 1 < t_end) {
-      int n, h0, w0;
-      tile_origin(t + 1, n, h0, w0);
-      __nv_bfloat16* nxt = smem + (buf ^ 1) * STAGE_ELEMS;
-      stage_tile<VEC_X, VEC_G>(nxt, nxt + PATCH_ELEMS, x, g, n, h0, w0, c0,
-                               n0, H, W, Cin, Cout);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  const unsigned short* ms =
+      reinterpret_cast<const unsigned short*>(geo.side ? g : x);
+  const unsigned short* ns =
+      reinterpret_cast<const unsigned short*>(geo.side ? x : g);
+  const int lm = PW * cm, ln = TW * cn;  // row lengths, elements
+  const int64_t total_m = static_cast<int64_t>(N) * H * pitch_m;
+  const int64_t total_n = static_cast<int64_t>(N) * H * pitch_n;
+  const uint32_t raw_s = smem_u32(raw0);
+  // Tile t's rows into its raw buffer by the copiers (the consumer warps,
+  // whose wgmmas leave them idle most of a tile), a row a warp, the lanes
+  // on consecutive 16-byte chunks (cp.async); each copier's copies
+  // complete its arrival on the buffer's raw_full (``copied``). Row r of
+  // a side (image row h0 + r - 1 of the M side, with the halo, or h0 + r
+  // of the N side) is len elements from corner + r x pitch; chunk q of it
+  // lands at element (corner mod 8) + r x rs - (its offset in its first
+  // chunk) + 8 q. With runs, pixel j's run of the tile's channels (from
+  // channel c0) is the element e = corner + c0 + r x pitch + j x channels
+  // on, and lands at ((corner + c0) mod 8) + r x rs + j x ps: its chunk q
+  // at that - (e mod 8) + 8 q. Rows outside the image and chunks outside
+  // the tensor are skipped (the transposition reads zero there); x's and
+  // g's last chunks lie in their storage (the launcher's whole_chunks).
+  struct Raw {
+    uint32_t rb;
+    int64_t cmr, cnr;
+    int h0;
+  };
+  auto raw_of = [&](int t) {
+    Raw q;
+    int img, w0;
+    origin(t, img, q.h0, w0);
+    q.rb = raw_s + (t - t_begin) % RAW * raw_bytes;
+    q.cmr = corner_m(img, q.h0, w0);
+    q.cnr = corner_n(img, q.h0, w0);
+    return q;
+  };
+  // rows warp + 8 slot of a tile: its rows spread over th / 2 slots
+  auto copy_rows = [&](const Raw& q, int slot) {
+    const int row = (threadIdx.x >> 5) + slot * (COPIERS / 32);
+    if (row >= ph + th) return;
+    const bool m = row < ph;
+    const int r = m ? row : row - ph;
+    const int h = m ? q.h0 + r - 1 : q.h0 + r;
+    if (h < 0 || h >= H) return;
+    const int64_t corner = m ? q.cmr : q.cnr;
+    const int64_t numel = m ? total_m : total_n;
+    const unsigned short* src = m ? ms : ns;
+    if (runs) {
+      const int64_t base = corner + (m ? m0 : n0);
+      const int64_t gr = base + r * (m ? pitch_m : pitch_n);
+      const int len = m ? cmb : bnc, cs = m ? cm : cn;
+      const int ps = m ? geo.psm : geo.psn;
+      const int per = (len + 14) / 8;  // chunks a run spans at most
+      const uint32_t dst = (m ? q.rb : q.rb + geo.raw_m) +
+                           2 * static_cast<int>((base & 7) +
+                                                r * (m ? geo.rsm : geo.rsn));
+      for (int j = threadIdx.x & 31; j < (m ? PW : TW) * per; j += 32) {
+        const int px = j / per, k = j - px * per;
+        const int64_t e = gr + static_cast<int64_t>(px) * cs;
+        const int64_t a = (e & ~static_cast<int64_t>(7)) + 8 * k;
+        if (a < e + len && a >= 0 && a < numel)
+          sm90::cp_async16(
+              dst + 2 * (px * ps - static_cast<int>(e & 7) + 8 * k),
+              src + a, 16);
+      }
+      return;
     }
-    __syncthreads();
+    const int64_t gr = corner + r * (m ? pitch_m : pitch_n);
+    const int64_t end = gr + (m ? lm : ln);
+    const int64_t a0 = gr & ~static_cast<int64_t>(7);
+    const uint32_t dst =
+        (m ? q.rb : q.rb + geo.raw_m) +
+        2 * static_cast<int>((corner & 7) + r * (m ? geo.rsm : geo.rsn) -
+                             (gr - a0));
+    for (int64_t a = a0 + 8 * (threadIdx.x & 31); a < end; a += 256)
+      if (a >= 0 && a < numel)
+        sm90::cp_async16(dst + 2 * static_cast<int>(a - a0), src + a, 16);
+  };
+  auto copied = [&](int t) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                     "r"(smem_u32(&raw_full[(t - t_begin) % RAW]))
+                 : "memory");
+  };
 
-    const __nv_bfloat16* cur = smem + buf * STAGE_ELEMS;
-    const uint32_t patch_s = smem_u32(cur);
-    const uint32_t gt_s = smem_u32(cur + PATCH_ELEMS);
-
+  if (threadIdx.x >= 128 * CONSUMER_WGS) {
+    // ------------------------------------------------------ producers
+    sm90::setmaxnreg_dec<PRODUCER_REGS>();
+    const int p = threadIdx.x - 128 * CONSUMER_WGS;
+    // Tile t into stage st: M line (pr, c) of the tile's channels, its 18
+    // values zero outside the image, into planes (dx, c) row pr as pixels
+    // dx .. dx + 15 (c < cmb; the zero plane at 3 cmt); N line
+    // (r, n) of the block's channels into B's step r, channel n: pixels
+    // 0-7 and 8-15 at (n / 8) 256 + (n % 8) 16 and 128 bytes on. A warp's
+    // lanes take consecutive channels: consecutive planes (an odd number
+    // of 16-byte units each) and B rows, conflict-free stores.
+    auto put = [&](int t, uint32_t st) {
+      int img, h0, w0;
+      origin(t, img, h0, w0);
+      const uint32_t rb = raw_s + (t - t_begin) % RAW * raw_bytes;
+      // a raw pixel holds all the side's channels (whole rows) or the
+      // tile's from its first (runs)
+      const int cbm = runs ? 0 : m0, cbn = runs ? 0 : n0;
+      const int psm = TILED ? geo.psm : cm, psn = TILED ? geo.psn : cn;
+      const int bm =
+          static_cast<int>((corner_m(img, h0, w0) + m0 - cbm) & 7);
+      const int bn =
+          static_cast<int>((corner_n(img, h0, w0) + n0 - cbn) & 7);
+      // 16 pixels' values from v[first] on as 8 words, two a word, into
+      // a row at a and a + half
+      auto store = [](uint32_t a, const uint32_t* v, uint32_t half) {
+        uint32_t u[8];
 #pragma unroll
-    for (int r = 0; r < TH; ++r) {  // one k16 step: tile row r, 16 pixels
-      uint32_t b[4];
-      sm90::ldmatrix_x4_trans(b, gt_s + 2 * (b_off + r * TW * BNP));
+        for (int e = 0; e < 8; ++e) u[e] = v[2 * e] | v[2 * e + 1] << 16;
+        sts128(a, u[0], u[1], u[2], u[3]);
+        sts128(a + half, u[4], u[5], u[6], u[7]);
+      };
+      for (int l = p; l < ph * cmb; l += PRODUCERS) {
+        const int pr = l / cmb, c = l - pr * cmb;
+        const int h = h0 + pr - 1;
+        const bool row = h >= 0 && h < H;
+        const uint32_t src = rb + 2 * (bm + pr * geo.rsm + cbm + c);
+        uint32_t v[PW];
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int dy = tap / 3, dx = tap % 3;
-        uint32_t a[4];
-        sm90::ldmatrix_x4_trans(a,
-                          patch_s + 2 * (a_off + ((r + dy) * PW + dx) * KCP));
-        mma_bf16_16816(acc[tap][0], a, b[0], b[1]);
-        mma_bf16_16816(acc[tap][1], a, b[2], b[3]);
+        for (int q = 0; q < PW; ++q) {
+          const int w = w0 + q - 1;
+          v[q] = row && w >= 0 && w < W ? lds16(src + 2 * q * psm) : 0u;
+        }
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+          store(st + (dx * cmb + c) * geo.plane + pr * 32, v + dx, 16);
+      }
+      const uint32_t nsrc = rb + geo.raw_m + 2 * (bn + cbn);
+      const uint32_t bst = st + geo.planes_bytes;
+      for (int l = p; l < th * bnc; l += PRODUCERS) {
+        const int r = l / bnc, n = l - r * bnc;
+        const bool row = h0 + r < H;
+        const uint32_t src = nsrc + 2 * (r * geo.rsn + n);
+        uint32_t v[TW];
+#pragma unroll
+        for (int q = 0; q < TW; ++q)
+          v[q] = row && w0 + q < W ? lds16(src + 2 * q * psn) : 0u;
+        store(bst + r * (BN * 32) + (n >> 3) * 256 + (n & 7) * 16, v, 128);
+      }
+    };
+    const uint32_t smem_s = smem_u32(smem);
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t = t_begin; t < t_end; ++t) {
+      sm90::mbar_wait(&raw_full[(t - t_begin) % RAW],
+                      ((t - t_begin) / RAW) & 1);  // this tile's rows
+      sm90::mbar_wait(&empty[s], phase ^ 1);
+      put(t, smem_s + s * geo.stage_bytes);
+      sm90::fence_proxy_async();  // B, read by the wgmmas
+      sm90::mbar_arrive(&full[s]);
+      if (++s == S) {
+        s = 0;
+        phase ^= 1;
       }
     }
-    __syncthreads();  // this stage is refilled by the next iteration
-  }
+  } else {
+    // ------------------------------------------------------ consumers
+    sm90::setmaxnreg_inc<CONSUMER_REGS>();
+    const int wgi = threadIdx.x >> 7;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int mfirst = wgi * MTW;  // this warpgroup's first m64 tile
+    const bool busy = mfirst < geo.mt;
+    // this lane's ldmatrix row: M row m (matrix lane / 8: rows +8 for
+    // odd, k +8 for lane >= 16) at its tap's shifted plane and patch row
+    // dy; a pad row reads the zero plane
+    uint32_t aoff[MTW];
+#pragma unroll
+    for (int mi = 0; mi < MTW; ++mi) {
+      const int m = 64 * (mfirst + mi) + 16 * warp + 8 * ((lane >> 3) & 1) +
+                    (lane & 7);
+      const int tap = m / cmb, c = m - tap * cmb;
+      aoff[mi] = (m < 9 * cmb ? ((tap % 3) * cmb + c) * geo.plane +
+                                    (tap / 3) * 32
+                              : 3 * geo.cmt * geo.plane) +
+                 16 * (lane >> 4);
+    }
+    float acc[MTW][BN / 2];
+#pragma unroll
+    for (int mi = 0; mi < MTW; ++mi)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[mi][i] = 0.f;
+    const uint32_t smem_s = smem_u32(smem);
+    for (int t = t_begin; t < t_begin + RAW - 1; ++t) {
+      if (t < t_end) {
+        const Raw q = raw_of(t);
+        for (int slot = 0; slot < th / 2; ++slot) copy_rows(q, slot);
+      }
+      copied(t);
+    }
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t = t_begin; t < t_end; ++t) {
+      sm90::mbar_wait(&full[s], phase);
+      // tile t is transposed, so is tile t - 1: its buffer takes tile tc
+      const int tc = t + RAW - 1;
+      if (tc < t_end) {
+        const Raw q = raw_of(tc);
+        for (int slot = 0; slot < th / 2; ++slot) copy_rows(q, slot);
+      }
+      copied(tc);
+      if (busy) {
+        const uint32_t st = smem_s + s * geo.stage_bytes;
+        const uint32_t bs = st + geo.planes_bytes;
+        uint32_t fa[MTW][4], fb[MTW][4];
+        // tile rows in pairs (th is even), their A fragments in two
+        // buffers: a row's loads run while the row before's wgmmas do
+        for (int r = 0; r < th; r += 2) {
+#pragma unroll
+          for (int mi = 0; mi < MTW; ++mi)
+            sm90::ldmatrix_x4(fa[mi], st + aoff[mi] + r * 32);
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int mi = 0; mi < MTW; ++mi)
+            sm90::wgmma_rs_kmajor<BN>(acc[mi], fa[mi], bs + r * (BN * 32));
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<1>();
+#pragma unroll
+          for (int mi = 0; mi < MTW; ++mi)
+            sm90::ldmatrix_x4(fb[mi], st + aoff[mi] + (r + 1) * 32);
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int mi = 0; mi < MTW; ++mi)
+            sm90::wgmma_rs_kmajor<BN>(acc[mi], fb[mi],
+                                      bs + (r + 1) * (BN * 32));
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<1>();
+        }
+        sm90::wgmma_wait<0>();
+      }
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);
+      if (++s == S) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    sm90::cp_async_wait<0>();
+#pragma unroll
+    for (int mi = 0; mi < MTW; ++mi) sm90::fence_regs(acc[mi]);
+    if (!busy) return;
 
-  // C fragment rows g8 / g8+8 are input channels, cols 2*t4, 2*t4+1 output
-  // channels.
-  const int g8 = lane >> 2, t4 = lane & 3;
-  float* dst = out + static_cast<int64_t>(split) * 9 * Cin * Cout;
-  const bool pair_store = (Cout % 2) == 0;
+    // Accumulator i of m64 tile mi: row m = 64 (mfirst + mi) + 16 warp +
+    // lane / 4 (+8 for i % 4 >= 2) = (tap, c), column n = 8 (i / 4) + 2
+    // (lane % 4) + i % 2 of the block's channels. Side x: dW[tap][m0 +
+    // c][n0 + n]; side g: dW[8 - tap][n0 + n][m0 + c].
+    float* dst = out + static_cast<int64_t>(split) * 9 * Cin * Cout;
 #pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
+    for (int mi = 0; mi < MTW; ++mi)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int ci = c0 + wm * 16 + g8 + half * 8;
-      if (ci >= Cin) continue;
-      float* row = dst + (static_cast<int64_t>(tap) * Cin + ci) * Cout;
+      for (int half = 0; half < 2; ++half) {
+        const int m = 64 * (mfirst + mi) + 16 * warp + (lane >> 2) + 8 * half;
+        if (m >= 9 * cmb) continue;
+        const int tap = m / cmb, c = m0 + m - tap * cmb;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int co = n0 + wn * 16 + j * 8 + t4 * 2;
-        if (co >= Cout) continue;
-        const float v0 = acc[tap][j][half * 2];
-        const float v1 = acc[tap][j][half * 2 + 1];
-        if (pair_store) {  // co even and Cout even -> 8-byte aligned pair
-          *reinterpret_cast<float2*>(row + co) = make_float2(v0, v1);
-        } else {
-          row[co] = v0;
-          if (co + 1 < Cout) row[co + 1] = v1;
+        for (int i = 0; i < BN / 4; ++i) {
+          const int n = 8 * (i / 2) + 2 * (lane & 3) + (i & 1);
+          if (n >= bnc) continue;
+          const float v = acc[mi][4 * (i / 2) + 2 * half + (i & 1)];
+          if (geo.side)
+            dst[(static_cast<int64_t>(8 - tap) * Cin + n0 + n) * Cout + c] =
+                v;
+          else
+            dst[(static_cast<int64_t>(tap) * Cin + c) * Cout + n0 + n] = v;
         }
       }
-    }
   }
 }
 
-template <bool VEC_X, bool VEC_G>
+template <int MTW, int BN, bool TILED>
 cudaError_t launch(const __nv_bfloat16* x, const __nv_bfloat16* g,
                    float* dst, int N, int H, int W, int Cin, int Cout,
-                   int splits, cudaStream_t stream) {
-  auto kern = conv3x3_wgrad_narrow_kernel<VEC_X, VEC_G>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+                   int splits, const Plan& p, cudaStream_t stream) {
+  auto mod8 = [](int64_t v) { return static_cast<int>((v % 8 + 8) % 8); };
+  // a stride of len + 14 to 21 elements congruent to the one it copies
+  auto stride = [&](int64_t of, int len) {
+    return len + 14 + mod8(of - len - 14);
+  };
+  const int64_t wm = static_cast<int64_t>(W) * p.cm;
+  const int64_t wn = static_cast<int64_t>(W) * p.cn;
+  int rsm, rsn, psm, psn;
+  if (p.runs) {
+    psm = stride(p.cm, p.cmt);
+    psn = stride(p.cn, p.bn);
+    rsm = stride(wm, (PW - 1) * psm + p.cmt);
+    rsn = stride(wn, (TW - 1) * psn + p.bn);
+  } else {
+    psm = p.cm;
+    psn = p.cn;
+    rsm = stride(wm, PW * p.cm);
+    rsn = stride(wn, TW * p.cn);
+  }
+  const Geo geo{p.side,   p.cm,           p.cn,          p.cmt,   p.mt,
+                p.th,     p.runs,         p.stages,      p.plane,
+                p.planes_bytes,           p.stage_bytes, p.raw_m, p.raw_n,
+                rsm,      rsn,            psm,           psn};
+  auto kern = conv3x3_wgrad_narrow_kernel<MTW, BN, TILED>;
+  // the instance's shared-memory ceiling, set once a (device, bytes)
+  static std::mutex mu;
+  static int set_dev = -1, set_smem = -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid(((Cin + KC - 1) / KC) * ((Cout + BN - 1) / BN), splits);
-  kern<<<grid, THREADS, SMEM_BYTES, stream>>>(x, g, dst, N, H, W, Cin, Cout,
-                                             splits);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (dev != set_dev || p.smem != set_smem) {
+      set_dev = -1;
+      if ((err = cudaFuncSetAttribute(
+               kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+               p.smem)) != cudaSuccess)
+        return err;
+      set_dev = dev;
+      set_smem = p.smem;
+    }
+  }
+  kern<<<dim3(p.tiles_n, splits, p.tiles_m), THREADS, p.smem, stream>>>(
+      x, g, dst, N, H, W, Cin, Cout, splits, geo);
   return cudaGetLastError();
 }
 
 cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* g, float* dst,
                 int N, int H, int W, int Cin, int Cout, int splits,
                 cudaStream_t st) {
-  const bool vec_x =
-      Cin % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const bool vec_g =
-      Cout % 8 == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
-  if (vec_x && vec_g)
-    return launch<true, true>(x, g, dst, N, H, W, Cin, Cout, splits, st);
-  if (vec_x)
-    return launch<true, false>(x, g, dst, N, H, W, Cin, Cout, splits, st);
-  if (vec_g)
-    return launch<false, true>(x, g, dst, N, H, W, Cin, Cout, splits, st);
-  return launch<false, false>(x, g, dst, N, H, W, Cin, Cout, splits, st);
+  const Plan p = plan(Cin, Cout);
+  if (p.smem == 0 || p.tiles_m > 65535) return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g)) & 15)
+    return cudaErrorInvalidValue;  // the 16-byte chunk copies
+  if (static_cast<int64_t>(N) * ((H + p.th - 1) / p.th) *
+          ((W + TW - 1) / TW) >
+      2147483647LL)
+    return cudaErrorInvalidConfiguration;
+#define NARROW_CASE(MTW, BN)                                              \
+  case MTW * 1000 + BN:                                                    \
+    return p.tiles_m > 1 || p.runs                                         \
+               ? launch<MTW, BN, true>(x, g, dst, N, H, W, Cin, Cout,      \
+                                       splits, p, st)                      \
+               : launch<MTW, BN, false>(x, g, dst, N, H, W, Cin, Cout,     \
+                                        splits, p, st);
+  switch (p.mtw * 1000 + p.bn) {
+    NARROW_CASE(1, 16) NARROW_CASE(1, 40) NARROW_CASE(1, 64)
+    NARROW_CASE(1, 72) NARROW_CASE(1, 128) NARROW_CASE(2, 16)
+    NARROW_CASE(2, 40) NARROW_CASE(2, 64) NARROW_CASE(3, 40)
+    NARROW_CASE(3, 72) NARROW_CASE(5, 40)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef NARROW_CASE
 }
 
 }  // namespace narrow
+
 
 // ================================================================= wgmma
 
@@ -712,10 +1088,10 @@ __global__ void __launch_bounds__(THREADS, MT == 3 ? 1 : 2)
               (row_start(img, h, w0) & ~static_cast<int64_t>(7)) + 8 * q;
           if (g0 < 0 || g0 >= numel) continue;
           const int n8 = numel - g0 < 8 ? static_cast<int>(numel - g0) : 8;
-          narrow::cp_async16(rb + i * 16, xs + g0, 2 * n8);
+          sm90::cp_async16(smem_u32(rb + i * 16), xs + g0, 2 * n8);
         }
       }
-      narrow::cp_async_commit();   // one group a tile, empty past the end
+      sm90::cp_async_commit();   // one group a tile, empty past the end
     };
     // Line (pr, c) of the tile, one a thread (two past 128 lines): its 18
     // pixels' channel c from the raw rows, zero outside the image, written
@@ -765,7 +1141,7 @@ __global__ void __launch_bounds__(THREADS, MT == 3 ? 1 : 2)
     uint32_t phase = 0;
     for (int k = 0; k < RAW - 1; ++k) load_raw(t_begin + k);
     for (int t = t_begin; t < t_end; ++t) {
-      narrow::cp_async_wait<RAW - 2>();   // this tile's copies, then all
+      sm90::cp_async_wait<RAW - 2>();   // this tile's copies, then all
       asm volatile("bar.sync 1, %0;\n" ::"n"(PRODUCERS) : "memory");
       sm90::mbar_wait(&empty[s], phase ^ 1);
       if (p == 0) {
@@ -929,8 +1305,6 @@ cudaError_t run(const __nv_bfloat16* x, const __nv_bfloat16* g, float* dst,
 
 }  // namespace pk
 
-
-
 }  // namespace
 
 // 1: the wgmma path takes (Cin, Cout); 2: the packed path (one side
@@ -944,15 +1318,33 @@ extern "C" int conv3x3_wgrad_path(int Cin, int Cout) {
   return 0;
 }
 
-// Pixel tiles of the split-K range (every path walks 8 x 16 tiles): the
-// wrapper picks splits <= this.
+// The narrow path's plan of (Cin, Cout) into out[9]: the side whose taps
+// make M (0 x, 1 g), m64 tiles a consumer warpgroup, N tile, N channel
+// tiles, M channel tiles, pixel rows a tile, runs (1) or whole rows (0),
+// ring stages, shared memory bytes.
+// ops/conv_train.py::wgrad_narrow_plan holds the same rule.
+extern "C" void conv3x3_wgrad_narrow_plan(int Cin, int Cout, int* out) {
+  const narrow::Plan p = narrow::plan(Cin, Cout);
+  out[0] = p.side;
+  out[1] = p.mtw;
+  out[2] = p.bn;
+  out[3] = p.tiles_n;
+  out[4] = p.tiles_m;
+  out[5] = p.th;
+  out[6] = p.runs;
+  out[7] = p.stages;
+  out[8] = p.smem;
+}
+
+// Pixel tiles of 8 x 16 (the wgmma and packed kernels' tile; the
+// narrow kernel's are 8 x 16 or smaller): the wrapper picks splits <= this.
 extern "C" long long conv3x3_wgrad_pixel_tiles(int N, int H, int W) {
   return static_cast<long long>(N) * ((H + wg::TH - 1) / wg::TH) *
          ((W + wg::TW - 1) / wg::TW);
 }
 
-// Output tiles (blocks per split) of the path that takes (Cin, Cout): the
-// wrapper sizes the split-K from this.
+// Output tiles (blocks per split) of the kernel that takes (Cin, Cout):
+// the wrapper sizes the split-K from this.
 extern "C" long long conv3x3_wgrad_out_tiles(int Cin, int Cout) {
   const int path = conv3x3_wgrad_path(Cin, Cout);
   if (path == 2)   // the wide side's 64-channel tiles
@@ -960,8 +1352,8 @@ extern "C" long long conv3x3_wgrad_out_tiles(int Cin, int Cout) {
   if (path == 1)
     return static_cast<long long>((Cin + wg::BM - 1) / wg::BM) *
            ((Cout + wg::BN - 1) / wg::BN);
-  return static_cast<long long>((Cin + narrow::KC - 1) / narrow::KC) *
-         ((Cout + narrow::BN - 1) / narrow::BN);
+  const narrow::Plan p = narrow::plan(Cin, Cout);   // N x M channel tiles
+  return static_cast<long long>(p.tiles_n) * p.tiles_m;
 }
 
 // dW (3,3,Cin,Cout) f32 <- x (N,H,W,Cin) bf16, g (N,H,W,Cout) bf16.

@@ -428,6 +428,24 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   else wgmma_rs_n256<TNSPB>(d, a, desc_b);
 }
 
+// D (64 x N) += A (registers) x B over N as a sum of the sizes wgmma_rs
+// issues (40 = 32 + 8, 72 = 64 + 8, 80 = 64 + 16, ...), each on the same
+// A; B K-major without swizzle at ``base``: 8-row groups of N 256 bytes
+// apart, the two K halves 128 bytes apart (a k16 step of N columns is N x
+// 32 bytes).
+template <int N, int OFF = 0, int TOTAL = N>
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&acc)[TOTAL / 2],
+                                                const uint32_t (&a)[4],
+                                                uint32_t base) {
+  if constexpr (N > 0) {
+    constexpr int P = N >= 128 ? 128 : N >= 64 ? 64 : N >= 32 ? 32
+                    : N >= 24 ? 24 : N >= 16 ? 16 : 8;
+    wgmma_rs<P, 0>(*reinterpret_cast<float(*)[P / 2]>(&acc[OFF / 2]), a,
+                   wgmma_desc(base + OFF * 32, 128, 256, 0));
+    wgmma_rs_kmajor<N - P, OFF + P, TOTAL>(acc, a, base);
+  }
+}
+
 // wgmma.m64nNk8 tf32 -> f32 with A in registers and B from shared memory
 // by descriptor, K-major (tf32 has no transpose bits). A is the four
 // 32-bit fragments of mma.m16n8k8.tf32 per warp (warp w holds rows 16w..

@@ -50,9 +50,12 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_camvid_tpu_torch.ops import cuda_build
-from pytorch_camvid_tpu_torch.ops.fused_conv import (ROUTES, aligned16,
+from pytorch_camvid_tpu_torch.ops.fused_conv import (ROUTES,
+                                                     _holds_last_chunk,
+                                                     aligned16,
                                                      conv3x3_bn_relu,
-                                                     f32_library, route)
+                                                     f32_library, route,
+                                                     whole_chunks)
 from pytorch_camvid_tpu_torch.ops.library import eager_cache
 
 WGRAD_PATHS = ("narrow", "wgmma", "packed")   # by the .cu's path code
@@ -60,16 +63,32 @@ WGRAD_ROUTES = WGRAD_PATHS + ("f32", "f32_narrow",
                               "f32_packed")   # the counters' keys
 
 WGRAD_SOURCE = cuda_build.CSRC / "conv3x3_wgrad.cu"
-# split-K target in blocks per SM: the narrow kernel's; the wgmma
-# kernel's (one resident per SM: two whole waves) and the packed kernel's
-# (two resident per SM: one whole wave)
-_BLOCKS_PER_SM = 8
+# split-K target in blocks per SM: the wgmma kernel's (one resident per
+# SM: two whole waves) and the packed kernel's (two resident per SM: one
+# whole wave); the narrow kernel keeps one block resident per SM and fills
+# one whole wave of them
 _WGMMA_BLOCKS_PER_SM = 2
 # the packed dW path (csrc/conv3x3_wgrad.cu, namespace pk): its narrow side
 # packs 9 taps x channels into M <= PACKED_M_MAX (the .cu's pk::M_MAX):
 # three m64 tiles, Cn <= 21
 PACKED_M_MAX = 192
 SM_SMEM, BLOCK_SMEM = 233472, 232448   # shared bytes of an SM, of a block
+# the narrow dW path (namespace narrow): M packs 9 taps x the channels of
+# the side with fewer (in tiles of at most NARROW_MAX_CM: nine m64 tiles),
+# split over two consumer warpgroups of NARROW_MTWS m64 tiles each; N is
+# the other side's channels in tiles of NARROW_INSTANCES' sizes for that
+# count (the .cu's instances; 40 = 32 + 8 wgmma sizes); pixel tiles of
+# NARROW_THS rows x 16 columns, NARROW_RAW raw buffers, up to
+# NARROW_MAX_STAGES ring stages, at most NARROW_ACC_MAX accumulators a
+# consumer thread
+NARROW_MAX_CM = 64
+NARROW_MTWS = (1, 2, 3, 5)
+NARROW_INSTANCES = ((1, 16), (1, 40), (1, 64), (1, 72), (1, 128), (2, 16),
+                    (2, 40), (2, 64), (3, 40), (3, 72), (5, 40))
+NARROW_THS = (8, 4, 2)
+NARROW_RAW = 3
+NARROW_MAX_STAGES = 3
+NARROW_ACC_MAX = 128
 # the f32 dW (csrc/conv3x3_f32.cu). Route "f32" (namespace wgf): pixel
 # tiles of F32_TH x F32_TW, blocks of one kernel row x F32_BM input
 # channels x an N tile of Cout (``wgrad_f32_tile_n``), one resident per
@@ -327,6 +346,73 @@ def wgrad_packed_plan(cin: int, cout: int) -> dict:
             "stages": stages, "raw_bytes": raw, "bytes": total(stages)}
 
 
+def wgrad_narrow_plan(cin: int, cout: int) -> dict:
+    """The narrow dW kernel's plan at (Cin, Cout) (the .cu's
+    ``narrow::plan``): the side whose 9 x channels make M (``side`` "x"
+    where Cin <= Cout, the stem-like case, dW[t][c][n]; "g" otherwise, the
+    head-like case, whose D[(t, c)][n] is dW[8 - t][n][c]), its ``cm``
+    channels in ``tiles_m`` tiles of ``cmt`` (at most ``NARROW_MAX_CM``),
+    9 x cmt rows in ``mt`` m64 tiles, ``mtw`` of them a consumer
+    warpgroup (the least of ``NARROW_MTWS`` that holds half, rounded up);
+    N the other side's ``cn`` channels in ``tiles_n`` tiles of ``bn`` (the
+    least size of that ``mtw``'s instances holding ceil(cn / tiles_n),
+    from the fewest tiles the widest size allows); pixel tiles of ``th``
+    rows (the first of ``NARROW_THS`` where two ring stages fit). Shared
+    memory: ``stages`` ring stages (at most ``NARROW_MAX_STAGES``) of
+    ``stage_bytes``, each the M tile's three column-shifted channel-major
+    copies and a zero plane (3 cmt + 1 planes of ``plane`` = (th + 2) rows
+    x 32 B + 16 B) and B, th k16 steps of bn x 32 B; ``NARROW_RAW`` raw
+    buffers of ``raw_bytes``, the M side's th + 2 rows of 18 pixels
+    (``raw_m``) and the N side's th rows of 16 (``raw_n``) as the 16-byte
+    chunks that hold them: whole rows of all the side's channels (each at
+    a stride of its length + 14 to 21, congruent to W x channels mod 8)
+    or, with ``runs`` where those do not fit at any N tile or pixel rows,
+    each pixel's run of the tile's channels (at a stride of its length +
+    14 to 21, congruent to the channels mod 8; a row at its runs' span +
+    14 to 21); 128 B of mbarriers: ``bytes``, the figures the source's
+    ``static_assert``s hold. Every shape has a plan."""
+    up = lambda v, m: -(-v // m) * m   # noqa: E731
+    side = "x" if cin <= cout else "g"
+    cm, cn = (cin, cout) if side == "x" else (cout, cin)
+    tiles_m = -(-cm // NARROW_MAX_CM)
+    cmt = -(-cm // tiles_m)
+    mt = -(-9 * cmt // 64)
+    mtw = min(m for m in NARROW_MTWS if m >= -(-mt // 2))
+    bns = [bn for m, bn in NARROW_INSTANCES if m == mtw]
+
+    def geometry(bn, th, runs):
+        plane = 32 * (th + 2) + 16
+        planes = up((3 * cmt + 1) * plane, 128)
+        stage = planes + th * bn * 32
+        row_m = 18 * cmt + 378 if runs else 18 * cm + 21
+        row_n = 16 * bn + 336 if runs else 16 * cn + 21
+        raw_m = up(2 * ((th + 2) * row_m + 16), 128)
+        raw_n = up(2 * (th * row_n + 16), 128)
+        raw = raw_m + raw_n
+        stages = min(NARROW_MAX_STAGES,
+                     (BLOCK_SMEM - NARROW_RAW * raw - 128) // stage)
+        return {"side": side, "cm": cm, "cn": cn, "cmt": cmt,
+                "tiles_m": tiles_m, "mt": mt, "mtw": mtw, "bn": bn,
+                "tiles_n": -(-cn // bn), "th": th, "runs": runs,
+                "stages": stages, "plane": plane, "planes_bytes": planes,
+                "stage_bytes": stage, "raw_m": raw_m, "raw_n": raw_n,
+                "raw_bytes": raw,
+                "bytes": stages * stage + NARROW_RAW * raw + 128}
+
+    for runs in (False, True):
+        tn = -(-cn // bns[-1])
+        while True:
+            bn = min(b for b in bns if b >= -(-cn // tn))
+            for th in NARROW_THS:
+                p = geometry(bn, th, runs)
+                if p["stages"] >= 2:
+                    return p
+            if bn == bns[0]:
+                break
+            tn += 1
+    raise AssertionError(f"no narrow dW plan at {cin}->{cout}")
+
+
 def _count(fn, path: str) -> None:
     fn.launches += 1
     fn.path_launches[path] += 1
@@ -360,7 +446,12 @@ def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 @functools.cache
 def _wgrad_library() -> ctypes.CDLL:
-    lib = cuda_build.load(WGRAD_SOURCE)
+    return bind_wgrad(cuda_build.load(WGRAD_SOURCE))
+
+
+def bind_wgrad(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C entry points of a library built from ``conv3x3_wgrad.cu`` (or
+    an edit of it: chip_faults.py, dw_variants.py), typed."""
     lib.conv3x3_wgrad_bf16.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.conv3x3_wgrad_bf16.restype = ctypes.c_int
@@ -370,6 +461,9 @@ def _wgrad_library() -> ctypes.CDLL:
     lib.conv3x3_wgrad_out_tiles.restype = ctypes.c_longlong
     lib.conv3x3_wgrad_path.argtypes = [ctypes.c_int] * 2
     lib.conv3x3_wgrad_path.restype = ctypes.c_int
+    lib.conv3x3_wgrad_narrow_plan.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    lib.conv3x3_wgrad_narrow_plan.restype = None
     return lib
 
 
@@ -379,19 +473,38 @@ def wgrad_kernel_path(cin: int, cout: int) -> str:
     return WGRAD_PATHS[_wgrad_library().conv3x3_wgrad_path(cin, cout)]
 
 
+def wgrad_kernel_narrow_plan(cin: int, cout: int) -> tuple:
+    """(M side: 0 x, 1 g; m64 tiles a consumer warpgroup, N tile, N channel
+    tiles, M channel tiles, pixel rows a tile, runs, ring stages, shared
+    memory bytes) of the built library's narrow dW at (Cin, Cout)
+    (``wgrad_narrow_plan``'s rule as the .cu holds it; chip_smoke checks
+    that the two agree)."""
+    out = (ctypes.c_int * 9)()
+    _wgrad_library().conv3x3_wgrad_narrow_plan(cin, cout, out)
+    return tuple(out)
+
+
+def narrow_plan_key(p: dict) -> tuple:
+    """``wgrad_narrow_plan``'s figures in ``wgrad_kernel_narrow_plan``'s
+    order."""
+    return (int(p["side"] == "g"), p["mtw"], p["bn"], p["tiles_n"],
+            p["tiles_m"], p["th"], int(p["runs"]), p["stages"], p["bytes"])
+
+
 def wgrad_splits(pixel_tiles: int, out_tiles: int, sms: int,
                  path: str = "narrow") -> int:
     """Split-K factor over the kernel's output tiles, at most one split per
-    pixel tile (both counts come from the kernel's library). Narrow path:
-    at least ``_BLOCKS_PER_SM`` blocks per SM. wgmma path (one block
-    resident per SM) and packed path (two): at most
+    pixel tile (both counts come from the kernel's library). ``path``:
+    "narrow" (one block resident per SM): one whole wave, ``sms`` //
+    out_tiles splits; "wgmma" (one block resident per SM) and "packed"
+    (two): at most
     ``_WGMMA_BLOCKS_PER_SM`` per SM, rounded down, so power-of-two tile
     counts fill whole waves (at 16 output tiles 17 splits would leave a
     third wave nearly empty)."""
     if path in ("wgmma", "packed"):
         want = _WGMMA_BLOCKS_PER_SM * sms // out_tiles
     else:
-        want = -(-_BLOCKS_PER_SM * sms // out_tiles)
+        want = sms // out_tiles
     return max(1, min(want, pixel_tiles, 65535))
 
 
@@ -415,10 +528,14 @@ def _check_wgrad(x: torch.Tensor, g: torch.Tensor) -> None:
             raise ValueError(f"unsupported shape for the f32 dW: x "
                              f"{tuple(x.shape)}, g {tuple(g.shape)}")
         return   # aligned16 gave TMA its 16-byte bases (narrow: any)
-    if (wgrad_path(x.shape[3], g.shape[3]) != "narrow"
-            and (x.data_ptr() % 16 or g.data_ptr() % 16)):
+    if x.data_ptr() % 16 or g.data_ptr() % 16:
         raise ValueError("x and g must be 16-byte aligned (TMA; the packed "
-                         "path's 16-byte loads of the narrow tensor)")
+                         "and narrow paths' 16-byte loads)")
+    if (wgrad_path(x.shape[3], g.shape[3]) == "narrow"
+            and not (_holds_last_chunk(x) and _holds_last_chunk(g))):
+        raise ValueError("the narrow dW copies x's and g's rows as whole "
+                         "16-byte chunks: their storage must hold the last "
+                         "16-byte chunk (fused_conv.whole_chunks)")
 
 
 def _wgrad_launch(x: torch.Tensor, g: torch.Tensor,
@@ -489,8 +606,10 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         # an empty map: the sum over no pixel, no work and no launch
         return torch.zeros((3, 3, x.shape[3], g.shape[3]), device=x.device)
     x, g = aligned16(x), aligned16(g)
-    _check_wgrad(x, g)
     path = wgrad_route(x.dtype, x.shape[3], g.shape[3])
+    if path == "narrow" and x.is_contiguous() and g.is_contiguous():
+        x, g = whole_chunks(x), whole_chunks(g)
+    _check_wgrad(x, g)
     out = (_wgrad_f32_launch(x, g) if x.dtype == torch.float32
            else _wgrad_launch(x, g, path))
     _count(conv3x3_wgrad, path)

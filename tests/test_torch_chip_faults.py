@@ -395,8 +395,9 @@ def test_narrow_fault_libraries_take_the_wrappers_place(monkeypatch):
         assert fused_conv._library() == "lib flip_taps_not_reversed"
     assert fused_conv._library is sound
     assert sorted(builds) == sorted(chip_faults.NARROW_FAULTS)
+    # K4's three narrow faults and the narrow dW's three
     assert ("narrow" in chip_faults.PATHS
-            and sum(c[0] == "narrow" for c in chip_faults.fault_cases()) == 3)
+            and sum(c[0] == "narrow" for c in chip_faults.fault_cases()) == 6)
 
 
 @pytest.mark.parametrize("cin,cout", [(3, 64), (64, 64), (128, 24)])

@@ -111,11 +111,12 @@ def test_wgrad_and_dgrad_plain_versions_match_autograd():
 
 def test_wgrad_splits_and_checks():
     """The split-K factor and the checks the CUDA path runs first."""
-    # stem at batch 24, 360x480: 27x64 outputs in one tile -> 8*132 splits
-    assert conv_train.wgrad_splits(24 * 45 * 30, 1, 132) == 1056
-    # 1024x1024 at 22x30: 32x16 output tiles -> 3 splits; never more
+    # stem at batch 24, 360x480, on the narrow path (one block an SM): one
+    # output tile -> one wave of 132 splits
+    assert conv_train.wgrad_splits(24 * 45 * 30, 1, 132) == 132
+    # 512 output tiles at 22x30 -> past a wave: 1 split; never more
     # splits than pixel tiles
-    assert conv_train.wgrad_splits(24 * 3 * 2, 512, 132) == 3
+    assert conv_train.wgrad_splits(24 * 3 * 2, 512, 132) == 1
     assert conv_train.wgrad_splits(2, 1, 132) == 2
     xb = torch.zeros(1, 4, 5, 8, dtype=torch.bfloat16)
     gb = torch.zeros(1, 4, 5, 12, dtype=torch.bfloat16)
