@@ -23,7 +23,10 @@ port; ``host_loader_checks``, ``voc_checks``, ``lr_finder_checks``:
 head on the wgmma head tile and the packed paths, the LR finder's
 sweeps), phase 14's
 per-shape checks of the f32 kernels (``f32_kernel_checks``: the error
-rule against float64 and the dW's determinism), phase 15's remat
+rule against float64, the dW's determinism and the padded copy against
+its plain version; among its faults the copy's channels past C as 1s, the
+split weights' padding first under flip and the dW cut back to its real
+channels one channel late), phase 15's remat
 check on a full-width UNet at batch 24 (``remat_parity``: the remat step
 bit for bit against the step without) and phase 16's int8 checks
 (``int8_kernel_checks`` and ``int8_pool_checks`` without their timings:
@@ -218,8 +221,9 @@ def f32_variant(name: str):
     """The f32 kernels built from ``f32_variants.VARIANTS[name]`` (a fault:
     single-pass TF32, the lo*hi product dropped, a step sum started on the
     stale scratch, the dW's splits added by atomics, the packed dW's planes
-    with the stem's x channels 0 and 2 swapped) in place of the source,
-    for both callers of the library."""
+    with the stem's x channels 0 and 2 swapped, the padded copy's channels
+    past C as 1s, the split weights' padding first under flip) in place
+    of the source, for both callers of the library."""
     if not _F32_LIBS:
         libs, logs = f32_variants.build(f32_variants.FAULTS)
         for n, ok, log in logs:
@@ -232,19 +236,38 @@ def f32_variant(name: str):
         yield
 
 
-def f32_dx_tap_dropped(x, w, a, b, relu, flip):
+def f32_dx_tap_dropped(x, w, a, b, relu, flip, xp=None):
     """The f32 dx on the packed route (``flip``, Cin % 4 != 0: VOC's 21 ->
     64) launched without its first tap (w[0, 0] zero in a copy); every
     other launch as it was."""
     if flip and fused_conv.f32_route(x.shape[3], w.shape[2]) == "f32_packed":
         w = w.clone()
         w[0, 0] = 0
-    return _f32_launch(x, w, a, b, relu, flip)
+    return _f32_launch(x, w, a, b, relu, flip, xp)
 
 
-def f32_out_through_bf16(x, w, a, b, relu, flip):
+def f32_out_through_bf16(x, w, a, b, relu, flip, xp=None):
     """The f32 forward's output rounded through bf16."""
-    return _f32_launch(x, w, a, b, relu, flip).bfloat16().float()
+    return _f32_launch(x, w, a, b, relu, flip, xp).bfloat16().float()
+
+
+_wgrad_f32_launch = conv_train._wgrad_f32_launch
+
+
+def f32_dw_padding_dropped_one_off(x, g, xp=None, gp=None, route=None):
+    """The f32 dW where a side is padded, computed over the padded copies'
+    channels (4 ceil(C / 4) of them, the copies taken as the tensors) and
+    cut back to the real channels one channel late: [1, C + 1) of each
+    padded side in place of [0, C). Other dW as they were."""
+    cin, cout = x.shape[3], g.shape[3]
+    pad_x, pad_g = conv_train.wgrad_f32_pads(cin, cout, route)
+    if not (pad_x or pad_g):
+        return _wgrad_f32_launch(x, g, xp, gp, route)
+    xs = fused_conv.padded_input(x, xp) if pad_x else x
+    gs = fused_conv.padded_input(g, gp) if pad_g else g
+    dw = _wgrad_f32_launch(xs, gs)
+    ox, og = int(pad_x), int(pad_g)
+    return dw[:, :, ox:ox + cin, og:og + cout].contiguous()
 
 
 _pair_launch = fused_conv_pair._launch
@@ -905,6 +928,15 @@ def fault_cases() -> list:
         ("f32", "a step sum's first product added onto the stale scratch "
          "(scale-d 1; the wgmma and packed kernels)",
          lambda: f32_variant("stale_scratch")),
+        ("f32", "the padded copy's channels past C left as 1s",
+         lambda: f32_variant("pad_ones")),
+        ("f32", "the split weights' zero rows past Cin put first under "
+         "flip (the real rows after them)",
+         lambda: f32_variant("flip_pad_first")),
+        ("f32", "the f32 dW's channels taken one off where it drops the "
+         "padding",
+         lambda: planted(conv_train, "_wgrad_f32_launch",
+                         f32_dw_padding_dropped_one_off)),
         ("remat", "the recompute updating the BN running stats again",
          lambda: planted(common, "remat_contexts",
                          recompute_updates_bn_again)),

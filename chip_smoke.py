@@ -20,9 +20,11 @@ Phases (each prints its lines; any failure exits non-zero):
    each Cin from -1 to 149, that the
    f32 dW library's tile counts are
    its split rule's (``conv_train.wgrad_f32_*``), that the f32 library
-   picks the wrappers' f32 routes ("f32", wgmma; "f32_packed", wgmma with
-   9 taps x the narrow side's channels packed; or "f32_narrow") and
-   forward tile N, that K5 f32's shared-memory plan at every Cout is
+   picks the wrappers' f32 routes ("f32", wgmma over TMA, a side whose
+   channels are no multiple of 4 as its padded copy; "f32_packed", wgmma
+   with 9 taps x the narrow side's channels packed) and the packed dW's
+   narrow side at every (Cin, Cout) up to 200, and their forward tile N,
+   that K5 f32's shared-memory plan at every Cout is
    ``fused_conv_pair.tile_plan``'s, that the K4 narrow path's and the
    narrow dW's plans are ``fused_conv.narrow_fwd_plan``'s and
    ``conv_train.wgrad_narrow_plan``'s, and that a step's launches per path
@@ -41,7 +43,10 @@ Phases (each prints its lines; any failure exits non-zero):
    edge shapes' forward and dx and ``NARROW_NO_TILE`` (a plan with no
    tile: the first design, the .cu's ``mma_sync``, takes the forward) at
    2x45x61, aligned and on views x[1:], each call's kernel as the C entry
-   reports it. Then K1's narrow dW (``csrc/conv3x3_wgrad.cu`` namespace
+   reports it; ``mma_sync_timings``: that first design at
+   ``NARROW_NO_TILE``'s shapes (350->12; SegNet 43/64's 344->172 at b8,
+   45x60) against plain, its device-busy ms beside its bound and cuDNN
+   bf16's. Then K1's narrow dW (``csrc/conv3x3_wgrad.cu`` namespace
    ``narrow``): ``narrow_wgrad_checks`` at 2x45x61, aligned and on views,
    at UNet 9/16's narrow dW shapes and ``WGRAD_NARROW_EXTRA`` (64->150,
    64->28, 3->12, 350->12, 72->100 and 100->72 in two M channel tiles,
@@ -200,29 +205,31 @@ Phases (each prints its lines; any failure exits non-zero):
    is float32, as the JAX CLIs').
 14. f32 on the card, the JAX CLIs' default numerics: (1) K4 and K1's
    forward, dx and dW at float32 (``csrc/conv3x3_f32.cu``, split-TF32
-   products: the wgmma route "f32"; the packed route "f32_packed" for the
-   stem's forward and dW and VOC's 21-channel dx and dW; the mma.sync
-   route "f32_narrow" for what neither takes, no model's) at every
-   distinct block shape of both models at b2, at ``F32_EDGE`` (64->21,
-   ragged 45x61 tiles, the stem, the head, and 23->64 and 3->21 on
-   "f32_narrow"), on a misaligned view ``x[1:]`` and (K4) on an input
-   past 2**31 elements: err(kernel) <= max(4 err(plain f32, TF32 off),
-   2e-6 max|f64|), err the max distance to the same function in float64
-   on the card; the f32 dW bit-equal on two launches; then their times at
+   products: the wgmma route "f32", a side whose channels are no multiple
+   of 4 as its padded copy; the packed route "f32_packed" for the stem's
+   forward and dW, VOC's 21-channel dx and dW and the dW with both sides
+   narrow) at every distinct block shape of both models at b2, at
+   ``F32_EDGE`` (64->21, ragged 45x61 tiles, the stem, the head, the 150-
+   and 23-class heads, 150->64, 23->64, 3->21 and UNet 5/64's and 3/32's
+   odd-width pairs), on misaligned views ``x[1:]`` (``F32_VIEWS``: the
+   stem, 23->150 on padded copies) and (K4) on an input past 2**31
+   elements: err(kernel) <= max(4 err(plain f32, TF32 off), 2e-6
+   max|f64|), err the max distance to the same function in float64 on the
+   card; the f32 dW bit-equal on two launches; the padded copy against
+   its plain version bit for bit (``pad_checks``); then their times at
    b10 beside the plain f32 version, the library call with TF32 off and
-   on, the bound (the FLOPs at a third of the TF32 peak, or the f32
-   bytes) and, for a piece on "f32_packed", the narrow kernel's time on
-   the same inputs, summed per model, with each piece's route; VOC's
-   64->21 head timed too (``F32_EXTRA_TIMED``). (2) The train CLI with no
+   on and the bound (the FLOPs at a third of the TF32 peak, or the f32
+   bytes), summed per model, with each piece's route; VOC's 64->21 head
+   and a 150-class head timed too (``F32_EXTRA_TIMED``). (2) The train CLI with no
    -dtype (float32), UNet and SegNet, b10, one epoch of 4 steps on phase
    12's caches: every K1 and K2 call against plain on its inputs
    (``F32_SHADOW_TOL``), the first step also on the plain f32 path from
    the same state and draws (``F32_TRAIN_*``), launches per step all on
-   the f32 kernels (23/22/23, 26/25/26, of them 1/0/1 on "f32_packed",
-   none on "f32_narrow"; K2 5/10/5); run B stopped after 2 batches and
+   the f32 kernels (23/22/23, 26/25/26, of them 1/0/1 on "f32_packed";
+   K2 5/10/5); run B stopped after 2 batches and
    resumed with ``-resume``: every leaf equal to run A's; VOC's train and
    eval CLIs at f32 (``voc_checks`` at float32: the head's dx and dW on
-   "f32_packed", none on "f32_narrow"). (3) The eval
+   "f32_packed"). (3) The eval
    CLI at its default on A's checkpoint: the loop's mIoU; K4 at f32 23
    (UNet) or 26 (SegNet, with K3's pool and unpool 5 each) times a batch.
    (4) ``predict.main`` at its default (f32) on a val image with UNet's
@@ -230,8 +237,14 @@ Phases (each prints its lines; any failure exits non-zero):
    its map against the plain f32 path's on ``PREDICT_AGREE`` of the
    pixels. (5) The LR finder at its default, UNet, 4 iterations: finite
    losses, K1's launches at f32. (6) UNet's b10 f32 train step, kernel
-   against plain (TF32 off): ms, img/s, peak memory.
-   ``chip_faults.py`` plants six faults under (1).
+   against plain (TF32 off): ms, img/s, peak memory. (7)
+   ``f32_padded_steps``: the full-width UNet with a 150-class head and
+   UNet at width 5/64, one b10 f32 step each against the plain f32 path
+   from the same state (``F32_TRAIN_*``), every K1 call against plain,
+   launches per route and padded copies by the rules (the head's dx and
+   dW on "f32" over one copy of g); the 150-class step's ms; the padded
+   copy's time at its cotangent (``pad_timing``).
+   ``chip_faults.py`` plants ten faults under (1).
 15. Stage rematerialization and the data-side CLIs: (1) for UNet b24 and
    SegNet b32 (bf16, 360x480, He-scaled, the bench step) one step without
    remat and one with (``make_train_step(remat=True)``: each stage's conv
@@ -538,10 +551,13 @@ HEAD_PATHS = {12: {"fwd": "wgmma", "dgrad": "packed", "wgrad": "packed"},
 # pieces by its class count: 12 all three on "f32" (the forward's N tile
 # 16, the dx's Cin 12, the dW's N tile 16), 21 its forward on "f32" (N
 # tile 24) and its dx (Cin 21, K 189 of 192) and dW (Cout 21) on
-# "f32_packed"; no model path takes "f32_narrow"
+# "f32_packed"; 23 and 150 (9 x classes > 192, no multiple of 4) all three
+# on "f32", the dx and dW over one padded copy of g a step
 F32_HEAD_ROUTES = {12: {"fwd": "f32", "dgrad": "f32", "wgrad": "f32"},
                    21: {"fwd": "f32", "dgrad": "f32_packed",
-                        "wgrad": "f32_packed"}}
+                        "wgrad": "f32_packed"},
+                   23: {"fwd": "f32", "dgrad": "f32", "wgrad": "f32"},
+                   150: {"fwd": "f32", "dgrad": "f32", "wgrad": "f32"}}
 
 
 def path_table(net: str, classes: int = 12,
@@ -1138,10 +1154,65 @@ def narrow_wgrad_checks(gen: torch.Generator) -> dict:
 # the design's aim for the seven forward launches' sum at b8 (ms): a
 # quarter of the sum of their bounds
 NARROW_AIM_MS = 1.6
-# a narrow shape whose plan holds no tile (a tile's patch rows and resident
+# narrow shapes whose plan holds no tile (a tile's patch rows and resident
 # weights pass a block's shared memory past Cin ~330): the first design,
-# the .cu's mma_sync, takes its forward; its dx 12->350 has a tile
-NARROW_NO_TILE = ((2, 45, 61, 350, 12),)
+# the .cu's mma_sync, takes their forwards; their dx (12->350, 172->344)
+# have tiles. 350->12 no model's; 344->172 SegNet's at width 43/64 (and
+# UNet's, at k/64 for odd k from 43 to 63 the 8k->4k pair), b8 at the
+# 45x60 stage where that model has it: checked at 3x45x61 and timed here
+# (``mma_sync_timings``)
+NARROW_NO_TILE = ((2, 45, 61, 350, 12), (BATCH, 45, 60, 344, 172))
+
+
+def mma_sync_timings(gen: torch.Generator) -> dict:
+    """K4's first (``mma_sync``) design at ``NARROW_NO_TILE``'s shapes, in
+    bf16: the kernel against plain (``KERNEL_TOL``), the C entry's report
+    that mma_sync took the call, its device-busy ms on inputs spanning
+    ``COLD_SPAN`` beside the bound and cuDNN's bf16 conv on channels-last
+    tensors. Returns {"NxHxW cin->cout": {...}}."""
+    dev = torch.device("cuda")
+    out = {}
+    for n, h, w, cin, cout in NARROW_NO_TILE:
+        check(fused_conv.conv_path(cin, cout) == "narrow"
+              and fused_conv.narrow_fwd_plan(cin, cout) is None,
+              f"{cin}->{cout} has no narrow tile")
+
+        def make():
+            x = torch.randn(n, h, w, cin, generator=gen, device=dev).to(
+                torch.bfloat16)
+            wt = (torch.randn(3, 3, cin, cout, generator=gen, device=dev)
+                  * (2.0 / (9 * cin)) ** 0.5).to(torch.bfloat16)
+            return x, wt
+        a = torch.rand(cout, generator=gen, device=dev) + 0.5
+        b = torch.randn(cout, generator=gen, device=dev) * 0.1
+        ins = cold_inputs(make, 2 * n * h * w * cin)
+        x, wt = ins[0]
+        reset_counts()
+        got = fused_conv.conv3x3_bn_relu(x, wt, a, b)
+        check(fused_conv.conv3x3_bn_relu.mma_sync_launches == 1,
+              f"mma_sync took {cin}->{cout}")
+        err, scale = _rel_err(got, fused_conv.conv3x3_bn_relu_plain(
+            x, wt, a, b))
+        check(err <= KERNEL_TOL * scale, f"mma_sync vs plain at "
+                                         f"{(n, h, w, cin, cout)}")
+        bound, by = conv_bound(n, h, w, cin, cout)
+        t = {"max_abs_err": err / scale, "bound_ms": bound, "bound_by": by,
+             "ms": device_ms(rotated([functools.partial(
+                 fused_conv.conv3x3_bn_relu, *i, a, b) for i in ins]),
+                 bound)}
+        t["library_ms"] = library_device_ms(rotated([functools.partial(
+            F.conv2d, i[0].permute(0, 3, 1, 2), i[1].permute(
+                3, 2, 0, 1).contiguous(memory_format=torch.channels_last),
+            padding=1) for i in ins]))
+        print(f"mma_sync (K4's first design) b{n} {h}x{w} {cin}->{cout}: "
+              f"err {err / scale:.3g} (tol {KERNEL_TOL}); device-busy "
+              f"{t['ms']:.4f} ms, bound {bound:.4f} by {by} "
+              f"({bound / t['ms']:.2f} of it), cuDNN bf16 "
+              f"{t['library_ms']:.4f} on {bench.card()}", flush=True)
+        out[f"{n}x{h}x{w} {cin}->{cout}"] = t
+        del ins, x, wt, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def odd_width_train(cpu_gen: torch.Generator) -> dict:
@@ -1623,13 +1694,16 @@ def _worst(errs: dict):
     return name, errs[name], median
 
 
-def one_step(model, batch, plain: bool, choices=None) -> dict:
-    """One bench step from ``model``'s state on a copy: loss, launches,
-    per-leaf gradients and BN running stats after it; on the kernel path
-    also the step's pool choices and its kernels' errors on the step's data
-    (``shadowed_kernels``). ``choices`` (the plain path): replayed."""
+def one_step(model, batch, plain: bool, choices=None,
+             compute_dtype: torch.dtype = torch.bfloat16) -> dict:
+    """One bench step (at ``compute_dtype``) from ``model``'s state on a
+    copy: loss, launches, per-leaf gradients and BN running stats after
+    it; on the kernel path also the step's pool choices, its kernels'
+    errors on the step's data (``shadowed_kernels``) and the padded copies
+    it made. ``choices`` (the plain path): replayed."""
     m = copy.deepcopy(model)
-    opt, step = bench.make_bench_step(TRAIN_STEPS + 10, plain=plain)
+    opt, step = bench.make_bench_step(TRAIN_STEPS + 10, plain=plain,
+                                      compute_dtype=compute_dtype)
     state = TrainState.create(m, opt, seed=SEED)
     shadow, made = {}, choices
     torch.cuda.synchronize()
@@ -1646,7 +1720,7 @@ def one_step(model, batch, plain: bool, choices=None) -> dict:
     paths = conv_train.path_launches()
     # AdamW's first moment after one update from zero is (1 - beta1) g
     out = {"loss": float(met["loss"]), "counts": counts, "paths": paths,
-           "shadow": shadow,
+           "pad_copies": fused_conv.pad_channels.launches, "shadow": shadow,
            "choices": made,
            "grads": {k: v / (1.0 - met["beta1"])
                      for k, v in state.opt_state["m"].items()},
@@ -3260,19 +3334,38 @@ F32_SPLIT_RATE = bench.H100_TF32_PEAK / 3
 # edge shapes (N, H, W, Cin, Cout) beside the models' blocks: VOC's 64->21
 # head (its forward on the wgmma route's N tile 24; its dx, Cin 21, and
 # dW, Cout 21, on the packed route: raw chunks of 84-byte pixel rows),
-# ragged 45x61 tiles at 64->64, the stem (packed) and the head; 23->64
-# (9 x 23 > 192: forward and dW on "f32_narrow") and 3->21 (both sides
-# narrow: dW on "f32_narrow"; its forward and dx on the packed route at
-# Cout 21 and 3, with direct stores); a batch view x[1:] of the stem
-# whose data starts off a 16-byte boundary; a forward input past 2**31
-# elements, checked on its last image
+# ragged 45x61 tiles at 64->64, the stem (packed) and the head; the
+# shapes whose channels TMA cannot describe and the packed route does
+# not take, on route "f32" over padded copies: a 150-class head (its dx
+# at Cin 150, its dW at Cout 150), 150->64 (the forward's x and the dW's
+# padded), 23->64 (9 x 23 > 192) and a 23-class head; the dW with both
+# sides narrow on the packed route, the side with fewer channels as it
+# lies and the other padded: 3->21 (its forward and dx on the packed
+# route at Cout 21 and 3, with direct stores) and UNet 5/64's and 3/32's
+# odd-width pairs; batch views x[1:] whose data starts off a 16-byte
+# boundary: the stem, and 23->150 (every piece on a padded copy of a
+# misaligned view); a forward input past 2**31 elements, checked on its
+# last image
 F32_EDGE = ((2, 360, 480, 64, 21), (2, 45, 61, 64, 64), (2, 45, 61, 3, 64),
-            (2, 45, 61, 64, 12), (2, 45, 61, 23, 64), (2, 45, 61, 3, 21))
-F32_VIEW = (3, 45, 61, 3, 64)
+            (2, 45, 61, 64, 12), (2, 360, 480, 64, 150),
+            (2, 45, 61, 150, 64), (2, 45, 61, 23, 64), (2, 45, 61, 64, 23),
+            (2, 45, 61, 3, 21), (2, 45, 61, 3, 5), (2, 45, 61, 5, 5),
+            (2, 45, 61, 5, 10), (2, 45, 61, 10, 10), (2, 45, 61, 10, 5),
+            (2, 45, 61, 3, 6), (2, 45, 61, 6, 6))
+F32_VIEWS = ((3, 45, 61, 3, 64), (3, 45, 61, 23, 150))
 # timed beside the blocks, in no model sum: VOC's 64->21 head at 360x480
 # (its forward on the wgmma route with N tile 24, its dx and dW on the
-# packed one)
-F32_EXTRA_TIMED = ((360, 480, 64, 21),)
+# packed one) and a 150-class head (its dx and dW on route "f32" over one
+# padded copy of g each, the copy's time in theirs)
+F32_EXTRA_TIMED = ((360, 480, 64, 21), (360, 480, 64, 150))
+# the padded copy (``fused_conv.pad_channels``) against its plain version
+# (bit for bit) at (N, H, W, C): a 150-class cotangent, 23, the odd widths
+# 5 and 6, and a batch view x[1:] of 150 channels (off a 16-byte
+# boundary); timed at the 150-class head's b10 cotangent
+F32_PAD_CHECKS = ((2, 45, 61, 150), (2, 45, 61, 23), (2, 45, 61, 5),
+                  (2, 45, 61, 6))
+F32_PAD_VIEW = (3, 45, 61, 150)
+F32_PAD_TIMED = (10, 360, 480, 150)
 F32_BIG = (100, 360, 480, 128, 64)
 # the f32 training CLI runs against the plain f32 path (TF32 off): each
 # kernel call on the step's data (max|kernel - plain| / max|plain|; the
@@ -3376,11 +3469,31 @@ def f32_shape_checks(label: str, x, wt, g, a, b) -> dict:
     return errs
 
 
+def pad_checks(gen: torch.Generator) -> None:
+    """The padded copy against its plain version, bit for bit, at
+    ``F32_PAD_CHECKS`` and on the misaligned view ``F32_PAD_VIEW[1:]``; 1s
+    past C, or a channel out of place, fail it."""
+    line = []
+    for n, h, w, c in F32_PAD_CHECKS + (F32_PAD_VIEW,):
+        t = torch.randn(n, h, w, c, generator=gen, device="cuda")
+        if (n, h, w, c) == F32_PAD_VIEW:
+            t = t[1:]
+            check(t.data_ptr() % 16 != 0, "the padded copy's view x[1:] is "
+                                          "misaligned")
+        got = fused_conv.pad_channels(t)
+        same = torch.equal(got, fused_conv.pad_channels_plain(t))
+        line.append(f"{tuple(t.shape)} {'equal' if same else 'UNEQUAL'}")
+        check(same, f"the padded copy vs plain at {tuple(t.shape)}")
+    print(f"f32 padded copy vs plain, bit for bit: {', '.join(line)}",
+          flush=True)
+
+
 def f32_kernel_checks(gen: torch.Generator) -> dict:
     """Phase 14 (1), the checks: the error rule and the dW's determinism
     at every distinct block shape of both models at F32_CHECK_BATCH, at
-    ``F32_EDGE``, on the misaligned view ``F32_VIEW`` and (K4) past 2**31
-    input elements. Returns {(h, w, cin, cout): {piece: err}} of the
+    ``F32_EDGE``, on the misaligned views ``F32_VIEWS`` and (K4) past
+    2**31 input elements; the padded copy against its plain version
+    (``pad_checks``). Returns {(h, w, cin, cout): {piece: err}} of the
     blocks."""
     out = {}
     for h, w, cin, cout in all_block_shapes():
@@ -3391,13 +3504,14 @@ def f32_kernel_checks(gen: torch.Generator) -> dict:
     for n, h, w, cin, cout in F32_EDGE:
         f32_shape_checks(f"{n}x{h}x{w} {cin}->{cout} (edge)",
                          *f32_inputs(gen, n, h, w, cin, cout))
-    n, h, w, cin, cout = F32_VIEW
-    x, wt, g, a, b = f32_inputs(gen, n, h, w, cin, cout)
-    check(x[1:].data_ptr() % 16 != 0, "the f32 view x[1:] is misaligned")
-    f32_shape_checks(f"x[1:] {n - 1}x{h}x{w} {cin}->{cout}", x[1:], wt,
-                     g[1:], a, b)
-    del x, g
-    torch.cuda.empty_cache()
+    for n, h, w, cin, cout in F32_VIEWS:
+        x, wt, g, a, b = f32_inputs(gen, n, h, w, cin, cout)
+        check(x[1:].data_ptr() % 16 != 0, "the f32 view x[1:] is misaligned")
+        f32_shape_checks(f"x[1:] {n - 1}x{h}x{w} {cin}->{cout}", x[1:], wt,
+                         g[1:], a, b)
+        del x, g
+        torch.cuda.empty_cache()
+    pad_checks(gen)
     n, h, w, cin, cout = F32_BIG
     x, wt, _, a, b = f32_inputs(gen, 1, h, w, cin, cout)
     x = torch.randn(n, h, w, cin, generator=gen, device="cuda")
@@ -3419,52 +3533,10 @@ def f32_kernel_checks(gen: torch.Generator) -> dict:
     return out
 
 
-def f32_bound(n, h, w, cin, cout) -> tuple:
-    """Bound of one f32 conv3x3 pass (fwd, dx and dW alike): the FLOPs at
-    the split product's rate or each f32 tensor moved once at the memory
-    rate, whichever is larger."""
-    flops = 2.0 * 9 * n * h * w * cin * cout
-    nbytes = 4 * (n * h * w * (cin + cout) + 9 * cin * cout)
-    return bound_ms(flops, nbytes, F32_SPLIT_RATE)
-
-
-def f32_narrow_call(piece: str, x, wt, g, a, b):
-    """``piece`` (f32_pieces' keys) on the narrow route's kernels (the
-    first mma.sync design; the library's ``*_narrow`` entries) on the
-    same inputs, whatever route the shape takes: timed beside the packed
-    route's kernels."""
-    lib = fused_conv.f32_library()
-    stream = torch.cuda.current_stream().cuda_stream
-    n, h, w, cin = x.shape
-    cout = g.shape[3]
-    if piece == "wgrad":
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        splits = conv_train.wgrad_f32_splits(n, h, w, cin, cout, sms,
-                                             "f32_narrow")
-        ws = torch.empty(splits, 3, 3, cin, cout, device="cuda")
-
-        def dw():
-            out = torch.empty(3, 3, cin, cout, device="cuda")
-            err = lib.conv3x3_wgrad_f32_narrow(
-                x.data_ptr(), g.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                n, h, w, cin, cout, splits, stream)
-            check(err == 0, f"the narrow f32 dW launch: CUDA error {err}")
-            return out
-        return dw
-    src, cin_, cout_, flip = ((g, cout, cin, 1) if piece == "dx"
-                              else (x, cin, cout, 0))
-    scale, shift = (a, b) if piece == "k4" else conv_train._unit_affine(
-        cout_, x.device)
-
-    def fwd():
-        out = torch.empty(n, h, w, cout_, device="cuda")
-        err = lib.conv3x3_bn_relu_f32_narrow(
-            src.data_ptr(), wt.data_ptr(), scale.data_ptr(),
-            shift.data_ptr(), out.data_ptr(), n, h, w, cin_, cout_,
-            int(piece == "k4"), flip, stream)
-        check(err == 0, f"the narrow f32 forward launch: CUDA error {err}")
-        return out
-    return fwd
+# bound of one f32 conv3x3 pass (fwd, dx and dW alike): the FLOPs at the
+# split product's rate (F32_SPLIT_RATE) or each f32 tensor moved once at
+# the memory rate, whichever is larger
+f32_bound = f32_variants.f32_bound
 
 
 def f32_timings(gen: torch.Generator) -> dict:
@@ -3473,10 +3545,9 @@ def f32_timings(gen: torch.Generator) -> dict:
     the library call with TF32 off (``F.conv2d`` for K4, whose plain
     version adds the fold; ``convolution_backward`` with the real input for
     dx; the plain version itself for K1's forward and dW) and with TF32
-    on; a piece on "f32_packed" also on the narrow route's kernel
-    (``f32_narrow_call``). The stem has no dx on the path. Also at
-    ``F32_EXTRA_TIMED``. Returns {(h, w, cin, cout): {piece: {ms,
-    plain_ms, library_ms, library_tf32_ms, route[, narrow_ms]}}}."""
+    on. The stem has no dx on the path. Also at ``F32_EXTRA_TIMED``.
+    Returns {(h, w, cin, cout): {piece: {ms, plain_ms, library_ms,
+    library_tf32_ms, route}}}."""
     res, n = {}, F32_TIME_BATCH
     for shape in list(all_block_shapes()) + list(F32_EXTRA_TIMED):
         h, w, cin, cout = shape
@@ -3504,17 +3575,11 @@ def f32_timings(gen: torch.Generator) -> dict:
                           if piece == "wgrad" else
                           fused_conv.f32_route(cout, cin) if piece == "dx"
                           else fused_conv.f32_route(cin, cout))
-            narrow = ""
-            if t["route"] == "f32_packed":
-                t["narrow_ms"] = cuda_ms(
-                    f32_narrow_call(piece, x, wt, g, a, b), F32_TIME_ITERS,
-                    2)
-                narrow = f", narrow route {t['narrow_ms']:.4f}"
             got[piece] = t
             line.append(f"{piece} {t['ms']:.4f} ms on {t['route']} (plain "
                         f"{t['plain_ms']:.3f}, library "
                         f"{t['library_ms']:.4f}, TF32 "
-                        f"{t['library_tf32_ms']:.4f}{narrow});")
+                        f"{t['library_tf32_ms']:.4f});")
         bound, by = f32_bound(n, h, w, cin, cout)
         print(" ".join(line) + f" bound {bound:.4f} ms by {by} on "
               f"{bench.card()}", flush=True)
@@ -3829,6 +3894,115 @@ def f32_step_timing() -> dict:
     return out
 
 
+# phase 14 (7): the f32 steps whose pieces PR 13's mma.sync kernels took
+# before the padded copies, He-scaled from seed 0 at F32_TIME_BATCH: the
+# full-width UNet with a 150-class head (ADE20K's count: its dx and dW on
+# route "f32" over one padded copy of g a step; timed too) and UNet at
+# width 5/64 (its eight odd-width dW, both sides narrow, on the packed
+# route with one side padded) as (net, width, classes)
+F32_PADDED_STEPS = (("unet", 1.0, 150), ("unet", 5 / 64, 12))
+
+
+def f32_padded_steps(cpu_gen: torch.Generator) -> dict:
+    """Phase 14 (7): for each of ``F32_PADDED_STEPS`` one f32 step on the
+    kernel path and one on the plain f32 path (TF32 off) from the same
+    state on one batch: the loss, per-leaf gradient norms and differences
+    and BN running stats within ``F32_TRAIN_*``'s limits, every K1 call
+    against plain on its own inputs (``F32_SHADOW_TOL``); K1's launches
+    per route as ``conv_train.step_path_launches`` gives them, and the
+    padded copies as ``conv_train.step_pad_copies`` (the 150-class head:
+    its routes ``path_table``'s, one copy); then the 150-class step's ms
+    (``bench.measure_train``, F32_TIME_STEPS after 3 warm-ups). Returns
+    {"unet w1 c150" | ...: {loss_rel, paths, pad_copies[, step_ms]}}."""
+    dev = torch.device("cuda")
+    out = {}
+    for net, width, classes in F32_PADDED_STEPS:
+        label = f"{net} w{width:g} c{classes}"
+        model = bench.he_model(net, cpu_gen, width, classes).to(dev)
+        batch = bench.resident_batch(F32_TIME_BATCH, HW, SEED, dev)
+        k = one_step(model, batch, plain=False, compute_dtype=torch.float32)
+        p = one_step(model, batch, plain=True, choices=k["choices"],
+                     compute_dtype=torch.float32)
+        del batch
+        shapes = bench.block_shapes(net, HW, model.spec)
+        want = conv_train.step_path_launches(shapes, torch.float32)
+        copies = conv_train.step_pad_copies(shapes)
+        loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+        norm_errs, diff_errs = grad_errors(model, k["grads"], p["grads"])
+        stat_errs = {n: ((k["stats"][n] - v).abs().max()
+                         / v.abs().max().clamp_min(1e-30)).item()
+                     for n, v in p["stats"].items()}
+        worst_n, worst_d, worst_s = (_worst(e) for e in
+                                     (norm_errs, diff_errs, stat_errs))
+        print(f"{label} f32 step b{F32_TIME_BATCH}, kernel vs plain f32 path "
+              f"(TF32 off) from the same state: loss {k['loss']:.6f} vs "
+              f"{p['loss']:.6f}, rel {loss_err:.3g} (tol "
+              f"{F32_TRAIN_LOSS_TOL}); per leaf, grad norm rel max "
+              f"{worst_n[1]:.3g} at {worst_n[0]} (tol {F32_TRAIN_GRAD_TOL}); "
+              f"|grad diff| rel max {worst_d[1]:.3g} at {worst_d[0]} (tol "
+              f"{F32_TRAIN_GRAD_DIFF_TOL}); BN stats rel max "
+              f"{worst_s[1]:.3g} at {worst_s[0]} (tol {F32_TRAIN_STAT_TOL}); "
+              f"K1 on each route {k['paths']} (expected {want}); padded "
+              f"copies {k['pad_copies']} (expected {copies}); each K1 call "
+              f"against plain on its inputs: " + "; ".join(
+                  f"{piece} {e:.3g} (tol {F32_SHADOW_TOL[piece]})"
+                  for piece, e in k["shadow"].items()), flush=True)
+        check(k["paths"] == want, f"{label} f32 K1 launches per route")
+        check(k["pad_copies"] == copies, f"{label} f32 padded copies")
+        if width == 1.0:
+            check(k["paths"] == path_counts(net, 1, classes, torch.float32)
+                  and copies == 1, f"{label}: the head's dx and dW on "
+                                   f"\"f32\" over one padded copy of g")
+        check(set(p["counts"].values()) == {0}
+              and p["pad_copies"] == 0, f"{label}: the plain step launched")
+        for piece, e in k["shadow"].items():
+            check(e <= F32_SHADOW_TOL[piece], f"{label} f32 {piece} vs plain")
+        check(np.isfinite(k["loss"]) and loss_err <= F32_TRAIN_LOSS_TOL,
+              f"{label} f32 step's loss vs plain")
+        check(worst_n[1] <= F32_TRAIN_GRAD_TOL,
+              f"{label} f32 grad norms vs plain")
+        check(worst_d[1] <= F32_TRAIN_GRAD_DIFF_TOL,
+              f"{label} f32 grads vs plain")
+        check(worst_s[1] <= F32_TRAIN_STAT_TOL,
+              f"{label} f32 BN stats vs plain")
+        out[label] = {"loss_rel": loss_err, "paths": k["paths"],
+                      "pad_copies": k["pad_copies"]}
+        if width == 1.0:
+            r = bench.measure_train(model, F32_TIME_BATCH, F32_TIME_STEPS,
+                                    hw=HW, seed=SEED,
+                                    compute_dtype=torch.float32)
+            check(r["finite"], f"{label} f32 timed step's losses")
+            print(f"{label} f32 train kernel path b{F32_TIME_BATCH}: step "
+                  f"{r['step_ms']:.2f} ms (median {r['step_ms_median']:.2f}"
+                  f"), {r['images_per_sec']:.2f} img/s, peak memory "
+                  f"{r['max_memory_allocated'] / 2 ** 30:.2f} GiB on "
+                  f"{bench.card()}", flush=True)
+            out[label]["step_ms"] = r["step_ms"]
+        del model, k, p
+        torch.cuda.empty_cache()
+    return out
+
+
+def pad_timing(gen: torch.Generator) -> dict:
+    """The padded copy at ``F32_PAD_TIMED`` (the 150-class head's b10
+    cotangent): its ms and the plain version's (``F.pad``, also the one
+    library call that computes it) by CUDA events, its bound (each byte
+    read and written once) and its error to the plain version."""
+    n, h, w, c = F32_PAD_TIMED
+    t = torch.randn(n, h, w, c, generator=gen, device="cuda")
+    err = (fused_conv.pad_channels(t)
+           - fused_conv.pad_channels_plain(t)).abs().max().item()
+    ms = cuda_ms(lambda: fused_conv.pad_channels(t), F32_TIME_ITERS, 2)
+    plain = cuda_ms(lambda: fused_conv.pad_channels_plain(t),
+                    F32_TIME_ITERS, 2)
+    bound, by = bound_ms(0.0, 4 * n * h * w * (c + fused_conv.f32_stride(c)))
+    print(f"f32 padded copy b{n} {h}x{w}x{c}: {ms:.4f} ms (plain F.pad "
+          f"{plain:.4f}; bound {bound:.4f} by {by}, {bound / ms:.2f} of it; "
+          f"max|kernel - plain| {err:.3g}) on {bench.card()}", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": plain}
+
+
 def phase_f32(tmp: str, data: str) -> dict:
     """Phase 14 (module docstring). Returns UNet's f32 sums and the main
     paths' launches for the JSON entries, and the f32 train CLI run's raw
@@ -3842,17 +4016,22 @@ def phase_f32(tmp: str, data: str) -> dict:
     f32_predict_checks(tmp, data, runs["unet"]["ckpt"])
     f32_lr_finder_checks(data)
     f32_step_timing()
+    padded = f32_padded_steps(torch.Generator().manual_seed(SEED))
+    pad = pad_timing(gen)
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
     return {"sums": sums["unet"], "k4": runs["unet"]["k4"],
             "k1": runs["unet"]["counts"], "k4_paths": runs["unet"]["k4_paths"],
             "k1_paths": runs["unet"]["paths"],
-            "unet_raw": runs["unet"]["raw"]}
+            "unet_raw": runs["unet"]["raw"], "padded": padded, "pad": pad}
 
 
 def f32_entries(f32: dict) -> list:
     """The JSON entries of the four f32 instances: UNet's sums at b10 over
     its blocks (``f32_sums``), launches from the f32 eval CLI (K4) and the
-    f32 train CLI run (K1), in all and on each f32 route."""
+    f32 train CLI run (K1), in all and on each f32 route, K1's also from
+    the 150-class UNet's step; and of the padded copy: its time at the
+    150-class head's cotangent (``pad_timing``), its launches in that
+    step."""
     src = "pytorch_camvid_tpu_torch/csrc/conv3x3_f32.cu"
     out = []
     for piece, name, replaces, key in (
@@ -3870,8 +4049,15 @@ def f32_entries(f32: dict) -> list:
                     "replaces": replaces, "launches": launches,
                     **f32["sums"][piece],
                     "path_launches": {r: by_route[r]
-                                      for r in ("f32", "f32_packed",
-                                                "f32_narrow")}})
+                                      for r in ("f32", "f32_packed")}})
+        if key is not None:
+            out[-1]["unet_150_step_path_launches"] = f32["padded"][
+                "unet w1 c150"]["paths"][key]
+    out.append({"name": "conv3x3_f32.pad_channels", "route": "cuda",
+                "source": src,
+                "replaces": "pytorch_camvid_tpu/ops/pallas_conv_train.py:172",
+                "launches": f32["padded"]["unet w1 c150"]["pad_copies"],
+                **f32["pad"]})
     return out
 
 
@@ -6310,30 +6496,37 @@ def start() -> None:
           f"packed K rules agree at {len(int8_cins)} Cin",
           flush=True)
     f32 = fused_conv.f32_library()
+    sides = {None: -1, "x": 0, "g": 1}
+    for cin in range(1, 201):
+        for cout in range(1, 201):
+            check(fused_conv.f32_kernel_route(cin, cout)
+                  == fused_conv.f32_route(cin, cout)
+                  and fused_conv.f32_kernel_route(cin, cout, wgrad=True)
+                  == conv_train.wgrad_f32_route(cin, cout)
+                  and f32.conv3x3_wgrad_f32_packed_side(cin, cout)
+                  == sides[conv_train.packed_narrow_side(cin, cout)
+                           if conv_train.wgrad_f32_route(cin, cout)
+                           == "f32_packed" else None],
+                  f"f32 routes and the packed dW's narrow side of the "
+                  f"library at {cin}->{cout}")
     f32_pairs = sorted(pairs | {(cin, cout) for *_, cin, cout in F32_EDGE}
                        | {(cout, cin) for *_, cin, cout in F32_EDGE})
     for cin, cout in f32_pairs:
-        check(fused_conv.f32_kernel_route(cin, cout)
-              == fused_conv.f32_route(cin, cout)
-              and fused_conv.f32_kernel_route(cin, cout, wgrad=True)
-              == conv_train.wgrad_f32_route(cin, cout)
-              and f32.conv3x3_f32_tile_n(cout) == fused_conv.f32_tile_n(cout)
+        check(f32.conv3x3_f32_tile_n(cout) == fused_conv.f32_tile_n(cout)
               and f32.conv3x3_wgrad_f32_out_tiles(cin, cout)
               == conv_train.wgrad_f32_out_tiles(cin, cout),
-              f"f32 routes, tile N and dW output tiles of the library at "
+              f"f32 tile N and dW output tiles of the library at "
               f"{cin}->{cout}")
     sizes = {(n, h, w) for h, w, _, _ in all_block_shapes()
              for n in (F32_CHECK_BATCH, F32_TIME_BATCH)}
-    sizes |= {(n, h, w) for n, h, w, *_ in F32_EDGE + (F32_VIEW,)}
+    sizes |= {(n, h, w) for n, h, w, *_ in F32_EDGE + F32_VIEWS}
     for n, h, w in sorted(sizes):
-        for cin, cout in f32_pairs:
-            check(f32.conv3x3_wgrad_f32_pixel_tiles(n, h, w, cin, cout)
-                  == conv_train.wgrad_f32_pixel_tiles(n, h, w, cin, cout),
-                  f"f32 dW pixel tiles of the library at {n}x{h}x{w} "
-                  f"{cin}->{cout}")
-    print(f"f32: the library's and the wrappers' routes, tile N and dW "
-          f"tile counts agree at {len(f32_pairs)} (Cin, Cout) pairs and "
-          f"{len(sizes)} sizes", flush=True)
+        check(f32.conv3x3_wgrad_f32_pixel_tiles(n, h, w)
+              == conv_train.wgrad_f32_pixel_tiles(n, h, w),
+              f"f32 dW pixel tiles of the library at {n}x{h}x{w}")
+    print(f"f32: the library's and the wrappers' routes agree at every "
+          f"(Cin, Cout) up to 200, tile N and dW tile counts at "
+          f"{len(f32_pairs)} pairs and {len(sizes)} sizes", flush=True)
     couts = range(4, fused_conv_pair.MAX_COUT + 1, 4)
     for cout in couts:
         check(f32.conv3x3_pair_f32_smem(cout) == fused_conv_pair.tile_plan(
@@ -6349,6 +6542,13 @@ def start() -> None:
         check(conv_train.step_path_launches(shapes, torch.float32)
               == path_table(net, dtype=torch.float32),
               f"{net} f32 launches per path of a step by the rules")
+        for classes in F32_HEAD_ROUTES:
+            spec = bench.model_class(net).base_spec(3, classes)
+            check(conv_train.step_path_launches(
+                bench.block_shapes(net, HW, spec), torch.float32)
+                == path_table(net, classes, torch.float32),
+                f"{net} f32 launches per path of a {classes}-class step by "
+                f"the rules")
     torch.cuda.synchronize()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6365,6 +6565,8 @@ def main() -> int:
     sums = conv_sums(per_shape, k1)
     narrow_checks(torch.Generator(device="cuda").manual_seed(SEED))
     narrow = narrow_timings(torch.Generator(device="cuda").manual_seed(SEED))
+    mma_sync = mma_sync_timings(
+        torch.Generator(device="cuda").manual_seed(SEED))
     unet_serve = phase_slice("unet", torch.Generator().manual_seed(SEED),
                              np.random.default_rng(SEED))
     unet_train = phase_train("unet", torch.Generator().manual_seed(SEED))
@@ -6408,6 +6610,8 @@ def main() -> int:
     kernels[0]["narrow_unet_9_16"] = {
         **narrow["fwd"], "launches": int8["odd_slices"]["unet"][
             "k4_paths_bf16"]["narrow"]}
+    # K4's first design where the narrow plan holds no tile (phase 3)
+    kernels[0]["mma_sync"] = mma_sync
     kernels[2]["narrow_unet_9_16"] = {
         **narrow["dx"],
         "launches": odd_train["path_launches"]["dgrad"]["narrow"]}
@@ -6464,7 +6668,7 @@ def main() -> int:
                       ("conv3x3_int8.quantize", "quantize")):
         by_name[name]["program_launches"] = {
             "unet_int8": ran["unet_int8"][key]}
-    check(len(by_name) == len(kernels) == 23,
+    check(len(by_name) == len(kernels) == 24,
           "one JSON entry per ported kernel")
     print(json.dumps({"kernels": kernels}))
     print(bench.card())

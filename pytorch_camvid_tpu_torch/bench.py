@@ -184,14 +184,15 @@ def conv_fwd_flops(net: str = "unet", hw: Tuple[int, int] = (360, 480),
                for h, w, ci, co in block_shapes(net, hw, spec))
 
 
-def he_model(net: str, generator: torch.Generator,
-             width_mult: float = 1.0) -> torch.nn.Module:
-    """Full-width model (or at ``width_mult``) with He-scaled conv weights
+def he_model(net: str, generator: torch.Generator, width_mult: float = 1.0,
+             classes: int = 12) -> torch.nn.Module:
+    """Full-width model (or at ``width_mult``; a ``classes``-class head,
+    CamVid's 12 by default) with He-scaled conv weights
     (std sqrt(2/fan_in)), zero conv biases and identity BN stats, so
     activations stay O(1) through 23-26 blocks (the torch-default init
     shrinks their second moment about sixfold per block). The weights
     chip_smoke.py and ``profile.py`` run."""
-    model = get_model(net, 3, 12, generator=generator,
+    model = get_model(net, 3, classes, generator=generator,
                       width_mult=width_mult)
     with torch.no_grad():
         for blk in model.blocks():

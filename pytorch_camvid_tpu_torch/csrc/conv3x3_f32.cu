@@ -59,15 +59,27 @@
 //   the dW's 128 (10-13% slower), at N = 128 (192 accumulators) in
 //   neither, so the forward's N = 128 tile and the dW run one scratch.
 //
-// Three routes, chosen by conv3x3_f32_route (ops/fused_conv.py::f32_route,
-// ops/conv_train.py::wgrad_f32_route hold the same rule):
+// Two routes, chosen by conv3x3_f32_route (ops/fused_conv.py::f32_route,
+// ops/conv_train.py::wgrad_f32_route hold the same rule); a call's layout
+// (the pixel strides its C entry is given) names the route it takes:
 //
-// * wgmma ("f32"): the forward where TMA can describe x (Cin % 4 == 0),
-//   the dW where it can describe x and g (Cin % 4 == 0, Cout % 4 == 0).
+// * wgmma ("f32"): every call the packed route does not take. TMA's
+//   global strides are multiples of 16 bytes, so a side whose channels C
+//   are no multiple of 4 comes as the wrapper's padded copy, a pixel
+//   stride of 4 ceil(C / 4) with zeros past C (pad_channels_kernel, one
+//   copy per tensor and backward: conv_train shares g's between dx and
+//   dW); each tensor map has channel extent C at that stride, so TMA reads
+//   C channels of a pixel and fills zeros past them, and the kernels stay
+//   as they are for C % 4 == 0 (the 12-class head's dx runs here at Cin
+//   12, a part 32-channel chunk). The forward where Cin % 4 == 0 or 9 x
+//   Cin > 192 (the 23- and 150-class heads' dx); the dW of every shape
+//   but the packed route's (the 150-class head's 64 -> 150, 23 -> 64, 6
+//   -> 150).
 //   - fwd (namespace fw): an implicit GEMM, M = output pixels, N = Cout,
 //     K = 9 taps x Cin in 32-channel chunks. A small kernel first splits
 //     the weights once per call into K-major hi and lo copies in global
-//     memory, [2][Cout][9][Cin] (tap-reversed and transposed for flip:
+//     memory, [2][Cout][9][xc] at x's pixel stride xc, zeros past Cin
+//     (tap-reversed and transposed for flip:
 //     B[(t, c)][n] = w[8 - t][n][c]), so B needs no split in the main
 //     kernel. A persistent block of three warpgroups: a producer (one
 //     thread streams the (TH+2) x 18 x 32 input patch through a 4-D
@@ -112,9 +124,12 @@
 //   rows, but 9 taps x those channels fit K_MAX = 192: the forward where
 //   Cin % 4 != 0 with 9 x Cin <= 192 (the Cin = 3 stem, VOC's 21 -> 64
 //   dx), the dW where one side is so and the other's channels % 4 == 0
-//   (the stem's 3 -> 64, VOC's 64 -> 21). The narrow side is read as raw
-//   16-byte chunks of its patch rows, whatever their alignment, the way
-//   the bf16 packed paths read theirs.
+//   (the stem's 3 -> 64, VOC's 64 -> 21) or both sides are so (UNet 5/64's
+//   5 -> 5, 10 -> 5; the side with fewer channels stays narrow, the other
+//   comes padded as the wide side, 4-12 channels of the block's 64, masked
+//   where it stores). The narrow side is read as raw 16-byte chunks of
+//   its patch rows, whatever their alignment, the way the bf16 packed
+//   paths read theirs.
 //   - fwd (conv_f32_packed_kernel<NG>): M = output pixels (tiles of 8 x
 //     16, one row a consumer warp, as fw's), N = 64 output channels, K = 9
 //     taps x Cin packed tap-major, k = (3 dy + dx) Cin + c, zero-padded to
@@ -153,14 +168,13 @@
 //   its bound: the data path alone (gathers, copies, planes, handoffs;
 //   f32_variants' pk_no_mma) takes most of each one's time, and the
 //   wgmmas add to it rather than hide under it (PERF.md).
-// * narrow ("f32_narrow"): the rest, e.g. Cin 23 (9 x 23 > 192) or both
-//   sides narrow (3 -> 21): the first design, split-TF32 mma.sync.m16n8k8
-//   from a 3-stage cp.async ring (namespace nar). No model runs it since
-//   the packed route took the stem and VOC's head. Its forward writes a
-//   thread's two adjacent channels as one 8-byte store and steps (tap,
-//   channel) along K without a division.
+// * the padded copy (pad_channels_kernel), in front of route "f32" where
+//   a side's channels are no multiple of 4: bound by bytes, P x (C + 4
+//   ceil(C / 4)) x 4; it reads x at any 4-byte alignment, so a misaligned
+//   view needs no other copy. With it route "f32" took these shapes from
+//   the first, mma.sync design (PERF.md: the times of both).
 //
-// 64-bit element offsets throughout; pixels (N*H*W) stay below 2^31.
+// 64-bit element offsets throughout; pixels (N*H*W) stay below 2^31 - 128.
 
 #include "sm90_common.cuh"
 
@@ -227,467 +241,40 @@ __global__ void sum_splits_kernel(const float* __restrict__ ws,
   }
 }
 
-// ================================================================ narrow
-
-namespace nar {
-
-constexpr int THREADS = 128;   // 4 warps
-constexpr int STAGES = 3;
-constexpr int BK = 32;         // K of one stage
-
-// fwd: 128 pixels x 64 channels a block
-constexpr int BM = 128, BN = 64;
-constexpr int AP = BK + 4;     // A [BM][AP]: fragment reads conflict-free
-constexpr int BNP = BN + 8;    // B [BK][BNP] (w as it lies, N-major)
-constexpr int BKP = BK + 4;    // B [BN][BKP] (flip: K-major)
-constexpr int A_FLOATS = BM * AP;
-constexpr int B_FLOATS = BK * BNP > BN * BKP ? BK * BNP : BN * BKP;
-constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
-constexpr int FWD_SMEM = STAGES * STAGE_FLOATS * 4;
-static_assert(FWD_SMEM == 82944, "fwd shared memory plan");
-
-// wgrad: 64 rows (tap, ci) x 64 channels co a block, 32-pixel chunks
-constexpr int WM = 64, WN = 64;
-constexpr int WP = 64 + 8;     // [pixel][row] and [pixel][co], pitch 72
-constexpr int W_STAGE_FLOATS = 2 * BK * WP;
-constexpr int WG_SMEM = STAGES * W_STAGE_FLOATS * 4 + WM * 4 * 4;
-static_assert(WG_SMEM == 56320, "wgrad shared memory plan");
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d = a * b, from a zero accumulator.
-__device__ __forceinline__ void mma_tf32_z(float (&d)[4],
-                                           const uint32_t (&a)[4], uint32_t b0,
-                                           uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.0f));
-}
-
-// d += the split product of one fragment pair over one k8 step: the three
-// products (the small ones first) summed from zero in the tensor core, then
-// added to d in f32. The tensor core truncates each sum it forms, and its
-// truncation errors all lean one way, so they would grow with K in a
-// running accumulator; here each is relative to one k8 step's partial sum,
-// and d's additions round to nearest.
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1, uint32_t bl0,
-                                     uint32_t bl1) {
-  float s[4];
-  mma_tf32_z(s, al, bh0, bh1);
-  mma_tf32(s, ah, bl0, bl1);
-  mma_tf32(s, ah, bh0, bh1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += s[i];
-}
-
-// ------------------------------------------------------------------ fwd
-
-// Two blocks an SM (their shared memory holds no more): with that minimum
-// ptxas gives both instances the registers they want; without it, it cut
-// the flip instance to 143 registers, and dx ran 1.35-1.45x slower on an
-// H100 (``f32_variants``).
-template <bool FLIP>
-__global__ void __launch_bounds__(THREADS, 2)
-    conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ av, const float* __restrict__ bv,
-                    float* __restrict__ out, int H, int W, int P, int Cin,
-                    int Cout, int relu) {
-  extern __shared__ __align__(16) float smem[];
-  const int K = 9 * Cin;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;
-  const bool a_vec = (Cin & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15)
-                     == 0;
-  const bool b_vec = (FLIP ? (Cin & 3) == 0 : (Cout & 3) == 0) &&
-                     (reinterpret_cast<uintptr_t>(w) & 15) == 0;
-
-  // The pixels this thread stages, pixel(j): 16-byte path rows (tid >> 3)
-  // + 16 j; 4-byte path row tid. (h, w) of a pixel past P is far outside.
-  auto pixel = [&](int j) {
-    return m0 + (a_vec ? (tid >> 3) + 16 * j : tid);
-  };
-  int ph[8], pw[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int m = pixel(j);
-    ph[j] = m < P ? (m / W) % H : -4;
-    pw[j] = m < P ? m % W : -4;
-  }
-
-  auto load_stage = [&](int stage, int kc) {
-    float* As = smem + stage * STAGE_FLOATS;
-    float* Bs = As + A_FLOATS;
-    const int k0 = kc * BK;
-    if (a_vec) {   // 8 rows x one 4-channel group (one tap: Cin % 4 == 0)
-      const int grp = tid & 7, k = k0 + 4 * grp;
-      const int tap = k < K ? k / Cin : 9;
-      const int c = k - tap * Cin;
-      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bool ok = tap < 9 && inside(ph[j] + dy, H) &&
-                        inside(pw[j] + dx, W);
-        const float* src =
-            ok ? x + static_cast<int64_t>(pixel(j) + dy * W + dx) * Cin + c
-               : x;
-        cp_async16(&As[((tid >> 3) + 16 * j) * AP + 4 * grp], src, ok);
-      }
-    } else {       // one row x 32 single channels, (tap, c) stepped along
-      int tap = k0 / Cin, c = k0 - tap * Cin;
-      for (int kk = 0; kk < BK; ++kk) {
-        const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-        const bool ok = k0 + kk < K && inside(ph[0] + dy, H) &&
-                        inside(pw[0] + dx, W);
-        const float* src =
-            ok ? x + static_cast<int64_t>(pixel(0) + dy * W + dx) * Cin + c
-               : x;
-        cp_async4(&As[tid * AP + kk], src, ok);
-        if (++c == Cin) {
-          c = 0;
-          ++tap;
-        }
-      }
-    }
-    if (!FLIP) {   // B [k][n] = w[k * Cout + n]
-      if (b_vec) {
-        const int grp = tid & 15, n = n0 + 4 * grp;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kr = (tid >> 4) + 8 * j, k = k0 + kr;
-          const bool ok = k < K && n < Cout;
-          cp_async16(&Bs[kr * BNP + 4 * grp],
-                     ok ? w + static_cast<int64_t>(k) * Cout + n : w, ok);
-        }
-      } else {
-        const int nn = tid & 63, n = n0 + nn;
-#pragma unroll 4
-        for (int j = 0; j < 16; ++j) {
-          const int kr = (tid >> 6) + 2 * j, k = k0 + kr;
-          const bool ok = k < K && n < Cout;
-          cp_async4(&Bs[kr * BNP + nn],
-                    ok ? w + static_cast<int64_t>(k) * Cout + n : w, ok);
-        }
-      }
-    } else {       // B [n][k] = w[8 - tap][n][c], w (3,3,Cout,Cin)
-      if (b_vec) {
-        const int grp = tid & 7, k = k0 + 4 * grp;
-        const int tap = k < K ? k / Cin : 9;
-        const int c = k - tap * Cin;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int nr = (tid >> 3) + 16 * j, n = n0 + nr;
-          const bool ok = tap < 9 && n < Cout;
-          cp_async16(&Bs[nr * BKP + 4 * grp],
-                     ok ? w + (static_cast<int64_t>(8 - tap) * Cout + n) * Cin
-                              + c
-                        : w,
-                     ok);
-        }
-      } else {
-        const int kk = tid & 31, k = k0 + kk;
-        const int tap = k < K ? k / Cin : 9;
-        const int c = k - tap * Cin;
-#pragma unroll 4
-        for (int j = 0; j < 16; ++j) {
-          const int nr = (tid >> 5) + 4 * j, n = n0 + nr;
-          const bool ok = tap < 9 && n < Cout;
-          cp_async4(&Bs[nr * BKP + kk],
-                    ok ? w + (static_cast<int64_t>(8 - tap) * Cout + n) * Cin
-                             + c
-                       : w,
-                    ok);
-        }
-      }
-    }
-  };
-
-  float acc[4][4][4] = {};
-  const int nk = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();   // chunk kc landed; stage (kc - 1) % STAGES is free
-    const int pre = kc + STAGES - 1;
-    if (pre < nk) load_stage(pre % STAGES, pre);
-    cp_async_commit();
-    const float* As = smem + (kc % STAGES) * STAGE_FLOATS;
-    const float* Bs = As + A_FLOATS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 8) {
-      uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const float* ap = &As[(wm * 64 + mt * 16 + g) * AP + kk + t];
-        split_tf32(ap[0], ah[mt][0], al[mt][0]);
-        split_tf32(ap[8 * AP], ah[mt][1], al[mt][1]);
-        split_tf32(ap[4], ah[mt][2], al[mt][2]);
-        split_tf32(ap[8 * AP + 4], ah[mt][3], al[mt][3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = wn * 32 + nt * 8 + g;
-        const float v0 = FLIP ? Bs[n * BKP + kk + t] : Bs[(kk + t) * BNP + n];
-        const float v1 =
-            FLIP ? Bs[n * BKP + kk + t + 4] : Bs[(kk + t + 4) * BNP + n];
-        split_tf32(v0, bh[nt][0], bl[nt][0]);
-        split_tf32(v1, bh[nt][1], bl[nt][1]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma3(acc[mt][nt], ah[mt], al[mt], bh[nt][0], bh[nt][1], bl[nt][0],
-               bl[nt][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // a thread's two adjacent channels go out as one 8-byte store where
-  // Cout is even (the stem writes 64 f32 channels a pixel)
-  const bool pair = (Cout & 1) == 0;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int c0 = n0 + wn * 32 + nt * 8 + 2 * t;
-    if (c0 >= Cout) continue;
-    const bool two = c0 + 1 < Cout;
-    const float sa0 = av[c0], sb0 = bv[c0];
-    const float sa1 = two ? av[c0 + 1] : 0.0f, sb1 = two ? bv[c0 + 1] : 0.0f;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + wm * 64 + mt * 16 + g + 8 * half;
-        if (m >= P) continue;
-        float v0 = acc[mt][nt][2 * half] * sa0 + sb0;
-        float v1 = acc[mt][nt][2 * half + 1] * sa1 + sb1;
-        if (relu) {
-          v0 = fmaxf(v0, 0.0f);
-          v1 = fmaxf(v1, 0.0f);
-        }
-        float* o = out + static_cast<int64_t>(m) * Cout + c0;
-        if (two && pair) {
-          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-        } else {
-          o[0] = v0;
-          if (two) o[1] = v1;
-        }
-      }
+// The padded copy: out (P, 4 Q) <- x (P, C), Q = ceil(C / 4), zeros past
+// C. A thread writes 16-byte chunk i of out (channels 4q .. 4q + 3 of one
+// pixel) from four 4-byte loads of x, whose rows lie at any 4-byte
+// alignment (a view such as x[1:], or C odd); a warp's loads and stores
+// cover about 512 contiguous bytes each. Bound by bytes: P (C + 4 Q) x 4.
+__global__ void pad_channels_kernel(const float* __restrict__ x,
+                                    float4* __restrict__ out, int64_t chunks,
+                                    int C, int Q) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < chunks; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t p = i / Q;
+    const int c = static_cast<int>(i - p * Q) * 4;
+    const float* src = x + p * C + c;
+    float4 v;
+    v.x = src[0];
+    v.y = c + 1 < C ? src[1] : 0.f;
+    v.z = c + 2 < C ? src[2] : 0.f;
+    v.w = c + 3 < C ? src[3] : 0.f;
+    out[i] = v;
   }
 }
 
-// ---------------------------------------------------------------- wgrad
-
-__global__ void __launch_bounds__(THREADS)
-    wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                     float* __restrict__ dst, int H, int W, int P, int Cin,
-                     int Cout, int chunks_per_split, int chunks) {
-  extern __shared__ __align__(16) float smem[];
-  int* rowinfo = reinterpret_cast<int*>(smem + STAGES * W_STAGE_FLOATS);
-  const int M = 9 * Cin;
-  const int r0 = blockIdx.x * WM, n0 = blockIdx.y * WN;
-  const int c_begin =
-      min(static_cast<int>(blockIdx.z) * chunks_per_split, chunks);
-  const int c_end = min(c_begin + chunks_per_split, chunks);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, t = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;
-  const bool a_vec = (Cin & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15)
-                     == 0;
-  const bool b_vec = (Cout & 3) == 0 &&
-                     (reinterpret_cast<uintptr_t>(g) & 15) == 0;
-
-  // each of the block's 64 rows: its channel, its tap's shift, valid
-  if (tid < WM) {
-    const int r = r0 + tid;
-    const int tap = r < M ? r / Cin : 4;
-    rowinfo[4 * tid + 0] = r - tap * Cin;
-    rowinfo[4 * tid + 1] = tap / 3 - 1;
-    rowinfo[4 * tid + 2] = tap % 3 - 1;
-    rowinfo[4 * tid + 3] = r < M;
-  }
-  __syncthreads();
-
-  // the chunk's first pixel, and the pixels this thread stages x at:
-  // pbase + off(j), off(j) = (tid >> 4) + 8 j (16-byte path, j < 4) or
-  // tid & 31 (4-byte path); their (h, w) followed by increments
-  const int npix = a_vec ? 4 : 1;
-  auto off = [&](int j) { return a_vec ? (tid >> 4) + 8 * j : tid & 31; };
-  int pbase = c_begin * BK;
-  int ph[4], pw[4];
-  for (int j = 0; j < 4; ++j) {
-    const int p = pbase + off(j);
-    ph[j] = (p / W) % H;
-    pw[j] = p % W;
-  }
-  // the 16-byte path's 4-row group: its channel and its tap's shift
-  const int grp = tid & 15;
-  const int* gi = &rowinfo[4 * (4 * grp)];
-  const int a_c = gi[0], a_dy = gi[1], a_dx = gi[2], a_ok = gi[3];
-
-  auto load_stage = [&](int stage) {
-    float* As = smem + stage * W_STAGE_FLOATS;   // [pixel][row]
-    float* Bs = As + BK * WP;                     // [pixel][co]
-    if (a_vec) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = pbase + off(j);
-        const bool ok = a_ok && p < P && inside(ph[j] + a_dy, H) &&
-                        inside(pw[j] + a_dx, W);
-        const float* src =
-            ok ? x + static_cast<int64_t>(p + a_dy * W + a_dx) * Cin + a_c
-               : x;
-        cp_async16(&As[((tid >> 4) + 8 * j) * WP + 4 * grp], src, ok);
-      }
-    } else {
-      const int pk = tid & 31;
-#pragma unroll 4
-      for (int j = 0; j < 16; ++j) {
-        const int rr = (tid >> 5) + 4 * j;
-        const int* ri = &rowinfo[4 * rr];
-        const int p = pbase + pk;
-        const bool ok = ri[3] && p < P && inside(ph[0] + ri[1], H) &&
-                        inside(pw[0] + ri[2], W);
-        const float* src =
-            ok ? x + static_cast<int64_t>(p + ri[1] * W + ri[2]) * Cin + ri[0]
-               : x;
-        cp_async4(&As[pk * WP + rr], src, ok);
-      }
-    }
-    if (b_vec) {
-      const int n = n0 + 4 * grp;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int pk = (tid >> 4) + 8 * j;
-        const int p = pbase + pk;
-        const bool ok = p < P && n < Cout;
-        cp_async16(&Bs[pk * WP + 4 * grp],
-                   ok ? g + static_cast<int64_t>(p) * Cout + n : g, ok);
-      }
-    } else {
-      const int nn = tid & 63, n = n0 + nn;
-#pragma unroll 4
-      for (int j = 0; j < 16; ++j) {
-        const int pk = (tid >> 6) + 2 * j;
-        const int p = pbase + pk;
-        const bool ok = p < P && n < Cout;
-        cp_async4(&Bs[pk * WP + nn],
-                  ok ? g + static_cast<int64_t>(p) * Cout + n : g, ok);
-      }
-    }
-    // the next chunk's pixels: 32 further on
-    pbase += BK;
-    for (int j = 0; j < npix; ++j) {
-      pw[j] += BK;
-      while (pw[j] >= W) {
-        pw[j] -= W;
-        if (++ph[j] == H) ph[j] = 0;
-      }
-    }
-  };
-
-  float acc[2][4][4] = {};
-  const int nk = max(c_end - c_begin, 0);
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(s);
-    cp_async_commit();
-  }
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (kc + STAGES - 1 < nk) load_stage((kc + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const float* As = smem + (kc % STAGES) * W_STAGE_FLOATS;
-    const float* Bs = As + BK * WP;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 8) {
-      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const float* ap = &As[(kk + t) * WP + wm * 32 + mt * 16 + gq];
-        split_tf32(ap[0], ah[mt][0], al[mt][0]);
-        split_tf32(ap[8], ah[mt][1], al[mt][1]);
-        split_tf32(ap[4 * WP], ah[mt][2], al[mt][2]);
-        split_tf32(ap[4 * WP + 8], ah[mt][3], al[mt][3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const float* bp = &Bs[(kk + t) * WP + wn * 32 + nt * 8 + gq];
-        split_tf32(bp[0], bh[nt][0], bl[nt][0]);
-        split_tf32(bp[4 * WP], bh[nt][1], bl[nt][1]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma3(acc[mt][nt], ah[mt], al[mt], bh[nt][0], bh[nt][1], bl[nt][0],
-               bl[nt][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // this split's partial dW: its slice of the workspace (or dW itself at
-  // one split)
-  float* d = dst + static_cast<int64_t>(blockIdx.z) * M * Cout;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = r0 + wm * 32 + mt * 16 + gq + 8 * half;
-      if (r >= M) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = n0 + wn * 32 + nt * 8 + 2 * t + e;
-          if (c >= Cout) continue;
-          d[static_cast<int64_t>(r) * Cout + c] = acc[mt][nt][2 * half + e];
-        }
-    }
+cudaError_t pad_channels(const float* x, float* out, int64_t P, int C,
+                         cudaStream_t st) {
+  const int Q = (C + 3) / 4;
+  const int64_t chunks = P * Q;
+  const int64_t blocks = (chunks + 255) / 256;
+  pad_channels_kernel<<<static_cast<unsigned>(blocks < 16384 ? blocks
+                                                             : 16384),
+                        256, 0, st>>>(x, reinterpret_cast<float4*>(out),
+                                      chunks, C, Q);
+  return cudaGetLastError();
 }
-
-}  // namespace nar
 
 // ============================================================ wgmma: both
 
@@ -774,23 +361,24 @@ __device__ __forceinline__ float lds(const unsigned char* base, int off) {
 // ------------------------------------------------------------- weights
 
 // The forward's B, split once per call: w2[h][n][t][c] (h 0: hi, 1: lo;
-// K-major, k = (t, c)) = split(w[t][c][n]) of w (3,3,Cin,Cout), or with
-// flip split(w[8 - t][n][c]) of w (3,3,Cout,Cin): the tap-reversed
-// transpose, K1's dx.
+// K-major, k = (t, c), rows of Cs >= Cin: x's pixel stride, zeros past
+// Cin) = split(w[t][c][n]) of w (3,3,Cin,Cout), or with flip split(w[8 -
+// t][n][c]) of w (3,3,Cout,Cin): the tap-reversed transpose, K1's dx.
 __global__ void split_weights_kernel(const float* __restrict__ w,
                                      float* __restrict__ w2, int Cin,
-                                     int Cout, int flip) {
-  const int64_t n_el = 9LL * Cin * Cout;
+                                     int Cs, int Cout, int flip) {
+  const int64_t n_el = 9LL * Cs * Cout;
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                    threadIdx.x;
        i < n_el; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int c = static_cast<int>(i % Cin);
-    const int64_t r = i / Cin;
+    const int c = static_cast<int>(i % Cs);
+    const int64_t r = i / Cs;
     const int t = static_cast<int>(r % 9);
     const int n = static_cast<int>(r / 9);
     const float v =
-        flip ? w[(static_cast<int64_t>(8 - t) * Cout + n) * Cin + c]
-             : w[(static_cast<int64_t>(t) * Cin + c) * Cout + n];
+        c >= Cin ? 0.f
+        : flip   ? w[(static_cast<int64_t>(8 - t) * Cout + n) * Cin + c]
+                 : w[(static_cast<int64_t>(t) * Cin + c) * Cout + n];
     uint32_t hi, lo;
     split_tf32(v, hi, lo);
     w2[i] = __uint_as_float(hi);
@@ -799,13 +387,13 @@ __global__ void split_weights_kernel(const float* __restrict__ w,
 }
 
 // split_weights_kernel on the caller's stream; the CUDA error of the launch.
-cudaError_t split_weights(const float* w, float* w2, int Cin, int Cout,
-                          int flip, cudaStream_t st) {
-  const int64_t n_el = 9LL * Cin * Cout;
+cudaError_t split_weights(const float* w, float* w2, int Cin, int Cs,
+                          int Cout, int flip, cudaStream_t st) {
+  const int64_t n_el = 9LL * Cs * Cout;
   const int64_t blocks = (n_el + 255) / 256;
   split_weights_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks
                                                              : 4096),
-                         256, 0, st>>>(w, w2, Cin, Cout, flip);
+                         256, 0, st>>>(w, w2, Cin, Cs, Cout, flip);
   return cudaGetLastError();
 }
 
@@ -1028,18 +616,20 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <int BN>
 cudaError_t launch(const float* x, const float* w2, const float* a,
                    const float* b, float* out, int N, int H, int W, int Cin,
-                   int Cout, int relu, cudaStream_t stream) {
+                   int xc, int Cout, int relu, cudaStream_t stream) {
   using T = Plan<BN>;
   CUtensorMap xmap, wmap;
+  // x (Cin, W, H, N) at pixel stride xc: TMA reads Cin channels of each
+  // pixel and fills zeros past them (past a padded copy's too)
   const uint64_t xd[4] = {static_cast<uint64_t>(Cin),
                           static_cast<uint64_t>(W), static_cast<uint64_t>(H),
                           static_cast<uint64_t>(N)};
-  const uint64_t xs[3] = {4ull * Cin, 4ull * Cin * W, 4ull * Cin * W * H};
+  const uint64_t xs[3] = {4ull * xc, 4ull * xc * W, 4ull * xc * W * H};
   const uint32_t xb[4] = {KC, PW, PH, 1};
-  // the split copies [2][Cout][9][Cin] as (Cin, 9, Cout, 2)
+  // the split copies [2][Cout][9][xc] as (Cin, 9, Cout, 2)
   const uint64_t wd[4] = {static_cast<uint64_t>(Cin), 9,
                           static_cast<uint64_t>(Cout), 2};
-  const uint64_t wstr[3] = {4ull * Cin, 36ull * Cin, 36ull * Cin * Cout};
+  const uint64_t wstr[3] = {4ull * xc, 36ull * xc, 36ull * xc * Cout};
   const uint32_t wbox[4] = {KC, 1, BN, 1};
   if (!sm90::encode_f32_map(&xmap, x, 4, xd, xs, xb) ||
       !sm90::encode_f32_map(&wmap, w2, 4, wd, wstr, wbox))
@@ -1064,19 +654,21 @@ cudaError_t launch(const float* x, const float* w2, const float* a,
 
 cudaError_t run(const float* x, const float* w, const float* a,
                 const float* b, float* out, float* w2, int N, int H, int W,
-                int Cin, int Cout, int relu, int flip, cudaStream_t st) {
-  const cudaError_t err = split_weights(w, w2, Cin, Cout, flip, st);
+                int Cin, int xc, int Cout, int relu, int flip,
+                cudaStream_t st) {
+  const cudaError_t err = split_weights(w, w2, Cin, xc, Cout, flip, st);
   if (err != cudaSuccess) return err;
   switch (tile_n(Cout)) {
     case 16:
-      return launch<16>(x, w2, a, b, out, N, H, W, Cin, Cout, relu, st);
+      return launch<16>(x, w2, a, b, out, N, H, W, Cin, xc, Cout, relu, st);
     case 24:
-      return launch<24>(x, w2, a, b, out, N, H, W, Cin, Cout, relu, st);
+      return launch<24>(x, w2, a, b, out, N, H, W, Cin, xc, Cout, relu, st);
     case 64:
-      return launch<64>(x, w2, a, b, out, N, H, W, Cin, Cout, relu, st);
+      return launch<64>(x, w2, a, b, out, N, H, W, Cin, xc, Cout, relu, st);
     default:
       if constexpr (MAX_TILE_N == 128)
-        return launch<128>(x, w2, a, b, out, N, H, W, Cin, Cout, relu, st);
+        return launch<128>(x, w2, a, b, out, N, H, W, Cin, xc, Cout, relu,
+                           st);
       return cudaErrorInvalidValue;
   }
 }
@@ -1360,20 +952,21 @@ inline long long out_tiles(int Cin, int Cout) {
 
 template <int BN>
 cudaError_t launch(const float* x, const float* g, float* dst, int N, int H,
-                   int W, int Cin, int Cout, int splits,
+                   int W, int Cin, int Cout, int xc, int gc, int splits,
                    cudaStream_t stream) {
   using T = Plan<BN>;
   CUtensorMap xmap, gmap;
+  // x and g at pixel strides xc and gc (a padded copy's 4 ceil(C / 4)):
+  // TMA reads their Cin and Cout channels and fills zeros past them
   const uint64_t xd[4] = {static_cast<uint64_t>(Cin),
                           static_cast<uint64_t>(W), static_cast<uint64_t>(H),
                           static_cast<uint64_t>(N)};
-  const uint64_t xs[3] = {4ull * Cin, 4ull * Cin * W, 4ull * Cin * W * H};
+  const uint64_t xs[3] = {4ull * xc, 4ull * xc * W, 4ull * xc * W * H};
   const uint32_t xb[4] = {32, PW, TH, 1};
   const uint64_t gd[4] = {static_cast<uint64_t>(Cout),
                           static_cast<uint64_t>(W), static_cast<uint64_t>(H),
                           static_cast<uint64_t>(N)};
-  const uint64_t gstr[3] = {4ull * Cout, 4ull * Cout * W,
-                            4ull * Cout * W * H};
+  const uint64_t gstr[3] = {4ull * gc, 4ull * gc * W, 4ull * gc * W * H};
   const uint32_t gb[4] = {32, TW, TH, 1};
   if (!sm90::encode_f32_map(&xmap, x, 4, xd, xs, xb) ||
       !sm90::encode_f32_map(&gmap, g, 4, gd, gstr, gb))
@@ -1389,10 +982,11 @@ cudaError_t launch(const float* x, const float* g, float* dst, int N, int H,
 }
 
 cudaError_t run(const float* x, const float* g, float* dst, int N, int H,
-                int W, int Cin, int Cout, int splits, cudaStream_t st) {
+                int W, int Cin, int Cout, int xc, int gc, int splits,
+                cudaStream_t st) {
   return tile_n(Cout) == 16
-             ? launch<16>(x, g, dst, N, H, W, Cin, Cout, splits, st)
-             : launch<64>(x, g, dst, N, H, W, Cin, Cout, splits, st);
+             ? launch<16>(x, g, dst, N, H, W, Cin, Cout, xc, gc, splits, st)
+             : launch<64>(x, g, dst, N, H, W, Cin, Cout, xc, gc, splits, st);
 }
 
 }  // namespace wgf
@@ -1587,12 +1181,12 @@ __global__ void __launch_bounds__(F_THREADS, 1)
           cp_async_n(rb + i * 16, bytes ? x + g0 : x, bytes);
         }
       }
-      nar::cp_async_commit();   // one group a tile, empty past the end
+      sm90::cp_async_commit();   // one group a tile, empty past the end
       if (it < F_LAG) continue;
       const int done = it - F_LAG, st = done % F_STAGES;
       int img, h0, w0;
       origin(first + done * gridDim.x, img, h0, w0);
-      nar::cp_async_wait<F_LAG>();   // tile ``done``'s copies, then all
+      sm90::cp_async_wait<F_LAG>();   // tile ``done``'s copies, then all
       asm volatile("bar.sync 1, %0;\n" ::"n"(F_PRODUCERS) : "memory");
       if (w0 == 0 || w0 + F_TW + 1 > W) {
         float* rf = reinterpret_cast<float*>(stages + st * RSTAGE);
@@ -1784,7 +1378,7 @@ cudaError_t fwd_run(const float* x, const float* w, const float* a,
                     cudaStream_t st) {
   if (reinterpret_cast<uintptr_t>(x) & 15)   // its 16-byte copies
     return cudaErrorInvalidValue;
-  const cudaError_t err = split_weights(w, w2, Cin, Cout, flip, st);
+  const cudaError_t err = split_weights(w, w2, Cin, Cin, Cout, flip, st);
   if (err != cudaSuccess) return err;
 #define PK_FWD_CASE(G) \
   case G:              \
@@ -1953,7 +1547,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
             cp_async_n(rb + i * 16, nar + g0, 4 * n4);
           }
         }
-        nar::cp_async_commit();   // one group a tile, empty past the end
+        sm90::cp_async_commit();   // one group a tile, empty past the end
       };
       auto build = [&](int t, unsigned char* pl, const unsigned char* rb) {
         int img, h0, w0;
@@ -1998,7 +1592,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       for (int k = 0; k < W_RAW - 1; ++k) load_raw(t_begin + k);
       for (int it = 0; it < t_end - t_begin; ++it) {
         const int pbuf = it & 1;
-        nar::cp_async_wait<W_RAW - 2>();   // this tile's copies
+        sm90::cp_async_wait<W_RAW - 2>();   // this tile's copies
         asm volatile("bar.sync 1, %0;\n" ::"n"(W_BUILDERS) : "memory");
         sm90::mbar_wait(&pempty[pbuf], ((it >> 1) & 1) ^ 1);
         build(t_begin + it, planes + pbuf * 2 * PLANE,
@@ -2078,10 +1672,8 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   }
 }
 
-// Blocks of one split: the wide side's 64-channel tiles.
-inline long long out_tiles(int Cin, int Cout) {
-  return ((Cout % 4 != 0 ? Cin : Cout) + 63) / 64;
-}
+// Blocks of one split: the wide side's 64-channel tiles (Cw its channels).
+inline long long out_tiles(int Cw) { return (Cw + 63) / 64; }
 
 template <int BN>
 cudaError_t wgrad_launch(const CUtensorMap& wmap, const float* nar,
@@ -2098,21 +1690,26 @@ cudaError_t wgrad_launch(const CUtensorMap& wmap, const float* nar,
   return cudaGetLastError();
 }
 
-// x-side (the stem): x narrow, g wide; g-side (the head): g narrow, x
-// wide.
+// x-side (the stem's case): x narrow, read as it lies (its pixel stride
+// xc = Cin, Cin % 4 != 0), g wide; g-side (the head's): g narrow (gc =
+// Cout), x wide. The wide side by TMA at its pixel stride (a padded copy
+// where its channels are no multiple of 4: both sides narrow), Cw
+// channels of each pixel and zeros past them; the block's 64 wide
+// channels (M) are masked at Cw where it stores.
 cudaError_t wgrad_run(const float* x, const float* g, float* dst, int N,
-                      int H, int W, int Cin, int Cout, int splits,
-                      cudaStream_t st) {
-  const int head = Cout % 4 != 0;
+                      int H, int W, int Cin, int Cout, int xc, int gc,
+                      int splits, cudaStream_t st) {
+  const int head = gc % 4 != 0;
   const float* wide = head ? x : g;
   const float* nar = head ? g : x;
   const int Cw = head ? Cin : Cout, Cn = head ? Cout : Cin;
+  const uint64_t cs = static_cast<uint64_t>(head ? xc : gc);
   if (reinterpret_cast<uintptr_t>(nar) & 15)   // its 16-byte copies
     return cudaErrorInvalidValue;
   CUtensorMap wmap;
   const uint64_t d[4] = {static_cast<uint64_t>(Cw), static_cast<uint64_t>(W),
                          static_cast<uint64_t>(H), static_cast<uint64_t>(N)};
-  const uint64_t s[3] = {4ull * Cw, 4ull * Cw * W, 4ull * Cw * W * H};
+  const uint64_t s[3] = {4 * cs, 4 * cs * W, 4 * cs * W * H};
   const uint32_t box[4] = {32, W_TW, W_TH, 1};
   if (!sm90::encode_f32_map(&wmap, wide, 4, d, s, box))
     return cudaErrorInvalidValue;
@@ -2430,7 +2027,7 @@ cudaError_t launch(const float* x, const float* w2, const float* a,
 cudaError_t run(const float* x, const float* w, const float* a,
                 const float* b, float* out, float* w2, int N, int H, int W,
                 int Cin, int Cout, int relu, cudaStream_t st) {
-  const cudaError_t err = split_weights(w, w2, Cin, Cout, 0, st);
+  const cudaError_t err = split_weights(w, w2, Cin, Cin, Cout, 0, st);
   if (err != cudaSuccess) return err;
   switch (tile_n(Cout)) {
     case 16:
@@ -2448,72 +2045,84 @@ cudaError_t run(const float* x, const float* w, const float* a,
 
 // ---------------------------------------------------------- C interface
 
+namespace {
+
+// C rounded up to a multiple of 4: the pixel stride of a padded copy.
+int padded(int C) { return (C + 3) / 4 * 4; }
+
+// Pixels (N*H*W) stay below this: the kernels index pixels and tiles in
+// 32 bits, with a tile's overhang past the last pixel.
+constexpr long long kMaxPixels = (1LL << 31) - 128;
+
+}  // namespace
+
 // The route of a (Cin, Cout) call, of the forward or (``wgrad`` != 0) the
-// dW: 1 wgmma (the forward: Cin % 4 == 0; the dW: Cin % 4 == 0 and Cout %
-// 4 == 0, so TMA can describe x and g); 2 packed (the forward: Cin % 4 !=
-// 0 with 9 x Cin <= pk::K_MAX = 192; the dW: one side so, the other's
-// channels % 4 == 0); 0 narrow.
+// dW. 2 packed: the forward where Cin % 4 != 0 with 9 x Cin <= pk::K_MAX
+// = 192; the dW where one side is so and the other's channels are a
+// multiple of 4, or both sides are so (conv3x3_wgrad_f32_packed_side:
+// the side read as it lies; the other goes as its padded copy). 1 wgmma,
+// TMA over x (and g) at a pixel stride of 4 ceil(C / 4): every other call,
+// a side whose channels are no multiple of 4 as the wrapper's padded copy
+// (conv3x3_f32_pad_channels), e.g. the 150-class head's dx and dW.
 extern "C" int conv3x3_f32_route(int Cin, int Cout, int wgrad) {
   using f32c::pk::K_MAX;
-  if (!wgrad) return Cin % 4 == 0 ? 1 : 9 * Cin <= K_MAX ? 2 : 0;
-  if (Cin % 4 == 0 && Cout % 4 == 0) return 1;
-  if ((Cin % 4 != 0 && 9 * Cin <= K_MAX && Cout % 4 == 0) ||
-      (Cout % 4 != 0 && 9 * Cout <= K_MAX && Cin % 4 == 0))
-    return 2;
-  return 0;
+  const bool xn = Cin % 4 != 0, gn = Cout % 4 != 0;
+  const bool xp = xn && 9 * Cin <= K_MAX, gp = gn && 9 * Cout <= K_MAX;
+  if (!wgrad) return xp ? 2 : 1;
+  return (xp && !gn) || (gp && !xn) || (xp && gp) ? 2 : 1;
+}
+
+// The side a dW on route 2 reads as it lies: 0 x (the stem's case), 1 g
+// (the head's); with both sides narrow the one with fewer channels (x on
+// a tie), the other padded. -1 where route 1 takes the dW.
+extern "C" int conv3x3_wgrad_f32_packed_side(int Cin, int Cout) {
+  if (conv3x3_f32_route(Cin, Cout, 1) != 2) return -1;
+  if (Cin % 4 != 0 && Cout % 4 != 0) return Cout < Cin ? 1 : 0;
+  return Cout % 4 != 0 ? 1 : 0;
 }
 
 // The forward's tile N on the wgmma route.
 extern "C" int conv3x3_f32_tile_n(int Cout) { return f32c::fw::tile_n(Cout); }
 
-// f32 elements of the forward's workspace (the split weights on the wgmma
-// and packed routes; none on the narrow one).
-extern "C" long long conv3x3_bn_relu_f32_ws_floats(int Cin, int Cout) {
-  return conv3x3_f32_route(Cin, Cout, 0) ? 18LL * Cin * Cout : 0;
+// f32 elements of the forward's workspace: the split weights, [2][Cout][9]
+// rows of x's pixel stride ``xc``.
+extern "C" long long conv3x3_bn_relu_f32_ws_floats(int xc, int Cout) {
+  return 18LL * xc * Cout;
 }
 
-namespace {
-
-bool bad_fwd_shape(int N, int H, int W, int Cin, int Cout) {
-  const long long P = static_cast<long long>(N) * H * W;
-  return N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 ||
-         P >= (1LL << 31) - f32c::nar::BM || 9LL * Cin * Cout >= (1LL << 31);
-}
-
-int narrow_fwd(const float* x, const float* w, const float* a,
-               const float* b, float* out, int N, int H, int W, int Cin,
-               int Cout, int relu, int flip, cudaStream_t st) {
-  using namespace f32c;
-  const long long P = static_cast<long long>(N) * H * W;
-  if ((Cout + nar::BN - 1) / nar::BN > 65535)
+// out (P, 4 ceil(C / 4)) f32 <- x (P, C) f32, zeros past C: the padded
+// copy route 1 reads of a side whose channels are no multiple of 4. x at
+// any 4-byte alignment, out 16-byte aligned. Returns the CUDA error of the
+// launch.
+extern "C" int conv3x3_f32_pad_channels(const void* x, void* out,
+                                        long long P, int C, void* stream) {
+  if (P <= 0 || C <= 0 || (reinterpret_cast<uintptr_t>(out) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((P + nar::BM - 1) / nar::BM),
-                  (Cout + nar::BN - 1) / nar::BN);
-  void (*kernel)(const float*, const float*, const float*, const float*,
-                 float*, int, int, int, int, int, int) =
-      flip ? nar::conv_f32_kernel<true> : nar::conv_f32_kernel<false>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       nar::FWD_SMEM);
-  kernel<<<grid, nar::THREADS, nar::FWD_SMEM, st>>>(
-      x, w, a, b, out, H, W, static_cast<int>(P), Cin, Cout, relu);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(f32c::pad_channels(
+      static_cast<const float*>(x), static_cast<float*>(out), P, C,
+      static_cast<cudaStream_t>(stream)));
 }
-
-}  // namespace
 
 // out (N,H,W,Cout) f32 = relu(conv3x3_pad1(x, w) * a + b): x (N,H,W,Cin)
-// f32; w (3,3,Cin,Cout) f32, or with ``flip`` (3,3,Cout,Cin) read as the
-// tap-reversed transpose (K1's dx); a, b (Cout,) f32; ws: the workspace of
-// conv3x3_bn_relu_f32_ws_floats elements (16-byte aligned; may be null on
-// the narrow route). x 16-byte aligned on the wgmma and packed routes.
-// Returns the CUDA error of the launches.
+// f32 at a pixel stride of ``xc`` elements; w (3,3,Cin,Cout) f32, or with
+// ``flip`` (3,3,Cout,Cin) read as the tap-reversed transpose (K1's dx);
+// a, b (Cout,) f32; ws: the workspace of conv3x3_bn_relu_f32_ws_floats(xc,
+// Cout) elements, 16-byte aligned. The layout names the route: xc % 4 ==
+// 0, route 1 (xc = Cin, or 4 ceil(Cin / 4) for a padded copy: TMA reads
+// Cin channels of each pixel and fills zeros past them); else route 2 (xc
+// = Cin, 9 x Cin <= K_MAX). x 16-byte aligned. Returns the CUDA error of
+// the launches.
 extern "C" int conv3x3_bn_relu_f32(const void* x, const void* w,
                                    const void* a, const void* b, void* out,
                                    void* ws, int N, int H, int W, int Cin,
-                                   int Cout, int relu, int flip,
+                                   int Cout, int xc, int relu, int flip,
                                    void* stream) {
   using namespace f32c;
-  if (bad_fwd_shape(N, H, W, Cin, Cout))
+  const long long P = static_cast<long long>(N) * H * W;
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 ||
+      P >= kMaxPixels || (xc != Cin && xc != padded(Cin)) ||
+      (xc % 4 != 0 && 9 * Cin > pk::K_MAX) ||
+      9LL * xc * Cout >= (1LL << 31) || ws == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto xf = static_cast<const float*>(x);
@@ -2521,17 +2130,12 @@ extern "C" int conv3x3_bn_relu_f32(const void* x, const void* w,
   auto af = static_cast<const float*>(a);
   auto bf = static_cast<const float*>(b);
   auto of = static_cast<float*>(out);
-  const int route = conv3x3_f32_route(Cin, Cout, 0);
-  if (route && ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (route == 1)
-    return static_cast<int>(fw::run(xf, wf, af, bf, of,
-                                     static_cast<float*>(ws), N, H, W, Cin,
+  auto w2 = static_cast<float*>(ws);
+  if (xc % 4 == 0)
+    return static_cast<int>(fw::run(xf, wf, af, bf, of, w2, N, H, W, Cin, xc,
                                      Cout, relu, flip, st));
-  if (route == 2)
-    return static_cast<int>(pk::fwd_run(xf, wf, af, bf, of,
-                                        static_cast<float*>(ws), N, H, W,
-                                        Cin, Cout, relu, flip, st));
-  return narrow_fwd(xf, wf, af, bf, of, N, H, W, Cin, Cout, relu, flip, st);
+  return static_cast<int>(pk::fwd_run(xf, wf, af, bf, of, w2, N, H, W, Cin,
+                                      Cout, relu, flip, st));
 }
 
 // The f32 K5's shared bytes a block at ``Cout`` (0 outside its contract):
@@ -2575,54 +2179,46 @@ extern "C" int conv3x3_pair_bn_relu_f32(const void* x, const void* w,
       relu, static_cast<cudaStream_t>(stream)));
 }
 
-// The same on the narrow route whatever (Cin, Cout): the first design,
-// timed beside the packed route's kernels (chip_smoke phase 14).
-extern "C" int conv3x3_bn_relu_f32_narrow(const void* x, const void* w,
-                                          const void* a, const void* b,
-                                          void* out, int N, int H, int W,
-                                          int Cin, int Cout, int relu,
-                                          int flip, void* stream) {
-  if (bad_fwd_shape(N, H, W, Cin, Cout))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return narrow_fwd(static_cast<const float*>(x),
-                    static_cast<const float*>(w),
-                    static_cast<const float*>(a),
-                    static_cast<const float*>(b), static_cast<float*>(out),
-                    N, H, W, Cin, Cout, relu, flip,
-                    static_cast<cudaStream_t>(stream));
+// The dW's split-K range: 4 x 16 pixel tiles, on both routes. The wrapper
+// picks splits <= this.
+extern "C" long long conv3x3_wgrad_f32_pixel_tiles(int N, int H, int W) {
+  return f32c::wgf::pixel_tiles(N, H, W);
 }
 
-namespace {
-
-// The narrow dW's split-K range: 32-pixel chunks of the flattened N*H*W.
-long long narrow_chunks(int N, int H, int W) {
-  const long long P = static_cast<long long>(N) * H * W;
-  return (P + f32c::nar::BK - 1) / f32c::nar::BK;
+// Blocks per split: on the wgmma route 3 kernel rows x 64-channel Cin
+// tiles x N tiles of Cout; on the packed one the wide side's 64-channel
+// tiles.
+extern "C" long long conv3x3_wgrad_f32_out_tiles(int Cin, int Cout) {
+  const int side = conv3x3_wgrad_f32_packed_side(Cin, Cout);
+  if (side < 0) return f32c::wgf::out_tiles(Cin, Cout);
+  return f32c::pk::out_tiles(side ? Cin : Cout);
 }
 
-long long narrow_out_tiles(int Cin, int Cout) {
-  return ((9LL * Cin + f32c::nar::WM - 1) / f32c::nar::WM) *
-         ((Cout + f32c::nar::WN - 1) / f32c::nar::WN);
-}
-
-// The dW on ``route`` (1 wgmma, 2 packed, 0 narrow): its split-K pass
-// and, past one split, the ordered sum of the splits.
-int wgrad_on(int route, const void* x, const void* g, void* out, void* ws,
-             int N, int H, int W, int Cin, int Cout, int splits,
-             void* stream) {
+// dW (3,3,Cin,Cout) f32 <- x (N,H,W,Cin) f32 at a pixel stride of ``xc``
+// elements and g (N,H,W,Cout) f32 at ``gc``, each its channels or (a
+// padded copy) 4 ceil(channels / 4). The layout names the route: both
+// strides multiples of 4, route 1; one side as it lies with channels % 4
+// != 0 and 9 x them <= K_MAX, route 2 (the other side wide, by TMA). ws:
+// f32 workspace of splits * 9 * Cin * Cout elements when splits > 1
+// (unused at one split). x and g 16-byte aligned. Returns the CUDA error
+// of the launches.
+extern "C" int conv3x3_wgrad_f32(const void* x, const void* g, void* out,
+                                 void* ws, int N, int H, int W, int Cin,
+                                 int Cout, int xc, int gc, int splits,
+                                 void* stream) {
   using namespace f32c;
   const long long P = static_cast<long long>(N) * H * W;
-  const long long range =
-      route ? wgf::pixel_tiles(N, H, W) : narrow_chunks(N, H, W);
-  const long long blocks = route == 1   ? wgf::out_tiles(Cin, Cout)
-                           : route == 2 ? pk::out_tiles(Cin, Cout)
-                                        : narrow_out_tiles(Cin, Cout);
+  const bool xn = xc % 4 != 0, gn = gc % 4 != 0;   // a side as it lies
+  const long long range = wgf::pixel_tiles(N, H, W);
+  const long long blocks = !xn && !gn ? wgf::out_tiles(Cin, Cout)
+                           : pk::out_tiles(gn ? Cin : Cout);
   const long long elems = 9LL * Cin * Cout;
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 ||
-      P >= (1LL << 31) - 4 * nar::BK || elems >= (1LL << 31) || splits <= 0 ||
-      splits > 65535 || splits > range || blocks > 2147483647LL ||
-      (!route && (Cout + nar::WN - 1) / nar::WN > 65535) ||
-      (route == 2 && blocks > 65535) || (splits > 1 && ws == nullptr))
+      P >= kMaxPixels || (xc != Cin && xc != padded(Cin)) ||
+      (gc != Cout && gc != padded(Cout)) || (xn && gn) ||
+      9 * (xn ? Cin : gn ? Cout : 0) > pk::K_MAX || elems >= (1LL << 31) ||
+      splits <= 0 || splits > 65535 || splits > range || blocks > 65535 ||
+      (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto xf = static_cast<const float*>(x);
@@ -2630,70 +2226,14 @@ int wgrad_on(int route, const void* x, const void* g, void* out, void* ws,
   auto of = static_cast<float*>(out);
   float* dst = splits > 1 ? static_cast<float*>(ws) : of;
   cudaError_t e;
-  if (route == 1) {
-    e = wgf::run(xf, gf, dst, N, H, W, Cin, Cout, splits, st);
-  } else if (route == 2) {
-    e = pk::wgrad_run(xf, gf, dst, N, H, W, Cin, Cout, splits, st);
+  if (!xn && !gn) {
+    e = wgf::run(xf, gf, dst, N, H, W, Cin, Cout, xc, gc, splits, st);
   } else {
-    const int per = static_cast<int>((range + splits - 1) / splits);
-    const dim3 grid(static_cast<unsigned>((9LL * Cin + nar::WM - 1) / nar::WM),
-                    (Cout + nar::WN - 1) / nar::WN, splits);
-    cudaFuncSetAttribute(nar::wgrad_f32_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         nar::WG_SMEM);
-    nar::wgrad_f32_kernel<<<grid, nar::THREADS, nar::WG_SMEM, st>>>(
-        xf, gf, dst, H, W, static_cast<int>(P), Cin, Cout, per,
-        static_cast<int>(range));
-    e = cudaGetLastError();
+    e = pk::wgrad_run(xf, gf, dst, N, H, W, Cin, Cout, xc, gc, splits, st);
   }
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   const int sum_blocks = static_cast<int>(
       (elems + 255) / 256 < 8192 ? (elems + 255) / 256 : 8192);
   sum_splits_kernel<<<sum_blocks, 256, 0, st>>>(dst, of, elems, splits);
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// The dW's split-K range: on the wgmma and packed routes 4 x 16 pixel
-// tiles, on the narrow one 32-pixel chunks of the flattened N*H*W. The
-// wrapper picks splits <= this.
-extern "C" long long conv3x3_wgrad_f32_pixel_tiles(int N, int H, int W,
-                                                   int Cin, int Cout) {
-  if (conv3x3_f32_route(Cin, Cout, 1)) return f32c::wgf::pixel_tiles(N, H, W);
-  return narrow_chunks(N, H, W);
-}
-
-// Blocks per split: on the wgmma route 3 kernel rows x 64-channel Cin
-// tiles x N tiles of Cout; on the packed one the wide side's 64-channel
-// tiles; on the narrow one 64 rows of (tap, Cin) x 64 of Cout.
-extern "C" long long conv3x3_wgrad_f32_out_tiles(int Cin, int Cout) {
-  switch (conv3x3_f32_route(Cin, Cout, 1)) {
-    case 1:
-      return f32c::wgf::out_tiles(Cin, Cout);
-    case 2:
-      return f32c::pk::out_tiles(Cin, Cout);
-    default:
-      return narrow_out_tiles(Cin, Cout);
-  }
-}
-
-// dW (3,3,Cin,Cout) f32 <- x (N,H,W,Cin) f32, g (N,H,W,Cout) f32. ws: f32
-// workspace of splits * 9 * Cin * Cout elements when splits > 1 (unused
-// at one split). x and g 16-byte aligned on the wgmma and packed routes.
-// Returns the CUDA error of the launches.
-extern "C" int conv3x3_wgrad_f32(const void* x, const void* g, void* out,
-                                 void* ws, int N, int H, int W, int Cin,
-                                 int Cout, int splits, void* stream) {
-  return wgrad_on(conv3x3_f32_route(Cin, Cout, 1), x, g, out, ws, N, H, W,
-                  Cin, Cout, splits, stream);
-}
-
-// The same on the narrow route whatever (Cin, Cout), splits <= its 32-pixel
-// chunks: the first design, timed beside the packed route's kernels.
-extern "C" int conv3x3_wgrad_f32_narrow(const void* x, const void* g,
-                                        void* out, void* ws, int N, int H,
-                                        int W, int Cin, int Cout, int splits,
-                                        void* stream) {
-  return wgrad_on(0, x, g, out, ws, N, H, W, Cin, Cout, splits, stream);
 }

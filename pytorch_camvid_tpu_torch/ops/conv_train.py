@@ -16,16 +16,21 @@ and backward kernels: counterpart of
 
 At float32 (the JAX CLIs' default) all three pieces run
 ``csrc/conv3x3_f32.cu``: the forward and dx on its split-TF32 forward
-(``fused_conv``'s f32 routes), dW on its split-TF32 dW, route "f32"
-(wgmma + TMA: 4 x 16 pixel tiles, each g tile transposed once into hi and
-lo planes) where TMA can describe x and g (Cin % 4 == 0, Cout % 4 == 0),
-"f32_packed" (wgmma: the wide side by TMA as A, the narrow side's 9 taps
-x channels as K-major hi and lo planes, the same pixel tiles) where one
-side is narrow (channels % 4 != 0, 9 x channels <= 192: the stem, VOC's
-64 -> 21 head) and the other not, "f32_narrow" (mma.sync over 32-pixel
-chunks) otherwise (``wgrad_f32_route``); all split-K
-(``wgrad_f32_splits``) with a second pass that sums the splits in a
-fixed order, so two launches give the same bits.
+(``fused_conv``'s f32 routes), dW on its split-TF32 dW
+(``wgrad_f32_route``): "f32_packed" (wgmma: the wide side by TMA as A,
+the narrow side's 9 taps x channels as K-major hi and lo planes, 4 x 16
+pixel tiles) where a side is narrow (channels % 4 != 0, 9 x channels <=
+192: the stem, VOC's 64 -> 21 head) and the other's channels are a
+multiple of 4 or narrow too (UNet 5/64's 5 -> 5: the side with fewer
+channels read as it lies, the other as its padded copy), "f32" (wgmma +
+TMA over x and g, each g tile transposed once into hi and lo planes, the
+same pixel tiles) otherwise, a side whose channels are no multiple of 4
+as its padded copy (``fused_conv.pad_channels``; ``wgrad_f32_pads``):
+the 150-class head's 64 -> 150; all split-K (``wgrad_f32_splits``) with
+a second pass that sums the splits in a fixed order, so two launches
+give the same bits. A backward pads its cotangent once and hands the
+copy to both dx and dW; a forward that padded x keeps the copy for its
+dW.
 
 Each piece has a wrapper (``conv3x3_fwd``, ``conv3x3_dgrad``,
 ``conv3x3_wgrad``) that runs its plain version on a CPU tensor and its
@@ -33,8 +38,8 @@ kernel on a CUDA tensor, or raises (an empty map, SegNet's deepest stage
 under 16 rows or columns, is no work: an empty result, or dW's zeros,
 without a launch); each counts its kernel launches in
 ``.launches`` and per kernel path in ``.path_launches``: the forward and
-dx by ``fused_conv.route`` ("wgmma", "packed" or "narrow" in bf16, "f32",
-"f32_packed" or "f32_narrow"), dW by ``wgrad_route`` (likewise). The plain
+dx by ``fused_conv.route`` ("wgmma", "packed" or "narrow" in bf16, "f32"
+or "f32_packed"), dW by ``wgrad_route`` (likewise). The plain
 versions are ``conv3x3_train_plain`` (``F.conv2d``,
 differentiated by autograd), ``conv3x3_dgrad_plain``
 (``torch.nn.grad.conv2d_input``) and ``conv3x3_wgrad_plain``
@@ -50,17 +55,20 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_camvid_tpu_torch.ops import cuda_build
-from pytorch_camvid_tpu_torch.ops.fused_conv import (ROUTES,
+from pytorch_camvid_tpu_torch.ops.fused_conv import (F32_MAX_PIXELS,
+                                                     ROUTES,
                                                      _holds_last_chunk,
                                                      aligned16,
                                                      conv3x3_bn_relu,
-                                                     f32_library, route,
+                                                     f32_library,
+                                                     f32_pads_input,
+                                                     pad_channels,
+                                                     padded_input, route,
                                                      whole_chunks)
 from pytorch_camvid_tpu_torch.ops.library import eager_cache
 
 WGRAD_PATHS = ("narrow", "wgmma", "packed")   # by the .cu's path code
-WGRAD_ROUTES = WGRAD_PATHS + ("f32", "f32_narrow",
-                              "f32_packed")   # the counters' keys
+WGRAD_ROUTES = WGRAD_PATHS + ("f32", "f32_packed")   # the counters' keys
 
 WGRAD_SOURCE = cuda_build.CSRC / "conv3x3_wgrad.cu"
 # split-K target in blocks per SM: the wgmma kernel's (one resident per
@@ -93,11 +101,8 @@ NARROW_ACC_MAX = 128
 # tiles of F32_TH x F32_TW, blocks of one kernel row x F32_BM input
 # channels x an N tile of Cout (``wgrad_f32_tile_n``), one resident per
 # SM. Route "f32_packed" (namespace pk): the same pixel tiles, blocks of
-# F32_BM channels of the wide side, one resident per SM. Route
-# "f32_narrow" (namespace nar): 32-pixel chunks, 64 x 64 output tiles of
-# (tap, Cin) rows x Cout, four blocks resident per SM.
+# F32_BM channels of the wide side, one resident per SM.
 F32_TH, F32_TW, F32_BM = 4, 16, 64
-F32_CHUNK, F32_TILE, F32_BLOCKS_PER_SM = 32, 64, 4
 
 
 def _nchw(t: torch.Tensor) -> torch.Tensor:
@@ -183,18 +188,41 @@ def wgrad_path(cin: int, cout: int) -> str:
     return "narrow"
 
 
+def packed_narrow_side(cin: int, cout: int):
+    """The side route "f32_packed" would read as it lies at (Cin, Cout):
+    "x" (the stem's case) or "g" (the head's), a side whose channels are
+    no multiple of 4 with 9 x them <= PACKED_M_MAX, the other's channels a
+    multiple of 4 or narrow too; with both sides so, the one with fewer
+    channels ("x" on a tie). None where neither side can be."""
+    xp = cin % 4 != 0 and 9 * cin <= PACKED_M_MAX
+    gp = cout % 4 != 0 and 9 * cout <= PACKED_M_MAX
+    if xp and gp:
+        return "g" if cout < cin else "x"
+    if xp and cout % 4 == 0:
+        return "x"
+    if gp and cin % 4 == 0:
+        return "g"
+    return None
+
+
 def wgrad_f32_route(cin: int, cout: int) -> str:
-    """The f32 dW's route at (Cin, Cout): "f32" (wgmma + TMA) where TMA can
-    describe x and g, Cin % 4 == 0 and Cout % 4 == 0; "f32_packed" where
-    one side is narrow (channels % 4 != 0, 9 x channels <= PACKED_M_MAX)
-    and the other's channels % 4 == 0: the Cin = 3 stem, VOC's 64 -> 21
-    head; "f32_narrow" (mma.sync) otherwise, e.g. 23 -> 64 or 3 -> 21."""
-    if cin % 4 == 0 and cout % 4 == 0:
-        return "f32"
-    if ((cin % 4 and 9 * cin <= PACKED_M_MAX and cout % 4 == 0)
-            or (cout % 4 and 9 * cout <= PACKED_M_MAX and cin % 4 == 0)):
-        return "f32_packed"
-    return "f32_narrow"
+    """The f32 dW's route at (Cin, Cout): "f32_packed" where a side can be
+    read as it lies (``packed_narrow_side``): the Cin = 3 stem, VOC's 64 ->
+    21 head, UNet 5/64's 5 -> 5 and 10 -> 5, 3 -> 21; "f32" (wgmma + TMA)
+    otherwise, a side whose channels are no multiple of 4 as its padded
+    copy (the 23- and 150-class heads, 23 -> 64, 6 -> 150)."""
+    return "f32_packed" if packed_narrow_side(cin, cout) else "f32"
+
+
+def wgrad_f32_pads(cin: int, cout: int, route: str = None) -> tuple:
+    """(pad x, pad g): whether the f32 dW at (Cin, Cout) on ``route`` (by
+    default ``wgrad_f32_route``'s) reads x and g as their padded copies
+    (``fused_conv.pad_channels``): on "f32" each side whose channels are
+    no multiple of 4; on "f32_packed" the side not read as it lies, where
+    its channels are no multiple of 4."""
+    route = route or wgrad_f32_route(cin, cout)
+    side = packed_narrow_side(cin, cout) if route == "f32_packed" else None
+    return (cin % 4 != 0 and side != "x", cout % 4 != 0 and side != "g")
 
 
 def wgrad_route(dtype: torch.dtype, cin: int, cout: int) -> str:
@@ -229,49 +257,38 @@ def wgrad_f32_plan(cout: int) -> dict:
             + 1024}
 
 
-def wgrad_f32_pixel_tiles(n: int, h: int, w: int, cin: int, cout: int,
-                          route: str = None) -> int:
-    """The f32 dW's split-K range on ``route`` (by default
-    ``wgrad_f32_route``'s; the .cu's ``conv3x3_wgrad_f32_pixel_tiles``):
-    F32_TH x F32_TW pixel tiles on "f32" and "f32_packed", 32-pixel chunks
-    of the flattened N*H*W on "f32_narrow"."""
-    if (route or wgrad_f32_route(cin, cout)) != "f32_narrow":
-        return n * -(-h // F32_TH) * -(-w // F32_TW)
-    return -(-n * h * w // F32_CHUNK)
+def wgrad_f32_pixel_tiles(n: int, h: int, w: int) -> int:
+    """The f32 dW's split-K range, F32_TH x F32_TW pixel tiles on both
+    routes (the .cu's ``conv3x3_wgrad_f32_pixel_tiles``)."""
+    return n * -(-h // F32_TH) * -(-w // F32_TW)
 
 
 def wgrad_f32_out_tiles(cin: int, cout: int, route: str = None) -> int:
     """The f32 dW's blocks per split on ``route`` (by default
     ``wgrad_f32_route``'s; the .cu's ``conv3x3_wgrad_f32_out_tiles``): on
     "f32" 3 kernel rows x F32_BM-channel tiles of Cin x N tiles of Cout;
-    on "f32_packed" F32_BM-channel tiles of the wide side; on
-    "f32_narrow" 64-row tiles of the 9 x Cin (tap, channel) rows x
-    64-channel tiles of Cout."""
+    on "f32_packed" F32_BM-channel tiles of the wide side (the one
+    ``packed_narrow_side`` does not name)."""
     route = route or wgrad_f32_route(cin, cout)
     if route == "f32":
         return 3 * -(-cin // F32_BM) * -(-cout // wgrad_f32_tile_n(cout))
-    if route == "f32_packed":
-        return -(-(cin if cout % 4 else cout) // F32_BM)
-    return -(-9 * cin // F32_TILE) * -(-cout // F32_TILE)
+    wide = cin if packed_narrow_side(cin, cout) == "g" else cout
+    return -(-wide // F32_BM)
 
 
 def wgrad_f32_splits(n: int, h: int, w: int, cin: int, cout: int,
                      sms: int, route: str = None) -> int:
     """The f32 dW's split-K factor on ``route`` (by default
-    ``wgrad_f32_route``'s), at most one split per pixel tile. On
-    "f32_narrow": enough splits for ``F32_BLOCKS_PER_SM`` blocks on each of
-    ``sms`` SMs. On "f32" and "f32_packed" (one block resident per SM):
-    from two waves' worth of blocks ("f32_packed": one; its blocks are
-    alike, so one wave keeps every SM busy with half the workspace),
-    rounded down, the fewest splits up to eight times as many whose last
-    wave is at least 90% full, so the splits fill whole waves (at 192
-    blocks a split, one split would leave the second wave 45% full; two
-    fill 91% of the third)."""
+    ``wgrad_f32_route``'s), at most one split per pixel tile. One block is
+    resident per SM: from two waves' worth of blocks ("f32_packed": one;
+    its blocks are alike, so one wave keeps every SM busy with half the
+    workspace), rounded down, the fewest splits up to eight times as many
+    whose last wave is at least 90% full, so the splits fill whole waves
+    (at 192 blocks a split, one split would leave the second wave 45%
+    full; two fill 91% of the third)."""
     route = route or wgrad_f32_route(cin, cout)
     blocks = wgrad_f32_out_tiles(cin, cout, route)
-    cap = min(wgrad_f32_pixel_tiles(n, h, w, cin, cout, route), 65535)
-    if route == "f32_narrow":
-        return max(1, min(-(-F32_BLOCKS_PER_SM * sms // blocks), cap))
+    cap = min(wgrad_f32_pixel_tiles(n, h, w), 65535)
     waves = 1 if route == "f32_packed" else 2
     want = max(1, waves * sms // blocks)
     for s in range(want, min(cap, 8 * want) + 1):
@@ -283,7 +300,8 @@ def wgrad_f32_splits(n: int, h: int, w: int, cin: int, cout: int,
 def wgrad_f32_packed_plan(cin: int, cout: int) -> dict:
     """The f32 packed dW's plan at (Cin, Cout) on that route (the .cu's
     ``pk::w_tile_n`` and ``pk::wgrad_smem``): the narrow side's channels
-    ``narrow`` (x's for the stem, g's for the head); consumer warpgroup dy
+    ``narrow`` (x's for the stem, g's for the head: the side
+    ``packed_narrow_side`` names); consumer warpgroup dy
     takes kernel row dy's 3 x narrow (dx, channel) rows as N, padded to
     ``n`` (16 up to 16 rows, 24 up to 24, else 64: 16 at the stem, 64 at
     VOC's 21); M = 64 channels of the wide side a block, one block an SM.
@@ -297,7 +315,7 @@ def wgrad_f32_packed_plan(cin: int, cout: int) -> dict:
     ``static_assert``s hold (at Cn 3 and 21). Off the route it raises."""
     if wgrad_f32_route(cin, cout) != "f32_packed":
         raise ValueError(f"{cin}->{cout} is not on the f32 packed dW route")
-    narrow = cin if cin % 4 else cout
+    narrow = cin if packed_narrow_side(cin, cout) == "x" else cout
     rows = 3 * narrow
     n = 16 if rows <= 16 else 24 if rows <= 24 else 64
     plane = 6 * 2 * n * 32
@@ -418,27 +436,31 @@ def _count(fn, path: str) -> None:
     fn.path_launches[path] += 1
 
 
-def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor,
+                xp: torch.Tensor = None) -> torch.Tensor:
     """conv3x3 pad-1: K4's kernel with a unit affine and no ReLU (on a CPU
-    tensor, its plain version; while tracing, K4's op). Counts launches,
-    not traces."""
+    tensor, its plain version; while tracing, K4's op), reading x's padded
+    copy ``xp`` where its f32 route pads x and the caller has one. Counts
+    launches, not traces."""
     ones, zeros = _unit_affine(w.shape[3], x.device)
-    out = conv3x3_bn_relu(x, w, ones, zeros, relu=False)
+    out = conv3x3_bn_relu(x, w, ones, zeros, relu=False, xp=xp)
     if (x.device.type == "cuda" and x.numel()
             and not torch.compiler.is_compiling()):
         _count(conv3x3_fwd, route(x.dtype, w.shape[2], w.shape[3]))
     return out
 
 
-def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor,
+                  gp: torch.Tensor = None) -> torch.Tensor:
     """dx (N,H,W,Cin) for the cotangent g (N,H,W,Cout) of a conv with HWIO
     weights w (3,3,Cin,Cout): K4's kernel on g, reading w tap-reversed and
-    transposed in place (``flip=True``). On a CPU tensor,
+    transposed in place (``flip=True``), and g's padded copy ``gp`` where
+    its f32 route pads g and the caller has one. On a CPU tensor,
     ``conv3x3_dgrad_plain``."""
     if g.device.type == "cpu":
         return conv3x3_dgrad_plain(g, w)
     ones, zeros = _unit_affine(w.shape[2], g.device)
-    out = conv3x3_bn_relu(g, w, ones, zeros, relu=False, flip=True)
+    out = conv3x3_bn_relu(g, w, ones, zeros, relu=False, flip=True, xp=gp)
     if g.numel():
         _count(conv3x3_dgrad, route(g.dtype, w.shape[3], w.shape[2]))
     return out
@@ -523,11 +545,12 @@ def _check_wgrad(x: torch.Tensor, g: torch.Tensor) -> None:
         raise ValueError(f"unsupported shape x {tuple(x.shape)}, g "
                          f"{tuple(g.shape)}")
     if x.dtype == torch.float32:
-        if (x.shape[0] * x.shape[1] * x.shape[2] >= 2 ** 31 - 4 * F32_CHUNK
+        if (x.shape[0] * x.shape[1] * x.shape[2] >= F32_MAX_PIXELS
                 or 9 * x.shape[3] * g.shape[3] >= 2 ** 31):
             raise ValueError(f"unsupported shape for the f32 dW: x "
                              f"{tuple(x.shape)}, g {tuple(g.shape)}")
-        return   # aligned16 gave TMA its 16-byte bases (narrow: any)
+        return   # aligned16 gave TMA and the packed route their 16-byte
+                 # bases; the padded copy reads any
     if x.data_ptr() % 16 or g.data_ptr() % 16:
         raise ValueError("x and g must be 16-byte aligned (TMA; the packed "
                          "and narrow paths' 16-byte loads)")
@@ -565,39 +588,53 @@ def _wgrad_launch(x: torch.Tensor, g: torch.Tensor,
     return out
 
 
-def _wgrad_f32_launch(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """One call of the f32 dW on checked CUDA inputs, on its route (the
-    split-K pass and, past one split, the sum over the splits in split
-    order): returns dW (3,3,Cin,Cout) f32; raises on a CUDA error."""
+def _wgrad_f32_launch(x: torch.Tensor, g: torch.Tensor,
+                      xp: torch.Tensor = None, gp: torch.Tensor = None,
+                      route: str = None) -> torch.Tensor:
+    """One call of the f32 dW on checked CUDA inputs on ``route`` (by
+    default ``wgrad_f32_route``'s; either route takes a shape with both
+    sides narrow): a side the route pads goes as its padded copy (``xp``,
+    ``gp`` where given, else one made here), then the split-K pass and,
+    past one split, the sum over the splits in split order. Returns dW
+    (3,3,Cin,Cout) f32; raises on a CUDA error."""
     n, h, wd, cin = x.shape
     cout = g.shape[3]
+    route = route or wgrad_f32_route(cin, cout)
+    pad_x, pad_g = wgrad_f32_pads(cin, cout, route)
+    xs = padded_input(x, xp) if pad_x else x
+    gs = padded_input(g, gp) if pad_g else g
     with torch.cuda.device(x.device):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        splits = wgrad_f32_splits(n, h, wd, cin, cout, sms)
+        splits = wgrad_f32_splits(n, h, wd, cin, cout, sms, route)
         out = torch.empty((3, 3, cin, cout), dtype=torch.float32,
                           device=x.device)
         ws = (torch.empty((splits, 3, 3, cin, cout), dtype=torch.float32,
                           device=x.device) if splits > 1 else None)
         err = f32_library().conv3x3_wgrad_f32(
-            x.data_ptr(), g.data_ptr(), out.data_ptr(),
+            xs.data_ptr(), gs.data_ptr(), out.data_ptr(),
             ws.data_ptr() if ws is not None else None, n, h, wd, cin, cout,
-            splits, torch.cuda.current_stream(x.device).cuda_stream)
+            xs.shape[3], gs.shape[3], splits,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_wgrad f32 kernel launch failed: CUDA "
                            f"error {err} at x {tuple(x.shape)}, Cout {cout}")
     return out
 
 
-def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, xp: torch.Tensor = None,
+                  gp: torch.Tensor = None) -> torch.Tensor:
     """dW (3,3,Cin,Cout) f32 of conv3x3 pad-1 from x (N,H,W,Cin) and the
-    cotangent g (N,H,W,Cout), NHWC contiguous.
+    cotangent g (N,H,W,Cout), NHWC contiguous; ``xp``, ``gp``: their
+    padded copies (``fused_conv.pad_channels``) where the caller has them,
+    read where the f32 route pads that side (else unused).
 
     On a CPU tensor this is ``conv3x3_wgrad_plain``. On a CUDA tensor it
     launches a Hopper kernel or raises: bf16 x and g on
     ``csrc/conv3x3_wgrad.cu`` (f32 accumulation), f32 x and g on the
     split-TF32 dW of ``csrc/conv3x3_f32.cu`` (``wgrad_f32_route``), both
     split-K with a deterministic second pass; an x or g whose data is not
-    16-byte aligned is copied first (``fused_conv.aligned16``)."""
+    16-byte aligned is copied first (``fused_conv.aligned16``; not a side
+    the padded copy reads, at any alignment)."""
     if x.device.type == "cpu":
         return conv3x3_wgrad_plain(x, g)
     if x.device.type != "cuda":
@@ -605,12 +642,15 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0 and x.shape[:3] == g.shape[:3]:
         # an empty map: the sum over no pixel, no work and no launch
         return torch.zeros((3, 3, x.shape[3], g.shape[3]), device=x.device)
-    x, g = aligned16(x), aligned16(g)
-    path = wgrad_route(x.dtype, x.shape[3], g.shape[3])
+    path = wgrad_route(x.dtype, x.shape[-1], g.shape[-1])
+    pad_x, pad_g = (wgrad_f32_pads(x.shape[-1], g.shape[-1])
+                    if x.dtype == torch.float32 else (False, False))
+    x = x if pad_x else aligned16(x)
+    g = g if pad_g else aligned16(g)
     if path == "narrow" and x.is_contiguous() and g.is_contiguous():
         x, g = whole_chunks(x), whole_chunks(g)
     _check_wgrad(x, g)
-    out = (_wgrad_f32_launch(x, g) if x.dtype == torch.float32
+    out = (_wgrad_f32_launch(x, g, xp, gp) if x.dtype == torch.float32
            else _wgrad_launch(x, g, path))
     _count(conv3x3_wgrad, path)
     return out
@@ -638,6 +678,20 @@ def path_launches() -> dict:
             "wgrad": dict(conv3x3_wgrad.path_launches)}
 
 
+def step_pad_copies(shapes) -> int:
+    """The padded copies (``fused_conv.pad_channels``) of one f32 training
+    step over conv blocks ``shapes`` ((H, W, Cin, Cout) each, forward
+    order; the stem's input needs no gradient): a forward's x where its
+    route pads it (kept for its dW), a backward's g once where its dx or
+    its dW pads it, and a dW's x where the forward did not pad it."""
+    copies = 0
+    for i, (_, _, cin, cout) in enumerate(shapes):
+        pad_x, pad_g = wgrad_f32_pads(cin, cout)
+        copies += f32_pads_input(cin, cout) or pad_x
+        copies += pad_g or (i > 0 and f32_pads_input(cout, cin))
+    return copies
+
+
 def step_path_launches(shapes, dtype: torch.dtype = torch.bfloat16) -> dict:
     """{piece: {path: launches}} of one training step at ``dtype`` over conv
     blocks ``shapes`` ((H, W, Cin, Cout) each, forward order): the first
@@ -655,18 +709,35 @@ def step_path_launches(shapes, dtype: torch.dtype = torch.bfloat16) -> dict:
 
 # ----------------------------------------------------------------- autograd
 
+def _padded_copy(t: torch.Tensor, needed: bool):
+    """``t``'s padded copy where ``needed`` and an f32 kernel reads it (a
+    CUDA tensor outside tracing), else None."""
+    if (needed and t.device.type == "cuda" and t.dtype == torch.float32
+            and t.numel() and not torch.compiler.is_compiling()):
+        return pad_channels(t)
+    return None
+
+
 class _Conv3x3Train(torch.autograd.Function):
+    """One padded copy of each tensor: a forward that pads x keeps the copy
+    for its dW; a backward pads g once for both dx and dW."""
+
     @staticmethod
     def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return conv3x3_fwd(x, w)
+        xp = _padded_copy(x, f32_pads_input(w.shape[2], w.shape[3]))
+        ctx.save_for_backward(x, w, xp)
+        return conv3x3_fwd(x, w, xp)
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
+        x, w, xp = ctx.saved_tensors
         g = g.to(x.dtype).contiguous()
-        dx = conv3x3_dgrad(g, w) if ctx.needs_input_grad[0] else None
-        dw = (conv3x3_wgrad(x, g).to(w.dtype) if ctx.needs_input_grad[1]
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        cin, cout = w.shape[2], w.shape[3]
+        gp = _padded_copy(g, (need_dx and f32_pads_input(cout, cin))
+                          or (need_dw and wgrad_f32_pads(cin, cout)[1]))
+        dx = conv3x3_dgrad(g, w, gp) if need_dx else None
+        dw = (conv3x3_wgrad(x, g, xp, gp).to(w.dtype) if need_dw
               else None)
         return dx, dw
 

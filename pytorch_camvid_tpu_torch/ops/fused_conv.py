@@ -36,22 +36,26 @@ per-channel affine of the conv output, so the block is one pass:
   implicit GEMM on split-TF32 tensor-core products (each operand split
   into a TF32 high part and residual, three products summed), f32 in and
   out, with the same contract (``flip``, a, b, ``relu``). It is the f32
-  instance of K4 (``pallas_conv.py`` emits x's dtype), on three routes
-  (``f32_route``, the .cu's ``conv3x3_f32_route``): "f32", wgmma fed by
-  TMA where TMA can describe x (Cin % 4 == 0), its weights split once per
-  call into K-major hi and lo copies (``split_weights_plain`` is that
-  step's plain version) in a workspace the wrapper allocates;
-  "f32_packed", wgmma with 9 taps x Cin packed into K <= ``K_MAX`` = 192
-  (Cin % 4 != 0: the Cin = 3 stem, VOC's Cin = 21 dx; the same split
-  weights, resident per block; plan ``f32_packed_fwd_plan``); and
-  "f32_narrow", the first split-TF32 ``mma.sync`` design, for the rest
-  (Cin % 4 != 0 past 21, e.g. 23; no model runs it).
+  instance of K4 (``pallas_conv.py`` emits x's dtype), on two routes
+  (``f32_route``, the .cu's ``conv3x3_f32_route``): "f32_packed", wgmma
+  with 9 taps x Cin packed into K <= ``K_MAX`` = 192 (Cin % 4 != 0: the
+  Cin = 3 stem, VOC's Cin = 21 dx; the split weights resident per block;
+  plan ``f32_packed_fwd_plan``); and "f32" for the rest, wgmma fed by TMA
+  over x at a pixel stride of 4 ceil(Cin / 4): where Cin % 4 != 0 (the
+  23- and 150-class heads' dx) x goes as its padded copy
+  (``pad_channels``, the .cu's ``pad_channels_kernel``; zeros past Cin;
+  ``f32_pads_input``), made here or handed in (``xp``: conv_train shares
+  one copy of a cotangent between dx and dW). Both routes split the
+  weights once per call into K-major hi and lo copies at x's pixel stride
+  (``split_weights_plain`` is that step's plain version) in a workspace
+  the wrapper allocates.
 - ``conv3x3_bn_relu_plain`` is the same function from stock PyTorch ops.
   The CPU tests run it, and the card check compares the kernel with it.
 - ``conv3x3_bn_relu.launches`` counts kernel launches, and
   ``conv3x3_bn_relu.path_launches`` counts them per route (the bf16
-  source's three paths and the three f32 routes), so a run can show that
-  its main path went through the kernel.
+  source's three paths and the two f32 routes), so a run can show that
+  its main path went through the kernel; ``pad_channels.launches`` counts
+  the padded copies.
 
 Tolerance against the JAX package's unfused eval path: JAX computes
 ``(conv + b - mean) * inv + bias`` (pytorch_camvid_tpu/ops/conv.py:195-198)
@@ -77,8 +81,8 @@ BN_EPS = 1e-5  # torch.nn.BatchNorm2d default
 SOURCE = cuda_build.CSRC / "conv3x3_bn_relu.cu"
 F32_SOURCE = cuda_build.CSRC / "conv3x3_f32.cu"
 PATHS = ("narrow", "wgmma", "packed")   # by the .cu's path code
-F32_ROUTES = ("f32_narrow", "f32", "f32_packed")   # by the .cu's route code
-ROUTES = PATHS + ("f32", "f32_narrow", "f32_packed")   # the counters' keys
+F32_ROUTES = {1: "f32", 2: "f32_packed"}   # by the .cu's route code
+ROUTES = PATHS + ("f32", "f32_packed")   # the counters' keys
 RES_MAX_CIN = 128   # the wgmma head tile keeps 9 x Cin x N weights
 HEAD_MAX_COUT = 24  # the head tile's widest N
 K_MAX = 192         # the packed path's K: 9 taps x Cin
@@ -88,6 +92,7 @@ NARROW_MAX_N_MT2 = 40   # the widest N at two m64s a warpgroup
 NARROW_MAX_STAGES = 2   # patch stages: one tile in flight
 SMEM_MAX = 232448   # a block's shared memory on the H100
 SMEM_SM = 233472    # an SM's, 1,024 of it reserved a block
+F32_MAX_PIXELS = 2 ** 31 - 128   # N*H*W below it (the .cu's kMaxPixels)
 
 
 def conv_path(cin: int, cout: int) -> str:
@@ -207,12 +212,23 @@ def narrow_fwd_plan(cin: int, cout: int) -> dict:
 
 
 def f32_route(cin: int, cout: int) -> str:
-    """The f32 forward's route at (Cin, Cout): "f32" (wgmma + TMA) where TMA
-    can describe x, Cin % 4 == 0; "f32_packed" (wgmma, 9 x Cin packed into
-    K) where 9 * Cin <= K_MAX; "f32_narrow" (mma.sync) otherwise."""
-    if cin % 4 == 0:
-        return "f32"
-    return "f32_packed" if 9 * cin <= K_MAX else "f32_narrow"
+    """The f32 forward's route at (Cin, Cout): "f32_packed" (wgmma, 9 x Cin
+    packed into K) where Cin % 4 != 0 and 9 * Cin <= K_MAX; "f32" (wgmma +
+    TMA over x, a padded copy where Cin % 4 != 0) otherwise."""
+    return "f32_packed" if cin % 4 and 9 * cin <= K_MAX else "f32"
+
+
+def f32_stride(c: int) -> int:
+    """The pixel stride route "f32" reads a side of ``c`` channels at: c
+    rounded up to a multiple of 4 (TMA's 16-byte strides)."""
+    return -(-c // 4) * 4
+
+
+def f32_pads_input(cin: int, cout: int) -> bool:
+    """Whether the f32 forward at (Cin, Cout) reads x as its padded copy:
+    route "f32" at Cin % 4 != 0 (9 x Cin > K_MAX, e.g. the 150-class
+    head's dx at Cin 150)."""
+    return cin % 4 != 0 and f32_route(cin, cout) == "f32"
 
 
 def route(dtype: torch.dtype, cin: int, cout: int) -> str:
@@ -282,21 +298,76 @@ def tf32_rna_bits(v: torch.Tensor) -> torch.Tensor:
     return ((u + 0x1000) & -0x2000).view(torch.float32)
 
 
-def split_weights_plain(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
+def split_weights_plain(w: torch.Tensor, flip: bool = False,
+                        stride: int = None) -> torch.Tensor:
     """The f32 forward's weights as its wgmma route reads them: (2, Cout, 9,
-    Cin), [0] the TF32 hi parts, [1] the lo parts (``tf32_rna_bits`` of v
-    and of v - hi), K-major: [h][n][t][c] from w (3,3,Cin,Cout), or with
-    ``flip`` from the tap-reversed transpose of w (3,3,Cout,Cin), w[8 -
-    t][n][c] (K1's dx). The plain version of the source's
-    ``split_weights_kernel``."""
+    ``stride``), [0] the TF32 hi parts, [1] the lo parts (``tf32_rna_bits``
+    of v and of v - hi), K-major: [h][n][t][c] from w (3,3,Cin,Cout), or
+    with ``flip`` from the tap-reversed transpose of w (3,3,Cout,Cin), w[8
+    - t][n][c] (K1's dx); rows of x's pixel stride (default Cin), zeros
+    past Cin. The plain version of the source's ``split_weights_kernel``."""
     w = w.float()
     if flip:
         kmaj = w.flip((0, 1)).reshape(9, w.shape[2], w.shape[3])
     else:
         kmaj = w.reshape(9, w.shape[2], w.shape[3]).transpose(1, 2)
     kmaj = kmaj.transpose(0, 1).contiguous()   # (Cout, 9, Cin)
+    if stride is not None:
+        kmaj = F.pad(kmaj, (0, stride - kmaj.shape[2]))
     hi = tf32_rna_bits(kmaj)
     return torch.stack([hi, tf32_rna_bits(kmaj - hi)])
+
+
+def pad_channels_plain(x: torch.Tensor) -> torch.Tensor:
+    """x (..., C) f32 as route "f32" reads it: (..., ``f32_stride(C)``),
+    zeros past C. The plain version of the source's
+    ``pad_channels_kernel``."""
+    return F.pad(x, (0, f32_stride(x.shape[-1]) - x.shape[-1]))
+
+
+def pad_channels(x: torch.Tensor) -> torch.Tensor:
+    """The padded copy of an f32 NHWC tensor x (N,H,W,C), contiguous (its
+    data at any 4-byte alignment): (N,H,W,``f32_stride(C)``), zeros past
+    C. On a CPU tensor ``pad_channels_plain``; on a CUDA tensor the .cu's
+    ``pad_channels_kernel`` (into a fresh, 16-byte aligned allocation), or
+    raises. Counts its launches in ``pad_channels.launches``."""
+    if x.device.type == "cpu":
+        return pad_channels_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"pad_channels: no kernel for {x.device}")
+    if x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"pad_channels takes a contiguous f32 (N,H,W,C) "
+                         f"tensor, got {x.dtype} {tuple(x.shape)}")
+    n, h, wd, c = x.shape
+    with torch.cuda.device(x.device):
+        out = torch.empty((n, h, wd, f32_stride(c)), dtype=torch.float32,
+                          device=x.device)
+        if out.numel():
+            err = f32_library().conv3x3_f32_pad_channels(
+                x.data_ptr(), out.data_ptr(), n * h * wd, c,
+                torch.cuda.current_stream(x.device).cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"pad_channels kernel launch failed: "
+                                   f"CUDA error {err} at x "
+                                   f"{tuple(x.shape)}")
+            pad_channels.launches += 1
+    return out
+
+
+def padded_input(x: torch.Tensor, xp: torch.Tensor = None) -> torch.Tensor:
+    """x's padded copy: ``xp`` where one is handed in (checked: the shape
+    ``pad_channels`` gives, f32, contiguous, on x's device, 16-byte
+    aligned), else ``pad_channels(x)``."""
+    if xp is None:
+        return pad_channels(x)
+    want = tuple(x.shape[:-1]) + (f32_stride(x.shape[-1]),)
+    if (tuple(xp.shape) != want or xp.dtype != torch.float32
+            or not xp.is_contiguous() or xp.device != x.device
+            or xp.data_ptr() % 16):
+        raise ValueError(f"a padded copy of x {tuple(x.shape)} must be a "
+                         f"contiguous, 16-byte aligned f32 {want} on "
+                         f"{x.device}, got {xp.dtype} {tuple(xp.shape)}")
+    return xp
 
 
 def flipped(w: torch.Tensor) -> torch.Tensor:
@@ -359,8 +430,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.cache
 def f32_library() -> ctypes.CDLL:
     """``csrc/conv3x3_f32.cu`` built and bound: the f32 forward (K4, K1 fwd
-    and dx), the f32 dW (K1's, ``conv_train``) with its tile counts and
-    the f32 K5 (``fused_conv_pair``)."""
+    and dx), the f32 dW (K1's, ``conv_train``) with its tile counts, the
+    padded copy and the f32 K5 (``fused_conv_pair``)."""
     return bind_f32(cuda_build.load(F32_SOURCE))
 
 
@@ -368,25 +439,24 @@ def bind_f32(lib: ctypes.CDLL) -> ctypes.CDLL:
     """The C entry points of a library built from ``conv3x3_f32.cu`` (or
     an edit of it, ``f32_variants``), typed."""
     lib.conv3x3_bn_relu_f32.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 7 + [ctypes.c_void_p]
+        ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.conv3x3_bn_relu_f32.restype = ctypes.c_int
     lib.conv3x3_wgrad_f32.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p]
+        ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.conv3x3_wgrad_f32.restype = ctypes.c_int
-    lib.conv3x3_bn_relu_f32_narrow.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 7 + [ctypes.c_void_p]
-    lib.conv3x3_bn_relu_f32_narrow.restype = ctypes.c_int
-    lib.conv3x3_wgrad_f32_narrow.argtypes = \
-        lib.conv3x3_wgrad_f32.argtypes
-    lib.conv3x3_wgrad_f32_narrow.restype = ctypes.c_int
+    lib.conv3x3_f32_pad_channels.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.conv3x3_f32_pad_channels.restype = ctypes.c_int
     lib.conv3x3_pair_bn_relu_f32.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.conv3x3_pair_bn_relu_f32.restype = ctypes.c_int
     for name, n, res in (("conv3x3_f32_route", 3, ctypes.c_int),
+                         ("conv3x3_wgrad_f32_packed_side", 2, ctypes.c_int),
                          ("conv3x3_f32_tile_n", 1, ctypes.c_int),
                          ("conv3x3_bn_relu_f32_ws_floats", 2,
                           ctypes.c_longlong),
-                         ("conv3x3_wgrad_f32_pixel_tiles", 5,
+                         ("conv3x3_wgrad_f32_pixel_tiles", 3,
                           ctypes.c_longlong),
                          ("conv3x3_wgrad_f32_out_tiles", 2,
                           ctypes.c_longlong),
@@ -397,7 +467,7 @@ def bind_f32(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def f32_kernel_route(cin: int, cout: int, wgrad: bool = False) -> str:
-    """The f32 route the built library takes for (Cin, Cout), of the
+    """The f32 route the built library's rule gives (Cin, Cout), of the
     forward or (``wgrad``) the dW (``f32_route``'s and
     ``conv_train.wgrad_f32_route``'s rules as the .cu holds them;
     chip_smoke checks that they agree)."""
@@ -480,11 +550,11 @@ def _check(x, w, a, b, flip=False):
         raise ValueError(f"unsupported shape x {tuple(x.shape)}, "
                          f"Cout {cout}")
     if x.dtype == torch.float32:
-        if x.shape[0] * x.shape[1] * x.shape[2] >= 2 ** 31 - 128:
+        if x.shape[0] * x.shape[1] * x.shape[2] >= F32_MAX_PIXELS:
             raise ValueError(f"the f32 kernel takes fewer than 2**31 - 128 "
                              f"pixels, got x {tuple(x.shape)}")
         return   # aligned16 gave TMA and the packed route's 16-byte
-                 # loads their bases (narrow: any)
+                 # loads their bases; the padded copy reads any
     path = conv_path(cin, cout)
     if path == "wgmma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError("x and w must be 16-byte aligned (TMA)")
@@ -497,12 +567,14 @@ def _check(x, w, a, b, flip=False):
 
 
 def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
-                    b: torch.Tensor, relu: bool = True,
-                    flip: bool = False) -> torch.Tensor:
+                    b: torch.Tensor, relu: bool = True, flip: bool = False,
+                    xp: torch.Tensor = None) -> torch.Tensor:
     """Fused relu(conv3x3_pad1(x, w) * a + b). x: (N,H,W,Cin) NHWC
     contiguous; w: (3,3,Cin,Cout) HWIO contiguous, or with ``flip``
     (3,3,Cout,Cin), the weights of the conv whose input gradient this is;
-    a, b: (Cout,) f32.
+    a, b: (Cout,) f32; ``xp``: x's padded copy (``pad_channels``) where the
+    caller has one, read in x's place where route "f32" pads x (else
+    unused).
 
     On a CPU tensor this is ``conv3x3_bn_relu_plain``. On a CUDA tensor it
     is ``launch``; an empty map (no pixel) is no work, and gives the empty
@@ -513,19 +585,24 @@ def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         return torch.ops.camvid.conv3x3_bn_relu(x, w, a, b, relu, flip)
     if x.device.type == "cpu":
         return conv3x3_bn_relu_plain(x, w, a, b, relu, flip)
-    return launch(x, w, a, b, relu, flip)
+    return launch(x, w, a, b, relu, flip, xp)
 
 
 def launch(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
-           b: torch.Tensor, relu: bool, flip: bool) -> torch.Tensor:
+           b: torch.Tensor, relu: bool, flip: bool,
+           xp: torch.Tensor = None) -> torch.Tensor:
     """The kernel on CUDA tensors, or raises: bf16 x and w (f32
     accumulation, bf16 out) on ``conv_path(Cin, Cout)``; f32 x and w
-    (split-TF32 products, f32 out) on the f32 kernel. An x or w whose data
-    is not 16-byte aligned is copied first (``aligned16``). Counts the
-    launch."""
+    (split-TF32 products, f32 out) on the f32 kernel's ``f32_route``, x
+    as its padded copy where that route pads it (``xp``, or one made
+    here). An x or w whose data is not 16-byte aligned is copied first
+    (``aligned16``; not an x the padded copy reads, at any alignment).
+    Counts the launch."""
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_bn_relu: no kernel for {x.device}")
-    x, w = aligned16(x), aligned16(w)
+    pads = (x.dtype == torch.float32 and x.dim() == 4 and a.dim() == 1
+            and f32_pads_input(x.shape[3], a.shape[0]))
+    x, w = (x if pads else aligned16(x)), aligned16(w)
     if (x.dtype == torch.bfloat16 and x.dim() == 4 and x.is_contiguous()
             and conv_path(x.shape[3], a.shape[0]) == "narrow"):
         x = whole_chunks(x)
@@ -535,7 +612,8 @@ def launch(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     if x.numel() == 0:   # an empty map: no work, nothing launched
         return x.new_empty((n, h, wd, cout))
     if x.dtype == torch.float32:
-        out = _f32_launch(x, w, a, b, relu, flip)
+        out = _f32_launch(x, w, a, b, relu, flip,
+                          padded_input(x, xp) if pads else None)
         conv3x3_bn_relu.launches += 1
         conv3x3_bn_relu.path_launches[f32_route(cin, cout)] += 1
         return out
@@ -561,23 +639,26 @@ def launch(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
 
 def _f32_launch(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
-                b: torch.Tensor, relu: bool, flip: bool) -> torch.Tensor:
-    """One call of the f32 forward on checked CUDA inputs (on the wgmma
-    and packed routes the weights' split, then the conv); raises on a CUDA
+                b: torch.Tensor, relu: bool, flip: bool,
+                xp: torch.Tensor = None) -> torch.Tensor:
+    """One call of the f32 forward on checked CUDA inputs (the weights'
+    split, then the conv), reading x's padded copy ``xp`` in its place
+    where one is given (the layout names the route); raises on a CUDA
     error."""
     n, h, wd, cin = x.shape
     cout = a.shape[0]
+    src = x if xp is None else xp
+    xc = src.shape[3]
     lib = f32_library()
     with torch.cuda.device(x.device):
         out = torch.empty((n, h, wd, cout), dtype=torch.float32,
                           device=x.device)
-        floats = lib.conv3x3_bn_relu_f32_ws_floats(cin, cout)
-        ws = (torch.empty(floats, dtype=torch.float32, device=x.device)
-              if floats else None)
+        ws = torch.empty(lib.conv3x3_bn_relu_f32_ws_floats(xc, cout),
+                         dtype=torch.float32, device=x.device)
         err = lib.conv3x3_bn_relu_f32(
-            x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), ws.data_ptr() if ws is not None else None, n, h,
-            wd, cin, cout, int(relu), int(flip),
+            src.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), n, h, wd, cin, cout, xc,
+            int(relu), int(flip),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_bn_relu f32 kernel launch failed: CUDA "
@@ -589,6 +670,7 @@ def reset_launches() -> None:
     conv3x3_bn_relu.launches = 0
     conv3x3_bn_relu.mma_sync_launches = 0   # narrow's rest: mma_sync
     conv3x3_bn_relu.path_launches = dict.fromkeys(ROUTES, 0)
+    pad_channels.launches = 0
 
 
 reset_launches()

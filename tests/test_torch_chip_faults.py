@@ -248,7 +248,7 @@ def f32_launches(monkeypatch):
     launch returns 1 + 2**-12."""
     seen = []
 
-    def fwd(x, w, a, b, relu, flip):
+    def fwd(x, w, a, b, relu, flip, xp=None):
         seen.append((w, flip))
         return torch.full((2, 3), 1.0 + 2.0 ** -12)
 
@@ -285,7 +285,8 @@ def test_f32_output_through_bf16_rounds(f32_launches):
 
 @pytest.mark.parametrize("name", ["single_pass", "lo_hi_dropped",
                                   "stale_scratch", "atomic_splits",
-                                  "packed_dw_bgr"])
+                                  "packed_dw_bgr", "pad_ones",
+                                  "flip_pad_first"])
 def test_f32_variant_faults_replace_both_callers_library(monkeypatch, name):
     """A planted f32 variant stands in for ``f32_library`` where both the
     forward's and the dW's launches look it up, and only inside the
@@ -307,6 +308,69 @@ def test_f32_variant_faults_replace_both_callers_library(monkeypatch, name):
         pass
     assert (fused_conv.f32_library, conv_train.f32_library) == sound
     assert builds == [chip_faults.f32_variants.FAULTS]
+
+
+def test_f32_padded_faults_are_registered():
+    """The three faults of the padded route sit under phase 14's per-shape
+    checks ("f32"): the copy's channels past C as 1s and the split weights'
+    padding first under flip as source edits (``f32_variants.FAULTS``),
+    the dW cut back one channel late as a patch of
+    ``conv_train._wgrad_f32_launch``."""
+    cases = {what: path for path, what, _ in chip_faults.fault_cases()}
+    for what in ("the padded copy's channels past C left as 1s",
+                 "the split weights' zero rows past Cin put first under "
+                 "flip (the real rows after them)",
+                 "the f32 dW's channels taken one off where it drops the "
+                 "padding"):
+        assert cases[what] == "f32"
+    assert {"pad_ones", "flip_pad_first"} <= set(
+        chip_faults.f32_variants.FAULTS)
+    sound = conv_train_mod()._wgrad_f32_launch
+    with dict(((w, f) for _, w, f in chip_faults.fault_cases()))[
+            "the f32 dW's channels taken one off where it drops the "
+            "padding"]():
+        assert conv_train_mod()._wgrad_f32_launch is \
+            chip_faults.f32_dw_padding_dropped_one_off
+    assert conv_train_mod()._wgrad_f32_launch is sound
+
+
+def conv_train_mod():
+    from pytorch_camvid_tpu_torch.ops import conv_train
+    return conv_train
+
+
+@pytest.mark.parametrize("cin,cout,offsets", [(64, 150, (0, 1)),
+                                              (23, 64, (1, 0)),
+                                              (23, 150, (1, 1)),
+                                              (10, 5, (1, 0)),
+                                              (64, 64, None)])
+def test_f32_dw_padding_dropped_one_off_takes_the_next_channel(
+        monkeypatch, cin, cout, offsets):
+    """Where the dW pads a side, the fault computes it over the padded
+    copies' channels and keeps [1, C + 1) of each padded side; a dW with no
+    padded side is the sound launch's."""
+    calls = []
+
+    def launch(x, g, xp=None, gp=None, route=None):
+        calls.append((x.shape[3], g.shape[3]))
+        n = 9 * x.shape[3] * g.shape[3]
+        return torch.arange(n, dtype=torch.float32).view(3, 3, x.shape[3],
+                                                         g.shape[3])
+
+    monkeypatch.setattr(chip_faults, "_wgrad_f32_launch", launch)
+    x, g = torch.zeros(1, 2, 2, cin), torch.zeros(1, 2, 2, cout)
+    got = chip_faults.f32_dw_padding_dropped_one_off(x, g)
+    assert got.shape == (3, 3, cin, cout)
+    if offsets is None:
+        assert calls == [(cin, cout)]
+        return
+    (ci, co), = calls
+    pads = conv_train_mod().wgrad_f32_pads(cin, cout)
+    assert (ci, co) == (-(-cin // 4) * 4 if pads[0] else cin,
+                        -(-cout // 4) * 4 if pads[1] else cout)
+    full = launch(torch.zeros(1, 1, 1, ci), torch.zeros(1, 1, 1, co))
+    ox, og = offsets
+    assert torch.equal(got, full[:, :, ox:ox + cin, og:og + cout])
 
 
 def test_recompute_updating_bn_again_moves_each_count_twice():

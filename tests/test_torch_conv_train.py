@@ -205,10 +205,10 @@ def test_step_launches_on_each_path(net, blocks):
     dW on the packed paths, nothing on the narrow ones; SegNet 25 of 26, 24
     of 25 and 24 of 26. At float32 every launch takes the f32 kernels: the
     stem's forward and dW (Cin 3) the packed route, the rest the wgmma
-    one, none the narrow one."""
+    one; there is no third f32 route, and no padded copy at 12 classes."""
     got = conv_train.step_path_launches(bench.block_shapes(net))
     b = blocks
-    none = {"f32": 0, "f32_narrow": 0, "f32_packed": 0}
+    none = {"f32": 0, "f32_packed": 0}
     assert got == {
         "fwd": {"wgmma": b - 1, "packed": 1, "narrow": 0, **none},
         "dgrad": {"wgmma": b - 2, "packed": 1, "narrow": 0, **none},
@@ -217,9 +217,10 @@ def test_step_launches_on_each_path(net, blocks):
                                         torch.float32)
     bf16 = {"wgmma": 0, "packed": 0, "narrow": 0}
     assert got == {
-        "fwd": {**bf16, "f32": b - 1, "f32_narrow": 0, "f32_packed": 1},
-        "dgrad": {**bf16, "f32": b - 1, "f32_narrow": 0, "f32_packed": 0},
-        "wgrad": {**bf16, "f32": b - 1, "f32_narrow": 0, "f32_packed": 1}}
+        "fwd": {**bf16, "f32": b - 1, "f32_packed": 1},
+        "dgrad": {**bf16, "f32": b - 1, "f32_packed": 0},
+        "wgrad": {**bf16, "f32": b - 1, "f32_packed": 1}}
+    assert conv_train.step_pad_copies(bench.block_shapes(net)) == 0
 
 
 def test_path_rules_at_edges():
@@ -260,8 +261,7 @@ def test_cpu_route_is_plain_and_not_counted():
     conv_train.conv3x3_dgrad(y, w)
     conv_train.conv3x3_wgrad(x, y)
     assert conv_train.launches() == {"fwd": 0, "dgrad": 0, "wgrad": 0}
-    zero = {"wgmma": 0, "packed": 0, "narrow": 0, "f32": 0, "f32_narrow": 0,
-            "f32_packed": 0}
+    zero = {"wgmma": 0, "packed": 0, "narrow": 0, "f32": 0, "f32_packed": 0}
     assert conv_train.path_launches() == {
         "fwd": zero, "dgrad": zero, "wgrad": zero}
 

@@ -139,61 +139,61 @@ def test_f32_dw_split_rule():
     input channels x an N tile of 64 (16 at Cout <= 16), one resident per
     SM, so the splits fill waves: two waves' worth of blocks, or the
     fewest more whose last wave is at least 90% full. The packed route:
-    the same pixel tiles, a block per 64 channels of the wide side, one
-    wave's worth. The narrow route: 32-pixel chunks, 64 x 64 output tiles
-    of (tap, Cin) rows x Cout, four blocks an SM, whose shared memory
-    fits."""
+    the same pixel tiles, a block per 64 channels of the wide side (with
+    both sides narrow, the padded one), one wave's worth. The padded
+    copies change no count: a side padded to 4 ceil(C / 4) keeps its C
+    channels' tiles. No 32-pixel chunks remain (the mma.sync dW's)."""
     assert (conv_train.F32_TH, conv_train.F32_TW, conv_train.F32_BM) == (
         _cu_int("TH", "wgf"), _cu_int("TW", "wgf"), _cu_int("BM", "wgf"))
-    assert conv_train.F32_CHUNK == _cu_int("BK", "nar") == 32
-    assert conv_train.F32_TILE == _cu_int("WM", "nar") == \
-        _cu_int("WN", "nar") == 64
-    assert (conv_train.F32_BLOCKS_PER_SM * (_cu_int("WG_SMEM", "nar")
-                                            + 1024) <= conv_train.SM_SMEM)
+    src = (cuda_build.CSRC / "conv3x3_f32.cu").read_text()
+    assert not hasattr(conv_train, "F32_CHUNK")
+    assert "namespace nar " not in src and "mma.sync.aligned" not in src
     tiles, blocks = (conv_train.wgrad_f32_pixel_tiles,
                      conv_train.wgrad_f32_out_tiles)
-    assert tiles(10, 360, 480, 64, 64) == 10 * 90 * 30
-    assert tiles(2, 45, 61, 64, 64) == 2 * 12 * 4     # ragged tiles
-    assert tiles(10, 360, 480, 3, 64) == 27000        # packed: tiles
-    assert tiles(2, 45, 61, 64, 21) == 96             # packed: tiles
-    assert tiles(10, 360, 480, 23, 64) == 54000       # narrow: chunks
-    assert tiles(2, 45, 61, 3, 21) == 172             # 5490 pixels
+    assert tiles(10, 360, 480) == 10 * 90 * 30
+    assert tiles(2, 45, 61) == 2 * 12 * 4             # ragged tiles
+    assert tiles(10, 360, 480) == 27000               # every route
     assert blocks(64, 64) == 3 and blocks(64, 12) == 3
     assert blocks(512, 512) == 3 * 8 * 8 and blocks(1024, 512) == 384
     assert blocks(3, 64) == 1 and blocks(64, 21) == 1   # the wide side
-    assert blocks(128, 21) == 2 and blocks(23, 64) == 4 and blocks(3, 21) == 1
+    assert blocks(128, 21) == 2 and blocks(3, 21) == 1
+    assert blocks(23, 64) == 3 and blocks(64, 150) == 3 * 3   # padded
+    assert blocks(150, 64) == 3 * 3 * 1 and blocks(10, 5) == 1
     splits = conv_train.wgrad_f32_splits
     assert splits(10, 360, 480, 64, 64, 132) == 88     # 264 blocks: 2 waves
     assert splits(10, 45, 60, 512, 512, 132) == 2      # 384: 2.91 waves
     assert splits(10, 45, 60, 1024, 512, 132) == 1     # 384 again
     assert splits(10, 360, 480, 3, 64, 132) == 132     # packed: one wave
-    assert splits(10, 360, 480, 3, 21, 132) == 528     # narrow
+    assert splits(10, 360, 480, 3, 21, 132) == 132     # packed, g padded
+    assert splits(10, 360, 480, 64, 150, 132) == 29    # 261 of 264 blocks
     assert splits(1, 4, 16, 64, 64, 132) == 1          # one pixel tile
     for n, h, w, cin, cout in ((10, 180, 240, 64, 128), (10, 90, 120, 256,
                                                         256),
-                               (10, 22, 30, 512, 512), (2, 45, 61, 64, 64)):
+                               (10, 22, 30, 512, 512), (2, 45, 61, 64, 64),
+                               (10, 360, 480, 23, 64), (2, 45, 61, 5, 10)):
         s, b = splits(n, h, w, cin, cout, 132), blocks(cin, cout)
-        assert 1 <= s <= tiles(n, h, w, cin, cout)
+        assert 1 <= s <= tiles(n, h, w)
         assert s * b % 132 == 0 or s * b % 132 >= 0.9 * 132 or \
-            s == tiles(n, h, w, cin, cout), (n, h, w, cin, cout, s)
+            s == tiles(n, h, w), (n, h, w, cin, cout, s)
 
 
 # ------------------------------------------------- routes and checks
 
 def test_f32_routes_and_checks():
-    """float32 x and w take the f32 kernels on every (Cin, Cout): the wgmma
-    route where TMA can describe x (and g, for the dW), the packed one
-    where the narrow side's 9 taps x channels fit 192 (and, for the dW,
-    the other side's channels % 4 == 0), the narrow one otherwise; mixed
-    dtypes are refused; the f32 kernels take any
-    alignment and at most 2**31 - 128 pixels."""
+    """float32 x and w take the f32 kernels on every (Cin, Cout): the packed
+    route where the narrow side's 9 taps x channels fit 192 (and, for the
+    dW, the other side's channels % 4 == 0 or narrow too), the wgmma route
+    otherwise, a side whose channels are no multiple of 4 as its padded
+    copy; mixed dtypes are refused; the f32 kernels take any alignment and
+    at most 2**31 - 128 pixels."""
     f32, bf16 = torch.float32, torch.bfloat16
     for cin, cout, fwd, dw in ((3, 64, "f32_packed", "f32_packed"),
                                (64, 12, "f32", "f32"),
                                (64, 21, "f32", "f32_packed"),
                                (21, 64, "f32_packed", "f32_packed"),
-                               (23, 64, "f32_narrow", "f32_narrow"),
-                               (3, 21, "f32_packed", "f32_narrow"),
+                               (23, 64, "f32", "f32"),
+                               (3, 21, "f32_packed", "f32_packed"),
+                               (150, 64, "f32", "f32"),
                                (512, 512, "f32", "f32")):
         assert fused_conv.route(f32, cin, cout) == fwd
         assert conv_train.wgrad_route(f32, cin, cout) == dw
@@ -216,7 +216,8 @@ def test_f32_routes_and_checks():
         fused_conv._check(torch.empty(4096, 1024, 512, 3, device="meta"),
                           *meta)
     assert fused_conv.ROUTES == ("narrow", "wgmma", "packed", "f32",
-                                 "f32_narrow", "f32_packed")
+                                 "f32_packed")
+    assert conv_train.WGRAD_ROUTES == fused_conv.ROUTES
 
 
 def test_f32_blocks_keep_f32_through_both_models(monkeypatch):

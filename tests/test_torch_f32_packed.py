@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from pytorch_camvid_tpu_torch import bench
+from pytorch_camvid_tpu_torch.models import segnet as segnet_model
+from pytorch_camvid_tpu_torch.models import unet as unet_model
 from pytorch_camvid_tpu_torch.ops import conv_train, cuda_build, fused_conv
 
 SRC = (cuda_build.CSRC / "conv3x3_f32.cu").read_text()
@@ -34,88 +36,132 @@ def _chip_smoke():
 
 def _cu_route(cin: int, cout: int, wgrad: bool) -> int:
     """``conv3x3_f32_route`` of the .cu, transcribed (the test below holds
-    the source to this text): 1 wgmma, 2 packed, 0 narrow."""
+    the source to this text): 2 packed where a side's channels are no
+    multiple of 4 and 9 x them fit 192 (the forward: Cin; the dW: that
+    side with the other's a multiple of 4 or packable too), else 1 wgmma;
+    no third route."""
     k_max = 192
+    xn, gn = cin % 4 != 0, cout % 4 != 0
+    xp, gp = xn and 9 * cin <= k_max, gn and 9 * cout <= k_max
     if not wgrad:
-        return 1 if cin % 4 == 0 else 2 if 9 * cin <= k_max else 0
-    if cin % 4 == 0 and cout % 4 == 0:
-        return 1
-    if ((cin % 4 and 9 * cin <= k_max and cout % 4 == 0)
-            or (cout % 4 and 9 * cout <= k_max and cin % 4 == 0)):
-        return 2
-    return 0
+        return 2 if xp else 1
+    return 2 if (xp and not gn) or (gp and not xn) or (xp and gp) else 1
+
+
+def _cu_narrow_side(cin: int, cout: int) -> int:
+    """``conv3x3_wgrad_f32_packed_side`` of the .cu, transcribed: -1 off
+    the packed dW, else 1 where g is read as it lies (with both sides
+    narrow, the side with fewer channels; x on a tie), 0 where x is."""
+    if _cu_route(cin, cout, True) != 2:
+        return -1
+    if cin % 4 and cout % 4:
+        return int(cout < cin)
+    return int(cout % 4 != 0)
 
 
 def test_wrappers_route_as_the_source_rule():
-    """The .cu's route function is the rule transcribed in ``_cu_route``,
-    and ``fused_conv.f32_route`` / ``conv_train.wgrad_f32_route`` (and the
-    library-route names, ``F32_ROUTES`` by code) give its answer at every
-    (Cin, Cout) up to 70."""
+    """The .cu's route and narrow-side functions are the rules transcribed
+    in ``_cu_route`` and ``_cu_narrow_side``, and ``fused_conv.f32_route``
+    / ``conv_train.wgrad_f32_route`` / ``conv_train.packed_narrow_side``
+    (and the library-route names, ``F32_ROUTES`` by code) give their
+    answers at every (Cin, Cout) up to 200."""
     body = SRC[SRC.index('extern "C" int conv3x3_f32_route'):]
     body = " ".join(body[:body.index("\n}\n")].split())
-    assert ("if (!wgrad) return Cin % 4 == 0 ? 1 : 9 * Cin <= K_MAX ? 2 : 0;"
-            " if (Cin % 4 == 0 && Cout % 4 == 0) return 1; if ((Cin % 4 != 0"
-            " && 9 * Cin <= K_MAX && Cout % 4 == 0) || (Cout % 4 != 0 && 9 *"
-            " Cout <= K_MAX && Cin % 4 == 0)) return 2; return 0;") in body
+    assert ("const bool xn = Cin % 4 != 0, gn = Cout % 4 != 0; const bool xp"
+            " = xn && 9 * Cin <= K_MAX, gp = gn && 9 * Cout <= K_MAX; if "
+            "(!wgrad) return xp ? 2 : 1; return (xp && !gn) || (gp && !xn) "
+            "|| (xp && gp) ? 2 : 1;") in body
+    side = SRC[SRC.index('extern "C" int conv3x3_wgrad_f32_packed_side'):]
+    side = " ".join(side[:side.index("\n}\n")].split())
+    assert ("if (conv3x3_f32_route(Cin, Cout, 1) != 2) return -1; if (Cin % 4"
+            " != 0 && Cout % 4 != 0) return Cout < Cin ? 1 : 0; return Cout "
+            "% 4 != 0 ? 1 : 0;") in side
     assert re.search(r"constexpr int K_MAX = 192;",
                      SRC[SRC.index("namespace pk {"):])
     names = fused_conv.F32_ROUTES
-    for cin in range(1, 71):
-        for cout in range(1, 71):
+    sides = {-1: None, 0: "x", 1: "g"}
+    for cin in range(1, 201):
+        for cout in range(1, 201):
             assert fused_conv.f32_route(cin, cout) == names[
                 _cu_route(cin, cout, False)]
-            assert conv_train.wgrad_f32_route(cin, cout) == names[
-                _cu_route(cin, cout, True)]
+            route = conv_train.wgrad_f32_route(cin, cout)
+            assert route == names[_cu_route(cin, cout, True)]
+            assert sides[_cu_narrow_side(cin, cout)] == (
+                conv_train.packed_narrow_side(cin, cout)
+                if route == "f32_packed" else None)
 
 
 @pytest.mark.parametrize("cin,route", [(3, "f32_packed"), (12, "f32"),
                                        (20, "f32"), (21, "f32_packed"),
-                                       (23, "f32_narrow")])
+                                       (23, "f32"), (150, "f32")])
 def test_forward_route_at_the_edges(cin, route):
     """The forward by Cin: the stem (3) and VOC's dx (21, K 189) packed,
-    12 and 20 (Cin % 4 == 0) on wgmma, 23 (K 207 > 192) narrow; Cout
-    plays no part."""
+    12 and 20 (Cin % 4 == 0) on wgmma, 23 (K 207 > 192) and the 150-class
+    head's dx on wgmma over a padded copy; Cout plays no part."""
     for cout in (3, 21, 64):
         assert fused_conv.f32_route(cin, cout) == route
+        assert fused_conv.f32_pads_input(cin, cout) == (cin in (23, 150))
 
 
-@pytest.mark.parametrize("cin,cout,route", [(3, 64, "f32_packed"),
-                                            (64, 21, "f32_packed"),
-                                            (3, 21, "f32_narrow"),
-                                            (23, 64, "f32_narrow"),
-                                            (64, 64, "f32")])
-def test_wgrad_route_at_the_edges(cin, cout, route):
+@pytest.mark.parametrize("cin,cout,route,pads",
+                         [(3, 64, "f32_packed", (False, False)),
+                          (64, 21, "f32_packed", (False, False)),
+                          (3, 21, "f32_packed", (False, True)),
+                          (23, 64, "f32", (True, False)),
+                          (64, 64, "f32", (False, False)),
+                          (64, 150, "f32", (False, True)),
+                          (64, 23, "f32", (False, True)),
+                          (5, 5, "f32_packed", (False, True)),
+                          (10, 5, "f32_packed", (True, False)),
+                          (6, 150, "f32", (True, True)),
+                          (5, 23, "f32", (True, True))])
+def test_wgrad_route_at_the_edges(cin, cout, route, pads):
     """The dW: the stem's 3 -> 64 and VOC's 64 -> 21 packed (one side
-    narrow, the other's channels % 4 == 0), 3 -> 21 (both narrow) and 23 ->
-    64 (9 x 23 > 192) narrow."""
+    narrow, the other's channels % 4 == 0); both sides narrow and packable
+    (3 -> 21, UNet 5/64's 5 -> 5 and 10 -> 5) packed, the side with fewer
+    channels as it lies and the other padded; a side past 9 x 21 channels
+    (23 -> 64, the 150- and 23-class heads, 6 -> 150, 5 -> 23) on wgmma
+    with each narrow side padded."""
     assert conv_train.wgrad_f32_route(cin, cout) == route
+    assert conv_train.wgrad_f32_pads(cin, cout) == pads
+
+
+NETS = {"unet": unet_model, "segnet": segnet_model}
 
 
 @pytest.mark.parametrize("net", ["unet", "segnet"])
-@pytest.mark.parametrize("classes", [12, 21])
-def test_no_model_path_takes_the_narrow_route(net, classes):
-    """At every block of UNet and SegNet, with CamVid's 12 classes and
-    VOC's 21, the stem's forward and dW and (at 21) the head's dx and dW
-    take "f32_packed", and no piece "f32_narrow"; the step's launch table
-    (chip_smoke's and the rule's) shows 0 on "f32_narrow" and 1/0/1 (12)
-    or 1/1/2 (21) on "f32_packed"."""
-    shapes = bench.block_shapes(net, spec=bench.model_class(net).base_spec(
-        3, classes))
+@pytest.mark.parametrize("classes", [12, 21, 23, 150])
+@pytest.mark.parametrize("width", [1.0, 1 / 8, 3 / 32, 5 / 64])
+def test_no_model_path_takes_the_narrow_route(net, classes, width):
+    """At every block of UNet and SegNet, at widths 1, 1/8, 3/32 and 5/64
+    with CamVid's 12 classes, VOC's 21, 23 and ADE20K's 150, every piece
+    takes "f32" or "f32_packed": there is no "f32_narrow" to take. At
+    full width the stem's forward and dW and (at 21) the head's dx and dW
+    take "f32_packed", the step's launch table is chip_smoke's, and the
+    23- and 150-class heads' dx and dW share one padded copy of g."""
+    spec = NETS[net].scaled_spec(3, classes, width)
+    shapes = bench.block_shapes(net, spec=spec)
     for i, (_, _, cin, cout) in enumerate(shapes):
         routes = {fused_conv.route(F32, cin, cout),
                   conv_train.wgrad_route(F32, cin, cout)}
         if i:
             routes.add(fused_conv.route(F32, cout, cin))
-        assert "f32_narrow" not in routes
-        packed = i == 0 or (i == len(shapes) - 1 and classes == 21)
-        assert ("f32_packed" in routes) == packed
+        assert routes <= {"f32", "f32_packed"}
+        if width == 1.0:
+            packed = i == 0 or (i == len(shapes) - 1 and classes == 21)
+            assert ("f32_packed" in routes) == packed
     table = conv_train.step_path_launches(shapes, F32)
-    assert table == _chip_smoke().path_table(net, classes, F32)
-    assert {p: t["f32_narrow"] for p, t in table.items()} == {
-        "fwd": 0, "dgrad": 0, "wgrad": 0}
-    head = classes == 21
-    assert {p: t["f32_packed"] for p, t in table.items()} == {
-        "fwd": 1, "dgrad": int(head), "wgrad": 1 + int(head)}
+    assert "f32_narrow" not in fused_conv.ROUTES
+    assert all(set(t) == set(fused_conv.ROUTES) for t in table.values())
+    assert {p: sum(t.values()) for p, t in table.items()} == {
+        "fwd": len(shapes), "dgrad": len(shapes) - 1, "wgrad": len(shapes)}
+    if width == 1.0:
+        assert table == _chip_smoke().path_table(net, classes, F32)
+        head = classes == 21
+        assert {p: t["f32_packed"] for p, t in table.items()} == {
+            "fwd": 1, "dgrad": int(head), "wgrad": 1 + int(head)}
+        assert conv_train.step_pad_copies(shapes) == int(classes in (23,
+                                                                      150))
 
 
 # ----------------------------------------------------------------- plans
@@ -153,20 +199,22 @@ def test_wgrad_plan_matches_the_source(cin, cout):
 
 def test_plans_fit_every_narrow_width():
     """Every Cin the forward rule takes (Cin % 4 != 0, 9 x Cin <= 192) and
-    every narrow side of the dW rule fits a block's 232,448 bytes."""
-    for c in range(1, 22):
-        if c % 4 == 0:
-            continue
+    every narrow side of the dW rule fits a block's 232,448 bytes, beside a
+    wide side of 64 channels or, both sides narrow, of any other narrow
+    width (the side with fewer channels the narrow one)."""
+    narrow = [c for c in range(1, 22) if c % 4]
+    for c in narrow:
         assert fused_conv.f32_packed_fwd_plan(c)["bytes"] <= \
             conv_train.BLOCK_SMEM
-        for cin, cout in ((c, 64), (64, c)):
+        for cin, cout in [(c, 64), (64, c)] + [(c, o) for o in narrow]:
             plan = conv_train.wgrad_f32_packed_plan(cin, cout)
             assert plan["bytes"] <= conv_train.BLOCK_SMEM
-            assert 3 * c <= plan["n"]
+            assert plan["narrow"] == min(cin, cout)
+            assert 3 * plan["narrow"] <= plan["n"]
     with pytest.raises(ValueError):
         fused_conv.f32_packed_fwd_plan(23)
     with pytest.raises(ValueError):
-        conv_train.wgrad_f32_packed_plan(3, 21)
+        conv_train.wgrad_f32_packed_plan(23, 64)
 
 
 # ------------------------------------------------------ row-map models

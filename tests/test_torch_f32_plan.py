@@ -139,14 +139,15 @@ def _chip_smoke():
 
 
 @pytest.mark.parametrize("net", ["unet", "segnet"])
-@pytest.mark.parametrize("classes", [12, 21])
+@pytest.mark.parametrize("classes", [12, 21, 23, 150])
 def test_f32_route_of_every_block(net, classes):
     """At float32 the stem's forward and dW (Cin 3) take the packed route,
     every body block's three pieces the wgmma one; the head's by its class
     count: 12 (CamVid) all three on wgmma (the forward's N tile 16, the
     dx's Cin 12, the dW's N tile 16), 21 (VOC) its forward on wgmma (N
-    tile 24), its dx (Cin 21) and dW (Cout 21) on the packed route; none on
-    the narrow one. The count is chip_smoke's f32 launch table."""
+    tile 24), its dx (Cin 21) and dW (Cout 21) on the packed route; 23 and
+    150 all three on wgmma, the dx and dW over one padded copy of g a
+    step. The count is chip_smoke's f32 launch table."""
     shapes = bench.block_shapes(net, spec=bench.model_class(net).base_spec(
         3, classes))
     f32 = torch.float32
@@ -160,7 +161,9 @@ def test_f32_route_of_every_block(net, classes):
             assert fused_conv.route(f32, cout, cin) == (
                 "f32_packed" if head and classes == 21 else "f32")
     head = shapes[-1][2:]
-    assert fused_conv.f32_tile_n(head[1]) == (16 if classes == 12 else 24)
+    assert fused_conv.f32_tile_n(head[1]) == {12: 16, 21: 24, 23: 24,
+                                              150: 128}[classes]
+    assert conv_train.step_pad_copies(shapes) == int(classes in (23, 150))
     smoke = _chip_smoke()
     assert smoke.path_table(net, classes, f32) == \
         conv_train.step_path_launches(shapes, f32)
@@ -171,18 +174,21 @@ def test_f32_route_of_every_block(net, classes):
 @pytest.mark.parametrize("net", ["unet", "segnet"])
 @pytest.mark.parametrize("batch", [2, 10, 24])
 def test_wgrad_f32_splits_fill_waves_at_every_block(net, batch):
-    """On the wgmma and packed routes the dW's splits, at most one a pixel
-    tile, leave the last wave of blocks (one an SM, 132 SMs) at least 90%
-    full, or run one split a pixel tile; the narrow route's fill four
-    blocks an SM."""
-    for _, (h, w, cin, cout) in enumerate(bench.block_shapes(net)):
+    """On both routes the dW's splits, at most one a pixel tile, leave the
+    last wave of blocks (one an SM, 132 SMs) at least 90% full, or run one
+    split a pixel tile; so at a 150-class head and at UNet 5/64's
+    odd-width blocks (both sides narrow: the packed route, one side
+    padded)."""
+    shapes = bench.block_shapes(net) + [(360, 480, 64, 150)]
+    shapes += bench.block_shapes(net, spec=importlib.import_module(
+        f"pytorch_camvid_tpu_torch.models.{net}").scaled_spec(3, 12, 5 / 64))
+    for h, w, cin, cout in shapes:
         s = conv_train.wgrad_f32_splits(batch, h, w, cin, cout, 132)
         blocks = conv_train.wgrad_f32_out_tiles(cin, cout)
-        tiles = conv_train.wgrad_f32_pixel_tiles(batch, h, w, cin, cout)
+        tiles = conv_train.wgrad_f32_pixel_tiles(batch, h, w)
         assert 1 <= s <= tiles
-        if conv_train.wgrad_f32_route(cin, cout) != "f32_narrow":
-            last = s * blocks % 132
-            assert last == 0 or last >= 0.9 * 132 or s == tiles or \
-                s == max(1, 2 * 132 // blocks), (h, w, cin, cout, s)
-        else:
-            assert s * blocks >= min(4 * 132, tiles * blocks)
+        last = s * blocks % 132
+        waves = 1 if conv_train.wgrad_f32_route(cin, cout) == "f32_packed" \
+            else 2
+        assert last == 0 or last >= 0.9 * 132 or s == tiles or \
+            s == max(1, waves * 132 // blocks), (h, w, cin, cout, s)

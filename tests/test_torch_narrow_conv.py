@@ -414,13 +414,20 @@ def test_chip_smoke_drives_the_narrow_path():
         assert fused_conv.conv_path(co, ci) == "narrow"
     assert all(fused_conv.conv_path(ci, co) == "narrow"
                for ci, co in ((64, 150), (36, 12), (256, 12), (3, 36)))
-    # the no-tile branch runs on the card: 350->12 on the first design,
-    # its dx 12->350 on the new one
-    (*_, ci, co), = smoke.NARROW_NO_TILE
-    assert fused_conv.conv_path(ci, co) == fused_conv.conv_path(co, ci) \
-        == "narrow"
-    assert fused_conv.narrow_fwd_plan(ci, co) is None
-    assert fused_conv.narrow_fwd_plan(co, ci) is not None
+    # the no-tile branch runs on the card: 350->12 and SegNet 43/64's
+    # 344->172 (b8, at its 45x60 stage) on the first design, their dx
+    # 12->350 and 172->344 on the new one
+    assert [c[3:] for c in smoke.NARROW_NO_TILE] == [(350, 12), (344, 172)]
+    for *_, ci, co in smoke.NARROW_NO_TILE:
+        assert fused_conv.conv_path(ci, co) == fused_conv.conv_path(co, ci) \
+            == "narrow"
+        assert fused_conv.narrow_fwd_plan(ci, co) is None
+        assert fused_conv.narrow_fwd_plan(co, ci) is not None
+    segnet = smoke.bench.block_shapes("segnet", spec=__import__(
+        "pytorch_camvid_tpu_torch.models.segnet",
+        fromlist=["scaled_spec"]).scaled_spec(3, 12, 43 / 64))
+    assert (45, 60, 344, 172) in segnet
+    assert smoke.NARROW_NO_TILE[1][:3] == (smoke.BATCH, 45, 60)
 
 
 @pytest.mark.parametrize("name", sorted(
